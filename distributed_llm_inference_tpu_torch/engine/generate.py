@@ -1,0 +1,183 @@
+"""Single-device decode: prefill, chunked extend and the early-exit decode
+loop (the solo half of the JAX package's engine/generate.py in PyTorch).
+
+  * **prefill** runs the (bucket-padded) prompt chunk and samples the
+    first token from the logits at the last valid position;
+  * **extend** runs a full chunk of a long prompt into the cache with no
+    logits (chunked prefill);
+  * **decode** is a Python loop of T=1 steps that exits as soon as every
+    row is finished, with the JAX loop's output contract: tokens
+    [B, max_steps] pad-masked after a stop token (the stop token itself
+    excluded), n_gen [B] counting the tokens this loop emitted.
+
+The cache is updated in place; each function returns it for symmetry
+with the JAX API. Random draws come from one `torch.Generator` per
+request.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import ModelConfig
+from ..models import api as M
+from ..ops.sampling import sample_token
+
+
+class SamplingParams(NamedTuple):
+    """Sampling knobs, in ops/sampling.sample_token's positional order."""
+
+    temperature: float
+    top_k: int  # <= 0 disables
+    top_p: float  # >= 1 disables
+    greedy: bool
+    min_p: float  # <= 0 disables
+    rep_penalty: float  # 1.0 disables
+    freq_penalty: float  # 0.0 disables (OpenAI)
+    pres_penalty: float  # 0.0 disables (OpenAI)
+
+
+def default_sampling(
+    temperature=0.7, top_k=50, top_p=0.9, greedy=False, min_p=0.0,
+    rep_penalty=1.0, freq_penalty=0.0, pres_penalty=0.0,
+) -> SamplingParams:
+    return SamplingParams(
+        float(temperature), int(top_k), float(top_p), bool(greedy),
+        float(min_p), float(rep_penalty), float(freq_penalty),
+        float(pres_penalty),
+    )
+
+
+def count_update(counts: torch.Tensor, tokens: torch.Tensor,
+                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Increment tokens [B]'s generated-count in counts [B, V] (OpenAI
+    penalty state); active [B] masks rows whose emission did not happen."""
+    V = counts.shape[-1]
+    hit = (torch.arange(V, device=counts.device)[None, :] == tokens[:, None])
+    hit = hit.to(counts.dtype)
+    if active is not None:
+        hit = hit * active.to(counts.dtype)[:, None]
+    return counts + hit
+
+
+def presence_update(presence: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mark tokens [B] as seen in presence [B, V] (repetition penalty)."""
+    V = presence.shape[-1]
+    return presence | (torch.arange(V, device=presence.device)[None, :] == tokens[:, None])
+
+
+def stop_mask(cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """True where a token is a stop token (eos or any cfg.stop_token_ids)."""
+    m = tokens == cfg.eos_token_id
+    for t in cfg.stop_token_ids:
+        m = m | (tokens == t)
+    return m
+
+
+def _forward_step(cfg, params, tokens, cache, pos, valid_start=None):
+    """One chunk through the stack; logits only at the final position."""
+    x = M.embed(cfg, params, tokens, pos)
+    x, cache = M.forward_layers(cfg, params["layers"], x, cache, pos,
+                                valid_start=valid_start)
+    return M.unembed(cfg, params, x[:, -1:, :])[:, 0, :], cache
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, tokens, prompt_len: int, cache,
+            generator, sampling: SamplingParams, valid_start=None, pos: int = 0,
+            presence=None, bias=None):
+    """Run the padded prompt (or the final chunk of a chunked prefill) at
+    offset `pos` and sample the first token.
+
+    tokens [B, T_bucket] right-padded (or LEFT-padded for ragged batches,
+    with valid_start [B]); prompt_len: valid tokens IN THIS CHUNK.
+    presence [B, V]: the prompt's token set (repetition penalty; None =
+    off); bias [V] or [B, V]: OpenAI logit_bias (None = off).
+    Returns (first_token [B], logits [B, V], cache)."""
+    x = M.embed(cfg, params, tokens, pos)
+    x, cache = M.forward_layers(cfg, params["layers"], x, cache, pos,
+                                valid_start=valid_start)
+    last = x[:, prompt_len - 1:prompt_len, :]
+    logits = M.unembed(cfg, params, last)[:, 0, :]
+    first = sample_token(generator, logits, *sampling, presence=presence, bias=bias)
+    return first, logits, cache
+
+
+@torch.no_grad()
+def extend(cfg: ModelConfig, params, tokens, pos: int, cache):
+    """Chunked-prefill step: a FULL prompt chunk at offset `pos` into the
+    cache, producing no logits."""
+    x = M.embed(cfg, params, tokens, pos)
+    _, cache = M.forward_layers(cfg, params["layers"], x, cache, pos)
+    return cache
+
+
+@torch.no_grad()
+def decode(
+    cfg: ModelConfig,
+    params,
+    first_token: torch.Tensor,
+    cache,
+    start_pos: int,
+    limit: int,
+    generator,
+    sampling: SamplingParams,
+    valid_start=None,
+    presence=None,
+    counts=None,
+    bias=None,
+    *,
+    max_steps: int,
+    with_logprobs: bool = False,
+):
+    """Early-exit decode loop after prefill.
+
+    first_token [B] (already counted as generated token #0 unless a stop
+    token); start_pos: where first_token's K/V lands; limit: steps this
+    call (clamped to max_steps). Returns (tokens [B, max_steps], n_gen
+    [B], cache), plus per-step log-probabilities [B, max_steps] of the
+    emitted tokens under the raw model distribution when with_logprobs.
+    The loop reads `finished` on the host once per step to exit early."""
+    B = first_token.shape[0]
+    device = first_token.device
+    limit = min(int(limit), int(max_steps))
+    pad = cfg.pad_token_id
+    out = torch.full((B, max_steps), pad, dtype=torch.long, device=device)
+    lps = torch.zeros((B, max_steps if with_logprobs else 1),
+                      dtype=torch.float32, device=device)
+    n_gen = torch.zeros((B,), dtype=torch.long, device=device)
+    finished = stop_mask(cfg, first_token)
+    token = torch.where(finished, pad, first_token)
+    pos = int(start_pos)
+    for step in range(limit):
+        if bool(finished.all()):
+            break
+        logits, cache = _forward_step(cfg, params, token[:, None], cache, pos,
+                                      valid_start)
+        nxt = sample_token(generator, logits, *sampling, presence=presence,
+                           counts=counts, bias=bias)
+        if presence is not None:
+            presence = presence_update(presence, nxt)
+        finished = finished | stop_mask(cfg, nxt)
+        if counts is not None:
+            counts = count_update(counts, nxt, ~finished)
+        out[:, step] = torch.where(finished, pad, nxt)
+        if with_logprobs:
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            lps[:, step] = torch.gather(logp, -1, nxt[:, None])[:, 0]
+        n_gen += (~finished).long()
+        token = torch.where(finished, pad, nxt)
+        pos += 1
+    if with_logprobs:
+        return out, n_gen, cache, lps
+    return out, n_gen, cache
+
+
+def pick_bucket(buckets: tuple, n: int) -> int:
+    """Smallest bucket >= n."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"length {n} exceeds largest bucket {buckets[-1]}")

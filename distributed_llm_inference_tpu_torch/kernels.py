@@ -1,0 +1,89 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source `csrc/<name>.cu` exposes a plain C interface and is
+compiled by `nvcc` for Hopper (`sm_90a`) into a shared library under the
+repository's `build/` directory, then loaded with `ctypes`. Nothing is
+compiled when a module is imported: a wrapper calls `load_library` the
+first time it launches its kernel, and `build` compiles any number of
+sources at once, one `nvcc` process each, all started together.
+
+Libraries are named by a digest of their source and flags, so an edited
+source rebuilds and an unchanged one is reused across processes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under /usr/local/cuda: the CUDA "
+            "kernels build only where the CUDA toolkit is installed"
+        )
+    return path
+
+
+def sources() -> list:
+    """The names of every kernel source under csrc/ (`<name>.cu`)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    """Where `csrc/<name>.cu` builds to, keyed by source and flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names) -> dict:
+    """Compile every named source not built yet, in parallel. Returns
+    {name: library path}; the compiler's output (register and shared
+    memory use per kernel, from `-Xptxas -v`) lands beside each library
+    as `<library>.log`. Raises with the compiler's output on failure."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in names}
+    todo = [name for name, out in paths.items() if not out.exists()]
+    nvcc = _nvcc() if todo else None
+    procs = {}
+    for name in todo:
+        out = paths[name]
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        log = open(out.with_name(out.name + ".log"), "w")
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log, tmp)
+    failed = []
+    for name, (proc, log, tmp) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, paths[name])  # atomic: readers never see a partial file
+        else:
+            failed.append(name)
+    if failed:
+        logs = "\n".join(
+            paths[n].with_name(paths[n].name + ".log").read_text() for n in failed
+        )
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return paths
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    return ctypes.CDLL(str(build([name])[name]))

@@ -1,0 +1,377 @@
+"""Llama-family decoder in PyTorch: the dense branch of the JAX package's
+models/llama.py.
+
+Parameters are a plain dictionary with the JAX package's layout, per-layer
+tensors STACKED on a leading layer axis (models/bridge.py carries the JAX
+pytree over as it is), and `forward_layers` is a Python loop over that
+axis where the JAX package scans. The KV cache has the same stacked
+layout and is written in place.
+
+Params (L = n_layers, D = dim, H/KV heads, Dh = head_dim, F = ffn_dim,
+V = vocab):
+  embed       [V, D]
+  layers:
+    attn_norm [L, D]      mlp_norm [L, D]
+    wq [L, D, H*Dh]  wk [L, D, KV*Dh]  wv [L, D, KV*Dh]  wo [L, H*Dh, D]
+    w_gate [L, D, F]  w_up [L, D, F]  w_down [L, F, D]
+    (+ bq/bk/bv, q_norm/k_norm, attn_post_norm/mlp_post_norm,
+       window_flag, per the config flags)
+  final_norm  [D]
+  lm_head     [D, V]   (absent when tie_embeddings)
+
+Not ported yet, each raising NotImplementedError that names its ROADMAP
+item: the MoE FFN, paged LoRA deltas, tensor-parallel psums, pipeline
+update gates, per-row (continuous-batching) positions and the int8 cache.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from ..ops.attention import attend, causal_mask, ragged_causal_mask, update_kv_cache
+from ..ops.flash_attention import flash_attend
+from ..ops.norms import rms_norm
+from ..ops.rope import apply_rope, rope_cos_sin
+
+Params = dict
+KVCache = dict  # {"k": [L, B, KV, S, Dh], "v": [L, B, KV, S, Dh]}
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP Queue 1 item {item})"
+    )
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Reject the config features this slice does not port."""
+    if cfg.n_experts:
+        raise _not_ported("the MoE FFN (models/llama.moe_ffn)", "7")
+    if cfg.kv_quant is not None:
+        raise _not_ported("the int8 KV cache (ops/kv_quant.py)", "4")
+    if cfg.quant is not None:
+        raise _not_ported("weight quantization (ops/quant.py)", "4")
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
+    """Random weights (scaled normal, as the JAX init_params draws them),
+    made on the generator's device in cfg.dtype. The numbers differ from
+    the JAX package's for the same seed: the two RNGs differ."""
+    check_supported(cfg)
+    device = generator.device
+    dt = cfg.torch_dtype
+    L, D, Fd, V = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.vocab_size
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, device=device)
+        return (x * scale).to(dt)
+
+    def norm_init(shape):
+        # unit-offset norms (Gemma) multiply by (1 + w): neutral init is 0
+        fill = torch.zeros if cfg.norm_unit_offset else torch.ones
+        return fill(shape, dtype=dt, device=device)
+
+    s = D ** -0.5
+    layers = {
+        "wq": normal((L, D, H * Dh), s),
+        "wk": normal((L, D, KV * Dh), s),
+        "wv": normal((L, D, KV * Dh), s),
+        "wo": normal((L, H * Dh, D), s),
+        "w_gate": normal((L, D, Fd), s),
+        "w_up": normal((L, D, Fd), s),
+        "w_down": normal((L, Fd, D), Fd ** -0.5),
+    }
+    params = {"embed": normal((V, D), 0.02), "layers": layers,
+              "final_norm": norm_init((D,))}
+    if cfg.pre_norms:
+        layers["attn_norm"] = norm_init((L, D))
+        layers["mlp_norm"] = norm_init((L, D))
+    if cfg.post_norms:
+        layers["attn_post_norm"] = norm_init((L, D))
+        layers["mlp_post_norm"] = norm_init((L, D))
+    wf = make_window_flags(cfg, device)
+    if wf is not None:
+        layers["window_flag"] = wf
+    if cfg.attn_qkv_bias:
+        layers["bq"] = torch.zeros((L, H * Dh), dtype=dt, device=device)
+        layers["bk"] = torch.zeros((L, KV * Dh), dtype=dt, device=device)
+        layers["bv"] = torch.zeros((L, KV * Dh), dtype=dt, device=device)
+    if cfg.use_qk_norm:
+        q_dim, k_dim = (H * Dh, KV * Dh) if cfg.qk_norm_dim == "proj" else (Dh, Dh)
+        layers["q_norm"] = norm_init((L, q_dim))
+        layers["k_norm"] = norm_init((L, k_dim))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((D, V), s)
+    return params
+
+
+def make_window_flags(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
+    """[L] float per-layer sliding-window flag for mixed attention
+    patterns (Gemma-2 "even": even layers slide; Gemma-3: an explicit
+    layer_types tuple), or None when the pattern is uniform."""
+    if cfg.attn_window is None:
+        return None
+    if cfg.attn_window_layer_types is not None:
+        return torch.tensor(cfg.attn_window_layer_types, dtype=torch.float32,
+                            device=device)
+    if cfg.attn_window_pattern != "even":
+        return None
+    idx = torch.arange(cfg.n_layers, device=device)
+    return (idx % 2 == 0).float()
+
+
+def kernel_window(cfg: ModelConfig, window_flag):
+    """This layer's window for the attention kernel: (static, dynamic),
+    exactly one live. Uniform configs keep the static cfg.attn_window;
+    mixed patterns give a one-element int32 device tensor — the layer's
+    width when flagged, -1 (= full causal) otherwise — so the kernel
+    reads it on the device and the host never syncs on the flag."""
+    if window_flag is None:
+        return cfg.attn_window, None
+    width = torch.where(window_flag > 0, cfg.attn_window, -1)
+    return None, width.to(torch.int32).reshape(1)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int] = None,
+                  n_layers: Optional[int] = None, device=None) -> KVCache:
+    """Zeroed static-shape KV cache, stacked on the layer axis."""
+    if cfg.kv_quant is not None:
+        raise _not_ported("the int8 KV cache (ops/kv_quant.py)", "4")
+    S = max_seq or cfg.max_seq_len
+    L = n_layers if n_layers is not None else cfg.n_layers
+    shape = (L, batch, cfg.n_kv_heads, S, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+    }
+
+
+def default_attn_hook(cfg, q, k, v, cache_k, cache_v, pos, mask, update_gate=None,
+                      valid_start=None, window_flag=None):
+    """Cache write + attention for the dense single-device case. Returns
+    (attn [B,T,H,Dh], cache_k, cache_v); the caches are updated in place.
+
+    attn_impl="kernel" routes T>1 chunks (prefill, chunked extend) to the
+    flash kernel; T=1 decode always takes the plain einsum, the gate the
+    JAX package keeps for its Pallas kernel."""
+    if update_gate is not None:
+        raise _not_ported("pipeline update gates (parallel/)", "9")
+    update_kv_cache(cache_k, cache_v, k, v, pos)
+    if cfg.attn_impl == "kernel" and q.shape[1] > 1:
+        w, wd = kernel_window(cfg, window_flag)
+        attn = flash_attend(
+            q, cache_k, cache_v, pos, valid_start, wd, window=w,
+            scale=cfg.query_scale, softcap=cfg.attn_softcap,
+        )
+    else:
+        attn = attend(
+            q, cache_k, cache_v, mask,
+            scale=cfg.query_scale, softcap=cfg.attn_softcap,
+        )
+    return attn, cache_k, cache_v
+
+
+def _gelu_tanh(x):
+    """gelu_pytorch_tanh (Gemma's hidden activation)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def decoder_layer(
+    cfg: ModelConfig,
+    lp: Params,
+    x: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    pos: int,
+    cos,
+    sin,
+    mask,
+    update_gate=None,
+    tp_axis=None,
+    attn_hook=None,
+    valid_start: Optional[torch.Tensor] = None,
+    ep_axis=None,
+    lora_pages=None,
+):
+    """One decoder block on a chunk x [B,T,D] at offset `pos`; lp holds
+    this layer's params (no leading L axis). Returns (x, cache_k, cache_v).
+
+    Covers every dense config flag: qkv bias (Qwen2), qk-norm per head
+    (Qwen3/Gemma-3) or over the projection (OLMo-2), pre/post norms
+    (Gemma-2 sandwich, OLMo-2 post-only), unit-offset norms, softcaps,
+    static or per-layer windows, dual RoPE tables, Granite multipliers.
+    """
+    if tp_axis is not None:
+        raise _not_ported("tensor parallelism (parallel/partition.py)", "9")
+    if ep_axis is not None or cfg.n_experts:
+        raise _not_ported("the MoE FFN (models/llama.moe_ffn)", "7")
+    if lora_pages is not None:
+        raise _not_ported("paged LoRA adapters (engine/adapters.py)", "5")
+    B, T, D = x.shape
+    Dh = cfg.head_dim
+    H = lp["wq"].shape[-1] // Dh
+    KV = lp["wk"].shape[-1] // Dh
+    uo = cfg.norm_unit_offset
+
+    if isinstance(mask, tuple):
+        # Gemma-2/3 mixed attention: (full, windowed) masks built once per
+        # chunk; this layer's window_flag picks its own
+        mask_full, mask_win = mask
+        mask = torch.where(lp["window_flag"] > 0, mask_win, mask_full)
+
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps, unit_offset=uo) \
+        if cfg.pre_norms else x
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if cfg.attn_qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    if cfg.use_qk_norm and cfg.qk_norm_dim == "proj":
+        # OLMo-2: RMSNorm over the WHOLE projection before the head split
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps, unit_offset=uo)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps, unit_offset=uo)
+    q = q.reshape(B, T, H, Dh)
+    k = k.reshape(B, T, KV, Dh)
+    v = v.reshape(B, T, KV, Dh)
+    if cfg.use_qk_norm and cfg.qk_norm_dim == "head":
+        # Qwen3/Gemma-3: per-head RMSNorm over head_dim, before RoPE
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps, unit_offset=uo)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps, unit_offset=uo)
+    if isinstance(cos, tuple):
+        # Gemma-3 dual RoPE: sliding layers use the local table
+        flag = lp["window_flag"] > 0
+        cos = torch.where(flag, cos[1], cos[0])
+        sin = torch.where(flag, sin[1], sin[0])
+    q, k = apply_rope(q, k, cos, sin)
+
+    hook = attn_hook or default_attn_hook
+    attn, cache_k, cache_v = hook(
+        cfg, q, k, v, cache_k, cache_v, pos, mask, None, valid_start,
+        lp.get("window_flag"),
+    )
+    attn_out = attn.reshape(B, T, H * Dh) @ lp["wo"]
+    if cfg.post_norms:
+        attn_out = rms_norm(attn_out, lp["attn_post_norm"], cfg.norm_eps, unit_offset=uo)
+    if cfg.residual_multiplier is not None:  # Granite
+        attn_out = attn_out * torch.tensor(cfg.residual_multiplier, dtype=x.dtype)
+    x = x + attn_out
+
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps, unit_offset=uo) \
+        if cfg.pre_norms else x
+    act = F.silu if cfg.act == "silu" else _gelu_tanh
+    gate = act((h @ lp["w_gate"]).float()).to(h.dtype)
+    mlp_out = (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    if cfg.post_norms:
+        mlp_out = rms_norm(mlp_out, lp["mlp_post_norm"], cfg.norm_eps, unit_offset=uo)
+    if cfg.residual_multiplier is not None:  # Granite
+        mlp_out = mlp_out * torch.tensor(cfg.residual_multiplier, dtype=x.dtype)
+    x = x + mlp_out
+    return x, cache_k, cache_v
+
+
+def forward_layers(
+    cfg: ModelConfig,
+    layers: Params,
+    x: torch.Tensor,
+    cache: KVCache,
+    pos: int,
+    update_gate=None,
+    tp_axis=None,
+    attn_hook=None,
+    valid_start: Optional[torch.Tensor] = None,
+    ep_axis=None,
+    attn_seq_len: Optional[int] = None,
+    lora_pages=None,
+):
+    """Run the stacked layers over a chunk, one Python iteration per
+    layer. x: [B, T, D]; cache k/v: [L, B, KV, S, Dh] (written in place);
+    pos: the chunk's first absolute position, an int. valid_start:
+    optional int32 [B] — first real slot per row of a left-padded batch.
+    Returns (x, cache)."""
+    if update_gate is not None:
+        raise _not_ported("pipeline update gates (parallel/)", "9")
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        raise _not_ported(
+            "per-row positions (continuous batching, engine/continuous.py)", "1"
+        )
+    pos = int(pos)
+    T = x.shape[1]
+    S = attn_seq_len if attn_seq_len is not None else cache["k"].shape[3]
+    device = x.device
+    positions = pos + torch.arange(T, dtype=torch.int32, device=device)
+    cos, sin = rope_cos_sin(
+        positions, cfg.head_dim, cfg.rope_theta,
+        scaling=cfg.rope_scaling,
+        scaling_factor=cfg.rope_scaling_factor,
+        low_freq_factor=cfg.rope_low_freq_factor,
+        high_freq_factor=cfg.rope_high_freq_factor,
+        original_max_len=cfg.rope_original_max_len,
+    )
+    if cfg.rope_local_theta is not None:
+        # Gemma-3: sliding layers rotate with their own UNSCALED local theta
+        cos_l, sin_l = rope_cos_sin(positions, cfg.head_dim, cfg.rope_local_theta)
+        cos, sin = (cos, cos_l), (sin, sin_l)
+
+    def make_mask(window):
+        if valid_start is None:
+            return causal_mask(pos, T, S, window, device=device)
+        return ragged_causal_mask(pos, T, S, valid_start, window)
+
+    if cfg.attn_impl == "kernel" and T > 1 and attn_hook is None:
+        mask = None  # the kernel derives its mask from pos / valid_start / window
+    elif cfg.attn_window is not None and (
+        cfg.attn_window_pattern == "even"
+        or cfg.attn_window_layer_types is not None
+    ):
+        # Gemma-2/3 mixed attention: both masks built once per chunk
+        mask = (make_mask(None), make_mask(cfg.attn_window))
+    else:
+        mask = make_mask(cfg.attn_window)
+
+    for i in range(cache["k"].shape[0]):
+        lp = {name: w[i] for name, w in layers.items()}
+        x, _, _ = decoder_layer(
+            cfg, lp, x, cache["k"][i], cache["v"][i], pos, cos, sin, mask,
+            tp_axis=tp_axis, attn_hook=attn_hook, valid_start=valid_start,
+            ep_axis=ep_axis, lora_pages=lora_pages,
+        )
+    return x, cache
+
+
+def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor, pos=0) -> torch.Tensor:
+    """Token embedding lookup [B, T] -> [B, T, D]; Gemma scales by
+    sqrt(dim) and Granite by embed_multiplier, in the activation dtype."""
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.dim ** 0.5, dtype=x.dtype)
+    if cfg.embed_multiplier is not None:
+        x = x * torch.tensor(cfg.embed_multiplier, dtype=x.dtype)
+    return x
+
+
+def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Final RMSNorm + LM head: [B, T, D] -> [B, T, V] fp32 logits, with
+    Gemma-2's final softcap and Granite's logits divider."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
+                 unit_offset=cfg.norm_unit_offset)
+    if cfg.tie_embeddings:
+        logits = (x @ params["embed"].T).float()
+    else:
+        logits = (x @ params["lm_head"]).float()
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    if cfg.logits_divider is not None:
+        logits = logits / cfg.logits_divider
+    return logits
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            cache: KVCache, pos: int):
+    """Full-model chunk forward: tokens [B,T] at offset pos -> (logits
+    [B,T,V] fp32, cache). One call == prefill; a T=1 call == decode step."""
+    x = embed(cfg, params, tokens)
+    x, cache = forward_layers(cfg, params["layers"], x, cache, pos)
+    return unembed(cfg, params, x), cache

@@ -1,0 +1,290 @@
+"""Model registry: named presets, a copy of the JAX package's registry.
+
+The port keeps its own copy (importing the JAX package would import JAX),
+with the same names and fields, so `tinyllama-1.1b` and the `test-*-tiny`
+presets mean the same architecture in both packages.
+"""
+
+from __future__ import annotations
+
+from ..config import ModelConfig
+
+_REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_model_config(name: str, **overrides) -> ModelConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model '{name}'; known: {sorted(_REGISTRY)}")
+    cfg = _REGISTRY[name]
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def list_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+# --- Llama family ----------------------------------------------------------
+register(ModelConfig(
+    name="tinyllama-1.1b", arch="llama", vocab_size=32000, dim=2048,
+    n_layers=22, n_heads=32, n_kv_heads=4, ffn_dim=5632, max_seq_len=2048,
+    rope_theta=10000.0, eos_token_id=2, bos_token_id=1,
+))
+register(ModelConfig(
+    name="llama2-7b", arch="llama", vocab_size=32000, dim=4096,
+    n_layers=32, n_heads=32, n_kv_heads=32, ffn_dim=11008, max_seq_len=4096,
+    rope_theta=10000.0, eos_token_id=2, bos_token_id=1,
+))
+register(ModelConfig(
+    name="llama2-13b", arch="llama", vocab_size=32000, dim=5120,
+    n_layers=40, n_heads=40, n_kv_heads=40, ffn_dim=13824, max_seq_len=4096,
+    rope_theta=10000.0, eos_token_id=2, bos_token_id=1,
+))
+register(ModelConfig(
+    name="llama3-8b", arch="llama", vocab_size=128256, dim=4096,
+    n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336, max_seq_len=8192,
+    rope_theta=500000.0, eos_token_id=128001, bos_token_id=128000,
+))
+# Llama-3.1/3.2: "llama3" rope_scaling stretches the 8192-token training
+# context to the checkpoints' 131072 max positions; the engine's
+# EngineConfig.max_seq_len still bounds the actual KV-cache allocation.
+register(ModelConfig(
+    name="llama3.1-8b", arch="llama", vocab_size=128256, dim=4096,
+    n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336, max_seq_len=131072,
+    rope_theta=500000.0, rope_scaling="llama3", rope_scaling_factor=8.0,
+    eos_token_id=128001, bos_token_id=128000,
+))
+# Llama-3.1-70B: the BASELINE-class large config for pp=8/tp meshes.
+# Llama-3.3-70B is the identical architecture with newer instruct data —
+# derived by replace(name=...) so the equivalence holds by construction.
+_l31_70b = register(ModelConfig(
+    name="llama3.1-70b", arch="llama", vocab_size=128256, dim=8192,
+    n_layers=80, n_heads=64, n_kv_heads=8, ffn_dim=28672, max_seq_len=131072,
+    rope_theta=500000.0, rope_scaling="llama3", rope_scaling_factor=8.0,
+    eos_token_id=128001, bos_token_id=128000,
+))
+register(_l31_70b.replace(name="llama3.3-70b"))
+register(ModelConfig(
+    name="llama3.2-1b", arch="llama", vocab_size=128256, dim=2048,
+    n_layers=16, n_heads=32, n_kv_heads=8, ffn_dim=8192, max_seq_len=131072,
+    rope_theta=500000.0, rope_scaling="llama3", rope_scaling_factor=32.0,
+    tie_embeddings=True, eos_token_id=128001, bos_token_id=128000,
+))
+register(ModelConfig(
+    name="llama3.2-3b", arch="llama", vocab_size=128256, dim=3072,
+    n_layers=28, n_heads=24, n_kv_heads=8, ffn_dim=8192, max_seq_len=131072,
+    rope_theta=500000.0, rope_scaling="llama3", rope_scaling_factor=32.0,
+    tie_embeddings=True, eos_token_id=128001, bos_token_id=128000,
+))
+
+# --- Mistral family (llama arch + sliding-window attention) ---------------
+register(ModelConfig(
+    name="mistral-7b", arch="llama", vocab_size=32000, dim=4096,
+    n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336, max_seq_len=8192,
+    rope_theta=10000.0, attn_window=4096, eos_token_id=2, bos_token_id=1,
+))
+register(ModelConfig(
+    name="mistral-7b-v0.2", arch="llama", vocab_size=32000, dim=4096,
+    n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336, max_seq_len=32768,
+    rope_theta=1000000.0, eos_token_id=2, bos_token_id=1,
+))
+
+# --- Mixtral family (llama arch + sparse MoE FFN) -------------------------
+register(ModelConfig(
+    name="mixtral-8x7b", arch="llama", vocab_size=32000, dim=4096,
+    n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336, max_seq_len=32768,
+    rope_theta=1000000.0, n_experts=8, n_experts_per_tok=2,
+    eos_token_id=2, bos_token_id=1,
+))
+
+# --- Qwen2 family (llama arch + q/k/v projection biases) ------------------
+_qwen2_7b = register(ModelConfig(
+    name="qwen2-7b", arch="llama", vocab_size=152064, dim=3584,
+    n_layers=28, n_heads=28, n_kv_heads=4, ffn_dim=18944, max_seq_len=32768,
+    norm_eps=1e-6, rope_theta=1000000.0, attn_qkv_bias=True,
+    eos_token_id=151645, bos_token_id=151643, pad_token_id=151643,
+))
+# Qwen2.5-7B: the Qwen2-7B architecture unchanged (same dims, GQA,
+# qkv-bias, 1e6 theta) with refreshed training — derived, not retyped.
+register(_qwen2_7b.replace(name="qwen2.5-7b"))
+register(ModelConfig(
+    name="qwen2-0.5b", arch="llama", vocab_size=151936, dim=896,
+    n_layers=24, n_heads=14, n_kv_heads=2, ffn_dim=4864, max_seq_len=32768,
+    norm_eps=1e-6, rope_theta=1000000.0, attn_qkv_bias=True,
+    tie_embeddings=True,
+    eos_token_id=151645, bos_token_id=151643, pad_token_id=151643,
+))
+
+# --- Qwen3 (llama arch + per-head q/k RMSNorm, explicit head_dim, no
+# qkv biases) — HF transformers models/qwen3 ---
+register(ModelConfig(
+    name="qwen3-0.6b", arch="llama", vocab_size=151936, dim=1024,
+    n_layers=28, n_heads=16, n_kv_heads=8, ffn_dim=3072, max_seq_len=40960,
+    norm_eps=1e-6, rope_theta=1000000.0, head_dim_override=128,
+    use_qk_norm=True, tie_embeddings=True,
+    eos_token_id=151645, bos_token_id=151643, pad_token_id=151643,
+))
+register(ModelConfig(
+    name="qwen3-30b-a3b", arch="llama", vocab_size=151936, dim=2048,
+    n_layers=48, n_heads=32, n_kv_heads=4, ffn_dim=768, max_seq_len=40960,
+    norm_eps=1e-6, rope_theta=1000000.0, head_dim_override=128,
+    use_qk_norm=True, n_experts=128, n_experts_per_tok=8,
+    moe_renormalize=True,
+    eos_token_id=151645, bos_token_id=151643, pad_token_id=151643,
+))
+register(ModelConfig(
+    name="qwen3-8b", arch="llama", vocab_size=151936, dim=4096,
+    n_layers=36, n_heads=32, n_kv_heads=8, ffn_dim=12288, max_seq_len=40960,
+    norm_eps=1e-6, rope_theta=1000000.0, head_dim_override=128,
+    use_qk_norm=True,
+    eos_token_id=151645, bos_token_id=151643, pad_token_id=151643,
+))
+
+# --- OLMo-2 (post-norm residuals, whole-projection qk-norm) ---
+register(ModelConfig(
+    name="olmo2-7b", arch="llama", vocab_size=100352, dim=4096,
+    n_layers=32, n_heads=32, n_kv_heads=32, ffn_dim=11008,
+    max_seq_len=4096, norm_eps=1e-6, rope_theta=500000.0,
+    pre_norms=False, post_norms=True, use_qk_norm=True, qk_norm_dim="proj",
+    eos_token_id=100257, bos_token_id=100257, pad_token_id=100277,
+))
+
+# --- Gemma-3 (gemma-2 bones minus softcaps, plus unit-offset qk-norm,
+# 5-sliding:1-full layer pattern, dual local/global RoPE) ---
+register(ModelConfig(
+    name="gemma3-1b", arch="llama", vocab_size=262144, dim=1152,
+    n_layers=26, n_heads=4, n_kv_heads=1, ffn_dim=6912, max_seq_len=32768,
+    norm_eps=1e-6, rope_theta=1000000.0, rope_local_theta=10000.0,
+    head_dim_override=256, norm_unit_offset=True, act="gelu_tanh",
+    embed_scale=True, post_norms=True, use_qk_norm=True,
+    query_scale_override=256.0, attn_window=512,
+    attn_window_layer_types=tuple(
+        1 if (i % 6) != 5 else 0 for i in range(26)
+    ),
+    tie_embeddings=True, chat_template="gemma",
+    eos_token_id=1, stop_token_ids=(106,),  # <end_of_turn>
+    bos_token_id=2, pad_token_id=0,
+))
+
+# --- Gemma family (llama arch + unit-offset norms / GeGLU / embed scale) --
+register(ModelConfig(
+    name="gemma-2b", arch="llama", vocab_size=256000, dim=2048,
+    n_layers=18, n_heads=8, n_kv_heads=1, ffn_dim=16384, max_seq_len=8192,
+    norm_eps=1e-6, rope_theta=10000.0, head_dim_override=256,
+    norm_unit_offset=True, act="gelu_tanh", embed_scale=True,
+    tie_embeddings=True, chat_template="gemma",
+    eos_token_id=1, stop_token_ids=(107,),  # <end_of_turn> (gemma-it)
+    bos_token_id=2, pad_token_id=0,
+))
+register(ModelConfig(
+    name="gemma-7b", arch="llama", vocab_size=256000, dim=3072,
+    n_layers=28, n_heads=16, n_kv_heads=16, ffn_dim=24576, max_seq_len=8192,
+    norm_eps=1e-6, rope_theta=10000.0, head_dim_override=256,
+    norm_unit_offset=True, act="gelu_tanh", embed_scale=True,
+    tie_embeddings=True, chat_template="gemma",
+    eos_token_id=1, stop_token_ids=(107,),  # <end_of_turn> (gemma-it)
+    bos_token_id=2, pad_token_id=0,
+))
+# Gemma-2: sandwich norms, logit softcaps, alternating sliding window
+register(ModelConfig(
+    name="gemma2-2b", arch="llama", vocab_size=256000, dim=2304,
+    n_layers=26, n_heads=8, n_kv_heads=4, ffn_dim=9216, max_seq_len=8192,
+    norm_eps=1e-6, rope_theta=10000.0, head_dim_override=256,
+    norm_unit_offset=True, act="gelu_tanh", embed_scale=True,
+    post_norms=True, attn_softcap=50.0, final_softcap=30.0,
+    query_scale_override=256.0, attn_window=4096, attn_window_pattern="even",
+    tie_embeddings=True, chat_template="gemma",
+    eos_token_id=1, stop_token_ids=(107,),  # <end_of_turn> (gemma-it)
+    bos_token_id=2, pad_token_id=0,
+))
+register(ModelConfig(
+    name="gemma2-9b", arch="llama", vocab_size=256000, dim=3584,
+    n_layers=42, n_heads=16, n_kv_heads=8, ffn_dim=14336, max_seq_len=8192,
+    norm_eps=1e-6, rope_theta=10000.0, head_dim_override=256,
+    norm_unit_offset=True, act="gelu_tanh", embed_scale=True,
+    post_norms=True, attn_softcap=50.0, final_softcap=30.0,
+    query_scale_override=256.0, attn_window=4096, attn_window_pattern="even",
+    tie_embeddings=True, chat_template="gemma",
+    eos_token_id=1, stop_token_ids=(107,),  # <end_of_turn> (gemma-it)
+    bos_token_id=2, pad_token_id=0,
+))
+
+# --- Phi-3 family (llama arch; HF fuses qkv / gate_up, split at convert) --
+register(ModelConfig(
+    name="phi3-mini-4k", arch="llama", vocab_size=32064, dim=3072,
+    n_layers=32, n_heads=32, n_kv_heads=32, ffn_dim=8192, max_seq_len=4096,
+    norm_eps=1e-5, rope_theta=10000.0, attn_window=2047,
+    chat_template="phi3",
+    eos_token_id=32000, stop_token_ids=(32007,),  # <|endoftext|>, <|end|>
+    bos_token_id=1, pad_token_id=32000,
+))
+
+# --- GPT-2 family ----------------------------------------------------------
+register(ModelConfig(
+    name="gpt2-small", arch="gpt2", vocab_size=50257, dim=768,
+    n_layers=12, n_heads=12, n_kv_heads=12, ffn_dim=3072, max_seq_len=1024,
+    norm_eps=1e-5, tie_embeddings=True, use_learned_pos=True,
+    eos_token_id=50256, bos_token_id=50256, pad_token_id=50256,
+))
+register(ModelConfig(
+    name="gpt2-medium", arch="gpt2", vocab_size=50257, dim=1024,
+    n_layers=24, n_heads=16, n_kv_heads=16, ffn_dim=4096, max_seq_len=1024,
+    norm_eps=1e-5, tie_embeddings=True, use_learned_pos=True,
+    eos_token_id=50256, bos_token_id=50256, pad_token_id=50256,
+))
+
+# --- tiny test configs (CI-sized) -----------------------------------------
+register(ModelConfig(
+    name="test-llama-tiny", arch="llama", vocab_size=256, dim=64,
+    n_layers=4, n_heads=4, n_kv_heads=2, ffn_dim=128, max_seq_len=128,
+    eos_token_id=2, bos_token_id=1,
+))
+register(ModelConfig(
+    name="test-qwen3-tiny", arch="llama", vocab_size=256, dim=64,
+    n_layers=4, n_heads=4, n_kv_heads=2, ffn_dim=128, max_seq_len=128,
+    norm_eps=1e-6, head_dim_override=24, use_qk_norm=True,
+    tie_embeddings=True, eos_token_id=2, bos_token_id=1,
+))
+register(ModelConfig(
+    name="test-olmo2-tiny", arch="llama", vocab_size=256, dim=64,
+    n_layers=4, n_heads=4, n_kv_heads=4, ffn_dim=128, max_seq_len=128,
+    norm_eps=1e-6, rope_theta=500000.0,
+    pre_norms=False, post_norms=True, use_qk_norm=True, qk_norm_dim="proj",
+    eos_token_id=2, bos_token_id=1,
+))
+register(ModelConfig(
+    name="test-gemma3-tiny", arch="llama", vocab_size=256, dim=64,
+    n_layers=6, n_heads=4, n_kv_heads=2, ffn_dim=128, max_seq_len=128,
+    norm_eps=1e-6, rope_theta=1000000.0, rope_local_theta=10000.0,
+    head_dim_override=24, norm_unit_offset=True, act="gelu_tanh",
+    embed_scale=True, post_norms=True, use_qk_norm=True,
+    query_scale_override=24.0, attn_window=32,
+    attn_window_layer_types=(1, 1, 1, 1, 1, 0),
+    tie_embeddings=True, chat_template="gemma",
+    eos_token_id=1, bos_token_id=2, pad_token_id=0,
+))
+register(ModelConfig(
+    name="test-moe-tiny", arch="llama", vocab_size=256, dim=64,
+    n_layers=4, n_heads=4, n_kv_heads=2, ffn_dim=96, max_seq_len=128,
+    n_experts=4, n_experts_per_tok=2,
+    eos_token_id=2, bos_token_id=1,
+))
+register(ModelConfig(
+    name="test-gemma2-tiny", arch="llama", vocab_size=256, dim=64,
+    n_layers=4, n_heads=4, n_kv_heads=2, ffn_dim=128, max_seq_len=128,
+    norm_eps=1e-6, head_dim_override=24, norm_unit_offset=True,
+    act="gelu_tanh", embed_scale=True, post_norms=True,
+    attn_softcap=50.0, final_softcap=30.0, query_scale_override=24.0,
+    attn_window=32, attn_window_pattern="even", tie_embeddings=True,
+    chat_template="gemma", eos_token_id=1, bos_token_id=2, pad_token_id=0,
+))
+register(ModelConfig(
+    name="test-gpt2-tiny", arch="gpt2", vocab_size=256, dim=64,
+    n_layers=4, n_heads=4, n_kv_heads=4, ffn_dim=256, max_seq_len=128,
+    tie_embeddings=True, use_learned_pos=True,
+    eos_token_id=250, bos_token_id=250, pad_token_id=250,
+))

@@ -1,0 +1,87 @@
+"""Top-level factory: model name -> ready InferenceEngine on one device.
+
+The counterpart of the JAX package's runtime.create_engine for the single
+device. It runs on the card unless the caller asks for the CPU
+(device="cpu", as the tests do); with no CUDA device it raises rather
+than fall back. Pipeline, tensor, sequence and data parallelism,
+microbatching, draft models and LoRA merges are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from .config import EngineConfig, MeshConfig, ModelConfig, resolve_attn_impl
+from .engine.engine import InferenceEngine, SingleDeviceBackend
+from .models import api as M
+from .models.registry import get_model_config
+
+
+def resolve_device(device) -> torch.device:
+    """The device to run on; a CUDA device that is not there raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port on the CPU"
+        )
+    return device
+
+
+def create_engine(
+    model: str | ModelConfig = "tinyllama-1.1b",
+    *,
+    mesh_cfg: MeshConfig = MeshConfig(),
+    engine_cfg: EngineConfig = EngineConfig(),
+    microbatches: int = 1,
+    params: Any = None,
+    dtype: Optional[str] = None,
+    quant: Optional[str] = None,
+    kv_quant: Optional[str] = None,
+    attn_impl: Optional[str] = None,
+    tokenizer: Any = None,
+    seed: int = 0,
+    draft_model: Optional[str] = None,
+    lora: Optional[str] = None,
+    device="cuda",
+) -> InferenceEngine:
+    """Build a single-device engine. params=None draws random weights
+    from `seed` on the device; pass params_from_numpy(...) to run the
+    JAX package's weights. attn_impl: "plain" | "kernel" | "auto" (the
+    kernel on a CUDA device) | None (the config's own)."""
+    if not mesh_cfg.is_trivial or microbatches > 1:
+        raise NotImplementedError(
+            f"pp/tp/sp/dp/ep meshes and microbatching are not ported to "
+            f"PyTorch yet (ROADMAP.md Queue 1 item 9); got {mesh_cfg}, "
+            f"microbatches={microbatches}"
+        )
+    if draft_model is not None:
+        raise NotImplementedError(
+            "draft-model speculation is not ported to PyTorch yet "
+            "(ROADMAP.md Queue 1 item 2)"
+        )
+    if lora is not None:
+        raise NotImplementedError(
+            "LoRA merges are not ported to PyTorch yet (ROADMAP.md Queue 1 "
+            "item 5)"
+        )
+    device = resolve_device(device)
+    cfg = get_model_config(model) if isinstance(model, str) else model
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    if quant is not None:
+        cfg = cfg.replace(quant=quant)
+    if kv_quant is not None:
+        cfg = cfg.replace(kv_quant=kv_quant)
+    cfg = resolve_attn_impl(cfg, attn_impl, device)
+    if params is None:
+        params = M.init_params(
+            cfg, torch.Generator(device=device).manual_seed(seed)
+        )
+    M.family(cfg).check_supported(cfg)
+    return InferenceEngine(
+        cfg, backend=SingleDeviceBackend(cfg, params, device),
+        tokenizer=tokenizer, engine_cfg=engine_cfg, seed=seed,
+    )

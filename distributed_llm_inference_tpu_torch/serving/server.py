@@ -1,0 +1,475 @@
+"""HTTP serving surface of the PyTorch port (the solo path of the JAX
+package's serving/server.py).
+
+Routes: `POST /generate` (one "prompt", or a "prompts" list served as one
+left-padded batch), `GET /health`, `GET /ready`, `GET /stats` and
+`GET /metrics`, on the stdlib ThreadingHTTPServer. For the same request
+the envelope keys and the error codes (400, 499, 503, 504, ...) are the
+JAX server's. The continuous fleet, the queue, the OpenAI routes and the
+KV fabric arrive with later slices.
+
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --attn-impl auto
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Optional
+
+__version__ = "torch_port_v1"
+
+DEFAULT_MAX_TOKENS = 20
+DEFAULT_TEMPERATURE = 0.7
+DEFAULT_TOP_K = 50
+DEFAULT_TOP_P = 0.9
+# Retry-After (seconds) sent with every drain/overload rejection
+RETRY_AFTER_S = 2
+_KNOWN_ROUTES = frozenset(("/health", "/ready", "/stats", "/metrics", "/generate"))
+
+
+def _parse_bool(v, name: str) -> bool:
+    """Strict JSON-ish bool (bool("false") is True, which would invert the
+    caller's intent): non-bool junk is a 400."""
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, str):
+        low = v.strip().lower()
+        if low in ("true", "1", "yes"):
+            return True
+        if low in ("false", "0", "no"):
+            return False
+    raise ValueError(f"{name} must be a boolean, got {v!r}")
+
+
+def _status_code(result: dict) -> tuple:
+    """(HTTP code, extra headers) for an engine envelope."""
+    err_type = result.get("error_type")
+    if result.get("status") == "success":
+        return 200, None
+    if err_type == "invalid_request":
+        return 400, None
+    if err_type == "deadline_exceeded":
+        return 504, None  # the request's own budget: never retried
+    if err_type == "cancelled":
+        return 499, None
+    if err_type in ("timeout", "unavailable", "draining"):
+        return 503, (None if err_type == "timeout"
+                     else {"Retry-After": str(RETRY_AFTER_S)})
+    if err_type == "overloaded":
+        return 429, {"Retry-After": str(result.get("retry_after_s", RETRY_AFTER_S))}
+    return 500, None
+
+
+def make_handler(engine, max_tokens_cap: int, state=None,
+                 wedge_unready_s: float = 10.0):
+    from ..utils.logging import request_id_context
+    from ..utils.tracing import (
+        SpanContext,
+        new_request_id,
+        parse_traceparent,
+        sanitize_request_id,
+    )
+
+    if state is None:  # embedding callers without an InferenceServer
+        state = _ServerState()
+    slo_classes = {c[0] for c in engine.engine_cfg.slo_classes}
+    http_requests = engine.metrics.counter(
+        "dli_http_requests_total", "HTTP responses",
+        ("route", "method", "status"),
+    )
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # serving logs are structured
+            pass
+
+        _rid: Optional[str] = None
+        _trace_ctx = None
+
+        def _count(self, code: int):
+            path = self.path.split("?")[0].rstrip("/") or "/"
+            http_requests.labels(
+                route=path if path in _KNOWN_ROUTES else "other",
+                method=self.command, status=str(code),
+            ).inc()
+
+        def _send(self, code: int, payload: Any, content_type="application/json",
+                  headers=None):
+            body = (
+                payload.encode() if isinstance(payload, str)
+                else json.dumps(payload).encode()
+            )
+            self._count(code)
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            if self._rid:
+                self.send_header("X-Request-Id", self._rid)
+            if self._trace_ctx is not None:
+                self.send_header("X-Trace-Id", self._trace_ctx.trace_id)
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _readiness(self) -> tuple:
+            """(ready, reason): the load-balancer signal — False while
+            draining or while an abandoned deadline-overrun call has been
+            wedged past --wedge-unready."""
+            if state.draining:
+                return False, "draining"
+            if wedge_unready_s:
+                age = engine.max_wedged_age()
+                if age is not None and age > wedge_unready_s:
+                    return False, "wedged"
+            return True, None
+
+        def do_GET(self):
+            self._rid = None
+            self._trace_ctx = None
+            path = self.path.split("?")[0].rstrip("/") or "/"
+            if path == "/health":
+                h = engine.health()
+                ready, why = self._readiness()
+                # liveness stays 200 while draining: readiness is /ready
+                self._send(200, {
+                    "status": h["status"],
+                    "ready": ready,
+                    **({"ready_reason": why} if why else {}),
+                    "role": "orchestrator",
+                    "replica_class": engine.engine_cfg.replica_class,
+                    "model": h["model"],
+                    "version": __version__,
+                    "backend": h["backend"],
+                    "n_stages": h["n_stages"],
+                    "requests_served": h["requests_served"],
+                    "stats": h["stats"],
+                })
+            elif path == "/ready":
+                ready, why = self._readiness()
+                if ready:
+                    self._send(200, {"ready": True})
+                else:
+                    self._send(503, {"ready": False, "reason": why},
+                               headers={"Retry-After": str(RETRY_AFTER_S)})
+            elif path == "/stats":
+                self._send(200, engine.stats())
+            elif path == "/metrics":
+                self._send(200, engine.metrics.render(),
+                           content_type="text/plain; version=0.0.4; charset=utf-8")
+            else:
+                self._send(404, {"error": f"no route {path}"})
+
+        def _deadline_ms(self, data: dict):
+            """The request's end-to-end budget in ms, or None; the
+            X-Request-Deadline-Ms header overrides the body field."""
+            hdr = self.headers.get("X-Request-Deadline-Ms")
+            if hdr is not None:
+                try:
+                    return float(hdr)
+                except (TypeError, ValueError):
+                    pass  # junk header: fall back to the body field
+            raw = data.get("deadline_ms")
+            if raw is None:
+                return None
+            dl = float(raw)  # ValueError -> 400
+            if dl <= 0:
+                raise ValueError("deadline_ms must be > 0")
+            return dl
+
+        def _read_json(self):
+            """Parse the request body; None (after a 400 reply) on bad JSON."""
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                return json.loads(self.rfile.read(length) or b"{}")
+            except (ValueError, json.JSONDecodeError):
+                self._send(400, {"error": "invalid JSON body"})
+                return None
+
+        def do_POST(self):
+            path = self.path.split("?")[0].rstrip("/")
+            self._rid = (
+                sanitize_request_id(self.headers.get("X-Request-Id"))
+                or new_request_id()
+            )
+            self._trace_ctx = (
+                parse_traceparent(self.headers.get("traceparent"))
+                or SpanContext.new_root()
+            )
+            with request_id_context(self._rid, self._trace_ctx.trace_id):
+                self._do_POST(path)
+
+        def _do_POST(self, path: str):
+            if state.draining and path == "/generate":
+                self._send(
+                    503,
+                    {"error": "Error: server draining", "status": "failed",
+                     "error_type": "draining"},
+                    headers={"Retry-After": str(RETRY_AFTER_S)},
+                )
+                return
+            if path != "/generate":
+                self._send(404, {"error": f"no route {path}"})
+                return
+            data = self._read_json()
+            if data is None:
+                return
+            prompt = data.get("prompt", "")
+            prompts = data.get("prompts")
+            if not prompt and not prompts:
+                self._send(400, {"error": "No prompt provided"})
+                return
+            try:
+                result = self._generate(data, prompt, prompts)
+            except (TypeError, ValueError) as e:
+                self._send(400, {"error": f"bad parameter: {e}"})
+                return
+            if result is None:
+                return  # already answered
+            code, headers = _status_code(result)
+            self._send(code, result, headers=headers)
+
+        def _generate(self, data: dict, prompt, prompts) -> Optional[dict]:
+            max_tokens = min(int(data.get("max_tokens", DEFAULT_MAX_TOKENS)),
+                             max_tokens_cap)
+            seed = data.get("seed")
+            kwargs = dict(
+                request_id=self._rid,
+                max_tokens=max_tokens,
+                temperature=float(data.get("temperature", DEFAULT_TEMPERATURE)),
+                top_k=int(data.get("top_k", DEFAULT_TOP_K)),
+                top_p=float(data.get("top_p", DEFAULT_TOP_P)),
+                greedy=_parse_bool(data.get("greedy", False), "greedy"),
+                chat=_parse_bool(data.get("chat", True), "chat"),
+                seed=int(seed) if seed is not None else None,
+                min_p=float(data.get("min_p", 0.0)),
+                repetition_penalty=float(data.get("repetition_penalty", 1.0)),
+                frequency_penalty=float(data.get("frequency_penalty", 0.0)),
+                presence_penalty=float(data.get("presence_penalty", 0.0)),
+            )
+            raw_dl = self._deadline_ms(data)
+            if raw_dl is not None:
+                kwargs["deadline_ms"] = raw_dl
+            raw_slo = data.get("slo_class")
+            if raw_slo is not None:
+                if not isinstance(raw_slo, str) or raw_slo not in slo_classes:
+                    raise ValueError(
+                        f"unknown slo_class {raw_slo!r}; configured: "
+                        f"{sorted(slo_classes)}"
+                    )
+                kwargs["slo_class"] = raw_slo
+            raw_tenant = data.get("tenant")
+            if raw_tenant is not None:
+                if not isinstance(raw_tenant, str) or not raw_tenant:
+                    raise ValueError("tenant must be a non-empty string")
+                kwargs["tenant"] = raw_tenant
+            raw_adapter = data.get("adapter")
+            if raw_adapter is not None and raw_adapter != engine.cfg.name:
+                if not isinstance(raw_adapter, str):
+                    raise ValueError("adapter must be a string")
+                raise ValueError(
+                    "adapter serving is not configured: start with "
+                    "--adapter-slots (and --continuous + --kv-pool-blocks)"
+                )
+            nbeams = data.get("num_beams")
+            if nbeams is not None and int(nbeams) > 1:
+                kwargs["num_beams"] = int(nbeams)
+                kwargs["length_penalty"] = float(data.get("length_penalty", 1.0))
+                kwargs["early_stopping"] = _parse_bool(
+                    data.get("early_stopping", False), "early_stopping"
+                )
+            raw_bias = data.get("logit_bias")
+            if raw_bias is not None:
+                if not isinstance(raw_bias, dict):
+                    raise ValueError("logit_bias must be an object of "
+                                     "token_id -> bias")
+                kwargs["logit_bias"] = {int(k): float(v) for k, v in raw_bias.items()}
+            raw_con = data.get("constraint")
+            if raw_con is not None:
+                if not isinstance(raw_con, dict):
+                    raise ValueError(
+                        "constraint must be an object with one of 'regex', "
+                        "'choices', 'json_schema', 'json_object'"
+                    )
+                kwargs["constraint"] = raw_con
+            raw_stop = data.get("stop")
+            if raw_stop is not None:
+                if isinstance(raw_stop, str):
+                    raw_stop = [raw_stop]
+                if not (isinstance(raw_stop, list)
+                        and all(isinstance(s, str) for s in raw_stop)):
+                    raise ValueError("stop must be a string or list of strings")
+                kwargs["stop"] = raw_stop
+            if _parse_bool(data.get("stream", False), "stream"):
+                # the solo engine decodes a whole request per call: there
+                # is nothing to stream per token
+                self._send(400, {
+                    "error": "streaming requires --continuous and a single 'prompt'",
+                })
+                return None
+            if prompts is not None:
+                # batched form: "prompts": [...] -> one batch, N results
+                if not isinstance(prompts, list):
+                    raise ValueError("prompts must be a list of strings")
+                if kwargs.get("logit_bias"):
+                    raise ValueError("logit_bias requires a single 'prompt'")
+                if kwargs.get("num_beams", 1) > 1:
+                    raise ValueError("num_beams requires a single 'prompt'")
+                return engine.generate_batch(prompts, **kwargs)
+            kwargs["debug"] = _parse_bool(data.get("debug", False), "debug")
+            kwargs["speculative"] = _parse_bool(
+                data.get("speculative", False), "speculative"
+            )
+            kwargs["logprobs"] = _parse_bool(data.get("logprobs", False), "logprobs")
+            return engine.generate(prompt, **kwargs)
+
+    return Handler
+
+
+class _ServerState:
+    """Flags shared between the server object and its handler class."""
+
+    __slots__ = ("draining",)
+
+    def __init__(self):
+        self.draining = False
+
+
+class InferenceServer:
+    """Owns the HTTP server + engine: start()/shutdown() for embedding
+    (tests, chip_smoke.py), serve_forever() for the CLI (which installs
+    the SIGTERM -> graceful-drain handler)."""
+
+    def __init__(self, engine, host: str = "0.0.0.0", port: int = 5000,
+                 max_tokens_cap: int = 30, drain_deadline_s: float = 30.0,
+                 wedge_unready_s: float = 10.0):
+        self.engine = engine
+        self.drain_deadline_s = float(drain_deadline_s)
+        self.state = _ServerState()
+        self.httpd = ThreadingHTTPServer(
+            (host, port),
+            make_handler(engine, max_tokens_cap, state=self.state,
+                         wedge_unready_s=wedge_unready_s),
+        )
+        self.port = self.httpd.server_address[1]
+
+    def start(self) -> threading.Thread:
+        t = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        t.start()
+        return t
+
+    def drain(self, deadline_s: Optional[float] = None) -> bool:
+        """Graceful drain: flip readiness (new requests get 503 +
+        Retry-After), let the in-flight generation finish up to the
+        deadline, then stop the HTTP server."""
+        deadline = self.drain_deadline_s if deadline_s is None else float(deadline_s)
+        t0 = time.time()
+        self.state.draining = True
+        ok = self.engine.drain(deadline)
+        from ..utils.logging import get_logger
+
+        get_logger("server").info("drained", ok=ok, seconds=round(time.time() - t0, 3))
+        self.shutdown()
+        return ok
+
+    def install_signal_handlers(self):
+        """SIGTERM -> graceful drain on a thread (main thread only)."""
+        import signal
+
+        def _on_term(signum, frame):
+            if self.state.draining:
+                return
+            self.state.draining = True
+            threading.Thread(target=self.drain, name="sigterm-drain",
+                             daemon=True).start()
+
+        signal.signal(signal.SIGTERM, _on_term)
+
+    def serve_forever(self):
+        from ..utils.logging import configure, get_logger
+
+        configure()
+        self.install_signal_handlers()
+        get_logger("server").info(
+            "serving", port=self.port,
+            routes=["/generate", "/health", "/ready", "/stats", "/metrics"],
+        )
+        print(f"serving on :{self.port} — /generate /health /ready /stats /metrics")
+        self.httpd.serve_forever()
+
+    def shutdown(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def main(argv: Optional[list] = None):
+    from ..config import EngineConfig
+    from ..runtime import create_engine
+
+    ap = argparse.ArgumentParser(
+        description="distributed_llm_inference_tpu_torch server (PyTorch port)"
+    )
+    ap.add_argument("--model", default="tinyllama-1.1b")
+    ap.add_argument(
+        "--tokenizer", default=None, metavar="PATH",
+        help="local HF tokenizer dir to serve with (loaded strict); "
+             "default: the offline byte tokenizer",
+    )
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=5000)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                         "PyTorch path on the CPU)")
+    ap.add_argument("--dtype", default=None, choices=[None, "float32", "bfloat16"])
+    ap.add_argument(
+        "--attn-impl", default=None, choices=[None, "auto", "plain", "kernel"],
+        help="attention for T>1 chunks: 'kernel' = the CUDA flash kernel "
+             "(ops/flash_attention.py), 'plain' = einsum + mask, 'auto' = "
+             "the kernel on a CUDA device; default keeps the model "
+             "config's setting (plain)",
+    )
+    ap.add_argument("--max-tokens-cap", type=int, default=30)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--deadline", type=float, default=None, metavar="SECONDS",
+        help="per-request wall-clock deadline; overruns return a 503 "
+             "timeout envelope",
+    )
+    ap.add_argument(
+        "--drain-deadline", type=float, default=30.0, metavar="SECONDS",
+        help="graceful-drain budget on SIGTERM",
+    )
+    ap.add_argument(
+        "--wedge-unready", type=float, default=10.0, metavar="SECONDS",
+        help="flip GET /ready to 503 while an abandoned deadline-overrun "
+             "call has been stuck this long (0 disables)",
+    )
+    args = ap.parse_args(argv)
+
+    tokenizer = None
+    if args.tokenizer:
+        from ..utils.tokenizer import load_tokenizer
+
+        tokenizer = load_tokenizer(args.tokenizer, strict=True)
+    engine = create_engine(
+        args.model,
+        engine_cfg=EngineConfig(request_deadline_s=args.deadline),
+        dtype=args.dtype,
+        attn_impl=args.attn_impl,
+        tokenizer=tokenizer,
+        seed=args.seed,
+        device=args.device,
+    )
+    InferenceServer(
+        engine, args.host, args.port, args.max_tokens_cap,
+        drain_deadline_s=args.drain_deadline,
+        wedge_unready_s=args.wedge_unready,
+    ).serve_forever()
+
+
+if __name__ == "__main__":
+    main()
