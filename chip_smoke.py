@@ -5,20 +5,38 @@
 Builds every CUDA kernel of the port from the sources in this checkout,
 holds each against its plain PyTorch twin on the card, then serves
 tinyllama-1.1b (published widths, 22 layers, bf16, random weights from
-seed 0) through the port's own HTTP server and checks that the served
-requests went through the kernels. Phases, each of which fails the run:
+seed 0) through the port's own HTTP server, solo and as the continuous
+paged fleet, and checks that the served requests went through the
+kernels. Phases, each of which fails the run:
 
   (a) the device, `nvidia-smi`'s name and power limit, the kernel build;
   (b) flash_attend vs its plain twin at tinyllama's attention shapes
       (H=32, KV=4, Dh=64, S=2048), bf16 and fp32, with kernel, twin,
       SDPA-yardstick and bound times;
-  (c) three /generate requests (greedy, sampled, and a prompt longer than
-      the largest prefill bucket so chunked extend runs), the greedy one
-      repeated; the kernel's launch count must rise by n_layers per T>1
-      chunk;
+  (c) three solo /generate requests (greedy, sampled, and a prompt longer
+      than the largest prefill bucket so chunked extend runs), the greedy
+      one repeated; the kernel's launch count must rise by n_layers per
+      T>1 chunk;
   (d) the same model's logits with attn_impl="kernel" vs "plain";
-  (e) TTFT and tokens/s, the kernels' JSON line, and as the last line
-      {"ok": true, "device": {...}}.
+  (e) a profiled solo request: TTFT, tokens/s, device idle share;
+  (f) paged_flash_attend and ragged_paged_attend vs their twins at
+      tinyllama's widths over shuffled block tables (16-token blocks,
+      1024-token slots), bf16 and fp32, with window / per-layer window /
+      softcap / scale variants, kernel and twin times and the bound;
+  (g) the fleet (`--continuous 8 --kv-pool-blocks 513 --kv-block-size 16
+      --continuous-max-seq 1024`) serving 8 concurrent requests of 8 to
+      700 prompt tokens through the HTTP server: every request answers,
+      mixed launches carry decode rows and prompt chunks at once, each
+      mixed launch runs ragged_paged_attend once per layer and each decode
+      chunk paged_flash_attend once per layer and step, a greedy request
+      repeats exactly on the idle fleet, and every pool block comes back;
+  (h) scripted mixed launches and a decode step through the kernels vs
+      attn_impl="plain" (logits and greedy tokens), and one mixed launch
+      and one decode chunk under torch.cuda.set_sync_debug_mode("error");
+  (i) per-request TTFT and tokens/s, the wave's aggregate tokens/s, the
+      device idle share and kernels per token of one profiled mixed
+      launch and one decode chunk, the kernels' JSON line, and as the
+      last line {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository: with no card, or run from a
 directory that holds nothing else of the repository, it exits non-zero
@@ -329,6 +347,19 @@ def phase_d(torch, engine):
     return err
 
 
+def busy_union_us(kernels) -> float:
+    """Device busy time: the union of the kernels' intervals, in us."""
+    busy_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    return busy_us
+
+
 def phase_profile(torch, engine):
     """Where a warm greedy request's time goes, from one run under
     torch.profiler (which adds host time of its own): the device's busy
@@ -346,14 +377,7 @@ def phase_profile(torch, engine):
         wall_us = (time.perf_counter() - t0) * 1e6
     check(r["status"] == "success", f"profiled request: {r}")
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us, end = 0.0, None
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kern):
-        if end is None or a > end:
-            busy_us += b - a
-            end = b
-        elif b > end:
-            busy_us += b - end
-            end = b
+    busy_us = busy_union_us(kern)
     n_tok = r["tokens_generated"]
     print(f"(e) profiled greedy request: wall_ms={wall_us / 1e3:.2f} "
           f"timings={json.dumps(r['timings'])} tokens={n_tok}")
@@ -364,12 +388,8 @@ def phase_profile(torch, engine):
     print(f"(e) device busy_ms={busy_us / 1e3:.2f} busy_share={busy_us / wall_us:.4f} "
           f"idle_share={1 - busy_us / wall_us:.4f} kernels={len(kern)} "
           f"kernels_per_token={len(kern) / max(n_tok, 1):.1f}")
-    by_name = {}
-    for e in kern:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"    {t / 1e3:8.3f} ms {n:5d}x  {name[:100]}")
+    for ms, count, name in top_kernels(kern, 8):
+        print(f"    {ms:8.3f} ms {count:5d}x  {name[:100]}")
 
 
 def kernels_line(torch, timer, fa, shapes, launches):
@@ -407,6 +427,478 @@ def kernels_line(torch, timer, fa, shapes, launches):
     }
 
 
+# -- the continuous paged fleet: phases (f) to (i) ------------------------------
+
+BLOCK, SLOT_MB = 16, 64  # the fleet's 16-token pool blocks, 1024-token slots
+RAGGED_W, RAGGED_TILE = 128, 8  # the mixed launch's width (step budget), query tile
+SPECIAL_POS = [0, 15, 16, 700, 1023]  # block edges, a deep and the last position
+# (label, static kwargs, per-layer window operand)
+PAGED_VARIANTS = [("", {}, None), ("window=256", {"window": 256}, None),
+                  ("window_dyn=300", {}, 300), ("softcap=30", {"softcap": 30.0}, None),
+                  ("scale=0.2", {"scale": 0.2}, None)]
+FLEET = dict(n_slots=8, chunk_steps=16, chunk_lag=2, slot_max_seq=1024,
+             kv_pool_blocks=513, kv_block_size=BLOCK)
+FLEET_PROMPT_TOKENS = (8, 24, 60, 120, 200, 330, 480, 700)
+FLEET_NEW_TOKENS = 32
+SAMPLED_KNOBS = {"temperature": 0.8, "top_k": 40, "top_p": 0.95}
+
+
+def paged_pool(torch, dt, rows, seed):
+    """A random pool [N, KV, 16, Dh] and `rows` block tables of 64 blocks
+    each, drawn from a shuffled permutation of blocks 1..N-1 (0 is the
+    trash block), so the kernels' table walk really jumps."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n = rows * SLOT_MB + 1
+    pool_k = torch.randn(n, KV, BLOCK, DH, generator=g, device=DEVICE).to(dt)
+    pool_v = torch.randn(n, KV, BLOCK, DH, generator=g, device=DEVICE).to(dt)
+    perm = torch.randperm(n - 1, generator=g, device=DEVICE)[: rows * SLOT_MB] + 1
+    return g, pool_k, pool_v, perm.reshape(rows, SLOT_MB).to(torch.int32).contiguous()
+
+
+def paged_work(row_queries, width, dtype_name, window, index_bytes):
+    """(bytes, FLOPs) of one paged attention launch: q read once for the
+    live query rows only (the kernel never reads a padding row), o written
+    once for all `width` rows (padding rows get zeros), each table row's
+    live keys' K/V rows read once with the table entries that locate them,
+    the per-query or per-tile indices (`index_bytes`), and 4*Dh FLOPs per
+    head for each (query, key) pair the mask lets through. row_queries:
+    {table row: [query positions]}."""
+    esize = 4 if dtype_name == "float32" else 2
+    live = sum(len(qs) for qs in row_queries.values())
+    nbytes = (live + width) * H * DH * esize + index_bytes
+    pairs = 0
+    for qs in row_queries.values():
+        lows = [max(0, q - window + 1) if window else 0 for q in qs]
+        pairs += sum(q + 1 - lo for q, lo in zip(qs, lows))
+        lo, hi = min(lows), max(qs)
+        nbytes += 2 * KV * DH * esize * (hi + 1 - lo) + 4 * (hi // BLOCK - lo // BLOCK + 1)
+    return nbytes, 4 * DH * H * pairs
+
+
+def paged_case(torch, timer, fn, plain, args, kw, wd, reps=10):
+    """One kernel-vs-twin comparison: (kernel output, max error, kernel
+    ms, twin ms)."""
+    got = fn(*args, wd, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, wd, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(got.float()).all()), f"{fn.__name__}: non-finite output")
+    ms = timer.ms(lambda: fn(*args, wd, **kw), reps)
+    plain_ms = timer.ms(lambda: plain(*args, wd, **kw), max(2, reps // 4))
+    return got, err, ms, plain_ms
+
+
+def ragged_plans(P):
+    """The mixed launches of (f), laid out by the fleet's own planner at
+    its width: table row -> entries (row, start, length, kind)."""
+    dec = [(b, p, 1, P.RAGGED_DECODE) for b, p in enumerate(SPECIAL_POS + [64, 333, 517])]
+    return {
+        "8 decode + 56-token chunk at 0": dec + [(8, 0, 56, P.RAGGED_PREFILL)],
+        "128-token chunk at 640": [(0, 640, 128, P.RAGGED_PREFILL)],
+        "5-token prefill row at 37": [(0, 37, 5, P.RAGGED_PREFILL)],
+    }
+
+
+def phase_f(torch, timer, pa, P):
+    """paged_flash_attend and ragged_paged_attend vs their twins."""
+    print(f"(f) paged kernels vs plain twins, H={H} KV={KV} Dh={DH}, {BLOCK}-token "
+          f"blocks, {SLOT_MB} shuffled blocks per table row; device ms per call, "
+          f"cold L2")
+    rows = []
+
+    def record(kernel, dtype_name, case, label, kw, wdyn, args, row_queries,
+               width, index_bytes):
+        wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
+                                                    device=DEVICE)
+        fn, plain = getattr(pa, kernel), getattr(pa, kernel + "_plain")
+        got, err, ms, plain_ms = paged_case(torch, timer, fn, plain, args, kw, wd)
+        nbytes, flops = paged_work(row_queries, width, dtype_name,
+                                   kw.get("window") or wdyn, index_bytes)
+        bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+        r = dict(kernel=kernel, dtype=dtype_name, case=case, variant=label,
+                 max_abs_err=err, atol=ATOL[dtype_name], ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes, flops=flops)
+        rows.append(r)
+        print(f"    {kernel:19s} {dtype_name:8s} {case:31s} {label:14s} "
+              f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} "
+              f"plain={plain_ms:.4f} bound={bound_ms:.4f} ({bound_by})")
+        return got
+
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for B in (1, 8, 32):
+            g, pk, pv, table = paged_pool(torch, dt, B, seed=B)
+            extra = torch.randint(0, SLOT_MB * BLOCK, (B,), generator=g,
+                                  device=DEVICE).tolist()
+            pos_list = [700] if B == 1 else (SPECIAL_POS + extra)[:B]
+            pos = torch.tensor(pos_list, dtype=torch.int32, device=DEVICE)
+            q = torch.randn(B, 1, H, DH, generator=g, device=DEVICE).to(dt)
+            for label, kw, wdyn in PAGED_VARIANTS:
+                record("paged_flash_attend", dtype_name, f"B={B}", label, kw, wdyn,
+                       (q, pk, pv, table, pos), {b: [p] for b, p in enumerate(pos_list)},
+                       B, 4 * B)
+        for i, (name, entries) in enumerate(ragged_plans(P).items()):
+            g, pk, pv, table = paged_pool(torch, dt, 9, seed=100 + i)
+            meta_np, tok_row, _, _, _ = P.build_ragged_meta(
+                entries, width=RAGGED_W, tile=RAGGED_TILE)
+            meta = torch.from_numpy(meta_np).to(DEVICE)
+            dead = torch.from_numpy(tok_row < 0).to(DEVICE)
+            q = torch.randn(RAGGED_W, H, DH, generator=g, device=DEVICE).to(dt)
+            row_queries = {}
+            for row, start, n, _ in entries:
+                row_queries.setdefault(row, []).extend(range(start, start + n))
+            for label, kw, wdyn in PAGED_VARIANTS:
+                got = record("ragged_paged_attend", dtype_name, name, label, kw, wdyn,
+                             (q, pk, pv, table, meta), row_queries, RAGGED_W,
+                             16 * meta.shape[0])
+                # launch padding and the rows past a tile's q_len: zeros
+                check(got[dead].float().abs().sum().item() == 0.0,
+                      f"ragged_paged_attend wrote non-zeros to padding ({name})")
+    bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
+    check(not bad, f"paged kernels disagree with their twins in {len(bad)} case(s)")
+    return rows
+
+
+def fleet_prompt(i: int, n_tokens: int) -> str:
+    """A prompt of exactly n_tokens byte-tokenizer tokens (BOS + one per
+    ASCII character), different for each request."""
+    text = " ".join(f"Request {i}, sentence {j}: the quick brown fox jumps over "
+                    f"the lazy dog." for j in range(40))
+    return text[: n_tokens - 1]
+
+
+def wait_idle(port, timeout_s=60.0) -> dict:
+    """/stats once the fleet holds no request and no queue."""
+    t0 = time.time()
+    while True:
+        st = get(port, "/stats")[1]
+        c = st["continuous"]
+        if c["occupied"] == 0 and c["queued"] == 0:
+            return st
+        check(time.time() - t0 < timeout_s, f"the fleet did not go idle: {c}")
+        time.sleep(0.05)
+
+
+def phase_g(torch, engine, pa, fa):
+    """The fleet through the port's HTTP server: 8 concurrent requests."""
+    import threading
+
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    L = engine.cfg.n_layers
+    fleet = ContinuousEngine(engine, **FLEET)
+    server = InferenceServer(engine, host="127.0.0.1", port=0, max_tokens_cap=64,
+                             continuous=fleet)
+    server.start()
+    try:
+        t0 = time.time()
+        w = fleet.warmup()
+        check(w["ok"], f"fleet warmup: {w}")
+        print(f"(g) fleet {json.dumps(FLEET)}: step width "
+              f"{fleet.stats()['scheduler']['step_width']}, tile {RAGGED_TILE}; "
+              f"warmup request {time.time() - t0:.1f} s")
+        bodies = []
+        for i, n in enumerate(FLEET_PROMPT_TOKENS):
+            body = {"prompt": fleet_prompt(i, n), "max_tokens": FLEET_NEW_TOKENS,
+                    "chat": False}
+            body.update({"greedy": True} if i % 2 == 0 else SAMPLED_KNOBS)
+            bodies.append(body)
+        before = get(server.port, "/stats")[1]["continuous"]["launches"]
+        results = [None] * len(bodies)
+
+        def run(i):
+            results[i] = post(server.port, bodies[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+        # the main path's run: every count starts at 0 here and is read
+        # when the fleet is idle again
+        pa.ragged_paged_attend.launches = 0
+        pa.paged_flash_attend.launches = 0
+        fa.flash_attend.launches = 0
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wave_s = time.perf_counter() - t0
+        st = wait_idle(server.port)
+        launches = {"ragged_paged_attend": pa.ragged_paged_attend.launches,
+                    "paged_flash_attend": pa.paged_flash_attend.launches,
+                    "flash_attend": fa.flash_attend.launches}
+        after = st["continuous"]["launches"]
+        mixed = after["mixed"] - before["mixed"]
+        both = (after["mixed_with_decode_and_prefill"]
+                - before["mixed_with_decode_and_prefill"])
+        chunks = after["decode_chunks"] - before["decode_chunks"]
+        for i, (code, r, wall) in enumerate(results):
+            print(f"(g) request {i} ({'greedy' if i % 2 == 0 else 'sampled'}): HTTP {code} "
+                  f"prompt_tokens={r.get('prompt_tokens')} tokens={r.get('tokens_generated')} "
+                  f"finish={r.get('finish_reason')} ttft_s={r.get('ttft_s')} "
+                  f"tokens_per_sec={r.get('tokens_per_sec')} "
+                  f"prefill_chunks={r.get('prefill_chunks')} wall_s={wall:.3f}")
+            check(code == 200 and r.get("status") == "success"
+                  and r.get("backend") == "continuous", f"fleet request {i}: {r}")
+            check(r["prompt_tokens"] == FLEET_PROMPT_TOKENS[i],
+                  f"request {i}: {r['prompt_tokens']} prompt tokens")
+            check(r["tokens_generated"] == FLEET_NEW_TOKENS or r["finish_reason"] == "stop",
+                  f"request {i}: {r['tokens_generated']} tokens without a stop")
+        print(f"(g) wave: {wave_s:.3f} s; launches: {mixed} mixed ({both} with decode "
+              f"rows and prompt chunks at once), {chunks} decode chunks of "
+              f"{FLEET['chunk_steps']} steps; kernel launches {json.dumps(launches)}")
+        check(launches["flash_attend"] == 0, "the fleet ran the dense flash kernel")
+        check(both >= 1, "no mixed launch carried decode rows and prompt chunks at once")
+        check(results[-1][1]["prefill_chunks"] >= 3,
+              "the 700-token prompt did not span 3 mixed launches")
+        check(launches["ragged_paged_attend"] == L * mixed > 0,
+              f"ragged_paged_attend launched {launches['ragged_paged_attend']} times "
+              f"for {mixed} mixed launches of {L} layers")
+        check(launches["paged_flash_attend"] == L * FLEET["chunk_steps"] * chunks > 0,
+              f"paged_flash_attend launched {launches['paged_flash_attend']} times for "
+              f"{chunks} decode chunks of {FLEET['chunk_steps']} steps x {L} layers")
+        free = st["continuous"]["paged"]["free_blocks"]
+        print(f"(g) /stats after the wave: continuous {json.dumps(st['continuous'])}")
+        check(free == FLEET["kv_pool_blocks"] - 1,
+              f"{free} of {FLEET['kv_pool_blocks'] - 1} pool blocks free after the wave")
+        # a greedy request twice on the idle fleet
+        again = [post(server.port, bodies[6])[1] for _ in range(2)]
+        same_as_wave = again[0]["token_ids"] == results[6][1]["token_ids"]
+        print(f"(g) greedy request 6 again on the idle fleet, twice: tokens "
+              f"{again[0]['tokens_generated']}, {again[1]['tokens_generated']}; "
+              f"identical={again[0]['token_ids'] == again[1]['token_ids']}; "
+              f"same as in the wave={same_as_wave}")
+        check(again[0]["token_ids"] == again[1]["token_ids"],
+              "a greedy request repeated on the idle fleet gave other tokens")
+        check(wait_idle(server.port)["continuous"]["paged"]["free_blocks"]
+              == FLEET["kv_pool_blocks"] - 1, "pool blocks leaked by the repeats")
+    finally:
+        server.shutdown()
+    return dict(results=results, wave_s=wave_s, launches=launches, mixed=mixed,
+                chunks=chunks)
+
+
+def scripted_fleet_logits(torch, cfg, params, P, M):
+    """Logits at every live token of three scripted mixed launches (two
+    prompts landing, then their decode rows beside a third prompt's
+    chunks) and of one decode step of the three rows, over a fresh pool
+    with shuffled tables."""
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    R = 3
+    pool = P.init_pool(cfg, R * SLOT_MB + 1, BLOCK, device=DEVICE)
+    table = (torch.randperm(R * SLOT_MB, generator=g, device=DEVICE) + 1).reshape(
+        R, SLOT_MB).to(torch.int32).contiguous()
+    ids = torch.randint(3, cfg.vocab_size, (R, SLOT_MB * BLOCK), generator=g,
+                        device=DEVICE)
+    pf, dec = P.RAGGED_PREFILL, P.RAGGED_DECODE
+    launches = [[(0, 0, 100, pf), (1, 0, 20, pf)],
+                [(0, 100, 1, dec), (1, 20, 1, dec), (2, 0, 64, pf)],
+                [(0, 101, 1, dec), (1, 21, 1, dec), (2, 64, 50, pf)]]
+    out = []
+    with torch.no_grad():
+        for entries in launches:
+            meta, tok_row, tok_pos, _, _ = P.build_ragged_meta(
+                entries, width=RAGGED_W, tile=RAGGED_TILE)
+            row = torch.from_numpy(tok_row).to(DEVICE)
+            pos = torch.from_numpy(tok_pos).to(DEVICE)
+            toks = ids[row.clamp(min=0).long(), pos.long()]
+            x = M.embed(cfg, params, toks[:, None], pos)
+            x, pool = M.forward_layers(
+                cfg, params["layers"], x, pool, pos, attn_seq_len=1,
+                attn_hook=P.make_ragged_fill_hook(table, torch.from_numpy(meta).to(DEVICE),
+                                                  row))
+            out.append(M.unembed(cfg, params, x)[:, 0][row >= 0])
+        pos = torch.tensor([102, 22, 114], dtype=torch.int32, device=DEVICE)
+        toks = ids[torch.arange(R, device=DEVICE), pos.long()]
+        x = M.embed(cfg, params, toks[:, None], pos)
+        x, pool = M.forward_layers(cfg, params["layers"], x, pool, pos,
+                                   attn_hook=P.make_paged_hook(table),
+                                   attn_seq_len=SLOT_MB * BLOCK)
+        out.append(M.unembed(cfg, params, x)[:, 0])
+    return torch.cat(out)
+
+
+def fleet_operands(torch, cfg, P, G):
+    """Device-resident operands of one mixed launch of the fleet at its
+    serving shape: 7 armed slots (greedy and sampled) with a decode row
+    each, whose positions the launch derives on the device, and the
+    8th slot's 56-token prompt landing whole and arming."""
+    import numpy as np
+
+    B, V = FLEET["n_slots"], cfg.vocab_size
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    pool = P.init_pool(cfg, B * SLOT_MB + 1, BLOCK, device=DEVICE)
+    table = (torch.randperm(B * SLOT_MB, generator=g, device=DEVICE) + 1).reshape(
+        B, SLOT_MB).to(torch.int32).contiguous()
+    state, sparams = G.init_slots(B, V, device=DEVICE)
+    none = torch.zeros(V, dtype=torch.bool, device=DEVICE)
+    for b in range(B - 1):
+        knobs = ((1.0, 0, 1.0, True, 0.0, 1.0, 0.0, 0.0) if b % 2 == 0
+                 else (0.8, 40, 0.95, False, 0.0, 1.0, 0.0, 0.0))
+        state, sparams = P.arm_slot_only(cfg, state, sparams, b, 100 + b,
+                                         100 + 50 * b, FLEET_NEW_TOKENS, *knobs, none)
+    entries = [(b, 0, 1, P.RAGGED_DECODE) for b in range(B - 1)]
+    entries.append((B - 1, 0, 56, P.RAGGED_PREFILL))
+    meta, tok_row, tok_pos, offsets, _ = P.build_ragged_meta(
+        entries, width=RAGGED_W, tile=RAGGED_TILE)
+    dev = P.build_device_meta(entries, offsets, B - 1, width=RAGGED_W, tile=RAGGED_TILE)
+    dec_flag = np.zeros(RAGGED_W, bool)
+    dec_idx = np.zeros(B, np.int32)
+    for b, off in zip(range(B - 1), offsets):
+        dec_flag[off] = True
+        dec_idx[b] = off
+    arm = P.idle_mixed_arm(B, V, device=DEVICE)
+    on = torch.zeros(B, dtype=torch.bool, device=DEVICE)
+    on[B - 1] = True
+    idx = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+    idx[B - 1] = offsets[-1] + 55
+    arm = arm._replace(on=on, idx=idx, prompt_len=torch.full_like(idx, 56),
+                       max_tokens=torch.full_like(idx, FLEET_NEW_TOKENS))
+    d = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    toks = torch.randint(3, V, (RAGGED_W,), generator=g, device=DEVICE).to(torch.int32)
+    return dict(
+        tokens=toks, tok_row=d(tok_row), tok_pos=d(tok_pos), dec_flag=d(dec_flag),
+        meta=d(meta), pool=pool, table=table, state=state, sparams=sparams,
+        generator=torch.Generator(device=DEVICE).manual_seed(6), dec_idx=d(dec_idx),
+        arm=arm, dev=P.DeviceMeta(*(d(a) for a in dev)),
+    ), B - 1 + 56
+
+
+def phase_h(torch, engine, P, G, M):
+    """Kernel path vs plain path over the pool, and the sync check."""
+    cfg_k = engine.cfg
+    cfg_p = cfg_k.replace(attn_impl="plain")
+    params = engine.backend.params
+    out = {cfg.attn_impl: scripted_fleet_logits(torch, cfg, params, P, M)
+           for cfg in (cfg_k, cfg_p)}
+    k, p = out["kernel"], out["plain"]
+    check(bool(torch.isfinite(k).all()) and k.shape == p.shape,
+          "fleet kernel-path logits not finite or misshapen")
+    err = (k - p).abs().max().item()
+    top2 = p.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    pinned = gap > 2 * err
+    differ = (k.argmax(-1) != p.argmax(-1)) & pinned
+    print(f"(h) fleet logits kernel vs plain ({k.shape[0]} tokens of 3 mixed launches "
+          f"and a decode step): max_abs_err={err:.4g} (atol {LOGITS_ATOL}) "
+          f"mean_abs_err={(k - p).abs().mean().item():.4g}; greedy tokens pinned by "
+          f"the top-2 gap: {int(pinned.sum())}, of which differ: {int(differ.sum())}")
+    check(err <= LOGITS_ATOL, "fleet kernel-path logits disagree with the plain path")
+    check(not bool(differ.any()), "a pinned greedy token differs between the paths")
+
+    ops, _ = fleet_operands(torch, cfg_k, P, G)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed, state, sparams, pool = P.mixed_step_ragged(cfg_k, params, **ops)
+        emitted, mask, state, pool = P.decode_slots_paged(
+            cfg_k, params, state, pool, ops["table"], ops["generator"], sparams,
+            num_steps=FLEET["chunk_steps"])
+        chunk = G.pack_chunk(emitted, mask, state.active)
+        hosts = []
+        for t in (packed, chunk):
+            hosts.append(torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+            hosts[-1].copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ev.synchronize()
+    packed, chunk = (h.numpy() for h in hosts)
+    B = FLEET["n_slots"]
+    print(f"(h) one mixed launch and one {FLEET['chunk_steps']}-step decode chunk under "
+          f"set_sync_debug_mode('error'): no host sync; armed={packed[4].tolist()} "
+          f"emitted per slot={chunk[FLEET['chunk_steps']:2 * FLEET['chunk_steps']].sum(0).tolist()}")
+    check(packed[4].tolist() == [0] * (B - 1) + [1], "the landing prompt did not arm")
+    check(packed[1].tolist() == [1] * (B - 1) + [0], "the decode rows did not emit")
+    return err
+
+
+def top_kernels(kernels, n):
+    """The n kernels with the most device time: (ms, count, name)."""
+    by_name = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(t / 1e3, c, name) for name, (t, c) in top]
+
+
+def profile_call(torch, fn):
+    """Wall us, device busy us and the device kernels of one call, from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return wall_us, busy_union_us(kern), kern
+
+
+def phase_i_profile(torch, engine, P, G):
+    """One profiled mixed launch and one decode chunk at the fleet's
+    serving shape (warm: each runs once before)."""
+    cfg, params = engine.cfg, engine.backend.params
+    K = FLEET["chunk_steps"]
+    for label in ("warm", "profiled"):
+        ops, n_tok = fleet_operands(torch, cfg, P, G)
+        res = {}
+
+        def mixed():
+            res["m"] = P.mixed_step_ragged(cfg, params, **ops)
+
+        def chunk():
+            _, st, sp, pool = res["m"]
+            res["c"] = P.decode_slots_paged(cfg, params, st, pool, ops["table"],
+                                            ops["generator"], sp, num_steps=K)
+
+        if label == "warm":
+            mixed()
+            chunk()
+            torch.cuda.synchronize()
+            continue
+        for name, fn in (("mixed launch", mixed), (f"decode chunk of {K} steps", chunk)):
+            wall_us, busy_us, kern = profile_call(torch, fn)
+            n_kern = len(kern)
+            tokens = n_tok if name == "mixed launch" else int(res["c"][1].sum())
+            if not n_kern:
+                print(f"(i) profiled {name}: device busy share not measured (the "
+                      f"profiler recorded no device kernels)")
+                continue
+            print(f"(i) profiled {name}: wall_ms={wall_us / 1e3:.3f} "
+                  f"device busy_ms={busy_us / 1e3:.3f} idle_share={1 - busy_us / wall_us:.4f} "
+                  f"kernels={n_kern} tokens={tokens} kernels_per_token={n_kern / tokens:.1f}")
+            for ms, count, kname in top_kernels(kern, 6):
+                print(f"    {ms:8.3f} ms {count:5d}x  {kname[:100]}")
+
+
+def paged_line(rows, kernel, launches, replaces, pick, shapes):
+    """A paged kernel's JSON entry, from its bf16 cases of (f) at the
+    main path's shapes (no window, softcap or scale on tinyllama)."""
+    sel = [r for r in rows if r["kernel"] == kernel and r["dtype"] == "bfloat16"
+           and r["variant"] == "" and pick(r)]
+    n = len(sel)
+    _, bound_by = bound(sum(r["nbytes"] for r in sel), sum(r["flops"] for r in sel),
+                        "bfloat16")
+    return {
+        "name": kernel,
+        "route": "cuda",
+        "source": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
+        "replaces": replaces,
+        "launches": launches[kernel],
+        "max_abs_err": max(r["max_abs_err"] for r in sel),
+        "ms": sum(r["ms"] for r in sel) / n,
+        "plain_ms": sum(r["plain_ms"] for r in sel) / n,
+        "bound_ms": sum(r["bound_ms"] for r in sel) / n,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call reads a block table
+        "shapes": shapes,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -416,7 +908,11 @@ def main() -> int:
         return 2
     from distributed_llm_inference_tpu_torch import kernels
     from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.engine import generate as G
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+    from distributed_llm_inference_tpu_torch.models import api as M
     from distributed_llm_inference_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
     from distributed_llm_inference_tpu_torch.runtime import create_engine
 
     # the plain twins and the reference path in full fp32
@@ -455,14 +951,49 @@ def main() -> int:
     # (d) kernel vs plain logits on the same model
     phase_d(torch, engine)
 
-    # (e) report
+    # (e) report on the solo path
     phase_profile(torch, engine)
     for name in ("greedy", "greedy_again"):
         _, r, wall = results[name]
         print(f"(e) {name}: ttft_s={r['ttft_s']} tokens_per_sec={r['tokens_per_sec']} "
               f"tokens={r['tokens_generated']} wall_s={wall:.3f} ({smi})")
-    print(f"(e) total {time.time() - t_start:.1f} s")
-    line = {"kernels": [kernels_line(torch, timer, fa, shapes, launches)]}
+    flash_entry = kernels_line(torch, timer, fa, shapes, launches)
+
+    # (f) the paged kernels against their twins
+    paged_rows = phase_f(torch, timer, pa, P)
+
+    # (g) the continuous paged fleet through the HTTP server (the main path)
+    wave = phase_g(torch, engine, pa, fa)
+
+    # (h) the fleet's kernel path vs its plain path, and the sync check
+    phase_h(torch, engine, P, G, M)
+
+    # (i) report on the fleet
+    n_tok = 0
+    for i, (_, r, wall) in enumerate(wave["results"]):
+        n_tok += r["tokens_generated"]
+        print(f"(i) fleet request {i}: prompt_tokens={r['prompt_tokens']} "
+              f"ttft_s={r['ttft_s']} tokens_per_sec={r['tokens_per_sec']} "
+              f"tokens={r['tokens_generated']} wall_s={wall:.3f}")
+    print(f"(i) fleet wave: {n_tok} tokens from {len(wave['results'])} concurrent "
+          f"requests in {wave['wave_s']:.3f} s = {n_tok / wave['wave_s']:.2f} tokens/s "
+          f"aggregate ({smi})")
+    phase_i_profile(torch, engine, P, G)
+    print(f"(i) total {time.time() - t_start:.1f} s")
+    line = {"kernels": [
+        flash_entry,
+        paged_line(paged_rows, "ragged_paged_attend", wave["launches"],
+                   "distributed_llm_inference_tpu/ops/paged_attention.py:482",
+                   lambda r: True,
+                   f"bf16 H={H} KV={KV} Dh={DH}, {BLOCK}-token blocks, width "
+                   f"{RAGGED_W} in tiles of {RAGGED_TILE}; mean of the (f) launches: "
+                   + ", ".join(ragged_plans(P))),
+        paged_line(paged_rows, "paged_flash_attend", wave["launches"],
+                   "distributed_llm_inference_tpu/ops/paged_attention.py:71",
+                   lambda r: r["case"] == f"B={FLEET['n_slots']}",
+                   f"bf16 B={FLEET['n_slots']} H={H} KV={KV} Dh={DH}, {BLOCK}-token "
+                   f"blocks, positions {SPECIAL_POS} and 3 drawn in [0, 1024)"),
+    ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,8 @@ defaults. Differences:
   * `attn_impl` is "plain" (einsum + mask in PyTorch, the counterpart of
     "xla") or "kernel" (the hand-written CUDA flash kernel of
     ops/flash_attention.py, the counterpart of "pallas");
-  * EngineConfig keeps only the fields the single-device solo engine
-    reads; fleet knobs arrive with the slices that port the fleet.
+  * EngineConfig keeps only the fields the solo engine and the
+    continuous paged fleet read; other knobs arrive with their slices.
 """
 
 from __future__ import annotations
@@ -227,8 +227,9 @@ class SamplingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Solo-engine settings (the subset of the JAX EngineConfig that the
-    single-device serving path reads; same names, same defaults)."""
+    """Serving settings: the subset of the JAX EngineConfig that the solo
+    engine and the continuous paged fleet read; same names, same
+    defaults, except `preempt_policy` (see below)."""
 
     # Prompt-length buckets: prompts right-pad to the smallest bucket that
     # fits, and prompts longer than the largest are chunk-prefilled in
@@ -237,17 +238,39 @@ class EngineConfig:
     prefill_buckets: tuple = (64, 128, 256, 512, 1024, 2048)
     # Per-request wall-clock deadline in seconds (None = unlimited).
     request_deadline_s: Optional[float] = None
-    # Prefix KV cache: not ported yet (the engine rejects > 0).
+    # Prefix KV cache: not ported yet (the engines reject > 0).
     prefix_cache_entries: int = 0
     # Runtime LoRA adapter pages: not ported yet (the engine rejects > 0).
     adapter_slots: int = 0
+    # Ragged paged ingest: the paged fleet prefills straight into the
+    # block pool in flat-token launches (engine/paged.py). The fleet
+    # rejects False: the bucketed scratch admission is not ported.
+    ragged_prefill: bool = True
+    # Flat-token launch width of the ragged ingest programs, rounded up
+    # to a whole number of query tiles (8).
+    ragged_width: int = 64
+    # Chunked prefill: each scheduler step is ONE mixed launch of every
+    # decode row plus budget-sliced prompt chunks (engine/scheduler.py).
+    # The fleet rejects False: whole-prefill admission is not ported.
+    chunked_prefill: bool = True
+    # Per-step flat-token budget of the mixed launch (rounded up to whole
+    # query tiles, and to one prefill tile above the decode fleet).
+    step_token_budget: int = 128
     # SLO classes: (name, ttft_target_s, tpot_target_s, weight,
-    # sheddable). The solo engine only validates and echoes the class.
+    # sheddable). The fleet apportions the prefill budget by weight x
+    # urgency and sheds a sheddable class over its target; the solo
+    # engine only validates and echoes the class.
     slo_classes: tuple = (
         ("interactive", 0.5, 0.1, 4.0, True),
         ("standard", 2.0, 0.5, 2.0, True),
         ("batch", 30.0, 2.0, 1.0, False),
     )
+    # Class assigned when a request carries no slo_class field.
+    slo_default_class: str = "standard"
+    # KV preemption under pool pressure. The JAX default is "swap"; the
+    # port accepts only "off" (a request that cannot get blocks waits for
+    # a release) until preemption is ported, so "off" is its default.
+    preempt_policy: str = "off"
     # Replica specialization label ("prefill" | "decode" | "mixed"),
     # reported on /health.
     replica_class: str = "mixed"

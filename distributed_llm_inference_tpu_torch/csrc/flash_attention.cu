@@ -42,9 +42,12 @@
 #include <float.h>
 #include <stddef.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int NT = 128;  // threads per block: 8 row groups x 16 column lanes
+constexpr int MAX_DEVICES = 64;
 constexpr float NEG = -0.7f * FLT_MAX;  // mask fill (the TPU kernel's _NEG)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -247,9 +250,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const size_t smem =
       sizeof(float) * (BM * (DHP + 1) + BN * (DHP + 1) + BN * DHP + BM * (BN + 1));
   auto kernel = flash_fwd<T, DHP, RM, CN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the shared-memory opt-in, once per device for this instance
+  static std::atomic<bool> smem_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || !smem_set[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) smem_set[dev].store(true, std::memory_order_release);
+  }
   const int group = H / KV;
   const dim3 grid((T_len * group + BM - 1) / BM, KV, B);
   kernel<<<grid, NT, smem, stream>>>(

@@ -1,0 +1,882 @@
+"""Continuous (in-flight) batching over the block-paged KV pool: the
+mixed-launch core of the JAX package's engine/continuous.py in PyTorch.
+
+A fixed fleet of `n_slots` slots decodes in lock-step over the block pool
+(engine/paged.py), and a queued request joins the moment a slot and pool
+blocks are free. Its prompt lands chunk by chunk: every scheduler step is
+ONE mixed launch (engine/paged.mixed_step_ragged) carrying a decode token
+for every active slot plus the prompt chunks that the token-budget
+scheduler (engine/scheduler.py) granted this step. The launch that carries
+an admission's last chunk samples its first token and arms its slot on
+the device. A step with no prompt pending falls back to a decode chunk
+(engine/paged.decode_slots_paged, `chunk_steps` tokens per slot).
+
+Lag pipelining: each launch's results are ONE packed int32 array, copied
+to pinned host memory with `non_blocking=True` behind a CUDA event; up to
+`chunk_lag` launches are in flight before the worker waits on the oldest
+event. Launches read their decode positions from the slot state on the
+device (engine/paged.DeviceMeta) and their operands are uploaded from
+pinned memory, so planning the next launch never waits for a fetch.
+
+Attribution discipline: each launch snapshots the slot -> request
+assignment, so emissions of a launch still in flight when a slot is
+freed and re-armed are never credited to the new tenant.
+
+Not ported in this slice (each raises NotImplementedError naming its
+ROADMAP.md item): speculation, the shadow / KV fabric, adapters,
+grammar constraints in the fleet (they go to the solo engine, as in the
+JAX package), preemption and the supervisor's restart / salvage, the
+whole-prefill admission and the block-prefix cache, and the dense
+(non-paged) fleet. A crash in the worker loop fails every request in
+flight with an error envelope and marks the engine not ready; it is not
+restarted.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..models.llama import ADAPTERS, FAMILIES, _not_ported
+from ..utils.logging import get_logger
+from ..utils.metrics import register_fleet_metrics
+from ..utils.tracing import Trace
+from . import generate as G
+from . import paged as P
+from .scheduler import PrefillJob, TokenBudgetScheduler, parse_slo_classes
+
+log = get_logger("continuous")
+
+# _start_job sentinel: the pool has no blocks for this request right now —
+# requeue it (front) and retry after the next release
+_BLOCKED = object()
+
+
+class _Request:
+    __slots__ = (
+        "prompt", "kwargs", "done", "result", "t_start", "ttft", "first_id",
+        "tokens", "slot", "enqueued", "budget", "record", "prompt_tokens",
+        "block_ids", "need", "trace", "allowed", "slo", "ids", "deadline_at",
+        "prefill_chunks",
+    )
+
+    def __init__(self, prompt: str, kwargs: dict, request_id=None):
+        self.prompt = prompt
+        self.slo = kwargs.pop("slo_class", None)
+        self.kwargs = kwargs
+        self.trace = Trace(request_id)
+        self.done = threading.Event()
+        self.result: Optional[dict] = None
+        self.enqueued = time.time()
+        self.t_start = self.enqueued
+        self.ttft: float = 0.0
+        self.first_id: Optional[int] = None
+        self.tokens: list = []
+        self.slot: Optional[int] = None
+        self.budget = 0
+        self.record = True  # False: warmup traffic, kept out of /stats
+        self.prompt_tokens = 0
+        self.block_ids = None
+        self.need = None
+        self.allowed: Optional[int] = None
+        self.ids: Optional[list] = None
+        dl = kwargs.pop("deadline_ms", None)
+        self.deadline_at = self.enqueued + float(dl) / 1e3 if dl is not None else None
+        self.prefill_chunks = 0  # mixed launches that carried its prompt
+
+
+class ContinuousEngine:
+    """In-flight batching front end over an InferenceEngine's model and
+    backend. submit() blocks until the request's envelope is ready (the
+    solo engine's schema plus "continuous": true)."""
+
+    def __init__(
+        self,
+        engine: Any,
+        n_slots: int = 8,
+        chunk_steps: int = 16,
+        max_queue: int = 64,
+        chunk_lag: int = 2,
+        slot_max_seq: Optional[int] = None,
+        kv_pool_blocks: Optional[int] = None,
+        kv_block_size: int = 16,
+        kv_shadow: Optional[bool] = None,
+        restore_dir: Optional[str] = None,
+    ):
+        cfg = engine.cfg
+        ecfg = engine.engine_cfg
+        if cfg.arch != "llama":
+            raise _not_ported(f"the continuous fleet for arch {cfg.arch!r}",
+                              FAMILIES)
+        if kv_pool_blocks is None:
+            raise _not_ported("the dense slot fleet (decode_slots)", "Dense fleet")
+        backend = engine.backend
+        for flag, what in (("supports_slots", "slot decode"),
+                           ("supports_paged", "paged KV"),
+                           ("supports_ragged_fill", "ragged paged ingest"),
+                           ("supports_mixed_step", "the mixed launch")):
+            if not getattr(backend, flag, False):
+                raise ValueError(
+                    f"backend {backend.name!r} does not support {what}; the "
+                    f"fleet runs on the single-device llama backend"
+                )
+        if kv_shadow or restore_dir is not None:
+            raise _not_ported("the KV shadow (engine/shadow.py)", "Shadow and fabric")
+        if ecfg.prefix_cache_entries > 0:
+            raise _not_ported("the fleet's block-prefix cache", "Block-prefix cache")
+        if not (ecfg.ragged_prefill and ecfg.chunked_prefill):
+            raise _not_ported(
+                "whole-prefill admission (ragged_prefill / chunked_prefill "
+                "False)", "Whole-prefill admission",
+            )
+        if ecfg.preempt_policy != "off":
+            raise _not_ported(f"preempt_policy {ecfg.preempt_policy!r}",
+                              "Preemption and the supervisor")
+        if ecfg.adapter_slots > 0:
+            raise _not_ported("adapter pages in the fleet", ADAPTERS)
+        self.engine = engine
+        self.cfg = cfg
+        self.backend = engine.backend
+        self.device = torch.device(engine.device)
+        self._cuda = self.device.type == "cuda"
+        self.n_slots = int(n_slots)
+        self.chunk_steps = int(chunk_steps)
+        self.max_queue = int(max_queue)
+        # launches in flight before the worker waits on the oldest fetch
+        self.chunk_lag = max(1, int(chunk_lag))
+        self.slot_max_seq = min(int(slot_max_seq or cfg.max_seq_len),
+                                cfg.max_seq_len)
+        self.kv_block_size = int(kv_block_size)
+        if self.kv_block_size < 1:
+            raise ValueError("kv_block_size must be >= 1")
+        self._max_blocks = -(-self.slot_max_seq // self.kv_block_size)
+        if int(kv_pool_blocks) - 1 < self._max_blocks:
+            raise ValueError(
+                f"kv_pool_blocks={kv_pool_blocks} cannot hold one full "
+                f"slot-class request ({self._max_blocks} blocks of "
+                f"{self.kv_block_size} + the trash block); raise it or "
+                f"shrink slot_max_seq"
+            )
+        self._pool_blocks = int(kv_pool_blocks)
+        self.cache = self.backend.init_paged_pool(self._pool_blocks,
+                                                  self.kv_block_size)
+        self._alloc = P.BlockAllocator(self._pool_blocks, registry=engine.metrics)
+        # host-side block tables; the device copy is re-uploaded on change
+        self._table = np.zeros((self.n_slots, self._max_blocks), np.int32)
+        self._table_dev = None
+        self._ragged_tile = 8
+        self._ragged_width = -(-max(1, int(ecfg.ragged_width))
+                               // self._ragged_tile) * self._ragged_tile
+        self._slo = parse_slo_classes(ecfg)
+        self._sched = TokenBudgetScheduler(
+            self._slo, ecfg.slo_default_class, int(ecfg.step_token_budget),
+            self._ragged_tile, self.n_slots, registry=engine.metrics,
+        )
+        self._sched_width = self._sched.width
+        # pending PrefillJobs (arrival order), and slot -> job while its
+        # prompt lands
+        self._jobs: list = []
+        self._prefilling: dict = {}
+        self._idle_arm = P.idle_mixed_arm(self.n_slots, cfg.vocab_size,
+                                          device=self.device)
+        self.state, self.sparams = G.init_slots(self.n_slots, cfg.vocab_size,
+                                                device=self.device)
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            int(time.time()) & 0x7FFFFFFF
+        )
+        self._cv = threading.Condition()
+        self._queue: list = []  # guarded-by: _cv
+        self._assignment: list = [None] * self.n_slots  # guarded-by: _cv
+        self._closed = False  # guarded-by: _cv
+        self._draining = False  # guarded-by: _cv
+        self._dead = False
+        self.admitted = 0
+        self.completed = 0
+        self.peak_occupancy = 0
+        # launch accounting (/stats "launches"): mixed steps, those that
+        # carried decode rows and prompt chunks at once, decode chunks
+        self.mixed_launches = 0
+        self.mixed_with_both = 0
+        self.chunk_launches = 0
+        self._m = register_fleet_metrics(engine.metrics, self.n_slots)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="continuous-engine")
+        self._thread.start()
+
+    # -- client side ---------------------------------------------------------
+    def _needs_solo(self, kwargs: dict) -> bool:
+        """Contracts slots cannot honor run solo on the wrapped engine (the
+        JAX package's rule): a seed, debug, logprobs, logit_bias, beams,
+        constraints, and speculation (not ported to the fleet)."""
+        return bool(
+            kwargs.get("seed") is not None
+            or kwargs.get("debug")
+            or kwargs.get("speculative")
+            or kwargs.get("logprobs")
+            or kwargs.get("logit_bias")
+            or int(kwargs.get("num_beams", 1) or 1) > 1
+            or kwargs.get("constraint") is not None
+        )
+
+    def _note_queue_locked(self):  # guarded-by: _cv
+        self._m.depth.set(len(self._queue))
+        counts: dict = {}
+        for r in self._queue:
+            counts[r.slo] = counts.get(r.slo, 0) + 1
+        for name in self._slo:
+            self._sched.set_depth(name, counts.get(name, 0))
+
+    def _deadline_env(self, req: _Request, where: str = "") -> dict:
+        self._m.deadline_exceeded.inc()
+        suffix = f" {where}" if where else ""
+        return {"error": f"Error: request exceeded its deadline_ms budget{suffix}",
+                "status": "failed", "error_type": "deadline_exceeded"}
+
+    @staticmethod
+    def _past_deadline(req: _Request, now: Optional[float] = None) -> bool:
+        return req.deadline_at is not None and (
+            now if now is not None else time.time()
+        ) >= req.deadline_at
+
+    def _enqueue(self, req: _Request) -> Optional[dict]:
+        """Admit a request to the bounded queue; returns an error envelope
+        (queue full, over-target sheddable class, closed, draining, dead)
+        or None. Retry-After derives from the request's SLO class."""
+        cls = self._sched.classify(req.slo)
+        req.slo = cls.name
+        if self._past_deadline(req):
+            return self._deadline_env(req, where="before admission")
+        with self._cv:
+            if self._closed or self._dead:
+                return {"error": "Error: server shutting down" if self._closed
+                        else "Error: the continuous scheduler crashed",
+                        "status": "failed",
+                        "error_type": "overloaded" if self._closed else "unavailable"}
+            if self._draining:
+                return {"error": "Error: server draining", "status": "failed",
+                        "error_type": "draining"}
+            class_depth = sum(1 for r in self._queue if r.slo == cls.name)
+            if len(self._queue) >= self.max_queue or self._sched.should_shed(
+                    cls, class_depth):
+                full = len(self._queue) >= self.max_queue
+                log.warning("queue_full" if full else "slo_shed",
+                            depth=len(self._queue), slo_class=cls.name)
+                self._m.shed.inc()
+                self._sched.count_shed(cls.name)
+                return {
+                    "error": (f"Error: request queue full ({self.max_queue})"
+                              if full else
+                              f"Error: {cls.name} queue drain estimate exceeds "
+                              f"the {cls.ttft_target_s:g}s TTFT target"),
+                    "status": "failed", "error_type": "overloaded",
+                    "slo_class": cls.name,
+                    "retry_after_s": self._sched.retry_after_s(cls, class_depth),
+                }
+            self._queue.append(req)
+            self._note_queue_locked()
+            self._cv.notify_all()
+        return None
+
+    def submit(self, prompt: str, **kwargs) -> dict:
+        if kwargs.pop("adapter", None):
+            return {"error": "Error: adapter serving needs the fleet's adapter "
+                    "pool, which is not ported yet", "status": "failed",
+                    "error_type": "invalid_request"}
+        kwargs.pop("tenant", None)
+        if self._needs_solo(kwargs):
+            return self.engine.generate(prompt, **kwargs)
+        req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None))
+        err = self._enqueue(req)
+        if err is not None:
+            return err
+        req.done.wait()
+        return req.result
+
+    @property
+    def ready(self) -> bool:
+        """Load-balancer readiness: False while draining, once closed, or
+        once the worker loop died."""
+        return not (self._draining or self._dead or self._closed)
+
+    def _work_pending(self) -> bool:
+        return bool(self._queue or any(r is not None for r in self._assignment))
+
+    def drain(self, deadline_s: Optional[float] = None) -> bool:
+        """Stop admitting (draining envelopes), then wait for the queue
+        and every slot to finish, up to deadline_s. True when drained."""
+        t0 = time.time()
+        with self._cv:
+            self._draining = True
+            self._cv.notify_all()
+            while self._work_pending():
+                if self._closed or self._dead:
+                    return not self._work_pending()
+                left = None if deadline_s is None else deadline_s - (time.time() - t0)
+                if left is not None and left <= 0:
+                    return False
+                self._cv.wait(timeout=0.1 if left is None else min(left, 0.1))
+        return True
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=10)
+        fail = {"error": "Error: server shutting down", "status": "failed",
+                "error_type": "overloaded"}
+        with self._cv:
+            pending = self._queue[:]
+            self._queue.clear()
+        for req in pending + [r for r in self._assignment if r is not None]:
+            if req.result is None:
+                req.result = dict(fail)
+            self._push_final(req)
+
+    def warmup(self) -> dict:
+        """Serve one throwaway request through the fleet (kept out of
+        /stats) so the kernels are built and loaded before traffic."""
+        t0 = time.time()
+        req = _Request("warmup", dict(max_tokens=self.chunk_steps + 2,
+                                      greedy=True, chat=False))
+        req.record = False
+        err = self._enqueue(req)
+        if err is not None:
+            return {"ok": False, "seconds": 0.0, **err}
+        req.done.wait()
+        return {"ok": (req.result or {}).get("status") == "success",
+                "seconds": round(time.time() - t0, 2)}
+
+    def stats(self) -> dict:
+        with self._cv:
+            out = {
+                "slots": self.n_slots,
+                "occupied": sum(r is not None for r in self._assignment),
+                "queued": len(self._queue),
+                "admitted": self.admitted,
+                "completed": self.completed,
+                "peak_occupancy": self.peak_occupancy,
+                "chunk_steps": self.chunk_steps,
+            }
+        out["preemption"] = {"policy": "off"}
+        out["supervisor"] = {"ready": self.ready, "draining": self._draining,
+                             "dead": self._dead}
+        out["paged"] = {
+            "block_size": self.kv_block_size,
+            "pool_blocks": self._alloc.n_blocks,
+            "free_blocks": self._alloc.free_blocks,
+            "shared_blocks": self._alloc.shared_blocks,
+            "cached_blocks": 0,
+            "ragged_prefill": True,
+            "ragged_width": self._ragged_width,
+        }
+        out["slo"] = {
+            "default": self._sched.default_name,
+            "classes": {
+                name: {
+                    "ttft_target_s": c.ttft_target_s,
+                    "tpot_target_s": c.tpot_target_s,
+                    "weight": c.weight,
+                    "sheddable": c.sheddable,
+                    "ttft_ewma_s": self._sched.feedback[name].ttft_ewma,
+                    "tpot_ewma_s": self._sched.feedback[name].tpot_ewma,
+                }
+                for name, c in self._slo.items()
+            },
+        }
+        out["scheduler"] = {
+            "chunked_prefill": True,
+            "step_width": self._sched_width,
+            "tile": self._ragged_tile,
+            "prefilling": len(self._jobs),
+        }
+        out["launches"] = {
+            "mixed": self.mixed_launches,
+            "mixed_with_decode_and_prefill": self.mixed_with_both,
+            "decode_chunks": self.chunk_launches,
+        }
+        return out
+
+    # -- host <-> device -----------------------------------------------------
+    def _upload(self, *arrays):
+        """numpy arrays -> device tensors. On the card each goes through
+        pinned memory with non_blocking=True: a copy from pageable memory
+        would synchronize the stream and stall lag pipelining."""
+        if not self._cuda:
+            return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        return [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                .to(self.device, non_blocking=True) for a in arrays]
+
+    def _to_host(self, packed: torch.Tensor):
+        """Start the packed result's copy to the host: pinned memory,
+        non_blocking, and a CUDA event the fetch waits on."""
+        if not self._cuda:
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    @staticmethod
+    def _fetch(handle) -> np.ndarray:
+        host, ev = handle
+        if ev is not None:
+            ev.synchronize()
+        return host.numpy()
+
+    def _table_device(self):
+        if self._table_dev is None:
+            (self._table_dev,) = self._upload(self._table)
+        return self._table_dev
+
+    # -- worker thread -------------------------------------------------------
+    def _loop(self):
+        """The worker: a crash fails every request in flight with an
+        error envelope and marks the engine dead (not ready); it is not
+        restarted (the JAX supervisor is not ported)."""
+        try:
+            self._sched_loop()
+        except Exception as e:  # noqa: BLE001 - every request gets an envelope
+            log.error("scheduler_crashed", exc_info=True, error=str(e))
+            fail = {"error": f"Error: the continuous scheduler crashed: {e}",
+                    "status": "failed", "error_type": "unavailable"}
+            with self._cv:
+                self._dead = True
+                pending = self._queue[:]
+                self._queue.clear()
+                live = [r for r in self._assignment if r is not None]
+                self._cv.notify_all()
+            for req in pending + live:
+                if not req.done.is_set():
+                    req.result = dict(fail)
+                    self._push_final(req)
+
+    def _sched_loop(self):
+        """Each iteration starts any queued requests a free slot and pool
+        blocks can take (as PrefillJobs, host work only), then launches ONE
+        step: a mixed launch while prompt chunks are pending, else a decode
+        chunk. Up to chunk_lag launches stay in flight."""
+        inflight: collections.deque = collections.deque()
+        while True:
+            with self._cv:
+                while (not self._queue and not any(self._assignment)
+                       and not inflight and not self._closed):
+                    self._cv.wait()
+                if self._closed:
+                    return
+            self._reap_jobs()
+            self._start_jobs()
+            step = self._launch_mixed() if self._jobs else self._launch_chunk()
+            launched = step is not None
+            if launched:
+                inflight.append(step)
+            while inflight and (len(inflight) > self.chunk_lag or not launched):
+                self._process_any(inflight.popleft())
+                launched = True
+
+    def _process_any(self, step):
+        if step[0] == "mixed":
+            self._process_mixed(step)
+        else:
+            self._process(step)
+
+    def _reap_jobs(self):
+        """Fail pending prefills whose deadline passed before spending more
+        budget on them."""
+        deadline = self.engine.engine_cfg.request_deadline_s
+        now = time.time()
+        for job in list(self._jobs):
+            req = job.req
+            if self._past_deadline(req, now):
+                req.result = self._deadline_env(req, where="mid-prefill")
+            elif deadline and now - req.t_start > deadline:
+                req.result = {"error": f"Error: request exceeded the {deadline:g}s "
+                              "deadline", "status": "failed", "error_type": "timeout"}
+            else:
+                continue
+            self._m.preempt.labels(reason="deadline").inc()
+            self._release(req)
+
+    def _start_jobs(self):
+        """Move queued requests into PrefillJobs while a slot and pool
+        blocks are available (host-side only: tokenize, allocate blocks,
+        install the slot's table row)."""
+        while True:
+            with self._cv:
+                if not self._queue:
+                    return
+                free = [b for b, r in enumerate(self._assignment) if r is None]
+                if not free:
+                    return
+                head = self._queue[0]
+                if head.need is not None and head.need > self._alloc.free_blocks:
+                    return  # a sized head that still cannot get blocks waits
+                req = self._queue.pop(0)
+                self._note_queue_locked()
+            try:
+                started = self._start_job(req, free[0])
+            except ValueError as e:
+                self._free_slot_resources(req)
+                log.warning("invalid_request", error=str(e))
+                req.result = {"error": f"Error: {e}", "status": "failed",
+                              "error_type": "invalid_request"}
+                self._push_final(req)
+                continue
+            if started is _BLOCKED:
+                with self._cv:
+                    self._queue.insert(0, req)
+                    self._note_queue_locked()
+                return
+
+    def _start_job(self, req: _Request, slot: int):
+        """Plan one chunked admission: tokenize, clamp the budget,
+        allocate pool blocks and queue the PrefillJob. Returns _BLOCKED
+        when the pool cannot take it, None when the request failed fast,
+        or the job."""
+        eng, cfg = self.engine, self.cfg
+        req.trace.checkpoint("queue_wait")
+        if self._past_deadline(req):
+            req.result = self._deadline_env(req, where="while queued")
+            self._push_final(req)
+            return None
+        deadline = eng.engine_cfg.request_deadline_s
+        if deadline and time.time() - req.enqueued > deadline:
+            req.result = {"error": f"Error: request exceeded the {deadline:g}s "
+                          "deadline while queued", "status": "failed",
+                          "error_type": "timeout"}
+            self._push_final(req)
+            return None
+        k = req.kwargs
+        text = eng.render_chat(req.prompt) if k.get("chat", True) else req.prompt
+        ids = eng.tokenizer.encode(text)
+        req.prompt_tokens = prompt_len = len(ids)
+        if not 1 <= prompt_len <= self.slot_max_seq - 2:
+            raise ValueError(
+                f"prompt length {prompt_len} exceeds the slot capacity "
+                f"(slot_max_seq {self.slot_max_seq})"
+            )
+        max_tokens, _ = eng._clamp_decode(
+            prompt_len, int(k.get("max_tokens", 20)), capacity=self.slot_max_seq,
+        )
+        req.allowed = max_tokens
+        rp = float(k.get("repetition_penalty", 1.0))
+        sampling = (
+            float(k.get("temperature", 0.7)), int(k.get("top_k", 50)),
+            float(k.get("top_p", 0.9)), bool(k.get("greedy", False)),
+            float(k.get("min_p", 0.0)), rp,
+            float(k.get("frequency_penalty", 0.0)),
+            float(k.get("presence_penalty", 0.0)),
+        )
+        need_total = P.blocks_needed(prompt_len, max_tokens, self.kv_block_size)
+        req.need = need_total
+        blk_ids = self._alloc.alloc(need_total)
+        if blk_ids is None:
+            return _BLOCKED
+        req.block_ids = blk_ids
+        table_row = np.zeros((self._max_blocks,), np.int32)
+        table_row[:need_total] = blk_ids
+        presence_row = np.zeros((cfg.vocab_size,), bool)
+        if rp != 1.0:
+            presence_row[ids] = True
+        job = PrefillJob(req, ids, 0, prompt_len, max_tokens, slot, sampling,
+                         presence_row, table_row, self._sched.classify(req.slo))
+        self._table[slot] = table_row
+        self._table_dev = None
+        req.slot = slot
+        req.ids = ids
+        with self._cv:
+            self._assignment[slot] = req
+        self._jobs.append(job)
+        self._prefilling[slot] = job
+        log.info("prefill_started", slot=slot, prompt_len=prompt_len,
+                 tail=job.remaining, slo_class=job.cls.name,
+                 request_id=req.trace.request_id)
+        return job
+
+    def _launch_chunk(self):
+        """Launch one decode chunk over the fleet; returns the in-flight
+        tuple ("chunk", fetch handle, assignment snapshot, launch time) or
+        None when no slot is active."""
+        if not any(r is not None for r in self._assignment):
+            return None
+        emitted, mask, self.state, self.cache = self.backend.decode_slots_paged(
+            self.state, self.cache, self._table_device(), self._gen,
+            self.sparams, num_steps=self.chunk_steps,
+        )
+        packed = G.pack_chunk(emitted, mask, self.state.active)
+        self.chunk_launches += 1
+        return ("chunk", self._to_host(packed), list(self._assignment),
+                time.perf_counter())
+
+    def _launch_mixed(self):
+        """ONE scheduler step: every decoding slot's token plus the budget
+        slice of pending prompt chunks in one mixed launch. Decode rows'
+        positions are substituted on the device (DeviceMeta). Returns the
+        in-flight tuple ("mixed", fetch handle, decode snapshot, {slot:
+        req} completions, launch time) or None."""
+        active = [b for b, r in enumerate(self._assignment)
+                  if r is not None and b not in self._prefilling]
+        plan = self._sched.plan(
+            len(active), self._jobs,
+            active_classes={self._assignment[b].slo for b in active},
+        )
+        if not active and not plan:
+            return None
+        W, B, tile = self._sched_width, self.n_slots, self._ragged_tile
+        # decode rows' positions are placeholders: the launch derives them
+        # from the slot state on the device (DeviceMeta)
+        entries = [(b, 0, 1, P.RAGGED_DECODE) for b in active]
+        chunk_list = []
+        for job, n in plan:
+            start = job.p0 + job.done
+            entries.append((job.slot, start, n, P.RAGGED_PREFILL))
+            chunk_list.append((job, n, start))
+        meta, tok_row, tok_pos, offsets, stats = P.build_ragged_meta(
+            entries, width=W, tile=tile)
+        n_dec = len(active)
+        dev_np = P.build_device_meta(entries, offsets, n_dec, width=W, tile=tile)
+        toks = np.zeros((W,), np.int32)
+        dec_flag = np.zeros((W,), bool)
+        dec_idx = np.zeros((B,), np.int32)
+        for b, off in zip(active, offsets[:n_dec]):
+            dec_flag[off] = True
+            dec_idx[b] = off
+        completions = {}
+        arm_np = None
+        for (job, n, start), off in zip(chunk_list, offsets[n_dec:]):
+            toks[off: off + n] = job.ids[start: start + n]
+            job.done += n
+            job.req.prefill_chunks += 1
+            if job.remaining == 0:
+                # final chunk: the launch samples this admission's first
+                # token and arms its slot on the device
+                if arm_np is None:
+                    arm_np = self._fresh_arm()
+                on, idx, plen, mtk, sp, presence = arm_np
+                s = job.slot
+                on[s] = True
+                idx[s] = off + n - 1
+                plen[s] = job.prompt_len
+                mtk[s] = job.max_tokens
+                for field, value in zip(sp, job.sampling):
+                    field[s] = value
+                presence[s] = job.presence_row
+                completions[s] = job.req
+                job.req.budget = job.max_tokens - 1
+        arm = self._idle_arm
+        if arm_np is not None:
+            on, idx, plen, mtk, sp, presence = arm_np
+            up = self._upload(on, idx, plen, mtk, presence, *sp)
+            arm = P.MixedArm(up[0], up[1], up[2], up[3], G.SlotParams(*up[5:]),
+                             up[4])
+        (toks_d, row_d, pos_d, flag_d, meta_d, idx_d, t_on, t_off, k_on,
+         k_off) = self._upload(toks, tok_row, tok_pos, dec_flag, meta, dec_idx,
+                               *dev_np)
+        packed, self.state, self.sparams, self.cache = self.backend.mixed_step_ragged(
+            toks_d, row_d, pos_d, flag_d, meta_d, self.cache,
+            self._table_device(), self.state, self.sparams, self._gen, idx_d,
+            arm, dev=P.DeviceMeta(t_on, t_off, k_on, k_off),
+        )
+        handle = self._to_host(packed)
+        for slot in completions:
+            self._jobs.remove(self._prefilling.pop(slot))
+        n_pf_tokens = sum(n for _, n, _ in chunk_list)
+        self.mixed_launches += 1
+        if n_dec and chunk_list:
+            self.mixed_with_both += 1
+        self._m.sched_rows.inc(n_dec)
+        self._m.sched_chunks.inc(len(chunk_list))
+        self._m.sched_tokens.labels(kind="decode").inc(n_dec)
+        self._m.sched_tokens.labels(kind="prefill").inc(n_pf_tokens)
+        if stats["prefill_rows"]:
+            self._m.ragged_rows.labels(kind="prefill").inc(stats["prefill_rows"])
+        if stats["decode_rows"]:
+            self._m.ragged_rows.labels(kind="decode").inc(stats["decode_rows"])
+        self._m.ragged_tiles.labels(state="pad").inc(stats["pad_tiles"])
+        self._m.ragged_tiles.labels(state="live").inc(
+            stats["tiles"] - stats["pad_tiles"])
+        self._m.ragged_launches.labels(phase="mixed").inc()
+        snapshot = [self._assignment[b] if b in active else None for b in range(B)]
+        return ("mixed", handle, snapshot, completions, time.perf_counter())
+
+    def _fresh_arm(self):
+        """Mutable numpy MixedArm builder (one per launch WITH completions;
+        other steps reuse the device-resident idle arm)."""
+        B, V = self.n_slots, self.cfg.vocab_size
+        return (
+            np.zeros((B,), bool), np.zeros((B,), np.int32),
+            np.zeros((B,), np.int32), np.zeros((B,), np.int32),
+            [np.ones((B,), np.float32), np.zeros((B,), np.int32),
+             np.ones((B,), np.float32), np.ones((B,), bool),
+             np.zeros((B,), np.float32), np.ones((B,), np.float32),
+             np.zeros((B,), np.float32), np.zeros((B,), np.float32)],
+            np.zeros((B, V), bool),
+        )
+
+    def _process_mixed(self, step):
+        """Fetch one mixed step's packed results: first-token bookkeeping
+        for admissions that completed in that launch, then the shared
+        decode distribution."""
+        _, handle, snapshot, completions, t_launch = step
+        packed = self._fetch(handle)
+        self._m.step.observe(max(0.0, time.perf_counter() - t_launch))
+        emitted, mask, active, firsts = packed[:4]
+        now = time.time()
+        for slot, req in completions.items():
+            if req.done.is_set():
+                continue
+            req.first_id = int(firsts[slot])
+            if not req.ttft:
+                req.ttft = now - req.t_start
+            req.trace.checkpoint("admission")
+            with self._cv:
+                self.admitted += 1
+                if req.record:
+                    self.engine.request_count += 1
+                occ = sum(r is not None for r in self._assignment)
+                self.peak_occupancy = max(self.peak_occupancy, occ)
+            self._m.occupied.set(occ)
+            if req.record:
+                self._m.admission_wait.observe(now - req.enqueued)
+            log.info("admitted", slot=slot, prompt_len=req.prompt_tokens,
+                     budget=req.budget, occupancy=occ, chunked=True,
+                     request_id=req.trace.request_id)
+            self._post_admit(req)
+        self._distribute(emitted[None, :], mask[None, :].astype(bool),
+                         active.astype(bool), snapshot)
+
+    def _post_admit(self, req: _Request):
+        """A stop token first, or a zero budget, finishes the request at
+        once (mirroring the on-device arming decision)."""
+        if req.first_id in self.cfg.all_stop_ids or req.budget == 0:
+            self._finalize(req)
+
+    def _process(self, step):
+        """Fetch one decode chunk's packed results and distribute them."""
+        _, handle, snapshot, t_launch = step
+        packed = self._fetch(handle)  # [2K+1, B] — ONE copy per chunk
+        self._m.step.observe(
+            max(0.0, time.perf_counter() - t_launch) / self.chunk_steps)
+        K = self.chunk_steps
+        self._distribute(packed[:K], packed[K: 2 * K].astype(bool),
+                         packed[2 * K].astype(bool), snapshot)
+
+    def _distribute(self, emitted, mask, active, snapshot):
+        """Attribute one fetched launch's emissions ([K, B] + final active
+        row) to the snapshot's tenants and handle stop / deadline
+        / finalize."""
+        deadline = self.engine.engine_cfg.request_deadline_s
+        now = time.time()
+        for b, req in enumerate(snapshot):
+            if req is None or req.done.is_set():
+                continue  # a freed tenant's masked leftovers
+            new = emitted[mask[:, b], b]
+            req.tokens.extend(int(t) for t in new)
+            gen = None
+            if len(new) and req.kwargs.get("stop"):
+                gen = self._gen_text(req)
+                if gen[2]:  # a textual stop sequence fired: free the slot now
+                    if self._assignment[b] is req:
+                        self.state = G.kill_slot(self.state, b)
+                        self._m.preempt.labels(reason="stop").inc()
+                    self._finalize(req, pre=gen)
+                    continue
+            if self._assignment[b] is req and not active[b]:
+                self._finalize(req, pre=gen)
+            elif self._past_deadline(req, now) and self._assignment[b] is req:
+                self.state = G.kill_slot(self.state, b)
+                self._m.preempt.labels(reason="deadline").inc()
+                req.result = self._deadline_env(req)
+                self._release(req)
+            elif deadline and now - req.t_start > deadline:
+                self.state = G.kill_slot(self.state, b)
+                self._m.preempt.labels(reason="deadline").inc()
+                req.result = {"error": f"Error: request exceeded the {deadline:g}s "
+                              "deadline", "status": "failed", "error_type": "timeout"}
+                self._release(req)
+
+    def _gen_text(self, req: _Request) -> tuple:
+        """(generated ids, stop-truncated text, stop hit) for req."""
+        head = ([req.first_id] if req.first_id is not None
+                and req.first_id not in self.cfg.all_stop_ids else [])
+        gen_ids = head + req.tokens
+        text = self.engine.tokenizer.decode(gen_ids, skip_special_tokens=True)
+        cut, hit = self.engine._truncate_at_stop(text, req.kwargs.get("stop"))
+        return gen_ids, cut, hit
+
+    def _finalize(self, req: _Request, pre=None):
+        req.trace.checkpoint("decode")
+        gen_ids, response, stopped = pre if pre is not None else self._gen_text(req)
+        req.trace.checkpoint("detokenize")
+        elapsed = time.time() - req.t_start
+        n = len(gen_ids)
+        tps = n / elapsed if elapsed > 0 else 0.0
+        tpot = max(0.0, elapsed - req.ttft) / (n - 1) if n > 1 else None
+        if req.record:
+            self.engine._record_sample(req.ttft, tps, n, elapsed=elapsed,
+                                       engine="continuous")
+            self._sched.observe(req.slo, req.ttft or None, tpot)
+        req.result = {
+            "prompt": req.prompt,
+            "response": response,
+            "status": "success",
+            "time_taken": f"{elapsed:.2f}s",
+            "tokens_generated": n,
+            "prompt_tokens": req.prompt_tokens,
+            "tokens_per_sec": f"{tps:.2f}",
+            "ttft_s": round(req.ttft, 4),
+            "backend": "continuous",
+            "continuous": True,
+            "finish_reason": "stop" if stopped or n < req.allowed else "length",
+            "prefill_chunks": req.prefill_chunks,
+            "token_ids": gen_ids,
+        }
+        if req.slo is not None:
+            req.result["slo_class"] = req.slo
+        if stopped:
+            req.result["stopped"] = True
+        log.info("completed", slot=req.slot, tokens=n,
+                 elapsed_s=round(elapsed, 3), tokens_per_sec=round(tps, 2))
+        self._release(req)
+
+    def _free_slot_resources(self, req: _Request):
+        """Return req's pool blocks, table row and slot (and drop a
+        pending prefill job) without finalizing it."""
+        if req.slot is not None:
+            job = self._prefilling.pop(req.slot, None)
+            if job is not None and job in self._jobs:
+                self._jobs.remove(job)
+        if req.block_ids is not None:
+            # freed blocks may be re-granted before in-flight launches
+            # drain: safe, device execution is serialized in launch order
+            # and this slot's table row reverts to trash for later launches
+            self._alloc.decref(req.block_ids)
+            req.block_ids = None
+            if req.slot is not None:
+                self._table[req.slot] = 0
+                self._table_dev = None
+        with self._cv:
+            if req.slot is not None and self._assignment[req.slot] is req:
+                self._assignment[req.slot] = None
+            occ = sum(r is not None for r in self._assignment)
+            self._cv.notify_all()
+        self._m.occupied.set(occ)
+
+    def _release(self, req: _Request):
+        self._free_slot_resources(req)
+        with self._cv:
+            self.completed += 1
+        self._push_final(req)
+
+    def _push_final(self, req: _Request):
+        """Single completion point: attach request id + timings, count the
+        request (warmup excluded), then wake submit()."""
+        if req.result is not None:
+            self.engine._finish_request(req.result, req.trace,
+                                        engine="continuous", record=req.record)
+        req.done.set()

@@ -29,6 +29,7 @@ from ..utils.metrics import DEFAULT_SIZE_BUCKETS, MetricsRegistry, percentile
 from ..utils.tokenizer import load_tokenizer
 from ..utils.tracing import Trace
 from . import generate as G
+from . import paged as P
 
 log = get_logger("engine")
 
@@ -40,7 +41,7 @@ BATCH_BUCKETS = (1, 2, 4, 8, 16)
 def not_ported(feature: str) -> ValueError:
     return ValueError(
         f"{feature} is not ported to the PyTorch engine yet "
-        f"(ROADMAP.md Queue 1 item 2)"
+        f"(ROADMAP.md \"Solo-engine features\")"
     )
 
 
@@ -85,6 +86,36 @@ class SingleDeviceBackend:
             max_steps=max_steps, with_logprobs=with_logprobs,
         )
 
+    # -- the continuous paged fleet (engine/paged.py) -----------------------
+    # The flags ContinuousEngine checks, as the JAX one does; the dense
+    # slot fleet (decode_slots) is not ported, so the fleet runs paged only.
+    supports_slots = True
+    supports_ragged_fill = True
+    supports_mixed_step = True
+
+    @property
+    def supports_paged(self) -> bool:
+        return self.cfg.arch == "llama"
+
+    def init_paged_pool(self, n_blocks, block_size):
+        return P.init_pool(self.cfg, n_blocks, block_size, device=self.device)
+
+    def decode_slots_paged(self, state, pool, table, generator, sparams, *,
+                           num_steps, pages=None):
+        return P.decode_slots_paged(
+            self.cfg, self.params, state, pool, table, generator, sparams,
+            num_steps=num_steps, pages=pages,
+        )
+
+    def mixed_step_ragged(self, tokens, tok_row, tok_pos, dec_flag, meta,
+                          pool, table, state, sparams, generator, dec_idx, arm,
+                          spec=None, spec_toks=None, dev=None, pages=None):
+        return P.mixed_step_ragged(
+            self.cfg, self.params, tokens, tok_row, tok_pos, dec_flag, meta,
+            pool, table, state, sparams, generator, dec_idx, arm,
+            spec=spec, spec_toks=spec_toks, dev=dev, pages=pages,
+        )
+
 
 class InferenceEngine:
     def __init__(
@@ -102,7 +133,7 @@ class InferenceEngine:
         if engine_cfg.adapter_slots > 0:
             raise ValueError(
                 "runtime adapters (adapter_slots > 0) are not ported to the "
-                "PyTorch engine yet (ROADMAP.md Queue 1 item 5)"
+                "PyTorch engine yet (ROADMAP.md \"Adapters\")"
             )
         if backend is None:
             if params is None:
@@ -238,11 +269,14 @@ class InferenceEngine:
         return tuple(b for b in self.engine_cfg.prefill_buckets
                      if b <= self.cfg.max_seq_len)
 
-    def _clamp_decode(self, frame: int, max_tokens: int) -> tuple[int, int]:
-        """Cache-capacity discipline: frame + generated must fit
-        max_seq_len, also bounded by the largest decode bucket. Returns
-        (max_tokens, decode_bucket)."""
-        max_tokens = max(1, min(int(max_tokens), self.cfg.max_seq_len - frame - 1,
+    def _clamp_decode(self, frame: int, max_tokens: int,
+                      capacity: Optional[int] = None) -> tuple[int, int]:
+        """Cache-capacity discipline: frame + generated must fit the
+        capacity (default max_seq_len; the continuous fleet passes its
+        per-slot budget), also bounded by the largest decode bucket.
+        Returns (max_tokens, decode_bucket)."""
+        cap = capacity if capacity is not None else self.cfg.max_seq_len
+        max_tokens = max(1, min(int(max_tokens), cap - frame - 1,
                                 DECODE_BUCKETS[-1]))
         return max_tokens, G.pick_bucket(DECODE_BUCKETS, max_tokens)
 
@@ -391,11 +425,15 @@ class InferenceEngine:
             return cfg_s, "timeout"
         return req_s, "deadline_exceeded"
 
-    def _finish_request(self, result: dict, trace: Trace, engine: str) -> dict:
-        """Attach request_id + timings, count the request, log it once."""
+    def _finish_request(self, result: dict, trace: Trace, engine: str,
+                        record: bool = True) -> dict:
+        """Attach request_id + timings, count the request (unless
+        record=False: warmup traffic), log it once."""
         result.setdefault("request_id", trace.request_id)
         result.setdefault("timings", trace.timings())
         status = result.get("status")
+        if not record:
+            return result
         if status == "success":
             self._m_requests.labels(engine=engine, model=self.cfg.name).inc()
         else:

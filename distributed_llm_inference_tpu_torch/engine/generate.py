@@ -181,3 +181,146 @@ def pick_bucket(buckets: tuple, n: int) -> int:
         if n <= b:
             return b
     raise ValueError(f"length {n} exceeds largest bucket {buckets[-1]}")
+
+
+# -- continuous batching (slot decode) ---------------------------------------
+#
+# A fixed fleet of B slots decodes in lock-step, each row at its own
+# position (models/llama.forward_layers slots mode), with per-slot
+# sampling knobs; a new request arms a FREE slot mid-flight. The state is
+# a handful of device tensors that the continuous engine chains from one
+# launch to the next without reading them back.
+
+
+class SlotParams(NamedTuple):
+    """Per-slot sampling knobs, all [B]-shaped (broadcast row-wise through
+    sample_token, so slots with different knobs decode in one step)."""
+
+    temperature: torch.Tensor  # f32 [B]
+    top_k: torch.Tensor  # i32 [B]
+    top_p: torch.Tensor  # f32 [B]
+    greedy: torch.Tensor  # bool [B]
+    min_p: torch.Tensor  # f32 [B]
+    rep_penalty: torch.Tensor  # f32 [B]
+    freq_penalty: torch.Tensor  # f32 [B] (OpenAI frequency_penalty)
+    pres_penalty: torch.Tensor  # f32 [B] (OpenAI presence_penalty)
+
+
+class SlotState(NamedTuple):
+    """Device-side per-slot decode state (the JAX package's SlotState).
+
+    token: last emitted token (its K/V not yet written); pad when inactive.
+    pos: cache position where `token`'s K/V lands on the next forward.
+    active: slot is mid-generation.
+    remaining: tokens this slot may still emit.
+    presence: [B, V] seen-token set (repetition-penalty state).
+    counts: [B, V] generated-token counts (OpenAI penalty state).
+    """
+
+    token: torch.Tensor  # i32 [B]
+    pos: torch.Tensor  # i32 [B]
+    active: torch.Tensor  # bool [B]
+    remaining: torch.Tensor  # i32 [B]
+    presence: torch.Tensor  # bool [B, V]
+    counts: torch.Tensor  # i32 [B, V]
+
+
+SLOT_PARAM_DTYPES = (torch.float32, torch.int32, torch.float32, torch.bool,
+                     torch.float32, torch.float32, torch.float32, torch.float32)
+
+
+def init_slots(n_slots: int, vocab_size: int, device=None):
+    """An idle fleet: (SlotState, SlotParams) with the JAX defaults."""
+    z = torch.zeros((n_slots,), dtype=torch.int32, device=device)
+    ones = torch.ones((n_slots,), dtype=torch.float32, device=device)
+    zeros = torch.zeros((n_slots,), dtype=torch.float32, device=device)
+    state = SlotState(
+        z, z.clone(), torch.zeros((n_slots,), dtype=torch.bool, device=device),
+        z.clone(),
+        torch.zeros((n_slots, vocab_size), dtype=torch.bool, device=device),
+        torch.zeros((n_slots, vocab_size), dtype=torch.int32, device=device),
+    )
+    sparams = SlotParams(
+        ones, z.clone(), ones.clone(),
+        torch.ones((n_slots,), dtype=torch.bool, device=device),
+        zeros, ones.clone(), zeros.clone(), zeros.clone(),
+    )
+    return state, sparams
+
+
+def slot_step(cfg: ModelConfig, state: SlotState, sparams: SlotParams,
+              logits, generator):
+    """ONE copy of the per-step slot sampling and bookkeeping (the JAX
+    package's slot_step): each row samples with its own knobs, then
+    break-before-append EOS, the budget, the pad token on deactivation
+    and the presence / count updates. Inactive rows ride along as greedy
+    and emit nothing. Returns (new_state, emit [B], can_emit [B])."""
+    pad = cfg.pad_token_id
+    nxt = sample_token(
+        generator, logits,
+        sparams.temperature[:, None], sparams.top_k[:, None],
+        sparams.top_p[:, None], sparams.greedy | ~state.active,
+        sparams.min_p[:, None], sparams.rep_penalty[:, None],
+        sparams.freq_penalty[:, None], sparams.pres_penalty[:, None],
+        presence=state.presence, counts=state.counts,
+    ).to(torch.int32)
+    can_emit = state.active & ~stop_mask(cfg, nxt) & (state.remaining > 0)
+    emit = torch.where(can_emit, nxt, pad)
+    new = SlotState(
+        token=emit,
+        pos=state.pos + state.active.to(torch.int32),
+        active=can_emit & (state.remaining > 1),
+        remaining=state.remaining - can_emit.to(torch.int32),
+        presence=presence_update(state.presence, nxt),
+        counts=count_update(state.counts, nxt, can_emit),
+    )
+    return new, emit, can_emit
+
+
+def arm_slot(cfg, state: SlotState, sparams: SlotParams, slot: int,
+             first_token: int, prompt_len: int, max_tokens: int, temperature,
+             top_k, top_p, greedy, min_p, rep_penalty, freq_penalty,
+             pres_penalty, presence_row):
+    """Arm slot row `slot` after its prompt K/V landed (the JAX package's
+    arm_slot): budget max_tokens - 1, or 0 when the first token is a stop
+    token; presence = the prompt's set (presence_row [V] bool) + the first
+    token; counts = the first token. Returns new (state, sparams)."""
+    first = int(first_token)
+    budget = 0 if first in cfg.all_stop_ids else max(int(max_tokens) - 1, 0)
+
+    def put(t, value):
+        t = t.clone()
+        t[slot] = value
+        return t
+
+    presence_row = presence_row.to(state.presence.device).clone()
+    presence_row[first] = True
+    counts_row = torch.zeros_like(state.counts[0])
+    counts_row[first] = 1
+    state = SlotState(
+        token=put(state.token, first), pos=put(state.pos, int(prompt_len)),
+        active=put(state.active, budget > 0),
+        remaining=put(state.remaining, budget),
+        presence=put(state.presence, presence_row),
+        counts=put(state.counts, counts_row),
+    )
+    knobs = (temperature, top_k, top_p, greedy, min_p, rep_penalty,
+             freq_penalty, pres_penalty)
+    sparams = SlotParams(*(put(t, v) for t, v in zip(sparams, knobs)))
+    return state, sparams
+
+
+def kill_slot(state: SlotState, slot: int) -> SlotState:
+    """Force-deactivate a slot (cancel, deadline, textual stop)."""
+    active = state.active.clone()
+    active[slot] = False
+    return state._replace(active=active)
+
+
+def pack_chunk(emitted, emit_mask, active):
+    """One decode chunk's host-bound results as ONE int32 array [2K+1, B]
+    (emitted / mask / final active): one device-to-host copy per chunk."""
+    return torch.cat([
+        emitted.to(torch.int32), emit_mask.to(torch.int32),
+        active.to(torch.int32)[None, :],
+    ], dim=0)

@@ -1,0 +1,678 @@
+"""SLO-aware chunked-prefill scheduling for the continuous paged fleet: a
+copy of the JAX package's engine/scheduler.py, which imports no jax (the
+port copies such modules rather than import the JAX package, whose
+__init__ imports jax). Only this paragraph and two comments that named
+the JAX package's change records differ; the relative imports resolve
+to the port's own utils.
+
+The admit-then-prefill-whole flow (engine/continuous.py's original
+admission) prefills a request's entire prompt before any decoding slot
+advances again: one long prompt stalls every in-flight request's TPOT for
+the full prefill duration — the classic Sarathi/Orca observation, and the
+ROADMAP's top open item. The ragged kernel (ops/paged_attention) already
+serves mixed prefill+decode rows in one launch; what stopped at
+per-admission prefill entries was the HOST-side planning. This module is
+that planning:
+
+  * TOKEN-BUDGET STEPS: every scheduler step assembles ONE mixed ragged
+    launch (engine/paged.mixed_step_ragged) containing a decode row for
+    every active slot plus PREFILL chunks of pending admissions, sliced
+    to `engine_cfg.step_token_budget` flat tokens. Decode rows are
+    reserved FIRST (prefill can never starve decode — the TPOT
+    guarantee); the remaining query tiles are the per-step prefill
+    budget. A prompt of any length therefore costs each decode step at
+    most `budget - n_slots` extra flat tokens instead of a whole-prompt
+    stall, and TTFT degrades gracefully (the prompt lands over several
+    steps) instead of TPOT collapsing.
+  * SLO CLASSES: requests carry an `slo_class` (serving/queue.py field,
+    surfaced on /generate and the OpenAI routes) with per-class TTFT /
+    TPOT targets from config (engine_cfg.slo_classes). The prefill
+    budget is apportioned across classes by weight x URGENCY, where
+    urgency is the class's oldest pending prefill's wait measured
+    against its TTFT target — the feedback signal the observability
+    layer's timing histograms established (the same samples feed the
+    per-class EWMAs here). When any decoding class's observed TPOT runs
+    over its target, the whole prefill budget is halved for the step
+    (decode protection), never below one tile (prefill liveness).
+  * TENANCY: requests additionally carry a `tenant` (the multi-tenant
+    adapter-serving surface, engine/adapters.py). Within each class's
+    tile grant the budget is re-apportioned ACROSS TENANTS by the
+    operator-configured tenant weight (engine_cfg.tenant_weights,
+    default 1.0 — equal shares), FIFO within a tenant, so one tenant's
+    prompt flood cannot monopolise a class's prefill budget. Per-tenant
+    TTFT/TPOT EWMAs (`observe_tenant`) give the operator the same
+    feedback signal per tenant the class loop has per class, and the
+    queue-depth gauge carries a tenant label. The tenant QUOTA shed
+    (429 before other tenants starve) lives at the enqueue edge in
+    engine/continuous.py — this module only supplies the weights.
+  * ADMISSION CONTROL: the head-of-queue evictable-block check grew into
+    a policy object — a class whose queue drain ESTIMATE (class depth x
+    observed per-request service time) already overruns its TTFT target
+    is shed at enqueue with a 429 whose Retry-After derives from THAT
+    class's drain estimate, never the global queue depth; non-sheddable
+    classes only queue.
+
+Everything here is host-side planning over plain Python/numpy state —
+strictly decode-UNREACHABLE (pinned in the test_analysis.py callgraph
+fixture, like engine/paged.build_ragged_meta); the device work happens in
+the one mixed program the continuous engine launches per step.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import time
+from typing import Optional
+
+from ..utils.logging import get_logger
+from ..utils.retry import BACKOFF_CAP_S, overload_retry_after
+
+log = get_logger("scheduler")
+
+# shed when the class drain estimate exceeds grace x its TTFT target
+SHED_GRACE = 4.0
+# never shed a backlog smaller than this many requests per class — the
+# estimate is too noisy at tiny depths to refuse work over it
+MIN_SHED_DEPTH = 4
+# ceiling for a class-derived Retry-After hint (seconds)
+RETRY_AFTER_CAP_S = 30.0
+
+# how far back the n-gram draft planner scans a slot's token history for
+# the current bigram (host Python per slot per launch — bounded so a
+# max-window chat history cannot stretch the launch-planning hot loop)
+NGRAM_SCAN_WINDOW = 1024
+
+# Adaptive per-slot drafting (rides the device-derived-metadata unfrozen
+# loop): each slot's draft acceptance rate feeds an EWMA that
+# sizes its NEXT draft between 0 and spec_draft_len — repetitive streams
+# keep long drafts, incompressible ones degrade to plain decode without
+# burning verify tiles.
+SPEC_EWMA_ALPHA = 0.35
+# below this acceptance EWMA a slot stops speculating entirely (K = 0:
+# a verify row that mostly rejects still costs its extra flat tokens)...
+SPEC_MIN_RATE = 0.2
+# ...and re-probes with a 1-token draft after this many skipped plans,
+# so a stream that turns repetitive later is not locked out forever
+SPEC_REPROBE = 16
+
+
+# jaxlint: decode-unreachable -- host-side launch planning over Python lists (scheduler worker thread only)
+def ngram_draft(hist: list, k: int) -> list:
+    """Prompt-lookup draft for one decode slot: the (up to) `k` tokens
+    that followed the most recent earlier occurrence of the current
+    bigram in `hist` (prompt + emitted tokens, fetched so far).
+
+    The host twin of the traced rule in engine/generate.spec_loop, with
+    one scheduler-grade difference: where the traced loop runs a junk
+    draft when no bigram matches (the forward is already paid for), this
+    planner returns [] so the slot submits a PLAIN decode row instead —
+    a draft only spends step_token_budget when the history actually
+    offers one, and non-repetitive streams pay nothing. A wrong draft is
+    never a correctness hazard either way: the verify row accepts a
+    token only where it equals the model's own argmax."""
+    n = len(hist)
+    if k <= 0 or n < 3:
+        return []
+    c0, c1 = hist[-2], hist[-1]
+    lo = max(0, n - 2 - NGRAM_SCAN_WINDOW)
+    # the match must be strictly earlier than the current bigram; prefer
+    # the most recent match, but keep scanning while it cannot supply a
+    # full k-token draft (a short-period repetition's latest match sits
+    # so close to the end that its follower slice truncates — an earlier
+    # occurrence of the same bigram drafts the whole period)
+    best: list = []
+    for i in range(n - 3, lo - 1, -1):
+        if hist[i] == c0 and hist[i + 1] == c1:
+            cand = list(hist[i + 2 : i + 2 + k])
+            if len(cand) > len(best):
+                best = cand
+                if len(best) == k:
+                    break
+    return best
+
+
+# jaxlint: decode-unreachable -- host-side launch planning arithmetic (scheduler worker thread only)
+def spec_block_cap(n_blocks: int, block_size: int, frontier: int) -> int:
+    """Max draft length a slot at `frontier` can verify-write without
+    the kernel's lblk clamp folding positions past its allocation into
+    its own last LIVE block (engine/paged.make_ragged_fill_hook). In
+    device-meta mode `frontier` must be the PESSIMISTIC bound — the
+    lagged host position plus every pending verify launch's maximum
+    advance — because the device may already sit that far ahead."""
+    return n_blocks * block_size - 1 - frontier
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOClass:
+    """One service class: latency targets + its share of the prefill
+    budget. `sheddable=False` (bulk/batch traffic) means admission only
+    ever queues it — capacity pressure sheds the latency-sensitive
+    classes first, because those are the requests whose SLO a deep queue
+    has already broken."""
+
+    name: str
+    ttft_target_s: float
+    tpot_target_s: float
+    weight: float = 1.0
+    sheddable: bool = True
+
+
+def parse_slo_classes(engine_cfg) -> "collections.OrderedDict[str, SLOClass]":
+    """engine_cfg.slo_classes tuples -> name-keyed SLOClass map (insertion
+    order preserved — it is the display/apportionment order)."""
+    out = collections.OrderedDict()
+    for entry in engine_cfg.slo_classes:
+        c = SLOClass(*entry)
+        if c.ttft_target_s <= 0 or c.tpot_target_s <= 0 or c.weight <= 0:
+            raise ValueError(
+                f"slo class {c.name!r} needs positive targets and weight"
+            )
+        out[c.name] = c
+    if engine_cfg.slo_default_class not in out:
+        raise ValueError(
+            f"slo_default_class {engine_cfg.slo_default_class!r} is not in "
+            f"slo_classes {tuple(out)}"
+        )
+    return out
+
+
+class PrefillJob:
+    """Host state of one chunked admission: the prompt tail past the
+    prefix-reuse depth is fed into the pool CHUNK BY CHUNK across mixed
+    launches. `done` counts tail tokens already launched — always a whole
+    number of chunks, so a crash between launches loses only whole chunks
+    (the chunk-boundary salvage contract; the rebuilt pool means recovery
+    re-plans from zero, and prefill determinism keeps greedy output
+    bit-identical)."""
+
+    __slots__ = (
+        "req", "ids", "p0", "done", "prompt_len", "max_tokens", "slot",
+        "sampling", "presence_row", "table_row", "cls",
+    )
+
+    def __init__(self, req, ids, p0, prompt_len, max_tokens, slot, sampling,
+                 presence_row, table_row, cls):
+        self.req = req
+        self.ids = ids  # full token list (salvaged continuation included)
+        self.p0 = p0  # prefix-reuse depth (mapped shared blocks)
+        self.done = 0  # tail tokens already launched
+        self.prompt_len = prompt_len
+        self.max_tokens = max_tokens
+        self.slot = slot
+        self.sampling = sampling  # host-side scalar tuple (SamplingParams)
+        self.presence_row = presence_row  # np bool [V] prompt token set
+        self.table_row = table_row
+        self.cls = cls  # SLOClass
+
+    @property
+    def remaining(self) -> int:
+        """Tail tokens not yet launched (>= 1 until the final chunk —
+        which must carry the sampling token — has gone out)."""
+        return len(self.ids) - self.p0 - self.done
+
+
+class _ClassFeedback:
+    """Per-class rolling latency observations (the feedback half of the
+    SLO loop): EWMA TTFT — the class drain-estimate unit — and EWMA TPOT
+    — the decode-protection signal. Fed from the same per-request samples
+    the dli_ttft/dli_tpot histograms record, one write per completed
+    request; reads are racy-but-monotone floats (GIL-atomic), safe from
+    the enqueue path without the engine lock."""
+
+    __slots__ = ("ttft_ewma", "tpot_ewma", "samples")
+
+    ALPHA = 0.3
+
+    def __init__(self):
+        self.ttft_ewma: Optional[float] = None
+        self.tpot_ewma: Optional[float] = None
+        self.samples = 0
+
+    def observe(self, ttft_s: Optional[float], tpot_s: Optional[float]):
+        if ttft_s is not None:
+            self.ttft_ewma = (
+                ttft_s if self.ttft_ewma is None
+                else (1 - self.ALPHA) * self.ttft_ewma + self.ALPHA * ttft_s
+            )
+        if tpot_s is not None:
+            self.tpot_ewma = (
+                tpot_s if self.tpot_ewma is None
+                else (1 - self.ALPHA) * self.tpot_ewma + self.ALPHA * tpot_s
+            )
+        self.samples += 1
+
+
+class TokenBudgetScheduler:
+    """Pure host-side planner: slices the per-step flat-token budget into
+    decode rows + class-apportioned prefill chunks, and answers the
+    admission-control questions (shed? Retry-After?) from per-class
+    feedback. Owns NO device state — the continuous engine translates the
+    plan into one mixed ragged launch.
+
+    width: flat-token launch width (the compiled mixed program's shape);
+    tile: the ragged kernel's query tile — every launch entry occupies
+    whole tiles, so budget accounting is in tiles.
+    """
+
+    def __init__(self, classes, default_name: str, width: int, tile: int,
+                 n_slots: int, registry=None, tenant_weights=()):
+        self.classes = classes
+        self.default_name = default_name
+        # tenant -> prefill-budget weight (engine_cfg.tenant_weights);
+        # unlisted tenants (and the anonymous "" tenant) weigh 1.0
+        self.tenant_weights = {
+            str(name): float(w) for name, w in tenant_weights
+        }
+        # tenant -> _ClassFeedback, created lazily at first observation
+        # (the tenant population is open-ended, unlike the class set)
+        self.tenant_feedback: dict = {}
+        self.tile = int(tile)
+        # every active slot's decode row costs one tile, and at least one
+        # tile must remain for prefill progress (starvation freedom) —
+        # clamp the width up instead of starting a scheduler that can
+        # wedge with a full fleet
+        min_width = (int(n_slots) + 1) * self.tile
+        self.width = -(-max(int(width), min_width) // self.tile) * self.tile
+        if self.width > width:
+            log.info(
+                "step_budget_clamped", requested=width, width=self.width,
+                reason="decode rows + one prefill tile must fit",
+            )
+        self.n_slots = int(n_slots)
+        self.feedback = {name: _ClassFeedback() for name in classes}
+        # summary of the most recent non-empty plan() — the flight
+        # recorder's "plan" event embeds it so a crash dump shows the
+        # last budget split (per-class tiles) without replaying the
+        # scheduler (crash forensics)
+        self.last_plan: Optional[dict] = None
+        # per-slot draft-acceptance feedback: slot -> [EWMA, skipped
+        # plans] (adaptive K; reset on re-assignment via spec_reset)
+        self._spec_fb: dict = {}
+        self._m_depth = self._m_shed = None
+        self._m_spec_k = self._m_spec_ewma = None
+        if registry is not None:
+            from ..utils.metrics import DEFAULT_SIZE_BUCKETS
+
+            self._m_spec_k = registry.histogram(
+                "dli_spec_draft_len",
+                "planned draft length K per verify row (after the "
+                "adaptive per-slot throttle)",
+                buckets=DEFAULT_SIZE_BUCKETS,
+            ).labels()
+            self._m_spec_ewma = registry.gauge(
+                "dli_spec_accept_ewma",
+                "fleet-mean per-slot draft acceptance-rate EWMA (0..1)",
+            ).labels()
+        if registry is not None:
+            self._m_depth = registry.gauge(
+                "dli_slo_queue_depth",
+                "queued requests per SLO class and tenant",
+                ("slo_class", "tenant"),
+            )
+            self._m_shed = registry.counter(
+                "dli_slo_shed_total",
+                "requests shed with 429 by SLO admission control (class "
+                "drain estimate over the TTFT target, or queue full)",
+                ("slo_class",),
+            )
+            for name in classes:
+                # pre-touch every class series (anonymous tenant) so the
+                # scrape schema is stable from the first request
+                self._m_depth.labels(slo_class=name, tenant="").set(0)
+
+    # -- classification ------------------------------------------------------
+    def classify(self, name: Optional[str]) -> SLOClass:
+        """Request slo_class -> SLOClass; None/unknown falls back to the
+        default class (the serving edge validates and 400s unknown names
+        BEFORE enqueue — this fallback covers embedded/API callers)."""
+        if name is not None and name in self.classes:
+            return self.classes[name]
+        return self.classes[self.default_name]
+
+    # jaxlint: decode-unreachable -- validation helper for embedders/tests; host-only by construction
+    def valid(self, name: str) -> bool:
+        return name in self.classes
+
+    # -- feedback ------------------------------------------------------------
+    def observe(self, cls_name: str, ttft_s: Optional[float],
+                tpot_s: Optional[float]):
+        fb = self.feedback.get(cls_name)
+        if fb is not None:
+            fb.observe(ttft_s, tpot_s)
+
+    def observe_tenant(self, tenant: Optional[str],
+                       ttft_s: Optional[float], tpot_s: Optional[float]):
+        """Per-tenant twin of `observe`: the same completed-request TTFT
+        / TPOT samples, keyed by the request's tenant. Anonymous
+        requests (no tenant) record nothing — their feedback already
+        lands in the class EWMAs."""
+        if not tenant:
+            return
+        fb = self.tenant_feedback.get(tenant)
+        if fb is None:
+            fb = self.tenant_feedback[tenant] = _ClassFeedback()
+        fb.observe(ttft_s, tpot_s)
+
+    def tenant_weight(self, tenant: Optional[str]) -> float:
+        """Configured prefill-budget weight for `tenant` (1.0 when the
+        tenant is anonymous or unlisted in engine_cfg.tenant_weights)."""
+        if not tenant:
+            return 1.0
+        return self.tenant_weights.get(tenant, 1.0)
+
+    def set_depth(self, cls_name: str, depth: int, tenant: str = ""):
+        if self._m_depth is not None:
+            self._m_depth.labels(
+                slo_class=cls_name, tenant=tenant or ""
+            ).set(depth)
+
+    def count_shed(self, cls_name: str):
+        if self._m_shed is not None:
+            self._m_shed.labels(slo_class=cls_name).inc()
+
+    # -- admission control ---------------------------------------------------
+    def drain_estimate_s(self, cls: SLOClass, class_depth: int) -> float:
+        """Expected wait for a NEW request of `cls` behind its class-local
+        backlog: depth x the class's observed per-request TTFT EWMA. With
+        no samples yet, a coarse depth/fleet-width heuristic (the same
+        unit the pre-SLO global hint used, but over the CLASS depth)."""
+        fb = self.feedback.get(cls.name)
+        if fb is not None and fb.ttft_ewma is not None:
+            return class_depth * fb.ttft_ewma
+        return float(overload_retry_after(class_depth, self.n_slots))
+
+    def retry_after_s(self, cls: SLOClass, class_depth: int) -> int:
+        """Class-aware Retry-After: when THIS class's backlog drains, not
+        when the global queue does — a deep batch backlog must not tell
+        an interactive client to stay away, and vice versa."""
+        est = self.drain_estimate_s(cls, class_depth)
+        return int(min(RETRY_AFTER_CAP_S, max(1.0, round(est))))
+
+    def should_shed(self, cls: SLOClass, class_depth: int) -> bool:
+        """Shed (429) a sheddable class whose drain estimate already
+        overruns SHED_GRACE x its TTFT target — admitting it would burn
+        budget on a request whose SLO is unmeetable. Small backlogs never
+        shed (estimate noise), non-sheddable classes never shed (they
+        queue until the bounded queue itself is full)."""
+        if not cls.sheddable or class_depth < MIN_SHED_DEPTH:
+            return False
+        fb = self.feedback.get(cls.name)
+        if fb is None or fb.ttft_ewma is None:
+            return False  # no data: never refuse work on a guess
+        return (
+            self.drain_estimate_s(cls, class_depth)
+            > SHED_GRACE * cls.ttft_target_s
+        )
+
+    # -- preemption policy ---------------------------------------------------
+    def victim_key(self, cls: SLOClass, enqueued: float) -> tuple:
+        """Sort key for KV-preemption victim selection: LOWEST SLO weight
+        first, then the YOUNGEST request (latest enqueue) within a
+        weight tie — the request whose eviction wastes the least
+        progress and whose class the operator values least. min() over
+        candidates' keys picks the victim."""
+        return (cls.weight, -enqueued)
+
+    def select_victim(self, candidates, beneficiary_cls: SLOClass):
+        """Pick the preemption victim from `candidates`
+        ([(request, SLOClass, enqueued_s)]) on behalf of a request of
+        `beneficiary_cls`, or None. A victim must not outrank the
+        beneficiary (weight strictly above it is protected — a batch
+        admission never preempts an interactive decode); among eligible
+        candidates the lowest-weight / youngest loses."""
+        eligible = [
+            (req, cls, enq) for req, cls, enq in candidates
+            if cls.weight <= beneficiary_cls.weight
+        ]
+        if not eligible:
+            return None
+        return min(eligible, key=lambda c: self.victim_key(c[1], c[2]))[0]
+
+    # -- the per-step budget slice -------------------------------------------
+    def _urgency(self, cls: SLOClass, oldest_wait_s: float) -> float:
+        """How far past (or inside) its TTFT target the class's oldest
+        pending prefill is — the apportionment feedback term, clamped so
+        one pathological wait cannot zero everyone else's share."""
+        return min(8.0, max(0.25, oldest_wait_s / cls.ttft_target_s))
+
+    def decode_pressure(self, active_classes) -> bool:
+        """True when any class with active decode rows observes TPOT over
+        its target — the signal to halve the step's prefill budget."""
+        for name in active_classes:
+            cls = self.classes.get(name)
+            fb = self.feedback.get(name)
+            if (
+                cls is not None and fb is not None
+                and fb.tpot_ewma is not None
+                and fb.tpot_ewma > cls.tpot_target_s
+            ):
+                return True
+        return False
+
+    # -- speculation throttle ------------------------------------------------
+    def observe_spec(self, slot: int, drafted: int, accepted: int):
+        """Per-slot acceptance feedback, fed from the SAME packed fetch
+        that carries the verify row's emissions (engine/continuous.
+        _process_mixed) — one EWMA write per fetched verify row."""
+        if drafted <= 0:
+            return
+        rate = min(1.0, max(0.0, accepted / drafted))
+        fb = self._spec_fb.get(slot)
+        if fb is None:
+            fb = [rate, 0]
+            self._spec_fb[slot] = fb
+        else:
+            fb[0] = (1 - SPEC_EWMA_ALPHA) * fb[0] + SPEC_EWMA_ALPHA * rate
+        fb[1] = 0
+        if self._m_spec_ewma is not None:
+            self._m_spec_ewma.set(
+                sum(f[0] for f in self._spec_fb.values())
+                / len(self._spec_fb)
+            )
+
+    def spec_slot_k(self, slot: int, k_max: int) -> int:
+        """Adaptive per-slot draft length: size the slot's NEXT draft by
+        its observed acceptance EWMA. No data yet -> full `k_max` (new
+        streams probe at full depth — the n-gram gate already filters
+        slots with nothing to draft); EWMA below SPEC_MIN_RATE -> 0 (a
+        plain decode row, no verify tiles burnt), with a 1-token
+        re-probe every SPEC_REPROBE skipped plans; otherwise the draft
+        scales with the EWMA, converging back to k_max as acceptance
+        recovers."""
+        if k_max <= 0:
+            return 0
+        fb = self._spec_fb.get(slot)
+        if fb is None:
+            return k_max
+        ewma = fb[0]
+        if ewma < SPEC_MIN_RATE:
+            fb[1] += 1
+            if fb[1] >= SPEC_REPROBE:
+                fb[1] = 0
+                return 1
+            return 0
+        return max(1, min(k_max, math.ceil(ewma * k_max)))
+
+    def spec_reset(self, slot: int):
+        """Forget a slot's acceptance history (the slot was re-assigned:
+        a new tenant's stream predicts nothing about the old one's)."""
+        self._spec_fb.pop(slot, None)
+
+    def count_spec_plan(self, k: int):
+        """Record one verify row's planned K (dli_spec_draft_len)."""
+        if self._m_spec_k is not None:
+            self._m_spec_k.observe(k)
+
+    def spec_draft_len(self, k_max: int, n_spec_rows: int,
+                       n_plain_rows: int, active_classes=(),
+                       jobs_pending: bool = False) -> int:
+        """Draft length K for this step's verify rows (0 = speculation
+        off). Speculated tokens spend step_token_budget like any other
+        flat token, so the SLO layer throttles them with the knobs it
+        already owns: under decode TPOT pressure (the SAME signal that
+        halves the prefill budget) K drops to 0 — speculation
+        accelerates idle fleets and self-disables under load — and
+        otherwise K shrinks until every verify row (ceil((1+K)/tile)
+        tiles each), every plain decode row, and one prefill-progress
+        tile (when prefill is pending) fit the step budget together."""
+        if k_max <= 0 or n_spec_rows <= 0:
+            return 0
+        if self.decode_pressure(active_classes):
+            return 0
+        tiles_total = self.width // self.tile
+        reserve = n_plain_rows + (1 if jobs_pending else 0)
+        for k in range(k_max, 0, -1):
+            spec_tiles = -(-(1 + k) // self.tile) * n_spec_rows
+            if spec_tiles + reserve <= tiles_total:
+                return k
+        return 0
+
+    def _grant_class(self, members, tiles: int, give) -> int:
+        """Distribute one class's tile grant across its TENANTS by
+        configured weight (FIFO within a tenant), returning the unspent
+        remainder. A single-tenant class degenerates to plain FIFO — the
+        pre-tenancy behavior, byte-for-byte. Unused tenant shares spill
+        FIFO within the class before leaking up to the cross-class
+        spill, so a light tenant's share is never wasted while a heavy
+        one still has work."""
+        if tiles <= 0:
+            return 0
+        by_tenant: dict = collections.OrderedDict()
+        for job in members:
+            t = getattr(job.req, "tenant", None) or ""
+            by_tenant.setdefault(t, []).append(job)
+        if len(by_tenant) == 1:
+            for job in members:
+                tiles -= give(job, tiles)
+                if tiles <= 0:
+                    break
+            return max(0, tiles)
+        weights = {t: self.tenant_weight(t) for t in by_tenant}
+        total = sum(weights.values())
+        shares = {t: int(tiles * w / total) for t, w in weights.items()}
+        spare = tiles - sum(shares.values())
+        # remainder tiles to the heaviest tenants (stable sort keeps
+        # arrival order among equal weights — deterministic)
+        for t in sorted(weights, key=lambda n: -weights[n]):
+            if spare <= 0:
+                break
+            shares[t] += 1
+            spare -= 1
+        leftover = 0
+        for t, tjobs in by_tenant.items():
+            share = shares.get(t, 0)
+            for job in tjobs:
+                share -= give(job, share)
+                if share <= 0:
+                    break
+            leftover += max(0, share)
+        if leftover > 0:
+            for job in members:
+                leftover -= give(job, leftover)
+                if leftover <= 0:
+                    break
+        return max(0, leftover)
+
+    def plan(self, n_decode_tiles: int, jobs: list,
+             active_classes=(), now: Optional[float] = None) -> list:
+        """Slice one step's budget: returns [(job, chunk_tokens)] with
+        chunk_tokens >= 1, tile-granular except a job's FINAL chunk.
+
+        Decode rows were reserved upstream — `n_decode_tiles` query
+        tiles, one per plain decode row plus ceil((1+K)/tile) per
+        speculative verify row, so speculated tokens debit the budget
+        exactly like prefill tokens; `jobs` are the pending prefills in
+        arrival order. Tiles left after decode are apportioned across
+        classes by weight x urgency, then WITHIN each class across
+        tenants by configured tenant weight (`_grant_class`), FIFO
+        within a tenant; leftovers spill FIFO across classes; the
+        OLDEST job is guaranteed a tile (starvation freedom). Under
+        decode TPOT pressure the prefill budget halves (never below one
+        tile)."""
+        if not jobs:
+            return []
+        t = time.time() if now is None else now
+        tiles_total = self.width // self.tile
+        tiles_left = tiles_total - n_decode_tiles
+        if tiles_left < 1:
+            # structurally unreachable (width clamps to n_slots + 1 tiles
+            # and a prefilling admission occupies a slot), but never plan
+            # a launch that cannot hold its entries
+            return []
+        if self.decode_pressure(active_classes):
+            tiles_left = max(1, tiles_left // 2)
+
+        by_class: dict = collections.OrderedDict()
+        for job in jobs:
+            by_class.setdefault(job.cls.name, []).append(job)
+        # class shares: weight x urgency over the classes with work
+        scores = {}
+        for name, members in by_class.items():
+            cls = members[0].cls
+            oldest_wait = max(t - m.req.enqueued for m in members)
+            scores[name] = cls.weight * self._urgency(cls, oldest_wait)
+        total = sum(scores.values())
+        tiles_for = {
+            name: int(tiles_left * s / total) for name, s in scores.items()
+        }
+        # remainder tiles to the highest-scoring classes, deterministic
+        spare = tiles_left - sum(tiles_for.values())
+        for name in sorted(scores, key=lambda n: -scores[n]):
+            if spare <= 0:
+                break
+            tiles_for[name] += 1
+            spare -= 1
+
+        grants: dict = {}
+
+        def give(job, tiles):
+            need = -(-job.remaining // self.tile)
+            take = min(tiles, need - grants.get(id(job), 0))
+            if take > 0:
+                grants[id(job)] = grants.get(id(job), 0) + take
+            return take
+
+        leftover = 0
+        for name, members in by_class.items():
+            leftover += self._grant_class(
+                members, tiles_for.get(name, 0), give
+            )
+        # spill unused class budget FIFO across every class
+        if leftover > 0:
+            for job in jobs:
+                leftover -= give(job, leftover)
+                if leftover <= 0:
+                    break
+        # starvation freedom: the globally oldest job always progresses —
+        # reclaim a tile from the fattest (newest on ties) grant when the
+        # budget is fully spoken for
+        oldest = min(jobs, key=lambda j: j.req.enqueued)
+        if not grants.get(id(oldest)):
+            if sum(grants.values()) >= tiles_left:
+                granted = [j for j in jobs if grants.get(id(j))]
+                if granted:
+                    victim = max(
+                        granted,
+                        key=lambda j: (grants[id(j)], j.req.enqueued),
+                    )
+                    grants[id(victim)] -= 1
+                    if not grants[id(victim)]:
+                        del grants[id(victim)]
+            give(oldest, 1)
+
+        out = []
+        for job in jobs:  # arrival order, independent of grant order
+            tiles = grants.get(id(job), 0)
+            if tiles > 0:
+                out.append((job, min(tiles * self.tile, job.remaining)))
+        self.last_plan = {
+            "decode_tiles": int(n_decode_tiles),
+            "prefill_tiles": int(sum(grants.values())),
+            "tiles_total": tiles_total,
+            "class_tiles": dict(tiles_for),
+            "jobs": len(jobs),
+            "chunks": len(out),
+        }
+        return out

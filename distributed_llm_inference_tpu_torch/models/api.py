@@ -1,7 +1,7 @@
 """Family dispatch: one functional interface over the model families.
 
 The engine calls these; cfg.arch picks the family. The llama family is
-ported; gpt2 raises until its port (ROADMAP Queue 1 item 7).
+ported; gpt2 raises until its port, ROADMAP.md "Other families and loading".
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ def family(cfg: ModelConfig):
     if cfg.arch == "gpt2":
         raise NotImplementedError(
             "the gpt2 family (models/gpt2.py) is not ported to PyTorch yet "
-            "(ROADMAP Queue 1 item 7)"
+            "(ROADMAP.md \"Other families and loading\")"
         )
     if cfg.arch not in _FAMILIES:
         raise ValueError(f"unknown model arch {cfg.arch!r}")
@@ -37,9 +37,14 @@ def embed(cfg, params, tokens, pos=0):
     return family(cfg).embed(cfg, params, tokens, pos)
 
 
-def forward_layers(cfg, layers, x, cache, pos, valid_start=None):
+def forward_layers(cfg, layers, x, cache, pos, valid_start=None,
+                   attn_hook=None, attn_seq_len=None):
+    """pos: an int, or an int32 [B] tensor of per-row positions (slots
+    mode); attn_hook / attn_seq_len: the paged hooks of engine/paged.py
+    (see llama.forward_layers)."""
     return family(cfg).forward_layers(
-        cfg, layers, x, cache, pos, valid_start=valid_start
+        cfg, layers, x, cache, pos, valid_start=valid_start,
+        attn_hook=attn_hook, attn_seq_len=attn_seq_len,
     )
 
 

@@ -41,6 +41,33 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device,
     return {k: convert(k, v) for k, v in tree.items()}
 
 
+def pool_from_numpy(cfg: ModelConfig, pool: dict, device,
+                    dtype: Optional[torch.dtype] = None) -> dict:
+    """The JAX package's block pool ({"k", "v"} leaves [L, N, KV, bs, Dh]
+    as numpy arrays) as torch tensors of `dtype` (default cfg's) on
+    `device`, so a test can start both packages from the same pool."""
+    dtype = dtype or cfg.torch_dtype
+    return {
+        name: torch.from_numpy(np.array(leaf, dtype=np.float32)).to(
+            device=device, dtype=dtype)
+        for name, leaf in pool.items()
+    }
+
+
+def slots_from_numpy(state, sparams, device):
+    """The JAX package's (SlotState, SlotParams) with numpy leaves as the
+    port's, field for field, in the port's dtypes on `device`."""
+    from ..engine import generate as G
+
+    state_dt = (torch.int32, torch.int32, torch.bool, torch.int32, torch.bool,
+                torch.int32)
+    st = G.SlotState(*(torch.from_numpy(np.array(a)).to(device=device, dtype=dt)
+                       for a, dt in zip(state, state_dt)))
+    sp = G.SlotParams(*(torch.from_numpy(np.array(a)).to(device=device, dtype=dt)
+                        for a, dt in zip(sparams, G.SLOT_PARAM_DTYPES)))
+    return st, sp
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random weights on the generator's device (see llama.init_params)."""
     return M.init_params(cfg, generator)

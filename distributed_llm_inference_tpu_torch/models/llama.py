@@ -21,7 +21,7 @@ V = vocab):
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 item: the MoE FFN, paged LoRA deltas, tensor-parallel psums, pipeline
-update gates, per-row (continuous-batching) positions and the int8 cache.
+update gates and the int8 cache.
 """
 
 from __future__ import annotations
@@ -32,7 +32,14 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..ops.attention import attend, causal_mask, ragged_causal_mask, update_kv_cache
+from ..ops.attention import (
+    attend,
+    causal_mask,
+    ragged_causal_mask,
+    slot_causal_mask,
+    update_kv_cache,
+    update_kv_cache_slots,
+)
 from ..ops.flash_attention import flash_attend
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin
@@ -41,20 +48,29 @@ Params = dict
 KVCache = dict  # {"k": [L, B, KV, S, Dh], "v": [L, B, KV, S, Dh]}
 
 
+# ROADMAP.md items (headings there) that port what this module rejects
+QUANT = "Quantization"
+FAMILIES = "Other families and loading"
+SPMD = "Multi-GPU SPMD"
+ADAPTERS = "Adapters"
+
+
 def _not_ported(what: str, item: str):
+    """NotImplementedError naming the ROADMAP.md item (a heading there)
+    that ports `what`."""
     return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP Queue 1 item {item})"
+        f"{what} is not ported to PyTorch yet (ROADMAP.md \"{item}\")"
     )
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Reject the config features this slice does not port."""
     if cfg.n_experts:
-        raise _not_ported("the MoE FFN (models/llama.moe_ffn)", "7")
+        raise _not_ported("the MoE FFN (models/llama.moe_ffn)", FAMILIES)
     if cfg.kv_quant is not None:
-        raise _not_ported("the int8 KV cache (ops/kv_quant.py)", "4")
+        raise _not_ported("the int8 KV cache (ops/kv_quant.py)", QUANT)
     if cfg.quant is not None:
-        raise _not_ported("weight quantization (ops/quant.py)", "4")
+        raise _not_ported("weight quantization (ops/quant.py)", QUANT)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
@@ -141,7 +157,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int] = None,
                   n_layers: Optional[int] = None, device=None) -> KVCache:
     """Zeroed static-shape KV cache, stacked on the layer axis."""
     if cfg.kv_quant is not None:
-        raise _not_ported("the int8 KV cache (ops/kv_quant.py)", "4")
+        raise _not_ported("the int8 KV cache (ops/kv_quant.py)", QUANT)
     S = max_seq or cfg.max_seq_len
     L = n_layers if n_layers is not None else cfg.n_layers
     shape = (L, batch, cfg.n_kv_heads, S, cfg.head_dim)
@@ -158,9 +174,16 @@ def default_attn_hook(cfg, q, k, v, cache_k, cache_v, pos, mask, update_gate=Non
 
     attn_impl="kernel" routes T>1 chunks (prefill, chunked extend) to the
     flash kernel; T=1 decode always takes the plain einsum, the gate the
-    JAX package keeps for its Pallas kernel."""
+    JAX package keeps for its Pallas kernel. Per-row positions (slots
+    mode: pos an int32 [B] tensor) write each row at its own offset and
+    always take the plain einsum, as in the JAX package."""
     if update_gate is not None:
-        raise _not_ported("pipeline update gates (parallel/)", "9")
+        raise _not_ported("pipeline update gates (parallel/)", SPMD)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        update_kv_cache_slots(cache_k, cache_v, k, v, pos)
+        attn = attend(q, cache_k, cache_v, mask,
+                      scale=cfg.query_scale, softcap=cfg.attn_softcap)
+        return attn, cache_k, cache_v
     update_kv_cache(cache_k, cache_v, k, v, pos)
     if cfg.attn_impl == "kernel" and q.shape[1] > 1:
         w, wd = kernel_window(cfg, window_flag)
@@ -207,11 +230,11 @@ def decoder_layer(
     static or per-layer windows, dual RoPE tables, Granite multipliers.
     """
     if tp_axis is not None:
-        raise _not_ported("tensor parallelism (parallel/partition.py)", "9")
+        raise _not_ported("tensor parallelism (parallel/partition.py)", SPMD)
     if ep_axis is not None or cfg.n_experts:
-        raise _not_ported("the MoE FFN (models/llama.moe_ffn)", "7")
+        raise _not_ported("the MoE FFN (models/llama.moe_ffn)", FAMILIES)
     if lora_pages is not None:
-        raise _not_ported("paged LoRA adapters (engine/adapters.py)", "5")
+        raise _not_ported("paged LoRA adapters (engine/adapters.py)", ADAPTERS)
     B, T, D = x.shape
     Dh = cfg.head_dim
     H = lp["wq"].shape[-1] // Dh
@@ -287,21 +310,28 @@ def forward_layers(
     lora_pages=None,
 ):
     """Run the stacked layers over a chunk, one Python iteration per
-    layer. x: [B, T, D]; cache k/v: [L, B, KV, S, Dh] (written in place);
-    pos: the chunk's first absolute position, an int. valid_start:
-    optional int32 [B] — first real slot per row of a left-padded batch.
-    Returns (x, cache)."""
+    layer. x: [B, T, D]; cache k/v: [L, B, KV, S, Dh] (written in place
+    by the hook). pos: the chunk's first absolute position, an int — or,
+    in slots mode (continuous batching), an int32 [B] tensor on x's
+    device with each row's own position: RoPE and the causal mask go per
+    row, and pos is never read back to the host. valid_start: optional
+    int32 [B] — first real slot per row of a left-padded batch.
+    attn_seq_len: the mask's logical length when it is not the cache
+    leaf's sequence axis (the paged hooks of engine/paged.py, whose leaf
+    is the block pool). Returns (x, cache)."""
     if update_gate is not None:
-        raise _not_ported("pipeline update gates (parallel/)", "9")
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        raise _not_ported(
-            "per-row positions (continuous batching, engine/continuous.py)", "1"
-        )
-    pos = int(pos)
+        raise _not_ported("pipeline update gates (parallel/)", SPMD)
+    slots = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    if not slots:
+        pos = int(pos)
     T = x.shape[1]
     S = attn_seq_len if attn_seq_len is not None else cache["k"].shape[3]
     device = x.device
-    positions = pos + torch.arange(T, dtype=torch.int32, device=device)
+    if slots:
+        positions = pos[:, None] + torch.arange(T, dtype=torch.int32,
+                                                device=device)[None, :]
+    else:
+        positions = pos + torch.arange(T, dtype=torch.int32, device=device)
     cos, sin = rope_cos_sin(
         positions, cfg.head_dim, cfg.rope_theta,
         scaling=cfg.rope_scaling,
@@ -316,12 +346,16 @@ def forward_layers(
         cos, sin = (cos, cos_l), (sin, sin_l)
 
     def make_mask(window):
+        if slots:
+            return slot_causal_mask(pos, T, S, window)
         if valid_start is None:
             return causal_mask(pos, T, S, window, device=device)
         return ragged_causal_mask(pos, T, S, valid_start, window)
 
-    if cfg.attn_impl == "kernel" and T > 1 and attn_hook is None:
+    if cfg.attn_impl == "kernel" and T > 1 and attn_hook is None and not slots:
         mask = None  # the kernel derives its mask from pos / valid_start / window
+    elif slots and attn_hook is not None:
+        mask = None  # the paged hooks derive their masks from pos / meta
     elif cfg.attn_window is not None and (
         cfg.attn_window_pattern == "even"
         or cfg.attn_window_layer_types is not None

@@ -56,6 +56,39 @@ def causal_mask(pos: int, chunk_len: int, max_seq: int, window=None,
     return mask
 
 
+def slot_causal_mask(pos: torch.Tensor, chunk_len: int, max_seq: int,
+                     window=None) -> torch.Tensor:
+    """[B, T, S] mask for PER-ROW query offsets (continuous batching):
+    row b's query at pos[b]+t attends cache slots 0..pos[b]+t (with
+    `window`, only those > q_pos - window). pos: int32 [B] on the
+    device; nothing is read back to the host."""
+    device = pos.device
+    q_pos = pos[:, None] + torch.arange(chunk_len, dtype=torch.int32,
+                                        device=device)[None, :]  # [B, T]
+    kv_pos = torch.arange(max_seq, dtype=torch.int32, device=device)
+    mask = kv_pos[None, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        mask &= kv_pos[None, None, :] > q_pos[:, :, None] - window
+    return mask
+
+
+def update_kv_cache_slots(cache_k, cache_v, k_new, v_new, pos: torch.Tensor):
+    """Write each row's chunk at its own offset pos [B] (int32, on the
+    device), in place. As the JAX package's dynamic_update_slice does,
+    an offset that would run past the cache clamps to max_seq - T; the
+    continuous engine keeps every slot inside its budget."""
+    B, T = k_new.shape[:2]
+    S = cache_k.shape[2]
+    start = pos.long().clamp(0, S - T)
+    cols = start[:, None] + torch.arange(T, device=pos.device)[None, :]  # [B, T]
+    rows = torch.arange(B, device=pos.device)[:, None]
+    # [B, KV, S, Dh] viewed as [B, S, KV, Dh]: one (row, position) index
+    # pair per written token, the chunk keeps its [B, T, KV, Dh] layout
+    cache_k.transpose(1, 2)[rows, cols] = k_new
+    cache_v.transpose(1, 2)[rows, cols] = v_new
+    return cache_k, cache_v
+
+
 def ragged_causal_mask(
     pos: int, chunk_len: int, max_seq: int, valid_start: torch.Tensor,
     window=None,

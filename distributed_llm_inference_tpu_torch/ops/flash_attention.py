@@ -26,6 +26,7 @@ the kernel to the twin on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -49,6 +50,7 @@ def resolve_kernel(device) -> bool:
     raise ValueError(f"no attention kernel for device type {kind!r}")
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     fn = lib.dli_flash_attend
@@ -108,8 +110,8 @@ def flash_attend(q, cache_k, cache_v, pos, valid_start=None,
     if cache_k.dtype == torch.int8 or cache_v.dtype == torch.int8:
         raise NotImplementedError(
             "flash_attend on an int8 KV cache: the dequantizing prologue "
-            "waits for the ops/kv_quant.py port (ROADMAP Queue 1 item 4, "
-            "Queue 2)"
+            "waits for the ops/kv_quant.py port (ROADMAP.md "
+            "\"Quantization\")"
         )
     if not resolve_kernel(q.device):
         return flash_attend_plain(

@@ -1,0 +1,277 @@
+"""Attention over the block-paged KV pool: the two CUDA kernels' wrappers
+and their plain PyTorch twins.
+
+`ragged_paged_attend` and `paged_flash_attend` are the ports of the JAX
+package's ops/paged_attention.py functions of the same names, whose Pallas
+bodies `_ragged_kernel` and `_paged_kernel` become one hand-written Hopper
+kernel with two entry points in csrc/paged_attention.cu (the source note
+there says what bounds it and what its design does about it). The pool
+keeps the JAX layout, one layer's slice [N, KV, bs, Dh]: key position p of
+a table row lives in physical block table[row, p // bs] at slot p % bs.
+
+  * ragged_paged_attend(q [W, H, Dh], pool_k, pool_v, table [R, MB] int32,
+    meta [G, 4] int32, window_dyn=None, *, window, scale, softcap): the
+    mixed prefill + decode launch. The flat query axis is cut into G tiles
+    of tq = W // G; tile g is meta[g] = (row, q_start, q_len, kind) —
+    engine/paged.build_ragged_meta's plan. Query t < q_len of the tile sits
+    at q_start + t of fleet row `row` (clamped to [0, R)); a tile with
+    q_len == 0 (launch padding) and rows with t >= q_len output zeros.
+    `kind` is accounting only: the math is uniform.
+  * paged_flash_attend(q [B, 1, H, Dh], pool_k, pool_v, table [B, MB],
+    pos [B] int32, window_dyn=None, *, window, scale, softcap): T=1
+    decode, one query per row at pos[b].
+
+Both attend keys at positions <= the query's own, and with a window
+(static `window`, or the one-element int32 device tensor `window_dyn`,
+<= 0 = full causal) only those > q_pos - window; scale defaults to
+Dh**-0.5 and softcap caps the scores before the mask. Returns q's shape
+and dtype.
+
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
+it runs its plain twin. The kernel reads meta, table and pos on the card,
+so a launch never syncs the host. An int8 pool (the JAX package's
+KVQuant leaves) raises NotImplementedError until ops/kv_quant.py is
+ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..kernels import load_library
+from .flash_attention import MAX_HEAD_DIM, NEG, resolve_kernel
+
+RAGGED_PREFILL = 0  # meta `kind`: a prompt-chunk row (length >= 1)
+RAGGED_DECODE = 1  # meta `kind`: a single-token decode row
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = load_library("paged_attention")
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dli_ragged_paged_attend.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        vp, vp, i32, vp, f32, f32, vp,
+    ]
+    lib.dli_ragged_paged_attend.restype = i32
+    lib.dli_paged_flash_attend.argtypes = [
+        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp, i32,
+        vp, f32, f32, vp,
+    ]
+    lib.dli_paged_flash_attend.restype = i32
+    return lib
+
+
+def _reject_int8(name, pool_k, pool_v):
+    if pool_k.dtype == torch.int8 or pool_v.dtype == torch.int8:
+        raise NotImplementedError(
+            f"{name} on an int8 block pool: the dequantizing prologue "
+            f"waits for the ops/kv_quant.py port (ROADMAP.md "
+            f"\"Quantization\")"
+        )
+
+
+def _attend_blocks(q5, blocks, pool_k, pool_v, q_pos, live, window_dyn,
+                   window, scale, softcap):
+    """Shared twin core. q5 [G, tq, KV, group, Dh]; blocks [G, MB] the
+    physical ids of each tile's row; q_pos / live [G, tq]. fp32 math over
+    the gathered [G, KV, MB*bs, Dh] view; rows with no live key get
+    zeros."""
+    G, tq, KV, group, Dh = q5.shape
+    N, _, bs, _ = pool_k.shape
+    MB = blocks.shape[1]
+    S = MB * bs
+    blocks = blocks.long()
+    blocks = torch.where((blocks >= 0) & (blocks < N), blocks, 0)
+
+    def view(pool):  # [G, MB, KV, bs, Dh] -> [G, KV, S, Dh]
+        return pool[blocks].permute(0, 2, 1, 3, 4).reshape(G, KV, S, Dh).float()
+
+    s = torch.einsum("gtkhd,gksd->gkhts", q5.float() * scale, view(pool_k))
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    kv_pos = torch.arange(S, dtype=torch.int32, device=q5.device)
+    mask = live[:, :, None] & (kv_pos[None, None, :] <= q_pos[:, :, None])
+    if window_dyn is not None:
+        w = window_dyn.reshape(())
+        mask = mask & ((w <= 0) | (kv_pos[None, None, :] > q_pos[:, :, None] - w))
+    elif window is not None and window > 0:
+        mask = mask & (kv_pos[None, None, :] > q_pos[:, :, None] - window)
+    mask = mask[:, None, None]  # [G, 1, 1, tq, S]
+    s = torch.where(mask, s, NEG)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+    denom = p.sum(dim=-1, keepdim=True)
+    denom = torch.where(denom == 0.0, 1.0, denom)  # no live key: zeros
+    o = torch.einsum("gkhts,gksd->gtkhd", p / denom, view(pool_v))
+    return o  # [G, tq, KV, group, Dh] fp32
+
+
+def ragged_paged_attend_plain(q, pool_k, pool_v, table, meta, window_dyn=None,
+                              *, window=None, scale=None, softcap=None):
+    """The ragged kernel's plain twin (same signature): gather each
+    tile's row of blocks into a contiguous view, then masked fp32
+    attention — the contract of the JAX package's `_ragged_attend_xla`,
+    with the kernel's zeros for padding rows."""
+    _reject_int8("ragged_paged_attend", pool_k, pool_v)
+    W, H, Dh = q.shape
+    G = meta.shape[0]
+    tq = W // G
+    KV = pool_k.shape[1]
+    scale = Dh ** -0.5 if scale is None else scale
+    meta = meta.long()
+    rows = meta[:, 0].clamp(0, table.shape[0] - 1)
+    t = torch.arange(tq, device=q.device)
+    q_pos = (meta[:, 1:2] + t[None, :]).to(torch.int32)
+    live = t[None, :] < meta[:, 2:3]
+    o = _attend_blocks(
+        q.reshape(G, tq, KV, H // KV, Dh), table[rows], pool_k, pool_v,
+        q_pos, live, window_dyn, window, scale, softcap,
+    )
+    return o.reshape(W, H, Dh).to(q.dtype)
+
+
+def paged_flash_attend_plain(q, pool_k, pool_v, table, pos, window_dyn=None,
+                             *, window=None, scale=None, softcap=None):
+    """The decode kernel's plain twin (same signature): the gather path
+    of the JAX package's engine/paged.make_paged_hook with the mask
+    derived from pos and the window."""
+    _reject_int8("paged_flash_attend", pool_k, pool_v)
+    B, _, H, Dh = q.shape
+    KV = pool_k.shape[1]
+    scale = Dh ** -0.5 if scale is None else scale
+    live = torch.ones((B, 1), dtype=torch.bool, device=q.device)
+    o = _attend_blocks(
+        q.reshape(B, 1, KV, H // KV, Dh), table, pool_k, pool_v,
+        pos.to(torch.int32)[:, None], live, window_dyn, window, scale, softcap,
+    )
+    return o.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def ragged_paged_attend(q, pool_k, pool_v, table, meta, window_dyn=None, *,
+                        window=None, scale=None, softcap=None):
+    """Mixed prefill + decode attention over the (already updated) pool;
+    see the module docstring. Counts its kernel launches in
+    `ragged_paged_attend.launches`."""
+    _reject_int8("ragged_paged_attend", pool_k, pool_v)
+    if not resolve_kernel(q.device):
+        return ragged_paged_attend_plain(
+            q, pool_k, pool_v, table, meta, window_dyn,
+            window=window, scale=scale, softcap=softcap,
+        )
+    W, H, Dh = q.shape
+    G = meta.shape[0]
+    if q.dim() != 3 or meta.shape != (G, 4) or G == 0 or W % G != 0:
+        raise ValueError(
+            f"ragged_paged_attend wants q [W,H,Dh] and meta [G,4] with G "
+            f"dividing W; got {tuple(q.shape)}, {tuple(meta.shape)}"
+        )
+    N, KV, bs = _check("ragged_paged_attend", q, pool_k, pool_v, table,
+                       window_dyn, (("meta", meta, G * 4),))
+    out = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dli_ragged_paged_attend(
+            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            out.data_ptr(), _DTYPE_CODES[q.dtype], G, W // G, H, KV, N, bs,
+            table.shape[0], table.shape[1], Dh, table.data_ptr(),
+            meta.data_ptr(), int(window) if window is not None else -1,
+            window_dyn.data_ptr() if window_dyn is not None else None,
+            float(Dh ** -0.5 if scale is None else scale),
+            float(softcap) if softcap is not None else 0.0, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"ragged_paged_attend kernel launch failed: CUDA error {rc}")
+    ragged_paged_attend.launches += 1
+    return out
+
+
+ragged_paged_attend.launches = 0
+
+
+def paged_flash_attend(q, pool_k, pool_v, table, pos, window_dyn=None, *,
+                       window=None, scale=None, softcap=None):
+    """T=1 decode attention over the (already updated) pool; see the
+    module docstring. Counts its kernel launches in
+    `paged_flash_attend.launches`."""
+    _reject_int8("paged_flash_attend", pool_k, pool_v)
+    if not resolve_kernel(q.device):
+        return paged_flash_attend_plain(
+            q, pool_k, pool_v, table, pos, window_dyn,
+            window=window, scale=scale, softcap=softcap,
+        )
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(
+            f"paged_flash_attend serves T=1 decode: q [B,1,H,Dh], got "
+            f"{tuple(q.shape)}"
+        )
+    B, _, H, Dh = q.shape
+    if table.shape[0] != B:
+        raise ValueError(f"paged_flash_attend: table has {table.shape[0]} rows for B={B}")
+    N, KV, bs = _check("paged_flash_attend", q, pool_k, pool_v, table,
+                       window_dyn, (("pos", pos, B),))
+    out = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dli_paged_flash_attend(
+            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            out.data_ptr(), _DTYPE_CODES[q.dtype], B, H, KV, N, bs,
+            table.shape[1], Dh, table.data_ptr(), pos.data_ptr(),
+            int(window) if window is not None else -1,
+            window_dyn.data_ptr() if window_dyn is not None else None,
+            float(Dh ** -0.5 if scale is None else scale),
+            float(softcap) if softcap is not None else 0.0, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"paged_flash_attend kernel launch failed: CUDA error {rc}")
+    paged_flash_attend.launches += 1
+    return out
+
+
+paged_flash_attend.launches = 0
+
+
+def _check(name, q, pool_k, pool_v, table, window_dyn, int_operands):
+    """Validate what the kernel takes from shapes, dtypes and devices
+    alone (nothing is read back from the card); returns (N, KV, bs)."""
+    if pool_k.dim() != 4 or pool_v.shape != pool_k.shape:
+        raise ValueError(
+            f"{name} wants pools [N,KV,bs,Dh]; got {tuple(pool_k.shape)}, "
+            f"{tuple(pool_v.shape)}"
+        )
+    N, KV, bs, Dh = pool_k.shape
+    H = q.shape[-2]
+    if q.shape[-1] != Dh or H % KV != 0:
+        raise ValueError(f"{name} shape mismatch: q {tuple(q.shape)} vs pool "
+                         f"{tuple(pool_k.shape)}")
+    if Dh > MAX_HEAD_DIM:
+        raise ValueError(f"{name} takes Dh <= {MAX_HEAD_DIM}, got {Dh}")
+    if q.dtype not in _DTYPE_CODES or pool_k.dtype != q.dtype \
+            or pool_v.dtype != q.dtype:
+        raise TypeError(
+            f"{name} takes float32/bfloat16/float16 q and pools of one "
+            f"dtype; got {q.dtype}, {pool_k.dtype}, {pool_v.dtype}"
+        )
+    for tname, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous on {q.device}")
+    checks = (("table", table, table.numel()), ("window_dyn", window_dyn, 1)) \
+        + tuple(int_operands)
+    for tname, t, n in checks:
+        if t is None:
+            continue
+        if t.device != q.device or t.dtype != torch.int32 \
+                or t.numel() != n or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {tname} must be a contiguous int32 tensor of {n} "
+                f"element(s) on {q.device}"
+            )
+    if table.dim() != 2:
+        raise ValueError(f"{name}: table must be [R, MB], got {tuple(table.shape)}")
+    return N, KV, bs

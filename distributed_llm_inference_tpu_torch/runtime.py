@@ -54,18 +54,18 @@ def create_engine(
     if not mesh_cfg.is_trivial or microbatches > 1:
         raise NotImplementedError(
             f"pp/tp/sp/dp/ep meshes and microbatching are not ported to "
-            f"PyTorch yet (ROADMAP.md Queue 1 item 9); got {mesh_cfg}, "
+            f"PyTorch yet (ROADMAP.md \"Multi-GPU SPMD\"); got {mesh_cfg}, "
             f"microbatches={microbatches}"
         )
     if draft_model is not None:
         raise NotImplementedError(
             "draft-model speculation is not ported to PyTorch yet "
-            "(ROADMAP.md Queue 1 item 2)"
+            "(ROADMAP.md \"Solo-engine features\")"
         )
     if lora is not None:
         raise NotImplementedError(
-            "LoRA merges are not ported to PyTorch yet (ROADMAP.md Queue 1 "
-            "item 5)"
+            "LoRA merges are not ported to PyTorch yet (ROADMAP.md "
+            "\"Adapters\")"
         )
     device = resolve_device(device)
     cfg = get_model_config(model) if isinstance(model, str) else model

@@ -5,11 +5,17 @@ Routes: `POST /generate` (one "prompt", or a "prompts" list served as one
 left-padded batch), `GET /health`, `GET /ready`, `GET /stats` and
 `GET /metrics`, on the stdlib ThreadingHTTPServer. For the same request
 the envelope keys and the error codes (400, 499, 503, 504, ...) are the
-JAX server's. The continuous fleet, the queue, the OpenAI routes and the
-KV fabric arrive with later slices.
+JAX server's. With `--continuous N --kv-pool-blocks M` single-prompt
+`/generate` requests go to the continuous paged fleet
+(engine/continuous.py) and `/stats` nests its stats under "continuous".
+The queue, the OpenAI routes and the KV fabric arrive with later slices.
 
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --attn-impl auto
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
+        --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
+        --continuous-max-seq 1024
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ def _status_code(result: dict) -> tuple:
 
 
 def make_handler(engine, max_tokens_cap: int, state=None,
-                 wedge_unready_s: float = 10.0):
+                 wedge_unready_s: float = 10.0, continuous=None):
     from ..utils.logging import request_id_context
     from ..utils.tracing import (
         SpanContext,
@@ -118,10 +124,13 @@ def make_handler(engine, max_tokens_cap: int, state=None,
 
         def _readiness(self) -> tuple:
             """(ready, reason): the load-balancer signal — False while
-            draining or while an abandoned deadline-overrun call has been
-            wedged past --wedge-unready."""
+            draining, once the continuous scheduler died (the port does
+            not restart it), or while an abandoned deadline-overrun call
+            has been wedged past --wedge-unready."""
             if state.draining:
                 return False, "draining"
+            if continuous is not None and not continuous.ready:
+                return False, "scheduler_dead"
             if wedge_unready_s:
                 age = engine.max_wedged_age()
                 if age is not None and age > wedge_unready_s:
@@ -157,7 +166,10 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                     self._send(503, {"ready": False, "reason": why},
                                headers={"Retry-After": str(RETRY_AFTER_S)})
             elif path == "/stats":
-                self._send(200, engine.stats())
+                s = engine.stats()
+                if continuous is not None:
+                    s["continuous"] = continuous.stats()
+                self._send(200, s)
             elif path == "/metrics":
                 self._send(200, engine.metrics.render(),
                            content_type="text/plain; version=0.0.4; charset=utf-8")
@@ -306,9 +318,12 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 kwargs["stop"] = raw_stop
             if _parse_bool(data.get("stream", False), "stream"):
                 # the solo engine decodes a whole request per call: there
-                # is nothing to stream per token
+                # is nothing to stream per token; the fleet's stream() is
+                # not ported yet
                 self._send(400, {
-                    "error": "streaming requires --continuous and a single 'prompt'",
+                    "error": "streaming requires --continuous and a single 'prompt'"
+                    if continuous is None else
+                    "streaming from the continuous fleet is not ported yet",
                 })
                 return None
             if prompts is not None:
@@ -325,6 +340,8 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 data.get("speculative", False), "speculative"
             )
             kwargs["logprobs"] = _parse_bool(data.get("logprobs", False), "logprobs")
+            if continuous is not None:
+                return continuous.submit(prompt, **kwargs)
             return engine.generate(prompt, **kwargs)
 
     return Handler
@@ -346,14 +363,16 @@ class InferenceServer:
 
     def __init__(self, engine, host: str = "0.0.0.0", port: int = 5000,
                  max_tokens_cap: int = 30, drain_deadline_s: float = 30.0,
-                 wedge_unready_s: float = 10.0):
+                 wedge_unready_s: float = 10.0, continuous=None):
         self.engine = engine
+        self.continuous = continuous
         self.drain_deadline_s = float(drain_deadline_s)
         self.state = _ServerState()
         self.httpd = ThreadingHTTPServer(
             (host, port),
             make_handler(engine, max_tokens_cap, state=self.state,
-                         wedge_unready_s=wedge_unready_s),
+                         wedge_unready_s=wedge_unready_s,
+                         continuous=continuous),
         )
         self.port = self.httpd.server_address[1]
 
@@ -369,7 +388,10 @@ class InferenceServer:
         deadline = self.drain_deadline_s if deadline_s is None else float(deadline_s)
         t0 = time.time()
         self.state.draining = True
-        ok = self.engine.drain(deadline)
+        ok = True
+        if self.continuous is not None:
+            ok = self.continuous.drain(deadline)
+        ok = self.engine.drain(max(0.0, deadline - (time.time() - t0))) and ok
         from ..utils.logging import get_logger
 
         get_logger("server").info("drained", ok=ok, seconds=round(time.time() - t0, 3))
@@ -404,6 +426,8 @@ class InferenceServer:
     def shutdown(self):
         self.httpd.shutdown()
         self.httpd.server_close()
+        if self.continuous is not None:
+            self.continuous.close()
 
 
 def main(argv: Optional[list] = None):
@@ -448,7 +472,43 @@ def main(argv: Optional[list] = None):
         help="flip GET /ready to 503 while an abandoned deadline-overrun "
              "call has been stuck this long (0 disables)",
     )
+    ap.add_argument(
+        "--continuous", type=int, default=0, metavar="SLOTS",
+        help="continuous (in-flight) batching: a fleet of SLOTS slots "
+             "decodes in lock-step over the block-paged KV pool and new "
+             "requests join free slots mid-flight (needs --kv-pool-blocks; "
+             "0 = disabled)",
+    )
+    ap.add_argument(
+        "--continuous-chunk", type=int, default=16,
+        help="decode steps per device round trip when no prompt is pending",
+    )
+    ap.add_argument(
+        "--continuous-max-seq", type=int, default=None, metavar="N",
+        help="per-slot KV budget (prompt + generated tokens per request; "
+             "default: the model's max_seq_len)",
+    )
+    ap.add_argument(
+        "--kv-pool-blocks", type=int, default=None, metavar="N",
+        help="block-paged KV for --continuous: a shared pool of N blocks "
+             "(engine/paged.py); admission waits when the pool is full",
+    )
+    ap.add_argument(
+        "--kv-block-size", type=int, default=16,
+        help="tokens per KV pool block (with --kv-pool-blocks)",
+    )
+    ap.add_argument(
+        "--continuous-lag", type=int, default=2,
+        help="launches in flight before blocking on the oldest fetch",
+    )
     args = ap.parse_args(argv)
+    if args.kv_pool_blocks is not None and args.continuous <= 0:
+        raise SystemExit("--kv-pool-blocks requires --continuous")
+    if args.continuous > 0 and args.kv_pool_blocks is None:
+        raise SystemExit(
+            "--continuous without --kv-pool-blocks is the dense slot fleet, "
+            "not ported yet (ROADMAP.md \"Dense fleet\")"
+        )
 
     tokenizer = None
     if args.tokenizer:
@@ -464,10 +524,19 @@ def main(argv: Optional[list] = None):
         seed=args.seed,
         device=args.device,
     )
+    continuous = None
+    if args.continuous > 0:
+        from ..engine.continuous import ContinuousEngine
+
+        continuous = ContinuousEngine(
+            engine, n_slots=args.continuous, chunk_steps=args.continuous_chunk,
+            chunk_lag=args.continuous_lag, slot_max_seq=args.continuous_max_seq,
+            kv_pool_blocks=args.kv_pool_blocks, kv_block_size=args.kv_block_size,
+        )
     InferenceServer(
         engine, args.host, args.port, args.max_tokens_cap,
         drain_deadline_s=args.drain_deadline,
-        wedge_unready_s=args.wedge_unready,
+        wedge_unready_s=args.wedge_unready, continuous=continuous,
     ).serve_forever()
 
 

@@ -281,3 +281,69 @@ class MetricsRegistry:
         for fam in self.families():
             lines.extend(fam.render_lines())
         return "\n".join(lines) + "\n"
+
+
+def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
+    """The families the continuous paged fleet (engine/continuous.py)
+    increments, registered once with the JAX package's names: fleet
+    occupancy and queue, the decode step histogram, launch composition
+    (`dli_sched_*`) and ragged-launch accounting (`dli_ragged_*`).
+    Returns them as attributes of a namespace."""
+    import types
+
+    m = registry
+    m.gauge("dli_slots_total", "continuous-fleet decode slots").labels().set(n_slots)
+    return types.SimpleNamespace(
+        occupied=m.gauge(
+            "dli_slots_occupied", "continuous-fleet slots serving a request"
+        ).labels(),
+        depth=m.gauge(
+            "dli_queue_depth", "requests waiting for dispatch", ("queue",)
+        ).labels(queue="continuous"),
+        admission_wait=m.histogram(
+            "dli_admission_wait_seconds", "enqueue-to-admission wait",
+            ("queue",),
+        ).labels(queue="continuous"),
+        step=m.histogram(
+            "dli_decode_step_seconds",
+            "per-token decode step time, launch-to-fetch / tokens per row "
+            "(includes pipelining lag)", ("engine",),
+        ).labels(engine="continuous"),
+        preempt=m.counter(
+            "dli_preemptions_total",
+            "slots killed before their budget drained", ("reason",),
+        ),
+        shed=m.counter(
+            "dli_queue_shed_total", "requests shed with 429", ("queue",)
+        ).labels(queue="continuous"),
+        deadline_exceeded=m.counter(
+            "dli_deadline_exceeded_total",
+            "requests failed by their end-to-end deadline_ms",
+        ).labels(),
+        ragged_rows=m.counter(
+            "dli_ragged_rows_total",
+            "ragged-launch rows by kind (prefill chunk / decode token)",
+            ("kind",),
+        ),
+        ragged_tiles=m.counter(
+            "dli_ragged_tiles_total",
+            "ragged-launch query tiles by liveness (live / pad — pad tiles "
+            "read no K/V)", ("state",),
+        ),
+        ragged_launches=m.counter(
+            "dli_ragged_launches_total", "ragged launches", ("phase",)
+        ),
+        sched_tokens=m.counter(
+            "dli_sched_step_tokens_total",
+            "flat tokens launched by the chunked-prefill scheduler, by kind "
+            "(decode rows / prefill chunk tokens)", ("kind",),
+        ),
+        sched_chunks=m.counter(
+            "dli_sched_prefill_chunks_total",
+            "prefill chunks interleaved into mixed scheduler launches",
+        ).labels(),
+        sched_rows=m.counter(
+            "dli_sched_decode_rows_total",
+            "decode rows carried by mixed scheduler launches",
+        ).labels(),
+    )

@@ -91,3 +91,96 @@ def test_engine_kernel_path_matches_plain_path(card):
     # 42-token prompt: one 32-token extend chunk, then a 16-token bucket
     assert out["auto"][2] == 2 * 4 and out["plain"][2] == 0
     assert out["auto"][:2] == out["plain"][:2]
+
+
+def _pool_case(card, dt, g, *, N, KV, bs, Dh, R, MB):
+    """A random pool and R block tables drawn from a shuffled permutation
+    of the physical blocks 1..N-1 (block 0 is the trash block)."""
+    pool_k = torch.randn(N, KV, bs, Dh, generator=g, device=card).to(dt)
+    pool_v = torch.randn(N, KV, bs, Dh, generator=g, device=card).to(dt)
+    perm = torch.randperm(N - 1, generator=g, device=card)[: R * MB] + 1
+    table = perm.reshape(R, MB).to(torch.int32).contiguous()
+    return pool_k, pool_v, table
+
+
+# (kwargs, per-layer window)
+PAGED_VARIANTS = [({}, None), ({"window": 256}, None), ({}, 300), ({}, -1),
+                  ({"softcap": 30.0}, None), ({"scale": 0.2}, None)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_paged_decode_kernel_matches_twin(card, dtype):
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(1)
+    H, KV, Dh, bs, MB = 32, 4, 64, 16, 64
+    pool_k, pool_v, table = _pool_case(card, dt, g, N=8 * MB + 1, KV=KV,
+                                       bs=bs, Dh=Dh, R=8, MB=MB)
+    pos = torch.tensor([0, 15, 16, 700, 1023, 5, 64, 333], dtype=torch.int32,
+                       device=card)
+    q = torch.randn(8, 1, H, Dh, generator=g, device=card).to(dt)
+    for kw, wdyn in PAGED_VARIANTS:
+        wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
+                                                    device=card)
+        before = pa.paged_flash_attend.launches
+        got = pa.paged_flash_attend(q, pool_k, pool_v, table, pos, wd, **kw)
+        torch.cuda.synchronize()
+        assert pa.paged_flash_attend.launches == before + 1
+        want = pa.paged_flash_attend_plain(q, pool_k, pool_v, table, pos, wd, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATOL[dtype], (kw, wdyn, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_ragged_kernel_matches_twin(card, dtype):
+    """Decode rows, a prefill chunk, a short prefill row and pad tiles in
+    one launch, over shuffled tables."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(2)
+    H, KV, Dh, bs, MB, tq = 32, 4, 64, 16, 64, 8
+    pool_k, pool_v, table = _pool_case(card, dt, g, N=10 * MB + 1, KV=KV,
+                                       bs=bs, Dh=Dh, R=10, MB=MB)
+    # (row, q_start, q_len, kind) per tile: 3 decode rows, a 19-token chunk
+    # at 640 over three tiles, a 5-token row at 0, then two pad tiles that
+    # repeat their predecessor's row and start with q_len 0
+    meta = [(0, 17, 1, 1), (1, 1023, 1, 1), (2, 0, 1, 1),
+            (5, 640, 8, 0), (5, 648, 8, 0), (5, 656, 3, 0),
+            (9, 0, 5, 0), (9, 0, 0, 0), (9, 0, 0, 0)]
+    meta = torch.tensor(meta, dtype=torch.int32, device=card)
+    q = torch.randn(meta.shape[0] * tq, H, Dh, generator=g, device=card).to(dt)
+    for kw, wdyn in PAGED_VARIANTS:
+        wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
+                                                    device=card)
+        before = pa.ragged_paged_attend.launches
+        got = pa.ragged_paged_attend(q, pool_k, pool_v, table, meta, wd, **kw)
+        torch.cuda.synchronize()
+        assert pa.ragged_paged_attend.launches == before + 1
+        want = pa.ragged_paged_attend_plain(q, pool_k, pool_v, table, meta, wd,
+                                            **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATOL[dtype], (kw, wdyn, err)
+        # padding tiles and the rows past a tile's q_len are zeros
+        assert got[7 * tq:].abs().max().item() == 0.0
+        assert got[6 * tq + 5: 7 * tq].abs().max().item() == 0.0
+
+
+def test_paged_kernels_reject_what_they_do_not_take(card):
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    pool = torch.randn(9, 2, 16, 16, device=card)
+    table = torch.ones(2, 4, dtype=torch.int32, device=card)
+    q = torch.randn(2, 1, 4, 16, device=card)
+    pos = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="int32"):
+        pa.paged_flash_attend(q, pool, pool, table.long(), pos)
+    with pytest.raises(TypeError):
+        pa.paged_flash_attend(q.half(), pool, pool, table, pos)
+    with pytest.raises(NotImplementedError):
+        pa.paged_flash_attend(q, pool.to(torch.int8), pool.to(torch.int8), table, pos)
+    meta = torch.zeros(3, 4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="dividing"):
+        pa.ragged_paged_attend(torch.randn(8, 4, 16, device=card), pool, pool,
+                               table, meta)

@@ -56,3 +56,53 @@ def test_chip_smoke_fails_without_a_card():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def _roadmap_items() -> dict:
+    """Every ROADMAP.md item a not-ported error of the port names, by the
+    module that names it: the literal `ROADMAP.md "<item>"` in a string,
+    and the item argument of each `_not_ported(what, item)` call (a string
+    or a module-level string constant of the package)."""
+    import re
+
+    quoted = re.compile(r'ROADMAP\.md "([^"]+)"')
+    trees = {path: ast.parse(path.read_text()) for path in
+             sorted((ROOT / "distributed_llm_inference_tpu_torch").rglob("*.py"))}
+    # module-level string constants of the whole package (an item name may
+    # be imported from the module that defines it)
+    consts = {t.id: n.value.value for tree in trees.values() for n in tree.body
+              if isinstance(n, ast.Assign) and isinstance(n.value, ast.Constant)
+              and isinstance(n.value.value, str) for t in n.targets
+              if isinstance(t, ast.Name)}
+    found = {}
+    for path, tree in trees.items():
+        items = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                items.update(quoted.findall(node.value))
+            if (isinstance(node, ast.Call) and getattr(node.func, "id", "") == "_not_ported"
+                    and len(node.args) == 2):
+                arg = node.args[1]
+                if isinstance(arg, ast.Constant):
+                    items.add(arg.value)
+                elif isinstance(arg, ast.Name):
+                    items.add(consts[arg.id])
+        if items:
+            found[path.relative_to(ROOT).as_posix()] = items
+    return found
+
+
+def test_not_ported_errors_name_roadmap_headings():
+    """A not-ported error names its ROADMAP.md item by the item's heading,
+    never by a number that goes stale when the queues are rewritten."""
+    import re
+
+    headings = {line.lstrip("#").strip() for line in
+                (ROOT / "ROADMAP.md").read_text().splitlines() if line.startswith("#")}
+    found = _roadmap_items()
+    assert len(found) >= 8, sorted(found)
+    missing = {f: sorted(i - headings) for f, i in found.items() if i - headings}
+    assert not missing, missing
+    numbered = re.compile(r"ROADMAP[^\n]{0,40}\bitem \d")
+    for path in (ROOT / "distributed_llm_inference_tpu_torch").rglob("*.py"):
+        assert not numbered.search(path.read_text()), path

@@ -77,6 +77,35 @@ def test_forward_logits_match_jax(name):
 
 
 @pytest.mark.parametrize("name", ["test-llama-tiny", "test-gemma2-tiny"])
+def test_slots_mode_per_row_positions_match_jax(name):
+    """Continuous batching's slots mode: pos is an int32 [B] tensor, each
+    row writes its chunk at its own offset (ops/attention.
+    update_kv_cache_slots) and attends under its own causal (and window)
+    mask (slot_causal_mask), with RoPE per row."""
+    tree = _weights(name)
+    jcfg, tcfg = _configs(name)
+    tparams = params_from_numpy(tcfg, tree, "cpu")
+    jparams = jax.tree.map(jnp.asarray, tree)
+    rng = np.random.default_rng(2)
+    S = 40
+    jcache = JM.init_kv_cache(jcfg, 3, max_seq=S)
+    tcache = TM.init_kv_cache(tcfg, 3, max_seq=S, device="cpu")
+    toks = rng.integers(3, tcfg.vocab_size, (3, 12)).astype(np.int32)
+    _, jcache = JM.forward(jcfg, jparams, jnp.asarray(toks), jcache, jnp.int32(0))
+    _, tcache = TM.forward(tcfg, tparams, torch.from_numpy(toks).long(), tcache, 0)
+    # rows at their own positions: one decodes on, one rewinds, one idles at 0
+    for T, pos in ((1, [12, 5, 0]), (3, [13, 6, 0]), (1, [16, 9, 3])):
+        toks = rng.integers(3, tcfg.vocab_size, (3, T)).astype(np.int32)
+        p = np.array(pos, np.int32)
+        jlog, jcache = JM.forward(jcfg, jparams, jnp.asarray(toks), jcache, jnp.asarray(p))
+        tlog, tcache = TM.forward(tcfg, tparams, torch.from_numpy(toks).long(), tcache,
+                                  torch.from_numpy(p))
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]), atol=ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("name", ["test-llama-tiny", "test-gemma2-tiny"])
 def test_kernel_path_matches_plain_path(name):
     """attn_impl="kernel" on the CPU runs the flash kernel's plain twin
     inside the model: same logits as the einsum path."""
