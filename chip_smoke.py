@@ -35,8 +35,22 @@ kernels. Phases, each of which fails the run:
       and one decode chunk under torch.cuda.set_sync_debug_mode("error");
   (i) per-request TTFT and tokens/s, the wave's aggregate tokens/s, the
       device idle share and kernels per token of one profiled mixed
-      launch and one decode chunk, the kernels' JSON line, and as the
-      last line {"ok": true, "device": {...}}.
+      launch and one decode chunk;
+  (j) the int4 / int8 kernels vs their twins: q4_matmul_rows at
+      tinyllama's projection shapes (R = 1, 8, 32; bf16 and fp32, with
+      torch.matmul against the dequantized weight as the yardstick), and
+      the int8-cache variants of flash_attend (a subset of (b)'s cases)
+      and of the two paged kernels ((f)'s cases over int8 pools);
+  (k) the same model under `--quant int4 --kv-quant int8`: the fleet
+      wave of (g) through the HTTP server, with q4_matmul_rows launched
+      (7 x 22 + 1) times per decode step and twice per mixed launch and
+      the int8 paged kernels as in (g), then one solo request whose
+      prompt chunks through the int8 flash_attend;
+  (l) the quantized fleet's kernel path vs its plain attention path, and
+      the sync check, as in (h);
+  (m) the quantized wave's TTFT and tokens/s, its profiled mixed launch
+      and decode chunk, the kernels' JSON line (seven entries), and as
+      the last line {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository: with no card, or run from a
 directory that holds nothing else of the repository, it exits non-zero
@@ -67,6 +81,13 @@ ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # gives a max difference of 0.07. A wrong mask or tile walk moves logits
 # by O(1).
 LOGITS_ATOL = 0.25
+# the quantized fleet's logits, kernel path vs plain attention path
+# (q4_matmul_rows runs on both): the bf16 ulp of (d) and (h), plus the
+# int8 cache, where a K/V value the two paths round to neighbouring bf16
+# values may be stored one int8 step (~absmax / 127) apart. A CPU run of
+# tests/test_torch_kv_quant.py puts one such step at ~2e-3 of a logit; a
+# wrong mask, tile walk or scale moves logits by O(1).
+QUANT_LOGITS_ATOL = 0.25
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and FLOP/s by input type
 # (fp32 runs on the CUDA cores, not the tensor cores)
 HBM_BPS = 3.35e12
@@ -128,7 +149,13 @@ class Timer:
         return total / reps
 
 
-def flash_work(B, T, pos, valid_start, window, dtype_name):
+def kv_row_bytes(dtype_name, int8):
+    """Bytes of one position's K or V row of one KV head: Dh elements, or
+    Dh int8 bytes and a 4-byte scale."""
+    return DH + 4 if int8 else DH * (4 if dtype_name == "float32" else 2)
+
+
+def flash_work(B, T, pos, valid_start, window, dtype_name, int8=False):
     """(bytes, FLOPs) the attention of this call needs: q read and o
     written once, each live K/V row read once, and 4*Dh FLOPs per head for
     each (query, key) pair the mask lets through (the two products)."""
@@ -145,7 +172,7 @@ def flash_work(B, T, pos, valid_start, window, dtype_name):
                 lo = max(lo, q_pos - window + 1)
             pairs += max(q_pos + 1 - lo, 0)
             lo_min = lo if lo_min is None else min(lo_min, lo)
-        nbytes += 2 * KV * DH * esize * max(pos + T - lo_min, 0)
+        nbytes += 2 * KV * kv_row_bytes(dtype_name, int8) * max(pos + T - lo_min, 0)
     return nbytes, 4 * DH * H * pairs
 
 
@@ -155,16 +182,25 @@ def bound(nbytes, flops, dtype_name):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def int8_leaf(torch, x):
+    """x [..., Dh] as an int8 cache leaf (data and per-row scales)."""
+    from distributed_llm_inference_tpu_torch.ops import kv_quant as K
+
+    return K.KVQuant(*K.quantize_chunk(x))
+
+
 def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
-               window=None, softcap=None, scale=None, seed=0, reps=10):
-    """One kernel-vs-twin comparison with its times; returns a dict."""
+               window=None, softcap=None, scale=None, seed=0, reps=10, int8=False):
+    """One kernel-vs-twin comparison with its times, over a raw or an int8
+    cache; returns a dict."""
     import torch.nn.functional as F
 
     dt = getattr(torch, dtype_name)
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     q = torch.randn(B, T, H, DH, generator=g, device=DEVICE).to(dt)
-    k = torch.randn(B, KV, S, DH, generator=g, device=DEVICE).to(dt)
-    v = torch.randn(B, KV, S, DH, generator=g, device=DEVICE).to(dt)
+    k = torch.randn(B, KV, S, DH, generator=g, device=DEVICE)
+    v = torch.randn(B, KV, S, DH, generator=g, device=DEVICE)
+    k, v = (int8_leaf(torch, k), int8_leaf(torch, v)) if int8 else (k.to(dt), v.to(dt))
     vs = (torch.tensor(valid_start, dtype=torch.int32, device=DEVICE)
           if valid_start is not None else None)
     kw = dict(window=window, softcap=softcap, scale=scale)
@@ -177,7 +213,8 @@ def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
     plain_ms = timer.ms(lambda: fa.flash_attend_plain(q, k, v, pos, vs, **kw),
                         max(2, reps // 4))
     library_ms = None
-    if softcap is None:  # SDPA has no softcap: no single call computes it
+    # SDPA has no softcap and reads no int8 cache: no single call computes those
+    if softcap is None and not int8:
         q_pos = pos + torch.arange(T, device=DEVICE)
         kv_pos = torch.arange(S, device=DEVICE)
         mask = kv_pos[None, :] <= q_pos[:, None]
@@ -193,33 +230,36 @@ def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
                 qt, k, v, attn_mask=mask, scale=scale, enable_gqa=True),
             reps,
         )
-    nbytes, flops = flash_work(B, T, pos, valid_start, window, dtype_name)
+    nbytes, flops = flash_work(B, T, pos, valid_start, window, dtype_name, int8)
     bound_ms, bound_by = bound(nbytes, flops, dtype_name)
-    return dict(dtype=dtype_name, B=B, T=T, pos=pos, valid_start=valid_start,
+    return dict(dtype=dtype_name, int8=int8, B=B, T=T, pos=pos, valid_start=valid_start,
                 window=window, softcap=softcap, scale=scale, max_abs_err=err,
                 atol=ATOL[dtype_name], ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 nbytes=nbytes, flops=flops)
 
 
-def phase_b(torch, timer, fa):
-    """flash_attend vs its twin at tinyllama's shapes."""
+def phase_b(torch, timer, fa, int8=False):
+    """flash_attend vs its twin at tinyllama's shapes (with an int8 cache:
+    a subset of the cases)."""
     cases = []
     for dtype_name in ("bfloat16", "float32"):
         for B in (1, 4):
             for T in (64, 512, 2048):
                 for pos in (0, 700):
-                    if T + pos <= S:
-                        cases.append(dict(dtype_name=dtype_name, B=B, T=T, pos=pos))
-        cases += [
+                    if T + pos <= S and not (int8 and (B, T) == (4, 2048)):
+                        cases.append(dict(dtype_name=dtype_name, B=B, T=T, pos=pos,
+                                          int8=int8))
+        cases += [dict(c, int8=int8) for c in [
             dict(dtype_name=dtype_name, B=4, T=512, pos=700,
                  valid_start=[0, 37, 300, 700]),
             dict(dtype_name=dtype_name, B=1, T=512, pos=700, window=256),
             dict(dtype_name=dtype_name, B=1, T=512, pos=700, softcap=30.0),
             dict(dtype_name=dtype_name, B=1, T=512, pos=700, scale=0.2),
-        ]
+        ]]
     rows = []
-    print(f"(b) flash_attend vs plain twin, H={H} KV={KV} Dh={DH} S={S}; device "
+    tag, name = ("(j)", "flash_attend[int8]") if int8 else ("(b)", "flash_attend")
+    print(f"{tag} {name} vs plain twin, H={H} KV={KV} Dh={DH} S={S}; device "
           f"ms per call, cold L2")
     for i, c in enumerate(cases):
         r = flash_case(torch, timer, fa, seed=i, **c)
@@ -232,7 +272,7 @@ def phase_b(torch, timer, fa):
               f"sdpa={'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f')} "
               f"bound={r['bound_ms']:.4f} ({r['bound_by']})")
     bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
-    check(not bad, f"flash_attend disagrees with its twin in {len(bad)} case(s)")
+    check(not bad, f"{name} disagrees with its twin in {len(bad)} case(s)")
     return rows
 
 
@@ -392,9 +432,10 @@ def phase_profile(torch, engine):
         print(f"    {ms:8.3f} ms {count:5d}x  {name[:100]}")
 
 
-def kernels_line(torch, timer, fa, shapes, launches):
-    """The kernels' JSON entry, timed at the main path's own chunk shapes
-    (bf16, B=1, as served) and averaged per launch over them."""
+def kernels_line(torch, timer, fa, shapes, launches, int8=False):
+    """flash_attend's JSON entry (or its int8-cache variant's), timed at
+    the main path's own chunk shapes (bf16, B=1, as served) and averaged
+    per launch over them."""
     counts = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
@@ -402,16 +443,16 @@ def kernels_line(torch, timer, fa, shapes, launches):
     err = 0.0
     for i, ((T, pos), n) in enumerate(sorted(counts.items())):
         r = flash_case(torch, timer, fa, dtype_name="bfloat16", B=1, T=T, pos=pos,
-                       seed=100 + i, reps=20)
+                       seed=100 + i, reps=20, int8=int8)
         check(r["max_abs_err"] <= r["atol"], f"flash_attend at main-path shape {T, pos}")
         err = max(err, r["max_abs_err"])
         for key in ("ms", "plain_ms", "library_ms", "nbytes", "flops"):
-            tot[key] += n * r[key]
+            tot[key] += n * (r[key] or 0.0)
         tot["n"] += n
     bound_ms, bound_by = bound(tot["nbytes"], tot["flops"], "bfloat16")
     n = tot["n"]
     return {
-        "name": "flash_attend",
+        "name": "flash_attend[int8]" if int8 else "flash_attend",
         "route": "cuda",
         "source": "distributed_llm_inference_tpu_torch/csrc/flash_attention.cu",
         "replaces": "distributed_llm_inference_tpu/ops/flash_attention.py:84",
@@ -421,8 +462,10 @@ def kernels_line(torch, timer, fa, shapes, launches):
         "plain_ms": tot["plain_ms"] / n,
         "bound_ms": bound_ms / n,
         "bound_by": bound_by,
-        "library_ms": tot["library_ms"] / n,
-        "shapes": f"bf16 B=1 H={H} KV={KV} Dh={DH} S={S}, (T, pos) per chunk: "
+        # no single PyTorch call attends an int8 cache
+        "library_ms": None if int8 else tot["library_ms"] / n,
+        "shapes": f"bf16 B=1 H={H} KV={KV} Dh={DH} S={S}"
+                  + (", int8 cache" if int8 else "") + ", (T, pos) per chunk: "
                   + ", ".join(f"{s}x{c}" for s, c in sorted(counts.items())),
     }
 
@@ -443,19 +486,24 @@ FLEET_NEW_TOKENS = 32
 SAMPLED_KNOBS = {"temperature": 0.8, "top_k": 40, "top_p": 0.95}
 
 
-def paged_pool(torch, dt, rows, seed):
-    """A random pool [N, KV, 16, Dh] and `rows` block tables of 64 blocks
-    each, drawn from a shuffled permutation of blocks 1..N-1 (0 is the
-    trash block), so the kernels' table walk really jumps."""
+def paged_pool(torch, dt, rows, seed, int8=False):
+    """A random pool [N, KV, 16, Dh] (raw, or int8 with its scales) and
+    `rows` block tables of 64 blocks each, drawn from a shuffled
+    permutation of blocks 1..N-1 (0 is the trash block), so the kernels'
+    table walk really jumps."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     n = rows * SLOT_MB + 1
-    pool_k = torch.randn(n, KV, BLOCK, DH, generator=g, device=DEVICE).to(dt)
-    pool_v = torch.randn(n, KV, BLOCK, DH, generator=g, device=DEVICE).to(dt)
+    pool_k = torch.randn(n, KV, BLOCK, DH, generator=g, device=DEVICE)
+    pool_v = torch.randn(n, KV, BLOCK, DH, generator=g, device=DEVICE)
+    if int8:
+        pool_k, pool_v = int8_leaf(torch, pool_k), int8_leaf(torch, pool_v)
+    else:
+        pool_k, pool_v = pool_k.to(dt), pool_v.to(dt)
     perm = torch.randperm(n - 1, generator=g, device=DEVICE)[: rows * SLOT_MB] + 1
     return g, pool_k, pool_v, perm.reshape(rows, SLOT_MB).to(torch.int32).contiguous()
 
 
-def paged_work(row_queries, width, dtype_name, window, index_bytes):
+def paged_work(row_queries, width, dtype_name, window, index_bytes, int8=False):
     """(bytes, FLOPs) of one paged attention launch: q read once for the
     live query rows only (the kernel never reads a padding row), o written
     once for all `width` rows (padding rows get zeros), each table row's
@@ -471,7 +519,8 @@ def paged_work(row_queries, width, dtype_name, window, index_bytes):
         lows = [max(0, q - window + 1) if window else 0 for q in qs]
         pairs += sum(q + 1 - lo for q, lo in zip(qs, lows))
         lo, hi = min(lows), max(qs)
-        nbytes += 2 * KV * DH * esize * (hi + 1 - lo) + 4 * (hi // BLOCK - lo // BLOCK + 1)
+        nbytes += (2 * KV * kv_row_bytes(dtype_name, int8) * (hi + 1 - lo)
+                   + 4 * (hi // BLOCK - lo // BLOCK + 1))
     return nbytes, 4 * DH * H * pairs
 
 
@@ -499,11 +548,13 @@ def ragged_plans(P):
     }
 
 
-def phase_f(torch, timer, pa, P):
-    """paged_flash_attend and ragged_paged_attend vs their twins."""
-    print(f"(f) paged kernels vs plain twins, H={H} KV={KV} Dh={DH}, {BLOCK}-token "
-          f"blocks, {SLOT_MB} shuffled blocks per table row; device ms per call, "
-          f"cold L2")
+def phase_f(torch, timer, pa, P, int8=False):
+    """paged_flash_attend and ragged_paged_attend vs their twins, over raw
+    pools or (int8=True) int8 pools."""
+    tag, suffix = ("(j)", "[int8]") if int8 else ("(f)", "")
+    print(f"{tag} paged kernels{suffix} vs plain twins, H={H} KV={KV} Dh={DH}, "
+          f"{BLOCK}-token blocks, {SLOT_MB} shuffled blocks per table row; device "
+          f"ms per call, cold L2")
     rows = []
 
     def record(kernel, dtype_name, case, label, kw, wdyn, args, row_queries,
@@ -513,13 +564,13 @@ def phase_f(torch, timer, pa, P):
         fn, plain = getattr(pa, kernel), getattr(pa, kernel + "_plain")
         got, err, ms, plain_ms = paged_case(torch, timer, fn, plain, args, kw, wd)
         nbytes, flops = paged_work(row_queries, width, dtype_name,
-                                   kw.get("window") or wdyn, index_bytes)
+                                   kw.get("window") or wdyn, index_bytes, int8)
         bound_ms, bound_by = bound(nbytes, flops, dtype_name)
-        r = dict(kernel=kernel, dtype=dtype_name, case=case, variant=label,
+        r = dict(kernel=kernel + suffix, dtype=dtype_name, case=case, variant=label,
                  max_abs_err=err, atol=ATOL[dtype_name], ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes, flops=flops)
         rows.append(r)
-        print(f"    {kernel:19s} {dtype_name:8s} {case:31s} {label:14s} "
+        print(f"    {kernel + suffix:25s} {dtype_name:8s} {case:31s} {label:14s} "
               f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} "
               f"plain={plain_ms:.4f} bound={bound_ms:.4f} ({bound_by})")
         return got
@@ -527,7 +578,7 @@ def phase_f(torch, timer, pa, P):
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         for B in (1, 8, 32):
-            g, pk, pv, table = paged_pool(torch, dt, B, seed=B)
+            g, pk, pv, table = paged_pool(torch, dt, B, seed=B, int8=int8)
             extra = torch.randint(0, SLOT_MB * BLOCK, (B,), generator=g,
                                   device=DEVICE).tolist()
             pos_list = [700] if B == 1 else (SPECIAL_POS + extra)[:B]
@@ -538,7 +589,7 @@ def phase_f(torch, timer, pa, P):
                        (q, pk, pv, table, pos), {b: [p] for b, p in enumerate(pos_list)},
                        B, 4 * B)
         for i, (name, entries) in enumerate(ragged_plans(P).items()):
-            g, pk, pv, table = paged_pool(torch, dt, 9, seed=100 + i)
+            g, pk, pv, table = paged_pool(torch, dt, 9, seed=100 + i, int8=int8)
             meta_np, tok_row, _, _, _ = P.build_ragged_meta(
                 entries, width=RAGGED_W, tile=RAGGED_TILE)
             meta = torch.from_numpy(meta_np).to(DEVICE)
@@ -553,9 +604,9 @@ def phase_f(torch, timer, pa, P):
                              16 * meta.shape[0])
                 # launch padding and the rows past a tile's q_len: zeros
                 check(got[dead].float().abs().sum().item() == 0.0,
-                      f"ragged_paged_attend wrote non-zeros to padding ({name})")
+                      f"ragged_paged_attend{suffix} wrote non-zeros to padding ({name})")
     bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
-    check(not bad, f"paged kernels disagree with their twins in {len(bad)} case(s)")
+    check(not bad, f"paged kernels{suffix} disagree with their twins in {len(bad)} case(s)")
     return rows
 
 
@@ -579,14 +630,38 @@ def wait_idle(port, timeout_s=60.0) -> dict:
         time.sleep(0.05)
 
 
-def phase_g(torch, engine, pa, fa):
-    """The fleet through the port's HTTP server: 8 concurrent requests."""
+def reset_counts(pa, fa, Q):
+    """Every kernel's launch counts to 0."""
+    for wrapper in (pa.ragged_paged_attend, pa.paged_flash_attend, fa.flash_attend):
+        wrapper.launches = wrapper.launches_int8 = 0
+    Q.q4_matmul_rows.launches = 0
+
+
+def read_counts(pa, fa, Q):
+    """Every kernel's launch count, by the name the kernels line gives it."""
+    out = {}
+    for name, wrapper in (("ragged_paged_attend", pa.ragged_paged_attend),
+                          ("paged_flash_attend", pa.paged_flash_attend),
+                          ("flash_attend", fa.flash_attend)):
+        out[name] = wrapper.launches
+        out[name + "[int8]"] = wrapper.launches_int8
+    out["q4_matmul_rows"] = Q.q4_matmul_rows.launches
+    return out
+
+
+def phase_g(torch, engine, pa, fa, Q, tag="(g)"):
+    """The fleet through the port's HTTP server: 8 concurrent requests. On
+    a quantized engine (int4 weights, int8 pool; phase (k)) the int8
+    paged kernels and q4_matmul_rows must carry the wave."""
     import threading
 
     from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
     from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
 
-    L = engine.cfg.n_layers
+    cfg = engine.cfg
+    L = cfg.n_layers
+    quant = cfg.quant == "int4" and cfg.kv_quant == "int8"
+    sfx = "[int8]" if quant else ""
     fleet = ContinuousEngine(engine, **FLEET)
     server = InferenceServer(engine, host="127.0.0.1", port=0, max_tokens_cap=64,
                              continuous=fleet)
@@ -595,7 +670,8 @@ def phase_g(torch, engine, pa, fa):
         t0 = time.time()
         w = fleet.warmup()
         check(w["ok"], f"fleet warmup: {w}")
-        print(f"(g) fleet {json.dumps(FLEET)}: step width "
+        print(f"{tag} fleet {json.dumps(FLEET)}, quant={cfg.quant} "
+              f"kv_quant={cfg.kv_quant}: step width "
               f"{fleet.stats()['scheduler']['step_width']}, tile {RAGGED_TILE}; "
               f"warmup request {time.time() - t0:.1f} s")
         bodies = []
@@ -613,9 +689,7 @@ def phase_g(torch, engine, pa, fa):
         threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
         # the main path's run: every count starts at 0 here and is read
         # when the fleet is idle again
-        pa.ragged_paged_attend.launches = 0
-        pa.paged_flash_attend.launches = 0
-        fa.flash_attend.launches = 0
+        reset_counts(pa, fa, Q)
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -623,16 +697,14 @@ def phase_g(torch, engine, pa, fa):
             t.join()
         wave_s = time.perf_counter() - t0
         st = wait_idle(server.port)
-        launches = {"ragged_paged_attend": pa.ragged_paged_attend.launches,
-                    "paged_flash_attend": pa.paged_flash_attend.launches,
-                    "flash_attend": fa.flash_attend.launches}
+        launches = read_counts(pa, fa, Q)
         after = st["continuous"]["launches"]
         mixed = after["mixed"] - before["mixed"]
         both = (after["mixed_with_decode_and_prefill"]
                 - before["mixed_with_decode_and_prefill"])
         chunks = after["decode_chunks"] - before["decode_chunks"]
         for i, (code, r, wall) in enumerate(results):
-            print(f"(g) request {i} ({'greedy' if i % 2 == 0 else 'sampled'}): HTTP {code} "
+            print(f"{tag} request {i} ({'greedy' if i % 2 == 0 else 'sampled'}): HTTP {code} "
                   f"prompt_tokens={r.get('prompt_tokens')} tokens={r.get('tokens_generated')} "
                   f"finish={r.get('finish_reason')} ttft_s={r.get('ttft_s')} "
                   f"tokens_per_sec={r.get('tokens_per_sec')} "
@@ -643,27 +715,38 @@ def phase_g(torch, engine, pa, fa):
                   f"request {i}: {r['prompt_tokens']} prompt tokens")
             check(r["tokens_generated"] == FLEET_NEW_TOKENS or r["finish_reason"] == "stop",
                   f"request {i}: {r['tokens_generated']} tokens without a stop")
-        print(f"(g) wave: {wave_s:.3f} s; launches: {mixed} mixed ({both} with decode "
+        print(f"{tag} wave: {wave_s:.3f} s; launches: {mixed} mixed ({both} with decode "
               f"rows and prompt chunks at once), {chunks} decode chunks of "
               f"{FLEET['chunk_steps']} steps; kernel launches {json.dumps(launches)}")
-        check(launches["flash_attend"] == 0, "the fleet ran the dense flash kernel")
+        ragged, paged = "ragged_paged_attend" + sfx, "paged_flash_attend" + sfx
+        # every kernel not of this path: never launched
+        expect_zero = [k for k in launches if k not in (ragged, paged, "q4_matmul_rows")]
+        check(not any(launches[k] for k in expect_zero),
+              f"the fleet launched kernels of another path: {launches}")
         check(both >= 1, "no mixed launch carried decode rows and prompt chunks at once")
         check(results[-1][1]["prefill_chunks"] >= 3,
               "the 700-token prompt did not span 3 mixed launches")
-        check(launches["ragged_paged_attend"] == L * mixed > 0,
-              f"ragged_paged_attend launched {launches['ragged_paged_attend']} times "
+        check(launches[ragged] == L * mixed > 0,
+              f"{ragged} launched {launches[ragged]} times "
               f"for {mixed} mixed launches of {L} layers")
-        check(launches["paged_flash_attend"] == L * FLEET["chunk_steps"] * chunks > 0,
-              f"paged_flash_attend launched {launches['paged_flash_attend']} times for "
+        check(launches[paged] == L * FLEET["chunk_steps"] * chunks > 0,
+              f"{paged} launched {launches[paged]} times for "
               f"{chunks} decode chunks of {FLEET['chunk_steps']} steps x {L} layers")
+        # int4: every projection of a decode step (R = 8 rows) and the two
+        # unembeds of a mixed launch; the mixed launch's 128-row
+        # projections take the einsum, as in the JAX package
+        q4_want = ((7 * L + 1) * FLEET["chunk_steps"] * chunks + 2 * mixed) if quant else 0
+        check(launches["q4_matmul_rows"] == q4_want,
+              f"q4_matmul_rows launched {launches['q4_matmul_rows']} times, "
+              f"{q4_want} expected for {chunks} decode chunks and {mixed} mixed launches")
         free = st["continuous"]["paged"]["free_blocks"]
-        print(f"(g) /stats after the wave: continuous {json.dumps(st['continuous'])}")
+        print(f"{tag} /stats after the wave: continuous {json.dumps(st['continuous'])}")
         check(free == FLEET["kv_pool_blocks"] - 1,
               f"{free} of {FLEET['kv_pool_blocks'] - 1} pool blocks free after the wave")
         # a greedy request twice on the idle fleet
         again = [post(server.port, bodies[6])[1] for _ in range(2)]
         same_as_wave = again[0]["token_ids"] == results[6][1]["token_ids"]
-        print(f"(g) greedy request 6 again on the idle fleet, twice: tokens "
+        print(f"{tag} greedy request 6 again on the idle fleet, twice: tokens "
               f"{again[0]['tokens_generated']}, {again[1]['tokens_generated']}; "
               f"identical={again[0]['token_ids'] == again[1]['token_ids']}; "
               f"same as in the wave={same_as_wave}")
@@ -763,8 +846,9 @@ def fleet_operands(torch, cfg, P, G):
     ), B - 1 + 56
 
 
-def phase_h(torch, engine, P, G, M):
-    """Kernel path vs plain path over the pool, and the sync check."""
+def phase_h(torch, engine, P, G, M, tag="(h)", atol=LOGITS_ATOL):
+    """Kernel path vs plain path over the pool, and the sync check (on a
+    quantized engine, phase (l): q4_matmul_rows runs on both paths)."""
     cfg_k = engine.cfg
     cfg_p = cfg_k.replace(attn_impl="plain")
     params = engine.backend.params
@@ -778,11 +862,11 @@ def phase_h(torch, engine, P, G, M):
     gap = top2[:, 0] - top2[:, 1]
     pinned = gap > 2 * err
     differ = (k.argmax(-1) != p.argmax(-1)) & pinned
-    print(f"(h) fleet logits kernel vs plain ({k.shape[0]} tokens of 3 mixed launches "
-          f"and a decode step): max_abs_err={err:.4g} (atol {LOGITS_ATOL}) "
+    print(f"{tag} fleet logits kernel vs plain ({k.shape[0]} tokens of 3 mixed launches "
+          f"and a decode step): max_abs_err={err:.4g} (atol {atol}) "
           f"mean_abs_err={(k - p).abs().mean().item():.4g}; greedy tokens pinned by "
           f"the top-2 gap: {int(pinned.sum())}, of which differ: {int(differ.sum())}")
-    check(err <= LOGITS_ATOL, "fleet kernel-path logits disagree with the plain path")
+    check(err <= atol, "fleet kernel-path logits disagree with the plain path")
     check(not bool(differ.any()), "a pinned greedy token differs between the paths")
 
     ops, _ = fleet_operands(torch, cfg_k, P, G)
@@ -805,7 +889,7 @@ def phase_h(torch, engine, P, G, M):
     ev.synchronize()
     packed, chunk = (h.numpy() for h in hosts)
     B = FLEET["n_slots"]
-    print(f"(h) one mixed launch and one {FLEET['chunk_steps']}-step decode chunk under "
+    print(f"{tag} one mixed launch and one {FLEET['chunk_steps']}-step decode chunk under "
           f"set_sync_debug_mode('error'): no host sync; armed={packed[4].tolist()} "
           f"emitted per slot={chunk[FLEET['chunk_steps']:2 * FLEET['chunk_steps']].sum(0).tolist()}")
     check(packed[4].tolist() == [0] * (B - 1) + [1], "the landing prompt did not arm")
@@ -838,7 +922,7 @@ def profile_call(torch, fn):
     return wall_us, busy_union_us(kern), kern
 
 
-def phase_i_profile(torch, engine, P, G):
+def phase_i_profile(torch, engine, P, G, tag="(i)"):
     """One profiled mixed launch and one decode chunk at the fleet's
     serving shape (warm: each runs once before)."""
     cfg, params = engine.cfg, engine.backend.params
@@ -865,14 +949,134 @@ def phase_i_profile(torch, engine, P, G):
             n_kern = len(kern)
             tokens = n_tok if name == "mixed launch" else int(res["c"][1].sum())
             if not n_kern:
-                print(f"(i) profiled {name}: device busy share not measured (the "
+                print(f"{tag} profiled {name}: device busy share not measured (the "
                       f"profiler recorded no device kernels)")
                 continue
-            print(f"(i) profiled {name}: wall_ms={wall_us / 1e3:.3f} "
+            print(f"{tag} profiled {name}: wall_ms={wall_us / 1e3:.3f} "
                   f"device busy_ms={busy_us / 1e3:.3f} idle_share={1 - busy_us / wall_us:.4f} "
                   f"kernels={n_kern} tokens={tokens} kernels_per_token={n_kern / tokens:.1f}")
             for ms, count, kname in top_kernels(kern, 6):
                 print(f"    {ms:8.3f} ms {count:5d}x  {kname[:100]}")
+
+
+# -- int4 weights and the int8 KV cache: phases (j) to (m) ------------------------
+
+# tinyllama's projections (in, out) and how many of each one decode step
+# runs: per layer wq and wo, wk and wv, w_gate and w_up, w_down; the LM head
+Q4_SHAPES = {(2048, 2048): 2 * 22, (2048, 256): 2 * 22, (2048, 5632): 2 * 22,
+             (5632, 2048): 22, (2048, 32000): 1}
+# q4 outputs are sums of 2048-5632 products of size ~in**-0.5 (the model's
+# init): |y| < 8, where one bf16 ulp is 0.03 and the kernel and its twin
+# may round the same fp32 sum to neighbours
+Q4_ATOL = {"float32": 1e-4, "bfloat16": 6e-2}
+
+
+def q4_cases(torch, timer, Q):
+    """q4_matmul_rows vs its twin at tinyllama's projection shapes, with
+    torch.matmul against the dequantized weight (in x's dtype: the same
+    product over 2x (bf16) or 8x (fp32) the weight bytes of the packed
+    int4) as the yardstick."""
+    print("(j) q4_matmul_rows vs plain twin (group 64); device ms per call, cold L2")
+    rows = []
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    for (d_in, d_out) in Q4_SHAPES:
+        w = Q.quantize_tensor4(torch.randn(d_in, d_out, generator=g, device=DEVICE)
+                               * d_in ** -0.5)
+        G = w.q.shape[0]
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            dense = Q.dequantize_tensor4(w, dt)
+            esize = 4 if dtype_name == "float32" else 2
+            for R in (1, 8, 32):
+                x = torch.randn(R, d_in, generator=g, device=DEVICE).to(dt)
+                got = Q.q4_matmul_rows(x, w)
+                torch.cuda.synchronize()
+                want = Q.q4_matmul_rows_plain(x, w)
+                err = (got.float() - want.float()).abs().max().item()
+                check(bool(torch.isfinite(got.float()).all()), "q4_matmul_rows: non-finite")
+                check(torch.equal(got, Q.q4_matmul_rows(x, w)),
+                      "q4_matmul_rows gave other bits on a repeat")
+                ms = timer.ms(lambda: Q.q4_matmul_rows(x, w), 10)
+                plain_ms = timer.ms(lambda: Q.q4_matmul_rows_plain(x, w), 3)
+                library_ms = timer.ms(lambda: x @ dense, 10)
+                nbytes = d_in * d_out // 2 + G * d_out * 4 + R * (d_in + d_out) * esize
+                flops = 2 * R * d_in * d_out
+                bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+                r = dict(shape=(d_in, d_out), dtype=dtype_name, R=R, max_abs_err=err,
+                         atol=Q4_ATOL[dtype_name], ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         nbytes=nbytes, flops=flops)
+                rows.append(r)
+                print(f"    {dtype_name:8s} {d_in:4d}->{d_out:5d} G={G:2d} R={R:2d} "
+                      f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} "
+                      f"plain={plain_ms:.4f} matmul(dequantized)={library_ms:.4f} "
+                      f"bound={bound_ms:.4f} ({bound_by})")
+    bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
+    check(not bad, f"q4_matmul_rows disagrees with its twin in {len(bad)} case(s)")
+    return rows
+
+
+def q4_line(rows, launches):
+    """q4_matmul_rows' JSON entry: the bf16 R=8 cases (the fleet's decode
+    rows and its mixed launch's unembeds), per launch, weighted by the
+    projections of one decode step."""
+    sel = [(r, Q4_SHAPES[r["shape"]]) for r in rows
+           if r["dtype"] == "bfloat16" and r["R"] == FLEET["n_slots"]]
+    n = sum(c for _, c in sel)
+
+    def mean(key):
+        return sum(r[key] * c for r, c in sel) / n
+
+    _, bound_by = bound(sum(r["nbytes"] * c for r, c in sel),
+                        sum(r["flops"] * c for r, c in sel), "bfloat16")
+    return {
+        "name": "q4_matmul_rows",
+        "route": "cuda",
+        "source": "distributed_llm_inference_tpu_torch/csrc/q4_matmul.cu",
+        "replaces": "distributed_llm_inference_tpu/ops/quant.py:184",
+        "launches": launches["q4_matmul_rows"],
+        "max_abs_err": max(r["max_abs_err"] for r, _ in sel),
+        "ms": mean("ms"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": bound_by,
+        # torch.matmul against the bf16-dequantized weight: the same
+        # product over 2x the weight bytes
+        "library_ms": mean("library_ms"),
+        "shapes": "bf16 R=8, group 64, per launch over one decode step's "
+                  "projections: " + ", ".join(f"{a}->{b} x{c}"
+                                              for (a, b), c in Q4_SHAPES.items()),
+    }
+
+
+def phase_k_solo(torch, engine, pa, fa, Q):
+    """One solo request on the quantized engine through the HTTP server,
+    its prompt longer than the largest prefill bucket: every T>1 chunk
+    launches the int8 flash_attend once per layer."""
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    L = engine.cfg.n_layers
+    server = InferenceServer(engine, host="127.0.0.1", port=0, max_tokens_cap=64)
+    server.start()
+    try:
+        chunks = chunk_shapes(engine, LONG)
+        reset_counts(pa, fa, Q)  # the solo path's run starts here
+        code, r, wall = post(server.port, LONG)
+        launches = read_counts(pa, fa, Q)
+        print(f"(k) solo long prompt, --quant int4 --kv-quant int8: HTTP {code} "
+              f"tokens={r.get('tokens_generated')} ttft_s={r.get('ttft_s')} "
+              f"tokens_per_sec={r.get('tokens_per_sec')} wall_s={wall:.3f} "
+              f"chunks={chunks} kernel launches {json.dumps(launches)}")
+        check(code == 200 and r.get("status") == "success", f"solo int8: {r}")
+        check(len(chunks) > 1, "the long prompt did not chunk")
+        check(launches["flash_attend[int8]"] == L * len(chunks),
+              f"{launches['flash_attend[int8]']} int8 flash_attend launches for "
+              f"{len(chunks)} T>1 chunks of {L} layers")
+        check(launches["flash_attend"] == 0, "the int8 cache ran the raw flash kernel")
+        check(launches["q4_matmul_rows"] > 0, "the solo decode never ran q4_matmul_rows")
+    finally:
+        server.shutdown()
+    return chunks, launches
 
 
 def paged_line(rows, kernel, launches, replaces, pick, shapes):
@@ -913,6 +1117,7 @@ def main() -> int:
     from distributed_llm_inference_tpu_torch.models import api as M
     from distributed_llm_inference_tpu_torch.ops import flash_attention as fa
     from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+    from distributed_llm_inference_tpu_torch.ops import quant as Q
     from distributed_llm_inference_tpu_torch.runtime import create_engine
 
     # the plain twins and the reference path in full fp32
@@ -963,7 +1168,7 @@ def main() -> int:
     paged_rows = phase_f(torch, timer, pa, P)
 
     # (g) the continuous paged fleet through the HTTP server (the main path)
-    wave = phase_g(torch, engine, pa, fa)
+    wave = phase_g(torch, engine, pa, fa, Q)
 
     # (h) the fleet's kernel path vs its plain path, and the sync check
     phase_h(torch, engine, P, G, M)
@@ -980,6 +1185,41 @@ def main() -> int:
           f"aggregate ({smi})")
     phase_i_profile(torch, engine, P, G)
     print(f"(i) total {time.time() - t_start:.1f} s")
+
+    # (j) the int4 / int8 kernels against their twins
+    q4_rows = q4_cases(torch, timer, Q)
+    phase_b(torch, timer, fa, int8=True)
+    int8_rows = phase_f(torch, timer, pa, P, int8=True)
+
+    # (k) the quantized paths through the HTTP server
+    del engine
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    qengine = create_engine(
+        MODEL, dtype="bfloat16", attn_impl="auto", quant="int4", kv_quant="int8",
+        seed=0, device=DEVICE, engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS),
+    )
+    torch.cuda.synchronize()
+    print(f"(k) {MODEL} bf16, quant=int4 (group 64) kv_quant=int8, random weights "
+          f"(seed 0), built and quantized in {time.time() - t0:.3f} s")
+    qwave = phase_g(torch, qengine, pa, fa, Q, tag="(k)")
+    solo_chunks, solo_launches = phase_k_solo(torch, qengine, pa, fa, Q)
+
+    # (l) the quantized fleet's kernel path vs its plain path
+    phase_h(torch, qengine, P, G, M, tag="(l)", atol=QUANT_LOGITS_ATOL)
+
+    # (m) report on the quantized paths
+    n_tok = 0
+    for i, (_, r, wall) in enumerate(qwave["results"]):
+        n_tok += r["tokens_generated"]
+        print(f"(m) quantized fleet request {i}: prompt_tokens={r['prompt_tokens']} "
+              f"ttft_s={r['ttft_s']} tokens_per_sec={r['tokens_per_sec']} "
+              f"tokens={r['tokens_generated']} wall_s={wall:.3f}")
+    print(f"(m) quantized fleet wave: {n_tok} tokens from {len(qwave['results'])} "
+          f"concurrent requests in {qwave['wave_s']:.3f} s = "
+          f"{n_tok / qwave['wave_s']:.2f} tokens/s aggregate ({smi})")
+    phase_i_profile(torch, qengine, P, G, tag="(m)")
+    print(f"(m) total {time.time() - t_start:.1f} s")
     line = {"kernels": [
         flash_entry,
         paged_line(paged_rows, "ragged_paged_attend", wave["launches"],
@@ -993,6 +1233,21 @@ def main() -> int:
                    lambda r: r["case"] == f"B={FLEET['n_slots']}",
                    f"bf16 B={FLEET['n_slots']} H={H} KV={KV} Dh={DH}, {BLOCK}-token "
                    f"blocks, positions {SPECIAL_POS} and 3 drawn in [0, 1024)"),
+        q4_line(q4_rows, qwave["launches"]),
+        kernels_line(torch, timer, fa, solo_chunks,
+                     solo_launches["flash_attend[int8]"], int8=True),
+        paged_line(int8_rows, "ragged_paged_attend[int8]", qwave["launches"],
+                   "distributed_llm_inference_tpu/ops/paged_attention.py:482",
+                   lambda r: True,
+                   f"bf16 q, int8 pool + fp32 scales, H={H} KV={KV} Dh={DH}, "
+                   f"{BLOCK}-token blocks, width {RAGGED_W} in tiles of {RAGGED_TILE}; "
+                   "mean of the (j) launches: " + ", ".join(ragged_plans(P))),
+        paged_line(int8_rows, "paged_flash_attend[int8]", qwave["launches"],
+                   "distributed_llm_inference_tpu/ops/paged_attention.py:71",
+                   lambda r: r["case"] == f"B={FLEET['n_slots']}",
+                   f"bf16 q, int8 pool + fp32 scales, B={FLEET['n_slots']} H={H} "
+                   f"KV={KV} Dh={DH}, {BLOCK}-token blocks, positions {SPECIAL_POS} "
+                   "and 3 drawn in [0, 1024)"),
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,12 @@
 // softmax with its running max and sum, and the output accumulator, are
 // fp32. A row with no live key outputs zeros. The output is in the input
 // dtype (fp32, bf16 or fp16), Dh <= 256.
+//   * int8 cache: the cache holds int8 K/V with one fp32 scale per (row,
+//     KV head, position), scales [B, KV, S] (the JAX kernel's KVQuant
+//     operands). The tile prologue loads each int8 element and its scale
+//     and stages q8 * s in fp32, then the dot runs as for a raw cache: the
+//     order of the JAX kernel's `k.astype(f32) * scale` prologue. An int8
+//     cache halves the K/V bytes of every live tile.
 //
 // What bounds it on an H100: per live (query, key) pair the work is
 // 4 * Dh FLOPs for each of the H query heads, against one read of each
@@ -41,8 +47,10 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -68,10 +76,12 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
 // BN = 16 * CN keys). Thread (ty = tid / 16, tx = tid % 16) owns rows
 // ty*RM .. ty*RM+RM-1, score columns tx + 16*c and output columns
 // tx + 16*d; a row's 16 threads sit in one half-warp, so row max and sum
-// reduce with four xor shuffles.
-template <typename T, int DHP, int RM, int CN>
+// reduce with four xor shuffles. KT: the cache's storage type, T or int8_t
+// (then with the scales k_scale / v_scale [B, KV, S]).
+template <typename T, typename KT, int DHP, int RM, int CN>
 __global__ void __launch_bounds__(NT) flash_fwd(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     T* __restrict__ out, int T_len, int H, int KV, int S, int Dh, int pos,
     const int* __restrict__ valid_start, int win_static,
     const int* __restrict__ win_dyn, float scale, float softcap) {
@@ -139,7 +149,8 @@ __global__ void __launch_bounds__(NT) flash_fwd(
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  const size_t slab = ((size_t)b * KV + kvh) * (size_t)S * Dh;
+  const size_t srow = ((size_t)b * KV + kvh) * (size_t)S;  // scale row of (b, kvh)
+  const size_t slab = srow * Dh;
   for (int j = first; j < needed; ++j) {
     const int kv0 = j * BN;
     __syncthreads();  // the previous tile's Ks / Vs / Ps reads are done
@@ -148,8 +159,13 @@ __global__ void __launch_bounds__(NT) flash_fwd(
       float kk = 0.f, vv = 0.f;
       if (kv0 + n < S && d < Dh) {
         const size_t off = slab + (size_t)(kv0 + n) * Dh + d;
-        kk = to_f32(k[off]);
-        vv = to_f32(v[off]);
+        if constexpr (std::is_same<KT, int8_t>::value) {  // dequant prologue
+          kk = (float)k[off] * k_scale[srow + kv0 + n];
+          vv = (float)v[off] * v_scale[srow + kv0 + n];
+        } else {
+          kk = to_f32(k[off]);
+          vv = to_f32(v[off]);
+        }
       }
       Ks[n * KS + d] = kk;
       Vs[n * DHP + d] = vv;
@@ -241,15 +257,16 @@ __global__ void __launch_bounds__(NT) flash_fwd(
   }
 }
 
-template <typename T, int DHP, int RM, int CN>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
+template <typename T, typename KT, int DHP, int RM, int CN>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* k_scale,
+                   const float* v_scale, void* out, int B,
                    int T_len, int H, int KV, int S, int Dh, int pos,
                    const int* valid_start, int win_static, const int* win_dyn,
                    float scale, float softcap, cudaStream_t stream) {
   constexpr int BM = 8 * RM, BN = 16 * CN;
   const size_t smem =
       sizeof(float) * (BM * (DHP + 1) + BN * (DHP + 1) + BN * DHP + BM * (BN + 1));
-  auto kernel = flash_fwd<T, DHP, RM, CN>;
+  auto kernel = flash_fwd<T, KT, DHP, RM, CN>;
   // the shared-memory opt-in, once per device for this instance
   static std::atomic<bool> smem_set[MAX_DEVICES];
   int dev = 0;
@@ -264,21 +281,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const int group = H / KV;
   const dim3 grid((T_len * group + BM - 1) / BM, KV, B);
   kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), T_len, H, KV, S, Dh, pos, valid_start, win_static,
-      win_dyn, scale, softcap);
+      static_cast<const T*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
+      k_scale, v_scale, static_cast<T*>(out), T_len, H, KV, S, Dh, pos, valid_start,
+      win_static, win_dyn, scale, softcap);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int B,
+template <typename T, typename KT>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const float* k_scale,
+                     const float* v_scale, void* out, int B,
                      int T_len, int H, int KV, int S, int Dh, int pos,
                      const int* valid_start, int win_static, const int* win_dyn,
                      float scale, float softcap, cudaStream_t stream) {
-#define DLI_LAUNCH(DHP, RM, CN)                                                   \
-  return launch<T, DHP, RM, CN>(q, k, v, out, B, T_len, H, KV, S, Dh, pos,        \
-                                valid_start, win_static, win_dyn, scale, softcap, \
-                                stream)
+#define DLI_LAUNCH(DHP, RM, CN)                                                  \
+  return launch<T, KT, DHP, RM, CN>(q, k, v, k_scale, v_scale, out, B, T_len, H, \
+                                    KV, S, Dh, pos, valid_start, win_static,     \
+                                    win_dyn, scale, softcap, stream)
   if (Dh <= 32) DLI_LAUNCH(32, 8, 4);
   if (Dh <= 64) DLI_LAUNCH(64, 8, 4);
   if (Dh <= 128) DLI_LAUNCH(128, 8, 4);
@@ -286,34 +304,51 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 #undef DLI_LAUNCH
 }
 
+// the cache is the query's dtype, or int8 with both scale arrays
+template <typename T>
+cudaError_t by_cache(const void* q, const void* k, const void* v, const float* k_scale,
+                     const float* v_scale, void* out, int B, int T_len, int H, int KV,
+                     int S, int Dh, int pos, const int* valid_start, int win_static,
+                     const int* win_dyn, float scale, float softcap, cudaStream_t stream) {
+  if (k_scale != nullptr)
+    return dispatch<T, int8_t>(q, k, v, k_scale, v_scale, out, B, T_len, H, KV, S, Dh,
+                               pos, valid_start, win_static, win_dyn, scale, softcap,
+                               stream);
+  return dispatch<T, T>(q, k, v, nullptr, nullptr, out, B, T_len, H, KV, S, Dh, pos,
+                        valid_start, win_static, win_dyn, scale, softcap, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. valid_start: [B] int32 on
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out). Caches
+// [B, KV, S, Dh] of that dtype, or int8 with k_scale / v_scale fp32
+// [B, KV, S] (both null for a raw cache). valid_start: [B] int32 on
 // the device, or null for none. win_dyn: one int32 on the device that
 // overrides win_static, or null; a width <= 0 means full causal.
 // softcap <= 0 means off. Launches on `stream` and returns the CUDA error
 // code of the launch (0 = launched).
 extern "C" int dli_flash_attend(const void* q, const void* k, const void* v,
+                                const float* k_scale, const float* v_scale,
                                 void* out, int dtype, int B, int T_len, int H,
                                 int KV, int S, int Dh, int pos,
                                 const int* valid_start, int win_static,
                                 const int* win_dyn, float scale, float softcap,
                                 void* stream) {
   if (B <= 0 || T_len <= 0 || KV <= 0 || H % KV != 0 || Dh <= 0 || Dh > 256 ||
-      pos < 0 || pos + T_len > S)
+      pos < 0 || pos + T_len > S || (k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)dispatch<float>(q, k, v, out, B, T_len, H, KV, S, Dh, pos,
-                                  valid_start, win_static, win_dyn, scale, softcap, st);
+      return (int)by_cache<float>(q, k, v, k_scale, v_scale, out, B, T_len, H, KV, S, Dh,
+                                  pos, valid_start, win_static, win_dyn, scale, softcap, st);
     case 1:
-      return (int)dispatch<__nv_bfloat16>(q, k, v, out, B, T_len, H, KV, S, Dh, pos,
-                                          valid_start, win_static, win_dyn, scale,
-                                          softcap, st);
+      return (int)by_cache<__nv_bfloat16>(q, k, v, k_scale, v_scale, out, B, T_len, H, KV,
+                                          S, Dh, pos, valid_start, win_static, win_dyn,
+                                          scale, softcap, st);
     case 2:
-      return (int)dispatch<__half>(q, k, v, out, B, T_len, H, KV, S, Dh, pos,
-                                   valid_start, win_static, win_dyn, scale, softcap, st);
+      return (int)by_cache<__half>(q, k, v, k_scale, v_scale, out, B, T_len, H, KV, S, Dh,
+                                   pos, valid_start, win_static, win_dyn, scale, softcap, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

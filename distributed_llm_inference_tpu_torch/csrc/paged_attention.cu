@@ -19,6 +19,11 @@
 // Scores are scaled, soft-capped (cap * tanh(s / cap)) before the mask;
 // the running max, sum and accumulator are fp32. Output in the input dtype
 // (fp32, bf16 or fp16), Dh <= 256.
+//   * int8 pool: the pool holds int8 K/V with one fp32 scale per (block,
+//     KV head, slot), scales [N, KV, bs] (the JAX kernels' KVQuant
+//     operands). The tile prologue loads each int8 element and its scale
+//     and stages q8 * s in fp32, then the dot runs as for a raw pool: the
+//     order of the JAX kernel's `k.astype(f32) * scale` prologue.
 //
 // What bounds it on an H100: every live pool block's K/V rows are read once
 // per KV head; a decode row does 4 * Dh FLOPs per head per live key
@@ -43,6 +48,8 @@
 //   * Keys are staged through shared memory in tiles of BN = 64 positions
 //     (four 16-token pool blocks), gathered block by block through the
 //     table; scores and probabilities never leave the SM.
+// An int8 pool halves the K/V bytes of every live block (Dh int8 bytes
+// plus one 4-byte scale per position and KV head, against 2 * Dh at bf16).
 // It is a first, simple kernel: fp32 FMAs on the CUDA cores, no tensor
 // cores, no copy/compute overlap, one block per (tile, KV head) — few
 // blocks in flight at decode sizes (B = 8: 32 blocks on 132 SMs). A
@@ -53,8 +60,10 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -84,6 +93,8 @@ struct Args {
   const int* meta;   // [G, 4] (ragged) or null
   const int* pos;    // [B] (paged) or null
   const int* win_dyn;
+  const float* k_scale;  // [N, KV, bs] for an int8 pool, else null
+  const float* v_scale;
   int win_static;
   int tq, H, KV, N, bs, MB, R, Dh;
   float scale, softcap;
@@ -95,7 +106,8 @@ struct Args {
 // owns rows ty*RM .. ty*RM+RM-1, score columns tx + 16*c and output
 // columns tx + 16*d; a row's 16 threads sit in one half-warp, so row max
 // and sum reduce with four xor shuffles.
-template <typename T, int DHP, int RM>
+// KT: the pool's storage type, T or int8_t (then with scales).
+template <typename T, typename KT, int DHP, int RM>
 __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   constexpr int CN = 4;
   constexpr int BM = 8 * RM;
@@ -112,8 +124,8 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   float* Ps = Vs + BN * DHP; // [BM][PS]  probabilities of the tile
 
   const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k = static_cast<const T*>(a.k);
-  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const KT* __restrict__ k = static_cast<const KT*>(a.k);
+  const KT* __restrict__ v = static_cast<const KT*>(a.v);
   T* __restrict__ out = static_cast<T*>(a.out);
 
   const int tid = threadIdx.x;
@@ -197,9 +209,15 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
       if (p < hi && d < Dh) {
         int blk = trow[p / a.bs];
         blk = (blk >= 0 && blk < a.N) ? blk : 0;  // a bad id reads the trash block
-        const size_t off = (((size_t)blk * a.KV + kvh) * a.bs + p % a.bs) * Dh + d;
-        kk = to_f32(k[off]);
-        vv = to_f32(v[off]);
+        const size_t row = ((size_t)blk * a.KV + kvh) * a.bs + p % a.bs;
+        const size_t off = row * Dh + d;
+        if constexpr (std::is_same<KT, int8_t>::value) {  // dequant prologue
+          kk = (float)k[off] * a.k_scale[row];
+          vv = (float)v[off] * a.v_scale[row];
+        } else {
+          kk = to_f32(k[off]);
+          vv = to_f32(v[off]);
+        }
       }
       Ks[n * KS + d] = kk;
       Vs[n * DHP + d] = vv;
@@ -294,12 +312,12 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   }
 }
 
-template <typename T, int DHP, int RM>
+template <typename T, typename KT, int DHP, int RM>
 cudaError_t launch(const Args& a, int n_tiles, cudaStream_t stream) {
   constexpr int BM = 8 * RM, BN = 64;
   const size_t smem =
       sizeof(float) * (BM * (DHP + 1) + BN * (DHP + 1) + BN * DHP + BM * (BN + 1));
-  auto kernel = paged_fwd<T, DHP, RM>;
+  auto kernel = paged_fwd<T, KT, DHP, RM>;
   // the shared-memory opt-in, once per device for this instance
   static std::atomic<bool> smem_set[MAX_DEVICES];
   int dev = 0;
@@ -320,33 +338,43 @@ cudaError_t launch(const Args& a, int n_tiles, cudaStream_t stream) {
 // rows per tile <= 8 (decode: the GQA group alone) take one row per
 // thread; larger tiles (a ragged tile of tq queries x group heads) take
 // up to 64 (32 at Dh 256) per block and split across blocks beyond that
-template <typename T>
+template <typename T, typename KT>
 cudaError_t dispatch(const Args& a, int n_tiles, cudaStream_t stream) {
   const bool small = a.tq * (a.H / a.KV) <= 8;
-  if (a.Dh <= 64) return small ? launch<T, 64, 1>(a, n_tiles, stream)
-                               : launch<T, 64, 8>(a, n_tiles, stream);
-  if (a.Dh <= 128) return small ? launch<T, 128, 1>(a, n_tiles, stream)
-                                : launch<T, 128, 8>(a, n_tiles, stream);
-  return small ? launch<T, 256, 1>(a, n_tiles, stream)
-               : launch<T, 256, 4>(a, n_tiles, stream);
+  if (a.Dh <= 64) return small ? launch<T, KT, 64, 1>(a, n_tiles, stream)
+                               : launch<T, KT, 64, 8>(a, n_tiles, stream);
+  if (a.Dh <= 128) return small ? launch<T, KT, 128, 1>(a, n_tiles, stream)
+                                : launch<T, KT, 128, 8>(a, n_tiles, stream);
+  return small ? launch<T, KT, 256, 1>(a, n_tiles, stream)
+               : launch<T, KT, 256, 4>(a, n_tiles, stream);
+}
+
+// the pool is the query's dtype, or int8 with both scale arrays
+template <typename T>
+cudaError_t by_pool(const Args& a, int n_tiles, cudaStream_t stream) {
+  if (a.k_scale != nullptr) return dispatch<T, int8_t>(a, n_tiles, stream);
+  return dispatch<T, T>(a, n_tiles, stream);
 }
 
 int run(const Args& a, int dtype, int n_tiles, void* stream) {
   if (n_tiles <= 0 || a.tq <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.Dh <= 0 ||
-      a.Dh > 256 || a.bs <= 0 || a.MB <= 0 || a.R <= 0 || a.N <= 0)
+      a.Dh > 256 || a.bs <= 0 || a.MB <= 0 || a.R <= 0 || a.N <= 0 ||
+      (a.k_scale == nullptr) != (a.v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)dispatch<float>(a, n_tiles, st);
-    case 1: return (int)dispatch<__nv_bfloat16>(a, n_tiles, st);
-    case 2: return (int)dispatch<__half>(a, n_tiles, st);
+    case 0: return (int)by_pool<float>(a, n_tiles, st);
+    case 1: return (int)by_pool<__nv_bfloat16>(a, n_tiles, st);
+    case 2: return (int)by_pool<__half>(a, n_tiles, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Pools [N, KV, bs, Dh];
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out). Pools
+// [N, KV, bs, Dh] of that dtype, or int8 with k_scale / v_scale fp32
+// [N, KV, bs] (both null for a raw pool);
 // tables [R, MB] int32; win_dyn: one int32 on the device that overrides
 // win_static, or null; a width <= 0 means full causal. softcap <= 0 means
 // off. Each launches on `stream` and returns the CUDA error code of the
@@ -354,22 +382,22 @@ int run(const Args& a, int dtype, int n_tiles, void* stream) {
 
 // Mixed prefill + decode: q / out [G * tq, H, Dh], meta [G, 4] int32.
 extern "C" int dli_ragged_paged_attend(
-    const void* q, const void* k, const void* v, void* out, int dtype, int G,
-    int tq, int H, int KV, int N, int bs, int R, int MB, int Dh,
-    const int* table, const int* meta, int win_static, const int* win_dyn,
-    float scale, float softcap, void* stream) {
-  Args a{q, k, v, out, table, meta, nullptr, win_dyn, win_static,
+    const void* q, const void* k, const void* v, const float* k_scale,
+    const float* v_scale, void* out, int dtype, int G, int tq, int H, int KV,
+    int N, int bs, int R, int MB, int Dh, const int* table, const int* meta,
+    int win_static, const int* win_dyn, float scale, float softcap, void* stream) {
+  Args a{q, k, v, out, table, meta, nullptr, win_dyn, k_scale, v_scale, win_static,
          tq, H, KV, N, bs, MB, R, Dh, scale, softcap};
   return run(a, dtype, G, stream);
 }
 
 // T=1 decode: q / out [B, 1, H, Dh], table [B, MB], pos [B] int32.
 extern "C" int dli_paged_flash_attend(
-    const void* q, const void* k, const void* v, void* out, int dtype, int B,
-    int H, int KV, int N, int bs, int MB, int Dh, const int* table,
-    const int* pos, int win_static, const int* win_dyn, float scale,
-    float softcap, void* stream) {
-  Args a{q, k, v, out, table, nullptr, pos, win_dyn, win_static,
+    const void* q, const void* k, const void* v, const float* k_scale,
+    const float* v_scale, void* out, int dtype, int B, int H, int KV, int N,
+    int bs, int MB, int Dh, const int* table, const int* pos, int win_static,
+    const int* win_dyn, float scale, float softcap, void* stream) {
+  Args a{q, k, v, out, table, nullptr, pos, win_dyn, k_scale, v_scale, win_static,
          1, H, KV, N, bs, MB, B, Dh, scale, softcap};
   return run(a, dtype, B, stream);
 }

@@ -33,9 +33,15 @@ pool IN PLACE and return the same tensors: the pool is the one buffer
 worth not copying. Slot state is rebuilt functionally, so a packed result
 already launched never sees a later step's writes.
 
+Under cfg.kv_quant="int8" the pool leaves are ops/kv_quant.KVQuant: int8
+blocks plus per-(token, head) fp32 scales [L, N, KV, bs]. Each token's
+K/V is quantized on write (data and scale scattered into its block), and
+the kernels dequantize in their prologues; the plain path gathers, then
+dequantizes.
+
 Not ported in this slice (each raises, naming its ROADMAP.md item): the
 speculation operands of the mixed step (`spec`, `spec_toks`), adapter
-pages (`pages`), the int8 pool, the bucketed scratch admission
+pages (`pages`), the bucketed scratch admission
 (`insert_slot_paged`, `extend_ragged_paged`, `prefill_ragged_paged`) and
 the shadow gathers.
 """
@@ -49,7 +55,8 @@ import torch
 
 from ..config import ModelConfig
 from ..models import api as M
-from ..models.llama import ADAPTERS, QUANT, _not_ported, kernel_window
+from ..models.llama import ADAPTERS, _not_ported, kernel_window
+from ..ops.kv_quant import KVQuant, init_quant_cache, quantize_chunk
 from ..ops.paged_attention import (  # the RAGGED_* kinds: re-exported
     RAGGED_DECODE,
     RAGGED_PREFILL,  # noqa: F401
@@ -66,12 +73,14 @@ TRASH_BLOCK = 0  # reserved pool block: write-only spill for table tails
 
 def init_pool(cfg: ModelConfig, n_blocks: int, block_size: int,
               n_layers: Optional[int] = None, device=None) -> dict:
-    """Zeroed block pool, stacked on the layer axis like the dense cache.
-    Block 0 is the reserved trash block (never allocated to a slot)."""
-    if cfg.kv_quant is not None:
-        raise _not_ported("the int8 block pool (ops/kv_quant.py)", QUANT)
+    """Zeroed block pool, stacked on the layer axis like the dense cache
+    (KVQuant leaves, int8 blocks + fp32 scales [L, N, KV, bs], under
+    cfg.kv_quant="int8"). Block 0 is the reserved trash block (never
+    allocated to a slot)."""
     shape = (n_layers or cfg.n_layers, n_blocks, cfg.n_kv_heads, block_size,
              cfg.head_dim)
+    if cfg.kv_quant == "int8":  # the cache's layout, blocks for batch rows
+        return init_quant_cache(*shape, device=device)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
@@ -177,10 +186,16 @@ def blocks_needed(prompt_len: int, max_tokens: int, block_size: int) -> int:
 
 def _scatter_tokens(cache_k, cache_v, k, v, blk, off):
     """Write token w's K/V ([W, KV, Dh]) into pool[blk[w], :, off[w]] in
-    place (colliding writes only ever target the trash block)."""
+    place (colliding writes only ever target the trash block); an int8
+    pool takes each token's quantized data and its per-head scales."""
     blk, off = blk.long(), off.long()
-    cache_k[blk, :, off, :] = k
-    cache_v[blk, :, off, :] = v
+    for leaf, x in ((cache_k, k), (cache_v, v)):
+        if isinstance(leaf, KVQuant):
+            q, s = quantize_chunk(x)  # [W, KV, Dh], [W, KV]
+            leaf.q[blk, :, off, :] = q
+            leaf.s[blk, :, off] = s
+        else:
+            leaf[blk, :, off, :] = x
 
 
 def make_paged_hook(table: torch.Tensor):

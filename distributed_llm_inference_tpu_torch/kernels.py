@@ -87,3 +87,14 @@ def build(names) -> dict:
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def bind(lib, signatures: dict):
+    """Declare each C entry point's argument types (`signatures`: name ->
+    list of ctypes types) and its int return (the CUDA error code of the
+    launch); returns `lib`."""
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

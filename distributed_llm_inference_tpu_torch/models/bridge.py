@@ -5,7 +5,10 @@ or drawn at random.
 leaves as numpy arrays (`jax.tree.map(np.asarray, params)` on the JAX
 side) and returns the same nested dictionary of torch tensors on
 `device`, keeping the stacked [L, ...] layer layout, so the two packages
-run the same weights. `init_params` draws random weights on the card.
+run the same weights. Quantized leaves of the JAX tree (its QTensor,
+Q4Tensor and KVQuant, recognised by their q / s / g fields, as this
+package imports nothing of the JAX one) become the port's classes with q
+kept int8 and s fp32. `init_params` draws random weights on the card.
 """
 
 from __future__ import annotations
@@ -16,22 +19,37 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..ops.kv_quant import KVQuant
+from ..ops.quant import Q4Tensor, QTensor
 from . import api as M
 
 # leaves that keep float32 whatever the model dtype (as in the JAX tree)
 _FP32_LEAVES = ("window_flag",)
 
 
+def _quantized(leaf, device):
+    """(q int8, s fp32) on `device` of a quantized leaf of the JAX tree,
+    or None for a plain array."""
+    if not (hasattr(leaf, "q") and hasattr(leaf, "s")):
+        return None
+    return (torch.from_numpy(np.array(leaf.q, dtype=np.int8)).to(device),
+            torch.from_numpy(np.array(leaf.s, dtype=np.float32)).to(device))
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device,
                       dtype: Optional[torch.dtype] = None) -> dict:
     """The JAX pytree (numpy leaves, any float dtype including
     ml_dtypes' bfloat16) as torch tensors of `dtype` (default cfg's) on
-    `device`."""
+    `device`; QTensor / Q4Tensor leaves (the JAX quantize_params output)
+    keep their int8 data and fp32 scales."""
     dtype = dtype or cfg.torch_dtype
 
     def convert(name, leaf):
         if isinstance(leaf, dict):
             return {k: convert(k, v) for k, v in leaf.items()}
+        qs = _quantized(leaf, device)
+        if qs is not None:
+            return Q4Tensor(*qs, leaf.g) if hasattr(leaf, "g") else QTensor(*qs)
         # via fp32 (exact for bf16); np.array copies, so the tensor owns
         # writable memory whatever the JAX side handed over
         t = torch.from_numpy(np.array(leaf, dtype=np.float32))
@@ -44,14 +62,19 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device,
 def pool_from_numpy(cfg: ModelConfig, pool: dict, device,
                     dtype: Optional[torch.dtype] = None) -> dict:
     """The JAX package's block pool ({"k", "v"} leaves [L, N, KV, bs, Dh]
-    as numpy arrays) as torch tensors of `dtype` (default cfg's) on
-    `device`, so a test can start both packages from the same pool."""
+    as numpy arrays, or KVQuant leaves of numpy int8 data and fp32
+    scales) as torch tensors of `dtype` (default cfg's) or KVQuant leaves
+    on `device`, so a test can start both packages from the same pool."""
     dtype = dtype or cfg.torch_dtype
-    return {
-        name: torch.from_numpy(np.array(leaf, dtype=np.float32)).to(
+
+    def convert(leaf):
+        qs = _quantized(leaf, device)
+        if qs is not None:
+            return KVQuant(*qs)
+        return torch.from_numpy(np.array(leaf, dtype=np.float32)).to(
             device=device, dtype=dtype)
-        for name, leaf in pool.items()
-    }
+
+    return {name: convert(leaf) for name, leaf in pool.items()}
 
 
 def slots_from_numpy(state, sparams, device):

@@ -19,9 +19,14 @@ V = vocab):
   final_norm  [D]
   lm_head     [D, V]   (absent when tie_embeddings)
 
+The projections and the untied LM head may be quantized (ops/quant.py:
+QTensor int8 or Q4Tensor int4 leaves, sliced per layer like the dense
+ones) and go through ops/quant.matmul; the KV cache may be int8
+(ops/kv_quant.KVQuant leaves, cfg.kv_quant="int8").
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: the MoE FFN, paged LoRA deltas, tensor-parallel psums, pipeline
-update gates and the int8 cache.
+item: the MoE FFN, paged LoRA deltas, tensor-parallel psums and pipeline
+update gates.
 """
 
 from __future__ import annotations
@@ -41,7 +46,12 @@ from ..ops.attention import (
     update_kv_cache_slots,
 )
 from ..ops.flash_attention import flash_attend
+from ..ops.kv_quant import KVQuant, init_quant_cache
+from ..ops.kv_quant import dequantize as kv_dequantize
+from ..ops.kv_quant import update_cache as kv_update
+from ..ops.kv_quant import update_cache_slots as kv_update_slots
 from ..ops.norms import rms_norm
+from ..ops.quant import matmul as mm
 from ..ops.rope import apply_rope, rope_cos_sin
 
 Params = dict
@@ -49,7 +59,6 @@ KVCache = dict  # {"k": [L, B, KV, S, Dh], "v": [L, B, KV, S, Dh]}
 
 
 # ROADMAP.md items (headings there) that port what this module rejects
-QUANT = "Quantization"
 FAMILIES = "Other families and loading"
 SPMD = "Multi-GPU SPMD"
 ADAPTERS = "Adapters"
@@ -67,16 +76,14 @@ def check_supported(cfg: ModelConfig) -> None:
     """Reject the config features this slice does not port."""
     if cfg.n_experts:
         raise _not_ported("the MoE FFN (models/llama.moe_ffn)", FAMILIES)
-    if cfg.kv_quant is not None:
-        raise _not_ported("the int8 KV cache (ops/kv_quant.py)", QUANT)
-    if cfg.quant is not None:
-        raise _not_ported("weight quantization (ops/quant.py)", QUANT)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     """Random weights (scaled normal, as the JAX init_params draws them),
-    made on the generator's device in cfg.dtype. The numbers differ from
-    the JAX package's for the same seed: the two RNGs differ."""
+    made on the generator's device in cfg.dtype, dense whatever cfg.quant
+    says (runtime.create_engine quantizes them, as the JAX package does).
+    The numbers differ from the JAX package's for the same seed: the two
+    RNGs differ."""
     check_supported(cfg)
     device = generator.device
     dt = cfg.torch_dtype
@@ -155,11 +162,14 @@ def kernel_window(cfg: ModelConfig, window_flag):
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int] = None,
                   n_layers: Optional[int] = None, device=None) -> KVCache:
-    """Zeroed static-shape KV cache, stacked on the layer axis."""
-    if cfg.kv_quant is not None:
-        raise _not_ported("the int8 KV cache (ops/kv_quant.py)", QUANT)
+    """Zeroed static-shape KV cache, stacked on the layer axis: raw in
+    cfg.dtype, or int8 data + per-(token, head) fp32 scales (KVQuant
+    leaves) under cfg.kv_quant="int8"."""
     S = max_seq or cfg.max_seq_len
     L = n_layers if n_layers is not None else cfg.n_layers
+    if cfg.kv_quant == "int8":
+        return init_quant_cache(L, batch, cfg.n_kv_heads, S, cfg.head_dim,
+                                device=device)
     shape = (L, batch, cfg.n_kv_heads, S, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
@@ -176,16 +186,25 @@ def default_attn_hook(cfg, q, k, v, cache_k, cache_v, pos, mask, update_gate=Non
     flash kernel; T=1 decode always takes the plain einsum, the gate the
     JAX package keeps for its Pallas kernel. Per-row positions (slots
     mode: pos an int32 [B] tensor) write each row at its own offset and
-    always take the plain einsum, as in the JAX package."""
+    always take the plain einsum, as in the JAX package.
+
+    An int8 cache (KVQuant leaves) quantizes on write; T>1 chunks at a
+    scalar pos go to the flash kernel, which dequantizes in its tile
+    prologue; T=1 steps and per-row positions dequantize, then attend, as
+    the JAX package does."""
     if update_gate is not None:
         raise _not_ported("pipeline update gates (parallel/)", SPMD)
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+    slots = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    int8 = isinstance(cache_k, KVQuant)
+    if int8:
+        upd = kv_update_slots if slots else kv_update
+        upd(cache_k, k, pos)
+        upd(cache_v, v, pos)
+    elif slots:
         update_kv_cache_slots(cache_k, cache_v, k, v, pos)
-        attn = attend(q, cache_k, cache_v, mask,
-                      scale=cfg.query_scale, softcap=cfg.attn_softcap)
-        return attn, cache_k, cache_v
-    update_kv_cache(cache_k, cache_v, k, v, pos)
-    if cfg.attn_impl == "kernel" and q.shape[1] > 1:
+    else:
+        update_kv_cache(cache_k, cache_v, k, v, pos)
+    if cfg.attn_impl == "kernel" and not slots and q.shape[1] > 1:
         w, wd = kernel_window(cfg, window_flag)
         attn = flash_attend(
             q, cache_k, cache_v, pos, valid_start, wd, window=w,
@@ -193,7 +212,8 @@ def default_attn_hook(cfg, q, k, v, cache_k, cache_v, pos, mask, update_gate=Non
         )
     else:
         attn = attend(
-            q, cache_k, cache_v, mask,
+            q, kv_dequantize(cache_k) if int8 else cache_k,
+            kv_dequantize(cache_v) if int8 else cache_v, mask,
             scale=cfg.query_scale, softcap=cfg.attn_softcap,
         )
     return attn, cache_k, cache_v
@@ -249,7 +269,7 @@ def decoder_layer(
 
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps, unit_offset=uo) \
         if cfg.pre_norms else x
-    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
     if cfg.attn_qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     if cfg.use_qk_norm and cfg.qk_norm_dim == "proj":
@@ -275,7 +295,7 @@ def decoder_layer(
         cfg, q, k, v, cache_k, cache_v, pos, mask, None, valid_start,
         lp.get("window_flag"),
     )
-    attn_out = attn.reshape(B, T, H * Dh) @ lp["wo"]
+    attn_out = mm(attn.reshape(B, T, H * Dh), lp["wo"])
     if cfg.post_norms:
         attn_out = rms_norm(attn_out, lp["attn_post_norm"], cfg.norm_eps, unit_offset=uo)
     if cfg.residual_multiplier is not None:  # Granite
@@ -285,8 +305,8 @@ def decoder_layer(
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps, unit_offset=uo) \
         if cfg.pre_norms else x
     act = F.silu if cfg.act == "silu" else _gelu_tanh
-    gate = act((h @ lp["w_gate"]).float()).to(h.dtype)
-    mlp_out = (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    gate = act(mm(h, lp["w_gate"]).float()).to(h.dtype)
+    mlp_out = mm(gate * mm(h, lp["w_up"]), lp["w_down"])
     if cfg.post_norms:
         mlp_out = rms_norm(mlp_out, lp["mlp_post_norm"], cfg.norm_eps, unit_offset=uo)
     if cfg.residual_multiplier is not None:  # Granite
@@ -394,7 +414,7 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         logits = (x @ params["embed"].T).float()
     else:
-        logits = (x @ params["lm_head"]).float()
+        logits = mm(x, params["lm_head"]).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if cfg.logits_divider is not None:

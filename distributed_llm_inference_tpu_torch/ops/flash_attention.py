@@ -17,6 +17,11 @@ the window instead of passed in:
   Returns [B, T, H, Dh] in q.dtype; a query row with no live key gets
   zeros, as in the TPU kernel.
 
+  The cache may be int8 (ops/kv_quant.KVQuant leaves: q [B, KV, S, Dh]
+  int8 and fp32 scales s [B, KV, S]); the kernel dequantizes each tile in
+  its prologue and counts those launches in `flash_attend.launches_int8`,
+  raw-dtype launches in `flash_attend.launches`.
+
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs the plain twin `flash_attend_plain` — the CPU tests hold
 that twin to the JAX kernel in interpret mode, and chip_smoke.py holds
@@ -30,7 +35,8 @@ import functools
 
 import torch
 
-from ..kernels import load_library
+from ..kernels import bind, load_library
+from .kv_quant import KVQuant, dequantize
 
 NEG = -0.7 * torch.finfo(torch.float32).max  # the TPU kernel's mask fill
 MAX_HEAD_DIM = 256
@@ -50,15 +56,17 @@ def resolve_kernel(device) -> bool:
     raise ValueError(f"no attention kernel for device type {kind!r}")
 
 
+_vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry point's argument types (csrc/flash_attention.cu)
+SIGNATURES = {"dli_flash_attend": [
+    _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+    _vp, _i32, _vp, _f32, _f32, _vp,
+]}
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = load_library("flash_attention")
-    fn = lib.dli_flash_attend
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
-                   vp, i32, vp, ctypes.c_float, ctypes.c_float, vp]
-    fn.restype = i32
-    return lib
+    return bind(load_library("flash_attention"), SIGNATURES)
 
 
 def _window_tensor(window, window_dyn, device):
@@ -68,19 +76,35 @@ def _window_tensor(window, window_dyn, device):
                         dtype=torch.int32, device=device)
 
 
+def raw_leaf(leaf):
+    """A raw-dtype cache leaf as it is, or raise for a bare int8 tensor:
+    an int8 cache comes as a KVQuant (data and scales)."""
+    if leaf.dtype == torch.int8:
+        raise TypeError(
+            "an int8 KV cache is passed as ops/kv_quant.KVQuant leaves (int8 "
+            "data and fp32 scales), not as a bare int8 tensor"
+        )
+    return leaf
+
+
+def fp32_leaf(leaf):
+    """A cache leaf in fp32: a KVQuant dequantized, a raw tensor cast."""
+    return dequantize(leaf) if isinstance(leaf, KVQuant) else raw_leaf(leaf).float()
+
+
 def flash_attend_plain(q, cache_k, cache_v, pos, valid_start=None,
                        window_dyn=None, *, window=None, scale=None,
                        softcap=None):
     """The kernel's plain twin: the same function in PyTorch, fp32 math,
-    the whole [T, S] score matrix at once. Same signature as
-    `flash_attend`."""
+    the whole [T, S] score matrix at once (an int8 cache dequantized
+    first). Same signature as `flash_attend`."""
     B, T, H, Dh = q.shape
     KV, S = cache_k.shape[1], cache_k.shape[2]
     group = H // KV
     device = q.device
     scale = Dh ** -0.5 if scale is None else scale
     qg = q.reshape(B, T, KV, group, Dh).float() * scale
-    s = torch.einsum("btkgd,bksd->bkgts", qg, cache_k.float())
+    s = torch.einsum("btkgd,bksd->bkgts", qg, fp32_leaf(cache_k))
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     q_pos = int(pos) + torch.arange(T, dtype=torch.int32, device=device)
@@ -97,7 +121,7 @@ def flash_attend_plain(q, cache_k, cache_v, pos, valid_start=None,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
     denom = p.sum(dim=-1, keepdim=True)
     denom = torch.where(denom == 0.0, 1.0, denom)  # no live key: zeros
-    o = torch.einsum("bkgts,bksd->btkgd", p, cache_v.float())
+    o = torch.einsum("bkgts,bksd->btkgd", p, fp32_leaf(cache_v))
     o = o / denom.permute(0, 3, 1, 2, 4)  # [B, T, KV, group, 1]
     return o.reshape(B, T, H, Dh).to(q.dtype)
 
@@ -106,13 +130,8 @@ def flash_attend(q, cache_k, cache_v, pos, valid_start=None,
                  window_dyn=None, *, window=None, scale=None, softcap=None):
     """Causal GQA flash attention over the (already updated) cache; see
     the module docstring for the contract. Counts its kernel launches in
-    `flash_attend.launches`."""
-    if cache_k.dtype == torch.int8 or cache_v.dtype == torch.int8:
-        raise NotImplementedError(
-            "flash_attend on an int8 KV cache: the dequantizing prologue "
-            "waits for the ops/kv_quant.py port (ROADMAP.md "
-            "\"Quantization\")"
-        )
+    `flash_attend.launches` (raw cache) and `flash_attend.launches_int8`
+    (int8 cache)."""
     if not resolve_kernel(q.device):
         return flash_attend_plain(
             q, cache_k, cache_v, pos, valid_start, window_dyn,
@@ -125,7 +144,7 @@ def flash_attend(q, cache_k, cache_v, pos, valid_start=None,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dli_flash_attend(
-            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            q.data_ptr(), *kv_operands(cache_k, cache_v),
             out.data_ptr(), _DTYPE_CODES[q.dtype], B, T, H, KV, S, Dh,
             int(pos),
             valid_start.data_ptr() if valid_start is not None else None,
@@ -137,16 +156,69 @@ def flash_attend(q, cache_k, cache_v, pos, valid_start=None,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attend kernel launch failed: CUDA error {rc}")
-    flash_attend.launches += 1
+    count_launch(flash_attend, cache_k)
     return out
 
 
 flash_attend.launches = 0
+flash_attend.launches_int8 = 0
+
+
+def count_launch(wrapper, cache_k):
+    """One launch on the wrapper's count for the cache's storage type
+    (`launches` raw, `launches_int8` int8)."""
+    if isinstance(cache_k, KVQuant):
+        wrapper.launches_int8 += 1
+    else:
+        wrapper.launches += 1
+
+
+def kv_operands(cache_k, cache_v):
+    """(k, v, k_scale, v_scale) data pointers for an attention kernel; the
+    scales are None for a raw cache or pool."""
+    if isinstance(cache_k, KVQuant):
+        return (cache_k.q.data_ptr(), cache_v.q.data_ptr(),
+                cache_k.s.data_ptr(), cache_v.s.data_ptr())
+    return cache_k.data_ptr(), cache_v.data_ptr(), None, None
+
+
+def check_cache_leaves(name, q, cache_k, cache_v):
+    """Validate a pair of raw or int8 (KVQuant) cache leaves against q,
+    from shapes, dtypes and devices alone: raw leaves share q's dtype;
+    int8 leaves are int8 data with fp32 scales of the data's shape less
+    its last axis; every tensor is contiguous on q's device."""
+    if isinstance(cache_k, KVQuant) != isinstance(cache_v, KVQuant):
+        raise TypeError(f"{name}: k and v must both be raw or both int8")
+    if isinstance(cache_k, KVQuant):
+        tensors = (("k", cache_k.q), ("v", cache_v.q), ("k scales", cache_k.s),
+                   ("v scales", cache_v.s))
+        if cache_k.q.dtype != torch.int8 or cache_v.q.dtype != torch.int8 \
+                or cache_k.s.dtype != torch.float32 \
+                or cache_v.s.dtype != torch.float32 \
+                or cache_k.s.shape != cache_k.q.shape[:-1] \
+                or cache_v.s.shape != cache_v.q.shape[:-1]:
+            raise TypeError(
+                f"{name}: an int8 cache is int8 data with fp32 scales of its "
+                f"shape less the last axis; got {cache_k}, {cache_v}"
+            )
+        ok = q.dtype in _DTYPE_CODES
+    else:
+        tensors = (("k", raw_leaf(cache_k)), ("v", raw_leaf(cache_v)))
+        ok = q.dtype in _DTYPE_CODES and cache_k.dtype == q.dtype \
+            and cache_v.dtype == q.dtype
+    if not ok:
+        raise TypeError(
+            f"{name} takes float32/bfloat16/float16 q and caches of q's "
+            f"dtype or int8; got {q.dtype}, {cache_k.dtype}, {cache_v.dtype}"
+        )
+    for tname, t in (("q", q),) + tensors:
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous on {q.device}")
 
 
 def _check(q, cache_k, cache_v, pos, valid_start, window_dyn):
     """Validate what the kernel takes; returns (B, T, H, Dh)."""
-    if q.dim() != 4 or cache_k.dim() != 4 or cache_v.shape != cache_k.shape:
+    if q.dim() != 4 or cache_k.ndim != 4 or cache_v.shape != cache_k.shape:
         raise ValueError(
             f"flash_attend wants q [B,T,H,Dh] and caches [B,KV,S,Dh]; got "
             f"{tuple(q.shape)}, {tuple(cache_k.shape)}, {tuple(cache_v.shape)}"
@@ -160,17 +232,7 @@ def _check(q, cache_k, cache_v, pos, valid_start, window_dyn):
         )
     if Dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_attend takes Dh <= {MAX_HEAD_DIM}, got {Dh}")
-    if q.dtype not in _DTYPE_CODES or cache_k.dtype != q.dtype \
-            or cache_v.dtype != q.dtype:
-        raise TypeError(
-            f"flash_attend takes float32/bfloat16/float16 q and caches of "
-            f"one dtype; got {q.dtype}, {cache_k.dtype}, {cache_v.dtype}"
-        )
-    for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
-        if t.device != q.device:
-            raise ValueError(f"flash_attend: {name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attend: {name} must be contiguous")
+    check_cache_leaves("flash_attend", q, cache_k, cache_v)
     for name, t, n in (("valid_start", valid_start, B),
                        ("window_dyn", window_dyn, 1)):
         if t is None:

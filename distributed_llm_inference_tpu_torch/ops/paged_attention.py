@@ -27,11 +27,14 @@ Both attend keys at positions <= the query's own, and with a window
 Dh**-0.5 and softcap caps the scores before the mask. Returns q's shape
 and dtype.
 
+The pools may be int8 (ops/kv_quant.KVQuant leaves: q [N, KV, bs, Dh]
+int8 and fp32 scales s [N, KV, bs]); the kernel dequantizes each staged
+tile in its prologue and counts those launches in `<wrapper>.launches_int8`,
+raw-dtype launches in `<wrapper>.launches`.
+
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain twin. The kernel reads meta, table and pos on the card,
-so a launch never syncs the host. An int8 pool (the JAX package's
-KVQuant leaves) raises NotImplementedError until ops/kv_quant.py is
-ported.
+so a launch never syncs the host.
 """
 
 from __future__ import annotations
@@ -41,8 +44,16 @@ import functools
 
 import torch
 
-from ..kernels import load_library
-from .flash_attention import MAX_HEAD_DIM, NEG, resolve_kernel
+from ..kernels import bind, load_library
+from .flash_attention import (
+    MAX_HEAD_DIM,
+    NEG,
+    check_cache_leaves,
+    count_launch,
+    fp32_leaf,
+    kv_operands,
+    resolve_kernel,
+)
 
 RAGGED_PREFILL = 0  # meta `kind`: a prompt-chunk row (length >= 1)
 RAGGED_DECODE = 1  # meta `kind`: a single-token decode row
@@ -50,38 +61,31 @@ RAGGED_DECODE = 1  # meta `kind`: a single-token decode row
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+_vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points' argument types (csrc/paged_attention.cu)
+SIGNATURES = {
+    "dli_ragged_paged_attend": [
+        _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+        _i32, _i32, _i32, _vp, _vp, _i32, _vp, _f32, _f32, _vp,
+    ],
+    "dli_paged_flash_attend": [
+        _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+        _i32, _vp, _vp, _i32, _vp, _f32, _f32, _vp,
+    ],
+}
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = load_library("paged_attention")
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dli_ragged_paged_attend.argtypes = [
-        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-        vp, vp, i32, vp, f32, f32, vp,
-    ]
-    lib.dli_ragged_paged_attend.restype = i32
-    lib.dli_paged_flash_attend.argtypes = [
-        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp, vp, i32,
-        vp, f32, f32, vp,
-    ]
-    lib.dli_paged_flash_attend.restype = i32
-    return lib
-
-
-def _reject_int8(name, pool_k, pool_v):
-    if pool_k.dtype == torch.int8 or pool_v.dtype == torch.int8:
-        raise NotImplementedError(
-            f"{name} on an int8 block pool: the dequantizing prologue "
-            f"waits for the ops/kv_quant.py port (ROADMAP.md "
-            f"\"Quantization\")"
-        )
+    return bind(load_library("paged_attention"), SIGNATURES)
 
 
 def _attend_blocks(q5, blocks, pool_k, pool_v, q_pos, live, window_dyn,
                    window, scale, softcap):
     """Shared twin core. q5 [G, tq, KV, group, Dh]; blocks [G, MB] the
     physical ids of each tile's row; q_pos / live [G, tq]. fp32 math over
-    the gathered [G, KV, MB*bs, Dh] view; rows with no live key get
-    zeros."""
+    the gathered [G, KV, MB*bs, Dh] view (an int8 pool: gathered, then
+    dequantized); rows with no live key get zeros."""
     G, tq, KV, group, Dh = q5.shape
     N, _, bs, _ = pool_k.shape
     MB = blocks.shape[1]
@@ -90,7 +94,7 @@ def _attend_blocks(q5, blocks, pool_k, pool_v, q_pos, live, window_dyn,
     blocks = torch.where((blocks >= 0) & (blocks < N), blocks, 0)
 
     def view(pool):  # [G, MB, KV, bs, Dh] -> [G, KV, S, Dh]
-        return pool[blocks].permute(0, 2, 1, 3, 4).reshape(G, KV, S, Dh).float()
+        return fp32_leaf(pool[blocks]).permute(0, 2, 1, 3, 4).reshape(G, KV, S, Dh)
 
     s = torch.einsum("gtkhd,gksd->gkhts", q5.float() * scale, view(pool_k))
     if softcap is not None:
@@ -117,7 +121,6 @@ def ragged_paged_attend_plain(q, pool_k, pool_v, table, meta, window_dyn=None,
     tile's row of blocks into a contiguous view, then masked fp32
     attention — the contract of the JAX package's `_ragged_attend_xla`,
     with the kernel's zeros for padding rows."""
-    _reject_int8("ragged_paged_attend", pool_k, pool_v)
     W, H, Dh = q.shape
     G = meta.shape[0]
     tq = W // G
@@ -140,7 +143,6 @@ def paged_flash_attend_plain(q, pool_k, pool_v, table, pos, window_dyn=None,
     """The decode kernel's plain twin (same signature): the gather path
     of the JAX package's engine/paged.make_paged_hook with the mask
     derived from pos and the window."""
-    _reject_int8("paged_flash_attend", pool_k, pool_v)
     B, _, H, Dh = q.shape
     KV = pool_k.shape[1]
     scale = Dh ** -0.5 if scale is None else scale
@@ -156,8 +158,8 @@ def ragged_paged_attend(q, pool_k, pool_v, table, meta, window_dyn=None, *,
                         window=None, scale=None, softcap=None):
     """Mixed prefill + decode attention over the (already updated) pool;
     see the module docstring. Counts its kernel launches in
-    `ragged_paged_attend.launches`."""
-    _reject_int8("ragged_paged_attend", pool_k, pool_v)
+    `ragged_paged_attend.launches` (raw pool) and
+    `ragged_paged_attend.launches_int8` (int8 pool)."""
     if not resolve_kernel(q.device):
         return ragged_paged_attend_plain(
             q, pool_k, pool_v, table, meta, window_dyn,
@@ -177,7 +179,7 @@ def ragged_paged_attend(q, pool_k, pool_v, table, meta, window_dyn=None, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dli_ragged_paged_attend(
-            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            q.data_ptr(), *kv_operands(pool_k, pool_v),
             out.data_ptr(), _DTYPE_CODES[q.dtype], G, W // G, H, KV, N, bs,
             table.shape[0], table.shape[1], Dh, table.data_ptr(),
             meta.data_ptr(), int(window) if window is not None else -1,
@@ -187,19 +189,20 @@ def ragged_paged_attend(q, pool_k, pool_v, table, meta, window_dyn=None, *,
         )
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attend kernel launch failed: CUDA error {rc}")
-    ragged_paged_attend.launches += 1
+    count_launch(ragged_paged_attend, pool_k)
     return out
 
 
 ragged_paged_attend.launches = 0
+ragged_paged_attend.launches_int8 = 0
 
 
 def paged_flash_attend(q, pool_k, pool_v, table, pos, window_dyn=None, *,
                        window=None, scale=None, softcap=None):
     """T=1 decode attention over the (already updated) pool; see the
     module docstring. Counts its kernel launches in
-    `paged_flash_attend.launches`."""
-    _reject_int8("paged_flash_attend", pool_k, pool_v)
+    `paged_flash_attend.launches` (raw pool) and
+    `paged_flash_attend.launches_int8` (int8 pool)."""
     if not resolve_kernel(q.device):
         return paged_flash_attend_plain(
             q, pool_k, pool_v, table, pos, window_dyn,
@@ -220,7 +223,7 @@ def paged_flash_attend(q, pool_k, pool_v, table, pos, window_dyn=None, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dli_paged_flash_attend(
-            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            q.data_ptr(), *kv_operands(pool_k, pool_v),
             out.data_ptr(), _DTYPE_CODES[q.dtype], B, H, KV, N, bs,
             table.shape[1], Dh, table.data_ptr(), pos.data_ptr(),
             int(window) if window is not None else -1,
@@ -230,17 +233,18 @@ def paged_flash_attend(q, pool_k, pool_v, table, pos, window_dyn=None, *,
         )
     if rc != 0:
         raise RuntimeError(f"paged_flash_attend kernel launch failed: CUDA error {rc}")
-    paged_flash_attend.launches += 1
+    count_launch(paged_flash_attend, pool_k)
     return out
 
 
 paged_flash_attend.launches = 0
+paged_flash_attend.launches_int8 = 0
 
 
 def _check(name, q, pool_k, pool_v, table, window_dyn, int_operands):
     """Validate what the kernel takes from shapes, dtypes and devices
     alone (nothing is read back from the card); returns (N, KV, bs)."""
-    if pool_k.dim() != 4 or pool_v.shape != pool_k.shape:
+    if pool_k.ndim != 4 or pool_v.shape != pool_k.shape:
         raise ValueError(
             f"{name} wants pools [N,KV,bs,Dh]; got {tuple(pool_k.shape)}, "
             f"{tuple(pool_v.shape)}"
@@ -252,15 +256,7 @@ def _check(name, q, pool_k, pool_v, table, window_dyn, int_operands):
                          f"{tuple(pool_k.shape)}")
     if Dh > MAX_HEAD_DIM:
         raise ValueError(f"{name} takes Dh <= {MAX_HEAD_DIM}, got {Dh}")
-    if q.dtype not in _DTYPE_CODES or pool_k.dtype != q.dtype \
-            or pool_v.dtype != q.dtype:
-        raise TypeError(
-            f"{name} takes float32/bfloat16/float16 q and pools of one "
-            f"dtype; got {q.dtype}, {pool_k.dtype}, {pool_v.dtype}"
-        )
-    for tname, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v)):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name}: {tname} must be contiguous on {q.device}")
+    check_cache_leaves(name, q, pool_k, pool_v)
     checks = (("table", table, table.numel()), ("window_dyn", window_dyn, 1)) \
         + tuple(int_operands)
     for tname, t, n in checks:

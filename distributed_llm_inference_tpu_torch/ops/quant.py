@@ -1,0 +1,295 @@
+"""Weight-only quantization (int8 and int4) and the int4 row kernel's
+wrapper: the JAX package's ops/quant.py in PyTorch.
+
+  * int8 (`QTensor`): q int8 [..., in, out] with one fp32 scale per output
+    channel s [..., out]; y = (x @ q.to(x.dtype)) * s, a plain
+    torch.matmul, as the JAX package leaves it to XLA.
+  * int4 (`Q4Tensor`): two signed 4-bit values per byte along the group
+    row axis, q int8 [..., G, g/2, out] (group row i in the LOW nibble,
+    row i + g/2 in the HIGH: halves, not interleaved pairs), with one fp32
+    scale per (group, output channel) s [..., G, out].
+
+`matmul(x, w)` sends an int4 projection of at most 32 rows to
+`q4_matmul_rows` — the port of the JAX package's Pallas kernel of the
+same name (`_q4_rows_kernel`), a hand-written Hopper kernel in
+csrc/q4_matmul.cu whose source note says what bounds it — under the JAX
+package's own gate (`_q4_kernel_ok`); above it (prefill chunks, the mixed
+launch's projections) it keeps the JAX package's einsum formulation:
+per-group partial products in x's dtype, scaled, summed over groups.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+tensor it runs its plain twin `q4_matmul_rows_plain`. Both tensor classes
+slice every leaf with `w[i]` (one layer of the stacked [L, ...] weights).
+Embeddings, norms and biases stay dense.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..config import ModelConfig
+from ..kernels import bind, load_library
+from .flash_attention import resolve_kernel
+
+# stacked matmul weights eligible for quantization; OUTPUT channels are
+# the last axis of every one (weights are stored [L, in, out] / [in, out])
+_QUANT_KEYS = {
+    "llama": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
+}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# blocks the kernel aims to put on the card (eight per SM of an H100): the
+# wrapper splits the group axis until the grid has about this many
+_TARGET_BLOCKS = 1056
+_OUT_TILE = 128  # output columns per kernel block
+
+
+class QTensor:
+    """int8 weight + per-output-channel scale; q [..., in, out] int8,
+    s [..., out] fp32."""
+
+    __slots__ = ("q", "s")
+
+    def __init__(self, q, s):
+        self.q = q
+        self.s = s
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def __getitem__(self, idx):
+        return QTensor(self.q[idx], self.s[idx])
+
+    def __repr__(self):
+        return f"QTensor(q={tuple(self.q.shape)}@{self.q.dtype}, s={tuple(self.s.shape)})"
+
+
+class Q4Tensor:
+    """Packed int4 weight + per-(group, output-channel) scale; q int8
+    [..., G, g/2, out] of nibble halves, s [..., G, out] fp32, g the group
+    size (contraction rows per scale)."""
+
+    __slots__ = ("q", "s", "g")
+
+    def __init__(self, q, s, g: int):
+        self.q = q
+        self.s = s
+        self.g = int(g)
+
+    @property
+    def shape(self):  # logical [..., in, out]
+        *lead, G, _, out = self.q.shape
+        return torch.Size((*lead, G * self.g, out))
+
+    def __getitem__(self, idx):
+        return Q4Tensor(self.q[idx], self.s[idx], self.g)
+
+    def __repr__(self):
+        return (f"Q4Tensor(q={tuple(self.q.shape)}@{self.q.dtype}, "
+                f"s={tuple(self.s.shape)}, g={self.g})")
+
+
+def quantize_tensor(w: torch.Tensor) -> QTensor:
+    """Symmetric per-output-channel int8 quantization of w [..., in, out];
+    q and s bit-equal to the JAX package's (round half to even, the
+    1e-12 scale floor, clip to +-127)."""
+    w32 = w.float()
+    scale = torch.clamp(w32.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return QTensor(q, scale[..., 0, :])
+
+
+def _unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """int8 [..., n, out] of packed nibble halves -> int8 [..., 2n, out]:
+    low nibbles are rows [0, n), high nibbles rows [n, 2n). Shifts on int8
+    wrap and sign-extend, so the low nibble comes out via (p << 4) >> 4,
+    as in the JAX package."""
+    return torch.cat([(p << 4) >> 4, p >> 4], dim=-2)
+
+
+def quantize_tensor4(w: torch.Tensor, group: int = 64) -> Q4Tensor:
+    """Symmetric group-wise int4 quantization of w [..., in, out]."""
+    *lead, d_in, d_out = w.shape
+    g = min(group, d_in)
+    if d_in % g:
+        g = d_in  # one group rather than reject an odd shape
+    if g % 2:
+        raise ValueError(f"int4 packing needs an even group size, got {g}")
+    G = d_in // g
+    w32 = w.float().reshape(*lead, G, g, d_out)
+    scale = torch.clamp(w32.abs().amax(dim=-2, keepdim=True) / 7.0, min=1e-12)
+    q = torch.clamp(torch.round(w32 / scale), -7, 7).to(torch.int8)
+    half = g // 2
+    packed = torch.bitwise_or(q[..., half:, :] << 4, q[..., :half, :] & 15)
+    return Q4Tensor(packed, scale[..., 0, :], g)
+
+
+def dequantize_tensor(t: QTensor, dtype=torch.float32) -> torch.Tensor:
+    return (t.q.float() * t.s[..., None, :].float()).to(dtype)
+
+
+def dequantize_tensor4(t: Q4Tensor, dtype=torch.float32) -> torch.Tensor:
+    w = _unpack_int4(t.q).float() * t.s[..., None, :].float()  # [..., G, g, out]
+    *lead, G, g, out = w.shape
+    return w.reshape(*lead, G * g, out).to(dtype)
+
+
+def _q4_kernel_ok(R: int, w: Q4Tensor) -> bool:
+    """The JAX package's gate for the kernel, gate for gate: few rows
+    (decode / slots; prefill keeps the einsum), an int8-tile-friendly
+    packed block (half % 32, out % 128), one stacked slice."""
+    if w.q.dim() != 3 or R > 32:
+        return False
+    _, half, d_out = w.q.shape
+    return half % 32 == 0 and d_out % 128 == 0
+
+
+_vp, _i32 = ctypes.c_void_p, ctypes.c_int
+# the C entry point's argument types (csrc/q4_matmul.cu)
+SIGNATURES = {"dli_q4_matmul_rows": [
+    _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
+]}
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(load_library("q4_matmul"), SIGNATURES)
+
+
+def q4_matmul_rows_plain(x2d: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
+    """The kernel's plain twin: unpack, then the fp32 product of each
+    group, scaled by the group's scales and summed over groups (the
+    Pallas kernel's algebra). x2d [R, in] -> [R, out] in x2d's dtype."""
+    R, d_in = x2d.shape
+    G, half, d_out = w.q.shape
+    wq = _unpack_int4(w.q).float()  # [G, g, out]
+    xg = x2d.float().reshape(R, G, 2 * half)
+    part = torch.einsum("rgi,gio->rgo", xg, wq)
+    return (part * w.s.float()[None]).sum(dim=1).to(x2d.dtype)
+
+
+def q4_matmul_rows(x2d: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
+    """y = x2d @ dequant(w) for x2d [R <= 32, in] and one stacked slice
+    w (q [G, g/2, out]), under `_q4_kernel_ok`'s gate; returns [R, out] in
+    x2d's dtype (the JAX function returns fp32 and its caller casts: the
+    kernel writes the cast directly, the same rounding). Counts its kernel
+    launches in `q4_matmul_rows.launches`."""
+    if not resolve_kernel(x2d.device):
+        return q4_matmul_rows_plain(x2d, w)
+    R, G, half, d_out = _check(x2d, w)
+    d_in = x2d.shape[1]
+    tiles = d_out // _OUT_TILE
+    n_split = min(G, -(-_TARGET_BLOCKS // tiles))
+    gps = -(-G // n_split)  # groups per split
+    n_split = -(-G // gps)
+    y = torch.empty((R, d_out), dtype=x2d.dtype, device=x2d.device)
+    part = (torch.empty((n_split, R, d_out), dtype=torch.float32, device=x2d.device)
+            if n_split > 1 else None)
+    lib = _library()
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        rc = lib.dli_q4_matmul_rows(
+            x2d.data_ptr(), w.q.data_ptr(), w.s.data_ptr(), y.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            _DTYPE_CODES[x2d.dtype], R, d_in, G, half, d_out, n_split, gps,
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"q4_matmul_rows kernel launch failed: CUDA error {rc}")
+    q4_matmul_rows.launches += 1
+    return y
+
+
+q4_matmul_rows.launches = 0
+
+
+def _check(x2d, w):
+    """Validate what the kernel takes, from shapes, dtypes, devices and
+    alignment alone; returns (R, G, half, out)."""
+    R, d_in = x2d.shape
+    if not _q4_kernel_ok(R, w) or w.q.shape[0] * w.g != d_in \
+            or w.q.shape[1] * 2 != w.g:
+        raise ValueError(
+            f"q4_matmul_rows takes x [R <= 32, in] and a 3-D packed slice "
+            f"with g/2 % 32 == 0 and out % 128 == 0; got x {tuple(x2d.shape)}, {w}"
+        )
+    G, half, d_out = w.q.shape
+    if x2d.dtype not in _DTYPE_CODES or w.q.dtype != torch.int8 \
+            or w.s.dtype != torch.float32 or tuple(w.s.shape) != (G, d_out):
+        raise TypeError(
+            f"q4_matmul_rows takes float32/bfloat16/float16 x, int8 q and "
+            f"fp32 s [G, out]; got {x2d.dtype}, {w}"
+        )
+    for name, t in (("x", x2d), ("q", w.q), ("s", w.s)):
+        if t.device != x2d.device or not t.is_contiguous():
+            raise ValueError(f"q4_matmul_rows: {name} must be contiguous on {x2d.device}")
+    # the kernel reads q four bytes and s four floats at a time
+    if w.q.data_ptr() % 4 or w.s.data_ptr() % 16:
+        raise ValueError("q4_matmul_rows: q must be 4-byte and s 16-byte aligned")
+    return R, G, half, d_out
+
+
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a plain tensor, a QTensor or a Q4Tensor."""
+    if isinstance(w, QTensor):
+        return (x @ w.q.to(x.dtype)) * w.s.to(x.dtype)
+    if isinstance(w, Q4Tensor):
+        lead = x.shape[:-1]
+        R = 1
+        for d in lead:
+            R *= d
+        if _q4_kernel_ok(R, w):
+            y = q4_matmul_rows(x.reshape(R, x.shape[-1]).contiguous(), w)
+            return y.reshape(*lead, y.shape[-1])
+        q = _unpack_int4(w.q).to(x.dtype)  # [G, g, out]
+        G, g = q.shape[-3], q.shape[-2]
+        xr = x.reshape(*lead, G, g)
+        partial = torch.einsum("...gi,gio->...go", xr, q)
+        return (partial * w.s.to(x.dtype)).sum(dim=-2)
+    return x @ w
+
+
+_MOE_NOT_PORTED = (
+    "int8 MoE expert banks (ops/quant.expert_einsum) are not ported to "
+    "PyTorch yet (ROADMAP.md \"Other families and loading\")"
+)
+
+
+def expert_einsum(spec: str, x, w):
+    """Not ported: the MoE FFN waits with its family."""
+    raise NotImplementedError(_MOE_NOT_PORTED)
+
+
+def quantize_params(cfg: ModelConfig, params: dict, mode: str = None,
+                    group: int = 64) -> dict:
+    """Quantize the matmul weights of a parameter dictionary: the stacked
+    per-layer projections and, when untied, the LM head; embed, norms and
+    biases stay. mode: "int8" or "int4" (default cfg.quant, then "int8").
+    Already-quantized leaves are left as they are."""
+    if cfg.arch not in _QUANT_KEYS:
+        raise NotImplementedError(
+            f"weight quantization of arch {cfg.arch!r} is not ported to "
+            f"PyTorch yet (ROADMAP.md \"Other families and loading\")"
+        )
+    mode = mode or cfg.quant or "int8"
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"unknown quantization mode {mode!r}")
+    if mode == "int8":
+        qfn = quantize_tensor
+    else:
+        qfn = functools.partial(quantize_tensor4, group=group)
+    out = dict(params)
+    layers = dict(params["layers"])
+    for k in _QUANT_KEYS[cfg.arch]:
+        if k not in layers or isinstance(layers[k], (QTensor, Q4Tensor)):
+            continue
+        if layers[k].dim() == 4:
+            raise NotImplementedError(_MOE_NOT_PORTED)
+        layers[k] = qfn(layers[k])
+    out["layers"] = layers
+    if "lm_head" in params and not isinstance(params["lm_head"], (QTensor, Q4Tensor)):
+        out["lm_head"] = qfn(params["lm_head"])
+    return out

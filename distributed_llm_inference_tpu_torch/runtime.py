@@ -3,7 +3,8 @@
 The counterpart of the JAX package's runtime.create_engine for the single
 device. It runs on the card unless the caller asks for the CPU
 (device="cpu", as the tests do); with no CUDA device it raises rather
-than fall back. Pipeline, tensor, sequence and data parallelism,
+than fall back. Weights are quantized here when the config asks for it,
+as in the JAX package. Pipeline, tensor, sequence and data parallelism,
 microbatching, draft models and LoRA merges are not ported yet and raise.
 """
 
@@ -17,6 +18,7 @@ from .config import EngineConfig, MeshConfig, ModelConfig, resolve_attn_impl
 from .engine.engine import InferenceEngine, SingleDeviceBackend
 from .models import api as M
 from .models.registry import get_model_config
+from .ops.quant import quantize_params
 
 
 def resolve_device(device) -> torch.device:
@@ -49,8 +51,11 @@ def create_engine(
 ) -> InferenceEngine:
     """Build a single-device engine. params=None draws random weights
     from `seed` on the device; pass params_from_numpy(...) to run the
-    JAX package's weights. attn_impl: "plain" | "kernel" | "auto" (the
-    kernel on a CUDA device) | None (the config's own)."""
+    JAX package's weights. quant ("int8" | "int4") quantizes the weights
+    after they are made or handed over (leaves already quantized stay as
+    they are); kv_quant="int8" gives the engine an int8 KV cache.
+    attn_impl: "plain" | "kernel" | "auto" (the kernel on a CUDA device)
+    | None (the config's own)."""
     if not mesh_cfg.is_trivial or microbatches > 1:
         raise NotImplementedError(
             f"pp/tp/sp/dp/ep meshes and microbatching are not ported to "
@@ -81,6 +86,8 @@ def create_engine(
             cfg, torch.Generator(device=device).manual_seed(seed)
         )
     M.family(cfg).check_supported(cfg)
+    if cfg.quant is not None:
+        params = quantize_params(cfg, params)
     return InferenceEngine(
         cfg, backend=SingleDeviceBackend(cfg, params, device),
         tokenizer=tokenizer, engine_cfg=engine_cfg, seed=seed,

@@ -16,6 +16,10 @@ The queue, the OpenAI routes and the KV fabric arrive with later slices.
         --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
         --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
         --continuous-max-seq 1024
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
+        --quant int4 --kv-quant int8 --continuous 8 --kv-pool-blocks 513 \\
+        --kv-block-size 16 --continuous-max-seq 1024
 """
 
 from __future__ import annotations
@@ -456,6 +460,18 @@ def main(argv: Optional[list] = None):
              "the kernel on a CUDA device; default keeps the model "
              "config's setting (plain)",
     )
+    ap.add_argument(
+        "--quant", default=None, choices=[None, "int8", "int4"],
+        help="weight-only quantization (ops/quant.py): int8 per-output-"
+             "channel scales, or int4 packed nibbles with group-wise scales "
+             "(projections of <= 32 rows run the q4_matmul_rows kernel)",
+    )
+    ap.add_argument(
+        "--kv-quant", default=None, choices=[None, "int8"],
+        help="int8 KV cache with per-(token, head) scales (ops/kv_quant.py), "
+             "solo and in the --continuous block pool; the attention "
+             "kernels dequantize in their prologues",
+    )
     ap.add_argument("--max-tokens-cap", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
@@ -519,6 +535,8 @@ def main(argv: Optional[list] = None):
         args.model,
         engine_cfg=EngineConfig(request_deadline_s=args.deadline),
         dtype=args.dtype,
+        quant=args.quant,
+        kv_quant=args.kv_quant,
         attn_impl=args.attn_impl,
         tokenizer=tokenizer,
         seed=args.seed,

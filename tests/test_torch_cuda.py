@@ -70,7 +70,7 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
         fa.flash_attend(q, ck, ck, 30)
     with pytest.raises(ValueError):
         fa.flash_attend(q, ck, ck, 0, torch.zeros(1, dtype=torch.int64, device=card))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="KVQuant"):  # int8 without its scales
         fa.flash_attend(q, ck.to(torch.int8), ck.to(torch.int8), 0)
 
 
@@ -178,9 +178,148 @@ def test_paged_kernels_reject_what_they_do_not_take(card):
         pa.paged_flash_attend(q, pool, pool, table.long(), pos)
     with pytest.raises(TypeError):
         pa.paged_flash_attend(q.half(), pool, pool, table, pos)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="KVQuant"):  # int8 without its scales
         pa.paged_flash_attend(q, pool.to(torch.int8), pool.to(torch.int8), table, pos)
     meta = torch.zeros(3, 4, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="dividing"):
         pa.ragged_paged_attend(torch.randn(8, 4, 16, device=card), pool, pool,
                                table, meta)
+
+
+# -- int4 weights and the int8 KV cache --------------------------------------------
+
+# q4 outputs are sums of in ~ 2048-5632 products of size ~in**-0.5: |y|
+# stays below 8, where one bf16 ulp is 0.03 and one fp16 ulp 0.004, and
+# the kernel and its twin may round the same fp32 sum to neighbours
+Q4_ATOL = {"float32": 1e-4, "bfloat16": 6e-2, "float16": 1e-2}
+# tinyllama's projections (in, out); 5632 -> 2048 has G = 88 groups
+Q4_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (256, 384)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_q4_matmul_kernel_matches_twin(card, dtype):
+    from distributed_llm_inference_tpu_torch.ops import quant as Q
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(4)
+    for d_in, d_out in Q4_SHAPES:
+        w = Q.quantize_tensor4(
+            torch.randn(d_in, d_out, generator=g, device=card) * d_in ** -0.5)
+        for R in (1, 5, 8, 17, 32):
+            x = torch.randn(R, d_in, generator=g, device=card).to(dt)
+            before = Q.q4_matmul_rows.launches
+            got = Q.q4_matmul_rows(x, w)
+            torch.cuda.synchronize()
+            assert Q.q4_matmul_rows.launches == before + 1
+            assert got.dtype == dt and got.shape == (R, d_out)
+            want = Q.q4_matmul_rows_plain(x, w)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= Q4_ATOL[dtype], (d_in, d_out, R, err)
+            # the split over groups reduces in a fixed order: same bits again
+            assert torch.equal(got, Q.q4_matmul_rows(x, w))
+
+
+def test_q4_matmul_rejects_what_it_does_not_take(card):
+    from distributed_llm_inference_tpu_torch.ops import quant as Q
+
+    w = Q.quantize_tensor4(torch.randn(256, 384, device=card))
+    with pytest.raises(ValueError):
+        Q.q4_matmul_rows(torch.randn(33, 256, device=card), w)
+    with pytest.raises(ValueError):
+        Q.q4_matmul_rows(torch.randn(2, 256, device=card),
+                         Q.quantize_tensor4(torch.randn(256, 96, device=card)))
+    with pytest.raises(TypeError):
+        Q.q4_matmul_rows(torch.randn(2, 256, device=card).double(), w)
+
+
+def _int8(x):
+    from distributed_llm_inference_tpu_torch.ops import kv_quant as K
+
+    q, s = K.quantize_chunk(x)
+    return K.KVQuant(q.contiguous(), s.contiguous())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_flash_kernel_matches_twin(card, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(5)
+    for B, T, H, KV, Dh, S, pos, vs_step, kw, wdyn in CASES:
+        q = torch.randn(B, T, H, Dh, generator=g, device=card).to(dt)
+        ck = _int8(torch.randn(B, KV, S, Dh, generator=g, device=card))
+        cv = _int8(torch.randn(B, KV, S, Dh, generator=g, device=card))
+        vs = torch.arange(B, dtype=torch.int32, device=card) * vs_step
+        wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
+                                                    device=card)
+        before = (fa.flash_attend.launches, fa.flash_attend.launches_int8)
+        got = fa.flash_attend(q, ck, cv, pos, vs, wd, **kw)
+        torch.cuda.synchronize()
+        assert (fa.flash_attend.launches, fa.flash_attend.launches_int8) == (
+            before[0], before[1] + 1)
+        want = fa.flash_attend_plain(q, ck, cv, pos, vs, wd, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATOL[dtype], (B, T, H, KV, Dh, S, pos, kw, wdyn, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_paged_kernels_match_twins(card, dtype):
+    """Both entry points over one shuffled int8 pool: a decode batch, and
+    a ragged launch of decode rows, a chunk, a short row and pad tiles."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(6)
+    H, KV, Dh, bs, MB, tq = 32, 4, 64, 16, 64, 8
+    pool_k, pool_v, table = _pool_case(card, torch.float32, g, N=10 * MB + 1, KV=KV,
+                                       bs=bs, Dh=Dh, R=10, MB=MB)
+    pool_k, pool_v = _int8(pool_k), _int8(pool_v)
+    pos = torch.tensor([0, 15, 16, 700, 1023, 5, 64, 333], dtype=torch.int32,
+                       device=card)
+    qd = torch.randn(8, 1, H, Dh, generator=g, device=card).to(dt)
+    meta = torch.tensor([(0, 17, 1, 1), (1, 1023, 1, 1), (2, 0, 1, 1),
+                         (5, 640, 8, 0), (5, 648, 8, 0), (5, 656, 3, 0),
+                         (9, 0, 5, 0), (9, 0, 0, 0)], dtype=torch.int32, device=card)
+    qr = torch.randn(meta.shape[0] * tq, H, Dh, generator=g, device=card).to(dt)
+    for kw, wdyn in PAGED_VARIANTS:
+        wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
+                                                    device=card)
+        for fn, args in (("paged_flash_attend", (qd, pool_k, pool_v, table[:8], pos)),
+                         ("ragged_paged_attend", (qr, pool_k, pool_v, table, meta))):
+            wrapper = getattr(pa, fn)
+            before = wrapper.launches_int8
+            got = wrapper(*args, wd, **kw)
+            torch.cuda.synchronize()
+            assert wrapper.launches_int8 == before + 1
+            want = getattr(pa, fn + "_plain")(*args, wd, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL[dtype], (fn, kw, wdyn, err)
+
+
+def test_quantized_engine_kernel_path_matches_plain_path(card):
+    """Greedy generation on the card under quant="int4", kv_quant="int8"
+    through the kernels (attn_impl "auto") gives the plain attention
+    path's tokens in fp32, solo and on the fleet, and the kernels ran."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+    from distributed_llm_inference_tpu_torch.ops import quant as Q
+
+    cfg = EngineConfig(prefill_buckets=(16, 32))
+    prompt = "The quick brown fox jumps over it, twice."
+    out = {}
+    for impl in ("auto", "plain"):
+        engine = create_engine("test-llama-tiny", attn_impl=impl, seed=3, quant="int4",
+                               kv_quant="int8", engine_cfg=cfg, device=card)
+        counts = (fa.flash_attend.launches_int8, pa.ragged_paged_attend.launches_int8,
+                  Q.q4_matmul_rows.launches)
+        solo = engine.generate(prompt, max_tokens=10, greedy=True, chat=False)
+        fleet = ContinuousEngine(engine, n_slots=2, kv_pool_blocks=20, slot_max_seq=128)
+        try:
+            r = fleet.submit(prompt, max_tokens=10, greedy=True, chat=False)
+        finally:
+            fleet.close()
+        now = (fa.flash_attend.launches_int8, pa.ragged_paged_attend.launches_int8,
+               Q.q4_matmul_rows.launches)
+        out[impl] = (solo["response"], r["response"], [b - a for a, b in zip(counts, now)])
+    assert out["auto"][:2] == out["plain"][:2]
+    assert out["auto"][2][0] == 2 * 4 and out["plain"][2][0] == 0  # two T>1 chunks
+    assert out["auto"][2][1] > 0 and out["plain"][2][1] == 0
+    assert out["auto"][2][2] > 0 and out["plain"][2][2] > 0  # q4 on both paths

@@ -67,5 +67,7 @@ def test_cpu_wrapper_runs_twin_and_counts_no_launch():
     assert fa.resolve_kernel("cuda") is True
     with pytest.raises(ValueError):
         fa.resolve_kernel("meta")
-    with pytest.raises(NotImplementedError):
+    # an int8 cache is KVQuant leaves (test_torch_kv_quant.py); a bare
+    # int8 tensor has no scales
+    with pytest.raises(TypeError, match="KVQuant"):
         fa.flash_attend(q, ck.to(torch.int8), cv.to(torch.int8), 2)

@@ -125,5 +125,10 @@ def test_unported_features_raise():
         TM.init_params(get_model_config("test-moe-tiny"), torch.Generator())
     with pytest.raises(NotImplementedError, match="gpt2"):
         TM.init_params(get_model_config("test-gpt2-tiny"), torch.Generator())
+    # the int8 KV cache is ported (test_torch_kv_quant.py); int8 MoE
+    # expert banks wait with the MoE FFN
+    from distributed_llm_inference_tpu_torch.ops.quant import quantize_params
+
     with pytest.raises(NotImplementedError, match="int8"):
-        TM.init_kv_cache(get_model_config("test-llama-tiny", kv_quant="int8"), 1)
+        quantize_params(get_model_config("test-llama-tiny", quant="int8"),
+                        {"layers": {"w_up": torch.zeros(2, 4, 8, 16)}})

@@ -112,6 +112,9 @@ def test_wrappers_on_cpu_run_the_twins_and_count_no_launch():
 
 @pytest.mark.parametrize("fn", ["ragged_paged_attend", "paged_flash_attend"])
 def test_int8_pool_raises_not_implemented(fn):
+    """An int8 pool is ops/kv_quant.KVQuant leaves (data and scales; held
+    to the JAX kernels in test_torch_kv_quant.py): a bare int8 tensor,
+    which has no scales, is refused by the wrapper and its twin."""
     pool = torch.zeros((N, KV, BS, DH), dtype=torch.int8)
     table = torch.ones((4, MB), dtype=torch.int32)
     if fn == "ragged_paged_attend":
@@ -121,7 +124,7 @@ def test_int8_pool_raises_not_implemented(fn):
         args = (torch.zeros((4, 1, H, DH)), pool, pool, table,
                 torch.zeros((4,), dtype=torch.int32))
     for f in (getattr(PA, fn), getattr(PA, fn + "_plain")):
-        with pytest.raises(NotImplementedError, match="Quantization"):
+        with pytest.raises(TypeError, match="KVQuant"):
             f(*args)
 
 
