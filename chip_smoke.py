@@ -5,9 +5,10 @@
 Builds every CUDA kernel of the port from the sources in this checkout,
 holds each against its plain PyTorch twin on the card, then serves
 tinyllama-1.1b (published widths, 22 layers, bf16, random weights from
-seed 0) through the port's own HTTP server, solo and as the continuous
-paged fleet, and checks that the served requests went through the
-kernels. Phases, each of which fails the run:
+seed 0) through the port's own HTTP server, solo, as the continuous
+paged fleet (chunked and whole-prefill) and as the dense slot fleet,
+and checks that the served requests went through the kernels. Phases,
+each of which fails the run:
 
   (a) the device, `nvidia-smi`'s name and power limit, the kernel build;
   (b) flash_attend vs its plain twin at tinyllama's attention shapes
@@ -49,8 +50,27 @@ kernels. Phases, each of which fails the run:
   (l) the quantized fleet's kernel path vs its plain attention path, and
       the sync check, as in (h);
   (m) the quantized wave's TTFT and tokens/s, its profiled mixed launch
-      and decode chunk, the kernels' JSON line (seven entries), and as
+      and decode chunk, the kernels' JSON line (eight entries), and as
       the last line {"ok": true, "device": {...}}.
+
+Run after (i), on the raw engine, before (j):
+
+  (n) flash_attend_slots driven directly, as the JAX package's bench.py
+      drives its kernel (no serving hook selects it), then against its
+      twin at bench.py's shapes (8 slots, S=8192, pos 1024), the dense
+      fleet's (S=1024, tile edges, pos = S) and S=1000, window None /
+      256, bf16 and fp32, repeats bit-equal; kernel, twin, einsum
+      (attend over the whole cache, the JAX yardstick) and SDPA ms;
+  (o) the dense fleet (`--continuous 8 --continuous-max-seq 1024`, no
+      pool) serving (g)'s wave: flash_attend n_layers times per T>1
+      prefill chunk, no paged kernel and no flash_attend_slots (decode
+      keeps the einsum, the JAX gate), a greedy repeat, a decode chunk
+      under the sync check, kernel vs plain logits of a dense admission,
+      a profiled decode chunk;
+  (p) the paged fleet of (g) with chunked_prefill=False (ragged
+      whole-prefill) and ragged_prefill=False (bucketed, scattered into
+      the blocks) on a 4-request wave: n_layers prefill-kernel launches
+      per prefill launch, paged_flash_attend at decode, every block back.
 
 It needs a CUDA device and the repository: with no card, or run from a
 directory that holds nothing else of the repository, it exits non-zero
@@ -301,7 +321,7 @@ def chunk_shapes(engine, body):
     bucket-padded one."""
     text = engine.render_chat(body["prompt"]) if body.get("chat", True) else body["prompt"]
     n_full, _rem, bucket, chunk = engine._plan_ingest(
-        len(engine.tokenizer.encode(text)), engine._buckets())
+        len(engine.tokenizer.encode(text)), 0, engine._buckets())
     return [(chunk, c * chunk) for c in range(n_full)] + [(bucket, n_full * chunk)]
 
 
@@ -635,6 +655,7 @@ def reset_counts(pa, fa, Q):
     for wrapper in (pa.ragged_paged_attend, pa.paged_flash_attend, fa.flash_attend):
         wrapper.launches = wrapper.launches_int8 = 0
     Q.q4_matmul_rows.launches = 0
+    pa.flash_attend_slots.launches = 0
 
 
 def read_counts(pa, fa, Q):
@@ -646,15 +667,77 @@ def read_counts(pa, fa, Q):
         out[name] = wrapper.launches
         out[name + "[int8]"] = wrapper.launches_int8
     out["q4_matmul_rows"] = Q.q4_matmul_rows.launches
+    out["flash_attend_slots"] = pa.flash_attend_slots.launches
     return out
+
+
+def fleet_bodies(which):
+    """The wave's request bodies: prompts of FLEET_PROMPT_TOKENS[i] tokens
+    for i in `which`, greedy (even i) and sampled (odd i), 32 new tokens."""
+    bodies = []
+    for i in which:
+        body = {"prompt": fleet_prompt(i, FLEET_PROMPT_TOKENS[i]),
+                "max_tokens": FLEET_NEW_TOKENS, "chat": False}
+        body.update({"greedy": True} if i % 2 == 0 else SAMPLED_KNOBS)
+        bodies.append(body)
+    return bodies
+
+
+def serve_wave(server, bodies, pa, fa, Q):
+    """POST the bodies at once; every kernel count starts at 0 just before
+    (the main path's run) and is read once the fleet is idle again.
+    Returns (results, wave seconds, launches, /stats before, /stats after)."""
+    import threading
+
+    before = get(server.port, "/stats")[1]["continuous"]
+    results = [None] * len(bodies)
+
+    def run(i):
+        results[i] = post(server.port, bodies[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    reset_counts(pa, fa, Q)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wave_s = time.perf_counter() - t0
+    st = wait_idle(server.port)
+    return results, wave_s, read_counts(pa, fa, Q), before, st["continuous"]
+
+
+def check_wave(tag, results, which):
+    """Every request of the wave answered in full, from the fleet."""
+    for i, (code, r, wall) in zip(which, results):
+        print(f"{tag} request {i} ({'greedy' if i % 2 == 0 else 'sampled'}): HTTP {code} "
+              f"prompt_tokens={r.get('prompt_tokens')} tokens={r.get('tokens_generated')} "
+              f"finish={r.get('finish_reason')} ttft_s={r.get('ttft_s')} "
+              f"tokens_per_sec={r.get('tokens_per_sec')} "
+              f"prefill_chunks={r.get('prefill_chunks')} wall_s={wall:.3f}")
+        check(code == 200 and r.get("status") == "success"
+              and r.get("backend") == "continuous", f"fleet request {i}: {r}")
+        check(r["prompt_tokens"] == FLEET_PROMPT_TOKENS[i],
+              f"request {i}: {r['prompt_tokens']} prompt tokens")
+        check(r["tokens_generated"] == FLEET_NEW_TOKENS or r["finish_reason"] == "stop",
+              f"request {i}: {r['tokens_generated']} tokens without a stop")
+
+
+def greedy_repeat(tag, server, body, in_wave):
+    """A greedy request twice on the idle fleet: the same tokens."""
+    again = [post(server.port, body)[1] for _ in range(2)]
+    print(f"{tag} a greedy request of the wave again on the idle fleet, twice: tokens "
+          f"{again[0]['tokens_generated']}, {again[1]['tokens_generated']}; "
+          f"identical={again[0]['token_ids'] == again[1]['token_ids']}; "
+          f"same as in the wave={again[0]['token_ids'] == in_wave['token_ids']}")
+    check(again[0]["token_ids"] == again[1]["token_ids"],
+          "a greedy request repeated on the idle fleet gave other tokens")
 
 
 def phase_g(torch, engine, pa, fa, Q, tag="(g)"):
     """The fleet through the port's HTTP server: 8 concurrent requests. On
     a quantized engine (int4 weights, int8 pool; phase (k)) the int8
     paged kernels and q4_matmul_rows must carry the wave."""
-    import threading
-
     from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
     from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
 
@@ -674,47 +757,14 @@ def phase_g(torch, engine, pa, fa, Q, tag="(g)"):
               f"kv_quant={cfg.kv_quant}: step width "
               f"{fleet.stats()['scheduler']['step_width']}, tile {RAGGED_TILE}; "
               f"warmup request {time.time() - t0:.1f} s")
-        bodies = []
-        for i, n in enumerate(FLEET_PROMPT_TOKENS):
-            body = {"prompt": fleet_prompt(i, n), "max_tokens": FLEET_NEW_TOKENS,
-                    "chat": False}
-            body.update({"greedy": True} if i % 2 == 0 else SAMPLED_KNOBS)
-            bodies.append(body)
-        before = get(server.port, "/stats")[1]["continuous"]["launches"]
-        results = [None] * len(bodies)
-
-        def run(i):
-            results[i] = post(server.port, bodies[i])
-
-        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
-        # the main path's run: every count starts at 0 here and is read
-        # when the fleet is idle again
-        reset_counts(pa, fa, Q)
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        wave_s = time.perf_counter() - t0
-        st = wait_idle(server.port)
-        launches = read_counts(pa, fa, Q)
-        after = st["continuous"]["launches"]
-        mixed = after["mixed"] - before["mixed"]
-        both = (after["mixed_with_decode_and_prefill"]
-                - before["mixed_with_decode_and_prefill"])
-        chunks = after["decode_chunks"] - before["decode_chunks"]
-        for i, (code, r, wall) in enumerate(results):
-            print(f"{tag} request {i} ({'greedy' if i % 2 == 0 else 'sampled'}): HTTP {code} "
-                  f"prompt_tokens={r.get('prompt_tokens')} tokens={r.get('tokens_generated')} "
-                  f"finish={r.get('finish_reason')} ttft_s={r.get('ttft_s')} "
-                  f"tokens_per_sec={r.get('tokens_per_sec')} "
-                  f"prefill_chunks={r.get('prefill_chunks')} wall_s={wall:.3f}")
-            check(code == 200 and r.get("status") == "success"
-                  and r.get("backend") == "continuous", f"fleet request {i}: {r}")
-            check(r["prompt_tokens"] == FLEET_PROMPT_TOKENS[i],
-                  f"request {i}: {r['prompt_tokens']} prompt tokens")
-            check(r["tokens_generated"] == FLEET_NEW_TOKENS or r["finish_reason"] == "stop",
-                  f"request {i}: {r['tokens_generated']} tokens without a stop")
+        which = range(len(FLEET_PROMPT_TOKENS))
+        bodies = fleet_bodies(which)
+        results, wave_s, launches, before, after = serve_wave(server, bodies, pa, fa, Q)
+        mixed = after["launches"]["mixed"] - before["launches"]["mixed"]
+        both = (after["launches"]["mixed_with_decode_and_prefill"]
+                - before["launches"]["mixed_with_decode_and_prefill"])
+        chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+        check_wave(tag, results, which)
         print(f"{tag} wave: {wave_s:.3f} s; launches: {mixed} mixed ({both} with decode "
               f"rows and prompt chunks at once), {chunks} decode chunks of "
               f"{FLEET['chunk_steps']} steps; kernel launches {json.dumps(launches)}")
@@ -739,19 +789,11 @@ def phase_g(torch, engine, pa, fa, Q, tag="(g)"):
         check(launches["q4_matmul_rows"] == q4_want,
               f"q4_matmul_rows launched {launches['q4_matmul_rows']} times, "
               f"{q4_want} expected for {chunks} decode chunks and {mixed} mixed launches")
-        free = st["continuous"]["paged"]["free_blocks"]
-        print(f"{tag} /stats after the wave: continuous {json.dumps(st['continuous'])}")
+        free = after["paged"]["free_blocks"]
+        print(f"{tag} /stats after the wave: continuous {json.dumps(after)}")
         check(free == FLEET["kv_pool_blocks"] - 1,
               f"{free} of {FLEET['kv_pool_blocks'] - 1} pool blocks free after the wave")
-        # a greedy request twice on the idle fleet
-        again = [post(server.port, bodies[6])[1] for _ in range(2)]
-        same_as_wave = again[0]["token_ids"] == results[6][1]["token_ids"]
-        print(f"{tag} greedy request 6 again on the idle fleet, twice: tokens "
-              f"{again[0]['tokens_generated']}, {again[1]['tokens_generated']}; "
-              f"identical={again[0]['token_ids'] == again[1]['token_ids']}; "
-              f"same as in the wave={same_as_wave}")
-        check(again[0]["token_ids"] == again[1]["token_ids"],
-              "a greedy request repeated on the idle fleet gave other tokens")
+        greedy_repeat(tag, server, bodies[6], results[6][1])
         check(wait_idle(server.port)["continuous"]["paged"]["free_blocks"]
               == FLEET["kv_pool_blocks"] - 1, "pool blocks leaked by the repeats")
     finally:
@@ -1103,6 +1145,311 @@ def paged_line(rows, kernel, launches, replaces, pick, shapes):
     }
 
 
+# -- the dense slot fleet and whole-prefill admission: phases (n) to (p) --------
+
+# flash_attend_slots' cases: (label, B, S, per-row positions). bench.py's
+# fleet-attention leg (8 slots of an 8192-position cache at pos 1024), the
+# dense fleet's 1024-position slots with tile edges, the last position and
+# a finished slot frozen at S, and an S that is no multiple of the tile
+SLOTS_CASES = [
+    ("bench.py fleet leg", 8, 8192, [1024] * 8),
+    ("dense fleet", 8, 1024, [0, 17, 63, 64, 500, 1000, 1023, 1024]),
+    ("S=1000", 8, 1000, [0, 1, 63, 64, 640, 998, 999, 1000]),
+]
+DENSE_FLEET = dict(n_slots=8, chunk_steps=16, chunk_lag=2, slot_max_seq=1024)
+WHOLE_PREFILL_WAVE = (0, 3, 5, 7)  # 8, 120, 330 and 700 prompt tokens
+
+
+def slots_work(B, S_, positions, window, dtype_name):
+    """(bytes, FLOPs) of one flash_attend_slots call: q read and o written
+    once, pos read once, each row's live K/V rows read once (positions
+    <= pos and < S, within the window), 4*Dh FLOPs per head and live key."""
+    esize = 4 if dtype_name == "float32" else 2
+    keys = 0
+    for p in positions:
+        lo = max(p - window + 1, 0) if window else 0
+        keys += max(min(p + 1, S_) - lo, 0)
+    nbytes = 2 * B * H * DH * esize + 4 * B + 2 * KV * DH * esize * keys
+    return nbytes, 4 * DH * H * keys
+
+
+def phase_n(torch, timer, pa):
+    """flash_attend_slots driven directly, as bench.py's fleet leg drives
+    the JAX kernel (no serving hook selects it), then held to its twin in
+    every case: kernel, twin, attend (the einsum over the whole cache with
+    the slot mask: the JAX package's own yardstick) and SDPA (the slot
+    mask, enable_gqa) ms at a cold L2, and the bound. Returns (rows, the
+    driven run's launches)."""
+    import torch.nn.functional as F
+
+    from distributed_llm_inference_tpu_torch.ops.attention import attend, slot_causal_mask
+
+    operands = {}
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for i, (label, B, S_, positions) in enumerate(SLOTS_CASES):
+            g = torch.Generator(device=DEVICE).manual_seed(200 + i)
+            q = torch.randn(B, 1, H, DH, generator=g, device=DEVICE).to(dt)
+            k = torch.randn(B, KV, S_, DH, generator=g, device=DEVICE).to(dt)
+            v = torch.randn(B, KV, S_, DH, generator=g, device=DEVICE).to(dt)
+            pos = torch.tensor(positions, dtype=torch.int32, device=DEVICE)
+            operands[dtype_name, label] = (q, k, v, pos)
+    # the driven run: one call per case, bf16, as served (no window)
+    pa.flash_attend_slots.launches = 0
+    for label, *_ in SLOTS_CASES:
+        pa.flash_attend_slots(*operands["bfloat16", label])
+    torch.cuda.synchronize()
+    driven = pa.flash_attend_slots.launches
+    check(driven == len(SLOTS_CASES), f"flash_attend_slots launched {driven} times")
+    print(f"(n) flash_attend_slots driven directly at {len(SLOTS_CASES)} shapes: "
+          f"{driven} launches; vs plain twin, H={H} KV={KV} Dh={DH}, device ms per "
+          f"call, cold L2")
+    rows = []
+    for (dtype_name, label), (q, k, v, pos) in operands.items():
+        B, S_ = q.shape[0], k.shape[2]
+        for window in (None, 256):
+            got = pa.flash_attend_slots(q, k, v, pos, window=window)
+            again = pa.flash_attend_slots(q, k, v, pos, block_k=128, window=window)
+            torch.cuda.synchronize()
+            want = pa.flash_attend_slots_plain(q, k, v, pos, window=window)
+            err = (got.float() - want.float()).abs().max().item()
+            check(bool(torch.isfinite(got.float()).all()), "flash_attend_slots: non-finite")
+            check(torch.equal(got, again),
+                  "flash_attend_slots gave other bits on a repeat (another block_k)")
+            mask = slot_causal_mask(pos, 1, S_, window)
+            ms = timer.ms(lambda: pa.flash_attend_slots(q, k, v, pos, window=window), 10)
+            plain_ms = timer.ms(
+                lambda: pa.flash_attend_slots_plain(q, k, v, pos, window=window), 3)
+            einsum_ms = timer.ms(lambda: attend(q, k, v, mask), 10)
+            qt, smask = q.transpose(1, 2), mask[:, None]
+            library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, k, v, attn_mask=smask, enable_gqa=True), 10)
+            nbytes, flops = slots_work(B, S_, pos.tolist(), window, dtype_name)
+            bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+            r = dict(dtype=dtype_name, case=label, window=window, max_abs_err=err,
+                     atol=ATOL[dtype_name], ms=ms, plain_ms=plain_ms, einsum_ms=einsum_ms,
+                     library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(r)
+            print(f"    {dtype_name:8s} {label:18s} B={B} S={S_:4d} window={str(window):4s} "
+                  f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} plain={plain_ms:.4f} "
+                  f"einsum={einsum_ms:.4f} sdpa={library_ms:.4f} "
+                  f"bound={bound_ms:.5f} ({bound_by})")
+    bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
+    check(not bad, f"flash_attend_slots disagrees with its twin in {len(bad)} case(s)")
+    return rows, driven
+
+
+def slots_line(rows, driven, served):
+    """flash_attend_slots' JSON entry: bench.py's fleet-leg case, bf16."""
+    r = next(r for r in rows if r["dtype"] == "bfloat16" and r["window"] is None
+             and r["case"] == SLOTS_CASES[0][0])
+    _, B, S_, positions = SLOTS_CASES[0]
+    return {
+        "name": "flash_attend_slots",
+        "route": "cuda",
+        "source": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "distributed_llm_inference_tpu/ops/paged_attention.py:261",
+        "launches": driven,
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],  # SDPA with the slot mask, enable_gqa
+        "einsum_ms": r["einsum_ms"],  # attend over the whole cache (the JAX yardstick)
+        "served_launches": served,
+        "shapes": f"bf16 B={B} H={H} KV={KV} Dh={DH} S={S_}, pos {positions[0]} "
+                  f"(bench.py's fleet leg); launches: driven directly in (n), one "
+                  f"call per case; served_launches: (o) and (p), the reference's "
+                  f"decode gate keeps the einsum",
+    }
+
+
+def dense_admission(torch, cfg, params, G, M, first=None):
+    """A 300-token prompt admitted into slot 3 of an 8-slot dense fleet
+    cache as the fleet does it (two 128-token extend chunks and a
+    64-token bucket on a batch-1 scratch, spliced in), then one decode
+    step of the fleet. Returns (prefill logits, decode logits of slot 3,
+    the first token)."""
+    B, S_ = DENSE_FLEET["n_slots"], DENSE_FLEET["slot_max_seq"]
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    ids = torch.randint(3, cfg.vocab_size, (1, 300), generator=g, device=DEVICE)
+    with torch.no_grad():
+        scratch = M.init_kv_cache(cfg, 1, max_seq=S_, device=DEVICE)
+        for c in range(2):
+            scratch = G.extend(cfg, params, ids[:, 128 * c:128 * (c + 1)], 128 * c, scratch)
+        tail = torch.full((1, 64), cfg.pad_token_id, dtype=ids.dtype, device=DEVICE)
+        tail[:, :44] = ids[:, 256:]
+        sampling = G.default_sampling(greedy=True)
+        f, logits, scratch = G.prefill(cfg, params, tail, 44, scratch, g, sampling, pos=256)
+        first = f if first is None else first
+        cache = M.init_kv_cache(cfg, B, max_seq=S_, device=DEVICE)
+        state, sparams = G.init_slots(B, cfg.vocab_size, device=DEVICE)
+        none = torch.zeros(cfg.vocab_size, dtype=torch.bool, device=DEVICE)
+        cache, state, sparams = G.insert_slot(cfg, cache, scratch, state, sparams, 3,
+                                              first, 300, 32, 1.0, 0, 1.0, True, 0.0,
+                                              1.0, 0.0, 0.0, none)
+        dec, _ = G._forward_step(cfg, params, state.token[:, None], cache, state.pos)
+    return torch.cat([logits, dec[3:4]]), first, (cache, state, sparams)
+
+
+def phase_o(torch, engine, pa, fa, Q, G, M):
+    """The dense fleet through the port's HTTP server: (g)'s wave of 8, no
+    pool. flash_attend carries every T>1 prefill chunk; decode keeps the
+    einsum (the JAX package's gate), so no paged kernel and no
+    flash_attend_slots runs. Then the kernel path vs the plain path on a
+    dense admission, a decode chunk under the sync check, and a profiled
+    decode chunk."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    cfg = engine.cfg
+    L = cfg.n_layers
+    fleet = ContinuousEngine(engine, **DENSE_FLEET)
+    server = InferenceServer(engine, host="127.0.0.1", port=0, max_tokens_cap=64,
+                             continuous=fleet)
+    server.start()
+    try:
+        t0 = time.time()
+        w = fleet.warmup()
+        check(w["ok"], f"dense fleet warmup: {w}")
+        print(f"(o) dense fleet {json.dumps(DENSE_FLEET)} (no pool), prefill buckets "
+              f"{PREFILL_BUCKETS}; warmup request {time.time() - t0:.1f} s")
+        which = range(len(FLEET_PROMPT_TOKENS))
+        bodies = fleet_bodies(which)
+        results, wave_s, launches, before, after = serve_wave(server, bodies, pa, fa, Q)
+        check_wave("(o)", results, which)
+        chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+        prefill = sum(r["prefill_chunks"] for _, r, _ in results)
+        print(f"(o) wave: {wave_s:.3f} s; {prefill} T>1 prefill chunks, {chunks} decode "
+              f"chunks of {DENSE_FLEET['chunk_steps']} steps; kernel launches "
+              f"{json.dumps(launches)}")
+        print(f"(o) /stats after the wave: continuous {json.dumps(after)}")
+        check("paged" not in after and after["launches"]["mixed"] == 0,
+              "the dense fleet reported a pool or a mixed launch")
+        check(launches["flash_attend"] == L * prefill > 0,
+              f"flash_attend launched {launches['flash_attend']} times for {prefill} "
+              f"T>1 prefill chunks of {L} layers")
+        check(not any(n for k, n in launches.items() if k != "flash_attend"),
+              f"the dense fleet launched another kernel: {launches}")
+        greedy_repeat("(o)", server, bodies[6], results[6][1])
+    finally:
+        server.shutdown()
+    n_tok = sum(r["tokens_generated"] for _, r, _ in results)
+    for i, (_, r, wall) in enumerate(results):
+        print(f"(o) dense fleet request {i}: prompt_tokens={r['prompt_tokens']} "
+              f"ttft_s={r['ttft_s']} tokens_per_sec={r['tokens_per_sec']}")
+    print(f"(o) dense fleet wave: {n_tok} tokens in {wave_s:.3f} s = "
+          f"{n_tok / wave_s:.2f} tokens/s aggregate")
+
+    params = engine.backend.params
+    k_out, first, _ = dense_admission(torch, cfg, params, G, M)
+    p_out, _, fleet_state = dense_admission(torch, cfg.replace(attn_impl="plain"), params,
+                                            G, M, first=first)
+    err = (k_out - p_out).abs().max().item()
+    print(f"(o) dense admission logits kernel vs plain (prefill, then slot 3's decode "
+          f"step): max_abs_err={err:.4g} (atol {LOGITS_ATOL})")
+    check(bool(torch.isfinite(k_out).all()), "dense admission logits not finite")
+    check(err <= LOGITS_ATOL, "dense admission: kernel-path logits disagree with plain")
+
+    cache, state, sparams = fleet_state
+    K = DENSE_FLEET["chunk_steps"]
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    G.decode_slots(cfg, params, state, cache, gen, sparams, num_steps=1)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        em, mask, st2, cache = G.decode_slots(cfg, params, state, cache, gen, sparams,
+                                              num_steps=K)
+        packed = G.pack_chunk(em, mask, st2.active)
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ev.synchronize()
+    print(f"(o) one {K}-step dense decode chunk under set_sync_debug_mode('error'): no "
+          f"host sync; slot 3 emitted {int(host.numpy()[K:2 * K, 3].sum())}")
+    # every slot armed (the others at positions 100 + 50 b over their
+    # cache rows' contents) for a decode chunk at the fleet's serving shape
+    none = torch.zeros(cfg.vocab_size, dtype=torch.bool, device=DEVICE)
+    for b in range(DENSE_FLEET["n_slots"]):
+        if b != 3:
+            state, sparams = G.arm_slot(cfg, state, sparams, b, 100 + b, 100 + 50 * b,
+                                        2 * K, 1.0, 0, 1.0, True, 0.0, 1.0, 0.0, 0.0,
+                                        none)
+    res = {}
+    wall_us, busy_us, kern = profile_call(torch, lambda: res.setdefault(
+        "c", G.decode_slots(cfg, params, state, cache, gen, sparams, num_steps=K)))
+    if kern:
+        tokens = int(res["c"][1].sum())
+        print(f"(o) profiled dense decode chunk ({DENSE_FLEET['n_slots']} rows x {K} "
+              f"steps): wall_ms={wall_us / 1e3:.3f} device busy_ms={busy_us / 1e3:.3f} "
+              f"idle_share={1 - busy_us / wall_us:.4f} kernels={len(kern)} "
+              f"tokens={tokens} kernels_per_token={len(kern) / max(tokens, 1):.1f}")
+        for ms, count, kname in top_kernels(kern, 6):
+            print(f"    {ms:8.3f} ms {count:5d}x  {kname[:100]}")
+    else:
+        print("(o) profiled dense decode chunk: device busy share not measured")
+    return launches
+
+
+def phase_p(torch, engine, pa, fa, Q):
+    """The paged fleet of (g) with whole-prefill admission, on a 4-request
+    wave: chunked_prefill=False (the prompt lands in ragged launches,
+    22 ragged_paged_attend launches each) and ragged_prefill=False (a
+    bucketed scratch prefill, 22 flash_attend launches per T>1 chunk,
+    scattered into the blocks). Decode runs paged_flash_attend; every
+    block comes back. Returns the launches of both waves, summed."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    L = engine.cfg.n_layers
+    total = {}
+    for mode, flags, prefill_kernel in (
+            ("ragged whole-prefill", dict(chunked_prefill=False), "ragged_paged_attend"),
+            ("bucketed whole-prefill", dict(ragged_prefill=False), "flash_attend")):
+        # the same model, weights and kernels; only the admission differs
+        eng = create_engine(engine.cfg, params=engine.backend.params, device=DEVICE,
+                            engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS, **flags))
+        fleet = ContinuousEngine(eng, **FLEET)
+        server = InferenceServer(eng, host="127.0.0.1", port=0, max_tokens_cap=64,
+                                 continuous=fleet)
+        server.start()
+        try:
+            check(fleet.warmup()["ok"], f"{mode} warmup")
+            bodies = fleet_bodies(WHOLE_PREFILL_WAVE)
+            results, wave_s, launches, before, after = serve_wave(server, bodies, pa, fa, Q)
+            check_wave("(p)", results, WHOLE_PREFILL_WAVE)
+            chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+            prefill = sum(r["prefill_chunks"] for _, r, _ in results)
+            print(f"(p) {mode} ({json.dumps(flags)}): wave {wave_s:.3f} s, {prefill} "
+                  f"prefill launches, {chunks} decode chunks; kernel launches "
+                  f"{json.dumps(launches)}; free blocks {after['paged']['free_blocks']}")
+            check(after["launches"]["mixed"] == 0 and not after["scheduler"]["chunked_prefill"],
+                  f"{mode}: the fleet ran a mixed launch")
+            check(launches[prefill_kernel] == L * prefill > 0,
+                  f"{mode}: {prefill_kernel} launched {launches[prefill_kernel]} times "
+                  f"for {prefill} prefill launches of {L} layers")
+            check(launches["paged_flash_attend"] == L * FLEET["chunk_steps"] * chunks > 0,
+                  f"{mode}: paged_flash_attend launched {launches['paged_flash_attend']} "
+                  f"times for {chunks} decode chunks")
+            others = [k for k in launches
+                      if k not in (prefill_kernel, "paged_flash_attend")]
+            check(not any(launches[k] for k in others),
+                  f"{mode}: another kernel ran: {launches}")
+            check(after["paged"]["free_blocks"] == FLEET["kv_pool_blocks"] - 1,
+                  f"{mode}: pool blocks leaked")
+        finally:
+            server.shutdown()
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1186,6 +1533,16 @@ def main() -> int:
     phase_i_profile(torch, engine, P, G)
     print(f"(i) total {time.time() - t_start:.1f} s")
 
+    # (n) flash_attend_slots, driven directly and against its twin
+    slots_rows, slots_driven = phase_n(torch, timer, pa)
+
+    # (o) the dense fleet through the HTTP server
+    dense_launches = phase_o(torch, engine, pa, fa, Q, G, M)
+
+    # (p) the paged fleet's whole-prefill admissions
+    whole_launches = phase_p(torch, engine, pa, fa, Q)
+    print(f"(p) total {time.time() - t_start:.1f} s")
+
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)
     phase_b(torch, timer, fa, int8=True)
@@ -1248,6 +1605,9 @@ def main() -> int:
                    f"bf16 q, int8 pool + fp32 scales, B={FLEET['n_slots']} H={H} "
                    f"KV={KV} Dh={DH}, {BLOCK}-token blocks, positions {SPECIAL_POS} "
                    "and 3 drawn in [0, 1024)"),
+        slots_line(slots_rows, slots_driven,
+                   dense_launches["flash_attend_slots"]
+                   + whole_launches["flash_attend_slots"]),
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,30 @@
-"""Continuous (in-flight) batching over the block-paged KV pool: the
-mixed-launch core of the JAX package's engine/continuous.py in PyTorch.
+"""Continuous (in-flight) batching: the JAX package's engine/continuous.py
+in PyTorch, over the block-paged KV pool or the dense slot cache.
 
-A fixed fleet of `n_slots` slots decodes in lock-step over the block pool
-(engine/paged.py), and a queued request joins the moment a slot and pool
-blocks are free. Its prompt lands chunk by chunk: every scheduler step is
-ONE mixed launch (engine/paged.mixed_step_ragged) carrying a decode token
-for every active slot plus the prompt chunks that the token-budget
-scheduler (engine/scheduler.py) granted this step. The launch that carries
-an admission's last chunk samples its first token and arms its slot on
-the device. A step with no prompt pending falls back to a decode chunk
-(engine/paged.decode_slots_paged, `chunk_steps` tokens per slot).
+A fixed fleet of `n_slots` slots decodes in lock-step and a queued request
+joins the moment a slot (and, paged, pool blocks) is free. Three ways in,
+as in the JAX package:
+
+  * chunked (the paged fleet's default, `ragged_prefill` and
+    `chunked_prefill` True): every scheduler step is ONE mixed launch
+    (engine/paged.mixed_step_ragged) carrying a decode token for every
+    active slot plus the prompt chunks that the token-budget scheduler
+    (engine/scheduler.py) granted this step. The launch that carries an
+    admission's last chunk samples its first token and arms its slot on
+    the device. A step with no prompt pending falls back to a decode
+    chunk (engine/paged.decode_slots_paged, `chunk_steps` tokens per slot);
+  * whole-prefill (`chunked_prefill` or `ragged_prefill` False, and every
+    dense fleet): each iteration admits every queued request a free slot
+    can take, its prompt prefilled whole before the slot decodes —
+    ragged, straight into the pool (engine/paged.extend_ragged_paged /
+    prefill_ragged_paged); bucketed, on a batch-1 scratch cache spliced
+    into the slot (engine/paged.insert_slot_paged, or
+    engine/generate.insert_slot for the dense fleet) — then launches one
+    decode chunk. The wave's first tokens come back in one stacked copy;
+  * the dense fleet (no `kv_pool_blocks`): the cache is [L, n_slots, KV,
+    slot_max_seq, Dh] and decode chunks run engine/generate.decode_slots,
+    whose attention is the einsum over per-row positions (the JAX
+    package's decode gate).
 
 Lag pipelining: each launch's results are ONE packed int32 array, copied
 to pinned host memory with `non_blocking=True` behind a CUDA event; up to
@@ -22,13 +37,12 @@ Attribution discipline: each launch snapshots the slot -> request
 assignment, so emissions of a launch still in flight when a slot is
 freed and re-armed are never credited to the new tenant.
 
-Not ported in this slice (each raises NotImplementedError naming its
-ROADMAP.md item): speculation, the shadow / KV fabric, adapters,
-grammar constraints in the fleet (they go to the solo engine, as in the
-JAX package), preemption and the supervisor's restart / salvage, the
-whole-prefill admission and the block-prefix cache, and the dense
-(non-paged) fleet. A crash in the worker loop fails every request in
-flight with an error envelope and marks the engine not ready; it is not
+Not ported yet (each raises NotImplementedError naming its ROADMAP.md
+item): speculation, the shadow / KV fabric, adapters, grammar constraints
+in the fleet (they go to the solo engine, as in the JAX package),
+preemption and the supervisor's restart / salvage, the prefix caches, and
+gpt2's fleet. A crash in the worker loop fails every request in flight
+with an error envelope and marks the engine not ready; it is not
 restarted.
 """
 
@@ -113,27 +127,21 @@ class ContinuousEngine:
         if cfg.arch != "llama":
             raise _not_ported(f"the continuous fleet for arch {cfg.arch!r}",
                               FAMILIES)
-        if kv_pool_blocks is None:
-            raise _not_ported("the dense slot fleet (decode_slots)", "Dense fleet")
         backend = engine.backend
-        for flag, what in (("supports_slots", "slot decode"),
-                           ("supports_paged", "paged KV"),
-                           ("supports_ragged_fill", "ragged paged ingest"),
-                           ("supports_mixed_step", "the mixed launch")):
-            if not getattr(backend, flag, False):
-                raise ValueError(
-                    f"backend {backend.name!r} does not support {what}; the "
-                    f"fleet runs on the single-device llama backend"
-                )
+        if not getattr(backend, "supports_slots", False):
+            raise ValueError(
+                f"backend {backend.name!r} does not support slot decode; the "
+                f"fleet runs on the single-device llama backend"
+            )
+        self.paged = kv_pool_blocks is not None
+        if self.paged and not getattr(backend, "supports_paged", False):
+            raise ValueError(f"backend {backend.name!r} does not support paged "
+                             f"KV; drop kv_pool_blocks or use the dense fleet")
         if kv_shadow or restore_dir is not None:
             raise _not_ported("the KV shadow (engine/shadow.py)", "Shadow and fabric")
-        if ecfg.prefix_cache_entries > 0:
-            raise _not_ported("the fleet's block-prefix cache", "Block-prefix cache")
-        if not (ecfg.ragged_prefill and ecfg.chunked_prefill):
-            raise _not_ported(
-                "whole-prefill admission (ragged_prefill / chunked_prefill "
-                "False)", "Whole-prefill admission",
-            )
+        if ecfg.prefix_cache_entries > 0:  # paged: block chains; dense: snapshots
+            raise _not_ported("the fleet's prefix cache", "Block-prefix cache"
+                              if self.paged else "Solo-engine features")
         if ecfg.preempt_policy != "off":
             raise _not_ported(f"preempt_policy {ecfg.preempt_policy!r}",
                               "Preemption and the supervisor")
@@ -151,39 +159,65 @@ class ContinuousEngine:
         self.chunk_lag = max(1, int(chunk_lag))
         self.slot_max_seq = min(int(slot_max_seq or cfg.max_seq_len),
                                 cfg.max_seq_len)
-        self.kv_block_size = int(kv_block_size)
-        if self.kv_block_size < 1:
-            raise ValueError("kv_block_size must be >= 1")
-        self._max_blocks = -(-self.slot_max_seq // self.kv_block_size)
-        if int(kv_pool_blocks) - 1 < self._max_blocks:
+        # ragged paged ingest: the prompt lands straight in the pool, with
+        # no bucket ladder, so the bucket guard below does not apply
+        self._ragged = bool(self.paged and ecfg.ragged_prefill
+                            and getattr(backend, "supports_ragged_fill", False))
+        buckets = engine._buckets()
+        if not self._ragged and buckets and self.slot_max_seq < buckets[0]:
             raise ValueError(
-                f"kv_pool_blocks={kv_pool_blocks} cannot hold one full "
-                f"slot-class request ({self._max_blocks} blocks of "
-                f"{self.kv_block_size} + the trash block); raise it or "
-                f"shrink slot_max_seq"
+                f"slot_max_seq={self.slot_max_seq} is smaller than the "
+                f"smallest prefill bucket {buckets[0]}; raise it or shrink "
+                f"engine_cfg.prefill_buckets"
             )
-        self._pool_blocks = int(kv_pool_blocks)
-        self.cache = self.backend.init_paged_pool(self._pool_blocks,
-                                                  self.kv_block_size)
-        self._alloc = P.BlockAllocator(self._pool_blocks, registry=engine.metrics)
-        # host-side block tables; the device copy is re-uploaded on change
-        self._table = np.zeros((self.n_slots, self._max_blocks), np.int32)
-        self._table_dev = None
         self._ragged_tile = 8
-        self._ragged_width = -(-max(1, int(ecfg.ragged_width))
-                               // self._ragged_tile) * self._ragged_tile
+        if self.paged:
+            self.kv_block_size = int(kv_block_size)
+            if self.kv_block_size < 1:
+                raise ValueError("kv_block_size must be >= 1")
+            self._max_blocks = -(-self.slot_max_seq // self.kv_block_size)
+            # the scratch is a whole number of blocks: the insert scatter
+            # is an exact block reshape
+            self._scratch_seq = self._max_blocks * self.kv_block_size
+            if int(kv_pool_blocks) - 1 < self._max_blocks:
+                raise ValueError(
+                    f"kv_pool_blocks={kv_pool_blocks} cannot hold one full "
+                    f"slot-class request ({self._max_blocks} blocks of "
+                    f"{self.kv_block_size} + the trash block); raise it or "
+                    f"shrink slot_max_seq"
+                )
+            self._pool_blocks = int(kv_pool_blocks)
+            self.cache = self.backend.init_paged_pool(self._pool_blocks,
+                                                      self.kv_block_size)
+            self._alloc = P.BlockAllocator(self._pool_blocks,
+                                           registry=engine.metrics)
+            # host-side block tables; the device copy is re-uploaded on change
+            self._table = np.zeros((self.n_slots, self._max_blocks), np.int32)
+            self._table_dev = None
+            self._ragged_width = -(-max(1, int(ecfg.ragged_width))
+                                   // self._ragged_tile) * self._ragged_tile
+        else:
+            self._scratch_seq = self.slot_max_seq
+            self.cache = self.backend.init_cache(self.n_slots, self.slot_max_seq)
+        self._chunked = bool(self._ragged and ecfg.chunked_prefill
+                             and getattr(backend, "supports_mixed_step", False))
+        # the bucketed admissions' batch-1 prefill cache, written in place
+        # and spliced into the slot; the ragged ingest needs none
+        self._scratch = (None if self._ragged
+                         else self.backend.init_cache(1, self._scratch_seq))
         self._slo = parse_slo_classes(ecfg)
         self._sched = TokenBudgetScheduler(
             self._slo, ecfg.slo_default_class, int(ecfg.step_token_budget),
             self._ragged_tile, self.n_slots, registry=engine.metrics,
         )
         self._sched_width = self._sched.width
-        # pending PrefillJobs (arrival order), and slot -> job while its
-        # prompt lands
+        # chunked mode: pending PrefillJobs (arrival order), and slot -> job
+        # while its prompt lands
         self._jobs: list = []
         self._prefilling: dict = {}
-        self._idle_arm = P.idle_mixed_arm(self.n_slots, cfg.vocab_size,
-                                          device=self.device)
+        self._idle_arm = (P.idle_mixed_arm(self.n_slots, cfg.vocab_size,
+                                           device=self.device)
+                          if self._chunked else None)
         self.state, self.sparams = G.init_slots(self.n_slots, cfg.vocab_size,
                                                 device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(
@@ -195,6 +229,9 @@ class ContinuousEngine:
         self._closed = False  # guarded-by: _cv
         self._draining = False  # guarded-by: _cv
         self._dead = False
+        # the request a whole-prefill admission is serving right now: a
+        # crash there fails it with the rest
+        self._admitting: Optional[_Request] = None
         self.admitted = 0
         self.completed = 0
         self.peak_occupancy = 0
@@ -365,15 +402,17 @@ class ContinuousEngine:
         out["preemption"] = {"policy": "off"}
         out["supervisor"] = {"ready": self.ready, "draining": self._draining,
                              "dead": self._dead}
-        out["paged"] = {
-            "block_size": self.kv_block_size,
-            "pool_blocks": self._alloc.n_blocks,
-            "free_blocks": self._alloc.free_blocks,
-            "shared_blocks": self._alloc.shared_blocks,
-            "cached_blocks": 0,
-            "ragged_prefill": True,
-            "ragged_width": self._ragged_width,
-        }
+        if self.paged:
+            out["paged"] = {
+                "block_size": self.kv_block_size,
+                "pool_blocks": self._alloc.n_blocks,
+                "free_blocks": self._alloc.free_blocks,
+                "shared_blocks": self._alloc.shared_blocks,
+                "cached_blocks": 0,
+                "ragged_prefill": self._ragged,
+            }
+            if self._ragged:
+                out["paged"]["ragged_width"] = self._ragged_width
         out["slo"] = {
             "default": self._sched.default_name,
             "classes": {
@@ -388,12 +427,11 @@ class ContinuousEngine:
                 for name, c in self._slo.items()
             },
         }
-        out["scheduler"] = {
-            "chunked_prefill": True,
-            "step_width": self._sched_width,
-            "tile": self._ragged_tile,
-            "prefilling": len(self._jobs),
-        }
+        out["scheduler"] = {"chunked_prefill": self._chunked}
+        if self._chunked:
+            out["scheduler"].update(step_width=self._sched_width,
+                                    tile=self._ragged_tile,
+                                    prefilling=len(self._jobs))
         out["launches"] = {
             "mixed": self.mixed_launches,
             "mixed_with_decode_and_prefill": self.mixed_with_both,
@@ -450,6 +488,8 @@ class ContinuousEngine:
                 pending = self._queue[:]
                 self._queue.clear()
                 live = [r for r in self._assignment if r is not None]
+                if self._admitting is not None:
+                    live.append(self._admitting)
                 self._cv.notify_all()
             for req in pending + live:
                 if not req.done.is_set():
@@ -457,10 +497,12 @@ class ContinuousEngine:
                     self._push_final(req)
 
     def _sched_loop(self):
-        """Each iteration starts any queued requests a free slot and pool
-        blocks can take (as PrefillJobs, host work only), then launches ONE
-        step: a mixed launch while prompt chunks are pending, else a decode
-        chunk. Up to chunk_lag launches stay in flight."""
+        """Each iteration takes queued requests into free slots, then
+        launches ONE step. Chunked: start PrefillJobs (host work only),
+        then a mixed launch while prompt chunks are pending, else a decode
+        chunk. Whole-prefill: admit (prefill and arm) every request a free
+        slot can take, then a decode chunk. Up to chunk_lag launches stay
+        in flight."""
         inflight: collections.deque = collections.deque()
         while True:
             with self._cv:
@@ -469,9 +511,15 @@ class ContinuousEngine:
                     self._cv.wait()
                 if self._closed:
                     return
-            self._reap_jobs()
-            self._start_jobs()
-            step = self._launch_mixed() if self._jobs else self._launch_chunk()
+                queued = bool(self._queue)
+            if self._chunked:
+                self._reap_jobs()
+                self._start_jobs()
+                step = self._launch_mixed() if self._jobs else self._launch_chunk()
+            else:
+                if queued:
+                    self._admit()
+                step = self._launch_chunk()
             launched = step is not None
             if launched:
                 inflight.append(step)
@@ -533,23 +581,29 @@ class ContinuousEngine:
                     self._note_queue_locked()
                 return
 
+    def _expired_in_queue(self, req: _Request) -> bool:
+        """Fail a request whose deadline passed while it queued (before any
+        block grant or prefill); True when it did."""
+        req.trace.checkpoint("queue_wait")
+        if self._past_deadline(req):
+            req.result = self._deadline_env(req, where="while queued")
+        else:
+            deadline = self.engine.engine_cfg.request_deadline_s
+            if not (deadline and time.time() - req.enqueued > deadline):
+                return False
+            req.result = {"error": f"Error: request exceeded the {deadline:g}s "
+                          "deadline while queued", "status": "failed",
+                          "error_type": "timeout"}
+        self._push_final(req)
+        return True
+
     def _start_job(self, req: _Request, slot: int):
         """Plan one chunked admission: tokenize, clamp the budget,
         allocate pool blocks and queue the PrefillJob. Returns _BLOCKED
         when the pool cannot take it, None when the request failed fast,
         or the job."""
         eng, cfg = self.engine, self.cfg
-        req.trace.checkpoint("queue_wait")
-        if self._past_deadline(req):
-            req.result = self._deadline_env(req, where="while queued")
-            self._push_final(req)
-            return None
-        deadline = eng.engine_cfg.request_deadline_s
-        if deadline and time.time() - req.enqueued > deadline:
-            req.result = {"error": f"Error: request exceeded the {deadline:g}s "
-                          "deadline while queued", "status": "failed",
-                          "error_type": "timeout"}
-            self._push_final(req)
+        if self._expired_in_queue(req):
             return None
         k = req.kwargs
         text = eng.render_chat(req.prompt) if k.get("chat", True) else req.prompt
@@ -604,10 +658,16 @@ class ContinuousEngine:
         None when no slot is active."""
         if not any(r is not None for r in self._assignment):
             return None
-        emitted, mask, self.state, self.cache = self.backend.decode_slots_paged(
-            self.state, self.cache, self._table_device(), self._gen,
-            self.sparams, num_steps=self.chunk_steps,
-        )
+        if self.paged:
+            emitted, mask, self.state, self.cache = self.backend.decode_slots_paged(
+                self.state, self.cache, self._table_device(), self._gen,
+                self.sparams, num_steps=self.chunk_steps,
+            )
+        else:
+            emitted, mask, self.state, self.cache = self.backend.decode_slots(
+                self.state, self.cache, self._gen, self.sparams,
+                num_steps=self.chunk_steps,
+            )
         packed = G.pack_chunk(emitted, mask, self.state.active)
         self.chunk_launches += 1
         return ("chunk", self._to_host(packed), list(self._assignment),
@@ -733,22 +793,201 @@ class ContinuousEngine:
             req.first_id = int(firsts[slot])
             if not req.ttft:
                 req.ttft = now - req.t_start
-            req.trace.checkpoint("admission")
-            with self._cv:
-                self.admitted += 1
-                if req.record:
-                    self.engine.request_count += 1
-                occ = sum(r is not None for r in self._assignment)
-                self.peak_occupancy = max(self.peak_occupancy, occ)
-            self._m.occupied.set(occ)
-            if req.record:
-                self._m.admission_wait.observe(now - req.enqueued)
-            log.info("admitted", slot=slot, prompt_len=req.prompt_tokens,
-                     budget=req.budget, occupancy=occ, chunked=True,
-                     request_id=req.trace.request_id)
+            self._count_admission(req)
             self._post_admit(req)
         self._distribute(emitted[None, :], mask[None, :].astype(bool),
                          active.astype(bool), snapshot)
+
+    def _count_admission(self, req: _Request):
+        """Admission bookkeeping once req's prompt landed in its slot."""
+        req.trace.checkpoint("admission")
+        with self._cv:
+            self.admitted += 1
+            if req.record:
+                self.engine.request_count += 1
+            occ = sum(r is not None for r in self._assignment)
+            self.peak_occupancy = max(self.peak_occupancy, occ)
+        self._m.occupied.set(occ)
+        if req.record:
+            self._m.admission_wait.observe(time.time() - req.enqueued)
+        log.info("admitted", slot=req.slot, prompt_len=req.prompt_tokens,
+                 budget=req.budget, occupancy=occ, chunked=self._chunked,
+                 request_id=req.trace.request_id)
+
+    # -- whole-prefill admission ---------------------------------------------
+    def _admit(self):
+        """Prefill and arm every queued request a free slot (and, paged,
+        pool blocks) can take. The wave's first tokens come back in ONE
+        stacked copy at the end: the stop / budget decision already ran
+        on the device when each slot was armed."""
+        wave = []  # (req, first token [1] on the device)
+        while True:
+            with self._cv:
+                if not self._queue:
+                    break
+                free = [b for b, r in enumerate(self._assignment) if r is None]
+                if not free:
+                    break
+                head = self._queue[0]
+                if self.paged and head.need is not None \
+                        and head.need > self._alloc.free_blocks:
+                    break  # a sized head that still cannot get blocks waits
+                req = self._queue.pop(0)
+                self._note_queue_locked()
+            try:
+                self._admitting = req
+                first = self._admit_one(req, free[0])
+                self._admitting = None
+            except ValueError as e:
+                self._admitting = None
+                self._free_slot_resources(req)
+                log.warning("invalid_request", error=str(e))
+                req.result = {"error": f"Error: {e}", "status": "failed",
+                              "error_type": "invalid_request"}
+                self._push_final(req)
+                continue
+            if first is _BLOCKED:
+                # the pool cannot take it now: back to the front, and the
+                # fleet keeps decoding until a release frees blocks
+                with self._cv:
+                    self._queue.insert(0, req)
+                    self._note_queue_locked()
+                break
+            if first is not None:  # None: failed fast, its result is set
+                wave.append((req, first))
+        if not wave:
+            return
+        firsts = torch.cat([f.reshape(1) for _, f in wave]).tolist()
+        now = time.time()
+        for (req, _), first_id in zip(wave, firsts):
+            req.first_id = int(first_id)
+            if not req.ttft:
+                req.ttft = now - req.t_start
+            self._post_admit(req)
+
+    def _admit_one(self, req: _Request, slot: int):
+        """Prefill req's whole prompt and arm `slot` (the cold,
+        unconstrained, adapter-free admission of the JAX package).
+        Returns its first token ([1], on the device), None when it failed
+        fast (its result is set), or _BLOCKED when the pool cannot take
+        it now."""
+        eng, cfg = self.engine, self.cfg
+        if self._expired_in_queue(req):
+            return None
+        k = req.kwargs
+        text = eng.render_chat(req.prompt) if k.get("chat", True) else req.prompt
+        ids = eng.tokenizer.encode(text)
+        req.prompt_tokens = prompt_len = len(ids)
+        p0, entry, plan = eng._prefix_plan(None, ids, capacity=self.slot_max_seq,
+                                           ragged=self._ragged)
+        if plan is None:
+            raise ValueError(
+                f"prompt length {prompt_len} exceeds the slot capacity "
+                f"(slot_max_seq {self.slot_max_seq})"
+            )
+        max_tokens, _ = eng._clamp_decode(
+            prompt_len, int(k.get("max_tokens", 20)), capacity=self.slot_max_seq,
+        )
+        req.allowed = max_tokens
+        table_row = None
+        if self.paged:
+            need_total = P.blocks_needed(prompt_len, max_tokens, self.kv_block_size)
+            req.need = need_total
+            blk_ids = self._alloc.alloc(need_total)
+            if blk_ids is None:
+                return _BLOCKED
+            req.block_ids = blk_ids
+            table_row = np.zeros((self._max_blocks,), np.int32)
+            table_row[:need_total] = blk_ids  # the tail stays at the trash block
+        try:
+            sampling = G.default_sampling(
+                k.get("temperature", 0.7), k.get("top_k", 50),
+                k.get("top_p", 0.9), k.get("greedy", False),
+                k.get("min_p", 0.0), k.get("repetition_penalty", 1.0),
+                k.get("frequency_penalty", 0.0), k.get("presence_penalty", 0.0),
+            )
+            # the prompt's token set rides the first-token sample only when
+            # the repetition penalty is on (the solo prefill's program)
+            presence = (eng._presence_rows([ids]) if sampling.rep_penalty != 1.0
+                        else None)
+            if self._ragged:
+                first = self._ragged_ingest(ids, table_row, sampling, presence)
+                req.prefill_chunks = -(-prompt_len // self._ragged_width)
+            else:
+                # the scratch is written in place and spliced below: a
+                # failed ingest leaves it usable for the next admission
+                first, _, _ = eng._ingest_with_prefix(
+                    None, ids, p0, entry, plan, self._scratch, self._gen,
+                    sampling, presence=presence,
+                )
+                req.prefill_chunks = plan[0] + 1
+            req.budget = max_tokens - 1
+            presence_row = (presence[0] if presence is not None else
+                            torch.zeros((cfg.vocab_size,), dtype=torch.bool,
+                                        device=self.device))
+            arm = (first, prompt_len, max_tokens, *sampling, presence_row)
+            if self._ragged:  # the prompt's K/V is in its blocks already
+                self.state, self.sparams = self.backend.arm_slot_paged(
+                    self.state, self.sparams, slot, *arm)
+            elif self.paged:
+                (row_d,) = self._upload(table_row)
+                self.cache, self.state, self.sparams = self.backend.insert_slot_paged(
+                    self.cache, self._scratch, self.state, self.sparams, slot,
+                    row_d, *arm)
+            else:
+                self.cache, self.state, self.sparams = G.insert_slot(
+                    cfg, self.cache, self._scratch, self.state, self.sparams,
+                    slot, *arm)
+        except BaseException:
+            if req.block_ids is not None:
+                # the admission died after its block grant: give them back
+                self._alloc.decref(req.block_ids)
+                req.block_ids = None
+            raise
+        if self.paged:
+            self._table[slot] = table_row
+            self._table_dev = None  # re-uploaded at the next launch
+        req.ids = ids
+        req.slot = slot
+        with self._cv:
+            self._assignment[slot] = req
+        self._count_admission(req)
+        return first
+
+    def _ragged_launch_args(self, chunk_ids, start: int):
+        """One whole-prefill ragged launch's device operands (tokens,
+        tok_row, tok_pos, meta) for chunk_ids at `start` of table row 0,
+        counted into the dli_ragged_* families."""
+        W, tile = self._ragged_width, self._ragged_tile
+        meta, tok_row, tok_pos, _, stats = P.build_ragged_meta(
+            [(0, start, len(chunk_ids), P.RAGGED_PREFILL)], width=W, tile=tile)
+        toks = np.zeros((W,), np.int32)
+        toks[:len(chunk_ids)] = chunk_ids
+        self._m.ragged_rows.labels(kind="prefill").inc(stats["prefill_rows"])
+        self._m.ragged_tiles.labels(state="pad").inc(stats["pad_tiles"])
+        self._m.ragged_tiles.labels(state="live").inc(
+            stats["tiles"] - stats["pad_tiles"])
+        return self._upload(toks, tok_row, tok_pos, meta)
+
+    def _ragged_ingest(self, ids, table_row, sampling, presence):
+        """Prefill ids straight into the pool: whole-width extend launches
+        for the body, then ONE width-padded prefill launch that samples
+        the first token off the last prompt token, all over the one-row
+        table [1, MB] of this admission. Returns the first token [1]."""
+        be, W = self.backend, self._ragged_width
+        n_full = max(0, (len(ids) - 1) // W)  # leaves >= 1 sampling token
+        (table1,) = self._upload(table_row[None, :])
+        for c in range(n_full):
+            args = self._ragged_launch_args(ids[c * W:(c + 1) * W], c * W)
+            self.cache = be.extend_ragged_paged(*args, self.cache, table1)
+            self._m.ragged_launches.labels(phase="extend").inc()
+        rem = ids[n_full * W:]
+        args = self._ragged_launch_args(rem, n_full * W)
+        first, _, self.cache = be.prefill_ragged_paged(
+            *args, self.cache, table1, len(rem) - 1, self._gen, sampling,
+            presence=presence)
+        self._m.ragged_launches.labels(phase="prefill").inc()
+        return first
 
     def _post_admit(self, req: _Request):
         """A stop token first, or a zero budget, finishes the request at

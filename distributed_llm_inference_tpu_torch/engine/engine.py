@@ -86,12 +86,15 @@ class SingleDeviceBackend:
             max_steps=max_steps, with_logprobs=with_logprobs,
         )
 
-    # -- the continuous paged fleet (engine/paged.py) -----------------------
-    # The flags ContinuousEngine checks, as the JAX one does; the dense
-    # slot fleet (decode_slots) is not ported, so the fleet runs paged only.
+    # -- the continuous fleet (engine/continuous.py) --------------------------
+    # The flags ContinuousEngine checks, as the JAX one does.
     supports_slots = True
     supports_ragged_fill = True
     supports_mixed_step = True
+
+    def decode_slots(self, state, cache, generator, sparams, *, num_steps):
+        return G.decode_slots(self.cfg, self.params, state, cache, generator,
+                              sparams, num_steps=num_steps)
 
     @property
     def supports_paged(self) -> bool:
@@ -100,12 +103,34 @@ class SingleDeviceBackend:
     def init_paged_pool(self, n_blocks, block_size):
         return P.init_pool(self.cfg, n_blocks, block_size, device=self.device)
 
+    def insert_slot_paged(self, pool, scratch, state, sparams, slot, table_row,
+                          *arm):
+        return P.insert_slot_paged(self.cfg, pool, scratch, state, sparams, slot,
+                                   table_row, *arm)
+
     def decode_slots_paged(self, state, pool, table, generator, sparams, *,
                            num_steps, pages=None):
         return P.decode_slots_paged(
             self.cfg, self.params, state, pool, table, generator, sparams,
             num_steps=num_steps, pages=pages,
         )
+
+    def extend_ragged_paged(self, tokens, tok_row, tok_pos, meta, pool, table,
+                            pages=None):
+        return P.extend_ragged_paged(self.cfg, self.params, tokens, tok_row,
+                                     tok_pos, meta, pool, table, pages=pages)
+
+    def prefill_ragged_paged(self, tokens, tok_row, tok_pos, meta, pool, table,
+                             sample_at, generator, sampling, presence=None,
+                             bias=None, pages=None):
+        return P.prefill_ragged_paged(
+            self.cfg, self.params, tokens, tok_row, tok_pos, meta, pool, table,
+            sample_at, generator, sampling, presence=presence, bias=bias,
+            pages=pages,
+        )
+
+    def arm_slot_paged(self, state, sparams, slot, *arm):
+        return P.arm_slot_only(self.cfg, state, sparams, slot, *arm)
 
     def mixed_step_ragged(self, tokens, tok_row, tok_pos, dec_flag, meta,
                           pool, table, state, sparams, generator, dec_idx, arm,
@@ -447,43 +472,72 @@ class InferenceEngine:
         )
         return result
 
-    def _plan_ingest(self, prompt_len: int, buckets: tuple):
-        """Plan feeding a prompt into the cache: (n_full, rem, bucket,
-        chunk) — n_full full-`chunk` extend() calls, then a final
-        `bucket`-padded sampling chunk of `rem` valid tokens — or None
-        when no plan fits the cache (the final chunk's pads also write
-        K/V, so its end must stay inside max_seq_len)."""
-        cap = self.cfg.max_seq_len
+    def _plan_ingest(self, prompt_len: int, p0: int, buckets: tuple,
+                     capacity: Optional[int] = None):
+        """Plan feeding ids[p0:] into the cache at offset p0: (n_full,
+        rem, bucket, chunk) — n_full full-`chunk` extend() calls, then a
+        final `bucket`-padded sampling chunk of `rem` valid tokens — or
+        None when no plan fits the capacity (default max_seq_len; the
+        continuous fleet plans against its per-slot budget). The final
+        chunk's pads also write K/V, so its end must stay inside it."""
+        cap = capacity if capacity is not None else self.cfg.max_seq_len
         if not buckets or prompt_len > cap - 2:
             return None
+        tail = prompt_len - p0
         chunk = buckets[-1]
-        n_full = max(0, (prompt_len - 1) // chunk)  # leaves >= 1 sampling token
-        rem = prompt_len - n_full * chunk
-        fitting = [b for b in buckets if b >= rem and n_full * chunk + b <= cap]
+        n_full = max(0, (tail - 1) // chunk)  # leaves >= 1 sampling token
+        rem = tail - n_full * chunk
+        fitting = [b for b in buckets if b >= rem and p0 + n_full * chunk + b <= cap]
         if not fitting:
             return None
         return n_full, rem, fitting[0], chunk
 
+    def _prefix_plan(self, prefix, ids: list, capacity: Optional[int] = None,
+                     ragged: bool = False):
+        """(p0, entry, plan) for an admission (the JAX engine's shared
+        planner), on the cold path only: prefix None, so p0 = 0 and entry
+        None. ragged=True (the paged fleet's ragged ingest) has no bucket
+        ladder: any prompt of 1 .. capacity - 2 tokens is served and plan
+        is ("ragged", prompt_len); plan None means the prompt does not fit."""
+        if prefix is not None:
+            raise not_ported("the prefix KV cache (prefix_cache_entries > 0)")
+        prompt_len = len(ids)
+        if ragged:
+            cap = capacity if capacity is not None else self.cfg.max_seq_len
+            ok = 1 <= prompt_len <= cap - 2
+            return 0, None, ("ragged", prompt_len) if ok else None
+        return 0, None, self._plan_ingest(prompt_len, 0, self._buckets(), capacity)
+
     def _tokens(self, rows: list) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.long, device=self.device)
 
-    def _ingest(self, ids, plan, cache, generator, sampling, presence=None,
+    def _ingest(self, ids, p0, plan, cache, generator, sampling, presence=None,
                 bias=None):
-        """Feed ids into `cache` per a `_plan_ingest` plan: n_full extend()
-        calls, then the final bucket-padded sampling chunk. Returns
-        (first, logits, cache)."""
+        """Feed ids[p0:] into `cache` per a `_plan_ingest` plan: n_full
+        extend() calls, then the final bucket-padded sampling chunk
+        (prefill at offset 0, prefill_at otherwise). Returns (first,
+        logits, cache)."""
         be = self.backend
         n_full, rem, bucket, chunk = plan
         for c in range(n_full):
-            cache = be.extend(self._tokens([ids[c * chunk:(c + 1) * chunk]]),
-                              c * chunk, cache)
-        tail_start = n_full * chunk
+            start = p0 + c * chunk
+            cache = be.extend(self._tokens([ids[start:start + chunk]]), start, cache)
+        tail_start = p0 + n_full * chunk
         tokens = self._tokens([ids[tail_start:] + [self.cfg.pad_token_id] * (bucket - rem)])
         if tail_start == 0:
             return be.prefill(tokens, len(ids), cache, generator, sampling,
                               presence=presence, bias=bias)
         return be.prefill_at(tokens, tail_start, rem, cache, generator,
                              sampling, presence=presence, bias=bias)
+
+    def _ingest_with_prefix(self, prefix, ids, p0, entry, plan, cache,
+                            generator, sampling, presence=None, bias=None):
+        """The JAX engine's splice / ingest / store sequence, on the cold
+        path only (prefix None: nothing to splice or store)."""
+        if prefix is not None or entry is not None:
+            raise not_ported("the prefix KV cache (prefix_cache_entries > 0)")
+        return self._ingest(ids, p0, plan, cache, generator, sampling,
+                            presence=presence, bias=bias)
 
     def render_chat(self, prompt_or_messages) -> str:
         """Chat-format a prompt string or an OpenAI-style message list
@@ -598,7 +652,7 @@ class InferenceEngine:
         buckets = self._buckets()
         if self._cache is None:
             self._cache = self.backend.init_cache(1, cfg.max_seq_len)
-        plan = self._plan_ingest(prompt_len, buckets)
+        plan = self._plan_ingest(prompt_len, 0, buckets)
         if plan is None:
             if prompt_len > cfg.max_seq_len - 2:
                 raise ValueError(
@@ -629,7 +683,7 @@ class InferenceEngine:
 
         cache = self._cache
         first, logits, cache = self._ingest(
-            ids, plan, cache, generator, sampling, presence=presence, bias=bias
+            ids, 0, plan, cache, generator, sampling, presence=presence, bias=bias
         )
         first_id = int(first[0])  # waits for the device: TTFT
         ttft = time.time() - t_start

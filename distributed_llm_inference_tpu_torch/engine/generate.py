@@ -1,5 +1,6 @@
-"""Single-device decode: prefill, chunked extend and the early-exit decode
-loop (the solo half of the JAX package's engine/generate.py in PyTorch).
+"""Single-device decode: prefill, chunked extend, the early-exit decode
+loop and the dense slot fleet's decode (the JAX package's
+engine/generate.py in PyTorch).
 
   * **prefill** runs the (bucket-padded) prompt chunk and samples the
     first token from the logits at the last valid position;
@@ -8,7 +9,11 @@ loop (the solo half of the JAX package's engine/generate.py in PyTorch).
   * **decode** is a Python loop of T=1 steps that exits as soon as every
     row is finished, with the JAX loop's output contract: tokens
     [B, max_steps] pad-masked after a stop token (the stop token itself
-    excluded), n_gen [B] counting the tokens this loop emitted.
+    excluded), n_gen [B] counting the tokens this loop emitted;
+  * **decode_slots** advances the dense slot fleet (continuous batching
+    without a block pool) `num_steps` tokens, each row at its own
+    position, and **insert_slot** splices a prefilled batch-1 scratch
+    row into a free slot and arms it.
 
 The cache is updated in place; each function returns it for symmetry
 with the JAX API. Random draws come from one `torch.Generator` per
@@ -23,6 +28,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models import api as M
+from ..ops.kv_quant import KVQuant
 from ..ops.sampling import sample_token
 
 
@@ -278,36 +284,76 @@ def slot_step(cfg: ModelConfig, state: SlotState, sparams: SlotParams,
 
 
 def arm_slot(cfg, state: SlotState, sparams: SlotParams, slot: int,
-             first_token: int, prompt_len: int, max_tokens: int, temperature,
+             first_token, prompt_len: int, max_tokens: int, temperature,
              top_k, top_p, greedy, min_p, rep_penalty, freq_penalty,
              pres_penalty, presence_row):
     """Arm slot row `slot` after its prompt K/V landed (the JAX package's
     arm_slot): budget max_tokens - 1, or 0 when the first token is a stop
     token; presence = the prompt's set (presence_row [V] bool) + the first
-    token; counts = the first token. Returns new (state, sparams)."""
-    first = int(first_token)
-    budget = 0 if first in cfg.all_stop_ids else max(int(max_tokens) - 1, 0)
+    token; counts = the first token. first_token is an int or a device
+    tensor of one element (a prefill's sample): the stop decision is made
+    on the device, so arming never reads it back. Returns new (state,
+    sparams)."""
+    device = state.token.device
+    first = torch.as_tensor(first_token, device=device).reshape(()).to(torch.int32)
+    budget = torch.where(stop_mask(cfg, first), 0,
+                         max(int(max_tokens) - 1, 0)).to(torch.int32)
 
     def put(t, value):
         t = t.clone()
         t[slot] = value
         return t
 
-    presence_row = presence_row.to(state.presence.device).clone()
-    presence_row[first] = True
-    counts_row = torch.zeros_like(state.counts[0])
-    counts_row[first] = 1
+    onehot = torch.arange(state.presence.shape[-1], device=device) == first
     state = SlotState(
         token=put(state.token, first), pos=put(state.pos, int(prompt_len)),
         active=put(state.active, budget > 0),
         remaining=put(state.remaining, budget),
-        presence=put(state.presence, presence_row),
-        counts=put(state.counts, counts_row),
+        presence=put(state.presence, presence_row.to(device) | onehot),
+        counts=put(state.counts, onehot.to(torch.int32)),
     )
     knobs = (temperature, top_k, top_p, greedy, min_p, rep_penalty,
              freq_penalty, pres_penalty)
     sparams = SlotParams(*(put(t, v) for t, v in zip(sparams, knobs)))
     return state, sparams
+
+
+@torch.no_grad()
+def decode_slots(cfg: ModelConfig, params, state: SlotState, cache, generator,
+                 sparams: SlotParams, *, num_steps: int):
+    """Advance every slot of the dense fleet cache num_steps tokens (the
+    JAX scan becomes a Python loop with no host read). Inactive rows ride
+    along: they forward their pad token and write K/V at their frozen pos,
+    garbage confined to their own cache row and never attended. Returns
+    (emitted [num_steps, B] int32, emit_mask [num_steps, B] bool, state,
+    cache)."""
+    emitted, masks = [], []
+    for _ in range(num_steps):
+        logits, cache = _forward_step(cfg, params, state.token[:, None], cache,
+                                      state.pos)
+        state, emit, can_emit = slot_step(cfg, state, sparams, logits, generator)
+        emitted.append(emit)
+        masks.append(can_emit)
+    return torch.stack(emitted), torch.stack(masks), state, cache
+
+
+@torch.no_grad()
+def insert_slot(cfg: ModelConfig, cache, scratch, state: SlotState,
+                sparams: SlotParams, slot: int, *arm):
+    """Splice a freshly prefilled batch-1 scratch cache (same max_seq as
+    the fleet cache) into fleet row `slot` in place, the whole row (stale
+    high positions are never attended), then arm its state (arm_slot's
+    arguments after `slot`). An int8 cache splices data and scales.
+    Returns (cache, state, sparams)."""
+    for name in ("k", "v"):
+        big, small = cache[name], scratch[name]
+        if isinstance(big, KVQuant):
+            big.q[:, slot].copy_(small.q[:, 0])
+            big.s[:, slot].copy_(small.s[:, 0])
+        else:
+            big[:, slot].copy_(small[:, 0])
+    state, sparams = arm_slot(cfg, state, sparams, slot, *arm)
+    return cache, state, sparams
 
 
 def kill_slot(state: SlotState, slot: int) -> SlotState:

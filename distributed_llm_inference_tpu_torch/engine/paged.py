@@ -39,11 +39,17 @@ K/V is quantized on write (data and scale scattered into its block), and
 the kernels dequantize in their prologues; the plain path gathers, then
 dequantizes.
 
-Not ported in this slice (each raises, naming its ROADMAP.md item): the
+Whole-prefill admission (the fleet with `chunked_prefill` or
+`ragged_prefill` False) lands a prompt before its slot decodes: ragged,
+through `extend_ragged_paged` / `prefill_ragged_paged` (whole-width
+launches of the prompt alone over a one-row table), or bucketed, on a
+contiguous batch-1 scratch cache that `insert_slot_paged` scatters into
+the slot's blocks.
+
+Not ported yet (each raises, naming its ROADMAP.md item): the
 speculation operands of the mixed step (`spec`, `spec_toks`), adapter
-pages (`pages`), the bucketed scratch admission
-(`insert_slot_paged`, `extend_ragged_paged`, `prefill_ragged_paged`) and
-the shadow gathers.
+pages (`pages`), and the block-prefix gathers (`gather_scratch_blocks`)
+and shadow gathers.
 """
 
 from __future__ import annotations
@@ -352,6 +358,83 @@ def make_ragged_fill_hook(table, meta, tok_row):
     return hook
 
 
+def _ragged_forward(cfg, params, tokens, tok_row, tok_pos, meta, pool, table):
+    """One ragged launch of the flat tokens [W] through the stack."""
+    x = M.embed(cfg, params, tokens[:, None].long(), tok_pos)
+    return M.forward_layers(
+        cfg, params["layers"], x, pool, tok_pos,
+        attn_hook=make_ragged_fill_hook(table, meta, tok_row), attn_seq_len=1,
+    )
+
+
+@torch.no_grad()
+def extend_ragged_paged(cfg: ModelConfig, params, tokens, tok_row, tok_pos,
+                        meta, pool, table, pages=None):
+    """One full ragged launch with no sampling (the chunked extend() over
+    the pool): tokens / tok_row / tok_pos [W], meta [G, 4] from
+    build_ragged_meta, table [R, MB]. The pool is written in place and
+    returned."""
+    if pages is not None:
+        raise _not_ported("adapter pages on the paged fleet", ADAPTERS)
+    _, pool = _ragged_forward(cfg, params, tokens, tok_row, tok_pos, meta,
+                              pool, table)
+    return pool
+
+
+@torch.no_grad()
+def prefill_ragged_paged(cfg: ModelConfig, params, tokens, tok_row, tok_pos,
+                         meta, pool, table, sample_at: int, generator,
+                         sampling, presence=None, bias=None, pages=None):
+    """The final ragged launch of a whole-prefill admission: run the tail
+    chunk, unembed flat position `sample_at` (its last valid token) and
+    sample the first token. Returns (first [1], logits [1, V], pool), the
+    generate.prefill contract."""
+    if pages is not None:
+        raise _not_ported("adapter pages on the paged fleet", ADAPTERS)
+    x, pool = _ragged_forward(cfg, params, tokens, tok_row, tok_pos, meta,
+                              pool, table)
+    logits = M.unembed(cfg, params, x[sample_at:sample_at + 1])[:, 0, :]
+    first = sample_token(generator, logits, *sampling, presence=presence,
+                         bias=bias)
+    return first, logits, pool
+
+
+def scatter_scratch(pool, scratch, table_row):
+    """Scatter a contiguous batch-1 scratch cache ([L, 1, KV, S, Dh], S a
+    whole number of blocks; an int8 cache's scales [L, 1, KV, S]) into
+    `table_row`'s pool blocks ([MB] int32 tensor), in place. Tail entries
+    pointing at the trash block collide there, write-only garbage."""
+    idx = table_row.long()
+
+    def scatter(pl, sc):
+        L, _, KV, S = sc.shape[:4]
+        bs = pl.shape[3]
+        blocks = sc[:, 0].reshape(L, KV, S // bs, bs, *sc.shape[4:])
+        pl[:, idx] = blocks.transpose(1, 2)
+
+    for name in ("k", "v"):
+        pl, sc = pool[name], scratch[name]
+        if isinstance(pl, KVQuant):
+            scatter(pl.q, sc.q)
+            scatter(pl.s, sc.s)
+        else:
+            scatter(pl, sc)
+    return pool
+
+
+@torch.no_grad()
+def insert_slot_paged(cfg: ModelConfig, pool, scratch, state: G.SlotState,
+                      sparams: G.SlotParams, slot: int, table_row, *arm):
+    """Scatter a freshly prefilled contiguous scratch cache (batch 1,
+    max_blocks * bs positions) into the slot's pool blocks (table_row [MB]
+    int32; the whole row, stale high blocks are never attended) and arm
+    its state (generate.arm_slot's arguments after `slot`). Returns
+    (pool, state, sparams)."""
+    pool = scatter_scratch(pool, scratch, table_row)
+    state, sparams = G.arm_slot(cfg, state, sparams, int(slot), *arm)
+    return pool, state, sparams
+
+
 def arm_slot_only(cfg: ModelConfig, state: G.SlotState,
                   sparams: G.SlotParams, slot: int, *arm):
     """Arm a slot with no cache movement (its prompt K/V is already in
@@ -483,11 +566,7 @@ def mixed_step_ragged(cfg: ModelConfig, params, tokens, tok_row, tok_pos,
     rows_ix = tok_row.clamp(min=0).long()
     toks = torch.where(dec_flag, state.token[rows_ix], tokens)
     pos = torch.where(dec_flag, state.pos[rows_ix], tok_pos)
-    x = M.embed(cfg, params, toks[:, None].long(), pos)
-    x, pool = M.forward_layers(
-        cfg, params["layers"], x, pool, pos,
-        attn_hook=make_ragged_fill_hook(table, meta, tok_row), attn_seq_len=1,
-    )
+    x, pool = _ragged_forward(cfg, params, toks, tok_row, pos, meta, pool, table)
     logits = M.unembed(cfg, params, x[dec_idx.long()])[:, 0, :]  # [B, V]
     pf_logits = M.unembed(cfg, params, x[arm.idx.long()])[:, 0, :]
     packed, state, sparams = mixed_epilogue(

@@ -8,7 +8,9 @@ side) and returns the same nested dictionary of torch tensors on
 run the same weights. Quantized leaves of the JAX tree (its QTensor,
 Q4Tensor and KVQuant, recognised by their q / s / g fields, as this
 package imports nothing of the JAX one) become the port's classes with q
-kept int8 and s fp32. `init_params` draws random weights on the card.
+kept int8 and s fp32. `cache_from_numpy` and `slots_from_numpy` carry a
+KV cache (dense or block pool, raw or int8) and the fleet's slot state
+over the same way. `init_params` draws random weights on the card.
 """
 
 from __future__ import annotations
@@ -59,12 +61,13 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device,
     return {k: convert(k, v) for k, v in tree.items()}
 
 
-def pool_from_numpy(cfg: ModelConfig, pool: dict, device,
-                    dtype: Optional[torch.dtype] = None) -> dict:
-    """The JAX package's block pool ({"k", "v"} leaves [L, N, KV, bs, Dh]
-    as numpy arrays, or KVQuant leaves of numpy int8 data and fp32
-    scales) as torch tensors of `dtype` (default cfg's) or KVQuant leaves
-    on `device`, so a test can start both packages from the same pool."""
+def cache_from_numpy(cfg: ModelConfig, cache: dict, device,
+                     dtype: Optional[torch.dtype] = None) -> dict:
+    """The JAX package's KV cache ({"k", "v"} leaves as numpy arrays, or
+    KVQuant leaves of numpy int8 data and fp32 scales) as torch tensors of
+    `dtype` (default cfg's) or KVQuant leaves on `device`, so a test can
+    start both packages from the same cache: the dense fleet's [L, B, KV,
+    S, Dh] cache or the block pool [L, N, KV, bs, Dh] alike."""
     dtype = dtype or cfg.torch_dtype
 
     def convert(leaf):
@@ -74,7 +77,7 @@ def pool_from_numpy(cfg: ModelConfig, pool: dict, device,
         return torch.from_numpy(np.array(leaf, dtype=np.float32)).to(
             device=device, dtype=dtype)
 
-    return {name: convert(leaf) for name, leaf in pool.items()}
+    return {name: convert(leaf) for name, leaf in cache.items()}
 
 
 def slots_from_numpy(state, sparams, device):

@@ -1,11 +1,12 @@
-"""Attention over the block-paged KV pool: the two CUDA kernels' wrappers
-and their plain PyTorch twins.
+"""Attention over the block-paged KV pool and the dense slot cache: the
+three CUDA kernels' wrappers and their plain PyTorch twins.
 
-`ragged_paged_attend` and `paged_flash_attend` are the ports of the JAX
-package's ops/paged_attention.py functions of the same names, whose Pallas
-bodies `_ragged_kernel` and `_paged_kernel` become one hand-written Hopper
-kernel with two entry points in csrc/paged_attention.cu (the source note
-there says what bounds it and what its design does about it). The pool
+`ragged_paged_attend`, `paged_flash_attend` and `flash_attend_slots` are
+the ports of the JAX package's ops/paged_attention.py functions of the
+same names, whose Pallas bodies `_ragged_kernel`, `_paged_kernel` and
+`_slots_kernel` become one hand-written Hopper kernel with three entry
+points in csrc/paged_attention.cu (the source note there says what bounds
+it and what its design does about it). The pool
 keeps the JAX layout, one layer's slice [N, KV, bs, Dh]: key position p of
 a table row lives in physical block table[row, p // bs] at slot p % bs.
 
@@ -20,12 +21,21 @@ a table row lives in physical block table[row, p // bs] at slot p % bs.
   * paged_flash_attend(q [B, 1, H, Dh], pool_k, pool_v, table [B, MB],
     pos [B] int32, window_dyn=None, *, window, scale, softcap): T=1
     decode, one query per row at pos[b].
+  * flash_attend_slots(q [B, 1, H, Dh], cache_k, cache_v [B, KV, S, Dh],
+    pos [B] int32, *, block_k=0, window=None): T=1 decode over the dense
+    slot-fleet cache, row b at pos[b] over its own cache row; keys at
+    positions < S only (a finished slot frozen at pos >= S attends all
+    S). scale is Dh**-0.5 and there is no softcap, as in the JAX kernel;
+    raw caches only (the JAX kernel has no int8 variant). block_k is the
+    JAX kernel's DMA tile and does not change the result. The serving
+    hook never selects it (the dense fleet decodes through the einsum, as
+    the JAX package's models/llama.default_attn_hook does).
 
-Both attend keys at positions <= the query's own, and with a window
-(static `window`, or the one-element int32 device tensor `window_dyn`,
-<= 0 = full causal) only those > q_pos - window; scale defaults to
-Dh**-0.5 and softcap caps the scores before the mask. Returns q's shape
-and dtype.
+All three attend keys at positions <= the query's own, and with a window
+(static `window`, or for the paged two the one-element int32 device
+tensor `window_dyn`, <= 0 = full causal) only those > q_pos - window;
+scale defaults to Dh**-0.5 and softcap caps the scores before the mask.
+Returns q's shape and dtype.
 
 The pools may be int8 (ops/kv_quant.KVQuant leaves: q [N, KV, bs, Dh]
 int8 and fp32 scales s [N, KV, bs]); the kernel dequantizes each staged
@@ -54,6 +64,7 @@ from .flash_attention import (
     kv_operands,
     resolve_kernel,
 )
+from .kv_quant import KVQuant
 
 RAGGED_PREFILL = 0  # meta `kind`: a prompt-chunk row (length >= 1)
 RAGGED_DECODE = 1  # meta `kind`: a single-token decode row
@@ -71,6 +82,10 @@ SIGNATURES = {
     "dli_paged_flash_attend": [
         _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
         _i32, _vp, _vp, _i32, _vp, _f32, _f32, _vp,
+    ],
+    "dli_flash_attend_slots": [
+        _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _i32, _f32,
+        _vp,
     ],
 }
 
@@ -239,6 +254,71 @@ def paged_flash_attend(q, pool_k, pool_v, table, pos, window_dyn=None, *,
 
 paged_flash_attend.launches = 0
 paged_flash_attend.launches_int8 = 0
+
+
+def _slots_window(window):
+    if window is not None and int(window) <= 0:
+        raise ValueError(f"flash_attend_slots: window must be None or > 0, got {window}")
+    return None if window is None else int(window)
+
+
+def flash_attend_slots_plain(q, cache_k, cache_v, pos, *, block_k=0, window=None):
+    """The slots kernel's twin (same signature): ops/attention.attend over
+    the dense cache with slot_causal_mask(pos, 1, S, window), the function
+    the JAX package's tests hold its kernel to. They differ only for a row
+    with no live key (pos < 0, or a window that ends before S): the
+    kernels give zeros, attend the mean of V; the fleet never has one."""
+    from .attention import attend, slot_causal_mask
+
+    del block_k  # the JAX kernel's DMA tile; the function does not depend on it
+    S = cache_k.shape[2]
+    mask = slot_causal_mask(pos.to(torch.int32), 1, S, _slots_window(window))
+    return attend(q, cache_k, cache_v, mask, scale=q.shape[-1] ** -0.5)
+
+
+def flash_attend_slots(q, cache_k, cache_v, pos, *, block_k=0, window=None):
+    """T=1 decode attention over the dense slot-fleet cache, one position
+    per row; see the module docstring. Counts its kernel launches in
+    `flash_attend_slots.launches`."""
+    window = _slots_window(window)
+    if not resolve_kernel(q.device):
+        return flash_attend_slots_plain(q, cache_k, cache_v, pos,
+                                        block_k=block_k, window=window)
+    if q.dim() != 4 or q.shape[1] != 1 or cache_k.ndim != 4 \
+            or cache_v.shape != cache_k.shape:
+        raise ValueError(
+            f"flash_attend_slots wants q [B,1,H,Dh] and caches [B,KV,S,Dh]; got "
+            f"{tuple(q.shape)}, {tuple(cache_k.shape)}, {tuple(cache_v.shape)}"
+        )
+    B, _, H, Dh = q.shape
+    _, KV, S, cDh = cache_k.shape
+    if cache_k.shape[0] != B or cDh != Dh or H % KV != 0 or Dh > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attend_slots shape mismatch: q {tuple(q.shape)} "
+                         f"vs cache {tuple(cache_k.shape)} (Dh <= {MAX_HEAD_DIM})")
+    if isinstance(cache_k, KVQuant) or isinstance(cache_v, KVQuant):
+        raise TypeError("flash_attend_slots takes a raw cache (the JAX kernel "
+                        "has no int8 variant)")
+    check_cache_leaves("flash_attend_slots", q, cache_k, cache_v)
+    if pos.device != q.device or pos.dtype != torch.int32 \
+            or pos.numel() != B or not pos.is_contiguous():
+        raise ValueError(f"flash_attend_slots: pos must be a contiguous int32 "
+                         f"tensor of {B} element(s) on {q.device}")
+    out = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dli_flash_attend_slots(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, H, KV, S, Dh, pos.data_ptr(),
+            window if window is not None else -1, float(Dh ** -0.5), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attend_slots kernel launch failed: CUDA error {rc}")
+    flash_attend_slots.launches += 1
+    return out
+
+
+flash_attend_slots.launches = 0
 
 
 def _check(name, q, pool_k, pool_v, table, window_dyn, int_operands):

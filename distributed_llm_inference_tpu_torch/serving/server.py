@@ -5,9 +5,10 @@ Routes: `POST /generate` (one "prompt", or a "prompts" list served as one
 left-padded batch), `GET /health`, `GET /ready`, `GET /stats` and
 `GET /metrics`, on the stdlib ThreadingHTTPServer. For the same request
 the envelope keys and the error codes (400, 499, 503, 504, ...) are the
-JAX server's. With `--continuous N --kv-pool-blocks M` single-prompt
-`/generate` requests go to the continuous paged fleet
-(engine/continuous.py) and `/stats` nests its stats under "continuous".
+JAX server's. With `--continuous N` single-prompt `/generate` requests
+go to the continuous fleet (engine/continuous.py): over the block-paged
+KV pool with `--kv-pool-blocks M`, else over the dense slot cache; `/stats`
+nests its stats under "continuous".
 The queue, the OpenAI routes and the KV fabric arrive with later slices.
 
     python -m distributed_llm_inference_tpu_torch.serving.server \\
@@ -20,6 +21,9 @@ The queue, the OpenAI routes and the KV fabric arrive with later slices.
         --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
         --quant int4 --kv-quant int8 --continuous 8 --kv-pool-blocks 513 \\
         --kv-block-size 16 --continuous-max-seq 1024
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
+        --continuous 8 --continuous-max-seq 1024
 """
 
 from __future__ import annotations
@@ -327,7 +331,8 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 self._send(400, {
                     "error": "streaming requires --continuous and a single 'prompt'"
                     if continuous is None else
-                    "streaming from the continuous fleet is not ported yet",
+                    "streaming from the continuous fleet is not ported yet "
+                    "(ROADMAP.md \"Solo-engine features\")",
                 })
                 return None
             if prompts is not None:
@@ -491,9 +496,10 @@ def main(argv: Optional[list] = None):
     ap.add_argument(
         "--continuous", type=int, default=0, metavar="SLOTS",
         help="continuous (in-flight) batching: a fleet of SLOTS slots "
-             "decodes in lock-step over the block-paged KV pool and new "
-             "requests join free slots mid-flight (needs --kv-pool-blocks; "
-             "0 = disabled)",
+             "decodes in lock-step and new requests join free slots "
+             "mid-flight, over the block-paged KV pool with "
+             "--kv-pool-blocks, else over a dense SLOTS x "
+             "--continuous-max-seq cache (0 = disabled)",
     )
     ap.add_argument(
         "--continuous-chunk", type=int, default=16,
@@ -520,11 +526,6 @@ def main(argv: Optional[list] = None):
     args = ap.parse_args(argv)
     if args.kv_pool_blocks is not None and args.continuous <= 0:
         raise SystemExit("--kv-pool-blocks requires --continuous")
-    if args.continuous > 0 and args.kv_pool_blocks is None:
-        raise SystemExit(
-            "--continuous without --kv-pool-blocks is the dense slot fleet, "
-            "not ported yet (ROADMAP.md \"Dense fleet\")"
-        )
 
     tokenizer = None
     if args.tokenizer:

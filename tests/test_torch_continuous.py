@@ -6,7 +6,9 @@ tests/test_scheduler.py (chunked prefill, no prefix cache, 4 slots, a
 120-block pool of 16-token blocks, a 64-token step budget), serve the
 same five prompts from threads, a 301-token one among them: the greedy
 tokens must be identical, and every pool block comes back. The port's
-HTTP server serves the fleet with `--continuous` on the CPU."""
+HTTP server serves the fleet with `--continuous` on the CPU. (The dense
+fleet and whole-prefill admission: tests/test_torch_dense_fleet.py and
+tests/test_torch_whole_prefill.py.)"""
 
 import json
 import socket
@@ -135,8 +137,12 @@ def test_fleet_answers_like_jax_for_edge_requests(fleets):
     assert b["response"] == " ".join(ids).split(f" {ids[3]} ")[0]
     free = port_fleet.stats()["paged"]["free_blocks"]
     assert free == FLEET["kv_pool_blocks"] - 1
-    with pytest.raises(NotImplementedError, match="Dense fleet"):
-        ContinuousEngine(port_fleet.engine, n_slots=2)
+    # no pool: the dense slot fleet over the same engine, no paged block
+    dense = ContinuousEngine(port_fleet.engine, n_slots=2)
+    try:
+        assert "paged" not in dense.stats() and dense.cache["k"].shape[1] == 2
+    finally:
+        dense.close()
     with pytest.raises(NotImplementedError, match="Preemption and the supervisor"):
         ContinuousEngine(create_engine(
             MODEL, device="cpu", engine_cfg=EngineConfig(preempt_policy="swap")),
@@ -192,8 +198,10 @@ def test_server_continuous_flag_serves_on_the_cpu():
 
 
 def test_server_rejects_the_dense_fleet_flags():
-    with pytest.raises(SystemExit, match="Dense fleet"):
-        S.main(["--model", MODEL, "--device", "cpu", "--continuous", "2"])
+    # the dense fleet's slots must hold the smallest prefill bucket
+    with pytest.raises(ValueError, match="smallest prefill bucket"):
+        S.main(["--model", MODEL, "--device", "cpu", "--continuous", "2",
+                "--continuous-max-seq", "16"])
     with pytest.raises(SystemExit, match="requires --continuous"):
         S.main(["--model", MODEL, "--device", "cpu", "--kv-pool-blocks", "8"])
 

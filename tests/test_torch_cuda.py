@@ -323,3 +323,86 @@ def test_quantized_engine_kernel_path_matches_plain_path(card):
     assert out["auto"][2][0] == 2 * 4 and out["plain"][2][0] == 0  # two T>1 chunks
     assert out["auto"][2][1] > 0 and out["plain"][2][1] == 0
     assert out["auto"][2][2] > 0 and out["plain"][2][2] > 0  # q4 on both paths
+
+
+# -- flash_attend_slots: T=1 decode over the dense slot cache ------------------------
+
+# (B, H, KV, Dh, S, positions): the JAX bench's fleet leg (8 x 8192 at
+# pos 1024), the dense fleet's 1024-position slots with block edges, the
+# last position and a finished slot at pos = S, an S that is no multiple
+# of the 64-key tile, and a small GQA shape with a frozen pos past S
+SLOTS_CASES = [
+    (8, 32, 4, 64, 8192, [1024] * 8),
+    (8, 32, 4, 64, 1024, [0, 17, 63, 64, 500, 1000, 1023, 1024]),
+    (4, 32, 4, 64, 1000, [0, 999, 1000, 640]),
+    (3, 8, 2, 128, 44, [0, 17, 50]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_slots_kernel_matches_twin(card, dtype):
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(4)
+    for B, H, KV, Dh, S, positions in SLOTS_CASES:
+        q = torch.randn(B, 1, H, Dh, generator=g, device=card).to(dt)
+        ck = torch.randn(B, KV, S, Dh, generator=g, device=card).to(dt)
+        cv = torch.randn(B, KV, S, Dh, generator=g, device=card).to(dt)
+        pos = torch.tensor(positions, dtype=torch.int32, device=card)
+        for window in (None, 256, 13):
+            before = pa.flash_attend_slots.launches
+            got = pa.flash_attend_slots(q, ck, cv, pos, window=window)
+            again = pa.flash_attend_slots(q, ck, cv, pos, block_k=128, window=window)
+            torch.cuda.synchronize()
+            assert pa.flash_attend_slots.launches == before + 2
+            assert torch.equal(got, again)  # block_k and repeats: same bits
+            want = pa.flash_attend_slots_plain(q, ck, cv, pos, window=window)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL[dtype], (B, S, positions, window, err)
+
+
+def test_slots_kernel_rejects_what_it_does_not_take(card):
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    q = torch.randn(2, 1, 4, 16, device=card)
+    ck = torch.randn(2, 2, 32, 16, device=card)
+    pos = torch.zeros(2, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="int32"):
+        pa.flash_attend_slots(q, ck, ck, pos.long())
+    with pytest.raises(TypeError):
+        pa.flash_attend_slots(q.half(), ck, ck, pos)
+    with pytest.raises(ValueError, match="T=1|B,1"):
+        pa.flash_attend_slots(torch.randn(2, 3, 4, 16, device=card), ck, ck, pos)
+    with pytest.raises(ValueError, match="window"):
+        pa.flash_attend_slots(q, ck, ck, pos, window=0)
+
+
+def test_dense_fleet_kernel_path_matches_plain_path(card):
+    """The dense fleet on the card, fp32: the kernel path (flash_attend for
+    every T>1 prefill chunk, the einsum at decode) gives the plain path's
+    greedy tokens, and no paged or slots kernel runs."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    cfg = EngineConfig(prefill_buckets=(16, 32))
+    out = {}
+    for impl in ("auto", "plain"):
+        engine = create_engine("test-llama-tiny", attn_impl=impl, seed=3,
+                               engine_cfg=cfg, device=card)
+        fleet = ContinuousEngine(engine, n_slots=2, chunk_steps=4, slot_max_seq=128)
+        counts = (fa.flash_attend.launches, pa.paged_flash_attend.launches,
+                  pa.ragged_paged_attend.launches, pa.flash_attend_slots.launches)
+        try:
+            r = fleet.submit("The quick brown fox jumps over it, twice.",
+                             max_tokens=10, greedy=True, chat=False)
+        finally:
+            fleet.close()
+        after = (fa.flash_attend.launches, pa.paged_flash_attend.launches,
+                 pa.ragged_paged_attend.launches, pa.flash_attend_slots.launches)
+        out[impl] = (r["token_ids"], [a - b for a, b in zip(after, counts)],
+                     r["prefill_chunks"])
+    # 42-token prompt: one 32-token extend chunk, then a 16-token bucket
+    assert out["auto"][2] == 2 and out["auto"][1] == [2 * 4, 0, 0, 0]
+    assert out["plain"][1] == [0, 0, 0, 0]
+    assert out["auto"][0] == out["plain"][0]

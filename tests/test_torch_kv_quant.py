@@ -40,8 +40,8 @@ from distributed_llm_inference_tpu_torch.config import EngineConfig  # noqa: E40
 from distributed_llm_inference_tpu_torch.engine import paged as P  # noqa: E402
 from distributed_llm_inference_tpu_torch.models import api as TM  # noqa: E402
 from distributed_llm_inference_tpu_torch.models.bridge import (  # noqa: E402
+    cache_from_numpy,
     params_from_numpy,
-    pool_from_numpy,
 )
 from distributed_llm_inference_tpu_torch.models.registry import get_model_config  # noqa: E402
 from distributed_llm_inference_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -354,7 +354,7 @@ def test_scripted_quantized_fleet_launches_match_jax():
     table = (rng.permutation(24)[:18] + 1).reshape(3, 6).astype(np.int32)
     ids = rng.integers(3, tcfg.vocab_size, (3, 48)).astype(np.int32)
     jpool = JP.init_pool(jcfg, 25, 8)
-    tpool = pool_from_numpy(tcfg, jax.tree.map(np.asarray, jpool), "cpu")
+    tpool = cache_from_numpy(tcfg, jax.tree.map(np.asarray, jpool), "cpu")
     assert isinstance(tpool["k"], K.KVQuant)
     want, jpool = _scripted_logits(jcfg, JM, JP, None, jparams, jpool, table, ids,
                                    jnp.asarray)

@@ -28,8 +28,8 @@ from distributed_llm_inference_tpu.models.registry import get_model_config as ja
 from distributed_llm_inference_tpu_torch.engine import generate as G  # noqa: E402
 from distributed_llm_inference_tpu_torch.engine import paged as P  # noqa: E402
 from distributed_llm_inference_tpu_torch.models.bridge import (  # noqa: E402
+    cache_from_numpy,
     params_from_numpy,
-    pool_from_numpy,
     slots_from_numpy,
 )
 from distributed_llm_inference_tpu_torch.models.registry import get_model_config  # noqa: E402
@@ -130,7 +130,7 @@ def test_scripted_mixed_launches_then_decode_chunk_equal_jax(model, device_meta)
     table[:3] = (rng.permutation(N_BLOCKS - 1)[: 3 * MB] + 1).reshape(3, MB)
 
     jpool = JP.init_pool(jcfg, N_BLOCKS, BS)
-    tpool = pool_from_numpy(tcfg, jax.tree.map(np.asarray, jpool), "cpu")
+    tpool = cache_from_numpy(tcfg, jax.tree.map(np.asarray, jpool), "cpu")
     jstate, jsp = JG.init_slots(B, V)
     tstate, tsp = slots_from_numpy(_state_np(jstate), _state_np(jsp), "cpu")
     key = jax.random.PRNGKey(0)

@@ -278,3 +278,94 @@ def test_server_serves_quantized_fleet_on_the_cpu():
         from distributed_llm_inference_tpu_torch.serving import server as S
 
         S.main(["--model", MODEL, "--device", "cpu", "--quant", "int3"])
+
+
+# -- the q4 gate: a decode step in a mixed launch or in a decode chunk ----------------
+
+
+def _split_streams(pkg, cfg, params, K=12, B=4, W=64, seed=0):
+    """Greedy tokens [K, B] of four 6-token prompts, landed together in one
+    mixed launch, then decoded K steps twice from the same state: each
+    step in its own width-W mixed launch (projections over W > 32 flat
+    rows: the int4 einsum) and in one decode chunk (B <= 32 rows: the q4
+    kernel, or its twin). Returns (mixed, chunk)."""
+    from distributed_llm_inference_tpu.engine import generate as JG
+    from distributed_llm_inference_tpu.engine import paged as JP
+    from distributed_llm_inference_tpu_torch.engine import generate as G
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+
+    jax_side = pkg == "jax"
+    PK, GK = (JP, JG) if jax_side else (P, G)
+    V, N, BS, MB = cfg.vocab_size, 32, 8, 6
+    rng = np.random.default_rng(seed)
+    table = (rng.permutation(N - 1)[:B * MB] + 1).reshape(B, MB).astype(np.int32)
+    arr = jnp.asarray if jax_side else torch.from_numpy
+    gen = jax.random.PRNGKey(0) if jax_side else torch.Generator()
+    entries = [(s, 0, 6, P.RAGGED_PREFILL) for s in range(B)]
+    meta, tok_row, tok_pos, offs, _ = P.build_ragged_meta(entries, width=W, tile=8)
+    toks = np.zeros(W, np.int32)
+    for off in offs:
+        toks[off:off + 6] = rng.integers(3, V, 6)
+    idle = PK.idle_mixed_arm(B, V)
+    sp = GK.init_slots(B, 1)[1]._replace(greedy=arr(np.ones(B, bool)))
+    arm = idle._replace(on=arr(np.ones(B, bool)),
+                        idx=arr(np.array([o + 5 for o in offs], np.int32)),
+                        prompt_len=arr(np.full(B, 6, np.int32)),
+                        max_tokens=arr(np.full(B, 40, np.int32)), params=sp)
+
+    def mixed(ops, pool, state, sparams, dec_idx, arm):
+        return PK.mixed_step_ragged(cfg, params, *(arr(a) for a in ops), pool,
+                                    arr(table), state, sparams, gen, arr(dec_idx), arm)
+
+    state, sparams = GK.init_slots(B, V)
+    pool = PK.init_pool(cfg, N, BS)
+    _, state0, sp0, pool0 = mixed((toks, tok_row, tok_pos, np.zeros(W, bool), meta),
+                                  pool, state, sparams, np.zeros(B, np.int32), arm)
+    # both branches start from this pool: the JAX programs donate it, the
+    # port's write it in place
+    keep = np.array if jax_side else torch.clone
+    snapshot = {k: keep(v) for k, v in pool0.items()}
+
+    def copy():
+        return {k: jnp.asarray(v) if jax_side else v.clone() for k, v in snapshot.items()}
+
+    pool, state, sparams, out = copy(), state0, sp0, []
+    for _ in range(K):
+        pos = np.asarray(state.pos)
+        ents = [(s, int(pos[s]), 1, P.RAGGED_DECODE) for s in range(B)]
+        m, tr, tp, of, _ = P.build_ragged_meta(ents, width=W, tile=8)
+        flag = np.zeros(W, bool)
+        flag[of] = True
+        packed, state, sparams, pool = mixed(
+            (np.zeros(W, np.int32), tr, tp, flag, m), pool, state, sparams,
+            np.array(of, np.int32), idle)
+        out.append(np.asarray(packed)[0])
+    em, _, _, _ = PK.decode_slots_paged(cfg, params, state0, copy(), arr(table), gen,
+                                        sp0, num_steps=K)
+    return np.stack(out), np.asarray(em)
+
+
+@pytest.mark.parametrize("dtype,quant,split", [
+    ("bfloat16", "int4", True), ("bfloat16", None, False), ("float32", "int4", False)])
+def test_q4_gate_splits_bf16_tokens_between_launch_kinds_as_in_jax(dtype, quant, split):
+    """Under --quant int4 in bf16 the same greedy request gets other
+    tokens when its decode steps run in mixed launches (the JAX einsum
+    formulation, which sums the per-group partials in bf16) than in
+    decode chunks (the q4 kernel, fp32 sums): the JAX package splits,
+    and the port splits with it. Raw bf16 weights and int4 in fp32 do
+    not split, in either package; in fp32 the port's streams are the
+    JAX package's, path by path."""
+    kw = dict(dtype=dtype, eos_token_id=-1, **({"quant": quant} if quant else {}))
+    jcfg, tcfg = jax_cfg(MODEL, **kw), get_model_config(MODEL, **kw)
+    params = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, params), "cpu")
+    if quant:
+        params = JQ.quantize_params(jcfg, params)
+        tparams = Q.quantize_params(tcfg, tparams)
+    jm, jc = _split_streams("jax", jcfg, params)
+    tm, tc = _split_streams("torch", tcfg, tparams)
+    assert (not np.array_equal(jm, jc)) == split
+    assert (not np.array_equal(tm, tc)) == split
+    if dtype == "float32":
+        np.testing.assert_array_equal(tm, jm)
+        np.testing.assert_array_equal(tc, jc)
