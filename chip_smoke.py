@@ -70,7 +70,19 @@ Run after (i), on the raw engine, before (j):
   (p) the paged fleet of (g) with chunked_prefill=False (ragged
       whole-prefill) and ragged_prefill=False (bucketed, scattered into
       the blocks) on a 4-request wave: n_layers prefill-kernel launches
-      per prefill launch, paged_flash_attend at decode, every block back.
+      per prefill launch, paged_flash_attend at decode, every block back;
+  (q) the fleet's CUDA graphs (engine/graphs.py), after (p) on the raw
+      engine and after (m) on the quantized one: the mixed launch (arming,
+      then with the idle arm: one graph serves both), the paged decode
+      chunk and the dense decode chunk, each captured and replayed on
+      (h)'s operands under set_sync_debug_mode("error"), every replay
+      bit-equal to the eager body on a clone of its buffers with the same
+      generator state, the kernel counters moving by the capture's deltas
+      per replay; replay and eager wall, device busy and idle share and
+      kernels per token side by side.
+
+The fleets of (g), (k), (o) and (p) serve through those graphs: each
+checks one capture per launch kind and every later launch a replay.
 
 It needs a CUDA device and the repository: with no card, or run from a
 directory that holds nothing else of the repository, it exits non-zero
@@ -723,6 +735,20 @@ def check_wave(tag, results, which):
               f"request {i}: {r['tokens_generated']} tokens without a stop")
 
 
+def check_graphs(tag, stats, kinds):
+    """The fleet served through CUDA graphs: each launch kind (`kinds`:
+    graph name -> its /stats launch counter) captured once, at its first
+    launch, which ran eagerly, and every later launch a replay."""
+    graphs = stats["graphs"]
+    print(f"{tag} CUDA graphs: {json.dumps(graphs)}")
+    check(set(graphs) == set(kinds), f"{tag}: graphs {sorted(graphs)}, not {sorted(kinds)}")
+    for name, counter in kinds.items():
+        g, n = graphs[name], stats["launches"][counter]
+        check(g["captures"] == 1 and g["replays"] == n - 1 > 0,
+              f"{tag}: {name} captured {g['captures']} times and replayed "
+              f"{g['replays']} times for {n} launches")
+
+
 def greedy_repeat(tag, server, body, in_wave):
     """A greedy request twice on the idle fleet: the same tokens."""
     again = [post(server.port, body)[1] for _ in range(2)]
@@ -791,6 +817,7 @@ def phase_g(torch, engine, pa, fa, Q, tag="(g)"):
               f"{q4_want} expected for {chunks} decode chunks and {mixed} mixed launches")
         free = after["paged"]["free_blocks"]
         print(f"{tag} /stats after the wave: continuous {json.dumps(after)}")
+        check_graphs(tag, after, {"mixed_launch": "mixed", "decode_chunk": "decode_chunks"})
         check(free == FLEET["kv_pool_blocks"] - 1,
               f"{free} of {FLEET['kv_pool_blocks'] - 1} pool blocks free after the wave")
         greedy_repeat(tag, server, bodies[6], results[6][1])
@@ -1325,6 +1352,7 @@ def phase_o(torch, engine, pa, fa, Q, G, M):
               f"chunks of {DENSE_FLEET['chunk_steps']} steps; kernel launches "
               f"{json.dumps(launches)}")
         print(f"(o) /stats after the wave: continuous {json.dumps(after)}")
+        check_graphs("(o)", after, {"decode_chunk": "decode_chunks"})
         check("paged" not in after and after["launches"]["mixed"] == 0,
               "the dense fleet reported a pool or a mixed launch")
         check(launches["flash_attend"] == L * prefill > 0,
@@ -1443,11 +1471,221 @@ def phase_p(torch, engine, pa, fa, Q):
                   f"{mode}: another kernel ran: {launches}")
             check(after["paged"]["free_blocks"] == FLEET["kv_pool_blocks"] - 1,
                   f"{mode}: pool blocks leaked")
+            check_graphs("(p)", after, {"decode_chunk": "decode_chunks"})
         finally:
             server.shutdown()
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
     return total
+
+
+# -- the fleet's CUDA graphs: phase (q) ------------------------------------------
+
+
+def clone_tree(torch, tree):
+    """A deep copy of a nest of tensors (dicts, tuples, int8 cache leaves)."""
+    from distributed_llm_inference_tpu_torch.ops.kv_quant import KVQuant
+
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, KVQuant):
+        return KVQuant(tree.q.clone(), tree.s.clone())
+    if isinstance(tree, dict):
+        return {k: clone_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        leaves = [clone_tree(torch, v) for v in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
+    return tree
+
+
+def leaves(torch, tree):
+    """Every tensor of a nest, in a fixed order."""
+    from distributed_llm_inference_tpu_torch.ops.kv_quant import KVQuant
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, KVQuant):
+        yield from (tree.q, tree.s)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(torch, tree[k])
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from leaves(torch, v)
+
+
+def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_deltas):
+    """One launch kind's graph `lg` over `bufs`: captured on its first
+    call if it was not yet; two replays, each bit-equal to the eager body
+    on a clone of the buffers with the same generator state (the pool
+    outside its trash block, where colliding padding writes land in any
+    order), each moving the kernel counters by the capture's deltas; then
+    replay vs eager: host wall (5 / 2 runs), one profiled run of each, the
+    replay's CUDA-event span. Every run starts from the same state."""
+    start = clone_tree(torch, {k: bufs[k] for k in ("state", "sparams", "inputs")
+                               if k in bufs})
+
+    def restore():
+        for k, v in start.items():
+            graphs.commit(bufs[k], v)
+
+    restore()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        captured_now = lg.graph is None
+        lg()
+        for _ in range(2):
+            restore()
+            ref = clone_tree(torch, bufs)
+            g2 = torch.Generator(device=DEVICE)
+            g2.set_state(gen.get_state())
+            before = graphs.launch_counts()
+            got = lg().clone()
+            moved = {k: v - before[k] for k, v in graphs.launch_counts().items()}
+            torch.cuda.set_sync_debug_mode("default")
+            want = run(ref, g2)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{tag} {name}: a replay's packed result differs "
+                                          f"from the eager launch")
+            for key in ("state", "sparams"):
+                check(all(torch.equal(a, b) for a, b in zip(leaves(torch, bufs[key]),
+                                                            leaves(torch, ref[key]))),
+                      f"{tag} {name}: a replay's {key} differs from the eager launch")
+            trash = 0 if bufs["table"] is None else 1
+            check(all(torch.equal(a[:, trash:], b[:, trash:]) for a, b in
+                      zip(leaves(torch, bufs["cache"]), leaves(torch, ref["cache"]))),
+                  f"{tag} {name}: a replay's KV differs from the eager launch")
+            check(moved == lg.deltas, f"{tag} {name}: counters moved {moved} on a replay, "
+                                      f"the capture's deltas are {lg.deltas}")
+            torch.cuda.set_sync_debug_mode("error")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    nonzero = {k: v for k, v in lg.deltas.items() if v}
+    check(nonzero == want_deltas, f"{tag} {name}: launches per replay {nonzero}, "
+                                  f"{want_deltas} expected")
+
+    def walls(fn, n):
+        out = []
+        for _ in range(n):
+            restore()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return sum(out) / n
+
+    replay_ms = walls(lg, 5)
+    eager_ms = walls(lambda: run(bufs, gen), 2)
+    restore()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    packed = lg()
+    e1.record()
+    e1.synchronize()
+    span_ms = e0.elapsed_time(e1)
+    tokens = tokens_of(packed)
+    row = dict(engine=tag, kind=name, replay_wall_ms=replay_ms, eager_wall_ms=eager_ms,
+               replay_span_ms=span_ms, tokens=tokens, launches_per_replay=nonzero)
+    for label, fn in (("replay", lg), ("eager", lambda: run(bufs, gen))):
+        restore()
+        torch.cuda.synchronize()
+        wall_us, busy_us, kern = profile_call(torch, fn)
+        if kern:
+            row[label] = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                              idle_share=1 - busy_us / wall_us, kernels=len(kern),
+                              kernels_per_token=len(kern) / max(tokens, 1))
+        else:
+            row[label] = "not measured (the profiler recorded no device kernels)"
+    print(f"{tag} {name}: 2 replays bit-equal to eager (packed, state, KV), launches per "
+          f"replay {json.dumps(nonzero)}; host wall per launch replay={replay_ms:.3f} ms "
+          f"eager={eager_ms:.3f} ms ({eager_ms / replay_ms:.1f}x), replay CUDA-event span "
+          f"{span_ms:.3f} ms, {tokens} tokens{'; captured here' if captured_now else ''}")
+    for label in ("replay", "eager"):
+        r = row[label]
+        if isinstance(r, dict):
+            print(f"    profiled {label:6s}: wall_ms={r['wall_ms']:.3f} busy_ms={r['busy_ms']:.3f} "
+                  f"idle_share={r['idle_share']:.4f} kernels={r['kernels']} "
+                  f"kernels_per_token={r['kernels_per_token']:.1f}")
+        else:
+            print(f"    profiled {label:6s}: {r}")
+    return row
+
+
+def phase_q(torch, engine, P, G, M):
+    """The fleet's launch kinds as CUDA graphs at its serving shape, on
+    (h)'s operands: the mixed launch arming a 56-token prompt beside 7
+    decode rows (greedy and sampled), the same graph with the idle arm,
+    the paged decode chunk of the 8 rows, and the dense decode chunk over
+    an [8, 1024] cache of random K/V."""
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    cfg, be = engine.cfg, engine.backend
+    L, K, B = cfg.n_layers, FLEET["chunk_steps"], FLEET["n_slots"]
+    quant = cfg.quant == "int4"
+    sfx = "[int8]" if cfg.kv_quant == "int8" else ""
+    tag = "(q)" + (" int4+int8" if quant else "")
+    ops, n_mixed_tok = fleet_operands(torch, cfg, P, G)
+    gen = ops["generator"]
+    inputs = graphs.MixedInputs(ops["tokens"], ops["tok_row"], ops["tok_pos"],
+                                ops["dec_flag"], ops["meta"], ops["dec_idx"], ops["arm"],
+                                ops["dev"])
+    bufs = dict(cache=ops["pool"], table=ops["table"], state=ops["state"],
+                sparams=ops["sparams"], inputs=inputs)
+
+    def mixed(b, g):
+        return graphs.mixed_launch(be, b["inputs"], b["cache"], b["table"], b["state"],
+                                   b["sparams"], g)
+
+    def chunk(b, g):
+        return graphs.decode_chunk(be, b["state"], b["sparams"], b["cache"], b["table"], g, K)
+
+    rows = []
+    q4_mixed = {"q4_matmul_rows": 2} if quant else {}
+    pre = clone_tree(torch, (bufs["state"], bufs["sparams"]))
+    arming = clone_tree(torch, inputs.arm)
+    lg_m = graphs.LaunchGraph(lambda: mixed(bufs, gen), "mixed launch", DEVICE, gen)
+    rows.append(graph_kind(torch, graphs, tag, "mixed launch, arming", lg_m, mixed, bufs, gen,
+                           lambda p: n_mixed_tok,
+                           {"ragged_paged_attend" + sfx: L, **q4_mixed}))
+    check(lg_m.captures == 1, f"{tag}: the mixed launch was not captured")
+    # the same graph with no admission completing: the 7 decode rows beside
+    # a prompt chunk that is still landing
+    graphs.commit((bufs["state"], bufs["sparams"]), pre)
+    graphs.commit(inputs.arm, P.idle_mixed_arm(B, cfg.vocab_size, device=DEVICE))
+    rows.append(graph_kind(torch, graphs, tag, "mixed launch, idle arm", lg_m, mixed, bufs,
+                           gen, lambda p: n_mixed_tok,
+                           {"ragged_paged_attend" + sfx: L, **q4_mixed}))
+    check(lg_m.captures == 1, f"{tag}: one graph must serve both arms")
+    # the decode chunk of the 8 rows an arming launch leaves
+    graphs.commit((bufs["state"], bufs["sparams"]), pre)
+    graphs.commit(inputs.arm, arming)
+    mixed(bufs, gen)
+    armed = clone_tree(torch, (bufs["state"], bufs["sparams"]))
+    q4_chunk = {"q4_matmul_rows": (7 * L + 1) * K} if quant else {}
+    lg_c = graphs.LaunchGraph(lambda: chunk(bufs, gen), "decode chunk", DEVICE, gen)
+    rows.append(graph_kind(torch, graphs, tag, f"paged decode chunk of {K} steps", lg_c,
+                           chunk, bufs, gen, lambda p: int(p[K:2 * K].sum()),
+                           {"paged_flash_attend" + sfx: L * K, **q4_chunk}))
+    # the dense fleet's chunk: the same slot state over an [8, 1024] cache
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    cache = M.init_kv_cache(cfg, B, max_seq=DENSE_FLEET["slot_max_seq"], device=DEVICE)
+    for leaf in leaves(torch, cache):
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device=DEVICE))
+        elif leaf.dim() == 4:  # int8 scales
+            leaf.copy_(torch.rand(leaf.shape, generator=g, device=DEVICE) / 64)
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=DEVICE))
+    dbufs = dict(cache=cache, table=None, state=armed[0], sparams=armed[1])
+    lg_d = graphs.LaunchGraph(lambda: chunk(dbufs, gen), "dense decode chunk", DEVICE, gen)
+    rows.append(graph_kind(torch, graphs, tag, f"dense decode chunk of {K} steps", lg_d,
+                           chunk, dbufs, gen, lambda p: int(p[K:2 * K].sum()), q4_chunk))
+    for lg in (lg_m, lg_c, lg_d):
+        lg.close()
+    return rows
 
 
 def main() -> int:
@@ -1543,6 +1781,10 @@ def main() -> int:
     whole_launches = phase_p(torch, engine, pa, fa, Q)
     print(f"(p) total {time.time() - t_start:.1f} s")
 
+    # (q) the fleet's launch kinds as CUDA graphs
+    graph_rows = phase_q(torch, engine, P, G, M)
+    print(f"(q) total {time.time() - t_start:.1f} s")
+
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)
     phase_b(torch, timer, fa, int8=True)
@@ -1577,6 +1819,9 @@ def main() -> int:
           f"{n_tok / qwave['wave_s']:.2f} tokens/s aggregate ({smi})")
     phase_i_profile(torch, qengine, P, G, tag="(m)")
     print(f"(m) total {time.time() - t_start:.1f} s")
+    graph_rows += phase_q(torch, qengine, P, G, M)
+    print(f"(q) int4+int8 total {time.time() - t_start:.1f} s ({smi})")
+    print("(q) " + json.dumps({"graphs": graph_rows}))
     line = {"kernels": [
         flash_entry,
         paged_line(paged_rows, "ragged_paged_attend", wave["launches"],

@@ -243,15 +243,17 @@ class EngineConfig:
     # Runtime LoRA adapter pages: not ported yet (the engine rejects > 0).
     adapter_slots: int = 0
     # Ragged paged ingest: the paged fleet prefills straight into the
-    # block pool in flat-token launches (engine/paged.py). The fleet
-    # rejects False: the bucketed scratch admission is not ported.
+    # block pool in flat-token launches (engine/paged.py). False: each
+    # prompt is prefilled whole on a bucketed batch-1 scratch cache and
+    # scattered into its blocks (engine/paged.insert_slot_paged).
     ragged_prefill: bool = True
     # Flat-token launch width of the ragged ingest programs, rounded up
     # to a whole number of query tiles (8).
     ragged_width: int = 64
     # Chunked prefill: each scheduler step is ONE mixed launch of every
     # decode row plus budget-sliced prompt chunks (engine/scheduler.py).
-    # The fleet rejects False: whole-prefill admission is not ported.
+    # False: whole-prefill admission, each prompt landing in ragged
+    # launches of its own before its slot decodes.
     chunked_prefill: bool = True
     # Per-step flat-token budget of the mixed launch (rounded up to whole
     # query tiles, and to one prefill tile above the decode fleet).

@@ -33,6 +33,15 @@ event. Launches read their decode positions from the slot state on the
 device (engine/paged.DeviceMeta) and their operands are uploaded from
 pinned memory, so planning the next launch never waits for a fetch.
 
+CUDA graphs (engine/graphs.py): the decode chunk and the mixed launch
+are each captured once per fleet, at their fixed shapes, and replayed for
+every later launch on the card; on the CPU they run eagerly. The slot
+state and knobs, the block table and the mixed launch's inputs are
+static device buffers: every launch and every eager site (arming, insert,
+kill) writes them IN PLACE, on every device, and each launch's operands
+are copied into them on the launch's stream. Whole-prefill admission
+launches stay eager.
+
 Attribution discipline: each launch snapshots the slot -> request
 assignment, so emissions of a launch still in flight when a slot is
 freed and re-armed are never credited to the new tenant.
@@ -61,6 +70,7 @@ from ..utils.logging import get_logger
 from ..utils.metrics import register_fleet_metrics
 from ..utils.tracing import Trace
 from . import generate as G
+from . import graphs
 from . import paged as P
 from .scheduler import PrefillJob, TokenBudgetScheduler, parse_slo_classes
 
@@ -191,9 +201,12 @@ class ContinuousEngine:
                                                       self.kv_block_size)
             self._alloc = P.BlockAllocator(self._pool_blocks,
                                            registry=engine.metrics)
-            # host-side block tables; the device copy is re-uploaded on change
+            # host-side block tables, copied into the static device table
+            # before the next launch once they changed
             self._table = np.zeros((self.n_slots, self._max_blocks), np.int32)
-            self._table_dev = None
+            self._table_dev = torch.zeros(self._table.shape, dtype=torch.int32,
+                                          device=self.device)
+            self._table_stale = True
             self._ragged_width = -(-max(1, int(ecfg.ragged_width))
                                    // self._ragged_tile) * self._ragged_tile
         else:
@@ -218,11 +231,22 @@ class ContinuousEngine:
         self._idle_arm = (P.idle_mixed_arm(self.n_slots, cfg.vocab_size,
                                            device=self.device)
                           if self._chunked else None)
+        # static: every launch and eager site writes them in place
         self.state, self.sparams = G.init_slots(self.n_slots, cfg.vocab_size,
                                                 device=self.device)
+        self._mixed_in = (graphs.mixed_inputs(self._sched_width, self._ragged_tile,
+                                              self.n_slots, cfg.vocab_size,
+                                              device=self.device)
+                          if self._chunked else None)
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(time.time()) & 0x7FFFFFFF
         )
+        # the launch kinds, captured as CUDA graphs on their first launch
+        self._chunk_graph = graphs.LaunchGraph(self._chunk_body, "decode_chunk",
+                                               self.device, self._gen)
+        self._mixed_graph = (graphs.LaunchGraph(self._mixed_body, "mixed_launch",
+                                                self.device, self._gen)
+                             if self._chunked else None)
         self._cv = threading.Condition()
         self._queue: list = []  # guarded-by: _cv
         self._assignment: list = [None] * self.n_slots  # guarded-by: _cv
@@ -364,6 +388,9 @@ class ContinuousEngine:
             self._closed = True
             self._cv.notify_all()
         self._thread.join(timeout=10)
+        if not self._thread.is_alive():  # a replay may still be running otherwise
+            for graph in self._graphs():
+                graph.close()
         fail = {"error": "Error: server shutting down", "status": "failed",
                 "error_type": "overloaded"}
         with self._cv:
@@ -437,7 +464,13 @@ class ContinuousEngine:
             "mixed_with_decode_and_prefill": self.mixed_with_both,
             "decode_chunks": self.chunk_launches,
         }
+        # CUDA graphs: a launch kind is captured once, then replayed
+        out["graphs"] = {g.name: {"captures": g.captures, "replays": g.replays}
+                         for g in self._graphs()}
         return out
+
+    def _graphs(self) -> list:
+        return [g for g in (self._chunk_graph, self._mixed_graph) if g is not None]
 
     # -- host <-> device -----------------------------------------------------
     def _upload(self, *arrays):
@@ -448,6 +481,22 @@ class ContinuousEngine:
             return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
         return [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
                 .to(self.device, non_blocking=True) for a in arrays]
+
+    def _upload_into(self, dsts, arrays):
+        """Copy numpy arrays into static device tensors in place, through
+        pinned memory with non_blocking=True on the card: ordered on the
+        launch stream behind every launch already in flight."""
+        for dst, a in zip(dsts, arrays):
+            src = torch.from_numpy(np.ascontiguousarray(a))
+            if self._cuda:
+                src = src.pin_memory()
+            dst.copy_(src, non_blocking=self._cuda)
+
+    def _commit(self, state: G.SlotState, sparams: Optional[G.SlotParams] = None):
+        """Write a new slot state (and knobs) into the static ones."""
+        graphs.commit(self.state, state)
+        if sparams is not None:
+            graphs.commit(self.sparams, sparams)
 
     def _to_host(self, packed: torch.Tensor):
         """Start the packed result's copy to the host: pinned memory,
@@ -468,8 +517,9 @@ class ContinuousEngine:
         return host.numpy()
 
     def _table_device(self):
-        if self._table_dev is None:
-            (self._table_dev,) = self._upload(self._table)
+        if self._table_stale:
+            self._upload_into((self._table_dev,), (self._table,))
+            self._table_stale = False
         return self._table_dev
 
     # -- worker thread -------------------------------------------------------
@@ -640,7 +690,7 @@ class ContinuousEngine:
         job = PrefillJob(req, ids, 0, prompt_len, max_tokens, slot, sampling,
                          presence_row, table_row, self._sched.classify(req.slo))
         self._table[slot] = table_row
-        self._table_dev = None
+        self._table_stale = True
         req.slot = slot
         req.ids = ids
         with self._cv:
@@ -659,19 +709,24 @@ class ContinuousEngine:
         if not any(r is not None for r in self._assignment):
             return None
         if self.paged:
-            emitted, mask, self.state, self.cache = self.backend.decode_slots_paged(
-                self.state, self.cache, self._table_device(), self._gen,
-                self.sparams, num_steps=self.chunk_steps,
-            )
-        else:
-            emitted, mask, self.state, self.cache = self.backend.decode_slots(
-                self.state, self.cache, self._gen, self.sparams,
-                num_steps=self.chunk_steps,
-            )
-        packed = G.pack_chunk(emitted, mask, self.state.active)
+            self._table_device()
+        packed = self._chunk_graph()
         self.chunk_launches += 1
         return ("chunk", self._to_host(packed), list(self._assignment),
                 time.perf_counter())
+
+    def _chunk_body(self):
+        """The decode chunk over the static buffers (a LaunchGraph)."""
+        return graphs.decode_chunk(
+            self.backend, self.state, self.sparams, self.cache,
+            self._table_dev if self.paged else None, self._gen, self.chunk_steps,
+        )
+
+    def _mixed_body(self):
+        """The mixed launch over the static buffers (a LaunchGraph)."""
+        return graphs.mixed_launch(self.backend, self._mixed_in, self.cache,
+                                   self._table_dev, self.state, self.sparams,
+                                   self._gen)
 
     def _launch_mixed(self):
         """ONE scheduler step: every decoding slot's token plus the budget
@@ -728,21 +783,22 @@ class ContinuousEngine:
                 presence[s] = job.presence_row
                 completions[s] = job.req
                 job.req.budget = job.max_tokens - 1
-        arm = self._idle_arm
-        if arm_np is not None:
+        # the operands into the launch's static inputs; one arm buffer
+        # serves both arms, the idle one copied in on the device
+        inp = self._mixed_in
+        if arm_np is None:
+            graphs.commit(inp.arm, self._idle_arm)
+        else:
             on, idx, plen, mtk, sp, presence = arm_np
-            up = self._upload(on, idx, plen, mtk, presence, *sp)
-            arm = P.MixedArm(up[0], up[1], up[2], up[3], G.SlotParams(*up[5:]),
-                             up[4])
-        (toks_d, row_d, pos_d, flag_d, meta_d, idx_d, t_on, t_off, k_on,
-         k_off) = self._upload(toks, tok_row, tok_pos, dec_flag, meta, dec_idx,
-                               *dev_np)
-        packed, self.state, self.sparams, self.cache = self.backend.mixed_step_ragged(
-            toks_d, row_d, pos_d, flag_d, meta_d, self.cache,
-            self._table_device(), self.state, self.sparams, self._gen, idx_d,
-            arm, dev=P.DeviceMeta(t_on, t_off, k_on, k_off),
-        )
-        handle = self._to_host(packed)
+            a = inp.arm
+            self._upload_into((a.on, a.idx, a.prompt_len, a.max_tokens, a.presence,
+                               *a.params), (on, idx, plen, mtk, presence, *sp))
+        self._upload_into(
+            (inp.tokens, inp.tok_row, inp.tok_pos, inp.dec_flag, inp.meta,
+             inp.dec_idx, *inp.dev),
+            (toks, tok_row, tok_pos, dec_flag, meta, dec_idx, *dev_np))
+        self._table_device()
+        handle = self._to_host(self._mixed_graph())
         for slot in completions:
             self._jobs.remove(self._prefilling.pop(slot))
         n_pf_tokens = sum(n for _, n, _ in chunk_list)
@@ -926,18 +982,20 @@ class ContinuousEngine:
                             torch.zeros((cfg.vocab_size,), dtype=torch.bool,
                                         device=self.device))
             arm = (first, prompt_len, max_tokens, *sampling, presence_row)
+            # the cache is written in place; the armed state goes into the
+            # static one
             if self._ragged:  # the prompt's K/V is in its blocks already
-                self.state, self.sparams = self.backend.arm_slot_paged(
-                    self.state, self.sparams, slot, *arm)
+                self._commit(*self.backend.arm_slot_paged(
+                    self.state, self.sparams, slot, *arm))
             elif self.paged:
                 (row_d,) = self._upload(table_row)
-                self.cache, self.state, self.sparams = self.backend.insert_slot_paged(
+                self._commit(*self.backend.insert_slot_paged(
                     self.cache, self._scratch, self.state, self.sparams, slot,
-                    row_d, *arm)
+                    row_d, *arm)[1:])
             else:
-                self.cache, self.state, self.sparams = G.insert_slot(
+                self._commit(*G.insert_slot(
                     cfg, self.cache, self._scratch, self.state, self.sparams,
-                    slot, *arm)
+                    slot, *arm)[1:])
         except BaseException:
             if req.block_ids is not None:
                 # the admission died after its block grant: give them back
@@ -946,7 +1004,7 @@ class ContinuousEngine:
             raise
         if self.paged:
             self._table[slot] = table_row
-            self._table_dev = None  # re-uploaded at the next launch
+            self._table_stale = True  # copied in before the next launch
         req.ids = ids
         req.slot = slot
         with self._cv:
@@ -977,13 +1035,13 @@ class ContinuousEngine:
         be, W = self.backend, self._ragged_width
         n_full = max(0, (len(ids) - 1) // W)  # leaves >= 1 sampling token
         (table1,) = self._upload(table_row[None, :])
-        for c in range(n_full):
+        for c in range(n_full):  # the pool is written in place
             args = self._ragged_launch_args(ids[c * W:(c + 1) * W], c * W)
-            self.cache = be.extend_ragged_paged(*args, self.cache, table1)
+            be.extend_ragged_paged(*args, self.cache, table1)
             self._m.ragged_launches.labels(phase="extend").inc()
         rem = ids[n_full * W:]
         args = self._ragged_launch_args(rem, n_full * W)
-        first, _, self.cache = be.prefill_ragged_paged(
+        first, _, _ = be.prefill_ragged_paged(
             *args, self.cache, table1, len(rem) - 1, self._gen, sampling,
             presence=presence)
         self._m.ragged_launches.labels(phase="prefill").inc()
@@ -1021,19 +1079,19 @@ class ContinuousEngine:
                 gen = self._gen_text(req)
                 if gen[2]:  # a textual stop sequence fired: free the slot now
                     if self._assignment[b] is req:
-                        self.state = G.kill_slot(self.state, b)
+                        self._commit(G.kill_slot(self.state, b))
                         self._m.preempt.labels(reason="stop").inc()
                     self._finalize(req, pre=gen)
                     continue
             if self._assignment[b] is req and not active[b]:
                 self._finalize(req, pre=gen)
             elif self._past_deadline(req, now) and self._assignment[b] is req:
-                self.state = G.kill_slot(self.state, b)
+                self._commit(G.kill_slot(self.state, b))
                 self._m.preempt.labels(reason="deadline").inc()
                 req.result = self._deadline_env(req)
                 self._release(req)
             elif deadline and now - req.t_start > deadline:
-                self.state = G.kill_slot(self.state, b)
+                self._commit(G.kill_slot(self.state, b))
                 self._m.preempt.labels(reason="deadline").inc()
                 req.result = {"error": f"Error: request exceeded the {deadline:g}s "
                               "deadline", "status": "failed", "error_type": "timeout"}
@@ -1098,7 +1156,7 @@ class ContinuousEngine:
             req.block_ids = None
             if req.slot is not None:
                 self._table[req.slot] = 0
-                self._table_dev = None
+                self._table_stale = True
         with self._cv:
             if req.slot is not None and self._assignment[req.slot] is req:
                 self._assignment[req.slot] = None

@@ -458,11 +458,13 @@ class MixedArm(NamedTuple):
 
 
 def idle_mixed_arm(n_slots: int, vocab_size: int, device=None) -> MixedArm:
-    """An all-off MixedArm (no admission completes this launch)."""
+    """An all-off MixedArm (no admission completes this launch), every
+    field its own tensor, so that it can serve as a static buffer."""
     z = torch.zeros((n_slots,), dtype=torch.int32, device=device)
     _, sp = G.init_slots(n_slots, 1, device=device)
     return MixedArm(
-        torch.zeros((n_slots,), dtype=torch.bool, device=device), z, z, z, sp,
+        torch.zeros((n_slots,), dtype=torch.bool, device=device), z, z.clone(),
+        z.clone(), sp,
         torch.zeros((n_slots, vocab_size), dtype=torch.bool, device=device),
     )
 

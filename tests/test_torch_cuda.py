@@ -406,3 +406,226 @@ def test_dense_fleet_kernel_path_matches_plain_path(card):
     assert out["auto"][2] == 2 and out["auto"][1] == [2 * 4, 0, 0, 0]
     assert out["plain"][1] == [0, 0, 0, 0]
     assert out["auto"][0] == out["plain"][0]
+
+
+# -- CUDA graphs of the fleet's launches (engine/graphs.py) -----------------------
+
+GRAPH_KINDS = ["decode_chunk", "mixed_arming", "mixed_idle", "dense_chunk"]
+GRAPH_QUANT = {"raw": {}, "int4+int8": dict(quant="int4", kv_quant="int8")}
+
+
+def _tensors(tree):
+    """Every tensor of a nested tuple / dict / KVQuant, in a fixed order."""
+    from distributed_llm_inference_tpu_torch.ops.kv_quant import KVQuant
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, KVQuant):
+        yield tree.q
+        yield tree.s
+    elif isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _tensors(tree[key])
+    elif isinstance(tree, tuple):
+        for leaf in tree:
+            yield from _tensors(leaf)
+
+
+def _clone(tree):
+    from distributed_llm_inference_tpu_torch.ops.kv_quant import KVQuant
+
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, KVQuant):
+        return KVQuant(tree.q.clone(), tree.s.clone())
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        leaves = [_clone(v) for v in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
+    return tree
+
+
+def _graph_case(card, kind, engine):
+    """Static buffers of one launch kind on a 4-slot fleet at the tiny
+    model's widths, and the launch body over them: slots 0-2 armed at
+    positions 40, 57 and 90 (greedy, then sampled with penalties) over
+    random K/V; the mixed launches carry their decode rows and, arming,
+    slot 3's 12-token prompt landing whole. Returns (buffers, run(buffers,
+    generator) -> packed)."""
+    import numpy as np
+
+    from distributed_llm_inference_tpu_torch.engine import generate as G
+    from distributed_llm_inference_tpu_torch.engine import graphs
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+    from distributed_llm_inference_tpu_torch.models import api as M
+
+    cfg, be = engine.cfg, engine.backend
+    B, V, S, bs, K, W, tile = 4, cfg.vocab_size, 128, 16, 4, 48, 8
+    g = torch.Generator(device=card).manual_seed(2)
+    dense = kind == "dense_chunk"
+    cache = (M.init_kv_cache(cfg, B, max_seq=S, device=card) if dense
+             else P.init_pool(cfg, B * (S // bs) + 1, bs, device=card))
+    for leaf in _tensors(cache):
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device=card))
+        elif leaf.dim() == 4:  # int8 scales
+            leaf.copy_(torch.rand(leaf.shape, generator=g, device=card) / 64)
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=card))
+    table = None if dense else (torch.randperm(B * (S // bs), generator=g, device=card)
+                                + 1).reshape(B, S // bs).to(torch.int32)
+    state, sparams = G.init_slots(B, V, device=card)
+    none = torch.zeros(V, dtype=torch.bool, device=card)
+    for b, p in enumerate((40, 57, 90)):
+        knobs = ((1.0, 0, 1.0, True, 0.0, 1.0, 0.0, 0.0) if b % 2 == 0
+                 else (0.8, 20, 0.95, False, 0.05, 1.1, 0.2, 0.1))
+        state, sparams = P.arm_slot_only(cfg, state, sparams, b, 10 + b, p, 12, *knobs,
+                                         none)
+    bufs = {"cache": cache, "table": table, "state": state, "sparams": sparams}
+    if not kind.startswith("mixed"):
+        def run(b, gen):
+            return graphs.decode_chunk(be, b["state"], b["sparams"], b["cache"],
+                                       b["table"], gen, K)
+        return bufs, run
+    arming = kind == "mixed_arming"
+    entries = [(b, 0, 1, P.RAGGED_DECODE) for b in range(3)]
+    if arming:
+        entries.append((3, 0, 12, P.RAGGED_PREFILL))
+    meta, tok_row, tok_pos, offsets, _ = P.build_ragged_meta(entries, width=W, tile=tile)
+    dev = P.build_device_meta(entries, offsets, 3, width=W, tile=tile)
+    toks = np.zeros(W, np.int32)
+    dec_flag = np.zeros(W, bool)
+    dec_idx = np.zeros(B, np.int32)
+    for b, off in zip(range(3), offsets):
+        dec_flag[off] = True
+        dec_idx[b] = off
+    inp = graphs.mixed_inputs(W, tile, B, V, device=card)
+    if arming:
+        toks[offsets[3]: offsets[3] + 12] = np.arange(30, 42)
+        arm = inp.arm
+        arm.on[3], arm.idx[3], arm.prompt_len[3], arm.max_tokens[3] = (
+            True, offsets[3] + 11, 12, 9)
+        for field, value in zip(arm.params, (0.7, 10, 0.9, False, 0.05, 1.2, 0.0, 0.0)):
+            field[3] = value
+        arm.presence[3, 30:42] = True
+    for dst, a in zip((inp.tokens, inp.tok_row, inp.tok_pos, inp.dec_flag, inp.meta,
+                       inp.dec_idx, *inp.dev),
+                      (toks, tok_row, tok_pos, dec_flag, meta, dec_idx, *dev)):
+        dst.copy_(torch.from_numpy(a))
+    bufs["inputs"] = inp
+
+    def run(b, gen):
+        return graphs.mixed_launch(be, b["inputs"], b["cache"], b["table"], b["state"],
+                                   b["sparams"], gen)
+    return bufs, run
+
+
+@pytest.mark.parametrize("quant", list(GRAPH_QUANT))
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+def test_graph_replay_bit_equal_to_eager_and_counts_its_launches(card, kind, quant):
+    """Each launch kind captured once and replayed twice: every replay's
+    packed result, slot state and pool are bit-equal to the eager body
+    on a clone of the buffers with the same generator state (greedy and
+    sampled rows), and the kernel counters move by the capture's deltas
+    per replay: n_layers paged kernels per decode step, n_layers ragged
+    launches per mixed launch. The trash block is left out: colliding
+    writes of padding rows land there in any order."""
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    engine = create_engine("test-llama-tiny", attn_impl="auto", seed=3, device=card,
+                           **GRAPH_QUANT[quant])
+    L = engine.cfg.n_layers
+    bufs, run = _graph_case(card, kind, engine)
+    gen = torch.Generator(device=card).manual_seed(11)
+    lg = graphs.LaunchGraph(lambda: run(bufs, gen), kind, card, gen)
+    lg()  # the warm launch, then the capture
+    assert (lg.captures, lg.replays) == (1, 0)
+    sfx = "[int8]" if quant != "raw" else ""
+    want_deltas = {"decode_chunk": {"paged_flash_attend" + sfx: L * 4},
+                   "dense_chunk": {}}.get(kind, {"ragged_paged_attend" + sfx: L})
+    for name, n in lg.deltas.items():
+        if name != "q4_matmul_rows":
+            assert n == want_deltas.get(name, 0), (name, n)
+    # int4: the LM head and the 128-wide projections pass the kernel's gate
+    assert (lg.deltas["q4_matmul_rows"] > 0) == (quant != "raw")
+    for _ in range(2):
+        ref = _clone(bufs)
+        g2 = torch.Generator(device=card)
+        g2.set_state(gen.get_state())
+        before = graphs.launch_counts()
+        got = lg().clone()
+        moved = {k: v - before[k] for k, v in graphs.launch_counts().items()}
+        want = run(ref, g2)
+        torch.cuda.synchronize()
+        assert moved == lg.deltas
+        assert torch.equal(got, want)
+        for name in ("state", "sparams"):
+            for a, b in zip(_tensors(bufs[name]), _tensors(ref[name])):
+                assert torch.equal(a, b), name
+        for a, b in zip(_tensors(bufs["cache"]), _tensors(ref["cache"])):
+            keep = a if kind == "dense_chunk" else a[:, 1:]
+            assert torch.equal(keep, b if kind == "dense_chunk" else b[:, 1:]), "cache"
+    assert lg.replays == 2
+    emitted = got[4:8] if kind.endswith("chunk") else got[1]  # the emit masks
+    assert int(emitted.sum()) > 0
+    lg.close()
+
+
+def test_failed_capture_raises_with_its_cause_and_never_returns_eagerly(card):
+    """A launch that cannot be captured (a host read of a device value)
+    raises GraphCaptureError on every call, naming the launch, with the
+    CUDA fault as its cause: no eager result comes back, and the counters
+    and the card work on."""
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    x = torch.ones(8, device=card)
+
+    def body():
+        return x * float(x.sum().item())  # the host read no graph can hold
+
+    lg = graphs.LaunchGraph(body, "test launch", card, torch.Generator(device=card))
+    before = graphs.launch_counts()
+    for _ in range(2):
+        with pytest.raises(graphs.GraphCaptureError, match="test launch") as err:
+            lg()
+        assert err.value.__cause__ is not None
+    assert (lg.graph, lg.captures, lg.replays) == (None, 0, 0)
+    assert graphs.launch_counts() == before
+    assert float((x * 2).sum()) == 16.0
+
+
+def test_fleet_serves_through_one_graph_per_launch_kind(card):
+    """The chunked paged fleet on the card: one capture per launch kind,
+    every later launch a replay, every kernel launch counted once per
+    layer (and step), and the greedy tokens of the CPU fleet on the same
+    fp32 weights."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    cpu = create_engine("test-llama-tiny", seed=3, device="cpu")
+    moved = {k: ({n: t.to(card) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(card)) for k, v in cpu.backend.params.items()}
+    gpu = create_engine(cpu.cfg, params=moved, attn_impl="auto", device=card)
+    prompts = ["The quick brown fox jumps over it, twice.", "a b c",
+               " ".join(f"w{i}" for i in range(30))]
+    out = {}
+    for name, engine in (("cpu", cpu), ("card", gpu)):
+        fleet = ContinuousEngine(engine, n_slots=2, chunk_steps=4, kv_pool_blocks=40,
+                                 slot_max_seq=128)
+        counts = (pa.ragged_paged_attend.launches, pa.paged_flash_attend.launches)
+        try:
+            rs = [fleet.submit(p, max_tokens=10, greedy=True, chat=False) for p in prompts]
+            st = fleet.stats()
+        finally:
+            fleet.close()
+        after = (pa.ragged_paged_attend.launches, pa.paged_flash_attend.launches)
+        out[name] = ([r["token_ids"] for r in rs], st,
+                     [b - a for a, b in zip(counts, after)])
+    tokens, st, launched = out["card"]
+    assert tokens == out["cpu"][0]
+    L, launches, g = cpu.cfg.n_layers, st["launches"], st["graphs"]
+    assert g["decode_chunk"]["captures"] == g["mixed_launch"]["captures"] == 1
+    assert g["mixed_launch"]["replays"] == launches["mixed"] - 1 >= 1
+    assert g["decode_chunk"]["replays"] == launches["decode_chunks"] - 1 >= 1
+    assert launched == [L * launches["mixed"], L * 4 * launches["decode_chunks"]]
