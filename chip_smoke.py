@@ -55,12 +55,20 @@ each of which fails the run:
 
 Run after (i), on the raw engine, before (j):
 
-  (n) flash_attend_slots driven directly, as the JAX package's bench.py
-      drives its kernel (no serving hook selects it), then against its
-      twin at bench.py's shapes (8 slots, S=8192, pos 1024), the dense
-      fleet's (S=1024, tile edges, pos = S) and S=1000, window None /
-      256, bf16 and fp32, repeats bit-equal; kernel, twin, einsum
-      (attend over the whole cache, the JAX yardstick) and SDPA ms;
+  (n) flash_attend_slots (csrc/slots_attention.cu, a split-KV kernel:
+      each row's live range shared by n_split blocks, cp.async tiles,
+      tensor-core products for bf16, partials merged in a fixed order)
+      driven directly, as the JAX package's bench.py drives its kernel
+      (no serving hook selects it), then against its twin at bench.py's
+      shapes (8 slots, S=8192, pos 1024), the dense fleet's (S=1024, tile
+      edges, pos = S), S=1000, B=1 at split edges (the most splits) and
+      B=32 on both sides of every tile edge (the fewest), window None /
+      256, bf16 and fp32, repeats bit-equal; the kernel and SDPA timed in
+      turn in one loop (median of 30 cold-L2 calls each), the twin and
+      the einsum (attend over the whole cache, the JAX yardstick) as
+      means; then bench.py's call captured in a CUDA graph, its replay
+      bit-equal to an eager call under the sync check after pos changes
+      in place;
   (o) the dense fleet (`--continuous 8 --continuous-max-seq 1024`, no
       pool) serving (g)'s wave: flash_attend n_layers times per T>1
       prefill chunk, no paged kernel and no flash_attend_slots (decode
@@ -92,6 +100,7 @@ and prints no result. It imports nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -124,6 +133,9 @@ QUANT_LOGITS_ATOL = 0.25
 # (fp32 runs on the CUDA cores, not the tensor cores)
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+# Timer.alternating's device-side spin before each timed call: ~0.2 ms
+# at the H100's ~1.98 GHz, longer than a wrapper's host time
+HEAD_START_CYCLES = 400_000
 
 # logprobs pin every emitted token: random weights mostly emit ids past
 # the byte tokenizer's 259, which decode to no text
@@ -179,6 +191,31 @@ class Timer:
             e1.synchronize()
             total += e0.elapsed_time(e1)
         return total / reps
+
+    def alternating(self, fns, reps: int) -> list:
+        """The median device time of each of `fns`, called in turn `reps`
+        times, each call from a cold L2: the card's drift from call to
+        call falls on all of them alike. A device-side spin of
+        HEAD_START_CYCLES after the flush lets the host enqueue the call
+        before the card reaches it, so the span holds the call's kernels
+        and not the wrapper's host time (~30 us a call on that host)."""
+        torch = self.torch
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        times = [[] for _ in fns]
+        for _ in range(reps):
+            for t, fn in zip(times, fns):
+                self.flush.zero_()
+                torch.cuda._sleep(HEAD_START_CYCLES)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                e1.synchronize()
+                t.append(e0.elapsed_time(e1))
+        return [statistics.median(t) for t in times]
 
 
 def kv_row_bytes(dtype_name, int8):
@@ -1177,12 +1214,20 @@ def paged_line(rows, kernel, launches, replaces, pick, shapes):
 # flash_attend_slots' cases: (label, B, S, per-row positions). bench.py's
 # fleet-attention leg (8 slots of an 8192-position cache at pos 1024), the
 # dense fleet's 1024-position slots with tile edges, the last position and
-# a finished slot frozen at S, and an S that is no multiple of the tile
+# a finished slot frozen at S, an S that is no multiple of the tile; then
+# the split-KV kernel's extremes: one row (66 splits on 132 SMs) whose
+# live range ends on a tile edge, and 32 rows (3 splits) on both sides of
+# every 64-key tile edge
 SLOTS_CASES = [
     ("bench.py fleet leg", 8, 8192, [1024] * 8),
     ("dense fleet", 8, 1024, [0, 17, 63, 64, 500, 1000, 1023, 1024]),
     ("S=1000", 8, 1000, [0, 1, 63, 64, 640, 998, 999, 1000]),
+    ("B=1 split edges", 1, 8192, [1087]),
+    ("B=32 tile edges", 32, 1024, [0, 1, 63, 64, 65, 127, 128, 129, 191, 192, 255, 256,
+                                   257, 319, 320, 383, 384, 447, 448, 511, 512, 575, 576,
+                                   639, 640, 703, 704, 767, 768, 1022, 1023, 1024]),
 ]
+SLOTS_REPS = 30  # cold-L2 calls of the kernel and of SDPA, in turn
 DENSE_FLEET = dict(n_slots=8, chunk_steps=16, chunk_lag=2, slot_max_seq=1024)
 WHOLE_PREFILL_WAVE = (0, 3, 5, 7)  # 8, 120, 330 and 700 prompt tokens
 
@@ -1203,10 +1248,11 @@ def slots_work(B, S_, positions, window, dtype_name):
 def phase_n(torch, timer, pa):
     """flash_attend_slots driven directly, as bench.py's fleet leg drives
     the JAX kernel (no serving hook selects it), then held to its twin in
-    every case: kernel, twin, attend (the einsum over the whole cache with
-    the slot mask: the JAX package's own yardstick) and SDPA (the slot
-    mask, enable_gqa) ms at a cold L2, and the bound. Returns (rows, the
-    driven run's launches)."""
+    every case: the kernel and SDPA (the slot mask, enable_gqa) timed in
+    turn, medians of SLOTS_REPS cold-L2 calls; the twin and attend (the
+    einsum over the whole cache with the slot mask: the JAX package's own
+    yardstick) as means; and the bound. Then the graph check. Returns
+    (rows, the driven run's launches)."""
     import torch.nn.functional as F
 
     from distributed_llm_inference_tpu_torch.ops.attention import attend, slot_causal_mask
@@ -1234,6 +1280,7 @@ def phase_n(torch, timer, pa):
     rows = []
     for (dtype_name, label), (q, k, v, pos) in operands.items():
         B, S_ = q.shape[0], k.shape[2]
+        n_split = pa._slots_splits(B, KV, S_, pa._sm_count(q.device))
         for window in (None, 256):
             got = pa.flash_attend_slots(q, k, v, pos, window=window)
             again = pa.flash_attend_slots(q, k, v, pos, block_k=128, window=window)
@@ -1244,26 +1291,63 @@ def phase_n(torch, timer, pa):
             check(torch.equal(got, again),
                   "flash_attend_slots gave other bits on a repeat (another block_k)")
             mask = slot_causal_mask(pos, 1, S_, window)
-            ms = timer.ms(lambda: pa.flash_attend_slots(q, k, v, pos, window=window), 10)
+            qt, smask = q.transpose(1, 2), mask[:, None]
+            ms, library_ms = timer.alternating([
+                lambda: pa.flash_attend_slots(q, k, v, pos, window=window),
+                lambda: F.scaled_dot_product_attention(
+                    qt, k, v, attn_mask=smask, enable_gqa=True),
+            ], SLOTS_REPS)
             plain_ms = timer.ms(
                 lambda: pa.flash_attend_slots_plain(q, k, v, pos, window=window), 3)
             einsum_ms = timer.ms(lambda: attend(q, k, v, mask), 10)
-            qt, smask = q.transpose(1, 2), mask[:, None]
-            library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-                qt, k, v, attn_mask=smask, enable_gqa=True), 10)
             nbytes, flops = slots_work(B, S_, pos.tolist(), window, dtype_name)
             bound_ms, bound_by = bound(nbytes, flops, dtype_name)
-            r = dict(dtype=dtype_name, case=label, window=window, max_abs_err=err,
-                     atol=ATOL[dtype_name], ms=ms, plain_ms=plain_ms, einsum_ms=einsum_ms,
-                     library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            r = dict(dtype=dtype_name, case=label, window=window, n_split=n_split,
+                     max_abs_err=err, atol=ATOL[dtype_name], ms=ms, plain_ms=plain_ms,
+                     einsum_ms=einsum_ms, library_ms=library_ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
             rows.append(r)
-            print(f"    {dtype_name:8s} {label:18s} B={B} S={S_:4d} window={str(window):4s} "
-                  f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} plain={plain_ms:.4f} "
-                  f"einsum={einsum_ms:.4f} sdpa={library_ms:.4f} "
-                  f"bound={bound_ms:.5f} ({bound_by})")
+            print(f"    {dtype_name:8s} {label:18s} B={B:2d} S={S_:4d} n_split={n_split:2d} "
+                  f"window={str(window):4s} err={err:.3g} (atol {r['atol']:g}) "
+                  f"kernel={ms:.4f} sdpa={library_ms:.4f} (medians of {SLOTS_REPS}, in "
+                  f"turn) plain={plain_ms:.4f} einsum={einsum_ms:.4f} "
+                  f"bound={bound_ms:.5f} ({bound_by}, {bound_ms / ms:.3f} of it)")
     bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
     check(not bad, f"flash_attend_slots disagrees with its twin in {len(bad)} case(s)")
+    slots_graph_check(torch, pa, *operands["bfloat16", SLOTS_CASES[0][0]])
     return rows, driven
+
+
+def slots_graph_check(torch, pa, q, k, v, pos):
+    """bench.py's fleet-leg call captured in a CUDA graph (the workspace
+    from the graph's pool, the split count fixed on the host): after pos
+    changes in place, each replay is bit-equal to an eager call made under
+    set_sync_debug_mode("error"), with and without a window."""
+    pos = pos.clone()
+    S_ = k.shape[2]
+    for window in (None, 256):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            pa.flash_attend_slots(q, k, v, pos, window=window)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = pa.flash_attend_slots(q, k, v, pos, window=window)
+        for positions in ([0, 63, 64, 1087, 4095, S_ - 1, S_, 2 * S_], [1024] * 8):
+            pos.copy_(torch.tensor(positions, dtype=torch.int32))
+            graph.replay()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eager = pa.flash_attend_slots(q, k, v, pos, window=window)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            check(torch.equal(out, eager),
+                  f"flash_attend_slots: graph replay differs from eager at {positions}, "
+                  f"window {window}")
+    print("(n) flash_attend_slots captured in a CUDA graph: replays after pos changes "
+          "in place bit-equal to eager calls under the sync check (window None, 256)")
 
 
 def slots_line(rows, driven, served):
@@ -1274,15 +1358,16 @@ def slots_line(rows, driven, served):
     return {
         "name": "flash_attend_slots",
         "route": "cuda",
-        "source": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
+        "source": "distributed_llm_inference_tpu_torch/csrc/slots_attention.cu",
         "replaces": "distributed_llm_inference_tpu/ops/paged_attention.py:261",
         "launches": driven,
+        "n_split": r["n_split"],
         "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"],
+        "ms": r["ms"],  # median of SLOTS_REPS, in turn with SDPA's
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"],  # SDPA with the slot mask, enable_gqa
+        "library_ms": r["library_ms"],  # SDPA with the slot mask, enable_gqa (median)
         "einsum_ms": r["einsum_ms"],  # attend over the whole cache (the JAX yardstick)
         "served_launches": served,
         "shapes": f"bf16 B={B} H={H} KV={KV} Dh={DH} S={S_}, pos {positions[0]} "

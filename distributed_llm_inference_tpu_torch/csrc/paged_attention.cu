@@ -1,11 +1,11 @@
 // GQA attention over the block-paged KV pool: the mixed prefill + decode
-// launch (`ragged`) and T=1 decode (`paged`), and T=1 decode over the
-// dense slot cache (`slots`): one device function with three entry points.
+// launch (`ragged`) and T=1 decode (`paged`): one device function with two
+// entry points. (T=1 decode over the dense slot cache is
+// csrc/slots_attention.cu.)
 //
 // Replaces: the Pallas TPU kernels `_ragged_kernel` (launched by
-// `ragged_paged_attend`), `_paged_kernel` (launched by
-// `paged_flash_attend`) and `_slots_kernel` (launched by
-// `flash_attend_slots`) in the JAX package's
+// `ragged_paged_attend`) and `_paged_kernel` (launched by
+// `paged_flash_attend`) in the JAX package's
 // distributed_llm_inference_tpu/ops/paged_attention.py. Same function:
 //   * ragged: q [W, H, Dh] is a flat query axis cut into G tiles of
 //     tq = W / G queries; tile g carries meta[g] = (row, q_start, q_len,
@@ -17,13 +17,6 @@
 //     padding) and rows with t >= q_len output zeros.
 //   * paged: q [B, 1, H, Dh], one query per table row b at position
 //     pos[b]: the same walk with tq = 1, q_start = pos[b], q_len = 1.
-//   * slots: q [B, 1, H, Dh] over the dense fleet cache [B, KV, S, Dh]:
-//     the paged walk with the identity layout (the cache is a pool of B
-//     blocks of S tokens, row b's table is [b]), so no table is read.
-//     Row b attends positions <= pos[b] and < S (a finished slot frozen at
-//     pos >= S attends all S), and with a window > pos[b] - window; the
-//     live range is walked in 64-key tiles whatever S, and the last tile's
-//     positions past S are neither loaded nor attended.
 // Scores are scaled, soft-capped (cap * tanh(s / cap)) before the mask;
 // the running max, sum and accumulator are fp32. Output in the input dtype
 // (fp32, bf16 or fp16), Dh <= 256.
@@ -56,17 +49,13 @@
 //   * Keys are staged through shared memory in tiles of BN = 64 positions
 //     (four 16-token pool blocks), gathered block by block through the
 //     table; scores and probabilities never leave the SM.
-//   * The dense slot cache takes the same block per (row, KV head). The
-//     TPU kernel's one [H, KV * bk] matmul with a block-diagonal mask over
-//     all KV heads fed an idle MXU at 4x the multiplies; it is not carried
-//     over. Its block_k only sets the TPU's DMA tile: here the live range
-//     is exact, so the result does not depend on it.
 // An int8 pool halves the K/V bytes of every live block (Dh int8 bytes
 // plus one 4-byte scale per position and KV head, against 2 * Dh at bf16).
 // It is a first, simple kernel: fp32 FMAs on the CUDA cores, no tensor
 // cores, no copy/compute overlap, one block per (tile, KV head) — few
-// blocks in flight at decode sizes (B = 8: 32 blocks on 132 SMs). A
-// split-KV grid and cp.async / TMA staging are later work.
+// blocks in flight at decode sizes (B = 8: 32 blocks on 132 SMs). The
+// split-KV walk of csrc/slots_attention.cu (cp.async tiles, tensor-core
+// products) is the design this kernel can take over with a block table.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -119,10 +108,8 @@ struct Args {
 // owns rows ty*RM .. ty*RM+RM-1, score columns tx + 16*c and output
 // columns tx + 16*d; a row's 16 threads sit in one half-warp, so row max
 // and sum reduce with four xor shuffles.
-// KT: the pool's storage type, T or int8_t (then with scales). DENSE: the
-// addressing policy, a block table (false) or the identity layout of the
-// dense slot cache (true: bs holds S, the table is never read).
-template <typename T, typename KT, bool DENSE, int DHP, int RM>
+// KT: the pool's storage type, T or int8_t (then with scales).
+template <typename T, typename KT, int DHP, int RM>
 __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   constexpr int CN = 4;
   constexpr int BM = 8 * RM;
@@ -196,12 +183,7 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   const int t_lo = row0 / group;
   const int t_hi = min(min((row0 + BM - 1) / group, a.tq - 1), q_len - 1);
   int lo = 0, hi = 0;
-  if (DENSE) {
-    // one query per row: keys [window start, min(pos + 1, S)), tiles of BN
-    // from there; a row with no live key walks nothing and writes zeros
-    hi = min(q_start + 1, a.bs);
-    if (win > 0) lo = max(q_start - win + 1, 0);
-  } else if (q_len > 0 && t_lo <= t_hi) {
+  if (q_len > 0 && t_lo <= t_hi) {
     const int last = q_start + t_hi;
     const int needed = min(max((last + 1 + a.bs - 1) / a.bs, 1), a.MB);
     int first = 0;
@@ -219,7 +201,7 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  const int* trow = DENSE ? nullptr : a.table + (size_t)row * a.MB;
+  const int* trow = a.table + (size_t)row * a.MB;
   for (int kv0 = lo; kv0 < hi; kv0 += BN) {
     __syncthreads();  // the previous tile's Ks / Vs / Ps reads are done
     for (int i = tid; i < BN * DHP; i += NT) {
@@ -227,11 +209,8 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
       const int p = kv0 + n;
       float kk = 0.f, vv = 0.f;
       if (p < hi && d < Dh) {
-        int blk = row;  // dense: row b's keys are cache[b]
-        if (!DENSE) {
-          blk = trow[p / a.bs];
-          blk = (blk >= 0 && blk < a.N) ? blk : 0;  // a bad id reads the trash block
-        }
+        int blk = trow[p / a.bs];
+        blk = (blk >= 0 && blk < a.N) ? blk : 0;  // a bad id reads the trash block
         const size_t row = ((size_t)blk * a.KV + kvh) * a.bs + p % a.bs;
         const size_t off = row * Dh + d;
         if constexpr (std::is_same<KT, int8_t>::value) {  // dequant prologue
@@ -335,12 +314,12 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   }
 }
 
-template <typename T, typename KT, bool DENSE, int DHP, int RM>
+template <typename T, typename KT, int DHP, int RM>
 cudaError_t launch(const Args& a, int n_tiles, cudaStream_t stream) {
   constexpr int BM = 8 * RM, BN = 64;
   const size_t smem =
       sizeof(float) * (BM * (DHP + 1) + BN * (DHP + 1) + BN * DHP + BM * (BN + 1));
-  auto kernel = paged_fwd<T, KT, DENSE, DHP, RM>;
+  auto kernel = paged_fwd<T, KT, DHP, RM>;
   // the shared-memory opt-in, once per device for this instance
   static std::atomic<bool> smem_set[MAX_DEVICES];
   int dev = 0;
@@ -361,37 +340,34 @@ cudaError_t launch(const Args& a, int n_tiles, cudaStream_t stream) {
 // rows per tile <= 8 (decode: the GQA group alone) take one row per
 // thread; larger tiles (a ragged tile of tq queries x group heads) take
 // up to 64 (32 at Dh 256) per block and split across blocks beyond that
-template <typename T, typename KT, bool DENSE>
+template <typename T, typename KT>
 cudaError_t dispatch(const Args& a, int n_tiles, cudaStream_t stream) {
   const bool small = a.tq * (a.H / a.KV) <= 8;
-  if (a.Dh <= 64) return small ? launch<T, KT, DENSE, 64, 1>(a, n_tiles, stream)
-                               : launch<T, KT, DENSE, 64, 8>(a, n_tiles, stream);
-  if (a.Dh <= 128) return small ? launch<T, KT, DENSE, 128, 1>(a, n_tiles, stream)
-                                : launch<T, KT, DENSE, 128, 8>(a, n_tiles, stream);
-  return small ? launch<T, KT, DENSE, 256, 1>(a, n_tiles, stream)
-               : launch<T, KT, DENSE, 256, 4>(a, n_tiles, stream);
+  if (a.Dh <= 64) return small ? launch<T, KT, 64, 1>(a, n_tiles, stream)
+                               : launch<T, KT, 64, 8>(a, n_tiles, stream);
+  if (a.Dh <= 128) return small ? launch<T, KT, 128, 1>(a, n_tiles, stream)
+                                : launch<T, KT, 128, 8>(a, n_tiles, stream);
+  return small ? launch<T, KT, 256, 1>(a, n_tiles, stream)
+               : launch<T, KT, 256, 4>(a, n_tiles, stream);
 }
 
-// a pool is the query's dtype, or int8 with both scale arrays; the dense
-// slot cache is the query's dtype (the JAX kernel has no int8 variant)
+// a pool is the query's dtype, or int8 with both scale arrays
 template <typename T>
-cudaError_t by_layout(const Args& a, int n_tiles, bool dense, cudaStream_t stream) {
-  if (dense) return dispatch<T, T, true>(a, n_tiles, stream);
-  if (a.k_scale != nullptr) return dispatch<T, int8_t, false>(a, n_tiles, stream);
-  return dispatch<T, T, false>(a, n_tiles, stream);
+cudaError_t by_layout(const Args& a, int n_tiles, cudaStream_t stream) {
+  if (a.k_scale != nullptr) return dispatch<T, int8_t>(a, n_tiles, stream);
+  return dispatch<T, T>(a, n_tiles, stream);
 }
 
-int run(const Args& a, int dtype, int n_tiles, bool dense, void* stream) {
+int run(const Args& a, int dtype, int n_tiles, void* stream) {
   if (n_tiles <= 0 || a.tq <= 0 || a.KV <= 0 || a.H % a.KV != 0 || a.Dh <= 0 ||
       a.Dh > 256 || a.bs <= 0 || a.MB <= 0 || a.R <= 0 || a.N <= 0 ||
-      (a.k_scale == nullptr) != (a.v_scale == nullptr) ||
-      (dense && (a.tq != 1 || a.k_scale != nullptr || a.table != nullptr)))
+      (a.k_scale == nullptr) != (a.v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)by_layout<float>(a, n_tiles, dense, st);
-    case 1: return (int)by_layout<__nv_bfloat16>(a, n_tiles, dense, st);
-    case 2: return (int)by_layout<__half>(a, n_tiles, dense, st);
+    case 0: return (int)by_layout<float>(a, n_tiles, st);
+    case 1: return (int)by_layout<__nv_bfloat16>(a, n_tiles, st);
+    case 2: return (int)by_layout<__half>(a, n_tiles, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -414,7 +390,7 @@ extern "C" int dli_ragged_paged_attend(
     int win_static, const int* win_dyn, float scale, float softcap, void* stream) {
   Args a{q, k, v, out, table, meta, nullptr, win_dyn, k_scale, v_scale, win_static,
          tq, H, KV, N, bs, MB, R, Dh, scale, softcap};
-  return run(a, dtype, G, false, stream);
+  return run(a, dtype, G, stream);
 }
 
 // T=1 decode: q / out [B, 1, H, Dh], table [B, MB], pos [B] int32.
@@ -425,18 +401,5 @@ extern "C" int dli_paged_flash_attend(
     const int* win_dyn, float scale, float softcap, void* stream) {
   Args a{q, k, v, out, table, nullptr, pos, win_dyn, k_scale, v_scale, win_static,
          1, H, KV, N, bs, MB, B, Dh, scale, softcap};
-  return run(a, dtype, B, false, stream);
-}
-
-// T=1 decode over the dense slot cache: q / out [B, 1, H, Dh], cache_k /
-// cache_v [B, KV, S, Dh] of q's dtype, pos [B] int32; win_static <= 0 is
-// full causal; scale is fixed at Dh ** -0.5 by the caller, no softcap.
-extern "C" int dli_flash_attend_slots(
-    const void* q, const void* k, const void* v, void* out, int dtype, int B,
-    int H, int KV, int S, int Dh, const int* pos, int win_static, float scale,
-    void* stream) {
-  // the identity layout: B blocks of S tokens, one (unread) table entry per row
-  Args a{q, k, v, out, nullptr, nullptr, pos, nullptr, nullptr, nullptr, win_static,
-         1, H, KV, B, S, 1, B, Dh, scale, 0.f};
-  return run(a, dtype, B, true, stream);
+  return run(a, dtype, B, stream);
 }

@@ -3,10 +3,11 @@ three CUDA kernels' wrappers and their plain PyTorch twins.
 
 `ragged_paged_attend`, `paged_flash_attend` and `flash_attend_slots` are
 the ports of the JAX package's ops/paged_attention.py functions of the
-same names, whose Pallas bodies `_ragged_kernel`, `_paged_kernel` and
-`_slots_kernel` become one hand-written Hopper kernel with three entry
-points in csrc/paged_attention.cu (the source note there says what bounds
-it and what its design does about it). The pool
+same names. The Pallas bodies `_ragged_kernel` and `_paged_kernel` become
+one hand-written Hopper kernel with two entry points in
+csrc/paged_attention.cu; `_slots_kernel` becomes the split-KV kernel of
+csrc/slots_attention.cu (each source's note says what bounds it and what
+its design does about it). The pool
 keeps the JAX layout, one layer's slice [N, KV, bs, Dh]: key position p of
 a table row lives in physical block table[row, p // bs] at slot p % bs.
 
@@ -29,7 +30,10 @@ a table row lives in physical block table[row, p // bs] at slot p % bs.
     raw caches only (the JAX kernel has no int8 variant). block_k is the
     JAX kernel's DMA tile and does not change the result. The serving
     hook never selects it (the dense fleet decodes through the einsum, as
-    the JAX package's models/llama.default_attn_hook does).
+    the JAX package's models/llama.default_attn_hook does). The kernel
+    splits each row's live key range over `_slots_splits` blocks, writes
+    one fp32 partial per split into a workspace this wrapper allocates,
+    and merges the splits in a fixed order (repeats are bit-equal).
 
 All three attend keys at positions <= the query's own, and with a window
 (static `window`, or for the paged two the one-element int32 device
@@ -73,7 +77,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C entry points' argument types (csrc/paged_attention.cu)
+# the C entry points' argument types (csrc/paged_attention.cu, and
+# csrc/slots_attention.cu for dli_flash_attend_slots)
 SIGNATURES = {
     "dli_ragged_paged_attend": [
         _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
@@ -84,15 +89,37 @@ SIGNATURES = {
         _i32, _vp, _vp, _i32, _vp, _f32, _f32, _vp,
     ],
     "dli_flash_attend_slots": [
-        _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _i32, _f32,
-        _vp,
+        _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _i32,
+        _f32, _i32, _vp,
     ],
 }
+_SLOTS = "dli_flash_attend_slots"
+SLOTS_TILE = 64  # keys per tile of the slots kernel's walk
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    return bind(load_library("paged_attention"), SIGNATURES)
+    return bind(load_library("paged_attention"),
+                {n: s for n, s in SIGNATURES.items() if n != _SLOTS})
+
+
+@functools.cache
+def _slots_library() -> ctypes.CDLL:
+    return bind(load_library("slots_attention"), {_SLOTS: SIGNATURES[_SLOTS]})
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _slots_splits(B, KV, S, sm_count):
+    """How many blocks share each (row, KV head)'s live key range in the
+    slots kernel: enough that B * KV * n_split fills every SM twice, and
+    never more than the cache's 64-key tiles. Fixed on the host from the
+    shapes alone, so a launch reads nothing back and can be captured."""
+    want = -(-2 * sm_count // (B * KV))
+    return max(1, min(want, -(-S // SLOTS_TILE)))
 
 
 def _attend_blocks(q5, blocks, pool_k, pool_v, q_pos, live, window_dyn,
@@ -303,14 +330,17 @@ def flash_attend_slots(q, cache_k, cache_v, pos, *, block_k=0, window=None):
             or pos.numel() != B or not pos.is_contiguous():
         raise ValueError(f"flash_attend_slots: pos must be a contiguous int32 "
                          f"tensor of {B} element(s) on {q.device}")
+    n_split = _slots_splits(B, KV, S, _sm_count(q.device))
     out = torch.empty_like(q)
-    lib = _library()
+    # per (row, KV head, split): acc [group, Dh], then (m, l) [group, 2]
+    ws = torch.empty(B * H * n_split * (Dh + 2), dtype=torch.float32, device=q.device)
+    lib = _slots_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dli_flash_attend_slots(
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, H, KV, S, Dh, pos.data_ptr(),
-            window if window is not None else -1, float(Dh ** -0.5), stream,
+            ws.data_ptr(), _DTYPE_CODES[q.dtype], B, H, KV, S, Dh, pos.data_ptr(),
+            window if window is not None else -1, float(Dh ** -0.5), n_split, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attend_slots kernel launch failed: CUDA error {rc}")

@@ -330,13 +330,35 @@ def test_quantized_engine_kernel_path_matches_plain_path(card):
 # (B, H, KV, Dh, S, positions): the JAX bench's fleet leg (8 x 8192 at
 # pos 1024), the dense fleet's 1024-position slots with block edges, the
 # last position and a finished slot at pos = S, an S that is no multiple
-# of the 64-key tile, and a small GQA shape with a frozen pos past S
+# of the 64-key tile, and a small GQA shape with a frozen pos past S;
+# then the split-KV kernel's edges: B = 1 (the most splits per row, 66 on
+# 132 SMs) with the live range's last tile full or ragged, B = 32 (the
+# fewest) with positions on both sides of every 64-key tile edge, a group
+# of 12 heads (two head tiles, the second half empty), Dh 256, and a Dh
+# of 20 whose rows are no multiple of 16 bytes (element copies, no
+# cp.async)
 SLOTS_CASES = [
     (8, 32, 4, 64, 8192, [1024] * 8),
     (8, 32, 4, 64, 1024, [0, 17, 63, 64, 500, 1000, 1023, 1024]),
     (4, 32, 4, 64, 1000, [0, 999, 1000, 640]),
     (3, 8, 2, 128, 44, [0, 17, 50]),
+    (1, 32, 4, 64, 8192, [1024]),
+    (1, 32, 4, 64, 8192, [8191]),
+    (1, 32, 4, 64, 4096, [1087]),
+    (32, 32, 4, 64, 1024, [0, 1, 63, 64, 65, 127, 128, 129, 191, 192, 255, 256, 257,
+                           319, 320, 383, 384, 447, 448, 511, 512, 575, 576, 639, 640,
+                           703, 704, 767, 768, 1022, 1023, 1024]),
+    (2, 24, 2, 64, 700, [699, 130]),
+    (2, 16, 2, 256, 600, [599, 64]),
+    (2, 8, 2, 20, 100, [5, 99]),
 ]
+
+
+def _slots_operands(card, dt, g, B, H, KV, Dh, S, positions):
+    q = torch.randn(B, 1, H, Dh, generator=g, device=card).to(dt)
+    ck = torch.randn(B, KV, S, Dh, generator=g, device=card).to(dt)
+    cv = torch.randn(B, KV, S, Dh, generator=g, device=card).to(dt)
+    return q, ck, cv, torch.tensor(positions, dtype=torch.int32, device=card)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
@@ -346,10 +368,7 @@ def test_slots_kernel_matches_twin(card, dtype):
     dt = getattr(torch, dtype)
     g = torch.Generator(device=card).manual_seed(4)
     for B, H, KV, Dh, S, positions in SLOTS_CASES:
-        q = torch.randn(B, 1, H, Dh, generator=g, device=card).to(dt)
-        ck = torch.randn(B, KV, S, Dh, generator=g, device=card).to(dt)
-        cv = torch.randn(B, KV, S, Dh, generator=g, device=card).to(dt)
-        pos = torch.tensor(positions, dtype=torch.int32, device=card)
+        q, ck, cv, pos = _slots_operands(card, dt, g, B, H, KV, Dh, S, positions)
         for window in (None, 256, 13):
             before = pa.flash_attend_slots.launches
             got = pa.flash_attend_slots(q, ck, cv, pos, window=window)
@@ -360,6 +379,67 @@ def test_slots_kernel_matches_twin(card, dtype):
             want = pa.flash_attend_slots_plain(q, ck, cv, pos, window=window)
             err = (got.float() - want.float()).abs().max().item()
             assert err <= ATOL[dtype], (B, S, positions, window, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_slots_kernel_gives_zeros_for_a_row_with_no_live_key(card, dtype):
+    """pos < 0, or a window that ends before S (a frozen slot at 2S):
+    every split is empty and the merge writes zeros, as the TPU kernel
+    does; the live rows of the same call match the twin."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(5)
+    q, ck, cv, pos = _slots_operands(card, dt, g, 4, 32, 4, 64, 300, [-1, 5, -7, 299])
+    for window in (None, 13):
+        got = pa.flash_attend_slots(q, ck, cv, pos, window=window)
+        want = pa.flash_attend_slots_plain(q, ck, cv, pos, window=window)
+        assert torch.equal(got[0::2], torch.zeros_like(got[0::2]))
+        assert (got[1::2].float() - want[1::2].float()).abs().max().item() <= ATOL[dtype]
+    frozen = torch.tensor([600, 5, 600, 299], dtype=torch.int32, device=card)
+    got = pa.flash_attend_slots(q, ck, cv, frozen, window=13)
+    assert torch.equal(got[0::2], torch.zeros_like(got[0::2]))
+    got = pa.flash_attend_slots(q, ck, cv, frozen)  # no window: attends all S
+    want = pa.flash_attend_slots_plain(q, ck, cv, frozen)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+def test_slots_kernel_replays_in_a_cuda_graph_bit_equal(card):
+    """One call captured in a CUDA graph: after pos changes in place, the
+    replay gives the eager call's bits; the call passes
+    set_sync_debug_mode("error") (nothing is read back to the host)."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=card).manual_seed(6)
+    q, ck, cv, pos = _slots_operands(card, torch.bfloat16, g, 8, 32, 4, 64, 1024,
+                                     [1024] * 8)
+    for window in (None, 256):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm: library, shared-memory opt-in
+            pa.flash_attend_slots(q, ck, cv, pos, window=window)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = pa.flash_attend_slots(q, ck, cv, pos, window=window)
+        launches = pa.flash_attend_slots.launches
+        for positions in ([0, 17, 63, 64, 500, 1000, 1023, 1024], [-1, 3, 700, 2048] * 2):
+            pos.copy_(torch.tensor(positions, dtype=torch.int32))
+            graph.replay()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eager = pa.flash_attend_slots(q, ck, cv, pos, window=window)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), (window, positions)
+            want = pa.flash_attend_slots_plain(q, ck, cv, pos, window=window)
+            # pos < 0, or a window that ends before S: no live key, zeros
+            live = (pos >= 0) & ((pos - (window or 0) + 1 < 1024) if window else True)
+            assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+            assert (out[live].float() - want[live].float()).abs().max().item() \
+                <= ATOL["bfloat16"]
+        assert pa.flash_attend_slots.launches == launches + 2  # the eager calls
 
 
 def test_slots_kernel_rejects_what_it_does_not_take(card):
