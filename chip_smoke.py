@@ -13,7 +13,7 @@ each of which fails the run:
   (a) the device, `nvidia-smi`'s name and power limit, the kernel build;
   (b) flash_attend vs its plain twin at tinyllama's attention shapes
       (H=32, KV=4, Dh=64, S=2048), bf16 and fp32, with kernel, twin,
-      SDPA-yardstick and bound times;
+      SDPA-yardstick and bound times (the kernel and SDPA timed in turn);
   (c) three solo /generate requests (greedy, sampled, and a prompt longer
       than the largest prefill bucket so chunked extend runs), the greedy
       one repeated; the kernel's launch count must rise by n_layers per
@@ -38,8 +38,9 @@ each of which fails the run:
       device idle share and kernels per token of one profiled mixed
       launch and one decode chunk;
   (j) the int4 / int8 kernels vs their twins: q4_matmul_rows at
-      tinyllama's projection shapes (R = 1, 8, 32; bf16 and fp32, with
-      torch.matmul against the dequantized weight as the yardstick), and
+      tinyllama's projection shapes (R = 1, 8, 32; bf16 and fp32; its
+      grid plan; the kernel and torch.matmul against the dequantized
+      weight, the yardstick, timed in turn), and
       the int8-cache variants of flash_attend (a subset of (b)'s cases)
       and of the two paged kernels ((f)'s cases over int8 pools);
   (k) the same model under `--quant int4 --kv-quant int8`: the fleet
@@ -87,7 +88,11 @@ Run after (i), on the raw engine, before (j):
       bit-equal to the eager body on a clone of its buffers with the same
       generator state, the kernel counters moving by the capture's deltas
       per replay; replay and eager wall, device busy and idle share and
-      kernels per token side by side.
+      kernels per token side by side, and on the quantized engine the q4
+      kernels' device ms by kernel name.
+
+`python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
+alone, with the kernel's build log (registers, spills).
 
 The fleets of (g), (k), (o) and (p) serve through those graphs: each
 checks one capture per launch kind and every later launch a replay.
@@ -217,6 +222,25 @@ class Timer:
                 t.append(e0.elapsed_time(e1))
         return [statistics.median(t) for t in times]
 
+    def device_ms(self, fn, reps: int) -> float:
+        """The device time of fn's own kernels per call (torch.profiler),
+        each call from a cold L2: the kernels alone, without the launch
+        and event overhead that a span of `alternating` holds."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and "FillFunctor" not in e.name]
+        return sum(e.time_range.elapsed_us() for e in kern) / reps / 1e3
+
 
 def kv_row_bytes(dtype_name, int8):
     """Bytes of one position's K or V row of one KV head: Dh elements, or
@@ -259,7 +283,7 @@ def int8_leaf(torch, x):
 
 
 def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
-               window=None, softcap=None, scale=None, seed=0, reps=10, int8=False):
+               window=None, softcap=None, scale=None, seed=0, reps=15, int8=False):
     """One kernel-vs-twin comparison with its times, over a raw or an int8
     cache; returns a dict."""
     import torch.nn.functional as F
@@ -278,10 +302,9 @@ def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
     want = fa.flash_attend_plain(q, k, v, pos, vs, **kw)
     err = (got.float() - want.float()).abs().max().item()
     check(bool(torch.isfinite(got.float()).all()), "flash_attend: non-finite output")
-    ms = timer.ms(lambda: fa.flash_attend(q, k, v, pos, vs, **kw), reps)
     plain_ms = timer.ms(lambda: fa.flash_attend_plain(q, k, v, pos, vs, **kw),
                         max(2, reps // 4))
-    library_ms = None
+    fns = [lambda: fa.flash_attend(q, k, v, pos, vs, **kw)]
     # SDPA has no softcap and reads no int8 cache: no single call computes those
     if softcap is None and not int8:
         q_pos = pos + torch.arange(T, device=DEVICE)
@@ -294,11 +317,10 @@ def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
             mask = mask & (kv_pos[None, None, None, :] >= vs[:, None, None, None])
         mask = mask.contiguous()
         qt = q.transpose(1, 2)
-        library_ms = timer.ms(
-            lambda: F.scaled_dot_product_attention(
-                qt, k, v, attn_mask=mask, scale=scale, enable_gqa=True),
-            reps,
-        )
+        fns.append(lambda: F.scaled_dot_product_attention(
+            qt, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
+    # the kernel and SDPA in turn: medians of `reps` cold-L2 calls each
+    ms, library_ms = (timer.alternating(fns, reps) + [None])[:2]
     nbytes, flops = flash_work(B, T, pos, valid_start, window, dtype_name, int8)
     bound_ms, bound_by = bound(nbytes, flops, dtype_name)
     return dict(dtype=dtype_name, int8=int8, B=B, T=T, pos=pos, valid_start=valid_start,
@@ -329,7 +351,7 @@ def phase_b(torch, timer, fa, int8=False):
     rows = []
     tag, name = ("(j)", "flash_attend[int8]") if int8 else ("(b)", "flash_attend")
     print(f"{tag} {name} vs plain twin, H={H} KV={KV} Dh={DH} S={S}; device "
-          f"ms per call, cold L2")
+          f"ms per call, cold L2; kernel and sdpa: medians of 15 calls in turn")
     for i, c in enumerate(cases):
         r = flash_case(torch, timer, fa, seed=i, **c)
         rows.append(r)
@@ -1075,14 +1097,17 @@ Q4_SHAPES = {(2048, 2048): 2 * 22, (2048, 256): 2 * 22, (2048, 5632): 2 * 22,
 # init): |y| < 8, where one bf16 ulp is 0.03 and the kernel and its twin
 # may round the same fp32 sum to neighbours
 Q4_ATOL = {"float32": 1e-4, "bfloat16": 6e-2}
+Q4_REPS = 30
 
 
 def q4_cases(torch, timer, Q):
     """q4_matmul_rows vs its twin at tinyllama's projection shapes, with
     torch.matmul against the dequantized weight (in x's dtype: the same
-    product over 2x (bf16) or 8x (fp32) the weight bytes of the packed
-    int4) as the yardstick."""
-    print("(j) q4_matmul_rows vs plain twin (group 64); device ms per call, cold L2")
+    product over 4x (bf16) or 8x (fp32) the weight bytes of the packed
+    int4) as the yardstick; the kernel and the yardstick timed in turn,
+    medians of Q4_REPS cold-L2 calls each."""
+    print(f"(j) q4_matmul_rows vs plain twin (group 64); device ms per call, cold L2; "
+          f"kernel and matmul(dequantized): medians of {Q4_REPS} calls in turn")
     rows = []
     g = torch.Generator(device=DEVICE).manual_seed(11)
     for (d_in, d_out) in Q4_SHAPES:
@@ -1102,21 +1127,36 @@ def q4_cases(torch, timer, Q):
                 check(bool(torch.isfinite(got.float()).all()), "q4_matmul_rows: non-finite")
                 check(torch.equal(got, Q.q4_matmul_rows(x, w)),
                       "q4_matmul_rows gave other bits on a repeat")
-                ms = timer.ms(lambda: Q.q4_matmul_rows(x, w), 10)
+                ms, library_ms = timer.alternating(
+                    [lambda: Q.q4_matmul_rows(x, w), lambda: x @ dense], Q4_REPS)
                 plain_ms = timer.ms(lambda: Q.q4_matmul_rows_plain(x, w), 3)
-                library_ms = timer.ms(lambda: x @ dense, 10)
+                # the kernels alone (profiler), for the decode rows in bf16
+                dev_ms = lib_dev_ms = None
+                if dtype_name == "bfloat16" and R == FLEET["n_slots"]:
+                    dev_ms = timer.device_ms(lambda: Q.q4_matmul_rows(x, w), 10)
+                    lib_dev_ms = timer.device_ms(lambda: x @ dense, 10)
                 nbytes = d_in * d_out // 2 + G * d_out * 4 + R * (d_in + d_out) * esize
                 flops = 2 * R * d_in * d_out
                 bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+                # the grid plan (an older checkout of the package, timed by
+                # `--only j` for a before/after comparison, has none)
+                plan = (Q.q4_plan(R, G, w.q.shape[1], d_out, Q._sm_count(x.device), esize)
+                        if hasattr(Q, "q4_plan") else None)
                 r = dict(shape=(d_in, d_out), dtype=dtype_name, R=R, max_abs_err=err,
                          atol=Q4_ATOL[dtype_name], ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         nbytes=nbytes, flops=flops)
+                         nbytes=nbytes, flops=flops, plan=plan and plan._asdict(),
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms)
                 rows.append(r)
                 print(f"    {dtype_name:8s} {d_in:4d}->{d_out:5d} G={G:2d} R={R:2d} "
-                      f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} "
-                      f"plain={plain_ms:.4f} matmul(dequantized)={library_ms:.4f} "
-                      f"bound={bound_ms:.4f} ({bound_by})")
+                      + (f"n_split={plan.n_split} gps={plan.gps} stages={plan.stages} "
+                         if plan else "")
+                      + f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} "
+                      f"matmul(dequantized)={library_ms:.4f} plain={plain_ms:.4f} "
+                      f"bound={bound_ms:.5f} ({bound_by}, {bound_ms / ms:.3f} of it)"
+                      + ("" if dev_ms is None else
+                         f"; profiled device ms kernel={dev_ms:.4f} "
+                         f"matmul={lib_dev_ms:.4f}"))
     bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
     check(not bad, f"q4_matmul_rows disagrees with its twin in {len(bad)} case(s)")
     return rows
@@ -1147,7 +1187,7 @@ def q4_line(rows, launches):
         "bound_ms": mean("bound_ms"),
         "bound_by": bound_by,
         # torch.matmul against the bf16-dequantized weight: the same
-        # product over 2x the weight bytes
+        # product over 4x the weight bytes
         "library_ms": mean("library_ms"),
         "shapes": "bf16 R=8, group 64, per launch over one decode step's "
                   "projections: " + ", ".join(f"{a}->{b} x{c}"
@@ -1681,7 +1721,9 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
         if kern:
             row[label] = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
                               idle_share=1 - busy_us / wall_us, kernels=len(kern),
-                              kernels_per_token=len(kern) / max(tokens, 1))
+                              kernels_per_token=len(kern) / max(tokens, 1),
+                              q4_ms={name[:80]: ms for ms, _, name
+                                     in top_kernels(kern, len(kern)) if "q4" in name})
         else:
             row[label] = "not measured (the profiler recorded no device kernels)"
     print(f"{tag} {name}: 2 replays bit-equal to eager (packed, state, KV), launches per "
@@ -1694,6 +1736,9 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
             print(f"    profiled {label:6s}: wall_ms={r['wall_ms']:.3f} busy_ms={r['busy_ms']:.3f} "
                   f"idle_share={r['idle_share']:.4f} kernels={r['kernels']} "
                   f"kernels_per_token={r['kernels_per_token']:.1f}")
+            if r["q4_ms"]:
+                print(f"    profiled {label:6s}: q4 kernels' device ms "
+                      f"{sum(r['q4_ms'].values()):.3f}, by name {json.dumps(r['q4_ms'])}")
         else:
             print(f"    profiled {label:6s}: {r}")
     return row
@@ -1773,9 +1818,16 @@ def phase_q(torch, engine, P, G, M):
     return rows
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    ap.add_argument("--only", choices=["j"],
+                    help="run (a) and then only (j)'s q4_matmul_rows cases, with the "
+                         "kernel's build log: a quick check of a q4 change")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1804,6 +1856,12 @@ def main() -> int:
     built = kernels.build(kernels.sources())
     print(f"(a) built {sorted(built)} in {time.time() - t0:.1f} s")
     timer = Timer(torch)
+    if args.only == "j":
+        log = built["q4_matmul"].with_name(built["q4_matmul"].name + ".log")
+        print(log.read_text())
+        for r in q4_cases(torch, timer, Q):
+            print("(j) " + json.dumps(r))
+        return 0
 
     # (b) the kernel against its twin
     phase_b(torch, timer, fa)
@@ -1947,4 +2005,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

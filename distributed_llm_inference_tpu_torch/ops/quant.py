@@ -12,10 +12,13 @@ wrapper: the JAX package's ops/quant.py in PyTorch.
 `matmul(x, w)` sends an int4 projection of at most 32 rows to
 `q4_matmul_rows` — the port of the JAX package's Pallas kernel of the
 same name (`_q4_rows_kernel`), a hand-written Hopper kernel in
-csrc/q4_matmul.cu whose source note says what bounds it — under the JAX
-package's own gate (`_q4_kernel_ok`); above it (prefill chunks, the mixed
-launch's projections) it keeps the JAX package's einsum formulation:
-per-group partial products in x's dtype, scaled, summed over groups.
+csrc/q4_matmul.cu (tensor-core products, one launch: the blocks that
+share a column tile split the groups and sum in a thread-block cluster;
+`q4_plan` fixes that grid from the shapes) whose source note says what
+bounds it — under the JAX package's own gate (`_q4_kernel_ok`); above it
+(prefill chunks, the mixed launch's projections) it keeps the JAX
+package's einsum formulation: per-group partial products in x's dtype,
+scaled, summed over groups.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs its plain twin `q4_matmul_rows_plain`. Both tensor classes
@@ -27,12 +30,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..config import ModelConfig
 from ..kernels import bind, load_library
 from .flash_attention import resolve_kernel
+from .paged_attention import _sm_count
 
 # stacked matmul weights eligible for quantization; OUTPUT channels are
 # the last axis of every one (weights are stored [L, in, out] / [in, out])
@@ -40,10 +45,67 @@ _QUANT_KEYS = {
     "llama": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# blocks the kernel aims to put on the card (eight per SM of an H100): the
-# wrapper splits the group axis until the grid has about this many
-_TARGET_BLOCKS = 1056
-_OUT_TILE = 128  # output columns per kernel block
+# the kernel's tiling (csrc/q4_matmul.cu): output columns per block, packed
+# rows per stage of its copy ring, the ring's and the cluster's largest
+# sizes; the ring bytes a block may take, and the shared memory of an SM
+# that its resident blocks share
+Q4_TILE = 128
+Q4_KBLOCK = 32
+Q4_MAX_STAGES = 8
+Q4_MAX_SPLIT = 8
+_Q4_RING_BYTES = 72 * 1024
+_SM_SHARED_BYTES = 216 * 1024
+
+
+class Q4Plan(NamedTuple):
+    """The kernel's grid: `tiles` column tiles of Q4_TILE outputs, each
+    one cluster of `n_split` blocks; block k takes groups [k * gps,
+    min(G, (k + 1) * gps)) through a copy ring of `stages` k-blocks."""
+
+    n_split: int
+    tiles: int
+    gps: int
+    stages: int
+
+
+def q4_recv_bytes(R: int) -> int:
+    """Shared memory a block of the kernel keeps beside its ring: its
+    receive buffer for the cluster's sum ([R, Q4_TILE] fp32, rounded up per
+    rank) and its mbarrier."""
+    return 4 * Q4_TILE * R + 16 * Q4_MAX_SPLIT + 16
+
+
+def q4_stage_bytes(R: int, esize: int) -> int:
+    """Bytes of one stage of the kernel's ring: Q4_KBLOCK packed rows of
+    Q4_TILE columns (rows padded by 32 bytes), the tile's fp32 scales, and
+    2 * Q4_KBLOCK columns of x for each row of its 8-row tiles (padded by
+    16 bytes)."""
+    rows = 8 * (1 if R <= 8 else 2 if R <= 16 else 4)
+    return (Q4_KBLOCK * (Q4_TILE + 32) + 4 * Q4_TILE
+            + rows * (2 * Q4_KBLOCK * esize + 16))
+
+
+@functools.lru_cache(maxsize=None)
+def q4_plan(R: int, G: int, half: int, d_out: int, sm_count: int,
+            esize: int) -> Q4Plan:
+    """The q4 kernel's grid for x [R, 2 * half * G] (element size esize)
+    against a weight of G groups and d_out columns on a card of sm_count
+    SMs: enough blocks per column tile that the grid puts four on each SM,
+    at most Q4_MAX_SPLIT (a portable cluster) and no more than the groups,
+    each block an equal run of groups (the last may be shorter, none is
+    empty); its ring as deep as its k-blocks, at most Q4_MAX_STAGES and
+    _Q4_RING_BYTES, and small enough that every block of the grid is
+    resident at once (but two stages where there are two k-blocks). Fixed
+    from shapes alone: a launch reads nothing back."""
+    tiles = d_out // Q4_TILE
+    n = max(1, min(Q4_MAX_SPLIT, G, -(-4 * sm_count // tiles)))
+    gps = -(-G // n)
+    n = -(-G // gps)
+    per_sm = -(-n * tiles // sm_count)
+    ring = min(_Q4_RING_BYTES, _SM_SHARED_BYTES // per_sm - q4_recv_bytes(R))
+    kblocks = gps * (half // Q4_KBLOCK)
+    stages = min(Q4_MAX_STAGES, kblocks, ring // q4_stage_bytes(R, esize))
+    return Q4Plan(n, tiles, gps, max(min(2, kblocks), stages))
 
 
 class QTensor:
@@ -150,7 +212,7 @@ def _q4_kernel_ok(R: int, w: Q4Tensor) -> bool:
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
 # the C entry point's argument types (csrc/q4_matmul.cu)
 SIGNATURES = {"dli_q4_matmul_rows": [
-    _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
+    _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
 ]}
 
 
@@ -175,27 +237,22 @@ def q4_matmul_rows(x2d: torch.Tensor, w: Q4Tensor) -> torch.Tensor:
     """y = x2d @ dequant(w) for x2d [R <= 32, in] and one stacked slice
     w (q [G, g/2, out]), under `_q4_kernel_ok`'s gate; returns [R, out] in
     x2d's dtype (the JAX function returns fp32 and its caller casts: the
-    kernel writes the cast directly, the same rounding). Counts its kernel
-    launches in `q4_matmul_rows.launches`."""
+    kernel writes the cast directly, the same rounding). One launch on the
+    grid of `q4_plan`; counts its launches in `q4_matmul_rows.launches`."""
     if not resolve_kernel(x2d.device):
         return q4_matmul_rows_plain(x2d, w)
     R, G, half, d_out = _check(x2d, w)
-    d_in = x2d.shape[1]
-    tiles = d_out // _OUT_TILE
-    n_split = min(G, -(-_TARGET_BLOCKS // tiles))
-    gps = -(-G // n_split)  # groups per split
-    n_split = -(-G // gps)
+    if x2d.data_ptr() % 16:  # the kernel copies x in 16-byte chunks
+        x2d = x2d.clone()
+    plan = q4_plan(R, G, half, d_out, _sm_count(x2d.device), x2d.element_size())
     y = torch.empty((R, d_out), dtype=x2d.dtype, device=x2d.device)
-    part = (torch.empty((n_split, R, d_out), dtype=torch.float32, device=x2d.device)
-            if n_split > 1 else None)
     lib = _library()
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = lib.dli_q4_matmul_rows(
             x2d.data_ptr(), w.q.data_ptr(), w.s.data_ptr(), y.data_ptr(),
-            part.data_ptr() if part is not None else None,
-            _DTYPE_CODES[x2d.dtype], R, d_in, G, half, d_out, n_split, gps,
-            stream,
+            _DTYPE_CODES[x2d.dtype], R, x2d.shape[1], G, half, d_out,
+            plan.n_split, plan.gps, plan.stages, stream,
         )
     if rc != 0:
         raise RuntimeError(f"q4_matmul_rows kernel launch failed: CUDA error {rc}")
@@ -226,9 +283,9 @@ def _check(x2d, w):
     for name, t in (("x", x2d), ("q", w.q), ("s", w.s)):
         if t.device != x2d.device or not t.is_contiguous():
             raise ValueError(f"q4_matmul_rows: {name} must be contiguous on {x2d.device}")
-    # the kernel reads q four bytes and s four floats at a time
-    if w.q.data_ptr() % 4 or w.s.data_ptr() % 16:
-        raise ValueError("q4_matmul_rows: q must be 4-byte and s 16-byte aligned")
+    # the kernel copies q and s in 16-byte chunks
+    if w.q.data_ptr() % 16 or w.s.data_ptr() % 16:
+        raise ValueError("q4_matmul_rows: q and s must be 16-byte aligned")
     return R, G, half, d_out
 
 

@@ -192,8 +192,10 @@ def test_paged_kernels_reject_what_they_do_not_take(card):
 # stays below 8, where one bf16 ulp is 0.03 and one fp16 ulp 0.004, and
 # the kernel and its twin may round the same fp32 sum to neighbours
 Q4_ATOL = {"float32": 1e-4, "bfloat16": 6e-2, "float16": 1e-2}
-# tinyllama's projections (in, out); 5632 -> 2048 has G = 88 groups
-Q4_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (256, 384)]
+# tinyllama's projections (in, out) with the LM head; 5632 -> 2048 has
+# G = 88 groups, (64, 128) one group and one column tile
+Q4_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000),
+             (256, 384), (64, 128)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
@@ -205,7 +207,7 @@ def test_q4_matmul_kernel_matches_twin(card, dtype):
     for d_in, d_out in Q4_SHAPES:
         w = Q.quantize_tensor4(
             torch.randn(d_in, d_out, generator=g, device=card) * d_in ** -0.5)
-        for R in (1, 5, 8, 17, 32):
+        for R in (1, 5, 8, 9, 16, 17, 32):
             x = torch.randn(R, d_in, generator=g, device=card).to(dt)
             before = Q.q4_matmul_rows.launches
             got = Q.q4_matmul_rows(x, w)
@@ -217,6 +219,41 @@ def test_q4_matmul_kernel_matches_twin(card, dtype):
             assert err <= Q4_ATOL[dtype], (d_in, d_out, R, err)
             # the split over groups reduces in a fixed order: same bits again
             assert torch.equal(got, Q.q4_matmul_rows(x, w))
+
+
+def test_q4_matmul_replays_in_a_cuda_graph_bit_equal(card):
+    """One call captured in a CUDA graph: after x changes in place, the
+    replay gives an eager call's bits; the call passes
+    set_sync_debug_mode("error") (nothing is read back to the host)."""
+    from distributed_llm_inference_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=card).manual_seed(7)
+    for d_in, d_out, R in ((2048, 2048, 8), (5632, 2048, 32), (2048, 32000, 1)):
+        w = Q.quantize_tensor4(
+            torch.randn(d_in, d_out, generator=g, device=card) * d_in ** -0.5)
+        x = torch.randn(R, d_in, generator=g, device=card).to(torch.bfloat16)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm: library, shared-memory opt-in
+            Q.q4_matmul_rows(x, w)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = Q.q4_matmul_rows(x, w)
+        launches = Q.q4_matmul_rows.launches
+        for _ in range(2):
+            x.copy_(torch.randn(R, d_in, generator=g, device=card))
+            graph.replay()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eager = Q.q4_matmul_rows(x, w)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager), (d_in, d_out, R)
+            want = Q.q4_matmul_rows_plain(x, w)
+            assert (out.float() - want.float()).abs().max().item() <= Q4_ATOL["bfloat16"]
+        assert Q.q4_matmul_rows.launches == launches + 2  # the eager calls
 
 
 def test_q4_matmul_rejects_what_it_does_not_take(card):

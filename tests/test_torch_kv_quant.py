@@ -471,11 +471,19 @@ def test_wrappers_launch_path_with_a_stand_in_library(monkeypatch):
         for lib in (libs[fa], libs[pa]):
             for _, args in lib.calls[-(1 if lib is libs[fa] else 2):]:
                 assert (args[3] is None) == (kind == "raw")
+    monkeypatch.setattr(Q, "_sm_count", lambda device: 132)
     w = Q.quantize_tensor4(torch.randn(5632, 256))  # G = 88: a split grid
     before = Q.q4_matmul_rows.launches
     for R in (1, 8, 32):
         y = Q.q4_matmul_rows(torch.randn(R, 5632, dtype=torch.bfloat16), w)
         assert y.shape == (R, 256) and y.dtype == torch.bfloat16
-        n_split, gps = libs[Q].calls[-1][1][11:13]
-        assert (n_split - 1) * gps < 88 <= n_split * gps
-    assert Q.q4_matmul_rows.launches == before + 3
+        args = libs[Q].calls[-1][1]
+        assert args[4:10] == (1, R, 5632, 88, 32, 256)  # dtype code, R, in, G, half, out
+        plan = Q.q4_plan(R, 88, 32, 256, 132, 2)
+        assert args[10:13] == (plan.n_split, plan.gps, plan.stages)
+        assert (plan.n_split - 1) * plan.gps < 88 <= plan.n_split * plan.gps
+    # x from a view that is not 16-byte aligned reaches the kernel as a copy
+    x = torch.randn(8 * 5632 + 1, dtype=torch.bfloat16)[1:].view(8, 5632)
+    Q.q4_matmul_rows(x, w)
+    assert x.data_ptr() % 16 and libs[Q].calls[-1][1][0] % 16 == 0
+    assert Q.q4_matmul_rows.launches == before + 4
