@@ -12,8 +12,9 @@ each of which fails the run:
 
   (a) the device, `nvidia-smi`'s name and power limit, the kernel build;
   (b) flash_attend vs its plain twin at tinyllama's attention shapes
-      (H=32, KV=4, Dh=64, S=2048), bf16 and fp32, with kernel, twin,
-      SDPA-yardstick and bound times (the kernel and SDPA timed in turn);
+      (H=32, KV=4, Dh=64, S=2048), bf16 and fp32, with its launch plan,
+      kernel, twin, SDPA-yardstick and bound times (the kernel and SDPA,
+      over the whole cache and over the live slice, timed in turn);
   (c) three solo /generate requests (greedy, sampled, and a prompt longer
       than the largest prefill bucket so chunked extend runs), the greedy
       one repeated; the kernel's launch count must rise by n_layers per
@@ -92,7 +93,9 @@ Run after (i), on the raw engine, before (j):
       kernels' device ms by kernel name.
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
-alone, with the kernel's build log (registers, spills).
+alone, with the kernel's build log (registers, spills); `--only b` runs
+(a), (b), a sweep of flash_attend's cluster sizes and the kernels line's
+two flash_attend entries at (c)'s chunk shapes, with its build log.
 
 The fleets of (g), (k), (o) and (p) serve through those graphs: each
 checks one capture per launch kind and every later launch a replay.
@@ -148,6 +151,10 @@ GREEDY = {"prompt": "The history of the printing press begins", "max_tokens": 32
           "greedy": True, "chat": False, "logprobs": True}
 SAMPLED = {"prompt": "Write a short poem about the sea.", "max_tokens": 32,
            "temperature": 0.8, "top_k": 40, "top_p": 0.95, "seed": 7}
+# the T>1 chunks (T, pos) that (c)'s four requests run: `--only b` times
+# the kernels line's flash_attend entries at them without serving
+SOLO_CHUNKS = [(64, 0), (128, 0), (128, 0), (128, 128), (128, 256), (128, 384),
+               (128, 512), (64, 640), (64, 0)]
 LONG = {"prompt": " ".join(
             f"Paragraph {i}: the quick brown fox jumps over the lazy dog."
             for i in range(12)),
@@ -222,10 +229,13 @@ class Timer:
                 t.append(e0.elapsed_time(e1))
         return [statistics.median(t) for t in times]
 
-    def device_ms(self, fn, reps: int) -> float:
+    def device_ms(self, fn, reps: int):
         """The device time of fn's own kernels per call (torch.profiler),
         each call from a cold L2: the kernels alone, without the launch
-        and event overhead that a span of `alternating` holds."""
+        and event overhead that a span of `alternating` holds. After an
+        earlier profiled phase a trace may lose a few of its first
+        kernels: where fn launches one kernel its events' mean stands for
+        the call; otherwise a trace that lost any is not measured (None)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -239,7 +249,15 @@ class Timer:
             torch.cuda.synchronize()
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                 and "FillFunctor" not in e.name]
-        return sum(e.time_range.elapsed_us() for e in kern) / reps / 1e3
+        us = [e.time_range.elapsed_us() for e in kern]
+        counts = {}
+        for e in kern:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if kern and all(c % reps == 0 for c in counts.values()):
+            return sum(us) / reps / 1e3
+        if len(counts) == 1:
+            return sum(us) / len(us) / 1e3
+        return None
 
 
 def kv_row_bytes(dtype_name, int8):
@@ -283,9 +301,13 @@ def int8_leaf(torch, x):
 
 
 def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
-               window=None, softcap=None, scale=None, seed=0, reps=15, int8=False):
+               window=None, softcap=None, scale=None, seed=0, reps=15, int8=False,
+               profile=False):
     """One kernel-vs-twin comparison with its times, over a raw or an int8
-    cache; returns a dict."""
+    cache; returns a dict. SDPA, the yardstick, runs twice in the same
+    loop: over the whole cache (the tables' column) and over the live
+    slice k[:, :, :pos + T] (the dead keys' work left out). With
+    `profile`, the kernel's and SDPA's own device time per call too."""
     import torch.nn.functional as F
 
     dt = getattr(torch, dtype_name)
@@ -302,9 +324,12 @@ def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
     want = fa.flash_attend_plain(q, k, v, pos, vs, **kw)
     err = (got.float() - want.float()).abs().max().item()
     check(bool(torch.isfinite(got.float()).all()), "flash_attend: non-finite output")
+    check(torch.equal(got, fa.flash_attend(q, k, v, pos, vs, **kw)),
+          "flash_attend gave other bits on a repeat")
     plain_ms = timer.ms(lambda: fa.flash_attend_plain(q, k, v, pos, vs, **kw),
                         max(2, reps // 4))
-    fns = [lambda: fa.flash_attend(q, k, v, pos, vs, **kw)]
+    kernel = lambda: fa.flash_attend(q, k, v, pos, vs, **kw)  # noqa: E731
+    fns = [kernel]
     # SDPA has no softcap and reads no int8 cache: no single call computes those
     if softcap is None and not int8:
         q_pos = pos + torch.arange(T, device=DEVICE)
@@ -315,19 +340,59 @@ def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
         mask = mask[None, None].expand(B, 1, T, S)
         if vs is not None:
             mask = mask & (kv_pos[None, None, None, :] >= vs[:, None, None, None])
-        mask = mask.contiguous()
+        live = pos + T
+        mask, live_mask = mask.contiguous(), mask[..., :live].contiguous()
         qt = q.transpose(1, 2)
+        k_live, v_live = k[:, :, :live], v[:, :, :live]
         fns.append(lambda: F.scaled_dot_product_attention(
             qt, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
+        fns.append(lambda: F.scaled_dot_product_attention(
+            qt, k_live, v_live, attn_mask=live_mask, scale=scale, enable_gqa=True))
     # the kernel and SDPA in turn: medians of `reps` cold-L2 calls each
-    ms, library_ms = (timer.alternating(fns, reps) + [None])[:2]
+    ms, library_ms, library_live_ms = (timer.alternating(fns, reps) + [None, None])[:3]
+    device_ms = library_device_ms = None
+    if profile:
+        device_ms = timer.device_ms(kernel, 10)
+        if len(fns) > 1:
+            library_device_ms = timer.device_ms(fns[1], 10)
     nbytes, flops = flash_work(B, T, pos, valid_start, window, dtype_name, int8)
     bound_ms, bound_by = bound(nbytes, flops, dtype_name)
+    # the launch plan (an older checkout, timed by `--only b`, has none)
+    plan = (fa.flash_plan(B, T, H, KV, S, DH, fa._sm_count(q.device), q.element_size(),
+                          1 if int8 else None, pos)._asdict()
+            if hasattr(fa, "flash_plan") else None)
     return dict(dtype=dtype_name, int8=int8, B=B, T=T, pos=pos, valid_start=valid_start,
                 window=window, softcap=softcap, scale=scale, max_abs_err=err,
                 atol=ATOL[dtype_name], ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                nbytes=nbytes, flops=flops)
+                library_ms=library_ms, library_live_ms=library_live_ms,
+                device_ms=device_ms, library_device_ms=library_device_ms,
+                bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes, flops=flops,
+                plan=plan)
+
+
+def cluster_sweep(torch, timer, fa):
+    """flash_attend at (c)'s chunk shapes and a full 2048-token prefill,
+    bf16, with each cluster size launched in turn (medians of 20 cold-L2
+    calls): the measurement that `flash_plan`'s choice rests on."""
+    print("(b) cluster sweep, bf16 B=1: medians of 20 cold-L2 calls in turn, ms "
+          "per cluster size; * = flash_plan's choice")
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    for T, pos in sorted(set(SOLO_CHUNKS)) + [(2048, 0)]:
+        q = torch.randn(1, T, H, DH, generator=g, device=DEVICE).to(torch.bfloat16)
+        k = torch.randn(1, KV, S, DH, generator=g, device=DEVICE).to(torch.bfloat16)
+        v = torch.randn(1, KV, S, DH, generator=g, device=DEVICE).to(torch.bfloat16)
+        chosen = fa.flash_plan(1, T, H, KV, S, DH, fa._sm_count(q.device), pos=pos)
+        plans = [chosen._replace(cluster=c, blocks=chosen.blocks // chosen.cluster * c)
+                 for c in (1, 2, 4, 8)]
+        times = timer.alternating(
+            [lambda p=p: fa.flash_attend(q, k, v, pos, plan=p) for p in plans], 20)
+        print(f"    T={T} pos={pos}: " + " ".join(
+            f"{p.cluster}{'*' if p.cluster == chosen.cluster else ''}={t:.4f}"
+            for p, t in zip(plans, times)))
+
+
+def fmt_ms(x):
+    return "n/a" if x is None else format(x, ".4f")
 
 
 def phase_b(torch, timer, fa, int8=False):
@@ -351,17 +416,22 @@ def phase_b(torch, timer, fa, int8=False):
     rows = []
     tag, name = ("(j)", "flash_attend[int8]") if int8 else ("(b)", "flash_attend")
     print(f"{tag} {name} vs plain twin, H={H} KV={KV} Dh={DH} S={S}; device "
-          f"ms per call, cold L2; kernel and sdpa: medians of 15 calls in turn")
+          f"ms per call, cold L2; kernel, sdpa (whole cache) and sdpa_live (the "
+          f"live slice): medians of 15 calls in turn; plan (cluster, blocks)")
     for i, c in enumerate(cases):
         r = flash_case(torch, timer, fa, seed=i, **c)
         rows.append(r)
         extra = {k: r[k] for k in ("valid_start", "window", "softcap", "scale")
                  if r[k] is not None}
+        plan = r["plan"]
         print(f"    {r['dtype']:8s} B={r['B']} T={r['T']:4d} pos={r['pos']:3d} "
-              f"{json.dumps(extra) if extra else '':28s} err={r['max_abs_err']:.3g} "
-              f"(atol {r['atol']:g}) kernel={r['ms']:.4f} plain={r['plain_ms']:.4f} "
-              f"sdpa={'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f')} "
-              f"bound={r['bound_ms']:.4f} ({r['bound_by']})")
+              f"{json.dumps(extra) if extra else '':28s} "
+              + (f"cluster={plan['cluster']} blocks={plan['blocks']} " if plan else "")
+              + f"err={r['max_abs_err']:.3g} (atol {r['atol']:g}) kernel={r['ms']:.4f} "
+              f"plain={r['plain_ms']:.4f} sdpa={fmt_ms(r['library_ms'])} "
+              f"sdpa_live={fmt_ms(r['library_live_ms'])} "
+              f"bound={r['bound_ms']:.4f} ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.4f} of it)")
     bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
     check(not bad, f"{name} disagrees with its twin in {len(bad)} case(s)")
     return rows
@@ -526,35 +596,51 @@ def phase_profile(torch, engine):
 def kernels_line(torch, timer, fa, shapes, launches, int8=False):
     """flash_attend's JSON entry (or its int8-cache variant's), timed at
     the main path's own chunk shapes (bf16, B=1, as served) and averaged
-    per launch over them."""
+    per launch over them; each shape's kernel and SDPA times, profiled
+    device times and plan printed on a line of their own."""
     counts = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0, n=0)
+    keys = ("ms", "plain_ms", "library_ms", "library_live_ms", "device_ms",
+            "library_device_ms", "nbytes", "flops")
+    tot = dict.fromkeys(keys, 0.0)  # a key turns None where a case has none
+    n = 0
     err = 0.0
-    for i, ((T, pos), n) in enumerate(sorted(counts.items())):
+    name = "flash_attend[int8]" if int8 else "flash_attend"
+    for i, ((T, pos), c) in enumerate(sorted(counts.items())):
         r = flash_case(torch, timer, fa, dtype_name="bfloat16", B=1, T=T, pos=pos,
-                       seed=100 + i, reps=20, int8=int8)
-        check(r["max_abs_err"] <= r["atol"], f"flash_attend at main-path shape {T, pos}")
+                       seed=100 + i, reps=20, int8=int8, profile=True)
+        check(r["max_abs_err"] <= r["atol"], f"{name} at main-path shape {T, pos}")
         err = max(err, r["max_abs_err"])
-        for key in ("ms", "plain_ms", "library_ms", "nbytes", "flops"):
-            tot[key] += n * (r[key] or 0.0)
-        tot["n"] += n
+        for key in keys:
+            tot[key] = None if tot[key] is None or r[key] is None else tot[key] + c * r[key]
+        n += c
+        plan = r["plan"]
+        print(f"    {name} main-path chunk T={T} pos={pos} x{c}: "
+              + (f"cluster={plan['cluster']} blocks={plan['blocks']} " if plan else "")
+              + f"kernel={r['ms']:.4f} sdpa={fmt_ms(r['library_ms'])} "
+              f"sdpa_live={fmt_ms(r['library_live_ms'])} profiled kernel="
+              f"{fmt_ms(r['device_ms'])} profiled sdpa={fmt_ms(r['library_device_ms'])} "
+              f"bound={r['bound_ms']:.6f}")
     bound_ms, bound_by = bound(tot["nbytes"], tot["flops"], "bfloat16")
-    n = tot["n"]
+    mean = {k: None if v is None else v / n for k, v in tot.items()}
     return {
-        "name": "flash_attend[int8]" if int8 else "flash_attend",
+        "name": name,
         "route": "cuda",
         "source": "distributed_llm_inference_tpu_torch/csrc/flash_attention.cu",
         "replaces": "distributed_llm_inference_tpu/ops/flash_attention.py:84",
         "launches": launches,
         "max_abs_err": err,
-        "ms": tot["ms"] / n,
-        "plain_ms": tot["plain_ms"] / n,
+        "ms": mean["ms"],
+        "plain_ms": mean["plain_ms"],
         "bound_ms": bound_ms / n,
         "bound_by": bound_by,
-        # no single PyTorch call attends an int8 cache
-        "library_ms": None if int8 else tot["library_ms"] / n,
+        # no single PyTorch call attends an int8 cache: SDPA's keys are None
+        "library_ms": mean["library_ms"],
+        # SDPA over the live slice, and both calls' profiled device time
+        "library_live_ms": mean["library_live_ms"],
+        "device_ms": mean["device_ms"],
+        "library_device_ms": mean["library_device_ms"],
         "shapes": f"bf16 B=1 H={H} KV={KV} Dh={DH} S={S}"
                   + (", int8 cache" if int8 else "") + ", (T, pos) per chunk: "
                   + ", ".join(f"{s}x{c}" for s, c in sorted(counts.items())),
@@ -1154,9 +1240,9 @@ def q4_cases(torch, timer, Q):
                       + f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} "
                       f"matmul(dequantized)={library_ms:.4f} plain={plain_ms:.4f} "
                       f"bound={bound_ms:.5f} ({bound_by}, {bound_ms / ms:.3f} of it)"
-                      + ("" if dev_ms is None else
-                         f"; profiled device ms kernel={dev_ms:.4f} "
-                         f"matmul={lib_dev_ms:.4f}"))
+                      + ("" if dtype_name != "bfloat16" or R != FLEET["n_slots"] else
+                         f"; profiled device ms kernel={fmt_ms(dev_ms)} "
+                         f"matmul={fmt_ms(lib_dev_ms)}"))
     bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
     check(not bad, f"q4_matmul_rows disagrees with its twin in {len(bad)} case(s)")
     return rows
@@ -1824,9 +1910,11 @@ def main(argv) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["j"],
-                    help="run (a) and then only (j)'s q4_matmul_rows cases, with the "
-                         "kernel's build log: a quick check of a q4 change")
+    ap.add_argument("--only", choices=["b", "j"],
+                    help="run (a) and then only (b) with the kernels line's two "
+                         "flash_attend entries at the solo chunks (b), or only (j)'s "
+                         "q4_matmul_rows cases (j), with the kernel's build log: a "
+                         "quick check of a flash_attend or q4 change")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -1862,6 +1950,17 @@ def main(argv) -> int:
         for r in q4_cases(torch, timer, Q):
             print("(j) " + json.dumps(r))
         return 0
+    if args.only == "b":
+        log = built["flash_attention"].with_name(built["flash_attention"].name + ".log")
+        print(log.read_text())
+        phase_b(torch, timer, fa)
+        if hasattr(fa, "flash_plan"):
+            cluster_sweep(torch, timer, fa)
+        # (c)'s chunks; launches null: the served path does not run here
+        for int8 in (False, True):
+            print("(b) " + json.dumps(kernels_line(torch, timer, fa, SOLO_CHUNKS, None,
+                                                   int8=int8)))
+        return 0
 
     # (b) the kernel against its twin
     phase_b(torch, timer, fa)
@@ -1880,6 +1979,8 @@ def main(argv) -> int:
           f"{time.time() - t0:.1f} s")
     check(cfg.attn_impl == "kernel", "attn_impl='auto' did not pick the kernel on CUDA")
     results, shapes, launches = phase_c(torch, engine, fa)
+    check(sorted(shapes) == sorted(SOLO_CHUNKS),
+          f"(c) ran the chunks {shapes}, not SOLO_CHUNKS (update it for `--only b`)")
 
     # (d) kernel vs plain logits on the same model
     phase_d(torch, engine)

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -60,8 +61,58 @@ _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry point's argument types (csrc/flash_attention.cu)
 SIGNATURES = {"dli_flash_attend": [
     _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
-    _vp, _i32, _vp, _f32, _f32, _vp,
+    _vp, _i32, _vp, _f32, _f32, _i32, _i32, _i32, _vp,
 ]}
+
+FLASH_ROWS = 64  # folded query rows per block: four warps of 16 (the kernel's BM)
+FLASH_MAX_CLUSTER = 8  # the portable thread-block cluster size
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class FlashPlan(NamedTuple):
+    """The flash kernel's launch: `rows` folded query rows per block,
+    tiles of `bn` keys through a ring of `stages`, `row_tiles` query tiles
+    per (batch row, KV head), each a cluster of `cluster` blocks that
+    split its live key tiles evenly; `blocks` in all."""
+
+    rows: int
+    bn: int
+    stages: int
+    row_tiles: int
+    cluster: int
+    blocks: int
+
+
+def flash_plan(B, T, H, KV, S, Dh, sm_count, esize=2, kv_esize=None,
+               pos=None) -> FlashPlan:
+    """The plan of one flash_attend launch, from the shapes and the
+    chunk's position alone (so a call reads nothing back and can be
+    captured). `esize`: q's element size; `kv_esize`: the cache's (1 for
+    int8; default q's); `pos`: the chunk's first position (None: a chunk
+    that ends at S). `bn` and `stages` mirror the kernel's compile-time
+    `Plan` (the entry point refuses a plan that differs). The cluster is
+    the smallest power of two <= 8 whose blocks cover every SM, but no
+    larger than leaves each rank two of the live tiles of the chunk's
+    last query: on an H100 the cluster's merge costs more than a split of
+    one or two tiles saves (chip_smoke.py --only b sweeps the sizes).
+    valid_start and a window can only shorten the live range."""
+    kv_esize = esize if kv_esize is None else kv_esize
+    dhp = 64 if Dh <= 64 else 128 if Dh <= 128 else 256
+    bn = 32 if esize * dhp >= 512 else 64
+    stage = 2 * bn * (dhp + 16 // kv_esize) * kv_esize + (2 * bn * 4 if kv_esize == 1 else 0)
+    stages = 3 if 3 * stage <= 64 * 1024 else 2
+    row_tiles = -(-T * (H // KV) // FLASH_ROWS)
+    base = row_tiles * KV * B
+    live = -(-(S if pos is None else pos + T) // bn)
+    cluster = 1
+    while (cluster < FLASH_MAX_CLUSTER and base * cluster < sm_count
+           and 4 * cluster <= live):
+        cluster *= 2
+    return FlashPlan(FLASH_ROWS, bn, stages, row_tiles, cluster, base * cluster)
 
 
 @functools.cache
@@ -127,11 +178,13 @@ def flash_attend_plain(q, cache_k, cache_v, pos, valid_start=None,
 
 
 def flash_attend(q, cache_k, cache_v, pos, valid_start=None,
-                 window_dyn=None, *, window=None, scale=None, softcap=None):
+                 window_dyn=None, *, window=None, scale=None, softcap=None,
+                 plan=None):
     """Causal GQA flash attention over the (already updated) cache; see
     the module docstring for the contract. Counts its kernel launches in
     `flash_attend.launches` (raw cache) and `flash_attend.launches_int8`
-    (int8 cache)."""
+    (int8 cache). `plan`: a FlashPlan to launch instead of `flash_plan`'s
+    (chip_smoke's sweep of cluster sizes); the CPU twin ignores it."""
     if not resolve_kernel(q.device):
         return flash_attend_plain(
             q, cache_k, cache_v, pos, valid_start, window_dyn,
@@ -139,6 +192,9 @@ def flash_attend(q, cache_k, cache_v, pos, valid_start=None,
         )
     B, T, H, Dh = _check(q, cache_k, cache_v, pos, valid_start, window_dyn)
     KV, S = cache_k.shape[1], cache_k.shape[2]
+    if plan is None:
+        plan = flash_plan(B, T, H, KV, S, Dh, _sm_count(q.device), q.element_size(),
+                          1 if isinstance(cache_k, KVQuant) else None, int(pos))
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
@@ -152,7 +208,7 @@ def flash_attend(q, cache_k, cache_v, pos, valid_start=None,
             window_dyn.data_ptr() if window_dyn is not None else None,
             float(Dh ** -0.5 if scale is None else scale),
             float(softcap) if softcap is not None else 0.0,
-            stream,
+            plan.bn, plan.stages, plan.cluster, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attend kernel launch failed: CUDA error {rc}")

@@ -62,6 +62,7 @@ from ..kernels import bind, load_library
 from .flash_attention import (
     MAX_HEAD_DIM,
     NEG,
+    _sm_count,
     check_cache_leaves,
     count_launch,
     fp32_leaf,
@@ -106,11 +107,6 @@ def _library() -> ctypes.CDLL:
 @functools.cache
 def _slots_library() -> ctypes.CDLL:
     return bind(load_library("slots_attention"), {_SLOTS: SIGNATURES[_SLOTS]})
-
-
-@functools.cache
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _slots_splits(B, KV, S, sm_count):

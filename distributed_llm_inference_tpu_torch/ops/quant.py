@@ -36,8 +36,7 @@ import torch
 
 from ..config import ModelConfig
 from ..kernels import bind, load_library
-from .flash_attention import resolve_kernel
-from .paged_attention import _sm_count
+from .flash_attention import _sm_count, resolve_kernel
 
 # stacked matmul weights eligible for quantization; OUTPUT channels are
 # the last axis of every one (weights are stored [L, in, out] / [in, out])

@@ -31,7 +31,14 @@ def card():
 
 # (B, T, H, KV, Dh, S, pos, valid_start step, kwargs, per-layer window)
 CASES = [
+    # the solo engine's chunks at tinyllama's widths (clusters of 1, 4, 1, 4)
     (1, 64, 32, 4, 64, 2048, 0, 0, {}, None),
+    (1, 64, 32, 4, 64, 2048, 640, 0, {}, None),
+    (1, 128, 32, 4, 64, 2048, 0, 0, {}, None),
+    (1, 128, 32, 4, 64, 2048, 640, 0, {}, None),
+    # T * group no multiple of the 64-row tile; a group of 12 with a window
+    (1, 100, 32, 4, 64, 2048, 300, 0, {}, None),
+    (2, 50, 48, 4, 64, 1024, 10, 0, {"window": 20}, None),
     (4, 100, 32, 4, 64, 2048, 700, 3, {"window": 128, "softcap": 30.0}, None),
     (2, 33, 8, 1, 256, 512, 5, 7, {"scale": 0.1}, None),
     (1, 40, 8, 2, 24, 128, 5, 0, {}, 16),
@@ -57,6 +64,68 @@ def test_flash_kernel_matches_twin(card, dtype):
         want = fa.flash_attend_plain(q, ck, cv, pos, vs, wd, **kw)
         err = (got.float() - want.float()).abs().max().item()
         assert err <= ATOL[dtype], (B, T, H, KV, Dh, S, pos, kw, wdyn, err)
+
+
+def _flash_operands(card, dt, g, B, T, H, KV, Dh, S):
+    return (torch.randn(B, T, H, Dh, generator=g, device=card).to(dt),
+            torch.randn(B, KV, S, Dh, generator=g, device=card).to(dt),
+            torch.randn(B, KV, S, Dh, generator=g, device=card).to(dt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_zeros_a_row_with_no_live_key_and_repeats_bit_equal(card, dtype):
+    """Row 2's valid_start lies past the chunk: none of its queries sees a
+    key, and the kernel writes zeros there, as the twin and the TPU kernel
+    do. Two calls give the same bits (the cluster's ranks merge in a fixed
+    order), raw and int8."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(8)
+    q, ck, cv = _flash_operands(card, dt, g, 3, 64, 32, 4, 64, 2048)
+    vs = torch.tensor([0, 100, 700], dtype=torch.int32, device=card)
+    for k, v in ((ck, cv), (_int8(ck.float()), _int8(cv.float()))):
+        got = fa.flash_attend(q, k, v, 600, vs, window=300)
+        again = fa.flash_attend(q, k, v, 600, vs, window=300)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+        want = fa.flash_attend_plain(q, k, v, 600, vs, window=300)
+        assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
+
+
+def test_flash_kernel_replays_in_a_cuda_graph_bit_equal(card):
+    """One call captured in a CUDA graph (a solo chunk's shape): after the
+    cache, valid_start and window_dyn change in place, the replay gives an
+    eager call's bits, and the eager call passes
+    set_sync_debug_mode("error"): nothing is read back to the host."""
+    g = torch.Generator(device=card).manual_seed(9)
+    q, ck, cv = _flash_operands(card, torch.bfloat16, g, 1, 128, 32, 4, 64, 2048)
+    vs = torch.zeros(1, dtype=torch.int32, device=card)
+    wd = torch.tensor([-1], dtype=torch.int32, device=card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm: library, shared-memory opt-in
+        fa.flash_attend(q, ck, cv, 640, vs, wd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_attend(q, ck, cv, 640, vs, wd)
+    launches = fa.flash_attend.launches
+    for start, width in ((0, -1), (333, 200), (700, 64), (800, -1)):
+        ck.copy_(torch.randn(ck.shape, generator=g, device=card))
+        cv.copy_(torch.randn(cv.shape, generator=g, device=card))
+        vs.fill_(start)
+        wd.fill_(width)
+        graph.replay()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = fa.flash_attend(q, ck, cv, 640, vs, wd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), (start, width)
+        want = fa.flash_attend_plain(q, ck, cv, 640, vs, wd)
+        assert (out.float() - want.float()).abs().max().item() <= ATOL["bfloat16"]
+    assert fa.flash_attend.launches == launches + 4  # the eager calls
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(card):

@@ -445,6 +445,7 @@ def test_wrappers_launch_path_with_a_stand_in_library(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: type("S", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(fa, "_sm_count", lambda device: 132)  # flash_attend's plan
     rng = _rng(10)
     _, k, v, table = _int8_pool(11, 4)
     pools = {"raw": (torch.randn(N, KV, BS, DH), torch.randn(N, KV, BS, DH)),
