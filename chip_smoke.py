@@ -24,7 +24,12 @@ each of which fails the run:
   (f) paged_flash_attend and ragged_paged_attend vs their twins at
       tinyllama's widths over shuffled block tables (16-token blocks,
       1024-token slots), bf16 and fp32, with window / per-layer window /
-      softcap / scale variants, kernel and twin times and the bound;
+      softcap / scale variants, kernel and twin times and the bound; the
+      paged decode kernel (csrc/decode_walk.cuh's split-KV walk through
+      the block table) with its split count, repeats bit-equal, timed as
+      medians of calls in turn with flash_attend_slots over a dense cache
+      that holds the same rows at the same positions (the cost of the
+      table), and at the fleet's B=8 its profiled device time;
   (g) the fleet (`--continuous 8 --kv-pool-blocks 513 --kv-block-size 16
       --continuous-max-seq 1024`) serving 8 concurrent requests of 8 to
       700 prompt tokens through the HTTP server: every request answers,
@@ -89,13 +94,18 @@ Run after (i), on the raw engine, before (j):
       bit-equal to the eager body on a clone of its buffers with the same
       generator state, the kernel counters moving by the capture's deltas
       per replay; replay and eager wall, device busy and idle share and
-      kernels per token side by side, and on the quantized engine the q4
-      kernels' device ms by kernel name.
+      kernels per token side by side, the paged attention kernels' device
+      ms by kernel name, and on the quantized engine the q4 kernels'.
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
 (a), (b), a sweep of flash_attend's cluster sizes and the kernels line's
-two flash_attend entries at (c)'s chunk shapes, with its build log.
+two flash_attend entries at (c)'s chunk shapes, with its build log;
+`--only f` runs (a) and (f)'s and (j)'s paged_flash_attend cases with
+the kernels line's two paged_flash_attend entries and the paged source's
+build log. All three also run from an older checkout of the package (the
+split count and the plan are then left out), so that parent and change
+can be timed in one call.
 
 The fleets of (g), (k), (o) and (p) serve through those graphs: each
 checks one capture per launch kind and every later launch a replay.
@@ -234,8 +244,9 @@ class Timer:
         each call from a cold L2: the kernels alone, without the launch
         and event overhead that a span of `alternating` holds. After an
         earlier profiled phase a trace may lose a few of its first
-        kernels: where fn launches one kernel its events' mean stands for
-        the call; otherwise a trace that lost any is not measured (None)."""
+        kernels: where fn launches each of its kernels once, the sum of
+        each kernel's mean stands for the call; otherwise a trace that
+        lost any is not measured (None)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -249,14 +260,15 @@ class Timer:
             torch.cuda.synchronize()
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                 and "FillFunctor" not in e.name]
-        us = [e.time_range.elapsed_us() for e in kern]
-        counts = {}
+        by_name = {}
         for e in kern:
-            counts[e.name] = counts.get(e.name, 0) + 1
-        if kern and all(c % reps == 0 for c in counts.values()):
-            return sum(us) / reps / 1e3
-        if len(counts) == 1:
-            return sum(us) / len(us) / 1e3
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if not kern:
+            return None
+        if all(len(us) % reps == 0 for us in by_name.values()):
+            return sum(map(sum, by_name.values())) / reps / 1e3
+        if all(len(us) <= reps for us in by_name.values()):
+            return sum(sum(us) / len(us) for us in by_name.values()) / 1e3
         return None
 
 
@@ -652,6 +664,7 @@ def kernels_line(torch, timer, fa, shapes, launches, int8=False):
 BLOCK, SLOT_MB = 16, 64  # the fleet's 16-token pool blocks, 1024-token slots
 RAGGED_W, RAGGED_TILE = 128, 8  # the mixed launch's width (step budget), query tile
 SPECIAL_POS = [0, 15, 16, 700, 1023]  # block edges, a deep and the last position
+PAGED_REPS = 20  # cold-L2 calls of the paged decode kernel (and the slots reference), in turn
 # (label, static kwargs, per-layer window operand)
 PAGED_VARIANTS = [("", {}, None), ("window=256", {"window": 256}, None),
                   ("window_dyn=300", {}, 300), ("softcap=30", {"softcap": 30.0}, None),
@@ -703,7 +716,7 @@ def paged_work(row_queries, width, dtype_name, window, index_bytes, int8=False):
 
 def paged_case(torch, timer, fn, plain, args, kw, wd, reps=10):
     """One kernel-vs-twin comparison: (kernel output, max error, kernel
-    ms, twin ms)."""
+    ms, twin ms), the kernel's ms a mean of `reps` cold-L2 calls."""
     got = fn(*args, wd, **kw)
     torch.cuda.synchronize()
     want = plain(*args, wd, **kw)
@@ -712,6 +725,50 @@ def paged_case(torch, timer, fn, plain, args, kw, wd, reps=10):
     ms = timer.ms(lambda: fn(*args, wd, **kw), reps)
     plain_ms = timer.ms(lambda: plain(*args, wd, **kw), max(2, reps // 4))
     return got, err, ms, plain_ms
+
+
+def dense_rows(torch, pool, table):
+    """The pool's rows of each table row as a dense cache [B, KV, MB*bs, Dh]:
+    key p of row b at position p, as the block table places it."""
+    B, MB = table.shape
+    _, KV_, bs, Dh = pool.shape
+    return pool[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV_, MB * bs, Dh).contiguous()
+
+
+def paged_decode_case(torch, timer, pa, args, kw, wd, int8, profile):
+    """paged_flash_attend vs its twin, timed as medians of PAGED_REPS cold-L2
+    calls (`Timer.alternating`); on a raw pool with the slots kernel's
+    variants (no per-layer window, softcap or scale), flash_attend_slots
+    over a dense cache holding the same rows at the same positions timed
+    in turn with it: the cost of the table (a reference only; it must
+    agree with the paged kernel within atol). `profile`: the kernels'
+    profiled device ms too. Returns a dict."""
+    q, pk, pv, table, pos = args
+    got = pa.paged_flash_attend(*args, wd, **kw)
+    again = pa.paged_flash_attend(*args, wd, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "paged_flash_attend gave other bits on a repeat")
+    check(bool(torch.isfinite(got.float()).all()), "paged_flash_attend: non-finite output")
+    want = pa.paged_flash_attend_plain(*args, wd, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    fns = [lambda: pa.paged_flash_attend(*args, wd, **kw)]
+    slots_err = None
+    if not int8 and wd is None and set(kw) <= {"window"}:
+        dk, dv = dense_rows(torch, pk, table), dense_rows(torch, pv, table)
+        window = kw.get("window")
+        slots = pa.flash_attend_slots(q, dk, dv, pos, window=window)
+        slots_err = (slots.float() - got.float()).abs().max().item()
+        fns.append(lambda: pa.flash_attend_slots(q, dk, dv, pos, window=window))
+    times = timer.alternating(fns, PAGED_REPS)
+    plain_ms = timer.ms(lambda: pa.paged_flash_attend_plain(*args, wd, **kw), 3)
+    device_ms = (timer.device_ms(lambda: pa.paged_flash_attend(*args, wd, **kw), 10)
+                 if profile else None)
+    n_split = (pa._paged_splits(q.shape[0], KV, table.shape[1], pk.shape[2] if not int8
+                                else pk.q.shape[2], pa._sm_count(q.device))
+               if hasattr(pa, "_paged_splits") else None)
+    return dict(max_abs_err=err, ms=times[0], slots_ms=times[1] if len(times) > 1 else None,
+                slots_err=slots_err, plain_ms=plain_ms, device_ms=device_ms,
+                n_split=n_split)
 
 
 def ragged_plans(P):
@@ -725,13 +782,17 @@ def ragged_plans(P):
     }
 
 
-def phase_f(torch, timer, pa, P, int8=False):
+def phase_f(torch, timer, pa, P, int8=False, decode_only=False):
     """paged_flash_attend and ragged_paged_attend vs their twins, over raw
-    pools or (int8=True) int8 pools."""
+    pools or (int8=True) int8 pools; `decode_only`: paged_flash_attend's
+    cases alone."""
     tag, suffix = ("(j)", "[int8]") if int8 else ("(f)", "")
     print(f"{tag} paged kernels{suffix} vs plain twins, H={H} KV={KV} Dh={DH}, "
           f"{BLOCK}-token blocks, {SLOT_MB} shuffled blocks per table row; device "
-          f"ms per call, cold L2")
+          f"ms per call, cold L2; paged_flash_attend: medians of {PAGED_REPS} calls "
+          f"in turn with flash_attend_slots over the same rows as a dense cache "
+          f"(slots=, raw pools without window_dyn, softcap or scale), repeats "
+          f"bit-equal; ragged_paged_attend: means of 10")
     rows = []
 
     def record(kernel, dtype_name, case, label, kw, wdyn, args, row_queries,
@@ -739,17 +800,34 @@ def phase_f(torch, timer, pa, P, int8=False):
         wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
                                                     device=DEVICE)
         fn, plain = getattr(pa, kernel), getattr(pa, kernel + "_plain")
-        got, err, ms, plain_ms = paged_case(torch, timer, fn, plain, args, kw, wd)
+        got, extra = None, {}
+        if kernel == "paged_flash_attend":
+            profile = dtype_name == "bfloat16" and case == f"B={FLEET['n_slots']}" \
+                and label == ""
+            extra = paged_decode_case(torch, timer, pa, args, kw, wd, int8, profile)
+            err, ms, plain_ms = extra.pop("max_abs_err"), extra.pop("ms"), \
+                extra.pop("plain_ms")
+        else:
+            got, err, ms, plain_ms = paged_case(torch, timer, fn, plain, args, kw, wd)
         nbytes, flops = paged_work(row_queries, width, dtype_name,
                                    kw.get("window") or wdyn, index_bytes, int8)
         bound_ms, bound_by = bound(nbytes, flops, dtype_name)
         r = dict(kernel=kernel + suffix, dtype=dtype_name, case=case, variant=label,
                  max_abs_err=err, atol=ATOL[dtype_name], ms=ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes, flops=flops)
+                 bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes, flops=flops,
+                 **extra)
         rows.append(r)
+        more = ""
+        if extra:
+            more = (f"n_split={extra['n_split']} slots={fmt_ms(extra['slots_ms'])} "
+                    + (f"(err vs slots {extra['slots_err']:.3g}) "
+                       if extra["slots_err"] is not None else "")
+                    + (f"profiled={fmt_ms(extra['device_ms'])} "
+                       if extra["device_ms"] is not None else ""))
         print(f"    {kernel + suffix:25s} {dtype_name:8s} {case:31s} {label:14s} "
-              f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} "
-              f"plain={plain_ms:.4f} bound={bound_ms:.4f} ({bound_by})")
+              f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} {more}"
+              f"plain={plain_ms:.4f} bound={bound_ms:.5f} ({bound_by}, "
+              f"{bound_ms / ms:.4f} of it)")
         return got
 
     for dtype_name in ("bfloat16", "float32"):
@@ -765,6 +843,8 @@ def phase_f(torch, timer, pa, P, int8=False):
                 record("paged_flash_attend", dtype_name, f"B={B}", label, kw, wdyn,
                        (q, pk, pv, table, pos), {b: [p] for b, p in enumerate(pos_list)},
                        B, 4 * B)
+        if decode_only:
+            continue
         for i, (name, entries) in enumerate(ragged_plans(P).items()):
             g, pk, pv, table = paged_pool(torch, dt, 9, seed=100 + i, int8=int8)
             meta_np, tok_row, _, _, _ = P.build_ragged_meta(
@@ -782,7 +862,8 @@ def phase_f(torch, timer, pa, P, int8=False):
                 # launch padding and the rows past a tile's q_len: zeros
                 check(got[dead].float().abs().sum().item() == 0.0,
                       f"ragged_paged_attend{suffix} wrote non-zeros to padding ({name})")
-    bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]]
+    bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]
+           or not (r.get("slots_err") is None or r["slots_err"] <= r["atol"])]
     check(not bad, f"paged kernels{suffix} disagree with their twins in {len(bad)} case(s)")
     return rows
 
@@ -1319,12 +1400,12 @@ def paged_line(rows, kernel, launches, replaces, pick, shapes):
     n = len(sel)
     _, bound_by = bound(sum(r["nbytes"] for r in sel), sum(r["flops"] for r in sel),
                         "bfloat16")
-    return {
+    entry = {
         "name": kernel,
         "route": "cuda",
         "source": "distributed_llm_inference_tpu_torch/csrc/paged_attention.cu",
         "replaces": replaces,
-        "launches": launches[kernel],
+        "launches": None if launches is None else launches[kernel],
         "max_abs_err": max(r["max_abs_err"] for r in sel),
         "ms": sum(r["ms"] for r in sel) / n,
         "plain_ms": sum(r["plain_ms"] for r in sel) / n,
@@ -1333,6 +1414,28 @@ def paged_line(rows, kernel, launches, replaces, pick, shapes):
         "library_ms": None,  # no single PyTorch call reads a block table
         "shapes": shapes,
     }
+    if kernel.startswith("paged_flash_attend"):
+        # medians of PAGED_REPS in turn; the split count, the kernels'
+        # profiled device ms, and flash_attend_slots over the same rows as a
+        # dense cache (raw pool only), a reference for the table's cost
+        r = sel[0]
+        entry.update(n_split=r["n_split"], device_ms=r["device_ms"],
+                     slots_ms=r["slots_ms"])
+    return entry
+
+
+def paged_decode_line(rows, launches, int8):
+    """paged_flash_attend's JSON entry (or its int8 pool's), from the bf16
+    B=8 case of (f) or (j) at the fleet's positions."""
+    name = "paged_flash_attend[int8]" if int8 else "paged_flash_attend"
+    return paged_line(
+        rows, name, launches, "distributed_llm_inference_tpu/ops/paged_attention.py:71",
+        lambda r: r["case"] == f"B={FLEET['n_slots']}",
+        ("bf16 q, int8 pool + fp32 scales, " if int8 else "bf16 ")
+        + f"B={FLEET['n_slots']} H={H} KV={KV} Dh={DH}, {BLOCK}-token blocks, "
+        f"positions {SPECIAL_POS} and 3 drawn in [0, 1024); ms: median of "
+        f"{PAGED_REPS} in turn" + ("" if int8 else " with slots_ms, flash_attend_slots "
+                                    "over the same rows as a dense cache"))
 
 
 # -- the dense slot fleet and whole-prefill admission: phases (n) to (p) --------
@@ -1809,7 +1912,10 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
                               idle_share=1 - busy_us / wall_us, kernels=len(kern),
                               kernels_per_token=len(kern) / max(tokens, 1),
                               q4_ms={name[:80]: ms for ms, _, name
-                                     in top_kernels(kern, len(kern)) if "q4" in name})
+                                     in top_kernels(kern, len(kern)) if "q4" in name},
+                              attn_ms={name[:80]: ms for ms, _, name
+                                       in top_kernels(kern, len(kern))
+                                       if "walk_" in name or "paged_fwd" in name})
         else:
             row[label] = "not measured (the profiler recorded no device kernels)"
     print(f"{tag} {name}: 2 replays bit-equal to eager (packed, state, KV), launches per "
@@ -1825,6 +1931,9 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
             if r["q4_ms"]:
                 print(f"    profiled {label:6s}: q4 kernels' device ms "
                       f"{sum(r['q4_ms'].values()):.3f}, by name {json.dumps(r['q4_ms'])}")
+            if r["attn_ms"]:  # the paged kernels: the decode walk's split and combine
+                print(f"    profiled {label:6s}: paged attention kernels' device ms "
+                      f"{sum(r['attn_ms'].values()):.3f}, by name {json.dumps(r['attn_ms'])}")
         else:
             print(f"    profiled {label:6s}: {r}")
     return row
@@ -1910,11 +2019,13 @@ def main(argv) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["b", "j"],
+    ap.add_argument("--only", choices=["b", "f", "j"],
                     help="run (a) and then only (b) with the kernels line's two "
-                         "flash_attend entries at the solo chunks (b), or only (j)'s "
-                         "q4_matmul_rows cases (j), with the kernel's build log: a "
-                         "quick check of a flash_attend or q4 change")
+                         "flash_attend entries at the solo chunks (b), only (f)'s "
+                         "and (j)'s paged_flash_attend cases with the kernels "
+                         "line's two entries (f), or only (j)'s q4_matmul_rows "
+                         "cases (j), with the kernel's build log: a quick check "
+                         "of a flash_attend, paged decode or q4 change")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -1944,6 +2055,17 @@ def main(argv) -> int:
     built = kernels.build(kernels.sources())
     print(f"(a) built {sorted(built)} in {time.time() - t0:.1f} s")
     timer = Timer(torch)
+    if args.only == "f":
+        log = built["paged_attention"].with_name(built["paged_attention"].name + ".log")
+        print(log.read_text())
+        lines = []
+        for int8, rows in ((False, phase_f(torch, timer, pa, P, decode_only=True)),
+                           (True, phase_f(torch, timer, pa, P, int8=True,
+                                          decode_only=True))):
+            lines.append(paged_decode_line(rows, None, int8))
+        for line in lines:  # launches null: the served path does not run here
+            print("(f) " + json.dumps(line))
+        return 0
     if args.only == "j":
         log = built["q4_matmul"].with_name(built["q4_matmul"].name + ".log")
         print(log.read_text())
@@ -2074,11 +2196,7 @@ def main(argv) -> int:
                    f"bf16 H={H} KV={KV} Dh={DH}, {BLOCK}-token blocks, width "
                    f"{RAGGED_W} in tiles of {RAGGED_TILE}; mean of the (f) launches: "
                    + ", ".join(ragged_plans(P))),
-        paged_line(paged_rows, "paged_flash_attend", wave["launches"],
-                   "distributed_llm_inference_tpu/ops/paged_attention.py:71",
-                   lambda r: r["case"] == f"B={FLEET['n_slots']}",
-                   f"bf16 B={FLEET['n_slots']} H={H} KV={KV} Dh={DH}, {BLOCK}-token "
-                   f"blocks, positions {SPECIAL_POS} and 3 drawn in [0, 1024)"),
+        paged_decode_line(paged_rows, wave["launches"], False),
         q4_line(q4_rows, qwave["launches"]),
         kernels_line(torch, timer, fa, solo_chunks,
                      solo_launches["flash_attend[int8]"], int8=True),
@@ -2088,12 +2206,7 @@ def main(argv) -> int:
                    f"bf16 q, int8 pool + fp32 scales, H={H} KV={KV} Dh={DH}, "
                    f"{BLOCK}-token blocks, width {RAGGED_W} in tiles of {RAGGED_TILE}; "
                    "mean of the (j) launches: " + ", ".join(ragged_plans(P))),
-        paged_line(int8_rows, "paged_flash_attend[int8]", qwave["launches"],
-                   "distributed_llm_inference_tpu/ops/paged_attention.py:71",
-                   lambda r: r["case"] == f"B={FLEET['n_slots']}",
-                   f"bf16 q, int8 pool + fp32 scales, B={FLEET['n_slots']} H={H} "
-                   f"KV={KV} Dh={DH}, {BLOCK}-token blocks, positions {SPECIAL_POS} "
-                   "and 3 drawn in [0, 1024)"),
+        paged_decode_line(int8_rows, qwave["launches"], True),
         slots_line(slots_rows, slots_driven,
                    dense_launches["flash_attend_slots"]
                    + whole_launches["flash_attend_slots"]),

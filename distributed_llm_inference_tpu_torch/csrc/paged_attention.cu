@@ -1,90 +1,74 @@
-// GQA attention over the block-paged KV pool: the mixed prefill + decode
-// launch (`ragged`) and T=1 decode (`paged`): one device function with two
-// entry points. (T=1 decode over the dense slot cache is
-// csrc/slots_attention.cu.)
+// GQA attention over the block-paged KV pool: T=1 decode
+// (`paged_flash_attend`) and the mixed prefill + decode launch
+// (`ragged_paged_attend`), one entry point each.
 //
-// Replaces: the Pallas TPU kernels `_ragged_kernel` (launched by
-// `ragged_paged_attend`) and `_paged_kernel` (launched by
-// `paged_flash_attend`) in the JAX package's
-// distributed_llm_inference_tpu/ops/paged_attention.py. Same function:
+// Replaces: the Pallas TPU kernels `_paged_kernel` (launched by
+// `paged_flash_attend` through pl.pallas_call at :252) and
+// `_ragged_kernel` (launched by `ragged_paged_attend`) in the JAX
+// package's distributed_llm_inference_tpu/ops/paged_attention.py. Same
+// function:
+//   * paged: q [B, 1, H, Dh], one query per table row b at position
+//     pos[b]. Key position p lives in pool block table[b, p / bs] at slot
+//     p % bs of the pool [N, KV, bs, Dh]; an id outside [0, N) reads block
+//     0, the trash block. Row b attends its keys at positions <= pos[b]
+//     and < MB * bs (a row at pos >= MB * bs attends all MB * bs, as
+//     `_live_range` clips), with a sliding window win > 0 only those >
+//     pos[b] - win.
 //   * ragged: q [W, H, Dh] is a flat query axis cut into G tiles of
 //     tq = W / G queries; tile g carries meta[g] = (row, q_start, q_len,
 //     kind). Query t of the tile (t < q_len) sits at absolute position
 //     q_start + t of fleet row `row` and attends that row's keys at
-//     positions <= its own (and, with a sliding window win > 0, > q_pos -
-//     win). Key position p lives in pool block table[row, p / bs] at slot
-//     p % bs of the pool [N, KV, bs, Dh]. A tile with q_len == 0 (launch
-//     padding) and rows with t >= q_len output zeros.
-//   * paged: q [B, 1, H, Dh], one query per table row b at position
-//     pos[b]: the same walk with tq = 1, q_start = pos[b], q_len = 1.
+//     positions <= its own (and, with a window, > q_pos - win). A tile
+//     with q_len == 0 (launch padding) and rows with t >= q_len output
+//     zeros.
 // Scores are scaled, soft-capped (cap * tanh(s / cap)) before the mask;
 // the running max, sum and accumulator are fp32. Output in the input dtype
-// (fp32, bf16 or fp16), Dh <= 256.
+// (fp32, bf16 or fp16), Dh <= 256. The window is static, or one int32 on
+// the device (`win_dyn`, a per-layer width).
 //   * int8 pool: the pool holds int8 K/V with one fp32 scale per (block,
 //     KV head, slot), scales [N, KV, bs] (the JAX kernels' KVQuant
-//     operands). The tile prologue loads each int8 element and its scale
-//     and stages q8 * s in fp32, then the dot runs as for a raw pool: the
-//     order of the JAX kernel's `k.astype(f32) * scale` prologue.
+//     operands), dequantized on the SM: q8 * s in fp32.
 //
-// What bounds it on an H100: every live pool block's K/V rows are read once
-// per KV head; a decode row does 4 * Dh FLOPs per head per live key
+// What bounds them on an H100: every live pool block's K/V rows are read
+// once per KV head; a decode row does 4 * Dh FLOPs per head per live key
 // against 2 * Dh * esize bytes per key and KV head, i.e. ~2 * group = 16
 // FLOPs per byte for tinyllama (H/KV = 8): far below the ~295 at which the
 // bf16 tensor cores stop being memory-bound, so decode and mixed launches
 // are bound by BYTES. Only a long prefill chunk (q_len = tq queries over a
-// long prefix) reaches ~8x that, still bytes-bound at tq = 8.
+// long prefix) reaches ~8x that, still bytes-bound at tq = 8. At the
+// fleet's decode step (B = 8 rows of up to 1024 keys, KV = 4) one block
+// per (row, KV head) would put 32 blocks on 132 SMs, each walking its
+// row's keys one tile after another.
 //
-// What the design does about it:
-//   * One block owns one (query tile g or row b, KV head). The GQA group's
-//     heads fold into the block's query rows (row r = t * group + head), as
-//     the TPU kernel folds them, so each pool block of K/V is read from
-//     device memory once for all the heads that share it.
-//   * The block reads meta[g] and table[row, j] from device memory itself
-//     (the TPU's scalar prefetch): the mixed step rewrites meta on the card
-//     (engine/paged.apply_device_meta), and the host never reads it.
-//   * The TPU kernel's sequential KV grid axis becomes a loop inside the
-//     block over the tile's live key range [first * bs, needed * bs) of
-//     `_ragged_live_range`: padding tiles, blocks past the causal frontier
-//     and blocks before the window are never read.
-//   * Keys are staged through shared memory in tiles of BN = 64 positions
-//     (four 16-token pool blocks), gathered block by block through the
-//     table; scores and probabilities never leave the SM.
-// An int8 pool halves the K/V bytes of every live block (Dh int8 bytes
-// plus one 4-byte scale per position and KV head, against 2 * Dh at bf16).
-// It is a first, simple kernel: fp32 FMAs on the CUDA cores, no tensor
-// cores, no copy/compute overlap, one block per (tile, KV head) — few
-// blocks in flight at decode sizes (B = 8: 32 blocks on 132 SMs). The
-// split-KV walk of csrc/slots_attention.cu (cp.async tiles, tensor-core
-// products) is the design this kernel can take over with a block table.
+// What the designs do about it:
+//   * paged: the split-KV walk of csrc/decode_walk.cuh (its note) with
+//     the `PagedRows` policy. `_paged_splits` (ops/paged_attention.py)
+//     fixes n_split on the host so that B * KV * n_split fills every SM
+//     twice (9 at the fleet's B = 8); each block reads pos[b], the window
+//     and its tiles' block ids on the device, and walks its share of the
+//     row's live range through a cp.async ring with tensor-core products
+//     (bf16 / fp16); an int8 pool's rows and scales ride the ring at half
+//     the bytes and each warp dequantizes its own keys. A second kernel
+//     merges the splits in a fixed order, so repeats are bit-equal and
+//     nothing is read back to the host: the fleet's decode chunk captures
+//     the call in its CUDA graph.
+//   * ragged (`paged_fwd`, a first, simple kernel): one block owns one
+//     (query tile g, KV head). The GQA group's heads fold into the block's
+//     query rows (row r = t * group + head), as the TPU kernel folds them,
+//     so each pool block of K/V is read from device memory once for all
+//     the heads that share it. The block reads meta[g] and table[row, j]
+//     itself (the TPU's scalar prefetch): the mixed step rewrites meta on
+//     the card (engine/paged.apply_device_meta), and the host never reads
+//     it. The TPU kernel's sequential KV grid axis becomes a loop inside
+//     the block over the tile's live key range [first * bs, needed * bs)
+//     of `_ragged_live_range`, staged through shared memory in tiles of
+//     BN = 64 positions in fp32; fp32 FMAs on the CUDA cores, no copy /
+//     compute overlap. The int8 prologue stages q8 * s in fp32, the order
+//     of the JAX kernel's `k.astype(f32) * scale`.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stddef.h>
-#include <stdint.h>
-
-#include <atomic>
-#include <type_traits>
+#include "decode_walk.cuh"
 
 namespace {
-
-constexpr int NT = 128;  // threads per block: 8 row groups x 16 column lanes
-constexpr int MAX_DEVICES = 64;
-constexpr float NEG = -0.7f * FLT_MAX;  // mask fill (the TPU kernel's _NEG)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
 
 struct Args {
   const void* q;
@@ -92,8 +76,7 @@ struct Args {
   const void* v;
   void* out;
   const int* table;  // [R, MB]
-  const int* meta;   // [G, 4] (ragged) or null
-  const int* pos;    // [B] (paged) or null
+  const int* meta;   // [G, 4]
   const int* win_dyn;
   const float* k_scale;  // [N, KV, bs] for an int8 pool, else null
   const float* v_scale;
@@ -119,8 +102,8 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   constexpr int KS = DHP + 1;
   constexpr int PS = BN + 1;
 
-  extern __shared__ float smem[];
-  float* Qs = smem;          // [BM][QS]  scaled queries
+  extern __shared__ float fwd_smem[];
+  float* Qs = fwd_smem;       // [BM][QS]  scaled queries
   float* Ks = Qs + BM * QS;  // [BN][KS]  key tile
   float* Vs = Ks + BN * KS;  // [BN][DHP] value tile
   float* Ps = Vs + BN * DHP; // [BM][PS]  probabilities of the tile
@@ -134,24 +117,16 @@ __global__ void __launch_bounds__(NT) paged_fwd(Args a) {
   const int ty = tid >> 4;
   const int tx = tid & 15;
   const int kvh = blockIdx.y;
-  const int g = blockIdx.z;  // query tile (ragged) or table row (paged)
+  const int g = blockIdx.z;  // query tile
   const int group = a.H / a.KV;
   const int rows_total = a.tq * group;
   const int row0 = blockIdx.x * BM;
   const int Dh = a.Dh;
 
   // this tile's placement, read on the device (the TPU's scalar prefetch)
-  int row, q_start, q_len;
-  if (a.pos != nullptr) {
-    row = g;
-    q_start = a.pos[g];
-    q_len = 1;
-  } else {
-    row = a.meta[4 * g + 0];
-    q_start = a.meta[4 * g + 1];
-    q_len = a.meta[4 * g + 2];
-  }
-  row = min(max(row, 0), a.R - 1);
+  const int row = min(max(a.meta[4 * g + 0], 0), a.R - 1);
+  const int q_start = a.meta[4 * g + 1];
+  const int q_len = a.meta[4 * g + 2];
   const int win = a.win_dyn != nullptr ? *a.win_dyn : a.win_static;
 
   // query tile, fp32, pre-scaled (the TPU kernel scales q before the dot)
@@ -320,35 +295,22 @@ cudaError_t launch(const Args& a, int n_tiles, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (BM * (DHP + 1) + BN * (DHP + 1) + BN * DHP + BM * (BN + 1));
   auto kernel = paged_fwd<T, KT, DHP, RM>;
-  // the shared-memory opt-in, once per device for this instance
   static std::atomic<bool> smem_set[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = opt_in_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES || !smem_set[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    if (dev < MAX_DEVICES) smem_set[dev].store(true, std::memory_order_release);
-  }
   const int rows = a.tq * (a.H / a.KV);
   const dim3 grid((rows + BM - 1) / BM, a.KV, n_tiles);
   kernel<<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// rows per tile <= 8 (decode: the GQA group alone) take one row per
-// thread; larger tiles (a ragged tile of tq queries x group heads) take
-// up to 64 (32 at Dh 256) per block and split across blocks beyond that
+// a tile of tq queries x group heads takes up to 64 rows (32 at Dh 256)
+// per block and splits across blocks beyond that
 template <typename T, typename KT>
 cudaError_t dispatch(const Args& a, int n_tiles, cudaStream_t stream) {
-  const bool small = a.tq * (a.H / a.KV) <= 8;
-  if (a.Dh <= 64) return small ? launch<T, KT, 64, 1>(a, n_tiles, stream)
-                               : launch<T, KT, 64, 8>(a, n_tiles, stream);
-  if (a.Dh <= 128) return small ? launch<T, KT, 128, 1>(a, n_tiles, stream)
-                                : launch<T, KT, 128, 8>(a, n_tiles, stream);
-  return small ? launch<T, KT, 256, 1>(a, n_tiles, stream)
-               : launch<T, KT, 256, 4>(a, n_tiles, stream);
+  if (a.Dh <= 64) return launch<T, KT, 64, 8>(a, n_tiles, stream);
+  if (a.Dh <= 128) return launch<T, KT, 128, 8>(a, n_tiles, stream);
+  return launch<T, KT, 256, 4>(a, n_tiles, stream);
 }
 
 // a pool is the query's dtype, or int8 with both scale arrays
@@ -376,30 +338,71 @@ int run(const Args& a, int dtype, int n_tiles, void* stream) {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out). Pools
 // [N, KV, bs, Dh] of that dtype, or int8 with k_scale / v_scale fp32
-// [N, KV, bs] (both null for a raw pool);
-// tables [R, MB] int32; win_dyn: one int32 on the device that overrides
-// win_static, or null; a width <= 0 means full causal. softcap <= 0 means
-// off. Each launches on `stream` and returns the CUDA error code of the
-// launch (0 = launched).
+// [N, KV, bs] (both null for a raw pool); win_dyn: one int32 on the
+// device that overrides win_static, or null; a width <= 0 means full
+// causal. softcap <= 0 means off. Each launches on `stream` and returns
+// the CUDA error code of the launch (0 = launched).
 
-// Mixed prefill + decode: q / out [G * tq, H, Dh], meta [G, 4] int32.
+// Mixed prefill + decode: q / out [G * tq, H, Dh], tables [R, MB] int32,
+// meta [G, 4] int32.
 extern "C" int dli_ragged_paged_attend(
     const void* q, const void* k, const void* v, const float* k_scale,
     const float* v_scale, void* out, int dtype, int G, int tq, int H, int KV,
     int N, int bs, int R, int MB, int Dh, const int* table, const int* meta,
     int win_static, const int* win_dyn, float scale, float softcap, void* stream) {
-  Args a{q, k, v, out, table, meta, nullptr, win_dyn, k_scale, v_scale, win_static,
+  Args a{q, k, v, out, table, meta, win_dyn, k_scale, v_scale, win_static,
          tq, H, KV, N, bs, MB, R, Dh, scale, softcap};
   return run(a, dtype, G, stream);
 }
 
-// T=1 decode: q / out [B, 1, H, Dh], table [B, MB], pos [B] int32.
+// T=1 decode: q / out [B, 1, H, Dh], table [B, MB], pos [B] int32. ws: fp32
+// workspace of B * KV * n_split * (H / KV) * (Dh + 2) floats, written
+// before it is read; n_split blocks share each (row, KV head)'s live keys.
+// Launches the split kernel and the combine.
 extern "C" int dli_paged_flash_attend(
     const void* q, const void* k, const void* v, const float* k_scale,
-    const float* v_scale, void* out, int dtype, int B, int H, int KV, int N,
-    int bs, int MB, int Dh, const int* table, const int* pos, int win_static,
-    const int* win_dyn, float scale, float softcap, void* stream) {
-  Args a{q, k, v, out, table, nullptr, pos, win_dyn, k_scale, v_scale, win_static,
-         1, H, KV, N, bs, MB, B, Dh, scale, softcap};
-  return run(a, dtype, B, stream);
+    const float* v_scale, void* out, float* ws, int dtype, int B, int H, int KV,
+    int N, int bs, int MB, int Dh, const int* table, const int* pos, int win_static,
+    const int* win_dyn, float scale, float softcap, int n_split, void* stream) {
+  if (N <= 0 || bs <= 0 || MB <= 0 || table == nullptr || (long long)MB * bs > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const bool int8 = k_scale != nullptr;
+  const int esize = int8 ? 1 : dtype == 0 ? 4 : 2;
+  const int vec = (Dh * esize) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  WalkArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.k_scale = k_scale;
+  a.v_scale = v_scale;
+  a.out = out;
+  a.ws = ws;
+  a.pos = pos;
+  a.table = table;
+  a.win_dyn = win_dyn;
+  a.B = B;
+  a.H = H;
+  a.KV = KV;
+  a.Dh = Dh;
+  a.n_split = n_split;
+  a.S = MB * bs;
+  a.N = N;
+  a.bs = bs;
+  a.MB = MB;
+  a.win_static = win_static;
+  a.vec = vec;
+  a.scale = scale;
+  a.softcap = softcap;
+  if (walk_args_bad(a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype * 2 + (int8 ? 1 : 0)) {
+    case 0: return (int)launch_walk_by_dim<float, float, PagedRows>(a, st);
+    case 1: return (int)launch_walk_by_dim<float, int8_t, PagedRows>(a, st);
+    case 2: return (int)launch_walk_by_dim<__nv_bfloat16, __nv_bfloat16, PagedRows>(a, st);
+    case 3: return (int)launch_walk_by_dim<__nv_bfloat16, int8_t, PagedRows>(a, st);
+    case 4: return (int)launch_walk_by_dim<__half, __half, PagedRows>(a, st);
+    case 5: return (int)launch_walk_by_dim<__half, int8_t, PagedRows>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

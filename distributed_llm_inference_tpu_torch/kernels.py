@@ -7,8 +7,9 @@ compiled when a module is imported: a wrapper calls `load_library` the
 first time it launches its kernel, and `build` compiles any number of
 sources at once, one `nvcc` process each, all started together.
 
-Libraries are named by a digest of their source and flags, so an edited
-source rebuilds and an unchanged one is reused across processes.
+Libraries are named by a digest of their source, the headers under
+csrc/ it includes, and the flags, so an edited source or header rebuilds
+and an unchanged one is reused across processes.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -44,11 +46,31 @@ def sources() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _local_includes(path: Path, seen: set) -> None:
+    """Add to `seen` every header under csrc/ that `path` includes, at any
+    depth (`#include "..."`; a name not found under csrc/ is left to the
+    compiler's search path)."""
+    for name in _INCLUDE.findall(path.read_bytes()):
+        header = (path.parent / name.decode()).resolve()
+        if header.is_relative_to(CSRC) and header.is_file() and header not in seen:
+            seen.add(header)
+            _local_includes(header, seen)
+
+
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:16]}.so"
+    """Where `csrc/<name>.cu` builds to, keyed by the source, every header
+    under csrc/ it includes, and the flags."""
+    src = CSRC / f"{name}.cu"
+    headers = set()
+    _local_includes(src, headers)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(headers):
+        h.update(str(header.relative_to(CSRC)).encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict:

@@ -3,13 +3,19 @@ three CUDA kernels' wrappers and their plain PyTorch twins.
 
 `ragged_paged_attend`, `paged_flash_attend` and `flash_attend_slots` are
 the ports of the JAX package's ops/paged_attention.py functions of the
-same names. The Pallas bodies `_ragged_kernel` and `_paged_kernel` become
-one hand-written Hopper kernel with two entry points in
-csrc/paged_attention.cu; `_slots_kernel` becomes the split-KV kernel of
-csrc/slots_attention.cu (each source's note says what bounds it and what
-its design does about it). The pool
-keeps the JAX layout, one layer's slice [N, KV, bs, Dh]: key position p of
-a table row lives in physical block table[row, p // bs] at slot p % bs.
+same names, each a hand-written Hopper kernel (each source's note says
+what bounds it and what its design does about it). The two T=1 decode
+kernels share one split-KV walk (csrc/decode_walk.cuh): each row's live
+key range is shared by `n_split` blocks, fixed on the host from the
+shapes alone (`_paged_splits`, `_slots_splits`), whose fp32 partials go
+to a workspace this module allocates and are merged in a fixed order by
+a second kernel (repeats are bit-equal). `paged_flash_attend` walks the
+pool through the block table (csrc/paged_attention.cu, which also holds
+the ragged kernel); `flash_attend_slots` walks the dense cache
+(csrc/slots_attention.cu). The pool keeps the JAX layout, one
+layer's slice [N, KV, bs, Dh]: key position p of a table row lives in
+physical block table[row, p // bs] at slot p % bs; an id outside [0, N)
+reads block 0, the trash block.
 
   * ragged_paged_attend(q [W, H, Dh], pool_k, pool_v, table [R, MB] int32,
     meta [G, 4] int32, window_dyn=None, *, window, scale, softcap): the
@@ -21,7 +27,8 @@ a table row lives in physical block table[row, p // bs] at slot p % bs.
     `kind` is accounting only: the math is uniform.
   * paged_flash_attend(q [B, 1, H, Dh], pool_k, pool_v, table [B, MB],
     pos [B] int32, window_dyn=None, *, window, scale, softcap): T=1
-    decode, one query per row at pos[b].
+    decode, one query per row at pos[b]; a row at pos >= MB * bs attends
+    all MB * bs keys.
   * flash_attend_slots(q [B, 1, H, Dh], cache_k, cache_v [B, KV, S, Dh],
     pos [B] int32, *, block_k=0, window=None): T=1 decode over the dense
     slot-fleet cache, row b at pos[b] over its own cache row; keys at
@@ -30,10 +37,7 @@ a table row lives in physical block table[row, p // bs] at slot p % bs.
     raw caches only (the JAX kernel has no int8 variant). block_k is the
     JAX kernel's DMA tile and does not change the result. The serving
     hook never selects it (the dense fleet decodes through the einsum, as
-    the JAX package's models/llama.default_attn_hook does). The kernel
-    splits each row's live key range over `_slots_splits` blocks, writes
-    one fp32 partial per split into a workspace this wrapper allocates,
-    and merges the splits in a fixed order (repeats are bit-equal).
+    the JAX package's models/llama.default_attn_hook does).
 
 All three attend keys at positions <= the query's own, and with a window
 (static `window`, or for the paged two the one-element int32 device
@@ -42,13 +46,13 @@ scale defaults to Dh**-0.5 and softcap caps the scores before the mask.
 Returns q's shape and dtype.
 
 The pools may be int8 (ops/kv_quant.KVQuant leaves: q [N, KV, bs, Dh]
-int8 and fp32 scales s [N, KV, bs]); the kernel dequantizes each staged
-tile in its prologue and counts those launches in `<wrapper>.launches_int8`,
-raw-dtype launches in `<wrapper>.launches`.
+int8 and fp32 scales s [N, KV, bs]); the kernels dequantize on the SM and
+count those launches in `<wrapper>.launches_int8`, raw-dtype launches in
+`<wrapper>.launches`.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
-it runs its plain twin. The kernel reads meta, table and pos on the card,
-so a launch never syncs the host.
+it runs its plain twin. The kernels read meta, table and pos on the card,
+so a launch never syncs the host and can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -86,8 +90,8 @@ SIGNATURES = {
         _i32, _i32, _i32, _vp, _vp, _i32, _vp, _f32, _f32, _vp,
     ],
     "dli_paged_flash_attend": [
-        _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
-        _i32, _vp, _vp, _i32, _vp, _f32, _f32, _vp,
+        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
+        _i32, _i32, _vp, _vp, _i32, _vp, _f32, _f32, _i32, _vp,
     ],
     "dli_flash_attend_slots": [
         _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _i32,
@@ -95,7 +99,7 @@ SIGNATURES = {
     ],
 }
 _SLOTS = "dli_flash_attend_slots"
-SLOTS_TILE = 64  # keys per tile of the slots kernel's walk
+SLOTS_TILE = 64  # keys per tile of the decode walk (32 for fp32 at Dh 256)
 
 
 @functools.cache
@@ -116,6 +120,14 @@ def _slots_splits(B, KV, S, sm_count):
     shapes alone, so a launch reads nothing back and can be captured."""
     want = -(-2 * sm_count // (B * KV))
     return max(1, min(want, -(-S // SLOTS_TILE)))
+
+
+def _paged_splits(B, KV, MB, bs, sm_count):
+    """How many blocks share each (row, KV head)'s live key range in the
+    paged decode kernel: the slots kernel's rule over the MB * bs keys a
+    table row can hold. A function of the shapes alone: a launch reads
+    nothing back and is captured in the fleet's decode-chunk graph."""
+    return _slots_splits(B, KV, MB * bs, sm_count)
 
 
 def _attend_blocks(q5, blocks, pool_k, pool_v, q_pos, live, window_dyn,
@@ -256,18 +268,22 @@ def paged_flash_attend(q, pool_k, pool_v, table, pos, window_dyn=None, *,
         raise ValueError(f"paged_flash_attend: table has {table.shape[0]} rows for B={B}")
     N, KV, bs = _check("paged_flash_attend", q, pool_k, pool_v, table,
                        window_dyn, (("pos", pos, B),))
+    MB = table.shape[1]
+    n_split = _paged_splits(B, KV, MB, bs, _sm_count(q.device))
     out = torch.empty_like(q)
+    # per (row, KV head, split): acc [group, Dh], then (m, l) [group, 2]
+    ws = torch.empty(B * H * n_split * (Dh + 2), dtype=torch.float32, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.dli_paged_flash_attend(
-            q.data_ptr(), *kv_operands(pool_k, pool_v),
-            out.data_ptr(), _DTYPE_CODES[q.dtype], B, H, KV, N, bs,
-            table.shape[1], Dh, table.data_ptr(), pos.data_ptr(),
+            q.data_ptr(), *kv_operands(pool_k, pool_v), out.data_ptr(),
+            ws.data_ptr(), _DTYPE_CODES[q.dtype], B, H, KV, N, bs, MB, Dh,
+            table.data_ptr(), pos.data_ptr(),
             int(window) if window is not None else -1,
             window_dyn.data_ptr() if window_dyn is not None else None,
             float(Dh ** -0.5 if scale is None else scale),
-            float(softcap) if softcap is not None else 0.0, stream,
+            float(softcap) if softcap is not None else 0.0, n_split, stream,
         )
     if rc != 0:
         raise RuntimeError(f"paged_flash_attend kernel launch failed: CUDA error {rc}")

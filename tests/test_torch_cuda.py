@@ -255,6 +255,147 @@ def test_paged_kernels_reject_what_they_do_not_take(card):
                                table, meta)
 
 
+# the paged decode kernel's split-KV walk at its edges: (B, H, KV, Dh, bs, MB,
+# positions). B = 1 (the most splits: one per 64-key tile of the row), B = 8
+# at the fleet's shapes with positions on block, tile and split edges (9
+# splits of 16 tiles on 132 SMs), B = 32 on both sides of every tile edge
+# (3 splits), 12-key blocks that straddle the tiles' edges, a group of 12
+# heads (two head tiles), Dh 128 and 256, and a Dh of 20 whose rows are no
+# multiple of 16 bytes (element copies, no cp.async); each list holds a row
+# at pos >= MB * bs (attends all of them)
+PAGED_SPLIT_CASES = [
+    (1, 32, 4, 64, 16, 64, [1023]),
+    (1, 32, 4, 64, 16, 64, [1087]),
+    (8, 32, 4, 64, 16, 64, [0, 15, 16, 63, 64, 127, 128, 1023]),
+    (8, 32, 4, 64, 16, 64, [191, 192, 447, 448, 703, 704, 959, 5000]),
+    (32, 32, 4, 64, 16, 64, [0, 1, 63, 64, 65, 127, 128, 129, 191, 192, 255, 256, 257,
+                             319, 320, 383, 384, 447, 448, 511, 512, 575, 576, 639, 640,
+                             703, 704, 767, 768, 1022, 1023, 1024]),
+    (4, 32, 4, 64, 12, 50, [11, 12, 599, 600]),
+    (2, 24, 2, 64, 16, 44, [699, 704]),
+    (3, 8, 2, 128, 16, 20, [0, 17, 400]),
+    (2, 16, 2, 256, 16, 38, [599, 64]),
+    (2, 8, 2, 20, 8, 13, [5, 103]),
+]
+
+
+def _paged_split_operands(card, dt, g, B, H, KV, Dh, bs, MB, positions):
+    """A shuffled pool as _pool_case, with a bad id inside the live range of
+    row 0 (-3) and of the last row (N + 5): both read block 0, the trash
+    block, as in the twin."""
+    pool_k, pool_v, table = _pool_case(card, dt, g, N=B * MB + 1, KV=KV, bs=bs,
+                                       Dh=Dh, R=B, MB=MB)
+    table[0, 0] = -3
+    table[-1, min(MB - 1, positions[-1] // bs)] = B * MB + 6
+    q = torch.randn(B, 1, H, Dh, generator=g, device=card).to(dt)
+    return q, pool_k, pool_v, table, torch.tensor(positions, dtype=torch.int32, device=card)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_paged_decode_kernel_matches_twin_at_split_edges(card, dtype):
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(21)
+    for B, H, KV, Dh, bs, MB, positions in PAGED_SPLIT_CASES:
+        q, pk, pv, table, pos = _paged_split_operands(card, dt, g, B, H, KV, Dh, bs, MB,
+                                                      positions)
+        for kw, wdyn in PAGED_VARIANTS:
+            wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
+                                                        device=card)
+            before = pa.paged_flash_attend.launches
+            got = pa.paged_flash_attend(q, pk, pv, table, pos, wd, **kw)
+            again = pa.paged_flash_attend(q, pk, pv, table, pos, wd, **kw)
+            torch.cuda.synchronize()
+            assert pa.paged_flash_attend.launches == before + 2
+            assert torch.equal(got, again)  # a fixed-order merge: the same bits
+            want = pa.paged_flash_attend_plain(q, pk, pv, table, pos, wd, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL[dtype], (B, Dh, bs, positions, kw, wdyn, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_int8_paged_decode_kernel_matches_twin_at_split_edges(card, dtype):
+    """The int8 pool's ring (int8 rows and fp32 scales) and each warp's
+    dequantized keys, at the split edges above."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(22)
+    for B, H, KV, Dh, bs, MB, positions in PAGED_SPLIT_CASES:
+        q, pk, pv, table, pos = _paged_split_operands(card, torch.float32, g, B, H, KV,
+                                                      Dh, bs, MB, positions)
+        q, pk, pv = q.to(dt), _int8(pk), _int8(pv)
+        for kw, wdyn in PAGED_VARIANTS:
+            wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
+                                                        device=card)
+            before = pa.paged_flash_attend.launches_int8
+            got = pa.paged_flash_attend(q, pk, pv, table, pos, wd, **kw)
+            torch.cuda.synchronize()
+            assert pa.paged_flash_attend.launches_int8 == before + 1
+            assert torch.equal(got, pa.paged_flash_attend(q, pk, pv, table, pos, wd, **kw))
+            want = pa.paged_flash_attend_plain(q, pk, pv, table, pos, wd, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL[dtype], (B, Dh, bs, positions, kw, wdyn, err)
+
+
+def test_paged_decode_kernel_gives_zeros_for_a_row_with_no_live_key(card):
+    """pos < 0, or a window that ends before MB * bs (a row at 2 MB bs):
+    every split is empty and the merge writes zeros, as the TPU kernel does."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=card).manual_seed(23)
+    q, pk, pv, table, pos = _paged_split_operands(card, torch.bfloat16, g, 4, 32, 4, 64,
+                                                  16, 64, [-1, 5, 2048, 700])
+    got = pa.paged_flash_attend(q, pk, pv, table, pos, window=13)
+    want = pa.paged_flash_attend_plain(q, pk, pv, table, pos, window=13)
+    assert torch.equal(got[0::2], torch.zeros_like(got[0::2]))
+    assert (got[1::2].float() - want[1::2].float()).abs().max().item() <= ATOL["bfloat16"]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["raw", "int8"])
+def test_paged_decode_kernel_replays_in_a_cuda_graph_bit_equal(card, int8):
+    """One call at the fleet's shapes captured in a CUDA graph (the
+    workspace from the graph's pool, n_split fixed on the host): after pos
+    and the per-layer window change in place, each replay gives the eager
+    call's bits; the eager call passes set_sync_debug_mode("error")."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=card).manual_seed(24)
+    q, pk, pv, table, pos = _paged_split_operands(card, torch.float32, g, 8, 32, 4, 64,
+                                                  16, 64, [1023] * 8)
+    q = q.to(torch.bfloat16)
+    pk, pv = (_int8(pk), _int8(pv)) if int8 else (pk.to(torch.bfloat16),
+                                                  pv.to(torch.bfloat16))
+    wd = torch.tensor([-1], dtype=torch.int32, device=card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm: library, shared-memory opt-in
+        pa.paged_flash_attend(q, pk, pv, table, pos, wd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_flash_attend(q, pk, pv, table, pos, wd)
+    counts = (pa.paged_flash_attend.launches, pa.paged_flash_attend.launches_int8)
+    for positions, width in (([0, 15, 16, 63, 64, 500, 1023, 1024], -1),
+                             ([-1, 3, 700, 2048] * 2, 256), ([1023] * 8, 300)):
+        pos.copy_(torch.tensor(positions, dtype=torch.int32))
+        wd.fill_(width)
+        graph.replay()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = pa.paged_flash_attend(q, pk, pv, table, pos, wd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), (positions, width)
+        want = pa.paged_flash_attend_plain(q, pk, pv, table, pos, wd)
+        assert (out.float() - want.float()).abs().max().item() <= ATOL["bfloat16"]
+    # the eager calls only, on the count of the pool's storage type
+    assert (pa.paged_flash_attend.launches, pa.paged_flash_attend.launches_int8) == (
+        (counts[0], counts[1] + 3) if int8 else (counts[0] + 3, counts[1]))
+
+
 # -- int4 weights and the int8 KV cache --------------------------------------------
 
 # q4 outputs are sums of in ~ 2048-5632 products of size ~in**-0.5: |y|

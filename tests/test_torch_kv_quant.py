@@ -14,6 +14,8 @@ engine's greedy tokens exactly, and scripted mixed launches and a decode
 step over an int8 pool with int4 weights give the JAX logits within
 LOGITS_ATOL."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -196,6 +198,70 @@ def test_int8_paged_decode_twin_matches_pallas_kernel(kw, wd):
                                 torch.from_numpy(table), torch.from_numpy(pos), wdt, **kw)
     assert pa.paged_flash_attend.launches_int8 == before
     np.testing.assert_allclose(got.numpy(), want, atol=PAGED_ATOL, rtol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_int8_decode(bs, mb, variant):
+    """The int8 Pallas decode kernel in interpret mode on the split walk's
+    positions over a shuffled int8 pool (cached: every split count is held
+    to the same result)."""
+    from test_torch_paged_attention import WALK_VARIANTS, walk_positions
+
+    kw, wd = WALK_VARIANTS[variant]
+    positions = walk_positions(bs, mb)
+    rng = _rng(50 + bs)
+    n = len(positions) * mb + 1
+    k = _int8_leaves(rng, (n, KV, bs, DH))
+    v = _int8_leaves(rng, (n, KV, bs, DH))
+    table = (rng.permutation(n - 1)[: len(positions) * mb] + 1).reshape(
+        len(positions), mb).astype(np.int32)
+    q = rng.standard_normal((len(positions), 1, H, DH)).astype(np.float32)
+    pos = np.array(positions, np.int32)
+    wdj, _ = _window(wd)
+    want = np.asarray(jax_paged(
+        jnp.asarray(q), _jleaf(*k), _jleaf(*v), jnp.asarray(table), jnp.asarray(pos),
+        wdj, interpret=True, **kw))
+    return (q, k, v, table, pos), want
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 9])
+@pytest.mark.parametrize("variant", range(6),
+                         ids=["causal", "window", "window_dyn", "window_dyn_off",
+                              "softcap", "scale"])
+@pytest.mark.parametrize("bs,mb", [(16, 20), (12, 27)], ids=["bs16", "bs12"])
+def test_int8_paged_walk_matches_pallas_kernel(bs, mb, variant, n_split):
+    """The CUDA decode kernel's split-KV walk over an int8 pool, emulated in
+    fp32 torch (test_torch_paged_attention._paged_walk: each row q8 * s,
+    then the split, warp and fixed-order merges), against the int8 Pallas
+    kernel in interpret mode: within PAGED_ATOL with 1, 2, 3 and 9 splits,
+    positions on block, tile and split edges and past the table."""
+    from test_torch_paged_attention import WALK_VARIANTS, _paged_walk
+
+    (q, k, v, table, pos), want = _jax_int8_decode(bs, mb, variant)
+    kw, wd = WALK_VARIANTS[variant]
+    _, wdt = _window(wd)
+    got = _paged_walk(torch.from_numpy(q), _tleaf(*k), _tleaf(*v), torch.from_numpy(table),
+                      torch.from_numpy(pos), wdt, n_split=n_split, **kw)
+    np.testing.assert_allclose(got.numpy(), want, atol=PAGED_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("round_to", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_int8_paged_walk_rounds_each_dequantized_element_once(round_to):
+    """For a bf16 / fp16 product the kernel rounds each dequantized element
+    q8 * s (fp32) to that type once: the walk with that rounding is the
+    raw twin over the pool so rounded, within PAGED_ATOL (fp32 math, two
+    summation orders over int8 rows of up to ~6)."""
+    from test_torch_paged_attention import _paged_walk
+
+    (q, k, v, table, pos), _ = _jax_int8_decode(16, 20, 0)
+    kt, vt = _tleaf(*k), _tleaf(*v)
+    rounded = [(leaf.q.float() * leaf.s[..., None]).to(round_to).float() for leaf in (kt, vt)]
+    want = pa.paged_flash_attend_plain(torch.from_numpy(q), *rounded,
+                                       torch.from_numpy(table), torch.from_numpy(pos))
+    for n_split in (1, 3):
+        got = _paged_walk(torch.from_numpy(q), kt, vt, torch.from_numpy(table),
+                          torch.from_numpy(pos), n_split=n_split, round_to=round_to)
+        torch.testing.assert_close(got, want, atol=PAGED_ATOL, rtol=0)
 
 
 # (B, T, H, KV, Dh, S, pos, valid_start, window, window_dyn, scale, softcap)
@@ -446,6 +512,7 @@ def test_wrappers_launch_path_with_a_stand_in_library(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: type("S", (), {"cuda_stream": 0})())
     monkeypatch.setattr(fa, "_sm_count", lambda device: 132)  # flash_attend's plan
+    monkeypatch.setattr(pa, "_sm_count", lambda device: 132)  # paged_flash_attend's splits
     rng = _rng(10)
     _, k, v, table = _int8_pool(11, 4)
     pools = {"raw": (torch.randn(N, KV, BS, DH), torch.randn(N, KV, BS, DH)),

@@ -7,7 +7,21 @@ rows, multi-tile and short prefill chunks, launch padding, static and
 per-layer windows, softcap and scale. fp32, atol 1e-5 (the two sum in
 another order). The host-side launch planners (`build_ragged_meta`,
 `build_device_meta`) and the device substitution (`apply_device_meta`)
-must equal the JAX package's exactly."""
+must equal the JAX package's exactly.
+
+The CUDA decode kernel shares each row's live key range among
+`_paged_splits` blocks, walks each share in 64-key tiles on the 64-key
+grid through the block table, one 16-key slice per warp, with a base-2
+online softmax, and merges the warps, then the splits, in a fixed order:
+that arithmetic, emulated here in fp32 torch (`_paged_walk`), matches the
+Pallas kernel in interpret mode within atol 2e-6 (raw; the int8 pool in
+test_torch_kv_quant.py at 1e-5), with 1, 2, 3 and 9 splits, positions on
+block, tile and split edges and past the table, every window, softcap and
+scale variant; and the twin's, with table ids outside the pool that
+read block 0, the trash block."""
+
+import contextlib
+import functools
 
 import numpy as np
 import pytest
@@ -185,3 +199,241 @@ def test_apply_device_meta_equals_jax():
     assert m_t[0, 1].item() == 11 and m_t[1, 1].item() == 40
     # the host plan it started from is untouched
     assert meta[0, 1] == 7
+
+
+# -- the CUDA decode kernel's split-KV walk, emulated -----------------------------
+
+WALK_ATOL = 2e-6
+WARP_KEYS = 16  # one warp's keys of a tile: the mma's M
+# two pool geometries: 16-key blocks (a warp's slice is one block) and
+# 12-key blocks that straddle the 64-key tiles' edges
+WALK_GEOMETRIES = [(16, 20), (12, 27)]
+WALK_SPLITS = [1, 2, 3, 9]
+# static and per-layer windows whose starts cross tile edges, softcap, a
+# scale that is no power of two
+WALK_VARIANTS = [({}, None), ({"window": 5}, None), ({}, 70), ({}, -1),
+                 ({"softcap": 3.0}, None), ({"scale": 0.2}, None)]
+WALK_IDS = ["causal", "window", "window_dyn", "window_dyn_off", "softcap", "scale"]
+
+
+def walk_positions(bs, MB):
+    """Positions on block, 64-key tile and split edges, 0, the last key and
+    past the table (a row at pos >= MB * bs attends all of it)."""
+    S = MB * bs
+    return [0, bs - 1, bs, 63, 64, 65, 127, 128, 191, 255, 256, S - 1, S, 2 * S + 7]
+
+
+def walk_pool(seed, bs, MB, rows):
+    """A pool and a table of shuffled physical blocks 1..N-1 (block 0 is
+    the trash block)."""
+    rng = np.random.default_rng(seed)
+    n = rows * MB + 1
+    pk = rng.standard_normal((n, KV, bs, DH)).astype(np.float32)
+    pv = rng.standard_normal((n, KV, bs, DH)).astype(np.float32)
+    table = (rng.permutation(n - 1)[: rows * MB] + 1).reshape(rows, MB).astype(np.int32)
+    return rng, pk, pv, table
+
+
+def _paged_walk(q, pool_k, pool_v, table, pos, window_dyn=None, *, window=None,
+                scale=None, softcap=None, n_split=1, tile=PA.SLOTS_TILE, round_to=None):
+    """The paged decode kernel's arithmetic in torch, fp32. Row b's live
+    keys [lo, hi) (hi = min(pos + 1, MB * bs), lo = pos - win + 1 with a
+    window, else 0) lie in `tile`-key tiles on the tile grid from key 0;
+    split s takes tiles [s * n // n_split, (s + 1) * n // n_split). Key p
+    is slot p % bs of block table[b, p // bs] (an id outside [0, N) reads
+    block 0); an int8 row is q8 * s in fp32, rounded to `round_to` as the
+    kernel rounds it for a bf16 / fp16 product. Each warp's 16-key slice of
+    each tile folds into that warp's (m, l, acc) by a base-2 online
+    softmax, the scores scaled after the product and soft-capped; the
+    warps merge in order into the split's partial, the splits in order
+    with the log-sum-exp rescale; a row with no live key gives zeros."""
+    from distributed_llm_inference_tpu_torch.ops.kv_quant import KVQuant
+
+    B, _, H_, Dh = q.shape
+    int8 = isinstance(pool_k, KVQuant)
+    N, KV_, bs, _ = (pool_k.q if int8 else pool_k).shape
+    MB_ = table.shape[1]
+    S = MB_ * bs
+    group = H_ // KV_
+    scale = Dh ** -0.5 if scale is None else scale
+    win = int(window_dyn.reshape(())) if window_dyn is not None else (
+        window if window is not None else -1)
+    log2e = 1.4426950408889634
+    neg = torch.tensor(-0.7 * torch.finfo(torch.float32).max)
+
+    def key_rows(leaf, ids, kvh, slots):
+        if int8:
+            x = leaf.q[ids, kvh, slots].float() * leaf.s[ids, kvh, slots][:, None]
+            return x.to(round_to).float() if round_to is not None else x
+        return leaf[ids, kvh, slots].float()
+
+    def merge(parts):
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        lsum, acc = torch.zeros(group), torch.zeros(group, Dh)
+        for m, part_l, part_acc in parts:
+            e = torch.exp2(m - mx)
+            lsum = lsum + part_l * e
+            acc = acc + part_acc * e[:, None]
+        return mx, lsum, acc
+
+    out = torch.zeros(B, 1, H_, Dh)
+    for b in range(B):
+        p = int(pos[b])
+        hi = S if p >= S else p + 1
+        lo = max(p - win + 1, 0) if win > 0 else 0
+        base = lo - lo % tile
+        n_tiles = (hi - 1 - base) // tile + 1 if hi > lo else 0
+        for kvh in range(KV_):
+            heads = slice(kvh * group, (kvh + 1) * group)
+            qh = q[b, 0, heads].float()
+            parts = []
+            for s in range(n_split):
+                warps = [(neg.expand(group).clone(), torch.zeros(group),
+                          torch.zeros(group, Dh)) for _ in range(tile // WARP_KEYS)]
+                for t in range(s * n_tiles // n_split, (s + 1) * n_tiles // n_split):
+                    p0 = base + t * tile
+                    for w in range(tile // WARP_KEYS):
+                        k0 = max(p0 + w * WARP_KEYS, lo)
+                        k1 = min(p0 + (w + 1) * WARP_KEYS, hi)
+                        if k1 <= k0:
+                            continue  # no live key in this warp's slice
+                        keys = torch.arange(k0, k1)
+                        ids = table[b, keys // bs].long()
+                        ids = torch.where((ids >= 0) & (ids < N), ids, 0)
+                        kr = key_rows(pool_k, ids, kvh, keys % bs)
+                        vr = key_rows(pool_v, ids, kvh, keys % bs)
+                        sc = (qh @ kr.T) * scale
+                        if softcap is not None:
+                            sc = softcap * torch.tanh(sc / softcap)
+                        sc = sc * log2e
+                        m, lsum, acc = warps[w]
+                        m_new = torch.maximum(m, sc.amax(-1))
+                        alpha = torch.exp2(m - m_new)
+                        pr = torch.exp2(sc - m_new[:, None])
+                        warps[w] = (m_new, lsum * alpha + pr.sum(-1),
+                                    acc * alpha[:, None] + pr @ vr)
+                parts.append(merge(warps))
+            _, lsum, acc = merge(parts)
+            live = lsum > 0
+            out[b, 0, heads] = torch.where(
+                live[:, None], acc / torch.where(live, lsum, 1.0)[:, None], 0.0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decode(bs, MB, variant):
+    """The Pallas kernel in interpret mode on walk_pool's inputs (cached:
+    every split count is held to the same result)."""
+    kw, wd = WALK_VARIANTS[variant]
+    positions = walk_positions(bs, MB)
+    rng, pk, pv, table = walk_pool(30 + bs, bs, MB, len(positions))
+    q = rng.standard_normal((len(positions), 1, H, DH)).astype(np.float32)
+    pos = np.array(positions, np.int32)
+    wdj, _ = _window(wd)
+    want = np.asarray(JA.paged_flash_attend(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(table),
+        jnp.asarray(pos), wdj, interpret=True, **kw))
+    return (q, pk, pv, table, pos), want
+
+
+@pytest.mark.parametrize("n_split", WALK_SPLITS)
+@pytest.mark.parametrize("variant", range(len(WALK_VARIANTS)), ids=WALK_IDS)
+@pytest.mark.parametrize("bs,mb", WALK_GEOMETRIES, ids=["bs16", "bs12"])
+def test_paged_walk_matches_pallas_kernel(bs, mb, variant, n_split):
+    (q, pk, pv, table, pos), want = _jax_decode(bs, mb, variant)
+    kw, wd = WALK_VARIANTS[variant]
+    _, wdt = _window(wd)
+    got = _paged_walk(*_t(q, pk, pv, table, pos), wdt, n_split=n_split, **kw)
+    np.testing.assert_allclose(got.numpy(), want, atol=WALK_ATOL, rtol=0)
+    # a window that ends before the table's keys (pos 2S + 7) leaves none
+    if kw.get("window") or (wd or 0) > 0:
+        assert not got[-1].any()
+
+
+def test_paged_walk_reads_block_zero_for_an_id_outside_the_pool():
+    """Ids below 0 and at or past N read block 0 (the trash block), as the
+    twin does. The twin holds this case: the Pallas kernel in interpret
+    mode reads another block for such an id (an index map's out-of-range
+    block), a table the fleet never writes."""
+    positions = walk_positions(16, 20)
+    rng, pk, pv, table = walk_pool(40, 16, 20, len(positions))
+    table[2, 0] = pk.shape[0]
+    table[-1, 3] = pk.shape[0] + 100
+    table[-2, 19] = -7
+    q = rng.standard_normal((len(positions), 1, H, DH)).astype(np.float32)
+    args = _t(q, pk, pv, table, np.array(positions, np.int32))
+    for n_split in (1, 3):
+        got = _paged_walk(*args, n_split=n_split)
+        torch.testing.assert_close(got, PA.paged_flash_attend_plain(*args),
+                                   atol=WALK_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("B_, KV_, MB_, bs_", [
+    (1, 4, 64, 16), (8, 4, 64, 16), (32, 4, 64, 16), (8, 4, 20, 12), (3, 2, 8, 4),
+    (64, 8, 256, 16), (1, 1, 1, 1),
+])
+def test_paged_splits_fill_the_card_within_the_slot(B_, KV_, MB_, bs_):
+    """At least one split and at most one per 64-key tile of the MB * bs
+    keys a table row holds; a function of its arguments alone; and
+    B * KV * n_split >= 2 x SMs wherever the slot has tiles enough."""
+    tiles = -(-(MB_ * bs_) // PA.SLOTS_TILE)
+    for sm in (1, 78, 108, 132):
+        n = PA._paged_splits(B_, KV_, MB_, bs_, sm)
+        assert 1 <= n <= tiles
+        assert n == PA._paged_splits(B_, KV_, MB_, bs_, sm)
+        assert B_ * KV_ * n >= 2 * sm or n == tiles
+    # the fleet's decode step on an H100's 132 SMs: 8 rows of 64 16-key blocks
+    assert PA._paged_splits(8, 4, 64, 16, 132) == 9
+
+
+@pytest.mark.parametrize("kw,wd", VARIANTS, ids=VARIANT_IDS)
+def test_paged_decode_launch_half_matches_the_c_signature(monkeypatch, kw, wd):
+    """The wrapper's launch half on CPU tensors against a stand-in library:
+    the argument list matches the C signature, with the workspace (B * H *
+    n_split * (Dh + 2) fp32), the split count, the window operands and the
+    scale; one launch counted per call."""
+    from test_torch_kv_quant import _StandInLibrary
+
+    lib = _StandInLibrary(PA.SIGNATURES)
+    monkeypatch.setattr(PA, "resolve_kernel", lambda device: True)
+    monkeypatch.setattr(PA, "_library", lambda: lib)
+    monkeypatch.setattr(PA, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: type("S", (), {"cuda_stream": 0})())
+    allocated = []
+    empty = torch.empty
+
+    def tracked_empty(*shape, **kwargs):
+        t = empty(*shape, **kwargs)
+        allocated.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", tracked_empty)
+    bs, mb = WALK_GEOMETRIES[0]
+    rng, pk, pv, table = walk_pool(3, bs, mb, 5)
+    q = rng.standard_normal((5, 1, H, DH)).astype(np.float32)
+    pos = np.array([0, 3, 64, 170, mb * bs - 1], np.int32)
+    _, wdt = _window(wd)
+    before = PA.paged_flash_attend.launches
+    out = PA.paged_flash_attend(*_t(q, pk, pv, table, pos), wdt, **kw)
+    assert out.shape == q.shape and out.dtype == torch.float32
+    assert PA.paged_flash_attend.launches == before + 1
+    name, args = lib.calls[-1]
+    assert name == "dli_paged_flash_attend"
+    assert len(args) == len(PA.SIGNATURES[name])
+    n_split = PA._paged_splits(5, KV, mb, bs, 132)
+    assert n_split == 5  # a table row's 320 keys: no more splits than tiles
+    (ws,) = [t for t in allocated if t.dtype == torch.float32
+             and t.numel() == 5 * H * n_split * (DH + 2)]
+    # q, k, v, no scales (a raw pool), out, the workspace; dtype code, B, H,
+    # KV, N, bs, MB, Dh; table, pos; the static window and the per-layer
+    # one; scale and softcap; the split count; the stream
+    assert args[3] is None and args[4] is None
+    assert args[5] == out.data_ptr() and args[6] == ws.data_ptr()
+    assert args[7:15] == (0, 5, H, KV, pk.shape[0], bs, mb, DH)
+    assert args[17] == kw.get("window", -1)
+    assert (args[18] is None) == (wdt is None)
+    assert args[19] == pytest.approx(kw.get("scale", DH ** -0.5))
+    assert args[20] == pytest.approx(kw.get("softcap", 0.0))
+    assert args[21] == n_split

@@ -136,7 +136,8 @@ def test_slots_splits_fill_the_card_within_the_cache(B_, KV_, S_):
 
 def _split_and_merge(q, ck, cv, pos, window, n_split, tile=PA.SLOTS_TILE):
     """The slots kernel's arithmetic in fp32 torch: row b's live range
-    [lo, hi) in tiles of `tile` keys from lo, split s taking tiles
+    [lo, hi) in tiles of `tile` keys on the tile grid from key 0 (the edge
+    tiles cut to the range), split s taking tiles
     [s * n // n_split, (s + 1) * n // n_split); a partial (m, l, acc) per
     split by an online softmax over its tiles (an empty share is m = NEG,
     l = 0); the splits merged in index order with the log-sum-exp
@@ -150,7 +151,8 @@ def _split_and_merge(q, ck, cv, pos, window, n_split, tile=PA.SLOTS_TILE):
         p = int(pos[b])
         hi = S_ if p >= S_ else p + 1
         lo = max(p - window + 1, 0) if window else 0
-        n_tiles = -(-(hi - lo) // tile) if hi > lo else 0
+        base = lo - lo % tile
+        n_tiles = (hi - 1 - base) // tile + 1 if hi > lo else 0
         for kvh in range(KV_):
             heads = slice(kvh * group, (kvh + 1) * group)
             qh = q[b, 0, heads].float()
@@ -159,8 +161,8 @@ def _split_and_merge(q, ck, cv, pos, window, n_split, tile=PA.SLOTS_TILE):
                 m = neg.expand(group).clone()
                 lsum, acc = torch.zeros(group), torch.zeros(group, Dh)
                 for t in range(s * n_tiles // n_split, (s + 1) * n_tiles // n_split):
-                    p0 = lo + t * tile
-                    p1 = min(p0 + tile, hi)
+                    p0 = max(base + t * tile, lo)
+                    p1 = min(base + (t + 1) * tile, hi)
                     sc = qh @ ck[b, kvh, p0:p1].float().T * Dh ** -0.5
                     m_new = torch.maximum(m, sc.amax(-1))
                     alpha = torch.exp(m - m_new)
@@ -191,9 +193,10 @@ SPLIT_POS = [0, 1, 63, 64, 65, 127, 128, 191, 192, SPLIT_S - 1, SPLIT_S, 2 * SPL
 @pytest.mark.parametrize("window", [None, 13, 64, 100])
 def test_split_and_merge_matches_the_twin_at_split_edges(n_split, window):
     """The kernel's split-KV walk and fixed-order merge give the twin's
-    function: windows of 13, 64 and 100 keys move the live range's tiles
-    off the 64-key grid and across the splits. A window that ends before
-    S (pos 2S) leaves no live key: zeros there, as in the kernels."""
+    function: windows of 13, 64 and 100 keys start the live range off the
+    64-key grid (masked edge tiles) and move it across the splits. A window
+    that ends before S (pos 2S) leaves no live key: zeros there, as in the
+    kernels."""
     rng = np.random.default_rng(11)
     Bn = len(SPLIT_POS)
     q = torch.from_numpy(rng.standard_normal((Bn, 1, H, DH)).astype(np.float32))
