@@ -29,7 +29,12 @@ each of which fails the run:
       the block table) with its split count, repeats bit-equal, timed as
       medians of calls in turn with flash_attend_slots over a dense cache
       that holds the same rows at the same positions (the cost of the
-      table), and at the fleet's B=8 its profiled device time;
+      table), and at the fleet's B=8 its profiled device time; the ragged
+      kernel (csrc/flash_walk.cuh's flash walk through the block table,
+      split over a thread-block cluster) with its plan, repeats
+      bit-equal, timed as medians of calls, a launch of one table row in
+      turn with flash_attend over that row as a dense cache, and on the
+      fleet's mixed launch its profiled device time;
   (g) the fleet (`--continuous 8 --kv-pool-blocks 513 --kv-block-size 16
       --continuous-max-seq 1024`) serving 8 concurrent requests of 8 to
       700 prompt tokens through the HTTP server: every request answers,
@@ -95,7 +100,8 @@ Run after (i), on the raw engine, before (j):
       generator state, the kernel counters moving by the capture's deltas
       per replay; replay and eager wall, device busy and idle share and
       kernels per token side by side, the paged attention kernels' device
-      ms by kernel name, and on the quantized engine the q4 kernels'.
+      ms by kernel name, the ragged kernel's per mixed launch, and on the
+      quantized engine the q4 kernels'.
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
@@ -103,9 +109,12 @@ alone, with the kernel's build log (registers, spills); `--only b` runs
 two flash_attend entries at (c)'s chunk shapes, with its build log;
 `--only f` runs (a) and (f)'s and (j)'s paged_flash_attend cases with
 the kernels line's two paged_flash_attend entries and the paged source's
-build log. All three also run from an older checkout of the package (the
-split count and the plan are then left out), so that parent and change
-can be timed in one call.
+build log; `--only r` runs (a) and (f)'s and (j)'s ragged_paged_attend
+cases, a sweep of its plans (cluster, min_share) with 16 decode rows
+timed in turn with paged_flash_attend, and the kernels line's two ragged
+entries, with the paged source's build log. All four also run from an
+older checkout of the package (the split count, the plans and the sweep
+are then left out), so that parent and change can be timed in one call.
 
 The fleets of (g), (k), (o) and (p) serve through those graphs: each
 checks one capture per launch kind and every later launch a replay.
@@ -665,6 +674,7 @@ BLOCK, SLOT_MB = 16, 64  # the fleet's 16-token pool blocks, 1024-token slots
 RAGGED_W, RAGGED_TILE = 128, 8  # the mixed launch's width (step budget), query tile
 SPECIAL_POS = [0, 15, 16, 700, 1023]  # block edges, a deep and the last position
 PAGED_REPS = 20  # cold-L2 calls of the paged decode kernel (and the slots reference), in turn
+RAGGED_REPS = 20  # cold-L2 calls of the ragged kernel (and the flash_attend reference), in turn
 # (label, static kwargs, per-layer window operand)
 PAGED_VARIANTS = [("", {}, None), ("window=256", {"window": 256}, None),
                   ("window_dyn=300", {}, 300), ("softcap=30", {"softcap": 30.0}, None),
@@ -714,22 +724,15 @@ def paged_work(row_queries, width, dtype_name, window, index_bytes, int8=False):
     return nbytes, 4 * DH * H * pairs
 
 
-def paged_case(torch, timer, fn, plain, args, kw, wd, reps=10):
-    """One kernel-vs-twin comparison: (kernel output, max error, kernel
-    ms, twin ms), the kernel's ms a mean of `reps` cold-L2 calls."""
-    got = fn(*args, wd, **kw)
-    torch.cuda.synchronize()
-    want = plain(*args, wd, **kw)
-    err = (got.float() - want.float()).abs().max().item()
-    check(bool(torch.isfinite(got.float()).all()), f"{fn.__name__}: non-finite output")
-    ms = timer.ms(lambda: fn(*args, wd, **kw), reps)
-    plain_ms = timer.ms(lambda: plain(*args, wd, **kw), max(2, reps // 4))
-    return got, err, ms, plain_ms
-
-
 def dense_rows(torch, pool, table):
-    """The pool's rows of each table row as a dense cache [B, KV, MB*bs, Dh]:
-    key p of row b at position p, as the block table places it."""
+    """The pool's rows of each table row as a dense cache [B, KV, MB*bs, Dh]
+    (an int8 pool: its data and its scales [B, KV, MB*bs] alike): key p of
+    row b at position p, as the block table places it."""
+    from distributed_llm_inference_tpu_torch.ops import kv_quant as K
+
+    if isinstance(pool, K.KVQuant):
+        return K.KVQuant(dense_rows(torch, pool.q, table),
+                         dense_rows(torch, pool.s[..., None], table)[..., 0].contiguous())
     B, MB = table.shape
     _, KV_, bs, Dh = pool.shape
     return pool[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV_, MB * bs, Dh).contiguous()
@@ -771,6 +774,48 @@ def paged_decode_case(torch, timer, pa, args, kw, wd, int8, profile):
                 n_split=n_split)
 
 
+def ragged_case(torch, timer, pa, fa, args, kw, wd, int8, dense, profile):
+    """ragged_paged_attend vs its twin, a repeat bit-equal, timed as medians
+    of RAGGED_REPS cold-L2 calls (`Timer.alternating`); `dense` = (row,
+    start, n, offset) for a launch of one table row's n queries: then
+    flash_attend over that row's keys as a dense cache, the same walk
+    without the table, timed in turn with it (a reference; it must agree
+    with the ragged kernel within atol). `profile`: the kernel's profiled
+    device ms too. Returns a dict, the kernel's output under "out"."""
+    q, pk, pv, table, meta = args
+    got = pa.ragged_paged_attend(*args, wd, **kw)
+    again = pa.ragged_paged_attend(*args, wd, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "ragged_paged_attend gave other bits on a repeat")
+    check(bool(torch.isfinite(got.float()).all()), "ragged_paged_attend: non-finite output")
+    want = pa.ragged_paged_attend_plain(*args, wd, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    kernel = lambda: pa.ragged_paged_attend(*args, wd, **kw)  # noqa: E731
+    fns = [kernel]
+    dense_err = None
+    if dense is not None:
+        row, start, n, off = dense
+        dk, dv = (dense_rows(torch, pool, table[row:row + 1]) for pool in (pk, pv))
+        qd = q[off:off + n][None].contiguous()
+        flash = lambda: fa.flash_attend(qd, dk, dv, start, None, wd, **kw)  # noqa: E731
+        dense_err = (flash()[0].float() - got[off:off + n].float()).abs().max().item()
+        fns.append(flash)
+    times = timer.alternating(fns, RAGGED_REPS)
+    plain_ms = timer.ms(lambda: pa.ragged_paged_attend_plain(*args, wd, **kw), 3)
+    device_ms = timer.device_ms(kernel, 10) if profile else None
+    # the launch plan (an older checkout, timed by `--only r`, has none)
+    plan = None
+    if hasattr(pa, "ragged_plan"):
+        N, KV_, bs, _ = (pk.q if int8 else pk).shape
+        G = meta.shape[0]
+        plan = pa.ragged_plan(G, q.shape[0] // G, H, KV_, table.shape[1], bs, DH,
+                              pa._sm_count(q.device), q.element_size(),
+                              1 if int8 else None)._asdict()
+    return dict(max_abs_err=err, ms=times[0], dense_ms=times[1] if len(times) > 1 else None,
+                dense_err=dense_err, plain_ms=plain_ms, device_ms=device_ms, plan=plan,
+                out=got)
+
+
 def ragged_plans(P):
     """The mixed launches of (f), laid out by the fleet's own planner at
     its width: table row -> entries (row, start, length, kind)."""
@@ -782,33 +827,33 @@ def ragged_plans(P):
     }
 
 
-def phase_f(torch, timer, pa, P, int8=False, decode_only=False):
+def phase_f(torch, timer, pa, P, fa, int8=False, which="all"):
     """paged_flash_attend and ragged_paged_attend vs their twins, over raw
-    pools or (int8=True) int8 pools; `decode_only`: paged_flash_attend's
-    cases alone."""
+    pools or (int8=True) int8 pools; `which`: "decode" or "ragged" for one
+    kernel's cases alone."""
     tag, suffix = ("(j)", "[int8]") if int8 else ("(f)", "")
     print(f"{tag} paged kernels{suffix} vs plain twins, H={H} KV={KV} Dh={DH}, "
           f"{BLOCK}-token blocks, {SLOT_MB} shuffled blocks per table row; device "
-          f"ms per call, cold L2; paged_flash_attend: medians of {PAGED_REPS} calls "
-          f"in turn with flash_attend_slots over the same rows as a dense cache "
-          f"(slots=, raw pools without window_dyn, softcap or scale), repeats "
-          f"bit-equal; ragged_paged_attend: means of 10")
+          f"ms per call, cold L2, repeats bit-equal; paged_flash_attend: medians "
+          f"of {PAGED_REPS} calls in turn with flash_attend_slots over the same "
+          f"rows as a dense cache (slots=, raw pools without window_dyn, softcap "
+          f"or scale); ragged_paged_attend: medians of {RAGGED_REPS} calls, on a "
+          f"launch of one table row in turn with flash_attend over that row as a "
+          f"dense cache (dense=); plan (cluster, min_share)")
     rows = []
 
     def record(kernel, dtype_name, case, label, kw, wdyn, args, row_queries,
-               width, index_bytes):
+               width, index_bytes, dense=None):
         wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
                                                     device=DEVICE)
-        fn, plain = getattr(pa, kernel), getattr(pa, kernel + "_plain")
-        got, extra = None, {}
+        profile = dtype_name == "bfloat16" and label == "" and case in (
+            f"B={FLEET['n_slots']}", next(iter(ragged_plans(P))))
         if kernel == "paged_flash_attend":
-            profile = dtype_name == "bfloat16" and case == f"B={FLEET['n_slots']}" \
-                and label == ""
             extra = paged_decode_case(torch, timer, pa, args, kw, wd, int8, profile)
-            err, ms, plain_ms = extra.pop("max_abs_err"), extra.pop("ms"), \
-                extra.pop("plain_ms")
         else:
-            got, err, ms, plain_ms = paged_case(torch, timer, fn, plain, args, kw, wd)
+            extra = ragged_case(torch, timer, pa, fa, args, kw, wd, int8, dense, profile)
+        got = extra.pop("out", None)
+        err, ms, plain_ms = extra.pop("max_abs_err"), extra.pop("ms"), extra.pop("plain_ms")
         nbytes, flops = paged_work(row_queries, width, dtype_name,
                                    kw.get("window") or wdyn, index_bytes, int8)
         bound_ms, bound_by = bound(nbytes, flops, dtype_name)
@@ -817,13 +862,18 @@ def phase_f(torch, timer, pa, P, int8=False, decode_only=False):
                  bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes, flops=flops,
                  **extra)
         rows.append(r)
-        more = ""
-        if extra:
+        if kernel == "paged_flash_attend":
             more = (f"n_split={extra['n_split']} slots={fmt_ms(extra['slots_ms'])} "
                     + (f"(err vs slots {extra['slots_err']:.3g}) "
-                       if extra["slots_err"] is not None else "")
-                    + (f"profiled={fmt_ms(extra['device_ms'])} "
-                       if extra["device_ms"] is not None else ""))
+                       if extra["slots_err"] is not None else ""))
+        else:
+            plan = extra["plan"]
+            more = ((f"cluster={plan['cluster']} min_share={plan['min_share']} "
+                     if plan else "")
+                    + (f"dense={fmt_ms(extra['dense_ms'])} (err vs dense "
+                       f"{extra['dense_err']:.3g}) " if extra["dense_ms"] is not None else ""))
+        more += (f"profiled={fmt_ms(extra['device_ms'])} "
+                 if extra["device_ms"] is not None else "")
         print(f"    {kernel + suffix:25s} {dtype_name:8s} {case:31s} {label:14s} "
               f"err={err:.3g} (atol {r['atol']:g}) kernel={ms:.4f} {more}"
               f"plain={plain_ms:.4f} bound={bound_ms:.5f} ({bound_by}, "
@@ -832,7 +882,7 @@ def phase_f(torch, timer, pa, P, int8=False, decode_only=False):
 
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
-        for B in (1, 8, 32):
+        for B in (1, 8, 32) if which != "ragged" else ():
             g, pk, pv, table = paged_pool(torch, dt, B, seed=B, int8=int8)
             extra = torch.randint(0, SLOT_MB * BLOCK, (B,), generator=g,
                                   device=DEVICE).tolist()
@@ -843,11 +893,11 @@ def phase_f(torch, timer, pa, P, int8=False, decode_only=False):
                 record("paged_flash_attend", dtype_name, f"B={B}", label, kw, wdyn,
                        (q, pk, pv, table, pos), {b: [p] for b, p in enumerate(pos_list)},
                        B, 4 * B)
-        if decode_only:
+        if which == "decode":
             continue
         for i, (name, entries) in enumerate(ragged_plans(P).items()):
             g, pk, pv, table = paged_pool(torch, dt, 9, seed=100 + i, int8=int8)
-            meta_np, tok_row, _, _, _ = P.build_ragged_meta(
+            meta_np, tok_row, _, offsets, _ = P.build_ragged_meta(
                 entries, width=RAGGED_W, tile=RAGGED_TILE)
             meta = torch.from_numpy(meta_np).to(DEVICE)
             dead = torch.from_numpy(tok_row < 0).to(DEVICE)
@@ -855,17 +905,59 @@ def phase_f(torch, timer, pa, P, int8=False, decode_only=False):
             row_queries = {}
             for row, start, n, _ in entries:
                 row_queries.setdefault(row, []).extend(range(start, start + n))
+            # a launch of one table row: flash_attend over that row as a dense cache
+            dense = ((entries[0][0], entries[0][1], entries[0][2], int(offsets[0]))
+                     if len(entries) == 1 else None)
             for label, kw, wdyn in PAGED_VARIANTS:
                 got = record("ragged_paged_attend", dtype_name, name, label, kw, wdyn,
                              (q, pk, pv, table, meta), row_queries, RAGGED_W,
-                             16 * meta.shape[0])
+                             16 * meta.shape[0], dense)
                 # launch padding and the rows past a tile's q_len: zeros
                 check(got[dead].float().abs().sum().item() == 0.0,
                       f"ragged_paged_attend{suffix} wrote non-zeros to padding ({name})")
     bad = [r for r in rows if not r["max_abs_err"] <= r["atol"]
-           or not (r.get("slots_err") is None or r["slots_err"] <= r["atol"])]
+           or not (r.get("slots_err") is None or r["slots_err"] <= r["atol"])
+           or not (r.get("dense_err") is None or r["dense_err"] <= r["atol"])]
     check(not bad, f"paged kernels{suffix} disagree with their twins in {len(bad)} case(s)")
     return rows
+
+
+def ragged_sweep(torch, timer, pa, P):
+    """ragged_paged_attend on (f)'s launches and on 16 decode rows (bf16,
+    raw pool), each cluster size with every rank walking its share
+    (min_share 0) and with the ranks of a short tile walking fewer
+    (RAGGED_MIN_SHARE), timed in turn (medians of RAGGED_REPS cold-L2
+    calls): the measurement that `ragged_plan`'s choice rests on. The
+    decode launch is timed in turn with paged_flash_attend over the same
+    rows (the decode walk: keys as the mma's M)."""
+    print(f"(f) ragged sweep, bf16: medians of {RAGGED_REPS} cold-L2 calls in turn, ms "
+          f"per (cluster, min_share); * = ragged_plan's choice")
+    decode_pos = SPECIAL_POS + [64, 333, 517, 127, 128, 255, 256, 511, 512, 900, 1000]
+    launches = dict(ragged_plans(P))
+    launches["16 decode rows"] = [(b, p, 1, P.RAGGED_DECODE) for b, p in enumerate(decode_pos)]
+    for i, (name, entries) in enumerate(launches.items()):
+        rows = max(e[0] for e in entries) + 1
+        g, pk, pv, table = paged_pool(torch, torch.bfloat16, rows, seed=200 + i)
+        meta_np = P.build_ragged_meta(entries, width=RAGGED_W, tile=RAGGED_TILE)[0]
+        meta = torch.from_numpy(meta_np).to(DEVICE)
+        q = torch.randn(RAGGED_W, H, DH, generator=g, device=DEVICE).to(torch.bfloat16)
+        G = meta.shape[0]
+        chosen = pa.ragged_plan(G, RAGGED_W // G, H, KV, SLOT_MB, BLOCK, DH,
+                                pa._sm_count(q.device))
+        plans = [chosen._replace(cluster=c, blocks=chosen.blocks // chosen.cluster * c,
+                                 min_share=m)
+                 for c in (1, 2, 4, 8) for m in (0, pa.RAGGED_MIN_SHARE)]
+        fns = [lambda p=p: pa.ragged_paged_attend(q, pk, pv, table, meta, plan=p)
+               for p in plans]
+        if name == "16 decode rows":
+            qd = q[:len(entries)].reshape(len(entries), 1, H, DH)
+            pos = torch.tensor(decode_pos, dtype=torch.int32, device=DEVICE)
+            fns.append(lambda: pa.paged_flash_attend(qd, pk, pv, table[:len(entries)], pos))
+        times = timer.alternating(fns, RAGGED_REPS)
+        print(f"    {name}: " + " ".join(
+            f"({p.cluster},{p.min_share}){'*' if p == chosen else ''}={t:.4f}"
+            for p, t in zip(plans, times))
+            + (f" paged_flash_attend={times[-1]:.4f}" if len(times) > len(plans) else ""))
 
 
 def fleet_prompt(i: int, n_tokens: int) -> str:
@@ -1421,7 +1513,28 @@ def paged_line(rows, kernel, launches, replaces, pick, shapes):
         r = sel[0]
         entry.update(n_split=r["n_split"], device_ms=r["device_ms"],
                      slots_ms=r["slots_ms"])
+    else:
+        # medians of RAGGED_REPS in turn; the plan, each launch's median, the
+        # mixed launch's profiled device ms, and flash_attend over a one-row
+        # launch's row as a dense cache, a reference for the table's cost
+        entry.update(plan=sel[0]["plan"], ms_by_case={r["case"]: r["ms"] for r in sel},
+                     device_ms=next((r["device_ms"] for r in sel
+                                     if r["device_ms"] is not None), None),
+                     dense_ms={r["case"]: r["dense_ms"] for r in sel
+                               if r["dense_ms"] is not None})
     return entry
+
+
+def ragged_line(rows, launches, int8, P):
+    """ragged_paged_attend's JSON entry (or its int8 pool's), the mean of
+    the bf16 launches of (f) or (j) at the fleet's width."""
+    return paged_line(
+        rows, "ragged_paged_attend" + ("[int8]" if int8 else ""), launches,
+        "distributed_llm_inference_tpu/ops/paged_attention.py:482", lambda r: True,
+        ("bf16 q, int8 pool + fp32 scales, " if int8 else "bf16 ")
+        + f"H={H} KV={KV} Dh={DH}, {BLOCK}-token blocks, width {RAGGED_W} in tiles of "
+        f"{RAGGED_TILE}; ms: mean of the medians of {RAGGED_REPS} of the launches: "
+        + ", ".join(ragged_plans(P)))
 
 
 def paged_decode_line(rows, launches, int8):
@@ -1915,7 +2028,10 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
                                      in top_kernels(kern, len(kern)) if "q4" in name},
                               attn_ms={name[:80]: ms for ms, _, name
                                        in top_kernels(kern, len(kern))
-                                       if "walk_" in name or "paged_fwd" in name})
+                                       if "walk_" in name or "PagedTable" in name},
+                              # the ragged kernel: the flash walk's PagedTable instance
+                              ragged_ms=sum(ms for ms, _, name in top_kernels(kern, len(kern))
+                                            if "PagedTable" in name))
         else:
             row[label] = "not measured (the profiler recorded no device kernels)"
     print(f"{tag} {name}: 2 replays bit-equal to eager (packed, state, KV), launches per "
@@ -1934,6 +2050,9 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
             if r["attn_ms"]:  # the paged kernels: the decode walk's split and combine
                 print(f"    profiled {label:6s}: paged attention kernels' device ms "
                       f"{sum(r['attn_ms'].values()):.3f}, by name {json.dumps(r['attn_ms'])}")
+            if r["ragged_ms"]:
+                print(f"    profiled {label:6s}: ragged_paged_attend device ms per "
+                      f"mixed launch {r['ragged_ms']:.3f}")
         else:
             print(f"    profiled {label:6s}: {r}")
     return row
@@ -2019,13 +2138,15 @@ def main(argv) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["b", "f", "j"],
+    ap.add_argument("--only", choices=["b", "f", "r", "j"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
-                         "line's two entries (f), or only (j)'s q4_matmul_rows "
-                         "cases (j), with the kernel's build log: a quick check "
-                         "of a flash_attend, paged decode or q4 change")
+                         "line's two entries (f), only their ragged_paged_attend "
+                         "cases with a sweep of its plans and the kernels line's "
+                         "two entries (r), or only (j)'s q4_matmul_rows cases "
+                         "(j), with the kernel's build log: a quick check of a "
+                         "flash_attend, paged decode, ragged or q4 change")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -2059,12 +2180,23 @@ def main(argv) -> int:
         log = built["paged_attention"].with_name(built["paged_attention"].name + ".log")
         print(log.read_text())
         lines = []
-        for int8, rows in ((False, phase_f(torch, timer, pa, P, decode_only=True)),
-                           (True, phase_f(torch, timer, pa, P, int8=True,
-                                          decode_only=True))):
+        for int8, rows in ((False, phase_f(torch, timer, pa, P, fa, which="decode")),
+                           (True, phase_f(torch, timer, pa, P, fa, int8=True,
+                                          which="decode"))):
             lines.append(paged_decode_line(rows, None, int8))
         for line in lines:  # launches null: the served path does not run here
             print("(f) " + json.dumps(line))
+        return 0
+    if args.only == "r":
+        log = built["paged_attention"].with_name(built["paged_attention"].name + ".log")
+        print(log.read_text())
+        rows = phase_f(torch, timer, pa, P, fa, which="ragged")
+        int8_rows = phase_f(torch, timer, pa, P, fa, int8=True, which="ragged")
+        if hasattr(pa, "ragged_plan"):
+            ragged_sweep(torch, timer, pa, P)
+        # launches null: the served path does not run here
+        print("(f) " + json.dumps(ragged_line(rows, None, False, P)))
+        print("(j) " + json.dumps(ragged_line(int8_rows, None, True, P)))
         return 0
     if args.only == "j":
         log = built["q4_matmul"].with_name(built["q4_matmul"].name + ".log")
@@ -2116,7 +2248,7 @@ def main(argv) -> int:
     flash_entry = kernels_line(torch, timer, fa, shapes, launches)
 
     # (f) the paged kernels against their twins
-    paged_rows = phase_f(torch, timer, pa, P)
+    paged_rows = phase_f(torch, timer, pa, P, fa)
 
     # (g) the continuous paged fleet through the HTTP server (the main path)
     wave = phase_g(torch, engine, pa, fa, Q)
@@ -2154,7 +2286,7 @@ def main(argv) -> int:
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)
     phase_b(torch, timer, fa, int8=True)
-    int8_rows = phase_f(torch, timer, pa, P, int8=True)
+    int8_rows = phase_f(torch, timer, pa, P, fa, int8=True)
 
     # (k) the quantized paths through the HTTP server
     del engine
@@ -2190,22 +2322,12 @@ def main(argv) -> int:
     print("(q) " + json.dumps({"graphs": graph_rows}))
     line = {"kernels": [
         flash_entry,
-        paged_line(paged_rows, "ragged_paged_attend", wave["launches"],
-                   "distributed_llm_inference_tpu/ops/paged_attention.py:482",
-                   lambda r: True,
-                   f"bf16 H={H} KV={KV} Dh={DH}, {BLOCK}-token blocks, width "
-                   f"{RAGGED_W} in tiles of {RAGGED_TILE}; mean of the (f) launches: "
-                   + ", ".join(ragged_plans(P))),
+        ragged_line(paged_rows, wave["launches"], False, P),
         paged_decode_line(paged_rows, wave["launches"], False),
         q4_line(q4_rows, qwave["launches"]),
         kernels_line(torch, timer, fa, solo_chunks,
                      solo_launches["flash_attend[int8]"], int8=True),
-        paged_line(int8_rows, "ragged_paged_attend[int8]", qwave["launches"],
-                   "distributed_llm_inference_tpu/ops/paged_attention.py:482",
-                   lambda r: True,
-                   f"bf16 q, int8 pool + fp32 scales, H={H} KV={KV} Dh={DH}, "
-                   f"{BLOCK}-token blocks, width {RAGGED_W} in tiles of {RAGGED_TILE}; "
-                   "mean of the (j) launches: " + ", ".join(ragged_plans(P))),
+        ragged_line(int8_rows, qwave["launches"], True, P),
         paged_decode_line(int8_rows, qwave["launches"], True),
         slots_line(slots_rows, slots_driven,
                    dense_launches["flash_attend_slots"]

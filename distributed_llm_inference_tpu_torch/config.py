@@ -276,6 +276,30 @@ class EngineConfig:
     # Replica specialization label ("prefill" | "decode" | "mixed"),
     # reported on /health.
     replica_class: str = "mixed"
+    # Per-tenant prefill-budget weights, ((tenant, weight), ...): within
+    # each SLO class's tile grant the chunked-prefill scheduler splits
+    # across tenants by these weights (FIFO within a tenant). Unlisted
+    # tenants weigh 1.0; empty = every tenant equal.
+    tenant_weights: tuple = ()
+    # Tenant admission quota: one tenant's queued share of the fleet's
+    # bounded queue may not exceed this fraction (beyond a small absolute
+    # floor); the over-quota tenant sheds with 429 + Retry-After before
+    # other tenants starve. 1.0 disables the quota.
+    tenant_max_queue_share: float = 0.5
+
+    def __post_init__(self):
+        if not (0.0 < self.tenant_max_queue_share <= 1.0):
+            raise ValueError(
+                f"tenant_max_queue_share must be in (0, 1], got "
+                f"{self.tenant_max_queue_share}"
+            )
+        for entry in self.tenant_weights:
+            name, w = entry
+            if not name or float(w) <= 0:
+                raise ValueError(
+                    f"tenant_weights entries need a name and a positive "
+                    f"weight, got {entry!r}"
+                )
 
 
 def resolve_attn_impl(cfg: ModelConfig, requested: Optional[str],

@@ -42,6 +42,12 @@ kill) writes them IN PLACE, on every device, and each launch's operands
 are copied into them on the launch's stream. Whole-prefill admission
 launches stay eager.
 
+Tenants, as in the JAX package: a request's `tenant` weighs its share of
+its SLO class's prefill grant (engine_cfg.tenant_weights) and caps its
+share of the bounded queue (engine_cfg.tenant_max_queue_share): an
+over-quota tenant sheds with a 429 "overloaded" envelope that names it,
+counted in dli_tenant_shed_total{tenant}.
+
 Attribution discipline: each launch snapshots the slot -> request
 assignment, so emissions of a launch still in flight when a slot is
 freed and re-armed are never credited to the new tenant.
@@ -72,7 +78,7 @@ from ..utils.tracing import Trace
 from . import generate as G
 from . import graphs
 from . import paged as P
-from .scheduler import PrefillJob, TokenBudgetScheduler, parse_slo_classes
+from .scheduler import MIN_SHED_DEPTH, PrefillJob, TokenBudgetScheduler, parse_slo_classes
 
 log = get_logger("continuous")
 
@@ -86,12 +92,15 @@ class _Request:
         "prompt", "kwargs", "done", "result", "t_start", "ttft", "first_id",
         "tokens", "slot", "enqueued", "budget", "record", "prompt_tokens",
         "block_ids", "need", "trace", "allowed", "slo", "ids", "deadline_at",
-        "prefill_chunks",
+        "prefill_chunks", "tenant",
     )
 
-    def __init__(self, prompt: str, kwargs: dict, request_id=None):
+    def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None):
         self.prompt = prompt
         self.slo = kwargs.pop("slo_class", None)
+        # the tenant the request bills (None: anonymous): its prefill share
+        # (engine_cfg.tenant_weights) and its queue quota
+        self.tenant = tenant
         self.kwargs = kwargs
         self.trace = Trace(request_id)
         self.done = threading.Event()
@@ -222,7 +231,12 @@ class ContinuousEngine:
         self._sched = TokenBudgetScheduler(
             self._slo, ecfg.slo_default_class, int(ecfg.step_token_budget),
             self._ragged_tile, self.n_slots, registry=engine.metrics,
+            tenant_weights=ecfg.tenant_weights,
         )
+        self._tenant_max_share = float(ecfg.tenant_max_queue_share)
+        # tenants that have ever queued (guarded-by: _cv): the per-tenant
+        # queue-depth gauge keeps its schema after they drain
+        self._gauge_tenants: set = {""}
         self._sched_width = self._sched.width
         # chunked mode: pending PrefillJobs (arrival order), and slot -> job
         # while its prompt lands
@@ -285,12 +299,18 @@ class ContinuousEngine:
         )
 
     def _note_queue_locked(self):  # guarded-by: _cv
+        """Refresh the global and per-(SLO class, tenant) queue-depth
+        gauges; a tenant ever seen keeps its series (a drained tenant
+        reads 0, not its stale last value)."""
         self._m.depth.set(len(self._queue))
         counts: dict = {}
         for r in self._queue:
-            counts[r.slo] = counts.get(r.slo, 0) + 1
+            t = r.tenant or ""
+            self._gauge_tenants.add(t)
+            counts[(r.slo, t)] = counts.get((r.slo, t), 0) + 1
         for name in self._slo:
-            self._sched.set_depth(name, counts.get(name, 0))
+            for t in self._gauge_tenants:
+                self._sched.set_depth(name, counts.get((name, t), 0), tenant=t)
 
     def _deadline_env(self, req: _Request, where: str = "") -> dict:
         self._m.deadline_exceeded.inc()
@@ -322,9 +342,27 @@ class ContinuousEngine:
                 return {"error": "Error: server draining", "status": "failed",
                         "error_type": "draining"}
             class_depth = sum(1 for r in self._queue if r.slo == cls.name)
-            if len(self._queue) >= self.max_queue or self._sched.should_shed(
-                    cls, class_depth):
-                full = len(self._queue) >= self.max_queue
+            full = len(self._queue) >= self.max_queue
+            if not full and req.tenant is not None and self._tenant_max_share < 1.0:
+                # the tenant quota: one tenant's queued share of the bounded
+                # queue is capped (beyond a small absolute floor), so a
+                # tenant flooding the queue sheds before the others meet a
+                # full queue
+                t_depth = sum(1 for r in self._queue if r.tenant == req.tenant)
+                t_cap = max(MIN_SHED_DEPTH, int(self.max_queue * self._tenant_max_share))
+                if t_depth >= t_cap:
+                    log.warning("tenant_shed", tenant=req.tenant, depth=t_depth,
+                                cap=t_cap, slo_class=cls.name)
+                    self._m.shed.inc()
+                    self._m.tenant_shed.labels(tenant=req.tenant).inc()
+                    return {
+                        "error": (f"Error: tenant {req.tenant!r} is at its queue "
+                                  f"quota ({t_cap} of {self.max_queue})"),
+                        "status": "failed", "error_type": "overloaded",
+                        "slo_class": cls.name, "tenant": req.tenant,
+                        "retry_after_s": self._sched.retry_after_s(cls, class_depth),
+                    }
+            if full or self._sched.should_shed(cls, class_depth):
                 log.warning("queue_full" if full else "slo_shed",
                             depth=len(self._queue), slo_class=cls.name)
                 self._m.shed.inc()
@@ -348,10 +386,11 @@ class ContinuousEngine:
             return {"error": "Error: adapter serving needs the fleet's adapter "
                     "pool, which is not ported yet", "status": "failed",
                     "error_type": "invalid_request"}
-        kwargs.pop("tenant", None)
+        tenant = kwargs.pop("tenant", None) or None
         if self._needs_solo(kwargs):
             return self.engine.generate(prompt, **kwargs)
-        req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None))
+        req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None),
+                       tenant=tenant)
         err = self._enqueue(req)
         if err is not None:
             return err
@@ -1118,6 +1157,8 @@ class ContinuousEngine:
             self.engine._record_sample(req.ttft, tps, n, elapsed=elapsed,
                                        engine="continuous")
             self._sched.observe(req.slo, req.ttft or None, tpot)
+            # the per-tenant twin of the same samples (no-op when anonymous)
+            self._sched.observe_tenant(req.tenant, req.ttft or None, tpot)
         req.result = {
             "prompt": req.prompt,
             "response": response,
@@ -1135,6 +1176,8 @@ class ContinuousEngine:
         }
         if req.slo is not None:
             req.result["slo_class"] = req.slo
+        if req.tenant is not None:
+            req.result["tenant"] = req.tenant
         if stopped:
             req.result["stopped"] = True
         log.info("completed", slot=req.slot, tokens=n,

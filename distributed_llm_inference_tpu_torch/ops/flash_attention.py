@@ -3,8 +3,9 @@ kernel's wrapper, its plain PyTorch twin, and the switch between them.
 
 `flash_attend` is the port of the JAX package's ops/flash_attention.py
 `flash_attend`, whose Pallas body `_flash_kernel` becomes the hand-written
-Hopper kernel in csrc/flash_attention.cu (the source note there says what
-bounds it and what its design does about it). Same contract as
+Hopper kernel in csrc/flash_attention.cu over the tensor-core walk of
+csrc/flash_walk.cuh (the two source notes say what bounds it and what its
+design does about it). Same contract as
 `attention.attend` with the mask derived from `pos`, `valid_start` and
 the window instead of passed in:
 
@@ -87,6 +88,18 @@ class FlashPlan(NamedTuple):
     blocks: int
 
 
+def walk_tiles(Dh, esize=2, kv_esize=None):
+    """(bn, stages) of the flash walk (csrc/flash_walk.cuh `Plan`) for a
+    head dim, q's element size and the K/V rows' (1 for int8; default
+    q's): keys per tile, 32 where a 64-key tile's row of q's type would
+    pass 512 bytes, and 3 ring stages where three fit in 64 KB, else 2."""
+    kv_esize = esize if kv_esize is None else kv_esize
+    dhp = 64 if Dh <= 64 else 128 if Dh <= 128 else 256
+    bn = 32 if esize * dhp >= 512 else 64
+    stage = 2 * bn * (dhp + 16 // kv_esize) * kv_esize + (2 * bn * 4 if kv_esize == 1 else 0)
+    return bn, 3 if 3 * stage <= 64 * 1024 else 2
+
+
 def flash_plan(B, T, H, KV, S, Dh, sm_count, esize=2, kv_esize=None,
                pos=None) -> FlashPlan:
     """The plan of one flash_attend launch, from the shapes and the
@@ -100,11 +113,7 @@ def flash_plan(B, T, H, KV, S, Dh, sm_count, esize=2, kv_esize=None,
     last query: on an H100 the cluster's merge costs more than a split of
     one or two tiles saves (chip_smoke.py --only b sweeps the sizes).
     valid_start and a window can only shorten the live range."""
-    kv_esize = esize if kv_esize is None else kv_esize
-    dhp = 64 if Dh <= 64 else 128 if Dh <= 128 else 256
-    bn = 32 if esize * dhp >= 512 else 64
-    stage = 2 * bn * (dhp + 16 // kv_esize) * kv_esize + (2 * bn * 4 if kv_esize == 1 else 0)
-    stages = 3 if 3 * stage <= 64 * 1024 else 2
+    bn, stages = walk_tiles(Dh, esize, kv_esize)
     row_tiles = -(-T * (H // KV) // FLASH_ROWS)
     base = row_tiles * KV * B
     live = -(-(S if pos is None else pos + T) // bn)

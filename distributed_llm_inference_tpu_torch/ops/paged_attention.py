@@ -4,15 +4,29 @@ three CUDA kernels' wrappers and their plain PyTorch twins.
 `ragged_paged_attend`, `paged_flash_attend` and `flash_attend_slots` are
 the ports of the JAX package's ops/paged_attention.py functions of the
 same names, each a hand-written Hopper kernel (each source's note says
-what bounds it and what its design does about it). The two T=1 decode
-kernels share one split-KV walk (csrc/decode_walk.cuh): each row's live
-key range is shared by `n_split` blocks, fixed on the host from the
-shapes alone (`_paged_splits`, `_slots_splits`), whose fp32 partials go
-to a workspace this module allocates and are merged in a fixed order by
-a second kernel (repeats are bit-equal). `paged_flash_attend` walks the
-pool through the block table (csrc/paged_attention.cu, which also holds
-the ragged kernel); `flash_attend_slots` walks the dense cache
-(csrc/slots_attention.cu). The pool keeps the JAX layout, one
+what bounds it and what its design does about it). All three are bound
+by bytes: each live K/V row is read once per KV head against ~16 FLOPs
+per byte at tinyllama's group of 8 (a full prompt tile ~8x that), far
+below what the tensor cores need to be the limit; what keeps them from
+that bound at the fleet's sizes is how few blocks one per (row or tile,
+KV head) would put on the card, each walking its keys in series.
+
+`ragged_paged_attend` (csrc/paged_attention.cu) runs the tensor-core
+flash walk that `flash_attend` runs (csrc/flash_walk.cuh) through the
+block table: a block owns a query tile's folded rows for one KV head and
+is one rank of a thread-block cluster that splits the tile's live key
+tiles; `ragged_plan` fixes the cluster on the host from the shapes alone
+so that G * KV * cluster covers the SMs, and the ranks of a short tile
+agree on the device, from the same meta[g], to walk with fewer ranks.
+The ranks merge in a fixed order in one launch (repeats are bit-equal).
+The two T=1 decode kernels share one split-KV walk
+(csrc/decode_walk.cuh): each row's live key range is shared by
+`n_split` blocks, fixed on the host from the shapes alone
+(`_paged_splits`, `_slots_splits`), whose fp32 partials go to a
+workspace this module allocates and are merged in a fixed order by a
+second kernel. `paged_flash_attend` walks the pool through the block
+table (csrc/paged_attention.cu); `flash_attend_slots` walks the dense
+cache (csrc/slots_attention.cu). The pool keeps the JAX layout, one
 layer's slice [N, KV, bs, Dh]: key position p of a table row lives in
 physical block table[row, p // bs] at slot p % bs; an id outside [0, N)
 reads block 0, the trash block.
@@ -59,11 +73,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..kernels import bind, load_library
 from .flash_attention import (
+    FLASH_MAX_CLUSTER,
+    FLASH_ROWS,
     MAX_HEAD_DIM,
     NEG,
     _sm_count,
@@ -72,6 +89,7 @@ from .flash_attention import (
     fp32_leaf,
     kv_operands,
     resolve_kernel,
+    walk_tiles,
 )
 from .kv_quant import KVQuant
 
@@ -87,7 +105,8 @@ _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "dli_ragged_paged_attend": [
         _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
-        _i32, _i32, _i32, _vp, _vp, _i32, _vp, _f32, _f32, _vp,
+        _i32, _i32, _i32, _vp, _vp, _i32, _vp, _f32, _f32, _i32, _i32, _i32,
+        _i32, _vp,
     ],
     "dli_paged_flash_attend": [
         _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
@@ -128,6 +147,48 @@ def _paged_splits(B, KV, MB, bs, sm_count):
     table row can hold. A function of the shapes alone: a launch reads
     nothing back and is captured in the fleet's decode-chunk graph."""
     return _slots_splits(B, KV, MB * bs, sm_count)
+
+
+# the live key tiles each rank of a ragged tile keeps at least: a tile
+# with fewer walks with fewer ranks (chip_smoke.py --only r sweeps it)
+RAGGED_MIN_SHARE = 2
+
+
+class RaggedPlan(NamedTuple):
+    """The ragged kernel's launch: `rows` folded query rows per block,
+    tiles of `bn` keys through a ring of `stages`, `row_tiles` blocks per
+    (query tile, KV head), each a cluster of `cluster` ranks that split the
+    tile's live key tiles, every rank keeping at least `min_share` of them
+    (the ranks agree on the device to walk with fewer where a tile has
+    fewer live tiles; 0: every rank walks its share); `blocks` in all."""
+
+    rows: int
+    bn: int
+    stages: int
+    row_tiles: int
+    cluster: int
+    blocks: int
+    min_share: int
+
+
+def ragged_plan(G, tq, H, KV, MB, bs, Dh, sm_count, esize=2, kv_esize=None) -> RaggedPlan:
+    """The plan of one ragged_paged_attend launch, from the shapes alone
+    (a tile's live length is read on the device, so a call reads nothing
+    back and can be captured): the flash walk's tiles and ring
+    (`walk_tiles`, which the entry point checks against its build), and
+    the smallest cluster of 1, 2, 4 or 8 ranks whose G * KV * row_tiles *
+    cluster blocks cover every SM, but no larger than leaves each rank
+    two of the MB * bs keys' tiles that a table row can hold."""
+    bn, stages = walk_tiles(Dh, esize, kv_esize)
+    row_tiles = -(-tq * (H // KV) // FLASH_ROWS)
+    base = G * KV * row_tiles
+    tiles = -(-MB * bs // bn)
+    cluster = 1
+    while (cluster < FLASH_MAX_CLUSTER and base * cluster < sm_count
+           and 4 * cluster <= tiles):
+        cluster *= 2
+    return RaggedPlan(FLASH_ROWS, bn, stages, row_tiles, cluster, base * cluster,
+                      RAGGED_MIN_SHARE)
 
 
 def _attend_blocks(q5, blocks, pool_k, pool_v, q_pos, live, window_dyn,
@@ -205,11 +266,13 @@ def paged_flash_attend_plain(q, pool_k, pool_v, table, pos, window_dyn=None,
 
 
 def ragged_paged_attend(q, pool_k, pool_v, table, meta, window_dyn=None, *,
-                        window=None, scale=None, softcap=None):
+                        window=None, scale=None, softcap=None, plan=None):
     """Mixed prefill + decode attention over the (already updated) pool;
     see the module docstring. Counts its kernel launches in
     `ragged_paged_attend.launches` (raw pool) and
-    `ragged_paged_attend.launches_int8` (int8 pool)."""
+    `ragged_paged_attend.launches_int8` (int8 pool). `plan`: a RaggedPlan
+    to launch instead of `ragged_plan`'s (chip_smoke's sweep); the CPU
+    twin ignores it."""
     if not resolve_kernel(q.device):
         return ragged_paged_attend_plain(
             q, pool_k, pool_v, table, meta, window_dyn,
@@ -224,6 +287,10 @@ def ragged_paged_attend(q, pool_k, pool_v, table, meta, window_dyn=None, *,
         )
     N, KV, bs = _check("ragged_paged_attend", q, pool_k, pool_v, table,
                        window_dyn, (("meta", meta, G * 4),))
+    R, MB = table.shape
+    if plan is None:
+        plan = ragged_plan(G, W // G, H, KV, MB, bs, Dh, _sm_count(q.device),
+                           q.element_size(), 1 if isinstance(pool_k, KVQuant) else None)
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
@@ -231,11 +298,12 @@ def ragged_paged_attend(q, pool_k, pool_v, table, meta, window_dyn=None, *,
         rc = lib.dli_ragged_paged_attend(
             q.data_ptr(), *kv_operands(pool_k, pool_v),
             out.data_ptr(), _DTYPE_CODES[q.dtype], G, W // G, H, KV, N, bs,
-            table.shape[0], table.shape[1], Dh, table.data_ptr(),
-            meta.data_ptr(), int(window) if window is not None else -1,
+            R, MB, Dh, table.data_ptr(), meta.data_ptr(),
+            int(window) if window is not None else -1,
             window_dyn.data_ptr() if window_dyn is not None else None,
             float(Dh ** -0.5 if scale is None else scale),
-            float(softcap) if softcap is not None else 0.0, stream,
+            float(softcap) if softcap is not None else 0.0,
+            plan.bn, plan.stages, plan.cluster, plan.min_share, stream,
         )
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attend kernel launch failed: CUDA error {rc}")

@@ -316,6 +316,10 @@ def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
         shed=m.counter(
             "dli_queue_shed_total", "requests shed with 429", ("queue",)
         ).labels(queue="continuous"),
+        tenant_shed=m.counter(
+            "dli_tenant_shed_total",
+            "requests shed with 429 by the per-tenant queue quota", ("tenant",),
+        ),
         deadline_exceeded=m.counter(
             "dli_deadline_exceeded_total",
             "requests failed by their end-to-end deadline_ms",

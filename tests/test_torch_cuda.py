@@ -236,6 +236,150 @@ def test_ragged_kernel_matches_twin(card, dtype):
         assert got[6 * tq + 5: 7 * tq].abs().max().item() == 0.0
 
 
+# the ragged kernel's flash walk through the table at its edges: (H, KV, Dh,
+# bs, MB, tq, per-tile (row, q_start, q_len, kind)). Tinyllama's widths with
+# decode rows at block, 64-key tile and split edges, a 64-token chunk whose
+# tiles straddle a tile edge, one past the table (q_start >= MB * bs:
+# attends all MB * bs keys), a 5-token row at 37, then pad tiles; 12-key
+# blocks that straddle the tiles' edges; a group of 12 heads (96 folded
+# rows: two row tiles); Dh 128, 256, and 20 (rows no multiple of 16 bytes:
+# element copies)
+RAGGED_EDGE_CASES = [
+    (32, 4, 64, 16, 64, 8, [(0, 0, 1, 1), (1, 15, 1, 1), (2, 16, 1, 1), (3, 63, 1, 1),
+                            (4, 64, 1, 1), (5, 1023, 1, 1), (6, 56, 8, 0), (6, 64, 8, 0),
+                            (7, 1030, 8, 0), (8, 37, 5, 0), (8, 37, 0, 0), (8, 37, 0, 0)]),
+    (32, 4, 64, 12, 50, 8, [(0, 11, 1, 1), (1, 12, 1, 1), (2, 599, 1, 1), (3, 590, 8, 0),
+                            (3, 598, 2, 0), (4, 0, 0, 0)]),
+    (24, 2, 64, 16, 44, 8, [(0, 699, 1, 1), (1, 100, 8, 0), (1, 108, 7, 0), (1, 0, 0, 0)]),
+    (8, 2, 128, 16, 20, 4, [(0, 0, 1, 1), (1, 17, 4, 0), (2, 300, 4, 0), (2, 0, 0, 0)]),
+    (16, 2, 256, 16, 38, 4, [(0, 599, 1, 1), (1, 64, 4, 0), (1, 68, 3, 0)]),
+    (8, 2, 20, 8, 13, 4, [(0, 5, 1, 1), (1, 100, 4, 0), (1, 104, 1, 0), (0, 0, 0, 0)]),
+]
+
+
+def _ragged_edge_operands(card, dt, g, H, KV, Dh, bs, MB, tq, meta):
+    """A shuffled pool as _pool_case (one table row per distinct meta row),
+    with bad ids inside the live ranges of row 0 (-3) and of the last row
+    (N + 5): both read block 0, the trash block, as in the twin."""
+    R = max(m[0] for m in meta) + 1
+    pool_k, pool_v, table = _pool_case(card, dt, g, N=R * MB + 1, KV=KV, bs=bs, Dh=Dh,
+                                       R=R, MB=MB)
+    table[0, 0] = -3
+    table[-1, min(MB - 1, max(m[1] for m in meta if m[0] == R - 1) // bs)] = R * MB + 6
+    q = torch.randn(len(meta) * tq, H, Dh, generator=g, device=card).to(dt)
+    return q, pool_k, pool_v, table, torch.tensor(meta, dtype=torch.int32, device=card)
+
+
+def _dead_rows(meta, tq):
+    """The flat query rows that must be zeros: launch padding and the rows
+    past each tile's q_len."""
+    return [g * tq + t for g, m in enumerate(meta) for t in range(m[2], tq)]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["raw", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_ragged_kernel_matches_twin_at_tile_block_and_split_edges(card, dtype, int8):
+    """Every edge case above under every variant, raw and int8 pools: within
+    atol of the twin, the same bits on a repeat, exact zeros on padding."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(25)
+    for H, KV, Dh, bs, MB, tq, meta in RAGGED_EDGE_CASES:
+        q, pk, pv, table, m = _ragged_edge_operands(card, torch.float32, g, H, KV, Dh, bs,
+                                                    MB, tq, meta)
+        q = q.to(dt)
+        pk, pv = (_int8(pk), _int8(pv)) if int8 else (pk.to(dt), pv.to(dt))
+        dead = _dead_rows(meta, tq)
+        for kw, wdyn in PAGED_VARIANTS:
+            wd = None if wdyn is None else torch.tensor([wdyn], dtype=torch.int32,
+                                                        device=card)
+            counts = (pa.ragged_paged_attend.launches, pa.ragged_paged_attend.launches_int8)
+            got = pa.ragged_paged_attend(q, pk, pv, table, m, wd, **kw)
+            again = pa.ragged_paged_attend(q, pk, pv, table, m, wd, **kw)
+            torch.cuda.synchronize()
+            assert (pa.ragged_paged_attend.launches, pa.ragged_paged_attend.launches_int8) \
+                == ((counts[0], counts[1] + 2) if int8 else (counts[0] + 2, counts[1]))
+            assert torch.equal(got, again)  # a fixed-order merge: the same bits
+            want = pa.ragged_paged_attend_plain(q, pk, pv, table, m, wd, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL[dtype], (H, Dh, bs, meta, kw, wdyn, err)
+            assert not got[dead].any(), (H, Dh, bs, kw, wdyn)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_kernel_agrees_across_clusters_and_shares(card, dtype):
+    """The fleet's mixed launch under every cluster size and every
+    min_share (0: each rank walks its share, however short): within atol
+    of the twin, each plan's repeats bit-equal."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(26)
+    H, KV, Dh, bs, MB, tq, meta = RAGGED_EDGE_CASES[0]
+    q, pk, pv, table, m = _ragged_edge_operands(card, dt, g, H, KV, Dh, bs, MB, tq, meta)
+    want = pa.ragged_paged_attend_plain(q, pk, pv, table, m)
+    chosen = pa.ragged_plan(len(meta), tq, H, KV, MB, bs, Dh,
+                            torch.cuda.get_device_properties(card).multi_processor_count,
+                            q.element_size())
+    for cluster in (1, 2, 4, 8):
+        for share in (0, 1, 2, 4):
+            plan = chosen._replace(cluster=cluster, min_share=share)
+            got = pa.ragged_paged_attend(q, pk, pv, table, m, plan=plan)
+            again = pa.ragged_paged_attend(q, pk, pv, table, m, plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (cluster, share)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL[dtype], (cluster, share, err)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["raw", "int8"])
+def test_ragged_kernel_replays_in_a_cuda_graph_bit_equal(card, int8):
+    """One call at the mixed launch's width captured in a CUDA graph (the
+    plan fixed on the host): after meta and the per-layer window change in
+    place, as engine/paged.apply_device_meta rewrites them, each replay
+    gives the eager call's bits; the eager call passes
+    set_sync_debug_mode("error")."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=card).manual_seed(27)
+    H, KV, Dh, bs, MB, tq, meta = RAGGED_EDGE_CASES[0]
+    q, pk, pv, table, m = _ragged_edge_operands(card, torch.float32, g, H, KV, Dh, bs, MB,
+                                                tq, meta)
+    q = q.to(torch.bfloat16)
+    pk, pv = (_int8(pk), _int8(pv)) if int8 else (pk.to(torch.bfloat16),
+                                                  pv.to(torch.bfloat16))
+    wd = torch.tensor([-1], dtype=torch.int32, device=card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm: library, shared-memory opt-in
+        pa.ragged_paged_attend(q, pk, pv, table, m, wd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.ragged_paged_attend(q, pk, pv, table, m, wd)
+    counts = (pa.ragged_paged_attend.launches, pa.ragged_paged_attend.launches_int8)
+    shifted = [(r, s + 100, n, k) for r, s, n, k in meta]
+    decode_only = [(r, 1023 - r, 1 if r < 8 else 0, 1) for r, _, _, _ in meta]
+    for new_meta, width in ((meta, -1), (shifted, 256), (decode_only, 300)):
+        m.copy_(torch.tensor(new_meta, dtype=torch.int32))
+        wd.fill_(width)
+        graph.replay()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = pa.ragged_paged_attend(q, pk, pv, table, m, wd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), width
+        want = pa.ragged_paged_attend_plain(q, pk, pv, table, m, wd)
+        assert (out.float() - want.float()).abs().max().item() <= ATOL["bfloat16"]
+        assert not out[_dead_rows(new_meta, tq)].any()
+    # the eager calls only, on the count of the pool's storage type
+    assert (pa.ragged_paged_attend.launches, pa.ragged_paged_attend.launches_int8) == (
+        (counts[0], counts[1] + 3) if int8 else (counts[0] + 3, counts[1]))
+
+
 def test_paged_kernels_reject_what_they_do_not_take(card):
     from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
 

@@ -43,8 +43,13 @@ def test_a_header_nothing_includes_and_a_system_include_leave_the_path(csrc):
 
 
 def test_the_sources_of_the_port_digest_the_walk_header():
-    """Both decode kernels' sources include csrc/decode_walk.cuh."""
-    for name in ("paged_attention", "slots_attention"):
+    """Both decode kernels' sources include csrc/decode_walk.cuh, both
+    flash walks' csrc/flash_walk.cuh (the paged source holds one of each),
+    and each walk csrc/tile_ops.cuh: an edit of any of them rebuilds."""
+    want = {"paged_attention": {"decode_walk.cuh", "flash_walk.cuh", "tile_ops.cuh"},
+            "slots_attention": {"decode_walk.cuh", "tile_ops.cuh"},
+            "flash_attention": {"flash_walk.cuh", "tile_ops.cuh"}}
+    for name, headers in want.items():
         found = set()
         kernels._local_includes(kernels.CSRC / f"{name}.cu", found)
-        assert {p.name for p in found} == {"decode_walk.cuh"}
+        assert {p.name for p in found} == headers

@@ -264,6 +264,76 @@ def test_int8_paged_walk_rounds_each_dequantized_element_once(round_to):
         torch.testing.assert_close(got, want, atol=PAGED_ATOL, rtol=0)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_int8_ragged(bs, mb, variant):
+    """The int8 Pallas ragged kernel in interpret mode on the ragged walk's
+    launch (test_torch_paged_attention.ragged_walk_meta) over a shuffled
+    int8 pool (cached: every cluster is held to the same result)."""
+    from test_torch_paged_attention import (
+        RAGGED_H,
+        RAGGED_TQ,
+        WALK_VARIANTS,
+        ragged_walk_meta,
+    )
+
+    kw, wd = WALK_VARIANTS[variant]
+    rng = _rng(80 + bs)
+    n = 10 * mb + 1
+    k = _int8_leaves(rng, (n, KV, bs, DH))
+    v = _int8_leaves(rng, (n, KV, bs, DH))
+    table = (rng.permutation(n - 1)[: 10 * mb] + 1).reshape(10, mb).astype(np.int32)
+    meta = ragged_walk_meta(bs, mb)
+    q = rng.standard_normal((meta.shape[0] * RAGGED_TQ, RAGGED_H, DH)).astype(np.float32)
+    wdj, _ = _window(wd)
+    want = np.asarray(jax_ragged(
+        jnp.asarray(q), _jleaf(*k), _jleaf(*v), jnp.asarray(table), jnp.asarray(meta),
+        wdj, interpret=True, **kw))
+    return (q, k, v, table, meta), want
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+@pytest.mark.parametrize("variant", range(6),
+                         ids=["causal", "window", "window_dyn", "window_dyn_off",
+                              "softcap", "scale"])
+@pytest.mark.parametrize("bs,mb", [(16, 20), (12, 27)], ids=["bs16", "bs12"])
+def test_int8_ragged_walk_matches_pallas_kernel(bs, mb, variant, cluster):
+    """The CUDA ragged kernel's flash walk over an int8 pool, emulated in
+    fp32 torch (test_torch_paged_attention._ragged_walk: each row q8 * s,
+    then the cluster's shares and its fixed-order merge), against the int8
+    Pallas kernel in interpret mode: within PAGED_ATOL with and without
+    the ranks of a short tile walking fewer, zeros on the dead rows."""
+    from test_torch_paged_attention import WALK_VARIANTS, _ragged_walk, ragged_dead_rows
+
+    (q, k, v, table, meta), want = _jax_int8_ragged(bs, mb, variant)
+    kw, wd = WALK_VARIANTS[variant]
+    _, wdt = _window(wd)
+    for share in (0, pa.RAGGED_MIN_SHARE):
+        got = _ragged_walk(torch.from_numpy(q), _tleaf(*k), _tleaf(*v),
+                           torch.from_numpy(table), torch.from_numpy(meta), wdt,
+                           cluster=cluster, min_share=share, **kw)
+        np.testing.assert_allclose(got.numpy(), want, atol=PAGED_ATOL, rtol=0)
+        assert not got[ragged_dead_rows(meta)].any()
+
+
+@pytest.mark.parametrize("round_to", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_int8_ragged_walk_rounds_each_dequantized_element_once(round_to):
+    """For a bf16 / fp16 product the ragged kernel rounds each dequantized
+    element q8 * s (fp32) to that type once, the rounding point of
+    flash_attend's int8 cache: the walk with that rounding is the raw twin
+    over the pool so rounded, within PAGED_ATOL."""
+    from test_torch_paged_attention import _ragged_walk
+
+    (q, k, v, table, meta), _ = _jax_int8_ragged(16, 20, 0)
+    kt, vt = _tleaf(*k), _tleaf(*v)
+    rounded = [(leaf.q.float() * leaf.s[..., None]).to(round_to).float() for leaf in (kt, vt)]
+    args = (torch.from_numpy(q), torch.from_numpy(table), torch.from_numpy(meta))
+    want = pa.ragged_paged_attend_plain(args[0], *rounded, *args[1:])
+    for cluster in (1, 4):
+        got = _ragged_walk(args[0], kt, vt, *args[1:], cluster=cluster,
+                           min_share=pa.RAGGED_MIN_SHARE, round_to=round_to)
+        torch.testing.assert_close(got, want, atol=PAGED_ATOL, rtol=0)
+
+
 # (B, T, H, KV, Dh, S, pos, valid_start, window, window_dyn, scale, softcap)
 FLASH_CASES = [
     (1, 16, 8, 2, 16, 64, 0, None, None, None, None, None),  # prefill at 0

@@ -437,3 +437,269 @@ def test_paged_decode_launch_half_matches_the_c_signature(monkeypatch, kw, wd):
     assert args[19] == pytest.approx(kw.get("scale", DH ** -0.5))
     assert args[20] == pytest.approx(kw.get("softcap", 0.0))
     assert args[21] == n_split
+
+
+# -- the CUDA ragged kernel's flash walk through the table, emulated ----------------
+
+RAGGED_H = 24  # a group of 12 over KV = 2: 96 folded rows a tile, two row tiles
+RAGGED_TQ = 8  # the fleet's query tile
+RAGGED_CLUSTERS = [1, 2, 4, 8]
+
+
+def ragged_walk_meta(bs, MB):
+    """(f)'s launch shapes cut to a short table row of S = MB * bs keys, one
+    query tile per entry: decode rows at 0 and on block, 64-key tile and
+    table edges; a 20-token chunk at 50 over three tiles; a 5-token
+    prefill row at 37; a tile at MB * bs (its queries attend all S keys);
+    an 8-token tile across the last tile edges; two pad tiles that repeat
+    their predecessor's row and start with q_len 0."""
+    S = MB * bs
+    return np.array([
+        (0, 0, 1, PA.RAGGED_DECODE), (1, bs - 1, 1, PA.RAGGED_DECODE),
+        (2, bs, 1, PA.RAGGED_DECODE), (3, 63, 1, PA.RAGGED_DECODE),
+        (4, 64, 1, PA.RAGGED_DECODE), (5, S - 1, 1, PA.RAGGED_DECODE),
+        (6, 50, 8, PA.RAGGED_PREFILL), (6, 58, 8, PA.RAGGED_PREFILL),
+        (6, 66, 4, PA.RAGGED_PREFILL), (7, 37, 5, PA.RAGGED_PREFILL),
+        (8, S, 8, PA.RAGGED_PREFILL), (9, 250, 8, PA.RAGGED_PREFILL),
+        (9, 250, 0, PA.RAGGED_PREFILL), (9, 250, 0, PA.RAGGED_PREFILL),
+    ], np.int32)
+
+
+def _ragged_walk(q, pool_k, pool_v, table, meta, window_dyn=None, *, window=None,
+                 scale=None, softcap=None, cluster=1, min_share=0,
+                 tile=64, rows=64, round_to=None):
+    """The ragged kernel's arithmetic in torch, fp32. Tile g's queries
+    t < q_len sit at q_start + t of table row `row` (clamped to [0, R));
+    its folded rows (r = t * group + h) go in blocks of `rows`, each
+    block's live keys the `tile`-key tiles [first, needed) on the tile
+    grid from key 0: up to one past its last live query's position (never
+    past S = MB * bs), from its first query's window start. The cluster's
+    ranks (`min_share` > 0: only as many as keep that many tiles each)
+    take even shares in order; each rank folds its tiles into (m, l, acc)
+    by a base-2 online softmax, the scores scaled after the product and
+    soft-capped, each row masked to its live range; the ranks merge in
+    order with the log-sum-exp rescale (one rank divides its own). Key p
+    is slot p % bs of block table[row, p // bs] (an id outside [0, N)
+    reads block 0); an int8 row is q8 * s in fp32, rounded to `round_to`
+    as the kernel rounds it for a bf16 / fp16 product. Dead rows and rows
+    with no live key give zeros."""
+    from distributed_llm_inference_tpu_torch.ops.kv_quant import KVQuant
+
+    W, H_, Dh = q.shape
+    G = meta.shape[0]
+    tq = W // G
+    int8 = isinstance(pool_k, KVQuant)
+    N, KV_, bs, _ = (pool_k.q if int8 else pool_k).shape
+    R, MB_ = table.shape
+    S = MB_ * bs
+    group = H_ // KV_
+    scale = Dh ** -0.5 if scale is None else scale
+    win = int(window_dyn.reshape(())) if window_dyn is not None else (
+        window if window is not None else -1)
+    log2e = 1.4426950408889634
+    neg = torch.tensor(-0.7 * torch.finfo(torch.float32).max)
+
+    def key_rows(leaf, ids, kvh, slots):
+        if int8:
+            x = leaf.q[ids, kvh, slots].float() * leaf.s[ids, kvh, slots][:, None]
+            return x.to(round_to).float() if round_to is not None else x
+        return leaf[ids, kvh, slots].float()
+
+    out = torch.zeros(W, H_, Dh)
+    for g in range(G):
+        row = min(max(int(meta[g, 0]), 0), R - 1)
+        pos = int(meta[g, 1])
+        t_live = min(max(int(meta[g, 2]), 0), tq)
+        for kvh in range(KV_):
+            qh = q[g * tq:(g + 1) * tq, kvh * group:(kvh + 1) * group].reshape(
+                tq * group, Dh).float()
+            for row0 in range(0, tq * group, rows):
+                r = torch.arange(row0, min(row0 + rows, tq * group))
+                qp = pos + r // group
+                live_row = r < t_live * group
+                hi = torch.where(live_row, torch.clamp(qp, max=S - 1), -1)
+                lo = torch.clamp(qp - win + 1, min=0) if win > 0 else torch.zeros_like(qp)
+                t_lo, t_hi = row0 // group, min((row0 + rows - 1) // group, t_live - 1)
+                first = needed = kend = 0
+                if t_hi >= t_lo:
+                    kend = min(pos + t_hi + 1, S)
+                    needed = -(-kend // tile) if kend > 0 else 0
+                    first = max(pos + t_lo - win + 1, 0) // tile if win > 0 else 0
+                n = max(needed - first, 0)
+                ranks = cluster
+                while min_share > 0 and ranks > 1 and ranks * min_share > n:
+                    ranks //= 2
+                parts = []
+                for rank in range(ranks):
+                    m = neg.expand(len(r)).clone()
+                    lsum, acc = torch.zeros(len(r)), torch.zeros(len(r), Dh)
+                    for j in range(first + rank * n // ranks, first + (rank + 1) * n // ranks):
+                        kp = torch.arange(j * tile, min((j + 1) * tile, kend))
+                        ids = table[row, kp // bs].long()
+                        ids = torch.where((ids >= 0) & (ids < N), ids, 0)
+                        kr = key_rows(pool_k, ids, kvh, kp % bs)
+                        vr = key_rows(pool_v, ids, kvh, kp % bs)
+                        x = (qh[r] @ kr.T) * scale
+                        if softcap is not None:
+                            x = softcap * torch.tanh(x / softcap)
+                        x = x * log2e
+                        live = (kp[None] >= lo[:, None]) & (kp[None] <= hi[:, None])
+                        x = torch.where(live, x, neg)
+                        m_new = torch.maximum(m, x.amax(-1))
+                        alpha = torch.exp2(m - m_new)
+                        p = torch.where(live, torch.exp2(x - m_new[:, None]), 0.0)
+                        lsum = lsum * alpha + p.sum(-1)
+                        acc = acc * alpha[:, None] + p @ vr
+                        m = m_new
+                    parts.append((m, lsum, acc))
+                if ranks == 1:
+                    _, lsum, acc = parts[0]
+                    o = acc / torch.where(lsum == 0, 1.0, lsum)[:, None]
+                else:
+                    mx = torch.stack([p_[0] for p_ in parts]).amax(0)
+                    lsum, acc = torch.zeros(len(r)), torch.zeros(len(r), Dh)
+                    for m, part_l, part_acc in parts:
+                        e = torch.exp2(m - mx)
+                        lsum = lsum + part_l * e
+                        acc = acc + part_acc * e[:, None]
+                    o = torch.where(lsum[:, None] == 0, 0.0,
+                                    acc / torch.where(lsum == 0, 1.0, lsum)[:, None])
+                out[g * tq + r // group, kvh * group + r % group] = o
+    return out
+
+
+def ragged_walk_pool(seed, bs, MB, rows, H_=RAGGED_H):
+    """walk_pool's shuffled pool and table, with queries for the launch."""
+    rng, pk, pv, table = walk_pool(seed, bs, MB, rows)
+    meta = ragged_walk_meta(bs, MB)
+    q = rng.standard_normal((meta.shape[0] * RAGGED_TQ, H_, DH)).astype(np.float32)
+    return q, pk, pv, table, meta
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ragged(bs, MB, variant):
+    """The Pallas ragged kernel in interpret mode on ragged_walk_pool's
+    inputs (cached: every cluster is held to the same result)."""
+    kw, wd = WALK_VARIANTS[variant]
+    q, pk, pv, table, meta = ragged_walk_pool(60 + bs, bs, MB, 10)
+    wdj, _ = _window(wd)
+    want = np.asarray(JA.ragged_paged_attend(
+        jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(table),
+        jnp.asarray(meta), wdj, interpret=True, **kw))
+    return (q, pk, pv, table, meta), want
+
+
+def ragged_dead_rows(meta, tq=RAGGED_TQ):
+    """The flat query rows the kernel must write as zeros: launch padding
+    and the rows past each tile's q_len."""
+    return [g * tq + t for g, m in enumerate(meta) for t in range(int(m[2]), tq)]
+
+
+@pytest.mark.parametrize("cluster", RAGGED_CLUSTERS)
+@pytest.mark.parametrize("variant", range(len(WALK_VARIANTS)), ids=WALK_IDS)
+@pytest.mark.parametrize("bs,mb", WALK_GEOMETRIES, ids=["bs16", "bs12"])
+def test_ragged_walk_matches_pallas_kernel(bs, mb, variant, cluster):
+    """The kernel's walk with every rank walking its share (min_share 0)
+    and with the ranks of a short tile agreeing to walk with fewer
+    (RAGGED_MIN_SHARE): both within WALK_ATOL of the Pallas kernel, zeros
+    on the dead rows."""
+    (q, pk, pv, table, meta), want = _jax_ragged(bs, mb, variant)
+    kw, wd = WALK_VARIANTS[variant]
+    _, wdt = _window(wd)
+    for share in (0, PA.RAGGED_MIN_SHARE):
+        got = _ragged_walk(*_t(q, pk, pv, table, meta), wdt, cluster=cluster,
+                           min_share=share, **kw)
+        np.testing.assert_allclose(got.numpy(), want, atol=WALK_ATOL, rtol=0)
+        assert not got[ragged_dead_rows(meta)].any()
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_ragged_walk_reads_block_zero_for_an_id_outside_the_pool(cluster):
+    """Ids below 0 and at or past N read block 0, the trash block, as the
+    twin does (the Pallas kernel in interpret mode reads another block for
+    such an id, a table the fleet never writes)."""
+    q, pk, pv, table, meta = ragged_walk_pool(70, 16, 20, 10)
+    table[0, 0] = -7
+    table[6, 3] = pk.shape[0]
+    table[8, 19] = pk.shape[0] + 100
+    args = _t(q, pk, pv, table, meta)
+    got = _ragged_walk(*args, cluster=cluster, min_share=PA.RAGGED_MIN_SHARE)
+    torch.testing.assert_close(got, PA.ragged_paged_attend_plain(*args),
+                               atol=WALK_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("G,tq,H_,KV_,MB_,bs_", [
+    (16, 8, 32, 4, 64, 16), (8, 8, 32, 4, 64, 16), (16, 8, 32, 4, 20, 12),
+    (4, 16, 48, 4, 64, 16), (2, 4, 8, 2, 3, 4), (64, 8, 64, 8, 256, 16), (1, 1, 1, 1, 1, 1),
+])
+def test_ragged_plan_covers_the_card_and_mirrors_the_kernel_plan(G, tq, H_, KV_, MB_, bs_):
+    """A power of two <= 8 whose blocks cover every SM, unless a rank would
+    keep fewer than two of a table row's key tiles; the flash walk's tiles
+    and ring, which the entry point checks against its build; a function
+    of its arguments alone."""
+    from distributed_llm_inference_tpu_torch.ops import flash_attention as fa
+
+    for Dh in (20, 64, 128, 256):
+        for esize, kv_esize in ((2, 2), (2, 1), (4, 4), (4, 1)):
+            for sm in (1, 78, 132):
+                p = PA.ragged_plan(G, tq, H_, KV_, MB_, bs_, Dh, sm, esize, kv_esize)
+                assert p == PA.ragged_plan(G, tq, H_, KV_, MB_, bs_, Dh, sm, esize, kv_esize)
+                assert p.cluster in (1, 2, 4, 8) and p.min_share == PA.RAGGED_MIN_SHARE
+                assert (p.bn, p.stages) == fa.walk_tiles(Dh, esize, kv_esize)
+                # the dense plan's tiles for the same widths
+                dense = fa.flash_plan(1, tq, H_, KV_, MB_ * bs_, Dh, sm, esize, kv_esize)
+                assert (p.rows, p.bn, p.stages, p.row_tiles) == (
+                    dense.rows, dense.bn, dense.stages, dense.row_tiles)
+                assert p.row_tiles * p.rows >= tq * (H_ // KV_) > (p.row_tiles - 1) * p.rows
+                assert p.blocks == G * KV_ * p.row_tiles * p.cluster
+                tiles = -(-MB_ * bs_ // p.bn)
+                assert p.cluster == 1 or 2 * p.cluster <= tiles
+                assert p.blocks >= sm or p.cluster == 8 or 4 * p.cluster > tiles
+    # the fleet's mixed launch (16 tiles) and ragged whole-prefill (8) on 132 SMs
+    assert PA.ragged_plan(16, 8, 32, 4, 64, 16, 64, 132).cluster == 4
+    assert PA.ragged_plan(8, 8, 32, 4, 64, 16, 64, 132).cluster == 8
+    assert PA.ragged_plan(16, 8, 32, 4, 64, 16, 64, 132, 2, 1).stages == 3
+
+
+@pytest.mark.parametrize("kw,wd", VARIANTS, ids=VARIANT_IDS)
+def test_ragged_launch_half_matches_the_c_signature(monkeypatch, kw, wd):
+    """The wrapper's launch half on CPU tensors against a stand-in library:
+    the argument list matches the C signature, with the table's shape, the
+    window operands, scale and softcap, then the plan's bn, stages,
+    cluster and min_share; a plan passed in replaces ragged_plan's; one
+    launch counted per call."""
+    from test_torch_kv_quant import _StandInLibrary
+
+    lib = _StandInLibrary(PA.SIGNATURES)
+    monkeypatch.setattr(PA, "resolve_kernel", lambda device: True)
+    monkeypatch.setattr(PA, "_library", lambda: lib)
+    monkeypatch.setattr(PA, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: type("S", (), {"cuda_stream": 0})())
+    bs, mb = WALK_GEOMETRIES[0]
+    q, pk, pv, table, meta = ragged_walk_pool(4, bs, mb, 10)
+    _, wdt = _window(wd)
+    before = PA.ragged_paged_attend.launches
+    out = PA.ragged_paged_attend(*_t(q, pk, pv, table, meta), wdt, **kw)
+    assert out.shape == q.shape and out.dtype == torch.float32
+    name, args = lib.calls[-1]
+    assert name == "dli_ragged_paged_attend"
+    assert len(args) == len(PA.SIGNATURES[name])
+    G = meta.shape[0]
+    # q, k, v, no scales (a raw pool), out; dtype code, G, tq, H, KV, N, bs,
+    # R, MB, Dh; table, meta; the static window and the per-layer one; scale
+    # and softcap; the plan; the stream
+    assert args[3] is None and args[4] is None and args[5] == out.data_ptr()
+    assert args[6:16] == (0, G, RAGGED_TQ, RAGGED_H, KV, pk.shape[0], bs, 10, mb, DH)
+    assert args[18] == kw.get("window", -1)
+    assert (args[19] is None) == (wdt is None)
+    assert args[20] == pytest.approx(kw.get("scale", DH ** -0.5))
+    assert args[21] == pytest.approx(kw.get("softcap", 0.0))
+    plan = PA.ragged_plan(G, RAGGED_TQ, RAGGED_H, KV, mb, bs, DH, 132, 4)
+    assert args[22:26] == (plan.bn, plan.stages, plan.cluster, plan.min_share)
+    assert plan.cluster == 2  # 56 blocks; a rank keeps two of a row's 5 tiles
+    PA.ragged_paged_attend(*_t(q, pk, pv, table, meta), wdt,
+                           plan=plan._replace(cluster=1, min_share=0), **kw)
+    assert lib.calls[-1][1][24:26] == (1, 0)
+    assert PA.ragged_paged_attend.launches == before + 2
