@@ -103,6 +103,41 @@ Run after (i), on the raw engine, before (j):
       ms by kernel name, the ragged kernel's per mixed launch, and on the
       quantized engine the q4 kernels'.
 
+Run after (q) on the raw engine, before (j), each on 2-slot paged fleets
+(16-token blocks, 1024-token slots) through the HTTP server ("r" is the
+ragged kernel's `--only` run, so the letters skip it):
+
+  (s) KV preemption under the default policy ("swap", recomputing with no
+      KV shadow): on a 65-block pool, A (600 prompt + 256 new tokens, 54
+      blocks) decodes when B (300 + 64, 23 blocks) arrives, so B is placed
+      only by preempting A; both answer in full, A's envelope carries
+      `preempted` and `recovered`, every block comes back, each launch kind
+      is captured once and replayed after the resume, the two paged kernels
+      launched n_layers times per ragged launch and per decode step, and A's
+      tokens fetched before its preemption equal A's run alone on the same
+      fleet (whether the rest does, and where it parts, is printed); the
+      pair's wall, tokens/s and the time from A's preemption to its first
+      resumed token;
+  (t) the supervisor: a one-shot transient fault (utils/faults.py) at
+      admission, alloc, prefill, decode_launch and fetch in turn, each
+      answered in full after one restart with the pool clean, the graphs
+      still captured once and the tokens fetched before the crash those of
+      the unfaulted run (the restart's wall, crash to the next launch,
+      printed); a poison prompt quarantined (HTTP 500, "poison") within two
+      strikes while its fleet-mate answers; last, on a fleet of its own, a
+      fault on every decode launch until the restart budget is spent: 503
+      "unavailable" for every request, /ready 503 "scheduler_dead", no block
+      leaked;
+  (u) the health sweep: /workers answers worker_1 online with probe_ms, and
+      online or busy (never offline) while a long request runs; / answers
+      the HTML status page; /profiler/start, one request, /profiler/stop
+      leaves a trace that names the port's kernels; /debug/flight holds (s)'s
+      and (t)'s preempt, crash, restart, quarantine and scheduler_dead
+      events.
+
+`python3 chip_smoke.py --only s` runs (a), then (s), (t) and (u) alone on
+the raw engine (about two minutes).
+
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
 (a), (b), a sweep of flash_attend's cluster sizes and the kernels line's
@@ -2132,13 +2167,455 @@ def phase_q(torch, engine, P, G, M):
     return rows
 
 
+# -- preemption, the supervisor and the health sweep: phases (s) to (u) -----------
+
+# (s): a pool of 65 blocks of 16 tokens (64 usable: one full 1024-token
+# slot, the least the fleet accepts) on a 2-slot fleet. A (600 prompt + 256
+# new tokens) holds 54 blocks; B (300 + 64) needs 23 of the 10 left, so B is
+# placed only by preempting A, under the default policy ("swap", which
+# recomputes with no KV shadow)
+PREEMPT_FLEET = dict(n_slots=2, chunk_steps=16, chunk_lag=2, slot_max_seq=1024,
+                     kv_pool_blocks=65, kv_block_size=BLOCK)
+PREEMPT_A = (600, 256)  # (prompt tokens, new tokens)
+PREEMPT_B = (300, 64)
+# (t): the 2-slot fleet the faults land in, and its request
+SUPER_FLEET = dict(n_slots=2, chunk_steps=16, chunk_lag=2, slot_max_seq=1024,
+                   kv_pool_blocks=128, kv_block_size=BLOCK)
+SUPER_REQ = (200, 64)
+# one transient fault at each point: the launch and fetch faults land
+# mid-decode (tokens already fetched), the admission ones before any token
+# (three mixed launches carry the 200-token prompt; at chunk_lag 2 the 6th
+# launch and the 5th fetch come after the first token and a 16-token chunk
+# were fetched)
+SUPER_FAULTS = (("admission", 1), ("alloc", 1), ("prefill", 1), ("decode_launch", 6),
+                ("fetch", 5))
+
+
+class FleetSpy:
+    """Records what the fleet's preemption and supervisor did, in process,
+    without touching the served path: for each request (by prompt) the
+    tokens fetched before its first preemption or crash, the time of that
+    eviction and of its first token fetched after it, and each crash's time
+    and the first launch after it."""
+
+    def __init__(self, fleet):
+        self.fleet = fleet
+        self.salvaged: dict = {}  # prompt -> tokens fetched before the first eviction
+        self.evicted_at: dict = {}  # prompt -> time of the first eviction
+        self.resumed_at: dict = {}  # prompt -> first token fetched after it
+        self.crashes: list = []  # [time of the crash, time of the next launch]
+        self._wrap("_preempt_for", self._after_preempt)
+        self._wrap("_supervise", self._after_supervise, before=self._crash)
+        self._wrap("_post_admit", None, before=self._admit)
+        for name in ("_ragged_ingest", "_launch_chunk", "_launch_mixed"):
+            self._wrap(name, None, before=self._launch)
+
+    def _wrap(self, name, after, before=None):
+        inner = getattr(self.fleet, name)
+
+        def call(*a, **k):
+            if before is not None:
+                before(*a)
+            out = inner(*a, **k)
+            if after is not None:
+                after(out)
+            return out
+
+        setattr(self.fleet, name, call)
+
+    def _note(self, req):
+        if req.prompt not in self.salvaged:
+            self.salvaged[req.prompt] = len(req.salvaged)
+            self.evicted_at[req.prompt] = time.perf_counter()
+
+    def _after_preempt(self, preempted):
+        if preempted:
+            self._note(self.fleet._resume[-1])
+
+    def _crash(self, exc):
+        self.crashes.append([time.perf_counter(), None])
+
+    def _after_supervise(self, restarted):
+        if restarted:
+            for req in self.fleet._recovery:
+                self._note(req)
+
+    def _admit(self, req):
+        if req.prompt in self.evicted_at and req.prompt not in self.resumed_at:
+            self.resumed_at[req.prompt] = time.perf_counter()
+
+    def _launch(self, *a):
+        if self.crashes and self.crashes[-1][1] is None:
+            self.crashes[-1][1] = time.perf_counter()
+
+    def reset(self):
+        self.salvaged.clear()
+        self.evicted_at.clear()
+        self.resumed_at.clear()
+        self.crashes.clear()
+
+
+def parts_at(a: list, b: list):
+    """The first index where two token lists differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def ragged_launches(engine) -> float:
+    """Every ragged launch the fleets counted (mixed, extend and prefill)."""
+    fam = engine.metrics.get("dli_ragged_launches_total")
+    return sum(fam.labels(phase=p).value for p in ("mixed", "extend", "prefill"))
+
+
+def fleet_server(engine, fleet_kw, **sup):
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    fleet = ContinuousEngine(engine, **fleet_kw, **sup)
+    server = InferenceServer(engine, host="127.0.0.1", port=0, max_tokens_cap=512,
+                             continuous=fleet)
+    server.start()
+    return fleet, server
+
+
+def check_kernel_counts(tag, engine, launches, before, after, ragged_delta):
+    """The ragged kernel ran n_layers times per ragged launch (mixed, and the
+    recovery's whole-prefill extend / prefill launches), the paged decode
+    kernel n_layers x chunk_steps times per decode chunk, nothing else."""
+    L = engine.cfg.n_layers
+    chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+    steps = after["chunk_steps"]
+    check(launches["ragged_paged_attend"] == L * ragged_delta > 0,
+          f"{tag}: ragged_paged_attend launched {launches['ragged_paged_attend']} times "
+          f"for {ragged_delta} ragged launches of {L} layers")
+    check(launches["paged_flash_attend"] == L * steps * chunks > 0,
+          f"{tag}: paged_flash_attend launched {launches['paged_flash_attend']} times for "
+          f"{chunks} decode chunks of {steps} steps x {L} layers")
+    others = [k for k in launches if k not in ("ragged_paged_attend", "paged_flash_attend")]
+    check(not any(launches[k] for k in others), f"{tag}: another kernel ran: {launches}")
+    return dict(ragged_launches=ragged_delta, decode_chunks=chunks)
+
+
+def check_identity(tag, got: list, want: list, n_hard: int):
+    """The tokens fetched before the eviction (n_hard) must equal the
+    unpressured run's; print whether the rest is identical and where it
+    parts if it is not."""
+    check(got[:n_hard] == want[:n_hard],
+          f"{tag}: the {n_hard} tokens fetched before the eviction differ from the "
+          f"unpressured run at {parts_at(got[:n_hard], want[:n_hard])}")
+    at = parts_at(got, want)
+    print(f"{tag} bit-identity: the {n_hard} tokens fetched before the eviction equal "
+          f"the unpressured run's; all {len(got)} tokens "
+          + ("identical" if at is None else
+             f"NOT identical: they part at token {at} ({at - n_hard} after the "
+             f"eviction point)"))
+    return at
+
+
+def phase_s(torch, engine, pa, fa, Q, smi):
+    """KV preemption through the HTTP server: B preempts A on a tight pool;
+    both answer in full, A resumed, every block back, graphs captured once
+    and replayed after the resume, the kernels' launch counts those of the
+    launches the phase ran, and A's tokens fetched before its preemption
+    those of its unpressured run on the same fleet."""
+    import threading
+
+    fleet, server = fleet_server(engine, PREEMPT_FLEET)
+    spy = FleetSpy(fleet)
+    try:
+        check(fleet.warmup()["ok"], "(s) fleet warmup")
+        check(fleet.stats()["preemption"]["policy"] == "swap",
+              "(s) the default preempt_policy is not the JAX package's 'swap'")
+        body_a = {"prompt": fleet_prompt(20, PREEMPT_A[0]), "max_tokens": PREEMPT_A[1],
+                  "greedy": True, "chat": False}
+        body_b = {"prompt": fleet_prompt(21, PREEMPT_B[0]), "max_tokens": PREEMPT_B[1],
+                  "greedy": True, "chat": False}
+        alone = {}
+        for name, body in (("A", body_a), ("B", body_b)):
+            code, r, wall = post(server.port, body)
+            check(code == 200 and r["tokens_generated"] == body["max_tokens"],
+                  f"(s) {name} alone: {code} {r}")
+            alone[name] = r["token_ids"]
+            print(f"(s) {name} alone on the fleet: prompt_tokens={r['prompt_tokens']} "
+                  f"tokens={r['tokens_generated']} wall_s={wall:.3f}")
+        before = wait_idle(server.port)["continuous"]
+        check(before["preemption"]["preempted_total"] == 0, "(s) preempted while alone")
+        spy.reset()
+        rag0 = ragged_launches(engine)
+        out = {}
+
+        def run(name, body):
+            out[name] = post(server.port, body)
+
+        reset_counts(pa, fa, Q)
+        t0 = time.perf_counter()
+        ta = threading.Thread(target=run, args=("A", body_a))
+        ta.start()
+        # B arrives once A decodes (its first token fetched)
+        while not any(r is not None and r.first_id is not None and r.tokens
+                      for r in fleet._assignment):
+            check(time.perf_counter() - t0 < 120, "(s) A never started decoding")
+            time.sleep(0.001)
+        tb = threading.Thread(target=run, args=("B", body_b))
+        tb.start()
+        ta.join()
+        tb.join()
+        wall = time.perf_counter() - t0
+        after = wait_idle(server.port)["continuous"]
+        launches = read_counts(pa, fa, Q)
+        counts = check_kernel_counts("(s)", engine, launches, before, after,
+                                     round(ragged_launches(engine) - rag0))
+        (ca, ra, wa), (cb, rb, wb) = out["A"], out["B"]
+        for name, code, r in (("A", ca, ra), ("B", cb, rb)):
+            print(f"(s) {name}: HTTP {code} prompt_tokens={r.get('prompt_tokens')} "
+                  f"tokens={r.get('tokens_generated')} preempted={r.get('preempted')} "
+                  f"recovered={r.get('recovered')} ttft_s={r.get('ttft_s')} "
+                  f"prefill_chunks={r.get('prefill_chunks')}")
+            check(code == 200 and r.get("status") == "success", f"(s) {name}: {r}")
+        check(ra.get("preempted", 0) >= 1 and ra.get("recovered") is True,
+              f"(s) A was not preempted and resumed: {ra}")
+        pre = after["preemption"]
+        print(f"(s) /stats preemption {json.dumps(pre)}; supervisor "
+              f"{json.dumps(after['supervisor'])}")
+        check(pre["preempted_total"] >= 1 and pre["parked"] == 0,
+              f"(s) /stats preemption {pre}")
+        check(after["paged"]["free_blocks"] == PREEMPT_FLEET["kv_pool_blocks"] - 1,
+              f"(s) {after['paged']['free_blocks']} pool blocks free after the pair")
+        check_graphs("(s)", after, {"mixed_launch": "mixed", "decode_chunk": "decode_chunks"})
+        for g in ("mixed_launch", "decode_chunk"):
+            check(after["graphs"][g]["replays"] > before["graphs"][g]["replays"],
+                  f"(s) {g} was not replayed after the resume")
+        pa_ = spy.salvaged.get(body_a["prompt"])
+        check(pa_ is not None and pa_ >= 1,
+              f"(s) A had no token fetched before its preemption ({pa_})")
+        at_a = check_identity("(s) A", ra["token_ids"], alone["A"], pa_)
+        at_b = parts_at(rb["token_ids"], alone["B"])
+        print(f"(s) B vs B alone: " + ("identical" if at_b is None
+                                        else f"part at token {at_b}"))
+        resume_ms = (spy.resumed_at[body_a["prompt"]] - spy.evicted_at[body_a["prompt"]]) * 1e3
+        n_tok = ra["tokens_generated"] + rb["tokens_generated"]
+        hist = engine.metrics.get("dli_preempted_resume_seconds").labels()
+        print(f"(s) pair wall {wall:.3f} s, {n_tok} tokens = {n_tok / wall:.2f} tokens/s; "
+              f"A's first preemption to its first resumed token {resume_ms:.1f} ms; "
+              f"dli_preempted_resume_seconds count {hist.count} sum {hist.sum:.4f} s; "
+              f"kernel launches {json.dumps(launches)} ({smi})")
+        return dict(launches=launches, wall_s=wall, tokens_per_s=n_tok / wall,
+                    resume_ms=resume_ms, preempted_a=ra["preempted"],
+                    preempted_b=rb.get("preempted", 0), salvaged_a=pa_, parts_a=at_a,
+                    parts_b=at_b, **counts)
+    finally:
+        server.shutdown()
+
+
+def phase_t(torch, engine, pa, fa, Q, faults, smi):
+    """The supervisor through the HTTP server: a one-shot transient fault at
+    each point in turn (one restart each, the request answered, the pool
+    clean, the graphs still captured once, its tokens fetched before the
+    crash those of the unfaulted run), a poison request quarantined within
+    two strikes while its fleet-mate answers, and, on a fleet of its own,
+    a fault on every launch until the budget is spent (503 everywhere,
+    /ready scheduler_dead, no block leaked)."""
+    import threading
+
+    fleet, server = fleet_server(engine, SUPER_FLEET)
+    spy = FleetSpy(fleet)
+    body = {"prompt": fleet_prompt(22, SUPER_REQ[0]), "max_tokens": SUPER_REQ[1],
+            "greedy": True, "chat": False}
+    rows = []
+    try:
+        check(fleet.warmup()["ok"], "(t) fleet warmup")
+        code, ref, _ = post(server.port, body)
+        check(code == 200, f"(t) the unfaulted run: {ref}")
+        rag0 = ragged_launches(engine)
+        before = wait_idle(server.port)["continuous"]
+        reset_counts(pa, fa, Q)
+        for point, on_call in SUPER_FAULTS:
+            st0 = wait_idle(server.port)["continuous"]
+            spy.reset()
+            faults.arm([faults.FaultRule(point, "transient", on_call=on_call)])
+            try:
+                code, r, wall = post(server.port, body)
+            finally:
+                faults.disarm()
+            st = wait_idle(server.port)["continuous"]
+            restarts = st["supervisor"]["restarts"] - st0["supervisor"]["restarts"]
+            n_pre = spy.salvaged.get(body["prompt"], 0)
+            crash_to_launch = ((spy.crashes[0][1] - spy.crashes[0][0]) * 1e3
+                               if spy.crashes and spy.crashes[0][1] else None)
+            print(f"(t) {point} (transient, call {on_call}): HTTP {code} "
+                  f"tokens={r.get('tokens_generated')} recovered={r.get('recovered')} "
+                  f"restarts +{restarts}; {n_pre} tokens fetched before the crash; "
+                  f"restart wall (crash to the next launch) "
+                  f"{'n/a' if crash_to_launch is None else f'{crash_to_launch:.1f} ms'}; "
+                  f"request wall {wall:.3f} s")
+            check(code == 200 and r["tokens_generated"] == SUPER_REQ[1], f"(t) {point}: {r}")
+            check(restarts == 1, f"(t) {point}: {restarts} restarts")
+            check(st["paged"]["free_blocks"] == SUPER_FLEET["kv_pool_blocks"] - 1,
+                  f"(t) {point}: pool blocks leaked")
+            check(st["supervisor"]["ready"], f"(t) {point}: not ready after the restart")
+            check(all(g["captures"] == 1 for g in st["graphs"].values()),
+                  f"(t) {point}: graphs recaptured {st['graphs']}")
+            at = check_identity(f"(t) {point}", r["token_ids"], ref["token_ids"], n_pre)
+            rows.append(dict(point=point, on_call=on_call, tokens_before_crash=n_pre,
+                             restart_ms=crash_to_launch, parts_at=at, wall_s=wall))
+        after = wait_idle(server.port)["continuous"]
+        launches = read_counts(pa, fa, Q)
+        counts = check_kernel_counts("(t)", engine, launches, before, after,
+                                     round(ragged_launches(engine) - rag0))
+        check_graphs("(t)", after, {"mixed_launch": "mixed", "decode_chunk": "decode_chunks"})
+        print(f"(t) the five restarts: kernel launches {json.dumps(launches)} ({smi})")
+
+        # poison: a prompt that crashes its prefill every time, beside a good one
+        poison = {"prompt": "POISONPILL " + fleet_prompt(23, 120), "max_tokens": 16,
+                  "greedy": True, "chat": False}
+        good = dict(body, prompt=fleet_prompt(24, SUPER_REQ[0]))
+        st0 = wait_idle(server.port)["continuous"]
+        faults.arm([faults.FaultRule("prefill", "fatal", match="POISONPILL", every=1,
+                                     times=0)])
+        out = {}
+        try:
+            threads = [threading.Thread(target=lambda n=n, b=b: out.update({n: post(
+                server.port, b)})) for n, b in (("good", good), ("poison", poison))]
+            for t in threads:
+                t.start()
+                time.sleep(0.05)
+            for t in threads:
+                t.join()
+        finally:
+            faults.disarm()
+        st = wait_idle(server.port)["continuous"]
+        (cg, rg, _), (cp, rp, _) = out["good"], out["poison"]
+        strikes = st["supervisor"]["restarts"] - st0["supervisor"]["restarts"]
+        print(f"(t) poison: HTTP {cp} error_type={rp.get('error_type')} after {strikes} "
+              f"restarts; its fleet-mate HTTP {cg} tokens={rg.get('tokens_generated')} "
+              f"recovered={rg.get('recovered')}; poisoned "
+              f"{st['supervisor']['poisoned'] - st0['supervisor']['poisoned']}")
+        check(cp == 500 and rp.get("error_type") == "poison", f"(t) poison: {cp} {rp}")
+        check(cg == 200 and rg.get("status") == "success", f"(t) fleet-mate: {cg} {rg}")
+        check(1 <= strikes <= 2, f"(t) poison took {strikes} restarts")
+        check(st["paged"]["free_blocks"] == SUPER_FLEET["kv_pool_blocks"] - 1,
+              "(t) poison: pool blocks leaked")
+    finally:
+        faults.disarm()
+        server.shutdown()
+
+    # the budget spent, last, on a fleet of its own (no quarantine: every
+    # request rides every crash to the end of the budget)
+    fleet, server = fleet_server(engine, SUPER_FLEET, poison_strikes=99)
+    try:
+        check(fleet.warmup()["ok"], "(t) budget fleet warmup")
+        faults.arm([faults.FaultRule("decode_launch", "fatal", every=1, times=0)])
+        out = {}
+        try:
+            threads = [threading.Thread(target=lambda i=i: out.update({i: post(
+                server.port, dict(body, prompt=fleet_prompt(25 + i, SUPER_REQ[0])))}))
+                for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            late = post(server.port, body)
+        finally:
+            faults.disarm()
+        try:
+            ready = get(server.port, "/ready")
+        except urllib.error.HTTPError as e:
+            ready = (e.code, json.loads(e.read()))
+        st = get(server.port, "/stats")[1]["continuous"]
+        codes = [(out[i][0], out[i][1].get("error_type")) for i in range(2)]
+        print(f"(t) budget spent: requests {codes}, then {late[0]} "
+              f"{late[1].get('error_type')}; /ready {ready[0]} {json.dumps(ready[1])}; "
+              f"supervisor {json.dumps(st['supervisor'])}; free blocks "
+              f"{st['paged']['free_blocks']}")
+        check(all(c == (503, "unavailable") for c in codes), f"(t) budget: {codes}")
+        check(late[0] == 503, f"(t) a request after the death: {late}")
+        check(ready[0] == 503 and ready[1].get("reason") == "scheduler_dead",
+              f"(t) /ready after the death: {ready}")
+        check(st["supervisor"]["dead"] and st["supervisor"]["restarts"] == 3,
+              f"(t) supervisor {st['supervisor']}")
+        check(st["paged"]["free_blocks"] == SUPER_FLEET["kv_pool_blocks"] - 1,
+              "(t) budget: pool blocks leaked")
+    finally:
+        faults.disarm()
+        server.shutdown()
+    return dict(launches=launches, rows=rows, **counts)
+
+
+def phase_u(torch, engine, smi):
+    """The health sweep, the status page, the profiler and the flight
+    recorder through the HTTP server."""
+    import os
+    import threading
+
+    fleet, server = fleet_server(engine, SUPER_FLEET)
+    try:
+        check(fleet.warmup()["ok"], "(u) fleet warmup")
+        w = get(server.port, "/workers")[1]
+        print(f"(u) /workers idle: {json.dumps(w)}")
+        check(w.get("worker_1") == "online" and w["detail"][0].get("probe_ms") is not None,
+              f"(u) /workers: {w}")
+        long_body = {"prompt": fleet_prompt(27, 400), "max_tokens": 256, "greedy": True,
+                     "chat": False}
+        out = {}
+        t = threading.Thread(target=lambda: out.update(r=post(server.port, long_body)))
+        t.start()
+        seen = []
+        while t.is_alive() or not seen:
+            d = get(server.port, "/workers")[1]
+            seen.append((d["worker_1"], d["detail"][0].get("probe_ms")))
+            time.sleep(0.05)
+        t.join()
+        print(f"(u) /workers during a 256-token request, {len(seen)} polls: {seen[:12]}")
+        check(out["r"][0] == 200, f"(u) the long request: {out['r']}")
+        check(all(s in ("online", "busy") for s, _ in seen), f"(u) /workers: {seen}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/", timeout=60) as r:
+            page, ctype = r.read().decode(), r.headers.get("Content-Type")
+        print(f"(u) GET /: {r.status} {ctype}, {len(page)} bytes")
+        check(r.status == 200 and ctype.startswith("text/html") and "<table" in page,
+              f"(u) GET /: {r.status} {ctype}")
+
+        def profiler(path, body):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}{path}", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())
+
+        started = profiler("/profiler/start", {"trace_dir": "chip-smoke-u"})
+        code, r, wall = post(server.port, {"prompt": fleet_prompt(28, 200),
+                                           "max_tokens": 32, "greedy": True, "chat": False})
+        stopped = profiler("/profiler/stop", {})
+        trace = os.path.join(stopped["trace_dir"], "trace.json")
+        size = os.path.getsize(trace)
+        text = open(trace).read()
+        names = sorted({n for n in ("walk_split", "walk_combine", "PagedTable")
+                        if n in text})
+        print(f"(u) profiler: {json.dumps(started)} -> {json.dumps(stopped)}; request "
+              f"HTTP {code}; trace {size} bytes naming the port's kernels {names}")
+        check(code == 200 and size > 0 and names,
+              f"(u) the profiler trace names none of the port's kernels ({size} bytes)")
+        os.remove(trace)
+        flight = get(server.port, "/debug/flight")[1]
+        kinds = {}
+        for e in flight["events"]:
+            kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+        print(f"(u) /debug/flight: capacity {flight['capacity']}, recorded "
+              f"{flight['recorded_total']}, events by kind {json.dumps(kinds)}")
+        for kind in ("preempt", "crash", "restart", "quarantine", "scheduler_dead"):
+            check(kinds.get(kind, 0) >= 1, f"(u) /debug/flight holds no {kind} event")
+    finally:
+        server.shutdown()
+
+
 def main(argv) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["b", "f", "r", "j"],
+    ap.add_argument("--only", choices=["b", "f", "r", "j", "s"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -2146,7 +2623,9 @@ def main(argv) -> int:
                          "cases with a sweep of its plans and the kernels line's "
                          "two entries (r), or only (j)'s q4_matmul_rows cases "
                          "(j), with the kernel's build log: a quick check of a "
-                         "flash_attend, paged decode, ragged or q4 change")
+                         "flash_attend, paged decode, ragged or q4 change; or "
+                         "(s), (t) and (u) on the raw engine (s): a quick check "
+                         "of the fleet's preemption, supervisor and health sweep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -2161,6 +2640,7 @@ def main(argv) -> int:
     from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
     from distributed_llm_inference_tpu_torch.ops import quant as Q
     from distributed_llm_inference_tpu_torch.runtime import create_engine
+    from distributed_llm_inference_tpu_torch.utils import faults
 
     # the plain twins and the reference path in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2216,8 +2696,9 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
-    # (b) the kernel against its twin
-    phase_b(torch, timer, fa)
+    if args.only != "s":
+        # (b) the kernel against its twin
+        phase_b(torch, timer, fa)
 
     # (c) the served path on tinyllama-1.1b
     t0 = time.time()
@@ -2226,6 +2707,14 @@ def main(argv) -> int:
         engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS),
     )
     torch.cuda.synchronize()
+    if args.only == "s":
+        print(f"(s) {MODEL} bf16, random weights (seed 0), built in "
+              f"{time.time() - t0:.1f} s")
+        phase_s(torch, engine, pa, fa, Q, smi)
+        phase_t(torch, engine, pa, fa, Q, faults, smi)
+        phase_u(torch, engine, smi)
+        print(f"(u) total {time.time() - t_start:.1f} s")
+        return 0
     cfg = engine.cfg
     print(f"(c) {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
           f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab_size}, {cfg.dtype}, "
@@ -2282,6 +2771,23 @@ def main(argv) -> int:
     # (q) the fleet's launch kinds as CUDA graphs
     graph_rows = phase_q(torch, engine, P, G, M)
     print(f"(q) total {time.time() - t_start:.1f} s")
+
+    # (s) KV preemption through the HTTP server ("r" names the ragged
+    # kernel's --only run)
+    preempt = phase_s(torch, engine, pa, fa, Q, smi)
+    print(f"(s) total {time.time() - t_start:.1f} s")
+
+    # (t) the supervisor, driven by fault injection
+    supervisor = phase_t(torch, engine, pa, fa, Q, faults, smi)
+    print(f"(t) total {time.time() - t_start:.1f} s")
+
+    # (u) the health sweep, the status page, the profiler, the flight recorder
+    phase_u(torch, engine, smi)
+    print(f"(u) total {time.time() - t_start:.1f} s")
+    print("(u) " + json.dumps({"recovery_launches": {
+        "s": {k: preempt[k] for k in ("ragged_launches", "decode_chunks", "launches")},
+        "t": {k: supervisor[k] for k in ("ragged_launches", "decode_chunks", "launches")},
+    }}))
 
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)

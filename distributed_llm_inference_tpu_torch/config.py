@@ -229,7 +229,7 @@ class SamplingConfig:
 class EngineConfig:
     """Serving settings: the subset of the JAX EngineConfig that the solo
     engine and the continuous paged fleet read; same names, same
-    defaults, except `preempt_policy` (see below)."""
+    defaults."""
 
     # Prompt-length buckets: prompts right-pad to the smallest bucket that
     # fits, and prompts longer than the largest are chunk-prefilled in
@@ -269,10 +269,21 @@ class EngineConfig:
     )
     # Class assigned when a request carries no slo_class field.
     slo_default_class: str = "standard"
-    # KV preemption under pool pressure. The JAX default is "swap"; the
-    # port accepts only "off" (a request that cannot get blocks waits for
-    # a release) until preemption is ported, so "off" is its default.
-    preempt_policy: str = "off"
+    # KV preemption under pool pressure (engine/continuous.py
+    # _preempt_for): when the pool cannot place an admission, the fleet
+    # evicts the lowest-SLO-weight / youngest decoding request and
+    # re-admits it later as a continuation prefill (prompt + its fetched
+    # tokens), greedy bit-identical.
+    #   "swap"      — the JAX default; with no KV shadow (not ported: the
+    #                 fleet's kv_shadow raises) it drops and recomputes,
+    #                 exactly as the JAX fleet does without a shadow;
+    #   "recompute" — always drop the KV and re-prefill on resume;
+    #   "off"       — never preempt: admission waits for a release.
+    # The fleet validates it (ValueError for any other value).
+    preempt_policy: str = "swap"
+    # Livelock guard: a request preempted this many times becomes immune
+    # (it keeps its blocks until completion; admission waits instead).
+    max_preemptions_per_req: int = 2
     # Replica specialization label ("prefill" | "decode" | "mixed"),
     # reported on /health.
     replica_class: str = "mixed"

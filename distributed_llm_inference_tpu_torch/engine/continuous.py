@@ -52,13 +52,36 @@ Attribution discipline: each launch snapshots the slot -> request
 assignment, so emissions of a launch still in flight when a slot is
 freed and re-armed are never credited to the new tenant.
 
+Preemption (engine_cfg.preempt_policy, the JAX default "swap"): when the
+pool cannot place an admission, _preempt_for evicts the lowest-SLO-weight
+/ youngest decoding request (scheduler.select_victim): its fetched tokens
+fold into its salvage record, its blocks go back, and it is parked in
+`_resume`, which re-enters admission before the queue as a CONTINUATION
+prefill (prompt + salvaged tokens) — greedy output bit-identical to an
+unpressured run. With no KV shadow (not ported) "swap" recomputes, as the
+JAX fleet does without one. A request preempted max_preemptions_per_req
+times becomes immune.
+
+Failure containment, as in the JAX package: the worker loop runs under a
+supervisor (_loop / _supervise). A crash releases every fleet-held
+resource, resets the device-side fleet IN PLACE (the captured CUDA graphs
+keep pointing at the same buffers, so each launch kind stays captured
+once), and restarts the loop under a bounded consecutive-crash budget
+with exponential backoff. Live requests are salvaged and re-admitted one
+per healthy chunk (_run_recovery), so a recurring crash implicates one
+suspect, and a request implicated poison_strikes times fails alone
+(error_type "poison"). Past the budget every waiter gets a clean
+"unavailable" envelope and the fleet is dead (not ready). A device fault
+that poisons the CUDA context makes the in-place reset raise too: that
+counts as the next crash, so such a fault ends in the same clean death.
+utils/faults.py injection points (admission, alloc, prefill,
+decode_launch, fetch, preempt) drive every path in the tests.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): speculation, the shadow / KV fabric, adapters, grammar constraints
-in the fleet (they go to the solo engine, as in the JAX package),
-preemption and the supervisor's restart / salvage, the prefix caches, and
-gpt2's fleet. A crash in the worker loop fails every request in flight
-with an error envelope and marks the engine not ready; it is not
-restarted.
+item): speculation, the shadow / KV fabric (and with it "swap"'s warm
+restore and `restore_dir`), adapters, grammar constraints in the fleet
+(they go to the solo engine, as in the JAX package), the prefix caches,
+and gpt2's fleet.
 """
 
 from __future__ import annotations
@@ -72,6 +95,7 @@ import numpy as np
 import torch
 
 from ..models.llama import ADAPTERS, FAMILIES, _not_ported
+from ..utils import faults
 from ..utils.logging import get_logger
 from ..utils.metrics import register_fleet_metrics
 from ..utils.tracing import Trace
@@ -87,12 +111,26 @@ log = get_logger("continuous")
 _BLOCKED = object()
 
 
+def _zero_tree(tree):
+    """Zero every tensor of a cache tree (dicts, tuples, KVQuant leaves)
+    in place."""
+    if isinstance(tree, torch.Tensor):
+        tree.zero_()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _zero_tree(v)
+    else:
+        for v in tree:
+            _zero_tree(v)
+
+
 class _Request:
     __slots__ = (
         "prompt", "kwargs", "done", "result", "t_start", "ttft", "first_id",
         "tokens", "slot", "enqueued", "budget", "record", "prompt_tokens",
         "block_ids", "need", "trace", "allowed", "slo", "ids", "deadline_at",
-        "prefill_chunks", "tenant",
+        "prefill_chunks", "tenant", "salvaged", "strikes", "recovering",
+        "preemptions", "preempted_at", "drop_seq",
     )
 
     def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None):
@@ -121,6 +159,21 @@ class _Request:
         dl = kwargs.pop("deadline_ms", None)
         self.deadline_at = self.enqueued + float(dl) / 1e3 if dl is not None else None
         self.prefill_chunks = 0  # mixed launches that carried its prompt
+        # tokens fetched before a crash or a preemption, re-prefilled as a
+        # continuation on re-admission so greedy decode resumes bit-exactly
+        self.salvaged: list = []
+        # crash-restarts this request was implicated in (the suspect set
+        # at crash time); poison_strikes of them quarantine it
+        self.strikes = 0
+        # set while recovery re-admits it (recomputed-prefill accounting)
+        self.recovering = False
+        # times evicted for pool room (max_preemptions_per_req makes it
+        # immune) and when it was last parked (dli_preempted_resume_seconds)
+        self.preemptions = 0
+        self.preempted_at = 0.0
+        # launch-seq barrier: emissions of launches that started before
+        # this seq are dropped (a preempted victim's launches in flight)
+        self.drop_seq = 0
 
 
 class ContinuousEngine:
@@ -138,6 +191,9 @@ class ContinuousEngine:
         slot_max_seq: Optional[int] = None,
         kv_pool_blocks: Optional[int] = None,
         kv_block_size: int = 16,
+        restart_budget: int = 3,
+        restart_backoff_s: float = 0.05,
+        poison_strikes: int = 2,
         kv_shadow: Optional[bool] = None,
         restore_dir: Optional[str] = None,
     ):
@@ -161,9 +217,15 @@ class ContinuousEngine:
         if ecfg.prefix_cache_entries > 0:  # paged: block chains; dense: snapshots
             raise _not_ported("the fleet's prefix cache", "Block-prefix cache"
                               if self.paged else "Solo-engine features")
-        if ecfg.preempt_policy != "off":
-            raise _not_ported(f"preempt_policy {ecfg.preempt_policy!r}",
-                              "Preemption and the supervisor")
+        # KV preemption under pool pressure ("swap" recomputes here: the
+        # shadow it would swap to is not ported, and kv_shadow raises)
+        self.preempt_policy = str(ecfg.preempt_policy)
+        if self.preempt_policy not in ("swap", "recompute", "off"):
+            raise ValueError(
+                f"preempt_policy must be 'swap', 'recompute', or 'off', "
+                f"got {self.preempt_policy!r}"
+            )
+        self.max_preemptions = max(0, int(ecfg.max_preemptions_per_req))
         if ecfg.adapter_slots > 0:
             raise _not_ported("adapter pages in the fleet", ADAPTERS)
         self.engine = engine
@@ -266,9 +328,30 @@ class ContinuousEngine:
         self._assignment: list = [None] * self.n_slots  # guarded-by: _cv
         self._closed = False  # guarded-by: _cv
         self._draining = False  # guarded-by: _cv
-        self._dead = False
-        # the request a whole-prefill admission is serving right now: a
-        # crash there fails it with the rest
+        # preempted requests parked for re-admission, served BEFORE the
+        # queue (a victim must not also lose its place)
+        self._resume: list = []  # guarded-by: _cv
+        self.preempted_total = 0
+        # the supervisor: how many CONSECUTIVE crashes it absorbs (a
+        # healthy fetch resets the window), the backoff base doubled per
+        # consecutive crash, and the crash implications that quarantine a
+        # request as poison
+        self.restart_budget = max(0, int(restart_budget))
+        self.restart_backoff_s = float(restart_backoff_s)
+        self.poison_strikes = max(1, int(poison_strikes))
+        self._dead = False  # the restart budget ran out
+        self._restarting = False  # mid crash-recovery (not ready)
+        self._recovery: list = []  # salvaged, awaiting re-admission
+        # requests admitted since the last healthy fetch: the crash suspects
+        self._suspects: set = set()
+        self._consecutive_crashes = 0
+        # bumped per admission and preemption; each launch snapshots it
+        self._mutation_seq = 0
+        self.restarts_total = 0
+        self.recovered_total = 0
+        self.poisoned_total = 0
+        # the request an admission is serving right now: it survives an
+        # exception unwind on purpose, the supervisor salvages it
         self._admitting: Optional[_Request] = None
         self.admitted = 0
         self.completed = 0
@@ -333,11 +416,13 @@ class ContinuousEngine:
         if self._past_deadline(req):
             return self._deadline_env(req, where="before admission")
         with self._cv:
-            if self._closed or self._dead:
-                return {"error": "Error: server shutting down" if self._closed
-                        else "Error: the continuous scheduler crashed",
-                        "status": "failed",
-                        "error_type": "overloaded" if self._closed else "unavailable"}
+            if self._dead:
+                return {"error": "Error: the continuous scheduler died after "
+                        "exhausting its restart budget", "status": "failed",
+                        "error_type": "unavailable"}
+            if self._closed:
+                return {"error": "Error: server shutting down", "status": "failed",
+                        "error_type": "overloaded"}
             if self._draining:
                 return {"error": "Error: server draining", "status": "failed",
                         "error_type": "draining"}
@@ -353,6 +438,10 @@ class ContinuousEngine:
                 if t_depth >= t_cap:
                     log.warning("tenant_shed", tenant=req.tenant, depth=t_depth,
                                 cap=t_cap, slo_class=cls.name)
+                    self.engine.flight.record(
+                        "shed", reason="tenant_quota",
+                        request_id=req.trace.request_id, tenant=req.tenant,
+                        depth=t_depth, cap=t_cap)
                     self._m.shed.inc()
                     self._m.tenant_shed.labels(tenant=req.tenant).inc()
                     return {
@@ -365,6 +454,10 @@ class ContinuousEngine:
             if full or self._sched.should_shed(cls, class_depth):
                 log.warning("queue_full" if full else "slo_shed",
                             depth=len(self._queue), slo_class=cls.name)
+                self.engine.flight.record(
+                    "shed", reason="queue_full" if full else "slo_drain",
+                    request_id=req.trace.request_id, depth=len(self._queue),
+                    slo_class=cls.name)
                 self._m.shed.inc()
                 self._sched.count_shed(cls.name)
                 return {
@@ -399,28 +492,41 @@ class ContinuousEngine:
 
     @property
     def ready(self) -> bool:
-        """Load-balancer readiness: False while draining, once closed, or
-        once the worker loop died."""
-        return not (self._draining or self._dead or self._closed)
+        """Load-balancer readiness: False while draining, while the
+        supervisor is mid-restart, or once the scheduler is closed or
+        dead. Liveness (/health) stays separate: a restart-looping
+        scheduler is alive but should take no new traffic."""
+        return not (self._draining or self._restarting or self._dead
+                    or self._closed)
 
     def _work_pending(self) -> bool:
-        return bool(self._queue or any(r is not None for r in self._assignment))
+        """Anything the fleet still owes a response for: queued, in a
+        slot, mid-admission, salvaged or parked for resume."""
+        return bool(self._queue or any(r is not None for r in self._assignment)
+                    or self._admitting is not None or self._recovery
+                    or self._resume)
 
     def drain(self, deadline_s: Optional[float] = None) -> bool:
         """Stop admitting (draining envelopes), then wait for the queue
         and every slot to finish, up to deadline_s. True when drained."""
         t0 = time.time()
+        self.engine.flight.record("drain", deadline_s=deadline_s)
+        drained = True
         with self._cv:
             self._draining = True
             self._cv.notify_all()
             while self._work_pending():
                 if self._closed or self._dead:
-                    return not self._work_pending()
+                    drained = not self._work_pending()
+                    break
                 left = None if deadline_s is None else deadline_s - (time.time() - t0)
                 if left is not None and left <= 0:
-                    return False
+                    drained = False
+                    break
                 self._cv.wait(timeout=0.1 if left is None else min(left, 0.1))
-        return True
+        self._m.drain.observe(time.time() - t0)
+        log.info("continuous_drained", ok=drained, seconds=round(time.time() - t0, 3))
+        return drained
 
     def close(self):
         with self._cv:
@@ -433,8 +539,10 @@ class ContinuousEngine:
         fail = {"error": "Error: server shutting down", "status": "failed",
                 "error_type": "overloaded"}
         with self._cv:
-            pending = self._queue[:]
+            pending = self._queue[:] + self._resume[:]
             self._queue.clear()
+            self._resume.clear()
+            self._note_queue_locked()
         for req in pending + [r for r in self._assignment if r is not None]:
             if req.result is None:
                 req.result = dict(fail)
@@ -465,9 +573,22 @@ class ContinuousEngine:
                 "peak_occupancy": self.peak_occupancy,
                 "chunk_steps": self.chunk_steps,
             }
-        out["preemption"] = {"policy": "off"}
-        out["supervisor"] = {"ready": self.ready, "draining": self._draining,
-                             "dead": self._dead}
+        out["preemption"] = {
+            "policy": self.preempt_policy,
+            "max_per_request": self.max_preemptions,
+            "preempted_total": self.preempted_total,
+            "parked": len(self._resume),
+        }
+        out["supervisor"] = {
+            "ready": self.ready,
+            "draining": self._draining,
+            "dead": self._dead,
+            "restarts": self.restarts_total,
+            "recovered": self.recovered_total,
+            "poisoned": self.poisoned_total,
+            "consecutive_crashes": self._consecutive_crashes,
+            "restart_budget": self.restart_budget,
+        }
         if self.paged:
             out["paged"] = {
                 "block_size": self.kv_block_size,
@@ -563,44 +684,267 @@ class ContinuousEngine:
 
     # -- worker thread -------------------------------------------------------
     def _loop(self):
-        """The worker: a crash fails every request in flight with an
-        error envelope and marks the engine dead (not ready); it is not
-        restarted (the JAX supervisor is not ported)."""
-        try:
-            self._sched_loop()
-        except Exception as e:  # noqa: BLE001 - every request gets an envelope
-            log.error("scheduler_crashed", exc_info=True, error=str(e))
-            fail = {"error": f"Error: the continuous scheduler crashed: {e}",
-                    "status": "failed", "error_type": "unavailable"}
+        """The supervisor: a scheduler crash is recoverable and
+        request-scoped, not fleet-fatal. Each exception out of _loop_inner
+        goes through one _supervise round (release every fleet-held
+        resource, strike or quarantine suspects, salvage the rest), then
+        the device-side fleet is reset and the loop restarts, under a
+        bounded consecutive-crash budget with exponential backoff. A reset
+        that raises (a device fault that poisoned the CUDA context) is the
+        next crash of the same budget, so a dead worker never hangs a
+        client: the give-up path fails everything with clean envelopes."""
+        crashed = False
+        while True:
+            try:
+                if crashed:
+                    self._rebuild_fleet()
+                    crashed = False
+                self._loop_inner()
+                return  # clean exit: close() flipped _closed
+            except Exception as e:  # noqa: BLE001 - contained by the supervisor
+                if not self._supervise(e):
+                    return
+                crashed = True
+
+    def _casualties(self) -> list:
+        """Detach every live request (plus the one mid-admission) from the
+        dead fleet: running tenants first, the admitting request last, the
+        order recovery re-admits them in. Pending prefill jobs die with
+        the fleet (their requests sit in the assignment from job start)."""
+        with self._cv:
+            running = [r for r in self._assignment
+                       if r is not None and not r.done.is_set()]
+            self._assignment = [None] * self.n_slots
+            admitting, self._admitting = self._admitting, None
+        self._jobs = []
+        self._prefilling = {}
+        if (admitting is not None and admitting not in running
+                and not admitting.done.is_set()):
+            running.append(admitting)
+        return running
+
+    def _release_fleet_resources(self, reqs: list):
+        """Return the pool blocks and table rows the dead fleet holds; shared
+        by the restart and the give-up paths."""
+        for req in reqs:
+            if self.paged and req.block_ids is not None:
+                self._alloc.decref(req.block_ids)
+                req.block_ids = None
+        if self.paged:
+            self._table[:] = 0
+            self._table_stale = True
+            if self._alloc.outstanding:
+                # the explicit releases above must zero the books: a
+                # mismatch is an accounting bug, surfaced, then reset so
+                # the restarted fleet has no phantom holders
+                log.error("kv_pool_leak_on_crash",
+                          outstanding=self._alloc.outstanding)
+                self._alloc.reset()
+
+    def _rebuild_fleet(self):
+        """Reset the device-side fleet for the restarted loop IN PLACE:
+        the pool (or dense cache), the slot state and knobs, the block
+        table and the mixed launch's inputs keep their storage, so every
+        captured CUDA graph stays valid and each launch kind stays
+        captured once. On the card the launches still in flight when the
+        host raised land first (synchronize); a device fault that
+        poisoned the context raises here, and the supervisor counts it."""
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+        _zero_tree(self.cache)
+        state, sparams = G.init_slots(self.n_slots, self.cfg.vocab_size,
+                                      device=self.device)
+        self._commit(state, sparams)
+        if self.paged:
+            self._table[:] = 0
+            self._table_dev.zero_()
+            self._table_stale = False
+        if self._chunked:
+            graphs.commit(self._mixed_in, graphs.mixed_inputs(
+                self._sched_width, self._ragged_tile, self.n_slots,
+                self.cfg.vocab_size, device=self.device))
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+
+    def _supervise(self, exc: Exception) -> bool:
+        """One crash-containment round. Returns True to restart the loop
+        (after _rebuild_fleet), False to give up (budget spent or closing)."""
+        self._restarting = True
+        self._consecutive_crashes += 1
+        log.error("continuous_loop_crashed", exc_info=True, error=str(exc),
+                  consecutive=self._consecutive_crashes)
+        # the flight recorder's tail rides the crash report
+        self.engine.flight.record("crash", error=str(exc),
+                                  consecutive=self._consecutive_crashes)
+        flight = self.engine.flight.dump()
+        log.error("crash_flight_recorder", recorded_total=flight["recorded_total"],
+                  tail=flight["events"][-20:])
+        casualties = self._casualties()
+        for req in casualties:
+            if req in self._suspects:
+                req.strikes += 1
+        self._suspects.clear()
+        self._release_fleet_resources(casualties)
+        survivors = []
+        for req in casualties:
+            if req.strikes >= self.poison_strikes:
+                # implicated in poison_strikes consecutive crash-restarts:
+                # fail it ALONE; its fleet-mates are salvaged below
+                self.poisoned_total += 1
+                self._m.poison.inc()
+                self.engine.flight.record("quarantine",
+                                          request_id=req.trace.request_id,
+                                          strikes=req.strikes)
+                log.error("request_quarantined", strikes=req.strikes,
+                          request_id=req.trace.request_id)
+                req.result = {
+                    "error": f"Error: request quarantined after implication in "
+                             f"{req.strikes} scheduler crashes (last: {exc})",
+                    "status": "failed", "error_type": "poison",
+                }
+                self._push_final(req)
+            else:
+                survivors.append(req)
+        if self._closed or self._consecutive_crashes > self.restart_budget:
             with self._cv:
-                self._dead = True
+                self._dead = not self._closed
+                self._closed = True
                 pending = self._queue[:]
                 self._queue.clear()
-                live = [r for r in self._assignment if r is not None]
-                if self._admitting is not None:
-                    live.append(self._admitting)
+                self._note_queue_locked()
+                parked, self._resume = self._resume, []
                 self._cv.notify_all()
-            for req in pending + live:
-                if not req.done.is_set():
+            fail = {
+                "error": f"Error: continuous scheduler died after "
+                         f"{self._consecutive_crashes} consecutive crashes "
+                         f"(restart budget {self.restart_budget}): {exc}",
+                "status": "failed", "error_type": "unavailable",
+            }
+            # self._recovery: salvage a previous round never re-admitted (a
+            # crash mid-recovery); parked: preempted requests awaiting resume
+            for req in survivors + pending + self._recovery + parked:
+                if req.result is None:
                     req.result = dict(fail)
-                    self._push_final(req)
+                self._push_final(req)
+            self._recovery = []
+            self._restarting = False
+            self.engine.flight.record("scheduler_dead", restarts=self.restarts_total)
+            log.error("continuous_scheduler_dead", restarts=self.restarts_total)
+            return False
+        # exponential backoff: a crash loop must not spin the host
+        time.sleep(min(self.restart_backoff_s * (2 ** (self._consecutive_crashes - 1)),
+                       5.0))
+        for req in survivors:  # each re-admitted as a continuation prefill
+            self._fold_salvage(req)
+        # a crash mid-recovery leaves earlier salvage in self._recovery:
+        # keep it, after this round's survivors
+        self._recovery = survivors + [r for r in self._recovery if not r.done.is_set()]
+        self.restarts_total += 1
+        self._m.restarts.inc()
+        self.engine.flight.record("restart", restart=self.restarts_total,
+                                  salvaged=len(survivors))
+        log.info("continuous_scheduler_restarted", restart=self.restarts_total,
+                 salvaged=len(survivors))
+        return True
 
-    def _sched_loop(self):
-        """Each iteration takes queued requests into free slots, then
-        launches ONE step. Chunked: start PrefillJobs (host work only),
-        then a mixed launch while prompt chunks are pending, else a decode
-        chunk. Whole-prefill: admit (prefill and arm) every request a free
-        slot can take, then a decode chunk. Up to chunk_lag launches stay
-        in flight."""
+    def _fold_salvage(self, req: _Request):
+        """Fold req's fetched tokens into its salvage record and detach it
+        from its slot: its re-admission prefills prompt + salvaged as a
+        continuation, so greedy decode resumes bit-exactly where the
+        fetched stream stopped (tokens of unfetched launches are
+        regenerated)."""
+        head = ([req.first_id] if req.first_id is not None
+                and req.first_id not in self.cfg.all_stop_ids else [])
+        req.salvaged = req.salvaged + head + req.tokens
+        req.first_id = None
+        req.tokens = []
+        req.slot = None
+        req.need = None
+        req.ids = None
+
+    def _run_recovery(self):
+        """Serialized re-admission of salvaged requests: ONE request per
+        healthy chunk, so a recurring crash implicates exactly the request
+        just re-admitted (the suspect set narrows to one), which isolates a
+        poison request within poison_strikes restarts while the rest of
+        the fleet survives. Each re-admission is a whole-prefill ingest
+        (ragged on the paged fleet), then one synchronous decode chunk."""
+        try:
+            while self._recovery:
+                if self._closed:
+                    fail = {"error": "Error: server shutting down",
+                            "status": "failed", "error_type": "overloaded"}
+                    while self._recovery:
+                        r = self._recovery.pop(0)
+                        if r.result is None:
+                            r.result = dict(fail)
+                        self._push_final(r)
+                    return
+                req = self._recovery[0]
+                if req.allowed is not None and len(req.salvaged) >= req.allowed:
+                    # the budget was spent before the crash (it cut the loop
+                    # between the last fetch and finalize)
+                    self._recovery.pop(0)
+                    self._finalize(req)
+                    continue
+                with self._cv:
+                    free = [b for b, r in enumerate(self._assignment) if r is None]
+                if not free:
+                    # more casualties than slots: decode until one completes
+                    chunk = self._launch_chunk()
+                    if chunk is None:
+                        break
+                    self._process(chunk)
+                    continue
+                self._recovery.pop(0)
+                self._suspects.add(req)
+                self._mutation_seq += 1
+                req.recovering = True
+                # survives an exception unwind on purpose (see _admit)
+                self._admitting = req
+                first = self._admit_one(req, free[0])
+                self._admitting = None
+                if first is _BLOCKED:
+                    # the rebuilt pool cannot take it now: the queue's front
+                    with self._cv:
+                        self._queue.insert(0, req)
+                        self._note_queue_locked()
+                    continue
+                if first is None:
+                    continue  # failed fast; its result is set
+                req.first_id = int(first.reshape(-1)[0])
+                if not req.ttft:
+                    req.ttft = time.time() - req.t_start
+                self.recovered_total += 1
+                self._m.recovered.inc()
+                self._post_admit(req)
+                # one synchronous chunk: the healthy step that vindicates this
+                # re-admission before the next one joins the fleet
+                chunk = self._launch_chunk()
+                if chunk is not None:
+                    self._process(chunk)
+        finally:
+            self._restarting = False
+
+    def _loop_inner(self):
+        """Each iteration takes queued (and parked) requests into free
+        slots, then launches ONE step. Chunked: start PrefillJobs (host
+        work only), then a mixed launch while prompt chunks are pending,
+        else a decode chunk. Whole-prefill: admit (prefill and arm) every
+        request a free slot can take, then a decode chunk. Up to chunk_lag
+        launches stay in flight. After a restart, the salvage is
+        re-admitted first."""
+        self._run_recovery()
         inflight: collections.deque = collections.deque()
         while True:
             with self._cv:
-                while (not self._queue and not any(self._assignment)
+                while (not self._queue and not self._resume
+                       and not any(self._assignment)
                        and not inflight and not self._closed):
                     self._cv.wait()
                 if self._closed:
                     return
-                queued = bool(self._queue)
+                queued = bool(self._queue or self._resume)
             if self._chunked:
                 self._reap_jobs()
                 self._start_jobs()
@@ -640,35 +984,60 @@ class ContinuousEngine:
             self._release(req)
 
     def _start_jobs(self):
-        """Move queued requests into PrefillJobs while a slot and pool
-        blocks are available (host-side only: tokenize, allocate blocks,
-        install the slot's table row)."""
+        """Move parked, then queued, requests into PrefillJobs while a slot
+        and pool blocks are available (host-side only: tokenize, allocate
+        blocks, install the slot's table row). Same suspect / _admitting
+        crash discipline as whole-prefill admission."""
         while True:
             with self._cv:
-                if not self._queue:
+                # preempted requests resume first (see _admit)
+                from_resume = bool(self._resume)
+                if not from_resume and not self._queue:
                     return
                 free = [b for b, r in enumerate(self._assignment) if r is None]
                 if not free:
                     return
-                head = self._queue[0]
-                if head.need is not None and head.need > self._alloc.free_blocks:
-                    return  # a sized head that still cannot get blocks waits
-                req = self._queue.pop(0)
-                self._note_queue_locked()
+                if not from_resume:
+                    head = self._queue[0]
+                    if head.need is not None and head.need > self._alloc.free_blocks:
+                        # a sized head that still cannot get blocks waits for
+                        # a release; a head a victim could make room for is
+                        # sized on its first attempt, which preempts
+                        return
+                    req = self._queue.pop(0)
+                    self._note_queue_locked()
+                else:
+                    req = self._resume.pop(0)
+            if (from_resume and req.allowed is not None
+                    and len(req.salvaged) >= req.allowed):
+                self._finalize(req)
+                continue
             try:
+                self._suspects.add(req)
+                self._mutation_seq += 1
+                # survives an exception unwind ON PURPOSE (see _admit)
+                self._admitting = req
                 started = self._start_job(req, free[0])
+                self._admitting = None
             except ValueError as e:
+                self._admitting = None
                 self._free_slot_resources(req)
                 log.warning("invalid_request", error=str(e))
                 req.result = {"error": f"Error: {e}", "status": "failed",
                               "error_type": "invalid_request"}
                 self._push_final(req)
                 continue
+            # any other exception escapes to the supervisor
             if started is _BLOCKED:
                 with self._cv:
-                    self._queue.insert(0, req)
-                    self._note_queue_locked()
+                    if from_resume:
+                        self._resume.insert(0, req)
+                    else:
+                        self._queue.insert(0, req)
+                        self._note_queue_locked()
                 return
+            if started is not None and from_resume and req.preempted_at:
+                self._m.resume_s.observe(time.time() - req.preempted_at)
 
     def _expired_in_queue(self, req: _Request) -> bool:
         """Fail a request whose deadline passed while it queued (before any
@@ -686,27 +1055,52 @@ class ContinuousEngine:
         self._push_final(req)
         return True
 
+    def _admission_ids(self, req: _Request) -> list:
+        """The token ids an admission prefills: the rendered prompt, then
+        the salvaged continuation of a crash or a preemption (the prompt
+        alone counts as prompt_tokens)."""
+        eng = self.engine
+        text = (eng.render_chat(req.prompt) if req.kwargs.get("chat", True)
+                else req.prompt)
+        ids = eng.tokenizer.encode(text)
+        req.prompt_tokens = len(ids)
+        return ids + list(req.salvaged)
+
+    def _admission_budget(self, req: _Request, prompt_len: int) -> int:
+        """The admission's decode budget: max_tokens less the salvaged
+        tokens, clamped to the slot, never past the total fixed at the
+        first admission (`allowed`)."""
+        max_tokens, _ = self.engine._clamp_decode(
+            prompt_len, int(req.kwargs.get("max_tokens", 20)) - len(req.salvaged),
+            capacity=self.slot_max_seq,
+        )
+        if req.allowed is None:
+            req.allowed = max_tokens
+        else:
+            max_tokens = min(max_tokens, req.allowed - len(req.salvaged))
+        if req.recovering:
+            self._m.recovery_recomputed.inc(prompt_len)
+            req.recovering = False
+        return max_tokens
+
     def _start_job(self, req: _Request, slot: int):
         """Plan one chunked admission: tokenize, clamp the budget,
-        allocate pool blocks and queue the PrefillJob. Returns _BLOCKED
-        when the pool cannot take it, None when the request failed fast,
-        or the job."""
-        eng, cfg = self.engine, self.cfg
+        allocate pool blocks (preempting a victim under pressure) and
+        queue the PrefillJob. Returns _BLOCKED when the pool cannot take
+        it, None when the request failed fast, or the job."""
+        cfg = self.cfg
+        faults.check("admission", tag=req.prompt)
         if self._expired_in_queue(req):
             return None
         k = req.kwargs
-        text = eng.render_chat(req.prompt) if k.get("chat", True) else req.prompt
-        ids = eng.tokenizer.encode(text)
-        req.prompt_tokens = prompt_len = len(ids)
+        ids = self._admission_ids(req)
+        prompt_len = len(ids)
         if not 1 <= prompt_len <= self.slot_max_seq - 2:
             raise ValueError(
                 f"prompt length {prompt_len} exceeds the slot capacity "
                 f"(slot_max_seq {self.slot_max_seq})"
             )
-        max_tokens, _ = eng._clamp_decode(
-            prompt_len, int(k.get("max_tokens", 20)), capacity=self.slot_max_seq,
-        )
-        req.allowed = max_tokens
+        max_tokens = self._admission_budget(req, prompt_len)
         rp = float(k.get("repetition_penalty", 1.0))
         sampling = (
             float(k.get("temperature", 0.7)), int(k.get("top_k", 50)),
@@ -715,9 +1109,10 @@ class ContinuousEngine:
             float(k.get("frequency_penalty", 0.0)),
             float(k.get("presence_penalty", 0.0)),
         )
+        faults.check("alloc", tag=req.prompt)
         need_total = P.blocks_needed(prompt_len, max_tokens, self.kv_block_size)
         req.need = need_total
-        blk_ids = self._alloc.alloc(need_total)
+        blk_ids = self._alloc_with_pressure(req)
         if blk_ids is None:
             return _BLOCKED
         req.block_ids = blk_ids
@@ -741,18 +1136,87 @@ class ContinuousEngine:
                  request_id=req.trace.request_id)
         return job
 
+    # -- KV preemption under pool pressure -----------------------------------
+    def _alloc_with_pressure(self, req: _Request) -> Optional[list]:
+        """`req.need` blocks: plain alloc, then preempt a victim and retry,
+        until a victim can no longer be found (None: the caller requeues
+        with _BLOCKED). Worker thread only."""
+        blk_ids = self._alloc.alloc(req.need)
+        while blk_ids is None:
+            if not self._preempt_for(req):
+                return None
+            blk_ids = self._alloc.alloc(req.need)
+        return blk_ids
+
+    def _victim_for(self, req: _Request) -> Optional[_Request]:
+        """The decoding request to evict so `req` can be placed, or None.
+        Candidates: assigned, running, not mid-prefill, below the
+        preemption cap; the scheduler's policy picks the lowest weight /
+        youngest that does not outrank the beneficiary."""
+        with self._cv:
+            cands = [r for b, r in enumerate(self._assignment)
+                     if r is not None and not r.done.is_set() and r is not req
+                     and b not in self._prefilling
+                     and r.preemptions < self.max_preemptions]
+        if not cands:
+            return None
+        return self._sched.select_victim(
+            [(r, self._sched.classify(r.slo), r.enqueued) for r in cands],
+            self._sched.classify(req.slo),
+        )
+
+    def _preempt_for(self, req: _Request) -> bool:
+        """Evict one decoding victim to make pool room for `req`. Its
+        fetched tokens fold into its salvage record (the continuation its
+        resume re-prefills, greedy bit-identical), its slot is killed, its
+        blocks are released, and it is parked in `_resume`. Emissions of
+        its launches still in flight are dropped (the drop_seq barrier)
+        and regenerated after the resume. True when a victim was
+        preempted."""
+        if self.preempt_policy == "off":
+            return False
+        victim = self._victim_for(req)
+        if victim is None:
+            return False
+        faults.check("preempt", tag=victim.prompt)
+        victim.preemptions += 1
+        victim.preempted_at = time.time()
+        self._mutation_seq += 1
+        victim.drop_seq = self._mutation_seq
+        if victim.slot is not None:
+            self._commit(G.kill_slot(self.state, victim.slot))
+        self._free_slot_resources(victim)
+        self._fold_salvage(victim)
+        self.preempted_total += 1
+        self._m.preempt.labels(reason="pool").inc()
+        self.engine.flight.record(
+            "preempt", request_id=victim.trace.request_id,
+            policy=self.preempt_policy, swap=False,
+            preemptions=victim.preemptions, slo_class=victim.slo,
+            beneficiary=req.trace.request_id, **self._alloc.span_attrs(),
+        )
+        log.info("request_preempted", policy=self.preempt_policy, swap=False,
+                 preemptions=victim.preemptions, slo_class=victim.slo,
+                 beneficiary_class=req.slo, request_id=victim.trace.request_id)
+        with self._cv:
+            self._resume.append(victim)
+            self._cv.notify_all()
+        return True
+
     def _launch_chunk(self):
         """Launch one decode chunk over the fleet; returns the in-flight
-        tuple ("chunk", fetch handle, assignment snapshot, launch time) or
-        None when no slot is active."""
+        tuple ("chunk", fetch handle, assignment snapshot, launch time,
+        mutation seq) or None when no slot is active."""
         if not any(r is not None for r in self._assignment):
             return None
+        faults.check("decode_launch", tag=",".join(
+            r.prompt for r in self._assignment if r is not None))
         if self.paged:
             self._table_device()
         packed = self._chunk_graph()
         self.chunk_launches += 1
         return ("chunk", self._to_host(packed), list(self._assignment),
-                time.perf_counter())
+                time.perf_counter(), self._mutation_seq)
 
     def _chunk_body(self):
         """The decode chunk over the static buffers (a LaunchGraph)."""
@@ -772,7 +1236,7 @@ class ContinuousEngine:
         slice of pending prompt chunks in one mixed launch. Decode rows'
         positions are substituted on the device (DeviceMeta). Returns the
         in-flight tuple ("mixed", fetch handle, decode snapshot, {slot:
-        req} completions, launch time) or None."""
+        req} completions, launch time, mutation seq) or None."""
         active = [b for b, r in enumerate(self._assignment)
                   if r is not None and b not in self._prefilling]
         plan = self._sched.plan(
@@ -781,6 +1245,10 @@ class ContinuousEngine:
         )
         if not active and not plan:
             return None
+        faults.check("decode_launch", tag=",".join(
+            r.prompt for r in self._assignment if r is not None))
+        if plan:
+            faults.check("prefill", tag=",".join(job.req.prompt for job, _ in plan))
         W, B, tile = self._sched_width, self.n_slots, self._ragged_tile
         # decode rows' positions are placeholders: the launch derives them
         # from the slot state on the device (DeviceMeta)
@@ -857,7 +1325,8 @@ class ContinuousEngine:
             stats["tiles"] - stats["pad_tiles"])
         self._m.ragged_launches.labels(phase="mixed").inc()
         snapshot = [self._assignment[b] if b in active else None for b in range(B)]
-        return ("mixed", handle, snapshot, completions, time.perf_counter())
+        return ("mixed", handle, snapshot, completions, time.perf_counter(),
+                self._mutation_seq)
 
     def _fresh_arm(self):
         """Mutable numpy MixedArm builder (one per launch WITH completions;
@@ -877,13 +1346,16 @@ class ContinuousEngine:
         """Fetch one mixed step's packed results: first-token bookkeeping
         for admissions that completed in that launch, then the shared
         decode distribution."""
-        _, handle, snapshot, completions, t_launch = step
+        _, handle, snapshot, completions, t_launch, seq = step
+        faults.check("fetch", tag=",".join(r.prompt for r in snapshot if r is not None))
         packed = self._fetch(handle)
         self._m.step.observe(max(0.0, time.perf_counter() - t_launch))
         emitted, mask, active, firsts = packed[:4]
         now = time.time()
         for slot, req in completions.items():
-            if req.done.is_set():
+            if req.done.is_set() or req.drop_seq > seq:
+                # drop_seq: preempted after this launch; its resume
+                # regenerates the first token
                 continue
             req.first_id = int(firsts[slot])
             if not req.ttft:
@@ -891,7 +1363,16 @@ class ContinuousEngine:
             self._count_admission(req)
             self._post_admit(req)
         self._distribute(emitted[None, :], mask[None, :].astype(bool),
-                         active.astype(bool), snapshot)
+                         active.astype(bool), snapshot, seq=seq)
+        self._healthy_fetch(seq)
+
+    def _healthy_fetch(self, seq: int):
+        """A launch fetched clean: reset the supervisor's consecutive-crash
+        window, and vindicate the suspects when nothing was admitted after
+        this launch (an older launch says nothing of a newer tenant)."""
+        self._consecutive_crashes = 0
+        if seq >= self._mutation_seq:
+            self._suspects.clear()
 
     def _count_admission(self, req: _Request):
         """Admission bookkeeping once req's prompt landed in its slot."""
@@ -911,25 +1392,42 @@ class ContinuousEngine:
 
     # -- whole-prefill admission ---------------------------------------------
     def _admit(self):
-        """Prefill and arm every queued request a free slot (and, paged,
-        pool blocks) can take. The wave's first tokens come back in ONE
-        stacked copy at the end: the stop / budget decision already ran
-        on the device when each slot was armed."""
+        """Prefill and arm every parked, then queued, request a free slot
+        (and, paged, pool blocks) can take. The wave's first tokens come
+        back in ONE stacked copy at the end: the stop / budget decision
+        already ran on the device when each slot was armed."""
         wave = []  # (req, first token [1] on the device)
         while True:
             with self._cv:
-                if not self._queue:
+                # preempted requests resume FIRST: a victim must not also
+                # lose its place behind the queue that evicted it
+                from_resume = bool(self._resume)
+                if not from_resume and not self._queue:
                     break
                 free = [b for b, r in enumerate(self._assignment) if r is None]
                 if not free:
                     break
-                head = self._queue[0]
-                if self.paged and head.need is not None \
-                        and head.need > self._alloc.free_blocks:
+                if (not from_resume and self.paged
+                        and self._queue[0].need is not None
+                        and self._queue[0].need > self._alloc.free_blocks):
                     break  # a sized head that still cannot get blocks waits
-                req = self._queue.pop(0)
-                self._note_queue_locked()
+                if from_resume:
+                    req = self._resume.pop(0)
+                else:
+                    req = self._queue.pop(0)
+                    self._note_queue_locked()
+            if (from_resume and req.allowed is not None
+                    and len(req.salvaged) >= req.allowed):
+                self._finalize(req)  # its budget was spent before the eviction
+                continue
             try:
+                # suspect-set bookkeeping: this request mutates the fleet
+                # now; until a launch made after this point fetches clean,
+                # a crash implicates it (_supervise)
+                self._suspects.add(req)
+                self._mutation_seq += 1
+                # _admitting survives an exception unwind ON PURPOSE: the
+                # supervisor salvages the request a crash cut mid-admission
                 self._admitting = req
                 first = self._admit_one(req, free[0])
                 self._admitting = None
@@ -941,14 +1439,20 @@ class ContinuousEngine:
                               "error_type": "invalid_request"}
                 self._push_final(req)
                 continue
+            # any other exception escapes to the supervisor
             if first is _BLOCKED:
                 # the pool cannot take it now: back to the front, and the
                 # fleet keeps decoding until a release frees blocks
                 with self._cv:
-                    self._queue.insert(0, req)
-                    self._note_queue_locked()
+                    if from_resume:
+                        self._resume.insert(0, req)
+                    else:
+                        self._queue.insert(0, req)
+                        self._note_queue_locked()
                 break
             if first is not None:  # None: failed fast, its result is set
+                if from_resume and req.preempted_at:
+                    self._m.resume_s.observe(time.time() - req.preempted_at)
                 wave.append((req, first))
         if not wave:
             return
@@ -956,23 +1460,23 @@ class ContinuousEngine:
         now = time.time()
         for (req, _), first_id in zip(wave, firsts):
             req.first_id = int(first_id)
-            if not req.ttft:
+            if not req.ttft:  # a resumed victim keeps its first TTFT
                 req.ttft = now - req.t_start
             self._post_admit(req)
 
     def _admit_one(self, req: _Request, slot: int):
-        """Prefill req's whole prompt and arm `slot` (the cold,
-        unconstrained, adapter-free admission of the JAX package).
-        Returns its first token ([1], on the device), None when it failed
-        fast (its result is set), or _BLOCKED when the pool cannot take
-        it now."""
+        """Prefill req's whole prompt (plus its salvaged continuation) and
+        arm `slot` (the cold, unconstrained, adapter-free admission of the
+        JAX package). Returns its first token ([1], on the device), None
+        when it failed fast (its result is set), or _BLOCKED when the pool
+        cannot take it now."""
         eng, cfg = self.engine, self.cfg
+        faults.check("admission", tag=req.prompt)
         if self._expired_in_queue(req):
             return None
         k = req.kwargs
-        text = eng.render_chat(req.prompt) if k.get("chat", True) else req.prompt
-        ids = eng.tokenizer.encode(text)
-        req.prompt_tokens = prompt_len = len(ids)
+        ids = self._admission_ids(req)
+        prompt_len = len(ids)
         p0, entry, plan = eng._prefix_plan(None, ids, capacity=self.slot_max_seq,
                                            ragged=self._ragged)
         if plan is None:
@@ -980,21 +1484,20 @@ class ContinuousEngine:
                 f"prompt length {prompt_len} exceeds the slot capacity "
                 f"(slot_max_seq {self.slot_max_seq})"
             )
-        max_tokens, _ = eng._clamp_decode(
-            prompt_len, int(k.get("max_tokens", 20)), capacity=self.slot_max_seq,
-        )
-        req.allowed = max_tokens
+        max_tokens = self._admission_budget(req, prompt_len)
         table_row = None
         if self.paged:
+            faults.check("alloc", tag=req.prompt)
             need_total = P.blocks_needed(prompt_len, max_tokens, self.kv_block_size)
             req.need = need_total
-            blk_ids = self._alloc.alloc(need_total)
+            blk_ids = self._alloc_with_pressure(req)
             if blk_ids is None:
                 return _BLOCKED
             req.block_ids = blk_ids
             table_row = np.zeros((self._max_blocks,), np.int32)
             table_row[:need_total] = blk_ids  # the tail stays at the trash block
         try:
+            faults.check("prefill", tag=req.prompt)
             sampling = G.default_sampling(
                 k.get("temperature", 0.7), k.get("top_k", 50),
                 k.get("top_p", 0.9), k.get("greedy", False),
@@ -1089,28 +1592,38 @@ class ContinuousEngine:
     def _post_admit(self, req: _Request):
         """A stop token first, or a zero budget, finishes the request at
         once (mirroring the on-device arming decision)."""
+        self.engine.flight.record(
+            "admit", request_id=req.trace.request_id, slot=req.slot,
+            prompt_tokens=req.prompt_tokens, budget=req.budget, slo_class=req.slo,
+            **(self._alloc.span_attrs() if self.paged else {}))
         if req.first_id in self.cfg.all_stop_ids or req.budget == 0:
             self._finalize(req)
 
     def _process(self, step):
         """Fetch one decode chunk's packed results and distribute them."""
-        _, handle, snapshot, t_launch = step
+        _, handle, snapshot, t_launch, seq = step
+        faults.check("fetch", tag=",".join(r.prompt for r in snapshot if r is not None))
         packed = self._fetch(handle)  # [2K+1, B] — ONE copy per chunk
         self._m.step.observe(
             max(0.0, time.perf_counter() - t_launch) / self.chunk_steps)
         K = self.chunk_steps
         self._distribute(packed[:K], packed[K: 2 * K].astype(bool),
-                         packed[2 * K].astype(bool), snapshot)
+                         packed[2 * K].astype(bool), snapshot, seq=seq)
+        self._healthy_fetch(seq)
 
-    def _distribute(self, emitted, mask, active, snapshot):
+    def _distribute(self, emitted, mask, active, snapshot, seq=None):
         """Attribute one fetched launch's emissions ([K, B] + final active
         row) to the snapshot's tenants and handle stop / deadline
-        / finalize."""
+        / finalize. `seq` is the launch's mutation seq: a victim preempted
+        after the launch drops its emissions (they are regenerated after
+        the resume; appending them would corrupt the salvage order)."""
         deadline = self.engine.engine_cfg.request_deadline_s
         now = time.time()
         for b, req in enumerate(snapshot):
             if req is None or req.done.is_set():
                 continue  # a freed tenant's masked leftovers
+            if seq is not None and req.drop_seq > seq:
+                continue  # preempted after this launch
             new = emitted[mask[:, b], b]
             req.tokens.extend(int(t) for t in new)
             gen = None
@@ -1137,10 +1650,11 @@ class ContinuousEngine:
                 self._release(req)
 
     def _gen_text(self, req: _Request) -> tuple:
-        """(generated ids, stop-truncated text, stop hit) for req."""
+        """(generated ids — the salvaged continuation first — then the
+        stop-truncated text, stop hit) for req."""
         head = ([req.first_id] if req.first_id is not None
                 and req.first_id not in self.cfg.all_stop_ids else [])
-        gen_ids = head + req.tokens
+        gen_ids = list(req.salvaged) + head + req.tokens
         text = self.engine.tokenizer.decode(gen_ids, skip_special_tokens=True)
         cut, hit = self.engine._truncate_at_stop(text, req.kwargs.get("stop"))
         return gen_ids, cut, hit
@@ -1170,7 +1684,10 @@ class ContinuousEngine:
             "ttft_s": round(req.ttft, 4),
             "backend": "continuous",
             "continuous": True,
-            "finish_reason": "stop" if stopped or n < req.allowed else "length",
+            # allowed: the total cap fixed at the first admission
+            "finish_reason": "stop" if stopped or n < (
+                req.allowed if req.allowed is not None else req.budget + 1
+            ) else "length",
             "prefill_chunks": req.prefill_chunks,
             "token_ids": gen_ids,
         }
@@ -1178,6 +1695,11 @@ class ContinuousEngine:
             req.result["slo_class"] = req.slo
         if req.tenant is not None:
             req.result["tenant"] = req.tenant
+        if req.salvaged:
+            # served across a restart or a preemption (continuation prefill)
+            req.result["recovered"] = True
+        if req.preemptions:
+            req.result["preempted"] = req.preemptions
         if stopped:
             req.result["stopped"] = True
         log.info("completed", slot=req.slot, tokens=n,

@@ -25,9 +25,14 @@ import torch
 from ..config import EngineConfig, ModelConfig
 from ..models import api as M
 from ..utils.logging import get_logger, request_id_context
-from ..utils.metrics import DEFAULT_SIZE_BUCKETS, MetricsRegistry, percentile
+from ..utils.metrics import (
+    DEFAULT_SIZE_BUCKETS,
+    MetricsRegistry,
+    percentile,
+    register_supervisor_metrics,
+)
 from ..utils.tokenizer import load_tokenizer
-from ..utils.tracing import Trace
+from ..utils.tracing import FlightRecorder, Trace
 from . import generate as G
 from . import paged as P
 
@@ -129,6 +134,17 @@ class SingleDeviceBackend:
             pages=pages,
         )
 
+    def health(self) -> list[dict]:
+        """Per-device health: a timed device probe (utils/probe.py), the
+        in-process analogue of the source system's 5 s-timeout /workers
+        sweep."""
+        from ..utils.probe import probe_device
+
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return [{"stage": 0, "devices": [str(dev)], **probe_device(dev)}]
+
     def arm_slot_paged(self, state, sparams, slot, *arm):
         return P.arm_slot_only(self.cfg, state, sparams, slot, *arm)
 
@@ -216,6 +232,11 @@ class InferenceEngine:
             "dli_engine_wedged",
             "abandoned deadline-overrun device calls still running",
         ).labels()
+        register_supervisor_metrics(self.metrics)
+        # control-plane events (admissions, preemptions, crashes,
+        # quarantines, restarts): the continuous supervisor dumps the
+        # ring into its crash report; GET /debug/flight serves it
+        self.flight = FlightRecorder()
         # reusable KV cache buffers (solo, and one per batch bucket): stale
         # contents between requests are never attended — prefill rewrites
         # the slots it uses and the causal mask hides the rest
@@ -1009,3 +1030,18 @@ class InferenceEngine:
             out["status"] = "degraded"
             out["wedged"] = wedged
         return out
+
+    def workers(self) -> dict:
+        """The /workers sweep: each stage's device probe. A generation
+        holding the engine lock means a timed-out probe is queued behind
+        real work, not unreachable: it reports "busy", not "offline"."""
+        stages = self.backend.health()
+        if self._lock.locked():
+            for s in stages:
+                if s.get("status") == "offline":
+                    s["status"] = "busy"
+                    s["error"] = "probe queued behind an in-flight generation"
+        return {
+            "workers": {f"stage_{s['stage']}": s for s in stages},
+            "total": len(stages),
+        }

@@ -142,6 +142,27 @@ class BlockAllocator:
     def shared_blocks(self) -> int:
         return self._shared
 
+    def reset(self):
+        """Forget every allocation and rebuild the full free list. The
+        fleet supervisor's defensive path only: after a crash it releases
+        every holder explicitly and calls this solely when the books
+        still disagree, so a rebuilt pool never starts with phantom
+        holders."""
+        self._free = list(range(1, self.n_blocks))
+        self._ref.clear()
+        self._shared = 0
+        if self._m_free is not None:
+            self._m_free.set(len(self._free))
+            self._m_shared.set(0)
+
+    def span_attrs(self) -> dict:
+        """Pool occupancy as flat flight-event attributes."""
+        return {
+            "pool_free": len(self._free),
+            "pool_outstanding": len(self._ref),
+            "pool_shared": self._shared,
+        }
+
     def refcount(self, block: int) -> int:
         return self._ref.get(block, 0)
 

@@ -2,14 +2,20 @@
 package's serving/server.py).
 
 Routes: `POST /generate` (one "prompt", or a "prompts" list served as one
-left-padded batch), `GET /health`, `GET /ready`, `GET /stats` and
-`GET /metrics`, on the stdlib ThreadingHTTPServer. For the same request
+left-padded batch), `GET /health`, `GET /ready`, `GET /workers` (the
+device sweep), `GET /` (the HTML status page), `GET /stats`,
+`GET /metrics`, `GET /debug/flight` (the flight recorder) and
+`POST /profiler/start|stop` (torch.profiler traces under a base
+directory), on the stdlib ThreadingHTTPServer. For the same request
 the envelope keys and the error codes (400, 499, 503, 504, ...) are the
 JAX server's. With `--continuous N` single-prompt `/generate` requests
 go to the continuous fleet (engine/continuous.py): over the block-paged
 KV pool with `--kv-pool-blocks M`, else over the dense slot cache; `/stats`
 nests its stats under "continuous".
-The queue, the OpenAI routes and the KV fabric arrive with later slices.
+`--faults SPEC` (or the DLI_FAULTS environment variable) arms the
+fault-injection harness (utils/faults.py) for chaos drills of the fleet's
+supervisor. The queue, the OpenAI routes and the KV fabric arrive with
+later slices.
 
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --attn-impl auto
@@ -30,6 +36,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -43,7 +51,27 @@ DEFAULT_TOP_K = 50
 DEFAULT_TOP_P = 0.9
 # Retry-After (seconds) sent with every drain/overload rejection
 RETRY_AFTER_S = 2
-_KNOWN_ROUTES = frozenset(("/health", "/ready", "/stats", "/metrics", "/generate"))
+# routes of the JAX server that the port does not serve yet: 501 with the
+# ROADMAP.md item that ports them, never a bare 404
+_NOT_PORTED_ROUTES = {
+    "/v1/models": 'ROADMAP.md "Solo-engine features"',
+    "/v1/completions": 'ROADMAP.md "Solo-engine features"',
+    "/v1/chat/completions": 'ROADMAP.md "Solo-engine features"',
+    "/debug/traces": 'ROADMAP.md "Fleet tier"',
+}
+
+
+def _not_ported_route(path: str) -> Optional[dict]:
+    """The 501 body for a JAX-server route the port lacks, else None."""
+    key = "/debug/traces" if path.startswith("/debug/traces") else path
+    item = _NOT_PORTED_ROUTES.get(key)
+    if item is None:
+        return None
+    return {"error": f"{key} is not ported to the PyTorch server yet ({item})"}
+_KNOWN_ROUTES = frozenset((
+    "/", "/health", "/ready", "/workers", "/stats", "/metrics", "/generate",
+    "/profiler/start", "/profiler/stop", "/debug/flight",
+))
 
 
 def _parse_bool(v, name: str) -> bool:
@@ -58,6 +86,117 @@ def _parse_bool(v, name: str) -> bool:
         if low in ("false", "0", "no"):
             return False
     raise ValueError(f"{name} must be a boolean, got {v!r}")
+
+
+def _status_html(engine) -> str:
+    h = engine.health()
+    stages = engine.backend.health()
+    rows = "".join(
+        f"<tr><td>stage {s['stage']}</td><td>{', '.join(s['devices'])}</td>"
+        f"<td>{s.get('layers', '-')}</td><td>{s['status']}</td></tr>"
+        for s in stages
+    )
+    return f"""<html><head><title>distributed_llm_inference_tpu_torch</title></head>
+<body style="font-family: monospace; margin: 2em;">
+<h1>distributed_llm_inference_tpu_torch — orchestrator</h1>
+<p>status: <b>{h['status']}</b> | model: <b>{h['model']}</b> |
+backend: <b>{h['backend']}</b> | stages: <b>{h['n_stages']}</b> |
+requests served: <b>{h['requests_served']}</b></p>
+<table border="1" cellpadding="4">
+<tr><th>stage</th><th>devices</th><th>layers</th><th>status</th></tr>
+{rows}
+</table>
+<p>POST /generate {{"prompt": ..., "max_tokens": ..., "temperature": ...}}
+| GET /health | GET /workers</p>
+</body></html>"""
+
+
+class _Profiler:
+    """torch.profiler trace capture behind HTTP: POST /profiler/start, the
+    requests to trace, POST /profiler/stop, which writes a Chrome trace
+    (viewable in Perfetto) of the card's kernels and the host.
+
+    A profiler session is entered and left on one thread, so each trace
+    runs on a thread of its own from start to stop (the HTTP requests that
+    start and stop it land on different handler threads).
+
+    Clients name a subdirectory, not a path: traces always land under
+    `base` — otherwise POST /profiler/start would be an arbitrary
+    filesystem-write primitive for anyone who can reach the port."""
+
+    def __init__(self, base: Optional[str] = None):
+        self._lock = threading.Lock()
+        self.base = base or os.path.join(tempfile.gettempdir(), "dli-torch-traces")
+        self.dir: Optional[str] = None
+        self._session = None  # (thread, stop event, outcome dict)
+
+    def _resolve(self, name: str) -> str:
+        name = name or "trace"
+        if os.path.isabs(name) or ".." in name.split("/"):
+            raise ValueError(f"trace_dir must be a relative subdir name, got {name!r}")
+        out = os.path.normpath(os.path.join(self.base, name))
+        if not (out + "/").startswith(os.path.normpath(self.base) + "/"):
+            raise ValueError(f"trace_dir escapes base: {name!r}")
+        return out
+
+    @staticmethod
+    def _trace(out: str, started: threading.Event, stop: threading.Event,
+               outcome: dict):
+        """One profiler session: enter, wait for stop, leave, export."""
+        import torch
+
+        try:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=acts) as prof:
+                started.set()
+                stop.wait()
+            prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        except Exception as e:  # noqa: BLE001 - reported to the caller
+            outcome["error"] = str(e)
+        finally:
+            started.set()
+
+    def start(self, trace_dir: str) -> dict:
+        with self._lock:
+            if self.dir is not None:
+                return {"error": f"trace already running to {self.dir}"}
+            try:
+                resolved = self._resolve(trace_dir)
+                os.makedirs(resolved, exist_ok=True)
+            except Exception as e:
+                return {"error": f"profiler start failed: {e}"}
+            started, stop, outcome = threading.Event(), threading.Event(), {}
+            t = threading.Thread(target=self._trace, name="profiler", daemon=True,
+                                 args=(resolved, started, stop, outcome))
+            t.start()
+            started.wait()
+            if "error" in outcome:
+                t.join()
+                return {"error": f"profiler start failed: {outcome['error']}"}
+            self.dir, self._session = resolved, (t, stop, outcome)
+            return {"status": "tracing", "trace_dir": resolved}
+
+    def stop(self) -> dict:
+        with self._lock:
+            if self.dir is None:
+                return {"error": "no trace running"}
+            out = self.dir
+            t, stop, outcome = self._session
+            stop.set()
+            t.join(timeout=120)
+            if t.is_alive() or "error" in outcome:
+                # keep self.dir so the state stays truthful ('trace already
+                # running' on a retried /start) and tell the caller
+                why = outcome.get("error", "the trace did not finish writing")
+                return {
+                    "error": f"profiler stop failed: {why}; trace state is "
+                    "unknown — retry /profiler/stop or restart the server",
+                    "trace_dir": out,
+                }
+            self.dir = self._session = None
+            return {"status": "stopped", "trace_dir": out}
 
 
 def _status_code(result: dict) -> tuple:
@@ -80,7 +219,8 @@ def _status_code(result: dict) -> tuple:
 
 
 def make_handler(engine, max_tokens_cap: int, state=None,
-                 wedge_unready_s: float = 10.0, continuous=None):
+                 wedge_unready_s: float = 10.0, continuous=None,
+                 profiler: Optional[_Profiler] = None):
     from ..utils.logging import request_id_context
     from ..utils.tracing import (
         SpanContext,
@@ -91,6 +231,7 @@ def make_handler(engine, max_tokens_cap: int, state=None,
 
     if state is None:  # embedding callers without an InferenceServer
         state = _ServerState()
+    profiler = profiler or _Profiler()
     slo_classes = {c[0] for c in engine.engine_cfg.slo_classes}
     http_requests = engine.metrics.counter(
         "dli_http_requests_total", "HTTP responses",
@@ -132,24 +273,30 @@ def make_handler(engine, max_tokens_cap: int, state=None,
 
         def _readiness(self) -> tuple:
             """(ready, reason): the load-balancer signal — False while
-            draining, once the continuous scheduler died (the port does
-            not restart it), or while an abandoned deadline-overrun call
-            has been wedged past --wedge-unready."""
+            draining, while an abandoned deadline-overrun call has been
+            wedged past --wedge-unready, and while the continuous
+            scheduler is restart-looping or dead. /health stays 200."""
             if state.draining:
                 return False, "draining"
-            if continuous is not None and not continuous.ready:
-                return False, "scheduler_dead"
             if wedge_unready_s:
                 age = engine.max_wedged_age()
                 if age is not None and age > wedge_unready_s:
                     return False, "wedged"
+            if continuous is not None and not continuous.ready:
+                return False, (
+                    "scheduler_dead"
+                    if continuous.stats()["supervisor"]["dead"]
+                    else "scheduler_restarting"
+                )
             return True, None
 
         def do_GET(self):
             self._rid = None
             self._trace_ctx = None
             path = self.path.split("?")[0].rstrip("/") or "/"
-            if path == "/health":
+            if path == "/":
+                self._send(200, _status_html(engine), content_type="text/html")
+            elif path == "/health":
                 h = engine.health()
                 ready, why = self._readiness()
                 # liveness stays 200 while draining: readiness is /ready
@@ -173,6 +320,16 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 else:
                     self._send(503, {"ready": False, "reason": why},
                                headers={"Retry-After": str(RETRY_AFTER_S)})
+            elif path == "/workers":
+                # the source system's shape, {"worker_1": "online", ...},
+                # from engine.workers(), re-keyed to 1-based names
+                stages = list(engine.workers()["workers"].values())
+                results = {f"worker_{s['stage'] + 1}": s["status"] for s in stages}
+                results["detail"] = stages
+                self._send(200, results)
+            elif path == "/debug/flight":
+                # the ring the fleet's supervisor dumps on a crash
+                self._send(200, engine.flight.dump())
             elif path == "/stats":
                 s = engine.stats()
                 if continuous is not None:
@@ -182,7 +339,9 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 self._send(200, engine.metrics.render(),
                            content_type="text/plain; version=0.0.4; charset=utf-8")
             else:
-                self._send(404, {"error": f"no route {path}"})
+                missing = _not_ported_route(path)
+                self._send(501 if missing else 404,
+                           missing or {"error": f"no route {path}"})
 
         def _deadline_ms(self, data: dict):
             """The request's end-to-end budget in ms, or None; the
@@ -232,8 +391,22 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                     headers={"Retry-After": str(RETRY_AFTER_S)},
                 )
                 return
+            if path == "/profiler/start":
+                data = self._read_json()
+                if data is None:
+                    return
+                # a subdirectory NAME under the profiler base, not a path
+                res = profiler.start(data.get("trace_dir", "trace"))
+                self._send(400 if "error" in res else 200, res)
+                return
+            if path == "/profiler/stop":
+                res = profiler.stop()
+                self._send(400 if "error" in res else 200, res)
+                return
             if path != "/generate":
-                self._send(404, {"error": f"no route {path}"})
+                missing = _not_ported_route(path)
+                self._send(501 if missing else 404,
+                           missing or {"error": f"no route {path}"})
                 return
             data = self._read_json()
             if data is None:
@@ -427,9 +600,11 @@ class InferenceServer:
         self.install_signal_handlers()
         get_logger("server").info(
             "serving", port=self.port,
-            routes=["/generate", "/health", "/ready", "/stats", "/metrics"],
+            routes=["/", "/generate", "/health", "/ready", "/workers", "/stats",
+                    "/metrics", "/profiler/*", "/debug/flight"],
         )
-        print(f"serving on :{self.port} — /generate /health /ready /stats /metrics")
+        print(f"serving on :{self.port} — /generate /health /ready /workers /stats "
+              f"/metrics /profiler/* /debug/flight")
         self.httpd.serve_forever()
 
     def shutdown(self):
@@ -523,9 +698,39 @@ def main(argv: Optional[list] = None):
         "--continuous-lag", type=int, default=2,
         help="launches in flight before blocking on the oldest fetch",
     )
+    ap.add_argument(
+        "--restart-budget", type=int, default=3, metavar="N",
+        help="continuous-scheduler supervisor: how many CONSECUTIVE "
+             "crashes to absorb (restart + re-admit in-flight requests "
+             "as continuation prefills) before declaring the fleet dead; "
+             "a healthy fetch resets the window",
+    )
+    ap.add_argument(
+        "--poison-strikes", type=int, default=2, metavar="K",
+        help="quarantine a request implicated in K consecutive "
+             "scheduler crash-restarts (error_type 'poison'), instead of "
+             "letting it take the fleet down with it",
+    )
+    ap.add_argument(
+        "--faults", default=None, metavar="SPEC",
+        help="arm the deterministic fault-injection harness "
+             "(utils/faults.py), e.g. 'decode_launch:transient:on=3'; "
+             "the DLI_FAULTS env var is the config-file-free spelling. "
+             "Chaos drills only — never in front of real traffic",
+    )
     args = ap.parse_args(argv)
     if args.kv_pool_blocks is not None and args.continuous <= 0:
         raise SystemExit("--kv-pool-blocks requires --continuous")
+    from ..utils import faults as _faults
+
+    if args.faults:
+        try:
+            _faults.arm(args.faults)
+        except ValueError as e:
+            raise SystemExit(f"--faults: {e}") from e
+        print(f"fault injection armed: {args.faults}")
+    elif _faults.arm_from_env() is not None:
+        print("fault injection armed from DLI_FAULTS")
 
     tokenizer = None
     if args.tokenizer:
@@ -551,6 +756,7 @@ def main(argv: Optional[list] = None):
             engine, n_slots=args.continuous, chunk_steps=args.continuous_chunk,
             chunk_lag=args.continuous_lag, slot_max_seq=args.continuous_max_seq,
             kv_pool_blocks=args.kv_pool_blocks, kv_block_size=args.kv_block_size,
+            restart_budget=args.restart_budget, poison_strikes=args.poison_strikes,
         )
     InferenceServer(
         engine, args.host, args.port, args.max_tokens_cap,

@@ -138,6 +138,16 @@ class HistogramChild(_Child):
             self._sum += v
             self._count += 1
 
+    @property
+    def count(self) -> int:
+        with self._family._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._family._lock:
+            return self._sum
+
 
 _CHILD_TYPES = {
     "counter": CounterChild,
@@ -271,6 +281,10 @@ class MetricsRegistry:
                   buckets: Sequence[float] = DEFAULT_TIME_BUCKETS) -> _Family:
         return self._register(name, "histogram", help, labelnames, buckets)
 
+    def get(self, name: str) -> Optional[_Family]:
+        with self._lock:
+            return self._families.get(name)
+
     def families(self) -> list:
         with self._lock:
             return list(self._families.values())
@@ -283,6 +297,50 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
 
+def register_supervisor_metrics(registry: MetricsRegistry):
+    """The continuous fleet's preemption and failure-containment families
+    with the JAX package's names, unlabeled. The engine registers them up
+    front, as the JAX engine does, so /metrics has them before any fleet
+    exists; each fleet labels them (register_fleet_metrics)."""
+    import types
+
+    m = registry
+    return types.SimpleNamespace(
+        preempt=m.counter(
+            "dli_preemptions_total",
+            "slots killed before their budget drained", ("reason",),
+        ),
+        resume_s=m.histogram(
+            "dli_preempted_resume_seconds",
+            "preemption to successful re-admission latency",
+        ),
+        restarts=m.counter(
+            "dli_scheduler_restarts_total",
+            "continuous-scheduler supervisor restarts", ("engine",),
+        ),
+        recovered=m.counter(
+            "dli_requests_recovered_total",
+            "in-flight requests re-admitted (continuation prefill) after "
+            "a scheduler restart", ("engine",),
+        ),
+        poison=m.counter(
+            "dli_poison_requests_total",
+            "requests quarantined as poison after repeated crash "
+            "implication", ("engine",),
+        ),
+        drain=m.histogram(
+            "dli_drain_duration_seconds",
+            "graceful-drain wall time (SIGTERM / drain())", ("component",),
+        ),
+        recovery_recomputed=m.counter(
+            "dli_recovery_tokens_recomputed_total",
+            "prompt tokens re-prefilled for crash-recovery re-admissions "
+            "(warm recovery bounds this by the partial tail block)",
+            ("engine",),
+        ),
+    )
+
+
 def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
     """The families the continuous paged fleet (engine/continuous.py)
     increments, registered once with the JAX package's names: fleet
@@ -293,6 +351,7 @@ def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
 
     m = registry
     m.gauge("dli_slots_total", "continuous-fleet decode slots").labels().set(n_slots)
+    sup = register_supervisor_metrics(m)
     return types.SimpleNamespace(
         occupied=m.gauge(
             "dli_slots_occupied", "continuous-fleet slots serving a request"
@@ -309,10 +368,7 @@ def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
             "per-token decode step time, launch-to-fetch / tokens per row "
             "(includes pipelining lag)", ("engine",),
         ).labels(engine="continuous"),
-        preempt=m.counter(
-            "dli_preemptions_total",
-            "slots killed before their budget drained", ("reason",),
-        ),
+        preempt=sup.preempt,
         shed=m.counter(
             "dli_queue_shed_total", "requests shed with 429", ("queue",)
         ).labels(queue="continuous"),
@@ -350,4 +406,11 @@ def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
             "dli_sched_decode_rows_total",
             "decode rows carried by mixed scheduler launches",
         ).labels(),
+        # preemption and the supervisor
+        resume_s=sup.resume_s.labels(),
+        restarts=sup.restarts.labels(engine="continuous"),
+        recovered=sup.recovered.labels(engine="continuous"),
+        poison=sup.poison.labels(engine="continuous"),
+        drain=sup.drain.labels(component="continuous"),
+        recovery_recomputed=sup.recovery_recomputed.labels(engine="continuous"),
     )

@@ -6,6 +6,8 @@ prefill, decode, detokenize: `checkpoint(name)` attributes the time since
 the previous checkpoint to `name`, so the spans sum to about the
 end-to-end latency. `SpanContext` / `parse_traceparent` read and mint
 W3C `traceparent` ids so the server can echo `X-Trace-Id`.
+`FlightRecorder` is the bounded ring of control-plane events the fleet's
+supervisor dumps on a crash and `GET /debug/flight` serves.
 """
 
 from __future__ import annotations
@@ -98,3 +100,50 @@ class Trace:
             out = {f"{k}_s": round(v, 6) for k, v in self._spans.items()}
             out["total_s"] = round(now - self._t0, 6)
         return out
+
+
+class FlightRecorder:
+    """Bounded ring of recent control-plane events for one engine.
+
+    Crash forensics: admissions, preemptions, drains, quarantines and
+    restarts append here as cheap host-side dicts; the ring is dumped
+    into the supervisor's crash report and served live at
+    `GET /debug/flight` — so a poison-quarantine or restart-loop episode is
+    reconstructable after the fact. Strictly host-side control-plane
+    code, called only at seams that already do host work (admission,
+    preempt, quarantine, restart)."""
+
+    __slots__ = ("_events", "_lock", "_seq", "capacity")
+
+    def __init__(self, capacity: int = 512):
+        self.capacity = int(capacity)
+        self._events: collections.deque = collections.deque(
+            maxlen=self.capacity
+        )
+        self._lock = threading.Lock()
+        self._seq = 0
+
+    def record(self, kind: str, **fields):
+        """Append one event. `fields` must already be JSON-safe scalars
+        (the dump is json.dumps'd into crash reports verbatim)."""
+        with self._lock:
+            self._seq += 1
+            ev = {"seq": self._seq, "ts": round(time.time(), 6),
+                  "kind": kind}
+            if fields:
+                ev.update(fields)
+            self._events.append(ev)
+
+    def events(self, limit: Optional[int] = None) -> list:
+        with self._lock:
+            out = list(self._events)
+        return out[-limit:] if limit else out
+
+    def dump(self) -> dict:
+        """The /debug/flight + crash-report payload."""
+        events = self.events()
+        return {
+            "capacity": self.capacity,
+            "recorded_total": self._seq,
+            "events": events,
+        }

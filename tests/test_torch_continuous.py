@@ -143,10 +143,16 @@ def test_fleet_answers_like_jax_for_edge_requests(fleets):
         assert "paged" not in dense.stats() and dense.cache["k"].shape[1] == 2
     finally:
         dense.close()
-    with pytest.raises(NotImplementedError, match="Preemption and the supervisor"):
-        ContinuousEngine(create_engine(
-            MODEL, device="cpu", engine_cfg=EngineConfig(preempt_policy="swap")),
-            n_slots=2, kv_pool_blocks=16)
+    # the JAX default policy builds a fleet and reports itself
+    swap = ContinuousEngine(create_engine(
+        MODEL, device="cpu", engine_cfg=EngineConfig(preempt_policy="swap")),
+        n_slots=2, kv_pool_blocks=16)
+    try:
+        assert EngineConfig().preempt_policy == "swap"
+        assert swap.stats()["preemption"] == {
+            "policy": "swap", "max_per_request": 2, "preempted_total": 0, "parked": 0}
+    finally:
+        swap.close()
 
 
 def _free_port() -> int:
@@ -207,14 +213,37 @@ def test_server_rejects_the_dense_fleet_flags():
 
 
 def test_loop_crash_fails_requests_in_flight_and_marks_not_ready():
-    """The supervisor's restart is not ported: a crash in the worker loop
-    answers every request in flight with an error envelope, and the
-    engine turns not ready and refuses new work."""
+    """A crash in the worker loop goes through the supervisor: within the
+    restart budget the fleet restarts and the request in flight answers in
+    full (salvaged and re-admitted); past the budget every request in
+    flight gets an `unavailable` envelope, and the engine turns not ready
+    and refuses new work."""
     eng = create_engine(MODEL, device="cpu")
-    fleet = ContinuousEngine(eng, n_slots=2, kv_pool_blocks=20, slot_max_seq=128)
+    fleet = ContinuousEngine(eng, n_slots=2, kv_pool_blocks=20, slot_max_seq=128,
+                             restart_backoff_s=0.01)
     try:
         assert fleet.ready
+        launch = fleet.backend.mixed_step_ragged
+        calls = []
 
+        def once(*a, **k):  # the first mixed launch fails, later ones run
+            calls.append(1)
+            if len(calls) == 1:
+                raise RuntimeError("injected launch fault")
+            return launch(*a, **k)
+
+        fleet.backend.mixed_step_ragged = once
+        r = fleet.submit("hello", max_tokens=4, greedy=True, chat=False)
+        assert r["status"] == "success" and 1 <= r["tokens_generated"] <= 4, r
+        st = fleet.stats()["supervisor"]
+        assert st["restarts"] == 1 and st["ready"] is True and st["dead"] is False
+        assert fleet.stats()["paged"]["free_blocks"] == 19
+    finally:
+        fleet.close()
+    # past the budget: with no restart left, the same fault is fatal
+    fleet = ContinuousEngine(eng, n_slots=2, kv_pool_blocks=20, slot_max_seq=128,
+                             restart_budget=0)
+    try:
         def boom(*a, **k):
             raise RuntimeError("injected launch fault")
 
@@ -223,6 +252,7 @@ def test_loop_crash_fails_requests_in_flight_and_marks_not_ready():
         assert r["status"] == "failed" and r["error_type"] == "unavailable"
         assert "injected launch fault" in r["error"]
         assert not fleet.ready and fleet.stats()["supervisor"]["dead"] is True
+        assert fleet.stats()["paged"]["free_blocks"] == 19
         again = fleet.submit("hello", max_tokens=4, greedy=True, chat=False)
         assert again["status"] == "failed" and again["error_type"] == "unavailable"
     finally:
