@@ -135,8 +135,42 @@ ragged kernel's `--only` run, so the letters skip it):
       and (t)'s preempt, crash, restart, quarantine and scheduler_dead
       events.
 
+Run after (u), before (j), on (g)'s fleet with `--prefix-cache 8` (the
+block-prefix cache and, by default, the KV shadow), through the HTTP
+server:
+
+  (v) (v1) one request registers a 512-token head (32 blocks), then a wave
+      of 8 shares it (tails of 16 to 200 tokens, greedy and sampled, 32
+      new tokens each) on three fleets: no prefix cache, the prefix cache
+      without the shadow, and with it. Hits and saved tokens rise by 8 and
+      8 x 512, `dli_kv_pool_shared_blocks` is above 0 mid-wave, the head's
+      blocks are bit-unchanged across the wave, the kernels launch n_layers
+      times per mixed launch and per decode step and nothing else, each
+      graph is captured once, and at idle only the index holds blocks;
+      the median TTFT of 5 pinned 612-token greedy requests, hit against
+      cold; the greedy tokens of both fleets, identical or where they part
+      (with the teacher-forced max |Δlogits| there); the waves' aggregate
+      tokens/s; the capture's device ms and bytes (an 8-block gather and
+      its copy to pinned memory) and the restore's per 32-block scatter;
+      one mixed launch and the capture it triggers under
+      set_sync_debug_mode("error"), the landed bytes exact; (v2) a hit of
+      the bucketed whole-prefill admission: flash_attend n_layers times per
+      tail chunk over the scratch gathered from the pool, its greedy tokens
+      against a cold bucketed fleet's; (v3) a decode_launch fault in a wave
+      of 4, shadow on and off on the raw pool, then on an int8 pool: every
+      request answered after one restart, restored blocks > 0 warm and 0
+      cold, fewer tokens recomputed warm than cold, crash to the next
+      launch, graphs captured once, the tokens fetched before the crash
+      kept; (v4) (s)'s pair with the prefix cache: A's "swap" resume
+      restores its shadowed blocks, A's stream against its run alone;
+      (v5) a drain writes restore_dir, a fleet started on it restores and
+      serves its first request as a hit with the pre-drain hit's tokens; a
+      64-block host tier demotes a chain to the disk tier (kv_disk_dir) and
+      an admission promotes it back (a `tier_promote` event), the same
+      tokens.
+
 `python3 chip_smoke.py --only s` runs (a), then (s), (t) and (u) alone on
-the raw engine (about two minutes).
+the raw engine (about two minutes); `--only v` runs (a), then (v) alone.
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
@@ -2201,6 +2235,7 @@ class FleetSpy:
     def __init__(self, fleet):
         self.fleet = fleet
         self.salvaged: dict = {}  # prompt -> tokens fetched before the first eviction
+        self.tokens: dict = {}  # prompt -> those tokens themselves
         self.evicted_at: dict = {}  # prompt -> time of the first eviction
         self.resumed_at: dict = {}  # prompt -> first token fetched after it
         self.crashes: list = []  # [time of the crash, time of the next launch]
@@ -2226,6 +2261,7 @@ class FleetSpy:
     def _note(self, req):
         if req.prompt not in self.salvaged:
             self.salvaged[req.prompt] = len(req.salvaged)
+            self.tokens[req.prompt] = list(req.salvaged)
             self.evicted_at[req.prompt] = time.perf_counter()
 
     def _after_preempt(self, preempted):
@@ -2250,6 +2286,7 @@ class FleetSpy:
 
     def reset(self):
         self.salvaged.clear()
+        self.tokens.clear()
         self.evicted_at.clear()
         self.resumed_at.clear()
         self.crashes.clear()
@@ -2609,13 +2646,733 @@ def phase_u(torch, engine, smi):
         server.shutdown()
 
 
+# -- the block-prefix cache and the KV shadow: phase (v) -------------------------
+
+V_HEAD = 512  # the shared head's tokens (32 blocks of BLOCK)
+V_TAILS = (16, 40, 64, 96, 120, 150, 180, 200)  # the wave's tails behind it
+V_PINNED = (5, 100)  # (requests, tail tokens) of the TTFT medians
+V_WAVES = 3  # waves per fleet, fresh tails each
+V_NEW = 32
+V_CRASH_TAILS = (20, 60, 100, 140)
+V_SHADOW_BLOCKS = 64  # (v5)'s small host tier: one 34-block chain evicts another
+V_DIR = "build/chip_smoke_v"  # restore_dir and the disk tier (gitignored)
+
+
+def v_head(i: int) -> str:
+    """The text of a V_HEAD-token head (BOS + one token per character)."""
+    return fleet_prompt(30 + i, V_HEAD)
+
+
+def v_tail(tag: str, n: int) -> str:
+    """n characters (tokens) that differ from every other tag's at once, so
+    a hit maps exactly the head's blocks."""
+    return (f"[{tag}] " + "a tail behind the shared head of the request; " * 9)[:n]
+
+
+def v_body(prompt: str, greedy: bool = True) -> dict:
+    body = {"prompt": prompt, "max_tokens": V_NEW, "chat": False}
+    body.update({"greedy": True} if greedy else SAMPLED_KNOBS)
+    return body
+
+
+def v_engine(engine, **ecfg):
+    """The same model, weights and kernels with other engine settings."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    return create_engine(engine.cfg, params=engine.backend.params, device=DEVICE,
+                         engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS, **ecfg))
+
+
+def v_counter(engine, name: str) -> float:
+    fam = engine.metrics.get(name)
+    return 0.0 if fam is None else sum(c.value for _, c in fam._items())
+
+
+def v_head_digest(torch, P, fleet, ids):
+    """The cached head of `ids` (depth, its block ids) and a digest of the
+    bytes of those blocks in the fleet's pool (bf16 through its int16
+    view)."""
+    import hashlib
+
+    p0, blocks, _ = fleet._bpx.lookup(ids)
+    h = hashlib.sha256()
+    idx = torch.tensor(blocks or [], dtype=torch.long, device=DEVICE)
+    for leaf in P.pool_leaves(fleet.cache):
+        x = leaf[:, idx]
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        h.update(x.cpu().numpy().tobytes())
+    return p0, blocks, h.hexdigest()
+
+
+def v_quiesce(fleet, timeout_s=10.0):
+    """Wait until the fleet's worker parks with no launch in flight: the
+    decode chunks launched ahead for a request that has since finished
+    (chunk_lag) would delay the next request's first launch."""
+    t0 = time.time()
+    while not fleet._cv._waiters:
+        check(time.time() - t0 < timeout_s, "the fleet's worker never parked")
+        time.sleep(0.001)
+
+
+def v_idle_parts(tag, got: dict, want: dict) -> dict:
+    """Print, for each request both runs served, whether its tokens are
+    identical or the first token where they part."""
+    parts = {}
+    for k in got:
+        parts[k] = parts_at(got[k], want[k])
+        print(f"{tag} {k}: " + ("identical" if parts[k] is None
+                                else f"part at token {parts[k]}"))
+    return parts
+
+
+def v_teacher_logits(torch, P, G, engine, pool, row_blocks, ids, p0):
+    """The next-token logits after `ids`, teacher-forced through the ragged
+    prefill launches over `pool` with the table row `row_blocks`, from
+    position p0 (the blocks below p0 hold the head's K/V already)."""
+    import numpy as np
+
+    W, tile = 64, RAGGED_TILE
+    be = engine.backend
+    table = torch.zeros((1, SLOT_MB), dtype=torch.int32, device=DEVICE)
+    table[0, :len(row_blocks)] = torch.tensor(row_blocks, dtype=torch.int32)
+
+    def args(chunk, start):
+        meta, tok_row, tok_pos, _, _ = P.build_ragged_meta(
+            [(0, start, len(chunk), P.RAGGED_PREFILL)], width=W, tile=tile)
+        toks = np.zeros(W, np.int32)
+        toks[:len(chunk)] = chunk
+        return [torch.from_numpy(a).to(DEVICE) for a in (toks, tok_row, tok_pos, meta)]
+
+    tail = ids[p0:]
+    n_full = max(0, (len(tail) - 1) // W)
+    for c in range(n_full):
+        be.extend_ragged_paged(*args(tail[c * W:(c + 1) * W], p0 + c * W), pool, table)
+    rem = tail[n_full * W:]
+    _, logits, _ = be.prefill_ragged_paged(
+        *args(rem, p0 + n_full * W), pool, table, len(rem) - 1,
+        torch.Generator(device=DEVICE), G.default_sampling(1.0, 0, 1.0, True, 0.0, 1.0,
+                                                           0.0, 0.0))
+    return logits.float()
+
+
+def v_delta_logits(torch, P, G, engine, fleet, prompt, tokens, at):
+    """max |Δlogits| at the token where a hit's greedy stream parts from the
+    cold run's: the prompt and the `at` common tokens teacher-forced once
+    over the fleet's cached head (the hit) and once whole (cold), on a copy
+    of the idle fleet's pool."""
+    ids = engine.tokenizer.encode(prompt) + list(tokens[:at])
+    p0, head, _ = fleet._bpx.lookup(ids)
+    pool = P.pool_from_leaves(fleet.cache, [t.clone() for t in P.pool_leaves(fleet.cache)])
+    taken = set(head or [])
+    fresh = [b for b in range(1, fleet._pool_blocks) if b not in taken][:SLOT_MB]
+    n = -(-len(ids) // BLOCK)
+    head = list(head or [])
+    hit = v_teacher_logits(torch, P, G, engine, pool, head + fresh[:n - len(head)], ids, p0)
+    cold = v_teacher_logits(torch, P, G, engine, pool, fresh[:n], ids, 0)
+    torch.cuda.synchronize()
+    return (hit - cold).abs().max().item(), p0
+
+
+def v_timed(fleet, name: str) -> list:
+    """Wrap the fleet's method `name` to add each call's host seconds to
+    the returned [seconds, calls] (the worker thread's own time in it)."""
+    inner = getattr(fleet, name)
+    spent = [0.0, 0]
+
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **k)
+        finally:
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+
+    setattr(fleet, name, call)
+    return spent
+
+
+def phase_v1(torch, engine, pa, fa, Q, P, G, smi):
+    """Hits on the main path: one request registers a 512-token head, then
+    V_WAVES waves of 8 share it (fresh tails each wave, greedy and sampled),
+    on the fleet with no prefix cache, with the prefix cache and no shadow,
+    and with both (the last one kept for the comparisons); pinned greedy
+    requests' TTFT and tokens on each."""
+    import threading
+
+    L = engine.cfg.n_layers
+    peng = v_engine(engine, prefix_cache_entries=8)
+    head = v_head(0)
+    reg = v_body(head + v_tail("register", 32))
+    waves = [[v_body(head + v_tail(f"tail {w}.{i}", n), greedy=i % 2 == 0)
+              for i, n in enumerate(V_TAILS)] for w in range(V_WAVES)]
+    pinned = [v_body(head + v_tail(f"pinned {k}", V_PINNED[1])) for k in range(V_PINNED[0])]
+    head_ids = peng.tokenizer.encode(head + v_tail("probe", 40))
+    runs = {}
+    for name, eng, kw in (("no prefix cache", engine, {}),
+                          ("prefix cache, shadow off", peng, {"kv_shadow": False}),
+                          ("prefix cache, shadow on", peng, {})):
+        fleet, server = fleet_server(eng, FLEET, **kw)
+        prefix = fleet._bpx is not None
+        capture = v_timed(fleet, "_shadow_capture") if fleet._shadow is not None else None
+        try:
+            check(fleet.warmup()["ok"], f"(v1) {name}: warmup")
+            code, r, _ = post(server.port, reg)
+            check(code == 200, f"(v1) {name}: the registering request {r}")
+            wait_idle(server.port)
+            if prefix:
+                p0, blocks, digest0 = v_head_digest(torch, P, fleet, head_ids)
+                check(p0 == V_HEAD, f"(v1) {name}: the head is cached at {p0}, not {V_HEAD}")
+            shared = eng.metrics.get("dli_kv_pool_shared_blocks").labels()
+            tps, results = [], None
+            for w, bodies in enumerate(waves):
+                v_quiesce(fleet)
+                if capture is not None:
+                    capture[:] = [0.0, 0]
+                peak, stop = [0.0], threading.Event()
+
+                def poll():
+                    while not stop.is_set():
+                        peak[0] = max(peak[0], shared.value)
+                        time.sleep(0.002)
+
+                poller = threading.Thread(target=poll, daemon=True)
+                poller.start()
+                try:
+                    results, wave_s, launches, before, after = serve_wave(server, bodies,
+                                                                          pa, fa, Q)
+                finally:
+                    stop.set()
+                    poller.join()
+                mixed = after["launches"]["mixed"] - before["launches"]["mixed"]
+                chunks = (after["launches"]["decode_chunks"]
+                          - before["launches"]["decode_chunks"])
+                n_tok = 0
+                for i, (code, r, wall) in enumerate(results):
+                    check(code == 200 and r.get("status") == "success",
+                          f"(v1) {name} {w}.{i}: {r}")
+                    n_tok += r["tokens_generated"]
+                tps.append(n_tok / wave_s)
+                print(f"(v1) {name}: wave {w} of {len(bodies)} over a {V_HEAD}-token "
+                      f"head, {n_tok} tokens in {wave_s:.3f} s = {n_tok / wave_s:.2f} "
+                      f"tokens/s aggregate; {mixed} mixed launches, {chunks} decode "
+                      f"chunks; depths {[r.get('prefix_cached_tokens') for _, r, _ in results]}; "
+                      f"TTFT {[r['ttft_s'] for _, r, _ in results]}; peak shared blocks "
+                      f"{peak[0]:g}"
+                      + ("" if capture is None else
+                         f"; the scheduler thread's capture time {capture[0] * 1e3:.1f} ms "
+                         f"in {capture[1]} calls")
+                      + f"; kernel launches {json.dumps(launches)} ({smi})")
+                check(launches["ragged_paged_attend"] == L * mixed > 0,
+                      f"(v1) {name}: ragged_paged_attend {launches['ragged_paged_attend']} "
+                      f"for {mixed} mixed launches")
+                check(launches["paged_flash_attend"] == L * FLEET["chunk_steps"] * chunks > 0,
+                      f"(v1) {name}: paged_flash_attend {launches['paged_flash_attend']} "
+                      f"for {chunks} decode chunks")
+                others = [k for k in launches
+                          if k not in ("ragged_paged_attend", "paged_flash_attend")]
+                check(not any(launches[k] for k in others), f"(v1) {name}: {launches}")
+                if prefix:
+                    pc0, pc = before["prefix_cache"], after["prefix_cache"]
+                    hits = pc["hits"] - pc0["hits"]
+                    saved = pc["dedup_saved_tokens"] - pc0["dedup_saved_tokens"]
+                    check(hits >= len(bodies) and saved >= len(bodies) * V_HEAD,
+                          f"(v1) {name}: hits +{hits}, saved tokens +{saved}")
+                    check(peak[0] > 0, f"(v1) {name}: no pool block was shared mid-wave")
+            check_graphs(f"(v1) {name}", after,
+                         {"mixed_launch": "mixed", "decode_chunk": "decode_chunks"})
+            pg = after["paged"]
+            if prefix:
+                print(f"(v1) {name}: prefix_cache {json.dumps(after['prefix_cache'])}; "
+                      f"shadow {json.dumps(after.get('shadow'))}")
+                check(v_head_digest(torch, P, fleet, head_ids) == (p0, blocks, digest0),
+                      f"(v1) {name}: the shared head's blocks changed across the waves")
+                check(fleet._alloc.outstanding == pg["cached_blocks"],
+                      f"(v1) {name}: {fleet._alloc.outstanding} blocks held at idle, "
+                      f"{pg['cached_blocks']} cached")
+                check(("shadow" in after) == ("kv_shadow" not in kw),
+                      f"(v1) {name}: /stats shadow {after.get('shadow')}")
+            check(pg["free_blocks"] + pg["cached_blocks"] == FLEET["kv_pool_blocks"] - 1,
+                  f"(v1) {name}: pool blocks leaked {pg}")
+            # back to back: each waits behind the decode chunks launched
+            # ahead (chunk_lag) for the one before it
+            b2b = []
+            for k in range(V_PINNED[0]):
+                code, r, _ = post(server.port, v_body(head + v_tail(f"b2b {k}", V_PINNED[1])))
+                check(code == 200, f"(v1) {name}: pinned {k} back to back {r}")
+                b2b.append(r["ttft_s"])
+            ttft, toks = [], {}
+            for k, body in enumerate(pinned):
+                v_quiesce(fleet)  # each from an idle fleet, nothing in flight
+                code, r, _ = post(server.port, body)
+                check(code == 200, f"(v1) {name}: pinned {k} {r}")
+                ttft.append(r["ttft_s"])
+                toks[f"pinned {k}"] = r["token_ids"]
+                if prefix:
+                    check(r.get("prefix_cached_tokens") == V_HEAD,
+                          f"(v1) {name}: pinned {k} hit at {r.get('prefix_cached_tokens')}")
+            for i in range(0, len(results), 2):
+                toks[f"wave {i}"] = results[i][1]["token_ids"]
+            runs[name] = dict(wave_tps=statistics.median(tps), waves_tps=tps,
+                              ttft=statistics.median(ttft), ttfts=ttft, tokens=toks,
+                              ttft_b2b=statistics.median(b2b), launches=launches)
+            print(f"(v1) {name}: pinned TTFT, each from an idle fleet, median of {len(ttft)} "
+                  f"{runs[name]['ttft'] * 1e3:.1f} ms ({[round(t * 1e3, 1) for t in ttft]}); "
+                  f"back to back {runs[name]['ttft_b2b'] * 1e3:.1f} ms "
+                  f"({[round(t * 1e3, 1) for t in b2b]})")
+            if name != "prefix cache, shadow on":
+                continue
+            # the hit fleet, idle: the comparisons and the movers' times
+            hit, cold = runs[name], runs["no prefix cache"]
+            print(f"(v1) TTFT of a {V_HEAD}+{V_PINNED[1]}-token greedy request, median "
+                  f"of {V_PINNED[0]}: hit {hit['ttft'] * 1e3:.1f} ms, cold "
+                  f"{cold['ttft'] * 1e3:.1f} ms ({cold['ttft'] / hit['ttft']:.2f}x); waves' "
+                  f"tokens/s, median of {V_WAVES} (each): shadow on {hit['wave_tps']:.2f} "
+                  f"({', '.join(f'{x:.2f}' for x in hit['waves_tps'])}), shadow off "
+                  f"{runs['prefix cache, shadow off']['wave_tps']:.2f} ("
+                  + ", ".join(f"{x:.2f}" for x in runs["prefix cache, shadow off"]["waves_tps"])
+                  + f"), no prefix cache {cold['wave_tps']:.2f} ("
+                  + ", ".join(f"{x:.2f}" for x in cold["waves_tps"]) + f") ({smi})")
+            parts = v_idle_parts("(v1) greedy tokens, hit vs cold:", hit["tokens"],
+                                 cold["tokens"])
+            v_idle_parts("(v1) greedy tokens, shadow on vs off:", hit["tokens"],
+                         runs["prefix cache, shadow off"]["tokens"])
+            hit["parts"] = parts
+            first = next((k for k, at in parts.items() if at is not None), None)
+            if first is not None:
+                kind, i = first.split()
+                body = (pinned if kind == "pinned" else waves[-1])[int(i)]
+                d, p0 = v_delta_logits(torch, P, G, engine, fleet, body["prompt"],
+                                       cold["tokens"][first], parts[first])
+                hit["delta_logits"] = d
+                print(f"(v1) {first} parts at token {parts[first]}: teacher-forced max "
+                      f"|Δlogits| there, head from the cache (depth {p0}) vs the whole "
+                      f"sequence prefilled: {d:.4g}")
+            hit.update(v_capture_and_restore_ms(torch, P, fleet, head_ids, smi))
+        finally:
+            server.shutdown()
+    return runs
+
+
+def v_capture_and_restore_ms(torch, P, fleet, head_ids, smi):
+    """The capture's device ms and bytes per call (an 8-block gather and
+    its copy to pinned memory) and the restore's per 32-block scatter, on
+    the idle fleet's pool (read only; the restore goes into a pool of its
+    own), CUDA events, medians of 5."""
+    import numpy as np
+
+    ids = fleet._bpx.lookup(head_ids)[1]
+    ids8 = torch.tensor(ids[:8], dtype=torch.int32, device=DEVICE)
+    gather, copy = [], []
+    for _ in range(6):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        dev = P.gather_shadow_blocks(fleet.cache, ids8)
+        e1.record()
+        hosts = []
+        for leaf in P.pool_leaves(dev):
+            hosts.append(torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True))
+            hosts[-1].copy_(leaf, non_blocking=True)
+        e2.record()
+        e2.synchronize()
+        gather.append(e0.elapsed_time(e1))
+        copy.append(e1.elapsed_time(e2))
+    nbytes = sum(h.numel() * h.element_size() for h in hosts)
+    check(fleet._shadow.flush(10.0), "(v) flush")
+    found = fleet._shadow.entries_for([tuple(head_ids[: (i + 1) * BLOCK])
+                                       for i in range(V_HEAD // BLOCK)])
+    check(found is not None, "(v) the head's 32 blocks are not in the shadow")
+    entries = [(None, e) for e in found]
+    pool = P.init_pool(fleet.cfg, 40, BLOCK, device=DEVICE)
+    dst = torch.arange(1, 33, dtype=torch.int32, device=DEVICE)
+    restore = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        stacked = []
+        for j, like in enumerate(P.pool_leaves(pool)):
+            t = torch.from_numpy(np.stack([e.leaves[j] for _, e in entries]))
+            if like.dtype == torch.bfloat16:
+                t = t.view(torch.bfloat16)
+            stacked.append(t.pin_memory().to(DEVICE, non_blocking=True))
+        P.restore_shadow_blocks(pool, P.pool_from_leaves(pool, stacked), dst)
+        e1.record()
+        e1.synchronize()
+        restore.append((e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3))
+    for (key, e), b in zip(entries[:2], (1, 2)):
+        for j, leaf in enumerate(P.pool_leaves(pool)):
+            x = leaf[:, b].cpu()
+            if x.dtype == torch.bfloat16:
+                x = x.view(torch.int16)
+            check(np.array_equal(x.numpy(), e.leaves[j]), "(v) a restored block differs")
+    med = statistics.median
+    print(f"(v) capture: {nbytes} bytes per 8-block call ({nbytes // 8} a block); gather "
+          f"{med(gather[1:]):.4f} ms, its copy to pinned memory {med(copy[1:]):.4f} ms "
+          f"(CUDA events, median of 5); restore per 32-block scatter (stack, upload, "
+          f"index_copy_): {med([r[0] for r in restore[1:]]):.4f} ms between events, "
+          f"{med([r[1] for r in restore[1:]]):.3f} ms host wall ({smi})")
+    return dict(capture_bytes=nbytes, gather_ms=med(gather[1:]), copy_ms=med(copy[1:]),
+                restore_ms=med([r[0] for r in restore[1:]]))
+
+
+def phase_v2(torch, engine, fa, pa, Q, smi):
+    """A hit of the bucketed whole-prefill admission: the tail's T>1 chunks
+    run flash_attend over the scratch gathered from the pool; greedy tokens
+    against the same request on a cold bucketed fleet."""
+    L = engine.cfg.n_layers
+    flags = dict(ragged_prefill=False, chunked_prefill=False)
+    head = v_head(1)
+    reg = v_body(head + v_tail("register", 32))
+    body = v_body(head + v_tail("bucketed hit", 100))
+    out = {}
+    for name, prefix in (("hit", 8), ("cold", 0)):
+        eng = v_engine(engine, prefix_cache_entries=prefix, **flags)
+        fleet, server = fleet_server(eng, FLEET)
+        try:
+            check(fleet.warmup()["ok"], f"(v2) {name} warmup")
+            check(post(server.port, reg)[0] == 200, f"(v2) {name}: register")
+            before = wait_idle(server.port)["continuous"]
+            v_quiesce(fleet)  # the registering request's chunks have landed
+            reset_counts(pa, fa, Q)
+            code, r, wall = post(server.port, body)
+            after = wait_idle(server.port)["continuous"]
+            launches = read_counts(pa, fa, Q)
+            chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+            print(f"(v2) bucketed {name}: HTTP {code} prefix_cached_tokens="
+                  f"{r.get('prefix_cached_tokens')} prefill_chunks={r.get('prefill_chunks')} "
+                  f"ttft_s={r.get('ttft_s')} wall_s={wall:.3f}; kernel launches "
+                  f"{json.dumps(launches)}")
+            check(code == 200, f"(v2) {name}: {r}")
+            check(launches["flash_attend"] == L * r["prefill_chunks"] > 0,
+                  f"(v2) {name}: flash_attend {launches['flash_attend']} for "
+                  f"{r['prefill_chunks']} T>1 chunks")
+            check(launches["paged_flash_attend"] == L * FLEET["chunk_steps"] * chunks,
+                  f"(v2) {name}: paged_flash_attend {launches['paged_flash_attend']}")
+            if prefix:
+                check(r.get("prefix_cached_tokens") == V_HEAD,
+                      f"(v2) the bucketed hit at {r.get('prefix_cached_tokens')}")
+            out[name] = dict(tokens=r["token_ids"], launches=launches,
+                             ttft=r["ttft_s"], chunks=r["prefill_chunks"])
+        finally:
+            server.shutdown()
+    at = parts_at(out["hit"]["tokens"], out["cold"]["tokens"])
+    print(f"(v2) bucketed hit vs cold greedy tokens: "
+          + ("identical" if at is None else f"part at token {at}")
+          + f"; prefill chunks {out['hit']['chunks']} vs {out['cold']['chunks']}, TTFT "
+          f"{out['hit']['ttft']} vs {out['cold']['ttft']} s ({smi})")
+    return dict(parts_at=at, **{k: v["launches"] for k, v in out.items()})
+
+
+def phase_v3(torch, engine, smi):
+    """Warm against cold crash recovery mid-wave: a decode_launch fault on a
+    wave of 4 whose prompts the fleet served once before, shadow on and off
+    on the raw pool, then shadow on over an int8 pool."""
+    from distributed_llm_inference_tpu_torch.utils import faults
+
+    head = v_head(2)
+    bodies = [v_body(head + v_tail(f"crash {i}", n), greedy=i % 2 == 0)
+              for i, n in enumerate(V_CRASH_TAILS)]
+    rows = {}
+    peng = v_engine(engine, prefix_cache_entries=8)
+    for name, eng, kw in (("warm raw", peng, {}),
+                          ("cold raw", peng, {"kv_shadow": False}),
+                          ("warm int8", None, {})):
+        if eng is None:
+            from distributed_llm_inference_tpu_torch.config import EngineConfig
+            from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+            eng = create_engine(engine.cfg, params=engine.backend.params, device=DEVICE,
+                                kv_quant="int8", engine_cfg=EngineConfig(
+                                    prefill_buckets=PREFILL_BUCKETS, prefix_cache_entries=8))
+        fleet, server = fleet_server(eng, FLEET, **kw)
+        spy = FleetSpy(fleet)
+        try:
+            check(fleet.warmup()["ok"], f"(v3) {name} warmup")
+            for _ in range(2):  # the first serve fills the index and the shadow
+                ref = [post(server.port, b) for b in bodies]
+                check(all(c == 200 for c, _, _ in ref), f"(v3) {name}: {ref}")
+            if fleet._shadow is not None:
+                check(fleet._shadow.flush(10.0), f"(v3) {name}: flush")
+            st0 = wait_idle(server.port)["continuous"]
+            rec0 = v_counter(eng, "dli_recovery_tokens_recomputed_total")
+            res0 = v_counter(eng, "dli_shadow_restored_blocks_total")
+            spy.reset()
+            v_quiesce(fleet)
+            faults.arm([faults.FaultRule("decode_launch", "transient", on_call=5)])
+            import threading
+
+            got = [None] * len(bodies)
+            try:
+                threads = [threading.Thread(target=lambda i=i: got.__setitem__(
+                    i, post(server.port, bodies[i]))) for i in range(len(bodies))]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                wave_s = time.perf_counter() - t0
+            finally:
+                faults.disarm()
+            st = wait_idle(server.port)["continuous"]
+            restarts = st["supervisor"]["restarts"] - st0["supervisor"]["restarts"]
+            recomputed = v_counter(eng, "dli_recovery_tokens_recomputed_total") - rec0
+            restored = v_counter(eng, "dli_shadow_restored_blocks_total") - res0
+            crash_ms = ((spy.crashes[0][1] - spy.crashes[0][0]) * 1e3
+                        if spy.crashes and spy.crashes[0][1] else None)
+            for i, (code, r, _) in enumerate(got):
+                check(code == 200 and r.get("status") == "success", f"(v3) {name} {i}: {r}")
+                pre = spy.tokens.get(bodies[i]["prompt"], [])
+                check(r["token_ids"][:len(pre)] == pre,
+                      f"(v3) {name} {i}: the {len(pre)} tokens fetched before the crash "
+                      f"changed in the envelope")
+            parts = [parts_at(got[i][1]["token_ids"], ref[i][1]["token_ids"])
+                     for i in range(0, len(bodies), 2)]
+            print(f"(v3) {name}: {len(bodies)} requests answered in {wave_s:.3f} s after "
+                  f"{restarts} restart; restored blocks {restored:g}, recomputed tokens "
+                  f"{recomputed:g}; crash to the next launch "
+                  + ("n/a" if crash_ms is None else f"{crash_ms:.1f} ms")
+                  + f"; tokens fetched before the crash "
+                  f"{[len(spy.tokens.get(b['prompt'], [])) for b in bodies]}, equal; greedy "
+                  f"vs the unfaulted serve: {parts}; graphs {json.dumps(st['graphs'])} ({smi})")
+            check(restarts == 1, f"(v3) {name}: {restarts} restarts")
+            check(all(g["captures"] == 1 for g in st["graphs"].values()),
+                  f"(v3) {name}: graphs recaptured {st['graphs']}")
+            pg = st["paged"]
+            check(pg["free_blocks"] + pg["cached_blocks"] == FLEET["kv_pool_blocks"] - 1,
+                  f"(v3) {name}: pool blocks leaked {pg}")
+            check((restored > 0) == name.startswith("warm"),
+                  f"(v3) {name}: {restored} blocks restored")
+            rows[name] = dict(restored=restored, recomputed=recomputed, crash_ms=crash_ms,
+                              wave_s=wave_s, parts=parts)
+        finally:
+            faults.disarm()
+            server.shutdown()
+    check(rows["warm raw"]["recomputed"] < rows["cold raw"]["recomputed"],
+          f"(v3) warm recomputed {rows['warm raw']['recomputed']} tokens, cold "
+          f"{rows['cold raw']['recomputed']}")
+    return rows
+
+
+def phase_v4(torch, engine, pa, fa, Q, smi):
+    """(s)'s contended pair with the prefix cache and the shadow: B preempts
+    A, A's "swap" resume restores its shadowed blocks. A's stream against
+    its run alone (a hit too: its head registered by an earlier run)."""
+    import threading
+
+    eng = v_engine(engine, prefix_cache_entries=8)
+    fleet, server = fleet_server(eng, PREEMPT_FLEET)
+    spy = FleetSpy(fleet)
+    try:
+        check(fleet.warmup()["ok"], "(v4) fleet warmup")
+        body_a = {"prompt": fleet_prompt(20, PREEMPT_A[0]), "max_tokens": PREEMPT_A[1],
+                  "greedy": True, "chat": False}
+        body_b = {"prompt": fleet_prompt(21, PREEMPT_B[0]), "max_tokens": PREEMPT_B[1],
+                  "greedy": True, "chat": False}
+        alone = {}
+        for name, body in (("A", body_a), ("B", body_b)):
+            for _ in range(2):  # the second run alone is a hit, as A's in the pair
+                code, r, wall = post(server.port, body)
+                check(code == 200, f"(v4) {name} alone: {r}")
+            alone[name] = r["token_ids"]
+            print(f"(v4) {name} alone, a hit at {r.get('prefix_cached_tokens')}: "
+                  f"tokens={r['tokens_generated']} wall_s={wall:.3f}")
+        wait_idle(server.port)
+        restored0 = v_counter(eng, "dli_shadow_restored_blocks_total")
+        flights0 = len(eng.flight.dump()["events"])
+        spy.reset()
+        out = {}
+
+        def run(name, body):
+            out[name] = post(server.port, body)
+
+        t0 = time.perf_counter()
+        ta = threading.Thread(target=run, args=("A", body_a))
+        ta.start()
+        while not any(r is not None and r.first_id is not None and r.tokens
+                      for r in fleet._assignment):
+            check(time.perf_counter() - t0 < 120, "(v4) A never started decoding")
+            time.sleep(0.001)
+        tb = threading.Thread(target=run, args=("B", body_b))
+        tb.start()
+        ta.join()
+        tb.join()
+        wall = time.perf_counter() - t0
+        after = wait_idle(server.port)["continuous"]
+        restored = v_counter(eng, "dli_shadow_restored_blocks_total") - restored0
+        events = eng.flight.dump()["events"][flights0:]
+        swaps = [e.get("swap") for e in events if e["kind"] == "preempt"]
+        (ca, ra, _), (cb, rb, _) = out["A"], out["B"]
+        check(ca == 200 and cb == 200, f"(v4) the pair: {ra} {rb}")
+        print(f"(v4) A: preempted={ra.get('preempted')} recovered={ra.get('recovered')} "
+              f"prefix_cached_tokens={ra.get('prefix_cached_tokens')}; B: "
+              f"preempted={rb.get('preempted')}; preempt events swap={swaps}; restored "
+              f"blocks in the pair {restored:g}; pair wall {wall:.3f} s ({smi})")
+        check(ra.get("preempted", 0) >= 1, f"(v4) A was not preempted: {ra}")
+        check(restored > 0, "(v4) the swap resume restored no block")
+        pg = after["paged"]
+        check(pg["free_blocks"] + pg["cached_blocks"] == PREEMPT_FLEET["kv_pool_blocks"] - 1,
+              f"(v4) pool blocks leaked {pg}")
+        n_pre = spy.salvaged.get(body_a["prompt"])
+        check(n_pre is not None and n_pre >= 1, f"(v4) A had no token before ({n_pre})")
+        at_a = check_identity("(v4) A", ra["token_ids"], alone["A"], n_pre)
+        at_b = parts_at(rb["token_ids"], alone["B"])
+        print("(v4) B vs B alone: " + ("identical" if at_b is None else f"part at {at_b}"))
+        return dict(restored=restored, parts_a=at_a, parts_b=at_b, salvaged_a=n_pre,
+                    swaps=swaps, wall_s=wall)
+    finally:
+        server.shutdown()
+
+
+def phase_v5(torch, engine, smi):
+    """Persistence and tiers: a drain writes restore_dir and a second fleet
+    started on it serves its first request as a hit with the pre-drain hit's
+    tokens; a small host tier demotes a chain to the disk tier, and an
+    admission promotes it back (a tier_promote event)."""
+    import os
+    import shutil
+
+    shutil.rmtree(V_DIR, ignore_errors=True)
+    head = v_head(3)
+    body = v_body(head + v_tail("persisted", 32))
+    eng = v_engine(engine, prefix_cache_entries=8)
+    fleet, server = fleet_server(eng, FLEET, restore_dir=f"{V_DIR}/restore")
+    try:
+        check(fleet.warmup()["ok"], "(v5) warmup")
+        for _ in range(2):  # the second is a hit: the successor's reference
+            code, first, _ = post(server.port, body)
+            check(code == 200, f"(v5) {first}")
+        check(fleet._shadow.flush(10.0), "(v5) flush")
+        t0 = time.perf_counter()
+        check(fleet.drain(deadline_s=30.0), "(v5) drain")
+        drain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+    saved = os.path.getsize(f"{V_DIR}/restore/shadow.npz")
+    fleet, server = fleet_server(eng, FLEET, restore_dir=f"{V_DIR}/restore")
+    try:
+        t0 = time.perf_counter()
+        while fleet.shadow_restored_total == 0 and time.perf_counter() - t0 < 30:
+            time.sleep(0.005)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        code, r, _ = post(server.port, body)
+        print(f"(v5) drain {drain_ms:.1f} ms wrote shadow.npz of {saved} bytes; the "
+              f"successor restored {fleet.shadow_restored_total} blocks (seen {restore_ms:.1f} "
+              f"ms after start) and served its first request at depth "
+              f"{r.get('prefix_cached_tokens')}: tokens "
+              + ("identical" if r.get("token_ids") == first["token_ids"]
+                 else f"part at {parts_at(r.get('token_ids', []), first['token_ids'])}")
+              + " to the pre-drain hit")
+        check(code == 200 and fleet.shadow_restored_total > 0, f"(v5) successor: {r}")
+        check(r.get("prefix_cached_tokens", 0) == first.get("prefix_cached_tokens") > 0,
+              f"(v5) the successor's first request hit at {r.get('prefix_cached_tokens')}")
+        check(r["token_ids"] == first["token_ids"],
+              "(v5) the successor's tokens differ from the pre-drain hit's")
+    finally:
+        server.shutdown()
+    # the disk tier: a 64-block host tier cannot hold two 34-block chains
+    deng = v_engine(engine, prefix_cache_entries=8, kv_disk_dir=f"{V_DIR}/kvdisk",
+                    kv_shadow_blocks=V_SHADOW_BLOCKS)
+    fleet, server = fleet_server(deng, FLEET)
+    try:
+        check(fleet.warmup()["ok"], "(v5) disk warmup")
+        one, two = v_body(v_head(4) + v_tail("one", 32)), v_body(v_head(5) + v_tail("two", 32))
+        for _ in range(2):
+            code, ref, _ = post(server.port, one)
+        check(post(server.port, two)[0] == 200, "(v5) the second chain")
+        check(fleet._shadow.flush(10.0), "(v5) flush")
+        wait_idle(server.port)
+        s = fleet._shadow.stats()
+        check(s["demoted"] > 0 and s["disk_blocks"] > 0, f"(v5) nothing demoted: {s}")
+        fleet._bpx.evict(10**9)  # the idle pool drops its chains: only the tiers hold them
+        flights0 = len(deng.flight.dump()["events"])
+        code, r, wall = post(server.port, one)
+        events = [e for e in deng.flight.dump()["events"][flights0:]
+                  if e["kind"] == "tier_promote"]
+        s = fleet._shadow.stats()
+        print(f"(v5) disk tier: demoted {s['demoted']}, {s['disk_blocks']} chunk files "
+              f"({s['disk_bytes']} bytes); the re-admission promoted "
+              f"{r.get('kv_promoted_blocks')} blocks (disk hits {s['disk_hits']}) and hit "
+              f"at {r.get('prefix_cached_tokens')}, wall {wall:.3f} s, events {events}; "
+              "tokens " + ("identical" if r.get("token_ids") == ref["token_ids"] else
+                           f"part at {parts_at(r.get('token_ids', []), ref['token_ids'])}")
+              + f" to the hit before the demotion ({smi})")
+        check(code == 200 and r.get("kv_promoted_blocks", 0) > 0 and events,
+              f"(v5) no promotion from the disk tier: {r}")
+        check(s["disk_hits"] > 0, f"(v5) the promotion read no chunk file: {s}")
+        check(r["token_ids"] == ref["token_ids"],
+              "(v5) the promoted chain's tokens differ from the hit before the demotion")
+    finally:
+        server.shutdown()
+        shutil.rmtree(V_DIR, ignore_errors=True)
+
+
+def phase_v_sync(torch, engine, P, G):
+    """One mixed launch plus the capture it triggers (the gather, the copy to
+    pinned memory behind an event) under set_sync_debug_mode("error"); the
+    copier thread lands the blocks' bytes."""
+    import numpy as np
+
+    from distributed_llm_inference_tpu_torch.engine.shadow import ShadowStore
+
+    ops, _ = fleet_operands(torch, engine.cfg, P, G)
+    params = engine.backend.params
+    store = ShadowStore(BLOCK, max_blocks=64)
+    rows = ops["table"][FLEET["n_slots"] - 1, :4].tolist()  # the landing prompt's blocks
+    keys = [tuple(range(BLOCK * (i + 1))) for i in range(3)]
+    warm_ids = torch.from_numpy(np.asarray(rows * 2, np.int32)).pin_memory()
+    store.put_async([(0,) * BLOCK], P.pool_leaves(P.gather_shadow_blocks(
+        ops["pool"], warm_ids.to(DEVICE, non_blocking=True))), 0)
+    check(store.flush(10.0), "(v) sync check: warm flush")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed, state, sparams, pool = P.mixed_step_ragged(engine.cfg, params, **ops)
+        ids = torch.from_numpy(np.asarray(rows[:3] + [rows[2]] * 5, np.int32))
+        dev = P.gather_shadow_blocks(pool, ids.pin_memory().to(DEVICE, non_blocking=True))
+        ok = store.put_async(keys, P.pool_leaves(dev), 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    try:
+        check(ok and store.flush(10.0), "(v) sync check: the capture did not land")
+        entries = store.entries_for(keys)
+        torch.cuda.synchronize()
+        for j, leaf in enumerate(P.pool_leaves(pool)):
+            for e, b in zip(entries, rows[:3]):
+                x = leaf[:, b].cpu()
+                if x.dtype == torch.bfloat16:
+                    x = x.view(torch.int16)
+                check(np.array_equal(x.numpy(), e.leaves[j]), "(v) a captured block differs")
+    finally:
+        store.close()
+    print("(v) one mixed launch and the capture it triggers (a 3-block gather, its "
+          "copy to pinned memory behind an event) under set_sync_debug_mode('error'): "
+          "no host sync; the copier landed the blocks' exact bytes")
+
+
+def phase_v(torch, engine, pa, fa, Q, P, G, smi):
+    """The block-prefix cache and the KV shadow on the paged fleet."""
+    t0 = time.time()
+    v1 = phase_v1(torch, engine, pa, fa, Q, P, G, smi)
+    phase_v_sync(torch, engine, P, G)
+    v2 = phase_v2(torch, engine, fa, pa, Q, smi)
+    v3 = phase_v3(torch, engine, smi)
+    v4 = phase_v4(torch, engine, pa, fa, Q, smi)
+    phase_v5(torch, engine, smi)
+    print(f"(v) took {time.time() - t0:.1f} s")
+    print("(v) " + json.dumps({"prefix_and_shadow": {
+        "v1": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in v1.items()},
+        "v2": v2, "v3": v3, "v4": v4}}))
+
+
 def main(argv) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["b", "f", "r", "j", "s"],
+    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -2625,7 +3382,9 @@ def main(argv) -> int:
                          "(j), with the kernel's build log: a quick check of a "
                          "flash_attend, paged decode, ragged or q4 change; or "
                          "(s), (t) and (u) on the raw engine (s): a quick check "
-                         "of the fleet's preemption, supervisor and health sweep")
+                         "of the fleet's preemption, supervisor and health sweep; "
+                         "or (v) on the raw engine (v): the block-prefix cache "
+                         "and the KV shadow")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -2696,7 +3455,7 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
-    if args.only != "s":
+    if args.only not in ("s", "v"):
         # (b) the kernel against its twin
         phase_b(torch, timer, fa)
 
@@ -2714,6 +3473,12 @@ def main(argv) -> int:
         phase_t(torch, engine, pa, fa, Q, faults, smi)
         phase_u(torch, engine, smi)
         print(f"(u) total {time.time() - t_start:.1f} s")
+        return 0
+    if args.only == "v":
+        print(f"(v) {MODEL} bf16, random weights (seed 0), built in "
+              f"{time.time() - t0:.1f} s")
+        phase_v(torch, engine, pa, fa, Q, P, G, smi)
+        print(f"(v) total {time.time() - t_start:.1f} s")
         return 0
     cfg = engine.cfg
     print(f"(c) {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
@@ -2788,6 +3553,10 @@ def main(argv) -> int:
         "s": {k: preempt[k] for k in ("ragged_launches", "decode_chunks", "launches")},
         "t": {k: supervisor[k] for k in ("ragged_launches", "decode_chunks", "launches")},
     }}))
+
+    # (v) the block-prefix cache and the KV shadow on the paged fleet
+    phase_v(torch, engine, pa, fa, Q, P, G, smi)
+    print(f"(v) total {time.time() - t_start:.1f} s")
 
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)

@@ -238,7 +238,11 @@ class EngineConfig:
     prefill_buckets: tuple = (64, 128, 256, 512, 1024, 2048)
     # Per-request wall-clock deadline in seconds (None = unlimited).
     request_deadline_s: Optional[float] = None
-    # Prefix KV cache: not ported yet (the engines reject > 0).
+    # Prefix KV reuse. > 0 gives the paged fleet its block-prefix index
+    # (engine/block_prefix.py): a hit maps a cached prompt head's physical
+    # blocks into the request's table, refcounted, and prefills only the
+    # tail. The solo engine's and the dense fleet's snapshot cache
+    # (engine/prefix.py) is not ported: they refuse > 0 by name.
     prefix_cache_entries: int = 0
     # Runtime LoRA adapter pages: not ported yet (the engine rejects > 0).
     adapter_slots: int = 0
@@ -269,14 +273,50 @@ class EngineConfig:
     )
     # Class assigned when a request carries no slo_class field.
     slo_default_class: str = "standard"
+    # Warm-state recovery (engine/shadow.py): host-side crash-consistent
+    # shadowing of filled paged-KV blocks, so supervisor restarts
+    # re-prefill only each salvaged request's partial tail block and a
+    # graceful drain can persist the block-prefix cache for a warm
+    # rolling restart (--restore-dir). Paged fleets with a block-prefix
+    # index only (prefix_cache_entries > 0 — restore re-enters through
+    # the ordinary block-prefix hit machinery); the dense fleet has no
+    # immutable-block contract to shadow.
+    kv_shadow: bool = True
+    # Host-RAM bound of the shadow store, in blocks (LRU with cascade
+    # eviction, like the block-prefix index). 0 = auto: twice the pool,
+    # so a full pool's worth of warm chains survives one generation of
+    # churn.
+    kv_shadow_blocks: int = 0
+    # Cross-replica KV fabric (the JAX serving/kv_fabric.py): accepted
+    # with the JAX default, but the port serves no fabric yet (ROADMAP.md
+    # "KV fabric"): the fleet reports fabric_serving false, the /kv
+    # routes answer 501 and a router's X-KV-Transfer-* hint is ignored,
+    # which is the JAX ladder's own outcome when a fetch fails (a local
+    # prefill with the same tokens).
+    kv_fabric: bool = True
+    # Hard deadline on one fabric fetch (unused until the fabric is
+    # ported).
+    kv_fabric_timeout_s: float = 5.0
+    # Disk tier of the KV cache hierarchy: a directory of persisted
+    # parent-chained chunk files (chunk_<digest>.npz) that LRU-evicted
+    # host-shadow entries DEMOTE into instead of dropping, and every
+    # shadow read surface (block-prefix restore planning, warm recovery,
+    # preemption swap) PROMOTES hits back out of. None (the default)
+    # disables tier 2: eviction drops.
+    kv_disk_dir: Optional[str] = None
+    # Disk-tier bound, in blocks (chunk files; LRU with the same cascade
+    # discipline as the host tier). 0 = auto: 8x the host tier.
+    kv_disk_blocks: int = 0
     # KV preemption under pool pressure (engine/continuous.py
     # _preempt_for): when the pool cannot place an admission, the fleet
     # evicts the lowest-SLO-weight / youngest decoding request and
     # re-admits it later as a continuation prefill (prompt + its fetched
     # tokens), greedy bit-identical.
-    #   "swap"      — the JAX default; with no KV shadow (not ported: the
-    #                 fleet's kv_shadow raises) it drops and recomputes,
-    #                 exactly as the JAX fleet does without a shadow;
+    #   "swap"      — the JAX default: the victim's filled blocks go to the
+    #                 host shadow first (synchronous flush through
+    #                 engine/shadow.py), so its resume restores them in
+    #                 one scatter and re-prefills only the tail; with no
+    #                 shadow it drops and recomputes;
     #   "recompute" — always drop the KV and re-prefill on resume;
     #   "off"       — never preempt: admission waits for a release.
     # The fleet validates it (ValueError for any other value).
@@ -299,6 +339,10 @@ class EngineConfig:
     tenant_max_queue_share: float = 0.5
 
     def __post_init__(self):
+        if self.kv_disk_blocks < 0:
+            raise ValueError(
+                f"kv_disk_blocks must be >= 0, got {self.kv_disk_blocks}"
+            )
         if not (0.0 < self.tenant_max_queue_share <= 1.0):
             raise ValueError(
                 f"tenant_max_queue_share must be in (0, 1], got "

@@ -1,0 +1,412 @@
+"""Block-level prefix sharing for the paged fleet: a chunk-hash index
+over REFCOUNTED pool blocks (vLLM-style prefix caching). The JAX
+package's engine/block_prefix.py, copied: it imports no jax, and the
+port keeps its own copy over its own BlockAllocator (engine/paged.py).
+
+The snapshot path (engine/prefix.py) serves a shared prompt prefix by
+paying for it twice in HBM: a dense snapshot at store time, a splice into
+the dense scratch at hit time, and then a full scatter of EVERY block
+into the pool. Here the pool itself is the cache: once a request's
+prefill scatters a FULL prompt block into the pool, that block's content
+is immutable (decode and tail-prefill writes only ever land at positions
+>= the prompt's block-floored shared depth — see ARCHITECTURE.md "Block
+sharing"), so a later request whose prompt starts with the same tokens
+maps the same physical block straight into its block table. Zero splice,
+zero per-hit copy of the shared head; only the tail past the deepest
+shared full block is prefilled into fresh private blocks (the partial
+last block is never shared — its tokens are recomputed into the
+request's own block, the "tail copy-out" rule).
+
+Index structure: one entry per cached block, keyed by
+(parent physical block id, this block's token chunk). A chain is a walk
+from the root: key_0 = (ROOT, ids[:bs]) -> block b0, key_1 = (b0,
+ids[bs:2bs]) -> b1, ... Keying on the PARENT BLOCK ID instead of a
+rolling content hash makes matches exact (dict equality over the real
+tokens — no hash-collision wrong-KV hazard) while keeping entries O(bs)
+each; stale child entries cannot survive a parent's eviction because
+eviction cascades through the subtree (see evict()).
+
+Lifecycle (refcounts live in paged.BlockAllocator):
+  * register() after a successful admission increfs each newly cached
+    block — the index is a first-class holder, so completed requests'
+    prefix blocks stay resident (decref'd to 1, not freed).
+  * lookup() maps a hit's shared blocks into the new request's table;
+    the ENGINE increfs them (one holder per live table).
+  * evict() reclaims LRU chains whose blocks have refcount 1 — held by
+    nobody but this index. A chain mapped by any live table is never
+    reclaimed; eviction cascades to the chain's descendants (which are
+    provably also unreferenced: a live request mapping a child block
+    always holds the parent too).
+
+Single-owner discipline: lookup/mark/register/evict run only on the
+continuous engine's worker thread; the lock exists because stats() serves
+/stats//metrics from other threads — same split as PrefixCache.
+
+Planner interface: lookup(ids) -> (p0, entry, key) and mark(key, hit)
+match engine/prefix.PrefixCache, so engine.InferenceEngine._prefix_plan
+drives either store (entry = shared physical block ids here, a KV
+snapshot there).
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import threading
+from typing import Optional
+
+ROOT = -1  # parent id of a prompt's first block (base-model chains)
+
+
+def _root_for(adapter) -> object:
+    """Chain root for a (possibly adapter-serving) prompt. The adapter
+    changes every KV byte its prompt writes, so adapter chains hang off
+    a per-adapter sentinel root instead of ROOT — two adapters (or an
+    adapter and the base) never match each other's chains even for
+    IDENTICAL prompts. Roots are compared by dict equality like any
+    parent id; an int parent is always a physical block, so sentinel
+    tuples can never collide with real chain interiors."""
+    return ("adapter", adapter) if adapter is not None else ROOT
+
+
+def chunk_digests(seq, chunk: int, max_chunks: int = 64) -> list:
+    """Progressive chain digests of `seq`'s head at `chunk` granularity —
+    the affinity-key export the router tier (serving/router.py) uses.
+
+    digest[i] covers chunks 0..i with the SAME parent-chained structure
+    as the index keys above (each digest folds the previous one in, so
+    two sequences share digest[i] iff their first (i+1)*chunk items are
+    identical — a chain, not a bag of chunks). Only FULL chunks digest,
+    mirroring lookup(): a partial tail block is never shared, so it must
+    never pin affinity either.
+
+    `seq` may be token ids (engine-side, chunk = block_size) or
+    bytes/str (the router hashes the raw prompt head — it has no
+    tokenizer, so it works at a byte granularity approximating
+    block_size * bytes-per-token). Digests are hex strings, safe as dict
+    keys and log fields. Collisions are a ROUTING concern only (a wrong
+    replica pick costs a cache-cold prefill, never wrong KV), so a
+    truncated sha1 is plenty.
+    """
+    if chunk < 1:
+        raise ValueError("chunk_digests needs chunk >= 1")
+    if isinstance(seq, str):
+        seq = seq.encode("utf-8")
+    out: list = []
+    h = hashlib.sha1(b"dli-chunk-chain")
+    for i in range(min(len(seq) // chunk, max_chunks)):
+        part = seq[i * chunk : (i + 1) * chunk]
+        if isinstance(part, bytes):
+            h.update(part)
+        else:
+            h.update(",".join(str(int(t)) for t in part).encode())
+        out.append(h.hexdigest()[:20])
+    return out
+
+
+class BlockPrefixIndex:
+    """Chunk-keyed index of cached block chains over a BlockAllocator.
+
+    registry (utils/metrics.MetricsRegistry, optional): reuses the
+    `dli_prefix_cache_{hits,misses,evictions}_total` / `_entries`
+    families under scope="paged" (entries = cached BLOCKS here), plus
+    `dli_prefix_tail_copies_total` (hit admissions that prefilled a
+    private tail past the mapped head) and
+    `dli_prefix_dedup_saved_tokens_total` (prompt tokens served by
+    mapping instead of prefill+scatter).
+    """
+
+    def __init__(self, alloc, block_size: int, registry=None):
+        if block_size < 1:
+            raise ValueError("block prefix index needs block_size >= 1")
+        self._alloc = alloc
+        self.block_size = int(block_size)
+        # planner-protocol granularity (engine._prefix_plan degrades the
+        # reuse depth in steps of `chunk` when the deepest offset leaves
+        # a tail no prefill bucket fits)
+        self.chunk = self.block_size
+        # key = (parent block id, chunk token tuple) -> physical block id;
+        # insertion order is the LRU order (mark()/register() promote)
+        self._entries: "collections.OrderedDict[tuple, int]" = (
+            collections.OrderedDict()
+        )
+        self._children: dict = {}  # parent block id -> set of child keys
+        self._block_key: dict = {}  # cached block id -> its entry key
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.saved_tokens = 0
+        self._m_hits = self._m_misses = self._m_evictions = None
+        self._m_entries = self._m_tail = self._m_saved = None
+        if registry is not None:
+            self._m_hits = registry.counter(
+                "dli_prefix_cache_hits_total",
+                "prefix-cache hits (tail actually planned and spliced)",
+                ("scope",),
+            ).labels(scope="paged")
+            self._m_misses = registry.counter(
+                "dli_prefix_cache_misses_total", "prefix-cache misses",
+                ("scope",),
+            ).labels(scope="paged")
+            self._m_evictions = registry.counter(
+                "dli_prefix_cache_evictions_total",
+                "prefix snapshots evicted by the LRU bound", ("scope",),
+            ).labels(scope="paged")
+            self._m_entries = registry.gauge(
+                "dli_prefix_cache_entries", "resident prefix snapshots",
+                ("scope",),
+            ).labels(scope="paged")
+            self._m_tail = registry.counter(
+                "dli_prefix_tail_copies_total",
+                "prefix-hit admissions that prefilled a private tail "
+                "past the mapped shared head",
+            ).labels()
+            self._m_saved = registry.counter(
+                "dli_prefix_dedup_saved_tokens_total",
+                "prompt tokens served by mapping shared blocks instead "
+                "of prefilling them",
+            ).labels()
+
+    # -- planner interface (engine._prefix_plan) ----------------------------
+    def lookup(self, ids: list, adapter=None) -> tuple[int, Optional[list],
+                                                       Optional[tuple]]:
+        """(p0, shared block ids, key) for the deepest cached chain whose
+        full blocks token-match the prompt; (0, None, None) on miss. Pure
+        — no counters, no LRU promotion, no refcounts: the engine increfs
+        the returned blocks once it commits to mapping them, and
+        _prefix_plan calls mark() on the PLANNED outcome (a hit that fell
+        back cold must not count — and must not hold references).
+
+        adapter: runtime adapter name — the walk starts at that adapter's
+        own root (_root_for), so content keys are (adapter, chain), never
+        chain alone (the adapter changes the KV).
+
+        Depth is capped to leave at least one tail token to prefill (the
+        sampling chunk needs a real token), so a prompt that IS a cached
+        chain still decodes — its last block is recomputed, not mapped.
+        """
+        bs = self.block_size
+        ids_t = tuple(ids)
+        cap = (len(ids_t) - 1) // bs  # full blocks usable after the cap
+        blocks: list = []
+        keys: list = []
+        parent = _root_for(adapter)
+        with self._lock:
+            for i in range(cap):
+                key = (parent, ids_t[i * bs : (i + 1) * bs])
+                b = self._entries.get(key)
+                if b is None:
+                    break
+                blocks.append(b)
+                keys.append(key)
+                parent = b
+        if not blocks:
+            return 0, None, None
+        return len(blocks) * bs, blocks, tuple(keys)
+
+    def mark(self, key: Optional[tuple], hit: bool, depth: int = 0) -> None:
+        """Record the request outcome; a REAL hit (tail planned and
+        admitted against the mapped head) promotes the whole chain to MRU
+        and counts the dedup'd tokens + the tail copy-out. depth is the
+        PLANNED reuse offset — bucket limits may have degraded it below
+        the full chain (engine._prefix_plan), and only the mapped tokens
+        count as saved."""
+        saved = 0
+        with self._lock:
+            if hit:
+                self.hits += 1
+                for k in key or ():
+                    if k in self._entries:
+                        self._entries.move_to_end(k)
+                saved = (
+                    depth if depth else len(key or ()) * self.block_size
+                )
+                self.saved_tokens += saved
+            else:
+                self.misses += 1
+        m = self._m_hits if hit else self._m_misses
+        if m is not None:
+            m.inc()
+        if hit and self._m_tail is not None:
+            self._m_tail.inc()
+            self._m_saved.inc(saved)
+
+    # -- cache mutation (worker thread) --------------------------------------
+    def register(self, ids: list, prompt_len: int, row_blocks: list,
+                 adapter=None) -> int:
+        """Index the admitted prompt's FULL blocks (positions below
+        prompt_len // bs * bs — complete, immutable once the insert
+        scatter lands). Blocks already cached (the mapped shared head, or
+        a chain another request registered) are promoted, not re-added;
+        each newly cached block gains the index's own reference. Adapter
+        chains register under their adapter's root (see lookup). Returns
+        the number of newly cached blocks."""
+        bs = self.block_size
+        n_full = prompt_len // bs
+        parent = _root_for(adapter)
+        new = 0
+        with self._lock:
+            for i in range(n_full):
+                key = (parent, tuple(ids[i * bs : (i + 1) * bs]))
+                b = self._entries.get(key)
+                if b is not None:
+                    self._entries.move_to_end(key)
+                    parent = b
+                    continue
+                b = int(row_blocks[i])
+                if b in self._block_key:
+                    # a block can hold at most one entry (free-listed
+                    # blocks are never cached; eviction removes the entry
+                    # before the block can recycle) — defensive skip
+                    parent = b
+                    continue
+                self._entries[key] = b
+                self._block_key[b] = key
+                self._children.setdefault(parent, set()).add(key)
+                self._alloc.incref([b])
+                new += 1
+                parent = b
+            n_entries = len(self._entries)
+        if self._m_entries is not None:
+            self._m_entries.set(n_entries)
+        return new
+
+    def import_chain(self, ids: list, row_blocks: list) -> int:
+        """Register a RESTORED chain of already-filled pool blocks (the
+        warm-recovery path, engine/shadow.py): the caller allocated the
+        blocks and scattered their shadowed KV back into the pool, so
+        they satisfy the same filled-and-immutable contract register()
+        relies on. Thin wrapper over register()'s dedup/incref walk —
+        whole blocks only (row_blocks[i] holds ids[i*bs:(i+1)*bs]).
+        Returns the number of newly cached blocks."""
+        if len(row_blocks) * self.block_size > len(ids):
+            raise ValueError(
+                f"import_chain: {len(row_blocks)} blocks of "
+                f"{self.block_size} exceed the {len(ids)}-token chain"
+            )
+        return self.register(
+            ids, len(row_blocks) * self.block_size, row_blocks
+        )
+
+    def export_chains(self) -> list:
+        """Every cached chain as token-chunk lists, LRU->MRU by chain
+        tip — [(chunk tuple, ...), ...], one entry per LEAF block (a
+        chain tip no other entry extends). The persist path
+        (engine/shadow.py save ordering) and tests use it; physical
+        block ids deliberately do NOT appear — they are meaningless
+        across a pool rebuild, which is the whole point of the
+        content-keyed shadow.
+
+        Adapter-rooted chains are deliberately EXCLUDED: adapter KV is
+        never shadow-captured (the shadow store is content-keyed by
+        tokens alone, and adapter KV under base keys would be wrong KV
+        on restore), so exporting their chains would persist orderings
+        with no backing data."""
+        with self._lock:
+            parents_with_children = {k[0] for k in self._entries}
+            chains = []
+            for key, b in self._entries.items():
+                if b in parents_with_children:
+                    continue  # interior block: some entry extends it
+                chunks = []
+                k = key
+                while True:
+                    chunks.append(k[1])
+                    if k[0] == ROOT:
+                        break
+                    if not isinstance(k[0], int):
+                        # adapter sentinel root: drop the whole chain
+                        chunks = None
+                        break
+                    k = self._block_key[k[0]]
+                if chunks is not None:
+                    chains.append(tuple(reversed(chunks)))
+        return chains
+
+    def evictable_blocks(self) -> int:
+        """Cached blocks reclaimable right now (refcount 1 — held only by
+        this index). Admission adds this to the free count when deciding
+        whether a queued request can EVER be placed without a release."""
+        with self._lock:
+            return sum(
+                1 for b in self._block_key if self._alloc.refcount(b) == 1
+            )
+
+    def evict(self, n: int) -> int:
+        """Reclaim >= n blocks from LRU chains whose blocks nobody maps
+        (refcount 1), cascading through each chain's descendants — a
+        subtree under an unreferenced block is provably unreferenced too.
+        Chains mapped by live tables are never touched. Returns blocks
+        actually freed (may be < n when the rest of the cache is pinned).
+        """
+        freed = 0
+        if n <= 0:
+            return 0
+        with self._lock:
+            for key in list(self._entries):
+                if freed >= n:
+                    break
+                if key not in self._entries:
+                    continue  # removed by an earlier cascade
+                if self._alloc.refcount(self._entries[key]) > 1:
+                    continue  # mapped by a live table: pinned
+                freed += self._evict_subtree(key)
+            n_entries = len(self._entries)
+        if self._m_entries is not None:
+            self._m_entries.set(n_entries)
+        return freed
+
+    def _evict_subtree(self, key: tuple) -> int:
+        """Drop one entry and every descendant entry (lock held). The
+        decref returns each block to the free list — refcount was 1."""
+        b = self._entries.pop(key)
+        self._block_key.pop(b, None)
+        parent_children = self._children.get(key[0])
+        if parent_children is not None:
+            parent_children.discard(key)
+            if not parent_children:
+                self._children.pop(key[0], None)
+        freed = 1
+        for child in list(self._children.get(b, ())):
+            freed += self._evict_subtree(child)
+        self._children.pop(b, None)
+        self._alloc.decref([b])
+        self.evictions += 1
+        if self._m_evictions is not None:
+            self._m_evictions.inc()
+        return freed
+
+    def clear(self) -> int:
+        """Drop EVERY cached entry, releasing the index's own reference
+        on each block. The supervisor's fleet-rebuild path (engine/
+        continuous._rebuild_fleet) uses this: the pool buffer is being
+        reinitialized, so cached chains no longer hold valid KV and must
+        not survive into the restarted fleet. Unlike evict(), refcounts
+        above 1 are legal here — the caller has already released the
+        live tables, but a block only loses THIS index's holder either
+        way. Returns the number of entries dropped."""
+        with self._lock:
+            blocks = list(self._entries.values())
+            self._entries.clear()
+            self._children.clear()
+            self._block_key.clear()
+            self.evictions += len(blocks)
+            if blocks:
+                self._alloc.decref(blocks)
+        if self._m_evictions is not None and blocks:
+            self._m_evictions.inc(len(blocks))
+        if self._m_entries is not None:
+            self._m_entries.set(0)
+        return len(blocks)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "cached_blocks": len(self._entries),
+                "cached_tokens": len(self._entries) * self.block_size,
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+                "dedup_saved_tokens": self.saved_tokens,
+            }

@@ -58,9 +58,32 @@ pool cannot place an admission, _preempt_for evicts the lowest-SLO-weight
 fold into its salvage record, its blocks go back, and it is parked in
 `_resume`, which re-enters admission before the queue as a CONTINUATION
 prefill (prompt + salvaged tokens) — greedy output bit-identical to an
-unpressured run. With no KV shadow (not ported) "swap" recomputes, as the
-JAX fleet does without one. A request preempted max_preemptions_per_req
-times becomes immune.
+unpressured run. Under "swap" with a KV shadow the victim's filled blocks
+are flushed to the host shadow first and its resume restores them in one
+scatter (_prepare_resume), re-prefilling only the tail; with no shadow
+"swap" recomputes, as the JAX fleet does. A request preempted
+max_preemptions_per_req times becomes immune.
+
+The block-prefix cache (engine/block_prefix.py, prefix_cache_entries >
+0): a prompt whose head matches a cached chain of full blocks maps those
+physical blocks into its table, refcounted, and prefills only the tail —
+ragged at the exact cached depth, bucketed degraded to a depth its tail
+bucket fits, over a scratch gathered from the pool (`fill_scratch_paged`).
+A completed prompt registers its full blocks; the pool-pressure ladder
+evicts unreferenced chains before it preempts. Shared blocks are never
+written: a hit's writes land at positions past its head, launch padding
+and the restore's pad rows in the trash block.
+
+The KV shadow (engine/shadow.py, kv_shadow, on wherever the block-prefix
+index is): every filled block is gathered behind the launch that filled
+it and copied to host memory off the scheduler thread. A supervisor
+restart restores the shadowed chains into the rebuilt pool IN PLACE
+before re-admitting anything, so salvaged requests hit them and
+re-prefill only their partial tail block; a drain persists the shadow to
+`restore_dir` and a fleet started on it restores it before serving; an
+optional disk tier (kv_disk_dir) takes the host tier's LRU evictions and
+promotes a chain back on admission. Every restore writes the static pool
+in place, so the captured CUDA graphs stay valid.
 
 Failure containment, as in the JAX package: the worker loop runs under a
 supervisor (_loop / _supervise). A crash releases every fleet-held
@@ -78,15 +101,17 @@ utils/faults.py injection points (admission, alloc, prefill,
 decode_launch, fetch, preempt) drive every path in the tests.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): speculation, the shadow / KV fabric (and with it "swap"'s warm
-restore and `restore_dir`), adapters, grammar constraints in the fleet
-(they go to the solo engine, as in the JAX package), the prefix caches,
-and gpt2's fleet.
+item): speculation, the cross-replica KV fabric (kv_fabric is accepted,
+the fleet reports fabric_serving false and ignores a fetch hint),
+adapters, grammar constraints in the fleet (they go to the solo engine,
+as in the JAX package), the dense fleet's prefix cache, and gpt2's fleet.
 """
 
 from __future__ import annotations
 
 import collections
+import json
+import os
 import threading
 import time
 from typing import Any, Optional
@@ -95,6 +120,7 @@ import numpy as np
 import torch
 
 from ..models.llama import ADAPTERS, FAMILIES, _not_ported
+from ..ops.kv_quant import KVQuant
 from ..utils import faults
 from ..utils.logging import get_logger
 from ..utils.metrics import register_fleet_metrics
@@ -102,6 +128,7 @@ from ..utils.tracing import Trace
 from . import generate as G
 from . import graphs
 from . import paged as P
+from .block_prefix import BlockPrefixIndex
 from .scheduler import MIN_SHED_DEPTH, PrefillJob, TokenBudgetScheduler, parse_slo_classes
 
 log = get_logger("continuous")
@@ -113,9 +140,13 @@ _BLOCKED = object()
 
 def _zero_tree(tree):
     """Zero every tensor of a cache tree (dicts, tuples, KVQuant leaves)
-    in place."""
+    in place. A KVQuant is zeroed leaf by leaf: iterating it would slice
+    it down its axes one index at a time."""
     if isinstance(tree, torch.Tensor):
         tree.zero_()
+    elif isinstance(tree, KVQuant):
+        tree.q.zero_()
+        tree.s.zero_()
     elif isinstance(tree, dict):
         for v in tree.values():
             _zero_tree(v)
@@ -130,7 +161,8 @@ class _Request:
         "tokens", "slot", "enqueued", "budget", "record", "prompt_tokens",
         "block_ids", "need", "trace", "allowed", "slo", "ids", "deadline_at",
         "prefill_chunks", "tenant", "salvaged", "strikes", "recovering",
-        "preemptions", "preempted_at", "drop_seq",
+        "preemptions", "preempted_at", "drop_seq", "prefix_hit_tokens",
+        "shadow_depth", "resume_seq", "promoted_blocks",
     )
 
     def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None):
@@ -174,6 +206,15 @@ class _Request:
         # launch-seq barrier: emissions of launches that started before
         # this seq are dropped (a preempted victim's launches in flight)
         self.drop_seq = 0
+        # prompt tokens served from the block-prefix cache (the mapped head)
+        self.prefix_hit_tokens = 0
+        # full blocks of this admission already handed to the shadow
+        self.shadow_depth = 0
+        # a "swap" victim's token sequence (prompt + fetched tokens) whose
+        # shadowed chain its resume restores; None: recompute
+        self.resume_seq = None
+        # prefix blocks promoted out of the shadow hierarchy at admission
+        self.promoted_blocks = 0
 
 
 class ContinuousEngine:
@@ -212,13 +253,11 @@ class ContinuousEngine:
         if self.paged and not getattr(backend, "supports_paged", False):
             raise ValueError(f"backend {backend.name!r} does not support paged "
                              f"KV; drop kv_pool_blocks or use the dense fleet")
-        if kv_shadow or restore_dir is not None:
-            raise _not_ported("the KV shadow (engine/shadow.py)", "Shadow and fabric")
-        if ecfg.prefix_cache_entries > 0:  # paged: block chains; dense: snapshots
-            raise _not_ported("the fleet's prefix cache", "Block-prefix cache"
-                              if self.paged else "Solo-engine features")
-        # KV preemption under pool pressure ("swap" recomputes here: the
-        # shadow it would swap to is not ported, and kv_shadow raises)
+        if ecfg.prefix_cache_entries > 0 and not self.paged:
+            # the dense fleet's snapshot cache (engine/prefix.py)
+            raise _not_ported("the dense fleet's prefix cache", "Solo-engine features")
+        # KV preemption under pool pressure ("swap" restores the victim's
+        # chain from the KV shadow when the fleet has one, else recomputes)
         self.preempt_policy = str(ecfg.preempt_policy)
         if self.preempt_policy not in ("swap", "recompute", "off"):
             raise ValueError(
@@ -285,6 +324,43 @@ class ContinuousEngine:
             self.cache = self.backend.init_cache(self.n_slots, self.slot_max_seq)
         self._chunked = bool(self._ragged and ecfg.chunked_prefill
                              and getattr(backend, "supports_mixed_step", False))
+        # block-level prefix sharing (engine/block_prefix.py): a hit MAPS
+        # the cached physical blocks into the request's table
+        self._bpx = (BlockPrefixIndex(self._alloc, self.kv_block_size,
+                                      registry=engine.metrics)
+                     if self.paged and ecfg.prefix_cache_entries > 0 else None)
+        # warm-state recovery (engine/shadow.py): the host-side shadow of
+        # filled pool blocks. It needs the paged fleet (block immutability
+        # is the consistency argument) and the block-prefix index (a
+        # restore re-enters through the ordinary prefix-hit machinery).
+        self._shadow = None
+        self._restore_dir = restore_dir
+        self._needs_restore = False
+        self.shadow_restored_total = 0
+        use_shadow = ecfg.kv_shadow if kv_shadow is None else kv_shadow
+        if (self.paged and use_shadow and self._bpx is not None
+                and hasattr(backend, "gather_shadow_blocks")):
+            from .shadow import ShadowStore
+
+            self._shadow = ShadowStore(
+                self.kv_block_size,
+                max_blocks=ecfg.kv_shadow_blocks or 2 * self._pool_blocks,
+                registry=engine.metrics, disk_dir=ecfg.kv_disk_dir,
+                max_disk_blocks=ecfg.kv_disk_blocks,
+            )
+            if restore_dir and self._shadow.load(restore_dir):
+                # a drained predecessor's blocks and chains: restored by the
+                # worker thread before it serves anything
+                self._needs_restore = True
+        # the capture's gather width (callers pad by repeating a block) and
+        # the restore's scatter width (pad rows go to the trash block)
+        self._shadow_gather_w = 8
+        self._shadow_restore_w = 32
+        if self._shadow is not None and self._cuda:
+            self._prewarm_pinned()
+        # the cross-replica KV fabric is not ported (ROADMAP.md "KV
+        # fabric"): nothing is served by digest and a fetch hint is ignored
+        self.fabric_serving = False
         # the bucketed admissions' batch-1 prefill cache, written in place
         # and spliced into the slot; the ragged ingest needs none
         self._scratch = (None if self._ragged
@@ -480,6 +556,9 @@ class ContinuousEngine:
                     "pool, which is not ported yet", "status": "failed",
                     "error_type": "invalid_request"}
         tenant = kwargs.pop("tenant", None) or None
+        # a router's KV-fabric fetch hint: no fabric to fetch over, so the
+        # admission prefills locally (the JAX ladder's failed-fetch rung)
+        kwargs.pop("kv_hint", None)
         if self._needs_solo(kwargs):
             return self.engine.generate(prompt, **kwargs)
         req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None),
@@ -524,6 +603,14 @@ class ContinuousEngine:
                     drained = False
                     break
                 self._cv.wait(timeout=0.1 if left is None else min(left, 0.1))
+        if self._shadow is not None and self._restore_dir:
+            # the warm handoff: persist the shadow (blocks and chains) so a
+            # successor started on restore_dir restores a warm prefix cache
+            try:
+                self._shadow.flush(timeout_s=5.0)
+                self._shadow.save(self._restore_dir)
+            except Exception as e:  # noqa: BLE001 - a failed persist is only colder
+                log.error("shadow_persist_failed", error=str(e))
         self._m.drain.observe(time.time() - t0)
         log.info("continuous_drained", ok=drained, seconds=round(time.time() - t0, 3))
         return drained
@@ -547,6 +634,8 @@ class ContinuousEngine:
             if req.result is None:
                 req.result = dict(fail)
             self._push_final(req)
+        if self._shadow is not None:
+            self._shadow.close()
 
     def warmup(self) -> dict:
         """Serve one throwaway request through the fleet (kept out of
@@ -595,11 +684,15 @@ class ContinuousEngine:
                 "pool_blocks": self._alloc.n_blocks,
                 "free_blocks": self._alloc.free_blocks,
                 "shared_blocks": self._alloc.shared_blocks,
-                "cached_blocks": 0,
+                "cached_blocks": (self._bpx.stats()["cached_blocks"]
+                                  if self._bpx is not None else 0),
                 "ragged_prefill": self._ragged,
             }
             if self._ragged:
                 out["paged"]["ragged_width"] = self._ragged_width
+        if self._shadow is not None:
+            out["shadow"] = {**self._shadow.stats(),
+                             "restored_blocks": self.shadow_restored_total}
         out["slo"] = {
             "default": self._sched.default_name,
             "classes": {
@@ -627,6 +720,8 @@ class ContinuousEngine:
         # CUDA graphs: a launch kind is captured once, then replayed
         out["graphs"] = {g.name: {"captures": g.captures, "replays": g.replays}
                          for g in self._graphs()}
+        if self._bpx is not None:
+            out["prefix_cache"] = self._bpx.stats()
         return out
 
     def _graphs(self) -> list:
@@ -724,12 +819,18 @@ class ContinuousEngine:
         return running
 
     def _release_fleet_resources(self, reqs: list):
-        """Return the pool blocks and table rows the dead fleet holds; shared
-        by the restart and the give-up paths."""
+        """Return the pool blocks, cached block-prefix chains and table rows
+        the dead fleet holds; shared by the restart and the give-up paths.
+        The index is cleared BEFORE _rebuild_fleet zeroes the pool, and the
+        shadow restore runs after it (_loop_inner), so no chain ever points
+        at zeroed blocks and no restore is zeroed."""
         for req in reqs:
             if self.paged and req.block_ids is not None:
                 self._alloc.decref(req.block_ids)
                 req.block_ids = None
+        if self._bpx is not None:
+            # cached chains point into the pool the rebuild zeroes
+            self._bpx.clear()
         if self.paged:
             self._table[:] = 0
             self._table_stale = True
@@ -779,6 +880,17 @@ class ContinuousEngine:
         flight = self.engine.flight.dump()
         log.error("crash_flight_recorder", recorded_total=flight["recorded_total"],
                   tail=flight["events"][-20:])
+        if self._restore_dir:
+            # the full ring next to restore_dir: a restart-loop or poison
+            # episode stays reconstructable after the process is gone
+            try:
+                os.makedirs(self._restore_dir, exist_ok=True)
+                with open(os.path.join(self._restore_dir, "flight_crash.json"),
+                          "w") as f:
+                    json.dump({"error": str(exc),
+                               "consecutive": self._consecutive_crashes, **flight}, f)
+            except OSError as e:
+                log.warning("flight_persist_failed", error=str(e))
         casualties = self._casualties()
         for req in casualties:
             if req in self._suspects:
@@ -834,6 +946,11 @@ class ContinuousEngine:
         # exponential backoff: a crash loop must not spin the host
         time.sleep(min(self.restart_backoff_s * (2 ** (self._consecutive_crashes - 1)),
                        5.0))
+        # warm recovery: the restarted loop restores the shadowed blocks
+        # into the rebuilt pool BEFORE re-admitting anything (_loop_inner,
+        # under the supervisor, so a crash inside the restore is contained
+        # and the restore retried)
+        self._needs_restore = self._shadow is not None
         for req in survivors:  # each re-admitted as a continuation prefill
             self._fold_salvage(req)
         # a crash mid-recovery leaves earlier salvage in self._recovery:
@@ -861,6 +978,10 @@ class ContinuousEngine:
         req.slot = None
         req.need = None
         req.ids = None
+        # the re-admission plans its own prefix hit and shadows afresh
+        # (content keys dedup the re-captures)
+        req.prefix_hit_tokens = 0
+        req.shadow_depth = 0
 
     def _run_recovery(self):
         """Serialized re-admission of salvaged requests: ONE request per
@@ -932,8 +1053,12 @@ class ContinuousEngine:
         work only), then a mixed launch while prompt chunks are pending,
         else a decode chunk. Whole-prefill: admit (prefill and arm) every
         request a free slot can take, then a decode chunk. Up to chunk_lag
-        launches stay in flight. After a restart, the salvage is
-        re-admitted first."""
+        launches stay in flight. A restart (or a restore_dir start) first
+        restores the shadowed chains into the pool, then re-admits the
+        salvage, which hits them."""
+        if self._needs_restore:
+            self._needs_restore = False
+            self._restore_shadow()
         self._run_recovery()
         inflight: collections.deque = collections.deque()
         while True:
@@ -999,8 +1124,9 @@ class ContinuousEngine:
                     return
                 if not from_resume:
                     head = self._queue[0]
-                    if head.need is not None and head.need > self._alloc.free_blocks:
-                        # a sized head that still cannot get blocks waits for
+                    if head.need is not None and head.need > self._placeable():
+                        # a sized head that still cannot get blocks (even by
+                        # evicting every unreferenced cached chain) waits for
                         # a release; a head a victim could make room for is
                         # sized on its first attempt, which preempts
                         return
@@ -1017,6 +1143,10 @@ class ContinuousEngine:
                 self._mutation_seq += 1
                 # survives an exception unwind ON PURPOSE (see _admit)
                 self._admitting = req
+                if from_resume:
+                    # "swap": restore the victim's shadowed chain so the
+                    # prefix plan below hits it (tail-only chunks)
+                    self._prepare_resume(req)
                 started = self._start_job(req, free[0])
                 self._admitting = None
             except ValueError as e:
@@ -1066,10 +1196,17 @@ class ContinuousEngine:
         req.prompt_tokens = len(ids)
         return ids + list(req.salvaged)
 
-    def _admission_budget(self, req: _Request, prompt_len: int) -> int:
+    def _placeable(self) -> int:
+        """Blocks an admission could get without a release: free, plus
+        cached chains nobody maps (the pressure ladder evicts them)."""
+        return self._alloc.free_blocks + (self._bpx.evictable_blocks()
+                                          if self._bpx is not None else 0)
+
+    def _admission_budget(self, req: _Request, prompt_len: int, p0: int) -> int:
         """The admission's decode budget: max_tokens less the salvaged
         tokens, clamped to the slot, never past the total fixed at the
-        first admission (`allowed`)."""
+        first admission (`allowed`). A recovery re-admission counts the
+        tokens it re-prefills: the tail past the mapped head `p0`."""
         max_tokens, _ = self.engine._clamp_decode(
             prompt_len, int(req.kwargs.get("max_tokens", 20)) - len(req.salvaged),
             capacity=self.slot_max_seq,
@@ -1079,15 +1216,17 @@ class ContinuousEngine:
         else:
             max_tokens = min(max_tokens, req.allowed - len(req.salvaged))
         if req.recovering:
-            self._m.recovery_recomputed.inc(prompt_len)
+            self._m.recovery_recomputed.inc(prompt_len - p0)
             req.recovering = False
         return max_tokens
 
     def _start_job(self, req: _Request, slot: int):
-        """Plan one chunked admission: tokenize, clamp the budget,
-        allocate pool blocks (preempting a victim under pressure) and
-        queue the PrefillJob. Returns _BLOCKED when the pool cannot take
-        it, None when the request failed fast, or the job."""
+        """Plan one chunked admission: tokenize, prefix-reuse lookup at
+        EXACT chunk depth, clamp the budget, map the shared head and
+        allocate fresh pool blocks (evicting cached chains, then
+        preempting a victim under pressure) and queue the PrefillJob.
+        Returns _BLOCKED when the pool cannot take it, None when the
+        request failed fast, or the job."""
         cfg = self.cfg
         faults.check("admission", tag=req.prompt)
         if self._expired_in_queue(req):
@@ -1095,12 +1234,17 @@ class ContinuousEngine:
         k = req.kwargs
         ids = self._admission_ids(req)
         prompt_len = len(ids)
-        if not 1 <= prompt_len <= self.slot_max_seq - 2:
+        # tier promotion: a host- or disk-shadowed chain deeper than the
+        # pool's becomes a deeper exact-depth hit below
+        self._promote_local_chain(req, ids)
+        p0, entry, plan = self.engine._prefix_plan(
+            self._bpx, ids, capacity=self.slot_max_seq, ragged=True)
+        if plan is None:
             raise ValueError(
                 f"prompt length {prompt_len} exceeds the slot capacity "
                 f"(slot_max_seq {self.slot_max_seq})"
             )
-        max_tokens = self._admission_budget(req, prompt_len)
+        max_tokens = self._admission_budget(req, prompt_len, p0)
         rp = float(k.get("repetition_penalty", 1.0))
         sampling = (
             float(k.get("temperature", 0.7)), int(k.get("top_k", 50)),
@@ -1111,38 +1255,69 @@ class ContinuousEngine:
         )
         faults.check("alloc", tag=req.prompt)
         need_total = P.blocks_needed(prompt_len, max_tokens, self.kv_block_size)
-        req.need = need_total
-        blk_ids = self._alloc_with_pressure(req)
+        blk_ids = self._grant_blocks(req, need_total, p0, entry)
         if blk_ids is None:
             return _BLOCKED
-        req.block_ids = blk_ids
         table_row = np.zeros((self._max_blocks,), np.int32)
-        table_row[:need_total] = blk_ids
+        table_row[:need_total] = req.block_ids
+        req.prefix_hit_tokens = p0
+        if p0:
+            self._m.ragged_exact.inc()
         presence_row = np.zeros((cfg.vocab_size,), bool)
         if rp != 1.0:
             presence_row[ids] = True
-        job = PrefillJob(req, ids, 0, prompt_len, max_tokens, slot, sampling,
+        job = PrefillJob(req, ids, p0, prompt_len, max_tokens, slot, sampling,
                          presence_row, table_row, self._sched.classify(req.slo))
         self._table[slot] = table_row
         self._table_stale = True
         req.slot = slot
         req.ids = ids
+        req.shadow_depth = 0
         with self._cv:
             self._assignment[slot] = req
         self._jobs.append(job)
         self._prefilling[slot] = job
         log.info("prefill_started", slot=slot, prompt_len=prompt_len,
-                 tail=job.remaining, slo_class=job.cls.name,
+                 tail=job.remaining, prefix_hit=p0, slo_class=job.cls.name,
                  request_id=req.trace.request_id)
         return job
 
+    def _grant_blocks(self, req: _Request, need_total: int, p0: int, entry):
+        """Map a hit's shared head (the first p0 // block_size blocks of
+        `entry`, incref'd at once so a crash inside the pressure ladder
+        releases them through req.block_ids) and allocate the fresh rest
+        through the pressure ladder. req.need records the FRESH shortfall
+        (the head costs no new block). Sets req.block_ids = shared + fresh
+        and returns the fresh ids, or None (nothing held) when the pool
+        cannot take the request now."""
+        shared = list(entry)[: p0 // self.kv_block_size] if p0 else []
+        req.need = need_total - len(shared)
+        if shared:
+            self._alloc.incref(shared)
+            req.block_ids = list(shared)
+        blk_ids = self._alloc_with_pressure(req)
+        if blk_ids is None:
+            if shared:
+                self._alloc.decref(shared)
+            req.block_ids = None
+            return None
+        req.block_ids = shared + blk_ids
+        return blk_ids
+
     # -- KV preemption under pool pressure -----------------------------------
     def _alloc_with_pressure(self, req: _Request) -> Optional[list]:
-        """`req.need` blocks: plain alloc, then preempt a victim and retry,
-        until a victim can no longer be found (None: the caller requeues
-        with _BLOCKED). Worker thread only."""
+        """`req.need` fresh blocks through the memory-pressure ladder:
+        plain alloc, evict unreferenced cached chains, preempt a victim
+        (whose chains the next evict round can reclaim) and retry, until a
+        victim can no longer be found (None: the caller requeues with
+        _BLOCKED). Worker thread only."""
         blk_ids = self._alloc.alloc(req.need)
         while blk_ids is None:
+            if self._bpx is not None:
+                self._bpx.evict(req.need - self._alloc.free_blocks)
+                blk_ids = self._alloc.alloc(req.need)
+                if blk_ids is not None:
+                    return blk_ids
             if not self._preempt_for(req):
                 return None
             blk_ids = self._alloc.alloc(req.need)
@@ -1179,6 +1354,16 @@ class ContinuousEngine:
         if victim is None:
             return False
         faults.check("preempt", tag=victim.prompt)
+        swapped = False
+        if self.preempt_policy == "swap" and self._shadow is not None:
+            # capture the blocks filled since the last fetch, then wait for
+            # every pending copy to LAND: only resident entries restore
+            self._shadow_capture(victim)
+            swapped = self._shadow.flush(timeout_s=5.0)
+        head = ([victim.first_id] if victim.first_id is not None
+                and victim.first_id not in self.cfg.all_stop_ids else [])
+        victim.resume_seq = (list(victim.ids) + head + victim.tokens
+                             if swapped and victim.ids is not None else None)
         victim.preemptions += 1
         victim.preempted_at = time.time()
         self._mutation_seq += 1
@@ -1191,17 +1376,277 @@ class ContinuousEngine:
         self._m.preempt.labels(reason="pool").inc()
         self.engine.flight.record(
             "preempt", request_id=victim.trace.request_id,
-            policy=self.preempt_policy, swap=False,
+            policy=self.preempt_policy, swap=swapped,
             preemptions=victim.preemptions, slo_class=victim.slo,
             beneficiary=req.trace.request_id, **self._alloc.span_attrs(),
         )
-        log.info("request_preempted", policy=self.preempt_policy, swap=False,
+        log.info("request_preempted", policy=self.preempt_policy, swap=swapped,
                  preemptions=victim.preemptions, slo_class=victim.slo,
                  beneficiary_class=req.slo, request_id=victim.trace.request_id)
         with self._cv:
             self._resume.append(victim)
             self._cv.notify_all()
         return True
+
+    # -- the KV shadow (engine/shadow.py) -------------------------------------
+    def _shadow_capture(self, req: _Request, written: Optional[int] = None):
+        """Hand req's newly FILLED pool blocks to the shadow copier (worker
+        thread). `written`: tokens known to be in the pool for this row
+        (mid-prefill callers pass the job's progress); None derives it from
+        the fetched stream (the last sampled token's K/V is not written
+        yet, hence the -1). The gather is dispatched on the launch stream
+        AFTER the launch that filled the blocks, so it reads their final
+        bytes; the copy to the host starts behind it into pinned memory
+        and lands on the copier thread: the scheduler never waits."""
+        if self._shadow is None or req.block_ids is None or req.ids is None:
+            return
+        bs = self.kv_block_size
+        if written is None:
+            head = ([req.first_id] if req.first_id is not None
+                    and req.first_id not in self.cfg.all_stop_ids else [])
+            gen = head + req.tokens
+            written = len(req.ids) + max(0, len(gen) - 1)
+            seq_tokens = req.ids + gen
+        else:
+            seq_tokens = req.ids
+        full = min(written // bs, len(req.block_ids))
+        if full <= req.shadow_depth:
+            return
+        # the chaos hook BEFORE the dedup: a repeat prompt whose blocks are
+        # all resident still exercises the shadow_copy drill
+        faults.check("shadow_copy", tag=req.prompt)
+        new_keys, new_blocks = [], []
+        for i in range(req.shadow_depth, full):
+            key = tuple(seq_tokens[: (i + 1) * bs])
+            if not self._shadow.has(key):
+                new_keys.append(key)
+                new_blocks.append(int(req.block_ids[i]))
+        req.shadow_depth = full
+        W = self._shadow_gather_w
+        for off in range(0, len(new_keys), W):
+            ids = new_blocks[off: off + W]
+            padded = ids + [ids[-1]] * (W - len(ids))  # one width for every batch
+            (ids_dev,) = self._upload(np.asarray(padded, np.int32))
+            dev = self.backend.gather_shadow_blocks(self.cache, ids_dev)
+            self._shadow.put_async(new_keys[off: off + W], P.pool_leaves(dev),
+                                   self._mutation_seq)
+
+    def _prewarm_pinned(self):
+        """Allocate the pinned host buffers of the shadow's copies once, up
+        front, and free them: torch's host allocator keeps them, so no
+        capture on the served path (max_pending batches in flight) and no
+        restore in a crash's recovery window pays a page-locking
+        allocation on the scheduler thread. The JAX fleet pre-warms its
+        restore program at construction for the same reason."""
+        leaves = P.pool_leaves(self.cache)
+        bufs = []
+        for rows, n in ((self._shadow_gather_w, self._shadow.max_pending),
+                        (self._shadow_restore_w, 1)):
+            for _ in range(n):
+                bufs += [torch.empty((rows, leaf.shape[0], *leaf.shape[2:]),
+                                     dtype=leaf.dtype, pin_memory=True) for leaf in leaves]
+        del bufs
+
+    def _scatter_shadow(self, blocks: list, per_block_leaves: list):
+        """Write shadowed blocks (each its host leaves in pool_leaves order)
+        into the pool blocks `blocks` IN PLACE, _shadow_restore_w rows per
+        scatter (pad rows repeat the first row into the trash block). The
+        operands go up through pinned memory on the launch stream, behind
+        every launch in flight, and every captured graph keeps reading the
+        same pool. A leaf whose dtype or shape is not the pool's (a
+        persisted shadow of another configuration) raises ValueError."""
+        W = self._shadow_restore_w
+        like = P.pool_leaves(self.cache)
+        for off in range(0, len(blocks), W):
+            ids = blocks[off: off + W]
+            batch = per_block_leaves[off: off + W]
+            pad = W - len(ids)
+            stacked = []
+            for j, dst in enumerate(like):
+                arr = np.stack([pb[j] for pb in batch])
+                if pad:
+                    arr = np.concatenate([arr, np.repeat(arr[:1], pad, axis=0)])
+                t = torch.from_numpy(np.ascontiguousarray(arr))
+                if dst.dtype == torch.bfloat16 and t.dtype == torch.int16:
+                    t = t.view(torch.bfloat16)  # the shadow's bit-exact carrier
+                if t.dtype != dst.dtype or t.shape[1:] != dst.shape[:1] + dst.shape[2:]:
+                    raise ValueError(
+                        f"shadow leaf {j}: {tuple(t.shape[1:])} {t.dtype} does not "
+                        f"fit the pool's {tuple(dst.shape)} {dst.dtype}")
+                if self._cuda:
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                stacked.append(t)
+            (ids_dev,) = self._upload(np.asarray(ids + [P.TRASH_BLOCK] * pad, np.int32))
+            self.backend.restore_shadow_blocks(
+                self.cache, P.pool_from_leaves(self.cache, stacked), ids_dev)
+
+    def _restore_shadow(self) -> int:
+        """Scatter the shadowed chains into the rebuilt pool and register
+        them in the block-prefix index, so the salvage re-admissions (and
+        later traffic) hit them. Runs on the worker thread before any
+        re-admission, under the supervisor: a crash here is contained, the
+        next round's clear() releases a partial registration and the
+        restore runs again. Returns the blocks restored."""
+        if self._shadow is None or self._bpx is None:
+            return 0
+        # captures from before the crash land first, so the restore depth
+        # is deterministic
+        self._shadow.flush(timeout_s=10.0)
+        faults.check("shadow_copy", tag="restore")
+        # one slot-class of headroom: the first admission must not have to
+        # evict just to be placed
+        budget = self._alloc.free_blocks - self._max_blocks
+        entries, leaf_keys = self._shadow.select(budget)
+        if not entries:
+            return 0
+        blocks = self._alloc.alloc(len(entries))
+        if blocks is None:
+            return 0
+        try:
+            self._scatter_shadow(blocks, [e.leaves for _, e in entries])
+        except Exception as e:  # noqa: BLE001 - a bad persisted shadow
+            # (config drift across a restart) must start cold, not
+            # crash-loop the supervisor
+            log.warning("shadow_restore_invalid", error=str(e))
+            self._alloc.decref(blocks)
+            self._shadow.clear()
+            return 0
+        bs = self.kv_block_size
+        assigned = {key: b for (key, _), b in zip(entries, blocks)}
+        for leaf in leaf_keys:
+            self._bpx.import_chain(list(leaf), [assigned[leaf[: (i + 1) * bs]]
+                                                for i in range(len(leaf) // bs)])
+        # the index holds its own reference per block now: restored chains
+        # end at refcount 1 (index-held, evictable)
+        self._alloc.decref(blocks)
+        n = len(entries)
+        self._shadow.count_pool_promotion(n)
+        self.shadow_restored_total += n
+        self._m.shadow_restored.inc(n)
+        log.info("shadow_restored", blocks=n, chains=len(leaf_keys),
+                 free_blocks=self._alloc.free_blocks)
+        return n
+
+    def _import_fabric_chain(self, keys: list, per_block_leaves: list) -> int:
+        """Scatter a chain of host-resident blocks into the pool, register
+        it in the block-prefix index and keep it in the host shadow
+        (the JAX name: there a fabric fetch lands here too; in the port
+        only tier promotion does). Returns blocks imported (0 when the
+        pool has no headroom: the local prefill still works)."""
+        # one slot-class of headroom, like _restore_shadow; cold cached
+        # chains are reclaimed first, as admission does
+        budget = self._alloc.free_blocks - self._max_blocks
+        if budget < len(keys) and self._bpx is not None:
+            self._bpx.evict(len(keys) - budget)
+            budget = self._alloc.free_blocks - self._max_blocks
+        if budget <= 0:
+            return 0
+        keys, per_block_leaves = keys[:budget], per_block_leaves[:budget]
+        blocks = self._alloc.alloc(len(keys))
+        if blocks is None:
+            return 0
+        try:
+            self._scatter_shadow(blocks, per_block_leaves)
+        except Exception as e:  # noqa: BLE001 - a leaf-shape mismatch
+            # degrades to a cold prefill, never a scheduler crash
+            log.warning("fabric_import_invalid", error=str(e))
+            self._alloc.decref(blocks)
+            return 0
+        self._bpx.import_chain(list(keys[-1]), blocks)
+        self._shadow.put_host(keys, per_block_leaves, self._mutation_seq)
+        self._shadow.count_pool_promotion(len(keys))
+        # imported chains end at refcount 1 (index-held), like restored ones
+        self._alloc.decref(blocks)
+        log.info("fabric_imported", blocks=len(keys),
+                 free_blocks=self._alloc.free_blocks)
+        return len(keys)
+
+    def _promote_local_chain(self, req: _Request, ids: list):
+        """Tier promotion at admission (worker thread, BEFORE the prefix
+        plan): when the shadow's host or disk tier holds a deeper
+        contiguous chain for this prompt than the pool's index, load it
+        (disk hits promote host-ward, each chunk file content-verified)
+        and scatter it in, so the plan sees a deeper hit. A corrupt chunk
+        file rejects into a cold prefill; nothing here fails the
+        request."""
+        if self._shadow is None or self._bpx is None:
+            return
+        bs = self.kv_block_size
+        cap = max(0, (len(ids) - 1) // bs) * bs
+        if cap <= 0:
+            return
+        p0_local, _, _ = self._bpx.lookup(ids)
+        if p0_local >= cap:
+            return
+        depth = 0
+        for nb in range(cap // bs, p0_local // bs, -1):
+            if self._shadow.has_resident(tuple(ids[: nb * bs])):
+                depth = nb
+                break
+        if depth == 0:
+            return
+        keys = [tuple(ids[: (i + 1) * bs]) for i in range(depth)]
+        entries = self._shadow.entries_for(keys)
+        if entries is None:
+            return  # churned out, or a corrupt chunk file: cold prefill
+        imported = self._import_fabric_chain(keys, [e.leaves for e in entries])
+        if imported:
+            req.promoted_blocks = imported
+            self.engine.flight.record("tier_promote", request_id=req.trace.request_id,
+                                      blocks=imported, depth=depth * bs)
+
+    def _prepare_resume(self, req: _Request):
+        """"swap" preemption's warm half (worker thread, just before the
+        resume's re-admission): scatter the victim's shadowed chain into
+        fresh pool blocks and register it in the index, so the admission
+        below hits it and re-prefills ONLY the tail past the deepest
+        restored block. A shortfall (entries gone from the shadow, the
+        pool still tight) degrades to a colder re-prefill, never an
+        error."""
+        seq = req.resume_seq
+        if seq is None or self._shadow is None or self._bpx is None:
+            req.resume_seq = None
+            return
+        bs = self.kv_block_size
+        # the lookup's reuse cap: at least one tail token remains
+        cap_full = max(0, (len(seq) - 1) // bs)
+        p0, entry, _ = self._bpx.lookup(seq)
+        keys = []
+        for i in range(p0 // bs, cap_full):
+            key = tuple(seq[: (i + 1) * bs])
+            if not self._shadow.has_resident(key):
+                break  # a chain with a hole cannot be registered
+            keys.append(key)
+        if not keys:
+            req.resume_seq = None  # nothing restorable, ever
+            return
+        blocks = self._alloc.alloc(len(keys))
+        if blocks is None:
+            self._bpx.evict(len(keys) - self._alloc.free_blocks)
+            blocks = self._alloc.alloc(len(keys))
+        if blocks is None:
+            # the pool is still tight (the admission below blocks and
+            # requeues): keep resume_seq, so the retry restores warm
+            return
+        entries = self._shadow.entries_for(keys)
+        if entries is None:
+            self._alloc.decref(blocks)
+            req.resume_seq = None
+            return
+        try:
+            self._scatter_shadow(blocks, [e.leaves for e in entries])
+        except BaseException:
+            # a crash mid-restore is the supervisor's, but these blocks are
+            # tracked nowhere yet: release them before the unwind
+            self._alloc.decref(blocks)
+            raise
+        req.resume_seq = None
+        row_blocks = list(entry or []) + blocks
+        self._bpx.import_chain(list(seq[: len(row_blocks) * bs]), row_blocks)
+        self._alloc.decref(blocks)
+        self._m.shadow_restored.inc(len(blocks))
+        log.info("preempt_resume_restored", blocks=len(blocks),
+                 request_id=req.trace.request_id)
 
     def _launch_chunk(self):
         """Launch one decode chunk over the fleet; returns the in-flight
@@ -1306,8 +1751,17 @@ class ContinuousEngine:
             (toks, tok_row, tok_pos, dec_flag, meta, dec_idx, *dev_np))
         self._table_device()
         handle = self._to_host(self._mixed_graph())
-        for slot in completions:
-            self._jobs.remove(self._prefilling.pop(slot))
+        for slot, req in completions.items():
+            job = self._prefilling.pop(slot)
+            self._jobs.remove(job)
+            if self._bpx is not None:
+                # the prompt's full blocks are complete and immutable once
+                # this launch lands; later reads serialize behind it
+                self._bpx.register(job.ids, job.prompt_len, req.block_ids)
+        if self._shadow is not None:
+            # blocks this launch filled: the capture's gather runs behind it
+            for job, _, _ in chunk_list:
+                self._shadow_capture(job.req, written=job.p0 + job.done)
         n_pf_tokens = sum(n for _, n, _ in chunk_list)
         self.mixed_launches += 1
         if n_dec and chunk_list:
@@ -1409,7 +1863,7 @@ class ContinuousEngine:
                     break
                 if (not from_resume and self.paged
                         and self._queue[0].need is not None
-                        and self._queue[0].need > self._alloc.free_blocks):
+                        and self._queue[0].need > self._placeable()):
                     break  # a sized head that still cannot get blocks waits
                 if from_resume:
                     req = self._resume.pop(0)
@@ -1429,6 +1883,10 @@ class ContinuousEngine:
                 # _admitting survives an exception unwind ON PURPOSE: the
                 # supervisor salvages the request a crash cut mid-admission
                 self._admitting = req
+                if from_resume:
+                    # "swap": restore the victim's shadowed chain first, so
+                    # _admit_one's prefix plan hits it
+                    self._prepare_resume(req)
                 first = self._admit_one(req, free[0])
                 self._admitting = None
             except ValueError as e:
@@ -1465,11 +1923,11 @@ class ContinuousEngine:
             self._post_admit(req)
 
     def _admit_one(self, req: _Request, slot: int):
-        """Prefill req's whole prompt (plus its salvaged continuation) and
-        arm `slot` (the cold, unconstrained, adapter-free admission of the
-        JAX package). Returns its first token ([1], on the device), None
-        when it failed fast (its result is set), or _BLOCKED when the pool
-        cannot take it now."""
+        """Prefill req's whole prompt (plus its salvaged continuation) past
+        any block-prefix hit and arm `slot` (the unconstrained, adapter-free
+        admission of the JAX package). Returns its first token ([1], on the
+        device), None when it failed fast (its result is set), or _BLOCKED
+        when the pool cannot take it now."""
         eng, cfg = self.engine, self.cfg
         faults.check("admission", tag=req.prompt)
         if self._expired_in_queue(req):
@@ -1477,25 +1935,33 @@ class ContinuousEngine:
         k = req.kwargs
         ids = self._admission_ids(req)
         prompt_len = len(ids)
-        p0, entry, plan = eng._prefix_plan(None, ids, capacity=self.slot_max_seq,
+        # tier promotion first: the plan below then sees the deeper hit
+        self._promote_local_chain(req, ids)
+        # the ragged ingest reuses the deepest chain at EXACT depth; the
+        # bucketed fallback degrades it to a depth its tail bucket fits
+        p0, entry, plan = eng._prefix_plan(self._bpx, ids, capacity=self.slot_max_seq,
                                            ragged=self._ragged)
         if plan is None:
             raise ValueError(
                 f"prompt length {prompt_len} exceeds the slot capacity "
                 f"(slot_max_seq {self.slot_max_seq})"
             )
-        max_tokens = self._admission_budget(req, prompt_len)
-        table_row = None
+        max_tokens = self._admission_budget(req, prompt_len, p0)
+        table_row = insert_row = None
         if self.paged:
             faults.check("alloc", tag=req.prompt)
             need_total = P.blocks_needed(prompt_len, max_tokens, self.kv_block_size)
-            req.need = need_total
-            blk_ids = self._alloc_with_pressure(req)
-            if blk_ids is None:
+            if self._grant_blocks(req, need_total, p0, entry) is None:
                 return _BLOCKED
-            req.block_ids = blk_ids
             table_row = np.zeros((self._max_blocks,), np.int32)
-            table_row[:need_total] = blk_ids  # the tail stays at the trash block
+            table_row[:need_total] = req.block_ids  # the tail stays at the trash block
+            # the bucketed insert scatters the WHOLE scratch row: its view
+            # of the shared head goes to the trash block, so blocks other
+            # tables read are never rewritten (the decode table keeps the
+            # real row)
+            insert_row = table_row.copy()
+            insert_row[: p0 // self.kv_block_size] = P.TRASH_BLOCK
+        req.prefix_hit_tokens = p0
         try:
             faults.check("prefill", tag=req.prompt)
             sampling = G.default_sampling(
@@ -1509,11 +1975,23 @@ class ContinuousEngine:
             presence = (eng._presence_rows([ids]) if sampling.rep_penalty != 1.0
                         else None)
             if self._ragged:
-                first = self._ragged_ingest(ids, table_row, sampling, presence)
-                req.prefill_chunks = -(-prompt_len // self._ragged_width)
+                # a hit's mapped head is attended in place, through the table
+                if p0:
+                    self._m.ragged_exact.inc()
+                first = self._ragged_ingest(ids, p0, table_row, sampling, presence)
+                req.prefill_chunks = -(-(prompt_len - p0) // self._ragged_width)
+            elif self.paged:
+                # the scratch is written in place and scattered below: a
+                # failed ingest leaves it usable for the next admission. A
+                # hit first gathers the shared head into it, so the tail
+                # prefill attends real KV
+                if p0:
+                    (row_d,) = self._upload(table_row)
+                    self.backend.fill_scratch_paged(self.cache, row_d, self._scratch)
+                first, _, _ = eng._ingest(ids, p0, plan, self._scratch, self._gen,
+                                          sampling, presence=presence)
+                req.prefill_chunks = plan[0] + 1
             else:
-                # the scratch is written in place and spliced below: a
-                # failed ingest leaves it usable for the next admission
                 first, _, _ = eng._ingest_with_prefix(
                     None, ids, p0, entry, plan, self._scratch, self._gen,
                     sampling, presence=presence,
@@ -1530,7 +2008,7 @@ class ContinuousEngine:
                 self._commit(*self.backend.arm_slot_paged(
                     self.state, self.sparams, slot, *arm))
             elif self.paged:
-                (row_d,) = self._upload(table_row)
+                (row_d,) = self._upload(insert_row)
                 self._commit(*self.backend.insert_slot_paged(
                     self.cache, self._scratch, self.state, self.sparams, slot,
                     row_d, *arm)[1:])
@@ -1547,7 +2025,15 @@ class ContinuousEngine:
         if self.paged:
             self._table[slot] = table_row
             self._table_stale = True  # copied in before the next launch
+        if self._bpx is not None:
+            # index the prompt's full blocks (complete and immutable once
+            # the ingest lands; decode and tail writes land past them)
+            self._bpx.register(ids, prompt_len, req.block_ids)
         req.ids = ids
+        req.shadow_depth = 0
+        if self._shadow is not None:
+            # the capture's gather rides the launch stream behind the prefill
+            self._shadow_capture(req, written=prompt_len)
         req.slot = slot
         with self._cv:
             self._assignment[slot] = req
@@ -1569,20 +2055,23 @@ class ContinuousEngine:
             stats["tiles"] - stats["pad_tiles"])
         return self._upload(toks, tok_row, tok_pos, meta)
 
-    def _ragged_ingest(self, ids, table_row, sampling, presence):
-        """Prefill ids straight into the pool: whole-width extend launches
-        for the body, then ONE width-padded prefill launch that samples
-        the first token off the last prompt token, all over the one-row
-        table [1, MB] of this admission. Returns the first token [1]."""
+    def _ragged_ingest(self, ids, p0, table_row, sampling, presence):
+        """Prefill ids[p0:] straight into the pool: whole-width extend
+        launches for the body of the tail, then ONE width-padded prefill
+        launch that samples the first token off the last prompt token, all
+        over the one-row table [1, MB] of this admission (a hit's mapped
+        head is attended in place through it). Returns the first token
+        [1]."""
         be, W = self.backend, self._ragged_width
-        n_full = max(0, (len(ids) - 1) // W)  # leaves >= 1 sampling token
+        tail = ids[p0:]
+        n_full = max(0, (len(tail) - 1) // W)  # leaves >= 1 sampling token
         (table1,) = self._upload(table_row[None, :])
         for c in range(n_full):  # the pool is written in place
-            args = self._ragged_launch_args(ids[c * W:(c + 1) * W], c * W)
+            args = self._ragged_launch_args(tail[c * W:(c + 1) * W], p0 + c * W)
             be.extend_ragged_paged(*args, self.cache, table1)
             self._m.ragged_launches.labels(phase="extend").inc()
-        rem = ids[n_full * W:]
-        args = self._ragged_launch_args(rem, n_full * W)
+        rem = tail[n_full * W:]
+        args = self._ragged_launch_args(rem, p0 + n_full * W)
         first, _, _ = be.prefill_ragged_paged(
             *args, self.cache, table1, len(rem) - 1, self._gen, sampling,
             presence=presence)
@@ -1626,6 +2115,10 @@ class ContinuousEngine:
                 continue  # preempted after this launch
             new = emitted[mask[:, b], b]
             req.tokens.extend(int(t) for t in new)
+            if len(new) and self._shadow is not None:
+                # decode crossed a block boundary? shadow the newly filled
+                # blocks (the launch that filled them was fetched)
+                self._shadow_capture(req)
             gen = None
             if len(new) and req.kwargs.get("stop"):
                 gen = self._gen_text(req)
@@ -1700,6 +2193,11 @@ class ContinuousEngine:
             req.result["recovered"] = True
         if req.preemptions:
             req.result["preempted"] = req.preemptions
+        if req.prefix_hit_tokens:
+            req.result["prefix_cached_tokens"] = req.prefix_hit_tokens
+        if req.promoted_blocks:
+            # prefix blocks promoted out of the shadow's host or disk tier
+            req.result["kv_promoted_blocks"] = req.promoted_blocks
         if stopped:
             req.result["stopped"] = True
         log.info("completed", slot=req.slot, tokens=n,

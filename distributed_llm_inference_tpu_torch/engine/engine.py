@@ -7,10 +7,15 @@ envelope. One lock serializes generations. The same bucket plan and chunk
 boundaries as the JAX engine (`_plan_ingest` / `_ingest`), so greedy
 output on the same weights is token-identical.
 
-Not ported yet: speculative decoding, beam search, the prefix cache,
-grammar constraints, runtime adapters and scoring. A request or config
-asking for one gets a ValueError naming it (an `invalid_request`
-envelope, HTTP 400 at the server).
+`_prefix_plan` is the JAX engine's shared prefix planner: the paged
+fleet (engine/continuous.py) drives it with its block-prefix index
+(engine/block_prefix.py) when `prefix_cache_entries > 0`.
+
+Not ported yet: speculative decoding, beam search, the solo engine's own
+prefix cache (engine/prefix.py's snapshots), grammar constraints,
+runtime adapters and scoring. A request or config asking for one gets a
+ValueError naming it (an `invalid_request` envelope, HTTP 400 at the
+server).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..utils.metrics import (
     DEFAULT_SIZE_BUCKETS,
     MetricsRegistry,
     percentile,
+    register_kv_cache_metrics,
     register_supervisor_metrics,
 )
 from ..utils.tokenizer import load_tokenizer
@@ -113,6 +119,20 @@ class SingleDeviceBackend:
         return P.insert_slot_paged(self.cfg, pool, scratch, state, sparams, slot,
                                    table_row, *arm)
 
+    def fill_scratch_paged(self, pool, table_row, scratch=None):
+        # block-level prefix sharing: the contiguous scratch view of a
+        # hit's mapped blocks, written into `scratch` in place (the pool
+        # is only read: other block tables keep reading those blocks)
+        return P.gather_scratch_blocks(pool, table_row, out=scratch)
+
+    # the warm-recovery shadow seam (engine/shadow.py); the fleet gates
+    # its shadow on these, as the JAX one does
+    def gather_shadow_blocks(self, pool, block_ids):
+        return P.gather_shadow_blocks(pool, block_ids)
+
+    def restore_shadow_blocks(self, pool, blocks, block_ids):
+        return P.restore_shadow_blocks(pool, blocks, block_ids)
+
     def decode_slots_paged(self, state, pool, table, generator, sparams, *,
                            num_steps, pages=None):
         return P.decode_slots_paged(
@@ -169,8 +189,6 @@ class InferenceEngine:
         seed: int = 0,
         device="cuda",
     ):
-        if engine_cfg.prefix_cache_entries > 0:
-            raise not_ported("the prefix KV cache (prefix_cache_entries > 0)")
         if engine_cfg.adapter_slots > 0:
             raise ValueError(
                 "runtime adapters (adapter_slots > 0) are not ported to the "
@@ -233,6 +251,7 @@ class InferenceEngine:
             "abandoned deadline-overrun device calls still running",
         ).labels()
         register_supervisor_metrics(self.metrics)
+        register_kv_cache_metrics(self.metrics)
         # control-plane events (admissions, preemptions, crashes,
         # quarantines, restarts): the continuous supervisor dumps the
         # ring into its crash report; GET /debug/flight serves it
@@ -434,6 +453,7 @@ class InferenceEngine:
                     )
 
             try:
+                self._check_solo_prefix()
                 if speculative:
                     raise not_ported("speculative decoding")
                 if num_beams > 1:
@@ -513,21 +533,68 @@ class InferenceEngine:
             return None
         return n_full, rem, fitting[0], chunk
 
+    def _check_solo_prefix(self):
+        """The solo path keeps no prefix cache of its own (the JAX
+        engine's dense snapshots, engine/prefix.py, are not ported): a
+        solo request on an engine with prefix_cache_entries > 0 is refused
+        by name. The paged fleet's block-prefix index serves that setting."""
+        if self.engine_cfg.prefix_cache_entries > 0:
+            raise not_ported("the solo engine's prefix KV cache (engine/prefix.py, "
+                             "prefix_cache_entries > 0; the paged fleet serves it)")
+
     def _prefix_plan(self, prefix, ids: list, capacity: Optional[int] = None,
-                     ragged: bool = False):
-        """(p0, entry, plan) for an admission (the JAX engine's shared
-        planner), on the cold path only: prefix None, so p0 = 0 and entry
-        None. ragged=True (the paged fleet's ragged ingest) has no bucket
-        ladder: any prompt of 1 .. capacity - 2 tokens is served and plan
-        is ("ragged", prompt_len); plan None means the prompt does not fit."""
-        if prefix is not None:
-            raise not_ported("the prefix KV cache (prefix_cache_entries > 0)")
+                     ragged: bool = False, adapter: Optional[str] = None):
+        """Prefix lookup + ingest planning, the JAX engine's one copy for
+        every serving path: lookup -> plan the tail -> cold fallback when
+        no tail plan fits -> mark hit / miss on the PLANNED outcome (a
+        lookup hit that fell back cold is a miss). Returns (p0, entry,
+        plan).
+
+        `prefix` is a planner with lookup(ids) -> (p0, entry, key) and
+        mark(key, hit, depth): the paged fleet's BlockPrefixIndex (entry =
+        the shared physical block ids the caller maps into its table), or
+        None for a plain cold plan. adapter is passed through to lookup
+        only when not None.
+
+        ragged=True (the paged fleet's ragged ingest): no bucket ladder,
+        so any tail of >= 1 token is served and the deepest lookup depth
+        is used AS IS (exact chunk depth, never degraded); plan is
+        ("ragged", tail_len), None only when the prompt does not fit the
+        capacity. Bucketed: when the deepest depth leaves a tail no bucket
+        fits, the depth walks down one planner granule (`prefix.chunk`)
+        at a time before falling back cold."""
+        buckets = self._buckets()
         prompt_len = len(ids)
+        p0, entry, pkey = 0, None, None
+        if prefix is not None:
+            if adapter is not None:
+                p0, entry, pkey = prefix.lookup(ids, adapter=adapter)
+            else:
+                p0, entry, pkey = prefix.lookup(ids)
         if ragged:
             cap = capacity if capacity is not None else self.cfg.max_seq_len
             ok = 1 <= prompt_len <= cap - 2
-            return 0, None, ("ragged", prompt_len) if ok else None
-        return 0, None, self._plan_ingest(prompt_len, 0, self._buckets(), capacity)
+            plan = ("ragged", prompt_len - p0) if ok else None
+            if plan is None or not p0:
+                entry = None
+                if plan is None:
+                    p0 = 0
+            if prefix is not None:
+                prefix.mark(pkey, hit=bool(p0), depth=p0)
+            return p0, entry, plan
+        plan = self._plan_ingest(prompt_len, p0, buckets, capacity)
+        step = getattr(prefix, "chunk", 0)
+        while plan is None and p0 > step > 0:
+            p0 -= step
+            plan = self._plan_ingest(prompt_len, p0, buckets, capacity)
+        if plan is None and p0:
+            p0 = 0
+            plan = self._plan_ingest(prompt_len, 0, buckets, capacity)
+        if not p0:
+            entry = None
+        if prefix is not None:
+            prefix.mark(pkey, hit=bool(p0) and plan is not None, depth=p0)
+        return p0, entry, plan
 
     def _tokens(self, rows: list) -> torch.Tensor:
         return torch.tensor(rows, dtype=torch.long, device=self.device)

@@ -46,10 +46,17 @@ launches of the prompt alone over a one-row table), or bucketed, on a
 contiguous batch-1 scratch cache that `insert_slot_paged` scatters into
 the slot's blocks.
 
+The block-prefix cache and the KV shadow move whole blocks with plain
+PyTorch indexing (no Pallas kernel in the JAX package either):
+`gather_scratch_blocks` hands a bucketed admission's tail prefill the
+shared head of a prefix hit, `gather_shadow_blocks` copies filled blocks
+out for the host shadow store (engine/shadow.py) and
+`restore_shadow_blocks` writes shadowed blocks back into the pool in
+place.
+
 Not ported yet (each raises, naming its ROADMAP.md item): the
-speculation operands of the mixed step (`spec`, `spec_toks`), adapter
-pages (`pages`), and the block-prefix gathers (`gather_scratch_blocks`)
-and shadow gathers.
+speculation operands of the mixed step (`spec`, `spec_toks`) and adapter
+pages (`pages`).
 """
 
 from __future__ import annotations
@@ -440,6 +447,93 @@ def scatter_scratch(pool, scratch, table_row):
             scatter(pl.s, sc.s)
         else:
             scatter(pl, sc)
+    return pool
+
+
+def pool_leaves(tree) -> list:
+    """A pool-structured tree's tensors in the JAX package's tree order
+    ("k" then "v", each raw or KVQuant's q then s): the shadow store's
+    leaf order."""
+    out = []
+    for name in ("k", "v"):
+        leaf = tree[name]
+        out.extend((leaf.q, leaf.s) if isinstance(leaf, KVQuant) else (leaf,))
+    return out
+
+
+def pool_from_leaves(like, leaves: list) -> dict:
+    """The inverse of pool_leaves: leaves in that order, structured as
+    the pool `like` (raw or KVQuant leaves)."""
+    it = iter(leaves)
+    return {name: (KVQuant(next(it), next(it)) if isinstance(like[name], KVQuant)
+                   else next(it)) for name in ("k", "v")}
+
+
+@torch.no_grad()
+def gather_scratch_blocks(pool, table_row, out=None):
+    """The contiguous batch-1 scratch cache ([L, 1, KV, MB*bs(, Dh)]) of
+    `table_row`'s pool blocks ([MB] int32 tensor): the exact inverse of
+    scatter_scratch (the JAX gather_scratch_blocks). A block-prefix hit
+    of the bucketed admission uses it to hand the tail prefill the shared
+    head; entries past the head gather stale bytes that the tail
+    overwrites or the slot mask never reads. `out` (a scratch tree of
+    that layout) is written in place and returned; else a new tree. The
+    pool is only read."""
+    idx = table_row.long()
+
+    def gather(pl, dst):
+        blocks = pl[:, idx]  # [L, MB, KV, bs(, Dh)]
+        L, MB, KV, bs = blocks.shape[:4]
+        flat = blocks.transpose(1, 2).reshape(L, KV, MB * bs, *blocks.shape[4:])
+        if dst is None:
+            return flat[:, None]
+        dst[:, 0].copy_(flat)
+        return dst
+
+    res = {}
+    for name in ("k", "v"):
+        pl, dst = pool[name], None if out is None else out[name]
+        if isinstance(pl, KVQuant):
+            res[name] = KVQuant(gather(pl.q, None if dst is None else dst.q),
+                                gather(pl.s, None if dst is None else dst.s))
+        else:
+            res[name] = gather(pl, dst)
+    return res if out is None else out
+
+
+@torch.no_grad()
+def gather_shadow_blocks(pool, block_ids):
+    """`block_ids`' pool blocks ([N] int tensor) copied out for the
+    shadow store (engine/shadow.py): each leaf [N, L, KV, bs(, Dh)], one
+    row per block with the whole layer axis (the JAX
+    gather_shadow_blocks). Dispatched on the launch stream right after
+    the launch that filled the blocks, so it reads their final bytes;
+    the pool is only read."""
+    idx = block_ids.long()
+
+    def gather(pl):
+        return pl[:, idx].transpose(0, 1).contiguous()
+
+    return {name: (KVQuant(gather(pool[name].q), gather(pool[name].s))
+                   if isinstance(pool[name], KVQuant) else gather(pool[name]))
+            for name in ("k", "v")}
+
+
+@torch.no_grad()
+def restore_shadow_blocks(pool, blocks, block_ids):
+    """Scatter shadowed blocks (a pool-structured tree of [N, L, KV,
+    bs(, Dh)] leaves) into `block_ids` ([N] int tensor): the inverse of
+    gather_shadow_blocks. The pool is written IN PLACE (index_copy_ on
+    each leaf, an int8 pool's fp32 scales with its data), so every CUDA
+    graph captured over it keeps reading the restored bytes. Pad rows
+    aimed at the trash block collide there, write-only. Returns the
+    pool."""
+    idx = block_ids.long()
+    for name in ("k", "v"):
+        pl, bl = pool[name], blocks[name]
+        pairs = ((pl.q, bl.q), (pl.s, bl.s)) if isinstance(pl, KVQuant) else ((pl, bl),)
+        for dst, src in pairs:
+            dst.index_copy_(1, idx, src.transpose(0, 1))
     return pool
 
 

@@ -1,0 +1,1158 @@
+"""Host-side crash-consistent KV shadow store: warm recovery for the
+paged fleet, and tiers 1+2 of the KV cache hierarchy. The JAX package's
+engine/shadow.py, copied, with one edge of its own: the device->host
+copy. put_async takes the port's gathered device tensors and starts
+their copy into pinned host memory with non_blocking=True behind one
+recorded CUDA event; the copier thread waits on that event (never the
+scheduler thread) and lands the bytes as numpy. bfloat16 has no numpy
+dtype, so a bf16 leaf lands as its int16 view (bit-exact; the engine
+views it back on restore). Leaf order is the JAX one: "k" then "v",
+each raw or KVQuant (q, s). Files written by the JAX package are not
+read by the port (their bf16 leaves are ml_dtypes arrays).
+
+Every recovery path this repro grew in PRs 5-8 — supervisor restarts,
+poison quarantine, graceful drain, router failover, rolling restarts —
+comes back COLD: the rebuilt pool holds no KV, so each salvaged request
+re-prefills its whole prompt and a drained replica respawns with an
+empty block-prefix cache. At production scale that is minutes of
+recomputed prefill per incident (the reference's recovery story is
+"restart the Colab"; preemptible TPU capacity makes restart cost a
+first-order serving metric — see PAPERS.md).
+
+Paged KV blocks are append-only and immutable once FILLED (decode and
+tail-prefill writes only ever land at later positions; the frozen-row
+overrun clamp only touches a request's own partial last block or the
+trash block — engine/paged.py), so the shadow works at block
+granularity:
+
+  * CAPTURE (worker thread, async): when a block fills — a whole-prefill
+    admission lands, a chunked-prefill launch crosses a block boundary,
+    or a fetched decode chunk shows a row crossed one — the engine
+    dispatches a small read-only device gather of the filled blocks
+    (engine/paged.gather_shadow_blocks, enqueued in launch order AFTER
+    the filling program, so device execution order guarantees the
+    gathered bytes are the block's final content) and hands the device
+    arrays to THIS module's copier thread. The device->host transfer
+    (the only blocking step) happens entirely off the scheduler loop;
+    the pending queue is bounded and overflow DEMOTES the batch straight
+    to the disk tier (and only a doubly-full queue drops it — a lost
+    shadow block costs a colder recovery, never correctness), so the
+    zero-host-sync launch invariants survive untouched — this module is
+    pinned decode-UNREACHABLE in the test_analysis.py callgraph fixture
+    exactly like utils/faults.py.
+  * KEYS are content: a block's key is the full token prefix it
+    completes (a tuple of ids, length a multiple of block_size). A
+    block's KV is a pure function of the token prefix under
+    teacher-forcing, so a content-keyed entry can never be stale and
+    restoring it into ANY rebuilt pool is bit-exact — the same
+    immutability argument engine/block_prefix.py makes for live block
+    sharing, extended across a pool rebuild. Entries are stamped with
+    the engine's mutation seq at capture (observability + persist
+    versioning; consistency never depends on the stamp).
+  * TIERS (ARCHITECTURE.md "Tiered KV"): the pool is tier 0 (HBM), the
+    in-memory entries here are tier 1 (host DRAM), and `disk_dir` adds
+    tier 2 — one self-describing npz chunk file per block, named by its
+    parent-chained digest (chunk_<digest>.npz, the same layout the
+    --restore-dir persist uses). Capacity eviction from tier 1 DEMOTES
+    to tier 2 instead of dropping; every read surface (entries_for /
+    chain_for_digest / select / has) falls through to tier 2 and
+    PROMOTES hits back into tier 1, so existing consumers (block-prefix
+    planning, warm recovery, preemption swap, the KV fabric)
+    transparently hit through the deepest tier. Content keying is what
+    keeps every tier trivially consistent: a chunk file is rejected
+    (and deleted) unless its own manifest tokens reproduce both its
+    filename digest and the key being looked up — a truncated,
+    tampered, or wrong-block-size file can only produce a MISS into the
+    next tier up (then a cold re-prefill), never wrong KV.
+  * RESTORE (supervisor restart): the engine flushes pending copies,
+    selects as many MRU chains as the fresh pool can hold — spanning
+    tiers 1 AND 2 — and scatters them back in ONE launch
+    (engine/paged.restore_shadow_blocks), then registers the chains
+    into the BlockPrefixIndex: salvaged requests re-admit through the
+    ordinary block-prefix hit machinery and re-prefill ONLY the partial
+    tail block.
+  * PERSIST (graceful drain): save()/load() serialize tier 1 to an
+    atomic npz under --restore-dir, so a rolling restart cycles the
+    replica back in with a WARM prefix cache. Tier 2 is already
+    persistent — a restart rescans it.
+  * WIRE (the cross-replica KV fabric, serving/kv_fabric.py): entries
+    are additionally indexed by their parent-chained chunk digest
+    (block_prefix.chunk_digests over the key), so a peer replica can
+    fetch a whole chain by digest through GET /kv/{digest} —
+    chain_for_digest / resident_digests / put_host are that surface,
+    and all of them span the disk tier. Content keying is what makes
+    this sound over the wire: the digest names the token prefix, the
+    fetcher recomputes it from the payload's tokens, and KV is a pure
+    function of the prefix — so a fetched chain is bit-identical to one
+    computed locally, or it is rejected.
+
+What is deliberately NOT shadowed: partial tail blocks (mutable until
+they fill), slot/sampling state (host-reconstructable from the salvage
+record), constraint FSM rows (re-derived by advancing the DFA over
+salvaged tokens), the trash block, and dense-fleet caches (no block
+immutability to lean on).
+"""
+
+from __future__ import annotations
+
+import collections
+import io
+import json
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils.logging import get_logger
+from .block_prefix import chunk_digests
+
+log = get_logger("shadow")
+
+_PERSIST_VERSION = 1
+_PERSIST_NAME = "shadow.npz"
+
+# tier-2 chunk files: one block per file, named by the parent-chained
+# digest of the full token prefix the block completes
+_DISK_VERSION = 1
+_DISK_PREFIX = "chunk_"
+_DISK_SUFFIX = ".npz"
+
+
+def _host_array(leaf) -> np.ndarray:
+    """A landed host leaf as numpy: a tensor's own copy (the pinned
+    buffer goes back to torch's host allocator), bf16 as its int16 view;
+    a host array as is."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.view(torch.int16)
+        return leaf.numpy().copy()
+    return np.asarray(leaf)
+
+
+class _HostCopy:
+    """One gathered batch on its way to the host. Built on the scheduler
+    thread: each CUDA leaf's copy into pinned memory starts there with
+    non_blocking=True, ordered behind the gather on the launch stream,
+    and one event is recorded behind them. land() runs on the copier
+    thread: it waits on that event and returns the numpy leaves."""
+
+    __slots__ = ("leaves", "event")
+
+    def __init__(self, dev_leaves):
+        self.leaves = []
+        self.event = None
+        for leaf in dev_leaves:
+            if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                host = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
+                host.copy_(leaf, non_blocking=True)
+                leaf = host
+                if self.event is None:
+                    self.event = torch.cuda.Event()
+            self.leaves.append(leaf)
+        if self.event is not None:
+            self.event.record()
+
+    def land(self) -> list:
+        if self.event is not None:
+            self.event.synchronize()
+        return [_host_array(leaf) for leaf in self.leaves]
+
+
+class _Entry:
+    __slots__ = ("leaves", "seq")
+
+    def __init__(self, leaves, seq):
+        self.leaves = leaves  # list of per-leaf np arrays (one block each)
+        self.seq = seq
+
+    def nbytes(self) -> int:
+        return sum(int(a.nbytes) for a in self.leaves)
+
+
+def _read_chunk_file(path: str, key: tuple, block_size: int) -> _Entry:
+    """Parse + content-verify one tier-2 chunk file: the file's own
+    manifest tokens must reproduce the key being looked up (and hence
+    the filename digest), its block_size must match, and its arrays
+    must parse. Raises on ANY mismatch — pure (no store state), so
+    promotion can fan reads out across threads without the lock."""
+    with np.load(path, allow_pickle=False) as z:
+        manifest = json.loads(str(z["manifest"]))
+        leaves = []
+        j = 0
+        while f"leaf_{j}" in z.files:
+            leaves.append(np.array(z[f"leaf_{j}"]))
+            j += 1
+    if manifest.get("version") != _DISK_VERSION:
+        raise ValueError(f"version {manifest.get('version')!r}")
+    if manifest.get("block_size") != block_size:
+        raise ValueError(
+            f"block_size {manifest.get('block_size')!r} != {block_size}"
+        )
+    toks = tuple(int(t) for t in manifest.get("t", ()))
+    if toks != key:
+        raise ValueError("manifest tokens do not reproduce the key")
+    if not leaves:
+        raise ValueError("no leaf arrays")
+    return _Entry(leaves, int(manifest.get("seq", 0)))
+
+
+class ShadowStore:
+    """Bounded LRU of host-side shadowed KV blocks, content-keyed by the
+    token prefix each block completes, with an optional disk tier
+    (`disk_dir`) LRU host entries demote into instead of dropping.
+
+    Single-writer discipline mirrors the allocator's: put_async /
+    select / drop_pending run on the continuous engine's worker thread,
+    the copier thread only consumes its own queue, and the lock exists
+    for stats()/save() readers on other threads. Disk files are written
+    on whichever thread evicts (small single-block npz) or on the
+    copier thread (backpressure spills), and read on the caller's
+    thread at promotion — never on the device path.
+
+    registry (utils/metrics.MetricsRegistry, optional):
+    `dli_shadow_blocks` (resident host-shadowed blocks),
+    `dli_shadow_copies_total` (blocks copied device->host),
+    `dli_shadow_dropped_total` (blocks dropped: doubly-full copier
+    queue or a failed transfer), plus the tier families
+    `dli_kv_tier_{entries,bytes}` (gauges, tier=host|disk) and
+    `dli_kv_tier_{promotions,demotions,disk_hits}_total` — families
+    pre-registered in engine/engine.py.
+    """
+
+    def __init__(self, block_size: int, max_blocks: int = 256,
+                 max_pending: int = 32, registry=None,
+                 disk_dir: Optional[str] = None,
+                 max_disk_blocks: int = 0):
+        if block_size < 1:
+            raise ValueError("shadow store needs block_size >= 1")
+        self.block_size = int(block_size)
+        self.max_blocks = max(1, int(max_blocks))
+        self.max_pending = max(1, int(max_pending))
+        self.disk_dir = disk_dir or None
+        # 0 = auto: 8x the host tier, so the logical cache is an order
+        # of magnitude deeper than host DRAM before files churn
+        self.max_disk_blocks = (
+            max(1, int(max_disk_blocks)) if max_disk_blocks
+            else 8 * self.max_blocks
+        )
+        # guarded-by: _lock
+        self._entries: "collections.OrderedDict[tuple, _Entry]" = (
+            collections.OrderedDict()
+        )
+        self._children: dict = {}  # key -> set of child keys; guarded-by: _lock
+        # chunk-digest index over the resident keys (the same parent-
+        # chained digests engine/block_prefix.chunk_digests exports for
+        # router affinity), so the KV fabric's /kv lookups are O(1)
+        # instead of a full-store digest sweep per request
+        self._digest_key: dict = {}  # digest hex -> key; guarded-by: _lock
+        # tier 2 index: key -> (digest, file bytes), LRU like _entries;
+        # plus the digest->key and parent->children views. All
+        # guarded-by: _lock — files themselves are only touched while
+        # the index says they exist.
+        self._disk: "collections.OrderedDict[tuple, tuple]" = (
+            collections.OrderedDict()
+        )
+        self._disk_digest: dict = {}  # guarded-by: _lock
+        self._disk_children: dict = {}  # guarded-by: _lock
+        self._disk_bytes = 0  # guarded-by: _lock
+        self._host_bytes = 0  # guarded-by: _lock
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        # copier queue: (keys, _HostCopy, seq, to_disk) batches; keys in
+        # _pending are visible to has() so the worker never re-captures
+        # a block whose copy is still in flight
+        self._q: collections.deque = collections.deque()
+        self._pending: set = set()
+        self._busy = False  # guarded-by: _lock
+        self._closed = False  # guarded-by: _lock
+        self.copied = 0
+        self.dropped = 0
+        self.evicted = 0
+        self.demoted = 0
+        self.promoted = 0
+        self.disk_hits = 0
+        self.disk_rejected = 0
+        self._m_blocks = self._m_copies = self._m_dropped = None
+        self._m_tier_entries: dict = {}
+        self._m_tier_bytes: dict = {}
+        self._m_promotions: dict = {}
+        self._m_demotions = self._m_disk_hits = None
+        if registry is not None:
+            self._m_blocks = registry.gauge(
+                "dli_shadow_blocks",
+                "host-shadowed paged-KV blocks resident for warm recovery",
+            ).labels()
+            self._m_copies = registry.counter(
+                "dli_shadow_copies_total",
+                "paged-KV blocks copied device->host into the shadow store",
+            ).labels()
+            self._m_dropped = registry.counter(
+                "dli_shadow_dropped_total",
+                "shadow blocks dropped (copier backpressure or a failed "
+                "device->host transfer)",
+            ).labels()
+            g_entries = registry.gauge(
+                "dli_kv_tier_entries",
+                "KV blocks resident per cache tier (host = shadow DRAM, "
+                "disk = persisted chunk files)", ("tier",),
+            )
+            g_bytes = registry.gauge(
+                "dli_kv_tier_bytes",
+                "approximate bytes resident per KV cache tier", ("tier",),
+            )
+            for tier in ("host", "disk"):
+                self._m_tier_entries[tier] = g_entries.labels(tier=tier)
+                self._m_tier_bytes[tier] = g_bytes.labels(tier=tier)
+            c_prom = registry.counter(
+                "dli_kv_tier_promotions_total",
+                "KV blocks promoted up the tier hierarchy, by destination "
+                "tier (host = disk->DRAM load, pool = scattered into HBM)",
+                ("tier",),
+            )
+            self._m_promotions = {
+                "host": c_prom.labels(tier="host"),
+                "pool": c_prom.labels(tier="pool"),
+            }
+            self._m_demotions = registry.counter(
+                "dli_kv_tier_demotions_total",
+                "KV blocks demoted down the tier hierarchy, by destination "
+                "tier (disk = host-LRU spill or copier-backpressure spill)",
+                ("tier",),
+            ).labels(tier="disk")
+            self._m_disk_hits = registry.counter(
+                "dli_kv_tier_disk_hits_total",
+                "lookups served from the disk tier (chunk files loaded and "
+                "verified on a read that missed the host tier)",
+            ).labels()
+        if self.disk_dir:
+            os.makedirs(self.disk_dir, exist_ok=True)
+            with self._lock:
+                self._disk_scan_locked()
+                self._note_tiers_locked()
+        self._thread = threading.Thread(
+            target=self._copier, daemon=True, name="shadow-copier"
+        )
+        self._thread.start()
+
+    # -- worker-thread surface ----------------------------------------------
+    def has(self, key: tuple) -> bool:
+        """True when `key` is resident in ANY tier OR its copy is
+        already in flight (capture dedup must not re-gather a block the
+        hierarchy can already restore)."""
+        with self._lock:
+            return (
+                key in self._entries or key in self._pending
+                or key in self._disk
+            )
+
+    def has_resident(self, key: tuple) -> bool:
+        """True only when `key` is restorable right now — landed in the
+        host tier or persisted in the disk tier (an in-flight copy is
+        not; preemption's swap path flushes first)."""
+        with self._lock:
+            return key in self._entries or key in self._disk
+
+    def entries_for(self, keys: list) -> Optional[list]:
+        """The resident entries for `keys` in order, or None when ANY is
+        missing from every tier (a targeted restore needs the whole
+        contiguous run — a chain with a hole cannot be registered).
+        Disk-tier members are loaded, verified, and PROMOTED into the
+        host tier first; a corrupt chunk file rejects into a miss.
+        Touches each entry MRU, like a hit."""
+        missing: list = []
+        with self._lock:
+            for k in keys:
+                if k in self._entries:
+                    continue
+                if k in self._disk:
+                    missing.append(k)
+                else:
+                    return None
+            if not missing:
+                out = []
+                for k in keys:
+                    e = self._entries[k]
+                    self._entries.move_to_end(k)
+                    out.append(e)
+                return out
+        if not self._promote_keys(missing):
+            return None
+        out = []
+        with self._lock:
+            for k in keys:
+                e = self._entries.get(k)
+                if e is None:  # promoted entry already churned out: miss
+                    return None
+                self._entries.move_to_end(k)
+                out.append(e)
+        return out
+
+    # -- chunk-digest surface (the KV fabric, serving/kv_fabric.py) ----------
+    def digest_of(self, key: tuple) -> str:
+        """The parent-chained chunk digest covering the whole of `key`
+        (engine/block_prefix.chunk_digests — the router tier's affinity
+        and residency currency). Content-addressed: two replicas holding
+        the same token prefix compute the same digest with no
+        coordination, which is what makes the digest a fetchable name."""
+        bs = self.block_size
+        return chunk_digests(key, bs, max_chunks=len(key) // bs)[-1]
+
+    def resident_digests(self, limit: int = 0) -> list:
+        """Digests of resident entries, MRU first, host tier before disk
+        (the /health residency bootstrap reads this so a router can
+        learn what a replica holds without ever having routed traffic
+        to it). limit > 0 caps the list — /health payloads must stay
+        O(1) however deep the disk tier grows."""
+        with self._lock:
+            out = []
+            seen = set()
+            for key in reversed(self._entries):
+                d = self.digest_of(key)
+                seen.add(d)
+                out.append(d)
+                if limit and len(out) >= limit:
+                    return out
+            for key in reversed(self._disk):
+                d = self._disk[key][0]
+                if d in seen:
+                    continue
+                out.append(d)
+                if limit and len(out) >= limit:
+                    break
+        return out
+
+    def digest_tier(self, digest: str) -> Optional[str]:
+        """The shallowest tier holding the chain tip `digest` names
+        ("host" | "disk" | None) — the serving side labels transfer
+        bytes and the X-KV-Tier response header off this."""
+        with self._lock:
+            if digest in self._digest_key:
+                return "host"
+            if digest in self._disk_digest:
+                return "disk"
+        return None
+
+    def chain_for_digest(self, digest: str) -> Optional[tuple]:
+        """(keys, entries) for the full resident chain ending at the key
+        `digest` names — parents first, the scatter/registration order a
+        fetching replica needs — or None when the digest is unknown in
+        every tier or the chain has a hole (a miss is a 404, never an
+        error). Disk-tier members promote into the host tier on the
+        way. O(1) digest lookup + O(depth) ancestor walk; touches each
+        entry MRU like a hit."""
+        bs = self.block_size
+        missing: list = []
+        with self._lock:
+            key = self._digest_key.get(digest)
+            if key is None:
+                key = self._disk_digest.get(digest)
+            if key is None:
+                return None
+            keys = [key[: (i + 1) * bs] for i in range(len(key) // bs)]
+            for k in keys:
+                if k in self._entries:
+                    continue
+                if k in self._disk:
+                    missing.append(k)
+                else:
+                    return None
+        if missing and not self._promote_keys(missing):
+            return None
+        out = []
+        with self._lock:
+            for k in keys:
+                e = self._entries.get(k)
+                if e is None:
+                    return None
+                self._entries.move_to_end(k)
+                out.append(e)
+        return keys, out
+
+    def put_host(self, keys: list, per_block_leaves: list, seq: int) -> int:
+        """Insert already-host-resident blocks (a chain fetched over the
+        KV fabric, or a peer's proactive POST /kv push): no copier hop —
+        the bytes are here. Same LRU/demotion discipline as a landed
+        copy, so a fetched chain becomes onward-servable through /kv
+        exactly like a locally captured one. Returns entries inserted."""
+        with self._lock:
+            if self._closed:
+                return 0
+            for key, leaves in zip(keys, per_block_leaves):
+                self._insert_locked(
+                    key, _Entry([np.asarray(a) for a in leaves], int(seq))
+                )
+            self._note_blocks_locked()
+            self._note_tiers_locked()
+        return len(keys)
+
+    def put_async(self, keys: list, dev_leaves: list, seq: int) -> bool:
+        """Hand one gathered batch to the copier. keys[i] is the token
+        prefix block i of the batch completes; dev_leaves are the
+        STACKED device tensors from gather_shadow_blocks (leaf order =
+        engine/paged.pool_leaves, the JAX tree order; row i of each
+        leaf is key i's block — rows past len(keys) are gather
+        padding); their copy to pinned host memory starts here, behind
+        one CUDA event (_HostCopy). NEVER blocks: a full queue marks
+        the batch spill-to-disk (the copier
+        lands it straight in tier 2 — a DEMOTION, not a loss), and only
+        a doubly-full queue (or no disk tier) drops the batch and
+        counts it. The doubled bound keeps the number of gathered
+        device arrays held alive by the queue strictly bounded."""
+        if not keys:
+            return True
+        with self._lock:
+            if self._closed:
+                return False
+            to_disk = False
+            if len(self._q) >= self.max_pending:
+                if self.disk_dir is None or (
+                    len(self._q) >= 2 * self.max_pending
+                ):
+                    self.dropped += len(keys)
+                    if self._m_dropped is not None:
+                        self._m_dropped.inc(len(keys))
+                    return False
+                to_disk = True
+            self._q.append((list(keys), _HostCopy(dev_leaves), int(seq),
+                            to_disk))
+            self._pending.update(keys)
+            self._cv.notify_all()
+        return True
+
+    def flush(self, timeout_s: float = 10.0) -> bool:
+        """Wait for every in-flight copy to land (restore/persist call
+        this so the recovery depth is deterministic). True when the
+        queue fully drained inside the timeout."""
+        import time
+
+        deadline = time.monotonic() + timeout_s
+        with self._lock:
+            while self._q or self._busy:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cv.wait(timeout=min(left, 0.1))
+        return True
+
+    def select(self, max_blocks: int) -> tuple:
+        """Pick up to `max_blocks` resident entries for a pool restore,
+        newest chains first, every selected entry's ancestors included
+        (a chain with a hole cannot be registered). Spans the disk
+        tier: once the host tier's chains are in, remaining budget
+        fills with MRU disk chains (loaded + verified here — a corrupt
+        file drops its chain, never the restore). Returns
+        (entries, leaf_keys): `entries` is [(key, leaves)] ordered
+        parents-before-children (the scatter/registration order),
+        `leaf_keys` the maximal keys — one per restored chain tip."""
+        if max_blocks <= 0:
+            return [], []
+        bs = self.block_size
+        chosen: dict = {}
+        with self._lock:
+            for key in reversed(self._entries):  # MRU first
+                if key in chosen:
+                    continue
+                chain = []
+                k = key
+                while len(k) > 0:
+                    if k in chosen:
+                        break
+                    e = self._entries.get(k)
+                    if e is None:
+                        chain = None  # hole (demotion should prevent this)
+                        break
+                    chain.append(k)
+                    k = k[:-bs]
+                if chain is None:
+                    continue
+                if len(chosen) + len(chain) > max_blocks:
+                    continue  # try a shorter chain further down the LRU
+                for k in chain:
+                    chosen[k] = self._entries[k]
+            # disk tier fills what is left: MRU chunk files, whole
+            # chains only, each file verified at load (tier-2 hit)
+            if self.disk_dir is not None and len(chosen) < max_blocks:
+                for key in list(reversed(self._disk)):
+                    if key in chosen or key in self._entries:
+                        continue
+                    chain = []
+                    k = key
+                    ok = True
+                    while len(k) > 0:
+                        if k in chosen:
+                            break
+                        if k in self._entries:
+                            chain.append((k, self._entries[k]))
+                        elif k in self._disk:
+                            chain.append((k, None))
+                        else:
+                            ok = False
+                            break
+                        k = k[:-bs]
+                    if not ok or len(chosen) + len(chain) > max_blocks:
+                        continue
+                    loaded = {}
+                    for k2, e in chain:
+                        if e is None:
+                            e2 = self._disk_load_locked(k2)
+                            if e2 is None:
+                                ok = False
+                                break
+                            loaded[k2] = e2
+                    if not ok:
+                        continue
+                    for k2, e in chain:
+                        chosen[k2] = e if e is not None else loaded[k2]
+            entries = sorted(chosen.items(), key=lambda kv: len(kv[0]))
+            selected = set(chosen)
+            leaf_keys = [
+                k for k in selected
+                if not any(
+                    c in selected
+                    for c in (
+                        set(self._children.get(k, ()))
+                        | set(self._disk_children.get(k, ()))
+                    )
+                )
+            ]
+            self._note_tiers_locked()
+        return entries, leaf_keys
+
+    def count_pool_promotion(self, n: int):
+        """Count `n` blocks entering tier 0 (scattered into pool HBM by
+        a restore / local promotion / fabric import) — the engine calls
+        this at its scatter sites; the store itself never touches HBM."""
+        if n > 0:
+            self.promoted += n
+            m = self._m_promotions.get("pool")
+            if m is not None:
+                m.inc(n)
+
+    # -- tier-2 internals ----------------------------------------------------
+    def _disk_path(self, digest: str) -> str:
+        return os.path.join(self.disk_dir, _DISK_PREFIX + digest + _DISK_SUFFIX)
+
+    def _promote_keys(self, keys: list) -> bool:
+        """Load `keys` from the disk tier and insert them into the host
+        tier (tier-2 hit -> tier-1 promotion). False when any key is
+        gone or its file fails verification — the caller treats the
+        whole lookup as a miss (next tier up: a cold re-prefill).
+        Chunk files are read and content-verified in PARALLEL outside
+        the lock — a deep chain's promotion latency IS tier 2's whole
+        hit cost, and one-np.load-at-a-time under the lock serializes
+        it — then inserted parents-first under it (rejection
+        bookkeeping stays lock-guarded, exactly as the sequential
+        path's)."""
+        with self._lock:
+            todo = []
+            for k in keys:
+                if k in self._entries:
+                    continue
+                ent = self._disk.get(k)
+                if ent is None:
+                    return False
+                todo.append((k, self._disk_path(ent[0])))
+        if not todo:
+            return True
+        bs = self.block_size
+
+        def _read(item):
+            k, path = item
+            try:
+                return k, _read_chunk_file(path, k, bs)
+            except Exception as e:  # noqa: BLE001 - judged under the lock
+                return k, e
+
+        if len(todo) > 1:
+            with ThreadPoolExecutor(
+                max_workers=min(8, len(todo))
+            ) as ex:
+                loaded = list(ex.map(_read, todo))
+        else:
+            loaded = [_read(todo[0])]
+        ok = True
+        with self._lock:
+            for k, res in loaded:
+                if isinstance(res, Exception):
+                    if k in self._disk:
+                        # a FILE failure (truncated/tampered/stale
+                        # format), not a racing LRU eviction: reject —
+                        # delete + cascade, count it — into a miss
+                        path = self._disk_path(self._disk[k][0])
+                        log.warning(
+                            "shadow_disk_rejected", error=str(res),
+                            path=path,
+                        )
+                        self.disk_rejected += 1
+                        self._disk_evict_subtree_locked(k)
+                        self._note_tiers_locked()
+                    ok = False
+                    continue
+                if k in self._entries:
+                    continue
+                if k not in self._disk:
+                    ok = False  # churned out between snapshot and read
+                    continue
+                self.disk_hits += 1
+                if self._m_disk_hits is not None:
+                    self._m_disk_hits.inc()
+                self.promoted += 1
+                m = self._m_promotions.get("host")
+                if m is not None:
+                    m.inc()
+                self._insert_locked(k, res)
+            self._note_blocks_locked()
+            self._note_tiers_locked()
+        return ok
+
+    def _disk_load_locked(self, key: tuple):  # guarded-by: _lock
+        """Read + VERIFY one chunk file. A truncated, tampered, or
+        wrong-block-size file REJECTS (file deleted, index dropped with
+        its disk descendants) into a miss, never wrong KV. Keeps the
+        disk copy on success: a later host eviction then skips the
+        rewrite."""
+        ent = self._disk.get(key)
+        if ent is None:
+            return None
+        digest, _nbytes = ent
+        path = self._disk_path(digest)
+        try:
+            return _read_chunk_file(path, key, self.block_size)
+        except Exception as e:  # noqa: BLE001 - a bad file is a MISS
+            log.warning("shadow_disk_rejected", error=str(e), path=path)
+            self.disk_rejected += 1
+            self._disk_evict_subtree_locked(key)
+            self._note_tiers_locked()
+            return None
+
+    # guarded-by: _lock
+    def _disk_write_locked(self, key: tuple, entry: _Entry,
+                           digest: str) -> bool:
+        """Persist one block as an atomic chunk file (tmp + rename, like
+        save()) and index it. False on an I/O failure — the demotion
+        becomes a plain drop, never an error."""
+        manifest = {
+            "version": _DISK_VERSION,
+            "block_size": self.block_size,
+            "t": [int(t) for t in key],
+            "seq": int(entry.seq),
+        }
+        arrays = {"manifest": np.array(json.dumps(manifest))}
+        for j, leaf in enumerate(entry.leaves):
+            arrays[f"leaf_{j}"] = np.asarray(leaf)
+        path = self._disk_path(digest)
+        tmp = os.path.join(
+            self.disk_dir, "." + _DISK_PREFIX + digest + ".tmp"
+        )
+        try:
+            buf = io.BytesIO()
+            np.savez(buf, **arrays)
+            data = buf.getvalue()
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, path)
+        except OSError as e:
+            log.warning("shadow_disk_write_failed", error=str(e), path=path)
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            return False
+        self._disk_insert_locked(key, digest, len(data))
+        return True
+
+    # guarded-by: _lock
+    def _disk_insert_locked(self, key: tuple, digest: str,
+                            nbytes: int):
+        if key in self._disk:
+            old = self._disk[key][1]
+            self._disk_bytes += nbytes - old
+            self._disk[key] = (digest, nbytes)
+            self._disk.move_to_end(key)
+            return
+        self._disk[key] = (digest, nbytes)
+        self._disk_digest[digest] = key
+        self._disk_bytes += nbytes
+        parent = key[: -self.block_size]
+        if parent:
+            self._disk_children.setdefault(parent, set()).add(key)
+        while len(self._disk) > self.max_disk_blocks:
+            victim = next(iter(self._disk))
+            if victim == key:
+                break  # never evict what we just inserted
+            self._disk_evict_subtree_locked(victim)
+
+    def _disk_evict_subtree_locked(self, key: tuple):  # guarded-by: _lock
+        """Disk-tier eviction cascades through DISK descendants, like
+        the host tier's: a disk chain with a missing interior block
+        cannot be promoted (host copies of a descendant, if any, stay —
+        the host tier keeps its own no-hole invariant independently)."""
+        ent = self._disk.pop(key, None)
+        if ent is None:
+            return
+        digest, nbytes = ent
+        self._disk_digest.pop(digest, None)
+        self._disk_bytes -= nbytes
+        parent = key[: -self.block_size]
+        sibs = self._disk_children.get(parent)
+        if sibs is not None:
+            sibs.discard(key)
+            if not sibs:
+                self._disk_children.pop(parent, None)
+        try:
+            os.remove(self._disk_path(digest))
+        except OSError:
+            pass
+        for child in list(self._disk_children.get(key, ())):
+            self._disk_evict_subtree_locked(child)
+        self._disk_children.pop(key, None)
+
+    def _disk_scan_locked(self):  # guarded-by: _lock
+        """Rebuild the tier-2 index from `disk_dir` at startup: every
+        chunk file whose manifest reproduces its filename digest joins,
+        mtime-ordered (oldest = coldest LRU position); invalid files
+        and orphaned descendants (parent file missing) are deleted.
+        Array payloads are NOT read here — np.load is lazy, so the scan
+        is O(files), not O(bytes); full verification happens per load."""
+        bs = self.block_size
+        found = []
+        try:
+            names = os.listdir(self.disk_dir)
+        except OSError as e:
+            log.warning("shadow_disk_scan_failed", error=str(e))
+            return
+        for name in names:
+            if not (name.startswith(_DISK_PREFIX)
+                    and name.endswith(_DISK_SUFFIX)):
+                continue
+            digest = name[len(_DISK_PREFIX):-len(_DISK_SUFFIX)]
+            path = os.path.join(self.disk_dir, name)
+            try:
+                with np.load(path, allow_pickle=False) as z:
+                    manifest = json.loads(str(z["manifest"]))
+                toks = tuple(int(t) for t in manifest.get("t", ()))
+                if (
+                    manifest.get("version") != _DISK_VERSION
+                    or manifest.get("block_size") != bs
+                    or not toks or len(toks) % bs
+                    or chunk_digests(
+                        toks, bs, max_chunks=len(toks) // bs
+                    )[-1] != digest
+                ):
+                    raise ValueError("manifest fails the content-key check")
+                st = os.stat(path)
+                found.append((st.st_mtime, toks, digest, st.st_size))
+            except Exception as e:  # noqa: BLE001 - a bad file is deleted
+                log.warning("shadow_disk_scan_rejected", path=path,
+                            error=str(e))
+                self.disk_rejected += 1
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+        # orphan filter: a chunk whose parent chunk is missing can never
+        # be promoted — delete it instead of carrying dead weight
+        keys = {toks for _, toks, _, _ in found}
+        kept = []
+        for item in sorted(found, key=lambda it: len(it[1])):
+            parent = item[1][:-bs]
+            if parent and parent not in keys:
+                keys.discard(item[1])
+                try:
+                    os.remove(self._disk_path(item[2]))
+                except OSError:
+                    pass
+                continue
+            kept.append(item)
+        for _, toks, digest, size in sorted(kept, key=lambda it: it[0]):
+            if toks in keys:
+                self._disk_insert_locked(toks, digest, int(size))
+        if self._disk:
+            log.info("shadow_disk_scanned", entries=len(self._disk),
+                     bytes=self._disk_bytes, dir=self.disk_dir)
+
+    # -- copier thread -------------------------------------------------------
+    def _copier(self):
+        while True:
+            with self._lock:
+                while not self._q and not self._closed:
+                    self._cv.wait()
+                if self._closed and not self._q:
+                    return
+                keys, copy, seq, to_disk = self._q.popleft()
+                self._busy = True
+            try:
+                # the one blocking wait on the device->host transfer,
+                # strictly off the scheduler thread
+                host = copy.land()
+                del copy  # its pinned buffers go back to torch's host allocator
+                per_block = [
+                    [leaf[i] for leaf in host] for i in range(len(keys))
+                ]
+            except Exception as e:  # noqa: BLE001 - a lost copy is only colder
+                log.warning("shadow_copy_failed", error=str(e))
+                with self._lock:
+                    self._pending.difference_update(keys)
+                    self.dropped += len(keys)
+                    if self._m_dropped is not None:
+                        self._m_dropped.inc(len(keys))
+                    self._busy = False
+                    self._cv.notify_all()
+                continue
+            with self._lock:
+                for key, leaves in zip(keys, per_block):
+                    if to_disk:
+                        # backpressure spill: land straight in tier 2
+                        # (a DEMOTION — the block stays restorable)
+                        if key not in self._entries and key not in self._disk:
+                            if self._disk_write_locked(
+                                key, _Entry(leaves, seq),
+                                self.digest_of(key),
+                            ):
+                                self.demoted += 1
+                                if self._m_demotions is not None:
+                                    self._m_demotions.inc()
+                    else:
+                        self._insert_locked(key, _Entry(leaves, seq))
+                self._pending.difference_update(keys)
+                self.copied += len(keys)
+                if self._m_copies is not None:
+                    self._m_copies.inc(len(keys))
+                self._note_blocks_locked()
+                self._note_tiers_locked()
+                self._busy = False
+                self._cv.notify_all()
+
+    def _insert_locked(self, key: tuple, entry: _Entry):  # guarded-by: _lock
+        if key in self._entries:
+            self._host_bytes += entry.nbytes() - self._entries[key].nbytes()
+            self._entries[key] = entry
+            self._entries.move_to_end(key)
+            return
+        self._entries[key] = entry
+        self._host_bytes += entry.nbytes()
+        self._digest_key[self.digest_of(key)] = key
+        parent = key[: -self.block_size]
+        if parent:
+            self._children.setdefault(parent, set()).add(key)
+        while len(self._entries) > self.max_blocks:
+            victim = next(iter(self._entries))
+            if victim == key:
+                break  # never evict what we just inserted
+            self._evict_subtree_locked(victim)
+
+    def _evict_subtree_locked(self, key: tuple):  # guarded-by: _lock
+        """Host-tier LRU eviction cascades through descendants, like the
+        block-prefix index's (a chain with a missing interior block can
+        never be restored from tier 1 alone — the no-hole invariant
+        save()/select() lean on stays per-tier). With a disk tier, the
+        whole evicted subtree DEMOTES: each block spills to a chunk
+        file (parents first — this recursion's natural order — so a
+        crash mid-spill leaves a valid chain prefix on disk, never an
+        orphan), and the chain stays promotable. Without one, eviction
+        drops, as before."""
+        entry = self._entries.get(key)
+        if entry is None:
+            return
+        del self._entries[key]
+        self._host_bytes -= entry.nbytes()
+        digest = self.digest_of(key)
+        self._digest_key.pop(digest, None)
+        parent = key[: -self.block_size]
+        sibs = self._children.get(parent)
+        if sibs is not None:
+            sibs.discard(key)
+            if not sibs:
+                self._children.pop(parent, None)
+        self.evicted += 1
+        if self.disk_dir is not None:
+            if key in self._disk:
+                self._disk.move_to_end(key)  # still persisted: no rewrite
+            elif self._disk_write_locked(key, entry, digest):
+                self.demoted += 1
+                if self._m_demotions is not None:
+                    self._m_demotions.inc()
+        for child in list(self._children.get(key, ())):
+            self._evict_subtree_locked(child)
+        self._children.pop(key, None)
+
+    def _note_blocks_locked(self):  # guarded-by: _lock
+        if self._m_blocks is not None:
+            self._m_blocks.set(len(self._entries))
+
+    def _note_tiers_locked(self):  # guarded-by: _lock
+        if self._m_tier_entries:
+            self._m_tier_entries["host"].set(len(self._entries))
+            self._m_tier_entries["disk"].set(len(self._disk))
+            self._m_tier_bytes["host"].set(self._host_bytes)
+            self._m_tier_bytes["disk"].set(self._disk_bytes)
+
+    def demote_host_tier(self) -> int:
+        """Spill every host-tier entry to the disk tier (parents-first —
+        the eviction cascade's natural order) and drop it from tier 1:
+        the graceful-drain shape. A restart over the same --kv-disk-dir
+        then promotes the working set back through tier 2 instead of
+        re-prefilling it. No-op (returns 0) without a disk tier; callers
+        should flush() first so in-flight copies are included. Returns
+        the number of chunk files newly written (entries already
+        persisted on disk spill for free)."""
+        with self._lock:
+            if self.disk_dir is None:
+                return 0
+            before = self.demoted
+            for key in list(self._entries):
+                self._evict_subtree_locked(key)
+            self._note_blocks_locked()
+            self._note_tiers_locked()
+            return self.demoted - before
+
+    # -- persistence (graceful drain / --restore-dir) ------------------------
+    def save(self, directory: str) -> int:
+        """Serialize every HOST-tier entry to `directory`/shadow.npz,
+        atomically (tmp + rename): a crash mid-save leaves the previous
+        file intact — the on-disk shadow is crash-consistent the same
+        way the in-memory one is. The disk tier needs no save — its
+        chunk files already are the persisted form. Returns entries
+        written."""
+        os.makedirs(directory, exist_ok=True)
+        bs = self.block_size
+        with self._lock:
+            ordered = sorted(
+                self._entries.items(),
+                key=lambda kv: len(kv[0]),
+            )
+            lru_pos = {k: i for i, k in enumerate(self._entries)}
+            snapshot = [
+                (k, [np.array(a) for a in e.leaves], e.seq, lru_pos[k])
+                for k, e in ordered
+            ]
+        idx = {k: i for i, (k, _, _, _) in enumerate(snapshot)}
+        manifest = {
+            "version": _PERSIST_VERSION,
+            "block_size": bs,
+            "entries": [
+                {
+                    "p": idx.get(k[:-bs], -1),
+                    "t": [int(t) for t in k[-bs:]],
+                    "seq": seq,
+                    "lru": lru,
+                }
+                for k, _, seq, lru in snapshot
+            ],
+        }
+        arrays = {"manifest": np.array(json.dumps(manifest))}
+        if snapshot:
+            n_leaves = len(snapshot[0][1])
+            for j in range(n_leaves):
+                arrays[f"leaf_{j}"] = np.stack(
+                    [leaves[j] for _, leaves, _, _ in snapshot]
+                )
+        tmp = os.path.join(directory, "." + _PERSIST_NAME + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, os.path.join(directory, _PERSIST_NAME))
+        log.info("shadow_saved", entries=len(snapshot), dir=directory)
+        return len(snapshot)
+
+    def load(self, directory: str) -> int:
+        """Load a persisted shadow (missing/invalid file = start cold,
+        never an error: a warm cache is an optimization). Returns
+        entries loaded."""
+        path = os.path.join(directory, _PERSIST_NAME)
+        if not os.path.exists(path):
+            return 0
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                manifest = json.loads(str(z["manifest"]))
+                if (
+                    manifest.get("version") != _PERSIST_VERSION
+                    or manifest.get("block_size") != self.block_size
+                ):
+                    log.warning(
+                        "shadow_load_skipped",
+                        reason="version/block_size mismatch", path=path,
+                    )
+                    return 0
+                ents = manifest.get("entries", [])
+                leaves = []
+                j = 0
+                while f"leaf_{j}" in z.files:
+                    leaves.append(z[f"leaf_{j}"])
+                    j += 1
+        except Exception as e:  # noqa: BLE001 - cold start beats crashing
+            log.warning("shadow_load_failed", error=str(e), path=path)
+            return 0
+        if not ents or not leaves or any(
+            leaf.shape[0] != len(ents) for leaf in leaves
+        ):
+            return 0
+        keys: list = []
+        for i, ent in enumerate(ents):
+            p = int(ent["p"])
+            if p >= i:  # parents-first ordering violated: corrupt
+                return 0
+            parent_key = keys[p] if p >= 0 else ()
+            keys.append(parent_key + tuple(int(t) for t in ent["t"]))
+        order = sorted(range(len(ents)), key=lambda i: ents[i]["lru"])
+        with self._lock:
+            for i in order:
+                self._insert_locked(
+                    keys[i],
+                    _Entry(
+                        [leaf[i] for leaf in leaves], int(ents[i]["seq"])
+                    ),
+                )
+            self._note_blocks_locked()
+            self._note_tiers_locked()
+            n = len(self._entries)
+        log.info("shadow_loaded", entries=n, dir=directory)
+        return n
+
+    # -- shared surface ------------------------------------------------------
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "blocks": len(self._entries),
+                "block_size": self.block_size,
+                "max_blocks": self.max_blocks,
+                "pending": len(self._pending),
+                "copied": self.copied,
+                "dropped": self.dropped,
+                "evicted": self.evicted,
+                "host_bytes": self._host_bytes,
+                "disk_dir": self.disk_dir,
+                "disk_blocks": len(self._disk),
+                "max_disk_blocks": (
+                    self.max_disk_blocks if self.disk_dir else 0
+                ),
+                "disk_bytes": self._disk_bytes,
+                "demoted": self.demoted,
+                "promoted": self.promoted,
+                "disk_hits": self.disk_hits,
+                "disk_rejected": self.disk_rejected,
+            }
+
+    def clear(self, disk: bool = False):
+        """Drop the host tier (and, with disk=True, the disk tier —
+        files included). The default keeps tier 2: a cleared host tier
+        (e.g. a failed restore's reset) can still promote persisted
+        chains back."""
+        with self._lock:
+            self._entries.clear()
+            self._children.clear()
+            self._digest_key.clear()
+            self._host_bytes = 0
+            if disk and self.disk_dir is not None:
+                for key in list(self._disk):
+                    self._disk_evict_subtree_locked(key)
+            self._note_blocks_locked()
+            self._note_tiers_locked()
+
+    def close(self):
+        with self._lock:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=5)

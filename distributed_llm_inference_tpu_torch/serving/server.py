@@ -14,8 +14,12 @@ KV pool with `--kv-pool-blocks M`, else over the dense slot cache; `/stats`
 nests its stats under "continuous".
 `--faults SPEC` (or the DLI_FAULTS environment variable) arms the
 fault-injection harness (utils/faults.py) for chaos drills of the fleet's
-supervisor. The queue, the OpenAI routes and the KV fabric arrive with
-later slices.
+supervisor. `--prefix-cache N` gives the paged fleet its block-prefix
+cache and, unless `--no-kv-shadow`, the KV shadow (warm crash recovery
+and "swap" resumes; `--restore-dir DIR` persists it across a drain,
+`--kv-disk-dir DIR` adds the disk tier); `/stats` then carries
+`continuous.prefix_cache` and `continuous.shadow`. The queue, the OpenAI
+routes and the KV fabric (`/kv`, 501) arrive with later slices.
 
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --attn-impl auto
@@ -23,6 +27,10 @@ later slices.
         --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
         --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
         --continuous-max-seq 1024
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
+        --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
+        --continuous-max-seq 1024 --prefix-cache 8 --restore-dir warm/
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
         --quant int4 --kv-quant int8 --continuous 8 --kv-pool-blocks 513 \\
@@ -58,12 +66,17 @@ _NOT_PORTED_ROUTES = {
     "/v1/completions": 'ROADMAP.md "Solo-engine features"',
     "/v1/chat/completions": 'ROADMAP.md "Solo-engine features"',
     "/debug/traces": 'ROADMAP.md "Fleet tier"',
+    # the cross-replica KV fabric's routes: GET /kv, GET /kv/{digest}, POST /kv
+    "/kv": 'ROADMAP.md "KV fabric"',
 }
 
 
 def _not_ported_route(path: str) -> Optional[dict]:
     """The 501 body for a JAX-server route the port lacks, else None."""
-    key = "/debug/traces" if path.startswith("/debug/traces") else path
+    key = path
+    for prefix in ("/debug/traces", "/kv"):
+        if path == prefix or path.startswith(prefix + "/"):
+            key = prefix
     item = _NOT_PORTED_ROUTES.get(key)
     if item is None:
         return None
@@ -712,6 +725,46 @@ def main(argv: Optional[list] = None):
              "letting it take the fleet down with it",
     )
     ap.add_argument(
+        "--prefix-cache", type=int, default=0, metavar="N",
+        help="block-prefix cache of the paged fleet (engine/block_prefix.py, "
+             "needs --continuous and --kv-pool-blocks): a request whose "
+             "prompt head matches a cached chain of full blocks maps them "
+             "and prefills only its tail (the solo engine's own prefix "
+             "cache is not ported and refuses solo requests)",
+    )
+    ap.add_argument(
+        "--restore-dir", default=None, metavar="DIR",
+        help="warm-state persistence for the paged fleet (engine/shadow.py): "
+             "a graceful drain (SIGTERM) saves the shadowed KV blocks and "
+             "their block-prefix chains here, and startup restores them "
+             "into the fresh pool, so the fleet rejoins with a WARM prefix "
+             "cache (needs --prefix-cache > 0); a crash writes "
+             "flight_crash.json here",
+    )
+    ap.add_argument(
+        "--no-kv-shadow", action="store_true",
+        help="disable the warm-recovery shadow store (supervisor restarts "
+             "and --restore-dir starts then recover cold, re-prefilling "
+             "every salvaged request from its full prompt)",
+    )
+    ap.add_argument(
+        "--kv-disk-dir", default=None, metavar="DIR",
+        help="disk tier of the KV cache hierarchy: LRU-evicted host-shadow "
+             "entries demote into parent-chained chunk files here instead "
+             "of dropping, and admission promotes a chain back out. "
+             "Default: no disk tier",
+    )
+    ap.add_argument(
+        "--kv-disk-blocks", type=int, default=0, metavar="N",
+        help="disk-tier bound in blocks (chunk files, LRU). 0 = auto: 8x "
+             "the host shadow tier",
+    )
+    ap.add_argument(
+        "--no-kv-fabric", action="store_true",
+        help="accepted for the JAX server's command lines: the port serves "
+             "no cross-replica KV fabric yet (ROADMAP.md \"KV fabric\")",
+    )
+    ap.add_argument(
         "--faults", default=None, metavar="SPEC",
         help="arm the deterministic fault-injection harness "
              "(utils/faults.py), e.g. 'decode_launch:transient:on=3'; "
@@ -739,7 +792,14 @@ def main(argv: Optional[list] = None):
         tokenizer = load_tokenizer(args.tokenizer, strict=True)
     engine = create_engine(
         args.model,
-        engine_cfg=EngineConfig(request_deadline_s=args.deadline),
+        engine_cfg=EngineConfig(
+            request_deadline_s=args.deadline,
+            prefix_cache_entries=args.prefix_cache,
+            kv_shadow=not args.no_kv_shadow,
+            kv_fabric=not args.no_kv_fabric,
+            kv_disk_dir=args.kv_disk_dir,
+            kv_disk_blocks=args.kv_disk_blocks,
+        ),
         dtype=args.dtype,
         quant=args.quant,
         kv_quant=args.kv_quant,
@@ -757,6 +817,7 @@ def main(argv: Optional[list] = None):
             chunk_lag=args.continuous_lag, slot_max_seq=args.continuous_max_seq,
             kv_pool_blocks=args.kv_pool_blocks, kv_block_size=args.kv_block_size,
             restart_budget=args.restart_budget, poison_strikes=args.poison_strikes,
+            restore_dir=args.restore_dir,
         )
     InferenceServer(
         engine, args.host, args.port, args.max_tokens_cap,

@@ -341,6 +341,63 @@ def register_supervisor_metrics(registry: MetricsRegistry):
     )
 
 
+def register_kv_cache_metrics(registry: MetricsRegistry):
+    """The block-prefix index's, the KV shadow's and the tier hierarchy's
+    families with the JAX package's names, unlabeled, registered up front
+    by the engine as the JAX engine does (engine/block_prefix.py and
+    engine/shadow.py label them when a fleet builds them). Returns the
+    two the fleet itself increments: shadowed blocks restored into the
+    pool, and ragged prefix hits reused at exact depth."""
+    m = registry
+    m.counter("dli_prefix_cache_hits_total",
+              "prefix-cache hits (tail actually planned and spliced)", ("scope",))
+    m.counter("dli_prefix_cache_misses_total", "prefix-cache misses", ("scope",))
+    m.counter("dli_prefix_cache_evictions_total",
+              "prefix snapshots evicted by the LRU bound", ("scope",))
+    m.gauge("dli_prefix_cache_entries", "resident prefix snapshots", ("scope",))
+    m.counter("dli_prefix_tail_copies_total",
+              "prefix-hit admissions that prefilled a private tail past the "
+              "mapped shared head")
+    m.counter("dli_prefix_dedup_saved_tokens_total",
+              "prompt tokens served by mapping shared blocks instead of "
+              "prefilling them")
+    m.gauge("dli_shadow_blocks",
+            "host-shadowed paged-KV blocks resident for warm recovery")
+    m.counter("dli_shadow_copies_total",
+              "paged-KV blocks copied device->host into the shadow store")
+    m.counter("dli_shadow_dropped_total",
+              "shadow blocks dropped (copier backpressure or a failed "
+              "device->host transfer)")
+    m.gauge("dli_kv_tier_entries",
+            "KV blocks resident per cache tier (host = shadow DRAM, disk = "
+            "persisted chunk files)", ("tier",))
+    m.gauge("dli_kv_tier_bytes", "approximate bytes resident per KV cache tier",
+            ("tier",))
+    m.counter("dli_kv_tier_promotions_total",
+              "KV blocks promoted up the tier hierarchy, by destination tier "
+              "(host = disk->DRAM load, pool = scattered into HBM)", ("tier",))
+    m.counter("dli_kv_tier_demotions_total",
+              "KV blocks demoted down the tier hierarchy, by destination tier "
+              "(disk = host-LRU spill or copier-backpressure spill)", ("tier",))
+    m.counter("dli_kv_tier_disk_hits_total",
+              "lookups served from the disk tier (chunk files loaded and "
+              "verified on a read that missed the host tier)")
+    import types
+
+    return types.SimpleNamespace(
+        shadow_restored=m.counter(
+            "dli_shadow_restored_blocks_total",
+            "shadowed blocks scattered back into a rebuilt pool (supervisor "
+            "restart or --restore-dir start)",
+        ),
+        ragged_exact=m.counter(
+            "dli_ragged_exact_prefix_hits_total",
+            "prefix hits reused at exact chunk depth (no bucket degradation "
+            "— the ragged path's planner win)",
+        ),
+    )
+
+
 def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
     """The families the continuous paged fleet (engine/continuous.py)
     increments, registered once with the JAX package's names: fleet
@@ -352,6 +409,7 @@ def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
     m = registry
     m.gauge("dli_slots_total", "continuous-fleet decode slots").labels().set(n_slots)
     sup = register_supervisor_metrics(m)
+    kv = register_kv_cache_metrics(m)
     return types.SimpleNamespace(
         occupied=m.gauge(
             "dli_slots_occupied", "continuous-fleet slots serving a request"
@@ -413,4 +471,7 @@ def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
         poison=sup.poison.labels(engine="continuous"),
         drain=sup.drain.labels(component="continuous"),
         recovery_recomputed=sup.recovery_recomputed.labels(engine="continuous"),
+        # the block-prefix cache and the KV shadow
+        shadow_restored=kv.shadow_restored.labels(),
+        ragged_exact=kv.ragged_exact.labels(),
     )

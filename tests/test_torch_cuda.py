@@ -1100,3 +1100,118 @@ def test_fleet_serves_through_one_graph_per_launch_kind(card):
     assert g["mixed_launch"]["replays"] == launches["mixed"] - 1 >= 1
     assert g["decode_chunk"]["replays"] == launches["decode_chunks"] - 1 >= 1
     assert launched == [L * launches["mixed"], L * 4 * launches["decode_chunks"]]
+
+
+# -- the KV shadow's movers on the card (engine/shadow.py, engine/paged.py) -------
+
+def _upload(card, a):
+    """A host array to the card as the fleet uploads it: pinned, non_blocking."""
+    import numpy as np
+
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(card, non_blocking=True)
+
+
+@pytest.mark.parametrize("quant", list(GRAPH_QUANT))
+def test_shadow_restore_in_place_is_read_by_a_replayed_mixed_launch(card, quant):
+    """Blocks captured through the shadow store (bf16 through its int16
+    carrier) and scattered back with restore_shadow_blocks land in the
+    static pool IN PLACE: the mixed launch captured before the restore
+    replays over the restored bytes, bit-equal to the eager body on a clone
+    of the restored buffers, and the pool keeps its storage."""
+    import numpy as np
+
+    from distributed_llm_inference_tpu_torch.engine import graphs
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+    from distributed_llm_inference_tpu_torch.engine.shadow import ShadowStore
+
+    engine = create_engine("test-llama-tiny", attn_impl="auto", seed=3, device=card,
+                           dtype="bfloat16", **GRAPH_QUANT[quant])
+    bufs, run = _graph_case(card, "mixed_arming", engine)
+    gen = torch.Generator(device=card).manual_seed(11)
+    lg = graphs.LaunchGraph(lambda: run(bufs, gen), "mixed_arming", card, gen)
+    lg()  # the warm launch, then the capture
+    pool = bufs["cache"]
+    ptrs = [t.data_ptr() for t in P.pool_leaves(pool)]
+    # another pool's blocks through the store, into slot 0's head blocks
+    donor = _clone(pool)
+    for leaf in P.pool_leaves(donor):
+        leaf.copy_(leaf.flip(1))
+    src = [int(b) for b in bufs["table"][1, :3].tolist()]
+    dst = [int(b) for b in bufs["table"][0, :3].tolist()]
+    store = ShadowStore(16, max_blocks=8)
+    try:
+        keys = [tuple(range(16 * (i + 1))) for i in range(3)]
+        dev = P.gather_shadow_blocks(donor, _upload(card, np.asarray(src, np.int32)))
+        assert store.put_async(keys, P.pool_leaves(dev), 0) and store.flush(10.0)
+        entries = store.entries_for(keys)
+    finally:
+        store.close()
+    stacked = []
+    for j, like in enumerate(P.pool_leaves(pool)):
+        t = torch.from_numpy(np.stack([e.leaves[j] for e in entries]))
+        if like.dtype == torch.bfloat16:
+            assert t.dtype == torch.int16
+            t = t.view(torch.bfloat16)
+        stacked.append(t.pin_memory().to(card, non_blocking=True))
+    P.restore_shadow_blocks(pool, P.pool_from_leaves(pool, stacked),
+                            _upload(card, np.asarray(dst, np.int32)))
+    for a, b in zip(P.pool_leaves(pool), P.pool_leaves(donor)):
+        assert torch.equal(a[:, dst], b[:, src])
+    assert [t.data_ptr() for t in P.pool_leaves(pool)] == ptrs
+    ref = _clone(bufs)
+    g2 = torch.Generator(device=card)
+    g2.set_state(gen.get_state())
+    got = lg().clone()
+    want = run(ref, g2)
+    torch.cuda.synchronize()
+    assert lg.replays == 1 and torch.equal(got, want)
+    for a, b in zip(_tensors(bufs["state"]), _tensors(ref["state"])):
+        assert torch.equal(a, b)
+    lg.close()
+
+
+def test_shadow_capture_after_a_mixed_launch_syncs_no_host(card):
+    """One replayed mixed launch, then the capture it triggers (the block
+    gather, put_async's copy into pinned memory behind an event) under
+    torch.cuda.set_sync_debug_mode("error"): no host sync on the calling
+    thread; the copier thread lands the blocks' exact bytes."""
+    import numpy as np
+
+    from distributed_llm_inference_tpu_torch.engine import graphs
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+    from distributed_llm_inference_tpu_torch.engine.shadow import ShadowStore
+
+    engine = create_engine("test-llama-tiny", attn_impl="auto", seed=3, device=card,
+                           dtype="bfloat16")
+    bufs, run = _graph_case(card, "mixed_arming", engine)
+    gen = torch.Generator(device=card).manual_seed(11)
+    lg = graphs.LaunchGraph(lambda: run(bufs, gen), "mixed_arming", card, gen)
+    lg()
+    store = ShadowStore(16, max_blocks=16)
+    blocks = [int(b) for b in bufs["table"][3, :2].tolist()] * 4  # 8 rows, padded
+    keys = [(1,) * 16, (1,) * 32]
+    try:
+        store.put_async([(0,) * 16], P.pool_leaves(P.gather_shadow_blocks(
+            bufs["cache"], _upload(card, np.asarray(blocks, np.int32)))), 0)
+        assert store.flush(10.0)  # the pinned allocator warmed
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lg()
+            ids = _upload(card, np.asarray(blocks, np.int32))
+            dev = P.gather_shadow_blocks(bufs["cache"], ids)
+            assert store.put_async(keys, P.pool_leaves(dev), 1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert store.flush(10.0)
+        entries = store.entries_for(keys)
+    finally:
+        store.close()
+    torch.cuda.synchronize()
+    for j, leaf in enumerate(P.pool_leaves(bufs["cache"])):
+        for e, b in zip(entries, blocks[:2]):
+            host = torch.from_numpy(e.leaves[j])
+            if leaf.dtype == torch.bfloat16:
+                host = host.view(torch.bfloat16)
+            assert torch.equal(host, leaf[:, b].cpu())
+    lg.close()

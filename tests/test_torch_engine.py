@@ -90,8 +90,14 @@ def test_unported_request_features_are_invalid_requests(engines):
                {"constraint": {"regex": "a+"}}):
         r = port.generate("hi", max_tokens=4, **kw)
         assert r["error_type"] == "invalid_request" and "ROADMAP" in r["error"]
-    with pytest.raises(ValueError, match="prefix"):
-        create_engine(MODEL, engine_cfg=EngineConfig(prefix_cache_entries=2), device="cpu")
+    # the solo engine's own prefix cache is not ported: an engine with
+    # prefix_cache_entries > 0 (whose paged fleet serves the block-prefix
+    # cache) refuses a solo request by name
+    prefixed = create_engine(MODEL, engine_cfg=EngineConfig(prefix_cache_entries=2),
+                             device="cpu")
+    r = prefixed.generate("hi", max_tokens=4)
+    assert r["error_type"] == "invalid_request" and "prefix" in r["error"]
+    assert "ROADMAP" in r["error"]
     with pytest.raises(NotImplementedError):
         from distributed_llm_inference_tpu_torch.config import MeshConfig
 

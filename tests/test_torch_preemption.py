@@ -3,8 +3,9 @@
 The cases of tests/test_preemption.py, run through the JAX ContinuousEngine
 and the port's on the CPU with the same weights (test-llama-tiny, fp32, no
 EOS, params from the reference's init_params carried over by
-models/bridge.py) and no prefix cache in either (the port has none yet; the
-JAX preemption works without one, "swap" then recomputing). A pool of 10
+models/bridge.py), with no prefix cache in either ("swap" then recomputes)
+unless a case says so: the warm swap case gives both fleets the
+block-prefix cache and the KV shadow. A pool of 10
 blocks of 8 tokens cannot hold the long request A (35 ids + 24 tokens) and
 B (35 ids + 10) at once, so B can only be placed by preempting A: the
 greedy token ids, the envelopes' `preempted` / `recovered`, the preemption
@@ -181,6 +182,44 @@ def test_preempt_resume_bit_exact_as_in_jax(weights, unpressured, policy):
     assert jst["preemption"]["preempted_total"] >= 1
     assert tst["preemption"]["preempted_total"] >= 1
     assert jclean and tclean
+
+
+def _restored(eng) -> float:
+    """dli_shadow_restored_blocks_total in either package."""
+    if hasattr(eng.metrics, "snapshot"):
+        series = eng.metrics.snapshot().get("dli_shadow_restored_blocks_total", {})
+        return sum(s["value"] for s in series.get("series", []))
+    return sum(c.value for _, c in
+               eng.metrics.get("dli_shadow_restored_blocks_total")._items())
+
+
+@pytest.mark.parametrize("policy", ["swap", "recompute"])
+def test_preempt_resume_bit_exact_warm_as_in_jax(weights, unpressured, policy):
+    """tests/test_preemption.py's test_preempt_resume_bit_exact, whose
+    engines carry the block-prefix cache (prefix_cache_entries=8) and, under
+    "swap", the KV shadow: the victim's filled blocks go to the shadow when
+    it is preempted and its resume restores them (restored blocks rise, as
+    many as in the JAX fleet); both finish with the unpressured ids and
+    every block free or cached."""
+    jeng, teng = _engines(weights, prefix_cache_entries=8, preempt_policy=policy)
+    got = {}
+    for name, mod, eng in (("jax", JC, jeng), ("port", TC, teng)):
+        cont = _cont(mod, eng, kv_shadow=policy == "swap")
+        try:
+            restored0 = _restored(eng)
+            ra, rb = _contended_pair(cont)
+            got[name] = (ra, rb, cont.preempted_total, _restored(eng) - restored0,
+                         _pool_clean(cont))
+        finally:
+            cont.close()
+    (ja, jb, jn, jrest, jclean), (ta, tb, tn, trest, tclean) = got["jax"], got["port"]
+    assert ta["token_ids"] == _ids(ja) == unpressured[PROMPT_A]
+    assert tb["token_ids"] == _ids(jb) == unpressured[PROMPT_B]
+    assert tn == jn >= 1 and trest == jrest and jclean and tclean
+    if policy == "swap":
+        assert trest > 0  # the victim's chain came back through the shadow
+    else:
+        assert trest == 0
 
 
 def test_preempted_envelope_and_stats_as_in_jax(weights):
