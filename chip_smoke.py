@@ -169,8 +169,42 @@ server:
       an admission promotes it back (a `tier_promote` event), the same
       tokens.
 
+Run after (v), before (j), on (v)'s fleet with a second replica:
+
+  (w) the cross-replica KV fabric. The holder is the port's server CLI in
+      a subprocess on the same card (`--continuous 8 --kv-pool-blocks 513
+      --kv-block-size 16 --continuous-max-seq 1024 --prefix-cache 8`, the
+      same model and seed), killed at the end; the pullers are fleets in
+      this process, so their launch counters can be read. First a cold
+      greedy request gives the same tokens on both (the same weights).
+      (w1) five 512-token heads registered on the holder (a handoff's
+      phase 1: answered once the shadow copies landed); for each, a
+      612-token greedy request with the router's X-KV-Transfer-Peer /
+      -Digest hint on the streamed and on the whole-blob puller: 32 blocks
+      imported, a hit at 512, fabric fetches / hits / misses +1 / +1 / +0,
+      the tokens of a cold fleet and of the holder's own hit, the two
+      paged kernels launched n_layers times per mixed launch and per
+      decode step and nothing else, each graph captured once; medians of
+      5 of the remote hit's TTFT (streamed and whole-blob), a local hit's
+      and a cold run's, the pull's prefetch, wire and scatter ms (and the
+      page-locking inside the scatter), its bytes and MB/s over loopback;
+      (w2) a wave of 8 hinted requests behind one remote head: one fetch,
+      one hit, the rest hit the imported chain; then a wave on the local
+      head; (w3) the handoff: phase 1 on the holder with X-KV-Prefill-Only
+      and X-KV-Push-To the puller, phase 2 on the puller with the hint: the
+      pushed chain promoted, no fetch, the cold tokens; (w4) a dead peer, a
+      digest the holder lacks and an int8 holder (`--kv-quant int8`, a
+      second subprocess) against the raw puller: each a counted miss
+      (flight event hit false) inside the fetch deadline with the cold
+      tokens; then an int8 puller's remote hit on the int8 holder, the int8
+      cold tokens; (w5) a remote hit of the bucketed whole-prefill
+      admission from a bucketed peer in this process (whose cold run wrote
+      the head): flash_attend n_layers times for its one tail chunk, the
+      cold bucketed fleet's tokens.
+
 `python3 chip_smoke.py --only s` runs (a), then (s), (t) and (u) alone on
-the raw engine (about two minutes); `--only v` runs (a), then (v) alone.
+the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
+`--only w` runs (a), then (w) alone.
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
@@ -527,10 +561,10 @@ def phase_b(torch, timer, fa, int8=False):
     return rows
 
 
-def post(port, body, timeout=600):
+def post(port, body, timeout=600, headers=None):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"},
+        headers={"Content-Type": "application/json", **(headers or {})},
     )
     t0 = time.perf_counter()
     try:
@@ -3366,13 +3400,569 @@ def phase_v(torch, engine, pa, fa, Q, P, G, smi):
         "v2": v2, "v3": v3, "v4": v4}}))
 
 
+W_HEADS = 5  # (w1)'s distinct 512-token heads, one remote hit each
+W_REGISTER_TAIL = 8  # the registering request's tail: under a block, so its
+# deepest digest names the head's 32 blocks
+W_TAIL = 100  # the hinted request's tail: 612 tokens in all
+# (w2)'s wave: tails under one block, so every request's reusable depth is
+# the head's and the seven after the first find the imported chain local (a
+# prompt a block or more past the hinted chain fetches again, as in the JAX
+# fleet: the peer might hold a deeper chain)
+W_WAVE_TAILS = (8, 9, 10, 11, 12, 13, 14, 15)
+W_DIR = "build/chip_smoke_w"  # the holders' logs (gitignored)
+# the holder: the port's server CLI with (g)'s fleet and the prefix cache, the
+# same model and seed as the in-process engine, so the same weights
+W_HOLDER = ["--model", MODEL, "--dtype", "bfloat16", "--attn-impl", "auto", "--seed", "0",
+            "--continuous", str(FLEET["n_slots"]), "--kv-pool-blocks",
+            str(FLEET["kv_pool_blocks"]), "--kv-block-size", str(BLOCK),
+            "--continuous-max-seq", str(FLEET["slot_max_seq"]), "--prefix-cache", "8",
+            "--max-tokens-cap", "512"]
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class Holder:
+    """A second replica on the same card: the port's server CLI in a
+    subprocess on a port of its own, its output in W_DIR. Fails (and is
+    killed) if it does not answer /health; close() stops it."""
+
+    def __init__(self, name: str, extra=()):
+        import os
+
+        os.makedirs(W_DIR, exist_ok=True)
+        self.name = name
+        self.port = free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.log_path = f"{W_DIR}/{name}.log"
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_llm_inference_tpu_torch.serving.server",
+             *W_HOLDER, *extra, "--host", "127.0.0.1", "--port", str(self.port)],
+            stdout=self._log, stderr=subprocess.STDOUT)
+        t0 = time.time()
+        try:
+            while True:
+                check(self.proc.poll() is None,
+                      f"(w) the {name} exited with {self.proc.returncode}: {self.tail()}")
+                try:
+                    get(self.port, "/health")
+                    break
+                except OSError:
+                    pass
+                check(time.time() - t0 < 300, f"(w) the {name} did not start: {self.tail()}")
+                time.sleep(0.25)
+        except BaseException:
+            self.close()
+            raise
+        self.start_s = time.time() - t0
+
+    def tail(self) -> str:
+        self._log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-3000:]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=15)
+        self._log.close()
+
+
+def w_hint(holder, digest: str) -> dict:
+    """A router's fetch hint: the peer holding the chain, and its digest."""
+    return {"X-KV-Transfer-Peer": holder.url, "X-KV-Transfer-Digest": digest}
+
+
+def w_register(engine, holder, head: str, tag: str) -> str:
+    """Serve head + a sub-block tail on the holder as a handoff's phase 1
+    (X-KV-Prefill-Only: answered once its shadow copies have landed) and
+    return its deepest digest, which names the head's 32 blocks."""
+    from distributed_llm_inference_tpu_torch.serving import kv_fabric as kvf
+
+    code, r, _ = post(holder.port, v_body(head + v_tail(tag, W_REGISTER_TAIL)),
+                      headers={"X-KV-Prefill-Only": "1"})
+    check(code == 200 and r.get("prefill_only") is True, f"(w) {holder.name} {tag}: {r}")
+    want = kvf.chain_digest(engine.tokenizer.encode(head), BLOCK)
+    check(r.get("kv_digests", [None])[-1] == want,
+          f"(w) {holder.name} {tag}: digests {r.get('kv_digests')}, the head's {want}")
+    w_settle(holder)
+    return want
+
+
+def w_settle(holder):
+    """Let a peer on the same card go quiet before a timed request: idle,
+    then the decode chunks it launched ahead (chunk_lag, ~60 ms each) out
+    of the way."""
+    wait_idle(holder.port)
+    time.sleep(0.3)
+
+
+class PullSpy:
+    """The puller's worker-thread host time, per request: in the fabric's
+    prefetch (the fetch and the import), in the scatters into the pool, and
+    in page-locking host memory inside those scatters (pin_memory)."""
+
+    def __init__(self, torch, fleet):
+        import threading
+
+        self.prefetch = v_timed(fleet, "_fabric_prefetch")
+        self.pin = [0.0, 0]
+        inside = threading.local()
+        inner = fleet._scatter_shadow
+        self.scatter = [0.0, 0]
+
+        def scatter(*a, **k):
+            inside.on = True
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **k)
+            finally:
+                inside.on = False
+                self.scatter[0] += time.perf_counter() - t0
+                self.scatter[1] += 1
+
+        fleet._scatter_shadow = scatter
+        pin = torch.Tensor.pin_memory
+
+        def timed_pin(t, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return pin(t, *a, **k)
+            finally:
+                if getattr(inside, "on", False):
+                    self.pin[0] += time.perf_counter() - t0
+                    self.pin[1] += 1
+
+        self._restore = lambda: setattr(torch.Tensor, "pin_memory", pin)
+        torch.Tensor.pin_memory = timed_pin
+
+    def reset(self):
+        for x in (self.prefetch, self.scatter, self.pin):
+            x[:] = [0.0, 0]
+
+    def ms(self) -> dict:
+        return {"prefetch_ms": self.prefetch[0] * 1e3, "scatter_ms": self.scatter[0] * 1e3,
+                "pin_ms": self.pin[0] * 1e3}
+
+    def close(self):
+        self._restore()
+
+
+def w_fabric(port) -> dict:
+    return get(port, "/stats")[1]["continuous"]["kv_fabric"]
+
+
+def w_quiesce(*fleets):
+    for f in fleets:
+        v_quiesce(f)
+
+
+def phase_w1(torch, engine, pa, fa, Q, holder, cold, pull, whole, smi):
+    """The remote hit: W_HEADS heads registered on the holder; for each, the
+    612-token request on the cold fleet, on the holder (its own hit), on the
+    streamed and the whole-blob pullers with the hint, and a local hit on the
+    streamed puller; tokens, imported blocks, launches, the pull's numbers."""
+    L = engine.cfg.n_layers
+    (cold_f, cold_s), (pull_f, pull_s), (whole_f, whole_s) = cold, pull, whole
+    fleets = (cold_f, pull_f, whole_f)
+    spies = {"streamed": PullSpy(torch, pull_f), "whole": PullSpy(torch, whole_f)}
+    rows = {k: [] for k in ("cold", "local", "streamed", "whole")}
+    try:
+        for i in range(W_HEADS):
+            head = v_head(10 + i)
+            digest = w_register(engine, holder, head, f"register {i}")
+            body = v_body(head + v_tail(f"remote {i}", W_TAIL))
+            code, own, _ = post(holder.port, body)
+            check(code == 200 and own.get("prefix_cached_tokens") == V_HEAD,
+                  f"(w1) the holder's own hit {i}: {own}")
+            w_settle(holder)
+            w_quiesce(*fleets)
+            code, c, _ = post(cold_s.port, body)
+            check(code == 200, f"(w1) cold {i}: {c}")
+            rows["cold"].append(dict(ttft=c["ttft_s"]))
+            for name, (f, srv) in (("streamed", pull), ("whole", whole)):
+                spy = spies[name]
+                before = get(srv.port, "/stats")[1]["continuous"]
+                w_quiesce(*fleets)
+                spy.reset()
+                reset_counts(pa, fa, Q)
+                code, r, _ = post(srv.port, body, headers=w_hint(holder, digest))
+                after = wait_idle(srv.port)["continuous"]
+                w_quiesce(*fleets)
+                launches = read_counts(pa, fa, Q)
+                fab0, fab = before["kv_fabric"], after["kv_fabric"]
+                nbytes = fab["bytes"] - fab0["bytes"]
+                mixed = after["launches"]["mixed"] - before["launches"]["mixed"]
+                chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+                t = spy.ms()
+                row = dict(ttft=r.get("ttft_s"), bytes=nbytes, mixed=mixed, chunks=chunks,
+                           **t, wire_ms=t["prefetch_ms"] - t["scatter_ms"])
+                row["mb_per_s"] = nbytes / 1e6 / (row["wire_ms"] / 1e3)
+                rows[name].append(row)
+                print(f"(w1) head {i} {name} remote hit: HTTP {code} kv_fabric_blocks="
+                      f"{r.get('kv_fabric_blocks')} prefix_cached_tokens="
+                      f"{r.get('prefix_cached_tokens')} ttft_s={r.get('ttft_s')}; prefetch "
+                      f"{t['prefetch_ms']:.2f} ms (scatter {t['scatter_ms']:.2f}, of it pinning "
+                      f"{t['pin_ms']:.2f}; wire, decode and recheck {row['wire_ms']:.2f}), "
+                      f"{nbytes} bytes = {row['mb_per_s']:.1f} MB/s; {mixed} mixed launches, "
+                      f"{chunks} decode chunks, kernel launches {json.dumps(launches)}; tokens "
+                      + ("identical" if r.get("token_ids") == c["token_ids"] else
+                         f"part at {parts_at(r.get('token_ids', []), c['token_ids'])}")
+                      + " to cold, " + ("identical" if r.get("token_ids") == own["token_ids"]
+                                        else "NOT identical")
+                      + f" to the holder's own hit ({smi})")
+                check(code == 200 and r.get("kv_fabric_blocks") == V_HEAD // BLOCK
+                      and r.get("prefix_cached_tokens") == V_HEAD,
+                      f"(w1) {name} {i}: not a remote hit of the head: {r}")
+                check((fab["fetches"] - fab0["fetches"], fab["hits"] - fab0["hits"],
+                       fab["misses"] - fab0["misses"]) == (1, 1, 0),
+                      f"(w1) {name} {i}: fabric counts {fab0} -> {fab}")
+                check(r["token_ids"] == c["token_ids"] == own["token_ids"],
+                      f"(w1) {name} {i}: the remote hit's tokens are not the cold run's "
+                      f"and the holder's own hit's")
+                check(launches["ragged_paged_attend"] == L * mixed > 0,
+                      f"(w1) {name} {i}: ragged_paged_attend {launches['ragged_paged_attend']} "
+                      f"for {mixed} mixed launches")
+                check(launches["paged_flash_attend"] == L * FLEET["chunk_steps"] * chunks > 0,
+                      f"(w1) {name} {i}: paged_flash_attend {launches['paged_flash_attend']} "
+                      f"for {chunks} decode chunks")
+                check(not any(v for k, v in launches.items()
+                              if k not in ("ragged_paged_attend", "paged_flash_attend")),
+                      f"(w1) {name} {i}: another kernel ran: {launches}")
+            w_quiesce(*fleets)
+            code, loc, _ = post(pull_s.port, v_body(head + v_tail(f"local {i}", W_TAIL)))
+            check(code == 200 and loc.get("prefix_cached_tokens") == V_HEAD
+                  and "kv_fabric_blocks" not in loc, f"(w1) local hit {i}: {loc}")
+            rows["local"].append(dict(ttft=loc["ttft_s"]))
+        for name, (_, srv) in (("streamed", pull), ("whole", whole)):
+            graphs = get(srv.port, "/stats")[1]["continuous"]["graphs"]
+            check(all(g["captures"] == 1 for g in graphs.values()),
+                  f"(w1) {name}: a graph was captured again: {graphs}")
+    finally:
+        for spy in spies.values():
+            spy.close()
+    med = {name: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+           for name, rs in rows.items()}
+    print(f"(w1) TTFT of a {V_HEAD}+{W_TAIL}-token greedy request, medians of {W_HEADS}, each "
+          f"from an idle fleet: remote hit streamed {med['streamed']['ttft'] * 1e3:.1f} ms, "
+          f"whole-blob {med['whole']['ttft'] * 1e3:.1f} ms, local hit "
+          f"{med['local']['ttft'] * 1e3:.1f} ms, cold {med['cold']['ttft'] * 1e3:.1f} ms; the "
+          f"pull (streamed / whole-blob): prefetch {med['streamed']['prefetch_ms']:.2f} / "
+          f"{med['whole']['prefetch_ms']:.2f} ms, wire, decode and recheck "
+          f"{med['streamed']['wire_ms']:.2f} / {med['whole']['wire_ms']:.2f} ms, "
+          f"{med['streamed']['bytes']:.0f} / {med['whole']['bytes']:.0f} bytes, "
+          f"{med['streamed']['mb_per_s']:.1f} / {med['whole']['mb_per_s']:.1f} MB/s over "
+          f"loopback, scatter {med['streamed']['scatter_ms']:.2f} / "
+          f"{med['whole']['scatter_ms']:.2f} ms (pinning {med['streamed']['pin_ms']:.2f} / "
+          f"{med['whole']['pin_ms']:.2f}) ({smi})")
+    return dict(medians=med, ttfts={k: [r["ttft"] for r in rs] for k, rs in rows.items()})
+
+
+def w_wave(port, bodies, headers=None):
+    """POST the bodies at once: (results, wave seconds)."""
+    import threading
+
+    results = [None] * len(bodies)
+
+    def run(i):
+        results[i] = post(port, bodies[i], headers=headers)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, time.perf_counter() - t0
+
+
+def phase_w2(engine, holder, pull, smi):
+    """A wave of 8 on the puller behind one remote head, every request
+    hinted: one fetch, one hit, the other seven hit the imported chain;
+    then a wave of fresh tails on the same head, now local."""
+    pull_f, pull_s = pull
+    head = v_head(20)
+    digest = w_register(engine, holder, head, "register wave")
+    out = {}
+    for name, hint in (("remote head", w_hint(holder, digest)), ("local head", None)):
+        bodies = [v_body(head + v_tail(f"{name} {i}", n), greedy=i % 2 == 0)
+                  for i, n in enumerate(W_WAVE_TAILS)]
+        v_quiesce(pull_f)
+        fab0 = w_fabric(pull_s.port)
+        results, wave_s = w_wave(pull_s.port, bodies, hint)
+        wait_idle(pull_s.port)
+        fab = w_fabric(pull_s.port)
+        n_tok = 0
+        for i, (code, r, _) in enumerate(results):
+            check(code == 200 and r.get("prefix_cached_tokens") == V_HEAD,
+                  f"(w2) {name} {i}: {r}")
+            n_tok += r["tokens_generated"]
+        imported = [r.get("kv_fabric_blocks") for _, r, _ in results]
+        delta = (fab["fetches"] - fab0["fetches"], fab["hits"] - fab0["hits"],
+                 fab["misses"] - fab0["misses"])
+        out[name] = n_tok / wave_s
+        print(f"(w2) a wave of {len(bodies)} on a {name}: {n_tok} tokens in {wave_s:.3f} s = "
+              f"{out[name]:.2f} tokens/s aggregate; fabric fetches, hits, misses {delta}; "
+              f"kv_fabric_blocks {imported} ({smi})")
+        want = (1, 1, 0) if hint else (0, 0, 0)
+        check(delta == want, f"(w2) {name}: fabric counts {delta}, not {want}")
+        want_imported = [V_HEAD // BLOCK] + [0] * 7 if hint else [0] * 8
+        check(sorted((x or 0 for x in imported), reverse=True) == want_imported,
+              f"(w2) {name}: imported {imported}")
+    return out
+
+
+def phase_w3(engine, holder, cold, pull, smi):
+    """The handoff as a router runs it: phase 1 on the holder (prefill
+    only, pushing the chain to the puller), phase 2 on the puller with the
+    hint: the pushed chain promoted, no fetch, the cold run's tokens."""
+    (cold_f, cold_s), (pull_f, pull_s) = cold, pull
+    body = v_body(v_head(21) + v_tail("handoff", W_TAIL))
+    code, p1, wall1 = post(holder.port, body, headers={
+        "X-KV-Prefill-Only": "1", "X-KV-Push-To": f"http://127.0.0.1:{pull_s.port}"})
+    check(code == 200 and p1.get("prefill_only") is True and p1.get("kv_pushed", 0) > 0,
+          f"(w3) phase 1: {p1}")
+    w_settle(holder)
+    w_quiesce(cold_f, pull_f)
+    code, c, _ = post(cold_s.port, body)
+    w_quiesce(cold_f, pull_f)
+    fab0 = w_fabric(pull_s.port)
+    code, p2, _ = post(pull_s.port, body, headers=w_hint(holder, p1["kv_digests"][-1]))
+    fab = w_fabric(pull_s.port)
+    print(f"(w3) phase 1 on the holder: {p1['tokens_generated']} token, pushed "
+          f"{p1['kv_pushed']} blocks to the puller, wall {wall1:.3f} s; phase 2 on the "
+          f"puller: kv_promoted_blocks={p2.get('kv_promoted_blocks')} prefix_cached_tokens="
+          f"{p2.get('prefix_cached_tokens')} fetches +{fab['fetches'] - fab0['fetches']} "
+          f"ttft_s={p2.get('ttft_s')} (cold {c['ttft_s']}); tokens "
+          + ("identical" if p2.get("token_ids") == c["token_ids"] else "NOT identical")
+          + f" to cold ({smi})")
+    check(code == 200 and p2.get("kv_promoted_blocks", 0) > 0, f"(w3) phase 2: {p2}")
+    check(fab["fetches"] == fab0["fetches"], "(w3) phase 2 pulled the pushed chain")
+    check(p2["token_ids"] == c["token_ids"], "(w3) phase 2's tokens are not the cold run's")
+    return dict(pushed=p1["kv_pushed"], promoted=p2["kv_promoted_blocks"],
+                ttft=p2["ttft_s"], cold_ttft=c["ttft_s"])
+
+
+def phase_w4(torch, engine, holder, cold, pull, smi):
+    """The ladder on the card: a dead peer, a digest the holder does not
+    have, and an int8 holder's chain against the raw puller each end in a
+    counted miss and the cold run's tokens within the fetch deadline; then
+    an int8 puller's remote hit on the int8 holder, the int8 cold tokens."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    (cold_f, cold_s), (pull_f, pull_s) = cold, pull
+    timeout_s = pull_f._fabric.timeout_s
+    spy = PullSpy(torch, pull_f)
+    holder8 = Holder("int8 holder", ["--kv-quant", "int8"])
+    rows = {}
+    try:
+        print(f"(w4) the int8 holder up in {holder8.start_s:.1f} s on :{holder8.port}")
+        digest8 = w_register(engine, holder8, v_head(24), "register int8")
+        cases = (("dead peer", v_head(22), lambda h: {
+                     "X-KV-Transfer-Peer": f"http://127.0.0.1:{free_port()}",
+                     "X-KV-Transfer-Digest": kv_digest(engine, h)}),
+                 ("404 digest", v_head(23), lambda h: w_hint(holder, "0" * 16)),
+                 ("int8 holder, raw puller", v_head(24), lambda h: w_hint(holder8, digest8)))
+        for name, head, hint in cases:
+            body = v_body(head + v_tail(name, W_TAIL))
+            w_quiesce(cold_f, pull_f)
+            code, c, _ = post(cold_s.port, body)
+            w_quiesce(cold_f, pull_f)
+            fab0 = w_fabric(pull_s.port)
+            spy.reset()
+            code, r, wall = post(pull_s.port, body, headers=hint(head))
+            fab = w_fabric(pull_s.port)
+            delta = (fab["fetches"] - fab0["fetches"], fab["hits"] - fab0["hits"],
+                     fab["misses"] - fab0["misses"])
+            ev = [e for e in pull_f.engine.flight.dump()["events"]
+                  if e["kind"] == "fabric_fetch"][-1]
+            prefetch_s = spy.prefetch[0]
+            print(f"(w4) {name}: HTTP {code} fabric fetches, hits, misses {delta}; flight "
+                  f"event hit={ev['hit']}; prefetch {prefetch_s * 1e3:.1f} ms (deadline "
+                  f"{timeout_s:g} s); prefix_cached_tokens={r.get('prefix_cached_tokens')}; "
+                  f"ttft_s={r.get('ttft_s')} (cold {c['ttft_s']}); tokens "
+                  + ("identical" if r.get("token_ids") == c["token_ids"] else "NOT identical")
+                  + f" to cold ({smi})")
+            check(code == 200 and "kv_fabric_blocks" not in r, f"(w4) {name}: {r}")
+            check(delta == (1, 0, 1) and ev["hit"] is False,
+                  f"(w4) {name}: not a counted miss: {delta} {ev}")
+            check(prefetch_s < timeout_s, f"(w4) {name}: the fetch took {prefetch_s:.3f} s")
+            check(r["token_ids"] == c["token_ids"], f"(w4) {name}: tokens are not cold's")
+            rows[name] = dict(prefetch_ms=prefetch_s * 1e3, ttft=r["ttft_s"])
+        # int8 to int8: the same weights, an int8 pool in process
+        eng8 = create_engine(engine.cfg, params=engine.backend.params, device=DEVICE,
+                             kv_quant="int8", engine_cfg=EngineConfig(
+                                 prefill_buckets=PREFILL_BUCKETS, prefix_cache_entries=8))
+        body = v_body(v_head(24) + v_tail("int8 to int8", W_TAIL))
+        code, own8, _ = post(holder8.port, body)
+        check(code == 200 and own8.get("prefix_cached_tokens") == V_HEAD,
+              f"(w4) the int8 holder's own hit: {own8}")
+        w_settle(holder8)
+        tokens = {}
+        for name, kw, hint in (("int8 cold", {"kv_shadow": False}, None),
+                               ("int8 remote hit", {}, w_hint(holder8, digest8))):
+            f, srv = fleet_server(eng8, FLEET, **kw)
+            try:
+                check(f.warmup()["ok"], f"(w4) {name} warmup")
+                code, r, _ = post(srv.port, body, headers=hint)
+                check(code == 200, f"(w4) {name}: {r}")
+                tokens[name] = r["token_ids"]
+                if hint:
+                    fab = get(srv.port, "/stats")[1]["continuous"]["kv_fabric"]
+                    print(f"(w4) {name}: kv_fabric_blocks={r.get('kv_fabric_blocks')} "
+                          f"fetches, hits, misses {(fab['fetches'], fab['hits'], fab['misses'])}"
+                          f" {fab['bytes']} bytes ttft_s={r.get('ttft_s')}; tokens "
+                          + ("identical" if r["token_ids"] == tokens["int8 cold"]
+                             else "NOT identical") + f" to int8 cold ({smi})")
+                    check(r.get("kv_fabric_blocks") == V_HEAD // BLOCK
+                          and (fab["hits"], fab["misses"]) == (1, 0),
+                          f"(w4) {name}: not a remote hit: {r} {fab}")
+                    rows[name] = dict(bytes=fab["bytes"], ttft=r["ttft_s"])
+            finally:
+                srv.shutdown()
+        check(tokens["int8 remote hit"] == tokens["int8 cold"] == own8["token_ids"],
+              "(w4) int8 to int8: the remote hit's tokens are not the int8 cold run's and "
+              "the int8 holder's own hit's")
+    finally:
+        spy.close()
+        holder8.close()
+    return rows
+
+
+def kv_digest(engine, head: str) -> str:
+    from distributed_llm_inference_tpu_torch.serving import kv_fabric as kvf
+
+    return kvf.chain_digest(engine.tokenizer.encode(head), BLOCK)
+
+
+def phase_w5(engine, pa, fa, Q, smi):
+    """A remote hit of the bucketed whole-prefill admission ((v2)'s fleet):
+    flash_attend n_layers times for its one tail chunk over the scratch
+    gathered from the imported blocks; the cold bucketed fleet's tokens.
+    The peer is a bucketed fleet in this process, so its cold run wrote the
+    head with the cold run's own extend chunks (a ragged holder's bf16 K/V
+    rounds otherwise)."""
+    import types
+
+    L = engine.cfg.n_layers
+    flags = dict(ragged_prefill=False, chunked_prefill=False)
+    head = v_head(25)
+    body = v_body(head + v_tail("bucketed remote hit", W_TAIL))
+    peer_f, peer_s = fleet_server(v_engine(engine, prefix_cache_entries=8, **flags), FLEET)
+    out = {}
+    try:
+        check(peer_f.warmup()["ok"], "(w5) the bucketed peer's warmup")
+        peer = types.SimpleNamespace(name="bucketed peer", port=peer_s.port,
+                                     url=f"http://127.0.0.1:{peer_s.port}")
+        digest = w_register(engine, peer, head, "register bucketed")
+        for name, prefix, hint in (("cold", 0, None), ("remote hit", 8, w_hint(peer, digest))):
+            fleet, server = fleet_server(v_engine(engine, prefix_cache_entries=prefix,
+                                                  **flags), FLEET)
+            try:
+                check(fleet.warmup()["ok"], f"(w5) {name} warmup")
+                before = wait_idle(server.port)["continuous"]
+                w_quiesce(fleet, peer_f)
+                reset_counts(pa, fa, Q)
+                code, r, _ = post(server.port, body, headers=hint)
+                after = wait_idle(server.port)["continuous"]
+                w_quiesce(fleet, peer_f)
+                launches = read_counts(pa, fa, Q)
+                chunks = (after["launches"]["decode_chunks"]
+                          - before["launches"]["decode_chunks"])
+                print(f"(w5) bucketed {name}: HTTP {code} kv_fabric_blocks="
+                      f"{r.get('kv_fabric_blocks')} prefix_cached_tokens="
+                      f"{r.get('prefix_cached_tokens')} prefill_chunks="
+                      f"{r.get('prefill_chunks')} ttft_s={r.get('ttft_s')}; kernel launches "
+                      f"{json.dumps(launches)}; graphs {json.dumps(after['graphs'])} ({smi})")
+                check(code == 200, f"(w5) {name}: {r}")
+                check(launches["flash_attend"] == L * r["prefill_chunks"] > 0,
+                      f"(w5) {name}: flash_attend {launches['flash_attend']} for "
+                      f"{r['prefill_chunks']} T>1 chunks")
+                check(launches["paged_flash_attend"] == L * FLEET["chunk_steps"] * chunks,
+                      f"(w5) {name}: paged_flash_attend {launches['paged_flash_attend']}")
+                check(all(g["captures"] == 1 for g in after["graphs"].values()),
+                      f"(w5) {name}: graphs {after['graphs']}")
+                if hint:
+                    check(r.get("kv_fabric_blocks") == V_HEAD // BLOCK
+                          and r.get("prefix_cached_tokens") == V_HEAD
+                          and r["prefill_chunks"] == 1, f"(w5) not a remote hit: {r}")
+                out[name] = dict(tokens=r["token_ids"], launches=launches, ttft=r["ttft_s"])
+            finally:
+                server.shutdown()
+    finally:
+        peer_s.shutdown()
+    at = parts_at(out["remote hit"]["tokens"], out["cold"]["tokens"])
+    print("(w5) bucketed remote hit vs cold greedy tokens: "
+          + ("identical" if at is None else f"part at token {at}") + f" ({smi})")
+    check(at is None, "(w5) the bucketed remote hit's tokens are not the cold bucketed run's")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in out.items()}
+
+
+def phase_w(torch, engine, pa, fa, Q, smi):
+    """The cross-replica KV fabric on the paged fleet: a holder replica in a
+    subprocess and pullers in process, on the same card and weights."""
+    t0 = time.time()
+    holder = Holder("holder")
+    out = {}
+    try:
+        print(f"(w) the holder (the port's server CLI, {' '.join(W_HOLDER)}) up in "
+              f"{holder.start_s:.1f} s on :{holder.port}")
+        cold = fleet_server(engine, FLEET)  # no prefix cache: the cold runs
+        pull = fleet_server(v_engine(engine, prefix_cache_entries=8), FLEET)
+        whole = fleet_server(v_engine(engine, prefix_cache_entries=8,
+                                      kv_fabric_stream=False), FLEET)
+        try:
+            for name, (f, _) in (("cold", cold), ("puller", pull), ("whole-blob", whole)):
+                check(f.warmup()["ok"], f"(w) {name} warmup")
+                check(name == "cold" or f.fabric_serving, f"(w) {name}: no fabric")
+            # the same weights in both processes, or a remote hit proves nothing
+            body = v_body(fleet_prompt(99, W_TAIL))
+            code, h, _ = post(holder.port, body)
+            w_settle(holder)
+            code2, c, _ = post(cold[1].port, body)
+            print(f"(w) a cold greedy request on the holder and in process: tokens "
+                  + ("identical" if h.get("token_ids") == c.get("token_ids") else
+                     "NOT identical") + f" ({smi})")
+            check(code == code2 == 200 and h["token_ids"] == c["token_ids"],
+                  "(w) the holder and the in-process engine draw different weights")
+            out["w1"] = phase_w1(torch, engine, pa, fa, Q, holder, cold, pull, whole, smi)
+            out["w2"] = phase_w2(engine, holder, pull, smi)
+            out["w3"] = phase_w3(engine, holder, cold, pull, smi)
+            out["w4"] = phase_w4(torch, engine, holder, cold, pull, smi)
+            for name, (_, srv) in (("puller", pull), ("whole-blob", whole)):
+                graphs = get(srv.port, "/stats")[1]["continuous"]["graphs"]
+                check(all(g["captures"] == 1 for g in graphs.values()),
+                      f"(w) {name}: a graph was captured again: {graphs}")
+        finally:
+            for _, srv in (cold, pull, whole):
+                srv.shutdown()
+    finally:
+        holder.close()
+    out["w5"] = phase_w5(engine, pa, fa, Q, smi)
+    print(f"(w) took {time.time() - t0:.1f} s")
+    print("(w) " + json.dumps({"kv_fabric": out}))
+
+
 def main(argv) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v"],
+    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -3384,7 +3974,8 @@ def main(argv) -> int:
                          "(s), (t) and (u) on the raw engine (s): a quick check "
                          "of the fleet's preemption, supervisor and health sweep; "
                          "or (v) on the raw engine (v): the block-prefix cache "
-                         "and the KV shadow")
+                         "and the KV shadow; or (w) on the raw engine (w): the "
+                         "cross-replica KV fabric")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -3455,7 +4046,7 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
-    if args.only not in ("s", "v"):
+    if args.only not in ("s", "v", "w"):
         # (b) the kernel against its twin
         phase_b(torch, timer, fa)
 
@@ -3479,6 +4070,12 @@ def main(argv) -> int:
               f"{time.time() - t0:.1f} s")
         phase_v(torch, engine, pa, fa, Q, P, G, smi)
         print(f"(v) total {time.time() - t_start:.1f} s")
+        return 0
+    if args.only == "w":
+        print(f"(w) {MODEL} bf16, random weights (seed 0), built in "
+              f"{time.time() - t0:.1f} s")
+        phase_w(torch, engine, pa, fa, Q, smi)
+        print(f"(w) total {time.time() - t_start:.1f} s")
         return 0
     cfg = engine.cfg
     print(f"(c) {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
@@ -3557,6 +4154,10 @@ def main(argv) -> int:
     # (v) the block-prefix cache and the KV shadow on the paged fleet
     phase_v(torch, engine, pa, fa, Q, P, G, smi)
     print(f"(v) total {time.time() - t_start:.1f} s")
+
+    # (w) the cross-replica KV fabric: a holder replica and in-process pullers
+    phase_w(torch, engine, pa, fa, Q, smi)
+    print(f"(w) total {time.time() - t_start:.1f} s")
 
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)

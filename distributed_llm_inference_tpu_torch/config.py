@@ -287,16 +287,26 @@ class EngineConfig:
     # so a full pool's worth of warm chains survives one generation of
     # churn.
     kv_shadow_blocks: int = 0
-    # Cross-replica KV fabric (the JAX serving/kv_fabric.py): accepted
-    # with the JAX default, but the port serves no fabric yet (ROADMAP.md
-    # "KV fabric"): the fleet reports fabric_serving false, the /kv
-    # routes answer 501 and a router's X-KV-Transfer-* hint is ignored,
-    # which is the JAX ladder's own outcome when a fetch fails (a local
-    # prefill with the same tokens).
+    # Cross-replica KV fabric (serving/kv_fabric.py): serve this replica's
+    # shadowed KV chains by chunk digest on GET /kv/{digest}, accept a
+    # peer's pushed chain on POST /kv, and honor a router's
+    # X-KV-Transfer-* hint by pulling the missing prefix from the
+    # resident peer (scattered into the pool in place) instead of
+    # re-prefilling it. Needs the shadow's stack (paged fleet + block-
+    # prefix index); False keeps the shadow purely local.
     kv_fabric: bool = True
-    # Hard deadline on one fabric fetch (unused until the fabric is
-    # ported).
+    # Hard deadline on one fabric fetch, end to end: a dead or wedged
+    # peer costs at most this long, then admission prefills locally (the
+    # fallback ladder never errors).
     kv_fabric_timeout_s: float = 5.0
+    # Streamed pulls: chunk-at-a-time frames with a per-chunk digest
+    # recheck, each batch scattered as it arrives. False pins the
+    # whole-blob pull (also the automatic fallback against a peer that
+    # answers whole-blob).
+    kv_fabric_stream: bool = True
+    # Cap on the resident digests /health advertises for a router's
+    # residency bootstrap (MRU first, host tier before disk).
+    kv_health_digests: int = 64
     # Disk tier of the KV cache hierarchy: a directory of persisted
     # parent-chained chunk files (chunk_<digest>.npz) that LRU-evicted
     # host-shadow entries DEMOTE into instead of dropping, and every
@@ -324,8 +334,12 @@ class EngineConfig:
     # Livelock guard: a request preempted this many times becomes immune
     # (it keeps its blocks until completion; admission waits instead).
     max_preemptions_per_req: int = 2
-    # Replica specialization label ("prefill" | "decode" | "mixed"),
-    # reported on /health.
+    # Replica specialization class for prefill/decode disaggregation
+    # ("prefill" | "decode" | "mixed"): a router sends fresh long-prompt
+    # work to prefill-class replicas and hands the finished prefix (by
+    # digest, over the fabric) to a decode-class replica. Engine-side it
+    # only labels /health and the dli_kv_fabric_* metrics' role; the
+    # fleet refuses any other value.
     replica_class: str = "mixed"
     # Per-tenant prefill-budget weights, ((tenant, weight), ...): within
     # each SLO class's tile grant the chunked-prefill scheduler splits
@@ -342,6 +356,11 @@ class EngineConfig:
         if self.kv_disk_blocks < 0:
             raise ValueError(
                 f"kv_disk_blocks must be >= 0, got {self.kv_disk_blocks}"
+            )
+        if self.kv_health_digests < 1:
+            raise ValueError(
+                f"kv_health_digests must be >= 1, got "
+                f"{self.kv_health_digests}"
             )
         if not (0.0 < self.tenant_max_queue_share <= 1.0):
             raise ValueError(

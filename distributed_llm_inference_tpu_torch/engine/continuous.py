@@ -85,6 +85,20 @@ optional disk tier (kv_disk_dir) takes the host tier's LRU evictions and
 promotes a chain back on admission. Every restore writes the static pool
 in place, so the captured CUDA graphs stay valid.
 
+The cross-replica KV fabric (serving/kv_fabric.py, kv_fabric, on wherever
+the shadow is): the shadow's chains are served by chunk digest (the
+server's GET /kv/{digest}, whole or streamed, and POST /kv for a peer's
+pushed chain), and a router's hint (`kv_hint`, the X-KV-Transfer-*
+headers) makes the admission pull the named chain from its peer before
+the prefix plan, scatter it into the pool in place (the restore's path)
+and register it, so the plan sees a deeper hit. Every failure (a dead or
+wedged peer, a 404, a failed content-key recheck, leaves that are not
+this pool's) is counted as a miss and ends in the local cold prefill. A
+`prefill_only` request (the handoff's phase 1) samples one token, waits
+for its shadow copies to land and can push its chain to the decode
+replica (`kv_push_to`). The envelope carries `kv_digests` and
+`kv_fabric_blocks`.
+
 Failure containment, as in the JAX package: the worker loop runs under a
 supervisor (_loop / _supervise). A crash releases every fleet-held
 resource, resets the device-side fleet IN PLACE (the captured CUDA graphs
@@ -101,10 +115,9 @@ utils/faults.py injection points (admission, alloc, prefill,
 decode_launch, fetch, preempt) drive every path in the tests.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): speculation, the cross-replica KV fabric (kv_fabric is accepted,
-the fleet reports fabric_serving false and ignores a fetch hint),
-adapters, grammar constraints in the fleet (they go to the solo engine,
-as in the JAX package), the dense fleet's prefix cache, and gpt2's fleet.
+item): speculation, adapters, grammar constraints in the fleet (they go
+to the solo engine, as in the JAX package), the dense fleet's prefix
+cache, and gpt2's fleet.
 """
 
 from __future__ import annotations
@@ -128,7 +141,7 @@ from ..utils.tracing import Trace
 from . import generate as G
 from . import graphs
 from . import paged as P
-from .block_prefix import BlockPrefixIndex
+from .block_prefix import BlockPrefixIndex, chunk_digests
 from .scheduler import MIN_SHED_DEPTH, PrefillJob, TokenBudgetScheduler, parse_slo_classes
 
 log = get_logger("continuous")
@@ -162,10 +175,12 @@ class _Request:
         "block_ids", "need", "trace", "allowed", "slo", "ids", "deadline_at",
         "prefill_chunks", "tenant", "salvaged", "strikes", "recovering",
         "preemptions", "preempted_at", "drop_seq", "prefix_hit_tokens",
-        "shadow_depth", "resume_seq", "promoted_blocks",
+        "shadow_depth", "resume_seq", "promoted_blocks", "kv_hint",
+        "fabric_blocks", "trace_ctx",
     )
 
-    def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None):
+    def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None,
+                 kv_hint=None, trace_ctx=None):
         self.prompt = prompt
         self.slo = kwargs.pop("slo_class", None)
         # the tenant the request bills (None: anonymous): its prefill share
@@ -215,6 +230,14 @@ class _Request:
         self.resume_seq = None
         # prefix blocks promoted out of the shadow hierarchy at admission
         self.promoted_blocks = 0
+        # a router's KV-fabric hint, {"peer": url, "digest": hex}: where
+        # this prompt's prefix chain is resident. Consumed by the FIRST
+        # admission attempt; requeues and salvages never fetch again
+        self.kv_hint = kv_hint
+        # prefix blocks imported over the fabric for this request
+        self.fabric_blocks = 0
+        # the request's trace context (its traceparent rides the fabric)
+        self.trace_ctx = trace_ctx
 
 
 class ContinuousEngine:
@@ -358,9 +381,29 @@ class ContinuousEngine:
         self._shadow_restore_w = 32
         if self._shadow is not None and self._cuda:
             self._prewarm_pinned()
-        # the cross-replica KV fabric is not ported (ROADMAP.md "KV
-        # fabric"): nothing is served by digest and a fetch hint is ignored
-        self.fabric_serving = False
+        # the cross-replica KV fabric (serving/kv_fabric.py): this
+        # replica's fetch client and the serving half's gate. It rides the
+        # shadow's stack: the store holds the servable chains, the
+        # restore's in-place scatter lands fetched ones, the block-prefix
+        # index registers them
+        self.replica_class = str(ecfg.replica_class)
+        if self.replica_class not in ("prefill", "decode", "mixed"):
+            raise ValueError(
+                f"replica_class must be 'prefill', 'decode', or 'mixed', "
+                f"got {self.replica_class!r}"
+            )
+        self._fabric = None
+        self.fabric_serving = bool(self._shadow is not None and ecfg.kv_fabric)
+        if self.fabric_serving:
+            from ..serving.kv_fabric import KVFabricClient
+
+            self._fabric = KVFabricClient(registry=engine.metrics,
+                                          role=self.replica_class,
+                                          timeout_s=ecfg.kv_fabric_timeout_s)
+        # streamed pulls (frames scattered as they arrive) or whole blobs,
+        # and the /health residency cap (MRU first)
+        self._fabric_stream = bool(ecfg.kv_fabric_stream)
+        self._kv_health_digests = max(1, int(ecfg.kv_health_digests))
         # the bucketed admissions' batch-1 prefill cache, written in place
         # and spliced into the slot; the ragged ingest needs none
         self._scratch = (None if self._ragged
@@ -551,22 +594,41 @@ class ContinuousEngine:
         return None
 
     def submit(self, prompt: str, **kwargs) -> dict:
+        # the KV fabric's handoff surface: the hint is consumed at
+        # admission; prefill_only serves phase 1 of a prefill->decode
+        # handoff (prefill and shadow the prompt, sample one token, answer
+        # once the shadow copies have LANDED, so the decode replica's
+        # fetch finds the chain resident), optionally pushing the chain
+        # to the decode replica (kv_push_to)
+        kv_hint = kwargs.pop("kv_hint", None)
+        kv_push_to = kwargs.pop("kv_push_to", None) or None
+        trace_ctx = kwargs.pop("trace_ctx", None)
         if kwargs.pop("adapter", None):
             return {"error": "Error: adapter serving needs the fleet's adapter "
                     "pool, which is not ported yet", "status": "failed",
                     "error_type": "invalid_request"}
         tenant = kwargs.pop("tenant", None) or None
-        # a router's KV-fabric fetch hint: no fabric to fetch over, so the
-        # admission prefills locally (the JAX ladder's failed-fetch rung)
-        kwargs.pop("kv_hint", None)
+        prefill_only = bool(kwargs.pop("prefill_only", False))
+        if prefill_only:
+            kwargs["max_tokens"] = 1
         if self._needs_solo(kwargs):
             return self.engine.generate(prompt, **kwargs)
         req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None),
-                       tenant=tenant)
+                       tenant=tenant, kv_hint=kv_hint, trace_ctx=trace_ctx)
         err = self._enqueue(req)
         if err is not None:
             return err
         req.done.wait()
+        if prefill_only and isinstance(req.result, dict):
+            if self._shadow is not None:
+                self._shadow.flush(timeout_s=10.0)
+            req.result.setdefault("prefill_only", True)
+            if kv_push_to:
+                # the chain is resident now: POST it to the decode replica
+                # the router picked; any failure keeps the pull fallback
+                pushed = self._fabric_push(req, kv_push_to)
+                if pushed:
+                    req.result["kv_pushed"] = pushed
         return req.result
 
     @property
@@ -693,6 +755,9 @@ class ContinuousEngine:
         if self._shadow is not None:
             out["shadow"] = {**self._shadow.stats(),
                              "restored_blocks": self.shadow_restored_total}
+        if self._fabric is not None:
+            out["kv_fabric"] = {**self._fabric.stats(),
+                                "serving": self.fabric_serving}
         out["slo"] = {
             "default": self._sched.default_name,
             "classes": {
@@ -1234,6 +1299,9 @@ class ContinuousEngine:
         k = req.kwargs
         ids = self._admission_ids(req)
         prompt_len = len(ids)
+        # a router's hint: the chain pulled from its peer becomes a deeper
+        # exact-depth hit below
+        self._fabric_prefetch(req, ids)
         # tier promotion: a host- or disk-shadowed chain deeper than the
         # pool's becomes a deeper exact-depth hit below
         self._promote_local_chain(req, ids)
@@ -1461,6 +1529,9 @@ class ContinuousEngine:
             ids = blocks[off: off + W]
             batch = per_block_leaves[off: off + W]
             pad = W - len(ids)
+            if len(batch[0]) != len(like):
+                raise ValueError(f"shadow blocks of {len(batch[0])} leaves do not "
+                                 f"fit the pool's {len(like)}")
             stacked = []
             for j, dst in enumerate(like):
                 arr = np.stack([pb[j] for pb in batch])
@@ -1528,11 +1599,12 @@ class ContinuousEngine:
         return n
 
     def _import_fabric_chain(self, keys: list, per_block_leaves: list) -> int:
-        """Scatter a chain of host-resident blocks into the pool, register
-        it in the block-prefix index and keep it in the host shadow
-        (the JAX name: there a fabric fetch lands here too; in the port
-        only tier promotion does). Returns blocks imported (0 when the
-        pool has no headroom: the local prefill still works)."""
+        """Scatter a chain of host-resident blocks (a whole-blob fabric
+        fetch, or a chain promoted out of the shadow's tiers) into the
+        pool, register it in the block-prefix index and keep it in the
+        host shadow, so this replica serves it onward through /kv.
+        Returns blocks imported (0 when the pool has no headroom: the
+        local prefill still works)."""
         # one slot-class of headroom, like _restore_shadow; cold cached
         # chains are reclaimed first, as admission does
         budget = self._alloc.free_blocks - self._max_blocks
@@ -1560,6 +1632,229 @@ class ContinuousEngine:
         log.info("fabric_imported", blocks=len(keys),
                  free_blocks=self._alloc.free_blocks)
         return len(keys)
+
+    # -- the cross-replica KV fabric (serving/kv_fabric.py) ------------------
+    def fabric_chain(self, digest: str):
+        """Wire bytes of the resident shadow chain ending at `digest`, or
+        None (the server's GET /kv/{digest} -> 404). Any thread: the store
+        is lock-protected and the encode reads host arrays only, so the
+        HTTP handler serves peers without touching the scheduler loop."""
+        if not self.fabric_serving:
+            return None
+        from ..serving.kv_fabric import serve_chain
+
+        return serve_chain(self._shadow, digest)
+
+    def fabric_chain_stream(self, digest: str):
+        """(n_chunks, tier, frame iterator) of the resident chain ending at
+        `digest`, or None: the streamed GET /kv/{digest} body (X-KV-Stream:
+        1). Any thread; frames encode lazily, one block at a time."""
+        if not self.fabric_serving:
+            return None
+        from ..serving.kv_fabric import serve_chain_stream
+
+        return serve_chain_stream(self._shadow, digest)
+
+    def fabric_digest_tier(self, digest: str):
+        """The shallowest shadow tier holding `digest` ("host" | "disk" |
+        None): the server's X-KV-Tier."""
+        if not self.fabric_serving:
+            return None
+        return self._shadow.digest_tier(digest)
+
+    def fabric_accept_push(self, data: bytes):
+        """The POST /kv body (any thread): a peer's pushed chain, validated
+        against its OWN content key (the digest is recomputed from its
+        tokens) and against this pool's leaf layout, landed in the host
+        shadow tier, where the admission's tier promotion scatters it
+        without a pull. Returns the response dict, or None (-> 400)."""
+        if not self.fabric_serving:
+            return None
+        from ..serving.kv_fabric import FabricPayloadError, check_layout, decode_push
+
+        try:
+            digest, keys, per_block = decode_push(data, self.kv_block_size)
+            for leaves in per_block:
+                check_layout(leaves, self._wire_layout)
+        except FabricPayloadError as e:
+            log.warning("fabric_push_rejected", error=str(e))
+            return None
+        n = self._shadow.put_host(keys, per_block, self._mutation_seq)
+        self.engine.flight.record("fabric_push_in", digest=str(digest)[:16], blocks=n)
+        return {"accepted": n, "digest": digest}
+
+    def fabric_digests(self, limit: Optional[int] = None) -> list:
+        """Resident chain digests, MRU first, host tier before disk (the
+        /health field a router's residency bootstrap reads), capped at
+        kv_health_digests."""
+        if not self.fabric_serving:
+            return []
+        return self._shadow.resident_digests(
+            limit=self._kv_health_digests if limit is None else limit)
+
+    @property
+    def _wire_layout(self) -> list:
+        """The (numpy dtype, per-block shape) of each of the pool's leaves
+        as the shadow and the wire carry them (bf16 as its int16 view): a
+        fetched or pushed chain must match it to be imported."""
+        out = []
+        for leaf in P.pool_leaves(self.cache):
+            dt = (np.dtype(np.int16) if leaf.dtype == torch.bfloat16
+                  else torch.empty((), dtype=leaf.dtype).numpy().dtype)
+            out.append((dt, (leaf.shape[0], *leaf.shape[2:])))
+        return out
+
+    def _fabric_prefetch(self, req: _Request, ids: list):
+        """Consume req's hint (worker thread, at the admission, BEFORE the
+        prefix plan, so an import is just a deeper local hit). The ladder:
+        a local chain already covers the prompt -> skip; a 404, a dead or
+        wedged peer, a failed recheck or a foreign leaf layout -> a miss
+        and the local prefill; a pool too full for the chain -> import
+        what fits (a chain prefix is still a valid chain). The fetch
+        blocks this thread for at most kv_fabric_timeout_s. Nothing here
+        fails the request."""
+        hint, req.kv_hint = req.kv_hint, None
+        if hint is None or self._fabric is None:
+            return
+        peer = hint.get("peer") if isinstance(hint, dict) else None
+        digest = hint.get("digest") if isinstance(hint, dict) else None
+        if not peer or not digest:
+            return
+        bs = self.kv_block_size
+        # the deepest depth the planner could use (it leaves >= 1 tail
+        # token): a local chain that deep makes the fetch pure waste
+        cap = max(0, (len(ids) - 1) // bs) * bs
+        p0_local, _, _ = self._bpx.lookup(ids)
+        if cap <= 0 or p0_local >= cap:
+            return
+        if self._shadow.has_resident(tuple(ids[:cap])):
+            # a push (or a demotion) already landed the chain in the local
+            # tiers: the promotion below scatters it with no wire trip
+            return
+        streamed = self._fabric_stream
+        tier = ""
+        fetched = None
+        kw = dict(ctx=req.trace_ctx, request_id=req.trace.request_id,
+                  layout=self._wire_layout)
+        if streamed:
+            res = self._fabric.fetch_stream(peer, digest, bs, **kw)
+            hit = False
+            if res is not None:
+                _, tier, blocks_iter = res
+                hit, req.fabric_blocks = self._import_fabric_stream(blocks_iter)
+        else:
+            fetched = self._fabric.fetch(peer, digest, bs, **kw)
+            hit = fetched is not None
+            tier = self._fabric.last_tier if hit else ""
+        self.engine.flight.record(
+            "fabric_fetch", request_id=req.trace.request_id, peer=peer,
+            digest=str(digest)[:16], hit=hit, tier=tier, streamed=streamed,
+        )
+        if fetched is not None:
+            keys, leaves = fetched
+            req.fabric_blocks = self._import_fabric_chain(keys, leaves)
+
+    def _scatter_stream_batch(self, batch: list, keys: list, leaves_kept: list,
+                              blocks: list) -> bool:
+        """Scatter one batch of streamed (key, leaves) frames into fresh
+        pool blocks in place (_scatter_shadow: on the launch stream,
+        behind the launches in flight, so the device works while the next
+        frames are on the wire). Appends to the caller's ledgers only on
+        success; False = the pool is dry or a scatter failed (the caller
+        keeps its scattered prefix: a chain prefix is still a chain)."""
+        blk = self._alloc.alloc(len(batch))
+        if blk is None:
+            # cold cached chains are reclaimable, exactly as at admission
+            self._bpx.evict(len(batch) - self._alloc.free_blocks)
+            blk = self._alloc.alloc(len(batch))
+        if blk is None:
+            return False
+        try:
+            self._scatter_shadow(blk, [leaves for _, leaves in batch])
+        except Exception as e:  # noqa: BLE001 - never a scheduler crash
+            log.warning("fabric_stream_scatter_invalid", error=str(e))
+            self._alloc.decref(blk)
+            return False
+        for (key, leaves), b in zip(batch, blk):
+            keys.append(key)
+            leaves_kept.append(leaves)
+            blocks.append(b)
+        return True
+
+    def _import_fabric_stream(self, blocks_iter) -> tuple:
+        """Consume a /kv stream (kv_fabric.fetch_stream's block iterator),
+        scattering frames into the pool in restore-width batches AS THEY
+        ARRIVE. Nothing is REGISTERED until the stream ends cleanly (the
+        iterator's final content-key recheck): on a tamper, a truncation,
+        a foreign layout or a died socket the scattered blocks are
+        decref'd, unreachable, and the admission prefills locally. Returns
+        (verified, blocks imported); a budget-truncated import still
+        drains and verifies every frame before registering the prefix
+        that fit."""
+        # cold refcount-1 cached chains count toward the budget: the batch
+        # scatter evicts them on demand, as admission does
+        budget = (self._alloc.free_blocks + self._bpx.evictable_blocks()
+                  - self._max_blocks)
+        if budget <= 0:
+            blocks_iter.close()  # settles the client's hit / miss
+            return False, 0
+        W = self._shadow_restore_w
+        keys: list = []  # scattered, parents first
+        leaves_kept: list = []
+        blocks: list = []  # their pool ids, aligned
+        batch: list = []
+        pool_dry = False
+        verified = False
+        try:
+            for key, leaves in blocks_iter:
+                if pool_dry or len(keys) + len(batch) >= budget:
+                    continue  # verify-drain the tail; import what fit
+                batch.append((key, leaves))
+                if len(batch) == W:
+                    pool_dry = not self._scatter_stream_batch(batch, keys,
+                                                              leaves_kept, blocks)
+                    batch = []
+            if batch and not pool_dry:
+                self._scatter_stream_batch(batch, keys, leaves_kept, blocks)
+            verified = True
+        except Exception as e:  # noqa: BLE001 - FabricPayloadError or a
+            # socket dying mid-stream: one outcome, the local prefill
+            log.warning("fabric_stream_rejected", error=str(e))
+        finally:
+            blocks_iter.close()
+        if not verified or not keys:
+            if blocks:
+                self._alloc.decref(blocks)
+            return verified, 0
+        self._bpx.import_chain(list(keys[-1]), blocks)
+        self._shadow.put_host(keys, leaves_kept, self._mutation_seq)
+        self._shadow.count_pool_promotion(len(keys))
+        self._alloc.decref(blocks)
+        log.info("fabric_stream_imported", blocks=len(keys),
+                 free_blocks=self._alloc.free_blocks)
+        return True, len(keys)
+
+    def _fabric_push(self, req: _Request, peer_url: str) -> int:
+        """The handoff's phase 1.5: encode this finished request's deepest
+        shadow chain and POST it to the decode replica the router picked
+        (X-KV-Push-To), so phase 2's admission finds the prefix resident
+        there. Runs on submit()'s HTTP thread after the shadow flush,
+        never on the scheduler loop. Any failure returns 0: the pull path
+        remains the fallback."""
+        ds = (req.result or {}).get("kv_digests") or []
+        if not ds or self._fabric is None:
+            return 0
+        digest = ds[-1]  # the deepest chain the decode peer will want
+        data = self.fabric_chain(digest)
+        if data is None:
+            return 0
+        accepted = self._fabric.push_chain(peer_url, data, ctx=req.trace_ctx,
+                                           request_id=req.trace.request_id)
+        self.engine.flight.record(
+            "fabric_push", request_id=req.trace.request_id, peer=peer_url,
+            digest=str(digest)[:16], accepted=-1 if accepted is None else accepted,
+        )
+        return accepted or 0
 
     def _promote_local_chain(self, req: _Request, ids: list):
         """Tier promotion at admission (worker thread, BEFORE the prefix
@@ -1935,7 +2230,9 @@ class ContinuousEngine:
         k = req.kwargs
         ids = self._admission_ids(req)
         prompt_len = len(ids)
-        # tier promotion first: the plan below then sees the deeper hit
+        # a router's hint, then tier promotion: the plan below then sees
+        # the deeper hit
+        self._fabric_prefetch(req, ids)
         self._promote_local_chain(req, ids)
         # the ragged ingest reuses the deepest chain at EXACT depth; the
         # bucketed fallback degrades it to a depth its tail bucket fits
@@ -2195,9 +2492,20 @@ class ContinuousEngine:
             req.result["preempted"] = req.preemptions
         if req.prefix_hit_tokens:
             req.result["prefix_cached_tokens"] = req.prefix_hit_tokens
+        if req.fabric_blocks:
+            # prefix blocks pulled over the KV fabric instead of prefilled
+            req.result["kv_fabric_blocks"] = req.fabric_blocks
         if req.promoted_blocks:
             # prefix blocks promoted out of the shadow's host or disk tier
             req.result["kv_promoted_blocks"] = req.promoted_blocks
+        if self.fabric_serving and req.ids is not None:
+            # the prompt chain's parent-chained digests (deepest last): a
+            # router learns residency from them, and a handoff's phase-2
+            # hint carries the deepest
+            ds = chunk_digests(req.ids, self.kv_block_size,
+                               max_chunks=len(req.ids) // self.kv_block_size)
+            if ds:
+                req.result["kv_digests"] = ds[-8:]
         if stopped:
             req.result["stopped"] = True
         log.info("completed", slot=req.slot, tokens=n,

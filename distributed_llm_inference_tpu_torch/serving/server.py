@@ -18,8 +18,15 @@ supervisor. `--prefix-cache N` gives the paged fleet its block-prefix
 cache and, unless `--no-kv-shadow`, the KV shadow (warm crash recovery
 and "swap" resumes; `--restore-dir DIR` persists it across a drain,
 `--kv-disk-dir DIR` adds the disk tier); `/stats` then carries
-`continuous.prefix_cache` and `continuous.shadow`. The queue, the OpenAI
-routes and the KV fabric (`/kv`, 501) arrive with later slices.
+`continuous.prefix_cache` and `continuous.shadow`. With the shadow on, the
+cross-replica KV fabric (serving/kv_fabric.py) serves the fleet's chains
+on `GET /kv/{digest}` (whole, or streamed with `X-KV-Stream: 1`) and takes
+a peer's pushed chain on `POST /kv`; `/generate` honors a router's
+`X-KV-Transfer-Peer` / `X-KV-Transfer-Digest` hint (the admission pulls
+the chain) and `X-KV-Prefill-Only` / `X-KV-Push-To` (phase 1 of a
+prefill->decode handoff), and `/health` carries a `kv` residency block
+(`--no-kv-fabric` turns all of it off). The queue and the OpenAI routes
+arrive with later slices.
 
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --attn-impl auto
@@ -31,6 +38,11 @@ routes and the KV fabric (`/kv`, 501) arrive with later slices.
         --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
         --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
         --continuous-max-seq 1024 --prefix-cache 8 --restore-dir warm/
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
+        --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
+        --continuous-max-seq 1024 --prefix-cache 8 --replica-class decode \\
+        --port 5001
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
         --quant int4 --kv-quant int8 --continuous 8 --kv-pool-blocks 513 \\
@@ -51,6 +63,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 
+from . import kv_fabric as kvf
+
 __version__ = "torch_port_v1"
 
 DEFAULT_MAX_TOKENS = 20
@@ -66,17 +80,14 @@ _NOT_PORTED_ROUTES = {
     "/v1/completions": 'ROADMAP.md "Solo-engine features"',
     "/v1/chat/completions": 'ROADMAP.md "Solo-engine features"',
     "/debug/traces": 'ROADMAP.md "Fleet tier"',
-    # the cross-replica KV fabric's routes: GET /kv, GET /kv/{digest}, POST /kv
-    "/kv": 'ROADMAP.md "KV fabric"',
 }
 
 
 def _not_ported_route(path: str) -> Optional[dict]:
     """The 501 body for a JAX-server route the port lacks, else None."""
     key = path
-    for prefix in ("/debug/traces", "/kv"):
-        if path == prefix or path.startswith(prefix + "/"):
-            key = prefix
+    if path.startswith("/debug/traces/"):
+        key = "/debug/traces"
     item = _NOT_PORTED_ROUTES.get(key)
     if item is None:
         return None
@@ -85,6 +96,12 @@ _KNOWN_ROUTES = frozenset((
     "/", "/health", "/ready", "/workers", "/stats", "/metrics", "/generate",
     "/profiler/start", "/profiler/stop", "/debug/flight",
 ))
+
+
+def _route_label(path: str) -> str:
+    if path == "/kv" or path.startswith("/kv/"):
+        return "/kv"  # one label for every digest (bounded cardinality)
+    return path if path in _KNOWN_ROUTES else "other"
 
 
 def _parse_bool(v, name: str) -> bool:
@@ -261,14 +278,14 @@ def make_handler(engine, max_tokens_cap: int, state=None,
         def _count(self, code: int):
             path = self.path.split("?")[0].rstrip("/") or "/"
             http_requests.labels(
-                route=path if path in _KNOWN_ROUTES else "other",
-                method=self.command, status=str(code),
+                route=_route_label(path), method=self.command, status=str(code),
             ).inc()
 
         def _send(self, code: int, payload: Any, content_type="application/json",
                   headers=None):
             body = (
-                payload.encode() if isinstance(payload, str)
+                payload if isinstance(payload, bytes)
+                else payload.encode() if isinstance(payload, str)
                 else json.dumps(payload).encode()
             )
             self._count(code)
@@ -313,7 +330,7 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 h = engine.health()
                 ready, why = self._readiness()
                 # liveness stays 200 while draining: readiness is /ready
-                self._send(200, {
+                out = {
                     "status": h["status"],
                     "ready": ready,
                     **({"ready_reason": why} if why else {}),
@@ -325,7 +342,17 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                     "n_stages": h["n_stages"],
                     "requests_served": h["requests_served"],
                     "stats": h["stats"],
-                })
+                }
+                if continuous is not None and continuous.fabric_serving:
+                    # residency bootstrap: resident chain digests (MRU
+                    # first, capped by --kv-health-digests), so a router can
+                    # steer fabric pulls here without having routed traffic
+                    out["kv"] = {
+                        "fabric": True,
+                        "block_size": continuous.kv_block_size,
+                        "resident_digests": continuous.fabric_digests(),
+                    }
+                self._send(200, out)
             elif path == "/ready":
                 ready, why = self._readiness()
                 if ready:
@@ -351,10 +378,74 @@ def make_handler(engine, max_tokens_cap: int, state=None,
             elif path == "/metrics":
                 self._send(200, engine.metrics.render(),
                            content_type="text/plain; version=0.0.4; charset=utf-8")
+            elif path.startswith("/kv/"):
+                self._serve_kv(path[len("/kv/"):])
             else:
                 missing = _not_ported_route(path)
                 self._send(501 if missing else 404,
                            missing or {"error": f"no route {path}"})
+
+        def _serve_kv(self, digest: str):
+            """GET /kv/{digest}, the fabric's serving half: the resident
+            shadow chain ending at this chunk digest, wire-encoded, whole
+            or (X-KV-Stream: 1) as lazily encoded one-block frames. A miss
+            (unknown digest, evicted, or no fabric) is a 404 the fetching
+            peer treats as "prefill locally". Its X-Request-Id is echoed."""
+            self._rid = sanitize_request_id(self.headers.get("X-Request-Id"))
+            self._trace_ctx = parse_traceparent(self.headers.get("traceparent"))
+            tier = (continuous.fabric_digest_tier(digest)
+                    if continuous is not None else None) or "host"
+            miss = {"error": f"no resident chain for digest {digest[:64]!r}"}
+            if (continuous is not None
+                    and self.headers.get("X-KV-Stream") in ("1", "true")):
+                res = continuous.fabric_chain_stream(digest)
+                if res is None:
+                    self._send(404, miss)
+                    return
+                n_chunks, tier, frames = res
+                # no Content-Length: frames go out as they encode
+                self._count(200)
+                self.send_response(200)
+                self.send_header("Content-Type", kvf.STREAM_CONTENT_TYPE)
+                self.send_header("X-KV-Block-Size", str(continuous.kv_block_size))
+                self.send_header("X-KV-Chain-Len", str(n_chunks))
+                self.send_header("X-KV-Tier", tier)
+                if self._rid:
+                    self.send_header("X-Request-Id", self._rid)
+                self.send_header("Connection", "close")
+                self.end_headers()
+                try:
+                    for frame in frames:
+                        self.wfile.write(frame)
+                    self.wfile.flush()
+                except OSError:
+                    pass  # the peer gave up mid-pull: its problem only
+                return
+            chain = continuous.fabric_chain(digest) if continuous is not None else None
+            if chain is None:
+                self._send(404, miss)
+            else:
+                self._send(200, chain, content_type="application/octet-stream",
+                           headers={"X-KV-Block-Size": str(continuous.kv_block_size),
+                                    "X-KV-Tier": tier})
+
+        def _kv_headers(self) -> tuple:
+            """(kv_hint, prefill_only, kv_push_to): a router's
+            disaggregation headers. X-KV-Transfer-Peer and
+            X-KV-Transfer-Digest name where this prompt's prefix chain is
+            resident (the fleet pulls it at admission); X-KV-Prefill-Only
+            marks phase 1 of a prefill->decode handoff (prefill, shadow
+            flush, one token); X-KV-Push-To names the decode replica that
+            phase 1 pushes the finished chain to. No-ops without
+            --continuous."""
+            peer = self.headers.get("X-KV-Transfer-Peer")
+            digest = self.headers.get("X-KV-Transfer-Digest")
+            hint = ({"peer": peer, "digest": digest}
+                    if continuous is not None and peer and digest else None)
+            prefill_only = (continuous is not None
+                            and self.headers.get("X-KV-Prefill-Only") in ("1", "true"))
+            push_to = self.headers.get("X-KV-Push-To") if prefill_only else None
+            return hint, prefill_only, push_to
 
         def _deadline_ms(self, data: dict):
             """The request's end-to-end budget in ms, or None; the
@@ -416,6 +507,9 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 res = profiler.stop()
                 self._send(400 if "error" in res else 200, res)
                 return
+            if path == "/kv":
+                self._accept_kv_push()
+                return
             if path != "/generate":
                 missing = _not_ported_route(path)
                 self._send(501 if missing else 404,
@@ -438,6 +532,28 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 return  # already answered
             code, headers = _status_code(result)
             self._send(code, result, headers=headers)
+
+        def _accept_kv_push(self):
+            """POST /kv, the fabric's push half: a peer's chain at the
+            prefill->decode handoff, validated against its OWN content key
+            and this pool's layout, landed in the host shadow tier. A
+            payload that fails is a 400 the pusher treats as "the pull
+            fallback will cover it"."""
+            if continuous is None or not continuous.fabric_serving:
+                self._send(404, {"error": "kv fabric not serving"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+            except (TypeError, ValueError):
+                length = 0
+            if length <= 0:
+                self._send(400, {"error": "empty /kv push"})
+                return
+            res = continuous.fabric_accept_push(self.rfile.read(length))
+            if res is None:
+                self._send(400, {"error": "push payload failed content-key validation"})
+            else:
+                self._send(200, res)
 
         def _generate(self, data: dict, prompt, prompts) -> Optional[dict]:
             max_tokens = min(int(data.get("max_tokens", DEFAULT_MAX_TOKENS)),
@@ -510,7 +626,16 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                         and all(isinstance(s, str) for s in raw_stop)):
                     raise ValueError("stop must be a string or list of strings")
                 kwargs["stop"] = raw_stop
-            if _parse_bool(data.get("stream", False), "stream"):
+            kv_hint, prefill_only, kv_push_to = self._kv_headers()
+            if kv_hint is not None:
+                kwargs["kv_hint"] = kv_hint
+            if prefill_only:
+                # handoff phase 1: prefill, shadow flush, one token; the
+                # body's stream flag is ignored (the decode replica streams)
+                kwargs["prefill_only"] = True
+                if kv_push_to:
+                    kwargs["kv_push_to"] = kv_push_to
+            if not prefill_only and _parse_bool(data.get("stream", False), "stream"):
                 # the solo engine decodes a whole request per call: there
                 # is nothing to stream per token; the fleet's stream() is
                 # not ported yet
@@ -529,6 +654,8 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                     raise ValueError("logit_bias requires a single 'prompt'")
                 if kwargs.get("num_beams", 1) > 1:
                     raise ValueError("num_beams requires a single 'prompt'")
+                for k in ("kv_hint", "prefill_only", "kv_push_to"):
+                    kwargs.pop(k, None)  # the solo batch has no fabric
                 return engine.generate_batch(prompts, **kwargs)
             kwargs["debug"] = _parse_bool(data.get("debug", False), "debug")
             kwargs["speculative"] = _parse_bool(
@@ -536,7 +663,7 @@ def make_handler(engine, max_tokens_cap: int, state=None,
             )
             kwargs["logprobs"] = _parse_bool(data.get("logprobs", False), "logprobs")
             if continuous is not None:
-                return continuous.submit(prompt, **kwargs)
+                return continuous.submit(prompt, trace_ctx=self._trace_ctx, **kwargs)
             return engine.generate(prompt, **kwargs)
 
     return Handler
@@ -614,10 +741,10 @@ class InferenceServer:
         get_logger("server").info(
             "serving", port=self.port,
             routes=["/", "/generate", "/health", "/ready", "/workers", "/stats",
-                    "/metrics", "/profiler/*", "/debug/flight"],
+                    "/metrics", "/profiler/*", "/debug/flight", "/kv"],
         )
         print(f"serving on :{self.port} — /generate /health /ready /workers /stats "
-              f"/metrics /profiler/* /debug/flight")
+              f"/metrics /profiler/* /debug/flight /kv")
         self.httpd.serve_forever()
 
     def shutdown(self):
@@ -760,9 +887,34 @@ def main(argv: Optional[list] = None):
              "the host shadow tier",
     )
     ap.add_argument(
+        "--replica-class", default="mixed", choices=["mixed", "prefill", "decode"],
+        help="disaggregation class for a router: 'prefill' replicas take "
+             "fresh long-prompt work and hand the finished prefix to a "
+             "'decode' replica by chunk digest over the KV fabric; 'mixed' "
+             "(default) serves everything. The engine is the same: this "
+             "labels /health and the dli_kv_fabric_* metrics' role",
+    )
+    ap.add_argument(
         "--no-kv-fabric", action="store_true",
-        help="accepted for the JAX server's command lines: the port serves "
-             "no cross-replica KV fabric yet (ROADMAP.md \"KV fabric\")",
+        help="disable the cross-replica KV fabric (GET /kv/{digest}, POST "
+             "/kv, the X-KV-Transfer-* fetch hints and /health's kv block); "
+             "the shadow stays purely local",
+    )
+    ap.add_argument(
+        "--kv-fabric-timeout", type=float, default=5.0, metavar="SECONDS",
+        help="hard deadline on one fabric fetch; a dead or wedged peer costs "
+             "at most this long before the admission prefills locally",
+    )
+    ap.add_argument(
+        "--no-kv-stream", action="store_true",
+        help="pull fabric chains as one whole blob instead of streamed "
+             "one-block frames (which overlap the wire with the pool's "
+             "scatters)",
+    )
+    ap.add_argument(
+        "--kv-health-digests", type=int, default=64, metavar="N",
+        help="cap on the resident-chain digests /health advertises for a "
+             "router's residency bootstrap (MRU first, host tier before disk)",
     )
     ap.add_argument(
         "--faults", default=None, metavar="SPEC",
@@ -797,6 +949,10 @@ def main(argv: Optional[list] = None):
             prefix_cache_entries=args.prefix_cache,
             kv_shadow=not args.no_kv_shadow,
             kv_fabric=not args.no_kv_fabric,
+            kv_fabric_timeout_s=args.kv_fabric_timeout,
+            kv_fabric_stream=not args.no_kv_stream,
+            kv_health_digests=args.kv_health_digests,
+            replica_class=args.replica_class,
             kv_disk_dir=args.kv_disk_dir,
             kv_disk_blocks=args.kv_disk_blocks,
         ),

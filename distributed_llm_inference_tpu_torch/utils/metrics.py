@@ -342,10 +342,11 @@ def register_supervisor_metrics(registry: MetricsRegistry):
 
 
 def register_kv_cache_metrics(registry: MetricsRegistry):
-    """The block-prefix index's, the KV shadow's and the tier hierarchy's
-    families with the JAX package's names, unlabeled, registered up front
-    by the engine as the JAX engine does (engine/block_prefix.py and
-    engine/shadow.py label them when a fleet builds them). Returns the
+    """The block-prefix index's, the KV shadow's, the tier hierarchy's and
+    the KV fabric's families with the JAX package's names, unlabeled,
+    registered up front by the engine as the JAX engine does
+    (engine/block_prefix.py, engine/shadow.py and serving/kv_fabric.py
+    label them when a fleet builds them). Returns the
     two the fleet itself increments: shadowed blocks restored into the
     pool, and ragged prefix hits reused at exact depth."""
     m = registry
@@ -382,6 +383,21 @@ def register_kv_cache_metrics(registry: MetricsRegistry):
     m.counter("dli_kv_tier_disk_hits_total",
               "lookups served from the disk tier (chunk files loaded and "
               "verified on a read that missed the host tier)")
+    # the KV fabric's (serving/kv_fabric.py), labeled by the fleet's fetch
+    # client with role = its replica_class
+    m.counter("dli_kv_fabric_fetches_total",
+              "cross-replica /kv chain fetches attempted", ("role",))
+    m.counter("dli_kv_fabric_hits_total",
+              "fabric fetches that returned a verified chain", ("role",))
+    m.counter("dli_kv_fabric_misses_total",
+              "fabric fetches that fell back to local prefill (404, "
+              "dead/wedged peer, failed content-key recheck)", ("role",))
+    m.counter("dli_kv_fabric_bytes_total",
+              "wire bytes of verified fabric chains moved, by serving tier "
+              "(host/disk = pull source at the peer, push = proactive "
+              "POST /kv at the prefill->decode handoff)", ("role", "tier"))
+    m.histogram("dli_kv_fabric_fetch_seconds",
+                "fabric fetch wall time, failures included")
     import types
 
     return types.SimpleNamespace(

@@ -52,6 +52,11 @@ class SpanContext:
     def new_root(cls, sampled: bool = True) -> "SpanContext":
         return cls(uuid.uuid4().hex, uuid.uuid4().hex[:16], sampled)
 
+    def header(self) -> str:
+        """The `traceparent` header value for the next hop (a KV fabric
+        pull or push): this context's span id is its parent."""
+        return f"00-{self.trace_id}-{self.span_id}-{'01' if self.sampled else '00'}"
+
 
 def parse_traceparent(raw) -> Optional[SpanContext]:
     """Parse an inbound `traceparent` header; None when absent or

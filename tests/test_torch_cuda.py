@@ -1215,3 +1215,119 @@ def test_shadow_capture_after_a_mixed_launch_syncs_no_host(card):
                 host = host.view(torch.bfloat16)
             assert torch.equal(host, leaf[:, b].cpu())
     lg.close()
+
+
+# -- the KV fabric on the card (serving/kv_fabric.py) ---------------------------
+
+@pytest.mark.parametrize("quant", list(GRAPH_QUANT))
+def test_fabric_import_in_place_is_read_by_a_replayed_mixed_launch(card, quant):
+    """Blocks of another pool through the fabric's wire (encode_chain,
+    decode_chain with the content-key recheck and the pool's leaf layout;
+    bf16 as its int16 carrier) and scattered into the static pool in place:
+    the mixed launch captured before the import replays over the imported
+    bytes, bit-equal to the eager body on a clone of the buffers, and the
+    pool keeps its storage."""
+    import numpy as np
+
+    from distributed_llm_inference_tpu_torch.engine import graphs
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+    from distributed_llm_inference_tpu_torch.engine.shadow import ShadowStore
+    from distributed_llm_inference_tpu_torch.serving import kv_fabric as kvf
+
+    engine = create_engine("test-llama-tiny", attn_impl="auto", seed=3, device=card,
+                           dtype="bfloat16", **GRAPH_QUANT[quant])
+    bufs, run = _graph_case(card, "mixed_arming", engine)
+    gen = torch.Generator(device=card).manual_seed(11)
+    lg = graphs.LaunchGraph(lambda: run(bufs, gen), "mixed_arming", card, gen)
+    lg()  # the warm launch, then the capture
+    pool = bufs["cache"]
+    ptrs = [t.data_ptr() for t in P.pool_leaves(pool)]
+    donor = _clone(pool)
+    for leaf in P.pool_leaves(donor):
+        leaf.copy_(leaf.flip(1))
+    src = [int(b) for b in bufs["table"][1, :3].tolist()]
+    dst = [int(b) for b in bufs["table"][0, :3].tolist()]
+    ids = list(range(1, 49))
+    keys = [tuple(ids[: 16 * (i + 1)]) for i in range(3)]
+    store = ShadowStore(16, max_blocks=8)
+    try:
+        dev = P.gather_shadow_blocks(donor, _upload(card, np.asarray(src, np.int32)))
+        assert store.put_async(keys, P.pool_leaves(dev), 0) and store.flush(10.0)
+        blob = kvf.serve_chain(store, store.digest_of(keys[-1]))
+    finally:
+        store.close()
+    layout = [(np.dtype(np.int16) if t.dtype == torch.bfloat16
+               else torch.empty((), dtype=t.dtype).numpy().dtype, (t.shape[0], *t.shape[2:]))
+              for t in P.pool_leaves(pool)]
+    got_keys, per_block = kvf.decode_chain(blob, 16, kvf.chain_digest(ids, 16))
+    assert got_keys == keys
+    stacked = []
+    for j, like in enumerate(P.pool_leaves(pool)):
+        for leaves in per_block:
+            kvf.check_layout(leaves, layout)
+        t = torch.from_numpy(np.stack([leaves[j] for leaves in per_block]))
+        if like.dtype == torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        stacked.append(t.pin_memory().to(card, non_blocking=True))
+    P.restore_shadow_blocks(pool, P.pool_from_leaves(pool, stacked),
+                            _upload(card, np.asarray(dst, np.int32)))
+    for a, b in zip(P.pool_leaves(pool), P.pool_leaves(donor)):
+        assert torch.equal(a[:, dst], b[:, src])
+    assert [t.data_ptr() for t in P.pool_leaves(pool)] == ptrs
+    ref = _clone(bufs)
+    g2 = torch.Generator(device=card)
+    g2.set_state(gen.get_state())
+    got = lg().clone()
+    want = run(ref, g2)
+    torch.cuda.synchronize()
+    assert lg.replays == 1 and torch.equal(got, want)
+    for a, b in zip(_tensors(bufs["state"]), _tensors(ref["state"])):
+        assert torch.equal(a, b)
+    lg.close()
+
+
+def test_fabric_remote_hit_imports_a_bf16_chain_bit_exact(card):
+    """Two bf16 fleets on the card over HTTP: the puller's remote hit
+    imports the holder's chain (bf16 carried as int16 on the wire) with
+    its bytes bit-exact in the puller's pool, each graph captured once, and
+    the cold run's greedy tokens."""
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    prompt = "shared fabric preamble " * 4 + "tail one"
+    gen = dict(max_tokens=10, greedy=True, chat=False)
+    base = create_engine("test-llama-tiny", attn_impl="auto", seed=3, device=card,
+                         dtype="bfloat16")
+
+    def replica(prefix):
+        eng = create_engine(base.cfg, params=base.backend.params, device=card,
+                            engine_cfg=EngineConfig(prefix_cache_entries=prefix))
+        fleet = ContinuousEngine(eng, n_slots=2, chunk_steps=4, kv_pool_blocks=48,
+                                 slot_max_seq=128)
+        srv = InferenceServer(eng, "127.0.0.1", 0, max_tokens_cap=64, continuous=fleet)
+        srv.start()
+        return fleet, srv
+
+    def head_bytes(fleet, ids):
+        p0, blocks, _ = fleet._bpx.lookup(ids)
+        idx = torch.tensor(blocks, device=card)
+        return p0, [leaf[:, idx].cpu() for leaf in P.pool_leaves(fleet.cache)]
+
+    (hold, hsrv), (pull, psrv), (cold, csrv) = replica(8), replica(8), replica(0)
+    try:
+        r = hold.submit(prompt, **gen, prefill_only=True)
+        want = cold.submit(prompt, **gen)
+        got = pull.submit(prompt, **gen, kv_hint={
+            "peer": f"http://127.0.0.1:{hsrv.port}", "digest": r["kv_digests"][-1]})
+        ids = base.tokenizer.encode(prompt)
+        (hp0, hb), (pp0, pb) = head_bytes(hold, ids), head_bytes(pull, ids)
+        graphs = pull.stats()["graphs"]
+    finally:
+        for srv in (hsrv, psrv, csrv):
+            srv.shutdown()
+    assert got["kv_fabric_blocks"] == 6 and got["token_ids"] == want["token_ids"]
+    assert hp0 == pp0 == 96 and hb[0].dtype == torch.bfloat16
+    for a, b in zip(hb, pb):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert all(g["captures"] == 1 for g in graphs.values())

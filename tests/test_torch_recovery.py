@@ -751,11 +751,12 @@ def test_restores_write_the_pool_in_place(weights):
 def test_server_reports_prefix_cache_and_shadow_and_501s_the_fabric(weights, tmp_path):
     """Both servers over a fleet with the prefix cache, the shadow and a
     disk tier: /stats `continuous.prefix_cache` and `continuous.shadow` with
-    the JAX keys and, after the same two requests, the JAX hit counts; the
-    port answers the KV fabric's routes with 501 naming its ROADMAP.md
-    heading (the fleet serves no fabric: fabric_serving is false). /metrics
-    carries the JAX names of the prefix, shadow, tier and recovery
-    families."""
+    the JAX keys and, after the same two requests, the JAX hit counts; both
+    serve the KV fabric (fabric_serving true, the JAX default wherever the
+    shadow is) and answer its routes with the same codes: GET /kv 404 (no
+    digest), GET /kv/{unknown digest} 404, POST /kv of a payload that is
+    not a chain 400. /metrics carries the JAX names of the prefix, shadow,
+    tier, recovery and fabric families."""
     import urllib.error
     import urllib.request
 
@@ -790,22 +791,23 @@ def test_server_reports_prefix_cache_and_shadow_and_501s_the_fabric(weights, tmp
                 families = {line.split()[2] for line in m.read().decode().splitlines()
                             if line.startswith("# TYPE dli_") and any(
                                 k in line for k in ("prefix", "shadow", "kv_tier",
-                                                    "recovery", "ragged_exact"))}
+                                                    "recovery", "ragged_exact",
+                                                    "kv_fabric"))}
+            kv_codes = tuple(call(srv.port, path, body)[0] for path, body in
+                             (("/kv", None), ("/kv/0123abcd", None), ("/kv", {})))
             got[name] = (st["prefix_cache"], set(st["shadow"]), st["shadow"]["disk_dir"],
-                         r["prefix_cached_tokens"], fleet.fabric_serving, families)
-            if mod is TC:
-                for path, body in (("/kv", None), ("/kv/0123abcd", None), ("/kv", {})):
-                    code, r = call(srv.port, path, body)
-                    assert code == 501 and 'ROADMAP.md "KV fabric"' in r["error"], path
+                         r["prefix_cached_tokens"], fleet.fabric_serving, families,
+                         kv_codes)
         finally:
             srv.shutdown()
-    (jpc, jkeys, jdir, jdepth, _, jfam), (tpc, tkeys, tdir, tdepth, serving, tfam) = \
-        got["jax"], got["port"]
-    assert tfam == jfam and len(tfam) >= 16, sorted(jfam ^ tfam)
+    (jpc, jkeys, jdir, jdepth, jserving, jfam, jcodes), \
+        (tpc, tkeys, tdir, tdepth, serving, tfam, tcodes) = got["jax"], got["port"]
+    assert tfam == jfam and len(tfam) >= 21, sorted(jfam ^ tfam)
     assert tpc == jpc and tpc["hits"] == 1
     assert tkeys == jkeys and {"blocks", "restored_blocks", "disk_blocks"} <= tkeys
     assert tdepth == jdepth >= 2 * BS and tdir.endswith("port")
-    assert serving is False
+    assert serving is jserving is True
+    assert tcodes == jcodes == (404, 404, 400)
 
 
 def test_rebuild_zeroes_an_int8_pool_in_place(weights):
