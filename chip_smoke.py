@@ -202,9 +202,37 @@ Run after (v), before (j), on (v)'s fleet with a second replica:
       the head): flash_attend n_layers times for its one tail chunk, the
       cold bucketed fleet's tokens.
 
+Run after (w), before (j), on (g)'s fleet (the same weights, other engine
+settings):
+
+  (x) speculation on the mixed launch. (x1) a wave of 8 greedy requests
+      whose prompts repeat one sentence (200-600 tokens, 64 new tokens),
+      X_WAVES times each on the fleet with spec_draft_len 0 and with
+      --spec-decode (n-gram drafts, K 4), after a lone request on each:
+      aggregate tokens/s (median), the lone stream's tokens/s, the
+      `speculative` stats per wave (verify rows, drafted, accepted,
+      pipelined) and tokens per verify row, mixed launches against decode
+      chunks, the kernels' launches from 0 per wave (ragged n_layers per
+      mixed launch, paged n_layers x 16 per decode chunk), graphs captured
+      once per kind; each speculating stream equals the plain one or parts
+      at a near-tie (the plain run's top-2 logit gap under LOGITS_ATOL at
+      the parting, teacher-forced); one wave on an int8 pool. (x2) the
+      draft-model fleet with the target's own weights as its draft (the
+      acceptance), then with a 2-layer draft at tinyllama's widths (seed
+      1): tokens/s, and the propose chain's paged_flash_attend launches,
+      draft layers x (K + 1) per chain. (x3) the verify launch (n-gram and
+      draft proposals), the draft fill and the propose chain captured at
+      the serving shape, 2 replays each bit-equal to eager under the sync
+      check; ragged_paged_attend on launches with K = 4 and K = 8 verify
+      rows (q_start derived on the device) and paged_flash_attend over the
+      draft's pool against their twins. (x4) a decode_launch crash landing
+      behind verify rows in flight, and (s)'s preemption pair on the
+      --spec-decode engine: answered in full, the tokens fetched before the
+      eviction equal to an undisturbed run's.
+
 `python3 chip_smoke.py --only s` runs (a), then (s), (t) and (u) alone on
 the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
-`--only w` runs (a), then (w) alone.
+`--only w` runs (a), then (w) alone; `--only x` runs (a), then (x) alone.
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
@@ -1159,15 +1187,20 @@ def check_wave(tag, results, which):
 def check_graphs(tag, stats, kinds):
     """The fleet served through CUDA graphs: each launch kind (`kinds`:
     graph name -> its /stats launch counter) captured once, at its first
-    launch, which ran eagerly, and every later launch a replay."""
+    launch, which ran eagerly, and every later launch a replay. Kinds that
+    share a counter (the plain and the speculative mixed launch) share its
+    launches: each captured once, their replays the rest."""
     graphs = stats["graphs"]
     print(f"{tag} CUDA graphs: {json.dumps(graphs)}")
     check(set(graphs) == set(kinds), f"{tag}: graphs {sorted(graphs)}, not {sorted(kinds)}")
-    for name, counter in kinds.items():
-        g, n = graphs[name], stats["launches"][counter]
-        check(g["captures"] == 1 and g["replays"] == n - 1 > 0,
-              f"{tag}: {name} captured {g['captures']} times and replayed "
-              f"{g['replays']} times for {n} launches")
+    for counter in set(kinds.values()):
+        names = [k for k, c in kinds.items() if c == counter]
+        n = stats["launches"][counter]
+        replays = sum(graphs[k]["replays"] for k in names)
+        check(all(graphs[k]["captures"] == 1 for k in names)
+              and replays == n - len(names) > 0,
+              f"{tag}: {names} captured {[graphs[k]['captures'] for k in names]} times "
+              f"and replayed {replays} times for {n} launches")
 
 
 def greedy_repeat(tag, server, body, in_wave):
@@ -2385,20 +2418,23 @@ def check_identity(tag, got: list, want: list, n_hard: int):
     return at
 
 
-def phase_s(torch, engine, pa, fa, Q, smi):
+def phase_s(torch, engine, pa, fa, Q, smi, tag="(s)", kinds=None):
     """KV preemption through the HTTP server: B preempts A on a tight pool;
     both answer in full, A resumed, every block back, graphs captured once
     and replayed after the resume, the kernels' launch counts those of the
     launches the phase ran, and A's tokens fetched before its preemption
-    those of its unpressured run on the same fleet."""
+    those of its unpressured run on the same fleet. (x4) runs it on a
+    speculating engine (`kinds`: its launch kinds, as check_graphs takes
+    them)."""
     import threading
 
+    kinds = kinds or {"mixed_launch": "mixed", "decode_chunk": "decode_chunks"}
     fleet, server = fleet_server(engine, PREEMPT_FLEET)
     spy = FleetSpy(fleet)
     try:
-        check(fleet.warmup()["ok"], "(s) fleet warmup")
+        check(fleet.warmup()["ok"], f"{tag} fleet warmup")
         check(fleet.stats()["preemption"]["policy"] == "swap",
-              "(s) the default preempt_policy is not the JAX package's 'swap'")
+              f"{tag} the default preempt_policy is not the JAX package's 'swap'")
         body_a = {"prompt": fleet_prompt(20, PREEMPT_A[0]), "max_tokens": PREEMPT_A[1],
                   "greedy": True, "chat": False}
         body_b = {"prompt": fleet_prompt(21, PREEMPT_B[0]), "max_tokens": PREEMPT_B[1],
@@ -2407,12 +2443,12 @@ def phase_s(torch, engine, pa, fa, Q, smi):
         for name, body in (("A", body_a), ("B", body_b)):
             code, r, wall = post(server.port, body)
             check(code == 200 and r["tokens_generated"] == body["max_tokens"],
-                  f"(s) {name} alone: {code} {r}")
+                  f"{tag} {name} alone: {code} {r}")
             alone[name] = r["token_ids"]
-            print(f"(s) {name} alone on the fleet: prompt_tokens={r['prompt_tokens']} "
+            print(f"{tag} {name} alone on the fleet: prompt_tokens={r['prompt_tokens']} "
                   f"tokens={r['tokens_generated']} wall_s={wall:.3f}")
         before = wait_idle(server.port)["continuous"]
-        check(before["preemption"]["preempted_total"] == 0, "(s) preempted while alone")
+        check(before["preemption"]["preempted_total"] == 0, f"{tag} preempted while alone")
         spy.reset()
         rag0 = ragged_launches(engine)
         out = {}
@@ -2427,7 +2463,7 @@ def phase_s(torch, engine, pa, fa, Q, smi):
         # B arrives once A decodes (its first token fetched)
         while not any(r is not None and r.first_id is not None and r.tokens
                       for r in fleet._assignment):
-            check(time.perf_counter() - t0 < 120, "(s) A never started decoding")
+            check(time.perf_counter() - t0 < 120, f"{tag} A never started decoding")
             time.sleep(0.001)
         tb = threading.Thread(target=run, args=("B", body_b))
         tb.start()
@@ -2436,39 +2472,41 @@ def phase_s(torch, engine, pa, fa, Q, smi):
         wall = time.perf_counter() - t0
         after = wait_idle(server.port)["continuous"]
         launches = read_counts(pa, fa, Q)
-        counts = check_kernel_counts("(s)", engine, launches, before, after,
+        counts = check_kernel_counts(tag, engine, launches, before, after,
                                      round(ragged_launches(engine) - rag0))
         (ca, ra, wa), (cb, rb, wb) = out["A"], out["B"]
         for name, code, r in (("A", ca, ra), ("B", cb, rb)):
-            print(f"(s) {name}: HTTP {code} prompt_tokens={r.get('prompt_tokens')} "
+            print(f"{tag} {name}: HTTP {code} prompt_tokens={r.get('prompt_tokens')} "
                   f"tokens={r.get('tokens_generated')} preempted={r.get('preempted')} "
                   f"recovered={r.get('recovered')} ttft_s={r.get('ttft_s')} "
                   f"prefill_chunks={r.get('prefill_chunks')}")
-            check(code == 200 and r.get("status") == "success", f"(s) {name}: {r}")
+            check(code == 200 and r.get("status") == "success", f"{tag} {name}: {r}")
         check(ra.get("preempted", 0) >= 1 and ra.get("recovered") is True,
-              f"(s) A was not preempted and resumed: {ra}")
+              f"{tag} A was not preempted and resumed: {ra}")
         pre = after["preemption"]
-        print(f"(s) /stats preemption {json.dumps(pre)}; supervisor "
+        print(f"{tag} /stats preemption {json.dumps(pre)}; supervisor "
               f"{json.dumps(after['supervisor'])}")
         check(pre["preempted_total"] >= 1 and pre["parked"] == 0,
-              f"(s) /stats preemption {pre}")
+              f"{tag} /stats preemption {pre}")
         check(after["paged"]["free_blocks"] == PREEMPT_FLEET["kv_pool_blocks"] - 1,
-              f"(s) {after['paged']['free_blocks']} pool blocks free after the pair")
-        check_graphs("(s)", after, {"mixed_launch": "mixed", "decode_chunk": "decode_chunks"})
-        for g in ("mixed_launch", "decode_chunk"):
-            check(after["graphs"][g]["replays"] > before["graphs"][g]["replays"],
-                  f"(s) {g} was not replayed after the resume")
+              f"{tag} {after['paged']['free_blocks']} pool blocks free after the pair")
+        check_graphs(tag, after, kinds)
+        for counter in set(kinds.values()):
+            names = [k for k, c in kinds.items() if c == counter]
+            check(sum(after["graphs"][k]["replays"] for k in names)
+                  > sum(before["graphs"].get(k, {"replays": 0})["replays"] for k in names),
+                  f"{tag} {names} were not replayed after the resume")
         pa_ = spy.salvaged.get(body_a["prompt"])
         check(pa_ is not None and pa_ >= 1,
-              f"(s) A had no token fetched before its preemption ({pa_})")
-        at_a = check_identity("(s) A", ra["token_ids"], alone["A"], pa_)
+              f"{tag} A had no token fetched before its preemption ({pa_})")
+        at_a = check_identity(f"{tag} A", ra["token_ids"], alone["A"], pa_)
         at_b = parts_at(rb["token_ids"], alone["B"])
-        print(f"(s) B vs B alone: " + ("identical" if at_b is None
+        print(f"{tag} B vs B alone: " + ("identical" if at_b is None
                                         else f"part at token {at_b}"))
         resume_ms = (spy.resumed_at[body_a["prompt"]] - spy.evicted_at[body_a["prompt"]]) * 1e3
         n_tok = ra["tokens_generated"] + rb["tokens_generated"]
         hist = engine.metrics.get("dli_preempted_resume_seconds").labels()
-        print(f"(s) pair wall {wall:.3f} s, {n_tok} tokens = {n_tok / wall:.2f} tokens/s; "
+        print(f"{tag} pair wall {wall:.3f} s, {n_tok} tokens = {n_tok / wall:.2f} tokens/s; "
               f"A's first preemption to its first resumed token {resume_ms:.1f} ms; "
               f"dli_preempted_resume_seconds count {hist.count} sum {hist.sum:.4f} s; "
               f"kernel launches {json.dumps(launches)} ({smi})")
@@ -3956,13 +3994,507 @@ def phase_w(torch, engine, pa, fa, Q, smi):
     print("(w) " + json.dumps({"kv_fabric": out}))
 
 
+# -- speculation on the mixed launch: phase (x) --------------------------------------
+
+# (x1)'s wave: 8 greedy requests whose prompts repeat one sentence, 200-600
+# tokens, 64 new tokens each, on (g)'s fleet with and without speculation
+X_PROMPT_TOKENS = (200, 260, 320, 380, 440, 500, 560, 600)
+X_NEW = 64
+X_WAVES = 3  # waves per fleet: the aggregate tokens/s is their median
+X_K = 4  # spec_draft_len, the JAX default
+X_DRAFT_LAYERS = 2  # (x2)'s small draft: tinyllama's widths, 2 layers, seed 1
+# (x4)'s crash: a decode_launch fault on a fleet whose draft is the target
+# itself (it accepts, so every launch verifies) lands behind verify rows in
+# flight
+X_CRASH_CALL = 8
+
+
+def x_prompt(i: int, n: int) -> str:
+    """n byte-tokenizer tokens of one sentence repeated (BOS + one per
+    character), a different sentence for each i."""
+    return (f"Note {i}: the quick brown fox jumps over the lazy dog. " * 40)[: n - 1]
+
+
+def x_bodies():
+    return [{"prompt": x_prompt(i, n), "max_tokens": X_NEW, "greedy": True, "chat": False}
+            for i, n in enumerate(X_PROMPT_TOKENS)]
+
+
+def x_engine(engine, kv_quant=None, **ecfg):
+    """The same model and weights with speculation settings (and the pool
+    under kv_quant)."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    return create_engine(engine.cfg, params=engine.backend.params, device=DEVICE,
+                         kv_quant=kv_quant,
+                         engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS, **ecfg))
+
+
+def x_hist(engine, name):
+    """(count, sum) of an unlabeled histogram of the engine's registry."""
+    fam = engine.metrics.get(name)
+    h = fam.labels()
+    return h.count, h.sum
+
+
+def x_check_graphs(tag, stats, draft):
+    """check_graphs on a speculating fleet: the plain and the verify
+    launches share the mixed count (a fleet whose every request speculated
+    to its end ran no decode chunk), the draft fill runs on every mixed
+    launch and the propose chain is captured once."""
+    g, n = stats["graphs"], stats["launches"]
+    kinds = {"mixed_launch": "mixed", "mixed_spec": "mixed"}
+    if n["decode_chunks"]:
+        kinds["decode_chunk"] = "decode_chunks"
+    else:
+        check(g["decode_chunk"] == {"captures": 0, "replays": 0},
+              f"{tag}: decode_chunk {g['decode_chunk']} with no decode chunk")
+    if draft:
+        check(g["draft_fill"] == {"captures": 1, "replays": n["mixed"] - 1},
+              f"{tag}: draft_fill {g['draft_fill']} for {n['mixed']} mixed launches")
+        check(g["draft_propose"]["captures"] == 1, f"{tag}: draft_propose {g['draft_propose']}")
+    check_graphs(tag, dict(stats, graphs={k: v for k, v in g.items() if k in kinds}), kinds)
+
+
+def x_gap(torch, P, G, engine, ids) -> float:
+    """The top-2 logit gap of the next token after `ids`, teacher-forced
+    through the plain fleet's ragged prefill launches on a fresh pool."""
+    pool = P.init_pool(engine.cfg, SLOT_MB + 1, BLOCK, device=DEVICE)
+    n = -(-len(ids) // BLOCK)
+    logits = v_teacher_logits(torch, P, G, engine, pool, list(range(1, n + 1)), ids, 0)
+    top = logits[0].topk(2).values
+    return float(top[0] - top[1])
+
+
+def x_identity(tag, torch, P, G, engine, bodies, got, want):
+    """Each speculating stream equals the non-speculating one, or parts only
+    at a near-tie: where they part, the non-speculating run's top-2 logit
+    gap must be under LOGITS_ATOL. Returns the parting positions."""
+    parts = []
+    for body, g, w in zip(bodies, got, want):
+        at = parts_at(g, w)
+        if at is None:
+            parts.append(None)
+            continue
+        ids = engine.tokenizer.encode(body["prompt"]) + list(w[:at])
+        gap = x_gap(torch, P, G, engine, ids)
+        parts.append({"at": at, "gap": gap})
+        check(gap < LOGITS_ATOL, f"{tag}: a stream parts at token {at} where the "
+                                 f"non-speculating run's top-2 gap is {gap:.4f}")
+    n_same = sum(p is None for p in parts)
+    print(f"{tag} greedy identity vs the non-speculating fleet: {n_same} of {len(parts)} "
+          f"streams identical; partings {json.dumps([p for p in parts if p])} (each at a "
+          f"near-tie, top-2 gap < {LOGITS_ATOL})")
+    return parts
+
+
+def x_spec_delta(before, after) -> dict:
+    keys = ("launches", "drafted_tokens", "accepted_tokens", "pipelined_launches")
+    return {k: after["speculative"][k] - before["speculative"][k] for k in keys}
+
+
+def x_fleet_run(tag, torch, engine, eng, pa, fa, Q, bodies, waves, smi, draft_layers=0):
+    """Serve an untimed wave of `bodies`, a lone request, then `waves` timed
+    waves on a fleet of `eng` through the HTTP server; for each timed wave
+    the kernel counts from 0 just before it, checked against the launches
+    it ran. Returns the rows and the fleet (shut down)."""
+    L = engine.cfg.n_layers
+    sfx = "[int8]" if eng.cfg.kv_quant == "int8" else ""
+    fleet, server = fleet_server(eng, FLEET)
+    rows = []
+    try:
+        check(fleet.warmup()["ok"], f"{tag} warmup")
+        # one untimed wave first: every launch kind the waves meet is
+        # captured (a capture is an eager launch and more) before a timed run
+        serve_wave(server, bodies, pa, fa, Q)
+        captured = {k: v["captures"] for k, v in fleet.stats()["graphs"].items()}
+        code, lone, wall = post(server.port, bodies[0])
+        check(code == 200 and lone["tokens_generated"] == X_NEW, f"{tag} lone: {lone}")
+        print(f"{tag} a lone request: prompt_tokens={lone['prompt_tokens']} "
+              f"tokens={lone['tokens_generated']} tokens_per_sec={lone['tokens_per_sec']} "
+              f"spec_drafted={lone.get('spec_drafted')} "
+              f"spec_accepted={lone.get('spec_accepted')} wall_s={wall:.3f} ({smi})")
+        for w in range(waves):
+            hist0 = x_hist(eng, "dli_spec_tokens_per_launch")
+            prop0 = fleet._propose_graph.calls if fleet._propose_graph else 0
+            results, wave_s, launches, before, after = serve_wave(server, bodies, pa, fa, Q)
+            for i, (code, r, _) in enumerate(results):
+                check(code == 200 and r.get("status") == "success"
+                      and r["tokens_generated"] == X_NEW, f"{tag} request {i}: {r}")
+            mixed = after["launches"]["mixed"] - before["launches"]["mixed"]
+            chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+            proposes = (fleet._propose_graph.calls if fleet._propose_graph else 0) - prop0
+            n_tok = sum(r["tokens_generated"] for _, r, _ in results)
+            row = dict(wave=w, wave_s=wave_s, tokens=n_tok, tokens_per_s=n_tok / wave_s,
+                       mixed=mixed, decode_chunks=chunks, launches=launches,
+                       ids=[r["token_ids"] for _, r, _ in results])
+            if "speculative" in after:
+                cnt, tot = x_hist(eng, "dli_spec_tokens_per_launch")
+                row["speculative"] = x_spec_delta(before, after)
+                row["tokens_per_verify_row"] = ((tot - hist0[1]) / (cnt - hist0[0])
+                                                if cnt > hist0[0] else None)
+                row["proposes"] = proposes
+            ragged, paged = "ragged_paged_attend" + sfx, "paged_flash_attend" + sfx
+            want_ragged = (L + draft_layers) * mixed
+            want_paged = L * FLEET["chunk_steps"] * chunks + draft_layers * (X_K + 1) * proposes
+            check(launches[ragged] == want_ragged > 0,
+                  f"{tag} wave {w}: {ragged} {launches[ragged]}, {want_ragged} expected for "
+                  f"{mixed} mixed launches ({L} layers + {draft_layers} draft layers)")
+            check(launches[paged] == want_paged,
+                  f"{tag} wave {w}: {paged} {launches[paged]}, {want_paged} expected for "
+                  f"{chunks} decode chunks and {proposes} propose chains")
+            others = [k for k in launches if k not in (ragged, paged) and launches[k]]
+            check(not others, f"{tag} wave {w}: other kernels ran: {launches}")
+            print(f"{tag} wave {w}: {n_tok} tokens in {wave_s:.3f} s = "
+                  f"{n_tok / wave_s:.2f} tokens/s aggregate; {mixed} mixed launches, "
+                  f"{chunks} decode chunks; speculative {json.dumps(row.get('speculative'))}, "
+                  f"tokens per verify row {row.get('tokens_per_verify_row')}, propose "
+                  f"chains {row.get('proposes')}; kernel launches "
+                  f"{json.dumps({k: v for k, v in launches.items() if v})} ({smi})")
+            rows.append(row)
+        st = wait_idle(server.port)["continuous"]
+        print(f"{tag} graphs captured after the untimed wave {json.dumps(captured)}; "
+              f"after the timed runs {json.dumps({k: v['captures'] for k, v in st['graphs'].items()})}")
+        check(st["paged"]["free_blocks"] == FLEET["kv_pool_blocks"] - 1,
+              f"{tag}: pool blocks leaked")
+        print(f"{tag} /stats speculative {json.dumps(st.get('speculative'))}")
+        if "speculative" in st and st["speculative"]["launches"]:
+            x_check_graphs(tag, st, draft_layers > 0)
+        else:
+            check_graphs(tag, st, {"mixed_launch": "mixed", "decode_chunk": "decode_chunks"})
+    finally:
+        server.shutdown()
+    return dict(lone=dict(tokens_per_sec=float(lone["tokens_per_sec"]),
+                          spec_drafted=lone.get("spec_drafted"),
+                          spec_accepted=lone.get("spec_accepted")), waves=rows), fleet
+
+
+def x_summary(rows) -> dict:
+    w = rows["waves"]
+    return dict(lone_tokens_per_s=rows["lone"]["tokens_per_sec"],
+                median_tokens_per_s=statistics.median(r["tokens_per_s"] for r in w),
+                waves_tokens_per_s=[r["tokens_per_s"] for r in w],
+                speculative=w[0].get("speculative"),
+                tokens_per_verify_row=w[0].get("tokens_per_verify_row"),
+                mixed=w[0]["mixed"], decode_chunks=w[0]["decode_chunks"],
+                launches={k: v for k, v in w[0]["launches"].items() if v})
+
+
+def phase_x1(torch, engine, pa, fa, Q, P, G, smi):
+    """n-gram speculation: the wave on (g)'s fleet with --spec-decode and
+    on the same fleet with spec_draft_len=0, then one wave under
+    --kv-quant int8."""
+    bodies = x_bodies()
+    out = {}
+    plain, _ = x_fleet_run("(x1) plain", torch, engine, x_engine(engine, spec_draft_len=0),
+                           pa, fa, Q, bodies, X_WAVES, smi)
+    spec_eng = x_engine(engine, spec_decode=True, spec_draft_len=X_K)
+    spec, _ = x_fleet_run("(x1) spec", torch, engine, spec_eng, pa, fa, Q, bodies,
+                          X_WAVES, smi)
+    out["plain"], out["spec"] = x_summary(plain), x_summary(spec)
+    out["spec"]["partings"] = x_identity("(x1) spec", torch, P, G, engine, bodies,
+                                         spec["waves"][0]["ids"], plain["waves"][0]["ids"])
+    int8, _ = x_fleet_run("(x1) spec int8", torch, engine,
+                          x_engine(engine, kv_quant="int8", spec_decode=True,
+                                   spec_draft_len=X_K), pa, fa, Q, bodies, 1, smi)
+    out["spec_int8"] = x_summary(int8)
+    print(f"(x1) aggregate tokens/s (median of {X_WAVES}): spec "
+          f"{out['spec']['median_tokens_per_s']:.2f} vs plain "
+          f"{out['plain']['median_tokens_per_s']:.2f}; lone stream "
+          f"{out['spec']['lone_tokens_per_s']} vs {out['plain']['lone_tokens_per_s']} "
+          f"tokens/s; int8 pool spec {out['spec_int8']['median_tokens_per_s']:.2f} ({smi})")
+    return out, plain["waves"][0]["ids"], [spec["waves"][0]["launches"]]
+
+
+def phase_x2(torch, engine, pa, fa, Q, P, G, smi, plain_ids, plain_tps, launches):
+    """Draft-model speculation: the target's own weights as the draft
+    (acceptance), then a 2-layer draft at tinyllama's widths (seed 1)."""
+    bodies = x_bodies()
+    out, fleets = {}, {}
+    for name, dcfg, dparams, layers in (
+            ("identical draft", engine.cfg, engine.backend.params, engine.cfg.n_layers),
+            (f"{X_DRAFT_LAYERS}-layer draft", engine.cfg.replace(n_layers=X_DRAFT_LAYERS),
+             None, X_DRAFT_LAYERS)):
+        eng = x_engine(engine, spec_decode=True, spec_draft_len=X_K,
+                       spec_draft_model=MODEL)
+        eng.set_draft(dcfg, dparams, seed=1)
+        rows, fleet = x_fleet_run(f"(x2) {name}", torch, engine, eng, pa, fa, Q, bodies, 1,
+                                  smi, draft_layers=layers)
+        out[name] = x_summary(rows)
+        sb = out[name]["speculative"]
+        out[name]["acceptance"] = (sb["accepted_tokens"] / sb["drafted_tokens"]
+                                   if sb["drafted_tokens"] else None)
+        out[name]["proposes"] = rows["waves"][0]["proposes"]
+        out[name]["partings"] = x_identity(f"(x2) {name}", torch, P, G, engine, bodies,
+                                           rows["waves"][0]["ids"], plain_ids)
+        print(f"(x2) {name}: drafted {sb['drafted_tokens']} accepted "
+              f"{sb['accepted_tokens']} (acceptance {out[name]['acceptance']}); "
+              f"{out[name]['median_tokens_per_s']:.2f} tokens/s against the plain fleet's "
+              f"{plain_tps:.2f}; paged_flash_attend per propose chain "
+              f"{layers} x {X_K + 1} ({smi})")
+        check(sb["drafted_tokens"] > 0, f"(x2) {name}: nothing drafted")
+        fleets[name] = fleet
+        launches.append(rows["waves"][0]["launches"])
+    return out, fleets
+
+
+def x_spec_operands(torch, cfg, P, G, graphs):
+    """(h)'s serving-shape operands with verify rows: slots 0 and 2
+    (greedy) carry K = 4 verify rows (n-gram drafts in the tokens, the
+    draft buffer random), the other armed slots plain decode rows, slot
+    7's 56-token prompt landing and arming."""
+    import numpy as np
+
+    ops, _ = fleet_operands(torch, cfg, P, G)
+    B, K, W = FLEET["n_slots"], X_K, RAGGED_W
+    verify = {0: 4, 2: 4}
+    entries = [(b, 0, 1 + verify[b], P.RAGGED_PREFILL) if b in verify
+               else (b, 0, 1, P.RAGGED_DECODE) for b in range(B - 1)]
+    entries.append((B - 1, 0, 56, P.RAGGED_PREFILL))
+    meta, tok_row, tok_pos, offsets, _ = P.build_ragged_meta(entries, width=W,
+                                                             tile=RAGGED_TILE)
+    dev = P.build_device_meta(entries, offsets, B - 1, width=W, tile=RAGGED_TILE)
+    dec_flag = np.zeros(W, bool)
+    dec_idx = np.zeros(B, np.int32)
+    spec = graphs.spec_inputs(B, K, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    for b, off in zip(range(B - 1), offsets):
+        dec_flag[off] = True
+        if b in verify:
+            idxs = off + np.arange(K + 1)
+            spec.plan.dec_on[b], spec.plan.on[b], spec.plan.n_draft[b] = False, True, K
+            spec.plan.idx[b] = torch.from_numpy(idxs).to(DEVICE)
+        else:
+            dec_idx[b] = off
+    spec.toks.copy_(torch.randint(3, cfg.vocab_size, (B, K), generator=g, device=DEVICE))
+    arm = ops["arm"]._replace(idx=ops["arm"].idx.clone())
+    arm.idx[B - 1] = offsets[-1] + 55
+    d = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    inputs = graphs.MixedInputs(ops["tokens"], d(tok_row), d(tok_pos), d(dec_flag), d(meta),
+                                d(dec_idx), arm, P.DeviceMeta(*(d(a) for a in dev)))
+    return dict(cache=ops["pool"], table=ops["table"], state=ops["state"],
+                sparams=ops["sparams"], inputs=inputs, spec=spec), ops["generator"]
+
+
+def x_replays(torch, graphs, tag, name, run, bufs, gen, want_deltas):
+    """One launch kind captured over `bufs` and replayed twice, each replay
+    bit-equal to the eager body on a clone of the buffers with the same
+    generator state (every pool outside its trash block), the counters
+    moving by the capture's deltas, replays under the sync check."""
+    lg = graphs.LaunchGraph(lambda: run(bufs, gen), name, DEVICE, gen)
+    start = clone_tree(torch, bufs)
+
+    def restore():
+        for k in ("state", "sparams"):
+            graphs.commit(bufs[k], start[k])
+
+    lg()
+    check(lg.captures == 1, f"{tag} {name}: not captured")
+    for _ in range(2):
+        restore()
+        ref = clone_tree(torch, bufs)
+        g2 = torch.Generator(device=DEVICE)
+        g2.set_state(gen.get_state())
+        before = graphs.launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = lg()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = None if got is None else got.clone()
+        moved = {k: v - before[k] for k, v in graphs.launch_counts().items()}
+        want = run(ref, g2)
+        torch.cuda.synchronize()
+        check(got is None or torch.equal(got, want),
+              f"{tag} {name}: a replay's result differs from the eager launch")
+        for key in ("state", "sparams", "spec"):
+            check(all(torch.equal(a, b) for a, b in zip(leaves(torch, bufs[key]),
+                                                        leaves(torch, ref[key]))),
+                  f"{tag} {name}: a replay's {key} differs from the eager launch")
+        for key in ("cache", "dpool"):
+            check(all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in
+                      zip(leaves(torch, bufs[key]), leaves(torch, ref[key]))),
+                  f"{tag} {name}: a replay's {key} differs from the eager launch")
+        check(moved == lg.deltas, f"{tag} {name}: counters moved {moved}, deltas {lg.deltas}")
+    nonzero = {k: v for k, v in lg.deltas.items() if v}
+    check(nonzero == want_deltas, f"{tag} {name}: launches per replay {nonzero}, "
+                                  f"{want_deltas} expected")
+    print(f"{tag} {name}: captured once, 2 replays bit-equal to eager under the sync "
+          f"check, launches per replay {json.dumps(nonzero)}")
+    lg.close()
+    return nonzero
+
+
+def phase_x3(torch, engine, pa, P, G, M, dpool_fleet):
+    """The speculation launch kinds as CUDA graphs, and the two kernels on
+    their new paths against their twins."""
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    cfg, be = engine.cfg, engine.backend
+    L = cfg.n_layers
+    bufs, gen = x_spec_operands(torch, cfg, P, G, graphs)
+    dcfg = cfg.replace(n_layers=X_DRAFT_LAYERS)
+    dparams = M.init_params(dcfg, torch.Generator(device=DEVICE).manual_seed(1))
+    bufs["dpool"] = P.init_pool(dcfg, int(bufs["table"].max()) + 1, BLOCK, device=DEVICE)
+    kinds = {
+        "mixed_spec (n-gram)": (lambda b, g: graphs.mixed_spec_launch(
+            be, b["inputs"], b["spec"], b["cache"], b["table"], b["state"], b["sparams"],
+            g, draft_toks=False), {"ragged_paged_attend": L}),
+        "mixed_spec (draft proposals)": (lambda b, g: graphs.mixed_spec_launch(
+            be, b["inputs"], b["spec"], b["cache"], b["table"], b["state"], b["sparams"],
+            g, draft_toks=True), {"ragged_paged_attend": L}),
+        "draft_fill": (lambda b, g: graphs.draft_fill(
+            dcfg, dparams, b["inputs"], b["dpool"], b["table"], b["state"]),
+            {"ragged_paged_attend": X_DRAFT_LAYERS}),
+        "draft_propose": (lambda b, g: graphs.draft_propose(
+            dcfg, dparams, b["state"], b["dpool"], b["table"], b["spec"].toks),
+            {"paged_flash_attend": X_DRAFT_LAYERS * (X_K + 1)}),
+    }
+    out = {"graphs": {}}
+    for name, (run, deltas) in kinds.items():
+        out["graphs"][name] = x_replays(torch, graphs, "(x3)", name, run, bufs, gen, deltas)
+    # ragged_paged_attend on launches with verify rows: K = 4 (one tile) and
+    # K = 8 (two tiles, tile_off 8) beside decode rows and a prompt chunk,
+    # q_start derived on the device
+    rows = []
+    for dt in ("bfloat16", "float32"):
+        for int8 in ((False, True) if dt == "bfloat16" else (False,)):
+            g, pk, pv, table = paged_pool(torch, getattr(torch, dt), 6, 31, int8=int8)
+            for k in (4, 8):
+                entries = [(0, 0, 1, P.RAGGED_DECODE), (1, 0, 1, P.RAGGED_DECODE),
+                           (2, 0, 1 + k, P.RAGGED_PREFILL), (3, 0, 1 + k, P.RAGGED_PREFILL),
+                           (4, 300, 56, P.RAGGED_PREFILL)]
+                meta, tok_row, tok_pos, offsets, _ = P.build_ragged_meta(
+                    entries, width=RAGGED_W, tile=RAGGED_TILE)
+                dev = P.build_device_meta(entries, offsets, 4, width=RAGGED_W,
+                                          tile=RAGGED_TILE)
+                d = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+                pos = torch.tensor([17, 1023, 700, 1015 - k, 0, 0], dtype=torch.int32,
+                                   device=DEVICE)
+                m, _ = P.apply_device_meta(d(meta), d(tok_row), d(tok_pos),
+                                           P.DeviceMeta(*(d(a) for a in dev)), pos)
+                q = torch.randn(RAGGED_W, H, DH, generator=g, device=DEVICE).to(
+                    getattr(torch, dt))
+                got = pa.ragged_paged_attend(q, pk, pv, table, m)
+                again = pa.ragged_paged_attend(q, pk, pv, table, m)
+                want = pa.ragged_paged_attend_plain(q, pk, pv, table, m)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                rows.append(dict(kernel="ragged_paged_attend", dtype=dt, int8=int8, k=k,
+                                 max_abs_err=err, atol=ATOL[dt],
+                                 repeat_equal=torch.equal(got, again)))
+                check(err <= ATOL[dt] and torch.equal(got, again),
+                      f"(x3) ragged_paged_attend on verify rows (K={k}, {dt}, int8={int8}): "
+                      f"error {err}")
+    # paged_flash_attend over the 2-layer draft fleet's pool (its layer 0,
+    # the K/V the draft wrote in (x2)) through a shuffled table
+    dk, dv = dpool_fleet._dpool["k"][0], dpool_fleet._dpool["v"][0]
+    g = torch.Generator(device=DEVICE).manual_seed(33)
+    n = dk.shape[0]
+    table = (torch.randperm(n - 1, generator=g, device=DEVICE)[: 8 * SLOT_MB] + 1).reshape(
+        8, SLOT_MB).to(torch.int32).contiguous()
+    pos = torch.tensor(SPECIAL_POS + [3, 511, 900], dtype=torch.int32, device=DEVICE)
+    for step in range(X_K + 1):  # one chain: K + 1 steps from each row's frontier
+        q = torch.randn(8, 1, H, DH, generator=g, device=DEVICE).to(dk.dtype)
+        p = torch.clamp(pos + step, max=SLOT_MB * BLOCK - 1)
+        got = pa.paged_flash_attend(q, dk, dv, table, p)
+        want = pa.paged_flash_attend_plain(q, dk, dv, table, p)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rows.append(dict(kernel="paged_flash_attend", pool="draft", step=step,
+                         max_abs_err=err, atol=ATOL["bfloat16"]))
+        check(err <= ATOL["bfloat16"], f"(x3) paged_flash_attend on the draft pool, step "
+                                        f"{step}: error {err}")
+    out["kernels"] = rows
+    print("(x3) kernels on their speculation paths vs their twins: " + json.dumps(rows))
+    return out
+
+
+def phase_x4(torch, engine, pa, fa, Q, faults, smi):
+    """Faults mid-speculation: a decode_launch crash on a draft-model fleet
+    (verify rows in flight at every launch), then (s)'s preemption pair on
+    the --spec-decode engine."""
+    eng = x_engine(engine, spec_decode=True, spec_draft_len=X_K, spec_draft_model=MODEL)
+    eng.set_draft(engine.cfg, engine.backend.params)  # accepts: it never stops drafting
+    fleet, server = fleet_server(eng, SUPER_FLEET)
+    spy = FleetSpy(fleet)
+    pending = []
+    inner = fleet._supervise
+
+    def supervise(exc):
+        pending.append(sum(len(v) for v in fleet._spec_pending.values()))
+        return inner(exc)
+
+    fleet._supervise = supervise
+    body = {"prompt": x_prompt(30, SUPER_REQ[0]), "max_tokens": SUPER_REQ[1],
+            "greedy": True, "chat": False}
+    try:
+        check(fleet.warmup()["ok"], "(x4) warmup")
+        code, ref, _ = post(server.port, body)
+        check(code == 200, f"(x4) the unfaulted run: {ref}")
+        st0 = wait_idle(server.port)["continuous"]
+        spy.reset()
+        faults.arm([faults.FaultRule("decode_launch", "transient", on_call=X_CRASH_CALL)])
+        try:
+            code, r, wall = post(server.port, body)
+        finally:
+            faults.disarm()
+        st = wait_idle(server.port)["continuous"]
+        restarts = st["supervisor"]["restarts"] - st0["supervisor"]["restarts"]
+        n_pre = spy.salvaged.get(body["prompt"], 0)
+        print(f"(x4) decode_launch crash (call {X_CRASH_CALL}) on a draft-model fleet: HTTP "
+              f"{code} tokens={r.get('tokens_generated')} recovered={r.get('recovered')} "
+              f"restarts +{restarts}; verify rows pending at the crash {pending}; {n_pre} "
+              f"tokens fetched before it; request wall {wall:.3f} s ({smi})")
+        check(code == 200 and r["tokens_generated"] == SUPER_REQ[1], f"(x4) crash: {r}")
+        check(restarts == 1 and pending and pending[0] > 0,
+              f"(x4) crash: {restarts} restarts, pending verify rows {pending}")
+        check(st["paged"]["free_blocks"] == SUPER_FLEET["kv_pool_blocks"] - 1,
+              "(x4) crash: pool blocks leaked")
+        check(all(g["captures"] <= 1 for g in st["graphs"].values())
+              and st["graphs"]["mixed_spec"]["captures"] == 1,
+              f"(x4) crash: graphs recaptured {st['graphs']}")
+        at = check_identity("(x4) crash", r["token_ids"], ref["token_ids"], n_pre)
+    finally:
+        faults.disarm()
+        server.shutdown()
+    spec_eng = x_engine(engine, spec_decode=True, spec_draft_len=X_K)
+    pair = phase_s(torch, spec_eng, pa, fa, Q, smi, tag="(x4) preemption",
+                   kinds={"mixed_launch": "mixed", "mixed_spec": "mixed",
+                          "decode_chunk": "decode_chunks"})
+    return dict(crash=dict(pending_at_crash=pending, tokens_before_crash=n_pre,
+                           parts_at=at, wall_s=wall),
+                preemption={k: v for k, v in pair.items() if k != "launches"})
+
+
+def phase_x(torch, engine, pa, fa, Q, P, G, M, faults, smi):
+    """Speculation on the mixed launch, on (g)'s fleet."""
+    t0 = time.time()
+    # the kernel counts of this slice's path: the spec wave and the two
+    # draft-model waves, each from 0 just before it
+    x1, plain_ids, waves = phase_x1(torch, engine, pa, fa, Q, P, G, smi)
+    x2, fleets = phase_x2(torch, engine, pa, fa, Q, P, G, smi, plain_ids,
+                          x1["plain"]["median_tokens_per_s"], waves)
+    x_launches = {k: sum(w[k] for w in waves) for k in waves[0]}
+    check(x_launches["ragged_paged_attend"] > 0 and x_launches["paged_flash_attend"] > 0,
+          f"(x) a kernel of the speculation path never launched: {x_launches}")
+    x3 = phase_x3(torch, engine, pa, P, G, M, fleets[f"{X_DRAFT_LAYERS}-layer draft"])
+    del fleets
+    torch.cuda.empty_cache()
+    x4 = phase_x4(torch, engine, pa, fa, Q, faults, smi)
+    print(f"(x) took {time.time() - t0:.1f} s ({smi})")
+    print("(x) " + json.dumps({"speculation": dict(x1=x1, x2=x2, x3=x3, x4=x4)}))
+    return x_launches
+
+
 def main(argv) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w"],
+    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -3975,7 +4507,8 @@ def main(argv) -> int:
                          "of the fleet's preemption, supervisor and health sweep; "
                          "or (v) on the raw engine (v): the block-prefix cache "
                          "and the KV shadow; or (w) on the raw engine (w): the "
-                         "cross-replica KV fabric")
+                         "cross-replica KV fabric; or (x) on the raw engine (x): "
+                         "speculation on the mixed launch")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -4046,7 +4579,7 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
-    if args.only not in ("s", "v", "w"):
+    if args.only not in ("s", "v", "w", "x"):
         # (b) the kernel against its twin
         phase_b(torch, timer, fa)
 
@@ -4076,6 +4609,12 @@ def main(argv) -> int:
               f"{time.time() - t0:.1f} s")
         phase_w(torch, engine, pa, fa, Q, smi)
         print(f"(w) total {time.time() - t_start:.1f} s")
+        return 0
+    if args.only == "x":
+        print(f"(x) {MODEL} bf16, random weights (seed 0), built in "
+              f"{time.time() - t0:.1f} s")
+        phase_x(torch, engine, pa, fa, Q, P, G, M, faults, smi)
+        print(f"(x) total {time.time() - t_start:.1f} s")
         return 0
     cfg = engine.cfg
     print(f"(c) {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
@@ -4159,6 +4698,10 @@ def main(argv) -> int:
     phase_w(torch, engine, pa, fa, Q, smi)
     print(f"(w) total {time.time() - t_start:.1f} s")
 
+    # (x) speculation on the mixed launch: n-gram and draft-model verify rows
+    x_launches = phase_x(torch, engine, pa, fa, Q, P, G, M, faults, smi)
+    print(f"(x) total {time.time() - t_start:.1f} s")
+
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)
     phase_b(torch, timer, fa, int8=True)
@@ -4196,10 +4739,16 @@ def main(argv) -> int:
     graph_rows += phase_q(torch, qengine, P, G, M)
     print(f"(q) int4+int8 total {time.time() - t_start:.1f} s ({smi})")
     print("(q) " + json.dumps({"graphs": graph_rows}))
+    ragged_entry = ragged_line(paged_rows, wave["launches"], False, P)
+    paged_entry = paged_decode_line(paged_rows, wave["launches"], False)
+    # the speculation path's own counts ((x1)'s verify wave, (x2)'s draft
+    # waves), beside (g)'s
+    for entry in (ragged_entry, paged_entry):
+        entry["launches_x"] = x_launches[entry["name"]]
     line = {"kernels": [
         flash_entry,
-        ragged_line(paged_rows, wave["launches"], False, P),
-        paged_decode_line(paged_rows, wave["launches"], False),
+        ragged_entry,
+        paged_entry,
         q4_line(q4_rows, qwave["launches"]),
         kernels_line(torch, timer, fa, solo_chunks,
                      solo_launches["flash_attend[int8]"], int8=True),

@@ -317,6 +317,31 @@ class EngineConfig:
     # Disk-tier bound, in blocks (chunk files; LRU with the same cascade
     # discipline as the host tier). 0 = auto: 8x the host tier.
     kv_disk_blocks: int = 0
+    # Speculative decoding on the chunked paged fleet (engine/continuous.py
+    # and the spec operands of engine/paged.mixed_step_ragged): an
+    # eligible greedy decode slot carries a [current + K-draft] VERIFY row
+    # instead of its 1-token decode row in the mixed launch; the ragged
+    # kernel serves the row, accept / reject runs on the device, and the
+    # emissions ride the launch's one packed fetch. Greedy output is
+    # identical to plain decode. spec_draft_len: drafted tokens per verify
+    # row (0 turns the machinery off).
+    spec_draft_len: int = 4
+    # Fleet-wide speculation: every eligible greedy slot speculates; False:
+    # only requests that ask ("speculative": true). Either way the
+    # scheduler drafts nothing under decode TPOT pressure, and a slot
+    # whose history offers no draft decodes a plain row.
+    spec_decode: bool = False
+    # Registry name of a small same-tokenizer draft model whose greedy
+    # chain proposes the drafts on the device, over its own pool indexed
+    # by the same block tables, instead of n-gram lookup. A draft attached
+    # by engine.set_draft() wins over loading this name. None: n-gram.
+    spec_draft_model: Optional[str] = None
+    # Device-derived positions for verify rows (engine/paged.DeviceMeta):
+    # a slot whose verify row is not fetched yet keeps speculating, back
+    # to back, and each slot's draft length adapts to its acceptance
+    # (TokenBudgetScheduler.spec_slot_k). False: the host-planned freeze,
+    # one verify row per fetch round trip.
+    spec_device_meta: bool = True
     # KV preemption under pool pressure (engine/continuous.py
     # _preempt_for): when the pool cannot place an admission, the fleet
     # evicts the lowest-SLO-weight / youngest decoding request and
@@ -353,6 +378,10 @@ class EngineConfig:
     tenant_max_queue_share: float = 0.5
 
     def __post_init__(self):
+        if self.spec_draft_len < 0:
+            raise ValueError(
+                f"spec_draft_len must be >= 0, got {self.spec_draft_len}"
+            )
         if self.kv_disk_blocks < 0:
             raise ValueError(
                 f"kv_disk_blocks must be >= 0, got {self.kv_disk_blocks}"

@@ -114,10 +114,20 @@ counts as the next crash, so such a fault ends in the same clean death.
 utils/faults.py injection points (admission, alloc, prefill,
 decode_launch, fetch, preempt) drive every path in the tests.
 
+Speculation on the mixed launch (a chunked fleet with spec_draft_len > 0,
+the JAX default; _init_spec): an eligible greedy request's slot carries a
+[current + K drafts] verify row in place of its decode row, accepted or
+rejected on the device, its emissions spliced into the fetch; n-gram
+drafts (positions derived on the device, back to back, K adapting per
+slot; or the host-planned freeze) or a draft model's chain over a draft
+pool that shares the block tables. A launch with no verify row and no
+frozen slot is the plain mixed launch; the verify launch, the draft fill
+and the propose chain are launch kinds of their own.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): speculation, adapters, grammar constraints in the fleet (they go
-to the solo engine, as in the JAX package), the dense fleet's prefix
-cache, and gpt2's fleet.
+item): adapters, grammar constraints in the fleet (they go to the solo
+engine, as in the JAX package), the dense fleet's prefix cache, and
+gpt2's fleet.
 """
 
 from __future__ import annotations
@@ -176,7 +186,8 @@ class _Request:
         "prefill_chunks", "tenant", "salvaged", "strikes", "recovering",
         "preemptions", "preempted_at", "drop_seq", "prefix_hit_tokens",
         "shadow_depth", "resume_seq", "promoted_blocks", "kv_hint",
-        "fabric_blocks", "trace_ctx",
+        "fabric_blocks", "trace_ctx", "spec_want", "spec_drafted",
+        "spec_accepted", "spec_launches",
     )
 
     def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None,
@@ -238,6 +249,13 @@ class _Request:
         self.fabric_blocks = 0
         # the request's trace context (its traceparent rides the fabric)
         self.trace_ctx = trace_ctx
+        # speculation: the request asked for it ("speculative": true; the
+        # fleet-wide spec_decode makes every eligible greedy request a
+        # candidate too), and its draft / accept / verify-row counts
+        self.spec_want = bool(kwargs.get("speculative"))
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_launches = 0
 
 
 class ContinuousEngine:
@@ -442,6 +460,7 @@ class ContinuousEngine:
         self._mixed_graph = (graphs.LaunchGraph(self._mixed_body, "mixed_launch",
                                                 self.device, self._gen)
                              if self._chunked else None)
+        self._init_spec(engine)
         self._cv = threading.Condition()
         self._queue: list = []  # guarded-by: _cv
         self._assignment: list = [None] * self.n_slots  # guarded-by: _cv
@@ -485,15 +504,93 @@ class ContinuousEngine:
                                         name="continuous-engine")
         self._thread.start()
 
+    def _init_spec(self, engine):
+        """Speculation on the mixed launch (chunked fleets with
+        spec_draft_len > 0, the JAX default): an eligible greedy decode slot
+        carries a [current + K-draft] verify row in the mixed launch. Two
+        position disciplines, as in the JAX fleet:
+          * spec_device_meta (the default): a verify row's positions derive
+            on the device (DeviceMeta), so a slot speculates every step,
+            back to back; the host keeps a FIFO of its unfetched verify
+            launches (_spec_pending: each one's predicted window, from
+            which n-gram drafting continues, and its advance bound for the
+            block-capacity clamp), and each slot's draft length adapts to
+            its acceptance (scheduler.spec_slot_k);
+          * host-planned (spec_device_meta=False): a slot with an
+            unfetched verify row gets no row (_spec_inflight) until the
+            packed fetch resyncs its host position.
+        Drafts come from n-gram lookup in the slot's history or, with
+        spec_draft_model (or a draft attached by engine.set_draft), from a
+        draft model's greedy chain over its own pool, indexed by the same
+        block tables (its blocks share the target's allocation). A launch
+        with no verify row and no frozen slot runs the plain mixed launch;
+        the verify launch, the draft fill and the propose chain are launch
+        kinds of their own, each captured once."""
+        ecfg = engine.engine_cfg
+        self._spec_k_max = max(0, int(ecfg.spec_draft_len))
+        self._spec_auto = bool(ecfg.spec_decode)
+        self._spec_capable = bool(self._chunked and self._spec_k_max > 0)
+        self._spec_devmeta = bool(self._spec_capable and ecfg.spec_device_meta)
+        self._spec_inflight: dict = {}  # host-planned: slot -> (req, n_draft)
+        # device-meta: slot -> FIFO of {req, nd, pred, adv} per unfetched
+        # verify launch (pred: drafts + predicted correction, n-gram mode;
+        # adv: the position-advance bound nd + 1)
+        self._spec_pending: dict = {}
+        # decode chunks not fetched yet: their many-token advances are
+        # unpredictable, so n-gram drafting waits for their fetch
+        self._chunk_unfetched = 0
+        # launches in flight carrying each slot's row
+        self._row_inflight = np.zeros((self.n_slots,), np.int64)
+        # the host position model: each slot's write position as far as
+        # the host knows it (prompt length at arming, + 1 per plain row,
+        # + chunk_steps per decode chunk, + the fetched advance of a verify
+        # row). Decode positions derive on the device; this sizes the
+        # block-capacity clamp and plans host-planned verify rows
+        self._host_pos = np.zeros((self.n_slots,), np.int64)
+        self.spec_launches = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        # verify rows launched while an earlier one of the slot was still
+        # unfetched (0 by construction in the host-planned mode)
+        self.spec_pipelined = 0
+        self._draft_mode = False
+        self._dcfg = self._dparams = self._dpool = None
+        self._spec_in = self._spec_graph = None
+        self._fill_graph = self._propose_graph = None
+        if not self._spec_capable:
+            return
+        if ecfg.spec_draft_model:
+            if getattr(engine, "_draft", None) is None:
+                from ..models.registry import get_model_config
+
+                # the named draft at the serving dtype (runtime.py's rule)
+                engine.set_draft(get_model_config(ecfg.spec_draft_model)
+                                 .replace(dtype=self.cfg.dtype))
+            self._dcfg, self._dparams = engine._draft
+            self._dpool = P.init_pool(self._dcfg, self._pool_blocks,
+                                      self.kv_block_size, device=self.device)
+            self._draft_mode = True
+        self._spec_in = graphs.spec_inputs(self.n_slots, self._spec_k_max,
+                                           device=self.device)
+        self._spec_graph = graphs.LaunchGraph(self._spec_body, "mixed_spec",
+                                              self.device, self._gen)
+        if self._draft_mode:
+            self._fill_graph = graphs.LaunchGraph(self._fill_body, "draft_fill",
+                                                  self.device, self._gen)
+            self._propose_graph = graphs.LaunchGraph(
+                self._propose_body, "draft_propose", self.device, self._gen)
+
     # -- client side ---------------------------------------------------------
     def _needs_solo(self, kwargs: dict) -> bool:
         """Contracts slots cannot honor run solo on the wrapped engine (the
         JAX package's rule): a seed, debug, logprobs, logit_bias, beams,
-        constraints, and speculation (not ported to the fleet)."""
+        constraints, and speculation on a fleet that cannot speculate
+        (a speculative request stays in a spec-capable fleet; a
+        non-greedy or penalized one decodes plainly there)."""
         return bool(
             kwargs.get("seed") is not None
             or kwargs.get("debug")
-            or kwargs.get("speculative")
+            or (kwargs.get("speculative") and not self._spec_capable)
             or kwargs.get("logprobs")
             or kwargs.get("logit_bias")
             or int(kwargs.get("num_beams", 1) or 1) > 1
@@ -782,15 +879,32 @@ class ContinuousEngine:
             "mixed_with_decode_and_prefill": self.mixed_with_both,
             "decode_chunks": self.chunk_launches,
         }
-        # CUDA graphs: a launch kind is captured once, then replayed
+        if self._spec_capable:
+            out["speculative"] = {
+                "mode": "draft_model" if self._draft_mode else "ngram",
+                "draft_len": self._spec_k_max,
+                "fleet_wide": self._spec_auto,
+                "device_meta": self._spec_devmeta,
+                "launches": self.spec_launches,
+                "drafted_tokens": self.spec_drafted,
+                "accepted_tokens": self.spec_accepted,
+                "inflight_rows": len(self._spec_inflight) + sum(
+                    len(v) for v in self._spec_pending.values()),
+                # verify rows launched while an earlier one was unfetched
+                "pipelined_launches": self.spec_pipelined,
+            }
+        # CUDA graphs: a launch kind is captured once, then replayed; the
+        # speculation kinds are listed once they launched
+        base = (self._chunk_graph, self._mixed_graph)
         out["graphs"] = {g.name: {"captures": g.captures, "replays": g.replays}
-                         for g in self._graphs()}
+                         for g in self._graphs() if g in base or g.calls}
         if self._bpx is not None:
             out["prefix_cache"] = self._bpx.stats()
         return out
 
     def _graphs(self) -> list:
-        return [g for g in (self._chunk_graph, self._mixed_graph) if g is not None]
+        return [g for g in (self._chunk_graph, self._mixed_graph, self._spec_graph,
+                            self._fill_graph, self._propose_graph) if g is not None]
 
     # -- host <-> device -----------------------------------------------------
     def _upload(self, *arrays):
@@ -878,6 +992,14 @@ class ContinuousEngine:
             admitting, self._admitting = self._admitting, None
         self._jobs = []
         self._prefilling = {}
+        # speculation bookkeeping dies with the fleet: unfetched verify
+        # rows are unfetched launches (their emissions drop; the salvage
+        # holds fetched tokens only)
+        self._host_pos[:] = 0
+        self._spec_inflight.clear()
+        self._spec_pending.clear()
+        self._chunk_unfetched = 0
+        self._row_inflight[:] = 0
         if (admitting is not None and admitting not in running
                 and not admitting.done.is_set()):
             running.append(admitting)
@@ -910,7 +1032,8 @@ class ContinuousEngine:
     def _rebuild_fleet(self):
         """Reset the device-side fleet for the restarted loop IN PLACE:
         the pool (or dense cache), the slot state and knobs, the block
-        table and the mixed launch's inputs keep their storage, so every
+        table, the mixed launch's inputs, the speculation buffers and the
+        draft pool keep their storage, so every
         captured CUDA graph stays valid and each launch kind stays
         captured once. On the card the launches still in flight when the
         host raised land first (synchronize); a device fault that
@@ -929,6 +1052,13 @@ class ContinuousEngine:
             graphs.commit(self._mixed_in, graphs.mixed_inputs(
                 self._sched_width, self._ragged_tile, self.n_slots,
                 self.cfg.vocab_size, device=self.device))
+        if self._spec_in is not None:
+            graphs.commit(self._spec_in, graphs.spec_inputs(
+                self.n_slots, self._spec_k_max, device=self.device))
+        if self._dpool is not None:
+            # draft-quality state only: recovered tenants refill it through
+            # their admission
+            _zero_tree(self._dpool)
         if self._cuda:
             torch.cuda.synchronize(self.device)
 
@@ -1138,7 +1268,16 @@ class ContinuousEngine:
             if self._chunked:
                 self._reap_jobs()
                 self._start_jobs()
-                step = self._launch_mixed() if self._jobs else self._launch_chunk()
+                spec_rows = self._plan_spec()
+                # a mixed launch while prompt chunks or verify rows are
+                # planned, or a verify row is unfetched (host-planned: its
+                # slot stays frozen; device-meta: the per-launch emission
+                # bookkeeping stays uniform), else a decode chunk
+                if (self._jobs or spec_rows or self._spec_inflight
+                        or self._spec_pending):
+                    step = self._launch_mixed(spec_rows)
+                else:
+                    step = self._launch_chunk()
             else:
                 if queued:
                     self._admit()
@@ -1338,6 +1477,10 @@ class ContinuousEngine:
                          presence_row, table_row, self._sched.classify(req.slo))
         self._table[slot] = table_row
         self._table_stale = True
+        self._host_pos[slot] = 0
+        # a new tenant's stream predicts nothing of the last one's: its
+        # adaptive-K acceptance starts afresh
+        self._sched.spec_reset(slot)
         req.slot = slot
         req.ids = ids
         req.shadow_depth = 0
@@ -1955,6 +2098,13 @@ class ContinuousEngine:
             self._table_device()
         packed = self._chunk_graph()
         self.chunk_launches += 1
+        # host position model: every assigned slot advances chunk_steps (a
+        # row that dies mid-chunk over-advances, and is finalized), and
+        # n-gram drafting waits for this fetch
+        self._chunk_unfetched += 1
+        for b, r in enumerate(self._assignment):
+            if r is not None:
+                self._host_pos[b] += self.chunk_steps
         return ("chunk", self._to_host(packed), list(self._assignment),
                 time.perf_counter(), self._mutation_seq)
 
@@ -1971,17 +2121,145 @@ class ContinuousEngine:
                                    self._table_dev, self.state, self.sparams,
                                    self._gen)
 
-    def _launch_mixed(self):
-        """ONE scheduler step: every decoding slot's token plus the budget
-        slice of pending prompt chunks in one mixed launch. Decode rows'
-        positions are substituted on the device (DeviceMeta). Returns the
-        in-flight tuple ("mixed", fetch handle, decode snapshot, {slot:
-        req} completions, launch time, mutation seq) or None."""
-        active = [b for b, r in enumerate(self._assignment)
-                  if r is not None and b not in self._prefilling]
+    def _spec_body(self):
+        """The mixed launch with verify rows (a LaunchGraph)."""
+        return graphs.mixed_spec_launch(
+            self.backend, self._mixed_in, self._spec_in, self.cache,
+            self._table_dev, self.state, self.sparams, self._gen, self._draft_mode)
+
+    def _fill_body(self):
+        """The mixed launch's tokens into the draft pool (a LaunchGraph)."""
+        graphs.draft_fill(self._dcfg, self._dparams, self._mixed_in, self._dpool,
+                          self._table_dev, self.state)
+
+    def _propose_body(self):
+        """The draft chain into the static proposals (a LaunchGraph)."""
+        return graphs.draft_propose(self._dcfg, self._dparams, self.state,
+                                    self._dpool, self._table_dev, self._spec_in.toks)
+
+    # -- speculation: host-side planning --------------------------------------
+    def _spec_req_ok(self, req: Optional[_Request]) -> bool:
+        """Is this tenant a speculation candidate? Greedy only (the verify
+        compares the model's own argmax) with every logit-changing knob
+        off, so the verify argmax and slot_step's coincide; and the
+        request (or the fleet, spec_decode) opted in."""
+        if req is None or not (self._spec_auto or req.spec_want):
+            return False
+        k = req.kwargs
+        return (bool(k.get("greedy", False))
+                and float(k.get("repetition_penalty", 1.0)) == 1.0
+                and float(k.get("frequency_penalty", 0.0)) == 0.0
+                and float(k.get("presence_penalty", 0.0)) == 0.0
+                and k.get("constraint") is None)
+
+    def _plan_spec(self) -> dict:
+        """This step's verify rows: {slot: (n_draft, drafts or None, pred or
+        None)} (drafts None: the draft model proposes on the device; pred:
+        the optimistic window, drafts + predicted correction, that later
+        plans extend the slot's history with).
+
+        Device-meta mode: an unfetched verify row never disqualifies its
+        slot; the only gates are the n-gram planner's: no decode chunk
+        unfetched, every pending launch carrying the slot a verify launch
+        of THIS tenant with a predicted window, and a window of >= 2
+        tokens from the optimistic history. Host-planned mode: the
+        previous verify row fetched and no row of the slot in flight.
+
+        The scheduler picks the global K (0 under decode TPOT pressure),
+        each slot's K follows its acceptance (spec_slot_k, device-meta
+        mode) and is clamped to its allocated blocks at the PESSIMISTIC
+        frontier (host position + every pending launch's advance bound),
+        so a verify write never clamps into a live block."""
+        if not self._spec_capable:
+            return {}
+        from .scheduler import ngram_draft, spec_block_cap
+
+        devmeta = self._spec_devmeta
+        cand = []
+        for b, req in enumerate(self._assignment):
+            if (req is None or b in self._prefilling or req.done.is_set()
+                    or not self._spec_req_ok(req)):
+                continue
+            if devmeta:
+                pending = self._spec_pending.get(b, [])
+                if any(e["req"] is not req for e in pending):
+                    continue  # the slot's previous tenant's: wait for them
+                if not self._draft_mode and (
+                        self._chunk_unfetched
+                        # a pending PLAIN row adds a token the host cannot
+                        # predict: drafting would leave the frontier
+                        or self._row_inflight[b] > len(pending)
+                        or any(e["pred"] is None for e in pending)):
+                    continue
+            elif b in self._spec_inflight or self._row_inflight[b] != 0:
+                continue
+            cand.append(b)
+        if not cand:
+            return {}
+        decoding = [r for b, r in enumerate(self._assignment)
+                    if r is not None and b not in self._prefilling]
+        k = self._sched.spec_draft_len(
+            self._spec_k_max, len(cand), len(decoding) - len(cand),
+            active_classes={r.slo for r in decoding}, jobs_pending=bool(self._jobs))
+        if k <= 0:
+            return {}
+        out = {}
+        for b in cand:
+            req = self._assignment[b]
+            pending = self._spec_pending.get(b, []) if devmeta else []
+            frontier = int(self._host_pos[b]) + sum(e["adv"] for e in pending)
+            kb = min(k, spec_block_cap(len(req.block_ids or ()),
+                                       self.kv_block_size, frontier))
+            if devmeta:
+                kb = min(kb, self._sched.spec_slot_k(b, k))
+            if kb < 1:
+                continue
+            if self._draft_mode:
+                out[b] = (kb, None, None)
+                continue
+            head = ([req.first_id] if req.first_id is not None
+                    and req.first_id not in self.cfg.all_stop_ids else [])
+            hist = (req.ids or []) + head + req.tokens
+            if devmeta:
+                # the optimistic frontier: every pending verify row fully
+                # accepts its predicted window (a wrong guess only rejects);
+                # draft kb tokens and predict the correction too, so the
+                # next back-to-back plan stays aligned under full accept
+                for e in pending:
+                    hist = hist + e["pred"]
+                window = ngram_draft(hist, kb + 1)
+                if len(window) >= 2:
+                    out[b] = (len(window) - 1, window[:-1], window)
+            else:
+                drafts = ngram_draft(hist, kb)
+                if drafts:
+                    out[b] = (len(drafts), drafts, None)
+        return out
+
+    def _launch_mixed(self, spec_rows: Optional[dict] = None):
+        """ONE scheduler step: every decoding slot's token (or, for slots in
+        `spec_rows` ({slot: (n_draft, drafts or None, pred or None)}), a
+        [current + drafts] verify row) plus the budget slice of pending
+        prompt chunks in one mixed launch. Decode rows' positions, and in
+        device-meta mode verify rows', are substituted on the device
+        (DeviceMeta). Returns the in-flight tuple ("mixed", fetch handle,
+        decode snapshot, {slot: req} completions, launch time, mutation
+        seq, {slot: (req, n_draft)} of the verify rows or None for the
+        plain launch) or None."""
+        spec_rows = spec_rows or {}
+        devmeta = self._spec_devmeta
+        assigned = [b for b, r in enumerate(self._assignment)
+                    if r is not None and b not in self._prefilling]
+        # host-planned: a slot with an unfetched verify row gets no row (its
+        # position is unknown to the host until the fetch resyncs it)
+        active = [b for b in assigned if devmeta or b not in self._spec_inflight]
+        # a verify row debits the step budget like prefill tokens do
+        tile = self._ragged_tile
         plan = self._sched.plan(
-            len(active), self._jobs,
-            active_classes={self._assignment[b].slo for b in active},
+            sum(-(-(1 + spec_rows[b][0]) // tile) if b in spec_rows else 1
+                for b in active),
+            self._jobs,
+            active_classes={self._assignment[b].slo for b in assigned},
         )
         if not active and not plan:
             return None
@@ -1989,10 +2267,20 @@ class ContinuousEngine:
             r.prompt for r in self._assignment if r is not None))
         if plan:
             faults.check("prefill", tag=",".join(job.req.prompt for job, _ in plan))
-        W, B, tile = self._sched_width, self.n_slots, self._ragged_tile
-        # decode rows' positions are placeholders: the launch derives them
-        # from the slot state on the device (DeviceMeta)
-        entries = [(b, 0, 1, P.RAGGED_DECODE) for b in active]
+        W, B = self._sched_width, self.n_slots
+        # device-derived rows first: plain decode rows and, in device-meta
+        # mode, verify rows; a host-planned verify row follows them with its
+        # exact host position (the row had nothing in flight)
+        rows = [b for b in active if devmeta or b not in spec_rows]
+        n_derived = len(rows)
+        rows += [b for b in active if b not in rows]
+        entries = []
+        for b in rows:
+            if b in spec_rows:
+                start = int(self._host_pos[b]) if not devmeta else 0
+                entries.append((b, start, 1 + spec_rows[b][0], P.RAGGED_PREFILL))
+            else:
+                entries.append((b, 0, 1, P.RAGGED_DECODE))
         chunk_list = []
         for job, n in plan:
             start = job.p0 + job.done
@@ -2000,14 +2288,32 @@ class ContinuousEngine:
             chunk_list.append((job, n, start))
         meta, tok_row, tok_pos, offsets, stats = P.build_ragged_meta(
             entries, width=W, tile=tile)
-        n_dec = len(active)
-        dev_np = P.build_device_meta(entries, offsets, n_dec, width=W, tile=tile)
+        n_dec = len(rows)
+        dev_np = P.build_device_meta(entries, offsets, n_derived, width=W, tile=tile)
         toks = np.zeros((W,), np.int32)
         dec_flag = np.zeros((W,), bool)
         dec_idx = np.zeros((B,), np.int32)
-        for b, off in zip(active, offsets[:n_dec]):
+        K1 = self._spec_k_max + 1 if self._spec_capable else 1
+        sp_on = np.zeros((B,), bool)
+        sp_idx = np.zeros((B, K1), np.int32)
+        sp_nd = np.zeros((B,), np.int32)
+        dec_on = np.zeros((B,), bool)
+        for b, off in zip(rows, offsets[:n_dec]):
+            # a row's FIRST flat slot takes the slot's token and position
+            # from the device state, decode and verify rows alike
             dec_flag[off] = True
-            dec_idx[b] = off
+            if b in spec_rows:
+                kb, drafts, _ = spec_rows[b]
+                sp_on[b] = True
+                sp_nd[b] = kb
+                idxs = off + np.arange(K1, dtype=np.int32)
+                idxs[kb + 1:] = off + kb  # repeat the last valid index
+                sp_idx[b] = idxs
+                if drafts is not None:  # n-gram drafts ride the host plan
+                    toks[off + 1: off + 1 + kb] = drafts
+            else:
+                dec_on[b] = True
+                dec_idx[b] = off
         completions = {}
         arm_np = None
         for (job, n, start), off in zip(chunk_list, offsets[n_dec:]):
@@ -2045,10 +2351,56 @@ class ContinuousEngine:
              inp.dec_idx, *inp.dev),
             (toks, tok_row, tok_pos, dec_flag, meta, dec_idx, *dev_np))
         self._table_device()
-        handle = self._to_host(self._mixed_graph())
+        # the verify launch runs only with a verify row or a frozen slot:
+        # every other launch is the plain mixed launch
+        use_spec = bool(spec_rows) or any(b in self._spec_inflight for b in assigned)
+        if self._draft_mode:
+            # keep the draft pool tracking the stream: every mixed launch
+            # lands its prompt chunks and each row's current token there
+            # (decode chunks leave holes that cost draft quality only)
+            self._fill_graph()
+        if use_spec:
+            self._upload_into(self._spec_in.plan, (dec_on, sp_on, sp_idx, sp_nd))
+            if self._draft_mode and spec_rows:
+                self._propose_graph()  # the proposals, on the device
+            packed = self._spec_graph()
+        else:
+            packed = self._mixed_graph()
+        handle = self._to_host(packed)
+        # host bookkeeping after the launch is enqueued: a verify row's
+        # advance is data-dependent, so the host learns it from the fetch
+        spec_meta = {}
+        for b in rows:
+            self._row_inflight[b] += 1
+            if b not in spec_rows:
+                self._host_pos[b] += 1
+                continue
+            nd, _, pred = spec_rows[b]
+            req = self._assignment[b]
+            spec_meta[b] = (req, nd)
+            if devmeta:
+                pending = self._spec_pending.setdefault(b, [])
+                if pending:
+                    self.spec_pipelined += 1
+                pending.append({"req": req, "nd": nd, "pred": pred, "adv": nd + 1})
+            else:
+                self._spec_inflight[b] = (req, nd)
+        if spec_rows:
+            drafted = sum(nd for nd, _, _ in spec_rows.values())
+            self._m.spec_launches.labels(
+                mode="draft_model" if self._draft_mode else "ngram").inc(len(spec_rows))
+            self._m.spec_drafted.inc(drafted)
+            self.spec_launches += len(spec_rows)
+            self.spec_drafted += drafted
+            for b, (nd, _, _) in spec_rows.items():
+                self._sched.count_spec_plan(nd)
+                req = self._assignment[b]
+                req.spec_launches += 1
+                req.spec_drafted += nd
         for slot, req in completions.items():
             job = self._prefilling.pop(slot)
             self._jobs.remove(job)
+            self._host_pos[slot] = job.prompt_len
             if self._bpx is not None:
                 # the prompt's full blocks are complete and immutable once
                 # this launch lands; later reads serialize behind it
@@ -2073,9 +2425,12 @@ class ContinuousEngine:
         self._m.ragged_tiles.labels(state="live").inc(
             stats["tiles"] - stats["pad_tiles"])
         self._m.ragged_launches.labels(phase="mixed").inc()
+        # the decode snapshot: rows decoding or verifying at launch (a
+        # host-planned slot frozen behind an unfetched verify row carries
+        # no row and emits nothing here)
         snapshot = [self._assignment[b] if b in active else None for b in range(B)]
         return ("mixed", handle, snapshot, completions, time.perf_counter(),
-                self._mutation_seq)
+                self._mutation_seq, spec_meta if use_spec else None)
 
     def _fresh_arm(self):
         """Mutable numpy MixedArm builder (one per launch WITH completions;
@@ -2095,9 +2450,9 @@ class ContinuousEngine:
         """Fetch one mixed step's packed results: first-token bookkeeping
         for admissions that completed in that launch, then the shared
         decode distribution."""
-        _, handle, snapshot, completions, t_launch, seq = step
+        _, handle, snapshot, completions, t_launch, seq, spec_meta = step
         faults.check("fetch", tag=",".join(r.prompt for r in snapshot if r is not None))
-        packed = self._fetch(handle)
+        packed = self._fetch(handle)  # [5, B], or [5 + 2(K+1) + 1, B] with verify rows
         self._m.step.observe(max(0.0, time.perf_counter() - t_launch))
         emitted, mask, active, firsts = packed[:4]
         now = time.time()
@@ -2111,8 +2466,46 @@ class ContinuousEngine:
                 req.ttft = now - req.t_start
             self._count_admission(req)
             self._post_admit(req)
-        self._distribute(emitted[None, :], mask[None, :].astype(bool),
-                         active.astype(bool), snapshot, seq=seq)
+        em, mk = emitted[None, :], mask[None, :].astype(bool)
+        if spec_meta:
+            # one emission matrix: decode rows keep their token in row 0,
+            # verify rows splice their whole stream, and _distribute applies
+            # the same stop / deadline / finalize discipline to both
+            K1 = self._spec_k_max + 1
+            sp_emit = packed[5: 5 + K1]
+            sp_mask = packed[5 + K1: 5 + 2 * K1].astype(bool)
+            sp_adv = packed[5 + 2 * K1]
+            em = np.zeros((K1, self.n_slots), emitted.dtype)
+            mk = np.zeros((K1, self.n_slots), bool)
+            em[0], mk[0] = emitted, mask.astype(bool)
+            for slot, (req, nd) in spec_meta.items():
+                em[:, slot] = sp_emit[:, slot]
+                mk[:, slot] = sp_mask[:, slot]
+                self._spec_inflight.pop(slot, None)
+                pending = self._spec_pending.get(slot)
+                if pending:
+                    # fetches come in launch order: this one confirms the
+                    # slot's OLDEST pending verify launch
+                    pending.pop(0)
+                    if not pending:
+                        del self._spec_pending[slot]
+                n_emit = int(sp_mask[:, slot].sum())
+                acc = max(0, n_emit - 1)
+                if (self._assignment[slot] is req and not req.done.is_set()
+                        and req.drop_seq <= seq):
+                    # the host position resyncs by the verify's advance, and
+                    # the slot's acceptance sizes its next draft
+                    self._host_pos[slot] += int(sp_adv[slot])
+                    self._sched.observe_spec(slot, nd, acc)
+                self._m.spec_accepted.inc(acc)
+                self._m.spec_rejected.inc(max(0, nd - acc))
+                self._m.spec_tokens.observe(n_emit)
+                self.spec_accepted += acc
+                req.spec_accepted += acc
+        self._distribute(em, mk, active.astype(bool), snapshot, seq=seq)
+        for b, r in enumerate(snapshot):
+            if r is not None and self._row_inflight[b] > 0:
+                self._row_inflight[b] -= 1
         self._healthy_fetch(seq)
 
     def _healthy_fetch(self, seq: int):
@@ -2322,6 +2715,10 @@ class ContinuousEngine:
         if self.paged:
             self._table[slot] = table_row
             self._table_stale = True  # copied in before the next launch
+        # the host position model of a slot armed here (whole-prefill
+        # admission, and the chunked fleet's recovery re-admissions)
+        self._host_pos[slot] = prompt_len
+        self._sched.spec_reset(slot)
         if self._bpx is not None:
             # index the prompt's full blocks (complete and immutable once
             # the ingest lands; decode and tail writes land past them)
@@ -2366,14 +2763,23 @@ class ContinuousEngine:
         for c in range(n_full):  # the pool is written in place
             args = self._ragged_launch_args(tail[c * W:(c + 1) * W], p0 + c * W)
             be.extend_ragged_paged(*args, self.cache, table1)
+            self._draft_extend(args, table1)
             self._m.ragged_launches.labels(phase="extend").inc()
         rem = tail[n_full * W:]
         args = self._ragged_launch_args(rem, p0 + n_full * W)
+        self._draft_extend(args, table1)
         first, _, _ = be.prefill_ragged_paged(
             *args, self.cache, table1, len(rem) - 1, self._gen, sampling,
             presence=presence)
         self._m.ragged_launches.labels(phase="prefill").inc()
         return first
+
+    def _draft_extend(self, args, table1):
+        """Draft-model speculation: the prompt lands in the draft pool too,
+        through the same launch plan with the draft's weights."""
+        if self._draft_mode:
+            P.extend_ragged_paged(self._dcfg, self._dparams, *args, self._dpool,
+                                  table1)
 
     def _post_admit(self, req: _Request):
         """A stop token first, or a zero budget, finishes the request at
@@ -2395,6 +2801,8 @@ class ContinuousEngine:
         K = self.chunk_steps
         self._distribute(packed[:K], packed[K: 2 * K].astype(bool),
                          packed[2 * K].astype(bool), snapshot, seq=seq)
+        if self._chunk_unfetched > 0:
+            self._chunk_unfetched -= 1
         self._healthy_fetch(seq)
 
     def _distribute(self, emitted, mask, active, snapshot, seq=None):
@@ -2490,6 +2898,14 @@ class ContinuousEngine:
             req.result["recovered"] = True
         if req.preemptions:
             req.result["preempted"] = req.preemptions
+        if req.spec_launches or (req.spec_want and self._spec_req_ok(req)):
+            # the path that served it and its draft / accept counts (a
+            # non-greedy or penalized "speculative" request decodes plainly
+            # and carries no marker)
+            req.result["speculative"] = True
+            req.result["spec_path"] = "fleet"
+            req.result["spec_drafted"] = req.spec_drafted
+            req.result["spec_accepted"] = req.spec_accepted
         if req.prefix_hit_tokens:
             req.result["prefix_cached_tokens"] = req.prefix_hit_tokens
         if req.fabric_blocks:

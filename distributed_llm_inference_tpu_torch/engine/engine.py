@@ -11,7 +11,10 @@ output on the same weights is token-identical.
 fleet (engine/continuous.py) drives it with its block-prefix index
 (engine/block_prefix.py) when `prefix_cache_entries > 0`.
 
-Not ported yet: speculative decoding, beam search, the solo engine's own
+`set_draft` attaches the draft model of the continuous fleet's
+draft-model speculation (engine/continuous.py).
+
+Not ported yet: the solo engine's speculative decoding, beam search, its own
 prefix cache (engine/prefix.py's snapshots), grammar constraints,
 runtime adapters and scoring. A request or config asking for one gets a
 ValueError naming it (an `invalid_request` envelope, HTTP 400 at the
@@ -35,6 +38,7 @@ from ..utils.metrics import (
     MetricsRegistry,
     percentile,
     register_kv_cache_metrics,
+    register_spec_metrics,
     register_supervisor_metrics,
 )
 from ..utils.tokenizer import load_tokenizer
@@ -252,6 +256,7 @@ class InferenceEngine:
         ).labels()
         register_supervisor_metrics(self.metrics)
         register_kv_cache_metrics(self.metrics)
+        register_spec_metrics(self.metrics)
         # control-plane events (admissions, preemptions, crashes,
         # quarantines, restarts): the continuous supervisor dumps the
         # ring into its crash report; GET /debug/flight serves it
@@ -264,6 +269,32 @@ class InferenceEngine:
         # abandoned deadline-overrun calls: token -> {"what", "since"}
         self._wedged: dict = {}  # guarded-by: _wedged_lock
         self._wedged_lock = threading.Lock()
+        # (cfg, params) of the draft model the fleet's draft-model
+        # speculation runs (set_draft), or None
+        self._draft = None
+
+    def set_draft(self, dcfg: ModelConfig, dparams: Any = None, seed: int = 1):
+        """Attach a draft model for the fleet's draft-model speculation
+        (engine/continuous.py, spec_draft_model). It must share the
+        target's tokenizer (its tokens are compared with the target's
+        argmax) and, as the fleet's paged seam, be llama-family. It runs
+        on the target's device with the target's attention route; random
+        weights from `seed` when `dparams` is None."""
+        if dcfg.arch != "llama":
+            from ..models.llama import FAMILIES, _not_ported
+
+            raise _not_ported(f"a draft model of arch {dcfg.arch!r}", FAMILIES)
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target vocab "
+                f"{self.cfg.vocab_size}; draft and target must share a "
+                f"tokenizer"
+            )
+        dcfg = dcfg.replace(attn_impl=self.cfg.attn_impl)
+        if dparams is None:
+            dparams = M.init_params(
+                dcfg, torch.Generator(device=self.device).manual_seed(seed))
+        self._draft = (dcfg, dparams)
 
     # -- helpers ------------------------------------------------------------
     def _generator(self, seed: Optional[int]) -> torch.Generator:

@@ -1,7 +1,9 @@
 """CUDA graphs for the continuous fleet's device launches: the port's
 counterpart of the JAX package's jitted programs (engine/paged.py
-`decode_slots_paged` :499-501 and `mixed_step_ragged` :1130, and the dense
-engine/generate.py `decode_slots`).
+`decode_slots_paged` :499-501, `mixed_step_ragged` :1130 without and with
+its speculation operands, `mixed_fill_draft` :1225 and
+`draft_propose_paged` :1256, and the dense engine/generate.py
+`decode_slots`).
 
 A launch kind is a function of no arguments over the fleet's STATIC
 buffers: the slot state and knobs, the block table, the mixed launch's
@@ -86,8 +88,8 @@ def commit(dst, src):
 class LaunchGraph:
     """One launch kind of a fleet, captured once and replayed (see the
     module docstring); `generator` is the one its launch draws from.
-    `captures` and `replays` count what it did; `deltas` holds each
-    kernel counter's launches per replay."""
+    `calls`, `captures` and `replays` count what it did; `deltas` holds
+    each kernel counter's launches per replay."""
 
     def __init__(self, fn: Callable[[], torch.Tensor], name: str, device,
                  generator: torch.Generator):
@@ -98,10 +100,12 @@ class LaunchGraph:
         self.graph = None
         self.out: Optional[torch.Tensor] = None
         self.deltas: Optional[dict] = None
+        self.calls = 0
         self.captures = 0
         self.replays = 0
 
-    def __call__(self) -> torch.Tensor:
+    def __call__(self) -> Optional[torch.Tensor]:
+        self.calls += 1
         if self.device.type != "cuda":
             return self.fn()
         if self.graph is None:
@@ -137,7 +141,8 @@ class LaunchGraph:
                 _add_counts({k: after[k] - before[k] for k in after}, -1)
             graph.capture_end()
         current.wait_stream(side)
-        out.record_stream(current)
+        if out is not None:  # a kind that only writes buffers returns None
+            out.record_stream(current)
         self.graph, self.out = graph, static_out
         self.deltas = {k: after[k] - before[k] for k in after}
         self.captures += 1
@@ -209,3 +214,61 @@ def mixed_launch(backend, inputs: MixedInputs, cache, table: torch.Tensor,
     commit(state, new_state)
     commit(sparams, new_sparams)
     return packed
+
+
+# -- speculation: the verify launch and the draft model's launches -----------
+
+
+class SpecInputs(NamedTuple):
+    """The speculative mixed launch's extra static buffers: its SpecPlan
+    and the draft model's proposals (written by the propose launch; an
+    n-gram fleet's drafts ride MixedInputs.tokens)."""
+
+    plan: P.SpecPlan  # dec_on / on [B], idx [B, K+1], n_draft [B]
+    toks: torch.Tensor  # i32 [B, K]
+
+
+def spec_inputs(n_slots: int, draft_len: int, device=None) -> SpecInputs:
+    """Static spec buffers: an idle plan and zero proposals."""
+    return SpecInputs(
+        P.idle_spec_plan(n_slots, draft_len, device=device),
+        torch.zeros((n_slots, draft_len), dtype=torch.int32, device=device),
+    )
+
+
+def mixed_spec_launch(backend, inputs: MixedInputs, spec: SpecInputs, cache,
+                      table: torch.Tensor, state: G.SlotState,
+                      sparams: G.SlotParams, generator, draft_toks: bool):
+    """One mixed launch with verify rows over the static buffers (the
+    proposals scattered in when `draft_toks`). The state and knobs are
+    written back in place; returns the packed [5 + 2(K+1) + 1, B]."""
+    i = inputs
+    packed, new_state, new_sparams, _ = backend.mixed_step_ragged(
+        i.tokens, i.tok_row, i.tok_pos, i.dec_flag, i.meta, cache, table,
+        state, sparams, generator, i.dec_idx, i.arm, spec=spec.plan,
+        spec_toks=spec.toks if draft_toks else None, dev=i.dev,
+    )
+    commit(state, new_state)
+    commit(sparams, new_sparams)
+    return packed
+
+
+def draft_fill(dcfg, dparams, inputs: MixedInputs, dpool, table: torch.Tensor,
+               state: G.SlotState):
+    """Land a mixed launch's tokens in the draft pool (in place), reading
+    the slot state before the launch."""
+    i = inputs
+    P.mixed_fill_draft(dcfg, dparams, i.tokens, i.tok_row, i.tok_pos,
+                       i.dec_flag, i.meta, dpool, table, state.token, state.pos,
+                       dev=i.dev)
+
+
+def draft_propose(dcfg, dparams, state: G.SlotState, dpool, table: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """The draft chain from every slot's current token and position; the
+    proposals go into the static `out` [B, K] in place, which it
+    returns."""
+    props, _ = P.draft_propose_paged(dcfg, dparams, state.token, state.pos, dpool,
+                                     table, draft_len=out.shape[1])
+    out.copy_(props)
+    return out

@@ -54,9 +54,19 @@ out for the host shadow store (engine/shadow.py) and
 `restore_shadow_blocks` writes shadowed blocks back into the pool in
 place.
 
-Not ported yet (each raises, naming its ROADMAP.md item): the
-speculation operands of the mixed step (`spec`, `spec_toks`) and adapter
-pages (`pages`).
+Speculation rides the mixed launch: a speculating slot's entry is a
+[current + K drafts] VERIFY row, a short prefill-kind row over its block
+table whose first flat slot is substituted from the slot state like a
+decode row (`SpecPlan`). `spec_verify` accepts the longest draft prefix
+that matches the model's own argmax plus its correction token, on the
+device, and the emissions grow the launch's packed fetch. Drafts come
+from the host (n-gram lookup, in `tokens`) or from a draft model: its
+pool shares the target's block tables, `mixed_fill_draft` lands each
+mixed launch's tokens in it and `draft_propose_paged` runs its greedy
+chain of K+1 decode steps, argmax on the device, nothing read back.
+
+Not ported yet (raises, naming its ROADMAP.md item): adapter pages
+(`pages`).
 """
 
 from __future__ import annotations
@@ -584,6 +594,36 @@ def idle_mixed_arm(n_slots: int, vocab_size: int, device=None) -> MixedArm:
     )
 
 
+class SpecPlan(NamedTuple):
+    """Per-slot speculation operands of one mixed launch. A speculating
+    slot's entry is a [current + K-draft] VERIFY row: a short prefill-kind
+    row over its block table whose first flat slot is substituted from the
+    slot state (token and position) like a decode row. The shapes follow
+    the fleet's largest draft length, so one launch kind serves every
+    accept pattern and every per-slot draft length."""
+
+    dec_on: torch.Tensor  # bool [B]: slot has a PLAIN decode row this
+    # launch; slot_step advances exactly these rows, verify rows advance
+    # through spec_verify, and (host-planned mode) a slot frozen behind an
+    # unfetched verify row not at all
+    on: torch.Tensor  # bool [B]: slot carries a verify row this launch
+    idx: torch.Tensor  # i32 [B, K+1]: flat indices of the row's [current,
+    # drafts...] slots (past the slot's own draft length the last valid
+    # index repeats: duplicate gathers, never read)
+    n_draft: torch.Tensor  # i32 [B]: drafted tokens in the row (<= K)
+
+
+def idle_spec_plan(n_slots: int, draft_len: int, device=None) -> SpecPlan:
+    """An all-off SpecPlan with every slot a plain decode row, every field
+    its own tensor (a static buffer)."""
+    return SpecPlan(
+        torch.ones((n_slots,), dtype=torch.bool, device=device),
+        torch.zeros((n_slots,), dtype=torch.bool, device=device),
+        torch.zeros((n_slots, draft_len + 1), dtype=torch.int32, device=device),
+        torch.zeros((n_slots,), dtype=torch.int32, device=device),
+    )
+
+
 class DeviceMeta(NamedTuple):
     """Device-derivation masks for one mixed launch: which tiles / flat
     slots read their POSITIONS from the device-resident slot state
@@ -651,6 +691,66 @@ def apply_device_meta(meta, tok_row, tok_pos, dev: DeviceMeta, pos):
     return meta, torch.where(dev.tok_on, p_dev, tok_pos)
 
 
+def spec_verify(cfg: ModelConfig, state: G.SlotState, window, draft, n_draft,
+                live):
+    """Accept / reject for the mixed launch's verify rows, on the device.
+
+    window [B, K+1] i32: the greedy argmax at the verify row's positions
+    (position j's argmax is the model's next token after [current,
+    draft[:j]]); draft [B, K] i32; n_draft [B]: drafts planned per row;
+    live [B]: rows carrying a verify row AND active on the device.
+
+    Emits the longest draft prefix matching the model's own argmax plus
+    the correction token, with generate.slot_step's greedy bookkeeping
+    token for token, so the state after a verify equals decoding the same
+    tokens one by one: break-before-append EOS (the EOS step still
+    advances pos by one), the remaining-budget clamp (a spent budget
+    deactivates without the EOS step's position), the pad token on
+    deactivation, presence over every token plain decode would have
+    sampled and counts over the emitted ones. A rejected draft position's
+    K/V is rewritten before anything attends it.
+
+    Returns (state, spec_emit [B, K+1] i32, spec_mask [B, K+1] bool, adv
+    [B] i32: each row's position advance)."""
+    i32 = torch.int32
+    pad = cfg.pad_token_id
+    K1 = window.shape[1]
+    j = torch.arange(K1, dtype=i32, device=window.device)[None, :]
+    jk = j[:, :K1 - 1]
+    match = (draft == window[:, :K1 - 1]) & (jk < n_draft[:, None])
+    n_acc = torch.cumprod(match.to(i32), dim=1).sum(dim=1).to(i32)
+    valid = j <= n_acc[:, None]  # accepted drafts + the correction token
+    cum_eos = torch.cumsum(G.stop_mask(cfg, window).to(i32), dim=1) > 0
+    emit_pre = valid & ~cum_eos  # break BEFORE appending a stop token
+    n_pre = emit_pre.sum(dim=1).to(i32)
+    room = state.remaining
+    n_emit = torch.where(live, torch.minimum(n_pre, room), 0).to(i32)
+    # the EOS step happens only where plain decode would reach it: a
+    # budget spent first means no EOS step (and no extra position)
+    saw_eos = live & (valid & cum_eos).any(dim=1) & (n_pre < room)
+    emit_ok = emit_pre & (j < n_emit[:, None]) & live[:, None]
+    spec_emit = torch.where(emit_ok, window, pad).to(i32)
+    adv = (n_emit + saw_eos.to(i32)).to(i32)
+    last = window.gather(1, (n_emit - 1).clamp(min=0).long()[:, None])[:, 0]
+    new_token = torch.where(saw_eos | (n_emit <= 0), pad, last).to(i32)
+    new_rem = (state.remaining - n_emit).to(i32)
+    new_active = live & ~saw_eos & (new_rem > 0)
+    mark = emit_ok | (saw_eos[:, None] & (j == n_emit[:, None]))
+    vocab = torch.arange(state.presence.shape[-1], dtype=i32, device=window.device)
+    onehot = window[:, :, None] == vocab[None, None, :]  # [B, K+1, V]
+    pres_add = (onehot & mark[:, :, None]).any(dim=1)
+    cnt_add = (onehot & emit_ok[:, :, None]).sum(dim=1).to(i32)
+    state = G.SlotState(
+        token=torch.where(live, new_token, state.token),
+        pos=state.pos + torch.where(live, adv, 0).to(i32),
+        active=torch.where(live, new_active, state.active),
+        remaining=torch.where(live, new_rem, state.remaining),
+        presence=state.presence | pres_add,
+        counts=state.counts + cnt_add,
+    )
+    return state, spec_emit, emit_ok, adv
+
+
 @torch.no_grad()
 def mixed_step_ragged(cfg: ModelConfig, params, tokens, tok_row, tok_pos,
                       dec_flag, meta, pool, table, state: G.SlotState,
@@ -671,36 +771,127 @@ def mixed_step_ragged(cfg: ModelConfig, params, tokens, tok_row, tok_pos,
     operands (MixedArm). Every operand is a device tensor; nothing is read
     back to the host.
 
-    Returns (packed int32 [5, B] — emitted / emit_mask / active / firsts /
-    armed, ONE fetch per step — state, sparams, pool)."""
-    if spec is not None or spec_toks is not None:
-        raise _not_ported("speculative verify rows in the mixed launch",
-                          "Speculation on the mixed launch")
+    spec (SpecPlan, optional): verify rows for speculating slots, each a
+    [current + drafts] prefill-kind row whose first flat slot is
+    substituted like a decode row; accept / reject runs on the device
+    (spec_verify) and the emissions extend the packed fetch. spec_toks
+    ([B, K] i32, optional): a draft model's proposals, scattered into each
+    verify row's draft slots (n-gram drafts arrive in `tokens` instead).
+
+    Returns (packed int32 — [5, B] plain, [5 + 2(K+1) + 1, B] with spec:
+    emitted / emit_mask / active / firsts / armed [/ spec_emit / spec_mask
+    / position advance], ONE fetch per step — state, sparams, pool)."""
     if pages is not None:
         raise _not_ported("adapter pages on the paged fleet", ADAPTERS)
     if dev is not None:
         meta, tok_pos = apply_device_meta(meta, tok_row, tok_pos, dev, state.pos)
     rows_ix = tok_row.clamp(min=0).long()
     toks = torch.where(dec_flag, state.token[rows_ix], tokens)
+    if spec is not None and spec_toks is not None:
+        # each verify row's drafts into its flat slots; rows without one,
+        # and draft slots past a row's own length, aim at a spill slot
+        # past the launch that is cut off again
+        W, K = toks.shape[0], spec_toks.shape[1]
+        jk = torch.arange(K, device=toks.device)[None, :]
+        want = spec.on[:, None] & (jk < spec.n_draft[:, None])
+        tgt = torch.where(want, spec.idx[:, 1:], W).reshape(-1).long()
+        ext = torch.cat([toks, toks.new_zeros(1)])
+        ext[tgt] = spec_toks.reshape(-1).to(ext.dtype)
+        toks = ext[:W]
     pos = torch.where(dec_flag, state.pos[rows_ix], tok_pos)
     x, pool = _ragged_forward(cfg, params, toks, tok_row, pos, meta, pool, table)
     logits = M.unembed(cfg, params, x[dec_idx.long()])[:, 0, :]  # [B, V]
     pf_logits = M.unembed(cfg, params, x[arm.idx.long()])[:, 0, :]
+    sp_logits = sp_draft = None
+    if spec is not None:
+        B, K1 = spec.idx.shape
+        flat = spec.idx.reshape(-1).long()
+        sp_logits = M.unembed(cfg, params, x[flat])[:, 0, :].reshape(B, K1, -1)
+        sp_draft = toks[spec.idx[:, 1:].long()]  # [B, K] the verified drafts
     packed, state, sparams = mixed_epilogue(
         cfg, state, sparams, logits, pf_logits, generator, arm,
+        spec=spec, sp_logits=sp_logits, sp_draft=sp_draft,
     )
     return packed, state, sparams, pool
 
 
+@torch.no_grad()
+def mixed_fill_draft(dcfg: ModelConfig, dparams, tokens, tok_row, tok_pos,
+                     dec_flag, meta, dpool, table, token, pos_state,
+                     dev: Optional[DeviceMeta] = None):
+    """The draft pool's twin of the mixed launch's forward (no sampling):
+    land the launch's prompt chunks and every decode row's current token
+    in the DRAFT model's pool (`dpool`, written in place), with the same
+    substitution from the slot state (`token`, `pos_state` [B]) and the
+    same DeviceMeta, so the draft chain's context tracks the stream
+    position by position. A verify row's draft slots carry placeholders
+    here; the propose chain rewrites exactly those positions before
+    anything attends them. Returns dpool."""
+    if dev is not None:
+        meta, tok_pos = apply_device_meta(meta, tok_row, tok_pos, dev, pos_state)
+    rows_ix = tok_row.clamp(min=0).long()
+    toks = torch.where(dec_flag, token[rows_ix], tokens)
+    pos = torch.where(dec_flag, pos_state[rows_ix], tok_pos)
+    _, dpool = _ragged_forward(dcfg, dparams, toks, tok_row, pos, meta, dpool,
+                               table)
+    return dpool
+
+
+@torch.no_grad()
+def draft_propose_paged(dcfg: ModelConfig, dparams, token, pos, dpool, table,
+                        *, draft_len: int):
+    """The draft model's greedy chain over the fleet: `draft_len` + 1 T=1
+    steps from every slot's current (token [B], pos [B]) over the draft
+    pool (written in place) through the SAME block tables, each step's
+    argmax taken on the device (the JAX lax.scan as a loop; nothing is
+    read back). The last step writes the last proposal's K/V, so a full
+    accept leaves no hole; its own proposal is dropped. Rows not
+    speculating ride along: they write their current token's K/V and
+    proposals past their frontier that later writes overwrite (in the
+    draft pool a stale entry could only cost draft quality).
+
+    Returns (proposals [B, draft_len] i32, dpool)."""
+    tok, p, props = token, pos, []
+    for _ in range(draft_len + 1):
+        logits, dpool = _forward_step_paged(dcfg, dparams, tok[:, None], dpool,
+                                            table, p)
+        tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        p = p + 1
+        props.append(tok)
+    return torch.stack(props[:draft_len], dim=1), dpool
+
+
 def mixed_epilogue(cfg: ModelConfig, state: G.SlotState,
                    sparams: G.SlotParams, logits, pf_logits, generator,
-                   arm: MixedArm):
+                   arm: MixedArm, spec: Optional[SpecPlan] = None,
+                   sp_logits=None, sp_draft=None):
     """Sampling / arming tail of the mixed step: slot_step advances the
     decoding rows; completing prefills sample their first token with their
     own knobs and arm their slot (the vectorized arm_slot: budget,
-    EOS-on-first, presence and counts decided on the device). Returns
-    (packed [5, B] int32, state, sparams)."""
+    EOS-on-first, presence and counts decided on the device). With a
+    SpecPlan, slot_step's advance is kept only on the rows that carried a
+    plain decode row (spec.dec_on), verify rows advance through
+    spec_verify, and the packed fetch grows the verify block. Returns
+    (packed int32, state, sparams)."""
+    prev = state
     state, emit, can_emit = G.slot_step(cfg, state, sparams, logits, generator)
+    if spec is not None:
+        # rows without a plain decode row (verify rows, and rows frozen
+        # behind an unfetched verify row) go back to the pre-step state
+        # before the verify: slot_step ran on garbage logits there
+        dec_on = spec.dec_on
+        state = G.SlotState(*(
+            torch.where(dec_on[:, None] if n.dim() > 1 else dec_on, n, o)
+            for n, o in zip(state, prev)
+        ))
+        emit = torch.where(dec_on, emit, cfg.pad_token_id).to(torch.int32)
+        can_emit = can_emit & dec_on
+        # the greedy argmax over the verify positions, as slot_step's
+        # greedy bypass takes it (speculation requires the penalties off)
+        window = torch.argmax(sp_logits.float(), dim=-1).to(torch.int32)
+        live = spec.on & prev.active
+        state, spec_emit, spec_mask, spec_adv = spec_verify(
+            cfg, state, window, sp_draft, spec.n_draft, live)
     ap = arm.params
     firsts = sample_token(
         generator, pf_logits, ap.temperature[:, None], ap.top_k[:, None],
@@ -730,4 +921,9 @@ def mixed_epilogue(cfg: ModelConfig, state: G.SlotState,
         emit, can_emit.to(torch.int32), state.active.to(torch.int32), firsts,
         on.to(torch.int32),
     ])
+    if spec is not None:
+        # the verify results ride the SAME fetch: emissions, their mask
+        # and each row's position advance
+        packed = torch.cat([packed, spec_emit.T, spec_mask.to(torch.int32).T,
+                            spec_adv[None]])
     return packed, state, sparams

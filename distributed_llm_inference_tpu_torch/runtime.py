@@ -5,7 +5,9 @@ device. It runs on the card unless the caller asks for the CPU
 (device="cpu", as the tests do); with no CUDA device it raises rather
 than fall back. Weights are quantized here when the config asks for it,
 as in the JAX package. Pipeline, tensor, sequence and data parallelism,
-microbatching, draft models and LoRA merges are not ported yet and raise.
+microbatching, the solo engine's draft model and LoRA merges are not
+ported yet and raise (the fleet's draft model is EngineConfig's
+spec_draft_model).
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ def create_engine(
         )
     if draft_model is not None:
         raise NotImplementedError(
-            "draft-model speculation is not ported to PyTorch yet "
-            "(ROADMAP.md \"Solo-engine features\")"
+            "the solo engine's two-model speculation (draft_model) is not "
+            "ported to PyTorch yet (ROADMAP.md \"Solo-engine features\"); "
+            "the continuous fleet drafts with EngineConfig.spec_draft_model"
         )
     if lora is not None:
         raise NotImplementedError(

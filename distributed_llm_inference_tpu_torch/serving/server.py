@@ -917,6 +917,30 @@ def main(argv: Optional[list] = None):
              "router's residency bootstrap (MRU first, host tier before disk)",
     )
     ap.add_argument(
+        "--spec-decode", action="store_true",
+        help="fleet-wide speculative decoding on the chunked paged fleet: "
+             "every eligible greedy slot submits draft-then-verify rows in the "
+             "mixed launch (without it only requests with \"speculative\": "
+             "true speculate); drafting stops under decode TPOT pressure and "
+             "greedy output is unchanged",
+    )
+    ap.add_argument(
+        "--spec-draft-len", type=int, default=4, metavar="K",
+        help="drafted tokens per verify row (0 turns the fleet's speculation "
+             "off)",
+    )
+    ap.add_argument(
+        "--spec-draft-model", default=None, metavar="NAME",
+        help="draft the fleet's verify rows with a small same-tokenizer "
+             "model's greedy chain on the card (its own pool, the same block "
+             "tables) instead of n-gram lookup",
+    )
+    ap.add_argument(
+        "--draft-model", default=None, metavar="NAME",
+        help="the solo engine's two-model speculation (not ported: refused "
+             "at start)",
+    )
+    ap.add_argument(
         "--faults", default=None, metavar="SPEC",
         help="arm the deterministic fault-injection harness "
              "(utils/faults.py), e.g. 'decode_launch:transient:on=3'; "
@@ -955,7 +979,11 @@ def main(argv: Optional[list] = None):
             replica_class=args.replica_class,
             kv_disk_dir=args.kv_disk_dir,
             kv_disk_blocks=args.kv_disk_blocks,
+            spec_decode=args.spec_decode,
+            spec_draft_len=args.spec_draft_len,
+            spec_draft_model=args.spec_draft_model,
         ),
+        draft_model=args.draft_model,
         dtype=args.dtype,
         quant=args.quant,
         kv_quant=args.kv_quant,

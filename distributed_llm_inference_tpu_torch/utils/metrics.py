@@ -341,6 +341,53 @@ def register_supervisor_metrics(registry: MetricsRegistry):
     )
 
 
+def register_spec_metrics(registry: MetricsRegistry):
+    """The fleet's speculation families with the JAX package's names,
+    unlabeled: draft / accept / reject token flow, verify rows by draft
+    source, the tokens each emitted, the planned K and the acceptance
+    EWMA (the last two labeled by engine/scheduler.py). The engine
+    registers them up front, as the JAX engine does."""
+    import types
+
+    m = registry
+    return types.SimpleNamespace(
+        drafted=m.counter(
+            "dli_spec_drafted_tokens_total",
+            "draft tokens submitted in mixed-launch verify rows",
+        ),
+        accepted=m.counter(
+            "dli_spec_accepted_tokens_total",
+            "draft tokens accepted (matched the model's own argmax and "
+            "were emitted)",
+        ),
+        rejected=m.counter(
+            "dli_spec_rejected_tokens_total",
+            "draft tokens rejected by the verify",
+        ),
+        launches=m.counter(
+            "dli_spec_launches_total",
+            "verify rows launched inside mixed scheduler steps, by draft "
+            "source", ("mode",),
+        ),
+        tokens=m.histogram(
+            "dli_spec_tokens_per_launch",
+            "tokens emitted per verify row (accepted drafts + the "
+            "correction token; > 1 is the speculation win)",
+            buckets=DEFAULT_SIZE_BUCKETS,
+        ),
+        draft_len=m.histogram(
+            "dli_spec_draft_len",
+            "planned draft length K per verify row (after the adaptive "
+            "per-slot throttle)",
+            buckets=DEFAULT_SIZE_BUCKETS,
+        ),
+        accept_ewma=m.gauge(
+            "dli_spec_accept_ewma",
+            "fleet-mean per-slot draft acceptance-rate EWMA (0..1)",
+        ),
+    )
+
+
 def register_kv_cache_metrics(registry: MetricsRegistry):
     """The block-prefix index's, the KV shadow's, the tier hierarchy's and
     the KV fabric's families with the JAX package's names, unlabeled,
@@ -426,6 +473,7 @@ def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
     m.gauge("dli_slots_total", "continuous-fleet decode slots").labels().set(n_slots)
     sup = register_supervisor_metrics(m)
     kv = register_kv_cache_metrics(m)
+    spec = register_spec_metrics(m)
     return types.SimpleNamespace(
         occupied=m.gauge(
             "dli_slots_occupied", "continuous-fleet slots serving a request"
@@ -490,4 +538,10 @@ def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
         # the block-prefix cache and the KV shadow
         shadow_restored=kv.shadow_restored.labels(),
         ragged_exact=kv.ragged_exact.labels(),
+        # speculation on the mixed launch
+        spec_drafted=spec.drafted.labels(),
+        spec_accepted=spec.accepted.labels(),
+        spec_rejected=spec.rejected.labels(),
+        spec_launches=spec.launches,
+        spec_tokens=spec.tokens.labels(),
     )

@@ -235,6 +235,11 @@ def test_loop_crash_fails_requests_in_flight_and_marks_not_ready():
         fleet.backend.mixed_step_ragged = once
         r = fleet.submit("hello", max_tokens=4, greedy=True, chat=False)
         assert r["status"] == "success" and 1 <= r["tokens_generated"] <= 4, r
+        # the salvaged request can answer before the recovery's last step
+        # marks the fleet ready again: wait for it, a few seconds at most
+        deadline = time.time() + 5.0
+        while not fleet.stats()["supervisor"]["ready"] and time.time() < deadline:
+            time.sleep(0.01)
         st = fleet.stats()["supervisor"]
         assert st["restarts"] == 1 and st["ready"] is True and st["dead"] is False
         assert fleet.stats()["paged"]["free_blocks"] == 19

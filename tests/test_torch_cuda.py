@@ -1331,3 +1331,239 @@ def test_fabric_remote_hit_imports_a_bf16_chain_bit_exact(card):
     for a, b in zip(hb, pb):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     assert all(g["captures"] == 1 for g in graphs.values())
+
+
+# -- speculation on the mixed launch (engine/paged.py, engine/graphs.py) ----------
+
+def _verify_launch(card, width, pos):
+    """A mixed launch's plan at tinyllama's widths with verify rows whose
+    q_start derives on the device (apply_device_meta): rows 0 and 1 plain
+    decode, row 2 a K = 4 verify row (one tile), row 3 a K = 8 one (two
+    tiles, tile_off 8 on the second), row 4 a 21-token prompt chunk at 300.
+    Returns the applied meta [G, 4]."""
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+
+    entries = [(0, 0, 1, P.RAGGED_DECODE), (1, 0, 1, P.RAGGED_DECODE),
+               (2, 0, 5, P.RAGGED_PREFILL), (3, 0, 9, P.RAGGED_PREFILL),
+               (4, 300, 21, P.RAGGED_PREFILL)]
+    meta, tok_row, tok_pos, offsets, _ = P.build_ragged_meta(entries, width=width, tile=8)
+    dev = P.build_device_meta(entries, offsets, 4, width=width, tile=8)
+    tdev = P.DeviceMeta(*(torch.from_numpy(a).to(card) for a in dev))
+    m, _ = P.apply_device_meta(torch.from_numpy(meta).to(card),
+                               torch.from_numpy(tok_row).to(card),
+                               torch.from_numpy(tok_pos).to(card), tdev, pos)
+    return m
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["raw", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_ragged_kernel_matches_twin_on_verify_rows(card, dtype, int8):
+    """Verify rows are prefill-kind tiles whose q_start comes from the slot
+    state on the device, shorter than a tile (K = 4) and spanning two
+    (K = 8), beside decode rows and a prompt chunk: within atol of the
+    twin, the same bits on a repeat, exact zeros past each tile's q_len."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(41)
+    H, KV, Dh, bs, MB, tq = 32, 4, 64, 16, 64, 8
+    pk, pv, table = _pool_case(card, torch.float32, g, N=6 * MB + 1, KV=KV, bs=bs,
+                               Dh=Dh, R=6, MB=MB)
+    pk, pv = (_int8(pk), _int8(pv)) if int8 else (pk.to(dt), pv.to(dt))
+    for pos in ([17, 1023, 15, 700, 0, 0], [0, 64, 1018, 1007, 0, 0]):
+        m = _verify_launch(card, 64, torch.tensor(pos, dtype=torch.int32, device=card))
+        assert m[2, 1].item() == pos[2] and m[4, 1].item() == pos[3] + 8
+        q = torch.randn(m.shape[0] * tq, H, Dh, generator=g, device=card).to(dt)
+        got = pa.ragged_paged_attend(q, pk, pv, table, m)
+        again = pa.ragged_paged_attend(q, pk, pv, table, m)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        want = pa.ragged_paged_attend_plain(q, pk, pv, table, m)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATOL[dtype], (pos, err)
+        assert not got[_dead_rows(m.tolist(), tq)].any()
+
+
+def test_paged_decode_kernel_matches_twin_on_the_draft_pool(card):
+    """The draft chain's T=1 steps over a second pool through the same block
+    tables: each step's attention within atol of the twin."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=card).manual_seed(42)
+    H, KV, Dh, bs, MB = 32, 4, 64, 16, 64
+    for dt in (torch.float32, torch.bfloat16):
+        dk, dv, table = _pool_case(card, dt, g, N=8 * MB + 1, KV=KV, bs=bs, Dh=Dh,
+                                   R=8, MB=MB)
+        pos = torch.tensor([3, 15, 16, 300, 511, 700, 1000, 1023], dtype=torch.int32,
+                           device=card)
+        for step in range(5):  # a K = 4 chain: 5 steps from each row's frontier
+            q = torch.randn(8, 1, H, Dh, generator=g, device=card).to(dt)
+            got = pa.paged_flash_attend(q, dk, dv, table, torch.clamp(pos + step, max=1023))
+            want = pa.paged_flash_attend_plain(q, dk, dv, table,
+                                               torch.clamp(pos + step, max=1023))
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL["float32" if dt == torch.float32 else "bfloat16"], err
+
+
+SPEC_GRAPH_KINDS = ["mixed_spec", "mixed_spec_draft", "draft_fill", "draft_propose"]
+
+
+def _spec_graph_case(card, kind, engine):
+    """The static buffers of a speculating fleet (K = 8) over _graph_case's
+    armed slots: slot 0 a verify row of 4 n-gram drafts, slot 1 a plain
+    decode row, slot 2 a verify row of 8 (two tiles), slot 3's prompt
+    landing and arming; a draft pool of random K/V and a 2-layer draft at
+    the tiny model's widths. Returns (buffers, run)."""
+    import numpy as np
+
+    from distributed_llm_inference_tpu_torch.engine import graphs
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+    from distributed_llm_inference_tpu_torch.models import api as M
+
+    bufs, _ = _graph_case(card, "mixed_arming", engine)
+    cfg, be = engine.cfg, engine.backend
+    B, K, W, tile = 4, 8, 48, 8
+    g = torch.Generator(device=card).manual_seed(5)
+    entries = [(0, 0, 5, P.RAGGED_PREFILL), (1, 0, 1, P.RAGGED_DECODE),
+               (2, 0, 9, P.RAGGED_PREFILL), (3, 0, 12, P.RAGGED_PREFILL)]
+    meta, tok_row, tok_pos, offsets, _ = P.build_ragged_meta(entries, width=W, tile=tile)
+    dev = P.build_device_meta(entries, offsets, 3, width=W, tile=tile)
+    toks = np.zeros(W, np.int32)
+    dec_flag = np.zeros(W, bool)
+    dec_idx = np.zeros(B, np.int32)
+    spec = graphs.spec_inputs(B, K, device=card)
+    for b, nd in ((0, 4), (1, 0), (2, 8)):
+        off = offsets[b]
+        dec_flag[off] = True
+        if nd:
+            spec.plan.dec_on[b], spec.plan.on[b], spec.plan.n_draft[b] = False, True, nd
+            idxs = off + np.arange(K + 1)
+            idxs[nd + 1:] = off + nd
+            spec.plan.idx[b] = torch.from_numpy(idxs)
+            toks[off + 1: off + 1 + nd] = np.arange(50, 50 + nd)
+        else:
+            dec_idx[b] = off
+    toks[offsets[3]: offsets[3] + 12] = np.arange(30, 42)
+    spec.toks.copy_(torch.randint(3, cfg.vocab_size, (B, K), generator=g, device=card))
+    inp = bufs["inputs"]
+    for dst, a in zip((inp.tokens, inp.tok_row, inp.tok_pos, inp.dec_flag, inp.meta,
+                       inp.dec_idx, *inp.dev),
+                      (toks, tok_row, tok_pos, dec_flag, meta, dec_idx, *dev)):
+        dst.copy_(torch.from_numpy(a))
+    dcfg = cfg.replace(n_layers=2, quant=None)  # int8 KV stays on the draft pool
+    dparams = M.init_params(dcfg, torch.Generator(device=card).manual_seed(1))
+    dpool = P.init_pool(dcfg, int(bufs["table"].max()) + 1, 16, device=card)
+    for leaf in _tensors(dpool):
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device=card))
+        elif leaf.dim() == 4:
+            leaf.copy_(torch.rand(leaf.shape, generator=g, device=card) / 64)
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=card))
+    bufs.update(spec=spec, dpool=dpool)
+
+    def run(b, gen):
+        if kind == "draft_fill":
+            graphs.draft_fill(dcfg, dparams, b["inputs"], b["dpool"], b["table"],
+                              b["state"])
+            return b["dpool"]["v"] if isinstance(b["dpool"]["v"], torch.Tensor) \
+                else b["dpool"]["v"].q
+        if kind == "draft_propose":
+            return graphs.draft_propose(dcfg, dparams, b["state"], b["dpool"], b["table"],
+                                        b["spec"].toks)
+        return graphs.mixed_spec_launch(be, b["inputs"], b["spec"], b["cache"], b["table"],
+                                        b["state"], b["sparams"], gen,
+                                        draft_toks=kind == "mixed_spec_draft")
+    return bufs, run
+
+
+@pytest.mark.parametrize("quant", list(GRAPH_QUANT))
+@pytest.mark.parametrize("kind", SPEC_GRAPH_KINDS)
+def test_spec_graph_replay_bit_equal_to_eager(card, kind, quant):
+    """The speculation launch kinds captured once and replayed twice: each
+    replay's result, slot state, knobs, pool and draft pool bit-equal to the
+    eager body on a clone with the same generator state; the counters move
+    by the capture's deltas: n_layers ragged launches per verify launch and
+    per draft fill, n_draft_layers x (K + 1) paged decode launches per
+    propose chain."""
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    engine = create_engine("test-llama-tiny", attn_impl="auto", seed=3, device=card,
+                           **GRAPH_QUANT[quant])
+    L = engine.cfg.n_layers
+    bufs, run = _spec_graph_case(card, kind, engine)
+    gen = torch.Generator(device=card).manual_seed(11)
+    lg = graphs.LaunchGraph(lambda: run(bufs, gen), kind, card, gen)
+    lg()
+    assert (lg.captures, lg.replays) == (1, 0)
+    sfx = "[int8]" if quant != "raw" else ""
+    want_deltas = {"draft_fill": {"ragged_paged_attend" + sfx: 2},
+                   "draft_propose": {"paged_flash_attend" + sfx: 2 * 9}}.get(
+        kind, {"ragged_paged_attend" + sfx: L})
+    for name, n in lg.deltas.items():
+        if name != "q4_matmul_rows":
+            assert n == want_deltas.get(name, 0), (name, n)
+    for _ in range(2):
+        ref = _clone(bufs)
+        g2 = torch.Generator(device=card)
+        g2.set_state(gen.get_state())
+        before = graphs.launch_counts()
+        got = lg().clone()
+        moved = {k: v - before[k] for k, v in graphs.launch_counts().items()}
+        want = run(ref, g2)
+        torch.cuda.synchronize()
+        assert moved == lg.deltas
+        assert torch.equal(got if kind != "draft_fill" else got[:, 1:],
+                           want if kind != "draft_fill" else want[:, 1:])
+        for name in ("state", "sparams", "spec"):
+            for a, b in zip(_tensors(bufs[name]), _tensors(ref[name])):
+                assert torch.equal(a, b), name
+        for name in ("cache", "dpool"):
+            for a, b in zip(_tensors(bufs[name]), _tensors(ref[name])):
+                assert torch.equal(a[:, 1:], b[:, 1:]), name
+    if kind.startswith("mixed_spec"):
+        assert got.shape == (5 + 2 * 9 + 1, 4)
+        assert got[5 + 9: 5 + 18, 0].sum() >= 1 and got[5 + 9: 5 + 18, 2].sum() >= 1
+    lg.close()
+
+
+@pytest.mark.parametrize("mode", ["devmeta", "legacy", "draft_model"])
+def test_spec_fleet_serves_through_one_graph_per_kind(card, mode):
+    """The speculating fleet on the card (fp32 weights of the CPU fleet):
+    the plain CPU fleet's greedy tokens, verify rows launched, each kind
+    captured once and every later launch a replay."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+
+    cpu = create_engine("test-llama-tiny", seed=3, device="cpu")
+    moved = {k: ({n: t.to(card) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(card)) for k, v in cpu.backend.params.items()}
+    spec = dict(spec_decode=True, spec_device_meta=mode != "legacy",
+                spec_draft_model="test-llama-tiny" if mode == "draft_model" else None)
+    gpu = create_engine(cpu.cfg, params=moved, attn_impl="auto", device=card,
+                        engine_cfg=EngineConfig(**spec))
+    if mode == "draft_model":
+        gpu.set_draft(gpu.cfg, moved)
+    prompts = ["the cat sat on the mat " * 4, "a b c", "abc xyz " * 6]
+    out = {}
+    for name, engine in (("cpu", cpu), ("card", gpu)):
+        fleet = ContinuousEngine(engine, n_slots=2, chunk_steps=4, kv_pool_blocks=40,
+                                 slot_max_seq=128)
+        try:
+            rs = [fleet.submit(p, max_tokens=16, greedy=True, chat=False) for p in prompts]
+            st = fleet.stats()
+        finally:
+            fleet.close()
+        out[name] = ([r["token_ids"] for r in rs], st)
+    tokens, st = out["card"]
+    assert tokens == out["cpu"][0]
+    assert st["speculative"]["launches"] > 0
+    kinds = {"decode_chunk", "mixed_launch", "mixed_spec"} | (
+        {"draft_fill", "draft_propose"} if mode == "draft_model" else set())
+    assert set(st["graphs"]) == kinds
+    g, launches = st["graphs"], st["launches"]
+    for kind in kinds - {"decode_chunk"}:
+        assert g[kind]["captures"] == 1 and g[kind]["replays"] >= 1, (kind, g)
+    # a draft-model fleet may speculate to the end of every request
+    chunks = launches["decode_chunks"]
+    assert g["decode_chunk"] == {"captures": min(1, chunks), "replays": max(0, chunks - 1)}
+    assert g["mixed_launch"]["replays"] + g["mixed_spec"]["replays"] == launches["mixed"] - 2
