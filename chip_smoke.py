@@ -3472,18 +3472,18 @@ class Holder:
     subprocess on a port of its own, its output in W_DIR. Fails (and is
     killed) if it does not answer /health; close() stops it."""
 
-    def __init__(self, name: str, extra=()):
+    def __init__(self, name: str, extra=(), base=W_HOLDER, log_dir=W_DIR):
         import os
 
-        os.makedirs(W_DIR, exist_ok=True)
+        os.makedirs(log_dir, exist_ok=True)
         self.name = name
         self.port = free_port()
         self.url = f"http://127.0.0.1:{self.port}"
-        self.log_path = f"{W_DIR}/{name}.log"
+        self.log_path = f"{log_dir}/{name}.log"
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "distributed_llm_inference_tpu_torch.serving.server",
-             *W_HOLDER, *extra, "--host", "127.0.0.1", "--port", str(self.port)],
+             *base, *extra, "--host", "127.0.0.1", "--port", str(self.port)],
             stdout=self._log, stderr=subprocess.STDOUT)
         t0 = time.time()
         try:
@@ -4488,13 +4488,439 @@ def phase_x(torch, engine, pa, fa, Q, P, G, M, faults, smi):
     return x_launches
 
 
+# -- token streaming, cancellation and the OpenAI routes: phase (y) ----------------
+
+Y_DISCONNECT_BUDGET = 900  # (y3)'s max_tokens; the client leaves after two deltas
+Y_DIR = "build/chip_smoke_y"  # (y5)'s server log (gitignored)
+# (y5): the port's server CLI with (g)'s fleet, warmed before it serves, and a
+# tenant weight (both flags the server lacked before)
+Y_SERVER = ["--model", MODEL, "--dtype", "bfloat16", "--attn-impl", "auto", "--seed", "0",
+            "--continuous", str(FLEET["n_slots"]), "--kv-pool-blocks",
+            str(FLEET["kv_pool_blocks"]), "--kv-block-size", str(BLOCK),
+            "--continuous-max-seq", str(FLEET["slot_max_seq"]), "--max-tokens-cap", "64",
+            "--warmup", "--tenant-weight", "a=3"]
+
+
+def y_engine(engine, **ecfg):
+    """(g)'s model and weights (other engine settings) with a tokenizer
+    whose decode spells every id. The byte tokenizer decodes only 256 of
+    tinyllama's 32000 ids to text, so random weights' output is nearly
+    empty text and a stream would carry almost no delta to time; the
+    prompts encode as before (the tests hold the byte tokenizer's UTF-8
+    hold-back on a model whose every id is a byte)."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    class SpelledIds(ByteTokenizer):
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(str(int(i)) for i in ids)
+
+    cfg = engine.cfg
+    return create_engine(cfg, params=engine.backend.params, device=DEVICE,
+                         tokenizer=SpelledIds(cfg.pad_token_id, cfg.bos_token_id,
+                                              cfg.eos_token_id),
+                         engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS, **ecfg))
+
+
+def y_post(port, path, body):
+    """(HTTP code, JSON body) of one POST to any route."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def y_text(ev, sse: bool) -> str:
+    """The text an event adds: an NDJSON delta, or an SSE chunk's content."""
+    if not sse:
+        return ev.get("delta", "") if "done" not in ev else ""
+    if not isinstance(ev, dict) or "choices" not in ev:
+        return ""
+    c = ev["choices"][0]
+    return c.get("text") or c.get("delta", {}).get("content") or ""
+
+
+def y_stream(port, body, path="/generate", sse=False):
+    """One streaming POST, read line by line as it arrives: (HTTP code,
+    content type, events, seconds to the first text, wall seconds). An
+    SSE stream's events are its data objects, its end marker "[DONE]"."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events, first = [], None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        code, ctype = r.status, r.headers.get("Content-Type")
+        for raw in r:
+            line = raw.decode().strip()
+            if not line:
+                continue
+            if sse:
+                payload = line[len("data: "):] if line.startswith("data: ") else line
+                ev = payload if payload == "[DONE]" else json.loads(payload)
+            else:
+                ev = json.loads(line)
+            if first is None and y_text(ev, sse):
+                first = time.perf_counter() - t0
+            events.append(ev)
+    return code, ctype, events, first, time.perf_counter() - t0
+
+
+def y_split(tag, events):
+    """(deltas, final envelope) of an NDJSON stream, after checking that it
+    ended in one final envelope and that its deltas join to the response."""
+    check(bool(events) and events[-1].get("done") is True,
+          f"{tag}: the stream did not end in a final envelope: {events[-1:]}")
+    *deltas, final = events
+    check(all("delta" in e for e in deltas), f"{tag}: an event is neither delta nor final")
+    text = "".join(e["delta"] for e in deltas)
+    check(final.get("status") == "success", f"{tag}: {final}")
+    check(text == final["response"], f"{tag}: the joined deltas differ from the response")
+    return deltas, final  # the delta events, and the envelope
+
+
+def y_wave(port, bodies, stream: bool):
+    """The bodies at once (NDJSON streams or plain POSTs): per request
+    (envelope, seconds to the first delta, wall, deltas), and the wave's
+    seconds. Checked after every thread joined."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def run(i):
+        try:
+            if stream:
+                code, ctype, evs, first, wall = y_stream(port, {**bodies[i], "stream": True})
+                out[i] = (code, ctype, evs, first, wall)
+            else:
+                code, r, wall = post(port, bodies[i])
+                out[i] = (code, "application/json", [r], None, wall)
+        except Exception as e:  # noqa: BLE001 - checked below, on this thread
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wave_s = time.perf_counter() - t0
+    rows = []
+    for i, res in enumerate(out):
+        check(not isinstance(res, Exception), f"(y1) request {i}: {res!r}")
+        code, ctype, evs, first, wall = res
+        check(code == 200, f"(y1) request {i}: HTTP {code}")
+        if stream:
+            check(ctype == "application/x-ndjson", f"(y1) request {i}: {ctype}")
+            deltas, final = y_split(f"(y1) stream {i}", evs)
+        else:
+            deltas, final = None, evs[0]
+            check(final.get("status") == "success", f"(y1) request {i}: {final}")
+        rows.append((final, first, wall, deltas))
+    return rows, wave_s
+
+
+def y_profiled_wave(torch, port, bodies, stream: bool):
+    """One wave under torch.profiler (device activity only): (rows, wave
+    seconds, device busy seconds or None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rows, wave_s = y_wave(port, bodies, stream)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return rows, wave_s, (busy_union_us(kern) / 1e6 if kern else None)
+
+
+def phase_y1(torch, engine, pa, fa, Q, P, G, fleet, server, smi):
+    """8 concurrent NDJSON streams of (g)'s bodies on (g)'s fleet."""
+    port = server.port
+    L = engine.cfg.n_layers
+    bodies = fleet_bodies(range(len(FLEET_PROMPT_TOKENS)))
+    greedy = [i for i in range(len(bodies)) if i % 2 == 0]
+    # the fresh fleet's first request pays its launch kinds' captures: the
+    # cold TTFT (y5)'s warmed server is read against
+    code, cold, cold_wall = post(port, bodies[2])
+    check(code == 200, f"(y1) the cold first request: {cold}")
+    check(fleet.warmup()["ok"], "(y1) fleet warmup")
+    # each greedy body alone on the idle fleet, unstreamed then streamed
+    lone = {}
+    for i in greedy:
+        code, r, _ = post(port, bodies[i])
+        check(code == 200, f"(y1) body {i} alone: {r}")
+        _, _, evs, first, _ = y_stream(port, {**bodies[i], "stream": True})
+        _, final = y_split(f"(y1) body {i} streamed alone", evs)
+        check(final["token_ids"] == r["token_ids"],
+              f"(y1) body {i} streamed alone differs from its unstreamed run alone at "
+              f"{parts_at(final['token_ids'], r['token_ids'])}")
+        lone[i] = r["token_ids"]
+    print(f"(y1) the fresh fleet's cold first request: ttft_s={cold['ttft_s']} "
+          f"wall_s={cold_wall:.3f}; each greedy body ({greedy}) streamed alone equals "
+          f"its unstreamed run alone ({smi})")
+    # the streamed wave: every kernel count from 0 just before it
+    before = get(port, "/stats")[1]["continuous"]
+    reset_counts(pa, fa, Q)
+    rows, wave_s = y_wave(port, bodies, stream=True)
+    after = wait_idle(port)["continuous"]
+    launches = read_counts(pa, fa, Q)
+    mixed = after["launches"]["mixed"] - before["launches"]["mixed"]
+    chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+    n_tok = 0
+    for i, (r, first, wall, deltas) in enumerate(rows):
+        n_tok += r["tokens_generated"]
+        # a delta holds back a partial UTF-8 character: the first one may
+        # carry several tokens (tokens_so_far)
+        print(f"(y1) stream {i} ({'greedy' if i % 2 == 0 else 'sampled'}): prompt_tokens="
+              f"{r['prompt_tokens']} tokens={r['tokens_generated']} deltas={len(deltas)} "
+              f"first_delta_s={first:.4f} at tokens_so_far={deltas[0]['tokens_so_far']} "
+              f"ttft_s={r['ttft_s']} (first delta - ttft {first - r['ttft_s']:+.4f} s) "
+              f"wall_s={wall:.3f}")
+        check(r["prompt_tokens"] == FLEET_PROMPT_TOKENS[i] and len(deltas) >= 1,
+              f"(y1) stream {i}: {r['prompt_tokens']} prompt tokens, {len(deltas)} deltas")
+    parts = []
+    for i in greedy:
+        got = rows[i][0]["token_ids"]
+        at = parts_at(got, lone[i])
+        if at is None:
+            continue
+        ids = engine.tokenizer.encode(bodies[i]["prompt"]) + list(lone[i][:at])
+        gap = x_gap(torch, P, G, engine, ids)
+        parts.append({"stream": i, "at": at, "gap": gap})
+        check(gap < LOGITS_ATOL, f"(y1) stream {i} parts from its run alone at token {at} "
+                                 f"where the top-2 gap is {gap:.4f}")
+    print(f"(y1) streamed wave: {n_tok} tokens from {len(rows)} streams in {wave_s:.3f} s = "
+          f"{n_tok / wave_s:.2f} tokens/s aggregate; greedy streams identical to their "
+          f"runs alone: {len(greedy) - len(parts)} of {len(greedy)}, partings "
+          f"{json.dumps(parts)} (each at a near-tie, top-2 gap < {LOGITS_ATOL})")
+    print(f"(y1) launches: {mixed} mixed, {chunks} decode chunks of {FLEET['chunk_steps']} "
+          f"steps; kernel launches {json.dumps(launches)}")
+    check(launches["ragged_paged_attend"] == L * mixed > 0,
+          f"(y1) ragged_paged_attend launched {launches['ragged_paged_attend']} times for "
+          f"{mixed} mixed launches of {L} layers")
+    check(launches["paged_flash_attend"] == L * FLEET["chunk_steps"] * chunks > 0,
+          f"(y1) paged_flash_attend launched {launches['paged_flash_attend']} times for "
+          f"{chunks} decode chunks")
+    others = [k for k in launches if k not in ("ragged_paged_attend", "paged_flash_attend")]
+    check(not any(launches[k] for k in others), f"(y1) another kernel ran: {launches}")
+    check_graphs("(y1)", after, {"mixed_launch": "mixed", "decode_chunk": "decode_chunks"})
+    check(after["paged"]["free_blocks"] == FLEET["kv_pool_blocks"] - 1,
+          "(y1) pool blocks leaked by the streamed wave")
+    # aggregate tokens/s in turn (plain, streamed, streamed, plain), then one
+    # profiled wave of each: the device's idle share over the wave
+    rates = {False: [], True: []}
+    for stream in (False, True, True, False):
+        wrows, ws = y_wave(port, bodies, stream)
+        rates[stream].append(sum(r["tokens_generated"] for r, *_ in wrows) / ws)
+        wait_idle(port)
+    idle = {}
+    for stream in (False, True):
+        wrows, ws, busy = y_profiled_wave(torch, port, bodies, stream)
+        wait_idle(port)
+        idle[stream] = None if busy is None else 1 - busy / ws
+        print(f"(y1) profiled {'streamed' if stream else 'unstreamed'} wave: wall_s={ws:.3f} "
+              + ("device busy share not measured (the profiler recorded no device kernels)"
+                 if busy is None else f"device busy_s={busy:.4f} idle_share={idle[stream]:.4f}"))
+    print(f"(y1) aggregate tokens/s in turn: unstreamed {rates[False][0]:.2f}, streamed "
+          f"{rates[True][0]:.2f}, streamed {rates[True][1]:.2f}, unstreamed "
+          f"{rates[False][1]:.2f} ({smi})")
+    return dict(launches=launches, mixed=mixed, chunks=chunks, cold_ttft=cold["ttft_s"],
+                rates=rates, idle=idle)
+
+
+def phase_y2(fleet, server, smi):
+    """/v1/models, and both completion routes streamed (SSE) and not."""
+    port = server.port
+    code, models = get(port, "/v1/models")
+    check(code == 200 and models["data"][0]["id"] == MODEL, f"(y2) /v1/models: {models}")
+    cases = (("/v1/completions", {"prompt": fleet_prompt(3, 120), "max_tokens": 32,
+                                  "temperature": 0}),
+             ("/v1/chat/completions", {"messages": [{"role": "user", "content":
+                                                     "Tell me about the printing press."}],
+                                       "max_tokens": 32, "temperature": 0}))
+    for path, body in cases:
+        chat = "chat" in path
+        code, plain = y_post(port, path, body)
+        check(code == 200, f"(y2) {path}: {plain}")
+        want = plain["choices"][0]["message"]["content"] if chat else plain["choices"][0]["text"]
+        code, ctype, evs, first, wall = y_stream(port, {**body, "stream": True}, path=path,
+                                                 sse=True)
+        check(code == 200 and ctype.startswith("text/event-stream") and evs[-1] == "[DONE]",
+              f"(y2) {path}: HTTP {code} {ctype}, last event {evs[-1:]}")
+        chunks = [e for e in evs[:-1] if y_text(e, True)]
+        check(first is not None, f"(y2) {path}: no content chunk")
+        finals = [e for e in evs[:-1] if e["choices"][0]["finish_reason"]]
+        text = "".join(y_text(e, True) for e in evs[:-1])
+        check(len(finals) == 1 and finals[0]["usage"] == plain["usage"],
+              f"(y2) {path}: final chunks {finals}")
+        check(text == want, f"(y2) {path}: the SSE text differs from the unstreamed text")
+        print(f"(y2) {path}: unstreamed {plain['usage']['completion_tokens']} tokens, "
+              f"finish {plain['choices'][0]['finish_reason']}; SSE {len(chunks)} content "
+              f"chunks ending [DONE], first at {first:.4f} s, wall {wall:.3f} s, text "
+              f"identical ({smi})")
+    wait_idle(port)
+
+
+def phase_y3(fleet, server, smi):
+    """A client gone mid-stream: a 900-token budget, the socket closed after
+    two deltas. The slot and every block come back within a scheduler step,
+    the cancel is counted, and the next request's tokens are its run alone."""
+    import socket
+
+    port = server.port
+    nxt = fleet_bodies([4])[0]
+    code, alone, _ = post(port, nxt)
+    check(code == 200, f"(y3) the next request alone: {alone}")
+    metric = fleet.engine.metrics.get("dli_cancelled_total").labels(cause="disconnect")
+    cancelled0 = metric.value
+    body = json.dumps({"prompt": fleet_prompt(7, 60), "max_tokens": Y_DISCONNECT_BUDGET,
+                       "greedy": True, "chat": False, "stream": True})
+    s = socket.create_connection(("127.0.0.1", port), timeout=60)
+    s.sendall((f"POST /generate HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: "
+               f"application/json\r\nContent-Length: {len(body)}\r\n\r\n{body}").encode())
+    got = b""
+    while got.split(b"\r\n\r\n", 1)[-1].count(b'"delta"') < 2:
+        chunk = s.recv(65536)
+        check(bool(chunk), "(y3) the stream ended before two deltas")
+        got += chunk
+    req = next(r for r in fleet._assignment if r is not None)
+    s.close()
+    t_close = time.perf_counter()
+    while not req.cancelled and not req.done.is_set():
+        time.sleep(0.0002)
+    t_flag = time.perf_counter()
+    n_flag = fleet.mixed_launches + fleet.chunk_launches
+    while fleet.stats()["occupied"]:
+        check(time.perf_counter() - t_flag < 30, "(y3) the cancelled slot never freed")
+        time.sleep(0.0002)
+    t_free = time.perf_counter()
+    steps = fleet.mixed_launches + fleet.chunk_launches - n_flag
+    st = fleet.stats()
+    print(f"(y3) closed after 2 deltas ({len(req.tokens) + 1} tokens fetched of "
+          f"{Y_DISCONNECT_BUDGET}): cancel flagged {t_flag - t_close:.4f} s after the "
+          f"close, the slot free {t_free - t_flag:.4f} s later, {steps} launch(es) issued "
+          f"between; free blocks {st['paged']['free_blocks']} of "
+          f"{FLEET['kv_pool_blocks'] - 1}; dli_cancelled_total{{cause=\"disconnect\"}} "
+          f"{metric.value - cancelled0:g} ({smi})")
+    check(req.result is not None and req.result.get("error_type") == "cancelled",
+          f"(y3) the request was not cancelled: {req.result}")
+    check(steps <= 1, f"(y3) {steps} launches before the cancelled slot freed")
+    check(st["paged"]["free_blocks"] == FLEET["kv_pool_blocks"] - 1,
+          "(y3) blocks not back after the cancel")
+    check(metric.value - cancelled0 == 1, "(y3) dli_cancelled_total did not count 1")
+    code, after, _ = post(port, nxt)
+    check(code == 200 and after["token_ids"] == alone["token_ids"],
+          f"(y3) the request admitted after the cancel differs from its run alone at "
+          f"{parts_at(after.get('token_ids', []), alone['token_ids'])}")
+    graphs = wait_idle(port)["continuous"]["graphs"]
+    check(all(g["captures"] == 1 for g in graphs.values()),
+          f"(y3) a launch kind was captured again: {graphs}")
+    print(f"(y3) the request admitted right after: {after['tokens_generated']} tokens, "
+          f"identical to its run alone; graphs {json.dumps(graphs)}")
+
+
+def phase_y4(torch, engine, P, G, smi):
+    """A --spec-decode stream: verify rows land several tokens per fetch."""
+    eng = y_engine(engine, spec_decode=True)
+    fleet, server = fleet_server(eng, FLEET)
+    try:
+        check(fleet.warmup()["ok"], "(y4) fleet warmup")
+        body = x_bodies()[0]
+        code, plain, _ = post(server.port, body)
+        check(code == 200, f"(y4) unstreamed: {plain}")
+        _, _, evs, first, wall = y_stream(server.port, {**body, "stream": True})
+        deltas, final = y_split("(y4) the --spec-decode stream", evs)
+        steps = [deltas[0]["tokens_so_far"]] + [
+            b["tokens_so_far"] - a["tokens_so_far"] for a, b in zip(deltas, deltas[1:])]
+        at = parts_at(final["token_ids"], plain["token_ids"])
+        gap = None
+        if at is not None:
+            ids = engine.tokenizer.encode(body["prompt"]) + list(plain["token_ids"][:at])
+            gap = x_gap(torch, P, G, engine, ids)
+            check(gap < LOGITS_ATOL, f"(y4) the stream parts from its unstreamed run at "
+                                     f"{at}, top-2 gap {gap:.4f}")
+        print(f"(y4) --spec-decode stream of {final['tokens_generated']} tokens: "
+              f"{len(deltas)} deltas (most tokens in one delta {max(steps)}), "
+              f"spec_drafted={final.get('spec_drafted')} "
+              f"spec_accepted={final.get('spec_accepted')}, first delta {first:.4f} s, "
+              f"ttft_s {final['ttft_s']}; its unstreamed run alone "
+              + ("identical" if at is None else f"parts at {at}, top-2 gap {gap:.4f}")
+              + f" ({smi})")
+        check(final.get("spec_drafted", 0) > 0, f"(y4) no verify row ran: {final}")
+    finally:
+        server.shutdown()
+
+
+def phase_y5(y1, smi):
+    """The server CLI with --warmup --tenant-weight a=3 in a subprocess: its
+    first request's TTFT beside the fresh in-process fleet's cold one; then
+    the client CLI against it, streamed."""
+    srv = Holder("server", base=Y_SERVER, log_dir=Y_DIR)
+    try:
+        log = srv.tail()
+        check("warm:" in log and "continuous warm in" in log,
+              f"(y5) the server did not report its warmups: {log}")
+        body = {**fleet_bodies([2])[0], "tenant": "a"}
+        code, r, wall = post(srv.port, body)
+        check(code == 200 and r.get("tenant") == "a", f"(y5) first request: {r}")
+        print(f"(y5) the server CLI ({' '.join(Y_SERVER)}) up in {srv.start_s:.1f} s "
+              f"(warmups: {' | '.join(l for l in log.splitlines() if 'warm' in l)}); its "
+              f"first request ttft_s={r['ttft_s']} wall_s={wall:.3f} against the cold "
+              f"fleet's first ttft_s={y1['cold_ttft']} ({smi})")
+        cli = subprocess.run(
+            [sys.executable, "-m", "distributed_llm_inference_tpu_torch.client", "--url",
+             srv.url, "--prompt", "Hello from the client", "--max-tokens", "16", "--stream"],
+            capture_output=True, text=True, timeout=300)
+        out = cli.stdout.strip().splitlines()
+        print("(y5) the client CLI, streamed: rc " f"{cli.returncode}; "
+              + " / ".join(line.strip() for line in out[-2:]))
+        check(cli.returncode == 0 and "tok/s" in cli.stdout,
+              f"(y5) the client CLI failed: {cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    finally:
+        srv.close()
+
+
+def phase_y(torch, engine, pa, fa, Q, P, G, smi):
+    """Token streaming, cancellation and the OpenAI routes on (g)'s fleet
+    through the port's HTTP server (an engine of its own over the same
+    weights, so its metrics count from 0)."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    t0 = time.time()
+    eng = y_engine(engine)
+    fleet = ContinuousEngine(eng, **FLEET)
+    server = InferenceServer(eng, host="127.0.0.1", port=0, max_tokens_cap=1024,
+                             continuous=fleet)
+    server.start()
+    try:
+        y1 = phase_y1(torch, engine, pa, fa, Q, P, G, fleet, server, smi)
+        phase_y2(fleet, server, smi)
+        phase_y3(fleet, server, smi)
+    finally:
+        server.shutdown()
+    phase_y4(torch, engine, P, G, smi)
+    phase_y5(y1, smi)
+    print(f"(y) took {time.time() - t0:.1f} s")
+    print("(y) " + json.dumps({"streaming": {
+        "launches": y1["launches"], "mixed": y1["mixed"], "decode_chunks": y1["chunks"],
+        "tokens_per_s": {"unstreamed": y1["rates"][False], "streamed": y1["rates"][True]},
+        "idle_share": {"unstreamed": y1["idle"][False], "streamed": y1["idle"][True]}}}))
+    return y1["launches"]
+
+
 def main(argv) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x"],
+    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -4508,7 +4934,8 @@ def main(argv) -> int:
                          "or (v) on the raw engine (v): the block-prefix cache "
                          "and the KV shadow; or (w) on the raw engine (w): the "
                          "cross-replica KV fabric; or (x) on the raw engine (x): "
-                         "speculation on the mixed launch")
+                         "speculation on the mixed launch; or (y) on the raw engine "
+                         "(y): token streaming, cancellation and the OpenAI routes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -4579,7 +5006,7 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
-    if args.only not in ("s", "v", "w", "x"):
+    if args.only not in ("s", "v", "w", "x", "y"):
         # (b) the kernel against its twin
         phase_b(torch, timer, fa)
 
@@ -4615,6 +5042,12 @@ def main(argv) -> int:
               f"{time.time() - t0:.1f} s")
         phase_x(torch, engine, pa, fa, Q, P, G, M, faults, smi)
         print(f"(x) total {time.time() - t_start:.1f} s")
+        return 0
+    if args.only == "y":
+        print(f"(y) {MODEL} bf16, random weights (seed 0), built in "
+              f"{time.time() - t0:.1f} s")
+        phase_y(torch, engine, pa, fa, Q, P, G, smi)
+        print(f"(y) total {time.time() - t_start:.1f} s")
         return 0
     cfg = engine.cfg
     print(f"(c) {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
@@ -4702,6 +5135,10 @@ def main(argv) -> int:
     x_launches = phase_x(torch, engine, pa, fa, Q, P, G, M, faults, smi)
     print(f"(x) total {time.time() - t_start:.1f} s")
 
+    # (y) token streaming, cancellation and the OpenAI routes on (g)'s fleet
+    y_launches = phase_y(torch, engine, pa, fa, Q, P, G, smi)
+    print(f"(y) total {time.time() - t_start:.1f} s")
+
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)
     phase_b(torch, timer, fa, int8=True)
@@ -4742,9 +5179,10 @@ def main(argv) -> int:
     ragged_entry = ragged_line(paged_rows, wave["launches"], False, P)
     paged_entry = paged_decode_line(paged_rows, wave["launches"], False)
     # the speculation path's own counts ((x1)'s verify wave, (x2)'s draft
-    # waves), beside (g)'s
+    # waves) and the streamed wave's ((y1)), beside (g)'s
     for entry in (ragged_entry, paged_entry):
         entry["launches_x"] = x_launches[entry["name"]]
+        entry["launches_y"] = y_launches[entry["name"]]
     line = {"kernels": [
         flash_entry,
         ragged_entry,

@@ -124,6 +124,16 @@ pool that shares the block tables. A launch with no verify row and no
 frozen slot is the plain mixed launch; the verify launch, the draft fill
 and the propose chain are launch kinds of their own.
 
+Streaming and cancellation, as in the JAX package: stream() yields a
+request's text as deltas, pushed by the worker when its first token and
+each later launch that adds text are fetched (a partial UTF-8 character
+and a textual stop's possible start held back, so the joined deltas
+equal the response), then its envelope. cancel() (a closed stream, a
+client gone) dequeues a waiting request at once, or flags an admitted
+one, whose slot the worker kills and whose blocks it frees at the next
+launch boundary, as a deadline kill does; dli_cancelled_total{cause}
+counts them.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
 item): adapters, grammar constraints in the fleet (they go to the solo
 engine, as in the JAX package), the dense fleet's prefix cache, and
@@ -187,11 +197,12 @@ class _Request:
         "preemptions", "preempted_at", "drop_seq", "prefix_hit_tokens",
         "shadow_depth", "resume_seq", "promoted_blocks", "kv_hint",
         "fabric_blocks", "trace_ctx", "spec_want", "spec_drafted",
-        "spec_accepted", "spec_launches",
+        "spec_accepted", "spec_launches", "stream_q", "streamed_text",
+        "cancelled", "cancel_cause",
     )
 
     def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None,
-                 kv_hint=None, trace_ctx=None):
+                 kv_hint=None, trace_ctx=None, stream_q=None):
         self.prompt = prompt
         self.slo = kwargs.pop("slo_class", None)
         # the tenant the request bills (None: anonymous): its prefill share
@@ -256,6 +267,14 @@ class _Request:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_launches = 0
+        # token streaming (stream()): the worker pushes delta events and the
+        # final envelope here; None for a request that does not stream
+        self.stream_q = stream_q
+        self.streamed_text = ""  # text already streamed (the deltas' sum)
+        # the client went away (cancel()): the worker frees the slot early,
+        # and why (dli_cancelled_total{cause})
+        self.cancelled = False
+        self.cancel_cause = "disconnect"
 
 
 class ContinuousEngine:
@@ -611,6 +630,12 @@ class ContinuousEngine:
             for t in self._gauge_tenants:
                 self._sched.set_depth(name, counts.get((name, t), 0), tenant=t)
 
+    def _cancel_env(self, req: _Request) -> dict:
+        """The cancelled envelope (HTTP 499 at the edge), counted by cause."""
+        self._m.cancelled.labels(cause=req.cancel_cause).inc()
+        return {"error": "Error: request cancelled", "status": "failed",
+                "error_type": "cancelled"}
+
     def _deadline_env(self, req: _Request, where: str = "") -> dict:
         self._m.deadline_exceeded.inc()
         suffix = f" {where}" if where else ""
@@ -701,9 +726,7 @@ class ContinuousEngine:
         kv_push_to = kwargs.pop("kv_push_to", None) or None
         trace_ctx = kwargs.pop("trace_ctx", None)
         if kwargs.pop("adapter", None):
-            return {"error": "Error: adapter serving needs the fleet's adapter "
-                    "pool, which is not ported yet", "status": "failed",
-                    "error_type": "invalid_request"}
+            return self._adapter_refused()
         tenant = kwargs.pop("tenant", None) or None
         prefill_only = bool(kwargs.pop("prefill_only", False))
         if prefill_only:
@@ -727,6 +750,100 @@ class ContinuousEngine:
                 if pushed:
                     req.result["kv_pushed"] = pushed
         return req.result
+
+    @staticmethod
+    def _adapter_refused() -> dict:
+        return {"error": "Error: adapter serving needs the fleet's adapter pool, "
+                "which is not ported yet", "status": "failed",
+                "error_type": "invalid_request"}
+
+    def stream(self, prompt: str, **kwargs):
+        """Generator of one request's streaming events: `{"delta": str,
+        "tokens_so_far": N}` once its first token is fetched and then once
+        per fetched launch that adds text, and last the standard envelope
+        with "done": true. The caller iterates on its own thread (an HTTP
+        handler writing NDJSON or SSE); the worker pushes into the
+        request's queue. A request that runs solo (a seed, debug,
+        logprobs, ...) yields its one final envelope. Abandoning the
+        generator (close(), a dropped client) cancels the request."""
+        import queue
+
+        kv_hint = kwargs.pop("kv_hint", None)
+        trace_ctx = kwargs.pop("trace_ctx", None)
+        if kwargs.pop("adapter", None):
+            yield {**self._adapter_refused(), "done": True}
+            return
+        tenant = kwargs.pop("tenant", None) or None
+        if self._needs_solo(kwargs):
+            out = self.engine.generate(prompt, **kwargs)
+            out["done"] = True
+            yield out
+            return
+        q: queue.Queue = queue.Queue()
+        req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None),
+                       tenant=tenant, kv_hint=kv_hint, trace_ctx=trace_ctx,
+                       stream_q=q)
+        err = self._enqueue(req)
+        if err is not None:  # yielded outside the fleet's lock
+            yield {**err, "done": True}
+            return
+        try:
+            while True:
+                ev = q.get()
+                yield ev
+                if ev.get("done"):
+                    return
+        finally:
+            # the consumer abandoned the stream: free the slot for queued
+            # requests instead of decoding to the full budget
+            if not req.done.is_set():
+                self.cancel(req)
+
+    def cancel(self, req: _Request, cause: str = "disconnect"):
+        """Cancel a request: a waiting one (queue or the preemption resume
+        queue) leaves at once with its final envelope; an admitted one is
+        flagged, and the worker kills its slot and frees its blocks at the
+        next launch boundary. `cause` labels dli_cancelled_total."""
+        req.cancel_cause = cause
+        with self._cv:
+            if req in self._queue or req in self._resume:
+                if req in self._queue:
+                    self._queue.remove(req)
+                    self._note_queue_locked()
+                else:
+                    self._resume.remove(req)
+                req.result = self._cancel_env(req)
+                self._push_final(req)
+                return
+            req.cancelled = True
+            # wake the worker: the slot frees within one scheduler step
+            # even when nothing else is queued
+            self._cv.notify_all()
+
+    def _stream_tokens(self, req: _Request, final: bool = False, pre=None):
+        """Push the not yet streamed suffix of req's text (worker thread).
+
+        Deltas come from the whole decoded text. Text ending in U+FFFD is
+        held back until more tokens arrive (a multi-byte character split
+        across launches decodes to a replacement character first and to
+        the real one later), and so are the last max(len(stop)) - 1
+        characters (a stop string may span launches): the joined deltas
+        never run ahead of the response. final=True flushes exactly up to
+        the response. pre: (gen_ids, text, hit) from the caller's
+        _gen_text, so a launch decodes the sequence once."""
+        gen_ids, text, _ = pre if pre is not None else self._gen_text(req)
+        if not gen_ids:
+            return
+        if not final:
+            text = text.rstrip("�")
+            stop = req.kwargs.get("stop") or ()
+            hold = max((len(s) for s in stop if s), default=0) - 1
+            if hold > 0:
+                text = text[: max(len(req.streamed_text), len(text) - hold)]
+        if len(text) > len(req.streamed_text):
+            delta = text[len(req.streamed_text):]
+            req.streamed_text = text
+            req.stream_q.put({"delta": delta, "tokens_so_far": len(gen_ids)})
 
     @property
     def ready(self) -> bool:
@@ -1296,20 +1413,23 @@ class ContinuousEngine:
             self._process(step)
 
     def _reap_jobs(self):
-        """Fail pending prefills whose deadline passed before spending more
-        budget on them."""
+        """Fail pending prefills whose client went away or whose deadline
+        passed before spending more budget on them."""
         deadline = self.engine.engine_cfg.request_deadline_s
         now = time.time()
         for job in list(self._jobs):
             req = job.req
-            if self._past_deadline(req, now):
+            if req.cancelled:
+                req.result = self._cancel_env(req)
+            elif self._past_deadline(req, now):
                 req.result = self._deadline_env(req, where="mid-prefill")
             elif deadline and now - req.t_start > deadline:
                 req.result = {"error": f"Error: request exceeded the {deadline:g}s "
                               "deadline", "status": "failed", "error_type": "timeout"}
             else:
                 continue
-            self._m.preempt.labels(reason="deadline").inc()
+            self._m.preempt.labels(
+                reason="cancelled" if req.cancelled else "deadline").inc()
             self._release(req)
 
     def _start_jobs(self):
@@ -1338,6 +1458,10 @@ class ContinuousEngine:
                     self._note_queue_locked()
                 else:
                     req = self._resume.pop(0)
+            if from_resume and req.cancelled:
+                req.result = self._cancel_env(req)
+                self._push_final(req)
+                continue
             if (from_resume and req.allowed is not None
                     and len(req.salvaged) >= req.allowed):
                 self._finalize(req)
@@ -1374,10 +1498,13 @@ class ContinuousEngine:
                 self._m.resume_s.observe(time.time() - req.preempted_at)
 
     def _expired_in_queue(self, req: _Request) -> bool:
-        """Fail a request whose deadline passed while it queued (before any
-        block grant or prefill); True when it did."""
+        """Fail a request cancelled, or past its deadline, while it queued
+        (a requeued head can carry a cancel that raced the pop), before
+        any block grant or prefill; True when it did."""
         req.trace.checkpoint("queue_wait")
-        if self._past_deadline(req):
+        if req.cancelled:
+            req.result = self._cancel_env(req)
+        elif self._past_deadline(req):
             req.result = self._deadline_env(req, where="while queued")
         else:
             deadline = self.engine.engine_cfg.request_deadline_s
@@ -2178,7 +2305,7 @@ class ContinuousEngine:
         cand = []
         for b, req in enumerate(self._assignment):
             if (req is None or b in self._prefilling or req.done.is_set()
-                    or not self._spec_req_ok(req)):
+                    or req.cancelled or not self._spec_req_ok(req)):
                 continue
             if devmeta:
                 pending = self._spec_pending.get(b, [])
@@ -2558,6 +2685,10 @@ class ContinuousEngine:
                 else:
                     req = self._queue.pop(0)
                     self._note_queue_locked()
+            if from_resume and req.cancelled:
+                req.result = self._cancel_env(req)
+                self._push_final(req)
+                continue
             if (from_resume and req.allowed is not None
                     and len(req.salvaged) >= req.allowed):
                 self._finalize(req)  # its budget was spent before the eviction
@@ -2790,6 +2921,8 @@ class ContinuousEngine:
             **(self._alloc.span_attrs() if self.paged else {}))
         if req.first_id in self.cfg.all_stop_ids or req.budget == 0:
             self._finalize(req)
+        elif req.stream_q is not None:
+            self._stream_tokens(req)
 
     def _process(self, step):
         """Fetch one decode chunk's packed results and distribute them."""
@@ -2807,10 +2940,11 @@ class ContinuousEngine:
 
     def _distribute(self, emitted, mask, active, snapshot, seq=None):
         """Attribute one fetched launch's emissions ([K, B] + final active
-        row) to the snapshot's tenants and handle stop / deadline
-        / finalize. `seq` is the launch's mutation seq: a victim preempted
-        after the launch drops its emissions (they are regenerated after
-        the resume; appending them would corrupt the salvage order)."""
+        row) to the snapshot's tenants, stream them, and handle stop /
+        cancel / deadline / finalize. `seq` is the launch's mutation seq:
+        a victim preempted after the launch drops its emissions (they are
+        regenerated after the resume; appending them would corrupt the
+        salvage order)."""
         deadline = self.engine.engine_cfg.request_deadline_s
         now = time.time()
         for b, req in enumerate(snapshot):
@@ -2833,8 +2967,20 @@ class ContinuousEngine:
                         self._m.preempt.labels(reason="stop").inc()
                     self._finalize(req, pre=gen)
                     continue
+                if req.stream_q is not None:
+                    self._stream_tokens(req, pre=gen)
+            elif req.stream_q is not None and len(new):
+                self._stream_tokens(req)
             if self._assignment[b] is req and not active[b]:
                 self._finalize(req, pre=gen)
+            elif req.cancelled and self._assignment[b] is req:
+                # the client went away: free the slot for queued work
+                # instead of decoding to the request's full budget
+                self._commit(G.kill_slot(self.state, b))
+                self._m.preempt.labels(reason="cancelled").inc()
+                log.info("request_cancelled", slot=b, cause=req.cancel_cause)
+                req.result = self._cancel_env(req)
+                self._release(req)
             elif self._past_deadline(req, now) and self._assignment[b] is req:
                 self._commit(G.kill_slot(self.state, b))
                 self._m.preempt.labels(reason="deadline").inc()
@@ -2861,6 +3007,9 @@ class ContinuousEngine:
         req.trace.checkpoint("decode")
         gen_ids, response, stopped = pre if pre is not None else self._gen_text(req)
         req.trace.checkpoint("detokenize")
+        if req.stream_q is not None:
+            # flush the held-back tail, exactly up to the response
+            self._stream_tokens(req, final=True, pre=(gen_ids, response, stopped))
         elapsed = time.time() - req.t_start
         n = len(gen_ids)
         tps = n / elapsed if elapsed > 0 else 0.0
@@ -2959,8 +3108,11 @@ class ContinuousEngine:
 
     def _push_final(self, req: _Request):
         """Single completion point: attach request id + timings, count the
-        request (warmup excluded), then wake submit()."""
+        request (warmup excluded), put the final envelope (with "done":
+        true) on a stream's queue, then wake submit()."""
         if req.result is not None:
             self.engine._finish_request(req.result, req.trace,
                                         engine="continuous", record=req.record)
+            if req.stream_q is not None:
+                req.stream_q.put({**req.result, "done": True})
         req.done.set()

@@ -901,6 +901,57 @@ class InferenceEngine:
             result["top_predictions"] = top_predictions
         return result
 
+    def warmup(self) -> dict:
+        """Run every solo serving shape once before traffic, so no request
+        pays a kernel build or load, or a first call at a new shape: a
+        prefill per prefill bucket (the flash kernel at each chunk width),
+        plain and penalized, the chunked extend at the largest bucket, and
+        one decode step per decode bucket, plain, penalized and with
+        log-probabilities (the JAX engine's warmup program list; the port
+        runs them eagerly, so each is run once rather than compiled).
+        Returns {"programs": N, "seconds": wall}."""
+        t0 = time.time()
+        buckets = self._buckets()
+        if not buckets:
+            raise ValueError(
+                f"warmup needs at least one prefill bucket <= max_seq_len "
+                f"{self.cfg.max_seq_len}; got prefill_buckets="
+                f"{self.engine_cfg.prefill_buckets}"
+            )
+        sampling = G.default_sampling(greedy=True)
+        gen = self._generator(0)
+        pad = self.cfg.pad_token_id
+        presence = torch.zeros((1, self.cfg.vocab_size), dtype=torch.bool,
+                               device=self.device)
+        n = 0
+        with self._lock:
+            cache = self._cache
+            if cache is None:
+                cache = self.backend.init_cache(1, self.cfg.max_seq_len)
+            for pres in (None, presence):
+                for bucket in buckets:
+                    _, _, cache = self.backend.prefill(
+                        self._tokens([[pad] * bucket]), 1, cache, gen, sampling,
+                        presence=pres)
+                    n += 1
+            cache = self.backend.extend(self._tokens([[pad] * buckets[-1]]), 0, cache)
+            n += 1
+            # a first token that is no stop token, so each decode runs its step
+            first = self._tokens([next(t for t in range(self.cfg.vocab_size)
+                                       if t not in self.cfg.all_stop_ids)])
+            for kw in ({}, {"presence": presence}, {"with_logprobs": True}):
+                for db in DECODE_BUCKETS:
+                    res = self.backend.decode(first, cache, 1, 1, gen, sampling,
+                                              max_steps=db, **kw)
+                    cache = res[2]
+                    n += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._cache = cache  # the first request reuses the buffer
+        out = {"programs": n, "seconds": round(time.time() - t0, 2)}
+        log.info("warmup", **out)
+        return out
+
     # -- batched entry -------------------------------------------------------
     def generate_batch(
         self,

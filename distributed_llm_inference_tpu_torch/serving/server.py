@@ -2,7 +2,8 @@
 package's serving/server.py).
 
 Routes: `POST /generate` (one "prompt", or a "prompts" list served as one
-left-padded batch), `GET /health`, `GET /ready`, `GET /workers` (the
+left-padded batch), `POST /v1/completions`, `POST /v1/chat/completions`,
+`GET /v1/models`, `GET /health`, `GET /ready`, `GET /workers` (the
 device sweep), `GET /` (the HTML status page), `GET /stats`,
 `GET /metrics`, `GET /debug/flight` (the flight recorder) and
 `POST /profiler/start|stop` (torch.profiler traces under a base
@@ -25,8 +26,14 @@ a peer's pushed chain on `POST /kv`; `/generate` honors a router's
 `X-KV-Transfer-Peer` / `X-KV-Transfer-Digest` hint (the admission pulls
 the chain) and `X-KV-Prefill-Only` / `X-KV-Push-To` (phase 1 of a
 prefill->decode handoff), and `/health` carries a `kv` residency block
-(`--no-kv-fabric` turns all of it off). The queue and the OpenAI routes
-arrive with later slices.
+(`--no-kv-fabric` turns all of it off). On `--continuous` a single-prompt
+`"stream": true` request answers an NDJSON stream (`{"delta": ...}` lines,
+then the envelope with `"done": true`); a client that goes away mid-stream
+cancels its request, which frees its slot and blocks at the next launch
+boundary. The OpenAI routes (serving/openai_api.py): `GET /v1/models`,
+`POST /v1/completions` and `/v1/chat/completions`, unstreamed or as SSE
+(real deltas on `--continuous`, one emulated chunk otherwise). The queue
+(`--queue`) and the trace store (`/debug/traces`) arrive with later slices.
 
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --attn-impl auto
@@ -50,6 +57,10 @@ arrive with later slices.
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
         --continuous 8 --continuous-max-seq 1024
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
+        --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
+        --continuous-max-seq 1024 --warmup --tenant-weight a=3
 """
 
 from __future__ import annotations
@@ -76,9 +87,6 @@ RETRY_AFTER_S = 2
 # routes of the JAX server that the port does not serve yet: 501 with the
 # ROADMAP.md item that ports them, never a bare 404
 _NOT_PORTED_ROUTES = {
-    "/v1/models": 'ROADMAP.md "Solo-engine features"',
-    "/v1/completions": 'ROADMAP.md "Solo-engine features"',
-    "/v1/chat/completions": 'ROADMAP.md "Solo-engine features"',
     "/debug/traces": 'ROADMAP.md "Fleet tier"',
 }
 
@@ -93,7 +101,8 @@ def _not_ported_route(path: str) -> Optional[dict]:
         return None
     return {"error": f"{key} is not ported to the PyTorch server yet ({item})"}
 _KNOWN_ROUTES = frozenset((
-    "/", "/health", "/ready", "/workers", "/stats", "/metrics", "/generate",
+    "/", "/health", "/ready", "/workers", "/stats", "/metrics", "/v1/models",
+    "/generate", "/v1/completions", "/v1/chat/completions",
     "/profiler/start", "/profiler/stop", "/debug/flight",
 ))
 
@@ -258,10 +267,12 @@ def make_handler(engine, max_tokens_cap: int, state=None,
         parse_traceparent,
         sanitize_request_id,
     )
+    from . import openai_api as oai
 
     if state is None:  # embedding callers without an InferenceServer
         state = _ServerState()
     profiler = profiler or _Profiler()
+    started_at = int(time.time())
     slo_classes = {c[0] for c in engine.engine_cfg.slo_classes}
     http_requests = engine.metrics.counter(
         "dli_http_requests_total", "HTTP responses",
@@ -367,6 +378,9 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 results = {f"worker_{s['stage'] + 1}": s["status"] for s in stages}
                 results["detail"] = stages
                 self._send(200, results)
+            elif path == "/v1/models":
+                # no adapter pool in the port ("Adapters"): the base model only
+                self._send(200, oai.models_response(engine.cfg.name, started_at))
             elif path == "/debug/flight":
                 # the ring the fleet's supervisor dumps on a crash
                 self._send(200, engine.flight.dump())
@@ -473,6 +487,164 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 self._send(400, {"error": "invalid JSON body"})
                 return None
 
+        # -- the OpenAI routes (serving/openai_api.py) -----------------------
+
+        def _run_single(self, prompt: str, kwargs: dict) -> dict:
+            """One prompt through the dispatch ladder of /generate and the
+            OpenAI routes: the continuous fleet, else the solo engine (the
+            queue is not ported: "Solo-engine features"). The JAX server
+            records its `replica.request` span here; the port has no trace
+            store yet ("Fleet tier")."""
+            if continuous is not None:
+                return continuous.submit(prompt, trace_ctx=self._trace_ctx, **kwargs)
+            return engine.generate(prompt, **kwargs)
+
+        def _stream_span(self, kwargs: dict):
+            """The span of a streamed request, which the stream loop would
+            end: None while the port has no trace store ("Fleet tier")."""
+            return None
+
+        def _write_stream(self, payloads, events):
+            """Write a stream's payloads as its events come, never under
+            the fleet's lock (the worker only puts events on a queue). A
+            client gone mid-stream closes the event generator, which
+            cancels the request: its slot and blocks free at the next
+            launch boundary instead of after its whole budget."""
+            try:
+                for payload in payloads:
+                    self.wfile.write(payload)
+                    self.wfile.flush()
+            except OSError:
+                events.close()
+
+        def _stream_headers(self, content_type: str, extra=None):
+            self._count(200)
+            self.send_response(200)
+            self.send_header("Content-Type", content_type)
+            for k, v in (extra or {}).items():
+                self.send_header(k, v)
+            if self._rid:
+                self.send_header("X-Request-Id", self._rid)
+            if self._trace_ctx is not None:
+                self.send_header("X-Trace-Id", self._trace_ctx.trace_id)
+            self.end_headers()
+
+        def _openai_stream(self, prompt: str, kwargs: dict, chat: bool):
+            """SSE: real per-launch deltas on --continuous, one emulated
+            chunk otherwise (still valid SSE for OpenAI-SDK clients)."""
+            if continuous is not None:
+                self._stream_span(kwargs)
+                events = continuous.stream(prompt, trace_ctx=self._trace_ctx, **kwargs)
+            else:
+                def _one_shot():
+                    result = self._run_single(prompt, kwargs)
+                    if result.get("status") == "success":
+                        yield {"delta": result.get("response", "")}
+                    yield {**result, "done": True}
+
+                events = _one_shot()
+            self._stream_headers("text/event-stream", {"Cache-Control": "no-cache"})
+            self._write_stream(
+                (payload for payload, _final in
+                 oai.stream_events(events, engine.cfg.name, kwargs, chat=chat)),
+                events)
+
+        def _openai(self, path: str, data: dict):
+            chat = path == "/v1/chat/completions"
+            envelope = None  # the engine envelope carrying request_id/timings
+            try:
+                if chat:
+                    prompt, kwargs, meta = oai.parse_chat(
+                        data, engine.render_chat, max_tokens_cap)
+                    prompts = [prompt]
+                else:
+                    prompts, kwargs, meta = oai.parse_completion(data, max_tokens_cap)
+                if (kwargs.get("slo_class") is not None
+                        and kwargs["slo_class"] not in slo_classes):
+                    raise oai.OpenAIError(
+                        f"unknown slo_class {kwargs['slo_class']!r}; "
+                        f"configured: {sorted(slo_classes)}", param="slo_class")
+                # no adapter pool ("Adapters"): `model` stays informational,
+                # as in the JAX server without one
+                hdr_dl = self.headers.get("X-Request-Deadline-Ms")
+                if hdr_dl is not None:
+                    # a router's relay of the remaining budget wins
+                    try:
+                        kwargs["deadline_ms"] = float(hdr_dl)
+                    except (TypeError, ValueError):
+                        pass
+                kwargs["request_id"] = self._rid
+                kv_hint, prefill_only, kv_push_to = self._kv_headers()
+                if kv_hint is not None:
+                    kwargs["kv_hint"] = kv_hint
+                if prefill_only:
+                    # handoff phase 1 is never streamed (the decode replica
+                    # streams phase 2)
+                    kwargs["prefill_only"] = True
+                    meta["stream"] = False
+                    if kv_push_to:
+                        kwargs["kv_push_to"] = kv_push_to
+                if meta.get("echo_score"):
+                    # echo + logprobs + max_tokens=0 scores the prompt:
+                    # engine.score, which the port refuses by its ROADMAP.md
+                    # item ("Solo-engine features")
+                    try:
+                        result = engine.score(prompts[0],
+                                              top_n=meta.get("score_top_n", 0))
+                    except ValueError as e:
+                        raise oai.OpenAIError(str(e), param="echo") from None
+                    if result.get("status") != "success":
+                        raise oai.error_for_envelope(result)
+                    self._send(200, oai.echo_score_response(result, engine.cfg.name))
+                    return
+                if meta["stream"]:
+                    if len(prompts) != 1:
+                        raise oai.OpenAIError("streaming requires a single prompt",
+                                              param="stream")
+                    self._openai_stream(prompts[0], kwargs, chat=chat)
+                    return
+                n = meta.get("n", 1)
+                if n > 1:
+                    # n choices = one batch of the same prompt (categorical
+                    # draws are independent per row)
+                    prompts = prompts * n
+                if len(prompts) == 1:
+                    result = self._run_single(prompts[0], kwargs)
+                    if result.get("status") != "success":
+                        raise oai.error_for_envelope(result)
+                    entries = [result]
+                    envelope = result
+                else:
+                    if kwargs.get("logprobs"):
+                        raise oai.OpenAIError(
+                            "logprobs requires a single string prompt",
+                            param="logprobs")
+                    for k in ("kv_hint", "prefill_only", "kv_push_to"):
+                        kwargs.pop(k, None)  # the solo batch has no fabric
+                    batch = engine.generate_batch(prompts, **kwargs)
+                    if batch.get("status") != "success":
+                        raise oai.error_for_envelope(batch)
+                    entries = batch["results"]
+                    envelope = batch
+            except oai.OpenAIError as e:
+                self._send(e.status, e.body)
+                return
+            except (TypeError, ValueError) as e:
+                # any param-shape error that escaped the parsers is a 400
+                self._send(400, oai.OpenAIError(f"bad parameter: {e}").body)
+                return
+            build = oai.chat_response if chat else oai.completion_response
+            # the KV fabric's fields ride the OpenAI envelope as extension keys
+            kv_extra = {k: envelope[k] for k in ("kv_digests", "kv_fabric_blocks",
+                                                 "kv_promoted_blocks", "prefill_only",
+                                                 "kv_pushed") if k in envelope}
+            self._send(200, build(
+                entries, engine.cfg.name, kwargs, prompt_once=meta.get("n", 1) > 1,
+                request_id=envelope.get("request_id", self._rid),
+                timings=envelope.get("timings"), kv_extra=kv_extra or None,
+                trace_id=(self._trace_ctx.trace_id
+                          if self._trace_ctx is not None else None)))
+
         def do_POST(self):
             path = self.path.split("?")[0].rstrip("/")
             self._rid = (
@@ -487,13 +659,19 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 self._do_POST(path)
 
         def _do_POST(self, path: str):
-            if state.draining and path == "/generate":
+            if state.draining and path in ("/generate", "/v1/completions",
+                                           "/v1/chat/completions"):
                 self._send(
                     503,
                     {"error": "Error: server draining", "status": "failed",
                      "error_type": "draining"},
                     headers={"Retry-After": str(RETRY_AFTER_S)},
                 )
+                return
+            if path in ("/v1/completions", "/v1/chat/completions"):
+                data = self._read_json()
+                if data is not None:
+                    self._openai(path, data)
                 return
             if path == "/profiler/start":
                 data = self._read_json()
@@ -636,15 +814,22 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 if kv_push_to:
                     kwargs["kv_push_to"] = kv_push_to
             if not prefill_only and _parse_bool(data.get("stream", False), "stream"):
-                # the solo engine decodes a whole request per call: there
-                # is nothing to stream per token; the fleet's stream() is
-                # not ported yet
-                self._send(400, {
-                    "error": "streaming requires --continuous and a single 'prompt'"
-                    if continuous is None else
-                    "streaming from the continuous fleet is not ported yet "
-                    "(ROADMAP.md \"Solo-engine features\")",
-                })
+                # NDJSON: one {"delta": ...} line per fetched launch that
+                # adds text, then the envelope with "done": true. The solo
+                # engine decodes a whole request per call: nothing to stream
+                if continuous is None or prompts is not None:
+                    self._send(400, {"error": "streaming requires --continuous "
+                                     "and a single 'prompt'"})
+                    return None
+                kwargs["debug"] = _parse_bool(data.get("debug", False), "debug")
+                kwargs["speculative"] = _parse_bool(
+                    data.get("speculative", False), "speculative")
+                kwargs["logprobs"] = _parse_bool(data.get("logprobs", False), "logprobs")
+                self._stream_headers("application/x-ndjson")
+                self._stream_span(kwargs)
+                events = continuous.stream(prompt, trace_ctx=self._trace_ctx, **kwargs)
+                self._write_stream((json.dumps(ev).encode() + b"\n" for ev in events),
+                                   events)
                 return None
             if prompts is not None:
                 # batched form: "prompts": [...] -> one batch, N results
@@ -662,9 +847,7 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 data.get("speculative", False), "speculative"
             )
             kwargs["logprobs"] = _parse_bool(data.get("logprobs", False), "logprobs")
-            if continuous is not None:
-                return continuous.submit(prompt, trace_ctx=self._trace_ctx, **kwargs)
-            return engine.generate(prompt, **kwargs)
+            return self._run_single(prompt, kwargs)
 
     return Handler
 
@@ -752,6 +935,34 @@ class InferenceServer:
         self.httpd.server_close()
         if self.continuous is not None:
             self.continuous.close()
+
+
+def _parse_tenant_weights(specs) -> tuple:
+    """--tenant-weight NAME=W values as EngineConfig.tenant_weights, with
+    the JAX server's parse errors."""
+    out = []
+    for spec in specs or ():
+        name, sep, w = spec.partition("=")
+        if not sep or not name:
+            raise SystemExit(f"--tenant-weight {spec!r}: expected NAME=WEIGHT")
+        try:
+            out.append((name, float(w)))
+        except ValueError:
+            raise SystemExit(f"--tenant-weight {spec!r}: WEIGHT must be a number") from None
+    return tuple(out)
+
+
+def _wedge_reaper(engine, limit_s: float):
+    """--die-on-wedge: exit with code 17 once an abandoned deadline-overrun
+    call has been stuck longer than limit_s (a restart is the only real
+    recovery from a wedged device)."""
+    while True:
+        time.sleep(max(1.0, min(limit_s / 4, 10.0)))
+        age = engine.max_wedged_age()
+        if age is not None and age > limit_s:
+            print(f"wedged device call stuck {age:.0f}s > --die-on-wedge "
+                  f"{limit_s:g}s; exiting for a supervisor restart", flush=True)
+            os._exit(17)
 
 
 def main(argv: Optional[list] = None):
@@ -941,6 +1152,34 @@ def main(argv: Optional[list] = None):
              "at start)",
     )
     ap.add_argument(
+        "--tenant-weight", action="append", default=None, metavar="NAME=W",
+        help="per-tenant fairness weight on the continuous fleet "
+             "(repeatable): within each SLO class, queued tenants split the "
+             "class's token budget in proportion to their weights (unlisted "
+             "tenants weigh 1.0); requests carry their tenant in 'tenant'",
+    )
+    ap.add_argument(
+        "--tenant-queue-share", type=float, default=0.5, metavar="F",
+        help="per-tenant admission-queue quota as a fraction of the "
+             "continuous queue bound: one tenant's queued requests beyond "
+             "max(4, F * queue-bound) shed with 429 + Retry-After; 1.0 "
+             "disables the quota",
+    )
+    ap.add_argument(
+        "--die-on-wedge", type=float, default=None, metavar="SECONDS",
+        help="exit the process (code 17) once an abandoned deadline-overrun "
+             "device call has been stuck this long, for a supervisor restart; "
+             "/health reports \"degraded\" with the stuck age either way "
+             "(needs --deadline)",
+    )
+    ap.add_argument(
+        "--warmup", action="store_true",
+        help="before serving, run every solo prefill bucket and decode "
+             "shape once, then one request through the --continuous fleet "
+             "(its launch kinds' graph captures), so the first requests pay "
+             "no kernel load or capture; exits if either warmup fails",
+    )
+    ap.add_argument(
         "--faults", default=None, metavar="SPEC",
         help="arm the deterministic fault-injection harness "
              "(utils/faults.py), e.g. 'decode_launch:transient:on=3'; "
@@ -948,8 +1187,15 @@ def main(argv: Optional[list] = None):
              "Chaos drills only — never in front of real traffic",
     )
     args = ap.parse_args(argv)
+    if args.die_on_wedge and not args.deadline:
+        # checked before the model loads
+        raise SystemExit(
+            "--die-on-wedge needs --deadline: wedges are detected by "
+            "deadline-overrun calls that never drain"
+        )
     if args.kv_pool_blocks is not None and args.continuous <= 0:
         raise SystemExit("--kv-pool-blocks requires --continuous")
+    tenant_weights = _parse_tenant_weights(args.tenant_weight)
     from ..utils import faults as _faults
 
     if args.faults:
@@ -982,6 +1228,8 @@ def main(argv: Optional[list] = None):
             spec_decode=args.spec_decode,
             spec_draft_len=args.spec_draft_len,
             spec_draft_model=args.spec_draft_model,
+            tenant_weights=tenant_weights,
+            tenant_max_queue_share=args.tenant_queue_share,
         ),
         draft_model=args.draft_model,
         dtype=args.dtype,
@@ -992,6 +1240,19 @@ def main(argv: Optional[list] = None):
         seed=args.seed,
         device=args.device,
     )
+    if args.die_on_wedge:
+        threading.Thread(target=_wedge_reaper, args=(engine, args.die_on_wedge),
+                         daemon=True).start()
+    if args.warmup:
+        print("warming up (every solo prefill bucket and decode shape)...", flush=True)
+        try:
+            stats = engine.warmup()
+        except ValueError as e:
+            raise SystemExit(
+                f"--warmup failed: {e}\nfix the engine prefill_buckets so every "
+                f"bucket is servable, or start without --warmup"
+            ) from e
+        print(f"warm: {stats['programs']} shapes in {stats['seconds']}s", flush=True)
     continuous = None
     if args.continuous > 0:
         from ..engine.continuous import ContinuousEngine
@@ -1003,6 +1264,14 @@ def main(argv: Optional[list] = None):
             restart_budget=args.restart_budget, poison_strikes=args.poison_strikes,
             restore_dir=args.restore_dir,
         )
+        if args.warmup:
+            w = continuous.warmup()
+            if not w["ok"]:
+                raise SystemExit(
+                    f"--warmup failed on the continuous engine: {w}\n"
+                    f"fix the configuration or start without --warmup"
+                )
+            print(f"continuous warm in {w['seconds']}s", flush=True)
     InferenceServer(
         engine, args.host, args.port, args.max_tokens_cap,
         drain_deadline_s=args.drain_deadline,

@@ -332,6 +332,10 @@ def register_supervisor_metrics(registry: MetricsRegistry):
             "dli_drain_duration_seconds",
             "graceful-drain wall time (SIGTERM / drain())", ("component",),
         ),
+        cancelled=m.counter(
+            "dli_cancelled_total",
+            "requests cancelled before completion", ("cause",),
+        ),
         recovery_recomputed=m.counter(
             "dli_recovery_tokens_recomputed_total",
             "prompt tokens re-prefilled for crash-recovery re-admissions "
@@ -534,6 +538,7 @@ def register_fleet_metrics(registry: MetricsRegistry, n_slots: int):
         recovered=sup.recovered.labels(engine="continuous"),
         poison=sup.poison.labels(engine="continuous"),
         drain=sup.drain.labels(component="continuous"),
+        cancelled=sup.cancelled,
         recovery_recomputed=sup.recovery_recomputed.labels(engine="continuous"),
         # the block-prefix cache and the KV shadow
         shadow_restored=kv.shadow_restored.labels(),

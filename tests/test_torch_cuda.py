@@ -1567,3 +1567,77 @@ def test_spec_fleet_serves_through_one_graph_per_kind(card, mode):
     chunks = launches["decode_chunks"]
     assert g["decode_chunk"] == {"captures": min(1, chunks), "replays": max(0, chunks - 1)}
     assert g["mixed_launch"]["replays"] + g["mixed_spec"]["replays"] == launches["mixed"] - 2
+
+
+# -- token streaming and cancellation on the card (engine/continuous.py) -----------
+
+def _stream_fleets(card):
+    """(CPU fleet, card fleet) over the same fp32 weights."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+
+    cpu = create_engine("test-llama-tiny", seed=3, device="cpu")
+    moved = {k: ({n: t.to(card) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(card)) for k, v in cpu.backend.params.items()}
+    gpu = create_engine(cpu.cfg, params=moved, attn_impl="auto", device=card)
+    return [ContinuousEngine(e, n_slots=2, chunk_steps=4, kv_pool_blocks=40,
+                             slot_max_seq=128) for e in (cpu, gpu)]
+
+
+def test_stream_deltas_on_the_card_join_to_the_cpu_fleets_response(card):
+    """A streamed request on the card: the deltas join to its response,
+    its ids are the CPU fleet's, the kernels launched once per layer (and
+    step), and the streamed run replays the graphs the plain run captured."""
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+
+    prompt = "The quick brown fox jumps over it, twice."
+    cpu, gpu = _stream_fleets(card)
+    try:
+        want = cpu.submit(prompt, max_tokens=24, greedy=True, chat=False)["token_ids"]
+        plain = gpu.submit(prompt, max_tokens=24, greedy=True, chat=False)
+        before = gpu.stats()["launches"]
+        counts = (pa.ragged_paged_attend.launches, pa.paged_flash_attend.launches)
+        events = list(gpu.stream(prompt, max_tokens=24, greedy=True, chat=False))
+        after = gpu.stats()
+    finally:
+        cpu.close()
+        gpu.close()
+    *deltas, final = events
+    assert final["done"] is True and final["status"] == "success"
+    assert "".join(e["delta"] for e in deltas) == final["response"] == plain["response"]
+    assert final["token_ids"] == plain["token_ids"] == want
+    mixed = after["launches"]["mixed"] - before["mixed"]
+    chunks = after["launches"]["decode_chunks"] - before["decode_chunks"]
+    L = gpu.cfg.n_layers
+    assert [pa.ragged_paged_attend.launches - counts[0],
+            pa.paged_flash_attend.launches - counts[1]] == [L * mixed, L * 4 * chunks]
+    assert all(g["captures"] == 1 for g in after["graphs"].values())
+
+
+def test_mid_stream_cancel_on_the_card_frees_the_slot_for_the_next(card):
+    """Closing a stream after its first delta frees the slot and every
+    block within a scheduler step; the request admitted next gets its ids
+    of a run alone, and no launch kind is captured again."""
+    prompt, nxt = "a b c d e f", "The next request, alone."
+    cpu, gpu = _stream_fleets(card)
+    try:
+        want = cpu.submit(nxt, max_tokens=16, greedy=True, chat=False)["token_ids"]
+        gen = gpu.stream(prompt, max_tokens=100, greedy=True, chat=False)
+        assert "delta" in next(gen)
+        gen.close()
+        import time
+
+        t0 = time.time()
+        while gpu.stats()["occupied"]:
+            assert time.time() - t0 < 10, "the cancelled slot never freed"
+            time.sleep(0.001)
+        st = gpu.stats()
+        assert st["paged"]["free_blocks"] == 39
+        assert gpu.engine.metrics.get("dli_cancelled_total").labels(
+            cause="disconnect").value == 1
+        got = gpu.submit(nxt, max_tokens=16, greedy=True, chat=False)["token_ids"]
+        graphs = gpu.stats()["graphs"]
+    finally:
+        cpu.close()
+        gpu.close()
+    assert got == want
+    assert all(g["captures"] == 1 for g in graphs.values())

@@ -202,7 +202,8 @@ def test_poison_answers_500_as_in_jax(servers):
 
 def test_no_route_of_the_jax_server_answers_404(servers):
     """Every GET route of the JAX server's single-device fleet answers on
-    the port: served, or 501 naming the ROADMAP.md item that ports it."""
+    the port: served, or 501 naming the ROADMAP.md item that ports it
+    (only /debug/traces now); the OpenAI routes are served."""
     port = servers["port"][2]
     for path in ("/", "/health", "/ready", "/workers", "/stats", "/metrics",
                  "/debug/flight", "/v1/models", "/debug/traces"):
@@ -210,7 +211,15 @@ def test_no_route_of_the_jax_server_answers_404(servers):
         assert code != 404, (path, body)
         if code == 501:
             assert "ROADMAP.md" in json.loads(body)["error"], path
-    assert _post(port, "/v1/completions", {"prompt": "x"})[0] == 501
+    assert _get(port, "/v1/models")[0] == 200
+    assert _get(port, "/debug/traces")[0] == 501
+    for path in ("/v1/completions", "/v1/chat/completions"):
+        body = ({"prompt": "x", "max_tokens": 2} if path == "/v1/completions" else
+                {"messages": [{"role": "user", "content": "x"}], "max_tokens": 2})
+        # served: the JAX server's answer (the chat template's system turn
+        # alone overflows this fleet's slot: 400 from both)
+        code = _post(port, path, body)[0]
+        assert code == _post(servers["jax"][2], path, body)[0] not in (404, 501), path
     assert _get(port, "/no/such/route")[0] == 404
 
 

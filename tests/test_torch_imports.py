@@ -106,3 +106,36 @@ def test_not_ported_errors_name_roadmap_headings():
     numbered = re.compile(r"ROADMAP[^\n]{0,40}\bitem \d")
     for path in (ROOT / "distributed_llm_inference_tpu_torch").rglob("*.py"):
         assert not numbered.search(path.read_text()), path
+
+
+def test_named_headings_are_the_ones_roadmap_lists():
+    """The headings the port's not-ported errors name are exactly the ones
+    ROADMAP.md lists as named today: a message removed with the code it
+    refused leaves no heading behind that nothing names, and no message
+    names a heading the list dropped."""
+    import re
+
+    text = (ROOT / "ROADMAP.md").read_text()
+    m = re.search(r"The headings named today:(.*?)\.\n", text, re.S)
+    assert m, "ROADMAP.md lists no headings named today"
+    listed = set(re.findall(r'"([^"]+)"', re.sub(r"\s+", " ", m.group(1))))
+    named = set().union(*_roadmap_items().values())
+    assert named == listed, (sorted(named), sorted(listed))
+
+
+def test_not_ported_routes_are_routes_the_port_lacks():
+    """Every route the server answers 501 names a ROADMAP.md heading and is
+    not also served; the OpenAI routes left that list when they were
+    ported."""
+    import re
+
+    from distributed_llm_inference_tpu_torch.serving import server
+
+    headings = {line.lstrip("#").strip() for line in
+                (ROOT / "ROADMAP.md").read_text().splitlines() if line.startswith("#")}
+    for route, item in server._NOT_PORTED_ROUTES.items():
+        assert route not in server._KNOWN_ROUTES, route
+        assert set(re.findall(r'ROADMAP\.md "([^"]+)"', item)) <= headings, item
+    assert set(server._NOT_PORTED_ROUTES) == {"/debug/traces"}
+    assert {"/v1/models", "/v1/completions",
+            "/v1/chat/completions"} <= server._KNOWN_ROUTES
