@@ -230,9 +230,37 @@ settings):
       --spec-decode engine: answered in full, the tokens fetched before the
       eviction equal to an undisturbed run's.
 
+Run after (y), before (j), on (g)'s fleet (an engine of its own over the
+same weights, `--adapter-slots 4 --adapter-rank 8`, five PEFT adapters
+written under build/chip_smoke_z/ from seeds: ranks 4 and 8, one rsLoRA,
+one BF16 file, every projection):
+
+  (z) runtime LoRA adapters. (z1) (g)'s wave through the HTTP server with
+      6 of its 8 requests over the 5 adapters (the fifth joins when every
+      page is held: backpressure, then a swap): every envelope echoes its
+      adapter, loads / evictions / swaps 5 / 1 / 1, no page referenced and
+      every block back after it, ragged n_layers per mixed launch, paged
+      n_layers x 16 per decode chunk, each graph captured once; (z2) a
+      base request bit-identical to a fleet with no pool, an adapter
+      request against merge-at-load (create_engine(lora=...)); (z3)
+      scripted launches with rows on pages 0, 1 and 3 through the kernels
+      vs the plain path, the page-0 row bit-equal to a launch without
+      pages, the adapter rows moved past LOGITS_ATOL; the mixed launch and
+      the decode chunk captured on the base pages, adapters loaded in
+      place, replays bit-equal to eager under the sync check; (z4) their
+      profiled replays with no pool, a pool with base rows and rows on 4
+      adapters, pool_bytes and one page load's host ms; (z5) /v1/models,
+      an SSE chat on `model: <adapter>` equal to its unstreamed text, an
+      unknown model's 400, the server CLI with --lora and --adapter
+      serving, --adapter on the --lora directory refused at start; (z6) a
+      decode_launch crash with adapters resident (the tokens fetched
+      before it kept, no page loaded again), one adapter request under
+      --quant int4 --kv-quant int8 with q4_matmul_rows as in (k).
+
 `python3 chip_smoke.py --only s` runs (a), then (s), (t) and (u) alone on
 the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
-`--only w` runs (a), then (w) alone; `--only x` runs (a), then (x) alone.
+`--only w` runs (a), then (w) alone; `--only x` runs (a), then (x) alone;
+`--only y` runs (a), then (y) alone; `--only z` runs (a), then (z) alone.
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
@@ -1283,11 +1311,12 @@ def phase_g(torch, engine, pa, fa, Q, tag="(g)"):
                 chunks=chunks)
 
 
-def scripted_fleet_logits(torch, cfg, params, P, M):
+def scripted_fleet_logits(torch, cfg, params, P, M, pages=None):
     """Logits at every live token of three scripted mixed launches (two
     prompts landing, then their decode rows beside a third prompt's
     chunks) and of one decode step of the three rows, over a fresh pool
-    with shuffled tables."""
+    with shuffled tables, and the row of each. pages: the three rows'
+    adapter pages ([3] int32 on the card), or None."""
     g = torch.Generator(device=DEVICE).manual_seed(3)
     R = 3
     pool = P.init_pool(cfg, R * SLOT_MB + 1, BLOCK, device=DEVICE)
@@ -1299,7 +1328,7 @@ def scripted_fleet_logits(torch, cfg, params, P, M):
     launches = [[(0, 0, 100, pf), (1, 0, 20, pf)],
                 [(0, 100, 1, dec), (1, 20, 1, dec), (2, 0, 64, pf)],
                 [(0, 101, 1, dec), (1, 21, 1, dec), (2, 64, 50, pf)]]
-    out = []
+    out, rows = [], []
     with torch.no_grad():
         for entries in launches:
             meta, tok_row, tok_pos, _, _ = P.build_ragged_meta(
@@ -1311,16 +1340,19 @@ def scripted_fleet_logits(torch, cfg, params, P, M):
             x, pool = M.forward_layers(
                 cfg, params["layers"], x, pool, pos, attn_seq_len=1,
                 attn_hook=P.make_ragged_fill_hook(table, torch.from_numpy(meta).to(DEVICE),
-                                                  row))
+                                                  row),
+                lora_pages=P._token_pages(pages, row))
             out.append(M.unembed(cfg, params, x)[:, 0][row >= 0])
+            rows.append(row[row >= 0])
         pos = torch.tensor([102, 22, 114], dtype=torch.int32, device=DEVICE)
         toks = ids[torch.arange(R, device=DEVICE), pos.long()]
         x = M.embed(cfg, params, toks[:, None], pos)
         x, pool = M.forward_layers(cfg, params["layers"], x, pool, pos,
                                    attn_hook=P.make_paged_hook(table),
-                                   attn_seq_len=SLOT_MB * BLOCK)
+                                   attn_seq_len=SLOT_MB * BLOCK, lora_pages=pages)
         out.append(M.unembed(cfg, params, x)[:, 0])
-    return torch.cat(out)
+        rows.append(torch.arange(R, device=DEVICE))
+    return torch.cat(out), torch.cat(rows)
 
 
 def fleet_operands(torch, cfg, P, G):
@@ -1369,15 +1401,10 @@ def fleet_operands(torch, cfg, P, G):
     ), B - 1 + 56
 
 
-def phase_h(torch, engine, P, G, M, tag="(h)", atol=LOGITS_ATOL):
-    """Kernel path vs plain path over the pool, and the sync check (on a
-    quantized engine, phase (l): q4_matmul_rows runs on both paths)."""
-    cfg_k = engine.cfg
-    cfg_p = cfg_k.replace(attn_impl="plain")
-    params = engine.backend.params
-    out = {cfg.attn_impl: scripted_fleet_logits(torch, cfg, params, P, M)
-           for cfg in (cfg_k, cfg_p)}
-    k, p = out["kernel"], out["plain"]
+def check_kernel_vs_plain(torch, tag, k, p, atol):
+    """The scripted fleet logits through the kernels (k) against the plain
+    path's (p): within atol, and every greedy token the top-2 gap pins
+    equal. Returns the max abs error."""
     check(bool(torch.isfinite(k).all()) and k.shape == p.shape,
           "fleet kernel-path logits not finite or misshapen")
     err = (k - p).abs().max().item()
@@ -1391,6 +1418,18 @@ def phase_h(torch, engine, P, G, M, tag="(h)", atol=LOGITS_ATOL):
           f"the top-2 gap: {int(pinned.sum())}, of which differ: {int(differ.sum())}")
     check(err <= atol, "fleet kernel-path logits disagree with the plain path")
     check(not bool(differ.any()), "a pinned greedy token differs between the paths")
+    return err
+
+
+def phase_h(torch, engine, P, G, M, tag="(h)", atol=LOGITS_ATOL):
+    """Kernel path vs plain path over the pool, and the sync check (on a
+    quantized engine, phase (l): q4_matmul_rows runs on both paths)."""
+    cfg_k = engine.cfg
+    cfg_p = cfg_k.replace(attn_impl="plain")
+    params = engine.backend.params
+    out = {cfg.attn_impl: scripted_fleet_logits(torch, cfg, params, P, M)[0]
+           for cfg in (cfg_k, cfg_p)}
+    err = check_kernel_vs_plain(torch, tag, out["kernel"], out["plain"], atol)
 
     ops, _ = fleet_operands(torch, cfg_k, P, G)
     torch.cuda.synchronize()
@@ -2077,14 +2116,16 @@ def leaves(torch, tree):
             yield from leaves(torch, v)
 
 
-def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_deltas):
+def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_deltas,
+               eager=True):
     """One launch kind's graph `lg` over `bufs`: captured on its first
     call if it was not yet; two replays, each bit-equal to the eager body
     on a clone of the buffers with the same generator state (the pool
     outside its trash block, where colliding padding writes land in any
     order), each moving the kernel counters by the capture's deltas; then
     replay vs eager: host wall (5 / 2 runs), one profiled run of each, the
-    replay's CUDA-event span. Every run starts from the same state."""
+    replay's CUDA-event span (eager=False: the replay's only). Every run
+    starts from the same state."""
     start = clone_tree(torch, {k: bufs[k] for k in ("state", "sparams", "inputs")
                                if k in bufs})
 
@@ -2140,7 +2181,7 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
         return sum(out) / n
 
     replay_ms = walls(lg, 5)
-    eager_ms = walls(lambda: run(bufs, gen), 2)
+    eager_ms = walls(lambda: run(bufs, gen), 2) if eager else None
     restore()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -2152,7 +2193,7 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
     tokens = tokens_of(packed)
     row = dict(engine=tag, kind=name, replay_wall_ms=replay_ms, eager_wall_ms=eager_ms,
                replay_span_ms=span_ms, tokens=tokens, launches_per_replay=nonzero)
-    for label, fn in (("replay", lg), ("eager", lambda: run(bufs, gen))):
+    for label, fn in (("replay", lg), ("eager", lambda: run(bufs, gen)))[:2 if eager else 1]:
         restore()
         torch.cuda.synchronize()
         wall_us, busy_us, kern = profile_call(torch, fn)
@@ -2172,9 +2213,10 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
             row[label] = "not measured (the profiler recorded no device kernels)"
     print(f"{tag} {name}: 2 replays bit-equal to eager (packed, state, KV), launches per "
           f"replay {json.dumps(nonzero)}; host wall per launch replay={replay_ms:.3f} ms "
-          f"eager={eager_ms:.3f} ms ({eager_ms / replay_ms:.1f}x), replay CUDA-event span "
-          f"{span_ms:.3f} ms, {tokens} tokens{'; captured here' if captured_now else ''}")
-    for label in ("replay", "eager"):
+          + (f"eager={eager_ms:.3f} ms ({eager_ms / replay_ms:.1f}x), " if eager else "")
+          + f"replay CUDA-event span {span_ms:.3f} ms, {tokens} tokens"
+          f"{'; captured here' if captured_now else ''}")
+    for label in ("replay", "eager")[:2 if eager else 1]:
         r = row[label]
         if isinstance(r, dict):
             print(f"    profiled {label:6s}: wall_ms={r['wall_ms']:.3f} busy_ms={r['busy_ms']:.3f} "
@@ -4501,13 +4543,14 @@ Y_SERVER = ["--model", MODEL, "--dtype", "bfloat16", "--attn-impl", "auto", "--s
             "--warmup", "--tenant-weight", "a=3"]
 
 
-def y_engine(engine, **ecfg):
-    """(g)'s model and weights (other engine settings) with a tokenizer
-    whose decode spells every id. The byte tokenizer decodes only 256 of
-    tinyllama's 32000 ids to text, so random weights' output is nearly
-    empty text and a stream would carry almost no delta to time; the
-    prompts encode as before (the tests hold the byte tokenizer's UTF-8
-    hold-back on a model whose every id is a byte)."""
+def y_engine(engine, lora=None, cfg=None, **ecfg):
+    """(g)'s model and weights (other engine settings; `lora` merged at
+    load; `cfg` with other quantization) with a tokenizer whose decode
+    spells every id. The byte tokenizer decodes only 256 of tinyllama's
+    32000 ids to text, so random weights' output is nearly empty text and a
+    stream would carry almost no delta to time; the prompts encode as
+    before (the tests hold the byte tokenizer's UTF-8 hold-back on a model
+    whose every id is a byte)."""
     from distributed_llm_inference_tpu_torch.config import EngineConfig
     from distributed_llm_inference_tpu_torch.runtime import create_engine
     from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
@@ -4516,8 +4559,8 @@ def y_engine(engine, **ecfg):
         def decode(self, ids, skip_special_tokens=True):
             return " ".join(str(int(i)) for i in ids)
 
-    cfg = engine.cfg
-    return create_engine(cfg, params=engine.backend.params, device=DEVICE,
+    cfg = cfg or engine.cfg
+    return create_engine(cfg, params=engine.backend.params, device=DEVICE, lora=lora,
                          tokenizer=SpelledIds(cfg.pad_token_id, cfg.bos_token_id,
                                               cfg.eos_token_id),
                          engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS, **ecfg))
@@ -4914,13 +4957,484 @@ def phase_y(torch, engine, pa, fa, Q, P, G, smi):
     return y1["launches"]
 
 
+# -- runtime LoRA adapters on the paged fleet: phase (z) ----------------------------
+
+Z_DIR = "build/chip_smoke_z"  # the adapters' PEFT directories and (z5)'s logs (gitignored)
+Z_SLOTS, Z_RANK = 4, 8  # --adapter-slots 4 --adapter-rank 8
+# (name, rank, lora_alpha, rsLoRA, stored in BF16); each adapts all seven
+# projections with random A and B of standard deviation Z_STD from its
+# seed: a delta of some 20-40 % of a projection's output, which moves the
+# logits well past LOGITS_ATOL and leaves them finite (checked in (z3))
+Z_ADAPTERS = (("z-a1", 8, 16, False, False), ("z-a2", 4, 8, False, False),
+              ("z-a3", 8, 8, True, False), ("z-a4", 4, 8, False, True),
+              ("z-a5", 8, 16, False, False))
+Z_STD = 0.03
+# (z1)'s wave, (fleet body, adapter): 2 base requests and 6 over the 5
+# adapters. z-a5's request is sent once the other 7 hold their slots (and
+# z-a1..z-a4 the 4 pages): it waits for a page to free, then swaps it
+Z_WAVE = ((0, None), (1, "z-a2"), (2, "z-a3"), (3, None), (4, "z-a4"), (5, "z-a1"),
+          (6, "z-a1"), (7, "z-a5"))
+Z_CRASH_REQ = (200, 64)  # (z6)'s request under z-a1: (prompt tokens, new tokens)
+Z_CRASH_CALL = 6  # its decode_launch fault: the 4th decode chunk, mid-decode
+# (z5)'s server CLI: (g)'s fleet
+Z_SERVER = ["--model", MODEL, "--dtype", "bfloat16", "--attn-impl", "auto", "--seed", "0",
+            "--continuous", str(FLEET["n_slots"]), "--kv-pool-blocks",
+            str(FLEET["kv_pool_blocks"]), "--kv-block-size", str(BLOCK),
+            "--continuous-max-seq", str(FLEET["slot_max_seq"]), "--max-tokens-cap", "64"]
+
+
+def z_write_adapters(cfg) -> dict:
+    """Z_ADAPTERS as PEFT directories under Z_DIR (numpy only, seeds 1-5):
+    {name: directory}."""
+    import numpy as np
+
+    from distributed_llm_inference_tpu_torch.models.lora import write_peft_adapter
+
+    D, Dh, H, KV, F = cfg.dim, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_dim
+    dims = {"q_proj": (D, H * Dh), "k_proj": (D, KV * Dh), "v_proj": (D, KV * Dh),
+            "o_proj": (H * Dh, D), "gate_proj": (D, F), "up_proj": (D, F),
+            "down_proj": (F, D)}
+    dirs = {}
+    for seed, (name, r, alpha, rslora, bf16) in enumerate(Z_ADAPTERS, start=1):
+        rng = np.random.default_rng(seed)
+        f = {m: (rng.standard_normal((cfg.n_layers, r, i), dtype=np.float32) * Z_STD,
+                 rng.standard_normal((cfg.n_layers, o, r), dtype=np.float32) * Z_STD)
+             for m, (i, o) in dims.items()}
+        dirs[name] = write_peft_adapter(f"{Z_DIR}/{name}", f, r=r, lora_alpha=alpha,
+                                        use_rslora=rslora, bf16=bf16)
+    return dirs
+
+
+def phase_z1(torch, engine, pa, fa, Q, fleet, server, smi):
+    """(g)'s wave on the pool fleet, 6 of its 8 requests on adapters."""
+    import threading
+
+    port, pool, L = server.port, fleet.engine.adapters, engine.cfg.n_layers
+    bodies = fleet_bodies(range(len(FLEET_PROMPT_TOKENS)))
+    for i, ad in Z_WAVE:
+        if ad:
+            bodies[i]["adapter"] = ad
+    before = get(port, "/stats")[1]["continuous"]
+    p0 = pool.stats()
+    out = [None] * len(bodies)
+
+    def run(i):
+        try:
+            out[i] = post(port, bodies[i])
+        except Exception as e:  # noqa: BLE001 - checked below, on this thread
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    reset_counts(pa, fa, Q)  # the main path's run starts here
+    t0 = time.perf_counter()
+    for t in threads[:-1]:
+        t.start()
+    while True:  # the 7 hold their slots (and 4 pages) before z-a5 comes
+        st = fleet.stats()
+        if st["occupied"] + st["completed"] - before["completed"] >= len(bodies) - 1:
+            break
+        check(time.perf_counter() - t0 < 60, f"(z1) the first 7 were not admitted: {st}")
+        time.sleep(0.001)
+    held = pool.stats()
+    threads[-1].start()
+    for t in threads:
+        t.join()
+    wave_s = time.perf_counter() - t0
+    after = wait_idle(port)["continuous"]
+    launches = read_counts(pa, fa, Q)
+    ps = pool.stats()
+    mixed = after["launches"]["mixed"] - before["launches"]["mixed"]
+    chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+    for (i, ad), res in zip(Z_WAVE, out):
+        check(not isinstance(res, Exception), f"(z1) request {i}: {res!r}")
+        code, r, wall = res
+        print(f"(z1) request {i} ({'greedy' if i % 2 == 0 else 'sampled'}, "
+              f"{ad or 'base'}): HTTP {code} prompt_tokens={r.get('prompt_tokens')} "
+              f"tokens={r.get('tokens_generated')} ttft_s={r.get('ttft_s')} "
+              f"adapter={r.get('adapter')} wall_s={wall:.3f}")
+        check(code == 200 and r.get("status") == "success" and r.get("adapter") == ad,
+              f"(z1) request {i}: {r}")
+        check(r["prompt_tokens"] == FLEET_PROMPT_TOKENS[i]
+              and (r["tokens_generated"] == FLEET_NEW_TOKENS or r["finish_reason"] == "stop"),
+              f"(z1) request {i}: {r}")
+    moved = {k: ps[k] - p0[k] for k in ("loads", "evictions", "swaps")}
+    print(f"(z1) wave of 8 (2 base, 6 over 5 adapters on {Z_SLOTS} pages): {wave_s:.3f} s; "
+          f"pool when z-a5 was sent {json.dumps(held)}; loads/evictions/swaps "
+          f"{json.dumps(moved)}; pool after {json.dumps(ps)}; launches: {mixed} mixed, "
+          f"{chunks} decode chunks; kernel launches {json.dumps(launches)} ({smi})")
+    check(moved == {"loads": 5, "evictions": 1, "swaps": 1},
+          f"(z1) the schedule forces 5 loads, 1 eviction, 1 swap: {moved}")
+    check(ps["referenced"] == 0 and ps["free"] == Z_SLOTS, f"(z1) pages held after: {ps}")
+    check(after["paged"]["free_blocks"] == FLEET["kv_pool_blocks"] - 1,
+          "(z1) pool blocks leaked by the wave")
+    check(launches["ragged_paged_attend"] == L * mixed > 0,
+          f"(z1) ragged_paged_attend launched {launches['ragged_paged_attend']} times for "
+          f"{mixed} mixed launches of {L} layers")
+    check(launches["paged_flash_attend"] == L * FLEET["chunk_steps"] * chunks > 0,
+          f"(z1) paged_flash_attend launched {launches['paged_flash_attend']} times for "
+          f"{chunks} decode chunks")
+    others = [k for k in launches if k not in ("ragged_paged_attend", "paged_flash_attend")]
+    check(not any(launches[k] for k in others), f"(z1) another kernel ran: {launches}")
+    check_graphs("(z1)", after, {"mixed_launch": "mixed", "decode_chunk": "decode_chunks"})
+    return dict(launches=launches, mixed=mixed, chunks=chunks, wave_s=wave_s, pool=moved)
+
+
+def phase_z2(torch, engine, P, G, fleet, dirs, smi):
+    """Identity: a base request on the pool fleet against a fleet with no
+    pool (bit for bit); an adapter request against merge-at-load."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+
+    body = fleet_bodies([6])[0]  # 480 prompt tokens, greedy
+    prompt, kw = body.pop("prompt"), body
+    plain = ContinuousEngine(y_engine(engine), **FLEET)
+    merged_eng = y_engine(engine, lora=dirs["z-a1"])
+    merged = ContinuousEngine(merged_eng, **FLEET)
+    try:
+        base = fleet.submit(prompt, **kw)
+        want = plain.submit(prompt, **kw)
+        print(f"(z2) a base request alone on the pool fleet and on a fleet with no pool: "
+              f"{base['tokens_generated']} tokens, identical="
+              f"{base['token_ids'] == want['token_ids']}")
+        check(base["token_ids"] == want["token_ids"],
+              f"(z2) the base request differs from the no-pool fleet's at "
+              f"{parts_at(base['token_ids'], want['token_ids'])}")
+        got = fleet.submit(prompt, adapter="z-a1", **kw)
+        ref = merged.submit(prompt, **kw)
+        at = parts_at(got["token_ids"], ref["token_ids"])
+        gap = None
+        if at is not None:
+            ids = merged_eng.tokenizer.encode(prompt) + list(ref["token_ids"][:at])
+            gap = x_gap(torch, P, G, merged_eng, ids)
+            check(at >= 8 or gap <= 0.05, f"(z2) the adapter request parts from "
+                                          f"merge-at-load at token {at}, top-2 gap {gap:.4f}")
+        print(f"(z2) z-a1 alone through its pool page and merged at load "
+              f"(create_engine(lora=...)): {got['tokens_generated']} tokens, "
+              + ("identical" if at is None else
+                 f"part at token {at} where the merged model's top-2 gap is {gap:.4f}")
+              + f"; the adapter moved the stream from the base's: "
+              f"{got['token_ids'] != base['token_ids']} ({smi})")
+        check(got["token_ids"] != base["token_ids"], "(z2) z-a1 did not move the stream")
+    finally:
+        plain.close()
+        merged.close()
+    return dict(merged_ids=ref["token_ids"], parts_at=at, gap=gap)
+
+
+def phase_z3(torch, engine, P, G, M, dirs, smi):
+    """(z3) the kernels against the plain path with rows on pages 0, 1 and
+    3; the fleet's two launch kinds captured on the base pages, adapters
+    loaded in place, the replays bit-equal to eager; (z4) their profiled
+    replays with no pool, with a pool and base rows, and with rows on 4
+    adapters."""
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    eng = y_engine(engine, adapter_slots=Z_SLOTS, adapter_rank=Z_RANK)
+    pool = eng.adapters
+    for name, *_ in Z_ADAPTERS[:4]:
+        pool.register(name, dirs[name])
+    cfg, K, B = eng.cfg, FLEET["chunk_steps"], FLEET["n_slots"]
+    L = cfg.n_layers
+    want_m, want_c = {"ragged_paged_attend": L}, {"paged_flash_attend": L * K}
+    pages = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+
+    def kinds(be, pg):
+        ops, n_tok = fleet_operands(torch, cfg, P, G)
+        gen = ops["generator"]
+        bufs = dict(cache=ops["pool"], table=ops["table"], state=ops["state"],
+                    sparams=ops["sparams"],
+                    inputs=graphs.MixedInputs(ops["tokens"], ops["tok_row"], ops["tok_pos"],
+                                              ops["dec_flag"], ops["meta"], ops["dec_idx"],
+                                              ops["arm"], ops["dev"]))
+        if pg is not None:
+            bufs["pages"] = pg
+
+        def mixed(b, g):
+            return graphs.mixed_launch(be, b["inputs"], b["cache"], b["table"], b["state"],
+                                       b["sparams"], g, pages=b.get("pages"))
+
+        def chunk(b, g):
+            return graphs.decode_chunk(be, b["state"], b["sparams"], b["cache"], b["table"],
+                                       g, K, pages=b.get("pages"))
+
+        return dict(bufs=bufs, gen=gen, n_tok=n_tok, mixed=mixed, chunk=chunk,
+                    pre=clone_tree(torch, (bufs["state"], bufs["sparams"])),
+                    lg_m=graphs.LaunchGraph(lambda: mixed(bufs, gen), "mixed", DEVICE, gen),
+                    lg_c=graphs.LaunchGraph(lambda: chunk(bufs, gen), "chunk", DEVICE, gen))
+
+    def measure(k, label):
+        b, gen = k["bufs"], k["gen"]
+        graphs.commit((b["state"], b["sparams"]), k["pre"])
+        m = graph_kind(torch, graphs, "(z4)", f"mixed launch, {label}", k["lg_m"], k["mixed"],
+                       b, gen, lambda p: k["n_tok"], want_m, eager=False)
+        graphs.commit((b["state"], b["sparams"]), k["pre"])
+        k["mixed"](b, gen)  # arms the 8th slot: the chunk decodes 8 rows
+        c = graph_kind(torch, graphs, "(z4)", f"decode chunk of {K} steps, {label}",
+                       k["lg_c"], k["chunk"], b, gen, lambda p: int(p[K:2 * K].sum()), want_c,
+                       eager=False)
+        return {"mixed": m, "chunk": c}
+
+    rows = {}
+    nopool = kinds(engine.backend, None)
+    rows["no pool"] = measure(nopool, "no pool")
+    nopool["lg_m"].close()
+    nopool["lg_c"].close()
+    k = kinds(eng.backend, pages)
+    rows["pool, base rows"] = measure(k, "pool, every row on page 0")
+    # the adapters load into their pages IN PLACE after the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = pool.acquire(Z_ADAPTERS[0][0])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    land_ms = (time.perf_counter() - t0) * 1e3
+    page = {Z_ADAPTERS[0][0]: first}
+    for name, *_ in Z_ADAPTERS[1:4]:
+        page[name] = pool.acquire(name)
+    ids = [page[n] for n, *_ in Z_ADAPTERS[:4]]
+    pages.copy_(torch.tensor(ids + ids, dtype=torch.int32))
+    rows["pool, 4 adapters"] = measure(k, "pool, rows on 4 adapters (loaded after capture)")
+    check(k["lg_m"].captures == 1 and k["lg_c"].captures == 1,
+          "(z3) a launch kind was captured again after the pages loaded")
+    k["lg_m"].close()
+    k["lg_c"].close()
+    print(f"(z3) the mixed launch and the decode chunk captured on the base pages, 4 "
+          f"adapters then loaded in place: every replay bit-equal to eager under the sync "
+          f"check ({smi})")
+    print(f"(z4) pool_bytes={pool.pool_bytes} ({Z_SLOTS} pages + the base page, rank "
+          f"{Z_RANK}); one page load: host {host_ms:.3f} ms, landed {land_ms:.3f} ms "
+          f"({smi})")
+    summary = {}
+    for state, r in rows.items():
+        for kind, row in r.items():
+            rep = row["replay"]
+            if not isinstance(rep, dict):
+                summary[f"{kind}, {state}"] = rep
+                continue
+            summary[f"{kind}, {state}"] = {x: rep[x] for x in ("busy_ms", "idle_share",
+                                                                "kernels", "kernels_per_token")}
+            summary[f"{kind}, {state}"]["replay_span_ms"] = row["replay_span_ms"]
+    for name, v in summary.items():
+        print(f"(z4) {name}: {json.dumps(v)}")
+    # (z3) the kernels against the plain path with rows on pages 0, 1 and 3
+    pg = torch.tensor([0, page["z-a1"], page["z-a3"]], dtype=torch.int32, device=DEVICE)
+    kern, row = scripted_fleet_logits(torch, cfg, eng.backend.params, P, M, pages=pg)
+    plain, _ = scripted_fleet_logits(torch, cfg.replace(attn_impl="plain"),
+                                     eng.backend.params, P, M, pages=pg)
+    check_kernel_vs_plain(torch, "(z3) rows on pages 0, 1 and 3:", kern, plain, LOGITS_ATOL)
+    base, _ = scripted_fleet_logits(torch, cfg, eng.backend.params, P, M)
+    on = pg[row] > 0
+    moved = (kern[on] - base[on]).abs().max().item()
+    print(f"(z3) against the same launches with no pages: the page-0 row bit-equal="
+          f"{torch.equal(kern[~on], base[~on])}, the adapter rows' logits move by up to "
+          f"{moved:.3f} (LOGITS_ATOL {LOGITS_ATOL}), finite={bool(torch.isfinite(kern).all())}")
+    check(torch.equal(kern[~on], base[~on]), "(z3) the page-0 row differs from the base")
+    check(moved > LOGITS_ATOL and bool(torch.isfinite(kern).all()),
+          f"(z3) the adapters move the logits by {moved:.4f}")
+    for name in page:
+        pool.release(name)
+    return dict(rows=summary, pool_bytes=pool.pool_bytes, load_host_ms=host_ms,
+                load_landed_ms=land_ms, logits_moved=moved)
+
+
+def phase_z5(fleet, server, dirs, z2, smi):
+    """The OpenAI routes on the pool fleet, then the server CLI: --lora
+    serves, --adapter on the --lora directory is refused at start."""
+    port = server.port
+    code, models = get(port, "/v1/models")
+    names = {m["id"]: m.get("root") for m in models["data"]}
+    check(code == 200 and all(names.get(n) == MODEL for n, *_ in Z_ADAPTERS),
+          f"(z5) /v1/models: {models}")
+    body = {"messages": [{"role": "user", "content": "Tell me about the printing press."}],
+            "max_tokens": 32, "temperature": 0, "model": "z-a3"}
+    code, plain = y_post(port, "/v1/chat/completions", body)
+    check(code == 200 and plain["model"] == "z-a3", f"(z5) chat: {plain}")
+    want = plain["choices"][0]["message"]["content"]
+    code, ctype, evs, first, wall = y_stream(port, {**body, "stream": True},
+                                             path="/v1/chat/completions", sse=True)
+    text = "".join(y_text(e, True) for e in evs[:-1])
+    check(code == 200 and evs[-1] == "[DONE]" and text == want and want,
+          f"(z5) the SSE text differs from the unstreamed text: {text!r} {want!r}")
+    code, bad = y_post(port, "/v1/completions", {"model": "nope", "prompt": "x",
+                                                 "max_tokens": 4})
+    check(code == 400 and bad["error"]["param"] == "model", f"(z5) unknown model: {bad}")
+    print(f"(z5) /v1/models lists {sorted(names)}; /v1/chat/completions with model z-a3: "
+          f"SSE text ({len(evs) - 1} chunks, first at {first:.4f} s) equal to the "
+          f"unstreamed text; model 'nope' -> HTTP 400")
+    # the CLI: --lora z-a1 with two runtime adapters; --adapter on z-a1 refused
+    refused = subprocess.Popen(
+        [sys.executable, "-m", "distributed_llm_inference_tpu_torch.serving.server",
+         *Z_SERVER, "--lora", dirs["z-a1"], "--adapter-slots", "2", "--adapter",
+         f"dup={dirs['z-a1']}", "--host", "127.0.0.1", "--port", str(free_port())],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    srv = Holder("lora", extra=["--lora", dirs["z-a1"], "--adapter-slots", "2", "--adapter",
+                                f"z-a2={dirs['z-a2']}", "--adapter", f"z-a3={dirs['z-a3']}"],
+                 base=Z_SERVER, log_dir=Z_DIR)
+    try:
+        out, _ = refused.communicate(timeout=300)
+        check(refused.returncode not in (0, None) and "already merged" in out,
+              f"(z5) --adapter on the --lora directory was not refused: "
+              f"{refused.returncode} {out[-2000:]}")
+        body = fleet_bodies([6])[0]
+        code, r, wall = post(srv.port, body)
+        check(code == 200 and r.get("status") == "success", f"(z5) --lora request: {r}")
+        code, ra, _ = post(srv.port, {**body, "adapter": "z-a2"})
+        check(code == 200 and ra.get("adapter") == "z-a2", f"(z5) adapter request: {ra}")
+        code, models = get(srv.port, "/v1/models")
+        check(sorted(m["id"] for m in models["data"]) == sorted([MODEL, "z-a2", "z-a3"]),
+              f"(z5) the CLI's /v1/models: {models}")
+        code, bad = y_post(srv.port, "/v1/completions", {"model": "z-a1", "prompt": "x",
+                                                         "max_tokens": 4})
+        check(code == 400, f"(z5) the merged adapter's name as a model: {bad}")
+        print(f"(z5) the server CLI ({' '.join(Z_SERVER)} --lora z-a1 --adapter-slots 2 "
+              f"--adapter z-a2=... --adapter z-a3=...) up in {srv.start_s:.1f} s: a request "
+              f"{r['tokens_generated']} tokens (the in-process merged fleet's "
+              f"{'identical' if r['token_ids'] == z2['merged_ids'] else 'NOT identical'}), "
+              f"z-a2 echoed, /v1/models {[m['id'] for m in models['data']]}; "
+              f"--adapter dup=<the --lora dir> refused at start (rc {refused.returncode}: "
+              f"{[l for l in out.splitlines() if 'already merged' in l][-1][:160]}) ({smi})")
+    finally:
+        if refused.poll() is None:
+            refused.kill()
+            refused.wait(timeout=15)
+        srv.close()
+
+
+def phase_z6_crash(torch, engine, faults, fleet, server, smi):
+    """A decode_launch crash with adapters resident: the recovered request's
+    tokens fetched before the crash are its unfaulted run's, and the crash
+    loads no page again."""
+    port, pool = server.port, fleet.engine.adapters
+    body = {"prompt": fleet_prompt(9, Z_CRASH_REQ[0]), "max_tokens": Z_CRASH_REQ[1],
+            "greedy": True, "chat": False, "adapter": "z-a1"}
+    code, ref, _ = post(port, body)
+    check(code == 200, f"(z6) the unfaulted run: {ref}")
+    st0, p0 = wait_idle(port)["continuous"], pool.stats()
+    spy = FleetSpy(fleet)
+    faults.arm([faults.FaultRule("decode_launch", "transient", on_call=Z_CRASH_CALL)])
+    try:
+        code, r, wall = post(port, body)
+    finally:
+        faults.disarm()
+    st, ps = wait_idle(port)["continuous"], pool.stats()
+    restarts = st["supervisor"]["restarts"] - st0["supervisor"]["restarts"]
+    n_pre = spy.salvaged.get(body["prompt"], 0)
+    print(f"(z6) decode_launch crash (call {Z_CRASH_CALL}) under z-a1 with {ps['resident']} "
+          f"adapters resident: HTTP {code} tokens={r.get('tokens_generated')} "
+          f"recovered={r.get('recovered')} restarts +{restarts}; {n_pre} tokens fetched "
+          f"before it; loads {p0['loads']} -> {ps['loads']}; wall {wall:.3f} s ({smi})")
+    check(code == 200 and r.get("adapter") == "z-a1"
+          and r["tokens_generated"] == len(ref["token_ids"]), f"(z6) crash: {r}")
+    check(restarts == 1 and n_pre > 0, f"(z6) crash: {restarts} restarts, {n_pre} tokens "
+                                       f"fetched before it")
+    check(ps["loads"] == p0["loads"] and ps["referenced"] == 0,
+          f"(z6) the crash moved the pool: {p0} -> {ps}")
+    check(st["paged"]["free_blocks"] == FLEET["kv_pool_blocks"] - 1,
+          "(z6) crash: pool blocks leaked")
+    check(all(g["captures"] == 1 for g in st["graphs"].values()),
+          f"(z6) crash: graphs recaptured {st['graphs']}")
+    at = check_identity("(z6) crash", r["token_ids"], ref["token_ids"], n_pre)
+    return dict(tokens_before_crash=n_pre, parts_at=at)
+
+
+def phase_z6_quant(torch, engine, pa, fa, Q, dirs, smi):
+    """One adapter request under --quant int4 --kv-quant int8
+    --adapter-slots 2: q4_matmul_rows as in (k), under the dense delta."""
+    L, K = engine.cfg.n_layers, FLEET["chunk_steps"]
+    t0 = time.time()
+    qeng = y_engine(engine, cfg=engine.cfg.replace(quant="int4", kv_quant="int8"),
+                    adapter_slots=2, adapter_rank=Z_RANK)
+    qeng.adapters.register("z-a1", dirs["z-a1"])
+    fleet, server = fleet_server(qeng, FLEET)
+    try:
+        check(fleet.warmup()["ok"], "(z6) quantized fleet warmup")
+        build_s = time.time() - t0
+        before = get(server.port, "/stats")[1]["continuous"]
+        reset_counts(pa, fa, Q)
+        code, r, wall = post(server.port, {**fleet_bodies([4])[0], "adapter": "z-a1"})
+        after = wait_idle(server.port)["continuous"]
+        launches = read_counts(pa, fa, Q)
+        mixed = after["launches"]["mixed"] - before["launches"]["mixed"]
+        chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+        q4_want = (7 * L + 1) * K * chunks + 2 * mixed
+        print(f"(z6) --quant int4 --kv-quant int8 --adapter-slots 2 (built, quantized and "
+              f"warm in {build_s:.1f} s): z-a1 request HTTP {code} "
+              f"tokens={r.get('tokens_generated')} adapter={r.get('adapter')}; {mixed} mixed "
+              f"launches, {chunks} decode chunks; kernel launches {json.dumps(launches)} "
+              f"({smi})")
+        check(code == 200 and r.get("adapter") == "z-a1", f"(z6) quantized: {r}")
+        check(launches["q4_matmul_rows"] == q4_want > 0,
+              f"(z6) q4_matmul_rows launched {launches['q4_matmul_rows']} times, {q4_want} "
+              f"expected")
+        check(launches["ragged_paged_attend[int8]"] == L * mixed
+              and launches["paged_flash_attend[int8]"] == L * K * chunks,
+              f"(z6) the int8 paged kernels: {launches}")
+        check(after["paged"]["free_blocks"] == FLEET["kv_pool_blocks"] - 1
+              and after["adapters"]["referenced"] == 0, f"(z6) quantized: {after}")
+    finally:
+        server.shutdown()
+    return launches
+
+
+def phase_z(torch, engine, pa, fa, Q, P, G, M, faults, smi):
+    """Runtime LoRA adapters on (g)'s fleet: an engine of its own over the
+    same weights with a 4-page rank-8 pool and five adapters."""
+    import shutil
+
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    t0 = time.time()
+    shutil.rmtree(Z_DIR, ignore_errors=True)
+    dirs = z_write_adapters(engine.cfg)
+    eng = y_engine(engine, adapter_slots=Z_SLOTS, adapter_rank=Z_RANK)
+    t1 = time.time()
+    for name in dirs:
+        eng.adapters.register(name, dirs[name])
+    print(f"(z) {len(dirs)} PEFT adapters written in {t1 - t0:.1f} s (ranks 4 and 8, one "
+          f"rsLoRA, one BF16 file), registered in {time.time() - t1:.1f} s; pool "
+          f"{Z_SLOTS} pages of rank {Z_RANK}, {eng.adapters.pool_bytes} bytes")
+    fleet = ContinuousEngine(eng, **FLEET)
+    server = InferenceServer(eng, host="127.0.0.1", port=0, max_tokens_cap=1024,
+                             continuous=fleet)
+    server.start()
+    secs = {}
+
+    def timed(tag, fn, *a):
+        t = time.time()
+        out = fn(*a)
+        secs[tag] = round(time.time() - t, 1)
+        return out
+
+    try:
+        check(fleet.warmup()["ok"], "(z1) fleet warmup")
+        z1 = timed("z1", phase_z1, torch, engine, pa, fa, Q, fleet, server, smi)
+        z2 = timed("z2", phase_z2, torch, engine, P, G, fleet, dirs, smi)
+        z3 = timed("z3+z4", phase_z3, torch, engine, P, G, M, dirs, smi)
+        timed("z5", phase_z5, fleet, server, dirs, z2, smi)
+        z6 = timed("z6 crash", phase_z6_crash, torch, engine, faults, fleet, server, smi)
+    finally:
+        server.shutdown()
+    qlaunches = timed("z6 int4", phase_z6_quant, torch, engine, pa, fa, Q, dirs, smi)
+    for name, *_ in Z_ADAPTERS:
+        shutil.rmtree(f"{Z_DIR}/{name}", ignore_errors=True)
+    print(f"(z) took {time.time() - t0:.1f} s: {json.dumps(secs)}")
+    print("(z) " + json.dumps({"adapters": {
+        "launches": z1["launches"], "mixed": z1["mixed"], "decode_chunks": z1["chunks"],
+        "wave_s": z1["wave_s"], "pool": z1["pool"], "merge_identity": {
+            "parts_at": z2["parts_at"], "gap": z2["gap"]},
+        "cost": z3["rows"], "pool_bytes": z3["pool_bytes"],
+        "page_load_ms": {"host": z3["load_host_ms"], "landed": z3["load_landed_ms"]},
+        "crash": z6, "quantized_launches": qlaunches}}))
+    return {k: z1["launches"][k] + qlaunches[k] for k in z1["launches"]}
+
+
 def main(argv) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y"],
+    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -4935,7 +5449,8 @@ def main(argv) -> int:
                          "and the KV shadow; or (w) on the raw engine (w): the "
                          "cross-replica KV fabric; or (x) on the raw engine (x): "
                          "speculation on the mixed launch; or (y) on the raw engine "
-                         "(y): token streaming, cancellation and the OpenAI routes")
+                         "(y): token streaming, cancellation and the OpenAI routes; or "
+                         "(z) on the raw engine (z): runtime LoRA adapters")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -5006,7 +5521,7 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
-    if args.only not in ("s", "v", "w", "x", "y"):
+    if args.only not in ("s", "v", "w", "x", "y", "z"):
         # (b) the kernel against its twin
         phase_b(torch, timer, fa)
 
@@ -5048,6 +5563,12 @@ def main(argv) -> int:
               f"{time.time() - t0:.1f} s")
         phase_y(torch, engine, pa, fa, Q, P, G, smi)
         print(f"(y) total {time.time() - t_start:.1f} s")
+        return 0
+    if args.only == "z":
+        print(f"(z) {MODEL} bf16, random weights (seed 0), built in "
+              f"{time.time() - t0:.1f} s")
+        phase_z(torch, engine, pa, fa, Q, P, G, M, faults, smi)
+        print(f"(z) total {time.time() - t_start:.1f} s")
         return 0
     cfg = engine.cfg
     print(f"(c) {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
@@ -5139,6 +5660,11 @@ def main(argv) -> int:
     y_launches = phase_y(torch, engine, pa, fa, Q, P, G, smi)
     print(f"(y) total {time.time() - t_start:.1f} s")
 
+    # (z) runtime LoRA adapters on (g)'s fleet: the pool, its pages on every
+    # launch, merge-at-load
+    z_launches = phase_z(torch, engine, pa, fa, Q, P, G, M, faults, smi)
+    print(f"(z) total {time.time() - t_start:.1f} s")
+
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)
     phase_b(torch, timer, fa, int8=True)
@@ -5196,6 +5722,9 @@ def main(argv) -> int:
                    dense_launches["flash_attend_slots"]
                    + whole_launches["flash_attend_slots"]),
     ]}
+    # the adapter path's own counts: (z1)'s wave and (z6)'s quantized request
+    for entry in line["kernels"]:
+        entry["launches_z"] = z_launches[entry["name"]]
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

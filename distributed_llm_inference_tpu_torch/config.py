@@ -244,8 +244,19 @@ class EngineConfig:
     # tail. The solo engine's and the dense fleet's snapshot cache
     # (engine/prefix.py) is not ported: they refuse > 0 by name.
     prefix_cache_entries: int = 0
-    # Runtime LoRA adapter pages: not ported yet (the engine rejects > 0).
+    # Paged LoRA adapter serving (engine/adapters.py): number of device
+    # adapter pages the resident base model carries (0: no lora_* leaves
+    # are installed and every launch runs without the pages operand). Each
+    # page holds one adapter's stacked A/B factors for every projection at
+    # `adapter_rank`; page 0 is the all-zero BASE page (never written,
+    # never evicted). Pages are refcounted and LRU-evicted like KV blocks:
+    # admission acquires, completion releases, eviction only ever takes
+    # refcount-0 residents.
     adapter_slots: int = 0
+    # Uniform rank of every adapter page: adapters of lower rank are
+    # zero-padded to it (exact: padding adds nothing to the delta); a
+    # higher rank is rejected at registration.
+    adapter_rank: int = 8
     # Ragged paged ingest: the paged fleet prefills straight into the
     # block pool in flat-token launches (engine/paged.py). False: each
     # prompt is prefilled whole on a bucketed batch-1 scratch cache and
@@ -390,6 +401,14 @@ class EngineConfig:
             raise ValueError(
                 f"kv_health_digests must be >= 1, got "
                 f"{self.kv_health_digests}"
+            )
+        if self.adapter_slots < 0:
+            raise ValueError(
+                f"adapter_slots must be >= 0, got {self.adapter_slots}"
+            )
+        if self.adapter_slots and self.adapter_rank < 1:
+            raise ValueError(
+                f"adapter_rank must be >= 1, got {self.adapter_rank}"
             )
         if not (0.0 < self.tenant_max_queue_share <= 1.0):
             raise ValueError(

@@ -134,10 +134,21 @@ one, whose slot the worker kills and whose blocks it frees at the next
 launch boundary, as a deadline kill does; dli_cancelled_total{cause}
 counts them.
 
+Runtime LoRA adapters, as in the JAX package: on a ragged paged fleet
+over an engine with an adapter pool (engine/adapters.py), a request
+naming a registered `adapter` holds that adapter's pool page while it
+holds its slot (a pool with every page referenced backpressures the
+admission as an empty block pool does). Each slot's page rides every
+target launch as a static device operand (0 = the base page), so the
+mixed launch and the decode chunk stay one CUDA graph each for any
+adapter mix. Adapter KV is fenced from every token-keyed reuse surface
+but the block-prefix index, where it hangs under the adapter's own root:
+the shadow, the fabric and the digest export never see it, and a
+preempted adapter request always recomputes.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): adapters, grammar constraints in the fleet (they go to the solo
-engine, as in the JAX package), the dense fleet's prefix cache, and
-gpt2's fleet.
+item): grammar constraints in the fleet (they go to the solo engine, as
+in the JAX package), the dense fleet's prefix cache, and gpt2's fleet.
 """
 
 from __future__ import annotations
@@ -152,7 +163,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..models.llama import ADAPTERS, FAMILIES, _not_ported
+from ..models.llama import FAMILIES, _not_ported
 from ..ops.kv_quant import KVQuant
 from ..utils import faults
 from ..utils.logging import get_logger
@@ -198,12 +209,16 @@ class _Request:
         "shadow_depth", "resume_seq", "promoted_blocks", "kv_hint",
         "fabric_blocks", "trace_ctx", "spec_want", "spec_drafted",
         "spec_accepted", "spec_launches", "stream_q", "streamed_text",
-        "cancelled", "cancel_cause",
+        "cancelled", "cancel_cause", "adapter", "adapter_page",
     )
 
     def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None,
-                 kv_hint=None, trace_ctx=None, stream_q=None):
+                 kv_hint=None, trace_ctx=None, stream_q=None, adapter=None):
         self.prompt = prompt
+        # the registered runtime adapter it runs under (None: the base
+        # model), and the adapter-pool page it holds once admitted
+        self.adapter = adapter
+        self.adapter_page: Optional[int] = None
         self.slo = kwargs.pop("slo_class", None)
         # the tenant the request bills (None: anonymous): its prefill share
         # (engine_cfg.tenant_weights) and its queue quota
@@ -325,8 +340,6 @@ class ContinuousEngine:
                 f"got {self.preempt_policy!r}"
             )
         self.max_preemptions = max(0, int(ecfg.max_preemptions_per_req))
-        if ecfg.adapter_slots > 0:
-            raise _not_ported("adapter pages in the fleet", ADAPTERS)
         self.engine = engine
         self.cfg = cfg
         self.backend = engine.backend
@@ -377,6 +390,9 @@ class ContinuousEngine:
             self._table_dev = torch.zeros(self._table.shape, dtype=torch.int32,
                                           device=self.device)
             self._table_stale = True
+            # each slot's adapter-pool page (0 = the base page), set beside
+            # its table row at admission and zeroed at release
+            self._slot_pages = np.zeros((self.n_slots,), np.int32)
             self._ragged_width = -(-max(1, int(ecfg.ragged_width))
                                    // self._ragged_tile) * self._ragged_tile
         else:
@@ -384,6 +400,17 @@ class ContinuousEngine:
             self.cache = self.backend.init_cache(self.n_slots, self.slot_max_seq)
         self._chunked = bool(self._ragged and ecfg.chunked_prefill
                              and getattr(backend, "supports_mixed_step", False))
+        # the engine's adapter pool, honored only where every launch can
+        # carry the pages operand (the ragged paged fleet); every other
+        # fleet answers an adapter request with a 400 envelope. The pages
+        # are a static device input of the launches, copied in place from
+        # _slot_pages before a launch once they changed
+        self._adapters = (getattr(engine, "adapters", None)
+                          if self.paged and self._ragged else None)
+        self._pages_dev = (torch.zeros((self.n_slots,), dtype=torch.int32,
+                                       device=self.device)
+                           if self._adapters is not None else None)
+        self._pages_stale = False
         # block-level prefix sharing (engine/block_prefix.py): a hit MAPS
         # the cached physical blocks into the request's table
         self._bpx = (BlockPrefixIndex(self._alloc, self.kv_block_size,
@@ -725,16 +752,19 @@ class ContinuousEngine:
         kv_hint = kwargs.pop("kv_hint", None)
         kv_push_to = kwargs.pop("kv_push_to", None) or None
         trace_ctx = kwargs.pop("trace_ctx", None)
-        if kwargs.pop("adapter", None):
-            return self._adapter_refused()
+        adapter = kwargs.pop("adapter", None) or None
         tenant = kwargs.pop("tenant", None) or None
+        err = self._adapter_reject(adapter, kwargs)
+        if err is not None:
+            return err
         prefill_only = bool(kwargs.pop("prefill_only", False))
         if prefill_only:
             kwargs["max_tokens"] = 1
         if self._needs_solo(kwargs):
             return self.engine.generate(prompt, **kwargs)
         req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None),
-                       tenant=tenant, kv_hint=kv_hint, trace_ctx=trace_ctx)
+                       tenant=tenant, kv_hint=kv_hint, trace_ctx=trace_ctx,
+                       adapter=adapter)
         err = self._enqueue(req)
         if err is not None:
             return err
@@ -751,11 +781,28 @@ class ContinuousEngine:
                     req.result["kv_pushed"] = pushed
         return req.result
 
-    @staticmethod
-    def _adapter_refused() -> dict:
-        return {"error": "Error: adapter serving needs the fleet's adapter pool, "
-                "which is not ported yet", "status": "failed",
-                "error_type": "invalid_request"}
+    def _adapter_reject(self, adapter, kwargs) -> Optional[dict]:
+        """The 400 envelope of an adapter request this fleet cannot serve:
+        no pool (not a ragged paged fleet, or adapter_slots 0), an
+        unregistered name, or a solo-engine contract (the solo engine
+        serves only the base or merged model). None: servable."""
+        if adapter is None:
+            return None
+
+        def env(msg):
+            return {"error": f"Error: {msg}", "status": "failed",
+                    "error_type": "invalid_request", "adapter": adapter}
+
+        if self._adapters is None:
+            return env("adapter serving needs the ragged paged fleet with an "
+                       "attached adapter pool (engine_cfg.adapter_slots > 0)")
+        if not self._adapters.is_registered(adapter):
+            return env(f"unknown adapter {adapter!r}")
+        if self._needs_solo(kwargs):
+            return env("adapter requests cannot combine with solo-engine "
+                       "contracts (seed / debug / logprobs / logit_bias / "
+                       "beams / constraints)")
+        return None
 
     def stream(self, prompt: str, **kwargs):
         """Generator of one request's streaming events: `{"delta": str,
@@ -770,10 +817,12 @@ class ContinuousEngine:
 
         kv_hint = kwargs.pop("kv_hint", None)
         trace_ctx = kwargs.pop("trace_ctx", None)
-        if kwargs.pop("adapter", None):
-            yield {**self._adapter_refused(), "done": True}
-            return
+        adapter = kwargs.pop("adapter", None) or None
         tenant = kwargs.pop("tenant", None) or None
+        err = self._adapter_reject(adapter, kwargs)
+        if err is not None:
+            yield {**err, "done": True}
+            return
         if self._needs_solo(kwargs):
             out = self.engine.generate(prompt, **kwargs)
             out["done"] = True
@@ -782,7 +831,7 @@ class ContinuousEngine:
         q: queue.Queue = queue.Queue()
         req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None),
                        tenant=tenant, kv_hint=kv_hint, trace_ctx=trace_ctx,
-                       stream_q=q)
+                       stream_q=q, adapter=adapter)
         err = self._enqueue(req)
         if err is not None:  # yielded outside the fleet's lock
             yield {**err, "done": True}
@@ -1017,6 +1066,8 @@ class ContinuousEngine:
                          for g in self._graphs() if g in base or g.calls}
         if self._bpx is not None:
             out["prefix_cache"] = self._bpx.stats()
+        if self._adapters is not None:
+            out["adapters"] = self._adapters.stats()
         return out
 
     def _graphs(self) -> list:
@@ -1068,10 +1119,23 @@ class ContinuousEngine:
         return host.numpy()
 
     def _table_device(self):
+        """The static block table, and with an adapter pool the static
+        pages, refreshed in place on the launch stream once they changed
+        on the host."""
         if self._table_stale:
             self._upload_into((self._table_dev,), (self._table,))
             self._table_stale = False
+        if self._pages_stale:
+            self._upload_into((self._pages_dev,), (self._slot_pages,))
+            self._pages_stale = False
         return self._table_dev
+
+    def _set_slot_page(self, slot: int, page: Optional[int]):
+        """Slot `slot` decodes on adapter page `page` (None: the base page)
+        from the next launch on."""
+        if self.paged and self._slot_pages[slot] != (page or 0):
+            self._slot_pages[slot] = page or 0
+            self._pages_stale = self._adapters is not None
 
     # -- worker thread -------------------------------------------------------
     def _loop(self):
@@ -1132,12 +1196,22 @@ class ContinuousEngine:
             if self.paged and req.block_ids is not None:
                 self._alloc.decref(req.block_ids)
                 req.block_ids = None
+            req.adapter_page = None
+        if self._adapters is not None:
+            # the adapter pages' refcounts reset wholesale: every holder was
+            # detached above, and the pages' content survives the crash (the
+            # lora leaves live in the params, which the rebuild never
+            # touches), so a recovered request re-acquires a resident page
+            # and loads nothing
+            self._adapters.reset_refs()
         if self._bpx is not None:
             # cached chains point into the pool the rebuild zeroes
             self._bpx.clear()
         if self.paged:
             self._table[:] = 0
             self._table_stale = True
+            self._slot_pages[:] = 0
+            self._pages_stale = self._adapters is not None
             if self._alloc.outstanding:
                 # the explicit releases above must zero the books: a
                 # mismatch is an accounting bug, surfaced, then reset so
@@ -1165,6 +1239,10 @@ class ContinuousEngine:
             self._table[:] = 0
             self._table_dev.zero_()
             self._table_stale = False
+            self._slot_pages[:] = 0
+        if self._pages_dev is not None:
+            self._pages_dev.zero_()
+            self._pages_stale = False
         if self._chunked:
             graphs.commit(self._mixed_in, graphs.mixed_inputs(
                 self._sched_width, self._ragged_tile, self.n_slots,
@@ -1432,6 +1510,28 @@ class ContinuousEngine:
                 reason="cancelled" if req.cancelled else "deadline").inc()
             self._release(req)
 
+    # -- adapter pages (engine/adapters.py) ----------------------------------
+    def _acquire_adapter(self, req: _Request) -> bool:
+        """Pin req's adapter page (a refcount, and a device write on a
+        miss) for its whole slot tenure, FIRST in an admission, so every
+        unwind below it releases only what it took on top. False: every
+        page is referenced by other requests right now (backpressure, as
+        an empty block pool). A base request holds no page."""
+        if req.adapter is None or req.adapter_page is not None:
+            return True
+        page = self._adapters.acquire(req.adapter)
+        if page is None:
+            return False
+        req.adapter_page = page
+        return True
+
+    def _release_adapter(self, req: _Request):
+        """Drop req's page reference (idempotent). The page stays resident
+        at refcount 0, so the next request for the adapter loads nothing."""
+        if req.adapter_page is not None and self._adapters is not None:
+            self._adapters.release(req.adapter)
+        req.adapter_page = None
+
     def _start_jobs(self):
         """Move parked, then queued, requests into PrefillJobs while a slot
         and pool blocks are available (host-side only: tokenize, allocate
@@ -1562,6 +1662,8 @@ class ContinuousEngine:
         faults.check("admission", tag=req.prompt)
         if self._expired_in_queue(req):
             return None
+        if not self._acquire_adapter(req):
+            return _BLOCKED
         k = req.kwargs
         ids = self._admission_ids(req)
         prompt_len = len(ids)
@@ -1572,7 +1674,8 @@ class ContinuousEngine:
         # pool's becomes a deeper exact-depth hit below
         self._promote_local_chain(req, ids)
         p0, entry, plan = self.engine._prefix_plan(
-            self._bpx, ids, capacity=self.slot_max_seq, ragged=True)
+            self._bpx, ids, capacity=self.slot_max_seq, ragged=True,
+            adapter=req.adapter)
         if plan is None:
             raise ValueError(
                 f"prompt length {prompt_len} exceeds the slot capacity "
@@ -1591,6 +1694,7 @@ class ContinuousEngine:
         need_total = P.blocks_needed(prompt_len, max_tokens, self.kv_block_size)
         blk_ids = self._grant_blocks(req, need_total, p0, entry)
         if blk_ids is None:
+            self._release_adapter(req)
             return _BLOCKED
         table_row = np.zeros((self._max_blocks,), np.int32)
         table_row[:need_total] = req.block_ids
@@ -1604,6 +1708,7 @@ class ContinuousEngine:
                          presence_row, table_row, self._sched.classify(req.slo))
         self._table[slot] = table_row
         self._table_stale = True
+        self._set_slot_page(slot, req.adapter_page)
         self._host_pos[slot] = 0
         # a new tenant's stream predicts nothing of the last one's: its
         # adaptive-K acceptance starts afresh
@@ -1700,8 +1805,10 @@ class ContinuousEngine:
             swapped = self._shadow.flush(timeout_s=5.0)
         head = ([victim.first_id] if victim.first_id is not None
                 and victim.first_id not in self.cfg.all_stop_ids else [])
+        # an adapter victim always recomputes: its KV was never shadowed
         victim.resume_seq = (list(victim.ids) + head + victim.tokens
-                             if swapped and victim.ids is not None else None)
+                             if swapped and victim.ids is not None
+                             and victim.adapter is None else None)
         victim.preemptions += 1
         victim.preempted_at = time.time()
         self._mutation_seq += 1
@@ -1737,6 +1844,11 @@ class ContinuousEngine:
         bytes; the copy to the host starts behind it into pinned memory
         and lands on the copier thread: the scheduler never waits."""
         if self._shadow is None or req.block_ids is None or req.ids is None:
+            return
+        if req.adapter is not None:
+            # adapter KV never enters the shadow: the store (and the fabric
+            # it serves) keys chains by token content alone, and an
+            # adapter's KV differs from the base model's for the same tokens
             return
         bs = self.kv_block_size
         if written is None:
@@ -1984,7 +2096,9 @@ class ContinuousEngine:
         blocks this thread for at most kv_fabric_timeout_s. Nothing here
         fails the request."""
         hint, req.kv_hint = req.kv_hint, None
-        if hint is None or self._fabric is None:
+        if hint is None or self._fabric is None or req.adapter is not None:
+            # the fabric serves base-model chains keyed by token content
+            # alone: an adapter request never fetches one
             return
         peer = hint.get("peer") if isinstance(hint, dict) else None
         digest = hint.get("digest") if isinstance(hint, dict) else None
@@ -2133,8 +2247,8 @@ class ContinuousEngine:
         (disk hits promote host-ward, each chunk file content-verified)
         and scatter it in, so the plan sees a deeper hit. A corrupt chunk
         file rejects into a cold prefill; nothing here fails the
-        request."""
-        if self._shadow is None or self._bpx is None:
+        request. Adapter KV is fenced from every token-keyed tier."""
+        if self._shadow is None or self._bpx is None or req.adapter is not None:
             return
         bs = self.kv_block_size
         cap = max(0, (len(ids) - 1) // bs) * bs
@@ -2240,19 +2354,21 @@ class ContinuousEngine:
         return graphs.decode_chunk(
             self.backend, self.state, self.sparams, self.cache,
             self._table_dev if self.paged else None, self._gen, self.chunk_steps,
+            pages=self._pages_dev,
         )
 
     def _mixed_body(self):
         """The mixed launch over the static buffers (a LaunchGraph)."""
         return graphs.mixed_launch(self.backend, self._mixed_in, self.cache,
                                    self._table_dev, self.state, self.sparams,
-                                   self._gen)
+                                   self._gen, pages=self._pages_dev)
 
     def _spec_body(self):
         """The mixed launch with verify rows (a LaunchGraph)."""
         return graphs.mixed_spec_launch(
             self.backend, self._mixed_in, self._spec_in, self.cache,
-            self._table_dev, self.state, self.sparams, self._gen, self._draft_mode)
+            self._table_dev, self.state, self.sparams, self._gen, self._draft_mode,
+            pages=self._pages_dev)
 
     def _fill_body(self):
         """The mixed launch's tokens into the draft pool (a LaunchGraph)."""
@@ -2530,8 +2646,10 @@ class ContinuousEngine:
             self._host_pos[slot] = job.prompt_len
             if self._bpx is not None:
                 # the prompt's full blocks are complete and immutable once
-                # this launch lands; later reads serialize behind it
-                self._bpx.register(job.ids, job.prompt_len, req.block_ids)
+                # this launch lands; later reads serialize behind it. An
+                # adapter's chains hang under its own root
+                self._bpx.register(job.ids, job.prompt_len, req.block_ids,
+                                   adapter=req.adapter)
         if self._shadow is not None:
             # blocks this launch filled: the capture's gather runs behind it
             for job, _, _ in chunk_list:
@@ -2743,14 +2861,17 @@ class ContinuousEngine:
 
     def _admit_one(self, req: _Request, slot: int):
         """Prefill req's whole prompt (plus its salvaged continuation) past
-        any block-prefix hit and arm `slot` (the unconstrained, adapter-free
-        admission of the JAX package). Returns its first token ([1], on the
-        device), None when it failed fast (its result is set), or _BLOCKED
-        when the pool cannot take it now."""
+        any block-prefix hit and arm `slot` (the unconstrained admission of
+        the JAX package; an adapter request holds its page from here).
+        Returns its first token ([1], on the device), None when it failed
+        fast (its result is set), or _BLOCKED when the pool (or the adapter
+        pool) cannot take it now."""
         eng, cfg = self.engine, self.cfg
         faults.check("admission", tag=req.prompt)
         if self._expired_in_queue(req):
             return None
+        if not self._acquire_adapter(req):
+            return _BLOCKED
         k = req.kwargs
         ids = self._admission_ids(req)
         prompt_len = len(ids)
@@ -2761,7 +2882,7 @@ class ContinuousEngine:
         # the ragged ingest reuses the deepest chain at EXACT depth; the
         # bucketed fallback degrades it to a depth its tail bucket fits
         p0, entry, plan = eng._prefix_plan(self._bpx, ids, capacity=self.slot_max_seq,
-                                           ragged=self._ragged)
+                                           ragged=self._ragged, adapter=req.adapter)
         if plan is None:
             raise ValueError(
                 f"prompt length {prompt_len} exceeds the slot capacity "
@@ -2773,6 +2894,7 @@ class ContinuousEngine:
             faults.check("alloc", tag=req.prompt)
             need_total = P.blocks_needed(prompt_len, max_tokens, self.kv_block_size)
             if self._grant_blocks(req, need_total, p0, entry) is None:
+                self._release_adapter(req)
                 return _BLOCKED
             table_row = np.zeros((self._max_blocks,), np.int32)
             table_row[:need_total] = req.block_ids  # the tail stays at the trash block
@@ -2799,7 +2921,8 @@ class ContinuousEngine:
                 # a hit's mapped head is attended in place, through the table
                 if p0:
                     self._m.ragged_exact.inc()
-                first = self._ragged_ingest(ids, p0, table_row, sampling, presence)
+                first = self._ragged_ingest(ids, p0, table_row, sampling, presence,
+                                            page=req.adapter_page)
                 req.prefill_chunks = -(-(prompt_len - p0) // self._ragged_width)
             elif self.paged:
                 # the scratch is written in place and scattered below: a
@@ -2842,18 +2965,21 @@ class ContinuousEngine:
                 # the admission died after its block grant: give them back
                 self._alloc.decref(req.block_ids)
                 req.block_ids = None
+            self._release_adapter(req)  # and the adapter page
             raise
         if self.paged:
             self._table[slot] = table_row
             self._table_stale = True  # copied in before the next launch
+            self._set_slot_page(slot, req.adapter_page)
         # the host position model of a slot armed here (whole-prefill
         # admission, and the chunked fleet's recovery re-admissions)
         self._host_pos[slot] = prompt_len
         self._sched.spec_reset(slot)
         if self._bpx is not None:
             # index the prompt's full blocks (complete and immutable once
-            # the ingest lands; decode and tail writes land past them)
-            self._bpx.register(ids, prompt_len, req.block_ids)
+            # the ingest lands; decode and tail writes land past them),
+            # an adapter's under its own root
+            self._bpx.register(ids, prompt_len, req.block_ids, adapter=req.adapter)
         req.ids = ids
         req.shadow_depth = 0
         if self._shadow is not None:
@@ -2880,20 +3006,23 @@ class ContinuousEngine:
             stats["tiles"] - stats["pad_tiles"])
         return self._upload(toks, tok_row, tok_pos, meta)
 
-    def _ragged_ingest(self, ids, p0, table_row, sampling, presence):
+    def _ragged_ingest(self, ids, p0, table_row, sampling, presence, page=None):
         """Prefill ids[p0:] straight into the pool: whole-width extend
         launches for the body of the tail, then ONE width-padded prefill
         launch that samples the first token off the last prompt token, all
         over the one-row table [1, MB] of this admission (a hit's mapped
-        head is attended in place through it). Returns the first token
-        [1]."""
+        head is attended in place through it). `page`: the admission's
+        adapter page, the [1] pages operand of every target launch (the
+        draft model's stay base-only). Returns the first token [1]."""
         be, W = self.backend, self._ragged_width
         tail = ids[p0:]
         n_full = max(0, (len(tail) - 1) // W)  # leaves >= 1 sampling token
         (table1,) = self._upload(table_row[None, :])
+        pages1 = (self._upload(np.asarray([page or 0], np.int32))[0]
+                  if self._adapters is not None else None)
         for c in range(n_full):  # the pool is written in place
             args = self._ragged_launch_args(tail[c * W:(c + 1) * W], p0 + c * W)
-            be.extend_ragged_paged(*args, self.cache, table1)
+            be.extend_ragged_paged(*args, self.cache, table1, pages=pages1)
             self._draft_extend(args, table1)
             self._m.ragged_launches.labels(phase="extend").inc()
         rem = tail[n_full * W:]
@@ -2901,7 +3030,7 @@ class ContinuousEngine:
         self._draft_extend(args, table1)
         first, _, _ = be.prefill_ragged_paged(
             *args, self.cache, table1, len(rem) - 1, self._gen, sampling,
-            presence=presence)
+            presence=presence, pages=pages1)
         self._m.ragged_launches.labels(phase="prefill").inc()
         return first
 
@@ -3040,6 +3169,8 @@ class ContinuousEngine:
         }
         if req.slo is not None:
             req.result["slo_class"] = req.slo
+        if req.adapter is not None:
+            req.result["adapter"] = req.adapter
         if req.tenant is not None:
             req.result["tenant"] = req.tenant
         if req.salvaged:
@@ -3063,10 +3194,11 @@ class ContinuousEngine:
         if req.promoted_blocks:
             # prefix blocks promoted out of the shadow's host or disk tier
             req.result["kv_promoted_blocks"] = req.promoted_blocks
-        if self.fabric_serving and req.ids is not None:
+        if self.fabric_serving and req.ids is not None and req.adapter is None:
             # the prompt chain's parent-chained digests (deepest last): a
             # router learns residency from them, and a handoff's phase-2
-            # hint carries the deepest
+            # hint carries the deepest. An adapter request exports none: its
+            # KV was never shadowed
             ds = chunk_digests(req.ids, self.kv_block_size,
                                max_chunks=len(req.ids) // self.kv_block_size)
             if ds:
@@ -3093,6 +3225,11 @@ class ContinuousEngine:
             if req.slot is not None:
                 self._table[req.slot] = 0
                 self._table_stale = True
+        if req.slot is not None:
+            # the slot reverts to the base page: a frozen row that later
+            # launches carry reads the all-zero page
+            self._set_slot_page(req.slot, None)
+        self._release_adapter(req)
         with self._cv:
             if req.slot is not None and self._assignment[req.slot] is req:
                 self._assignment[req.slot] = None

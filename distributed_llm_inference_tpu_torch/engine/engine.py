@@ -14,11 +14,14 @@ fleet (engine/continuous.py) drives it with its block-prefix index
 `set_draft` attaches the draft model of the continuous fleet's
 draft-model speculation (engine/continuous.py).
 
+The runtime adapter pool (engine/adapters.py, `self.adapters`) rides the
+continuous paged fleet; the backend writes its pages in place
+(`write_adapter_page`).
+
 Not ported yet: the solo engine's speculative decoding, beam search, its own
-prefix cache (engine/prefix.py's snapshots), grammar constraints,
-runtime adapters and scoring. A request or config asking for one gets a
-ValueError naming it (an `invalid_request` envelope, HTTP 400 at the
-server).
+prefix cache (engine/prefix.py's snapshots), grammar constraints and
+scoring. A request or config asking for one gets a ValueError naming it
+(an `invalid_request` envelope, HTTP 400 at the server).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import threading
 import time
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..config import EngineConfig, ModelConfig
@@ -37,6 +41,7 @@ from ..utils.metrics import (
     DEFAULT_SIZE_BUCKETS,
     MetricsRegistry,
     percentile,
+    register_adapter_metrics,
     register_kv_cache_metrics,
     register_spec_metrics,
     register_supervisor_metrics,
@@ -181,6 +186,25 @@ class SingleDeviceBackend:
             spec=spec, spec_toks=spec_toks, dev=dev, pages=pages,
         )
 
+    def write_adapter_page(self, page: int, updates: dict):
+        """Write one adapter into page `page` of the paged lora leaves
+        (engine/adapters.py), IN PLACE: updates = {base leaf: (a [L, in,
+        r], b [L, r, out]) float32 host arrays}, cast to the model dtype on
+        the host. A new tensor would leave every captured CUDA graph
+        reading the old leaf. On the card each copy goes up through pinned
+        memory on the current stream, the one the fleet's worker launches
+        on, so it lands after every launch already in flight and before
+        the first launch that reads the page."""
+        layers = self.params["layers"]
+        cuda = self.device.type == "cuda"
+        for leaf, (a, b) in updates.items():
+            for suffix, val in (("a", a), ("b", b)):
+                dst = layers[f"lora_{leaf}_{suffix}"]
+                src = torch.from_numpy(np.ascontiguousarray(val, np.float32)).to(dst.dtype)
+                if cuda:
+                    src = src.pin_memory()
+                dst[:, page].copy_(src, non_blocking=cuda)
+
 
 class InferenceEngine:
     def __init__(
@@ -193,11 +217,6 @@ class InferenceEngine:
         seed: int = 0,
         device="cuda",
     ):
-        if engine_cfg.adapter_slots > 0:
-            raise ValueError(
-                "runtime adapters (adapter_slots > 0) are not ported to the "
-                "PyTorch engine yet (ROADMAP.md \"Adapters\")"
-            )
         if backend is None:
             if params is None:
                 gen = torch.Generator(device=device).manual_seed(seed)
@@ -211,7 +230,10 @@ class InferenceEngine:
             None, pad_id=cfg.pad_token_id, bos_id=cfg.bos_token_id,
             eos_id=cfg.eos_token_id,
         )
-        self.adapters = None  # the server's `adapter` field checks this
+        # the paged runtime LoRA pool (engine/adapters.AdapterPool), wired
+        # by runtime.create_engine (EngineConfig.adapter_slots > 0) or
+        # adapters.attach_adapter_pool; None: base-only serving
+        self.adapters = None
         self._lock = threading.Lock()
         # per-request seeds for requests that bring none
         self._seed_gen = torch.Generator().manual_seed(seed)
@@ -257,6 +279,7 @@ class InferenceEngine:
         register_supervisor_metrics(self.metrics)
         register_kv_cache_metrics(self.metrics)
         register_spec_metrics(self.metrics)
+        register_adapter_metrics(self.metrics)
         # control-plane events (admissions, preemptions, crashes,
         # quarantines, restarts): the continuous supervisor dumps the
         # ring into its crash report; GET /debug/flight serves it

@@ -24,6 +24,12 @@ back into them in place (`commit`) and returns one packed int32 result.
 A capture that fails raises GraphCaptureError with its cause: a CUDA fleet
 never carries on with eager launches.
 
+A fleet with an adapter pool (engine/adapters.py) hands its target
+launch kinds a static `pages` [n_slots] int32 input, copied in place from
+the host before each launch like the block table; the lora leaves the
+graphs read are written in place on a page load. A fleet without a pool
+passes pages=None and captures exactly the graphs it did before.
+
 The static output is overwritten by the next replay, so a caller copies it
 to the host on the same stream before it launches again (the fleet's
 `_to_host`); every copy into a static input goes on that stream too, so a
@@ -188,13 +194,16 @@ def mixed_inputs(width: int, tile: int, n_slots: int, vocab_size: int,
 
 
 def decode_chunk(backend, state: G.SlotState, sparams: G.SlotParams, cache,
-                 table: Optional[torch.Tensor], generator, num_steps: int):
+                 table: Optional[torch.Tensor], generator, num_steps: int,
+                 pages: Optional[torch.Tensor] = None):
     """One decode chunk of the fleet over its static buffers: the paged
-    decode (block table `table`) or, with no table, the dense one. The
-    state is written back in place; returns the packed [2K+1, B]."""
+    decode (block table `table`, adapter `pages` per slot or None) or,
+    with no table, the dense one. The state is written back in place;
+    returns the packed [2K+1, B]."""
     if table is not None:
         emitted, mask, new, _ = backend.decode_slots_paged(
-            state, cache, table, generator, sparams, num_steps=num_steps)
+            state, cache, table, generator, sparams, num_steps=num_steps,
+            pages=pages)
     else:
         emitted, mask, new, _ = backend.decode_slots(
             state, cache, generator, sparams, num_steps=num_steps)
@@ -203,13 +212,15 @@ def decode_chunk(backend, state: G.SlotState, sparams: G.SlotParams, cache,
 
 
 def mixed_launch(backend, inputs: MixedInputs, cache, table: torch.Tensor,
-                 state: G.SlotState, sparams: G.SlotParams, generator):
-    """One mixed launch of the fleet over its static buffers. The state
-    and knobs are written back in place; returns the packed [5, B]."""
+                 state: G.SlotState, sparams: G.SlotParams, generator,
+                 pages: Optional[torch.Tensor] = None):
+    """One mixed launch of the fleet over its static buffers (adapter
+    `pages` per slot or None). The state and knobs are written back in
+    place; returns the packed [5, B]."""
     i = inputs
     packed, new_state, new_sparams, _ = backend.mixed_step_ragged(
         i.tokens, i.tok_row, i.tok_pos, i.dec_flag, i.meta, cache, table,
-        state, sparams, generator, i.dec_idx, i.arm, dev=i.dev,
+        state, sparams, generator, i.dec_idx, i.arm, dev=i.dev, pages=pages,
     )
     commit(state, new_state)
     commit(sparams, new_sparams)
@@ -238,15 +249,17 @@ def spec_inputs(n_slots: int, draft_len: int, device=None) -> SpecInputs:
 
 def mixed_spec_launch(backend, inputs: MixedInputs, spec: SpecInputs, cache,
                       table: torch.Tensor, state: G.SlotState,
-                      sparams: G.SlotParams, generator, draft_toks: bool):
+                      sparams: G.SlotParams, generator, draft_toks: bool,
+                      pages: Optional[torch.Tensor] = None):
     """One mixed launch with verify rows over the static buffers (the
-    proposals scattered in when `draft_toks`). The state and knobs are
-    written back in place; returns the packed [5 + 2(K+1) + 1, B]."""
+    proposals scattered in when `draft_toks`; adapter `pages` per slot or
+    None). The state and knobs are written back in place; returns the
+    packed [5 + 2(K+1) + 1, B]."""
     i = inputs
     packed, new_state, new_sparams, _ = backend.mixed_step_ragged(
         i.tokens, i.tok_row, i.tok_pos, i.dec_flag, i.meta, cache, table,
         state, sparams, generator, i.dec_idx, i.arm, spec=spec.plan,
-        spec_toks=spec.toks if draft_toks else None, dev=i.dev,
+        spec_toks=spec.toks if draft_toks else None, dev=i.dev, pages=pages,
     )
     commit(state, new_state)
     commit(sparams, new_sparams)

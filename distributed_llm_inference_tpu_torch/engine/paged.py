@@ -65,8 +65,10 @@ pool shares the target's block tables, `mixed_fill_draft` lands each
 mixed launch's tokens in it and `draft_propose_paged` runs its greedy
 chain of K+1 decode steps, argmax on the device, nothing read back.
 
-Not ported yet (raises, naming its ROADMAP.md item): adapter pages
-(`pages`).
+Runtime LoRA adapters (engine/adapters.py) ride every target launch as
+a `pages` operand: one adapter-pool page per fleet row (0 = the base
+page), each flat token of a ragged launch on its row's page
+(`_token_pages`). The draft model's launches stay base-only.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models import api as M
-from ..models.llama import ADAPTERS, _not_ported, kernel_window
+from ..models.llama import kernel_window
 from ..ops.kv_quant import KVQuant, init_quant_cache, quantize_chunk
 from ..ops.paged_attention import (  # the RAGGED_* kinds: re-exported
     RAGGED_DECODE,
@@ -272,14 +274,16 @@ def make_paged_hook(table: torch.Tensor):
     return hook
 
 
-def _forward_step_paged(cfg, params, tokens, pool, table, pos):
-    """One decode step through the stack over the paged pool."""
+def _forward_step_paged(cfg, params, tokens, pool, table, pos, pages=None):
+    """One decode step through the stack over the paged pool. pages:
+    optional [B] int32 adapter-pool page per row (0 = base)."""
     bs = pool["k"].shape[3]
     MB = table.shape[1]
     x = M.embed(cfg, params, tokens, pos)
     x, pool = M.forward_layers(
         cfg, params["layers"], x, pool, pos,
         attn_hook=make_paged_hook(table), attn_seq_len=MB * bs,
+        lora_pages=pages,
     )
     logits = M.unembed(cfg, params, x[:, -1:, :])
     return logits[:, 0, :], pool
@@ -290,15 +294,14 @@ def decode_slots_paged(cfg: ModelConfig, params, state: G.SlotState, pool,
                        table: torch.Tensor, generator, sparams: G.SlotParams,
                        *, num_steps: int, pages=None):
     """Advance every slot num_steps tokens over the block pool (the JAX
-    scan becomes a Python loop). Inactive rows ride along, masked.
-    Returns (emitted [num_steps, B] int32, emit_mask [num_steps, B] bool,
-    state, pool)."""
-    if pages is not None:
-        raise _not_ported("adapter pages on the paged fleet", ADAPTERS)
+    scan becomes a Python loop). Inactive rows ride along, masked. pages:
+    optional [B] int32 per-slot adapter pages (0 = base), a device operand
+    like the table. Returns (emitted [num_steps, B] int32, emit_mask
+    [num_steps, B] bool, state, pool)."""
     emitted, masks = [], []
     for _ in range(num_steps):
         logits, pool = _forward_step_paged(
-            cfg, params, state.token[:, None], pool, table, state.pos,
+            cfg, params, state.token[:, None], pool, table, state.pos, pages,
         )
         state, emit, can_emit = G.slot_step(cfg, state, sparams, logits,
                                             generator)
@@ -396,12 +399,25 @@ def make_ragged_fill_hook(table, meta, tok_row):
     return hook
 
 
-def _ragged_forward(cfg, params, tokens, tok_row, tok_pos, meta, pool, table):
-    """One ragged launch of the flat tokens [W] through the stack."""
+def _token_pages(pages, tok_row):
+    """Per-flat-token adapter pages from a per-row page vector: token w
+    rides pages[tok_row[w]]; launch padding (row -1) rides the base page
+    (0). None passes through: a launch without a pages operand is the
+    program without adapters."""
+    if pages is None:
+        return None
+    return torch.where(tok_row >= 0, pages[tok_row.clamp(min=0).long()], 0)
+
+
+def _ragged_forward(cfg, params, tokens, tok_row, tok_pos, meta, pool, table,
+                    pages=None):
+    """One ragged launch of the flat tokens [W] through the stack; pages:
+    optional [R] int32 adapter page per table row."""
     x = M.embed(cfg, params, tokens[:, None].long(), tok_pos)
     return M.forward_layers(
         cfg, params["layers"], x, pool, tok_pos,
         attn_hook=make_ragged_fill_hook(table, meta, tok_row), attn_seq_len=1,
+        lora_pages=_token_pages(pages, tok_row),
     )
 
 
@@ -410,12 +426,10 @@ def extend_ragged_paged(cfg: ModelConfig, params, tokens, tok_row, tok_pos,
                         meta, pool, table, pages=None):
     """One full ragged launch with no sampling (the chunked extend() over
     the pool): tokens / tok_row / tok_pos [W], meta [G, 4] from
-    build_ragged_meta, table [R, MB]. The pool is written in place and
-    returned."""
-    if pages is not None:
-        raise _not_ported("adapter pages on the paged fleet", ADAPTERS)
+    build_ragged_meta, table [R, MB], pages: optional [R] int32 adapter
+    page per table row. The pool is written in place and returned."""
     _, pool = _ragged_forward(cfg, params, tokens, tok_row, tok_pos, meta,
-                              pool, table)
+                              pool, table, pages)
     return pool
 
 
@@ -425,12 +439,10 @@ def prefill_ragged_paged(cfg: ModelConfig, params, tokens, tok_row, tok_pos,
                          sampling, presence=None, bias=None, pages=None):
     """The final ragged launch of a whole-prefill admission: run the tail
     chunk, unembed flat position `sample_at` (its last valid token) and
-    sample the first token. Returns (first [1], logits [1, V], pool), the
-    generate.prefill contract."""
-    if pages is not None:
-        raise _not_ported("adapter pages on the paged fleet", ADAPTERS)
+    sample the first token (pages: as in extend_ragged_paged). Returns
+    (first [1], logits [1, V], pool), the generate.prefill contract."""
     x, pool = _ragged_forward(cfg, params, tokens, tok_row, tok_pos, meta,
-                              pool, table)
+                              pool, table, pages)
     logits = M.unembed(cfg, params, x[sample_at:sample_at + 1])[:, 0, :]
     first = sample_token(generator, logits, *sampling, presence=presence,
                          bias=bias)
@@ -777,12 +789,13 @@ def mixed_step_ragged(cfg: ModelConfig, params, tokens, tok_row, tok_pos,
     (spec_verify) and the emissions extend the packed fetch. spec_toks
     ([B, K] i32, optional): a draft model's proposals, scattered into each
     verify row's draft slots (n-gram drafts arrive in `tokens` instead).
+    pages ([B] i32, optional): per-slot adapter-pool pages (engine/
+    adapters.py, 0 = base); every flat token rides its row's page, verify
+    rows included.
 
     Returns (packed int32 — [5, B] plain, [5 + 2(K+1) + 1, B] with spec:
     emitted / emit_mask / active / firsts / armed [/ spec_emit / spec_mask
     / position advance], ONE fetch per step — state, sparams, pool)."""
-    if pages is not None:
-        raise _not_ported("adapter pages on the paged fleet", ADAPTERS)
     if dev is not None:
         meta, tok_pos = apply_device_meta(meta, tok_row, tok_pos, dev, state.pos)
     rows_ix = tok_row.clamp(min=0).long()
@@ -799,7 +812,8 @@ def mixed_step_ragged(cfg: ModelConfig, params, tokens, tok_row, tok_pos,
         ext[tgt] = spec_toks.reshape(-1).to(ext.dtype)
         toks = ext[:W]
     pos = torch.where(dec_flag, state.pos[rows_ix], tok_pos)
-    x, pool = _ragged_forward(cfg, params, toks, tok_row, pos, meta, pool, table)
+    x, pool = _ragged_forward(cfg, params, toks, tok_row, pos, meta, pool, table,
+                              pages)
     logits = M.unembed(cfg, params, x[dec_idx.long()])[:, 0, :]  # [B, V]
     pf_logits = M.unembed(cfg, params, x[arm.idx.long()])[:, 0, :]
     sp_logits = sp_draft = None

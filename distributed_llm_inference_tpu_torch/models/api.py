@@ -38,13 +38,13 @@ def embed(cfg, params, tokens, pos=0):
 
 
 def forward_layers(cfg, layers, x, cache, pos, valid_start=None,
-                   attn_hook=None, attn_seq_len=None):
+                   attn_hook=None, attn_seq_len=None, lora_pages=None):
     """pos: an int, or an int32 [B] tensor of per-row positions (slots
-    mode); attn_hook / attn_seq_len: the paged hooks of engine/paged.py
-    (see llama.forward_layers)."""
+    mode); attn_hook / attn_seq_len: the paged hooks of engine/paged.py;
+    lora_pages: [B] int32 adapter-pool pages (see llama.forward_layers)."""
     return family(cfg).forward_layers(
         cfg, layers, x, cache, pos, valid_start=valid_start,
-        attn_hook=attn_hook, attn_seq_len=attn_seq_len,
+        attn_hook=attn_hook, attn_seq_len=attn_seq_len, lora_pages=lora_pages,
     )
 
 

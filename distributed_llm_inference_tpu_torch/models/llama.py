@@ -22,11 +22,13 @@ V = vocab):
 The projections and the untied LM head may be quantized (ops/quant.py:
 QTensor int8 or Q4Tensor int4 leaves, sliced per layer like the dense
 ones) and go through ops/quant.matmul; the KV cache may be int8
-(ops/kv_quant.KVQuant leaves, cfg.kv_quant="int8").
+(ops/kv_quant.KVQuant leaves, cfg.kv_quant="int8"). With the adapter
+pool's paged lora_{leaf}_{a,b} leaves [L, P, in, r] / [L, P, r, out]
+(engine/adapters.py, always dense) and per-row `lora_pages`, every
+projection adds its row's low-rank delta.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: the MoE FFN, paged LoRA deltas, tensor-parallel psums and pipeline
-update gates.
+item: the MoE FFN, tensor-parallel psums and pipeline update gates.
 """
 
 from __future__ import annotations
@@ -61,7 +63,6 @@ KVCache = dict  # {"k": [L, B, KV, S, Dh], "v": [L, B, KV, S, Dh]}
 # ROADMAP.md items (headings there) that port what this module rejects
 FAMILIES = "Other families and loading"
 SPMD = "Multi-GPU SPMD"
-ADAPTERS = "Adapters"
 
 
 def _not_ported(what: str, item: str):
@@ -248,13 +249,20 @@ def decoder_layer(
     (Qwen3/Gemma-3) or over the projection (OLMo-2), pre/post norms
     (Gemma-2 sandwich, OLMo-2 post-only), unit-offset norms, softcaps,
     static or per-layer windows, dual RoPE tables, Granite multipliers.
+
+    lora_pages: optional [B] integer adapter-pool page ids (engine/
+    adapters.AdapterPool), a device tensor, so one launch (and one CUDA
+    graph) serves any adapter mix. When lp carries the paged
+    lora_{leaf}_{a,b} leaves, every projection adds its row's low-rank
+    delta (x @ a[page]) @ b[page]. Page 0 is the base page: its rows
+    SELECT the undisturbed base product (torch.where, never + 0.0, which
+    would turn a -0.0 into +0.0), bit-identical to the program without
+    adapters.
     """
     if tp_axis is not None:
         raise _not_ported("tensor parallelism (parallel/partition.py)", SPMD)
     if ep_axis is not None or cfg.n_experts:
         raise _not_ported("the MoE FFN (models/llama.moe_ffn)", FAMILIES)
-    if lora_pages is not None:
-        raise _not_ported("paged LoRA adapters (engine/adapters.py)", ADAPTERS)
     B, T, D = x.shape
     Dh = cfg.head_dim
     H = lp["wq"].shape[-1] // Dh
@@ -267,9 +275,22 @@ def decoder_layer(
         mask_full, mask_win = mask
         mask = torch.where(lp["window_flag"] > 0, mask_win, mask_full)
 
+    on_page = None if lora_pages is None else (lora_pages > 0)[:, None, None]
+
+    def lmm(hh, leaf):
+        # mm: a dense leaf or a QTensor / Q4Tensor alike; the paged LoRA
+        # delta rides on top where the leaves are installed
+        out = mm(hh, lp[leaf])
+        a = lp.get(f"lora_{leaf}_a")
+        if on_page is None or a is None:
+            return out
+        u = torch.bmm(hh, a[lora_pages])  # [B, T, r]
+        d = torch.bmm(u, lp[f"lora_{leaf}_b"][lora_pages])  # [B, T, out]
+        return torch.where(on_page, out + d.to(out.dtype), out)
+
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps, unit_offset=uo) \
         if cfg.pre_norms else x
-    q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
+    q, k, v = lmm(h, "wq"), lmm(h, "wk"), lmm(h, "wv")
     if cfg.attn_qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     if cfg.use_qk_norm and cfg.qk_norm_dim == "proj":
@@ -295,7 +316,7 @@ def decoder_layer(
         cfg, q, k, v, cache_k, cache_v, pos, mask, None, valid_start,
         lp.get("window_flag"),
     )
-    attn_out = mm(attn.reshape(B, T, H * Dh), lp["wo"])
+    attn_out = lmm(attn.reshape(B, T, H * Dh), "wo")
     if cfg.post_norms:
         attn_out = rms_norm(attn_out, lp["attn_post_norm"], cfg.norm_eps, unit_offset=uo)
     if cfg.residual_multiplier is not None:  # Granite
@@ -305,8 +326,8 @@ def decoder_layer(
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps, unit_offset=uo) \
         if cfg.pre_norms else x
     act = F.silu if cfg.act == "silu" else _gelu_tanh
-    gate = act(mm(h, lp["w_gate"]).float()).to(h.dtype)
-    mlp_out = mm(gate * mm(h, lp["w_up"]), lp["w_down"])
+    gate = act(lmm(h, "w_gate").float()).to(h.dtype)
+    mlp_out = lmm(gate * lmm(h, "w_up"), "w_down")
     if cfg.post_norms:
         mlp_out = rms_norm(mlp_out, lp["mlp_post_norm"], cfg.norm_eps, unit_offset=uo)
     if cfg.residual_multiplier is not None:  # Granite
@@ -372,6 +393,9 @@ def forward_layers(
             return causal_mask(pos, T, S, window, device=device)
         return ragged_causal_mask(pos, T, S, valid_start, window)
 
+    if lora_pages is not None:
+        # one index conversion per launch step: int64 gathers in every layer
+        lora_pages = lora_pages.long()
     if cfg.attn_impl == "kernel" and T > 1 and attn_hook is None and not slots:
         mask = None  # the kernel derives its mask from pos / valid_start / window
     elif slots and attn_hook is not None:

@@ -4,9 +4,11 @@ The counterpart of the JAX package's runtime.create_engine for the single
 device. It runs on the card unless the caller asks for the CPU
 (device="cpu", as the tests do); with no CUDA device it raises rather
 than fall back. Weights are quantized here when the config asks for it,
-as in the JAX package. Pipeline, tensor, sequence and data parallelism,
-microbatching, the solo engine's draft model and LoRA merges are not
-ported yet and raise (the fleet's draft model is EngineConfig's
+as in the JAX package, after a LoRA adapter is merged into them (`lora`,
+merge-at-load) and before the runtime adapter pool's leaves are
+installed (EngineConfig.adapter_slots > 0). Pipeline, tensor, sequence
+and data parallelism, microbatching and the solo engine's draft model are
+not ported yet and raise (the fleet's draft model is EngineConfig's
 spec_draft_model).
 """
 
@@ -17,8 +19,10 @@ from typing import Any, Optional
 import torch
 
 from .config import EngineConfig, MeshConfig, ModelConfig, resolve_attn_impl
+from .engine.adapters import AdapterPool, install_adapter_leaves
 from .engine.engine import InferenceEngine, SingleDeviceBackend
 from .models import api as M
+from .models.lora import merge_lora
 from .models.registry import get_model_config
 from .ops.quant import quantize_params
 
@@ -57,7 +61,11 @@ def create_engine(
     after they are made or handed over (leaves already quantized stay as
     they are); kv_quant="int8" gives the engine an int8 KV cache.
     attn_impl: "plain" | "kernel" | "auto" (the kernel on a CUDA device)
-    | None (the config's own)."""
+    | None (the config's own). lora: a PEFT adapter directory merged into
+    the weights before quantization. engine_cfg.adapter_slots > 0 installs
+    the paged runtime LoRA leaves (engine/adapters.py) after quantization
+    and hangs an AdapterPool off engine.adapters; its merged_source is
+    `lora`, so the merged adapter cannot also be registered."""
     if not mesh_cfg.is_trivial or microbatches > 1:
         raise NotImplementedError(
             f"pp/tp/sp/dp/ep meshes and microbatching are not ported to "
@@ -69,11 +77,6 @@ def create_engine(
             "the solo engine's two-model speculation (draft_model) is not "
             "ported to PyTorch yet (ROADMAP.md \"Solo-engine features\"); "
             "the continuous fleet drafts with EngineConfig.spec_draft_model"
-        )
-    if lora is not None:
-        raise NotImplementedError(
-            "LoRA merges are not ported to PyTorch yet (ROADMAP.md "
-            "\"Adapters\")"
         )
     device = resolve_device(device)
     cfg = get_model_config(model) if isinstance(model, str) else model
@@ -89,9 +92,19 @@ def create_engine(
             cfg, torch.Generator(device=device).manual_seed(seed)
         )
     M.family(cfg).check_supported(cfg)
+    if lora is not None:
+        # merge BEFORE quantization: the delta lands in the dense weights
+        params = merge_lora(cfg, params, lora)
     if cfg.quant is not None:
         params = quantize_params(cfg, params)
-    return InferenceEngine(
-        cfg, backend=SingleDeviceBackend(cfg, params, device),
-        tokenizer=tokenizer, engine_cfg=engine_cfg, seed=seed,
-    )
+    slots, rank = engine_cfg.adapter_slots, engine_cfg.adapter_rank
+    if slots:
+        # AFTER quantization: the paged lora leaves stay dense
+        params = install_adapter_leaves(cfg, params, slots, rank)
+    backend = SingleDeviceBackend(cfg, params, device)
+    engine = InferenceEngine(cfg, backend=backend, tokenizer=tokenizer,
+                             engine_cfg=engine_cfg, seed=seed)
+    if slots:
+        engine.adapters = AdapterPool(cfg, backend, slots, rank,
+                                      registry=engine.metrics, merged_source=lora)
+    return engine

@@ -32,8 +32,14 @@ then the envelope with `"done": true`); a client that goes away mid-stream
 cancels its request, which frees its slot and blocks at the next launch
 boundary. The OpenAI routes (serving/openai_api.py): `GET /v1/models`,
 `POST /v1/completions` and `/v1/chat/completions`, unstreamed or as SSE
-(real deltas on `--continuous`, one emulated chunk otherwise). The queue
-(`--queue`) and the trace store (`/debug/traces`) arrive with later slices.
+(real deltas on `--continuous`, one emulated chunk otherwise). Runtime
+LoRA adapters (engine/adapters.py): `--adapter-slots S` reserves S pool
+pages beside the base weights on the paged fleet, `--adapter NAME=DIR`
+registers a PEFT directory at start, and a request picks one by
+`"adapter"` on `/generate` or `"model"` on the OpenAI routes (an unknown
+name is a 400; `/v1/models` lists them); `--lora DIR` merges one adapter
+into the weights at load instead. The queue (`--queue`) and the trace
+store (`/debug/traces`) arrive with later slices.
 
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --attn-impl auto
@@ -61,6 +67,11 @@ boundary. The OpenAI routes (serving/openai_api.py): `GET /v1/models`,
         --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
         --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
         --continuous-max-seq 1024 --warmup --tenant-weight a=3
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
+        --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
+        --continuous-max-seq 1024 --adapter-slots 4 --adapter-rank 8 \\
+        --adapter tuned=adapters/tuned --adapter chat=adapters/chat
 """
 
 from __future__ import annotations
@@ -274,6 +285,10 @@ def make_handler(engine, max_tokens_cap: int, state=None,
     profiler = profiler or _Profiler()
     started_at = int(time.time())
     slo_classes = {c[0] for c in engine.engine_cfg.slo_classes}
+    # the runtime LoRA pool (engine/adapters.py), if configured: requests
+    # pick a registered adapter by name (`adapter` on /generate, `model` on
+    # the OpenAI routes); an unknown name is a 400 here, before admission
+    adapters = getattr(engine, "adapters", None)
     http_requests = engine.metrics.counter(
         "dli_http_requests_total", "HTTP responses",
         ("route", "method", "status"),
@@ -379,8 +394,9 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 results["detail"] = stages
                 self._send(200, results)
             elif path == "/v1/models":
-                # no adapter pool in the port ("Adapters"): the base model only
-                self._send(200, oai.models_response(engine.cfg.name, started_at))
+                self._send(200, oai.models_response(
+                    engine.cfg.name, started_at,
+                    adapters=adapters.names() if adapters else ()))
             elif path == "/debug/flight":
                 # the ring the fleet's supervisor dumps on a crash
                 self._send(200, engine.flight.dump())
@@ -564,8 +580,19 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                     raise oai.OpenAIError(
                         f"unknown slo_class {kwargs['slo_class']!r}; "
                         f"configured: {sorted(slo_classes)}", param="slo_class")
-                # no adapter pool ("Adapters"): `model` stays informational,
-                # as in the JAX server without one
+                req_model = data.get("model")
+                if (adapters is not None and isinstance(req_model, str) and req_model
+                        and req_model != engine.cfg.name):
+                    # `model` names a registered runtime adapter (the base
+                    # model's own name keeps meaning the base). With a pool,
+                    # an unknown id is the caller's error, never a silent
+                    # base fallback; without one `model` stays informational
+                    if not adapters.is_registered(req_model):
+                        raise oai.OpenAIError(
+                            f"model {req_model!r} is neither the base model "
+                            f"{engine.cfg.name!r} nor a registered adapter; "
+                            f"see GET /v1/models", param="model")
+                    kwargs["adapter"] = req_model
                 hdr_dl = self.headers.get("X-Request-Deadline-Ms")
                 if hdr_dl is not None:
                     # a router's relay of the remaining budget wins
@@ -638,8 +665,11 @@ def make_handler(engine, max_tokens_cap: int, state=None,
             kv_extra = {k: envelope[k] for k in ("kv_digests", "kv_fabric_blocks",
                                                  "kv_promoted_blocks", "prefill_only",
                                                  "kv_pushed") if k in envelope}
+            # an adapter-resolved request echoes the adapter id as its model
+            # (the vLLM convention): the id the client asked for
             self._send(200, build(
-                entries, engine.cfg.name, kwargs, prompt_once=meta.get("n", 1) > 1,
+                entries, kwargs.get("adapter") or engine.cfg.name, kwargs,
+                prompt_once=meta.get("n", 1) > 1,
                 request_id=envelope.get("request_id", self._rid),
                 timings=envelope.get("timings"), kv_extra=kv_extra or None,
                 trace_id=(self._trace_ctx.trace_id
@@ -769,12 +799,22 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 kwargs["tenant"] = raw_tenant
             raw_adapter = data.get("adapter")
             if raw_adapter is not None and raw_adapter != engine.cfg.name:
+                # the request's rows ride the named adapter's pool page; the
+                # base model's own name means no adapter, so a caller may
+                # pass its model id unconditionally
                 if not isinstance(raw_adapter, str):
                     raise ValueError("adapter must be a string")
-                raise ValueError(
-                    "adapter serving is not configured: start with "
-                    "--adapter-slots (and --continuous + --kv-pool-blocks)"
-                )
+                if adapters is None:
+                    raise ValueError(
+                        "adapter serving is not configured: start with "
+                        "--adapter-slots (and --continuous + --kv-pool-blocks)"
+                    )
+                if not adapters.is_registered(raw_adapter):
+                    raise ValueError(
+                        f"unknown adapter {raw_adapter!r}; registered: "
+                        f"{adapters.names()}"
+                    )
+                kwargs["adapter"] = raw_adapter
             nbeams = data.get("num_beams")
             if nbeams is not None and int(nbeams) > 1:
                 kwargs["num_beams"] = int(nbeams)
@@ -1166,6 +1206,35 @@ def main(argv: Optional[list] = None):
              "disables the quota",
     )
     ap.add_argument(
+        "--lora", default=None, metavar="DIR",
+        help="PEFT-format LoRA adapter directory merged into the base "
+             "weights at load (W + alpha/r * BA, before quantization): the "
+             "single-adapter path, no per-step delta, but the whole server "
+             "speaks that one adapter. Serve many adapters at once with "
+             "--adapter-slots / --adapter instead (the same adapter cannot "
+             "be used both ways)",
+    )
+    ap.add_argument(
+        "--adapter-slots", type=int, default=0, metavar="N",
+        help="runtime LoRA adapter pool (engine/adapters.py): N device "
+             "pages of paged A/B factors beside the resident base weights; "
+             "a request picks a registered adapter by name ('adapter' on "
+             "/generate, 'model' on the OpenAI routes) and one CUDA graph "
+             "per launch kind serves any adapter mix. Needs --continuous "
+             "and --kv-pool-blocks (the ragged paged fleet); 0 = off",
+    )
+    ap.add_argument(
+        "--adapter-rank", type=int, default=8, metavar="R",
+        help="pool page rank: every registered adapter is zero-padded to "
+             "rank R (a larger trained rank is refused at registration)",
+    )
+    ap.add_argument(
+        "--adapter", action="append", default=None, metavar="NAME=DIR",
+        help="register a PEFT-format LoRA adapter directory under NAME at "
+             "start (repeatable). Needs --adapter-slots; more adapters than "
+             "slots is fine: pages are refcounted and LRU-swapped on demand",
+    )
+    ap.add_argument(
         "--die-on-wedge", type=float, default=None, metavar="SECONDS",
         help="exit the process (code 17) once an abandoned deadline-overrun "
              "device call has been stuck this long, for a supervisor restart; "
@@ -1195,6 +1264,21 @@ def main(argv: Optional[list] = None):
         )
     if args.kv_pool_blocks is not None and args.continuous <= 0:
         raise SystemExit("--kv-pool-blocks requires --continuous")
+    if args.adapter and not args.adapter_slots:
+        raise SystemExit("--adapter needs --adapter-slots N: the runtime pool's "
+                         "device pages are reserved at engine build")
+    if args.adapter_slots and (args.continuous <= 0 or args.kv_pool_blocks is None):
+        # a pool no request could select is a misconfiguration: the adapter
+        # path rides the ragged paged fleet's launches
+        raise SystemExit("--adapter-slots needs --continuous SLOTS with "
+                         "--kv-pool-blocks N: runtime adapters ride the ragged "
+                         "paged fleet's mixed launch")
+    adapter_specs = []
+    for spec in args.adapter or ():
+        name, sep, path = spec.partition("=")
+        if not sep or not name or not path:
+            raise SystemExit(f"--adapter {spec!r}: expected NAME=DIR")
+        adapter_specs.append((name, path))
     tenant_weights = _parse_tenant_weights(args.tenant_weight)
     from ..utils import faults as _faults
 
@@ -1230,8 +1314,11 @@ def main(argv: Optional[list] = None):
             spec_draft_model=args.spec_draft_model,
             tenant_weights=tenant_weights,
             tenant_max_queue_share=args.tenant_queue_share,
+            adapter_slots=args.adapter_slots,
+            adapter_rank=args.adapter_rank,
         ),
         draft_model=args.draft_model,
+        lora=args.lora,
         dtype=args.dtype,
         quant=args.quant,
         kv_quant=args.kv_quant,
@@ -1240,6 +1327,16 @@ def main(argv: Optional[list] = None):
         seed=args.seed,
         device=args.device,
     )
+    for name, path in adapter_specs:
+        try:
+            # a bad directory, a rank overflow, a shape mismatch or the
+            # --lora directory itself fails the start
+            engine.adapters.register(name, path)
+        except (ValueError, OSError) as e:
+            raise SystemExit(f"--adapter {name}={path}: {e}") from e
+    if adapter_specs:
+        print(f"{len(adapter_specs)} adapter(s) registered: "
+              f"{', '.join(n for n, _ in adapter_specs)}", flush=True)
     if args.die_on_wedge:
         threading.Thread(target=_wedge_reaper, args=(engine, args.die_on_wedge),
                          daemon=True).start()

@@ -392,6 +392,40 @@ def register_spec_metrics(registry: MetricsRegistry):
     )
 
 
+def register_adapter_metrics(registry: MetricsRegistry):
+    """The runtime adapter pool's families with the JAX package's names,
+    unlabeled: pool residency and reserved device bytes, page loads,
+    evictions and swaps. The engine registers them up front, as the JAX
+    engine does; engine/adapters.AdapterPool sets them."""
+    import types
+
+    m = registry
+    return types.SimpleNamespace(
+        resident=m.gauge(
+            "dli_adapter_pool_resident",
+            "adapters resident in device pool pages (referenced + LRU)",
+        ).labels(),
+        bytes=m.gauge(
+            "dli_adapter_pool_bytes",
+            "device bytes reserved by the paged adapter leaves (all pages, "
+            "base page included)",
+        ).labels(),
+        loads=m.counter(
+            "dli_adapter_loads_total", "adapter page writes into the device pool",
+        ).labels(),
+        evictions=m.counter(
+            "dli_adapter_evictions_total",
+            "resident adapters dropped from their page (LRU reclaim; "
+            "referenced pages are never evicted)",
+        ).labels(),
+        swaps=m.counter(
+            "dli_adapter_swaps_total",
+            "page loads that displaced another adapter (evict + write on "
+            "one page)",
+        ).labels(),
+    )
+
+
 def register_kv_cache_metrics(registry: MetricsRegistry):
     """The block-prefix index's, the KV shadow's, the tier hierarchy's and
     the KV fabric's families with the JAX package's names, unlabeled,

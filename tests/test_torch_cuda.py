@@ -917,13 +917,14 @@ def _clone(tree):
     return tree
 
 
-def _graph_case(card, kind, engine):
+def _graph_case(card, kind, engine, pages=None):
     """Static buffers of one launch kind on a 4-slot fleet at the tiny
     model's widths, and the launch body over them: slots 0-2 armed at
     positions 40, 57 and 90 (greedy, then sampled with penalties) over
     random K/V; the mixed launches carry their decode rows and, arming,
-    slot 3's 12-token prompt landing whole. Returns (buffers, run(buffers,
-    generator) -> packed)."""
+    slot 3's 12-token prompt landing whole. pages: the slots' adapter
+    pages ([4] int32 on the card, a static input of the paged kinds), or
+    None. Returns (buffers, run(buffers, generator) -> packed)."""
     import numpy as np
 
     from distributed_llm_inference_tpu_torch.engine import generate as G
@@ -954,10 +955,12 @@ def _graph_case(card, kind, engine):
         state, sparams = P.arm_slot_only(cfg, state, sparams, b, 10 + b, p, 12, *knobs,
                                          none)
     bufs = {"cache": cache, "table": table, "state": state, "sparams": sparams}
+    if pages is not None:
+        bufs["pages"] = pages
     if not kind.startswith("mixed"):
         def run(b, gen):
             return graphs.decode_chunk(be, b["state"], b["sparams"], b["cache"],
-                                       b["table"], gen, K)
+                                       b["table"], gen, K, pages=b.get("pages"))
         return bufs, run
     arming = kind == "mixed_arming"
     entries = [(b, 0, 1, P.RAGGED_DECODE) for b in range(3)]
@@ -988,7 +991,7 @@ def _graph_case(card, kind, engine):
 
     def run(b, gen):
         return graphs.mixed_launch(be, b["inputs"], b["cache"], b["table"], b["state"],
-                                   b["sparams"], gen)
+                                   b["sparams"], gen, pages=b.get("pages"))
     return bufs, run
 
 
@@ -1641,3 +1644,73 @@ def test_mid_stream_cancel_on_the_card_frees_the_slot_for_the_next(card):
         gpu.close()
     assert got == want
     assert all(g["captures"] == 1 for g in graphs.values())
+
+
+# -- runtime LoRA adapters (engine/adapters.py) on the card ----------------------
+
+
+@pytest.mark.parametrize("quant", list(GRAPH_QUANT))
+@pytest.mark.parametrize("kind", ["mixed_arming", "decode_chunk"])
+def test_adapter_page_loaded_after_capture_is_read_by_the_replay(card, kind, quant):
+    """A launch kind captured while every adapter page is the all-zero base
+    (the rows on pages 1 and 2 compute the base), then two adapters loaded
+    into pages 1 and 2 IN PLACE (AdapterPool.acquire -> write_adapter_page,
+    pinned and non_blocking on the launch stream) and the pages input
+    rewritten in place: the replay, under the sync check, is bit-equal to
+    the eager body on a clone of the buffers, and its K/V differ from a
+    base-only launch's on the adapter rows (the replay read the pages).
+    The lora leaves keep their storage."""
+    import numpy as np
+
+    from distributed_llm_inference_tpu_torch.engine import adapters as A
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    engine = create_engine("test-llama-tiny", attn_impl="auto", seed=3, device=card,
+                           dtype="bfloat16", **GRAPH_QUANT[quant],
+                           engine_cfg=EngineConfig(adapter_slots=2, adapter_rank=4))
+    cfg, pool = engine.cfg, engine.adapters
+    rng = np.random.default_rng(7)
+    for name in ("x", "y"):
+        pool.register(name, {
+            leaf: ((rng.standard_normal((cfg.n_layers, i, 4)) * 0.3).astype(np.float32),
+                   (rng.standard_normal((cfg.n_layers, 4, o)) * 0.3).astype(np.float32))
+            for leaf, (i, o) in A.adapter_leaf_dims(cfg).items()})
+    pages = torch.tensor([1, 0, 2, 1], dtype=torch.int32, device=card)
+    bufs, run = _graph_case(card, kind, engine, pages=pages)
+    start = _clone(bufs)
+    gen = torch.Generator(device=card).manual_seed(11)
+    lg = graphs.LaunchGraph(lambda: run(bufs, gen), kind, card, gen)
+    lg()  # the warm launch, then the capture, on the all-zero pages
+    leaves = {k: v.data_ptr() for k, v in engine.backend.params["layers"].items()
+              if k.startswith("lora_")}
+    px, py = pool.acquire("x"), pool.acquire("y")
+    pages.copy_(torch.tensor([px, 0, py, px], dtype=torch.int32))
+    assert {k: v.data_ptr() for k, v in engine.backend.params["layers"].items()
+            if k.startswith("lora_")} == leaves
+    graphs.commit((bufs["state"], bufs["sparams"]), (start["state"], start["sparams"]))
+    for a, b in zip(_tensors(bufs["cache"]), _tensors(start["cache"])):
+        a.copy_(b)
+    ref, base = _clone(bufs), _clone(bufs)
+    base["pages"].zero_()
+    g2, g3 = torch.Generator(device=card), torch.Generator(device=card)
+    g2.set_state(gen.get_state())
+    g3.set_state(gen.get_state())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = lg().clone()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = run(ref, g2)
+    run(base, g3)
+    torch.cuda.synchronize()
+    assert lg.replays == 1 and torch.equal(got, want)
+    for a, b in zip(_tensors(bufs["state"]), _tensors(ref["state"])):
+        assert torch.equal(a, b)
+    moved = False
+    for a, b, c in zip(_tensors(bufs["cache"]), _tensors(ref["cache"]),
+                       _tensors(base["cache"])):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+        moved = moved or not torch.equal(a[:, 1:], c[:, 1:])
+    assert moved, "the replay's K/V equal a base-only launch's"
+    lg.close()
