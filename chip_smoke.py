@@ -286,6 +286,7 @@ and prints no result. It imports nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -5428,13 +5429,480 @@ def phase_z(torch, engine, pa, fa, Q, P, G, M, faults, smi):
     return {k: z1["launches"][k] + qlaunches[k] for k in z1["launches"]}
 
 
+# -- (C) grammar constraints (constrain/) -----------------------------------------
+
+C_SCHEMA = {"type": "object",
+            "properties": {"ok": {"type": "boolean"},
+                           "color": {"enum": ["red", "green", "blue"]}},
+            "required": ["ok", "color"]}
+C_PHONE = {"regex": "[0-9]{3}-[0-9]{4}"}
+C_CHOICES = {"choices": ["alpha", "beta", "gamma"]}
+C_HEX = {"regex": "[0-9a-f]{64}"}  # (C4)'s solo pair: 64 tokens, then the forced stop
+C_LONG = {"regex": "[0-9a-f ]{300}"}  # (C4)'s profiled chunk: no stop within a chunk
+C_THIRD = {"regex": "[a-f]{2,5}"}  # (C3)'s in-place rewrite inside the bucket
+C_FSM_SMALL = 16  # (C2)'s small fleet table: the schema's DFA never fits
+
+
+def c_ids(text: str) -> list:
+    """The ids a SpelledIds response spells."""
+    return [int(t) for t in text.split()]
+
+
+def c_text(ids) -> str:
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    return ByteTokenizer().decode(ids)
+
+
+def c_walk(art, ids, eos_ids) -> str:
+    """How `ids` (a stop token excluded) sit in the DFA of `art`: "complete"
+    (every token allowed, and a stop token allowed at the end), "live
+    prefix" (every token allowed, not complete yet) or the first
+    violation."""
+    st = art.start
+    for i, t in enumerate(ids):
+        if not art.mask[st, t]:
+            return f"VIOLATION at token {i} ({t})"
+        st = art.advance(st, t)
+    return ("complete" if any(art.mask[st, e] for e in eos_ids if e < art.mask.shape[1])
+            else "live prefix")
+
+
+def c_prefill_chunks(engine, text_or_messages, chat: bool) -> int:
+    """The solo engine's T>1 chunks for a prompt (chunk_shapes' count)."""
+    text = engine.render_chat(text_or_messages) if chat else text_or_messages
+    n_full, _rem, _bucket, _chunk = engine._plan_ingest(
+        len(engine.tokenizer.encode(text)), 0, engine._buckets())
+    return n_full + 1
+
+
+def phase_C1(torch, ceng, pa, fa, Q, smi):
+    """The main path's paged fleet (g) through the HTTP server: constrained
+    /generate and /v1/chat/completions requests go to the solo engine,
+    whose prefills run flash_attend; an unconstrained request at the same
+    time runs the mixed launch. Returns the (C4) solo numbers."""
+    import threading
+
+    L = ceng.cfg.n_layers
+    eos = ceng.cfg.all_stop_ids
+    fleet, server = fleet_server(ceng, FLEET)
+    port = server.port
+    out = {}
+    try:
+        check(fleet.warmup()["ok"], "(C1) fleet warmup")
+        reset_counts(pa, fa, Q)  # the main path's run starts here
+        reqs = [
+            ("regex", "/generate", {"prompt": "Call me at", "chat": False, "greedy": True,
+                                    "max_tokens": 16, "constraint": C_PHONE}),
+            ("choices", "/generate", {"prompt": "Pick one:", "chat": False,
+                                      "greedy": True, "max_tokens": 16,
+                                      "constraint": C_CHOICES}),
+            ("json_schema", "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": "Describe the sky as JSON."}],
+                "max_tokens": 64, "temperature": 0,
+                "response_format": {"type": "json_schema",
+                                    "json_schema": {"name": "sky", "schema": C_SCHEMA}}}),
+            ("json_object", "/generate", {"prompt": "A JSON object:", "chat": False,
+                                          "temperature": 1.0, "top_k": 0, "top_p": 1.0,
+                                          "seed": 7, "max_tokens": 96,
+                                          "constraint": {"json_object": True}}),
+        ]
+        specs = {"regex": C_PHONE, "choices": C_CHOICES,
+                 "json_schema": {"json_schema": C_SCHEMA},
+                 "json_object": {"json_object": True}}
+        # each spec's host compile at this vocabulary, on an engine with no
+        # artifact yet (the first also builds the token vocab and its trie)
+        fresh = y_engine(ceng)
+        for name, spec in specs.items():
+            t0 = time.perf_counter()
+            art = fresh._compile_constraint(spec)
+            print(f"(C1) constraint_compile {name}: {(time.perf_counter() - t0) * 1e3:.3f} "
+                  f"ms host at V={ceng.cfg.vocab_size}, {art.num_states} states"
+                  + (" (with the vocab and trie)" if name == "regex" else ""))
+        del fresh
+        answers = {}
+        for name, path, body in reqs:
+            admitted = get(port, "/stats")[1]["continuous"]["admitted"]
+            solo_before = ceng.request_count
+            before = read_counts(pa, fa, Q)
+            code, r = y_post(port, path, body)
+            moved = {k: v - before[k] for k, v in read_counts(pa, fa, Q).items()}
+            check(code == 200, f"(C1) {name}: HTTP {code} {r}")
+            chat = path != "/generate"
+            chunks = c_prefill_chunks(ceng, body["messages"] if chat else body["prompt"],
+                                      chat or body.get("chat", True))
+            if chat:
+                ids = c_ids(r["choices"][0]["message"]["content"])
+                finish = r["choices"][0]["finish_reason"]
+                env = {"constrained": True, "backend": "single-device"}
+            else:
+                ids, finish, env = c_ids(r["response"]), r["finish_reason"], r
+            art = ceng._compile_constraint(specs[name])
+            walk = c_walk(art, ids, eos)
+            text = c_text(ids)
+            answers[name] = (ids, r)
+            compile_ms = (r.get("timings", {}).get("constraint_compile_s", 0.0) * 1e3
+                          if not chat else None)
+            print(f"(C1) {name}: HTTP {code} via {path} tokens={len(ids)} finish={finish} "
+                  f"text={text!r} DFA walk: {walk}; kernels {json.dumps(moved)} for "
+                  f"{chunks} T>1 prefill chunk(s); constraint_compile_ms="
+                  f"{compile_ms if compile_ms is None else round(compile_ms, 3)}")
+            check(not walk.startswith("VIOLATION"), f"(C1) {name}: {walk}")
+            check(env.get("constrained") is True and env.get("backend") == "single-device",
+                  f"(C1) {name}: not the solo engine's constrained envelope: {env}")
+            check(get(port, "/stats")[1]["continuous"]["admitted"] == admitted
+                  and ceng.request_count == solo_before + 1,
+                  f"(C1) {name}: not served by the solo engine")
+            if name == "regex":
+                check(re.fullmatch(r"[0-9]{3}-[0-9]{4}", text) is not None,
+                      f"(C1) regex: {text!r}")
+            elif name == "choices":
+                check(text in ("alpha", "beta", "gamma"), f"(C1) choices: {text!r}")
+            elif name == "json_schema":
+                obj = json.loads(text)
+                check(isinstance(obj["ok"], bool) and obj["color"] in ("red", "green", "blue"),
+                      f"(C1) json_schema: {obj}")
+            elif walk == "complete":
+                check(isinstance(json.loads(text), dict), f"(C1) json_object: {text!r}")
+            print(f"(C1) {name}: {'complete' if walk == 'complete' else 'cut at max_tokens'}"
+                  f" ({walk})")
+            check(moved["flash_attend"] == L * chunks
+                  and not any(v for k, v in moved.items() if k != "flash_attend"),
+                  f"(C1) {name}: kernels {moved}, {L * chunks} flash_attend only expected")
+        # the LRU: a repeat compiles nothing; a greedy repeat is token-identical
+        code, again, _ = post(port, reqs[0][2])
+        check(c_ids(again["response"]) == answers["regex"][0],
+              "(C1) the repeated greedy constrained request gave other tokens")
+        print(f"(C1) the regex request again: token-identical; constraint_compile_ms="
+              f"{again['timings'].get('constraint_compile_s', 0.0) * 1e3:.3f} (LRU hit) "
+              f"at V={ceng.cfg.vocab_size}")
+        # an unconstrained request beside a constrained one: the mixed launch
+        free_body = {"prompt": fleet_prompt(3, 300), "chat": False, "greedy": True,
+                     "max_tokens": 32}
+        res = {}
+        before = read_counts(pa, fa, Q)
+        st0 = get(port, "/stats")[1]["continuous"]["launches"]
+        threads = [threading.Thread(target=lambda: res.__setitem__("free", post(port, free_body))),
+                   threading.Thread(target=lambda: res.__setitem__("con", post(
+                       port, {**reqs[3][2], "seed": 8})))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wait_idle(port)
+        moved = {k: v - before[k] for k, v in read_counts(pa, fa, Q).items()}
+        st1 = get(port, "/stats")[1]["continuous"]["launches"]
+        free, con = res["free"][1], res["con"][1]
+        print(f"(C1) concurrent: unconstrained backend={free.get('backend')} "
+              f"prefill_chunks={free.get('prefill_chunks')} tokens="
+              f"{free.get('tokens_generated')}, constrained backend={con.get('backend')}; "
+              f"mixed launches {st1['mixed'] - st0['mixed']}, kernels {json.dumps(moved)}")
+        check(free.get("backend") == "continuous" and con.get("backend") == "single-device"
+              and con.get("constrained") is True, "(C1) concurrent: wrong routes")
+        check(st1["mixed"] > st0["mixed"] and moved["ragged_paged_attend"] > 0,
+              "(C1) the unconstrained request beside a constrained one ran no mixed launch")
+        # (C4) the solo pair: constrained vs unconstrained, the same prompt
+        pair = {}
+        for name, extra in (("constrained", {"constraint": C_HEX, "max_tokens": 66}),
+                            ("unconstrained", {"max_tokens": 64})):
+            body = {"prompt": "The hash is", "chat": False, "greedy": True, "seed": 0,
+                    **extra}
+            post(port, body)  # warm (the LRU, the decode buckets)
+            code, r, wall = post(port, body)
+            check(code == 200 and r["backend"] == "single-device", f"(C4) {name}: {r}")
+            pair[name] = dict(tokens=r["tokens_generated"], decode_s=r["timings"]["decode_s"],
+                              tokens_per_sec=float(r["tokens_per_sec"]), ttft_s=r["ttft_s"],
+                              wall_s=wall)
+        out["solo"] = pair
+        print(f"(C4) solo pair on one prompt: {json.dumps(pair)} ({smi})")
+        check(pair["constrained"]["tokens"] == 64, "(C4) the hex constraint did not close at 64")
+    finally:
+        server.shutdown()
+    return out
+
+
+def phase_C2(torch, engine, ceng, pa, fa, Q, P, G, smi):
+    """The dense fleet (no pool): 8 concurrent requests, 4 constrained over
+    2 constraints and 4 unconstrained; the constrained chunk's graph per
+    bucket, the table's stats mid-wave, the plain chunk after it, the
+    unconstrained rows against a fleet with no constrained tenant; then a
+    small-table fleet sending a never-fitting spec solo."""
+    import threading
+
+    fleet, server = fleet_server(ceng, DENSE_FLEET)
+    port = server.port
+    which = (0, 2, 4, 6)
+    free_bodies = [{"prompt": fleet_prompt(i, FLEET_PROMPT_TOKENS[i]), "chat": False,
+                    "greedy": True, "max_tokens": FLEET_NEW_TOKENS} for i in which]
+    con_bodies = [{"prompt": f"Phone {i}:", "chat": False, "greedy": True,
+                   "max_tokens": 16, "constraint": C_PHONE} for i in range(2)]
+    con_bodies += [{"prompt": f"Word {i}:", "chat": False, "greedy": True,
+                    "max_tokens": 16, "constraint": C_CHOICES} for i in range(2)]
+    try:
+        check(fleet.warmup()["ok"], "(C2) dense fleet warmup")
+        bodies = [b for pair in zip(free_bodies, con_bodies) for b in pair]
+        seen = []
+        done = threading.Event()
+
+        def watch():
+            while not done.is_set():
+                c = get(port, "/stats")[1]["continuous"].get("constraints")
+                if c and c["active"]:
+                    seen.append(c)
+                time.sleep(0.005)
+
+        w = threading.Thread(target=watch)
+        w.start()
+        results, wave_s, launches, before, after = serve_wave(server, bodies, pa, fa, Q)
+        done.set()
+        w.join()
+        L = engine.cfg.n_layers
+        for body, (code, r, wall) in zip(bodies, results):
+            ids = c_ids(r.get("response", ""))
+            kind = "constrained" if "constraint" in body else "free"
+            print(f"(C2) {kind}: HTTP {code} backend={r.get('backend')} tokens="
+                  f"{len(ids)} finish={r.get('finish_reason')} ttft_s={r.get('ttft_s')}"
+                  + (f" text={c_text(ids)!r}" if kind == "constrained" else ""))
+            check(code == 200 and r.get("backend") == "continuous", f"(C2) {kind}: {r}")
+            if kind == "constrained":
+                text = c_text(ids)
+                ok = (re.fullmatch(r"[0-9]{3}-[0-9]{4}", text) if "regex" in body["constraint"]
+                      else text in ("alpha", "beta", "gamma"))
+                check(bool(ok) and r.get("constrained") is True, f"(C2) {text!r}")
+        g, la = after["graphs"], after["launches"]
+        cg = g.get("decode_chunk_constrained", {})
+        lb = before["launches"]
+        n_con = la["constrained_chunks"] - lb["constrained_chunks"]
+        n_chunks = la["decode_chunks"] - lb["decode_chunks"]
+        print(f"(C2) wave: {wave_s:.3f} s; decode chunks {n_chunks}, of them constrained "
+              f"{n_con}; CUDA graphs {json.dumps(g)}; kernels {json.dumps(launches)}")
+        check(cg.get("captures") == len(cg.get("buckets", ())) >= 1
+              and cg.get("replays") == la["constrained_chunks"] - cg["captures"] >= 1,
+              f"(C2) the constrained chunk's graph: {cg}, {la}")
+        check(g["decode_chunk"]["captures"] == 1
+              and g["decode_chunk"]["replays"]
+              == la["decode_chunks"] - la["constrained_chunks"] - 1,
+              f"(C2) the plain chunk's graph: {g['decode_chunk']}, {la}")
+        prefill = sum(r["prefill_chunks"] for _, r, _ in results)
+        check(launches["flash_attend"] == L * prefill
+              and not any(v for k, v in launches.items() if k != "flash_attend"),
+              f"(C2) kernels {launches} for {prefill} T>1 prefill chunks")
+        peak = max(seen, key=lambda c: c["states"]) if seen else None
+        print(f"(C2) /stats constraints mid-wave ({len(seen)} reads with an active "
+              f"entry): peak {json.dumps(peak)}; after: "
+              f"{json.dumps(after.get('constraints'))}")
+        check(peak is not None and peak["bucket"] >= peak["states"] > 1,
+              "(C2) no mid-wave read saw the table")
+        check(after.get("constraints", {}).get("active") == 0,
+              "(C2) a constraint entry stayed active after the wave")
+        # the unconstrained rows again, on the fleet with no constrained tenant
+        plain = [post(port, b) for b in free_bodies]
+        st = get(port, "/stats")[1]["continuous"]["launches"]
+        check(st["constrained_chunks"] == la["constrained_chunks"]
+              and st["decode_chunks"] > la["decode_chunks"],
+              "(C2) the next chunk after the wave was not the plain one")
+        parts = []
+        for body, (_, r, _), (_, p, _) in zip(free_bodies,
+                                              [x for x, b in zip(results, bodies)
+                                               if "constraint" not in b], plain):
+            got, want = c_ids(r["response"]), c_ids(p["response"])
+            at = parts_at(got, want)
+            if at is None:
+                parts.append(None)
+                continue
+            ids = ceng.tokenizer.encode(body["prompt"]) + want[:at]
+            gap = x_gap(torch, P, G, engine, ids)
+            parts.append({"at": at, "token": want[at], "gap": gap})
+            check(gap < LOGITS_ATOL, f"(C2) an unconstrained row parts at {at} with a "
+                                     f"top-2 gap {gap:.4f}")
+        print(f"(C2) unconstrained rows vs the same requests on the fleet with no "
+              f"constrained tenant: {sum(p is None for p in parts)} of {len(parts)} "
+              f"identical; partings {json.dumps([p for p in parts if p])} (each at a "
+              f"near-tie, top-2 gap < {LOGITS_ATOL})")
+    finally:
+        server.shutdown()
+    small = y_engine(engine, constraint_fleet_states=C_FSM_SMALL)
+    fleet, server = fleet_server(small, DENSE_FLEET)
+    try:
+        body = {"prompt": "Sky:", "chat": False, "greedy": True, "max_tokens": 64,
+                "constraint": {"json_schema": C_SCHEMA}}
+        art = small._compile_constraint(body["constraint"])
+        code, r, _ = post(server.port, body)
+        text = c_text(c_ids(r["response"]))
+        print(f"(C2) a fleet with constraint_fleet_states={C_FSM_SMALL}: the schema's "
+              f"{art.num_states}-state DFA never fits; HTTP {code} backend="
+              f"{r.get('backend')} text={text!r}")
+        check(code == 200 and r.get("backend") == "single-device"
+              and r.get("constrained") is True and json.loads(text)["color"]
+              in ("red", "green", "blue"), f"(C2) the never-fitting spec: {r}")
+    finally:
+        server.shutdown()
+
+
+def phase_C3(torch, engine, ceng, G, M, smi):
+    """The constrained dense chunk as a CUDA graph over the fleet's static
+    buffers at its serving shape (8 slots x 16 steps, 1024-token rows): two
+    replays bit-equal to eager, a third constraint written into the same
+    bucket in place then a replay under the sync check bit-equal again;
+    then (C4) a table upload at the largest bucket, and the profiled
+    constrained replay against the plain chunk's replay on the same slots."""
+    from distributed_llm_inference_tpu_torch.constrain import FleetConstraintTable
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    cfg, params, be = engine.cfg, engine.backend.params, engine.backend
+    B, K, V = DENSE_FLEET["n_slots"], DENSE_FLEET["chunk_steps"], cfg.vocab_size
+    _, _, (cache, state, sparams) = dense_admission(torch, cfg, params, G, M)
+    none = torch.zeros(V, dtype=torch.bool, device=DEVICE)
+    fsm = torch.zeros(B, dtype=torch.int32, device=DEVICE)
+    table = FleetConstraintTable(V, max_states=ceng.engine_cfg.constraint_fleet_states)
+    arts = {k: ceng._compile_constraint(s) for k, s in (
+        ("phone", C_PHONE), ("choices", C_CHOICES), ("third", C_THIRD), ("long", C_LONG))}
+    offs = {k: table.acquire(arts[k]) for k in ("phone", "choices")}
+
+    def arm(rows):
+        """Slots armed greedy with a fresh budget at 100 + 50 b; rows: slot ->
+        constraint name (None = free)."""
+        st, sp = state, sparams
+        for b in range(B):
+            st, sp = G.arm_slot(cfg, st, sp, b, 100 + b, 100 + 50 * b, 200, 1.0, 0, 1.0,
+                                True, 0.0, 1.0, 0.0, 0.0, none)
+            k = rows.get(b)
+            fsm[b] = 0 if k is None else offs[k] + arts[k].start
+        graphs.commit((state, sparams), (st, sp))
+
+    cm, ct = table.device_tables(DEVICE)
+    bucket = cm.shape[0]
+    ptrs = (cm.data_ptr(), ct.data_ptr())
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    bufs = {"state": state, "sparams": sparams, "cache": cache, "fsm": fsm}
+
+    def body_for(m, t):
+        return lambda b, g: graphs.decode_chunk_constrained(
+            be, b["state"], b["sparams"], b["cache"], b["fsm"], m, t, g, K)
+
+    run = body_for(cm, ct)
+    lg = graphs.LaunchGraph(lambda: run(bufs, gen), "decode_chunk_constrained", DEVICE, gen)
+    arm({0: "phone", 1: "phone", 2: "choices", 3: "choices"})
+    lg()  # the warm launch, then the capture
+
+    def replay_vs_eager(tag):
+        ref = clone_tree(torch, bufs)
+        g2 = torch.Generator(device=DEVICE)
+        g2.set_state(gen.get_state())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = lg().clone()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = run(ref, g2)
+        torch.cuda.synchronize()
+        same = (torch.equal(got, want) and torch.equal(bufs["fsm"], ref["fsm"])
+                and all(torch.equal(a, b) for a, b in zip(leaves(torch, bufs),
+                                                          leaves(torch, ref))))
+        emitted = int(got[K:2 * K].sum())
+        print(f"(C3) {tag}: replay under set_sync_debug_mode('error') bit-equal to eager "
+              f"(packed, state, FSM, KV): {same}; {emitted} tokens emitted; FSM "
+              f"{bufs['fsm'].tolist()}")
+        check(same, f"(C3) {tag}: the constrained replay differs from its eager run")
+        check(emitted > 0, f"(C3) {tag}: no row emitted")
+
+    arm({0: "phone", 1: "phone", 2: "choices", 3: "choices"})
+    replay_vs_eager(f"bucket {bucket}, 2 constraints, replay 1")
+    replay_vs_eager(f"bucket {bucket}, 2 constraints, replay 2")
+    offs["third"] = table.acquire(arts["third"])
+    cm2, ct2 = table.device_tables(DEVICE)
+    check(cm2.shape[0] == bucket and (cm2.data_ptr(), ct2.data_ptr()) == ptrs,
+          "(C3) the third constraint left the bucket or moved the tables")
+    check(bool((cm2[offs["third"]:offs["third"] + arts["third"].num_states].cpu().numpy()
+                == arts["third"].mask).all()), "(C3) the third constraint's rows")
+    arm({0: "phone", 2: "choices", 4: "third", 5: "third"})
+    replay_vs_eager(f"bucket {bucket}, a third constraint written in place")
+    check((lg.captures, lg.replays) == (1, 3), f"(C3) captures {lg.captures}, replays "
+                                               f"{lg.replays}")
+    lg.close()
+
+    # (C4) a table upload at the largest bucket this phase reaches
+    up0, bytes0 = table.uploads, table.upload_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    offs["long"] = table.acquire(arts["long"])
+    cm3, ct3 = table.device_tables(DEVICE)
+    torch.cuda.synchronize()
+    up_ms = (time.perf_counter() - t0) * 1e3
+    big = cm3.shape[0]
+    print(f"(C4) one table upload at bucket {big}: {arts['long'].num_states} rows "
+          f"({table.upload_bytes - bytes0} bytes, {table.uploads - up0} write) in place in "
+          f"{up_ms:.3f} ms wall; the static pair holds {table.device_bytes()} bytes "
+          f"({table.max_states} x {V} x 5) ({smi})")
+    run_c = body_for(cm3, ct3)
+    lg_c = graphs.LaunchGraph(lambda: run_c(bufs, gen), "decode_chunk_constrained",
+                              DEVICE, gen)
+    lg_p = graphs.LaunchGraph(lambda: graphs.decode_chunk(
+        be, bufs["state"], bufs["sparams"], bufs["cache"], None, gen, K),
+        "decode_chunk", DEVICE, gen)
+    rows = {b: "long" for b in range(4)}
+    out = {}
+    for name, lgx, r in (("plain", lg_p, {}), ("constrained", lg_c, rows)):
+        arm(r)
+        lgx()  # capture
+        arm(r)
+        res = {}
+        wall_us, busy_us, kern = profile_call(torch, lambda: res.setdefault("p", lgx()))
+        tokens = int(res["p"][K:2 * K].sum())
+        arm(r)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        lgx()
+        e1.record()
+        e1.synchronize()
+        span = e0.elapsed_time(e1)
+        if kern:
+            out[name] = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                             idle_share=1 - busy_us / wall_us, kernels=len(kern),
+                             tokens=tokens, kernels_per_token=len(kern) / max(tokens, 1),
+                             replay_span_ms=span)
+        else:
+            out[name] = dict(replay_span_ms=span, tokens=tokens,
+                             profile="not measured (no device kernels recorded)")
+        print(f"(C4) profiled {name} dense chunk replay ({B} rows x {K} steps, bucket "
+              f"{big if name == 'constrained' else '-'}): {json.dumps(out[name])} ({smi})")
+        lgx.close()
+    check(out["constrained"]["tokens"] > 0 and out["plain"]["tokens"] > 0,
+          "(C4) a profiled chunk emitted no token")
+    return out
+
+
+def phase_C(torch, engine, pa, fa, Q, P, G, M, smi):
+    """(C) grammar constraints: (C1) the main path's server, (C2) the dense
+    fleet, (C3) the constrained chunk's replay against eager, (C4) numbers.
+    Every kernel count starts at 0 just before (C1)'s requests and again
+    before (C2)'s wave; their sums are the kernels line's launches_C."""
+    t0 = time.time()
+    ceng = y_engine(engine)
+    phase_C1(torch, ceng, pa, fa, Q, smi)  # resets the counts after its warmup
+    c1 = read_counts(pa, fa, Q)
+    print(f"(C1) done in {time.time() - t0:.1f} s")
+    phase_C2(torch, engine, ceng, pa, fa, Q, P, G, smi)  # resets before its wave
+    launches = {k: v + c1[k] for k, v in read_counts(pa, fa, Q).items()}
+    print(f"(C2) done in {time.time() - t0:.1f} s; the main path's kernel launches in "
+          f"(C1)-(C2): {json.dumps(launches)}")
+    check(launches["flash_attend"] > 0, "(C) no flash_attend launch for the constrained "
+                                        "prefills")
+    phase_C3(torch, engine, ceng, G, M, smi)
+    print(f"(C) total {time.time() - t0:.1f} s")
+    return launches
+
+
 def main(argv) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z"],
+    ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z",
+                                       "C"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -5450,7 +5918,8 @@ def main(argv) -> int:
                          "cross-replica KV fabric; or (x) on the raw engine (x): "
                          "speculation on the mixed launch; or (y) on the raw engine "
                          "(y): token streaming, cancellation and the OpenAI routes; or "
-                         "(z) on the raw engine (z): runtime LoRA adapters")
+                         "(z) on the raw engine (z): runtime LoRA adapters; or (C) "
+                         "on the raw engine (C): grammar constraints")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -5521,7 +5990,7 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
-    if args.only not in ("s", "v", "w", "x", "y", "z"):
+    if args.only not in ("s", "v", "w", "x", "y", "z", "C"):
         # (b) the kernel against its twin
         phase_b(torch, timer, fa)
 
@@ -5569,6 +6038,12 @@ def main(argv) -> int:
               f"{time.time() - t0:.1f} s")
         phase_z(torch, engine, pa, fa, Q, P, G, M, faults, smi)
         print(f"(z) total {time.time() - t_start:.1f} s")
+        return 0
+    if args.only == "C":
+        print(f"(C) {MODEL} bf16, random weights (seed 0), built in "
+              f"{time.time() - t0:.1f} s")
+        phase_C(torch, engine, pa, fa, Q, P, G, M, smi)
+        print(f"(C) total {time.time() - t_start:.1f} s")
         return 0
     cfg = engine.cfg
     print(f"(c) {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
@@ -5665,6 +6140,11 @@ def main(argv) -> int:
     z_launches = phase_z(torch, engine, pa, fa, Q, P, G, M, faults, smi)
     print(f"(z) total {time.time() - t_start:.1f} s")
 
+    # (C) grammar constraints: the main path's server sends them solo (the
+    # prefills through flash_attend), the dense fleet's constrained chunk graph
+    c_launches = phase_C(torch, engine, pa, fa, Q, P, G, M, smi)
+    print(f"(C) total {time.time() - t_start:.1f} s")
+
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)
     phase_b(torch, timer, fa, int8=True)
@@ -5723,8 +6203,10 @@ def main(argv) -> int:
                    + whole_launches["flash_attend_slots"]),
     ]}
     # the adapter path's own counts: (z1)'s wave and (z6)'s quantized request
+    # (C)'s: (C1)'s constrained requests beside the fleet and (C2)'s dense waves
     for entry in line["kernels"]:
         entry["launches_z"] = z_launches[entry["name"]]
+        entry["launches_C"] = c_launches[entry["name"]]
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

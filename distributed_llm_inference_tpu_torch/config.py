@@ -244,6 +244,18 @@ class EngineConfig:
     # tail. The solo engine's and the dense fleet's snapshot cache
     # (engine/prefix.py) is not ported: they refuse > 0 by name.
     prefix_cache_entries: int = 0
+    # Grammar-constraint compiled-artifact LRU (constrain/): how many
+    # distinct constraints keep their (mask, transition) tables — host
+    # numpy + their device copies — cached per engine. A resident artifact
+    # costs ~num_states x vocab x 5 bytes; eviction only costs a
+    # recompile (host-side), never correctness.
+    constraint_cache_entries: int = 16
+    # State-row capacity of the dense fleet's COMBINED constraint table
+    # (constrain/fleet.py): constraints whose DFA cannot ever fit run on
+    # the solo engine instead; admission backpressures while the resident
+    # set transiently fills. Memory: one static device pair of capacity x
+    # vocab (bool + int32), allocated at the first constrained admission.
+    constraint_fleet_states: int = 1024
     # Paged LoRA adapter serving (engine/adapters.py): number of device
     # adapter pages the resident base model carries (0: no lora_* leaves
     # are installed and every launch runs without the pages operand). Each

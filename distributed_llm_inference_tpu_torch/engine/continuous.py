@@ -146,9 +146,23 @@ but the block-prefix index, where it hangs under the adapter's own root:
 the shadow, the fabric and the digest export never see it, and a
 preempted adapter request always recomputes.
 
+Grammar constraints (constrain/), as in the JAX package: the dense fleet
+serves constrained tenants beside unconstrained ones. Admission compiles
+the constraint through the engine's LRU and acquires its rows in the
+fleet's combined table (constrain/fleet.py; a full table backpressures
+like an empty block pool), the first token is sampled under the mask of
+the DFA state its salvaged continuation reaches, and the slot's row of
+the static FSM vector `_fsm` is set in place before the next launch.
+While any constrained tenant is active the decode chunk is the
+constrained kind (engine/graphs.decode_chunk_constrained, captured once
+per table bucket the fleet crosses); otherwise the plain one, which
+leaves `_fsm` alone: release sets a slot's row back to the free state 0,
+so every live row is at 0 whenever no tenant is constrained. The paged
+fleet, a DFA that can never fit the table and a malformed spec go to the
+solo engine (which answers the malformed spec with a 400).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): grammar constraints in the fleet (they go to the solo engine, as
-in the JAX package), the dense fleet's prefix cache, and gpt2's fleet.
+item): the dense fleet's prefix cache, and gpt2's fleet.
 """
 
 from __future__ import annotations
@@ -209,7 +223,7 @@ class _Request:
         "shadow_depth", "resume_seq", "promoted_blocks", "kv_hint",
         "fabric_blocks", "trace_ctx", "spec_want", "spec_drafted",
         "spec_accepted", "spec_launches", "stream_q", "streamed_text",
-        "cancelled", "cancel_cause", "adapter", "adapter_page",
+        "cancelled", "cancel_cause", "adapter", "adapter_page", "cart",
     )
 
     def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None,
@@ -290,6 +304,9 @@ class _Request:
         # and why (dli_cancelled_total{cause})
         self.cancelled = False
         self.cancel_cause = "disconnect"
+        # grammar constraint (constrain/): (CompiledConstraint, fleet-table
+        # row offset) once admitted; None = unconstrained
+        self.cart = None
 
 
 class ContinuousEngine:
@@ -506,6 +523,19 @@ class ContinuousEngine:
         self._mixed_graph = (graphs.LaunchGraph(self._mixed_body, "mixed_launch",
                                                 self.device, self._gen)
                              if self._chunked else None)
+        # grammar constraints (constrain/): the static per-slot FSM states
+        # into the COMBINED resident table (row 0 = the free state every
+        # unconstrained slot sits at), the table registry, and the
+        # constrained decode chunk, one graph per table bucket crossed
+        from ..constrain import FleetConstraintTable
+
+        self._fsm = torch.zeros((self.n_slots,), dtype=torch.int32,
+                                device=self.device)
+        self._ctable = FleetConstraintTable(
+            cfg.vocab_size, max_states=ecfg.constraint_fleet_states,
+            registry=engine.metrics)
+        self._cchunk_graphs: dict = {}  # bucket -> LaunchGraph
+        self.constrained_chunk_launches = 0
         self._init_spec(engine)
         self._cv = threading.Condition()
         self._queue: list = []  # guarded-by: _cv
@@ -630,18 +660,31 @@ class ContinuousEngine:
     def _needs_solo(self, kwargs: dict) -> bool:
         """Contracts slots cannot honor run solo on the wrapped engine (the
         JAX package's rule): a seed, debug, logprobs, logit_bias, beams,
-        constraints, and speculation on a fleet that cannot speculate
-        (a speculative request stays in a spec-capable fleet; a
-        non-greedy or penalized one decodes plainly there)."""
-        return bool(
+        and speculation on a fleet that cannot speculate (a speculative
+        request stays in a spec-capable fleet; a non-greedy or penalized
+        one decodes plainly there). A constraint runs solo on the paged
+        fleet, when its DFA can never fit the fleet table, or when it is
+        malformed (the solo engine answers it with a 400)."""
+        if (
             kwargs.get("seed") is not None
             or kwargs.get("debug")
             or (kwargs.get("speculative") and not self._spec_capable)
             or kwargs.get("logprobs")
             or kwargs.get("logit_bias")
             or int(kwargs.get("num_beams", 1) or 1) > 1
-            or kwargs.get("constraint") is not None
-        )
+        ):
+            return True
+        if kwargs.get("constraint") is not None:
+            if self.paged or not getattr(
+                    self.backend, "supports_constrained_slots", False):
+                return True
+            try:
+                art = self.engine._compile_constraint(kwargs["constraint"])
+            except ValueError:
+                return True  # the solo engine raises it again, as a 400
+            if not self._ctable.fits(art):
+                return True
+        return False
 
     def _note_queue_locked(self):  # guarded-by: _cv
         """Refresh the global and per-(SLO class, tenant) queue-depth
@@ -1059,11 +1102,24 @@ class ContinuousEngine:
                 # verify rows launched while an earlier one was unfetched
                 "pipelined_launches": self.spec_pipelined,
             }
+        out["launches"]["constrained_chunks"] = self.constrained_chunk_launches
+        cstats = self._ctable.stats()
+        if cstats["resident"]:
+            out["constraints"] = cstats
         # CUDA graphs: a launch kind is captured once, then replayed; the
-        # speculation kinds are listed once they launched
+        # speculation kinds are listed once they launched, the constrained
+        # chunk (captured once per table bucket) once it launched
         base = (self._chunk_graph, self._mixed_graph)
+        cgraphs = list(self._cchunk_graphs.values())
         out["graphs"] = {g.name: {"captures": g.captures, "replays": g.replays}
-                         for g in self._graphs() if g in base or g.calls}
+                         for g in self._graphs()
+                         if g not in cgraphs and (g in base or g.calls)}
+        if cgraphs:
+            out["graphs"]["decode_chunk_constrained"] = {
+                "captures": sum(g.captures for g in cgraphs),
+                "replays": sum(g.replays for g in cgraphs),
+                "buckets": sorted(self._cchunk_graphs),
+            }
         if self._bpx is not None:
             out["prefix_cache"] = self._bpx.stats()
         if self._adapters is not None:
@@ -1072,7 +1128,8 @@ class ContinuousEngine:
 
     def _graphs(self) -> list:
         return [g for g in (self._chunk_graph, self._mixed_graph, self._spec_graph,
-                            self._fill_graph, self._propose_graph) if g is not None]
+                            self._fill_graph, self._propose_graph) if g is not None] + [
+            self._cchunk_graphs[b] for b in sorted(self._cchunk_graphs)]
 
     # -- host <-> device -----------------------------------------------------
     def _upload(self, *arrays):
@@ -1193,6 +1250,9 @@ class ContinuousEngine:
         shadow restore runs after it (_loop_inner), so no chain ever points
         at zeroed blocks and no restore is zeroed."""
         for req in reqs:
+            if req.cart is not None:
+                self._ctable.release(req.cart[0].key)
+                req.cart = None
             if self.paged and req.block_ids is not None:
                 self._alloc.decref(req.block_ids)
                 req.block_ids = None
@@ -1235,6 +1295,7 @@ class ContinuousEngine:
         state, sparams = G.init_slots(self.n_slots, self.cfg.vocab_size,
                                       device=self.device)
         self._commit(state, sparams)
+        self._fsm.zero_()
         if self.paged:
             self._table[:] = 0
             self._table_dev.zero_()
@@ -2337,7 +2398,15 @@ class ContinuousEngine:
             r.prompt for r in self._assignment if r is not None))
         if self.paged:
             self._table_device()
-        packed = self._chunk_graph()
+            packed = self._chunk_graph()
+        elif self._ctable.any_active:
+            # >= 1 constrained tenant: the constrained chunk (two gathers
+            # more per step; the free row makes them a no-op for the
+            # unconstrained slots), its FSM chained on the device
+            packed = self._constrained_chunk_graph()()
+            self.constrained_chunk_launches += 1
+        else:
+            packed = self._chunk_graph()
         self.chunk_launches += 1
         # host position model: every assigned slot advances chunk_steps (a
         # row that dies mid-chunk over-advances, and is finalized), and
@@ -2356,6 +2425,23 @@ class ContinuousEngine:
             self._table_dev if self.paged else None, self._gen, self.chunk_steps,
             pages=self._pages_dev,
         )
+
+    def _constrained_chunk_graph(self) -> graphs.LaunchGraph:
+        """The constrained decode chunk's graph for the table's current
+        bucket, captured at its first launch. The table's pending row
+        writes land in place first, on this (the launch) stream."""
+        cmask, ctrans = self._ctable.device_tables(self.device)
+        bucket = cmask.shape[0]
+        g = self._cchunk_graphs.get(bucket)
+        if g is None:
+            def body():
+                return graphs.decode_chunk_constrained(
+                    self.backend, self.state, self.sparams, self.cache, self._fsm,
+                    cmask, ctrans, self._gen, self.chunk_steps)
+
+            g = self._cchunk_graphs[bucket] = graphs.LaunchGraph(
+                body, "decode_chunk_constrained", self.device, self._gen)
+        return g
 
     def _mixed_body(self):
         """The mixed launch over the static buffers (a LaunchGraph)."""
@@ -2861,11 +2947,12 @@ class ContinuousEngine:
 
     def _admit_one(self, req: _Request, slot: int):
         """Prefill req's whole prompt (plus its salvaged continuation) past
-        any block-prefix hit and arm `slot` (the unconstrained admission of
-        the JAX package; an adapter request holds its page from here).
-        Returns its first token ([1], on the device), None when it failed
-        fast (its result is set), or _BLOCKED when the pool (or the adapter
-        pool) cannot take it now."""
+        any block-prefix hit and arm `slot` (an adapter request holds its
+        page from here, a constrained one its rows of the fleet's
+        constraint table). Returns its first token ([1], on the device),
+        None when it failed fast (its result is set), or _BLOCKED when the
+        pool, the adapter pool or the constraint table cannot take it
+        now."""
         eng, cfg = self.engine, self.cfg
         faults.check("admission", tag=req.prompt)
         if self._expired_in_queue(req):
@@ -2904,6 +2991,20 @@ class ContinuousEngine:
             # real row)
             insert_row = table_row.copy()
             insert_row[: p0 // self.kv_block_size] = P.TRASH_BLOCK
+        if k.get("constraint") is not None:
+            # the compiled artifact from the engine's LRU, then its rows in
+            # the fleet's combined table; a full table backpressures as the
+            # pool does, after giving back what this attempt was granted
+            cart = eng._compile_constraint(k["constraint"])
+            req.trace.checkpoint("constraint_compile")
+            off = self._ctable.acquire(cart)
+            if off is None:
+                if req.block_ids is not None:
+                    self._alloc.decref(req.block_ids)
+                    req.block_ids = None
+                self._release_adapter(req)
+                return _BLOCKED
+            req.cart = (cart, off)
         req.prefix_hit_tokens = p0
         try:
             faults.check("prefill", tag=req.prompt)
@@ -2917,6 +3018,10 @@ class ContinuousEngine:
             # the repetition penalty is on (the solo prefill's program)
             presence = (eng._presence_rows([ids]) if sampling.rep_penalty != 1.0
                         else None)
+            # the first token's mask: the DFA state the salvaged
+            # continuation reaches (the start state on a cold admission)
+            bias = (eng._constraint_bias(req.cart[0], None, state=self._dfa_state(req))
+                    if req.cart is not None else None)
             if self._ragged:
                 # a hit's mapped head is attended in place, through the table
                 if p0:
@@ -2938,7 +3043,7 @@ class ContinuousEngine:
             else:
                 first, _, _ = eng._ingest_with_prefix(
                     None, ids, p0, entry, plan, self._scratch, self._gen,
-                    sampling, presence=presence,
+                    sampling, presence=presence, bias=bias,
                 )
                 req.prefill_chunks = plan[0] + 1
             req.budget = max_tokens - 1
@@ -2965,6 +3070,9 @@ class ContinuousEngine:
                 # the admission died after its block grant: give them back
                 self._alloc.decref(req.block_ids)
                 req.block_ids = None
+            if req.cart is not None:  # and the constraint table's refcount
+                self._ctable.release(req.cart[0].key)
+                req.cart = None
             self._release_adapter(req)  # and the adapter page
             raise
         if self.paged:
@@ -3043,15 +3151,31 @@ class ContinuousEngine:
 
     def _post_admit(self, req: _Request):
         """A stop token first, or a zero budget, finishes the request at
-        once (mirroring the on-device arming decision)."""
+        once (mirroring the on-device arming decision). A constrained slot
+        arms its row of the FSM vector, IN PLACE on the launch stream
+        before the next launch: the DFA advanced over the salvaged
+        continuation, then the first token."""
         self.engine.flight.record(
             "admit", request_id=req.trace.request_id, slot=req.slot,
             prompt_tokens=req.prompt_tokens, budget=req.budget, slo_class=req.slo,
             **(self._alloc.span_attrs() if self.paged else {}))
         if req.first_id in self.cfg.all_stop_ids or req.budget == 0:
             self._finalize(req)
-        elif req.stream_q is not None:
+            return
+        if req.cart is not None:
+            cart, off = req.cart
+            self._fsm[req.slot] = off + cart.advance(self._dfa_state(req), req.first_id)
+        if req.stream_q is not None:
             self._stream_tokens(req)
+
+    @staticmethod
+    def _dfa_state(req: _Request) -> int:
+        """The DFA state of req's constraint after its salvaged tokens."""
+        art = req.cart[0]
+        st = art.start
+        for t in req.salvaged:
+            st = art.advance(st, t)
+        return st
 
     def _process(self, step):
         """Fetch one decode chunk's packed results and distribute them."""
@@ -3188,6 +3312,8 @@ class ContinuousEngine:
             req.result["spec_accepted"] = req.spec_accepted
         if req.prefix_hit_tokens:
             req.result["prefix_cached_tokens"] = req.prefix_hit_tokens
+        if req.cart is not None:
+            req.result["constrained"] = True
         if req.fabric_blocks:
             # prefix blocks pulled over the KV fabric instead of prefilled
             req.result["kv_fabric_blocks"] = req.fabric_blocks
@@ -3216,6 +3342,15 @@ class ContinuousEngine:
             job = self._prefilling.pop(req.slot, None)
             if job is not None and job in self._jobs:
                 self._jobs.remove(job)
+        if req.cart is not None:
+            # refcount down, and the slot's FSM row back to the free state
+            # (in place, before the next launch): inert under any later
+            # constrained chunk, and every live row is at 0 once none is
+            # constrained, so the plain chunk may take over
+            self._ctable.release(req.cart[0].key)
+            if req.slot is not None:
+                self._fsm[req.slot] = 0
+            req.cart = None
         if req.block_ids is not None:
             # freed blocks may be re-granted before in-flight launches
             # drain: safe, device execution is serialized in launch order

@@ -18,10 +18,17 @@ The runtime adapter pool (engine/adapters.py, `self.adapters`) rides the
 continuous paged fleet; the backend writes its pages in place
 (`write_adapter_page`).
 
+Grammar constraints (constrain/): a request's `constraint` (a regex, a
+choice list, a JSON schema or any JSON object) compiles through the
+engine's LRU into a DFA over the vocabulary; the first token's mask rides
+the prefill's bias operand, and the decode loop masks and advances the
+FSM on the device (engine/generate.py). `generate_batch` runs one shared
+constraint over every row.
+
 Not ported yet: the solo engine's speculative decoding, beam search, its own
-prefix cache (engine/prefix.py's snapshots), grammar constraints and
-scoring. A request or config asking for one gets a ValueError naming it
-(an `invalid_request` envelope, HTTP 400 at the server).
+prefix cache (engine/prefix.py's snapshots) and scoring. A request or
+config asking for one gets a ValueError naming it (an `invalid_request`
+envelope, HTTP 400 at the server).
 """
 
 from __future__ import annotations
@@ -98,13 +105,17 @@ class SingleDeviceBackend:
         )
 
     def decode(self, first_token, cache, start_pos, limit, generator, sampling,
-               valid_start=None, presence=None, counts=None, bias=None, *,
-               max_steps, with_logprobs=False):
+               valid_start=None, presence=None, counts=None, bias=None,
+               constraint=None, *, max_steps, with_logprobs=False):
         return G.decode(
             self.cfg, self.params, first_token, cache, start_pos, limit,
             generator, sampling, valid_start, presence, counts, bias,
-            max_steps=max_steps, with_logprobs=with_logprobs,
+            constraint, max_steps=max_steps, with_logprobs=with_logprobs,
         )
+
+    # grammar-constrained decoding (constrain/): the FSM state and the mask
+    # tables thread through decode; the first token rides the bias operand
+    supports_constrain = True
 
     # -- the continuous fleet (engine/continuous.py) --------------------------
     # The flags ContinuousEngine checks, as the JAX one does.
@@ -115,6 +126,16 @@ class SingleDeviceBackend:
     def decode_slots(self, state, cache, generator, sparams, *, num_steps):
         return G.decode_slots(self.cfg, self.params, state, cache, generator,
                               sparams, num_steps=num_steps)
+
+    # constrained slot decode (the dense fleet's constrained tenants; the
+    # fleet tables come from constrain/fleet.py)
+    supports_constrained_slots = True
+
+    def decode_slots_constrained(self, state, cache, generator, sparams, fsm,
+                                 cmask, ctrans, *, num_steps):
+        return G.decode_slots_constrained(
+            self.cfg, self.params, state, cache, generator, sparams, fsm, cmask,
+            ctrans, num_steps=num_steps)
 
     @property
     def supports_paged(self) -> bool:
@@ -295,6 +316,15 @@ class InferenceEngine:
         # (cfg, params) of the draft model the fleet's draft-model
         # speculation runs (set_draft), or None
         self._draft = None
+        # grammar-constraint compiled artifacts (constrain/): an LRU by
+        # canonical constraint hash. The token vocab and its trie are built
+        # once, lazily, and shared by every compile; an artifact keeps its
+        # device tables, so a repeated constraint uploads nothing. Own
+        # lock: the fleet's worker and request threads both compile
+        self._constraint_cache = collections.OrderedDict()
+        self._constraint_vocab = None
+        self._constraint_trie = None
+        self._constraint_lock = threading.Lock()
 
     def set_draft(self, dcfg: ModelConfig, dparams: Any = None, seed: int = 1):
         """Attach a draft model for the fleet's draft-model speculation
@@ -480,8 +510,11 @@ class InferenceEngine:
 
         debug=True adds "top_predictions" (top-5 first-token candidates).
         logprobs=True adds per-token log-probabilities under the raw
-        model distribution. speculative=True, num_beams > 1 and a
-        constraint are not ported yet: invalid_request."""
+        model distribution. constraint (the /generate wire format, see
+        constrain.parse_constraint_spec) guarantees the response matches
+        it; it does not compose with num_beams > 1 or speculative.
+        speculative=True and num_beams > 1 are not ported yet:
+        invalid_request."""
         t_start = time.time()
         trace = Trace(request_id)
         with request_id_context(trace.request_id):
@@ -503,17 +536,21 @@ class InferenceEngine:
                         prompt, max_tokens, temperature, top_k, top_p, greedy,
                         chat, seed, t_start, debug, min_p, repetition_penalty,
                         stop, logprobs, logit_bias, frequency_penalty,
-                        presence_penalty, trace,
+                        presence_penalty, constraint, trace,
                     )
 
             try:
+                if constraint is not None and (num_beams > 1 or speculative):
+                    # no per-beam FSM threads the beam reorder, and a
+                    # speculative verify compares drafts with an unmasked
+                    # argmax: refused by name, never silently unconstrained
+                    what = "num_beams > 1" if num_beams > 1 else "speculative"
+                    raise ValueError(f"constraint does not compose with {what}")
                 self._check_solo_prefix()
                 if speculative:
                     raise not_ported("speculative decoding")
                 if num_beams > 1:
                     raise not_ported("beam search (num_beams > 1)")
-                if constraint is not None:
-                    raise not_ported("grammar constraints")
                 result = self._with_deadline(
                     locked, "generate", deadline_s=dl_s, exceeded_type=dl_type
                 )
@@ -702,6 +739,52 @@ class InferenceEngine:
             messages, arch=self.cfg.arch, template=self.cfg.chat_template
         )
 
+    def _compile_constraint(self, raw: dict):
+        """Wire-format constraint -> CompiledConstraint through the engine
+        LRU (engine_cfg.constraint_cache_entries). A malformed spec, an
+        unsupported schema or an oversized DFA raises ValueError (the
+        caller's invalid_request envelope)."""
+        from .. import constrain as C
+
+        if not getattr(self.backend, "supports_constrain", False):
+            raise ValueError(
+                f"backend {self.backend.name!r} does not support "
+                f"constrained decoding; serve constrained requests on the "
+                f"single-device backend"
+            )
+        spec = C.parse_constraint_spec(raw)
+        key = C.constraint_key(spec)
+        with self._constraint_lock:
+            art = self._constraint_cache.get(key)
+            if art is not None:
+                self._constraint_cache.move_to_end(key)
+                return art
+            if self._constraint_vocab is None:
+                self._constraint_vocab = C.TokenVocab.from_tokenizer(
+                    self.tokenizer, self.cfg.vocab_size,
+                    eos_ids=self.cfg.all_stop_ids,
+                    special_ids=(self.cfg.pad_token_id, self.cfg.bos_token_id),
+                )
+                from ..constrain.tables import _build_trie
+
+                self._constraint_trie = _build_trie(self._constraint_vocab)
+            art = C.compile_constraint(spec, self._constraint_vocab,
+                                       self._constraint_trie)
+            self._constraint_cache[key] = art
+            while len(self._constraint_cache) > max(
+                    1, self.engine_cfg.constraint_cache_entries):
+                self._constraint_cache.popitem(last=False)
+            return art
+
+    def _constraint_bias(self, art, bias, state: Optional[int] = None):
+        """Fold the mask of FSM state `state` (the DFA start by default)
+        into the (possibly absent) logit_bias operand for the FIRST token,
+        which prefill samples before any decode FSM exists: -1e9 in fp32
+        on every banned token, which a +100 user bias cannot resurrect."""
+        st = art.start if state is None else state
+        mask_bias = torch.from_numpy(art.state_bias(st)).to(self.device)
+        return mask_bias if bias is None else bias + mask_bias
+
     def _bias_array(self, logit_bias) -> Optional[torch.Tensor]:
         """{token_id: bias} -> dense [V] float32 on validated ids, or None."""
         if not logit_bias:
@@ -725,11 +808,15 @@ class InferenceEngine:
         return out.to(self.device)
 
     def _decode_textual_stop_chunks(self, first, cache, prompt_len, max_tokens,
-                                    generator, sampling, dkw, logprobs, stop):
+                                    generator, sampling, dkw, logprobs, stop,
+                                    cart=None, fsm=None):
         """Decode in chunks that escalate up DECODE_BUCKETS when textual
         `stop` strings are set, checking the text between chunks, so a
-        stop that matches early does not decode the whole budget. Returns
-        (out [1, N] list rows, n_gen, step_lps or None, cache)."""
+        stop that matches early does not decode the whole budget. With a
+        constraint (`cart`, the FSM state `fsm` after the first token) the
+        host re-walks each chunk's tokens through the DFA, once per chunk,
+        so the next chunk resumes at the right state. Returns (out [1, N]
+        list rows, n_gen, step_lps or None, cache)."""
         budget = max_tokens - 1  # the first token came from prefill
         collected: list = []
         lps: list = []
@@ -767,6 +854,12 @@ class InferenceEngine:
                     torch.ones(len(row), dtype=cnt.dtype, device=cnt.device),
                 )
                 dkw = dict(dkw, counts=cnt)
+            if cart is not None and row:
+                for t in row:
+                    fsm = cart.advance(fsm, t)
+                dkw = dict(dkw, constraint=(
+                    torch.tensor([fsm], dtype=torch.int32, device=self.device),
+                ) + dkw["constraint"][1:])
             text = self.tokenizer.decode(
                 ([first_id] if first_id not in self.cfg.all_stop_ids else [])
                 + collected,
@@ -782,11 +875,16 @@ class InferenceEngine:
         self, prompt, max_tokens, temperature, top_k, top_p, greedy, chat,
         seed, t_start, debug=False, min_p=0.0, repetition_penalty=1.0,
         stop=None, logprobs=False, logit_bias=None, frequency_penalty=0.0,
-        presence_penalty=0.0, trace=None,
+        presence_penalty=0.0, constraint=None, trace=None,
     ):
         cfg = self.cfg
         self.request_count += 1
         bias = self._bias_array(logit_bias)
+        cart = self._compile_constraint(constraint) if constraint else None
+        if cart is not None:
+            bias = self._constraint_bias(cart, bias)
+            if trace is not None:
+                trace.checkpoint("constraint_compile")
         text = self.render_chat(prompt) if chat else prompt
         ids = self.tokenizer.encode(text)
         prompt_len = len(ids)
@@ -843,11 +941,20 @@ class InferenceEngine:
             )
         if bias is not None:
             dkw["bias"] = bias
+        fsm0 = None
+        if cart is not None:
+            # the FSM state after the (bias-masked) first token, walked on
+            # the host off the first id already fetched; the decode loop
+            # then advances it on the device with no host read per token
+            fsm0 = cart.advance(cart.start, first_id)
+            cm, ct = cart.device_tables(self.device)
+            dkw["constraint"] = (
+                torch.tensor([fsm0], dtype=torch.int32, device=self.device), cm, ct)
         step_lps = None
         if stop:
             out, n_gen, step_lps, cache = self._decode_textual_stop_chunks(
                 first, cache, prompt_len, max_tokens, generator, sampling,
-                dkw, logprobs, stop,
+                dkw, logprobs, stop, cart=cart, fsm=fsm0,
             )
         else:
             res = self.backend.decode(
@@ -920,6 +1027,8 @@ class InferenceEngine:
         if token_logprobs is not None:
             result["token_logprobs"] = token_logprobs
             result["token_strings"] = token_strings
+        if cart is not None:
+            result["constrained"] = True
         if top_predictions is not None:
             result["top_predictions"] = top_predictions
         return result
@@ -1008,7 +1117,7 @@ class InferenceEngine:
                 return self._generate_batch_locked(
                     prompts, max_tokens, temperature, top_k, top_p, greedy,
                     chat, seed, t_start, min_p, repetition_penalty, stop,
-                    frequency_penalty, presence_penalty, trace,
+                    frequency_penalty, presence_penalty, constraint, trace,
                 )
 
         with request_id_context(trace.request_id):
@@ -1022,8 +1131,6 @@ class InferenceEngine:
                     trace, engine="batch",
                 )
             try:
-                if constraint is not None:
-                    raise not_ported("grammar constraints")
                 result = self._with_deadline(
                     locked, "generate_batch", deadline_s=dl_s,
                     exceeded_type=dl_type,
@@ -1043,7 +1150,7 @@ class InferenceEngine:
     def _generate_batch_locked(
         self, prompts, max_tokens, temperature, top_k, top_p, greedy, chat,
         seed, t_start, min_p=0.0, repetition_penalty=1.0, stop=None,
-        frequency_penalty=0.0, presence_penalty=0.0, trace=None,
+        frequency_penalty=0.0, presence_penalty=0.0, constraint=None, trace=None,
     ):
         cfg = self.cfg
         if not prompts or not all(isinstance(p, str) and p for p in prompts):
@@ -1078,13 +1185,22 @@ class InferenceEngine:
         presence = (
             self._presence_rows(rows) if repetition_penalty != 1.0 else None
         )
+        # one shared grammar constraint: every row decodes under the SAME
+        # tables, each walking its own FSM state
+        cart = self._compile_constraint(constraint) if constraint else None
         generator = self._generator(seed)
         cache = self._batch_caches.pop(Bb, None)
         if cache is None:
             cache = self.backend.init_cache(Bb, cfg.max_seq_len)
+        pkw = {"presence": presence}
+        if cart is not None:
+            # the first token's mask rides the bias operand ([V] broadcasts
+            # over the rows), as on the solo path
+            pkw["bias"] = self._constraint_bias(cart, None)
+            if trace is not None:
+                trace.checkpoint("constraint_compile")
         first, logits, cache = self.backend.prefill(
-            tokens, bucket, cache, generator, sampling, valid_start,
-            presence=presence,
+            tokens, bucket, cache, generator, sampling, valid_start, **pkw,
         )
         # dummy rows start finished (first token forced to EOS), so the
         # decode loop's all-finished exit still fires
@@ -1102,9 +1218,18 @@ class InferenceEngine:
                             device=self.device),
                 first,
             )
+        bkw = {}
+        if cart is not None:
+            # each row's FSM state after its first token, walked on the host
+            # off the firsts already fetched (the dummy rows' EOS firsts
+            # start finished: their state is inert)
+            fsm0 = [cart.advance(cart.start, int(t)) for t in firsts]
+            cm, ct = cart.device_tables(self.device)
+            bkw["constraint"] = (torch.tensor(fsm0, dtype=torch.int32,
+                                              device=self.device), cm, ct)
         out, n_gen, cache = self.backend.decode(
             first, cache, bucket, max_tokens - 1, generator, sampling,
-            valid_start, presence, counts, max_steps=decode_bucket,
+            valid_start, presence, counts, max_steps=decode_bucket, **bkw,
         )
         out, n_gen = out.tolist(), n_gen.tolist()
         if trace is not None:
@@ -1146,7 +1271,7 @@ class InferenceEngine:
             ttft_s=round(ttft, 4), aggregate_tokens_per_sec=round(tps, 2),
             elapsed_s=round(elapsed, 3),
         )
-        return {
+        result = {
             "results": results,
             "status": "success",
             "batch_size": B,
@@ -1156,6 +1281,9 @@ class InferenceEngine:
             "ttft_s": round(ttft, 4),
             "backend": self.backend.name,
         }
+        if cart is not None:
+            result["constrained"] = True
+        return result
 
     # -- perf stats ----------------------------------------------------------
     def stats(self) -> dict:

@@ -13,7 +13,11 @@ engine/generate.py in PyTorch).
   * **decode_slots** advances the dense slot fleet (continuous batching
     without a block pool) `num_steps` tokens, each row at its own
     position, and **insert_slot** splices a prefilled batch-1 scratch
-    row into a free slot and arms it.
+    row into a free slot and arms it;
+  * grammar constraints (constrain/): **decode**'s optional `constraint`
+    carry and **decode_slots_constrained** mask each step's logits with
+    `fsm_allowed` and advance the FSM states with `fsm_advance`, two
+    gathers on the device per step and no host read.
 
 The cache is updated in place; each function returns it for symmetry
 with the JAX API. Random draws come from one `torch.Generator` per
@@ -72,6 +76,22 @@ def presence_update(presence: torch.Tensor, tokens: torch.Tensor) -> torch.Tenso
     """Mark tokens [B] as seen in presence [B, V] (repetition penalty)."""
     V = presence.shape[-1]
     return presence | (torch.arange(V, device=presence.device)[None, :] == tokens[:, None])
+
+
+def fsm_allowed(cmask: torch.Tensor, fsm: torch.Tensor) -> torch.Tensor:
+    """Allowed-token mask rows for the current FSM states: one gather
+    ([S, V] table x [B] states -> [B, V]), the grammar constraint's whole
+    per-token mask cost (constrain/)."""
+    return cmask.index_select(0, fsm)
+
+
+def fsm_advance(ctrans: torch.Tensor, fsm: torch.Tensor, tokens: torch.Tensor,
+                active: torch.Tensor) -> torch.Tensor:
+    """Advance FSM states [B] through the sampled tokens [B] (one element
+    of the [S, V] transition table per row); rows with active=False
+    (finished or idle slots) keep their state."""
+    nxt = ctrans[fsm.long(), tokens.long()].to(fsm.dtype)
+    return torch.where(active, nxt, fsm)
 
 
 def stop_mask(cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -134,6 +154,7 @@ def decode(
     presence=None,
     counts=None,
     bias=None,
+    constraint=None,
     *,
     max_steps: int,
     with_logprobs: bool = False,
@@ -145,7 +166,12 @@ def decode(
     call (clamped to max_steps). Returns (tokens [B, max_steps], n_gen
     [B], cache), plus per-step log-probabilities [B, max_steps] of the
     emitted tokens under the raw model distribution when with_logprobs.
-    The loop reads `finished` on the host once per step to exit early."""
+    The loop reads `finished` on the host once per step to exit early.
+
+    constraint: None, or (fsm0 [B] int32, cmask [S, V] bool, ctrans
+    [S, V] int32), a grammar constraint (constrain/): each step masks the
+    logits with cmask[fsm] and advances fsm = ctrans[fsm, token], on the
+    device, with no further host read."""
     B = first_token.shape[0]
     device = first_token.device
     limit = min(int(limit), int(max_steps))
@@ -157,18 +183,26 @@ def decode(
     finished = stop_mask(cfg, first_token)
     token = torch.where(finished, pad, first_token)
     pos = int(start_pos)
+    fsm = cmask = ctrans = None
+    if constraint is not None:
+        fsm, cmask, ctrans = constraint
     for step in range(limit):
         if bool(finished.all()):
             break
         logits, cache = _forward_step(cfg, params, token[:, None], cache, pos,
                                       valid_start)
-        nxt = sample_token(generator, logits, *sampling, presence=presence,
-                           counts=counts, bias=bias)
+        nxt = sample_token(
+            generator, logits, *sampling, presence=presence, counts=counts,
+            bias=bias,
+            allowed=fsm_allowed(cmask, fsm) if fsm is not None else None,
+        )
         if presence is not None:
             presence = presence_update(presence, nxt)
         finished = finished | stop_mask(cfg, nxt)
         if counts is not None:
             counts = count_update(counts, nxt, ~finished)
+        if fsm is not None:
+            fsm = fsm_advance(ctrans, fsm, nxt, ~finished)
         out[:, step] = torch.where(finished, pad, nxt)
         if with_logprobs:
             logp = torch.log_softmax(logits.float(), dim=-1)
@@ -255,12 +289,14 @@ def init_slots(n_slots: int, vocab_size: int, device=None):
 
 
 def slot_step(cfg: ModelConfig, state: SlotState, sparams: SlotParams,
-              logits, generator):
+              logits, generator, allowed=None):
     """ONE copy of the per-step slot sampling and bookkeeping (the JAX
     package's slot_step): each row samples with its own knobs, then
     break-before-append EOS, the budget, the pad token on deactivation
     and the presence / count updates. Inactive rows ride along as greedy
-    and emit nothing. Returns (new_state, emit [B], can_emit [B])."""
+    and emit nothing. allowed [B, V]: optional grammar-constraint mask
+    rows (slot_step_constrained gathers them from the fleet table).
+    Returns (new_state, emit [B], can_emit [B])."""
     pad = cfg.pad_token_id
     nxt = sample_token(
         generator, logits,
@@ -268,7 +304,7 @@ def slot_step(cfg: ModelConfig, state: SlotState, sparams: SlotParams,
         sparams.top_p[:, None], sparams.greedy | ~state.active,
         sparams.min_p[:, None], sparams.rep_penalty[:, None],
         sparams.freq_penalty[:, None], sparams.pres_penalty[:, None],
-        presence=state.presence, counts=state.counts,
+        presence=state.presence, counts=state.counts, allowed=allowed,
     ).to(torch.int32)
     can_emit = state.active & ~stop_mask(cfg, nxt) & (state.remaining > 0)
     emit = torch.where(can_emit, nxt, pad)
@@ -281,6 +317,19 @@ def slot_step(cfg: ModelConfig, state: SlotState, sparams: SlotParams,
         counts=count_update(state.counts, nxt, can_emit),
     )
     return new, emit, can_emit
+
+
+def slot_step_constrained(cfg: ModelConfig, state: SlotState,
+                          sparams: SlotParams, logits, generator, fsm, cmask,
+                          ctrans):
+    """slot_step under the FLEET constraint tables (constrain/fleet.py):
+    fsm [B] indexes the combined table, whose row 0 is the free state, so
+    unconstrained slots ride the same two gathers as a no-op. Returns
+    (new_state, emit [B], can_emit [B], new_fsm [B])."""
+    new, emit, can_emit = slot_step(cfg, state, sparams, logits, generator,
+                                    allowed=fsm_allowed(cmask, fsm))
+    # emit == the sampled token exactly where can_emit; frozen elsewhere
+    return new, emit, can_emit, fsm_advance(ctrans, fsm, emit, can_emit)
 
 
 def arm_slot(cfg, state: SlotState, sparams: SlotParams, slot: int,
@@ -335,6 +384,27 @@ def decode_slots(cfg: ModelConfig, params, state: SlotState, cache, generator,
         emitted.append(emit)
         masks.append(can_emit)
     return torch.stack(emitted), torch.stack(masks), state, cache
+
+
+@torch.no_grad()
+def decode_slots_constrained(cfg: ModelConfig, params, state: SlotState, cache,
+                             generator, sparams: SlotParams, fsm, cmask, ctrans,
+                             *, num_steps: int):
+    """decode_slots under the fleet constraint tables (cmask [S, V] bool,
+    ctrans [S, V] int32): the same chunk contract plus the fsm [B] int32
+    carry, chained on the device between chunks (admission and release
+    set rows from the host; decode never reads it back). The dense fleet
+    launches it only while >= 1 constrained slot is active. Returns
+    (emitted, emit_mask, state, cache, fsm)."""
+    emitted, masks = [], []
+    for _ in range(num_steps):
+        logits, cache = _forward_step(cfg, params, state.token[:, None], cache,
+                                      state.pos)
+        state, emit, can_emit, fsm = slot_step_constrained(
+            cfg, state, sparams, logits, generator, fsm, cmask, ctrans)
+        emitted.append(emit)
+        masks.append(can_emit)
+    return torch.stack(emitted), torch.stack(masks), state, cache, fsm
 
 
 @torch.no_grad()

@@ -3,7 +3,7 @@ counterpart of the JAX package's jitted programs (engine/paged.py
 `decode_slots_paged` :499-501, `mixed_step_ragged` :1130 without and with
 its speculation operands, `mixed_fill_draft` :1225 and
 `draft_propose_paged` :1256, and the dense engine/generate.py
-`decode_slots`).
+`decode_slots` and `decode_slots_constrained`).
 
 A launch kind is a function of no arguments over the fleet's STATIC
 buffers: the slot state and knobs, the block table, the mixed launch's
@@ -23,6 +23,13 @@ back into them in place (`commit`) and returns one packed int32 result.
 
 A capture that fails raises GraphCaptureError with its cause: a CUDA fleet
 never carries on with eager launches.
+
+The dense fleet's constrained decode chunk (`decode_chunk_constrained`)
+also reads the static FSM vector `fsm` [n_slots] int32 and the views of
+the fleet's constraint table for one bucket (constrain/fleet.py): the
+table's rows are rewritten in place on the launch stream, and the fleet
+captures one graph per bucket it crosses (the JAX package recompiles its
+constrained program at a bucket).
 
 A fleet with an adapter pool (engine/adapters.py) hands its target
 launch kinds a static `pages` [n_slots] int32 input, copied in place from
@@ -208,6 +215,20 @@ def decode_chunk(backend, state: G.SlotState, sparams: G.SlotParams, cache,
         emitted, mask, new, _ = backend.decode_slots(
             state, cache, generator, sparams, num_steps=num_steps)
     commit(state, new)
+    return G.pack_chunk(emitted, mask, state.active)
+
+
+def decode_chunk_constrained(backend, state: G.SlotState, sparams: G.SlotParams,
+                             cache, fsm: torch.Tensor, cmask: torch.Tensor,
+                             ctrans: torch.Tensor, generator, num_steps: int):
+    """One constrained decode chunk of the dense fleet over its static
+    buffers: the FSM states `fsm` [B] index the fleet table (cmask [S, V]
+    bool, ctrans [S, V] int32; row 0 the free state). The state and the
+    FSM states are written back in place; returns the packed [2K+1, B]."""
+    emitted, mask, new, _, new_fsm = backend.decode_slots_constrained(
+        state, cache, generator, sparams, fsm, cmask, ctrans, num_steps=num_steps)
+    commit(state, new)
+    fsm.copy_(new_fsm)
     return G.pack_chunk(emitted, mask, state.active)
 
 

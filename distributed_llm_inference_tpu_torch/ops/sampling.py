@@ -106,12 +106,16 @@ def sample_token(
     presence: torch.Tensor = None,
     counts: torch.Tensor = None,
     bias: torch.Tensor = None,
+    allowed: torch.Tensor = None,
 ) -> torch.Tensor:
     """Full sampling stack -> int64 token ids, shape logits.shape[:-1].
 
     Order as in the JAX package: logit bias on the raw logits, then the
     repetition penalty and the OpenAI penalties (these apply to the greedy
-    argmax too), then greedy bypass (a true argmax, first index on ties)
+    argmax too), then the grammar-constraint mask `allowed` ([..., V]
+    bool, None = unconstrained; constrain/): disallowed tokens drop to
+    NEG_INF, so a +100 bias never resurrects one and the greedy argmax
+    obeys it too; then greedy bypass (a true argmax, first index on ties)
     or the warpers — temperature, top-k, top-p, min-p over ONE descending
     sort — and a categorical draw from `generator`."""
     logits = logits.float()
@@ -121,6 +125,10 @@ def sample_token(
         logits = apply_repetition_penalty(logits, presence, rep_penalty)
     if counts is not None and freq_penalty is not None:
         logits = apply_oai_penalties(logits, counts, freq_penalty, pres_penalty)
+    if allowed is not None:
+        # the table compiler keeps >= 1 allowed token in every row (EOS at
+        # worst), so a masked row is never all NEG_INF
+        logits = torch.where(allowed, logits, NEG_INF)
     greedy_t = torch.as_tensor(greedy)
     if greedy_t.dim() == 0 and bool(greedy_t):
         return torch.argmax(logits, dim=-1)

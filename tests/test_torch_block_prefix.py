@@ -50,6 +50,11 @@ PROMPTS = ["the quick brown fox", "jumps over", "a lazy dog while the band plays
 # the admissions a hit runs through: the main path (chunked mixed
 # launches, ragged) and the bucketed whole-prefill (a gathered scratch)
 MODES = {"ragged": {}, "bucketed": {"ragged_prefill": False}}
+# one SLO class whose TPOT target no CPU step reaches: the chunked
+# scheduler halves a step's prefill budget under decode TPOT pressure, a
+# wall-clock signal, which would let each fleet slice a wave's prompt
+# chunks differently from run to run
+STEADY = dict(slo_classes=(("standard", 60.0, 60.0, 1.0, False),))
 GEN = dict(greedy=True, chat=False)
 
 
@@ -269,6 +274,20 @@ def _wave(cont, prompts, **kw):
     return out
 
 
+def _queued_wave(mod, cont, prompts, **kw):
+    """The prompts' envelopes, every request queued before the fleet's
+    worker can admit any: they go in under the fleet's condition lock (a
+    reentrant lock the worker takes to read the queue), so both packages'
+    fleets see the one batch of admissions, whatever the threads' timing."""
+    with cont._cv:
+        reqs = [mod._Request(p, dict(GEN, **kw)) for p in prompts]
+        for req in reqs:
+            assert cont._enqueue(req) is None
+    for req in reqs:
+        assert req.done.wait(timeout=120)
+    return [req.result for req in reqs]
+
+
 def _clean(st) -> bool:
     pg = st["paged"]
     return pg["free_blocks"] + pg["cached_blocks"] == pg["pool_blocks"] - 1
@@ -440,17 +459,20 @@ def test_shared_head_bytes_unchanged_across_a_wave(weights, mode):
     """A wave of concurrent hits with distinct tails reads the registered
     head and never writes it: its blocks' bytes are the same after the wave
     (tails, decode, launch padding and the trash go elsewhere), the wave's
-    ids are the JAX fleet's, and at idle only the index holds blocks."""
+    ids are the JAX fleet's hits behind the same head, and at idle only
+    the index holds blocks. The four hits are queued before the worker
+    can admit any, and one SLO class no CPU step can pressure slices
+    their prompt chunks the same way in every run."""
     head = SHARED + "and the rest of a long common preamble "
     tails = [f"tail {i} " * (i + 1) for i in range(4)]
-    _, teng = _engines(weights, **MODES[mode])
+    _, teng = _engines(weights, **MODES[mode], **STEADY)
     cont = _cont(TC, teng, n_slots=4, kv_pool_blocks=60)
     try:
         _ids(cont.submit(head + "register", **GEN, max_tokens=4))
         ids = teng.tokenizer.encode(head + "x" * 40)
         p0, blocks, before = _head_digest(cont, ids)
         assert p0 >= 6 * BS
-        got = _wave(cont, [head + t for t in tails], max_tokens=12)
+        got = _queued_wave(TC, cont, [head + t for t in tails], max_tokens=12)
         assert all(r["prefix_cached_tokens"] >= 6 * BS for r in got)
         assert _head_digest(cont, ids) == (p0, blocks, before)
         st = cont.stats()
@@ -458,11 +480,17 @@ def test_shared_head_bytes_unchanged_across_a_wave(weights, mode):
         assert _clean(st)
     finally:
         cont.close()
-    jeng, _ = _engines(weights, **MODES[mode])
+    # the JAX fleet's ids for the same prompts behind the same registered
+    # head, served one at a time: its own wave of these four hits gives
+    # other greedy tokens in about one process in three (ROADMAP Queue 3),
+    # where its one-at-a-time service and the teacher-forced logits of
+    # both packages agree with the port's wave
+    jeng, _ = _engines(weights, **MODES[mode], **STEADY)
     jcont = _cont(JC, jeng, n_slots=4, kv_pool_blocks=60)
     try:
         jcont.submit(head + "register", **GEN, max_tokens=4)
-        want = _wave(jcont, [head + t for t in tails], max_tokens=12)
+        want = [jcont.submit(head + t, **GEN, max_tokens=12) for t in tails]
     finally:
         jcont.close()
+    assert all(r["prefix_cached_tokens"] >= 6 * BS for r in want)
     assert [r["token_ids"] for r in got] == [_ids(r) for r in want]

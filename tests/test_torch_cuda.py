@@ -1714,3 +1714,166 @@ def test_adapter_page_loaded_after_capture_is_read_by_the_replay(card, kind, qua
         moved = moved or not torch.equal(a[:, 1:], c[:, 1:])
     assert moved, "the replay's K/V equal a base-only launch's"
     lg.close()
+
+
+# -- grammar constraints: the dense fleet's constrained chunk (constrain/) -------
+
+
+def _constrained_chunk_run(engine):
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    def run(b, gen):
+        return graphs.decode_chunk_constrained(
+            engine.backend, b["state"], b["sparams"], b["cache"], b["fsm"], b["cmask"],
+            b["ctrans"], gen, 4)
+    return run
+
+
+def test_constrained_chunk_replay_bit_equal_to_eager_across_a_table_rewrite(card):
+    """The dense fleet's constrained decode chunk captured over the static
+    FSM vector and one bucket's views of the fleet table (two constraints
+    resident, slots 0 and 2 constrained, slot 1 free): two replays
+    bit-equal to the eager body on a clone of the buffers (packed result,
+    slot state, FSM states, cache). Then a third constraint acquired in
+    the same bucket writes its rows IN PLACE and slot 1 moves onto it: the
+    replay under the sync check is bit-equal to eager again, the tables
+    keep their storage, and every constrained row emitted only tokens its
+    table allows."""
+    from distributed_llm_inference_tpu_torch.constrain import FleetConstraintTable
+    from distributed_llm_inference_tpu_torch.engine import graphs
+
+    engine = create_engine("test-llama-tiny", attn_impl="auto", seed=3, device=card)
+    bufs, _ = _graph_case(card, "dense_chunk", engine)
+    run = _constrained_chunk_run(engine)
+    table = FleetConstraintTable(engine.cfg.vocab_size, max_states=64)
+    arts = [engine._compile_constraint(s) for s in (
+        {"regex": "[0-9]{3}-[0-9]{4}"}, {"choices": ["alpha", "beta", "gamma"]},
+        {"regex": "[a-f]{2,5}"})]
+    offs = [table.acquire(a) for a in arts[:2]]
+    cm, ct = table.device_tables(card)
+    bucket = cm.shape[0]
+    bufs.update(cmask=cm, ctrans=ct, fsm=torch.tensor(
+        [offs[0] + arts[0].start, 0, offs[1] + arts[1].start, 0], dtype=torch.int32,
+        device=card))
+    ptrs = (cm.data_ptr(), ct.data_ptr())
+    gen = torch.Generator(device=card).manual_seed(11)
+    lg = graphs.LaunchGraph(lambda: run(bufs, gen), "decode_chunk_constrained", card, gen)
+    lg()
+
+    def replay_vs_eager(sync_check):
+        ref = _clone({k: v for k, v in bufs.items() if k not in ("cmask", "ctrans")})
+        ref.update(cmask=bufs["cmask"], ctrans=bufs["ctrans"])
+        g2 = torch.Generator(device=card)
+        g2.set_state(gen.get_state())
+        fsm_before = bufs["fsm"].clone()
+        torch.cuda.synchronize()
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = lg().clone()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = run(ref, g2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for name in ("state", "sparams"):
+            for a, b in zip(_tensors(bufs[name]), _tensors(ref[name])):
+                assert torch.equal(a, b), name
+        assert torch.equal(bufs["fsm"], ref["fsm"])
+        for a, b in zip(_tensors(bufs["cache"]), _tensors(ref["cache"])):
+            assert torch.equal(a, b)
+        # every emitted token of a constrained row is allowed by its state
+        em, mask = got[:4].cpu().numpy(), got[4:8].cpu().numpy().astype(bool)
+        mnp, tnp = (t.cpu().numpy() for t in table.device_tables(card))
+        st = fsm_before.cpu().numpy()
+        for k in range(4):
+            for b in range(4):
+                if mask[k, b]:
+                    assert mnp[st[b], em[k, b]], (k, b, st[b], em[k, b])
+                    st[b] = tnp[st[b], em[k, b]]
+        np_fsm = bufs["fsm"].cpu().numpy()
+        assert (np_fsm == st).all()
+        return got
+
+    for _ in range(2):
+        replay_vs_eager(False)
+    off_c = table.acquire(arts[2])  # a third constraint, the same bucket
+    cm2, ct2 = table.device_tables(card)
+    assert cm2.shape[0] == bucket and (cm2.data_ptr(), ct2.data_ptr()) == ptrs
+    mnp = cm2.cpu().numpy()
+    assert (mnp[off_c:off_c + arts[2].num_states] == arts[2].mask).all()
+    # slot 1 re-armed greedy with a fresh budget at position 70, on the new rows
+    from distributed_llm_inference_tpu_torch.engine import paged as P
+
+    st, sp = P.arm_slot_only(engine.cfg, bufs["state"], bufs["sparams"], 1, 11, 70, 12,
+                             1.0, 0, 1.0, True, 0.0, 1.0, 0.0, 0.0,
+                             torch.zeros(engine.cfg.vocab_size, dtype=torch.bool,
+                                         device=card))
+    graphs.commit((bufs["state"], bufs["sparams"]), (st, sp))
+    bufs["fsm"][1] = off_c + arts[2].start
+    got = replay_vs_eager(True)
+    assert int(got[4:8, 1].sum()) > 0  # slot 1 decoded under the new rows
+    assert (lg.captures, lg.replays) == (1, 3)
+    lg.close()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sample_token_allowed_greedy_on_cuda_equals_cpu(card, dtype):
+    """The grammar mask after bias and penalties, greedy: the card picks
+    the CPU's tokens, and only allowed ones (a bf16 row whose one allowed
+    token sits far below the max included)."""
+    from distributed_llm_inference_tpu_torch.ops import sampling as S
+
+    g = torch.Generator().manual_seed(0)
+    B, V = 6, 32000
+    logits = (torch.randn(B, V, generator=g) * 4).to(getattr(torch, dtype))
+    allowed = torch.rand(B, V, generator=g) < 0.01
+    allowed[5] = False
+    allowed[5, 123] = True
+    logits[5, 123] = -50.0
+    presence = torch.rand(B, V, generator=g) < 0.1
+    bias = torch.zeros(V)
+    bias[:50] = 100.0
+    args = (1.0, 0, 1.0, True, 0.0, 1.3, 0.0, 0.0)
+    want = S.sample_token(torch.Generator().manual_seed(1), logits, *args,
+                          presence=presence, bias=bias, allowed=allowed)
+    got = S.sample_token(torch.Generator(device=card).manual_seed(1), logits.to(card),
+                         *args, presence=presence.to(card), bias=bias.to(card),
+                         allowed=allowed.to(card))
+    assert torch.equal(got.cpu(), want)
+    assert allowed[torch.arange(B), want].all() and int(want[5]) == 123
+
+
+def test_dense_fleet_serves_constraints_through_the_constrained_graph(card):
+    """The dense fleet on the card with two constrained tenants and a free
+    one: the CPU fleet's greedy tokens on the same fp32 weights, the
+    constrained chunk captured once per bucket and replayed for the rest
+    of its launches, the plain chunk back once no tenant is constrained."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+
+    cpu = create_engine("test-llama-tiny", seed=3, device="cpu")
+    moved = {k: ({n: t.to(card) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(card)) for k, v in cpu.backend.params.items()}
+    gpu = create_engine(cpu.cfg, params=moved, attn_impl="auto", device=card)
+    reqs = [("pick a color:", {"regex": "(red|green|blue)"}),
+            ("tell me something", None), ("phone:", {"regex": "[0-9]{3}-[0-9]{4}"}),
+            ("after:", None)]
+    out = {}
+    for name, engine in (("cpu", cpu), ("card", gpu)):
+        fleet = ContinuousEngine(engine, n_slots=2, chunk_steps=4, slot_max_seq=128)
+        try:
+            rs = [fleet.submit(p, max_tokens=12, greedy=True, chat=False,
+                               **({"constraint": c} if c else {})) for p, c in reqs]
+            st = fleet.stats()
+        finally:
+            fleet.close()
+        out[name] = ([r["token_ids"] for r in rs], [r.get("constrained") for r in rs], st)
+    tokens, flags, st = out["card"]
+    assert tokens == out["cpu"][0] and flags == [True, None, True, None]
+    g, launches = st["graphs"], st["launches"]
+    cg = g["decode_chunk_constrained"]
+    assert cg["captures"] == len(cg["buckets"]) >= 1
+    assert cg["replays"] == launches["constrained_chunks"] - cg["captures"] >= 1
+    assert g["decode_chunk"]["captures"] == 1
+    assert g["decode_chunk"]["replays"] == (launches["decode_chunks"]
+                                            - launches["constrained_chunks"] - 1) >= 1

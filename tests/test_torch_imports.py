@@ -39,6 +39,40 @@ def test_port_never_imports_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_constrain_imports_nothing_of_jax():
+    """constrain/ (copied from the JAX package, its tables uploaded with
+    torch): each module imports neither jax nor the JAX package, and the
+    package compiles and uploads a constraint without loading either."""
+    names = sorted(p.stem for p in
+                   (ROOT / "distributed_llm_inference_tpu_torch" / "constrain").glob("*.py"))
+    assert names == ["__init__", "fleet", "regex", "schema", "tables", "vocab"]
+    for name in names:
+        path = ROOT / "distributed_llm_inference_tpu_torch" / "constrain" / f"{name}.py"
+        tree = ast.parse(path.read_text())
+        imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                    for a in n.names]
+        imported += [n.module for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom) and n.module and n.level == 0]
+        assert not [m for m in imported if _forbidden(m)], (name, imported)
+    probe = (
+        "import sys\n"
+        "from distributed_llm_inference_tpu_torch import constrain as C\n"
+        "from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer\n"
+        "v = C.TokenVocab.from_tokenizer(ByteTokenizer(), 300, (2,), (0, 1))\n"
+        "a = C.compile_constraint({'json_object': True}, v)\n"
+        "a.device_tables('cpu')\n"
+        "t = C.FleetConstraintTable(300, 64)\n"
+        "t.acquire(a)\n"
+        "t.device_tables('cpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'distributed_llm_inference_tpu')]\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
