@@ -257,10 +257,40 @@ one BF16 file, every projection):
       before it kept, no page loaded again), one adapter request under
       --quant int4 --kv-quant int8 with q4_matmul_rows as in (k).
 
+Run after (C), before (j), on engines of (g)'s weights whose tokenizer
+spells every id (a response is its token ids):
+
+  (S) the solo engine's features through the port's server. (S1) a
+      greedy "speculative": true request (a 300-token repetitive prompt,
+      32 new) on a solo server: flash_attend n_layers times per prefill
+      chunk and per verify forward (T = 5), the ids of the plain request
+      or a parting at a near-tie (the plain path's top-2 gap under
+      LOGITS_ATOL), verify forwards, accepted drafts, host reads per
+      token, tokens/s against plain; the same request to a dense fleet,
+      served by the solo engine. (S2) the target as its own draft, then a
+      2-layer draft (create_engine(draft_model=...), seed 1): acceptance,
+      tokens/s, flash_attend n_layers per target chunk and verify plus the
+      draft's layers per ingest chunk, a greedy repeat identical. (S3)
+      num_beams 4, early_stopping both ways: 4 beams sorted by score, a
+      repeat identical, beam 0 against an attn_impl="plain" engine's,
+      flash_attend for the prefill chunk alone, the cache reorder's device
+      ms per step. (S4) /v1/completions echo scoring of 700 tokens: 6
+      chunks of n_layers launches, logprobs against the plain engine's
+      within LOGITS_ATOL and the same top-1 outside near-ties, the
+      echo_score_response shape, a fifth concurrent scorer 429. (S5) a
+      solo server with --prefix-cache 4: hits behind a 512-token head
+      (TTFT against cold, the tail chunk's n_layers launches and no head
+      chunk, ids equal cold, the hits counter, one snapshot's bytes), one
+      int8 hit; the dense fleet's wave of 8 behind the head against an
+      uncached wave. (S6) --queue 16 --queue-max-batch 8 --queue-wait-ms
+      5: 8 concurrent greedy requests coalesced, each against its run
+      alone, aggregate tokens/s against one by one.
+
 `python3 chip_smoke.py --only s` runs (a), then (s), (t) and (u) alone on
 the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
 `--only w` runs (a), then (w) alone; `--only x` runs (a), then (x) alone;
-`--only y` runs (a), then (y) alone; `--only z` runs (a), then (z) alone.
+`--only y` runs (a), then (y) alone; `--only z` runs (a), then (z) alone;
+`--only S` runs (a), then (S) alone.
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
@@ -5895,6 +5925,490 @@ def phase_C(torch, engine, pa, fa, Q, P, G, M, smi):
     return launches
 
 
+S_NEW = 32  # new tokens per (S) request
+S_SPEC_TOKENS = 300  # (S1)/(S2)'s repetitive prompt, (x)'s kind
+S_BEAM_TOKENS = 100  # (S3): inside one prefill bucket
+S_SCORE_TOKENS = 700  # (S4): six scoring chunks
+S_QUEUE_TOKENS = (20, 35, 50, 65, 80, 95, 110, 125)  # (S6): one bucket each
+S_TAIL = 100  # (S5)'s solo tails behind the 512-token head: one tail chunk
+S_DENSE_TAILS = (20, 30, 40, 50, 60, 70, 80, 90)  # (S5)'s dense wave behind it
+S_DRAFT_LAYERS = 2  # (S2)'s small draft: tinyllama's widths, 2 layers, seed 1
+
+
+def s_engine(engine, kv_quant=None, draft_model=None, **ecfg):
+    """(g)'s model and weights with other engine settings (and an attached
+    draft), with (y)'s tokenizer whose decode spells every id, so a
+    response is its token ids."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    tok = y_engine(engine).tokenizer
+    return create_engine(engine.cfg, params=engine.backend.params, device=DEVICE,
+                         kv_quant=kv_quant, draft_model=draft_model, tokenizer=tok,
+                         engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS, **ecfg))
+
+
+def s_ids(r) -> list:
+    """A response's token ids (the spelled-id tokenizer's text)."""
+    return [int(t) for t in r["response"].split()]
+
+
+def s_gap(torch, G, peng, ids) -> float:
+    """The top-2 logit gap of the next token after `ids`, teacher-forced
+    through the plain engine (attn_impl "plain") in one prefill."""
+    cache = peng.backend.init_cache(1, peng.cfg.max_seq_len)
+    _, logits, _ = G.prefill(peng.cfg, peng.backend.params,
+                             torch.tensor([ids], device=DEVICE), len(ids), cache,
+                             torch.Generator(device=DEVICE).manual_seed(0),
+                             G.default_sampling(greedy=True))
+    top = logits[0].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def s_identity(tag, torch, G, peng, prompt, got, want):
+    """got equals want, or parts only at a near-tie: the plain path's top-2
+    gap at the parting under LOGITS_ATOL. Returns None or {at, gap}."""
+    at = parts_at(got, want)
+    if at is None:
+        return None
+    gap = s_gap(torch, G, peng, peng.tokenizer.encode(prompt) + list(want[:at]))
+    check(gap < LOGITS_ATOL, f"{tag}: the ids part at token {at} where the plain "
+                             f"path's top-2 gap is {gap:.4f}")
+    return {"at": at, "gap": round(gap, 4)}
+
+
+def s_add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def s_only(tag, counts, allowed):
+    """No kernel outside `allowed` launched."""
+    others = {k: v for k, v in counts.items() if k not in allowed and v}
+    check(not others, f"{tag}: another kernel ran: {others}")
+
+
+def s_server(eng, **kw):
+    """The port's server over `eng`, after one short request: a fresh
+    engine's first request pays ~1 s of first-use cost on the card, which
+    would land on whichever request a phase times first."""
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    server = InferenceServer(eng, host="127.0.0.1", port=0, max_tokens_cap=512, **kw)
+    server.start()
+    post(server.port, {"prompt": "warm", "max_tokens": 2, "chat": False, "greedy": True})
+    return server
+
+
+def s_drive(server, body, pa, fa, Q, launches):
+    """POST one body with every kernel count at 0 just before; the counts
+    join `launches` (the kernels line's launches_S). Returns (code,
+    envelope, wall, counts)."""
+    reset_counts(pa, fa, Q)
+    code, r, wall = post(server.port, body)
+    counts = read_counts(pa, fa, Q)
+    s_add(launches, counts)
+    return code, r, wall, counts
+
+
+def phase_S1(torch, engine, peng, pa, fa, Q, G, smi, launches):
+    """(S1) prompt-lookup speculation on a solo server, then on a dense
+    fleet (which sends the request to the solo engine)."""
+    L = engine.cfg.n_layers
+    seng = s_engine(engine)
+    body = {"prompt": x_prompt(0, S_SPEC_TOKENS), "max_tokens": S_NEW, "greedy": True,
+            "chat": False}
+    chunks = len(chunk_shapes(seng, body))
+    server = s_server(seng)
+    try:
+        reads0 = G.spec_loop.host_reads
+        code, spec, _, c = s_drive(server, dict(body, speculative=True), pa, fa, Q,
+                                   launches)
+        reads = G.spec_loop.host_reads - reads0
+        check(code == 200 and spec.get("speculative") is True
+              and spec.get("spec_path") == "solo", f"(S1) {code} {spec}")
+        verifies = reads - 1  # the first token's stop flag, then one per verify
+        check(c["flash_attend"] == L * (chunks + verifies),
+              f"(S1) flash_attend launched {c['flash_attend']} times for {chunks} "
+              f"prefill chunks and {verifies} verify forwards of {L} layers")
+        s_only("(S1)", c, ("flash_attend",))
+        code, plain, _, c = s_drive(server, body, pa, fa, Q, launches)
+        check(code == 200 and "speculative" not in plain, f"(S1) plain {plain}")
+        check(c["flash_attend"] == L * chunks, f"(S1) plain request: {c}")
+    finally:
+        server.shutdown()
+    part = s_identity("(S1)", torch, G, peng, body["prompt"], s_ids(spec), s_ids(plain))
+    emitted = spec["tokens_generated"] - 1  # the first token is the prefill's
+    accepted = emitted - verifies
+    print(f"(S1) n-gram speculation, {S_SPEC_TOKENS}-token repetitive prompt, {S_NEW} new: "
+          f"{verifies} verify forwards for {emitted} decoded tokens ({accepted} drafted "
+          f"tokens accepted, {accepted / max(verifies, 1):.3f} per forward); host reads "
+          f"{reads} = {reads / spec['tokens_generated']:.3f} per token; tokens/s "
+          f"{spec['tokens_per_sec']} against plain {plain['tokens_per_sec']}; ttft_s "
+          f"{spec['ttft_s']} / {plain['ttft_s']}; ids vs plain: "
+          f"{'identical' if part is None else json.dumps(part)} ({smi})")
+    if accepted == 0:
+        print("(S1) random weights accepted no n-gram draft (as in (x))")
+    fleet, server = fleet_server(seng, DENSE_FLEET)
+    try:
+        code, r, _, c = s_drive(server, dict(body, speculative=True), pa, fa, Q, launches)
+    finally:
+        server.shutdown()
+    check(code == 200 and r.get("spec_path") == "solo" and "continuous" not in r,
+          f"(S1) the dense fleet's speculative request: {r}")
+    check(s_ids(r) == s_ids(spec), "(S1) the dense fleet's solo answer differs")
+    s_only("(S1) dense", c, ("flash_attend",))
+    print(f"(S1) dense fleet (--continuous 8, no pool): the speculative request served "
+          f"by the solo engine (spec_path solo), the same ids")
+    return spec
+
+
+def phase_S2(torch, engine, peng, pa, fa, Q, G, smi, launches):
+    """(S2) draft-model speculation: the target as its own draft, then a
+    2-layer draft made by create_engine(draft_model=...)."""
+    L = engine.cfg.n_layers
+    body = {"prompt": x_prompt(1, S_SPEC_TOKENS), "max_tokens": S_NEW, "greedy": True,
+            "chat": False}
+    dcfg = engine.cfg.replace(n_layers=S_DRAFT_LAYERS, name="tinyllama-2-layer-draft")
+    plain = None
+    for name in ("the target", f"a {S_DRAFT_LAYERS}-layer draft"):
+        if plain is None:
+            deng = s_engine(engine)
+            deng.set_draft(engine.cfg, engine.backend.params)
+        else:
+            deng = s_engine(engine, draft_model=dcfg)
+        dL = deng._draft[0].n_layers
+        chunks = len(chunk_shapes(deng, body))
+        server = s_server(deng)
+        try:
+            if plain is None:
+                code, plain, _, c = s_drive(server, body, pa, fa, Q, launches)
+                check(code == 200 and "speculative" not in plain, f"(S2) plain {plain}")
+            reads0 = G.draft_spec_loop.host_reads
+            code, spec, _, c = s_drive(server, dict(body, speculative=True), pa, fa, Q,
+                                       launches)
+            verifies = G.draft_spec_loop.host_reads - reads0 - 1
+            check(code == 200 and spec.get("draft_model") == deng._draft[0].name,
+                  f"(S2) {code} {spec}")
+            want = L * (chunks + verifies) + dL * chunks
+            check(c["flash_attend"] == want,
+                  f"(S2) flash_attend launched {c['flash_attend']} times, not {want}: "
+                  f"{chunks} target chunks and {chunks} draft-ingest chunks ({dL} "
+                  f"layers) and {verifies} verify forwards")
+            s_only("(S2)", c, ("flash_attend",))
+            code, again, _, _ = s_drive(server, dict(body, speculative=True), pa, fa, Q,
+                                        launches)
+            check(s_ids(again) == s_ids(spec), f"(S2) {name}: a greedy repeat differs")
+        finally:
+            server.shutdown()
+        part = s_identity("(S2)", torch, G, peng, body["prompt"], s_ids(spec),
+                          s_ids(plain))
+        emitted = spec["tokens_generated"] - 1
+        accepted = emitted - verifies
+        acceptance = accepted / max(4 * verifies, 1)
+        if plain is not None and dL == L:
+            check(acceptance > 0.5, f"(S2) the target as its own draft accepted only "
+                                    f"{acceptance:.3f} of its drafts")
+        print(f"(S2) {name} as the draft ({dL} layers): {verifies} verify forwards for "
+              f"{emitted} decoded tokens, acceptance {acceptance:.3f} ({accepted} of "
+              f"{4 * verifies} drafted); tokens/s {spec['tokens_per_sec']} against plain "
+              f"{plain['tokens_per_sec']}; flash_attend {c['flash_attend']} = {L} x "
+              f"({chunks} + {verifies}) + {dL} x {chunks}; ids vs plain: "
+              f"{'identical' if part is None else json.dumps(part)}; a repeat identical "
+              f"({smi})")
+
+
+def phase_S3(torch, engine, peng, pa, fa, Q, G, timer, smi, launches):
+    """(S3) beam search: 4 beams, early_stopping both ways, against the
+    plain engine; the reorder's device ms per step."""
+    L = engine.cfg.n_layers
+    seng = s_engine(engine)
+    server = s_server(seng)
+    prompt = fleet_prompt(1, S_BEAM_TOKENS)
+    try:
+        for es in (True, False):
+            body = {"prompt": prompt, "max_tokens": S_NEW, "chat": False, "num_beams": 4,
+                    "length_penalty": 1.0, "early_stopping": es}
+            code, r, wall, c = s_drive(server, body, pa, fa, Q, launches)
+            check(code == 200 and len(r["beams"]) == 4, f"(S3) {code} {r}")
+            scores = [b["score"] for b in r["beams"]]
+            check(scores == sorted(scores, reverse=True), f"(S3) beams out of order {scores}")
+            check(c["flash_attend"] == L, f"(S3) flash_attend {c['flash_attend']} for the "
+                                          f"one prefill chunk of {L} layers")
+            s_only("(S3)", c, ("flash_attend",))
+            code, again, _, _ = s_drive(server, body, pa, fa, Q, launches)
+            check(again["beams"] == r["beams"], "(S3) a repeat gave other beams")
+            ref = peng.generate(prompt, **{k: v for k, v in body.items() if k != "prompt"})
+            b0, p0 = r["beams"][0], ref["beams"][0]
+            same = b0["text"] == p0["text"]
+            check(same or abs(b0["score"] - p0["score"]) < LOGITS_ATOL,
+                  f"(S3) beam 0 parts from the plain engine's at scores {b0['score']} / "
+                  f"{p0['score']}")
+            print(f"(S3) early_stopping={es}: 4 beams, scores {scores}, beam 0 "
+                  f"{b0['tokens']} tokens, {'equal to' if same else 'parting from'} the "
+                  f"plain engine's beam 0 (score {p0['score']}); wall {wall:.3f} s, ttft_s "
+                  f"{r['ttft_s']}; flash_attend {c['flash_attend']} (the prefill chunk); "
+                  f"a repeat identical ({smi})")
+    finally:
+        server.shutdown()
+    cache = G.tile_cache(seng._cache, 4)
+    parents = torch.tensor([1, 0, 0, 3], device=DEVICE)
+    ms = timer.ms(lambda: G.reorder_cache(cache, parents), 10)
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in cache.values())
+    print(f"(S3) the cache reorder per beam step (4 beams x {engine.cfg.max_seq_len} "
+          f"slots, bf16): {ms:.4f} ms device, {nbytes} bytes read and written, bound "
+          f"{nbytes / HBM_BPS * 1e3:.4f} ms ({smi})")
+    del cache
+
+
+def phase_S4(torch, engine, peng, pa, fa, Q, smi, launches):
+    """(S4) teacher-forced scoring over the OpenAI route: six chunks through
+    the kernel against the plain engine; a fifth concurrent scorer 429."""
+    import threading
+
+    import numpy as np
+
+    from distributed_llm_inference_tpu_torch.serving import openai_api as oai
+
+    L = engine.cfg.n_layers
+    seng = s_engine(engine)
+    prompt = fleet_prompt(2, S_SCORE_TOKENS)
+    body = {"prompt": prompt, "echo": True, "logprobs": 1, "max_tokens": 0}
+    ids = seng.tokenizer.encode(prompt)
+    n_chunks = -(-(len(ids) - 1) // PREFILL_BUCKETS[-1])
+    server = s_server(seng)
+    try:
+        reset_counts(pa, fa, Q)
+        t0 = time.perf_counter()
+        code, out = y_post(server.port, "/v1/completions", body)
+        wall = time.perf_counter() - t0
+        c = read_counts(pa, fa, Q)
+        s_add(launches, c)
+        check(code == 200, f"(S4) {code} {out}")
+        check(c["flash_attend"] == L * n_chunks,
+              f"(S4) flash_attend {c['flash_attend']} for {n_chunks} chunks of {L} layers")
+        s_only("(S4)", c, ("flash_attend",))
+        want = oai.echo_score_response(seng.score(prompt, top_n=1), seng.cfg.name)
+
+        def shape(x):
+            return ({k: shape(v) for k, v in x.items() if k not in ("id", "created")}
+                    if isinstance(x, dict) else type(x).__name__)
+
+        check(shape(out) == shape(want) and out["choices"][0]["text"] == prompt,
+              "(S4) the route's shape is not echo_score_response's")
+        ref = peng.score(prompt, top_n=2)
+        lp = out["choices"][0]["logprobs"]
+        d = np.abs(np.array(lp["token_logprobs"][1:]) - np.array(ref["token_logprobs"][1:]))
+        gaps = [list(t.values())[0] - list(t.values())[-1] for t in ref["top_logprobs"][1:]]
+        firm = [i for i, g in enumerate(gaps) if g > LOGITS_ATOL]
+        top_same = sum(list(lp["top_logprobs"][1 + i])[0] == list(ref["top_logprobs"][1 + i])[0]
+                       for i in firm)
+        check(float(d.max()) < LOGITS_ATOL, f"(S4) logprobs part by {float(d.max())}")
+        check(top_same == len(firm), f"(S4) top-1 differs at {len(firm) - top_same} "
+                                     f"positions outside near-ties")
+        # a fifth concurrent scorer: the four held inside engine.score
+        release, entered = threading.Event(), threading.Semaphore(0)
+        real = seng.score
+
+        def held(p, top_n=0):
+            entered.release()
+            release.wait(60)
+            return real(p, top_n=top_n)
+
+        seng.score = held
+        codes = []
+        short = dict(body, prompt=fleet_prompt(3, 40))
+        threads = [threading.Thread(target=lambda: codes.append(
+            y_post(server.port, "/v1/completions", short)[0])) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for _ in range(4):
+            check(entered.acquire(timeout=60), "(S4) a scorer never entered")
+        fifth = y_post(server.port, "/v1/completions", short)
+        release.set()
+        for t in threads:
+            t.join(60)
+        del seng.score
+        check(fifth[0] == 429 and fifth[1]["error"]["type"] == "overloaded_error"
+              and sorted(codes) == [200] * 4, f"(S4) fifth scorer {fifth}, others {codes}")
+    finally:
+        server.shutdown()
+    print(f"(S4) echo scoring of {len(ids)} tokens in {n_chunks} chunks: wall {wall:.3f} s, "
+          f"flash_attend {c['flash_attend']}; max |dlogprob| against the plain engine "
+          f"{float(d.max()):.5f} (mean {float(d.mean()):.5f}); top-1 equal at {top_same} "
+          f"of {len(firm)} positions outside near-ties ({len(gaps) - len(firm)} within "
+          f"{LOGITS_ATOL}); a fifth concurrent scorer 429 ({smi})")
+
+
+def phase_S5(torch, engine, peng, pa, fa, Q, G, smi, launches):
+    """(S5) the prefix snapshots: a solo server behind a 512-token head, an
+    int8 hit, the dense fleet's wave of 8."""
+    import threading
+
+    from distributed_llm_inference_tpu_torch.engine import prefix as PX
+
+    L = engine.cfg.n_layers
+    head = v_head(0)
+    for kvq in (None, "int8"):
+        name = "flash_attend" + ("[int8]" if kvq else "")
+        peng_ = s_engine(engine, kv_quant=kvq, prefix_cache_entries=4)
+        cold_eng = s_engine(engine, kv_quant=kvq)
+        server, cold = s_server(peng_), s_server(cold_eng)
+        try:
+            bodies = [v_body(head + v_tail(f"S{i}", S_TAIL))
+                      for i in range(3 if not kvq else 2)]
+            s_drive(server, bodies[0], pa, fa, Q, launches)  # registers the head
+            for body in bodies[1:]:
+                code, hit, _, c = s_drive(server, body, pa, fa, Q, launches)
+                check(code == 200 and hit.get("prefix_cached_tokens") == V_HEAD,
+                      f"(S5) not a hit at {V_HEAD}: {hit}")
+                check(c[name] == L, f"(S5) the hit's {name} {c[name]}: the tail chunk "
+                                    f"alone should run, {L} layers")
+                s_only("(S5)", c, (name,))
+                code, ref, _, _ = s_drive(cold, body, pa, fa, Q, launches)
+                check(s_ids(hit) == s_ids(ref), f"(S5) kv_quant={kvq}: the hit's ids "
+                                                f"differ from the cold run's")
+                print(f"(S5) solo{' int8' if kvq else ''} hit at {V_HEAD} tokens: ttft_s "
+                      f"{hit['ttft_s']} against cold {ref['ttft_s']}; ids equal the cold "
+                      f"run's; {name} {c[name]} (the tail chunk only) ({smi})")
+            hits = peng_.metrics.get("dli_prefix_cache_hits_total").labels(scope="solo")
+            check(hits.value == len(bodies) - 1, f"(S5) solo hits {hits.value}")
+            if kvq is None:
+                key, entry = next(iter(peng_._prefix._entries.items()))
+                nb = PX.snapshot_bytes(entry)
+                print(f"(S5) dli_prefix_cache_hits_total{{scope=\"solo\"}} {hits.value}; "
+                      f"one snapshot of {len(key)} tokens holds {nb} bytes on the card "
+                      f"({nb * V_HEAD // len(key)} per {V_HEAD}-token entry)")
+        finally:
+            server.shutdown()
+            cold.shutdown()
+    # the dense fleet's own snapshots: a wave of 8 behind the head
+    waves = {}
+    for cached in (False, True):
+        deng = s_engine(engine, prefix_cache_entries=4 if cached else 0)
+        fleet, server = fleet_server(deng, DENSE_FLEET)
+        try:
+            post(server.port, v_body(head + v_tail("S-dense", S_TAIL)))  # registers
+            bodies = [v_body(head + v_tail(f"SD{i}", n)) for i, n in enumerate(S_DENSE_TAILS)]
+            results = [None] * 8
+
+            def run(i):
+                results[i] = post(server.port, bodies[i])
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+            reset_counts(pa, fa, Q)
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wave_s = time.perf_counter() - t0
+            c = read_counts(pa, fa, Q)
+            s_add(launches, c)
+            check(all(code == 200 for code, _, _ in results), f"(S5) dense wave {results}")
+            s_only("(S5) dense", c, ("flash_attend",))
+            st = fleet.stats().get("prefix_cache")
+            waves[cached] = ([r for _, r, _ in results], wave_s, st, c)
+        finally:
+            server.shutdown()
+    (cold_rs, cold_s, _, cold_c), (hit_rs, hit_s, st, hit_c) = waves[False], waves[True]
+    check(st is not None and st["hits"] >= 8, f"(S5) dense prefix stats {st}")
+    parts = [s_identity("(S5) dense", torch, G, peng, b["prompt"], s_ids(h), s_ids(r))
+             for b, h, r in zip(bodies, hit_rs, cold_rs)]
+    tt = lambda rs: round(statistics.median(r["ttft_s"] for r in rs), 4)
+    print(f"(S5) dense fleet (--continuous 8 --prefix-cache 4): a wave of 8 behind the "
+          f"{V_HEAD}-token head: hits {st['hits']} (scope continuous), median ttft_s "
+          f"{tt(hit_rs)} against {tt(cold_rs)} uncached; wave {hit_s:.3f} s against "
+          f"{cold_s:.3f} s; flash_attend {hit_c['flash_attend']} against "
+          f"{cold_c['flash_attend']}; ids vs the uncached wave: "
+          f"{sum(p is None for p in parts)} of 8 identical, partings "
+          f"{json.dumps([p for p in parts if p])} ({smi})")
+
+
+def phase_S6(torch, engine, peng, pa, fa, Q, G, smi, launches):
+    """(S6) the batching queue: 8 concurrent greedy requests coalesce; each
+    answer against the same request alone; aggregate tokens/s against the
+    solo engine serving them one by one."""
+    import threading
+
+    from distributed_llm_inference_tpu_torch.serving.queue import BatchingQueue
+
+    L = engine.cfg.n_layers
+    qeng = s_engine(engine)
+    queue = BatchingQueue(qeng, max_queue=16, max_batch=8, max_wait_ms=5)
+    server = s_server(qeng, queue=queue)
+    bodies = [{"prompt": fleet_prompt(40 + i, n), "max_tokens": S_NEW, "greedy": True,
+               "chat": False} for i, n in enumerate(S_QUEUE_TOKENS)]
+    try:
+        alone, t0 = [], time.perf_counter()
+        for body in bodies:
+            code, r, _, _ = s_drive(server, body, pa, fa, Q, launches)
+            check(code == 200, f"(S6) alone {r}")
+            alone.append(r)
+        alone_s = time.perf_counter() - t0
+        results = [None] * len(bodies)
+
+        def run(i):
+            results[i] = post(server.port, bodies[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+        reset_counts(pa, fa, Q)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wave_s = time.perf_counter() - t0
+        c = read_counts(pa, fa, Q)
+        s_add(launches, c)
+        st = get(server.port, "/stats")[1]["queue"]
+    finally:
+        server.shutdown()
+    check(all(code == 200 for code, _, _ in results), f"(S6) {results}")
+    check(st["coalesced_batches"] > 0, f"(S6) no batch coalesced: {st}")
+    check(c["flash_attend"] > 0 and c["flash_attend"] % L == 0,
+          f"(S6) flash_attend {c['flash_attend']}: not {L} per batch prefill")
+    s_only("(S6)", c, ("flash_attend",))
+    parts = [s_identity("(S6)", torch, G, peng, b["prompt"], s_ids(r), s_ids(a))
+             for b, (_, r, _), a in zip(bodies, results, alone)]
+    n_alone = sum(r["tokens_generated"] for r in alone)
+    n_wave = sum(r["tokens_generated"] for _, r, _ in results)
+    batched = [r.get("batched_with", 1) for _, r, _ in results]
+    print(f"(S6) --queue 16 --queue-max-batch 8 --queue-wait-ms 5: 8 concurrent greedy "
+          f"requests in {st['coalesced_batches']} coalesced batch(es) (batched_with "
+          f"{batched}), {n_wave} tokens in {wave_s:.3f} s = {n_wave / wave_s:.2f} tokens/s "
+          f"aggregate against {n_alone / alone_s:.2f} one by one ({n_alone} tokens in "
+          f"{alone_s:.3f} s); flash_attend {c['flash_attend']}; ids vs each alone: "
+          f"{sum(p is None for p in parts)} of 8 identical, partings "
+          f"{json.dumps([p for p in parts if p])} ({smi})")
+
+
+def phase_S(torch, engine, pa, fa, Q, G, timer, smi):
+    """(S) the solo engine's features through the port's server: (S1)
+    prompt-lookup speculation, (S2) draft-model speculation, (S3) beams,
+    (S4) echo scoring, (S5) the prefix snapshots, (S6) the batching
+    queue. Every kernel count starts at 0 just before each main-path
+    request or wave; their sums are the kernels line's launches_S."""
+    t0 = time.time()
+    peng = y_engine(engine, cfg=engine.cfg.replace(attn_impl="plain"))
+    launches = {}
+    phase_S1(torch, engine, peng, pa, fa, Q, G, smi, launches)
+    print(f"(S1) done in {time.time() - t0:.1f} s")
+    phase_S2(torch, engine, peng, pa, fa, Q, G, smi, launches)
+    print(f"(S2) done in {time.time() - t0:.1f} s")
+    phase_S3(torch, engine, peng, pa, fa, Q, G, timer, smi, launches)
+    print(f"(S3) done in {time.time() - t0:.1f} s")
+    phase_S4(torch, engine, peng, pa, fa, Q, smi, launches)
+    print(f"(S4) done in {time.time() - t0:.1f} s")
+    phase_S5(torch, engine, peng, pa, fa, Q, G, smi, launches)
+    print(f"(S5) done in {time.time() - t0:.1f} s")
+    phase_S6(torch, engine, peng, pa, fa, Q, G, smi, launches)
+    print(f"(S) total {time.time() - t0:.1f} s; the kernels' launches in (S): "
+          f"{json.dumps(launches)}")
+    check(launches.get("flash_attend", 0) > 0, "(S) no flash_attend launch")
+    return launches
+
+
 def main(argv) -> int:
     import argparse
 
@@ -5902,7 +6416,7 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z",
-                                       "C"],
+                                       "C", "S"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -5919,7 +6433,8 @@ def main(argv) -> int:
                          "speculation on the mixed launch; or (y) on the raw engine "
                          "(y): token streaming, cancellation and the OpenAI routes; or "
                          "(z) on the raw engine (z): runtime LoRA adapters; or (C) "
-                         "on the raw engine (C): grammar constraints")
+                         "on the raw engine (C): grammar constraints; or (S) on the "
+                         "raw engine (S): the solo engine's features")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -5990,7 +6505,7 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
-    if args.only not in ("s", "v", "w", "x", "y", "z", "C"):
+    if args.only not in ("s", "v", "w", "x", "y", "z", "C", "S"):
         # (b) the kernel against its twin
         phase_b(torch, timer, fa)
 
@@ -6044,6 +6559,12 @@ def main(argv) -> int:
               f"{time.time() - t0:.1f} s")
         phase_C(torch, engine, pa, fa, Q, P, G, M, smi)
         print(f"(C) total {time.time() - t_start:.1f} s")
+        return 0
+    if args.only == "S":
+        print(f"(S) {MODEL} bf16, random weights (seed 0), built in "
+              f"{time.time() - t0:.1f} s")
+        phase_S(torch, engine, pa, fa, Q, G, timer, smi)
+        print(f"(S) total {time.time() - t_start:.1f} s")
         return 0
     cfg = engine.cfg
     print(f"(c) {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
@@ -6145,6 +6666,11 @@ def main(argv) -> int:
     c_launches = phase_C(torch, engine, pa, fa, Q, P, G, M, smi)
     print(f"(C) total {time.time() - t_start:.1f} s")
 
+    # (S) the solo engine's features: speculation (n-gram and a draft
+    # model), beams, echo scoring, the prefix snapshots, the queue
+    s_launches = phase_S(torch, engine, pa, fa, Q, G, timer, smi)
+    print(f"(S) total {time.time() - t_start:.1f} s")
+
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)
     phase_b(torch, timer, fa, int8=True)
@@ -6204,9 +6730,11 @@ def main(argv) -> int:
     ]}
     # the adapter path's own counts: (z1)'s wave and (z6)'s quantized request
     # (C)'s: (C1)'s constrained requests beside the fleet and (C2)'s dense waves
+    # (S)'s: the solo engine's features, request by request
     for entry in line["kernels"]:
         entry["launches_z"] = z_launches[entry["name"]]
         entry["launches_C"] = c_launches[entry["name"]]
+        entry["launches_S"] = s_launches[entry["name"]]
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

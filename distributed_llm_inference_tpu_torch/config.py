@@ -241,9 +241,13 @@ class EngineConfig:
     # Prefix KV reuse. > 0 gives the paged fleet its block-prefix index
     # (engine/block_prefix.py): a hit maps a cached prompt head's physical
     # blocks into the request's table, refcounted, and prefills only the
-    # tail. The solo engine's and the dense fleet's snapshot cache
-    # (engine/prefix.py) is not ported: they refuse > 0 by name.
+    # tail; the solo engine and the dense fleet keep this many
+    # chunk-aligned prompt-prefix snapshots each (engine/prefix.py), spliced
+    # back into the cache on a hit.
     prefix_cache_entries: int = 0
+    # Snapshot alignment of engine/prefix.py: prefixes are stored at
+    # multiples of this length.
+    prefix_chunk: int = 64
     # Grammar-constraint compiled-artifact LRU (constrain/): how many
     # distinct constraints keep their (mask, transition) tables — host
     # numpy + their device copies — cached per engine. A resident artifact

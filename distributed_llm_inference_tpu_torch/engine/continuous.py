@@ -161,8 +161,13 @@ so every live row is at 0 whenever no tenant is constrained. The paged
 fleet, a DFA that can never fit the table and a malformed spec go to the
 solo engine (which answers the malformed spec with a 400).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-item): the dense fleet's prefix cache, and gpt2's fleet.
+The dense fleet's prefix cache (prefix_cache_entries > 0 with no pool)
+is the solo engine's snapshot kind (engine/prefix.py), its own instance:
+a hit splices the snapshot into the admission scratch in place and
+prefills the tail; the completed prompt's snapshot is stored.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
+gpt2's fleet.
 """
 
 from __future__ import annotations
@@ -187,6 +192,7 @@ from . import generate as G
 from . import graphs
 from . import paged as P
 from .block_prefix import BlockPrefixIndex, chunk_digests
+from .prefix import PrefixCache
 from .scheduler import MIN_SHED_DEPTH, PrefillJob, TokenBudgetScheduler, parse_slo_classes
 
 log = get_logger("continuous")
@@ -345,9 +351,6 @@ class ContinuousEngine:
         if self.paged and not getattr(backend, "supports_paged", False):
             raise ValueError(f"backend {backend.name!r} does not support paged "
                              f"KV; drop kv_pool_blocks or use the dense fleet")
-        if ecfg.prefix_cache_entries > 0 and not self.paged:
-            # the dense fleet's snapshot cache (engine/prefix.py)
-            raise _not_ported("the dense fleet's prefix cache", "Solo-engine features")
         # KV preemption under pool pressure ("swap" restores the victim's
         # chain from the KV shadow when the fleet has one, else recomputes)
         self.preempt_policy = str(ecfg.preempt_policy)
@@ -489,6 +492,17 @@ class ContinuousEngine:
         # and spliced into the slot; the ragged ingest needs none
         self._scratch = (None if self._ragged
                          else self.backend.init_cache(1, self._scratch_seq))
+        # the dense fleet's prefix snapshots (engine/prefix.py): its own
+        # PrefixCache, not the solo engine's (that one is touched under the
+        # engine lock, this one on the worker), spliced into the scratch in
+        # place, so the scratch keeps its address
+        self._prefix = None
+        if not self.paged and ecfg.prefix_cache_entries > 0:
+            if PrefixCache.compatible(self._scratch):
+                self._prefix = PrefixCache(ecfg.prefix_cache_entries, ecfg.prefix_chunk,
+                                           registry=engine.metrics, scope="continuous")
+            else:
+                log.info("prefix_cache_disabled", reason="cache layout")
         self._slo = parse_slo_classes(ecfg)
         self._sched = TokenBudgetScheduler(
             self._slo, ecfg.slo_default_class, int(ecfg.step_token_budget),
@@ -1120,7 +1134,9 @@ class ContinuousEngine:
                 "replays": sum(g.replays for g in cgraphs),
                 "buckets": sorted(self._cchunk_graphs),
             }
-        if self._bpx is not None:
+        if self._prefix is not None:
+            out["prefix_cache"] = self._prefix.stats()
+        elif self._bpx is not None:
             out["prefix_cache"] = self._bpx.stats()
         if self._adapters is not None:
             out["adapters"] = self._adapters.stats()
@@ -2968,7 +2984,8 @@ class ContinuousEngine:
         self._promote_local_chain(req, ids)
         # the ragged ingest reuses the deepest chain at EXACT depth; the
         # bucketed fallback degrades it to a depth its tail bucket fits
-        p0, entry, plan = eng._prefix_plan(self._bpx, ids, capacity=self.slot_max_seq,
+        p0, entry, plan = eng._prefix_plan(self._bpx if self.paged else self._prefix,
+                                           ids, capacity=self.slot_max_seq,
                                            ragged=self._ragged, adapter=req.adapter)
         if plan is None:
             raise ValueError(
@@ -3041,8 +3058,10 @@ class ContinuousEngine:
                                           sampling, presence=presence)
                 req.prefill_chunks = plan[0] + 1
             else:
+                # a hit splices its snapshot into the scratch, the tail
+                # prefills, the whole prompt's snapshot is stored
                 first, _, _ = eng._ingest_with_prefix(
-                    None, ids, p0, entry, plan, self._scratch, self._gen,
+                    self._prefix, ids, p0, entry, plan, self._scratch, self._gen,
                     sampling, presence=presence, bias=bias,
                 )
                 req.prefill_chunks = plan[0] + 1

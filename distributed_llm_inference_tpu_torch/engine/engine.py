@@ -11,8 +11,9 @@ output on the same weights is token-identical.
 fleet (engine/continuous.py) drives it with its block-prefix index
 (engine/block_prefix.py) when `prefix_cache_entries > 0`.
 
-`set_draft` attaches the draft model of the continuous fleet's
-draft-model speculation (engine/continuous.py).
+`set_draft` attaches a draft model: the solo engine's two-model
+speculation and the continuous fleet's draft-model speculation
+(engine/continuous.py) run it.
 
 The runtime adapter pool (engine/adapters.py, `self.adapters`) rides the
 continuous paged fleet; the backend writes its pages in place
@@ -25,10 +26,13 @@ the prefill's bias operand, and the decode loop masks and advances the
 FSM on the device (engine/generate.py). `generate_batch` runs one shared
 constraint over every row.
 
-Not ported yet: the solo engine's speculative decoding, beam search, its own
-prefix cache (engine/prefix.py's snapshots) and scoring. A request or
-config asking for one gets a ValueError naming it (an `invalid_request`
-envelope, HTTP 400 at the server).
+The solo engine's features, as the JAX engine has them: greedy
+`speculative=True` decodes through prompt-lookup n-gram drafts, or
+through the attached draft model's chain, each verified by one T = 1 + G
+forward (`SPEC_DRAFT_LEN`); `num_beams > 1` runs HF beam search over the
+prompt's prefill tiled to the beams; `score` is teacher-forced scoring
+(the OpenAI echo + logprobs route); `prefix_cache_entries > 0` keeps
+prompt-prefix snapshots (engine/prefix.py), spliced back on a hit.
 """
 
 from __future__ import annotations
@@ -57,19 +61,16 @@ from ..utils.tokenizer import load_tokenizer
 from ..utils.tracing import FlightRecorder, Trace
 from . import generate as G
 from . import paged as P
+from .prefix import PrefixCache
 
 log = get_logger("engine")
 
 DECODE_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
 # generate_batch pads the row count up to one of these
 BATCH_BUCKETS = (1, 2, 4, 8, 16)
-
-
-def not_ported(feature: str) -> ValueError:
-    return ValueError(
-        f"{feature} is not ported to the PyTorch engine yet "
-        f"(ROADMAP.md \"Solo-engine features\")"
-    )
+# speculation: drafted tokens verified per forward (the KV headroom
+# _clamp_decode reserves past the last emitted token)
+SPEC_DRAFT_LEN = 4
 
 
 class SingleDeviceBackend:
@@ -78,6 +79,9 @@ class SingleDeviceBackend:
 
     name = "single-device"
     n_stages = 1
+    # left-padded batches with per-row valid_start (the queue coalesces
+    # into them)
+    supports_ragged = True
 
     def __init__(self, cfg: ModelConfig, params, device):
         self.cfg = cfg
@@ -116,6 +120,45 @@ class SingleDeviceBackend:
     # grammar-constrained decoding (constrain/): the FSM state and the mask
     # tables thread through decode; the first token rides the bias operand
     supports_constrain = True
+    # teacher-forced scoring (OpenAI echo + logprobs, lm-eval loglikelihood)
+    supports_score = True
+
+    def score_chunk(self, tokens, pos, cache, *, top_n=0):
+        return G.score_chunk(self.cfg, self.params, tokens, pos, cache,
+                             top_n=top_n)
+
+    # beam search (HF generate(num_beams=N)); the cache reorders by parent
+    # beam each step
+    supports_beam = True
+
+    def decode_beam(self, logits0, cache, start_pos, limit, length_penalty, *,
+                    max_steps, num_beams, early_stopping):
+        return G.decode_beam(
+            self.cfg, self.params, logits0, cache, start_pos, limit,
+            length_penalty, max_steps=max_steps, num_beams=num_beams,
+            early_stopping=early_stopping,
+        )
+
+    # greedy prompt-lookup speculation (a request opts in)
+    supports_speculative = True
+
+    def decode_speculative(self, first_token, cache, hist, hist_len, limit, *,
+                           max_steps, draft_len):
+        return G.decode_speculative(
+            self.cfg, self.params, first_token, cache, hist, hist_len, limit,
+            max_steps=max_steps, draft_len=draft_len,
+        )
+
+    # two-model speculation over the draft set_draft attaches
+    supports_draft = True
+
+    def decode_draft_speculative(self, dcfg, dparams, first_token, cache,
+                                 dcache, start_pos, limit, *, max_steps,
+                                 draft_len):
+        return G.decode_draft_speculative(
+            self.cfg, self.params, dcfg, dparams, first_token, cache, dcache,
+            start_pos, limit, max_steps=max_steps, draft_len=draft_len,
+        )
 
     # -- the continuous fleet (engine/continuous.py) --------------------------
     # The flags ContinuousEngine checks, as the JAX one does.
@@ -297,6 +340,10 @@ class InferenceEngine:
             "dli_engine_wedged",
             "abandoned deadline-overrun device calls still running",
         ).labels()
+        self._m_speculative = self.metrics.counter(
+            "dli_speculative_requests_total",
+            "requests served speculatively", ("engine",),
+        )
         register_supervisor_metrics(self.metrics)
         register_kv_cache_metrics(self.metrics)
         register_spec_metrics(self.metrics)
@@ -313,9 +360,19 @@ class InferenceEngine:
         # abandoned deadline-overrun calls: token -> {"what", "since"}
         self._wedged: dict = {}  # guarded-by: _wedged_lock
         self._wedged_lock = threading.Lock()
-        # (cfg, params) of the draft model the fleet's draft-model
-        # speculation runs (set_draft), or None
+        # prefix KV snapshots of the solo path (engine/prefix.py): off at
+        # 0 entries, and dropped for a cache layout that cannot snapshot
+        # (checked against the live buffer per request)
+        self._prefix = None
+        if engine_cfg.prefix_cache_entries > 0:
+            self._prefix = PrefixCache(
+                engine_cfg.prefix_cache_entries, engine_cfg.prefix_chunk,
+                registry=self.metrics, scope="solo",
+            )
+        # (cfg, params) of the draft model (set_draft), or None, and the
+        # solo draft speculation's reusable draft cache
         self._draft = None
+        self._draft_cache = None
         # grammar-constraint compiled artifacts (constrain/): an LRU by
         # canonical constraint hash. The token vocab and its trie are built
         # once, lazily, and shared by every compile; an artifact keeps its
@@ -327,12 +384,13 @@ class InferenceEngine:
         self._constraint_lock = threading.Lock()
 
     def set_draft(self, dcfg: ModelConfig, dparams: Any = None, seed: int = 1):
-        """Attach a draft model for the fleet's draft-model speculation
-        (engine/continuous.py, spec_draft_model). It must share the
-        target's tokenizer (its tokens are compared with the target's
-        argmax) and, as the fleet's paged seam, be llama-family. It runs
-        on the target's device with the target's attention route; random
-        weights from `seed` when `dparams` is None."""
+        """Attach a draft model for two-model speculation: the solo
+        engine's (`speculative=True`) and the fleet's draft-model
+        speculation (engine/continuous.py, spec_draft_model). It must
+        share the target's tokenizer (its tokens are compared with the
+        target's argmax) and be llama-family. It runs on the target's
+        device with the target's attention route; random weights from
+        `seed` when `dparams` is None."""
         if dcfg.arch != "llama":
             from ..models.llama import FAMILIES, _not_ported
 
@@ -348,6 +406,7 @@ class InferenceEngine:
             dparams = M.init_params(
                 dcfg, torch.Generator(device=self.device).manual_seed(seed))
         self._draft = (dcfg, dparams)
+        self._draft_cache = None
 
     # -- helpers ------------------------------------------------------------
     def _generator(self, seed: Optional[int]) -> torch.Generator:
@@ -418,14 +477,15 @@ class InferenceEngine:
         return tuple(b for b in self.engine_cfg.prefill_buckets
                      if b <= self.cfg.max_seq_len)
 
-    def _clamp_decode(self, frame: int, max_tokens: int,
+    def _clamp_decode(self, frame: int, max_tokens: int, headroom: int = 0,
                       capacity: Optional[int] = None) -> tuple[int, int]:
-        """Cache-capacity discipline: frame + generated must fit the
-        capacity (default max_seq_len; the continuous fleet passes its
-        per-slot budget), also bounded by the largest decode bucket.
-        Returns (max_tokens, decode_bucket)."""
+        """Cache-capacity discipline: frame + generated (+ `headroom`
+        scratch slots, the speculative drafts written past the last
+        emitted token) must fit the capacity (default max_seq_len; the
+        continuous fleet passes its per-slot budget), also bounded by the
+        largest decode bucket. Returns (max_tokens, decode_bucket)."""
         cap = capacity if capacity is not None else self.cfg.max_seq_len
-        max_tokens = max(1, min(int(max_tokens), cap - frame - 1,
+        max_tokens = max(1, min(int(max_tokens), cap - frame - 1 - headroom,
                                 DECODE_BUCKETS[-1]))
         return max_tokens, G.pick_bucket(DECODE_BUCKETS, max_tokens)
 
@@ -505,6 +565,7 @@ class InferenceEngine:
         request_id: Optional[str] = None,
         slo_class: Optional[str] = None,
         deadline_ms: Optional[float] = None,
+        _trace: Optional[Trace] = None,
     ) -> dict:
         """Full generation; returns the JAX engine's response envelope.
 
@@ -513,10 +574,15 @@ class InferenceEngine:
         model distribution. constraint (the /generate wire format, see
         constrain.parse_constraint_spec) guarantees the response matches
         it; it does not compose with num_beams > 1 or speculative.
-        speculative=True and num_beams > 1 are not ported yet:
-        invalid_request."""
+        speculative=True speculates for a GREEDY request with no penalty,
+        bias or logprobs (the draft model's chain when one is attached,
+        else prompt-lookup n-grams), and decodes plainly otherwise: every
+        emitted token is still the argmax. num_beams > 1 runs beam search
+        (length_penalty, early_stopping as in HF); sampling knobs, bias and
+        logprobs are ignored there, the OpenAI penalties refused. _trace:
+        a trace to continue (serving/queue.py hands its own)."""
         t_start = time.time()
-        trace = Trace(request_id)
+        trace = _trace if _trace is not None else Trace(request_id)
         with request_id_context(trace.request_id):
             dl_s, dl_type = self._resolve_deadline(deadline_ms)
             if dl_s is not None and dl_s <= 0:
@@ -532,11 +598,16 @@ class InferenceEngine:
             def locked():
                 with self._lock:
                     trace.checkpoint("queue_wait")
+                    if num_beams > 1:
+                        return self._beam_locked(
+                            prompt, max_tokens, num_beams, length_penalty,
+                            early_stopping, chat, t_start, stop, trace,
+                        )
                     return self._generate_locked(
                         prompt, max_tokens, temperature, top_k, top_p, greedy,
                         chat, seed, t_start, debug, min_p, repetition_penalty,
                         stop, logprobs, logit_bias, frequency_penalty,
-                        presence_penalty, constraint, trace,
+                        presence_penalty, constraint, trace, speculative,
                     )
 
             try:
@@ -546,11 +617,14 @@ class InferenceEngine:
                     # argmax: refused by name, never silently unconstrained
                     what = "num_beams > 1" if num_beams > 1 else "speculative"
                     raise ValueError(f"constraint does not compose with {what}")
-                self._check_solo_prefix()
-                if speculative:
-                    raise not_ported("speculative decoding")
-                if num_beams > 1:
-                    raise not_ported("beam search (num_beams > 1)")
+                if num_beams > 1 and (frequency_penalty != 0.0
+                                      or presence_penalty != 0.0):
+                    # the beam path is a pure max-score search with no
+                    # per-beam counts: refused, never silently unpenalized
+                    raise ValueError(
+                        "frequency_penalty/presence_penalty are not supported "
+                        "with num_beams > 1; drop the penalties or use sampling"
+                    )
                 result = self._with_deadline(
                     locked, "generate", deadline_s=dl_s, exceeded_type=dl_type
                 )
@@ -569,7 +643,25 @@ class InferenceEngine:
             return self._finish_request(result, trace, engine="solo")
 
     def score(self, prompt: str, top_n: int = 0) -> dict:
-        raise not_ported("teacher-forced scoring (score)")
+        """Teacher-forced per-token log-probabilities of `prompt` itself
+        (no generation): the OpenAI echo + logprobs + max_tokens=0 pattern
+        of evaluation harnesses. top_n (0..5): each position's top-N
+        alternatives too."""
+        t_start = time.time()
+
+        def locked():
+            with self._lock:
+                return self._score_locked(prompt, int(top_n), t_start)
+
+        try:
+            return self._with_deadline(locked, "score")
+        except ValueError as e:
+            log.warning("invalid_request", error=str(e))
+            return {"error": f"Error: {e}", "status": "failed",
+                    "error_type": "invalid_request"}
+        except Exception as e:
+            log.error("score_failed", exc_info=True, error=str(e))
+            return {"error": f"Error: {e}", "status": "failed"}
 
     def _resolve_deadline(self, deadline_ms) -> tuple:
         """(deadline_s, exceeded_type): the smaller of the request's
@@ -593,6 +685,8 @@ class InferenceEngine:
             return result
         if status == "success":
             self._m_requests.labels(engine=engine, model=self.cfg.name).inc()
+            if result.get("speculative"):
+                self._m_speculative.labels(engine=engine).inc()
         else:
             self._m_failures.labels(
                 engine=engine, error_type=result.get("error_type", "internal"),
@@ -624,15 +718,6 @@ class InferenceEngine:
             return None
         return n_full, rem, fitting[0], chunk
 
-    def _check_solo_prefix(self):
-        """The solo path keeps no prefix cache of its own (the JAX
-        engine's dense snapshots, engine/prefix.py, are not ported): a
-        solo request on an engine with prefix_cache_entries > 0 is refused
-        by name. The paged fleet's block-prefix index serves that setting."""
-        if self.engine_cfg.prefix_cache_entries > 0:
-            raise not_ported("the solo engine's prefix KV cache (engine/prefix.py, "
-                             "prefix_cache_entries > 0; the paged fleet serves it)")
-
     def _prefix_plan(self, prefix, ids: list, capacity: Optional[int] = None,
                      ragged: bool = False, adapter: Optional[str] = None):
         """Prefix lookup + ingest planning, the JAX engine's one copy for
@@ -643,8 +728,9 @@ class InferenceEngine:
 
         `prefix` is a planner with lookup(ids) -> (p0, entry, key) and
         mark(key, hit, depth): the paged fleet's BlockPrefixIndex (entry =
-        the shared physical block ids the caller maps into its table), or
-        None for a plain cold plan. adapter is passed through to lookup
+        the shared physical block ids the caller maps into its table), a
+        PrefixCache (engine/prefix.py; entry = the snapshot the caller
+        splices), or None for a plain cold plan. adapter is passed through to lookup
         only when not None.
 
         ragged=True (the paged fleet's ragged ingest): no bucket ladder,
@@ -691,12 +777,13 @@ class InferenceEngine:
         return torch.tensor(rows, dtype=torch.long, device=self.device)
 
     def _ingest(self, ids, p0, plan, cache, generator, sampling, presence=None,
-                bias=None):
+                bias=None, backend=None):
         """Feed ids[p0:] into `cache` per a `_plan_ingest` plan: n_full
         extend() calls, then the final bucket-padded sampling chunk
-        (prefill at offset 0, prefill_at otherwise). Returns (first,
-        logits, cache)."""
-        be = self.backend
+        (prefill at offset 0, prefill_at otherwise), through `backend`
+        (default the engine's; the draft model's for its ingest). Returns
+        (first, logits, cache)."""
+        be = backend or self.backend
         n_full, rem, bucket, chunk = plan
         for c in range(n_full):
             start = p0 + c * chunk
@@ -711,12 +798,212 @@ class InferenceEngine:
 
     def _ingest_with_prefix(self, prefix, ids, p0, entry, plan, cache,
                             generator, sampling, presence=None, bias=None):
-        """The JAX engine's splice / ingest / store sequence, on the cold
-        path only (prefix None: nothing to splice or store)."""
-        if prefix is not None or entry is not None:
-            raise not_ported("the prefix KV cache (prefix_cache_entries > 0)")
-        return self._ingest(ids, p0, plan, cache, generator, sampling,
-                            presence=presence, bias=bias)
+        """Splice a prefix hit into the cache, ingest the tail, then store
+        the whole prompt's KV back (engine/prefix.py). Splice before the
+        ingest and store after it: the stored snapshot must cover the
+        whole prompt."""
+        if entry is not None:
+            cache = prefix.splice(entry, cache, p0)
+        first, logits, cache = self._ingest(ids, p0, plan, cache, generator,
+                                            sampling, presence=presence, bias=bias)
+        if prefix is not None:
+            prefix.store(ids, len(ids), cache)
+        return first, logits, cache
+
+    def _draft_ingest(self, ids: list, dcache):
+        """Prefill the whole prompt into the draft model's cache (two-model
+        speculation): the same _ingest sequence as the target, through a
+        single-device backend over the draft's weights. No prefix cache;
+        the draft's sampled first token is discarded, only its K/V
+        matters."""
+        dcfg, dparams = self._draft
+        plan = self._plan_ingest(len(ids), 0, self._buckets())
+        if plan is None:  # the target's plan accepted this prompt
+            raise ValueError(f"prompt length {len(ids)} exceeds draft ingest capacity")
+        _, _, dcache = self._ingest(
+            ids, 0, plan, dcache, self._generator(0), G.default_sampling(greedy=True),
+            backend=SingleDeviceBackend(dcfg, dparams, self.device),
+        )
+        return dcache
+
+    # guarded-by: _lock
+    def _beam_locked(self, prompt, max_tokens, num_beams, length_penalty,
+                     early_stopping, chat, t_start, stop, trace=None):
+        """Beam search: prefill the prompt ONCE (batch 1, in the solo
+        cache), tile its K/V and first-position logits to num_beams rows,
+        then decode_beam. The prompt must fit one prefill bucket."""
+        cfg = self.cfg
+        self.request_count += 1
+        if not getattr(self.backend, "supports_beam", False):
+            raise ValueError(
+                f"backend {self.backend.name!r} does not support beam search; "
+                f"serve num_beams > 1 on the single-device backend"
+            )
+        if not 2 <= num_beams <= 16:
+            raise ValueError("num_beams must be between 2 and 16")
+        text = self.render_chat(prompt) if chat else prompt
+        ids = self.tokenizer.encode(text)
+        prompt_len = len(ids)
+        buckets = self._buckets()
+        if not buckets or prompt_len > buckets[-1]:
+            raise ValueError(
+                f"prompt length {prompt_len} exceeds max prefill bucket "
+                f"{buckets[-1] if buckets else 0} (beam search prefills in "
+                f"one bucket)"
+            )
+        bucket = G.pick_bucket(buckets, prompt_len)
+        max_tokens, decode_bucket = self._clamp_decode(prompt_len, max_tokens)
+        tokens = self._tokens([ids + [cfg.pad_token_id] * (bucket - prompt_len)])
+        if self._cache is None:
+            self._cache = self.backend.init_cache(1, cfg.max_seq_len)
+        _, logits, cache1 = self.backend.prefill(
+            tokens, prompt_len, self._cache, self._generator(0),
+            G.default_sampling(greedy=True),
+        )
+        # every beam starts from the same prompt: the batch-1 cache (and
+        # an int8 cache's scales) and the [1, V] logits tiled to the beams
+        cache = G.tile_cache(cache1, num_beams)
+        logits = logits.repeat(num_beams, 1)
+        ttft = time.time() - t_start
+        if trace is not None:
+            trace.checkpoint("prefill")
+        out, n_gen, scores, cache = self.backend.decode_beam(
+            logits, cache, prompt_len, max_tokens, length_penalty,
+            max_steps=decode_bucket, num_beams=num_beams,
+            early_stopping=early_stopping,
+        )
+        out, n_gen, scores = out.tolist(), n_gen.tolist(), scores.tolist()
+        del cache
+        self._cache = cache1  # the batch-1 cache, stale rows masked
+        if trace is not None:
+            trace.checkpoint("decode")
+        beams = []
+        for b in range(num_beams):
+            n = int(n_gen[b])
+            txt = self.tokenizer.decode(out[b][:n], skip_special_tokens=True)
+            txt, b_stopped = self._truncate_at_stop(txt, stop)
+            beams.append({"text": txt, "score": round(float(scores[b]), 6),
+                          "tokens": n, "stopped": b_stopped})
+        best = beams[0]
+        if trace is not None:
+            trace.checkpoint("detokenize")
+        elapsed = time.time() - t_start
+        n = best["tokens"]
+        tps = n / elapsed if elapsed > 0 else 0.0
+        self._record_sample(ttft, tps, n, elapsed=elapsed)
+        log.info("beam_request", model=cfg.name, backend=self.backend.name,
+                 num_beams=num_beams, tokens=n, elapsed_s=round(elapsed, 3))
+        result = {
+            "prompt": prompt,
+            "response": best["text"],
+            "status": "success",
+            "time_taken": f"{elapsed:.2f}s",
+            "tokens_generated": n,
+            "prompt_tokens": prompt_len,
+            "tokens_per_sec": f"{tps:.2f}",
+            "ttft_s": round(ttft, 4),
+            "backend": self.backend.name,
+            "num_beams": num_beams,
+            "beams": beams,
+            "finish_reason": "stop" if best["stopped"] or n < max_tokens else "length",
+        }
+        if best["stopped"]:
+            result["stopped"] = True
+        return result
+
+    # guarded-by: _lock
+    def _score_locked(self, prompt: str, top_n: int, t_start: float) -> dict:
+        cfg = self.cfg
+        self.request_count += 1
+        if not getattr(self.backend, "supports_score", False):
+            raise ValueError(
+                f"backend {self.backend.name!r} does not support scoring; "
+                f"serve echo/logprobs scoring on the single-device backend"
+            )
+        if not 0 <= top_n <= 5:
+            raise ValueError("top_n must be between 0 and 5")
+        ids = self.tokenizer.encode(prompt)
+        if len(ids) < 2:
+            raise ValueError("scoring needs at least 2 tokens")
+        buckets = self._buckets()
+        if not buckets or len(ids) > cfg.max_seq_len:
+            raise ValueError(
+                f"prompt length {len(ids)} exceeds max_seq_len {cfg.max_seq_len}"
+            )
+        # the chunked prefill's plan: full chunks of the largest bucket,
+        # then a padded final bucket; each chunk's LAST distribution scores
+        # the next chunk's first token across the boundary
+        chunk = buckets[-1]
+        n_full = max(0, (len(ids) - 1) // chunk)
+        rem = len(ids) - n_full * chunk
+        fitting = [b for b in buckets if b >= rem]
+        if not fitting or n_full * chunk + fitting[0] > cfg.max_seq_len:
+            raise ValueError(
+                f"prompt length {len(ids)} cannot be chunk-scored within "
+                f"max_seq_len {cfg.max_seq_len}"
+            )
+        bucket = fitting[0]
+        if self._cache is None:
+            self._cache = self.backend.init_cache(1, cfg.max_seq_len)
+        cache = self._cache
+        pad = cfg.pad_token_id
+        lps: list = []
+        tops: list = []
+        prev_last = None  # [V] numpy: the previous chunk's last distribution
+
+        def top_dict(values, ids_):
+            # distinct ids can decode to one string (byte-level tokenizers):
+            # keep the first (best) logprob per string
+            d: dict = {}
+            for v, i in zip(values, ids_):
+                s_ = self.tokenizer.decode([int(i)])
+                if s_ not in d:
+                    d[s_] = round(float(v), 6)
+            return d
+
+        for c in range(n_full + 1):
+            if c < n_full:
+                rows = ids[c * chunk:(c + 1) * chunk]
+                toks = self._tokens([rows])
+            else:
+                rows = ids[n_full * chunk:]
+                toks = self._tokens([rows + [pad] * (bucket - rem)])
+            within, top_v, top_i, last_lp, cache = self.backend.score_chunk(
+                toks, c * chunk, cache, top_n=top_n)
+            within = within[0].cpu().numpy()
+            top_v, top_i = top_v[0].cpu().numpy(), top_i[0].cpu().numpy()
+            if c > 0:
+                # the chunk's first token, from the previous chunk's last
+                # position (one [V] row per chunk, on the host)
+                lps.append(float(prev_last[rows[0]]))
+                if top_n:
+                    idx = np.argpartition(-prev_last, top_n - 1)[:top_n]
+                    idx = idx[np.argsort(-prev_last[idx])]
+                    tops.append(top_dict(prev_last[idx], idx))
+            valid = (len(rows) if c < n_full else rem) - 1
+            lps.extend(float(x) for x in within[:valid])
+            if top_n:
+                for t in range(valid):
+                    tops.append(top_dict(top_v[t], top_i[t]))
+            prev_last = last_lp[0].cpu().numpy()
+        self._cache = cache
+
+        lps = [round(x, 6) for x in lps]
+        elapsed = time.time() - t_start
+        result = {
+            "prompt": prompt,
+            "status": "success",
+            "prompt_tokens": len(ids),
+            # the OpenAI convention: the first token has no conditional
+            "token_logprobs": [None] + lps,
+            "token_strings": [self.tokenizer.decode([t]) for t in ids],
+            "logprob_sum": round(sum(lps), 6),
+            "time_taken": f"{elapsed:.2f}s",
+            "backend": self.backend.name,
+        }
+        if top_n:
+            result["top_logprobs"] = [None] + tops
+        return result
 
     def render_chat(self, prompt_or_messages) -> str:
         """Chat-format a prompt string or an OpenAI-style message list
@@ -875,7 +1162,7 @@ class InferenceEngine:
         self, prompt, max_tokens, temperature, top_k, top_p, greedy, chat,
         seed, t_start, debug=False, min_p=0.0, repetition_penalty=1.0,
         stop=None, logprobs=False, logit_bias=None, frequency_penalty=0.0,
-        presence_penalty=0.0, constraint=None, trace=None,
+        presence_penalty=0.0, constraint=None, trace=None, speculative=False,
     ):
         cfg = self.cfg
         self.request_count += 1
@@ -892,7 +1179,11 @@ class InferenceEngine:
         buckets = self._buckets()
         if self._cache is None:
             self._cache = self.backend.init_cache(1, cfg.max_seq_len)
-        plan = self._plan_ingest(prompt_len, 0, buckets)
+        if self._prefix is not None and not PrefixCache.compatible(self._cache):
+            log.info("prefix_cache_disabled", reason="cache layout")
+            self._prefix = None
+        # prefix lookup and the ingest plan (engine/prefix.py)
+        p0, entry, plan = self._prefix_plan(self._prefix, ids)
         if plan is None:
             if prompt_len > cfg.max_seq_len - 2:
                 raise ValueError(
@@ -910,7 +1201,21 @@ class InferenceEngine:
                 f"{buckets[-1] if buckets else 0}"
             )
         bucket = plan[2]
-        max_tokens, decode_bucket = self._clamp_decode(prompt_len, max_tokens)
+        # a penalty or a logit bias changes the argmax the verify compares
+        # with, and the speculative loops record no per-step logprobs:
+        # such requests decode plainly
+        spec_ok = (speculative and greedy and repetition_penalty == 1.0
+                   and frequency_penalty == 0.0 and presence_penalty == 0.0
+                   and bias is None and not logprobs)
+        # the draft model wins over prompt lookup when one is attached
+        use_draft = (spec_ok and self._draft is not None
+                     and getattr(self.backend, "supports_draft", False))
+        use_spec = (spec_ok and not use_draft
+                    and getattr(self.backend, "supports_speculative", False))
+        max_tokens, decode_bucket = self._clamp_decode(
+            prompt_len, max_tokens,
+            headroom=SPEC_DRAFT_LEN if (use_spec or use_draft) else 0,
+        )
         sampling = G.default_sampling(
             temperature, top_k, top_p, greedy, min_p, repetition_penalty,
             frequency_penalty, presence_penalty,
@@ -922,8 +1227,9 @@ class InferenceEngine:
         generator = self._generator(seed)
 
         cache = self._cache
-        first, logits, cache = self._ingest(
-            ids, 0, plan, cache, generator, sampling, presence=presence, bias=bias
+        first, logits, cache = self._ingest_with_prefix(
+            self._prefix, ids, p0, entry, plan, cache, generator, sampling,
+            presence=presence, bias=bias,
         )
         first_id = int(first[0])  # waits for the device: TTFT
         ttft = time.time() - t_start
@@ -951,7 +1257,30 @@ class InferenceEngine:
             dkw["constraint"] = (
                 torch.tensor([fsm0], dtype=torch.int32, device=self.device), cm, ct)
         step_lps = None
-        if stop:
+        if use_draft:
+            dcfg, dparams = self._draft
+            if self._draft_cache is None:
+                self._draft_cache = M.init_kv_cache(dcfg, 1, max_seq=cfg.max_seq_len,
+                                                    device=self.device)
+            dcache = self._draft_ingest(ids, self._draft_cache)
+            res = self.backend.decode_draft_speculative(
+                dcfg, dparams, first, cache, dcache, prompt_len, max_tokens - 1,
+                max_steps=decode_bucket, draft_len=SPEC_DRAFT_LEN,
+            )
+            out, n_gen, cache = res[0].tolist(), res[1].tolist(), res[2]
+            self._draft_cache = res[3]
+        elif use_spec:
+            # the token history: the prompt, then every emitted token (H
+            # fixed per model: max_seq_len + the draft overshoot)
+            hist = torch.zeros((1, cfg.max_seq_len + SPEC_DRAFT_LEN + 2),
+                               dtype=torch.long, device=self.device)
+            hist[0, :prompt_len] = self._tokens(ids)
+            res = self.backend.decode_speculative(
+                first, cache, hist, prompt_len, max_tokens - 1,
+                max_steps=decode_bucket, draft_len=SPEC_DRAFT_LEN,
+            )
+            out, n_gen, cache = res[0].tolist(), res[1].tolist(), res[2]
+        elif stop:
             out, n_gen, step_lps, cache = self._decode_textual_stop_chunks(
                 first, cache, prompt_len, max_tokens, generator, sampling,
                 dkw, logprobs, stop, cart=cart, fsm=fsm0,
@@ -1022,13 +1351,22 @@ class InferenceEngine:
             # judged against the CLAMPED budget
             "finish_reason": "stop" if stopped or n < max_tokens else "length",
         }
+        if p0:
+            result["prefix_cached_tokens"] = p0
         if stopped:
             result["stopped"] = True
         if token_logprobs is not None:
             result["token_logprobs"] = token_logprobs
             result["token_strings"] = token_strings
+        if use_spec or use_draft:
+            # the solo loops keep acceptance on the device; the fleet
+            # reports "fleet" with its drafted / accepted counts
+            result["speculative"] = True
+            result["spec_path"] = "solo"
         if cart is not None:
             result["constrained"] = True
+        if use_draft:
+            result["draft_model"] = self._draft[0].name
         if top_predictions is not None:
             result["top_predictions"] = top_predictions
         return result
@@ -1040,8 +1378,12 @@ class InferenceEngine:
         plain and penalized, the chunked extend at the largest bucket, and
         one decode step per decode bucket, plain, penalized and with
         log-probabilities (the JAX engine's warmup program list; the port
-        runs them eagerly, so each is run once rather than compiled).
-        Returns {"programs": N, "seconds": wall}."""
+        runs them eagerly, so each is run once rather than compiled); then
+        one verify iteration of the speculative loop a `speculative`
+        request takes: with a draft attached, the draft's ingest per
+        prefill bucket and its chunked variant first, then the draft
+        loop; else the prompt-lookup loop. Returns {"programs": N,
+        "seconds": wall}."""
         t0 = time.time()
         buckets = self._buckets()
         if not buckets:
@@ -1077,6 +1419,32 @@ class InferenceEngine:
                                               max_steps=db, **kw)
                     cache = res[2]
                     n += 1
+            db = DECODE_BUCKETS[0]
+            if self._draft is not None and getattr(self.backend, "supports_draft",
+                                                   False):
+                dcfg, dparams = self._draft
+                dcache = self._draft_cache
+                if dcache is None:
+                    dcache = M.init_kv_cache(dcfg, 1, max_seq=self.cfg.max_seq_len,
+                                             device=self.device)
+                for bucket in buckets:
+                    dcache = self._draft_ingest([pad] * bucket, dcache)
+                    n += 1
+                chunked_len = buckets[-1] + 1
+                if self._plan_ingest(chunked_len, 0, buckets) is not None:
+                    dcache = self._draft_ingest([pad] * chunked_len, dcache)
+                    n += 1
+                _, _, cache, dcache = self.backend.decode_draft_speculative(
+                    dcfg, dparams, first, cache, dcache, 1, 1, max_steps=db,
+                    draft_len=SPEC_DRAFT_LEN)
+                self._draft_cache = dcache
+                n += 1
+            elif getattr(self.backend, "supports_speculative", False):
+                hist = torch.zeros((1, self.cfg.max_seq_len + SPEC_DRAFT_LEN + 2),
+                                   dtype=torch.long, device=self.device)
+                _, _, cache = self.backend.decode_speculative(
+                    first, cache, hist, 1, 1, max_steps=db, draft_len=SPEC_DRAFT_LEN)
+                n += 1
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._cache = cache  # the first request reuses the buffer
@@ -1104,12 +1472,14 @@ class InferenceEngine:
         request_id: Optional[str] = None,
         slo_class: Optional[str] = None,
         deadline_ms: Optional[float] = None,
+        _trace: Optional[Trace] = None,
     ) -> dict:
         """One batch for N prompts (shared sampling params): ragged prompts
         LEFT-pad to a shared bucket, so every row shares one position
-        frame and per-row pad slots are masked through valid_start."""
+        frame and per-row pad slots are masked through valid_start.
+        _trace: a trace to continue (serving/queue.py hands its own)."""
         t_start = time.time()
-        trace = Trace(request_id)
+        trace = _trace if _trace is not None else Trace(request_id)
 
         def locked():
             with self._lock:
@@ -1288,13 +1658,14 @@ class InferenceEngine:
     # -- perf stats ----------------------------------------------------------
     def stats(self) -> dict:
         """Rolling p50/p90/p99 over recent requests (TTFT seconds,
-        tokens/sec) plus the lifetime sample count."""
+        tokens/sec) plus the lifetime sample count, and the solo prefix
+        cache's counts when it is on."""
         with self._samples_lock:
             samples = list(self._samples)
             samples_total = self._samples_total
         ttfts = [s["ttft_s"] for s in samples]
         tpss = [s["tokens_per_sec"] for s in samples]
-        return {
+        out = {
             "window": len(samples),
             "samples_total": samples_total,
             "ttft_p50_s": percentile(ttfts, 0.5),
@@ -1305,6 +1676,9 @@ class InferenceEngine:
             "tokens_per_sec_p99": percentile(tpss, 0.99),
             "tokens_total": sum(s["tokens"] for s in samples),
         }
+        if self._prefix is not None:
+            out["prefix_cache"] = self._prefix.stats()
+        return out
 
     def drain(self, deadline_s: Optional[float] = None) -> bool:
         """Wait for the in-flight generation (the engine lock) to finish;

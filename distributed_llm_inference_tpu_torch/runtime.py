@@ -6,10 +6,11 @@ device. It runs on the card unless the caller asks for the CPU
 than fall back. Weights are quantized here when the config asks for it,
 as in the JAX package, after a LoRA adapter is merged into them (`lora`,
 merge-at-load) and before the runtime adapter pool's leaves are
-installed (EngineConfig.adapter_slots > 0). Pipeline, tensor, sequence
-and data parallelism, microbatching and the solo engine's draft model are
-not ported yet and raise (the fleet's draft model is EngineConfig's
-spec_draft_model).
+installed (EngineConfig.adapter_slots > 0). `draft_model` attaches a
+smaller same-tokenizer model for two-model speculation (the solo engine's
+`speculative` requests, and the fleet's draft-model speculation).
+Pipeline, tensor, sequence and data parallelism and microbatching are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ def create_engine(
     attn_impl: Optional[str] = None,
     tokenizer: Any = None,
     seed: int = 0,
-    draft_model: Optional[str] = None,
+    draft_model: Optional[str | ModelConfig] = None,
+    draft_params: Any = None,
     lora: Optional[str] = None,
     device="cuda",
 ) -> InferenceEngine:
@@ -65,18 +67,15 @@ def create_engine(
     the weights before quantization. engine_cfg.adapter_slots > 0 installs
     the paged runtime LoRA leaves (engine/adapters.py) after quantization
     and hangs an AdapterPool off engine.adapters; its merged_source is
-    `lora`, so the merged adapter cannot also be registered."""
+    `lora`, so the merged adapter cannot also be registered. draft_model
+    (a registry name or a ModelConfig, in `dtype` when given) attaches a
+    draft through engine.set_draft: draft_params, or random weights from
+    seed + 1."""
     if not mesh_cfg.is_trivial or microbatches > 1:
         raise NotImplementedError(
             f"pp/tp/sp/dp/ep meshes and microbatching are not ported to "
             f"PyTorch yet (ROADMAP.md \"Multi-GPU SPMD\"); got {mesh_cfg}, "
             f"microbatches={microbatches}"
-        )
-    if draft_model is not None:
-        raise NotImplementedError(
-            "the solo engine's two-model speculation (draft_model) is not "
-            "ported to PyTorch yet (ROADMAP.md \"Solo-engine features\"); "
-            "the continuous fleet drafts with EngineConfig.spec_draft_model"
         )
     device = resolve_device(device)
     cfg = get_model_config(model) if isinstance(model, str) else model
@@ -107,4 +106,10 @@ def create_engine(
     if slots:
         engine.adapters = AdapterPool(cfg, backend, slots, rank,
                                       registry=engine.metrics, merged_source=lora)
+    if draft_model is not None:
+        dcfg = (get_model_config(draft_model) if isinstance(draft_model, str)
+                else draft_model)
+        if dtype is not None:
+            dcfg = dcfg.replace(dtype=dtype)
+        engine.set_draft(dcfg, draft_params, seed=seed + 1)
     return engine

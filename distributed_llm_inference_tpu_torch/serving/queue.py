@@ -1,0 +1,538 @@
+"""Bounded request queue with ragged-batch coalescing in front of the solo
+engine (the JAX package's serving/queue.py; `--queue N` on the server).
+
+Without it every concurrent request serializes on the engine lock with no
+bound. Here concurrent single-prompt requests:
+
+  * enter a BOUNDED queue: when it is full the caller immediately gets an
+    `overloaded` envelope (HTTP 429, with a Retry-After derived from the
+    request's own SLO class depth);
+  * are COALESCED: the dispatcher takes every queued request with the same
+    sampling parameters (up to max_batch) and runs them as ONE left-padded
+    batch through engine.generate_batch: one prefill and one decode loop
+    for the lot instead of N serialized generations, so rows share each
+    read of the weights.
+
+Coalescing needs the llama family and a backend of left-padded batches,
+and only groups seedless requests (a seed pins its request to a solo
+generation, whose random stream it names). Anything that cannot coalesce
+still flows through the same queue one request at a time, so backpressure
+is uniform. A request's deadline_ms counts its time in the queue.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from typing import Any, Optional
+
+from ..utils.logging import get_logger
+from ..utils.metrics import DEFAULT_SIZE_BUCKETS
+from ..utils.retry import overload_retry_after
+from ..utils.tracing import Trace
+
+log = get_logger("queue")
+
+
+class _Pending:
+    __slots__ = ("prompt", "kwargs", "done", "result", "enqueued", "is_batch",
+                 "trace", "slo", "deadline_at", "trace_ctx")
+
+    def __init__(self, prompt, kwargs: dict, is_batch: bool = False):
+        self.prompt = prompt  # str, or list[str] for a client batch
+        self.kwargs = kwargs
+        self.done = threading.Event()
+        self.result: Optional[dict] = None
+        self.enqueued = time.time()
+        self.is_batch = is_batch
+        # end-to-end deadline_ms: absolute expiry. Checked at submit
+        # (fail-fast, zero queue time spent) and again at dispatch
+        # (_expire); the engine enforces the REMAINING budget in-flight
+        # (the kwarg is rewritten at dispatch so queue wait counts).
+        dl = kwargs.get("deadline_ms")
+        self.deadline_at = (
+            self.enqueued + float(dl) / 1e3 if dl is not None else None
+        )
+        # SLO class (engine/scheduler.py): resolved against the engine's
+        # configured classes at submit; drives the per-class depth gauge
+        # and the class-local Retry-After on shed — the kwarg itself
+        # stays, the engine accepts + echoes it
+        self.slo = kwargs.get("slo_class")
+        # per-request trace: the dispatcher wait lands in the queue_wait
+        # span; solo dispatch hands the SAME trace to the engine so the
+        # response's timings cover enqueue -> detokenize contiguously
+        self.trace = Trace(kwargs.pop("request_id", None))
+        # fleet trace context (serving/server.py sets it): consumed here —
+        # engine.generate has no seam for it, and the server's own
+        # replica.request span already brackets the queue wait (which
+        # lands in this trace's queue_wait timing, hence in the exported
+        # stage spans)
+        self.trace_ctx = kwargs.pop("trace_ctx", None)
+
+    def coalesce_key(self):
+        k = self.kwargs
+        # client batches dispatch as their own fleet; seeded requests run
+        # solo (their determinism contract is the solo RNG stream); debug
+        # requests run solo (top_predictions needs the single-stream
+        # prefill logits)
+        # logprobs requests run solo too: a coalesced fleet has no
+        # per-token logprob buffer, so batching would silently drop the
+        # requested data
+        if (
+            self.is_batch or k.get("seed") is not None or k.get("debug")
+            or k.get("logprobs")
+            # generate_batch has no logit_bias seam; biased requests solo
+            or k.get("logit_bias")
+            # a deadline_ms request runs solo: a fleet-wide deadline
+            # would fail innocent rows the moment one member's budget
+            # expires, and per-row deadlines have no fleet seam
+            or k.get("deadline_ms") is not None
+            # beam search is its own batched program; runs solo
+            or int(k.get("num_beams", 1) or 1) > 1
+        ):
+            return None
+        return (
+            k.get("max_tokens"), k.get("temperature"), k.get("top_k"),
+            k.get("top_p"), k.get("greedy"), k.get("chat"),
+            k.get("min_p", 0.0), k.get("repetition_penalty", 1.0),
+            # the OpenAI penalties are fleet-shared scalars like the other
+            # sampling knobs: only identical values may share a fleet
+            k.get("frequency_penalty", 0.0), k.get("presence_penalty", 0.0),
+            # class-pure fleets: the envelope echoes one slo_class per
+            # fleet call, so mixed-class coalescing would mislabel rows
+            k.get("slo_class"),
+            tuple(k.get("stop") or ()),
+            # a grammar constraint is fleet-shared (one [S, V] table pair
+            # broadcast over the rows), so only IDENTICAL constraints may
+            # coalesce — canonical-JSON'd because dicts don't hash
+            json.dumps(k["constraint"], sort_keys=True)
+            if k.get("constraint") is not None else None,
+        )
+
+
+class BatchingQueue:
+    """Bounded queue + coalescing dispatcher in front of an InferenceEngine."""
+
+    def __init__(
+        self,
+        engine: Any,
+        max_queue: int = 32,
+        max_batch: int = 8,
+        max_wait_ms: float = 5.0,
+    ):
+        from ..engine.engine import BATCH_BUCKETS
+
+        self.engine = engine
+        self.max_queue = int(max_queue)
+        # clamp to the largest batch the engine compiles: a bigger fleet
+        # would be rejected by generate_batch and silently serialize solo
+        self.max_batch = min(int(max_batch), BATCH_BUCKETS[-1])
+        if self.max_batch < int(max_batch):
+            log.warning(
+                "max_batch_clamped", requested=int(max_batch),
+                clamped_to=self.max_batch,
+            )
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        self._cv = threading.Condition()
+        self._queue: list[_Pending] = []  # guarded-by: _cv
+        self._closed = False  # guarded-by: _cv
+        self._draining = False  # guarded-by: _cv
+        # guarded-by: _cv
+        self._busy = False  # dispatcher mid-group (drain must wait for it)
+        self.coalesced_batches = 0  # observability: fleets actually formed
+        # registry families (engine.metrics — one /metrics scrape covers
+        # the queue alongside the engine): depth, shed 429s, dispatcher
+        # waits, fleets formed + their row counts
+        m = engine.metrics
+        self._m_depth = m.gauge(
+            "dli_queue_depth", "requests waiting for dispatch", ("queue",)
+        ).labels(queue="batching")
+        self._m_shed = m.counter(
+            "dli_queue_shed_total", "requests shed with 429", ("queue",)
+        ).labels(queue="batching")
+        self._m_wait = m.histogram(
+            "dli_admission_wait_seconds", "enqueue-to-dispatch wait",
+            ("queue",),
+        ).labels(queue="batching")
+        self._m_coalesced = m.counter(
+            "dli_coalesced_fleets_total",
+            "coalesced fleets that served successfully",
+        ).labels()
+        self._m_fleet_rows = m.histogram(
+            "dli_batch_rows", "rows per batched fleet", ("engine",),
+            buckets=DEFAULT_SIZE_BUCKETS,
+        ).labels(engine="queue")
+        # SLO classes (engine/scheduler.py): the batching queue has no
+        # prefill budget to apportion, but classed requests still get the
+        # per-class depth gauge and a CLASS-local Retry-After on shed —
+        # a deep batch backlog must not tell an interactive client to
+        # stay away, and vice versa
+        from ..engine.scheduler import parse_slo_classes
+
+        self._slo = parse_slo_classes(engine.engine_cfg)
+        self._slo_default = engine.engine_cfg.slo_default_class
+        self._m_slo_depth = m.gauge(
+            "dli_slo_queue_depth",
+            "queued requests per SLO class and tenant",
+            ("slo_class", "tenant"),
+        )
+        self._m_slo_shed = m.counter(
+            "dli_slo_shed_total",
+            "requests shed with 429 by SLO admission control (class drain "
+            "estimate over the TTFT target, or queue full)", ("slo_class",),
+        )
+        self._m_deadline_exceeded = m.counter(
+            "dli_deadline_exceeded_total",
+            "requests failed by their end-to-end deadline_ms",
+        ).labels()
+        self._can_coalesce = (
+            getattr(engine.cfg, "arch", None) == "llama"
+            and getattr(engine.backend, "supports_ragged", False)
+            and self.max_batch > 1
+        )
+        self._thread = threading.Thread(
+            target=self._dispatch_loop, daemon=True, name="batching-queue"
+        )
+        self._thread.start()
+
+    # -- client side ---------------------------------------------------------
+    def submit(self, prompt: str, **kwargs) -> dict:
+        """Enqueue one request and block until its envelope is ready.
+
+        Returns an `overloaded` envelope immediately when the queue is
+        full — the serving edge maps it to HTTP 429.
+        """
+        return self._submit(_Pending(prompt, kwargs))
+
+    def submit_batch(self, prompts: list, **kwargs) -> dict:
+        """Enqueue a client 'prompts'-list request as one unit, so batched
+        traffic shares the same bounded-queue backpressure as singles (it
+        dispatches as its own fleet, never coalesced with others)."""
+        return self._submit(_Pending(prompts, kwargs, is_batch=True))
+
+    def _note_queue_locked(self):  # guarded-by: _cv
+        """Refresh the global + per-SLO-class depth gauges (caller holds
+        the lock)."""
+        self._m_depth.set(len(self._queue))
+        counts: dict = {}
+        for p in self._queue:
+            counts[p.slo] = counts.get(p.slo, 0) + 1
+        for name in self._slo:
+            # the batching queue carries no tenant identity; its series
+            # report under the anonymous tenant like untagged continuous
+            # traffic
+            self._m_slo_depth.labels(slo_class=name, tenant="").set(
+                counts.get(name, 0)
+            )
+
+    def _deadline_env(self, where: str = "") -> dict:
+        self._m_deadline_exceeded.inc()
+        suffix = f" {where}" if where else ""
+        return {
+            "error": f"Error: request exceeded its deadline_ms "
+            f"budget{suffix}",
+            "status": "failed",
+            "error_type": "deadline_exceeded",
+        }
+
+    def _submit(self, pend: _Pending) -> dict:
+        if pend.slo not in self._slo:
+            pend.slo = self._slo_default
+        if pend.deadline_at is not None and time.time() >= pend.deadline_at:
+            # fail-fast: an already-expired request never enters the
+            # queue, never reaches the engine (zero prefill spent)
+            return self._deadline_env(where="before admission")
+        with self._cv:
+            if self._closed:
+                return {
+                    "error": "Error: server shutting down", "status": "failed",
+                    "error_type": "overloaded",
+                }
+            if self._draining:
+                # graceful drain: the serving edge maps this to HTTP 503
+                # with a Retry-After header (in-flight work still finishes)
+                return {
+                    "error": "Error: server draining", "status": "failed",
+                    "error_type": "draining",
+                }
+            if len(self._queue) >= self.max_queue:
+                log.warning("queue_full", depth=len(self._queue),
+                            slo_class=pend.slo)
+                self._m_shed.inc()
+                self._m_slo_shed.labels(slo_class=pend.slo).inc()
+                # the 429 carries a drain-estimate Retry-After hint (the
+                # drain path always sent one; overload must too, so
+                # client and router backoff stays server-directed) —
+                # derived from the shed request's OWN class depth: one
+                # second per max_batch-sized dispatch cycle THAT class's
+                # backlog needs to clear, never the global queue depth
+                class_depth = sum(
+                    1 for p in self._queue if p.slo == pend.slo
+                )
+                return {
+                    "error": f"Error: request queue full ({self.max_queue})",
+                    "status": "failed",
+                    "error_type": "overloaded",
+                    "slo_class": pend.slo,
+                    "retry_after_s": overload_retry_after(
+                        class_depth, self.max_batch
+                    ),
+                }
+            self._queue.append(pend)
+            self._note_queue_locked()
+            self._cv.notify_all()
+        pend.done.wait()
+        return pend.result
+
+    def drain(self, deadline_s: Optional[float] = None) -> bool:
+        """Graceful drain: reject NEW submissions (draining envelope →
+        HTTP 503 + Retry-After), then wait until the queue is empty and
+        the dispatcher is idle, up to deadline_s. Returns True when fully
+        drained; the caller's close() fails any stragglers. Idempotent."""
+        t0 = time.time()
+        with self._cv:
+            self._draining = True
+            self._cv.notify_all()
+        drained = True
+        with self._cv:
+            while self._queue or self._busy:
+                if self._closed:
+                    drained = not self._queue and not self._busy
+                    break
+                left = (
+                    None if deadline_s is None
+                    else deadline_s - (time.time() - t0)
+                )
+                if left is not None and left <= 0:
+                    drained = False
+                    break
+                self._cv.wait(
+                    timeout=0.1 if left is None else min(left, 0.1)
+                )
+        self.engine.metrics.histogram(
+            "dli_drain_duration_seconds",
+            "graceful-drain wall time (SIGTERM / drain())", ("component",),
+        ).labels(component="queue").observe(time.time() - t0)
+        log.info(
+            "queue_drained", ok=drained, seconds=round(time.time() - t0, 3)
+        )
+        return drained
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=5)
+        # fail anything still queued
+        with self._cv:
+            for p in self._queue:
+                p.result = {
+                    "error": "Error: server shutting down", "status": "failed",
+                    "error_type": "overloaded",
+                }
+                p.done.set()
+            self._queue.clear()
+            self._note_queue_locked()
+
+    def depth(self) -> int:
+        with self._cv:
+            return len(self._queue)
+
+    # -- dispatcher ----------------------------------------------------------
+    def _take_group(self) -> list[_Pending]:  # guarded-by: _cv
+        """Pop the head request plus every compatible queued request (in
+        arrival order) up to max_batch. Caller holds the lock."""
+        head = self._queue.pop(0)
+        self._note_queue_locked()
+        key = head.coalesce_key() if self._can_coalesce else None
+        group = [head]
+        if key is None:
+            return group
+        rest = []
+        for p in self._queue:
+            if len(group) < self.max_batch and p.coalesce_key() == key:
+                group.append(p)
+            else:
+                rest.append(p)
+        self._queue[:] = rest
+        self._note_queue_locked()
+        return group
+
+    def _dispatch_loop(self):
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait()
+                if self._closed:
+                    return
+                depth = len(self._queue)
+                head_age = time.time() - self._queue[0].enqueued
+                head_solo = self._queue[0].coalesce_key() is None
+            # brief coalescing window: give a burst's stragglers a chance
+            # to arrive before the fleet is cut. The head only ever waits
+            # out the REMAINDER of its window — a request that already
+            # aged past it behind a running fleet dispatches immediately —
+            # and a head that can never coalesce (seeded/debug/client
+            # batch) skips the window entirely.
+            wait = self.max_wait_s - head_age
+            if (
+                self._can_coalesce and not head_solo
+                and depth < self.max_batch and wait > 0
+            ):
+                time.sleep(wait)
+            with self._cv:
+                if not self._queue:
+                    continue
+                group = self._take_group()
+                self._busy = True  # drain() waits for the group to finish
+            try:
+                group = self._expire(group)
+                if group:
+                    self._run_group(group)
+            finally:
+                with self._cv:
+                    self._busy = False
+                    self._cv.notify_all()
+
+    def _expire(self, group: list[_Pending]) -> list[_Pending]:
+        """Fail requests whose QUEUE WAIT already exceeded the engine's
+        per-request deadline — --deadline promises a per-request wall
+        clock, and under backlog (the only time deadlines matter) the
+        wait would otherwise not count against it."""
+        deadline = getattr(self.engine.engine_cfg, "request_deadline_s", None)
+        now = time.time()
+        live = []
+        for p in group:
+            if p.deadline_at is not None and now >= p.deadline_at:
+                # the request's OWN deadline_ms expired while queued:
+                # distinct envelope (504 at the edge, never retried)
+                p.result = dict(
+                    self._deadline_env(where="while queued"),
+                    request_id=p.trace.request_id,
+                    timings=p.trace.timings(),
+                )
+                p.done.set()
+            elif deadline and now - p.enqueued > deadline:
+                p.result = {
+                    "error": f"Error: request exceeded the {deadline:g}s "
+                    "deadline while queued",
+                    "status": "failed",
+                    "error_type": "timeout",
+                    "request_id": p.trace.request_id,
+                    "timings": p.trace.timings(),
+                }
+                p.done.set()
+            else:
+                if p.deadline_at is not None:
+                    # the engine enforces the REMAINING budget: rewrite
+                    # the kwarg so queue wait counts against end-to-end
+                    p.kwargs["deadline_ms"] = max(
+                        1.0, (p.deadline_at - now) * 1e3
+                    )
+                live.append(p)
+        return live
+
+    def _run_group(self, group: list[_Pending]):
+        now = time.time()
+        for p in group:
+            self._m_wait.observe(now - p.enqueued)
+        try:
+            if len(group) == 1:
+                p = group[0]
+                # the engine continues THIS trace: its first checkpoint
+                # (lock acquisition) folds the dispatcher wait into the
+                # queue_wait span, and the envelope echoes p's request_id
+                if p.is_batch:
+                    p.result = self.engine.generate_batch(
+                        p.prompt, _trace=p.trace, **p.kwargs
+                    )
+                else:
+                    p.result = self.engine.generate(
+                        p.prompt, _trace=p.trace, **p.kwargs
+                    )
+                return
+            kwargs = dict(group[0].kwargs)
+            kwargs.pop("seed", None)
+            kwargs.pop("debug", None)
+            # a coalesced greedy fleet already produces the exact tokens a
+            # speculative solo run would; the flag just doesn't apply.
+            # logprobs=False (the server sets it unconditionally) is
+            # likewise not a generate_batch parameter — logprobs=True
+            # requests never coalesce (coalesce_key).
+            kwargs.pop("speculative", None)
+            kwargs.pop("logprobs", None)
+            for p in group:
+                # dispatcher wait closed out per member; the fleet's own
+                # stage spans are copied onto each member below
+                p.trace.checkpoint("queue_wait")
+            t0 = time.time()
+            batch = self.engine.generate_batch(
+                [p.prompt for p in group], **kwargs
+            )
+            elapsed = time.time() - t0
+            if batch.get("status") == "success":
+                # counted only for fleets that actually served (a failed
+                # fleet falls back to solo — counting it would mask a
+                # coalescing regression behind a healthy-looking metric)
+                self.coalesced_batches += 1
+                self._m_coalesced.inc()
+                self._m_fleet_rows.observe(len(group))
+            if batch.get("status") != "success":
+                if batch.get("error_type") in ("timeout", "overloaded"):
+                    # capacity failures propagate as-is: retrying N members
+                    # solo against a wedged engine would stall the single
+                    # dispatcher thread N x deadline and outage the queue
+                    for p in group:
+                        p.result = dict(
+                            batch, request_id=p.trace.request_id,
+                            timings=p.trace.timings(),
+                        )
+                    return
+                # request-shaped fleet failure (e.g. one over-long prompt):
+                # retry each member SOLO so one bad request cannot fail the
+                # innocent ones it happened to coalesce with — solo also
+                # reaches paths batching lacks (chunked prefill)
+                for p in group:
+                    p.result = self.engine.generate(
+                        p.prompt, _trace=p.trace, **p.kwargs
+                    )
+                return
+            fleet_spans = {
+                k: v for k, v in batch.get("timings", {}).items()
+                if k not in ("queue_wait_s", "total_s")
+            }
+            for p, row in zip(group, batch["results"]):
+                n = row["tokens_generated"]
+                for k, v in fleet_spans.items():
+                    p.trace.add(k[:-2], v)  # strip the "_s" suffix
+                p.result = {
+                    "prompt": row["prompt"],
+                    "response": row["response"],
+                    "status": row["status"],
+                    **({"stopped": True} if row.get("stopped") else {}),
+                    "time_taken": batch["time_taken"],
+                    "tokens_generated": n,
+                    "prompt_tokens": row.get("prompt_tokens", 0),
+                    **({"finish_reason": row["finish_reason"]}
+                       if "finish_reason" in row else {}),
+                    "tokens_per_sec": f"{(n / elapsed if elapsed > 0 else 0.0):.2f}",
+                    "ttft_s": batch["ttft_s"],
+                    "backend": batch["backend"],
+                    "batched_with": len(group),
+                    "request_id": p.trace.request_id,
+                    "timings": p.trace.timings(),
+                }
+        except Exception as e:  # noqa: BLE001 - callers must always unblock
+            log.error("dispatch_failed", exc_info=True, error=str(e))
+            for p in group:
+                if p.result is None:
+                    p.result = {"error": f"Error: {e}", "status": "failed"}
+        finally:
+            for p in group:
+                if p.result is None:
+                    p.result = {
+                        "error": "Error: dispatcher produced no result",
+                        "status": "failed",
+                    }
+                p.done.set()

@@ -38,8 +38,19 @@ pages beside the base weights on the paged fleet, `--adapter NAME=DIR`
 registers a PEFT directory at start, and a request picks one by
 `"adapter"` on `/generate` or `"model"` on the OpenAI routes (an unknown
 name is a 400; `/v1/models` lists them); `--lora DIR` merges one adapter
-into the weights at load instead. The queue (`--queue`) and the trace
-store (`/debug/traces`) arrive with later slices.
+into the weights at load instead. The solo engine's features: a
+`/generate` request's `"num_beams"` (with `length_penalty`,
+`early_stopping`) runs beam search and `"speculative": true` greedy
+speculation (through `--draft-model NAME`'s chain when one is attached,
+else prompt-lookup n-grams); an OpenAI completion with `echo`, `logprobs`
+and `max_tokens: 0` scores the prompt teacher-forced (at most four
+scorers at once, a fifth gets 429); `--prefix-cache N` without a pool
+gives the solo engine and the dense fleet their prefix snapshots
+(engine/prefix.py). `--queue N` (with `--queue-max-batch`,
+`--queue-wait-ms`) puts the bounded batching queue (serving/queue.py) in
+front of the solo engine: the ladder is fleet > queue > engine, a full
+queue answers 429 with Retry-After and `/stats` carries `queue`. The
+trace store (`/debug/traces`) arrives with a later slice.
 
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --attn-impl auto
@@ -72,6 +83,9 @@ store (`/debug/traces`) arrive with later slices.
         --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
         --continuous-max-seq 1024 --adapter-slots 4 --adapter-rank 8 \\
         --adapter tuned=adapters/tuned --adapter chat=adapters/chat
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
+        --queue 16 --queue-max-batch 8 --queue-wait-ms 5 --prefix-cache 4
 """
 
 from __future__ import annotations
@@ -270,7 +284,7 @@ def _status_code(result: dict) -> tuple:
 
 def make_handler(engine, max_tokens_cap: int, state=None,
                  wedge_unready_s: float = 10.0, continuous=None,
-                 profiler: Optional[_Profiler] = None):
+                 profiler: Optional[_Profiler] = None, queue=None):
     from ..utils.logging import request_id_context
     from ..utils.tracing import (
         SpanContext,
@@ -293,6 +307,10 @@ def make_handler(engine, max_tokens_cap: int, state=None,
         "dli_http_requests_total", "HTTP responses",
         ("route", "method", "status"),
     )
+    # scoring is not a generation and bypasses the fleet / queue ladder, so
+    # it has its own bound: past four concurrent scorers a request is shed
+    # with 429 instead of piling threads on the engine lock
+    score_slots = threading.BoundedSemaphore(4)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # serving logs are structured
@@ -404,6 +422,9 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 s = engine.stats()
                 if continuous is not None:
                     s["continuous"] = continuous.stats()
+                if queue is not None:
+                    s["queue"] = {"depth": queue.depth(),
+                                  "coalesced_batches": queue.coalesced_batches}
                 self._send(200, s)
             elif path == "/metrics":
                 self._send(200, engine.metrics.render(),
@@ -507,13 +528,23 @@ def make_handler(engine, max_tokens_cap: int, state=None,
 
         def _run_single(self, prompt: str, kwargs: dict) -> dict:
             """One prompt through the dispatch ladder of /generate and the
-            OpenAI routes: the continuous fleet, else the solo engine (the
-            queue is not ported: "Solo-engine features"). The JAX server
-            records its `replica.request` span here; the port has no trace
-            store yet ("Fleet tier")."""
+            OpenAI routes: the continuous fleet > the bounded queue > the
+            solo engine. The JAX server records its `replica.request` span
+            here; the port has no trace store yet ("Fleet tier")."""
             if continuous is not None:
                 return continuous.submit(prompt, trace_ctx=self._trace_ctx, **kwargs)
+            if queue is not None:
+                return queue.submit(prompt, **kwargs)
             return engine.generate(prompt, **kwargs)
+
+        def _run_batch(self, prompts: list, kwargs: dict) -> dict:
+            """A client batch: through the queue's backpressure when there
+            is one (dispatched as its own batch), else the solo engine."""
+            for k in ("kv_hint", "prefill_only", "kv_push_to"):
+                kwargs.pop(k, None)  # the solo batch has no fabric
+            if queue is not None:
+                return queue.submit_batch(prompts, **kwargs)
+            return engine.generate_batch(prompts, **kwargs)
 
         def _stream_span(self, kwargs: dict):
             """The span of a streamed request, which the stream loop would
@@ -612,14 +643,17 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                     if kv_push_to:
                         kwargs["kv_push_to"] = kv_push_to
                 if meta.get("echo_score"):
-                    # echo + logprobs + max_tokens=0 scores the prompt:
-                    # engine.score, which the port refuses by its ROADMAP.md
-                    # item ("Solo-engine features")
+                    # echo + logprobs + max_tokens=0: teacher-forced
+                    # scoring of the prompt itself (the lm-eval pattern)
+                    if not score_slots.acquire(blocking=False):
+                        raise oai.OpenAIError(
+                            "too many concurrent scoring requests",
+                            status=429, err_type="overloaded_error")
                     try:
                         result = engine.score(prompts[0],
                                               top_n=meta.get("score_top_n", 0))
-                    except ValueError as e:
-                        raise oai.OpenAIError(str(e), param="echo") from None
+                    finally:
+                        score_slots.release()
                     if result.get("status") != "success":
                         raise oai.error_for_envelope(result)
                     self._send(200, oai.echo_score_response(result, engine.cfg.name))
@@ -646,9 +680,7 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                         raise oai.OpenAIError(
                             "logprobs requires a single string prompt",
                             param="logprobs")
-                    for k in ("kv_hint", "prefill_only", "kv_push_to"):
-                        kwargs.pop(k, None)  # the solo batch has no fabric
-                    batch = engine.generate_batch(prompts, **kwargs)
+                    batch = self._run_batch(prompts, kwargs)
                     if batch.get("status") != "success":
                         raise oai.error_for_envelope(batch)
                     entries = batch["results"]
@@ -879,9 +911,7 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                     raise ValueError("logit_bias requires a single 'prompt'")
                 if kwargs.get("num_beams", 1) > 1:
                     raise ValueError("num_beams requires a single 'prompt'")
-                for k in ("kv_hint", "prefill_only", "kv_push_to"):
-                    kwargs.pop(k, None)  # the solo batch has no fabric
-                return engine.generate_batch(prompts, **kwargs)
+                return self._run_batch(prompts, kwargs)
             kwargs["debug"] = _parse_bool(data.get("debug", False), "debug")
             kwargs["speculative"] = _parse_bool(
                 data.get("speculative", False), "speculative"
@@ -908,16 +938,17 @@ class InferenceServer:
 
     def __init__(self, engine, host: str = "0.0.0.0", port: int = 5000,
                  max_tokens_cap: int = 30, drain_deadline_s: float = 30.0,
-                 wedge_unready_s: float = 10.0, continuous=None):
+                 wedge_unready_s: float = 10.0, continuous=None, queue=None):
         self.engine = engine
         self.continuous = continuous
+        self.queue = queue
         self.drain_deadline_s = float(drain_deadline_s)
         self.state = _ServerState()
         self.httpd = ThreadingHTTPServer(
             (host, port),
             make_handler(engine, max_tokens_cap, state=self.state,
                          wedge_unready_s=wedge_unready_s,
-                         continuous=continuous),
+                         continuous=continuous, queue=queue),
         )
         self.port = self.httpd.server_address[1]
 
@@ -928,15 +959,23 @@ class InferenceServer:
 
     def drain(self, deadline_s: Optional[float] = None) -> bool:
         """Graceful drain: flip readiness (new requests get 503 +
-        Retry-After), let the in-flight generation finish up to the
-        deadline, then stop the HTTP server."""
+        Retry-After), let queued and in-flight work finish up to the
+        deadline, then stop the HTTP server. The order: the front door
+        first (no new admissions), then the batching layers (their own
+        queues: the fleet, the queue), then the engine's in-flight lock."""
         deadline = self.drain_deadline_s if deadline_s is None else float(deadline_s)
         t0 = time.time()
         self.state.draining = True
         ok = True
+
+        def left() -> float:
+            return max(0.0, deadline - (time.time() - t0))
+
         if self.continuous is not None:
-            ok = self.continuous.drain(deadline)
-        ok = self.engine.drain(max(0.0, deadline - (time.time() - t0))) and ok
+            ok = self.continuous.drain(left()) and ok
+        if self.queue is not None:
+            ok = self.queue.drain(left()) and ok
+        ok = self.engine.drain(left()) and ok
         from ..utils.logging import get_logger
 
         get_logger("server").info("drained", ok=ok, seconds=round(time.time() - t0, 3))
@@ -973,6 +1012,8 @@ class InferenceServer:
     def shutdown(self):
         self.httpd.shutdown()
         self.httpd.server_close()
+        if self.queue is not None:
+            self.queue.close()
         if self.continuous is not None:
             self.continuous.close()
 
@@ -1107,8 +1148,9 @@ def main(argv: Optional[list] = None):
         help="block-prefix cache of the paged fleet (engine/block_prefix.py, "
              "needs --continuous and --kv-pool-blocks): a request whose "
              "prompt head matches a cached chain of full blocks maps them "
-             "and prefills only its tail (the solo engine's own prefix "
-             "cache is not ported and refuses solo requests)",
+             "and prefills only its tail; without a pool, the solo engine's "
+             "and the dense fleet's N prompt-prefix snapshots "
+             "(engine/prefix.py), spliced back on a hit",
     )
     ap.add_argument(
         "--restore-dir", default=None, metavar="DIR",
@@ -1188,8 +1230,10 @@ def main(argv: Optional[list] = None):
     )
     ap.add_argument(
         "--draft-model", default=None, metavar="NAME",
-        help="the solo engine's two-model speculation (not ported: refused "
-             "at start)",
+        help="attach a smaller same-tokenizer model as a speculative draft: "
+             "greedy requests with \"speculative\": true on the solo engine "
+             "verify the draft's proposals (several tokens per target "
+             "forward on text the draft predicts well)",
     )
     ap.add_argument(
         "--tenant-weight", action="append", default=None, metavar="NAME=W",
@@ -1235,6 +1279,21 @@ def main(argv: Optional[list] = None):
              "slots is fine: pages are refcounted and LRU-swapped on demand",
     )
     ap.add_argument(
+        "--queue", type=int, default=0, metavar="N",
+        help="bounded request queue of depth N in front of the solo engine "
+             "(serving/queue.py): concurrent singles coalesce into "
+             "left-padded batches, a full queue returns 429 (0 = disabled; "
+             "not with --continuous)",
+    )
+    ap.add_argument(
+        "--queue-max-batch", type=int, default=8,
+        help="largest coalesced batch the queue's dispatcher forms",
+    )
+    ap.add_argument(
+        "--queue-wait-ms", type=float, default=5.0,
+        help="coalescing window before a batch is cut",
+    )
+    ap.add_argument(
         "--die-on-wedge", type=float, default=None, metavar="SECONDS",
         help="exit the process (code 17) once an abandoned deadline-overrun "
              "device call has been stuck this long, for a supervisor restart; "
@@ -1261,6 +1320,11 @@ def main(argv: Optional[list] = None):
         raise SystemExit(
             "--die-on-wedge needs --deadline: wedges are detected by "
             "deadline-overrun calls that never drain"
+        )
+    if args.continuous > 0 and args.queue > 0:
+        raise SystemExit(
+            "--continuous and --queue are mutually exclusive: in-flight "
+            "batching already provides bounded admission + batching"
         )
     if args.kv_pool_blocks is not None and args.continuous <= 0:
         raise SystemExit("--kv-pool-blocks requires --continuous")
@@ -1369,10 +1433,17 @@ def main(argv: Optional[list] = None):
                     f"fix the configuration or start without --warmup"
                 )
             print(f"continuous warm in {w['seconds']}s", flush=True)
+    queue = None
+    if args.queue > 0:
+        from .queue import BatchingQueue
+
+        queue = BatchingQueue(engine, max_queue=args.queue,
+                              max_batch=args.queue_max_batch,
+                              max_wait_ms=args.queue_wait_ms)
     InferenceServer(
         engine, args.host, args.port, args.max_tokens_cap,
         drain_deadline_s=args.drain_deadline,
-        wedge_unready_s=args.wedge_unready, continuous=continuous,
+        wedge_unready_s=args.wedge_unready, continuous=continuous, queue=queue,
     ).serve_forever()
 
 

@@ -98,6 +98,12 @@ class Trace:
             self._spans[name] = self._spans.get(name, 0.0) + dur
         return dur
 
+    def add(self, name: str, seconds: float):
+        """Record a span measured elsewhere (serving/queue.py copies a
+        coalesced batch's stage spans onto each member's trace)."""
+        with self._lock:
+            self._spans[name] = self._spans.get(name, 0.0) + float(seconds)
+
     def timings(self) -> dict:
         """`{"<span>_s": dur, ..., "total_s": wall}` in span order."""
         now = time.perf_counter()

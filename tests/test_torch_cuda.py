@@ -1877,3 +1877,127 @@ def test_dense_fleet_serves_constraints_through_the_constrained_graph(card):
     assert g["decode_chunk"]["captures"] == 1
     assert g["decode_chunk"]["replays"] == (launches["decode_chunks"]
                                             - launches["constrained_chunks"] - 1) >= 1
+
+
+# -- the solo engine's features on the card ------------------------------------
+
+
+def _card_engine(card, impl="auto", kv_quant=None, **ecfg):
+    """test-llama-tiny (fp32, seed 3) on the card with the CPU engine's
+    weights, and that CPU engine."""
+    cfg = EngineConfig(prefill_buckets=(16, 32), **ecfg)
+    cpu = create_engine("test-llama-tiny", seed=3, engine_cfg=cfg, device="cpu")
+    moved = {k: ({n: t.to(card) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(card)) for k, v in cpu.backend.params.items()}
+    return create_engine(cpu.cfg, params=moved, attn_impl=impl, kv_quant=kv_quant,
+                         engine_cfg=cfg, device=card), cpu
+
+
+def test_verify_forward_through_the_kernel_matches_plain(card):
+    """One speculative verify forward (T = 1 + 4 at a scalar pos) through
+    flash_attend, once per layer, against the plain path on the same
+    cache; then whole speculative requests (n-gram, and the target as its
+    own draft) on the card give plain greedy's ids."""
+    from distributed_llm_inference_tpu_torch.engine import generate as G
+
+    kern, _ = _card_engine(card, "auto")
+    plain, _ = _card_engine(card, "plain")
+    ids = [1] + [7, 11, 13, 17] * 5
+    logits = {}
+    for name, eng in (("kernel", kern), ("plain", plain)):
+        cache = eng.backend.init_cache(1, eng.cfg.max_seq_len)
+        toks = torch.tensor([ids + [0] * (32 - len(ids))], device=card)
+        first, _, cache = G.prefill(eng.cfg, eng.backend.params, toks, len(ids), cache,
+                                    torch.Generator(device=card).manual_seed(0),
+                                    G.default_sampling(greedy=True))
+        window = torch.tensor([[int(first[0]), 7, 11, 13, 17]], device=card)
+        before = fa.flash_attend.launches
+        out, _ = G._verify_fwd(eng.cfg, eng.backend.params)(window, cache, len(ids))
+        logits[name] = (out, fa.flash_attend.launches - before)
+    assert logits["kernel"][1] == kern.cfg.n_layers and logits["plain"][1] == 0
+    torch.testing.assert_close(logits["kernel"][0], logits["plain"][0], atol=1e-4, rtol=0)
+    prompt = "ab ab ab ab ab ab ab ab ab"
+    want = plain.generate(prompt, max_tokens=16, greedy=True, chat=False)["response"]
+    assert kern.generate(prompt, max_tokens=16, greedy=True, chat=False,
+                         speculative=True)["response"] == want
+    kern.set_draft(kern.cfg, kern.backend.params)
+    r = kern.generate(prompt, max_tokens=16, greedy=True, chat=False, speculative=True)
+    assert r["response"] == want and r["draft_model"] == kern.cfg.name
+
+
+def test_score_chunk_kernel_matches_plain(card):
+    """Teacher-forced scoring of a prompt over three chunks through the
+    kernel (n_layers launches per chunk) against the plain path, within
+    1e-4, the same top-2 strings."""
+    kern, _ = _card_engine(card, "auto")
+    plain, _ = _card_engine(card, "plain")
+    prompt = "chunked scoring wants " * 4  # 89 tokens: 32 + 32 + a 32-bucket tail
+    before = fa.flash_attend.launches
+    got = kern.score(prompt, top_n=2)
+    assert fa.flash_attend.launches - before == 3 * kern.cfg.n_layers
+    want = plain.score(prompt, top_n=2)
+    assert got["status"] == want["status"] == "success"
+    import numpy as np
+
+    np.testing.assert_allclose(got["token_logprobs"][1:], want["token_logprobs"][1:],
+                               atol=1e-4)
+    assert [set(d) for d in got["top_logprobs"][1:]] == \
+        [set(d) for d in want["top_logprobs"][1:]]
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_prefix_splice_on_cuda_is_bit_equal_to_the_cold_head(card, kv_quant):
+    """A hit splices the snapshot into the card's solo cache in place: its
+    head slots are bit-equal to the cold ingest that stored them, the
+    cache keeps its storage, and the ids equal a cold engine's."""
+    eng, _ = _card_engine(card, kv_quant=kv_quant, prefix_cache_entries=2,
+                          prefix_chunk=16)
+    cold, _ = _card_engine(card, kv_quant=kv_quant)
+    head = "You are a helpful assistant. Answer briefly: "
+    kw = dict(max_tokens=6, greedy=True, chat=False)
+    eng.generate(head + "what is two plus two?", **kw)
+
+    def tensors(cache):
+        return [t for n in ("k", "v") for t in
+                ((cache[n].q, cache[n].s) if hasattr(cache[n], "q") else (cache[n],))]
+
+    stored = [t[:, :, :, :32].clone() for t in tensors(eng._cache)]
+    ptrs = [t.data_ptr() for t in tensors(eng._cache)]
+    r = eng.generate(head + "name a colour.", **kw)
+    assert r["prefix_cached_tokens"] == 32
+    assert [t.data_ptr() for t in tensors(eng._cache)] == ptrs
+    for got, want in zip(tensors(eng._cache), stored):
+        assert torch.equal(got[:, :, :, :32], want)
+    assert r["response"] == cold.generate(head + "name a colour.", **kw)["response"]
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_beam_reorder_on_cuda_equals_cpu(card, kv_quant):
+    """The per-step reorder (index_select by parent beam on the card) is
+    the CPU's bit for bit, an int8 cache's scales too; beam search on the
+    card gives the CPU engine's beams."""
+    from distributed_llm_inference_tpu_torch.engine import generate as G
+    from distributed_llm_inference_tpu_torch.ops.kv_quant import KVQuant
+
+    g = torch.Generator().manual_seed(0)
+    if kv_quant:
+        leaf = lambda: KVQuant(torch.randint(-127, 128, (2, 4, 2, 64, 16), generator=g,
+                                             dtype=torch.int8),
+                               torch.rand(2, 4, 2, 64, generator=g))
+    else:
+        leaf = lambda: torch.randn(2, 4, 2, 64, 16, generator=g).to(torch.bfloat16)
+    cache = {"k": leaf(), "v": leaf()}
+    parents = torch.tensor([3, 3, 0, 1])
+    want = G.reorder_cache(cache, parents)
+    on_card = G.map_cache(cache, lambda x: x.to(card))
+    got = G.reorder_cache(on_card, parents.to(card))
+    for n in ("k", "v"):
+        for a, b in ((got[n].q, want[n].q), (got[n].s, want[n].s)) if kv_quant else \
+                ((got[n], want[n]),):
+            assert torch.equal(a.cpu(), b)
+    kern, cpu = _card_engine(card, "auto")
+    kw = dict(max_tokens=8, chat=False, num_beams=4, length_penalty=1.0)
+    a, b = kern.generate("Once upon a time", **kw), cpu.generate("Once upon a time", **kw)
+    assert [x["text"] for x in a["beams"]] == [x["text"] for x in b["beams"]]
+    for x, y in zip(a["beams"], b["beams"]):
+        assert x["score"] == pytest.approx(y["score"], abs=1e-4)

@@ -85,19 +85,24 @@ def test_greedy_batch_token_identical(engines):
 
 
 def test_unported_request_features_are_invalid_requests(engines):
-    _, port = engines
-    for kw in ({"num_beams": 2}, {"speculative": True}):
-        r = port.generate("hi", max_tokens=4, **kw)
-        assert r["error_type"] == "invalid_request" and "ROADMAP" in r["error"]
-    # the solo engine's own prefix cache is not ported: an engine with
-    # prefix_cache_entries > 0 (whose paged fleet serves the block-prefix
-    # cache) refuses a solo request by name
+    """Beams, speculation and the solo prefix cache answer as the JAX
+    engine answers them (they refused by name until the solo-engine
+    features were ported); meshes still raise, naming their heading."""
+    jax_engine, port = engines
+    for kw in ({"num_beams": 2}, {"speculative": True, "greedy": True}):
+        got = port.generate("hi", max_tokens=4, chat=False, **kw)
+        want = jax_engine.generate("hi", max_tokens=4, chat=False, **kw)
+        assert got["status"] == want["status"] == "success", (got, want)
+        assert got["response"] == want["response"] and set(got) == set(want)
+    # an engine with prefix_cache_entries > 0 serves solo requests through
+    # its prefix snapshots, a repeat hitting
     prefixed = create_engine(MODEL, engine_cfg=EngineConfig(prefix_cache_entries=2),
                              device="cpu")
-    r = prefixed.generate("hi", max_tokens=4)
-    assert r["error_type"] == "invalid_request" and "prefix" in r["error"]
-    assert "ROADMAP" in r["error"]
-    with pytest.raises(NotImplementedError):
+    for _ in range(2):
+        r = prefixed.generate("hi " * 30, max_tokens=4, chat=False)
+        assert r["status"] == "success", r
+    assert r["prefix_cached_tokens"] == 64 and prefixed.stats()["prefix_cache"]["hits"] == 1
+    with pytest.raises(NotImplementedError, match="Multi-GPU SPMD"):
         from distributed_llm_inference_tpu_torch.config import MeshConfig
 
         create_engine(MODEL, mesh_cfg=MeshConfig(pp=2), device="cpu")

@@ -73,6 +73,31 @@ def test_constrain_imports_nothing_of_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["engine/prefix.py", "serving/queue.py"])
+def test_solo_feature_modules_import_nothing_of_jax(module):
+    """engine/prefix.py (written anew: the JAX one imports jax) and
+    serving/queue.py (copied) import neither jax nor the JAX package, and
+    each loads alone without pulling either in."""
+    path = ROOT / "distributed_llm_inference_tpu_torch" / module
+    tree = ast.parse(path.read_text())
+    imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names]
+    imported += [n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module and n.level == 0]
+    assert not [m for m in imported if _forbidden(m)], (module, imported)
+    name = "distributed_llm_inference_tpu_torch." + module[:-3].replace("/", ".")
+    probe = (
+        "import importlib, sys\n"
+        f"importlib.import_module({name!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'distributed_llm_inference_tpu')]\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)

@@ -8,8 +8,8 @@ over by models/bridge.py): every request goes to both, and the answers
 must be equal but for their ids and clocks (sampled text, whose RNGs
 differ, only in shape; log-probabilities within 1e-4). The copied
 serving/openai_api.py is held to the JAX module function by function on
-the same bodies and envelopes. What the port still refuses (echo
-scoring) answers an OpenAI error naming its ROADMAP.md item."""
+the same bodies and envelopes. Echo scoring answers the JAX server's
+teacher-forced log-probabilities."""
 
 import json
 import urllib.error
@@ -529,16 +529,25 @@ def test_responses_and_errors_equal_jax(monkeypatch):
 
 
 def test_echo_scoring_names_its_roadmap_item(servers):
-    """echo + logprobs + max_tokens 0 scores the prompt: the port refuses
-    it with an OpenAI error naming "Solo-engine features" (the JAX server
-    scores it)."""
-    body = {"prompt": "score me", "echo": True, "logprobs": 1, "max_tokens": 0}
+    """echo + logprobs + max_tokens 0 scores the prompt teacher-forced: the
+    port answers as the JAX server does (it named its ROADMAP.md item until
+    scoring was ported), log-probabilities within 1e-5, top-N alternatives
+    the same strings; a prompt too short to score is the same 400."""
+    body = {"prompt": "score me please", "echo": True, "logprobs": 2, "max_tokens": 0}
     res = _both(servers, "/v1/completions", body)
-    assert res["jax"][0] == 200 and res["jax"][1]["choices"][0]["text"] == "score me"
-    code, out = res["port"]
-    assert code == 400 and out["error"]["type"] == "invalid_request_error"
-    assert 'ROADMAP.md "Solo-engine features"' in out["error"]["message"]
-    assert out["error"]["param"] == "echo"
+    (jc, j), (tc, t) = res["jax"], res["port"]
+    assert jc == tc == 200 and t["choices"][0]["text"] == "score me please"
+    jl, tl = j["choices"][0].pop("logprobs"), t["choices"][0].pop("logprobs")
+    assert _stable(t) == _stable(j)
+    assert tl["tokens"] == jl["tokens"] and tl["text_offset"] == jl["text_offset"]
+    assert tl["token_logprobs"][0] is None and jl["token_logprobs"][0] is None
+    np.testing.assert_allclose(tl["token_logprobs"][1:], jl["token_logprobs"][1:],
+                               atol=1e-5)
+    assert [list(d) for d in tl["top_logprobs"][1:]] == \
+        [list(d) for d in jl["top_logprobs"][1:]]
+    res = _both(servers, "/v1/completions", dict(body, prompt=""))
+    assert res["port"][0] == res["jax"][0] and _stable(res["port"][1]) == _stable(
+        res["jax"][1])
 
 
 # -- tests/test_openai_continuous.py ------------------------------------------

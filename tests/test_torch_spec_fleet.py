@@ -573,7 +573,8 @@ def test_speculative_requests_route_like_jax(weights):
     """"speculative": true stays in a spec-capable fleet (spec_decode off)
     and matches the plain stream; a seeded one and one on a fleet that
     cannot speculate (the dense fleet, or spec_draft_len 0) go to the solo
-    engine, which refuses speculation naming its ROADMAP heading. A sampled
+    engine, which speculates there (prompt lookup, `spec_path` "solo") with
+    the plain stream's ids, as the JAX fleet routes them. A sampled
     request stays in the fleet and never speculates."""
     _, _, tcfg, tparams, want = weights
     fleet = _port_fleet(tcfg, tparams, spec=False,
@@ -593,24 +594,31 @@ def test_speculative_requests_route_like_jax(weights):
     assert spec["continuous"] is True and spec["spec_path"] == "fleet"
     assert spec["spec_drafted"] > 0 and st["speculative"]["launches"] > 0
     assert sampled["continuous"] is True and "speculative" not in sampled
-    assert seeded["status"] == "failed" and "Solo-engine features" in seeded["error"]
-    for fl in (ContinuousEngine(create_engine(tcfg, params=tparams, device="cpu"),
+    tok = IdTokenizer()
+    want_text = tok.decode(want[0])
+    assert seeded["status"] == "success" and seeded["speculative"] is True
+    assert seeded["spec_path"] == "solo" and "continuous" not in seeded
+    assert seeded["response"] == want_text
+    for fl in (ContinuousEngine(create_engine(tcfg, params=tparams, device="cpu",
+                                              tokenizer=tok),
                                 n_slots=2, slot_max_seq=256),
                _port_fleet(tcfg, tparams, spec=False)):
         try:
             assert "speculative" not in fl.stats()
-            r = fl.submit("short", **GREEDY, speculative=True)
+            r = fl.submit(REPEAT_PROMPT, **GREEDY, speculative=True)
         finally:
             fl.close()
-        assert r["error_type"] == "invalid_request"
-        assert "Solo-engine features" in r["error"] and "continuous" not in r
+        assert r["status"] == "success" and "continuous" not in r
+        assert r["speculative"] is True and r["spec_path"] == "solo"
+        assert r["response"] == want_text
 
 
 def test_set_draft_checks_and_the_server_flags(weights, monkeypatch):
     """set_draft refuses another family (naming its ROADMAP heading) and
     another vocabulary, as the JAX engine refuses the latter; the server's
-    --spec-* flags reach the fleet, and the solo engine's --draft-model is
-    refused at start."""
+    --spec-* flags reach the fleet, and the solo engine's --draft-model
+    attaches its draft at start (it was refused until the solo engine's
+    speculation was ported)."""
     from distributed_llm_inference_tpu_torch.serving import server as S
 
     _, _, tcfg, tparams, _ = weights
@@ -629,6 +637,7 @@ def test_set_draft_checks_and_the_server_flags(weights, monkeypatch):
     class Server:
         def __init__(self, engine, *a, continuous=None, **kw):
             built["fleet"] = continuous
+            built["engine"] = engine
 
         def serve_forever(self):
             pass
@@ -643,5 +652,5 @@ def test_set_draft_checks_and_the_server_flags(weights, monkeypatch):
     finally:
         fleet.close()
     assert (sb["mode"], sb["draft_len"], sb["fleet_wide"]) == ("draft_model", 3, True)
-    with pytest.raises(NotImplementedError, match="Solo-engine features"):
-        S.main(["--model", MODEL, "--device", "cpu", "--draft-model", MODEL])
+    S.main(["--model", MODEL, "--device", "cpu", "--draft-model", MODEL])
+    assert built["fleet"] is None and built["engine"]._draft[0].name == MODEL
