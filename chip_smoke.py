@@ -286,11 +286,40 @@ spells every id (a response is its token ids):
       5: 8 concurrent greedy requests coalesced, each against its run
       alone, aggregate tokens/s against one by one.
 
+Run after (q) int4+int8, before the kernels line, on the other families
+at full width (bf16, random weights from seed 0, the byte tokenizer):
+
+  (F) (F1) gpt2-medium (MHA, a GQA group of 1; learned positions): (c)'s
+      solo requests and (d)'s logits, (g)'s paged wave with its graphs
+      and (h)'s kernel-vs-plain logits and sync check, (q)'s graphs of
+      the mixed launch and the paged and dense decode chunks, each
+      replay bit-equal to its eager launch, (o)'s dense wave; then under
+      --quant int4 --kv-quant int8, (g), (h) and (q)'s paged kinds again
+      with q4_matmul_rows on every decode projection. (F4) --checkpoint
+      through the server's CLI, started in process: gpt2-medium's
+      weights written as a BF16 HF directory (the port's safetensors
+      writer, HF names, no tokenizer files) and as a checkpoint store,
+      each serving a greedy request alone with the in-memory fleet's
+      ids; a 2-layer full-width qwen3_moe directory whose converted
+      config and every stacked expert bank equal the in-memory model's,
+      served with its ids. (F3) qwen3-30b-a3b at full depth (48 layers,
+      128 experts of 768, Dh 128, max_seq cut to 2048): (c), (g), (h)'s
+      sync check and (q)'s paged kinds, then its int8 expert banks at 24
+      layers through the same; (d)'s and (h)'s logits held to the plain
+      path in fp32 at 4 layers (a bf16 comparison measures router ties),
+      dense and int8.
+      (F2) the four kernels at both models' widths against their twins,
+      timed in turn with SDPA / matmul(dequantized) and against their
+      bounds, one JSON row per kernel and model. The kernels line gains
+      launches_F: every kernel's count over (F)'s main-path runs.
+
 `python3 chip_smoke.py --only s` runs (a), then (s), (t) and (u) alone on
 the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
 `--only w` runs (a), then (w) alone; `--only x` runs (a), then (x) alone;
 `--only y` runs (a), then (y) alone; `--only z` runs (a), then (z) alone;
-`--only S` runs (a), then (S) alone.
+`--only S` runs (a), then (S) alone; `--only F` runs (a), then (F) alone
+with profiled solo requests, mixed launches and decode chunks of both
+models (left out of the full run for time).
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
@@ -471,18 +500,20 @@ class Timer:
         return None
 
 
-def kv_row_bytes(dtype_name, int8):
+def kv_row_bytes(dtype_name, int8, dh=DH):
     """Bytes of one position's K or V row of one KV head: Dh elements, or
     Dh int8 bytes and a 4-byte scale."""
-    return DH + 4 if int8 else DH * (4 if dtype_name == "float32" else 2)
+    return dh + 4 if int8 else dh * (4 if dtype_name == "float32" else 2)
 
 
-def flash_work(B, T, pos, valid_start, window, dtype_name, int8=False):
+def flash_work(B, T, pos, valid_start, window, dtype_name, int8=False, widths=(H, KV, DH)):
     """(bytes, FLOPs) the attention of this call needs: q read and o
     written once, each live K/V row read once, and 4*Dh FLOPs per head for
-    each (query, key) pair the mask lets through (the two products)."""
+    each (query, key) pair the mask lets through (the two products).
+    widths: (H, KV, Dh), tinyllama's unless given."""
+    h, kv, dh = widths
     esize = 4 if dtype_name == "float32" else 2
-    nbytes = 2 * B * T * H * DH * esize
+    nbytes = 2 * B * T * h * dh * esize
     pairs = 0
     for b in range(B):
         vs = valid_start[b] if valid_start is not None else 0
@@ -494,8 +525,8 @@ def flash_work(B, T, pos, valid_start, window, dtype_name, int8=False):
                 lo = max(lo, q_pos - window + 1)
             pairs += max(q_pos + 1 - lo, 0)
             lo_min = lo if lo_min is None else min(lo_min, lo)
-        nbytes += 2 * KV * kv_row_bytes(dtype_name, int8) * max(pos + T - lo_min, 0)
-    return nbytes, 4 * DH * H * pairs
+        nbytes += 2 * kv * kv_row_bytes(dtype_name, int8, dh) * max(pos + T - lo_min, 0)
+    return nbytes, 4 * dh * h * pairs
 
 
 def bound(nbytes, flops, dtype_name):
@@ -513,19 +544,21 @@ def int8_leaf(torch, x):
 
 def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
                window=None, softcap=None, scale=None, seed=0, reps=15, int8=False,
-               profile=False):
+               profile=False, widths=(H, KV, DH)):
     """One kernel-vs-twin comparison with its times, over a raw or an int8
     cache; returns a dict. SDPA, the yardstick, runs twice in the same
     loop: over the whole cache (the tables' column) and over the live
     slice k[:, :, :pos + T] (the dead keys' work left out). With
-    `profile`, the kernel's and SDPA's own device time per call too."""
+    `profile`, the kernel's and SDPA's own device time per call too.
+    widths: (H, KV, Dh), tinyllama's unless given."""
     import torch.nn.functional as F
 
+    h, kv, dh = widths
     dt = getattr(torch, dtype_name)
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    q = torch.randn(B, T, H, DH, generator=g, device=DEVICE).to(dt)
-    k = torch.randn(B, KV, S, DH, generator=g, device=DEVICE)
-    v = torch.randn(B, KV, S, DH, generator=g, device=DEVICE)
+    q = torch.randn(B, T, h, dh, generator=g, device=DEVICE).to(dt)
+    k = torch.randn(B, kv, S, dh, generator=g, device=DEVICE)
+    v = torch.randn(B, kv, S, dh, generator=g, device=DEVICE)
     k, v = (int8_leaf(torch, k), int8_leaf(torch, v)) if int8 else (k.to(dt), v.to(dt))
     vs = (torch.tensor(valid_start, dtype=torch.int32, device=DEVICE)
           if valid_start is not None else None)
@@ -566,10 +599,10 @@ def flash_case(torch, timer, fa, *, dtype_name, B, T, pos, valid_start=None,
         device_ms = timer.device_ms(kernel, 10)
         if len(fns) > 1:
             library_device_ms = timer.device_ms(fns[1], 10)
-    nbytes, flops = flash_work(B, T, pos, valid_start, window, dtype_name, int8)
+    nbytes, flops = flash_work(B, T, pos, valid_start, window, dtype_name, int8, widths)
     bound_ms, bound_by = bound(nbytes, flops, dtype_name)
     # the launch plan (an older checkout, timed by `--only b`, has none)
-    plan = (fa.flash_plan(B, T, H, KV, S, DH, fa._sm_count(q.device), q.element_size(),
+    plan = (fa.flash_plan(B, T, h, kv, S, dh, fa._sm_count(q.device), q.element_size(),
                           1 if int8 else None, pos)._asdict()
             if hasattr(fa, "flash_plan") else None)
     return dict(dtype=dtype_name, int8=int8, B=B, T=T, pos=pos, valid_start=valid_start,
@@ -677,7 +710,7 @@ def chunk_shapes(engine, body):
     return [(chunk, c * chunk) for c in range(n_full)] + [(bucket, n_full * chunk)]
 
 
-def phase_c(torch, engine, fa):
+def phase_c(torch, engine, fa, tag="(c)"):
     """Serve three requests (and the greedy one again) through the port's
     HTTP server; every T>1 chunk must launch the kernel once per layer."""
     from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
@@ -697,7 +730,7 @@ def phase_c(torch, engine, fa):
             launched = fa.flash_attend.launches - before
             results[name] = (code, r, wall)
             shapes += chunks
-            print(f"(c) {name}: HTTP {code} tokens={r.get('tokens_generated')} "
+            print(f"{tag} {name}: HTTP {code} tokens={r.get('tokens_generated')} "
                   f"finish={r.get('finish_reason')} ttft_s={r.get('ttft_s')} "
                   f"tokens_per_sec={r.get('tokens_per_sec')} wall_s={wall:.3f} "
                   f"chunks={chunks} kernel_launches={launched}")
@@ -717,13 +750,13 @@ def phase_c(torch, engine, fa):
               == (g2["response"], g2["token_logprobs"]),
               "the repeated greedy request gave other tokens")
         stats = get(server.port, "/stats")[1]
-        print(f"(c) /stats: {json.dumps(stats)}")
+        print(f"{tag} /stats: {json.dumps(stats)}")
     finally:
         server.shutdown()
     return results, shapes, launches
 
 
-def phase_d(torch, engine):
+def phase_d(torch, engine, tag="(d)", atol=LOGITS_ATOL):
     """Kernel path vs plain path on the served model: a prefill chunk and a
     chunk at an offset, logits at every position."""
     from distributed_llm_inference_tpu_torch.models import api as M
@@ -748,11 +781,11 @@ def phase_d(torch, engine):
     top2 = p[0, -1].topk(2).values
     gap = (top2[0] - top2[1]).item()
     tok_k, tok_p = int(k[0, -1].argmax()), int(p[0, -1].argmax())
-    print(f"(d) logits kernel vs plain: max_abs_err={err:.4g} (atol {LOGITS_ATOL}) "
+    print(f"{tag} logits kernel vs plain: max_abs_err={err:.4g} (atol {atol}) "
           f"mean_abs_err={mean_err:.4g} "
           f"logit spread (std)={p.std().item():.3f}; first greedy token "
           f"kernel={tok_k} plain={tok_p} (plain top-2 gap {gap:.4g})")
-    check(err <= LOGITS_ATOL, "kernel-path logits disagree with the plain path")
+    check(err <= atol, "kernel-path logits disagree with the plain path")
     # a greedy token can only be pinned where the top-2 gap exceeds the
     # logits' own tolerance
     check(tok_k == tok_p or gap <= 2 * err, "first greedy token differs")
@@ -772,7 +805,7 @@ def busy_union_us(kernels) -> float:
     return busy_us
 
 
-def phase_profile(torch, engine):
+def phase_profile(torch, engine, tag="(e)"):
     """Where a warm greedy request's time goes, from one run under
     torch.profiler (which adds host time of its own): the device's busy
     share (the union of kernel intervals over the request's wall time),
@@ -791,13 +824,13 @@ def phase_profile(torch, engine):
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = busy_union_us(kern)
     n_tok = r["tokens_generated"]
-    print(f"(e) profiled greedy request: wall_ms={wall_us / 1e3:.2f} "
+    print(f"{tag} profiled greedy request: wall_ms={wall_us / 1e3:.2f} "
           f"timings={json.dumps(r['timings'])} tokens={n_tok}")
     if not kern:
-        print("(e) device busy share: not measured (the profiler recorded no "
+        print(f"{tag} device busy share: not measured (the profiler recorded no "
               "device kernels)")
         return
-    print(f"(e) device busy_ms={busy_us / 1e3:.2f} busy_share={busy_us / wall_us:.4f} "
+    print(f"{tag} device busy_ms={busy_us / 1e3:.2f} busy_share={busy_us / wall_us:.4f} "
           f"idle_share={1 - busy_us / wall_us:.4f} kernels={len(kern)} "
           f"kernels_per_token={len(kern) / max(n_tok, 1):.1f}")
     for ms, count, name in top_kernels(kern, 8):
@@ -876,15 +909,17 @@ FLEET_NEW_TOKENS = 32
 SAMPLED_KNOBS = {"temperature": 0.8, "top_k": 40, "top_p": 0.95}
 
 
-def paged_pool(torch, dt, rows, seed, int8=False):
+def paged_pool(torch, dt, rows, seed, int8=False, widths=(H, KV, DH)):
     """A random pool [N, KV, 16, Dh] (raw, or int8 with its scales) and
     `rows` block tables of 64 blocks each, drawn from a shuffled
     permutation of blocks 1..N-1 (0 is the trash block), so the kernels'
-    table walk really jumps."""
+    table walk really jumps. widths: (H, KV, Dh), tinyllama's unless
+    given."""
+    _, kv, dh = widths
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     n = rows * SLOT_MB + 1
-    pool_k = torch.randn(n, KV, BLOCK, DH, generator=g, device=DEVICE)
-    pool_v = torch.randn(n, KV, BLOCK, DH, generator=g, device=DEVICE)
+    pool_k = torch.randn(n, kv, BLOCK, dh, generator=g, device=DEVICE)
+    pool_v = torch.randn(n, kv, BLOCK, dh, generator=g, device=DEVICE)
     if int8:
         pool_k, pool_v = int8_leaf(torch, pool_k), int8_leaf(torch, pool_v)
     else:
@@ -893,25 +928,28 @@ def paged_pool(torch, dt, rows, seed, int8=False):
     return g, pool_k, pool_v, perm.reshape(rows, SLOT_MB).to(torch.int32).contiguous()
 
 
-def paged_work(row_queries, width, dtype_name, window, index_bytes, int8=False):
+def paged_work(row_queries, width, dtype_name, window, index_bytes, int8=False,
+               widths=(H, KV, DH)):
     """(bytes, FLOPs) of one paged attention launch: q read once for the
     live query rows only (the kernel never reads a padding row), o written
     once for all `width` rows (padding rows get zeros), each table row's
     live keys' K/V rows read once with the table entries that locate them,
     the per-query or per-tile indices (`index_bytes`), and 4*Dh FLOPs per
     head for each (query, key) pair the mask lets through. row_queries:
-    {table row: [query positions]}."""
+    {table row: [query positions]}. widths: (H, KV, Dh), tinyllama's
+    unless given."""
+    h, kv, dh = widths
     esize = 4 if dtype_name == "float32" else 2
     live = sum(len(qs) for qs in row_queries.values())
-    nbytes = (live + width) * H * DH * esize + index_bytes
+    nbytes = (live + width) * h * dh * esize + index_bytes
     pairs = 0
     for qs in row_queries.values():
         lows = [max(0, q - window + 1) if window else 0 for q in qs]
         pairs += sum(q + 1 - lo for q, lo in zip(qs, lows))
         lo, hi = min(lows), max(qs)
-        nbytes += (2 * KV * kv_row_bytes(dtype_name, int8) * (hi + 1 - lo)
+        nbytes += (2 * kv * kv_row_bytes(dtype_name, int8, dh) * (hi + 1 - lo)
                    + 4 * (hi // BLOCK - lo // BLOCK + 1))
-    return nbytes, 4 * DH * H * pairs
+    return nbytes, 4 * dh * h * pairs
 
 
 def dense_rows(torch, pool, table):
@@ -956,8 +994,9 @@ def paged_decode_case(torch, timer, pa, args, kw, wd, int8, profile):
     plain_ms = timer.ms(lambda: pa.paged_flash_attend_plain(*args, wd, **kw), 3)
     device_ms = (timer.device_ms(lambda: pa.paged_flash_attend(*args, wd, **kw), 10)
                  if profile else None)
-    n_split = (pa._paged_splits(q.shape[0], KV, table.shape[1], pk.shape[2] if not int8
-                                else pk.q.shape[2], pa._sm_count(q.device))
+    pool = pk.q if int8 else pk
+    n_split = (pa._paged_splits(q.shape[0], pool.shape[1], table.shape[1], pool.shape[2],
+                                pa._sm_count(q.device))
                if hasattr(pa, "_paged_splits") else None)
     return dict(max_abs_err=err, ms=times[0], slots_ms=times[1] if len(times) > 1 else None,
                 slots_err=slots_err, plain_ms=plain_ms, device_ms=device_ms,
@@ -996,9 +1035,9 @@ def ragged_case(torch, timer, pa, fa, args, kw, wd, int8, dense, profile):
     # the launch plan (an older checkout, timed by `--only r`, has none)
     plan = None
     if hasattr(pa, "ragged_plan"):
-        N, KV_, bs, _ = (pk.q if int8 else pk).shape
+        N, KV_, bs, Dh = (pk.q if int8 else pk).shape
         G = meta.shape[0]
-        plan = pa.ragged_plan(G, q.shape[0] // G, H, KV_, table.shape[1], bs, DH,
+        plan = pa.ragged_plan(G, q.shape[0] // G, q.shape[1], KV_, table.shape[1], bs, Dh,
                               pa._sm_count(q.device), q.element_size(),
                               1 if int8 else None)._asdict()
     return dict(max_abs_err=err, ms=times[0], dense_ms=times[1] if len(times) > 1 else None,
@@ -1273,6 +1312,16 @@ def greedy_repeat(tag, server, body, in_wave):
           "a greedy request repeated on the idle fleet gave other tokens")
 
 
+def q4_launches(cfg, Q):
+    """q4_matmul_rows launches of one int4 decode step (R = 8 rows) and of
+    one mixed launch: every projection of a step (7 a layer on llama, 6 on
+    gpt2) and an untied head; the two unembeds of a mixed launch under an
+    untied head (its 128-row projections take the einsum, as in the JAX
+    package)."""
+    head = 0 if cfg.tie_embeddings else 1
+    return len(Q._QUANT_KEYS[cfg.arch]) * cfg.n_layers + head, 2 * head
+
+
 def phase_g(torch, engine, pa, fa, Q, tag="(g)"):
     """The fleet through the port's HTTP server: 8 concurrent requests. On
     a quantized engine (int4 weights, int8 pool; phase (k)) the int8
@@ -1321,10 +1370,9 @@ def phase_g(torch, engine, pa, fa, Q, tag="(g)"):
         check(launches[paged] == L * FLEET["chunk_steps"] * chunks > 0,
               f"{paged} launched {launches[paged]} times for "
               f"{chunks} decode chunks of {FLEET['chunk_steps']} steps x {L} layers")
-        # int4: every projection of a decode step (R = 8 rows) and the two
-        # unembeds of a mixed launch; the mixed launch's 128-row
-        # projections take the einsum, as in the JAX package
-        q4_want = ((7 * L + 1) * FLEET["chunk_steps"] * chunks + 2 * mixed) if quant else 0
+        per_step, per_mixed = q4_launches(cfg, Q)
+        q4_want = ((per_step * FLEET["chunk_steps"] * chunks + per_mixed * mixed)
+                   if quant else 0)
         check(launches["q4_matmul_rows"] == q4_want,
               f"q4_matmul_rows launched {launches['q4_matmul_rows']} times, "
               f"{q4_want} expected for {chunks} decode chunks and {mixed} mixed launches")
@@ -1452,15 +1500,18 @@ def check_kernel_vs_plain(torch, tag, k, p, atol):
     return err
 
 
-def phase_h(torch, engine, P, G, M, tag="(h)", atol=LOGITS_ATOL):
-    """Kernel path vs plain path over the pool, and the sync check (on a
-    quantized engine, phase (l): q4_matmul_rows runs on both paths)."""
+def phase_h(torch, engine, P, G, M, tag="(h)", atol=LOGITS_ATOL, logits=True):
+    """Kernel path vs plain path over the pool (`logits`), and the sync
+    check (on a quantized engine, phase (l): q4_matmul_rows runs on both
+    paths)."""
     cfg_k = engine.cfg
     cfg_p = cfg_k.replace(attn_impl="plain")
     params = engine.backend.params
-    out = {cfg.attn_impl: scripted_fleet_logits(torch, cfg, params, P, M)[0]
-           for cfg in (cfg_k, cfg_p)}
-    err = check_kernel_vs_plain(torch, tag, out["kernel"], out["plain"], atol)
+    err = None
+    if logits:
+        out = {cfg.attn_impl: scripted_fleet_logits(torch, cfg, params, P, M)[0]
+               for cfg in (cfg_k, cfg_p)}
+        err = check_kernel_vs_plain(torch, tag, out["kernel"], out["plain"], atol)
 
     ops, _ = fleet_operands(torch, cfg_k, P, G)
     torch.cuda.synchronize()
@@ -1565,8 +1616,9 @@ Q4_ATOL = {"float32": 1e-4, "bfloat16": 6e-2}
 Q4_REPS = 30
 
 
-def q4_cases(torch, timer, Q):
-    """q4_matmul_rows vs its twin at tinyllama's projection shapes, with
+def q4_cases(torch, timer, Q, shapes=Q4_SHAPES):
+    """q4_matmul_rows vs its twin at the projection shapes (in, out) of
+    `shapes`, tinyllama's unless given, with
     torch.matmul against the dequantized weight (in x's dtype: the same
     product over 4x (bf16) or 8x (fp32) the weight bytes of the packed
     int4) as the yardstick; the kernel and the yardstick timed in turn,
@@ -1575,7 +1627,7 @@ def q4_cases(torch, timer, Q):
           f"kernel and matmul(dequantized): medians of {Q4_REPS} calls in turn")
     rows = []
     g = torch.Generator(device=DEVICE).manual_seed(11)
-    for (d_in, d_out) in Q4_SHAPES:
+    for (d_in, d_out) in shapes:
         w = Q.quantize_tensor4(torch.randn(d_in, d_out, generator=g, device=DEVICE)
                                * d_in ** -0.5)
         G = w.q.shape[0]
@@ -2148,15 +2200,15 @@ def leaves(torch, tree):
 
 
 def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_deltas,
-               eager=True):
+               eager=True, timed=True):
     """One launch kind's graph `lg` over `bufs`: captured on its first
     call if it was not yet; two replays, each bit-equal to the eager body
     on a clone of the buffers with the same generator state (the pool
     outside its trash block, where colliding padding writes land in any
     order), each moving the kernel counters by the capture's deltas; then
-    replay vs eager: host wall (5 / 2 runs), one profiled run of each, the
-    replay's CUDA-event span (eager=False: the replay's only). Every run
-    starts from the same state."""
+    (`timed`) replay vs eager: host wall (5 / 2 runs), one profiled run of
+    each, the replay's CUDA-event span (eager=False: the replay's only).
+    Every run starts from the same state."""
     start = clone_tree(torch, {k: bufs[k] for k in ("state", "sparams", "inputs")
                                if k in bufs})
 
@@ -2199,6 +2251,10 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
     nonzero = {k: v for k, v in lg.deltas.items() if v}
     check(nonzero == want_deltas, f"{tag} {name}: launches per replay {nonzero}, "
                                   f"{want_deltas} expected")
+    if not timed:
+        print(f"{tag} {name}: 2 replays bit-equal to eager (packed, state, KV), launches "
+              f"per replay {json.dumps(nonzero)}{'; captured here' if captured_now else ''}")
+        return dict(engine=tag, kind=name, launches_per_replay=nonzero)
 
     def walls(fn, n):
         out = []
@@ -2267,19 +2323,23 @@ def graph_kind(torch, graphs, tag, name, lg, run, bufs, gen, tokens_of, want_del
     return row
 
 
-def phase_q(torch, engine, P, G, M):
+def phase_q(torch, engine, P, G, M, tag=None, idle=True, dense=True, timed=True):
     """The fleet's launch kinds as CUDA graphs at its serving shape, on
     (h)'s operands: the mixed launch arming a 56-token prompt beside 7
-    decode rows (greedy and sampled), the same graph with the idle arm,
-    the paged decode chunk of the 8 rows, and the dense decode chunk over
-    an [8, 1024] cache of random K/V."""
+    decode rows (greedy and sampled), the same graph with the idle arm
+    (`idle`), the paged decode chunk of the 8 rows, and the dense decode
+    chunk over an [8, 1024] cache of random K/V (`dense`); every replay
+    bit-equal to its eager launch (graph_kind); `timed`: graph_kind's
+    timings and profiles too."""
     from distributed_llm_inference_tpu_torch.engine import graphs
+    from distributed_llm_inference_tpu_torch.ops import quant as Q
 
     cfg, be = engine.cfg, engine.backend
     L, K, B = cfg.n_layers, FLEET["chunk_steps"], FLEET["n_slots"]
     quant = cfg.quant == "int4"
     sfx = "[int8]" if cfg.kv_quant == "int8" else ""
-    tag = "(q)" + (" int4+int8" if quant else "")
+    tag = tag or "(q)" + (" int4+int8" if quant else "")
+    per_step, per_mixed = q4_launches(cfg, Q) if quant else (0, 0)
     ops, n_mixed_tok = fleet_operands(torch, cfg, P, G)
     gen = ops["generator"]
     inputs = graphs.MixedInputs(ops["tokens"], ops["tok_row"], ops["tok_pos"],
@@ -2296,32 +2356,38 @@ def phase_q(torch, engine, P, G, M):
         return graphs.decode_chunk(be, b["state"], b["sparams"], b["cache"], b["table"], g, K)
 
     rows = []
-    q4_mixed = {"q4_matmul_rows": 2} if quant else {}
+    q4_mixed = {"q4_matmul_rows": per_mixed} if per_mixed else {}
     pre = clone_tree(torch, (bufs["state"], bufs["sparams"]))
     arming = clone_tree(torch, inputs.arm)
     lg_m = graphs.LaunchGraph(lambda: mixed(bufs, gen), "mixed launch", DEVICE, gen)
     rows.append(graph_kind(torch, graphs, tag, "mixed launch, arming", lg_m, mixed, bufs, gen,
                            lambda p: n_mixed_tok,
-                           {"ragged_paged_attend" + sfx: L, **q4_mixed}))
+                           {"ragged_paged_attend" + sfx: L, **q4_mixed}, timed=timed))
     check(lg_m.captures == 1, f"{tag}: the mixed launch was not captured")
-    # the same graph with no admission completing: the 7 decode rows beside
-    # a prompt chunk that is still landing
-    graphs.commit((bufs["state"], bufs["sparams"]), pre)
-    graphs.commit(inputs.arm, P.idle_mixed_arm(B, cfg.vocab_size, device=DEVICE))
-    rows.append(graph_kind(torch, graphs, tag, "mixed launch, idle arm", lg_m, mixed, bufs,
-                           gen, lambda p: n_mixed_tok,
-                           {"ragged_paged_attend" + sfx: L, **q4_mixed}))
-    check(lg_m.captures == 1, f"{tag}: one graph must serve both arms")
+    if idle:
+        # the same graph with no admission completing: the 7 decode rows
+        # beside a prompt chunk that is still landing
+        graphs.commit((bufs["state"], bufs["sparams"]), pre)
+        graphs.commit(inputs.arm, P.idle_mixed_arm(B, cfg.vocab_size, device=DEVICE))
+        rows.append(graph_kind(torch, graphs, tag, "mixed launch, idle arm", lg_m, mixed,
+                               bufs, gen, lambda p: n_mixed_tok,
+                               {"ragged_paged_attend" + sfx: L, **q4_mixed},
+                               timed=timed))
+        check(lg_m.captures == 1, f"{tag}: one graph must serve both arms")
     # the decode chunk of the 8 rows an arming launch leaves
     graphs.commit((bufs["state"], bufs["sparams"]), pre)
     graphs.commit(inputs.arm, arming)
     mixed(bufs, gen)
     armed = clone_tree(torch, (bufs["state"], bufs["sparams"]))
-    q4_chunk = {"q4_matmul_rows": (7 * L + 1) * K} if quant else {}
+    q4_chunk = {"q4_matmul_rows": per_step * K} if quant else {}
     lg_c = graphs.LaunchGraph(lambda: chunk(bufs, gen), "decode chunk", DEVICE, gen)
     rows.append(graph_kind(torch, graphs, tag, f"paged decode chunk of {K} steps", lg_c,
                            chunk, bufs, gen, lambda p: int(p[K:2 * K].sum()),
-                           {"paged_flash_attend" + sfx: L * K, **q4_chunk}))
+                           {"paged_flash_attend" + sfx: L * K, **q4_chunk}, timed=timed))
+    if not dense:
+        for lg in (lg_m, lg_c):
+            lg.close()
+        return rows
     # the dense fleet's chunk: the same slot state over an [8, 1024] cache
     g = torch.Generator(device=DEVICE).manual_seed(9)
     cache = M.init_kv_cache(cfg, B, max_seq=DENSE_FLEET["slot_max_seq"], device=DEVICE)
@@ -2335,7 +2401,8 @@ def phase_q(torch, engine, P, G, M):
     dbufs = dict(cache=cache, table=None, state=armed[0], sparams=armed[1])
     lg_d = graphs.LaunchGraph(lambda: chunk(dbufs, gen), "dense decode chunk", DEVICE, gen)
     rows.append(graph_kind(torch, graphs, tag, f"dense decode chunk of {K} steps", lg_d,
-                           chunk, dbufs, gen, lambda p: int(p[K:2 * K].sum()), q4_chunk))
+                           chunk, dbufs, gen, lambda p: int(p[K:2 * K].sum()), q4_chunk,
+                           timed=timed))
     for lg in (lg_m, lg_c, lg_d):
         lg.close()
     return rows
@@ -6409,6 +6476,534 @@ def phase_S(torch, engine, pa, fa, Q, G, timer, smi):
     return launches
 
 
+# -- (F) other families and loading: gpt2-medium and qwen3-30b-a3b -------------
+
+F_GPT2 = "gpt2-medium"
+F_MOE = "qwen3-30b-a3b"
+# the cuts (PERF.md §4): the MoE's solo cache and positions at 2048 of its
+# 40960 (no served request comes near), its int8 engine at 24 of 48 layers
+# (the bf16 tree and the int8 one it is made from fit on the card together)
+F_MOE_MAX_SEQ = 2048
+F_MOE_INT8_LAYERS = 24
+# the MoE's kernel path is held to its plain path in fp32, at full width and
+# this depth: in bf16 one ulp between the two attention paths can move a
+# token's router logits across the top-8 edge, and another expert moves the
+# logits by O(1) (0.797 at 2 layers on an NVIDIA H100 80GB HBM3 at 700 W),
+# so a bf16 comparison measures routing ties, not the kernels. In fp32 the
+# paths part by ~1e-6 relative; 1e-3 is tests/test_torch_cuda_families.py's
+# FP32_LOGITS_ATOL
+F_MOE_FP32_LAYERS = 4
+F_FP32_LOGITS_ATOL = 1e-3
+F_LOAD_MOE_LAYERS = 2  # the qwen3_moe HF directory: 2 layers at full width
+# the attention widths of the two models: MHA (a group of 1) and Dh 128
+F_WIDTHS = {F_GPT2: dict(H=16, KV=16, DH=64), F_MOE: dict(H=32, KV=4, DH=128)}
+# the projections each model's int4 decode step runs through q4_matmul_rows
+# (the MoE's expert banks stay dense under int4): (in, out) -> count
+F_Q4_SHAPES = {F_GPT2: {(1024, 1024): 4, (1024, 4096): 1, (4096, 1024): 1},
+               F_MOE: {(2048, 4096): 1, (2048, 512): 2, (4096, 2048): 1}}
+F_SERVER = ["--device", DEVICE, "--attn-impl", "auto", "--seed", "0",
+            "--continuous", "8", "--kv-pool-blocks", "513", "--kv-block-size", "16",
+            "--continuous-max-seq", "1024", "--max-tokens-cap", "64"]
+
+
+def f_add(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def f_free(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def f_engine(torch, name, tag, dtype="bfloat16", **kw):
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.models.registry import get_model_config
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    cfg = get_model_config(name)
+    if name == F_MOE:
+        cfg = cfg.replace(max_seq_len=F_MOE_MAX_SEQ)
+    cfg = cfg.replace(**{k: kw.pop(k) for k in ("n_layers",) if k in kw})
+    t0 = time.time()
+    engine = create_engine(cfg, dtype=dtype, attn_impl="auto", seed=0, device=DEVICE,
+                           engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS), **kw)
+    torch.cuda.synchronize()
+    c = engine.cfg
+    print(f"{tag} {c.name}: {c.n_layers} layers, dim {c.dim}, heads {c.n_heads}/"
+          f"{c.n_kv_heads} of {c.head_dim}, ffn {c.ffn_dim}"
+          + (f", {c.n_experts} experts top-{c.n_experts_per_tok}" if c.n_experts else "")
+          + f", vocab {c.vocab_size}, max_seq {c.max_seq_len}, quant={c.quant} "
+          f"kv_quant={c.kv_quant}, attn_impl={c.attn_impl}, random weights (seed 0), "
+          f"built in {time.time() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    check(c.attn_impl == "kernel", f"{tag}: attn_impl='auto' did not pick the kernels")
+    return engine
+
+
+def f_solo(torch, engine, pa, fa, Q, tag, total, profile, logits=True):
+    """(c) and (d) on this engine: the solo requests through the HTTP
+    server (every T>1 chunk one flash_attend launch a layer), the kernel
+    path against the plain path's logits (`logits`); with `profile`, (e)'s
+    profiled greedy request."""
+    reset_counts(pa, fa, Q)
+    results, shapes, _ = phase_c(torch, engine, fa, tag=tag)
+    counts = read_counts(pa, fa, Q)
+    f_add(total, counts)
+    if logits:
+        phase_d(torch, engine, tag=tag)
+    if profile:
+        phase_profile(torch, engine, tag=tag)
+    return shapes
+
+
+def f_dense_wave(torch, engine, pa, fa, Q, tag, total):
+    """(o)'s dense fleet on this engine: (g)'s wave, flash_attend on every
+    T>1 prefill chunk and no other kernel, one decode-chunk graph."""
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    L = engine.cfg.n_layers
+    fleet = ContinuousEngine(engine, **DENSE_FLEET)
+    server = InferenceServer(engine, host="127.0.0.1", port=0, max_tokens_cap=64,
+                             continuous=fleet)
+    server.start()
+    try:
+        check(fleet.warmup()["ok"], f"{tag} dense fleet warmup")
+        which = range(len(FLEET_PROMPT_TOKENS))
+        results, wave_s, launches, before, after = serve_wave(
+            server, fleet_bodies(which), pa, fa, Q)
+        check_wave(tag, results, which)
+        prefill = sum(r["prefill_chunks"] for _, r, _ in results)
+        print(f"{tag} dense wave: {wave_s:.3f} s; {prefill} T>1 prefill chunks; kernel "
+              f"launches {json.dumps(launches)}")
+        check_graphs(tag, after, {"decode_chunk": "decode_chunks"})
+        check(launches["flash_attend"] == L * prefill > 0,
+              f"{tag}: flash_attend launched {launches['flash_attend']} times for "
+              f"{prefill} T>1 prefill chunks of {L} layers")
+        check(not any(n for k, n in launches.items() if k != "flash_attend"),
+              f"{tag}: the dense fleet launched another kernel: {launches}")
+        f_add(total, launches)
+    finally:
+        server.shutdown()
+
+
+def f_kernels(torch, timer, pa, fa, Q, P, name, solo_shapes):
+    """The four kernels at this model's attention widths against their
+    twins, timed in turn with the library call where one exists: (b)'s
+    flash_attend at the solo chunks the model ran (SDPA), (f)'s paged
+    decode at B=8 over a shuffled table and the ragged kernel on (f)'s
+    first two launches, each against its bound, and q4_matmul_rows at the
+    model's int4 decode projections (torch.matmul on the dequantized
+    weight). Returns one summary row per kernel."""
+    w = F_WIDTHS[name]
+    wd = h, kv, dh = w["H"], w["KV"], w["DH"]
+    out = []
+    print(f"(F2) {name}: the kernels at H={h} KV={kv} (group {h // kv}) Dh={dh}")
+    rows = [flash_case(torch, timer, fa, dtype_name="bfloat16", B=1, T=T, pos=pos,
+                       seed=300 + i, widths=wd)
+            for i, (T, pos) in enumerate(sorted(set(solo_shapes)))]
+    rows.append(flash_case(torch, timer, fa, dtype_name="float32", B=1, T=128, pos=256,
+                           seed=399, widths=wd))
+    for r in rows:
+        print(f"    flash_attend {r['dtype']} T={r['T']} pos={r['pos']} "
+              f"err={r['max_abs_err']:.3g} (atol {r['atol']:g}) kernel={r['ms']:.4f} "
+              f"sdpa={fmt_ms(r['library_ms'])} plain={r['plain_ms']:.4f} "
+              f"bound={r['bound_ms']:.5f} ({r['bound_by']})")
+    check(all(r["max_abs_err"] <= r["atol"] for r in rows),
+          f"(F2) flash_attend disagrees with its twin at {name}'s widths")
+    out.append(f_summary("flash_attend", name, rows[:-1]))
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        g, pk, pv, table = paged_pool(torch, dt, 8, seed=8, widths=wd)
+        pos_list = SPECIAL_POS + [64, 333, 517]
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=DEVICE)
+        q = torch.randn(8, 1, h, dh, generator=g, device=DEVICE).to(dt)
+        r = paged_decode_case(torch, timer, pa, (q, pk, pv, table, pos), {}, None,
+                              False, False)
+        nbytes, flops = paged_work({b: [p] for b, p in enumerate(pos_list)}, 8,
+                                   dtype_name, None, 32, widths=wd)
+        r.update(dtype=dtype_name, atol=ATOL[dtype_name], library_ms=None,
+                 **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, dtype_name))))
+        print(f"    paged_flash_attend {dtype_name} B=8 err={r['max_abs_err']:.3g} "
+              f"kernel={r['ms']:.4f} n_split={r['n_split']} "
+              f"slots={fmt_ms(r['slots_ms'])} plain={r['plain_ms']:.4f} "
+              f"bound={r['bound_ms']:.5f} ({r['bound_by']})")
+        check(r["max_abs_err"] <= r["atol"] and r["slots_err"] <= r["atol"],
+              f"(F2) paged_flash_attend disagrees at {name}'s widths")
+        if dtype_name == "bfloat16":
+            out.append(f_summary("paged_flash_attend", name, [r]))
+        rag = []
+        for i, (label, entries) in enumerate(list(ragged_plans(P).items())[:2]):
+            g, pk, pv, table = paged_pool(torch, dt, 9, seed=120 + i, widths=wd)
+            meta_np, tok_row, _, offsets, _ = P.build_ragged_meta(
+                entries, width=RAGGED_W, tile=RAGGED_TILE)
+            meta = torch.from_numpy(meta_np).to(DEVICE)
+            q = torch.randn(RAGGED_W, h, dh, generator=g, device=DEVICE).to(dt)
+            dense = ((entries[0][0], entries[0][1], entries[0][2], int(offsets[0]))
+                     if len(entries) == 1 else None)
+            r = ragged_case(torch, timer, pa, fa, (q, pk, pv, table, meta), {}, None,
+                            False, dense, False)
+            got = r.pop("out")
+            check(got[torch.from_numpy(tok_row < 0).to(DEVICE)].abs().sum().item() == 0,
+                  f"(F2) ragged_paged_attend wrote non-zeros to padding ({label})")
+            row_queries = {}
+            for row, start, n, _ in entries:
+                row_queries.setdefault(row, []).extend(range(start, start + n))
+            nbytes, flops = paged_work(row_queries, RAGGED_W, dtype_name, None,
+                                       16 * meta.shape[0], widths=wd)
+            r.update(dtype=dtype_name, atol=ATOL[dtype_name], library_ms=None,
+                     case=label, **dict(zip(("bound_ms", "bound_by"),
+                                            bound(nbytes, flops, dtype_name))))
+            print(f"    ragged_paged_attend {dtype_name} {label}: "
+                  f"err={r['max_abs_err']:.3g} kernel={r['ms']:.4f} "
+                  f"plan={json.dumps(r['plan'])} dense={fmt_ms(r['dense_ms'])} "
+                  f"plain={r['plain_ms']:.4f} bound={r['bound_ms']:.5f} "
+                  f"({r['bound_by']})")
+            check(r["max_abs_err"] <= r["atol"]
+                  and (r["dense_err"] is None or r["dense_err"] <= r["atol"]),
+                  f"(F2) ragged_paged_attend disagrees at {name}'s widths ({label})")
+            rag.append(r)
+        if dtype_name == "bfloat16":
+            out.append(f_summary("ragged_paged_attend", name, rag))
+    print(f"(F2) {name}: q4_matmul_rows at the int4 decode projections "
+          f"{sorted(F_Q4_SHAPES[name])} (the (j) lines below)")
+    q4 = q4_cases(torch, timer, Q, F_Q4_SHAPES[name])
+    out.append(f_summary("q4_matmul_rows", name, [
+        r for r in q4 if r["dtype"] == "bfloat16" and r["R"] == FLEET["n_slots"]]))
+    return out
+
+
+def f_summary(kernel, name, rows):
+    """One kernel's rows at one model's widths, averaged per call."""
+    n = len(rows)
+
+    def mean(key):
+        vals = [r[key] for r in rows]
+        return None if any(v is None for v in vals) else sum(vals) / n
+
+    w = F_WIDTHS[name]
+    return {"name": kernel, "model": name, "widths": w, "group": w["H"] // w["KV"],
+            "calls": n, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+            "bound_by": rows[0]["bound_by"], "library_ms": mean("library_ms")}
+
+
+def f_bf16(torch, t):
+    """A tensor as the safetensors writer's BF16 carrier."""
+    from distributed_llm_inference_tpu_torch.models import convert as C
+
+    return (t.detach().to(torch.bfloat16).contiguous().view(torch.int16).cpu().numpy()
+            .view("uint16").view(C.BF16))
+
+
+def f_hf_gpt2(torch, cfg, params):
+    """(config.json, tensors) of an HF GPT2LMHeadModel directory holding
+    these weights: Conv1D weights [in, out] as they are, c_attn fused."""
+    lay = params["layers"]
+    t = {"transformer.wte.weight": params["embed"], "transformer.wpe.weight":
+         params["pos_embed"], "transformer.ln_f.weight": params["final_norm_w"],
+         "transformer.ln_f.bias": params["final_norm_b"]}
+    for i in range(cfg.n_layers):
+        p = f"transformer.h.{i}."
+        t.update({
+            p + "ln_1.weight": lay["ln1_w"][i], p + "ln_1.bias": lay["ln1_b"][i],
+            p + "ln_2.weight": lay["ln2_w"][i], p + "ln_2.bias": lay["ln2_b"][i],
+            p + "attn.c_attn.weight": torch.cat([lay[k][i] for k in ("wq", "wk", "wv")], 1),
+            p + "attn.c_attn.bias": torch.cat([lay[k][i] for k in ("bq", "bk", "bv")]),
+            p + "attn.c_proj.weight": lay["wo"][i], p + "attn.c_proj.bias": lay["bo"][i],
+            p + "mlp.c_fc.weight": lay["w_fc"][i], p + "mlp.c_fc.bias": lay["b_fc"][i],
+            p + "mlp.c_proj.weight": lay["w_proj"][i], p + "mlp.c_proj.bias": lay["b_proj"][i],
+        })
+    conf = {"model_type": "gpt2", "vocab_size": cfg.vocab_size, "n_embd": cfg.dim,
+            "n_layer": cfg.n_layers, "n_head": cfg.n_heads, "n_positions": cfg.max_seq_len,
+            "n_inner": cfg.ffn_dim, "layer_norm_epsilon": cfg.norm_eps,
+            "bos_token_id": cfg.bos_token_id, "eos_token_id": cfg.eos_token_id}
+    return conf, t
+
+
+def f_hf_qwen3_moe(torch, cfg, params):
+    """(config.json, tensors) of an HF Qwen3MoeForCausalLM directory holding
+    these weights: Linear weights [out, in], one tensor per expert."""
+    lay = params["layers"]
+    t = {"model.embed_tokens.weight": params["embed"], "model.norm.weight":
+         params["final_norm"], "lm_head.weight": params["lm_head"].T}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        t.update({
+            p + "input_layernorm.weight": lay["attn_norm"][i],
+            p + "post_attention_layernorm.weight": lay["mlp_norm"][i],
+            p + "self_attn.q_norm.weight": lay["q_norm"][i],
+            p + "self_attn.k_norm.weight": lay["k_norm"][i],
+            p + "mlp.gate.weight": lay["w_router"][i].T,
+        })
+        for proj, leaf in (("q", "wq"), ("k", "wk"), ("v", "wv"), ("o", "wo")):
+            t[p + f"self_attn.{proj}_proj.weight"] = lay[leaf][i].T
+        for e in range(cfg.n_experts):
+            for role in ("gate", "up", "down"):
+                t[p + f"mlp.experts.{e}.{role}_proj.weight"] = lay[f"w_{role}"][i, e].T
+    conf = {"model_type": "qwen3_moe", "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.dim, "intermediate_size": 6144,
+            "moe_intermediate_size": cfg.ffn_dim, "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "num_experts": cfg.n_experts,
+            "num_experts_per_tok": cfg.n_experts_per_tok,
+            "norm_topk_prob": cfg.moe_renormalize,
+            "max_position_embeddings": cfg.max_seq_len, "rms_norm_eps": cfg.norm_eps,
+            "rope_theta": cfg.rope_theta, "tie_word_embeddings": False,
+            "bos_token_id": cfg.bos_token_id, "eos_token_id": cfg.eos_token_id,
+            "pad_token_id": cfg.pad_token_id}
+    return conf, t
+
+
+def f_write_hf(torch, path, conf, tensors):
+    """An HF directory: config.json and one BF16 model.safetensors (the
+    port's own writer); no tokenizer files. Returns its bytes."""
+    import os
+
+    from distributed_llm_inference_tpu_torch.models import convert as C
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(conf, f)
+    C.save_safetensors_file(os.path.join(path, "model.safetensors"),
+                            {k: f_bf16(torch, v) for k, v in tensors.items()})
+    return os.path.getsize(os.path.join(path, "model.safetensors"))
+
+
+def f_alone(server, body, pa, fa, Q, total):
+    """One request served alone on an idle fleet server: its token ids;
+    the kernels' counts from 0 just before, added to (F)'s."""
+    reset_counts(pa, fa, Q)
+    code, r, wall = post(server.port, body)
+    wait_idle(server.port)
+    f_add(total, read_counts(pa, fa, Q))
+    check(code == 200 and r.get("status") == "success" and r.get("backend") == "continuous",
+          f"(F4) request: {r}")
+    return r["token_ids"], wall
+
+
+def f_cli_server(argv):
+    """The port server's CLI (`main`) started in process on a free port:
+    returns the running InferenceServer (the caller shuts it down)."""
+    from distributed_llm_inference_tpu_torch.serving import server as S
+
+    built = {}
+    base = S.InferenceServer
+
+    class Started(base):
+        def __init__(self, engine, host, port, *a, **kw):
+            super().__init__(engine, "127.0.0.1", 0, *a, **kw)
+            built["server"] = self
+
+        def serve_forever(self):
+            self.start()
+
+    S.InferenceServer = Started
+    try:
+        S.main(argv)
+    finally:
+        S.InferenceServer = base
+    return built["server"]
+
+
+def f_memory_server(engine):
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.serving.server import InferenceServer
+
+    fleet = ContinuousEngine(engine, **FLEET)
+    server = InferenceServer(engine, host="127.0.0.1", port=0, max_tokens_cap=64,
+                             continuous=fleet)
+    server.start()
+    return server
+
+
+def f_moe_fp32(torch, P, G, M, tag, quant=None):
+    """qwen3-30b-a3b in fp32 at full width and F_MOE_FP32_LAYERS layers:
+    (d)'s solo chunks and (h)'s scripted mixed launches and decode step,
+    the kernel path against the plain path within F_FP32_LOGITS_ATOL, and
+    (h)'s sync check."""
+    engine = f_engine(torch, F_MOE, tag, dtype="float32", n_layers=F_MOE_FP32_LAYERS,
+                      quant=quant)
+    phase_d(torch, engine, tag=tag, atol=F_FP32_LOGITS_ATOL)
+    phase_h(torch, engine, P, G, M, tag=tag, atol=F_FP32_LOGITS_ATOL)
+    del engine
+    f_free(torch)
+
+
+def f_loading(torch, engine, pa, fa, Q, smi, total):
+    """(F4) --checkpoint on the card, with no transformers: gpt2-medium's
+    random weights (the engine's) written as a synthetic HF directory
+    (BF16, HF tensor names) and as a checkpoint store, each served by the
+    server's CLI with --checkpoint on (g)'s fleet: a greedy request's ids
+    equal the in-memory engine's fleet's. Then a 2-layer full-width
+    qwen3_moe directory: the converter's config and every stacked expert
+    bank equal the in-memory model's, and it serves the same ids."""
+    import tempfile
+
+    from distributed_llm_inference_tpu_torch.models import checkpoint as CK
+    from distributed_llm_inference_tpu_torch.models import convert as C
+
+    body = {**fleet_bodies([4])[0]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_F_") as tmp:
+        server = f_memory_server(engine)
+        try:
+            want, _ = f_alone(server, body, pa, fa, Q, total)
+        finally:
+            server.shutdown()
+        t0 = time.time()
+        conf, tensors = f_hf_gpt2(torch, engine.cfg, engine.backend.params)
+        nbytes = f_write_hf(torch, f"{tmp}/gpt2_hf", conf, tensors)
+        write_s = time.time() - t0
+        t0 = time.time()
+        CK.save_params(f"{tmp}/gpt2_store", engine.cfg, engine.backend.params)
+        store_s = time.time() - t0
+        got = {}
+        for kind, path in (("hf", f"{tmp}/gpt2_hf"), ("store", f"{tmp}/gpt2_store")):
+            t0 = time.time()
+            server = f_cli_server(["--checkpoint", path] + F_SERVER)
+            start_s = time.time() - t0
+            try:
+                c = server.engine.cfg
+                check(c.arch == "gpt2" and c.dtype == "bfloat16"
+                      and (c.dim, c.n_layers, c.vocab_size) == (1024, 24, 50257),
+                      f"(F4) {kind}: the checkpoint's config {c}")
+                got[kind], wall = f_alone(server, body, pa, fa, Q, total)
+            finally:
+                server.shutdown()
+            print(f"(F4) gpt2-medium --checkpoint {kind} ({nbytes / 1e9:.3f} GB "
+                  f"safetensors written in {write_s:.1f} s; store in {store_s:.1f} s): "
+                  f"server up in {start_s:.1f} s, a greedy request of "
+                  f"{FLEET_PROMPT_TOKENS[4]} tokens alone: {len(got[kind])} tokens in "
+                  f"{wall:.3f} s, ids equal the in-memory engine's: {got[kind] == want}")
+            check(got[kind] == want, f"(F4) --checkpoint {kind} served other ids")
+        del tensors
+        f_free(torch)
+
+        moe = f_engine(torch, F_MOE, "(F4) in memory", n_layers=F_LOAD_MOE_LAYERS)
+        server = f_memory_server(moe)
+        try:
+            want, _ = f_alone(server, body, pa, fa, Q, total)
+        finally:
+            server.shutdown()
+        t0 = time.time()
+        conf, tensors = f_hf_qwen3_moe(torch, moe.cfg, moe.backend.params)
+        nbytes = f_write_hf(torch, f"{tmp}/moe_hf", conf, tensors)
+        write_s = time.time() - t0
+        del tensors
+        t0 = time.time()
+        cfg, params = C.load_hf_checkpoint(f"{tmp}/moe_hf", dtype="bfloat16")
+        load_s = time.time() - t0
+        same_cfg = cfg.replace(name=moe.cfg.name, attn_impl=moe.cfg.attn_impl) == moe.cfg
+        mem = moe.backend.params
+        leaves = [(k, params["layers"][k], mem["layers"][k]) for k in mem["layers"]]
+        leaves += [(k, params[k], mem[k]) for k in mem if k != "layers"]
+        bad = [k for k, a, b in leaves if not torch.equal(a, b.cpu())]
+        print(f"(F4) qwen3_moe HF directory, {F_LOAD_MOE_LAYERS} layers at full width "
+              f"({nbytes / 1e9:.3f} GB written in {write_s:.1f} s, read and stacked in "
+              f"{load_s:.1f} s): config equal {same_cfg}; leaves {len(leaves)}, unequal "
+              f"{bad}; banks {tuple(params['layers']['w_gate'].shape)}")
+        check(same_cfg and not bad, "(F4) the converter's qwen3_moe params differ")
+        del params
+        f_free(torch)
+        server = f_cli_server(["--checkpoint", f"{tmp}/moe_hf"] + F_SERVER)
+        try:
+            got_moe, wall = f_alone(server, body, pa, fa, Q, total)
+        finally:
+            server.shutdown()
+        print(f"(F4) qwen3_moe --checkpoint hf: {len(got_moe)} tokens in {wall:.3f} s, "
+              f"ids equal the in-memory engine's: {got_moe == want} ({smi})")
+        check(got_moe == want, "(F4) the qwen3_moe checkpoint served other ids")
+        del moe, server
+        f_free(torch)
+
+
+def phase_F(torch, timer, pa, fa, Q, P, G, M, smi, profile=False):
+    """(F) the other families and loading at full width: gpt2-medium (MHA,
+    learned positions) on the solo path, the paged fleet (the main path),
+    the dense fleet and the int4+int8 fleet; the four kernels at its and
+    qwen3-30b-a3b's widths; --checkpoint on an HF directory and a store;
+    qwen3-30b-a3b (128 experts, Dh 128) at full depth on the solo path
+    and the paged fleet, and its int8 expert banks at a cut depth, its
+    logits held to the plain path in fp32 at F_MOE_FP32_LAYERS; each
+    engine's mixed-launch and decode-chunk graphs replayed bit-equal to
+    their eager launches (phase_q). Every
+    kernel count starts at 0 just before each main-path run; their sums
+    are the kernels line's launches_F. `profile` (`--only F`; ~2 minutes
+    of profiler time, left out of the full run): the profiled solo
+    request, mixed launch and decode chunk of both models. Returns
+    (launches, kernel rows)."""
+    t0 = time.time()
+    total = {}
+    engine = f_engine(torch, F_GPT2, "(F1)")
+    gpt2_shapes = f_solo(torch, engine, pa, fa, Q, "(F1) gpt2 solo", total, profile)
+    wave = phase_g(torch, engine, pa, fa, Q, tag="(F1) gpt2 paged")
+    f_add(total, wave["launches"])
+    phase_h(torch, engine, P, G, M, tag="(F1) gpt2")
+    phase_q(torch, engine, P, G, M, tag="(F1) gpt2 graphs", idle=False, timed=False)
+    if profile:
+        phase_i_profile(torch, engine, P, G, tag="(F1) gpt2")
+    f_dense_wave(torch, engine, pa, fa, Q, "(F1) gpt2 dense", total)
+    print(f"(F1) gpt2-medium bf16 done in {time.time() - t0:.1f} s ({smi})")
+    f_loading(torch, engine, pa, fa, Q, smi, total)
+    print(f"(F4) done in {time.time() - t0:.1f} s")
+    del engine
+    f_free(torch)
+    qengine = f_engine(torch, F_GPT2, "(F1) int4+int8", quant="int4", kv_quant="int8")
+    qwave = phase_g(torch, qengine, pa, fa, Q, tag="(F1) gpt2 int4+int8")
+    f_add(total, qwave["launches"])
+    phase_h(torch, qengine, P, G, M, tag="(F1) gpt2 int4+int8", atol=QUANT_LOGITS_ATOL)
+    phase_q(torch, qengine, P, G, M, tag="(F1) gpt2 int4+int8 graphs", idle=False,
+            dense=False, timed=False)
+    del qengine
+    f_free(torch)
+    print(f"(F1) done in {time.time() - t0:.1f} s")
+
+    engine = f_engine(torch, F_MOE, "(F3)")
+    moe_shapes = f_solo(torch, engine, pa, fa, Q, "(F3) qwen3-moe solo", total, profile,
+                        logits=False)
+    wave = phase_g(torch, engine, pa, fa, Q, tag="(F3) qwen3-moe paged")
+    f_add(total, wave["launches"])
+    f_free(torch)
+    phase_h(torch, engine, P, G, M, tag="(F3) qwen3-moe", logits=False)
+    phase_q(torch, engine, P, G, M, tag="(F3) qwen3-moe graphs", idle=False, dense=False,
+            timed=False)
+    if profile:
+        phase_i_profile(torch, engine, P, G, tag="(F3) qwen3-moe")
+    n_tok = sum(r["tokens_generated"] for _, r, _ in wave["results"])
+    print(f"(F3) qwen3-30b-a3b paged wave: {n_tok} tokens in {wave['wave_s']:.3f} s = "
+          f"{n_tok / wave['wave_s']:.2f} tokens/s aggregate; device memory peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    del engine
+    f_free(torch)
+    qengine = f_engine(torch, F_MOE, "(F3) int8", quant="int8", n_layers=F_MOE_INT8_LAYERS)
+    check(type(qengine.backend.params["layers"]["w_gate"]).__name__ == "QTensor",
+          "(F3) the int8 engine's expert banks are not int8")
+    qwave = phase_g(torch, qengine, pa, fa, Q, tag="(F3) qwen3-moe int8")
+    f_add(total, qwave["launches"])
+    phase_h(torch, qengine, P, G, M, tag="(F3) qwen3-moe int8", logits=False)
+    phase_q(torch, qengine, P, G, M, tag="(F3) qwen3-moe int8 graphs", idle=False,
+            dense=False, timed=False)
+    del qengine
+    f_free(torch)
+    f_moe_fp32(torch, P, G, M, "(F3) qwen3-moe fp32")
+    f_moe_fp32(torch, P, G, M, "(F3) qwen3-moe int8 fp32", quant="int8")
+    print(f"(F3) done in {time.time() - t0:.1f} s")
+
+    rows = f_kernels(torch, timer, pa, fa, Q, P, F_GPT2, gpt2_shapes)
+    rows += f_kernels(torch, timer, pa, fa, Q, P, F_MOE, moe_shapes)
+    for r in rows:
+        print("(F2) " + json.dumps(r))
+    print(f"(F) total {time.time() - t0:.1f} s; the kernels' launches in (F): "
+          f"{json.dumps(total)}")
+    for name in ("ragged_paged_attend", "paged_flash_attend", "flash_attend",
+                 "q4_matmul_rows"):
+        check(total.get(name, 0) > 0, f"(F) no {name} launch on (F)'s main paths")
+    return total, rows
+
+
 def main(argv) -> int:
     import argparse
 
@@ -6416,7 +7011,7 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z",
-                                       "C", "S"],
+                                       "C", "S", "F"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -6434,7 +7029,9 @@ def main(argv) -> int:
                          "(y): token streaming, cancellation and the OpenAI routes; or "
                          "(z) on the raw engine (z): runtime LoRA adapters; or (C) "
                          "on the raw engine (C): grammar constraints; or (S) on the "
-                         "raw engine (S): the solo engine's features")
+                         "raw engine (S): the solo engine's features; or (F) alone "
+                         "(F): gpt2-medium and qwen3-30b-a3b at full width, the "
+                         "kernels at their widths, and --checkpoint")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -6505,6 +7102,11 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
+    if args.only == "F":
+        launches, _ = phase_F(torch, timer, pa, fa, Q, P, G, M, smi, profile=True)
+        print(f"(F) total {time.time() - t_start:.1f} s")
+        print("(F) " + json.dumps({"launches_F": launches}))
+        return 0
     if args.only not in ("s", "v", "w", "x", "y", "z", "C", "S"):
         # (b) the kernel against its twin
         phase_b(torch, timer, fa)
@@ -6708,6 +7310,14 @@ def main(argv) -> int:
     graph_rows += phase_q(torch, qengine, P, G, M)
     print(f"(q) int4+int8 total {time.time() - t_start:.1f} s ({smi})")
     print("(q) " + json.dumps({"graphs": graph_rows}))
+
+    # (F) the other families and loading: gpt2-medium and qwen3-30b-a3b at
+    # full width on the solo path and the fleets, the kernels at their
+    # widths, --checkpoint on an HF directory and a store
+    del qengine
+    f_free(torch)
+    f_launches, _ = phase_F(torch, timer, pa, fa, Q, P, G, M, smi)
+    print(f"(F) total {time.time() - t_start:.1f} s")
     ragged_entry = ragged_line(paged_rows, wave["launches"], False, P)
     paged_entry = paged_decode_line(paged_rows, wave["launches"], False)
     # the speculation path's own counts ((x1)'s verify wave, (x2)'s draft
@@ -6735,6 +7345,7 @@ def main(argv) -> int:
         entry["launches_z"] = z_launches[entry["name"]]
         entry["launches_C"] = c_launches[entry["name"]]
         entry["launches_S"] = s_launches[entry["name"]]
+        entry["launches_F"] = f_launches.get(entry["name"], 0)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -166,8 +166,9 @@ is the solo engine's snapshot kind (engine/prefix.py), its own instance:
 a hit splices the snapshot into the admission scratch in place and
 prefills the tail; the completed prompt's snapshot is stored.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP.md item):
-gpt2's fleet.
+Both families ride every fleet: gpt2 through the shared attention hook
+seam (its learned positions gathered per flat token on the mixed launch),
+the MoE llama configs as llama (the expert banks inside each layer).
 """
 
 from __future__ import annotations
@@ -182,7 +183,6 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..models.llama import FAMILIES, _not_ported
 from ..ops.kv_quant import KVQuant
 from ..utils import faults
 from ..utils.logging import get_logger
@@ -338,9 +338,11 @@ class ContinuousEngine:
     ):
         cfg = engine.cfg
         ecfg = engine.engine_cfg
-        if cfg.arch != "llama":
-            raise _not_ported(f"the continuous fleet for arch {cfg.arch!r}",
-                              FAMILIES)
+        if cfg.arch not in ("llama", "gpt2"):
+            raise ValueError(
+                f"continuous batching supports the llama and gpt2 families; "
+                f"model arch is {cfg.arch!r}"
+            )
         backend = engine.backend
         if not getattr(backend, "supports_slots", False):
             raise ValueError(

@@ -182,7 +182,7 @@ class SingleDeviceBackend:
 
     @property
     def supports_paged(self) -> bool:
-        return self.cfg.arch == "llama"
+        return self.cfg.arch in ("llama", "gpt2")
 
     def init_paged_pool(self, n_blocks, block_size):
         return P.init_pool(self.cfg, n_blocks, block_size, device=self.device)
@@ -388,13 +388,9 @@ class InferenceEngine:
         engine's (`speculative=True`) and the fleet's draft-model
         speculation (engine/continuous.py, spec_draft_model). It must
         share the target's tokenizer (its tokens are compared with the
-        target's argmax) and be llama-family. It runs on the target's
+        target's argmax), of either family. It runs on the target's
         device with the target's attention route; random weights from
         `seed` when `dparams` is None."""
-        if dcfg.arch != "llama":
-            from ..models.llama import FAMILIES, _not_ported
-
-            raise _not_ported(f"a draft model of arch {dcfg.arch!r}", FAMILIES)
         if dcfg.vocab_size != self.cfg.vocab_size:
             raise ValueError(
                 f"draft vocab {dcfg.vocab_size} != target vocab "
@@ -1525,6 +1521,11 @@ class InferenceEngine:
         cfg = self.cfg
         if not prompts or not all(isinstance(p, str) and p for p in prompts):
             raise ValueError("prompts must be a non-empty list of non-empty strings")
+        if cfg.arch != "llama":
+            raise ValueError(
+                f"batched generation is llama-family only (left-padding needs "
+                f"relative positions); model arch is {cfg.arch!r}"
+            )
         self.request_count += 1
         B = len(prompts)
         if B > BATCH_BUCKETS[-1]:

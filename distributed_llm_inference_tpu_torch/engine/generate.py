@@ -44,7 +44,7 @@ import torch
 from ..config import ModelConfig
 from ..models import api as M
 from ..ops.kv_quant import KVQuant
-from ..ops.sampling import sample_token
+from ..ops.sampling import sample_token, stable_top
 
 
 class SamplingParams(NamedTuple):
@@ -458,15 +458,6 @@ def pack_chunk(emitted, emit_mask, active):
 # the JAX package's NEG_INF_F32: finished and dead beams sit here, so ties
 # between them are routine
 NEG_INF_F32 = -1e9
-
-
-def stable_top(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries of the last axis, the
-    lower index first among equal values: the order of jax.lax.top_k and
-    of jnp.argsort(-x) (a stable sort), which torch.topk does not
-    promise."""
-    idx = torch.argsort(-x, dim=-1, stable=True)[..., :k]
-    return torch.gather(x, -1, idx), idx
 
 
 def _fetch(loop, *scalars) -> list:

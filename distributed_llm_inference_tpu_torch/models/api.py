@@ -1,23 +1,20 @@
 """Family dispatch: one functional interface over the model families.
 
-The engine calls these; cfg.arch picks the family. The llama family is
-ported; gpt2 raises until its port, ROADMAP.md "Other families and loading".
+The engine calls these; cfg.arch picks the family (llama: RMSNorm, RoPE,
+GQA, SwiGLU or the MoE FFN; gpt2: LayerNorm, learned positions, MHA,
+gelu_new). Both share the stacked-layer parameter and KV-cache layout and
+the attention hook seam, so the engine and the fleets are family-agnostic.
 """
 
 from __future__ import annotations
 
 from ..config import ModelConfig
-from . import llama
+from . import gpt2, llama
 
-_FAMILIES = {"llama": llama}
+_FAMILIES = {"llama": llama, "gpt2": gpt2}
 
 
 def family(cfg: ModelConfig):
-    if cfg.arch == "gpt2":
-        raise NotImplementedError(
-            "the gpt2 family (models/gpt2.py) is not ported to PyTorch yet "
-            "(ROADMAP.md \"Other families and loading\")"
-        )
     if cfg.arch not in _FAMILIES:
         raise ValueError(f"unknown model arch {cfg.arch!r}")
     return _FAMILIES[cfg.arch]
@@ -41,7 +38,8 @@ def forward_layers(cfg, layers, x, cache, pos, valid_start=None,
                    attn_hook=None, attn_seq_len=None, lora_pages=None):
     """pos: an int, or an int32 [B] tensor of per-row positions (slots
     mode); attn_hook / attn_seq_len: the paged hooks of engine/paged.py;
-    lora_pages: [B] int32 adapter-pool pages (see llama.forward_layers)."""
+    lora_pages: [B] int32 adapter-pool pages (see llama.forward_layers;
+    llama only, as valid_start is: gpt2's forward_layers refuses both)."""
     return family(cfg).forward_layers(
         cfg, layers, x, cache, pos, valid_start=valid_start,
         attn_hook=attn_hook, attn_seq_len=attn_seq_len, lora_pages=lora_pages,

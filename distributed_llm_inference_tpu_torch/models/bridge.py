@@ -10,7 +10,11 @@ Q4Tensor and KVQuant, recognised by their q / s / g fields, as this
 package imports nothing of the JAX one) become the port's classes with q
 kept int8 and s fp32. `cache_from_numpy` and `slots_from_numpy` carry a
 KV cache (dense or block pool, raw or int8) and the fleet's slot state
-over the same way. `init_params` draws random weights on the card.
+over the same way. Both families' trees carry over, an MoE tree's 4-D
+expert banks (dense, or the JAX package's int8 QTensor banks with their
+[L, E, out] scales) included. `params_to` moves a parameter dictionary
+(from the converter or the checkpoint store) onto a device.
+`init_params` draws random weights on the card.
 """
 
 from __future__ import annotations
@@ -92,6 +96,22 @@ def slots_from_numpy(state, sparams, device):
     sp = G.SlotParams(*(torch.from_numpy(np.array(a)).to(device=device, dtype=dt)
                         for a, dt in zip(sparams, G.SLOT_PARAM_DTYPES)))
     return st, sp
+
+
+def params_to(params: dict, device) -> dict:
+    """The parameter dictionary on `device` (leaves already there are kept,
+    not copied); QTensor / Q4Tensor leaves move their data and scales."""
+
+    def move(leaf):
+        if isinstance(leaf, dict):
+            return {k: move(v) for k, v in leaf.items()}
+        if isinstance(leaf, Q4Tensor):
+            return Q4Tensor(leaf.q.to(device), leaf.s.to(device), leaf.g)
+        if isinstance(leaf, QTensor):
+            return QTensor(leaf.q.to(device), leaf.s.to(device))
+        return leaf.to(device)
+
+    return move(params)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:

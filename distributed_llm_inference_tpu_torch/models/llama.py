@@ -27,8 +27,14 @@ pool's paged lora_{leaf}_{a,b} leaves [L, P, in, r] / [L, P, r, out]
 (engine/adapters.py, always dense) and per-row `lora_pages`, every
 projection adds its row's low-rank delta.
 
+With cfg.n_experts the FFN is the MoE block (`moe_ffn`, Mixtral and
+Qwen3-MoE): a router [L, D, E] and expert banks w_gate / w_up [L, E, D,
+F], w_down [L, E, F, D], dense or int8 QTensor banks (ops/quant.
+expert_einsum).
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: the MoE FFN, tensor-parallel psums and pipeline update gates.
+item: expert, tensor-parallel and pipeline meshes (ep psums, tp psums,
+pipeline update gates).
 """
 
 from __future__ import annotations
@@ -53,15 +59,16 @@ from ..ops.kv_quant import dequantize as kv_dequantize
 from ..ops.kv_quant import update_cache as kv_update
 from ..ops.kv_quant import update_cache_slots as kv_update_slots
 from ..ops.norms import rms_norm
+from ..ops.quant import expert_einsum as eem
 from ..ops.quant import matmul as mm
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..ops.sampling import stable_top
 
 Params = dict
 KVCache = dict  # {"k": [L, B, KV, S, Dh], "v": [L, B, KV, S, Dh]}
 
 
-# ROADMAP.md items (headings there) that port what this module rejects
-FAMILIES = "Other families and loading"
+# the ROADMAP.md item (a heading there) that ports what this module rejects
 SPMD = "Multi-GPU SPMD"
 
 
@@ -73,19 +80,13 @@ def _not_ported(what: str, item: str):
     )
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Reject the config features this slice does not port."""
-    if cfg.n_experts:
-        raise _not_ported("the MoE FFN (models/llama.moe_ffn)", FAMILIES)
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     """Random weights (scaled normal, as the JAX init_params draws them),
     made on the generator's device in cfg.dtype, dense whatever cfg.quant
     says (runtime.create_engine quantizes them, as the JAX package does).
-    The numbers differ from the JAX package's for the same seed: the two
-    RNGs differ."""
-    check_supported(cfg)
+    An MoE config's expert banks are drawn one layer at a time into the
+    stacked leaf, so no fp32 copy of a whole bank is ever held. The numbers
+    differ from the JAX package's for the same seed: the two RNGs differ."""
     device = generator.device
     dt = cfg.torch_dtype
     L, D, Fd, V = cfg.n_layers, cfg.dim, cfg.ffn_dim, cfg.vocab_size
@@ -100,16 +101,34 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
         fill = torch.zeros if cfg.norm_unit_offset else torch.ones
         return fill(shape, dtype=dt, device=device)
 
+    def bank(shape, scale):
+        # [L, E, in, out], drawn layer by layer
+        out = torch.empty(shape, dtype=dt, device=device)
+        for i in range(shape[0]):
+            out[i] = normal(shape[1:], scale)
+        return out
+
     s = D ** -0.5
     layers = {
         "wq": normal((L, D, H * Dh), s),
         "wk": normal((L, D, KV * Dh), s),
         "wv": normal((L, D, KV * Dh), s),
         "wo": normal((L, H * Dh, D), s),
-        "w_gate": normal((L, D, Fd), s),
-        "w_up": normal((L, D, Fd), s),
-        "w_down": normal((L, Fd, D), Fd ** -0.5),
     }
+    if cfg.n_experts:  # the MoE FFN: a router and the expert banks
+        E = cfg.n_experts
+        layers.update(
+            w_router=normal((L, D, E), s),
+            w_gate=bank((L, E, D, Fd), s),
+            w_up=bank((L, E, D, Fd), s),
+            w_down=bank((L, E, Fd, D), Fd ** -0.5),
+        )
+    else:
+        layers.update(
+            w_gate=normal((L, D, Fd), s),
+            w_up=normal((L, D, Fd), s),
+            w_down=normal((L, Fd, D), Fd ** -0.5),
+        )
     params = {"embed": normal((V, D), 0.02), "layers": layers,
               "final_norm": norm_init((D,))}
     if cfg.pre_norms:
@@ -225,6 +244,33 @@ def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
+def moe_ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    """The sparse MoE FFN on a (normed) chunk h [B, T, D], exactly as the
+    JAX package computes it (HF MixtralSparseMoeBlock semantics): an fp32
+    softmax over the router logits, top-k, the selected weights
+    renormalised when cfg.moe_renormalize (Qwen3-MoE's norm_topk_prob),
+    then every expert's SwiGLU output for every token and a masked
+    weighted sum. All on the device: the top-k and the expert weights
+    are never read back, so a launch stays one graph.
+
+    lp holds this layer's router w_router [D, E] and banks w_gate / w_up
+    [E, D, F], w_down [E, F, D], dense or int8 QTensor."""
+    k = cfg.n_experts_per_tok
+    probs = torch.softmax((h @ lp["w_router"]).float(), dim=-1)  # [B, T, E]
+    # jax.lax.top_k's order: a bf16 router's tie at the k-th place picks
+    # the same expert in both packages
+    topw, topi = stable_top(probs, k)
+    if cfg.moe_renormalize:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    # each selected expert's weight at its index, 0 elsewhere (the JAX
+    # one-hot sum, whose every other term is an exact 0)
+    weights = torch.zeros_like(probs).scatter(-1, topi, topw).to(h.dtype)
+    gate = F.silu(eem("btd,edf->btef", h, lp["w_gate"]).float()).to(h.dtype)
+    up = eem("btd,edf->btef", h, lp["w_up"])
+    down = eem("btef,efd->bted", gate * up, lp["w_down"])
+    return torch.einsum("bted,bte->btd", down, weights)
+
+
 def decoder_layer(
     cfg: ModelConfig,
     lp: Params,
@@ -261,8 +307,8 @@ def decoder_layer(
     """
     if tp_axis is not None:
         raise _not_ported("tensor parallelism (parallel/partition.py)", SPMD)
-    if ep_axis is not None or cfg.n_experts:
-        raise _not_ported("the MoE FFN (models/llama.moe_ffn)", FAMILIES)
+    if ep_axis is not None:
+        raise _not_ported("the MoE FFN over an expert mesh (ep)", SPMD)
     B, T, D = x.shape
     Dh = cfg.head_dim
     H = lp["wq"].shape[-1] // Dh
@@ -325,9 +371,12 @@ def decoder_layer(
 
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps, unit_offset=uo) \
         if cfg.pre_norms else x
-    act = F.silu if cfg.act == "silu" else _gelu_tanh
-    gate = act(lmm(h, "w_gate").float()).to(h.dtype)
-    mlp_out = lmm(gate * lmm(h, "w_up"), "w_down")
+    if cfg.n_experts:
+        mlp_out = moe_ffn(cfg, lp, h)
+    else:
+        act = F.silu if cfg.act == "silu" else _gelu_tanh
+        gate = act(lmm(h, "w_gate").float()).to(h.dtype)
+        mlp_out = lmm(gate * lmm(h, "w_up"), "w_down")
     if cfg.post_norms:
         mlp_out = rms_norm(mlp_out, lp["mlp_post_norm"], cfg.norm_eps, unit_offset=uo)
     if cfg.residual_multiplier is not None:  # Granite

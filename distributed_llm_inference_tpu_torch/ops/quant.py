@@ -23,7 +23,10 @@ scaled, summed over groups.
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs its plain twin `q4_matmul_rows_plain`. Both tensor classes
 slice every leaf with `w[i]` (one layer of the stacked [L, ...] weights).
-Embeddings, norms and biases stay dense.
+Embeddings, norms and biases stay dense. An MoE expert bank [L, E, in,
+out] becomes an int8 QTensor with per-(layer, expert, out-channel) scales
+under int8 (`expert_einsum` carries it through the MoE einsums) and stays
+dense under int4, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,10 +41,12 @@ from ..config import ModelConfig
 from ..kernels import bind, load_library
 from .flash_attention import _sm_count, resolve_kernel
 
-# stacked matmul weights eligible for quantization; OUTPUT channels are
-# the last axis of every one (weights are stored [L, in, out] / [in, out])
+# stacked matmul weights eligible for quantization, per family; OUTPUT
+# channels are the last axis of every one (weights are stored [L, in, out]
+# / [in, out], expert banks [L, E, in, out])
 _QUANT_KEYS = {
     "llama": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
+    "gpt2": ("wq", "wk", "wv", "wo", "w_fc", "w_proj"),
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the kernel's tiling (csrc/q4_matmul.cu): output columns per block, packed
@@ -308,27 +313,58 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-_MOE_NOT_PORTED = (
-    "int8 MoE expert banks (ops/quant.expert_einsum) are not ported to "
-    "PyTorch yet (ROADMAP.md \"Other families and loading\")"
-)
+def _bank_product(spec: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The MoE FFN's two contractions as batched products over the expert
+    axis, reading the bank [E, in, out] where it lies: torch.einsum would
+    first copy the gate / up banks into a [d, e * f] layout (three times
+    the bank's bytes a call)."""
+    if spec == "btd,edf->btef":
+        B, T, D = x.shape
+        y = torch.matmul(x.reshape(1, B * T, D), w)  # [E, BT, F]
+        return y.transpose(0, 1).reshape(B, T, *y.shape[::2])
+    if spec == "btef,efd->bted":
+        B, T, E, F = x.shape
+        y = torch.matmul(x.reshape(B * T, E, F).transpose(0, 1), w)  # [E, BT, D]
+        return y.transpose(0, 1).reshape(B, T, E, y.shape[-1])
+    raise ValueError(f"expert_einsum: no product for spec {spec!r}")
 
 
-def expert_einsum(spec: str, x, w):
-    """Not ported: the MoE FFN waits with its family."""
-    raise NotImplementedError(_MOE_NOT_PORTED)
+def expert_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
+    """einsum over an expert bank, dense or an int8 QTensor. The spec's
+    OUTPUT keeps the scale's axes, so the per-(expert, out-channel) scale
+    s [E, out] multiplies the result elementwise, which commutes with the
+    contraction: 'btd,edf->btef' (gate / up) and 'btef,efd->bted' (down)."""
+    if isinstance(w, QTensor):
+        return _bank_product(spec, x, w.q.to(x.dtype)) * w.s.to(x.dtype)
+    return _bank_product(spec, x, w)
+
+
+def _quantize_bank(w: torch.Tensor) -> QTensor:
+    """quantize_tensor of an expert bank [L, E, in, out], one layer slice
+    at a time: the scales are per (layer, expert, out-channel), so the
+    values equal a whole-leaf quantize, and no fp32 copy of the whole bank
+    is made."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty((*w.shape[:-2], w.shape[-1]), dtype=torch.float32,
+                    device=w.device)
+    for i in range(w.shape[0]):
+        t = quantize_tensor(w[i])
+        q[i], s[i] = t.q, t.s
+    return QTensor(q, s)
 
 
 def quantize_params(cfg: ModelConfig, params: dict, mode: str = None,
                     group: int = 64) -> dict:
-    """Quantize the matmul weights of a parameter dictionary: the stacked
-    per-layer projections and, when untied, the LM head; embed, norms and
-    biases stay. mode: "int8" or "int4" (default cfg.quant, then "int8").
-    Already-quantized leaves are left as they are."""
+    """Quantize the matmul weights of a parameter dictionary (both
+    families): the stacked per-layer projections and, when untied, the LM
+    head; embed, norms and biases stay. mode: "int8" or "int4" (default
+    cfg.quant, then "int8"). An MoE expert bank becomes int8 only under
+    int8 and stays dense under int4. Already-quantized leaves are left as
+    they are."""
     if cfg.arch not in _QUANT_KEYS:
         raise NotImplementedError(
-            f"weight quantization of arch {cfg.arch!r} is not ported to "
-            f"PyTorch yet (ROADMAP.md \"Other families and loading\")"
+            f"weight-only quantization is wired for "
+            f"{sorted(_QUANT_KEYS)}; got arch={cfg.arch!r}"
         )
     mode = mode or cfg.quant or "int8"
     if mode not in ("int8", "int4"):
@@ -342,9 +378,10 @@ def quantize_params(cfg: ModelConfig, params: dict, mode: str = None,
     for k in _QUANT_KEYS[cfg.arch]:
         if k not in layers or isinstance(layers[k], (QTensor, Q4Tensor)):
             continue
-        if layers[k].dim() == 4:
-            raise NotImplementedError(_MOE_NOT_PORTED)
-        layers[k] = qfn(layers[k])
+        if layers[k].dim() == 3:
+            layers[k] = qfn(layers[k])
+        elif layers[k].dim() == 4 and mode == "int8":
+            layers[k] = _quantize_bank(layers[k])
     out["layers"] = layers
     if "lm_head" in params and not isinstance(params["lm_head"], (QTensor, Q4Tensor)):
         out["lm_head"] = qfn(params["lm_head"])

@@ -169,3 +169,12 @@ def top_n_probs(logits: torch.Tensor, n: int = 5):
     probs = torch.softmax(logits.float(), dim=-1)
     top = torch.topk(probs, n, dim=-1)
     return top.values, top.indices
+
+
+def stable_top(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of the last axis, the
+    lower index first among equal values: the order of jax.lax.top_k and
+    of jnp.argsort(-x) (a stable sort), which torch.topk does not
+    promise. Beams, score alternatives and the MoE router rank by it."""
+    idx = torch.argsort(-x, dim=-1, stable=True)[..., :k]
+    return torch.gather(x, -1, idx), idx

@@ -3,7 +3,9 @@
 The counterpart of the JAX package's runtime.create_engine for the single
 device. It runs on the card unless the caller asks for the CPU
 (device="cpu", as the tests do); with no CUDA device it raises rather
-than fall back. Weights are quantized here when the config asks for it,
+than fall back. Params handed over (the converter's, the checkpoint
+store's, or the JAX package's carried by models/bridge.py) are moved to
+the device. Weights are quantized here when the config asks for it,
 as in the JAX package, after a LoRA adapter is merged into them (`lora`,
 merge-at-load) and before the runtime adapter pool's leaves are
 installed (EngineConfig.adapter_slots > 0). `draft_model` attaches a
@@ -23,6 +25,7 @@ from .config import EngineConfig, MeshConfig, ModelConfig, resolve_attn_impl
 from .engine.adapters import AdapterPool, install_adapter_leaves
 from .engine.engine import InferenceEngine, SingleDeviceBackend
 from .models import api as M
+from .models.bridge import params_to
 from .models.lora import merge_lora
 from .models.registry import get_model_config
 from .ops.quant import quantize_params
@@ -90,7 +93,9 @@ def create_engine(
         params = M.init_params(
             cfg, torch.Generator(device=device).manual_seed(seed)
         )
-    M.family(cfg).check_supported(cfg)
+    else:
+        # the converter's and the store's leaves are CPU tensors
+        params = params_to(params, device)
     if lora is not None:
         # merge BEFORE quantization: the delta lands in the dense weights
         params = merge_lora(cfg, params, lora)

@@ -1046,6 +1046,49 @@ def _wedge_reaper(engine, limit_s: float):
             os._exit(17)
 
 
+# every tokenizer format the converter carries into a store: BPE json,
+# config, GPT-2 vocab / merges, and sentencepiece .model
+_TOKENIZER_FILES = (
+    "tokenizer.json", "tokenizer_config.json", "vocab.json", "tokenizer.model",
+)
+
+
+def _has_tokenizer_files(path: str) -> bool:
+    import os
+
+    return any(os.path.exists(os.path.join(path, f)) for f in _TOKENIZER_FILES)
+
+
+def _load_checkpoint(args):
+    """(cfg, params) for --checkpoint: a local store dir (manifest.json,
+    models/checkpoint.py) or a HF checkpoint dir (config.json +
+    safetensors, models/convert.py). A --dtype that conflicts with a
+    store's recorded dtype is refused; an HF directory converts to --dtype
+    (default bfloat16). Anything else exits."""
+    import os
+
+    path = args.checkpoint
+    if os.path.exists(os.path.join(path, "manifest.json")):
+        from ..models.checkpoint import load_params
+
+        cfg, params = load_params(path)
+        if args.dtype and args.dtype != cfg.dtype:
+            raise SystemExit(
+                f"--dtype {args.dtype} conflicts with the checkpoint's "
+                f"recorded dtype {cfg.dtype!r}; re-convert with --dtype "
+                f"{args.dtype} instead"
+            )
+        return cfg, params
+    if os.path.exists(os.path.join(path, "config.json")):
+        from ..models.convert import load_hf_checkpoint
+
+        return load_hf_checkpoint(path, dtype=args.dtype or "bfloat16")
+    raise SystemExit(
+        f"--checkpoint {path}: neither a local store (manifest.json) nor "
+        f"a HF checkpoint dir (config.json + *.safetensors)"
+    )
+
+
 def main(argv: Optional[list] = None):
     from ..config import EngineConfig
     from ..runtime import create_engine
@@ -1054,6 +1097,14 @@ def main(argv: Optional[list] = None):
         description="distributed_llm_inference_tpu_torch server (PyTorch port)"
     )
     ap.add_argument("--model", default="tinyllama-1.1b")
+    ap.add_argument(
+        "--checkpoint", default=None, metavar="DIR",
+        help="serve real weights: a local checkpoint store dir "
+             "(models/checkpoint.py; produced by `python -m "
+             "distributed_llm_inference_tpu_torch.models.convert`) or a "
+             "HuggingFace checkpoint dir (config.json + *.safetensors). "
+             "Overrides --model; tokenizer files in DIR are loaded strictly",
+    )
     ap.add_argument(
         "--tokenizer", default=None, metavar="PATH",
         help="local HF tokenizer dir to serve with (loaded strict); "
@@ -1355,13 +1406,28 @@ def main(argv: Optional[list] = None):
     elif _faults.arm_from_env() is not None:
         print("fault injection armed from DLI_FAULTS")
 
+    model, params, dtype = args.model, None, args.dtype
+    if args.checkpoint:
+        model, params = _load_checkpoint(args)
+        dtype = None  # the checkpoint's recorded dtype governs
     tokenizer = None
-    if args.tokenizer:
+    tok_src = args.tokenizer or (
+        args.checkpoint if args.checkpoint and _has_tokenizer_files(args.checkpoint)
+        else None
+    )
+    if tok_src:
         from ..utils.tokenizer import load_tokenizer
 
-        tokenizer = load_tokenizer(args.tokenizer, strict=True)
+        # strict: real weights through the byte fallback would answer
+        # garbled text with status "success"
+        tokenizer = load_tokenizer(tok_src, strict=True)
+    elif args.checkpoint:
+        print(
+            "⚠️  --checkpoint without a tokenizer: responses will be "
+            "byte-decoded. Pass --tokenizer PATH for real text."
+        )
     engine = create_engine(
-        args.model,
+        model,
         engine_cfg=EngineConfig(
             request_deadline_s=args.deadline,
             prefix_cache_entries=args.prefix_cache,
@@ -1383,7 +1449,8 @@ def main(argv: Optional[list] = None):
         ),
         draft_model=args.draft_model,
         lora=args.lora,
-        dtype=args.dtype,
+        params=params,
+        dtype=dtype,
         quant=args.quant,
         kv_quant=args.kv_quant,
         attn_impl=args.attn_impl,

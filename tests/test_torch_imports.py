@@ -159,7 +159,12 @@ def test_not_ported_errors_name_roadmap_headings():
     headings = {line.lstrip("#").strip() for line in
                 (ROOT / "ROADMAP.md").read_text().splitlines() if line.startswith("#")}
     found = _roadmap_items()
-    assert len(found) >= 8, sorted(found)
+    # the modules that still refuse something (the scanner finds them all)
+    assert sorted(found) == [
+        "distributed_llm_inference_tpu_torch/models/llama.py",
+        "distributed_llm_inference_tpu_torch/runtime.py",
+        "distributed_llm_inference_tpu_torch/serving/server.py",
+    ], sorted(found)
     missing = {f: sorted(i - headings) for f, i in found.items() if i - headings}
     assert not missing, missing
     numbered = re.compile(r"ROADMAP[^\n]{0,40}\bitem \d")

@@ -121,14 +121,24 @@ def test_kernel_path_matches_plain_path(name):
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(get_model_config("test-moe-tiny"), torch.Generator())
-    with pytest.raises(NotImplementedError, match="gpt2"):
-        TM.init_params(get_model_config("test-gpt2-tiny"), torch.Generator())
-    # the int8 KV cache is ported (test_torch_kv_quant.py); int8 MoE
-    # expert banks wait with the MoE FFN
-    from distributed_llm_inference_tpu_torch.ops.quant import quantize_params
+    """What this test once held refused is served since the other
+    families were ported (the MoE FFN's params, gpt2's, int8 expert banks;
+    their parity in test_torch_moe.py and test_torch_gpt2.py); an expert
+    mesh, a tensor-parallel axis and pipeline update gates still raise,
+    naming their ROADMAP.md heading."""
+    from distributed_llm_inference_tpu_torch.models import llama as TL
+    from distributed_llm_inference_tpu_torch.ops.quant import QTensor, quantize_params
 
-    with pytest.raises(NotImplementedError, match="int8"):
-        quantize_params(get_model_config("test-llama-tiny", quant="int8"),
+    cfg = get_model_config("test-moe-tiny")
+    moe = TM.init_params(cfg, torch.Generator())
+    assert tuple(moe["layers"]["w_gate"].shape) == (4, 4, 64, 96)
+    assert tuple(moe["layers"]["w_router"].shape) == (4, 64, 4)
+    gpt2 = TM.init_params(get_model_config("test-gpt2-tiny"), torch.Generator())
+    assert tuple(gpt2["pos_embed"].shape) == (128, 64)
+    q = quantize_params(get_model_config("test-llama-tiny", quant="int8"),
                         {"layers": {"w_up": torch.zeros(2, 4, 8, 16)}})
+    assert isinstance(q["layers"]["w_up"], QTensor)
+    x, cache = torch.zeros(1, 2, cfg.dim), TM.init_kv_cache(cfg, 1, 16)
+    for kw in ({"ep_axis": "ep"}, {"tp_axis": "tp"}, {"update_gate": torch.ones(())}):
+        with pytest.raises(NotImplementedError, match='ROADMAP.md "Multi-GPU SPMD"'):
+            TL.forward_layers(cfg, moe["layers"], x, cache, 0, **kw)

@@ -157,12 +157,25 @@ def test_quantized_jax_tree_carried_across_equals_port_quantization(mode):
 
 
 def test_moe_expert_banks_are_not_ported():
+    """Once refused, the expert banks are ported: a 4-D bank becomes an
+    int8 QTensor with per-(layer, expert, out-channel) scales bit-equal to
+    the JAX quantize_params' under int8, stays dense under int4, and
+    expert_einsum on the int8 bank equals the JAX function's."""
     cfg = get_model_config(MODEL)
-    params = {"layers": {"w_gate": torch.zeros(2, 4, 8, 16)}}
-    with pytest.raises(NotImplementedError, match="Other families and loading"):
-        Q.quantize_params(cfg, params)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Q.expert_einsum("btd,edf->btef", None, None)
+    bank = np.random.RandomState(0).randn(2, 4, 8, 16).astype(np.float32)
+    params = {"layers": {"w_gate": torch.from_numpy(bank)}}
+    jq = JQ.quantize_params(jax_cfg(MODEL), {"layers": {"w_gate": jnp.asarray(bank)}},
+                            "int8")["layers"]["w_gate"]
+    q = Q.quantize_params(cfg, params, "int8")["layers"]["w_gate"]
+    assert isinstance(q, Q.QTensor) and tuple(q.s.shape) == (2, 4, 16)
+    assert np.array_equal(q.q.numpy(), np.asarray(jq.q))
+    assert np.array_equal(q.s.numpy(), np.asarray(jq.s))
+    dense = Q.quantize_params(cfg, params, "int4")["layers"]["w_gate"]
+    assert dense is params["layers"]["w_gate"]
+    x = np.random.RandomState(1).randn(1, 3, 8).astype(np.float32)
+    got = Q.expert_einsum("btd,edf->btef", torch.from_numpy(x), q[0])
+    want = JQ.expert_einsum("btd,edf->btef", jnp.asarray(x), jax.tree.map(lambda a: a[0], jq))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
 # -- the slice as a whole: the quantized fleet -----------------------------------

@@ -614,8 +614,8 @@ def test_speculative_requests_route_like_jax(weights):
 
 
 def test_set_draft_checks_and_the_server_flags(weights, monkeypatch):
-    """set_draft refuses another family (naming its ROADMAP heading) and
-    another vocabulary, as the JAX engine refuses the latter; the server's
+    """set_draft takes a draft of the other family (gpt2), as the JAX
+    engine does, and refuses another vocabulary as the JAX engine does; the server's
     --spec-* flags reach the fleet, and the solo engine's --draft-model
     attaches its draft at start (it was refused until the solo engine's
     speculation was ported)."""
@@ -623,8 +623,8 @@ def test_set_draft_checks_and_the_server_flags(weights, monkeypatch):
 
     _, _, tcfg, tparams, _ = weights
     eng = create_engine(tcfg, params=tparams, device="cpu")
-    with pytest.raises(NotImplementedError, match="Other families and loading"):
-        eng.set_draft(get_model_config("test-gpt2-tiny"))
+    eng.set_draft(get_model_config("test-gpt2-tiny"))
+    assert eng._draft[0].arch == "gpt2" and "pos_embed" in eng._draft[1]
     with pytest.raises(ValueError, match="vocab"):
         eng.set_draft(get_model_config("test-llama-tiny", vocab_size=128))
     eng.set_draft(get_model_config("test-llama-tiny"), seed=1)

@@ -255,5 +255,6 @@ def test_create_engine_draft_model_and_warmup(weights):
     assert w["programs"] > 0 and eng._draft_cache is not None
     r = eng.generate(PROMPT, max_tokens=8, greedy=True, chat=False, speculative=True)
     assert r["status"] == "success" and r["draft_model"] == MODEL
-    with pytest.raises(NotImplementedError, match="Other families and loading"):
-        eng.set_draft(get_model_config("test-gpt2-tiny"))
+    # a draft of the other family attaches as the JAX engine's does
+    eng.set_draft(get_model_config("test-gpt2-tiny"))
+    assert eng._draft[0].arch == "gpt2" and eng._draft_cache is None

@@ -141,6 +141,27 @@ def _cancelled(cont, cause="disconnect") -> float:
     return cont.engine.metrics.get("dli_cancelled_total").labels(cause=cause).value
 
 
+def _hold_fetch(fm, cont, prompt):
+    """Arm a rule of the fleet's own fault module that never fires: at the
+    first fetch of a launch carrying `prompt` once that request holds a
+    decoded token, it sets `held` and waits (the worker thread) until
+    `release` is set. Returns the rule."""
+
+    class Hold(fm.FaultRule):
+        def should_fire(self, tag):
+            if (prompt in tag and not self.release.is_set()
+                    and any(r is not None and r.prompt == prompt and r.tokens
+                            for r in cont._assignment)):
+                self.held.set()
+                self.release.wait(60)
+            return False
+
+    rule = Hold("fetch")
+    rule.held, rule.release = threading.Event(), threading.Event()
+    fm.arm([rule])
+    return rule
+
+
 def _split(events):
     """(deltas, final) of a finished stream, after checking its shape."""
     *deltas, final = events
@@ -286,17 +307,30 @@ def test_stream_across_swap_preemption(fleets, want):
     for pkg, cont in fleets.items():
         events, out = [], {}
         preempted = cont.stats()["preemption"]["preempted_total"]
+        # the worker is held at a fetch of A's, once A decodes, until B is
+        # queued: A cannot finish before B's admission preempts it
+        hold = _hold_fetch(jax_faults if pkg == "jax" else port_faults, cont, PROMPT_A)
 
         def streamer():
             events.extend(cont.stream(PROMPT_A, max_tokens=24, greedy=True, chat=False))
 
         ta = threading.Thread(target=streamer)
-        ta.start()
-        _wait(lambda: len(events) >= 1, what=f"{pkg}: A streaming")
         tb = threading.Thread(target=lambda: out.update(b=cont.submit(PROMPT_B, **KW)))
-        tb.start()
-        ta.join(timeout=120)
-        tb.join(timeout=120)
+        ta.start()
+        try:
+            assert hold.held.wait(60), f"{pkg}: A never decoded"
+            _wait(lambda: len(events) >= 1, what=f"{pkg}: A streaming")
+            tb.start()
+            _wait(lambda: cont.stats()["queued"] >= 1, what=f"{pkg}: B queued")
+        finally:
+            # released and disarmed whatever failed above: an armed rule
+            # would hold a later test's fleet in this worker process
+            hold.release.set()
+            ta.join(timeout=120)
+            if tb.ident is not None:
+                tb.join(timeout=120)
+            port_faults.disarm()
+            jax_faults.disarm()
         deltas, final = _split(events)
         assert final["status"] == "success" and final.get("preempted", 0) >= 1, (pkg, final)
         assert cont.stats()["preemption"]["preempted_total"] > preempted
