@@ -202,6 +202,39 @@ Run after (v), before (j), on (v)'s fleet with a second replica:
       the head): flash_attend n_layers times for its one tail chunk, the
       cold bucketed fleet's tokens.
 
+Run after (w), before (x), on replica processes of their own:
+
+  (R) the router tier. The port's router (serving/router.py, in process)
+      in front of a prefill-class and a decode-class replica, each the
+      port's server CLI spawned by the router's spawn_replicas with
+      tinyllama-1.1b at its published widths, bf16, seed 0, `--continuous
+      8 --kv-block-size 16 --prefix-cache 8 --trace-sample-rate 1.0
+      --warmup` and `--compile-cache` at the directory (a) built, started
+      together with (R4)'s two mixed replicas so that the four start-ups
+      overlap (each replica's device memory printed). (R1) a cold greedy
+      request straight to the decode
+      replica and through the router: the same ids; a wave of 8 greedy
+      requests (four behind one shared 512-token head, handed off from the
+      prefill replica) straight to one replica and through the router,
+      every answer in full, its aggregate tokens/s beside the direct
+      wave's, its ids against each prompt alone on the replica (printed).
+      (R2) one traced 700-token request through the two-phase handoff with
+      the chain pulled over the fabric, a companion prefill on the decode
+      replica under its decode: its envelope's replica and fabric blocks;
+      GET /debug/traces/{id} on the router assembles one tree holding the
+      router's spans, replica.request on both replicas, fabric.pull,
+      kv.serve and launch.mixed / launch.chunk spans, its span total within
+      the wall; ?format=chrome parses into the three lanes. (R3) the decode
+      replica profiled through its /profiler routes during a wave of 8
+      through the router: the trace's kernels are ragged_paged_attend
+      n_layers times per mixed launch and paged_flash_attend n_layers
+      times per decode step, nothing else; the kernels line gains
+      launches_R, these counts. (R4) two mixed replicas: kill -9 of one
+      with a request held on it (a DLI_FAULTS prefill wedge) fails over
+      with the fault-free ids, the dead replica is ejected within the
+      probe window and readmitted after a respawn; the dli_router_*
+      counters printed.
+
 Run after (w), before (j), on (g)'s fleet (the same weights, other engine
 settings):
 
@@ -286,8 +319,9 @@ spells every id (a response is its token ids):
       5: 8 concurrent greedy requests coalesced, each against its run
       alone, aggregate tokens/s against one by one.
 
-Run after (q) int4+int8, before the kernels line, on the other families
-at full width (bf16, random weights from seed 0, the byte tokenizer):
+Run in the lane after (C) ((F2) in the main process after (q) int4+int8,
+before the kernels line), on the other families at full width (bf16,
+random weights from seed 0, the byte tokenizer):
 
   (F) (F1) gpt2-medium (MHA, a GQA group of 1; learned positions): (c)'s
       solo requests and (d)'s logits, (g)'s paged wave with its graphs
@@ -302,10 +336,11 @@ at full width (bf16, random weights from seed 0, the byte tokenizer):
       each serving a greedy request alone with the in-memory fleet's
       ids; a 2-layer full-width qwen3_moe directory whose converted
       config and every stacked expert bank equal the in-memory model's,
-      served with its ids. (F3) qwen3-30b-a3b at full depth (48 layers,
-      128 experts of 768, Dh 128, max_seq cut to 2048): (c), (g), (h)'s
-      sync check and (q)'s paged kinds, then its int8 expert banks at 24
-      layers through the same; (d)'s and (h)'s logits held to the plain
+      served with its ids. (F3) qwen3-30b-a3b (128 experts of 768, Dh
+      128, max_seq cut to 2048) at 12 of its 48 layers in the full run,
+      all 48 under `--only F`: (c), (g), (h)'s sync check and (q)'s paged
+      kinds, then its int8 expert banks at 12 layers (24 under `--only
+      F`) through the same; (d)'s and (h)'s logits held to the plain
       path in fp32 at 4 layers (a bf16 comparison measures router ties),
       dense and int8.
       (F2) the four kernels at both models' widths against their twins,
@@ -313,13 +348,23 @@ at full width (bf16, random weights from seed 0, the byte tokenizer):
       bounds, one JSON row per kernel and model. The kernels line gains
       launches_F: every kernel's count over (F)'s main-path runs.
 
+The full run goes in two processes after (q): (x), (y), (z), (C) and
+(F) run in a second one, `chip_smoke.py --lane x,y,z,C,F`, on an engine
+of its own (the same model and seed, so the same weights), while the main
+process runs (s)-(w), (R) and (S); the lane's output is shown when it
+ends, and its last line carries its kernel counts. Every phase is bound
+by the host (the card idles most of the time) and a process is one
+thread of Python. No kernel is timed while both run: (b), (f) and (n)
+come before the lane, (j) and (F2) after it.
+
 `python3 chip_smoke.py --only s` runs (a), then (s), (t) and (u) alone on
 the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
 `--only w` runs (a), then (w) alone; `--only x` runs (a), then (x) alone;
 `--only y` runs (a), then (y) alone; `--only z` runs (a), then (z) alone;
-`--only S` runs (a), then (S) alone; `--only F` runs (a), then (F) alone
-with profiled solo requests, mixed launches and decode chunks of both
-models (left out of the full run for time).
+`--only S` runs (a), then (S) alone; `--only R` runs (a), then (R)
+alone; `--only F` runs (a), then (F) alone with profiled solo requests,
+mixed launches and decode chunks of both models (left out of the full run
+for time).
 
 `python3 chip_smoke.py --only j` runs (a) and (j)'s q4_matmul_rows cases
 alone, with the kernel's build log (registers, spills); `--only b` runs
@@ -339,7 +384,10 @@ checks one capture per launch kind and every later launch a replay.
 
 It needs a CUDA device and the repository: with no card, or run from a
 directory that holds nothing else of the repository, it exits non-zero
-and prints no result. It imports nothing of the JAX package.
+and prints no result. It imports nothing of the JAX package. Its standard
+output is line-buffered, so a run stopped from outside shows how far it
+got; a run still going after WATCHDOG_S seconds writes every thread's
+stack to standard error, once, and goes on.
 """
 
 from __future__ import annotations
@@ -355,6 +403,8 @@ import urllib.request
 
 MODEL = "tinyllama-1.1b"
 DEVICE = "cuda"
+# a whole run is held to 1200 s: past this many seconds it dumps its stacks
+WATCHDOG_S = 1100
 # small on purpose: the long prompt below chunk-prefills through extend()
 PREFILL_BUCKETS = (64, 128)
 H, KV, DH, S = 32, 4, 64, 2048  # tinyllama's attention widths and cache
@@ -475,7 +525,6 @@ class Timer:
         kernels: where fn launches each of its kernels once, the sum of
         each kernel's mean stands for the call; otherwise a trace that
         lost any is not measured (None)."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
@@ -486,11 +535,10 @@ class Timer:
                 self.flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                and "FillFunctor" not in e.name]
+        kern = [e for e in device_kernels(prof) if "FillFunctor" not in e.name]
         by_name = {}
         for e in kern:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+            by_name.setdefault(e.name, []).append(e.elapsed_us())
         if not kern:
             return None
         if all(len(us) % reps == 0 for us in by_name.values()):
@@ -792,10 +840,35 @@ def phase_d(torch, engine, tag="(d)", atol=LOGITS_ATOL):
     return err
 
 
+class DevKernel:
+    """One device kernel of a torch.profiler trace: its name and its
+    interval in us."""
+
+    __slots__ = ("name", "start", "end")
+
+    def __init__(self, name: str, start: float, end: float):
+        self.name, self.start, self.end = name, start, end
+
+    def elapsed_us(self) -> float:
+        return self.end - self.start
+
+
+def device_kernels(prof) -> list:
+    """The device kernels of a finished torch.profiler session, read from
+    its raw kineto events. prof.events() would first build a FunctionEvent
+    tree of every host op, which takes seconds per ten thousand kernels; the
+    device events it keeps are these (not hidden, device type CUDA)."""
+    from torch.autograd import DeviceType
+
+    return [DevKernel(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_hidden_event()]
+
+
 def busy_union_us(kernels) -> float:
     """Device busy time: the union of the kernels' intervals, in us."""
     busy_us, end = 0.0, None
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+    for a, b in sorted((e.start, e.end) for e in kernels):
         if end is None or a > end:
             busy_us += b - a
             end = b
@@ -811,7 +884,6 @@ def phase_profile(torch, engine, tag="(e)"):
     share (the union of kernel intervals over the request's wall time),
     kernels per generated token, and the kernels that take the most
     device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -821,7 +893,7 @@ def phase_profile(torch, engine, tag="(e)"):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     check(r["status"] == "success", f"profiled request: {r}")
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     busy_us = busy_union_us(kern)
     n_tok = r["tokens_generated"]
     print(f"{tag} profiled greedy request: wall_ms={wall_us / 1e3:.2f} "
@@ -1546,7 +1618,7 @@ def top_kernels(kernels, n):
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+        by_name[e.name] = (t + e.elapsed_us(), c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
     return [(t / 1e3, c, name) for name, (t, c) in top]
 
@@ -1554,7 +1626,6 @@ def top_kernels(kernels, n):
 def profile_call(torch, fn):
     """Wall us, device busy us and the device kernels of one call, from
     torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1562,7 +1633,7 @@ def profile_call(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     return wall_us, busy_union_us(kern), kern
 
 
@@ -4134,6 +4205,517 @@ def phase_w(torch, engine, pa, fa, Q, smi):
     print("(w) " + json.dumps({"kv_fabric": out}))
 
 
+# -- the router tier over replica processes: phase (R) ------------------------------
+
+R_NEW = 32  # new tokens per (R1) / (R3) request
+R_HEAD = 512  # (R1)'s shared head: 32 blocks
+R_TAILS = (20, 40, 60, 80)  # the four tails behind it
+R_OTHERS = (30, 60, 90, 120)  # the wave's four other prompts (under the handoff gate)
+R_LONG = 700  # (R2)'s traced prompt: handed off, its decode traced
+R_LONG_NEW = 64
+R_COMPANION = 600  # (R2)'s companion prompt on the decode replica, under its decode
+R_POOL = 513
+R_PROBE_S, R_EJECT, R_PROBE_TIMEOUT_S = 0.25, 3, 2.0
+R_SLOW = "SLOWPOKE " + fleet_prompt(90, 200)  # (R4)'s prompt held on the victim
+R_FAULTS = "prefill:transient:match=SLOWPOKE,wedge=6,times=1"
+R_DIR = "build/chip_smoke_R"  # the replicas' profiler traces (gitignored)
+
+
+def r_args(build_dir) -> list:
+    """A replica's server CLI: tinyllama-1.1b at its published widths, bf16,
+    seed 0, (g)'s fleet with the prefix cache, every trace sampled, the
+    kernels' libraries from the directory (a) built, warmed before it
+    answers /ready (its graphs captured: a cold replica's first launches
+    would be timed as the router's)."""
+    return ["--model", MODEL, "--dtype", "bfloat16", "--attn-impl", "auto", "--seed", "0",
+            "--continuous", str(FLEET["n_slots"]), "--kv-pool-blocks", str(R_POOL),
+            "--kv-block-size", str(BLOCK), "--continuous-max-seq", str(FLEET["slot_max_seq"]),
+            "--prefix-cache", "8", "--trace-sample-rate", "1.0",
+            "--compile-cache", str(build_dir), "--max-tokens-cap", "512", "--warmup"]
+
+
+def r_env(faults=None) -> dict:
+    import os
+
+    env = dict(os.environ)
+    env.pop("DLI_FAULTS", None)
+    if faults:
+        env["DLI_FAULTS"] = faults
+    return env
+
+
+def r_spawn(PR, args, cls, rid, faults=None):
+    """One replica through the port's spawn_replicas; if it never gets
+    ready, its argv runs once more with its output kept, for the failure."""
+    try:
+        rep = PR.spawn_replicas(1, args, env=r_env(faults), replica_class=cls)[0]
+    except SystemExit as e:
+        r = subprocess.run([sys.executable, "-m",
+                            "distributed_llm_inference_tpu_torch.serving.server", *args,
+                            "--port", str(free_port())],
+                           capture_output=True, text=True, timeout=120, env=r_env())
+        raise SmokeFailure(f"(R) replica {rid} ({cls}): {e}; its output: "
+                           f"{(r.stdout + r.stderr)[-3000:]}") from None
+    rep.rid = rid
+    return rep
+
+
+def r_spawn_all(PR, specs) -> list:
+    """Spawn replicas (args, class, rid, faults) together; every one or a
+    failure."""
+    import threading
+
+    reps, errs = [None] * len(specs), []
+
+    def run(i):
+        try:
+            reps[i] = r_spawn(PR, *specs[i])
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(specs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        r_stop([r for r in reps if r is not None])
+        raise errs[0]
+    return reps
+
+
+def r_stop(reps):
+    for rep in reps:
+        if rep.proc is not None and rep.proc.poll() is None:
+            rep.proc.terminate()
+    for rep in reps:
+        if rep.proc is not None:
+            try:
+                rep.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                rep.proc.kill()
+                rep.proc.wait(timeout=30)
+
+
+def r_call(url, path, body=None, headers=None, timeout=600):
+    """(code, JSON, wall s) of a GET (body None) or POST to url + path."""
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, out = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, out = e.code, json.loads(e.read())
+    return code, out, time.perf_counter() - t0
+
+
+def r_body(prompt, n=R_NEW) -> dict:
+    return {"prompt": prompt, "max_tokens": n, "greedy": True, "chat": False}
+
+
+def r_idle(url, timeout_s=60.0) -> dict:
+    """A replica's /stats "continuous" once it holds no request."""
+    t0 = time.time()
+    while True:
+        c = r_call(url, "/stats")[1]["continuous"]
+        if c["occupied"] == 0 and c["queued"] == 0:
+            return c
+        check(time.time() - t0 < timeout_s, f"(R) {url} did not go idle: {c}")
+        time.sleep(0.05)
+
+
+def r_wave(url, bodies) -> tuple:
+    """POST the bodies at once to url; (results, wave seconds)."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def run(i):
+        out[i] = r_call(url, "/generate", bodies[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - t0
+
+
+def r_used(torch) -> int:
+    """Bytes of the card in use by every process."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def r_memory(torch, reps, used_before: int, beside_lane=False) -> str:
+    """Each replica's device memory, by pid, as nvidia-smi reports it (in a
+    container it may list no process), and what the replicas added to the
+    card's use since `used_before` (`beside_lane`: the lane's allocations
+    of that time are in it too)."""
+    added = r_used(torch) - used_before
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           timeout=60, check=True)
+        used = dict(line.split(", ", 1) for line in r.stdout.strip().splitlines() if line)
+    except (OSError, subprocess.SubprocessError, ValueError):
+        used = {}
+    return (", ".join(f"{rep.rid} {used.get(str(rep.proc.pid), 'not measured')}"
+                      for rep in reps)
+            + f"; the card's use rose by {added / 2**30:.2f} GiB while the {len(reps)} "
+            f"replicas started ({added / len(reps) / 2**30:.2f} GiB each on average"
+            + ("; the lane's allocations of that time in it too)" if beside_lane else ")"))
+
+
+def r_trace_counts(path) -> dict:
+    """Kernel launches by the kernels line's names, from a torch.profiler
+    Chrome trace: the flash walk through the block table (PagedTable) is
+    ragged_paged_attend, over a dense chunk flash_attend; the split-KV
+    decode walk through the table (PagedRows) is paged_flash_attend, over
+    dense rows flash_attend_slots; int8 caches instantiate on signed char."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {k: 0 for k in ("ragged_paged_attend", "paged_flash_attend", "flash_attend")}
+    out.update({k + "[int8]": 0 for k in list(out)})
+    out.update(q4_matmul_rows=0, flash_attend_slots=0)
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        name = ev.get("name", "")
+        int8 = "[int8]" if "signed char" in name else ""
+        if "walk<" in name and "PagedTable" in name:
+            out["ragged_paged_attend" + int8] += 1
+        elif "walk<" in name and "DenseChunk" in name:
+            out["flash_attend" + int8] += 1
+        elif "walk_split" in name and "PagedRows" in name:
+            out["paged_flash_attend" + int8] += 1
+        elif "walk_split" in name and "DenseRows" in name:
+            out["flash_attend_slots"] += 1
+        elif "q4_rows" in name:
+            out["q4_matmul_rows"] += 1
+    return out
+
+
+def r_wait(router, rid, state, deadline_s) -> float | None:
+    """Seconds until replica rid reached state, or None past the deadline."""
+    rep = next(r for r in router.replicas if r.rid == rid)
+    t0 = time.time()
+    while time.time() - t0 < deadline_s:
+        if rep.state == state:
+            return time.time() - t0
+        time.sleep(0.02)
+    return None
+
+
+def r_counters(router) -> dict:
+    """Every dli_router_* counter and gauge series, as exposed."""
+    out = {}
+    for line in router.metrics.render().splitlines():
+        if line.startswith("dli_router_") and not re.match(r"\S+_(bucket|sum|count)\{", line):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def phase_R1(router, base, pre, dec, smi) -> dict:
+    """A cold request straight to the decode replica and through the
+    router; a wave of 8 straight to one replica and through the router."""
+    prompt = fleet_prompt(70, 100)  # under the router's 192-byte handoff gate
+    code, direct, _ = r_call(dec.url, "/generate", r_body(prompt))
+    r_idle(dec.url)
+    code2, routed, _ = r_call(base, "/generate", r_body(prompt))
+    print(f"(R1) a cold greedy request straight to {dec.rid} and through the router "
+          f"(served by {routed.get('replica')}): tokens "
+          + ("identical" if direct.get("token_ids") == routed.get("token_ids")
+             else "NOT identical") + f" ({smi})")
+    check(code == code2 == 200 and direct["status"] == routed["status"] == "success",
+          f"(R1) {direct} / {routed}")
+    check(direct["token_ids"] == routed["token_ids"] and len(direct["token_ids"]) == R_NEW,
+          "(R1) the router's answer is not the replica's")
+    head = fleet_prompt(71, R_HEAD)
+    prompts = ([head + fleet_prompt(72 + i, n) for i, n in enumerate(R_TAILS)]
+               + [fleet_prompt(80 + i, n) for i, n in enumerate(R_OTHERS)])
+    bodies = [r_body(p) for p in prompts]
+    # the reference: each prompt alone on the idle decode replica
+    want = []
+    for b in bodies:
+        code, r, _ = r_call(dec.url, "/generate", b)
+        check(code == 200 and r["status"] == "success", f"(R1) reference: {r}")
+        want.append(r["token_ids"])
+    r_idle(dec.url)
+    rows = {}
+    for label, url in (("straight to " + dec.rid, dec.url), ("through the router", base)):
+        results, wave_s = r_wave(url, bodies)
+        for rep in (pre, dec):
+            r_idle(rep.url)
+        n_tok = 0
+        for i, (code, r, wall) in enumerate(results):
+            check(code == 200 and r.get("status") == "success"
+                  and r["tokens_generated"] == R_NEW, f"(R1) {label} request {i}: {r}")
+            n_tok += r["tokens_generated"]
+        partings = [(i, parts_at(r["token_ids"], want[i]))
+                    for i, (_, r, _) in enumerate(results) if r["token_ids"] != want[i]]
+        for i, (code, r, wall) in enumerate(results):
+            t = r.get("timings", {})
+            print(f"(R1) {label} request {i}: wall {wall:.3f} s ttft_s={r.get('ttft_s')} "
+                  f"router_s={t.get('router_s')} queue_wait_s={t.get('queue_wait_s')} "
+                  f"admission_s={t.get('admission_s')} decode_s={t.get('decode_s')} "
+                  f"prefix_cached_tokens={r.get('prefix_cached_tokens')}")
+        for rep in (pre, dec):
+            c = r_call(rep.url, "/stats")[1]["continuous"]
+            print(f"(R1) after the wave {label}, {rep.rid}: kv_fabric "
+                  f"{json.dumps(c.get('kv_fabric'))}, shadow {json.dumps(c.get('shadow'))}, "
+                  f"launches {json.dumps(c.get('launches'))}")
+        rows[label] = dict(wave_s=wave_s, tokens=n_tok, tokens_per_s=n_tok / wave_s,
+                           served_by=[r.get("replica", dec.rid) for _, r, _ in results],
+                           kv_fabric_blocks=[r.get("kv_fabric_blocks", 0) for _, r, _ in results],
+                           kv_promoted_blocks=[r.get("kv_promoted_blocks", 0)
+                                               for _, r, _ in results],
+                           partings=partings)
+        print(f"(R1) wave of 8 {label}: {n_tok} tokens in {wave_s:.3f} s = "
+              f"{n_tok / wave_s:.2f} tokens/s aggregate, served by "
+              f"{rows[label]['served_by']}; greedy ids equal to each prompt alone on "
+              f"{dec.rid} for {8 - len(partings)} of 8"
+              + (f" (parting at (request, token) {partings}: a request that shares "
+                 f"its launches with others takes other bf16 roundings)" if partings else "")
+              + f" ({smi})")
+    return rows
+
+
+def phase_R2(SpanContext, router, base, pre, dec, smi) -> dict:
+    """One traced long request through the two-phase handoff, its chain
+    pulled over the fabric, a companion prefill on the decode replica under
+    its decode; the router assembles one trace tree."""
+    import threading
+
+    ctx = SpanContext.new_root()
+    r_idle(dec.url)
+    comp = {}
+
+    def companion():
+        t0 = time.time()
+        while r_call(dec.url, "/stats")[1]["continuous"]["occupied"] == 0:
+            if time.time() - t0 > 60:
+                return
+            time.sleep(0.002)
+        comp["r"] = r_call(dec.url, "/generate", r_body(fleet_prompt(92, R_COMPANION), 8))
+
+    t = threading.Thread(target=companion)
+    t.start()
+    router.kv_push = False  # phase 2 pulls the chain: fabric.pull and kv.serve
+    try:
+        code, env, wall = r_call(base, "/generate",
+                                 r_body(fleet_prompt(91, R_LONG), R_LONG_NEW),
+                                 headers={"traceparent": ctx.header()})
+    finally:
+        router.kv_push = True
+    t.join()
+    check(code == 200 and env["status"] == "success", f"(R2) {env}")
+    check("r" in comp and comp["r"][0] == 200, f"(R2) the companion: {comp}")
+    print(f"(R2) traced handoff ({R_LONG} prompt tokens, {R_LONG_NEW} new): HTTP {code} "
+          f"replica={env.get('replica')} kv_fabric_blocks={env.get('kv_fabric_blocks')} "
+          f"kv_promoted_blocks={env.get('kv_promoted_blocks')} ttft_s={env.get('ttft_s')} "
+          f"wall {wall:.3f} s, timings {json.dumps(env.get('timings'))} ({smi})")
+    check(env.get("replica") == dec.rid and env.get("kv_fabric_blocks", 0) > 0,
+          "(R2) the decode replica did not pull the chain")
+    code, tree, _ = r_call(base, f"/debug/traces/{ctx.trace_id}")
+    check(code == 200, f"(R2) /debug/traces: {code}")
+    names = {}
+    for s in tree["spans"]:
+        names[s["service"] + ":" + s["name"]] = names.get(s["service"] + ":" + s["name"], 0) + 1
+    print(f"(R2) the assembled tree: {len(tree['spans'])} spans in {len(tree['tree'])} "
+          f"root(s), span total {tree['total_s']:.4f} s of the {wall:.4f} s wall; by "
+          f"service and name {json.dumps(dict(sorted(names.items())))}")
+    check(len(tree["tree"]) == 1 and tree["tree"][0]["name"] == "router.request",
+          "(R2) not one tree under router.request")
+    for key in ("router:router.request", "router:router.handoff_prefill",
+                "router:router.dispatch", "replica-prefill:replica.request",
+                "replica-decode:replica.request", "replica-decode:fabric.pull",
+                "replica-prefill:kv.serve", "replica-decode:launch.mixed",
+                "replica-decode:launch.chunk"):
+        check(names.get(key, 0) >= 1, f"(R2) the tree holds no {key}")
+    check(0 < tree["total_s"] <= wall, f"(R2) span total {tree['total_s']} > wall {wall}")
+    code, chrome, _ = r_call(base, f"/debug/traces/{ctx.trace_id}?format=chrome")
+    lanes = sorted(e["args"]["name"] for e in chrome["traceEvents"]
+                   if e["name"] == "process_name")
+    print(f"(R2) ?format=chrome: HTTP {code}, {len(chrome['traceEvents'])} events, lanes "
+          f"{lanes}")
+    check(code == 200 and lanes == ["replica-decode", "replica-prefill", "router"],
+          f"(R2) chrome trace lanes {lanes}")
+    launches = [s for s in tree["spans"] if s["name"].startswith("launch.")]
+    return dict(spans=names, total_s=tree["total_s"], wall_s=wall,
+                launch_to_fetch_ms=statistics.median(
+                    1e3 * s["attrs"]["launch_to_fetch_s"] for s in launches))
+
+
+def phase_R3(torch, base, dec, smi) -> dict:
+    """The decode replica profiled through its /profiler routes during a
+    wave of 8 through the router: its two paged kernels ran n_layers times
+    per mixed launch and per decode step, nothing else."""
+    import os
+
+    bodies = [r_body(fleet_prompt(100 + i, n)) for i, n in enumerate(FLEET_PROMPT_TOKENS)]
+    r_idle(dec.url)
+    before = r_call(dec.url, "/stats")[1]["continuous"]
+    code, started, _ = r_call(dec.url, "/profiler/start", {"trace_dir": "chip-smoke-R"})
+    check(code == 200, f"(R3) /profiler/start: {started}")
+    results, wave_s = r_wave(base, bodies)
+    r_idle(dec.url)
+    time.sleep(0.5)  # launches still in flight land before the trace stops
+    after = r_call(dec.url, "/stats")[1]["continuous"]
+    code, stopped, _ = r_call(dec.url, "/profiler/stop", {})
+    check(code == 200, f"(R3) /profiler/stop: {stopped}")
+    for i, (c, r, _) in enumerate(results):
+        check(c == 200 and r.get("status") == "success", f"(R3) request {i}: {r}")
+    trace = os.path.join(stopped["trace_dir"], "trace.json")
+    size = os.path.getsize(trace)
+    counts = r_trace_counts(trace)
+    os.remove(trace)
+    from distributed_llm_inference_tpu_torch.models.registry import get_model_config
+
+    L, steps = get_model_config(MODEL).n_layers, after["chunk_steps"]
+    mixed = after["launches"]["mixed"] - before["launches"]["mixed"]
+    chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+    print(f"(R3) {dec.rid} profiled over a wave of 8 through the router ({wave_s:.3f} s): "
+          f"trace {size} bytes, {mixed} mixed launches and {chunks} decode chunks of "
+          f"{steps} steps on {dec.rid}; kernel launches in the trace {json.dumps(counts)} "
+          f"({smi})")
+    check(counts["ragged_paged_attend"] == L * mixed > 0,
+          f"(R3) ragged_paged_attend ran {counts['ragged_paged_attend']} times for "
+          f"{mixed} mixed launches of {L} layers")
+    check(counts["paged_flash_attend"] == L * steps * chunks > 0,
+          f"(R3) paged_flash_attend ran {counts['paged_flash_attend']} times for {chunks} "
+          f"decode chunks of {steps} steps x {L} layers")
+    others = {k: v for k, v in counts.items()
+              if k not in ("ragged_paged_attend", "paged_flash_attend") and v}
+    check(not others, f"(R3) another kernel ran on the decode replica: {others}")
+    return counts
+
+
+def phase_R4(PR, victim, survivor, smi) -> dict:
+    """kill -9 of one of two mixed replicas with a request held in flight on
+    it: the failover answers with the fault-free ids, the dead replica is
+    ejected within the probe window and readmitted after a respawn."""
+    import threading
+
+    router = PR.Router([victim, survivor], eject_threshold=R_EJECT,
+                       probe_interval_s=R_PROBE_S, probe_timeout_s=R_PROBE_TIMEOUT_S,
+                       request_timeout_s=120.0, drain_deadline_s=60.0)
+    server = PR.RouterServer(router, host="127.0.0.1", port=0)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        companion = fleet_prompt(93, 150)
+        want = {}
+        for p in (R_SLOW, companion):  # fault-free: each alone on the idle survivor
+            code, r, _ = r_call(survivor.url, "/generate", r_body(p))
+            check(code == 200, f"(R4) reference: {r}")
+            want[p] = r["token_ids"]
+        r_idle(survivor.url)
+        router.record_residency(
+            PR.chunk_digests(R_SLOW, router.affinity_chunk, PR.AFFINITY_MAX_CHUNKS), "m0")
+        out = {}
+
+        def fire(name, prompt):
+            out[name] = r_call(base, "/generate", r_body(prompt), timeout=120)
+
+        t_slow = threading.Thread(target=fire, args=("slow", R_SLOW))
+        t_slow.start()
+        t0 = time.time()
+        while victim.outstanding == 0:
+            check(time.time() - t0 < 30, "(R4) the held request was never dispatched")
+            time.sleep(0.01)
+        fire("companion", companion)  # on the survivor while m0 holds the other
+        t_kill = time.time()
+        victim.proc.kill()  # SIGKILL inside the 6 s hold: no drain
+        t_slow.join(timeout=120)
+        code, slow, wall = out["slow"]
+        code2, comp, _ = out["companion"]
+        print(f"(R4) kill -9 of m0 with a request held on it: HTTP {code} "
+              f"replica={slow.get('replica')} router_attempts={slow.get('router_attempts')} "
+              f"wall {wall:.3f} s, ids equal to the fault-free run: "
+              f"{slow.get('token_ids') == want[R_SLOW]}; the companion on "
+              f"{comp.get('replica')}: HTTP {code2}, ids equal: "
+              f"{comp.get('token_ids') == want[companion]} ({smi})")
+        check(code == 200 and slow["status"] == "success" and slow["replica"] == "m1"
+              and slow.get("router_attempts", 1) > 1, f"(R4) the held request: {slow}")
+        check(slow["token_ids"] == want[R_SLOW], "(R4) the failover's ids are not the "
+              "fault-free run's")
+        check(code2 == 200 and comp["token_ids"] == want[companion],
+              f"(R4) the companion: {comp}")
+        ejected = r_wait(router, "m0", PR.EJECTED, 10.0)
+        eject_s = time.time() - t_kill
+        window = R_EJECT * R_PROBE_S + R_PROBE_TIMEOUT_S
+        print(f"(R4) m0 ejected {eject_s:.3f} s after the kill (probe window "
+              f"{window:.2f} s: {R_EJECT} probes {R_PROBE_S} s apart plus a "
+              f"{R_PROBE_TIMEOUT_S} s probe timeout)")
+        check(ejected is not None and eject_s <= window,
+              "(R4) the dead replica was not ejected within the probe window")
+        victim.spawn_env = r_env()
+        t0 = time.time()
+        victim.proc = subprocess.Popen(victim.spawn_argv, env=victim.spawn_env,
+                                       stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+        back = r_wait(router, "m0", PR.READY, 180.0)
+        print(f"(R4) m0 respawned and readmitted in "
+              + (f"{back:.1f} s" if back is not None else "never"))
+        check(back is not None, "(R4) the respawned replica was never readmitted")
+        counters = r_counters(router)
+        print(f"(R4) dli_router_* {json.dumps(counters)}")
+        check(counters.get('dli_router_failovers_total{replica="m0"}', 0) >= 1
+              and counters.get('dli_router_ejections_total{replica="m0"}', 0) >= 1
+              and counters.get('dli_router_readmissions_total{replica="m0"}', 0) >= 1,
+              "(R4) the router's counters missed the episode")
+        return dict(eject_s=eject_s, readmit_s=back, counters=counters)
+    finally:
+        server.shutdown()
+        r_stop([victim, survivor])
+
+
+def phase_R(torch, kernels, smi, beside_lane=False) -> dict:
+    """The port's router (in process) in front of a prefill-class and a
+    decode-class replica on the card, then two mixed replicas for the kill
+    leg, all four started at once. Returns the decode replica's kernel
+    launches in (R3)."""
+    from distributed_llm_inference_tpu_torch.serving import router as PR
+    from distributed_llm_inference_tpu_torch.utils.tracing import SpanContext
+
+    t0 = time.time()
+    args = r_args(kernels.BUILD)
+    used = r_used(torch)
+    # the kill leg's two mixed replicas start beside the pair, so that the
+    # four start-ups overlap
+    reps = r_spawn_all(PR, [(args, "prefill", "p0", None), (args, "decode", "d0", None),
+                            (args, "mixed", "m0", R_FAULTS), (args, "mixed", "m1", None)])
+    pre, dec, victim, survivor = reps
+    try:
+        print(f"(R) p0 (prefill), d0 (decode) and the kill leg's m0, m1 (mixed): the "
+              f"port's server CLI, {' '.join(args)}, all four up in "
+              f"{time.time() - t0:.1f} s; device memory by replica: "
+              f"{r_memory(torch, reps, used, beside_lane)} ({smi})")
+        router = PR.Router([pre, dec], eject_threshold=R_EJECT, probe_interval_s=R_PROBE_S,
+                           probe_timeout_s=R_PROBE_TIMEOUT_S, request_timeout_s=120.0)
+        server = PR.RouterServer(router, host="127.0.0.1", port=0)
+        server.start()
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            out = {"R1": phase_R1(router, base, pre, dec, smi)}
+            out["R2"] = phase_R2(SpanContext, router, base, pre, dec, smi)
+            launches = phase_R3(torch, base, dec, smi)
+        finally:
+            server.shutdown()
+            r_stop([pre, dec])
+        out["R4"] = phase_R4(PR, victim, survivor, smi)
+    finally:
+        r_stop(reps)
+    print(f"(R) took {time.time() - t0:.1f} s ({smi})")
+    print("(R) " + json.dumps({"router": out}))
+    return launches
+
+
 # -- speculation on the mixed launch: phase (x) --------------------------------------
 
 # (x1)'s wave: 8 greedy requests whose prompts repeat one sentence, 200-600
@@ -4767,15 +5349,14 @@ def y_wave(port, bodies, stream: bool):
 
 
 def y_profiled_wave(torch, port, bodies, stream: bool):
-    """One wave under torch.profiler (device activity only): (rows, wave
+    """One wave under torch.profiler (its device kernels read): (rows, wave
     seconds, device busy seconds or None)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         rows, wave_s = y_wave(port, bodies, stream)
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     return rows, wave_s, (busy_union_us(kern) / 1e6 if kern else None)
 
 
@@ -6920,21 +7501,20 @@ def f_loading(torch, engine, pa, fa, Q, smi, total):
         f_free(torch)
 
 
-def phase_F(torch, timer, pa, fa, Q, P, G, M, smi, profile=False):
+def phase_F(torch, pa, fa, Q, P, G, M, smi, profile=False, moe_layers=None):
     """(F) the other families and loading at full width: gpt2-medium (MHA,
     learned positions) on the solo path, the paged fleet (the main path),
-    the dense fleet and the int4+int8 fleet; the four kernels at its and
-    qwen3-30b-a3b's widths; --checkpoint on an HF directory and a store;
-    qwen3-30b-a3b (128 experts, Dh 128) at full depth on the solo path
-    and the paged fleet, and its int8 expert banks at a cut depth, its
-    logits held to the plain path in fp32 at F_MOE_FP32_LAYERS; each
-    engine's mixed-launch and decode-chunk graphs replayed bit-equal to
-    their eager launches (phase_q). Every
+    the dense fleet and the int4+int8 fleet; --checkpoint on an HF
+    directory and a store; qwen3-30b-a3b (128 experts, Dh 128) on the solo
+    path and the paged fleet, at full depth or `moe_layers`, and its int8
+    expert banks at a cut depth, its logits held to the plain path in fp32
+    at F_MOE_FP32_LAYERS; each engine's mixed-launch and decode-chunk
+    graphs replayed bit-equal to their eager launches (phase_q). Every
     kernel count starts at 0 just before each main-path run; their sums
     are the kernels line's launches_F. `profile` (`--only F`; ~2 minutes
     of profiler time, left out of the full run): the profiled solo
     request, mixed launch and decode chunk of both models. Returns
-    (launches, kernel rows)."""
+    (launches, each model's solo chunk shapes) for phase_F2."""
     t0 = time.time()
     total = {}
     engine = f_engine(torch, F_GPT2, "(F1)")
@@ -6961,7 +7541,8 @@ def phase_F(torch, timer, pa, fa, Q, P, G, M, smi, profile=False):
     f_free(torch)
     print(f"(F1) done in {time.time() - t0:.1f} s")
 
-    engine = f_engine(torch, F_MOE, "(F3)")
+    depth = {} if moe_layers is None else {"n_layers": moe_layers}
+    engine = f_engine(torch, F_MOE, "(F3)", **depth)
     moe_shapes = f_solo(torch, engine, pa, fa, Q, "(F3) qwen3-moe solo", total, profile,
                         logits=False)
     wave = phase_g(torch, engine, pa, fa, Q, tag="(F3) qwen3-moe paged")
@@ -6978,7 +7559,8 @@ def phase_F(torch, timer, pa, fa, Q, P, G, M, smi, profile=False):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
     del engine
     f_free(torch)
-    qengine = f_engine(torch, F_MOE, "(F3) int8", quant="int8", n_layers=F_MOE_INT8_LAYERS)
+    qengine = f_engine(torch, F_MOE, "(F3) int8", quant="int8",
+                       n_layers=min(F_MOE_INT8_LAYERS, moe_layers or F_MOE_INT8_LAYERS))
     check(type(qengine.backend.params["layers"]["w_gate"]).__name__ == "QTensor",
           "(F3) the int8 engine's expert banks are not int8")
     qwave = phase_g(torch, qengine, pa, fa, Q, tag="(F3) qwen3-moe int8")
@@ -6991,17 +7573,167 @@ def phase_F(torch, timer, pa, fa, Q, P, G, M, smi, profile=False):
     f_moe_fp32(torch, P, G, M, "(F3) qwen3-moe fp32")
     f_moe_fp32(torch, P, G, M, "(F3) qwen3-moe int8 fp32", quant="int8")
     print(f"(F3) done in {time.time() - t0:.1f} s")
-
-    rows = f_kernels(torch, timer, pa, fa, Q, P, F_GPT2, gpt2_shapes)
-    rows += f_kernels(torch, timer, pa, fa, Q, P, F_MOE, moe_shapes)
-    for r in rows:
-        print("(F2) " + json.dumps(r))
     print(f"(F) total {time.time() - t0:.1f} s; the kernels' launches in (F): "
           f"{json.dumps(total)}")
     for name in ("ragged_paged_attend", "paged_flash_attend", "flash_attend",
                  "q4_matmul_rows"):
         check(total.get(name, 0) > 0, f"(F) no {name} launch on (F)'s main paths")
-    return total, rows
+    return total, {F_GPT2: gpt2_shapes, F_MOE: moe_shapes}
+
+
+def phase_F2(torch, timer, pa, fa, Q, P, shapes) -> list:
+    """(F2) the four kernels at both models' widths against their twins,
+    flash_attend at each model's solo chunk shapes (`shapes`, from
+    phase_F); one JSON row per kernel and model."""
+    rows = []
+    for name in (F_GPT2, F_MOE):
+        rows += f_kernels(torch, timer, pa, fa, Q, P, name,
+                          [tuple(s) for s in shapes[name]])
+    for r in rows:
+        print("(F2) " + json.dumps(r))
+    return rows
+
+
+# -- the second lane of the full run ---------------------------------------------
+
+# these later phases run in a process of their own (`--lane`), on an engine
+# of their own (the same model and seed, so the same weights), while the
+# main process runs (s)-(w), (R) and (S): the host is the bound of every
+# phase (the card idles most of the time), and one process is one thread of
+# Python. No kernel is timed while the lane runs: (b), (f) and (n) come
+# before it, (j) and (F2) after it. Its kernel counts come back on its last
+# line.
+LANE_PHASES = ("x", "y", "z", "C", "F")
+LANE_LOG = "build/chip_smoke_lane.log"  # the lane's output, shown when it ends
+# (F3)'s MoE depth in the lane: 12 of 48 layers (--only F keeps all 48),
+# so that its engines and the main process's replicas fit on the card at once
+F_MOE_LANE_LAYERS = 12
+
+
+def start_lane(phases) -> subprocess.Popen:
+    """`chip_smoke.py --lane` on `phases`, its output to LANE_LOG."""
+    import os
+
+    os.makedirs(os.path.dirname(LANE_LOG), exist_ok=True)
+    with open(LANE_LOG, "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--lane",
+                                 ",".join(phases)], stdout=log, stderr=subprocess.STDOUT)
+    print(f"(lane) {', '.join(phases)} started in a process of their own (pid "
+          f"{proc.pid}); their output follows when they end")
+    return proc
+
+
+def lane_tail() -> str:
+    with open(LANE_LOG) as f:
+        return f.read()[-6000:]
+
+
+def join_lane(proc) -> dict:
+    """Wait for the lane, show its output, and return its LANE line."""
+    rc = proc.wait()
+    with open(LANE_LOG) as f:
+        text = f.read()
+    sys.stdout.write(text if text.endswith("\n") or not text else text + "\n")
+    last = [line for line in text.splitlines() if line.startswith("LANE ")]
+    if rc != 0 or not last:
+        print(f"the lane exited with {rc}; the end of its output:\n{text[-6000:]}",
+              file=sys.stderr)
+    check(rc == 0 and bool(last), f"the lane ({LANE_LOG}) exited with {rc}")
+    return json.loads(last[-1][len("LANE "):])
+
+
+def stop_lane(proc):
+    """Stop the lane if it still runs (the main process failed first): its
+    SIGTERM handler runs its finally blocks, which stop its servers."""
+    if proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+    print(f"the lane was stopped; the end of its output:\n{lane_tail()}", file=sys.stderr)
+
+
+def main_lane(lane, torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start):
+    """The main process's phases while the lane runs, then the lane's
+    result: (its LANE line, launches_R, launches_S)."""
+    # (s) KV preemption through the HTTP server ("r" names the ragged
+    # kernel's --only run)
+    preempt = phase_s(torch, engine, pa, fa, Q, smi)
+    print(f"(s) total {time.time() - t_start:.1f} s")
+
+    # (t) the supervisor, driven by fault injection
+    supervisor = phase_t(torch, engine, pa, fa, Q, faults, smi)
+    print(f"(t) total {time.time() - t_start:.1f} s")
+
+    # (u) the health sweep, the status page, the profiler, the flight recorder
+    phase_u(torch, engine, smi)
+    print(f"(u) total {time.time() - t_start:.1f} s")
+    print("(u) " + json.dumps({"recovery_launches": {
+        "s": {k: preempt[k] for k in ("ragged_launches", "decode_chunks", "launches")},
+        "t": {k: supervisor[k] for k in ("ragged_launches", "decode_chunks", "launches")},
+    }}))
+
+    # (v) the block-prefix cache and the KV shadow on the paged fleet
+    phase_v(torch, engine, pa, fa, Q, P, G, smi)
+    print(f"(v) total {time.time() - t_start:.1f} s")
+
+    # (w) the cross-replica KV fabric: a holder replica and in-process pullers
+    phase_w(torch, engine, pa, fa, Q, smi)
+    print(f"(w) total {time.time() - t_start:.1f} s")
+
+    # (R) the router tier: the port's router in front of replica processes
+    r_launches = phase_R(torch, kernels, smi, beside_lane=True)
+    print(f"(R) total {time.time() - t_start:.1f} s")
+
+    # (S) the solo engine's features: speculation (n-gram and a draft
+    # model), beams, echo scoring, the prefix snapshots, the queue
+    s_launches = phase_S(torch, engine, pa, fa, Q, G, timer, smi)
+    print(f"(S) total {time.time() - t_start:.1f} s")
+    return join_lane(lane), r_launches, s_launches
+
+
+def run_lane(phases, torch, engine, pa, fa, Q, P, G, M, faults, smi, t0, t_start) -> int:
+    """`--lane`: the named phases of LANE_PHASES, in its order, on this
+    process's engine; the last line `LANE {...}` holds each one's kernel
+    counts and (F)'s solo chunk shapes. A SIGTERM, or the main process's
+    exit, ends it through its finally blocks."""
+    import os
+    import signal
+    import threading
+
+    bad = [p for p in phases if p not in LANE_PHASES]
+    check(not bad, f"--lane: {bad} is not among {LANE_PHASES}")
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    threading.Thread(target=watch, name="lane-parent-watch", daemon=True).start()
+    print(f"(lane) {MODEL} bf16, random weights (seed 0), built in "
+          f"{time.time() - t0:.1f} s; phases {', '.join(phases)}")
+    out = {}
+    for p in (p for p in LANE_PHASES if p in phases):
+        if p == "x":
+            out[p] = phase_x(torch, engine, pa, fa, Q, P, G, M, faults, smi)
+        elif p == "y":
+            out[p] = phase_y(torch, engine, pa, fa, Q, P, G, smi)
+        elif p == "z":
+            out[p] = phase_z(torch, engine, pa, fa, Q, P, G, M, faults, smi)
+        elif p == "C":
+            out[p] = phase_C(torch, engine, pa, fa, Q, P, G, M, smi)
+        else:
+            f_free(torch)
+            out["F"], out["F_shapes"] = phase_F(torch, pa, fa, Q, P, G, M, smi,
+                                                moe_layers=F_MOE_LANE_LAYERS)
+        print(f"({p}) total {time.time() - t_start:.1f} s in the lane")
+    print("LANE " + json.dumps(out))
+    return 0
 
 
 def main(argv) -> int:
@@ -7011,7 +7743,7 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z",
-                                       "C", "S", "F"],
+                                       "C", "S", "F", "R"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -7031,7 +7763,14 @@ def main(argv) -> int:
                          "on the raw engine (C): grammar constraints; or (S) on the "
                          "raw engine (S): the solo engine's features; or (F) alone "
                          "(F): gpt2-medium and qwen3-30b-a3b at full width, the "
-                         "kernels at their widths, and --checkpoint")
+                         "kernels at their widths, and --checkpoint; or (R) alone "
+                         "(R): the port's router in front of replica processes, "
+                         "the fleet's traces, failover")
+    ap.add_argument("--lane", help="run (a) and then these later phases of the full run "
+                                   "(a comma-separated subset of "
+                                   + ",".join(LANE_PHASES) + ") on an engine of their "
+                                   "own, and print their kernel counts as the last line; "
+                                   "the full run starts this beside its own phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on an "
@@ -7102,12 +7841,18 @@ def main(argv) -> int:
                                                    int8=int8)))
         return 0
 
+    if args.only == "R":
+        launches = phase_R(torch, kernels, smi)
+        print(f"(R) total {time.time() - t_start:.1f} s")
+        print("(R) " + json.dumps({"launches_R": launches}))
+        return 0
     if args.only == "F":
-        launches, _ = phase_F(torch, timer, pa, fa, Q, P, G, M, smi, profile=True)
+        launches, shapes = phase_F(torch, pa, fa, Q, P, G, M, smi, profile=True)
+        phase_F2(torch, timer, pa, fa, Q, P, shapes)
         print(f"(F) total {time.time() - t_start:.1f} s")
         print("(F) " + json.dumps({"launches_F": launches}))
         return 0
-    if args.only not in ("s", "v", "w", "x", "y", "z", "C", "S"):
+    if args.only not in ("s", "v", "w", "x", "y", "z", "C", "S") and not args.lane:
         # (b) the kernel against its twin
         phase_b(torch, timer, fa)
 
@@ -7168,6 +7913,9 @@ def main(argv) -> int:
         phase_S(torch, engine, pa, fa, Q, G, timer, smi)
         print(f"(S) total {time.time() - t_start:.1f} s")
         return 0
+    if args.lane:
+        return run_lane(args.lane.split(","), torch, engine, pa, fa, Q, P, G, M, faults, smi,
+                        t0, t_start)
     cfg = engine.cfg
     print(f"(c) {cfg.name}: {cfg.n_layers} layers, dim {cfg.dim}, heads "
           f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab_size}, {cfg.dtype}, "
@@ -7225,53 +7973,18 @@ def main(argv) -> int:
     graph_rows = phase_q(torch, engine, P, G, M)
     print(f"(q) total {time.time() - t_start:.1f} s")
 
-    # (s) KV preemption through the HTTP server ("r" names the ragged
-    # kernel's --only run)
-    preempt = phase_s(torch, engine, pa, fa, Q, smi)
-    print(f"(s) total {time.time() - t_start:.1f} s")
-
-    # (t) the supervisor, driven by fault injection
-    supervisor = phase_t(torch, engine, pa, fa, Q, faults, smi)
-    print(f"(t) total {time.time() - t_start:.1f} s")
-
-    # (u) the health sweep, the status page, the profiler, the flight recorder
-    phase_u(torch, engine, smi)
-    print(f"(u) total {time.time() - t_start:.1f} s")
-    print("(u) " + json.dumps({"recovery_launches": {
-        "s": {k: preempt[k] for k in ("ragged_launches", "decode_chunks", "launches")},
-        "t": {k: supervisor[k] for k in ("ragged_launches", "decode_chunks", "launches")},
-    }}))
-
-    # (v) the block-prefix cache and the KV shadow on the paged fleet
-    phase_v(torch, engine, pa, fa, Q, P, G, smi)
-    print(f"(v) total {time.time() - t_start:.1f} s")
-
-    # (w) the cross-replica KV fabric: a holder replica and in-process pullers
-    phase_w(torch, engine, pa, fa, Q, smi)
-    print(f"(w) total {time.time() - t_start:.1f} s")
-
-    # (x) speculation on the mixed launch: n-gram and draft-model verify rows
-    x_launches = phase_x(torch, engine, pa, fa, Q, P, G, M, faults, smi)
-    print(f"(x) total {time.time() - t_start:.1f} s")
-
-    # (y) token streaming, cancellation and the OpenAI routes on (g)'s fleet
-    y_launches = phase_y(torch, engine, pa, fa, Q, P, G, smi)
-    print(f"(y) total {time.time() - t_start:.1f} s")
-
-    # (z) runtime LoRA adapters on (g)'s fleet: the pool, its pages on every
-    # launch, merge-at-load
-    z_launches = phase_z(torch, engine, pa, fa, Q, P, G, M, faults, smi)
-    print(f"(z) total {time.time() - t_start:.1f} s")
-
-    # (C) grammar constraints: the main path's server sends them solo (the
-    # prefills through flash_attend), the dense fleet's constrained chunk graph
-    c_launches = phase_C(torch, engine, pa, fa, Q, P, G, M, smi)
-    print(f"(C) total {time.time() - t_start:.1f} s")
-
-    # (S) the solo engine's features: speculation (n-gram and a draft
-    # model), beams, echo scoring, the prefix snapshots, the queue
-    s_launches = phase_S(torch, engine, pa, fa, Q, G, timer, smi)
-    print(f"(S) total {time.time() - t_start:.1f} s")
+    # the second lane: LANE_PHASES in a process of their own from here on,
+    # beside (s)-(S) below; no kernel is timed in either until it has ended
+    torch.cuda.empty_cache()
+    lane = start_lane(LANE_PHASES)
+    try:
+        lane_out, r_launches, s_launches = main_lane(
+            lane, torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start)
+    finally:
+        stop_lane(lane)
+    x_launches, y_launches, z_launches, c_launches, f_launches = (
+        lane_out[k] for k in ("x", "y", "z", "C", "F"))
+    print(f"(lane) joined; total {time.time() - t_start:.1f} s")
 
     # (j) the int4 / int8 kernels against their twins
     q4_rows = q4_cases(torch, timer, Q)
@@ -7311,13 +8024,11 @@ def main(argv) -> int:
     print(f"(q) int4+int8 total {time.time() - t_start:.1f} s ({smi})")
     print("(q) " + json.dumps({"graphs": graph_rows}))
 
-    # (F) the other families and loading: gpt2-medium and qwen3-30b-a3b at
-    # full width on the solo path and the fleets, the kernels at their
-    # widths, --checkpoint on an HF directory and a store
+    # (F2) the kernels at (F)'s widths (its serving ran in the lane)
     del qengine
     f_free(torch)
-    f_launches, _ = phase_F(torch, timer, pa, fa, Q, P, G, M, smi)
-    print(f"(F) total {time.time() - t_start:.1f} s")
+    phase_F2(torch, timer, pa, fa, Q, P, lane_out["F_shapes"])
+    print(f"(F2) total {time.time() - t_start:.1f} s")
     ragged_entry = ragged_line(paged_rows, wave["launches"], False, P)
     paged_entry = paged_decode_line(paged_rows, wave["launches"], False)
     # the speculation path's own counts ((x1)'s verify wave, (x2)'s draft
@@ -7346,6 +8057,7 @@ def main(argv) -> int:
         entry["launches_C"] = c_launches[entry["name"]]
         entry["launches_S"] = s_launches[entry["name"]]
         entry["launches_F"] = f_launches.get(entry["name"], 0)
+        entry["launches_R"] = r_launches.get(entry["name"], 0)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7354,4 +8066,8 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    import faulthandler
+
+    sys.stdout.reconfigure(line_buffering=True)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
     sys.exit(main(sys.argv[1:]))

@@ -403,8 +403,20 @@ class EngineConfig:
     # floor); the over-quota tenant sheds with 429 + Retry-After before
     # other tenants starve. 1.0 disables the quota.
     tenant_max_queue_share: float = 0.5
+    # Launch-level attribution (utils/tracing.py, serving/trace_store.py):
+    # the fraction of traces whose requests get one dispatch -> packed
+    # fetch span per fleet launch, recorded on the host (no device sync;
+    # the launch graphs stay the same). The decision is a pure function of
+    # the trace id (tracing.sample_decision), so every replica agrees per
+    # trace. 0 (the default) keeps the hot path to one float compare.
+    trace_sample_rate: float = 0.0
 
     def __post_init__(self):
+        if not (0.0 <= self.trace_sample_rate <= 1.0):
+            raise ValueError(
+                f"trace_sample_rate must be in [0, 1], got "
+                f"{self.trace_sample_rate}"
+            )
         if self.spec_draft_len < 0:
             raise ValueError(
                 f"spec_draft_len must be >= 0, got {self.spec_draft_len}"

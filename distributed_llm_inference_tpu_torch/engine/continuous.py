@@ -187,7 +187,7 @@ from ..ops.kv_quant import KVQuant
 from ..utils import faults
 from ..utils.logging import get_logger
 from ..utils.metrics import register_fleet_metrics
-from ..utils.tracing import Trace
+from ..utils.tracing import Trace, sample_decision
 from . import generate as G
 from . import graphs
 from . import paged as P
@@ -230,6 +230,7 @@ class _Request:
         "fabric_blocks", "trace_ctx", "spec_want", "spec_drafted",
         "spec_accepted", "spec_launches", "stream_q", "streamed_text",
         "cancelled", "cancel_cause", "adapter", "adapter_page", "cart",
+        "profiled",
     )
 
     def __init__(self, prompt: str, kwargs: dict, request_id=None, tenant=None,
@@ -293,8 +294,10 @@ class _Request:
         self.kv_hint = kv_hint
         # prefix blocks imported over the fabric for this request
         self.fabric_blocks = 0
-        # the request's trace context (its traceparent rides the fabric)
+        # the request's trace context (its traceparent rides the fabric),
+        # and whether its launches are attributed (sample_decision)
         self.trace_ctx = trace_ctx
+        self.profiled = False
         # speculation: the request asked for it ("speculative": true; the
         # fleet-wide spec_decode makes every eligible greedy request a
         # candidate too), and its draft / accept / verify-row counts
@@ -577,6 +580,14 @@ class ContinuousEngine:
         self._consecutive_crashes = 0
         # bumped per admission and preemption; each launch snapshots it
         self._mutation_seq = 0
+        # launch-level attribution (engine_cfg.trace_sample_rate): a record
+        # appended at dispatch and closed at the matching packed fetch,
+        # matched by the launch's own perf_counter stamp, so lag-pipelined
+        # launches attribute right with no device sync. At rate 0 the hot
+        # path's only cost is one float compare: _prof_note_launch is never
+        # called and the deque stays empty
+        self._trace_rate = float(engine.engine_cfg.trace_sample_rate)
+        self._launch_log: collections.deque = collections.deque()
         self.restarts_total = 0
         self.recovered_total = 0
         self.poisoned_total = 0
@@ -824,6 +835,8 @@ class ContinuousEngine:
         req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None),
                        tenant=tenant, kv_hint=kv_hint, trace_ctx=trace_ctx,
                        adapter=adapter)
+        if trace_ctx is not None and trace_ctx.sampled:
+            req.profiled = sample_decision(trace_ctx.trace_id, self._trace_rate)
         err = self._enqueue(req)
         if err is not None:
             return err
@@ -891,6 +904,8 @@ class ContinuousEngine:
         req = _Request(prompt, kwargs, request_id=kwargs.pop("request_id", None),
                        tenant=tenant, kv_hint=kv_hint, trace_ctx=trace_ctx,
                        stream_q=q, adapter=adapter)
+        if trace_ctx is not None and trace_ctx.sampled:
+            req.profiled = sample_decision(trace_ctx.trace_id, self._trace_rate)
         err = self._enqueue(req)
         if err is not None:  # yielded outside the fleet's lock
             yield {**err, "done": True}
@@ -1525,6 +1540,9 @@ class ContinuousEngine:
         launches stay in flight. A restart (or a restore_dir start) first
         restores the shadowed chains into the pool, then re-admits the
         salvage, which hits them."""
+        # a restart abandoned any in-flight launches: their attribution
+        # records can never close (the fetches died with the crash)
+        self._launch_log.clear()
         if self._needs_restore:
             self._needs_restore = False
             self._restore_shadow()
@@ -2198,7 +2216,7 @@ class ContinuousEngine:
         tier = ""
         fetched = None
         kw = dict(ctx=req.trace_ctx, request_id=req.trace.request_id,
-                  layout=self._wire_layout)
+                  store=self.engine.trace_store, layout=self._wire_layout)
         if streamed:
             res = self._fabric.fetch_stream(peer, digest, bs, **kw)
             hit = False
@@ -2312,7 +2330,8 @@ class ContinuousEngine:
         if data is None:
             return 0
         accepted = self._fabric.push_chain(peer_url, data, ctx=req.trace_ctx,
-                                           request_id=req.trace.request_id)
+                                           request_id=req.trace.request_id,
+                                           store=self.engine.trace_store)
         self.engine.flight.record(
             "fabric_push", request_id=req.trace.request_id, peer=peer_url,
             digest=str(digest)[:16], accepted=-1 if accepted is None else accepted,
@@ -2406,6 +2425,47 @@ class ContinuousEngine:
         log.info("preempt_resume_restored", blocks=len(blocks),
                  request_id=req.trace.request_id)
 
+    # -- launch-level attribution (engine_cfg.trace_sample_rate) -------------
+    def _prof_note_launch(self, kind: str, t_launch: float, snapshot, **attrs):
+        """Open one launch record (worker thread, at the dispatch boundary,
+        reached only behind the `self._trace_rate > 0` guard). It closes at
+        the matching packed fetch (_prof_close_launch), keyed by the
+        launch's own perf_counter stamp: fetches drain the in-flight deque
+        in launch order, so a lag-pipelined launch attributes right with no
+        device sync and no host read inside a captured launch."""
+        targets = [
+            (r.trace_ctx.trace_id, r.trace_ctx.span_id)
+            for r in snapshot
+            if r is not None and r.profiled and r.trace_ctx is not None
+        ]
+        if not targets:
+            return
+        self._launch_log.append({
+            "t_launch": t_launch,
+            "wall": time.time(),
+            "kind": kind,
+            "targets": targets,
+            "attrs": attrs,
+        })
+
+    def _prof_close_launch(self, t_launch: float, **attrs):
+        """Close the oldest launch record IF it belongs to the fetch being
+        processed (exact equality on the launch stamp: unrecorded launches
+        between recorded ones do not match), and emit one `launch.<kind>`
+        span per profiled tenant into the engine's span store, parented
+        under that request's span (router -> replica -> launch)."""
+        if not self._launch_log or self._launch_log[0]["t_launch"] != t_launch:
+            return
+        rec = self._launch_log.popleft()
+        t1 = time.time()
+        span_attrs = dict(rec["attrs"])
+        span_attrs.update(attrs)
+        span_attrs["launch_to_fetch_s"] = round(time.perf_counter() - t_launch, 6)
+        store = self.engine.trace_store
+        for trace_id, parent in rec["targets"]:
+            store.add_span(trace_id, f"launch.{rec['kind']}", rec["wall"], t1,
+                           parent_id=parent, attrs=span_attrs)
+
     def _launch_chunk(self):
         """Launch one decode chunk over the fleet; returns the in-flight
         tuple ("chunk", fetch handle, assignment snapshot, launch time,
@@ -2433,8 +2493,14 @@ class ContinuousEngine:
         for b, r in enumerate(self._assignment):
             if r is not None:
                 self._host_pos[b] += self.chunk_steps
-        return ("chunk", self._to_host(packed), list(self._assignment),
-                time.perf_counter(), self._mutation_seq)
+        handle = self._to_host(packed)
+        snapshot = list(self._assignment)
+        t_launch = time.perf_counter()
+        if self._trace_rate > 0.0:
+            self._prof_note_launch(
+                "chunk", t_launch, snapshot, steps=self.chunk_steps,
+                rows=sum(1 for r in snapshot if r is not None))
+        return ("chunk", handle, snapshot, t_launch, self._mutation_seq)
 
     def _chunk_body(self):
         """The decode chunk over the static buffers (a LaunchGraph)."""
@@ -2778,7 +2844,14 @@ class ContinuousEngine:
         # host-planned slot frozen behind an unfetched verify row carries
         # no row and emits nothing here)
         snapshot = [self._assignment[b] if b in active else None for b in range(B)]
-        return ("mixed", handle, snapshot, completions, time.perf_counter(),
+        t_launch = time.perf_counter()
+        if self._trace_rate > 0.0:
+            self._prof_note_launch(
+                "mixed", t_launch, snapshot, seq=self._mutation_seq,
+                decode_rows=n_dec, prefill_chunks=len(chunk_list),
+                prefill_tokens=n_pf_tokens,
+                spec_drafted=sum(nd for nd, _, _ in spec_rows.values()))
+        return ("mixed", handle, snapshot, completions, t_launch,
                 self._mutation_seq, spec_meta if use_spec else None)
 
     def _fresh_arm(self):
@@ -2816,6 +2889,7 @@ class ContinuousEngine:
             self._count_admission(req)
             self._post_admit(req)
         em, mk = emitted[None, :], mask[None, :].astype(bool)
+        prof_acc = 0
         if spec_meta:
             # one emission matrix: decode rows keep their token in row 0,
             # verify rows splice their whole stream, and _distribute applies
@@ -2851,10 +2925,13 @@ class ContinuousEngine:
                 self._m.spec_tokens.observe(n_emit)
                 self.spec_accepted += acc
                 req.spec_accepted += acc
+                prof_acc += acc
         self._distribute(em, mk, active.astype(bool), snapshot, seq=seq)
         for b, r in enumerate(snapshot):
             if r is not None and self._row_inflight[b] > 0:
                 self._row_inflight[b] -= 1
+        if self._launch_log:  # empty at rate 0: one truthiness check
+            self._prof_close_launch(t_launch, spec_accepted=prof_acc)
         self._healthy_fetch(seq)
 
     def _healthy_fetch(self, seq: int):
@@ -3208,6 +3285,8 @@ class ContinuousEngine:
         K = self.chunk_steps
         self._distribute(packed[:K], packed[K: 2 * K].astype(bool),
                          packed[2 * K].astype(bool), snapshot, seq=seq)
+        if self._launch_log:
+            self._prof_close_launch(t_launch)
         if self._chunk_unfetched > 0:
             self._chunk_unfetched -= 1
         self._healthy_fetch(seq)
@@ -3289,8 +3368,9 @@ class ContinuousEngine:
         tps = n / elapsed if elapsed > 0 else 0.0
         tpot = max(0.0, elapsed - req.ttft) / (n - 1) if n > 1 else None
         if req.record:
-            self.engine._record_sample(req.ttft, tps, n, elapsed=elapsed,
-                                       engine="continuous")
+            self.engine._record_sample(
+                req.ttft, tps, n, elapsed=elapsed, engine="continuous",
+                trace_id=req.trace_ctx.trace_id if req.trace_ctx is not None else None)
             self._sched.observe(req.slo, req.ttft or None, tpot)
             # the per-tenant twin of the same samples (no-op when anonymous)
             self._sched.observe_tenant(req.tenant, req.ttft or None, tpot)

@@ -57,6 +57,8 @@ from ..utils.metrics import (
     register_spec_metrics,
     register_supervisor_metrics,
 )
+from ..serving.trace_store import TraceStore
+from ..utils import faults
 from ..utils.tokenizer import load_tokenizer
 from ..utils.tracing import FlightRecorder, Trace
 from . import generate as G
@@ -348,9 +350,13 @@ class InferenceEngine:
         register_kv_cache_metrics(self.metrics)
         register_spec_metrics(self.metrics)
         register_adapter_metrics(self.metrics)
-        # control-plane events (admissions, preemptions, crashes,
-        # quarantines, restarts): the continuous supervisor dumps the
-        # ring into its crash report; GET /debug/flight serves it
+        # the per-process span store the serving edge records into (the
+        # replica's request spans and their stage children, fabric pulls
+        # and serves, sampled launch attribution; GET /debug/traces), and
+        # the control-plane events (admissions, preemptions, crashes,
+        # quarantines, restarts) the continuous supervisor dumps into its
+        # crash report (GET /debug/flight). Both bounded, host-side only
+        self.trace_store = TraceStore(service=f"replica-{engine_cfg.replica_class}")
         self.flight = FlightRecorder()
         # reusable KV cache buffers (solo, and one per batch bucket): stale
         # contents between requests are never attended — prefill rewrites
@@ -518,20 +524,24 @@ class InferenceEngine:
         return text[:cut], True
 
     def _record_sample(self, ttft: float, per_stream_tps: float, tokens: int,
-                       elapsed: Optional[float] = None, engine: str = "solo"):
-        """The one seam feeding both /stats percentiles and /metrics."""
+                       elapsed: Optional[float] = None, engine: str = "solo",
+                       trace_id: Optional[str] = None):
+        """The one seam feeding both /stats percentiles and /metrics.
+        `trace_id`, when the request carried a fleet trace context,
+        becomes the latency histograms' exemplar for the bucket it lands
+        in (/stats "exemplars")."""
         with self._samples_lock:
             self._samples.append(
                 {"ttft_s": ttft, "tokens_per_sec": per_stream_tps, "tokens": tokens}
             )
             self._samples_total += 1
-        self._m_ttft.labels(engine=engine).observe(ttft)
+        self._m_ttft.labels(engine=engine).observe(ttft, trace_id=trace_id)
         self._m_tokens.labels(engine=engine).inc(tokens)
         if elapsed is not None:
-            self._m_duration.labels(engine=engine).observe(elapsed)
+            self._m_duration.labels(engine=engine).observe(elapsed, trace_id=trace_id)
             if tokens > 1:
                 self._m_tpot.labels(engine=engine).observe(
-                    max(0.0, elapsed - ttft) / (tokens - 1)
+                    max(0.0, elapsed - ttft) / (tokens - 1), trace_id=trace_id
                 )
 
     # -- main entry ----------------------------------------------------------
@@ -1160,6 +1170,11 @@ class InferenceEngine:
         stop=None, logprobs=False, logit_bias=None, frequency_penalty=0.0,
         presence_penalty=0.0, constraint=None, trace=None, speculative=False,
     ):
+        # chaos hook (utils/faults.py point "solo"): inside the deadline
+        # wrapper, so a wedge_s > deadline rule exercises the abandoned-call
+        # path: engine._wedged fills, /ready flips 503 past --wedge-unready,
+        # and a router ejects the replica until the sleep drains
+        faults.check("solo", tag=prompt)
         cfg = self.cfg
         self.request_count += 1
         bias = self._bias_array(logit_bias)
@@ -1679,6 +1694,17 @@ class InferenceEngine:
         }
         if self._prefix is not None:
             out["prefix_cache"] = self._prefix.stats()
+        # the metrics -> traces pivot: each latency bucket names the most
+        # recent traced request that landed in it
+        snap = self.metrics.snapshot()
+        exemplars: dict = {}
+        for fam in ("dli_ttft_seconds", "dli_tpot_seconds",
+                    "dli_request_duration_seconds"):
+            for series in snap.get(fam, {}).get("series", []):
+                if series.get("exemplars"):
+                    exemplars.setdefault(fam, {}).update(series["exemplars"])
+        if exemplars:
+            out["exemplars"] = exemplars
         return out
 
     def drain(self, deadline_s: Optional[float] = None) -> bool:

@@ -9,7 +9,10 @@ sources at once, one `nvcc` process each, all started together.
 
 Libraries are named by a digest of their source, the headers under
 csrc/ it includes, and the flags, so an edited source or header rebuilds
-and an unchanged one is reused across processes.
+and an unchanged one is reused across processes. `set_build_dir` points
+the library directory elsewhere before the first load (the server's
+`--compile-cache DIR`: restarted or spawned replicas reuse the libraries
+built there).
 """
 
 from __future__ import annotations
@@ -29,6 +32,20 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the kernels' libraries under `path` from now on.
+    Only before the first load: a library already loaded stays where it
+    was, so a later switch would split one process over two directories."""
+    global BUILD
+    if load_library.cache_info().currsize:
+        raise RuntimeError(
+            f"set_build_dir({path!r}) after a kernel library was loaded "
+            f"from {BUILD}; set the build directory before the first launch"
+        )
+    BUILD = Path(path).resolve()
+    return BUILD
 
 
 def _nvcc() -> str:

@@ -62,9 +62,10 @@ Pieces, all strictly host-side:
     dli_kv_fabric_bytes_total{role,tier} (tier = the SERVING tier at
     the peer — host|disk — or "push"), and
     dli_kv_fabric_fetch_seconds (families pre-registered by the engine;
-    role = this replica's --replica-class). The `store` arguments take
-    a trace store (the JAX package's serving/trace_store.py, not ported:
-    ROADMAP.md's fleet tier) and are None in the port.
+    role = this replica's --replica-class). With a `store` (the
+    replica's serving/trace_store.TraceStore) and a trace context, each
+    pull records a `fabric.pull` span and each push a `fabric.push` span
+    under the request's span.
 """
 
 from __future__ import annotations

@@ -1,0 +1,1928 @@
+"""Replica router tier: an HTTP front door over N independent engine
+replicas (the JAX package's serving/router.py, copied: it imports no jax
+there and no torch here, and touches no device).
+
+Everything below a replica is fault-contained and observable (the
+supervised scheduler, poison quarantine, the SIGTERM drain, the liveness
+/ readiness split); the router makes a replica's death an operational
+non-event. Its jobs:
+
+  * PREFIX-AFFINITY ROUTING: the prompt head is hashed at block-prefix
+    chunk granularity (engine/block_prefix.chunk_digests, the chained
+    structure of the refcounted block index's keys) and a bounded
+    router-side residency map remembers which replica last served each
+    chunk chain. Shared-prefix traffic lands where its KV blocks are
+    already resident; everything else falls back to least-outstanding.
+    A wrong guess costs one cache-cold prefill, never wrong output, so
+    the map needs no invalidation protocol.
+  * HEALTH-DRIVEN EJECTION: active `GET /ready` probes plus passive
+    circuit breaking on consecutive connect/5xx failures. An ejected
+    replica receives no traffic until a successful probe moves it to
+    HALF_OPEN (trial traffic only when no READY replica remains), and a
+    further success readmits it.
+  * FAILOVER: a non-streamed request that hits a dead or draining
+    replica is transparently re-dispatched to a healthy one — safe
+    because zero bytes of the reply have reached the client, the same
+    discipline client.py applies to its own retries. Streamed requests
+    fail over ONLY on pre-stream rejection; after the first forwarded
+    byte the stream is bound to its replica. Retry-After from an
+    upstream 429/503 is honored as a per-replica cool-down, and when no
+    candidate remains it propagates to the client. X-Request-Id crosses
+    the hop both ways; a `router` span is folded into the envelope's
+    `timings`.
+  * DRAIN-AWARE ROLLING RESTARTS: `POST /admin/rolling-restart` cycles
+    ROUTER-SPAWNED replicas one at a time through the server's drain
+    (SIGTERM -> readiness flips -> in-flight work finishes -> clean
+    exit), respawns, and waits for `/ready` before touching the next —
+    a config or weight rollout never drops a request.
+  * KV FABRIC + PREFILL/DECODE DISAGGREGATION (serving/kv_fabric.py): on
+    top of the byte affinity map the router keeps a digest->replica
+    residency view in TOKEN-digest space (learned from response
+    envelopes' kv_digests and /health bootstraps, purged on ejection). A
+    dispatch landing away from the prefix's holder carries
+    X-KV-Transfer-* headers so the replica pulls the chain over the
+    fabric instead of re-prefilling; and when the fleet has prefill- AND
+    decode-class replicas (--spawn-prefill/--spawn-decode or
+    --replica-class on the servers), fresh long-prompt work runs a
+    TWO-PHASE dispatch — phase 1 prefills (+ shadow-flushes) on the
+    prefill tier, phase 2 hands the digest to a decode replica for the
+    token loop — so TTFT and TPOT stop competing for one
+    step_token_budget. Every handoff failure (dead prefill tier, evicted
+    digest, failed fetch) degrades to a normal dispatch + local prefill,
+    never an error.
+  * FLEET TRACES: the router records its `router` / `dispatch` / retry /
+    handoff spans into its own TraceStore (serving/trace_store.py) and
+    `GET /debug/traces/{id}` merges them with every replica's spans into
+    one tree.
+
+    python -m distributed_llm_inference_tpu_torch.serving.router \\
+        --spawn-prefill 1 --spawn-decode 1 --spawn-args \\
+        "--model tinyllama-1.1b --dtype bfloat16 --continuous 8 \\
+         --kv-pool-blocks 513 --prefix-cache 8 --trace-sample-rate 1.0"
+
+A spawned replica runs the port's server (serving/server.py) with the
+caller's arguments; on a machine without a card pass `--device cpu` in
+--spawn-args (a replica that cannot reach its device fails to start and
+the router reports it never ready).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import http.client
+import json
+import shlex
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.parse
+import urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from ..engine.block_prefix import chunk_digests
+from ..utils.logging import get_logger, request_id_context
+from ..utils.metrics import MetricsRegistry
+from ..utils.retry import parse_retry_after
+from ..utils.tracing import (
+    SpanContext,
+    new_request_id,
+    parse_traceparent,
+    sanitize_request_id,
+)
+from .trace_store import (
+    TraceStore,
+    assemble_tree,
+    span_tree_total,
+    to_chrome_trace,
+)
+
+log = get_logger("router")
+
+__version__ = "torch_port_router_v1"
+
+# replica ejection state machine:
+#   READY --(eject_threshold consecutive connect/5xx failures,
+#            probe or proxied)--> EJECTED
+#   EJECTED --(successful /ready probe)--> HALF_OPEN
+#   HALF_OPEN --(successful probe OR successful trial request)--> READY
+#   HALF_OPEN --(any failure)--> EJECTED
+#   any --(rolling restart picks it)--> DRAINING --(respawn + /ready)-->
+#   READY
+READY = "ready"
+EJECTED = "ejected"
+HALF_OPEN = "half_open"
+DRAINING = "draining"
+
+# Retry-After (seconds) when the router itself must reject: no healthy
+# replica, or rolling-restart races. Matches serving/server.py's default.
+RETRY_AFTER_S = 2
+
+# default byte granularity of the affinity hash: ~a 16-token KV block of
+# typical English text. Must divide consistently across requests, not
+# match the replica's tokenizer exactly — a mismatch only shortens the
+# usable chain, it cannot route to wrong output.
+AFFINITY_CHUNK_BYTES = 64
+AFFINITY_MAX_CHUNKS = 32
+# holders remembered per residency digest: enough to spread a hot
+# prefix across a small decode tier, small enough that a fleet-wide
+# prefix doesn't make every entry fleet-sized
+MAX_RESIDENCY_HOLDERS = 4
+
+_FORWARD_ROUTES = ("/generate", "/v1/completions", "/v1/chat/completions")
+
+_KNOWN_ROUTES = frozenset((
+    "/", "/health", "/ready", "/stats", "/metrics", "/v1/models",
+    "/admin/rolling-restart", "/debug/traces", "/debug/flight",
+    *_FORWARD_ROUTES,
+))
+
+
+def _route_label(path: str) -> str:
+    if path.startswith("/debug/traces"):
+        return "/debug/traces"  # one label for every trace id
+    return path if path in _KNOWN_ROUTES else "other"
+
+
+class Replica:
+    """One upstream engine server, plus the router's view of its health."""
+
+    def __init__(self, rid: str, url: str, proc=None, spawn_argv=None,
+                 spawn_env=None, replica_class: str = "mixed"):
+        self.rid = rid
+        self.url = url.rstrip("/")
+        # router-spawned replicas carry their subprocess + respawn recipe
+        # (rolling restarts need both); URL-joined replicas have neither
+        self.proc = proc
+        self.spawn_argv = spawn_argv
+        self.spawn_env = spawn_env
+        # disaggregation class ("prefill" | "decode" | "mixed"): set at
+        # spawn (--spawn-prefill/--spawn-decode) or learned from the
+        # replica's /health — fresh long-prompt work goes to prefill-
+        # class replicas, the token loop to decode/mixed ones
+        self.replica_class = replica_class
+        self.state = READY  # optimistic; the first probe corrects it
+        self.consecutive_failures = 0
+        self.outstanding = 0
+        # Retry-After honored as a dispatch cool-down (monotonic deadline)
+        self.cooldown_until = 0.0
+        self.lock = threading.Lock()
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return {
+                "url": self.url,
+                "state": self.state,
+                "class": self.replica_class,
+                "outstanding": self.outstanding,
+                "consecutive_failures": self.consecutive_failures,
+                "spawned": self.proc is not None,
+            }
+
+
+class Router:
+    """Routing + health logic, independent of the HTTP surface (the
+    handler and the CLI both drive this object; tests drive it directly).
+
+    Replica state transitions happen under each replica's lock, so the
+    prober thread, handler threads, and the rolling-restart thread can
+    all drive the ejection state machine concurrently."""
+
+    def __init__(self, replicas, eject_threshold: int = 3,
+                 probe_interval_s: float = 2.0, probe_timeout_s: float = 5.0,
+                 affinity_chunk: int = AFFINITY_CHUNK_BYTES,
+                 affinity_entries: int = 4096,
+                 request_timeout_s: float = 200.0,
+                 drain_deadline_s: float = 60.0,
+                 failover_attempts: Optional[int] = None,
+                 fabric: bool = True,
+                 handoff_min_bytes: int = 192,
+                 kv_push: bool = True,
+                 tenant_max_inflight_share: float = 0.5):
+        if not replicas:
+            raise ValueError("router needs at least one replica")
+        self.replicas = list(replicas)
+        self._by_id = {r.rid: r for r in self.replicas}
+        self.eject_threshold = int(eject_threshold)
+        self.probe_interval_s = float(probe_interval_s)
+        self.probe_timeout_s = float(probe_timeout_s)
+        self.affinity_chunk = int(affinity_chunk)
+        self.affinity_entries = int(affinity_entries)
+        self.request_timeout_s = float(request_timeout_s)
+        self.drain_deadline_s = float(drain_deadline_s)
+        # KV fabric (serving/kv_fabric.py): attach X-KV-Transfer-* hints
+        # so a replica that misses a prefix pulls it from the resident
+        # peer, and run the prefill->decode handoff when the fleet has
+        # both classes. handoff_min_bytes gates what counts as "fresh
+        # long-prompt work" worth a two-phase dispatch.
+        self.fabric = bool(fabric)
+        self.handoff_min_bytes = int(handoff_min_bytes)
+        # proactive chain push: when a prefill-only phase succeeds, the
+        # router pre-picks the least-loaded decode replica, names it in
+        # X-KV-Push-To, and the prefill replica POSTs the finished chain
+        # there before phase 2 dispatches — the decode replica starts
+        # with the KV already in its host tier instead of pulling it.
+        self.kv_push = bool(kv_push)
+        # tenant-aware shedding: one tenant holding more than this share
+        # of ALL router-inflight requests is turned away with 429 +
+        # Retry-After BEFORE a replica is picked, so a flooding tenant
+        # saturates its own quota instead of every replica's admission
+        # queue. Requests without a tenant field are never shed here
+        # (they count toward the total only). 1.0 disables.
+        self.tenant_max_inflight_share = float(tenant_max_inflight_share)
+        # guarded-by: _tenant_lock; tenant -> inflight count ("" = the
+        # anonymous bucket, tracked so shares are of the true total)
+        self._tenant_inflight: dict = {}
+        self._tenant_lock = threading.Lock()
+        # each request tries at most every replica once by default
+        self.failover_attempts = (
+            int(failover_attempts) if failover_attempts
+            else max(2, len(self.replicas))
+        )
+        # chunk-chain digest -> (holder replica ids MRU-first, deepest
+        # TOKEN digest reported for this chain, or None), LRU-bounded.
+        # One entry per digest DEPTH, so a long shared prefix costs
+        # several entries — that is the point: a deeper match wins
+        # routing. KV is content-addressed, so one digest legitimately
+        # lives on several replicas at once (pushes, pulls, repeated
+        # prompts); keeping every holder lets pick() spread a hot prefix
+        # by load instead of pinning it to the last server. The token
+        # digest is the byte->token bridge the fabric needs: the router
+        # has no tokenizer, so it can only name a fetchable chain by
+        # remembering what a serving replica reported.
+        # guarded-by: _res_lock
+        self._residency: "collections.OrderedDict[str, tuple]" = (
+            collections.OrderedDict()
+        )
+        # the global digest->holders residency view in TOKEN-digest
+        # space (tuple of replica ids, MRU-first): learned from response
+        # envelopes (kv_digests) and from replica /health bootstraps
+        # (resident_digests), purged with ejections — stale entries must
+        # not steer fabric pulls at a corpse
+        # guarded-by: _res_lock
+        self._kv_residency: "collections.OrderedDict[str, tuple]" = (
+            collections.OrderedDict()
+        )
+        self._res_lock = threading.Lock()
+        # guarded-by: _roll_lock
+        self.rolling: dict = {"active": False, "done": [], "current": None,
+                              "error": None, "warm": {}}
+        self._roll_lock = threading.Lock()
+        self._closed = threading.Event()
+        self._probe_thread: Optional[threading.Thread] = None
+
+        self.metrics = MetricsRegistry()
+        # the router's half of the fleet trace: its request/dispatch/
+        # retry/handoff spans land here; GET /debug/traces/{id} merges
+        # them with every replica's spans into one tree (collect_trace)
+        self.trace_store = TraceStore(service="router")
+        from .. import __version__ as _dli_version
+
+        # build-identity gauge: always 1, the labels are the payload
+        self.metrics.gauge(
+            "dli_build_info",
+            "build/version identity (value is always 1; the labels are "
+            "the payload — join against any dli_* series)",
+            ("version", "replica_class", "knobs"),
+        ).labels(
+            version=_dli_version, replica_class="router", knobs="",
+        ).set(1.0)
+        self._m_requests = self.metrics.counter(
+            "dli_router_requests_total",
+            "requests proxied per replica by upstream outcome",
+            ("replica", "code"),
+        )
+        self._m_failovers = self.metrics.counter(
+            "dli_router_failovers_total",
+            "requests transparently re-dispatched off a dead/draining/"
+            "overloaded replica", ("replica",),
+        )
+        self._m_ejections = self.metrics.counter(
+            "dli_router_ejections_total",
+            "replicas ejected by the circuit breaker", ("replica",),
+        )
+        self._m_readmissions = self.metrics.counter(
+            "dli_router_readmissions_total",
+            "ejected replicas readmitted after half-open success",
+            ("replica",),
+        )
+        self._m_outstanding = self.metrics.gauge(
+            "dli_router_outstanding",
+            "requests in flight per replica", ("replica",),
+        )
+        self._m_ready = self.metrics.gauge(
+            "dli_router_replica_ready",
+            "1 = replica READY for traffic, 0 = ejected/half-open/draining",
+            ("replica",),
+        )
+        self._m_probe = self.metrics.histogram(
+            "dli_router_probe_seconds",
+            "active /ready probe latency", ("replica",),
+        )
+        self._m_affinity = self.metrics.counter(
+            "dli_router_affinity_total",
+            "routing decisions by affinity outcome (hit = residency map "
+            "named a dispatchable replica)", ("result",),
+        )
+        self._m_tenant_shed = self.metrics.counter(
+            "dli_tenant_shed_total",
+            "requests shed with 429 by the per-tenant inflight quota at "
+            "the router edge", ("tenant",),
+        )
+        self._m_handoffs = self.metrics.counter(
+            "dli_router_handoffs_total",
+            "prefill->decode disaggregation handoffs by outcome "
+            "(handoff = decode replica imported the chain; cold_fallback "
+            "= it re-prefilled locally; prefill_failed / no_digests = "
+            "phase 1 degraded to a normal dispatch; stream = streamed "
+            "phase 2, outcome not observable)", ("outcome",),
+        )
+        for r in self.replicas:
+            self._m_ready.labels(replica=r.rid).set(1.0)
+            self._m_outstanding.labels(replica=r.rid).set(0.0)
+
+    # -- health / ejection ---------------------------------------------------
+    def _set_ready_gauge(self, rep: Replica):
+        self._m_ready.labels(replica=rep.rid).set(
+            1.0 if rep.state == READY else 0.0
+        )
+
+    def note_failure(self, rep: Replica, why: str = ""):
+        """One connect/5xx failure (probe or proxied). Ejects at the
+        threshold; a HALF_OPEN replica re-ejects immediately (its trial
+        failed — the breaker reopens). Ejection PURGES the replica's
+        residency entries: a stale digest steering affinity (or a fabric
+        pull) at a corpse costs a failover/cold-prefill on every routed
+        request until the entry happens to be overwritten."""
+        ejected = False
+        with rep.lock:
+            if rep.state == DRAINING:
+                return  # rolling restart owns this replica's lifecycle
+            rep.consecutive_failures += 1
+            eject = (
+                rep.state == HALF_OPEN
+                or (rep.state == READY
+                    and rep.consecutive_failures >= self.eject_threshold)
+            )
+            if eject and rep.state != EJECTED:
+                rep.state = EJECTED
+                ejected = True
+                self._m_ejections.labels(replica=rep.rid).inc()
+                log.warning("replica_ejected", replica=rep.rid,
+                            failures=rep.consecutive_failures, why=why)
+            self._set_ready_gauge(rep)
+        if ejected:
+            self.purge_residency(rep.rid)
+
+    def note_success(self, rep: Replica):
+        """A successful probe or proxied request: reset the breaker; a
+        HALF_OPEN replica is readmitted."""
+        with rep.lock:
+            rep.consecutive_failures = 0
+            if rep.state == HALF_OPEN:
+                rep.state = READY
+                self._m_readmissions.labels(replica=rep.rid).inc()
+                log.info("replica_readmitted", replica=rep.rid)
+            self._set_ready_gauge(rep)
+
+    def probe_once(self):
+        """One active probe sweep: GET /ready on every replica the router
+        currently owns traffic for. EJECTED + success -> HALF_OPEN;
+        HALF_OPEN + success -> READY (readmission)."""
+        for rep in self.replicas:
+            if rep.state == DRAINING:
+                continue
+            t0 = time.perf_counter()
+            ok = False
+            try:
+                req = urllib.request.Request(rep.url + "/ready")
+                with urllib.request.urlopen(
+                    req, timeout=self.probe_timeout_s
+                ) as resp:
+                    ok = resp.status == 200
+            except (urllib.error.URLError, OSError, ValueError):
+                ok = False  # connect failure or a 503 not-ready answer
+            self._m_probe.labels(replica=rep.rid).observe(
+                time.perf_counter() - t0
+            )
+            if not ok:
+                self.note_failure(rep, why="probe")
+                continue
+            stepped = False
+            with rep.lock:
+                if rep.state == EJECTED:
+                    # one successful probe only OPENS the breaker halfway;
+                    # readmission needs a further success (next sweep, or
+                    # a successful trial request)
+                    rep.state = HALF_OPEN
+                    rep.consecutive_failures = 0
+                    stepped = True
+                    log.info("replica_half_open", replica=rep.rid)
+                    self._set_ready_gauge(rep)
+            # READY/HALF_OPEN probe success flows through the same seam
+            # as proxied successes (HALF_OPEN -> READY readmission)
+            if not stepped and rep.state in (READY, HALF_OPEN):
+                self.note_success(rep)
+
+    def start_prober(self):
+        def _loop():
+            while not self._closed.wait(self.probe_interval_s):
+                try:
+                    self.probe_once()
+                except Exception as e:  # noqa: BLE001 - prober must survive
+                    log.error("probe_sweep_failed", error=str(e))
+
+        self._probe_thread = threading.Thread(
+            target=_loop, daemon=True, name="router-prober"
+        )
+        self._probe_thread.start()
+
+    def close(self):
+        self._closed.set()
+
+    # -- routing -------------------------------------------------------------
+    def _candidates(self, exclude, role: str = "any") -> list:
+        """Dispatchable replicas, class-filtered. role="decode" (the
+        token loop) prefers decode/mixed replicas so prefill-class ones
+        never compete with decode traffic — unless they are ALL that is
+        left, because availability beats specialization. role="prefill"
+        returns strictly prefill-class replicas (empty = no handoff —
+        the caller degrades to a normal dispatch, never an error)."""
+        now = time.monotonic()
+        ready = [
+            r for r in self.replicas
+            if r.rid not in exclude and r.state == READY
+            and r.cooldown_until <= now
+        ]
+        if not ready:
+            # no READY replica: HALF_OPEN trial traffic is better than a
+            # hard 503 — a success readmits, a failure re-ejects
+            ready = [
+                r for r in self.replicas
+                if r.rid not in exclude and r.state == HALF_OPEN
+                and r.cooldown_until <= now
+            ]
+        if role == "decode":
+            pref = [r for r in ready if r.replica_class != "prefill"]
+            return pref or ready
+        if role == "prefill":
+            return [r for r in ready if r.replica_class == "prefill"]
+        return ready
+
+    def pick(self, affinity_key: str, exclude=(), role: str = "any") -> tuple:
+        """(replica, digests) for one dispatch attempt, or (None, digests)
+        when nothing is dispatchable. Deepest-residency match wins;
+        least-outstanding breaks the miss case."""
+        digests = (
+            chunk_digests(affinity_key, self.affinity_chunk,
+                          AFFINITY_MAX_CHUNKS)
+            if affinity_key and self.affinity_chunk >= 1 else []
+        )
+        cands = self._candidates(exclude, role=role)
+        if not cands:
+            return None, digests
+        by_id = {r.rid: r for r in cands}
+        with self._res_lock:
+            for d in reversed(digests):
+                ent = self._residency.get(d)
+                if ent is None:
+                    continue
+                held = [
+                    (by_id[h], i) for i, h in enumerate(ent[0])
+                    if h in by_id
+                ]
+                if held:
+                    # a hot prefix resident on several decode replicas
+                    # spreads by load instead of pinning to one holder;
+                    # equal-load ties keep the MRU holder so a failover
+                    # still "moves" residency with the traffic
+                    self._m_affinity.labels(result="hit").inc()
+                    rep = min(
+                        held, key=lambda t: (t[0].outstanding, t[1]),
+                    )[0]
+                    return rep, digests
+        self._m_affinity.labels(result="miss").inc()
+        return min(cands, key=lambda r: (r.outstanding, r.rid)), digests
+
+    def record_residency(self, digests, rid: str,
+                         token_digest: Optional[str] = None):
+        """Remember that `rid` now holds the KV blocks for this chain
+        (called with the replica that ACTUALLY served — and with every
+        replica a push or pull COPIED the chain to, so one digest keeps
+        all its holders, MRU-first, capped at MAX_RESIDENCY_HOLDERS).
+        token_digest is the deepest TOKEN-chain digest a replica
+        reported for this prompt (its fetchable name on /kv); an update
+        without one keeps the previous bridge only when `rid` was
+        already a known holder — a brand-new holder's bridge arrives
+        with its own envelope."""
+        if not digests:
+            return
+        with self._res_lock:
+            for d in digests:
+                prev = self._residency.get(d)
+                tok = token_digest
+                if prev is not None and tok is None and rid in prev[0]:
+                    tok = prev[1]
+                holders = (rid,)
+                if prev is not None:
+                    holders += tuple(h for h in prev[0] if h != rid)
+                self._residency[d] = (
+                    holders[:MAX_RESIDENCY_HOLDERS], tok,
+                )
+                self._residency.move_to_end(d)
+            while len(self._residency) > self.affinity_entries:
+                self._residency.popitem(last=False)
+
+    def record_kv_residency(self, token_digests, rid: str,
+                            bootstrap: bool = False):
+        """Update the token-digest residency view (holders tuple,
+        MRU-first, capped at MAX_RESIDENCY_HOLDERS). bootstrap=True (the
+        /health resident_digests sweep) appends behind existing holders
+        and never reorders — a digest learned from live traffic is
+        fresher than a poll."""
+        if not token_digests:
+            return
+        with self._res_lock:
+            for d in token_digests:
+                prev = self._kv_residency.get(d, ())
+                if bootstrap:
+                    if rid in prev:
+                        continue  # already known; a poll adds nothing
+                    holders = prev + (rid,)
+                else:
+                    holders = (rid,) + tuple(h for h in prev if h != rid)
+                self._kv_residency[d] = holders[:MAX_RESIDENCY_HOLDERS]
+                self._kv_residency.move_to_end(d)
+            while len(self._kv_residency) > self.affinity_entries:
+                self._kv_residency.popitem(last=False)
+
+    def purge_residency(self, rid: str):
+        """Strip `rid` from every residency entry — byte-affinity AND
+        token-digest views — and drop entries it alone held. Called on
+        ejection (and rolling-restart kills): a dead replica's digests
+        must neither pin affinity nor steer fabric pulls at a corpse
+        until overwritten; surviving co-holders keep serving."""
+        with self._res_lock:
+            for d, (holders, tok) in list(self._residency.items()):
+                if rid not in holders:
+                    continue
+                rest = tuple(h for h in holders if h != rid)
+                if rest:
+                    self._residency[d] = (rest, tok)
+                else:
+                    del self._residency[d]
+            for d, holders in list(self._kv_residency.items()):
+                if rid not in holders:
+                    continue
+                rest = tuple(h for h in holders if h != rid)
+                if rest:
+                    self._kv_residency[d] = rest
+                else:
+                    del self._kv_residency[d]
+
+    def residency_entries(self) -> int:
+        with self._res_lock:
+            return len(self._residency)
+
+    def kv_residency_entries(self) -> int:
+        with self._res_lock:
+            return len(self._kv_residency)
+
+    def _kv_hint(self, digests, rep: Replica) -> Optional[dict]:
+        """X-KV-Transfer-* headers for dispatching this prompt to `rep`,
+        when the residency view knows a DIFFERENT ready replica holding
+        the prefix chain (deepest byte digest with a token bridge wins).
+        None when rep already holds it, nobody does, or the holder is
+        not currently fetchable — a wrong or missing hint costs one cold
+        prefill, never wrong output, same contract as affinity."""
+        if not self.fabric or not digests:
+            return None
+        with self._res_lock:
+            for d in reversed(digests):
+                ent = self._residency.get(d)
+                if ent is None or ent[1] is None:
+                    continue
+                if rep.rid in ent[0]:
+                    return None  # the pick already lands on a holder
+                peers = [
+                    p for p in (self._by_id.get(h) for h in ent[0])
+                    if p is not None and p.state == READY
+                ]
+                if peers:
+                    # least-loaded holder serves the pull: the wire cost
+                    # lands where it hurts decode batching the least
+                    peer = min(
+                        peers, key=lambda r: (r.outstanding, r.rid),
+                    )
+                    return {
+                        "X-KV-Transfer-Peer": peer.url,
+                        "X-KV-Transfer-Digest": ent[1],
+                    }
+        return None
+
+    def _envelope_kv_digests(self, rbody: bytes) -> Optional[list]:
+        """kv_digests from a replica's JSON envelope (None when absent /
+        unparseable — residency learning is best-effort)."""
+        if not self.fabric or not rbody:
+            return None
+        try:
+            env = json.loads(rbody)
+        except (ValueError, json.JSONDecodeError):
+            return None
+        out = env.get("kv_digests") if isinstance(env, dict) else None
+        return out if isinstance(out, list) and out else None
+
+    # -- tenant admission ----------------------------------------------------
+    def tenant_begin(self, tenant: Optional[str]) -> bool:
+        """Admission-control one request for `tenant` (None/"" = the
+        anonymous bucket). True admits and counts it — the caller MUST
+        pair with tenant_end() on every exit path. False sheds: the
+        tenant already holds >= max(4, share * total) of the router's
+        inflight requests. The floor keeps a quiet router permissive
+        (any tenant may hold a few requests before shares bind)."""
+        key = tenant or ""
+        with self._tenant_lock:
+            if key and self.tenant_max_inflight_share < 1.0:
+                total = sum(self._tenant_inflight.values())
+                cap = max(4, int(total * self.tenant_max_inflight_share))
+                if self._tenant_inflight.get(key, 0) >= cap:
+                    self._m_tenant_shed.labels(tenant=key).inc()
+                    log.info("router_tenant_shed", tenant=key,
+                             inflight=self._tenant_inflight.get(key, 0),
+                             cap=cap, total=total)
+                    return False
+            self._tenant_inflight[key] = self._tenant_inflight.get(key, 0) + 1
+        return True
+
+    def tenant_end(self, tenant: Optional[str]):
+        key = tenant or ""
+        with self._tenant_lock:
+            n = self._tenant_inflight.get(key, 0) - 1
+            if n <= 0:
+                self._tenant_inflight.pop(key, None)
+            else:
+                self._tenant_inflight[key] = n
+
+    # -- upstream calls ------------------------------------------------------
+    def _begin(self, rep: Replica):
+        with rep.lock:
+            rep.outstanding += 1
+            self._m_outstanding.labels(replica=rep.rid).set(rep.outstanding)
+
+    def _end(self, rep: Replica):
+        with rep.lock:
+            rep.outstanding -= 1
+            self._m_outstanding.labels(replica=rep.rid).set(rep.outstanding)
+
+    def _proxy(self, rep: Replica, path: str, body: bytes, rid: str,
+               timeout: Optional[float] = None, extra_headers=None,
+               trace_ctx=None):
+        """One POST to one replica. Returns (status, body_bytes, headers);
+        HTTP error statuses come back as values, connect-level failures
+        raise (urllib.error.URLError / OSError). trace_ctx (a
+        tracing.SpanContext) rides as `traceparent` so the replica's
+        spans join this trace under the attempt's span."""
+        hdrs = {"Content-Type": "application/json", "X-Request-Id": rid}
+        if trace_ctx is not None:
+            hdrs["traceparent"] = trace_ctx.header()
+        if extra_headers:
+            hdrs.update(extra_headers)
+        req = urllib.request.Request(
+            rep.url + path, data=body, headers=hdrs, method="POST",
+        )
+        try:
+            with urllib.request.urlopen(
+                req, timeout=timeout or self.request_timeout_s
+            ) as resp:
+                return resp.status, resp.read(), dict(resp.headers)
+        except urllib.error.HTTPError as e:
+            return e.code, e.read(), dict(e.headers)
+
+    def dispatch(self, path: str, body: bytes, affinity_key: str,
+                 rid: str, deadline_ms: Optional[float] = None,
+                 hint_headers: Optional[dict] = None,
+                 trace_ctx=None) -> tuple:
+        """Route one NON-STREAMED request with transparent failover.
+
+        Returns (replica_or_None, status, body_bytes, headers, attempts).
+        Failover re-dispatches on: connect-level failures (dead replica,
+        kill -9 mid-request — zero reply bytes reached the client, so a
+        fresh greedy run elsewhere is indistinguishable), 503 (draining /
+        restart-looping), and 429 (that replica is full; another may not
+        be). It does NOT re-dispatch 4xx (the request is the problem),
+        500 (a request-shaped server fault — poison would just take down
+        a second fleet), or 504 deadline_exceeded (the request's OWN
+        budget is spent — just as spent wherever a retry lands, and
+        never a replica-health strike). Upstream Retry-After becomes a
+        per-replica cool-down, honored by the next pick().
+
+        deadline_ms: the request's remaining end-to-end budget at
+        ingress; each attempt relays what is LEFT via
+        X-Request-Deadline-Ms, and a spent budget answers 504 here
+        without burning another replica's prefill.
+
+        hint_headers: fixed X-KV-Transfer-* headers (a handoff's phase
+        2); when absent, each attempt derives its own fabric hint from
+        the residency view, so a replica that misses the prefix pulls
+        it from the resident peer instead of re-prefilling.
+
+        trace_ctx: the request's SpanContext. Every attempt records its
+        own span — `router.dispatch` for the first, `router.retry` for
+        failover hops — and the replica joins the trace UNDER that
+        attempt's span via the relayed traceparent, so a failed-over
+        request's tree shows exactly which hop served it."""
+        t_in = time.monotonic()
+        tried: set = set()
+        prev: Optional[Replica] = None
+        last = (503, json.dumps({
+            "error": "Error: no healthy replica", "status": "failed",
+            "error_type": "unavailable",
+        }).encode(), {"Retry-After": str(RETRY_AFTER_S)})
+        for attempt in range(self.failover_attempts):
+            extra: dict = {}
+            if deadline_ms is not None:
+                left = deadline_ms - (time.monotonic() - t_in) * 1e3
+                if left <= 0:
+                    st, bd, hd = _deadline_exceeded_response()
+                    return None, st, bd, hd, len(tried)
+                extra["X-Request-Deadline-Ms"] = f"{left:.0f}"
+            rep, digests = self.pick(affinity_key, exclude=tried,
+                                     role="decode")
+            if rep is None:
+                break
+            hint = (
+                hint_headers if hint_headers is not None
+                else self._kv_hint(digests, rep)
+            )
+            if hint:
+                extra.update(hint)
+            tried.add(rep.rid)
+            if prev is not None:
+                self._m_failovers.labels(replica=prev.rid).inc()
+                log.info("failover", request_id=rid,
+                         from_replica=prev.rid, to_replica=rep.rid)
+            sp = None
+            sub_ctx = None
+            if trace_ctx is not None:
+                # one span per attempt: the first is the dispatch, every
+                # further hop is a retry — the failover trail is readable
+                # straight off the assembled tree
+                sp = self.trace_store.start_span(
+                    "router.dispatch" if attempt == 0 else "router.retry",
+                    trace_ctx,
+                    attrs={"replica": rep.rid, "attempt": attempt + 1},
+                )
+                sub_ctx = trace_ctx.child(sp["span_id"])
+            self._begin(rep)
+            try:
+                status, rbody, headers = self._proxy(
+                    rep, path, body, rid, extra_headers=extra,
+                    trace_ctx=sub_ctx,
+                )
+            # HTTPException covers IncompleteRead/RemoteDisconnected — a
+            # replica kill -9'd MID-RESPONSE surfaces as one of these,
+            # and it is exactly the failover case (zero reply bytes have
+            # reached the client)
+            except (urllib.error.URLError, OSError,
+                    http.client.HTTPException) as e:
+                self._m_requests.labels(
+                    replica=rep.rid, code="connect_error"
+                ).inc()
+                self.note_failure(rep, why=f"proxy: {e}")
+                if sp is not None:
+                    self.trace_store.end_span(
+                        sp, attrs={"outcome": "connect_error"}
+                    )
+                prev = rep
+                continue
+            finally:
+                self._end(rep)
+            if sp is not None:
+                self.trace_store.end_span(sp, attrs={"status": status})
+            self._m_requests.labels(replica=rep.rid, code=str(status)).inc()
+            if status == 504:
+                # deadline_exceeded: a property of the REQUEST's budget,
+                # not the replica — no breaker strike, no re-dispatch
+                # (the budget is spent wherever a retry would land)
+                self.note_success(rep)
+                return rep, status, rbody, headers, attempt + 1
+            if status in (429, 503):
+                ra = parse_retry_after(headers.get("Retry-After"))
+                with rep.lock:
+                    rep.cooldown_until = time.monotonic() + (
+                        ra if ra is not None else float(RETRY_AFTER_S)
+                    )
+                if status == 503:
+                    # draining / dead scheduler: a breaker strike too
+                    self.note_failure(rep, why="503")
+                prev = rep
+                last = (status, rbody, headers)
+                continue
+            if status >= 500:
+                self.note_failure(rep, why=str(status))
+                return rep, status, rbody, headers, attempt + 1
+            self.note_success(rep)
+            # residency moves with the replica that ACTUALLY served —
+            # failovers and fabric pulls included. The envelope's
+            # kv_digests (when the replica runs the fabric) bridge the
+            # byte-affinity chain to a fetchable token digest and feed
+            # the token-space residency view.
+            toks = self._envelope_kv_digests(rbody)
+            self.record_residency(
+                digests, rep.rid,
+                token_digest=toks[-1] if toks else None,
+            )
+            if toks:
+                self.record_kv_residency(toks, rep.rid)
+            return rep, status, rbody, headers, attempt + 1
+        return None, last[0], last[1], last[2], len(tried)
+
+    # -- prefill->decode handoff (the disaggregated dispatch) ---------------
+    def handoff_topology(self) -> bool:
+        """True when the fleet can disaggregate RIGHT NOW: at least one
+        dispatchable prefill-class replica and one non-prefill one."""
+        return bool(
+            self.fabric
+            and self._candidates((), role="prefill")
+            and any(
+                r.replica_class != "prefill"
+                for r in self._candidates((), role="decode")
+            )
+        )
+
+    def maybe_handoff(self, path: str, body: bytes, affinity_key: str,
+                      rid: str, deadline_ms: Optional[float] = None,
+                      trace_ctx=None) -> Optional[dict]:
+        """Phase 1 of the disaggregated dispatch, when it applies: send
+        the request to a prefill-class replica with X-KV-Prefill-Only
+        (it prefills, shadows, flushes, answers with the prefix's chain
+        digests), and return the X-KV-Transfer-* headers phase 2 hands
+        to a decode-class replica. None = dispatch normally: not a
+        disaggregated topology, prompt too short, prefix already
+        resident somewhere (an affinity/fabric hit is strictly better
+        than recomputing it on the prefill tier), phase 1 failed (dead
+        or overloaded prefill replica), or the replica reported no
+        digests. Handoff failure is ALWAYS a degrade, never an error."""
+        if (
+            not self.fabric or not affinity_key
+            or len(affinity_key.encode("utf-8", "ignore"))
+            < self.handoff_min_bytes
+        ):
+            return None
+        if deadline_ms is not None and deadline_ms <= 0:
+            return None
+        digests = (
+            chunk_digests(affinity_key, self.affinity_chunk,
+                          AFFINITY_MAX_CHUNKS)
+            if self.affinity_chunk >= 1 else []
+        )
+        if digests:
+            with self._res_lock:
+                ent = self._residency.get(digests[-1])
+            if ent is not None and ent[1] is not None:
+                # deepest chain already resident with a fetchable name:
+                # the ordinary dispatch's per-pick hint serves it
+                return None
+        pre = self._candidates((), role="prefill")
+        if not pre or not any(
+            r.replica_class != "prefill"
+            for r in self._candidates((), role="decode")
+        ):
+            return None
+        rep = min(pre, key=lambda r: (r.outstanding, r.rid))
+        extra = {"X-KV-Prefill-Only": "1"}
+        # proactive push: pre-pick the decode replica most likely to run
+        # phase 2 (least outstanding now) and have the prefill replica
+        # POST the finished chain straight at it — by the time phase 2
+        # dispatches, the chain is already in the decode host tier and
+        # the pull hint is just a fallback. A wrong guess (load shifted
+        # between phases) costs nothing: phase 2 still carries the pull
+        # hint, and the pushed copy ages out of the host tier.
+        push_to: Optional[Replica] = None
+        if self.kv_push:
+            dec = [
+                r for r in self._candidates((), role="decode")
+                if r.replica_class != "prefill"
+            ]
+            if dec:
+                push_to = min(dec, key=lambda r: (r.outstanding, r.rid))
+                extra["X-KV-Push-To"] = push_to.url
+        if deadline_ms is not None:
+            extra["X-Request-Deadline-Ms"] = f"{deadline_ms:.0f}"
+        sp = None
+        sub_ctx = None
+        if trace_ctx is not None:
+            # phase 1 of the two-phase dispatch gets its own span; the
+            # prefill replica's spans nest under it via the traceparent
+            sp = self.trace_store.start_span(
+                "router.handoff_prefill", trace_ctx,
+                attrs={"replica": rep.rid},
+            )
+            sub_ctx = trace_ctx.child(sp["span_id"])
+        self._begin(rep)
+        try:
+            status, rbody, _hdrs = self._proxy(
+                rep, path, body, rid, extra_headers=extra,
+                trace_ctx=sub_ctx,
+            )
+        except (urllib.error.URLError, OSError,
+                http.client.HTTPException) as e:
+            self.note_failure(rep, why=f"handoff_prefill: {e}")
+            self._m_handoffs.labels(outcome="prefill_failed").inc()
+            return None
+        finally:
+            self._end(rep)
+            if sp is not None:
+                self.trace_store.end_span(sp)
+        self._m_requests.labels(replica=rep.rid, code=str(status)).inc()
+        if status != 200:
+            # busy/draining/erroring prefill tier: the token-loop
+            # dispatch serves the request whole, like a mixed fleet
+            if status in (429, 503):
+                ra = parse_retry_after(_hdrs.get("Retry-After"))
+                with rep.lock:
+                    rep.cooldown_until = time.monotonic() + (
+                        ra if ra is not None else float(RETRY_AFTER_S)
+                    )
+            self._m_handoffs.labels(outcome="prefill_failed").inc()
+            return None
+        self.note_success(rep)
+        toks = self._envelope_kv_digests(rbody)
+        if not toks:
+            # fabric off upstream (config drift) or a prompt with no
+            # full block: nothing fetchable, dispatch normally
+            self._m_handoffs.labels(outcome="no_digests").inc()
+            return None
+        self.record_kv_residency(toks, rep.rid)
+        if digests:
+            self.record_residency(digests, rep.rid, token_digest=toks[-1])
+        pushed = 0
+        if push_to is not None:
+            try:
+                env = json.loads(rbody)
+                if isinstance(env, dict):
+                    pushed = int(env.get("kv_pushed") or 0)
+            except (ValueError, TypeError, json.JSONDecodeError):
+                pushed = 0
+        if pushed > 0:
+            # the decode replica holds the chain NOW: record it as a
+            # co-holder so pick() lands phase 2 on it (MRU-first — the
+            # push is fresher than the prefill replica's copy) and the
+            # wire pull never happens
+            self._m_handoffs.labels(outcome="pushed").inc()
+            self.record_kv_residency(toks, push_to.rid)
+            if digests:
+                self.record_residency(
+                    digests, push_to.rid, token_digest=toks[-1],
+                )
+        log.info("handoff_prefilled", request_id=rid, replica=rep.rid,
+                 digest=toks[-1], pushed_blocks=pushed)
+        return {
+            "X-KV-Transfer-Peer": rep.url,
+            "X-KV-Transfer-Digest": toks[-1],
+        }
+
+    def note_handoff_outcome(self, payload):
+        """Score a completed phase 2 off its envelope: did the decode
+        replica import the chain — pulled over the fabric
+        (kv_fabric_blocks) or promoted from a proactive push
+        (kv_promoted_blocks) — or re-prefill locally (peer died
+        mid-fetch, digest evicted, pool full)?"""
+        imported = isinstance(payload, dict) and (
+            payload.get("kv_fabric_blocks")
+            or payload.get("kv_promoted_blocks")
+        )
+        self._m_handoffs.labels(
+            outcome="handoff" if imported else "cold_fallback"
+        ).inc()
+
+    # -- fleet trace / flight assembly ---------------------------------------
+    def collect_trace(self, trace_id: str) -> list:
+        """The full cross-process span list for `trace_id`: this router's
+        own spans plus every replica's (GET /debug/traces/{id} — the flat
+        `spans` field, one schema fleet-wide). Unreachable or evicted
+        stores degrade to a PARTIAL trace — assemble_tree surfaces the
+        orphaned subtrees as extra roots — never an error."""
+        spans = self.trace_store.get(trace_id)
+        for rep in self.replicas:
+            try:
+                with urllib.request.urlopen(
+                    rep.url + "/debug/traces/"
+                    + urllib.parse.quote(trace_id, safe=""),
+                    timeout=self.probe_timeout_s,
+                ) as resp:
+                    payload = json.loads(resp.read())
+            except (urllib.error.URLError, OSError, ValueError):
+                continue
+            got = payload.get("spans") if isinstance(payload, dict) else None
+            if isinstance(got, list):
+                spans.extend(s for s in got if isinstance(s, dict))
+        return spans
+
+    def collect_flight(self) -> dict:
+        """Every replica's flight-recorder dump, keyed by replica id
+        (the router itself keeps no ring — it is stateless glue)."""
+        out = {}
+        for rep in self.replicas:
+            try:
+                with urllib.request.urlopen(
+                    rep.url + "/debug/flight",
+                    timeout=self.probe_timeout_s,
+                ) as resp:
+                    out[rep.rid] = json.loads(resp.read())
+            except (urllib.error.URLError, OSError, ValueError):
+                out[rep.rid] = {"error": "unreachable"}
+        return out
+
+    # -- aggregate views -----------------------------------------------------
+    def replica_health(self, rep: Replica) -> dict:
+        entry = rep.snapshot()
+        try:
+            with urllib.request.urlopen(
+                rep.url + "/health", timeout=self.probe_timeout_s
+            ) as resp:
+                entry["health"] = json.loads(resp.read())
+                entry["reachable"] = True
+        except (urllib.error.URLError, OSError, ValueError):
+            entry["reachable"] = False
+            return entry
+        h = entry.get("health") or {}
+        # class + residency discovery off the same poll: URL-joined
+        # replicas specialize via their own --replica-class, and the
+        # kv.resident_digests bootstrap lets the router steer fabric
+        # pulls at a replica it has never routed traffic to
+        cls = h.get("replica_class")
+        if cls in ("prefill", "decode", "mixed"):
+            rep.replica_class = cls
+        kv = h.get("kv") or {}
+        self.record_kv_residency(
+            kv.get("resident_digests") or [], rep.rid, bootstrap=True
+        )
+        return entry
+
+    def discover(self):
+        """One /health sweep (class + residency bootstrap), best-effort.
+        The CLI runs it at startup; /health aggregation repeats it on
+        every poll."""
+        for rep in self.replicas:
+            self.replica_health(rep)
+
+    def health(self) -> dict:
+        replicas = {r.rid: self.replica_health(r) for r in self.replicas}
+        n_ready = sum(r.state == READY for r in self.replicas)
+        status = (
+            "healthy" if n_ready == len(self.replicas)
+            else ("degraded" if n_ready else "unhealthy")
+        )
+        with self._roll_lock:
+            rolling = dict(self.rolling)
+        return {
+            "status": status,
+            "role": "router",
+            "version": __version__,
+            "replicas_total": len(self.replicas),
+            "replicas_ready": n_ready,
+            "replicas": replicas,
+            "rolling_restart": rolling,
+        }
+
+    def ready(self) -> bool:
+        return any(r.state == READY for r in self.replicas)
+
+    def stats(self) -> dict:
+        with self._roll_lock:
+            rolling = dict(self.rolling)
+        return {
+            "replicas": {r.rid: r.snapshot() for r in self.replicas},
+            "residency_entries": self.residency_entries(),
+            "kv_residency_entries": self.kv_residency_entries(),
+            "fabric": self.fabric,
+            "disaggregated": self.handoff_topology(),
+            "rolling_restart": rolling,
+        }
+
+    # -- rolling restart -----------------------------------------------------
+    def start_rolling_restart(self) -> dict:
+        """Kick the rolling restart on a background thread. Returns a
+        rejection dict ({"error": ...}) or the initial progress dict."""
+        not_spawned = [r.rid for r in self.replicas if r.proc is None]
+        if not_spawned:
+            return {
+                "error": "rolling restart requires router-spawned replicas "
+                         f"(no subprocess for {not_spawned}); restart "
+                         "URL-joined replicas out of band — the router's "
+                         "probes handle ejection/readmission either way",
+            }
+        with self._roll_lock:
+            if self.rolling["active"]:
+                return {"error": "rolling restart already in progress"}
+            self.rolling = {"active": True, "done": [], "current": None,
+                            "error": None, "warm": {}}
+        threading.Thread(
+            target=self._rolling_restart, daemon=True, name="rolling-restart"
+        ).start()
+        with self._roll_lock:
+            return dict(self.rolling)
+
+    def _rolling_restart(self):
+        try:
+            for rep in self.replicas:
+                with self._roll_lock:
+                    self.rolling["current"] = rep.rid
+                self._restart_one(rep)
+                with self._roll_lock:
+                    self.rolling["done"].append(rep.rid)
+            log.info("rolling_restart_done",
+                     replicas=[r.rid for r in self.replicas])
+        except Exception as e:  # noqa: BLE001 - progress dict carries it
+            log.error("rolling_restart_failed", error=str(e))
+            with self._roll_lock:
+                self.rolling["error"] = str(e)
+        finally:
+            with self._roll_lock:
+                self.rolling["active"] = False
+                self.rolling["current"] = None
+
+    def _restart_one(self, rep: Replica):
+        """One replica through the server's drain: stop routing to it,
+        SIGTERM (its server flips readiness, finishes in-flight work,
+        exits cleanly), respawn, wait for /ready, readmit."""
+        with rep.lock:
+            rep.state = DRAINING
+            self._set_ready_gauge(rep)
+        log.info("rolling_restart_draining", replica=rep.rid)
+        rep.proc.send_signal(signal.SIGTERM)
+        try:
+            rep.proc.wait(timeout=self.drain_deadline_s)
+        except subprocess.TimeoutExpired:
+            # past the drain deadline the replica has broken its own
+            # contract; reap it so the port frees for the respawn
+            rep.proc.kill()
+            rep.proc.wait(timeout=10)
+        rep.proc = subprocess.Popen(
+            rep.spawn_argv, env=rep.spawn_env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT,
+        )
+        self._wait_replica_ready(rep)
+        # warm-handoff check: a replica started with --restore-dir
+        # reloads its drained predecessor's shadowed KV (engine/
+        # shadow.py) and reports restored_blocks in its stats — surfaced
+        # per replica in /health.rolling_restart.warm so a rollout that
+        # silently came back COLD (missing --restore-dir, config drift
+        # invalidating the persisted shadow) is visible, not inferred
+        # from TTFT regressions later
+        warm = self._warm_handoff(rep)
+        with self._roll_lock:
+            self.rolling.setdefault("warm", {})[rep.rid] = warm
+        with rep.lock:
+            rep.state = READY
+            rep.consecutive_failures = 0
+            rep.cooldown_until = 0.0
+            self._set_ready_gauge(rep)
+        log.info("rolling_restart_replica_ready", replica=rep.rid, warm=warm)
+
+    def _warm_handoff(self, rep: Replica) -> bool:
+        """True when the respawned replica restored shadowed KV blocks
+        (warm prefix cache); False on a cold start or an unreadable
+        stats surface (never raises — warmth is an optimization)."""
+        try:
+            with urllib.request.urlopen(
+                rep.url + "/stats", timeout=self.probe_timeout_s
+            ) as resp:
+                st = json.loads(resp.read().decode())
+        except Exception:  # noqa: BLE001 - diagnostics only
+            return False
+        shadow = (st.get("continuous") or {}).get("shadow") or {}
+        return bool(shadow.get("restored_blocks", 0))
+
+    def _wait_replica_ready(self, rep: Replica, deadline_s: float = 300.0):
+        t0 = time.time()
+        while time.time() - t0 < deadline_s:
+            if rep.proc.poll() is not None:
+                raise RuntimeError(
+                    f"{rep.rid} exited rc={rep.proc.returncode} during "
+                    "rolling restart"
+                )
+            try:
+                with urllib.request.urlopen(
+                    rep.url + "/ready", timeout=self.probe_timeout_s
+                ) as resp:
+                    if resp.status == 200:
+                        return
+            except (urllib.error.URLError, OSError):
+                pass
+            time.sleep(0.2)
+        raise RuntimeError(f"{rep.rid} never became ready after respawn")
+
+
+def _affinity_key(data: dict) -> str:
+    """The prompt-head text the residency hash keys on: `prompt` on
+    /generate and /v1/completions, the rendered message contents on chat
+    (the replica-side chat template is deterministic, so equal message
+    lists produce equal prompts — hashing the raw contents keys the same
+    equivalence classes). Requests naming an adapter (`adapter` on
+    /generate, `model` on the OpenAI routes) get an adapter-tagged key:
+    adapter KV is conditioned on the adapter's weights, so the same
+    prompt under two adapters must never share an affinity chain —
+    mirroring the replica-side BlockPrefixIndex's adapter-rooted
+    content keys."""
+    adapter = data.get("adapter") or data.get("model")
+    prefix = (
+        f"\x1dadapter:{adapter}\x1d"
+        if isinstance(adapter, str) and adapter else ""
+    )
+    p = data.get("prompt")
+    if isinstance(p, str) and p:
+        return prefix + p
+    prompts = data.get("prompts")
+    if isinstance(prompts, list) and prompts and isinstance(prompts[0], str):
+        return prefix + prompts[0]
+    msgs = data.get("messages")
+    if isinstance(msgs, list):
+        return prefix + "\x1e".join(
+            str(m.get("role", "")) + ":" + str(m.get("content", ""))
+            for m in msgs if isinstance(m, dict)
+        )
+    return ""
+
+
+def _deadline_ms(data: dict, headers) -> Optional[float]:
+    """The request's end-to-end deadline budget (ms) at router INGRESS:
+    an inbound X-Request-Deadline-Ms (an upstream tier already started
+    the clock) wins over the body's deadline_ms. The router burns this
+    budget across failover attempts and relays the REMAINDER to the
+    replica via the same header, so queueing and failover time count
+    against the client's deadline instead of silently extending it."""
+    hdr = headers.get("X-Request-Deadline-Ms")
+    if hdr is not None:
+        try:
+            return float(hdr)
+        except (TypeError, ValueError):
+            pass
+    raw = data.get("deadline_ms")
+    if raw is None:
+        return None
+    try:
+        dl = float(raw)
+    except (TypeError, ValueError):
+        return None  # the replica's parser owns the 400
+    return dl if dl > 0 else None
+
+
+def _deadline_exceeded_response() -> tuple:
+    """(status, body, headers) for a budget spent inside the router —
+    the same envelope a replica would emit, so clients see ONE shape."""
+    return 504, json.dumps({
+        "error": "Error: request exceeded its deadline_ms budget "
+        "at the router",
+        "status": "failed",
+        "error_type": "deadline_exceeded",
+    }).encode(), {}
+
+
+def make_router_handler(router: Router):
+    http_requests = router.metrics.counter(
+        "dli_http_requests_total", "HTTP responses at the router edge",
+        ("route", "method", "status"),
+    )
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+        _rid: Optional[str] = None
+        # inbound (traceparent) or freshly-rooted SpanContext, set per
+        # POST; echoed as X-Trace-Id so clients can fetch their trace
+        _trace_ctx: Optional[SpanContext] = None
+        # child context under the router.request span — what rides the
+        # traceparent header to replicas on dispatch/handoff/stream
+        _span_ctx: Optional[SpanContext] = None
+
+        def _count(self, code: int):
+            http_requests.labels(
+                route=_route_label(self.path.split("?")[0].rstrip("/") or "/"),
+                method=self.command, status=str(code),
+            ).inc()
+
+        def _send(self, code: int, payload, content_type="application/json",
+                  headers=None):
+            body = (
+                payload if isinstance(payload, bytes)
+                else payload.encode() if isinstance(payload, str)
+                else json.dumps(payload).encode()
+            )
+            self._count(code)
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            if self._rid:
+                self.send_header("X-Request-Id", self._rid)
+            if self._trace_ctx is not None:
+                self.send_header("X-Trace-Id", self._trace_ctx.trace_id)
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        # -- GET surface -----------------------------------------------------
+        def do_GET(self):
+            # keep-alive connections reuse this handler instance: a prior
+            # POST's correlation ids must not leak into GET responses
+            self._rid = None
+            self._trace_ctx = None
+            path = self.path.split("?")[0].rstrip("/") or "/"
+            if path == "/":
+                h = router.stats()
+                rows = "".join(
+                    f"<tr><td>{rid}</td><td>{s['url']}</td>"
+                    f"<td>{s['state']}</td><td>{s['outstanding']}</td></tr>"
+                    for rid, s in h["replicas"].items()
+                )
+                self._send(
+                    200,
+                    "<html><body style=\"font-family: monospace\">"
+                    "<h1>distributed_llm_inference_tpu_torch — router</h1>"
+                    "<table border=\"1\" cellpadding=\"4\">"
+                    "<tr><th>replica</th><th>url</th><th>state</th>"
+                    f"<th>outstanding</th></tr>{rows}</table>"
+                    "<p>POST /generate | /v1/completions | "
+                    "/v1/chat/completions | /admin/rolling-restart</p>"
+                    "</body></html>",
+                    content_type="text/html",
+                )
+            elif path == "/health":
+                self._send(200, router.health())
+            elif path == "/ready":
+                if router.ready():
+                    self._send(200, {"ready": True})
+                else:
+                    self._send(
+                        503, {"ready": False, "reason": "no_ready_replica"},
+                        headers={"Retry-After": str(RETRY_AFTER_S)},
+                    )
+            elif path == "/stats":
+                self._send(200, router.stats())
+            elif path == "/metrics":
+                self._send(
+                    200, router.metrics.render(),
+                    content_type="text/plain; version=0.0.4; charset=utf-8",
+                )
+            elif path == "/debug/flight":
+                # the router keeps no flight recorder of its own
+                # (stateless glue) — aggregate the replicas' rings
+                self._send(200, {"replicas": router.collect_flight()})
+            elif path.startswith("/debug/traces"):
+                rest = path[len("/debug/traces"):].lstrip("/")
+                if not rest:
+                    self._send(200, {
+                        "traces": router.trace_store.trace_ids(),
+                        "stats": router.trace_store.stats(),
+                    })
+                    return
+                trace_id = urllib.parse.unquote(rest)
+                spans = router.collect_trace(trace_id)
+                if not spans:
+                    self._send(404, {"error": f"unknown trace {trace_id}"})
+                    return
+                if "format=chrome" in self.path.partition("?")[2]:
+                    self._send(200, to_chrome_trace(spans))
+                    return
+                roots = assemble_tree(spans)
+                self._send(200, {
+                    "trace_id": trace_id,
+                    "spans": spans,
+                    "tree": roots,
+                    "total_s": span_tree_total(roots),
+                })
+            elif path == "/v1/models":
+                # proxy to any dispatchable replica (model list is
+                # identical across a homogeneous fleet)
+                rep, _ = router.pick("")
+                if rep is None:
+                    self._send(
+                        503, {"error": "no healthy replica"},
+                        headers={"Retry-After": str(RETRY_AFTER_S)},
+                    )
+                    return
+                try:
+                    with urllib.request.urlopen(
+                        rep.url + path, timeout=router.probe_timeout_s
+                    ) as resp:
+                        self._send(resp.status, resp.read())
+                except (urllib.error.URLError, OSError) as e:
+                    router.note_failure(rep, why=f"models: {e}")
+                    self._send(502, {"error": f"upstream failed: {e}"})
+            else:
+                self._send(404, {"error": f"no route {path}"})
+
+        # -- POST surface ----------------------------------------------------
+        def do_POST(self):
+            path = self.path.split("?")[0].rstrip("/")
+            self._rid = (
+                sanitize_request_id(self.headers.get("X-Request-Id"))
+                or new_request_id()
+            )
+            # join the caller's trace (W3C traceparent) or root a fresh
+            # one; a malformed header degrades to a fresh root
+            self._trace_ctx = (
+                parse_traceparent(self.headers.get("traceparent"))
+                or SpanContext.new_root()
+            )
+            if path == "/admin/rolling-restart":
+                res = router.start_rolling_restart()
+                self._send(400 if res.get("error") else 202, res)
+                return
+            if path not in _FORWARD_ROUTES:
+                self._send(404, {"error": f"no route {path}"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(length) or b"{}"
+                data = json.loads(body)
+                if not isinstance(data, dict):
+                    raise ValueError("body must be a JSON object")
+            except (ValueError, json.JSONDecodeError):
+                self._send(400, {"error": "invalid JSON body"})
+                return
+            tenant = data.get("tenant")
+            tenant = tenant if isinstance(tenant, str) and tenant else None
+            if not router.tenant_begin(tenant):
+                # per-tenant inflight quota: the same overloaded
+                # envelope + Retry-After a full replica queue answers,
+                # so tenant backoff is server-directed identically
+                self._send(
+                    429,
+                    {
+                        "error": "Error: tenant inflight quota exceeded "
+                                 "at the router",
+                        "status": "failed", "error_type": "overloaded",
+                        "tenant": tenant,
+                    },
+                    headers={"Retry-After": str(RETRY_AFTER_S)},
+                )
+                return
+            try:
+                ctx = self._trace_ctx
+                with request_id_context(self._rid, ctx.trace_id):
+                    # root span of the router hop: every downstream span
+                    # (dispatch attempts, handoff, the replica's own
+                    # replica.request) nests under it via traceparent
+                    with router.trace_store.span(
+                        "router.request", ctx,
+                        attrs={"request_id": self._rid, "route": path},
+                    ) as sp:
+                        self._span_ctx = ctx.child(sp["span_id"])
+                        self._dispatch_post(path, body, data)
+            finally:
+                router.tenant_end(tenant)
+
+        def _dispatch_post(self, path: str, body: bytes, data: dict):
+            deadline_ms = _deadline_ms(data, self.headers)
+            affinity_key = _affinity_key(data)
+            t0 = time.perf_counter()
+            # disaggregated dispatch: phase 1 (prefill-only on a
+            # prefill-class replica) runs BEFORE the stream split, so
+            # streamed requests hand off transparently too — the client
+            # sees one stream, served by the decode replica. Phase 1's
+            # wall time burns the request's own deadline budget.
+            hint = router.maybe_handoff(
+                path, body, affinity_key, self._rid,
+                deadline_ms=deadline_ms, trace_ctx=self._span_ctx,
+            )
+            if deadline_ms is not None:
+                deadline_ms -= (time.perf_counter() - t0) * 1e3
+            if data.get("stream") is True or data.get("stream") == "true":
+                self._stream(path, body, affinity_key,
+                             deadline_ms=deadline_ms, hint_headers=hint)
+                return
+            rep, status, rbody, headers, attempts = router.dispatch(
+                path, body, affinity_key, self._rid,
+                deadline_ms=deadline_ms, hint_headers=hint,
+                trace_ctx=self._span_ctx,
+            )
+            fwd = {
+                k: v for k, v in headers.items() if k == "Retry-After"
+            }
+            try:
+                payload = json.loads(rbody)
+            except (ValueError, json.JSONDecodeError):
+                self._send(status, rbody, headers=fwd)
+                return
+            if hint is not None and status == 200:
+                router.note_handoff_outcome(payload)
+            if isinstance(payload, dict):
+                # fold the router hop into the envelope's contiguous span
+                # model: router_s = wall time here minus the replica's own
+                # total, so the spans still sum to ≈ end-to-end
+                elapsed = time.perf_counter() - t0
+                tm = payload.get("timings")
+                if isinstance(tm, dict):
+                    tm["router_s"] = round(
+                        max(0.0, elapsed - float(tm.get("total_s", 0.0))), 6
+                    )
+                    tm["total_s"] = round(elapsed, 6)
+                if rep is not None:
+                    payload["replica"] = rep.rid
+                if attempts > 1:
+                    payload["router_attempts"] = attempts
+            self._send(status, payload, headers=fwd)
+
+        def _stream(self, path: str, body: bytes, affinity_key: str,
+                    deadline_ms: Optional[float] = None,
+                    hint_headers: Optional[dict] = None):
+            """Streamed requests: failover ONLY before the upstream
+            stream opens; after the first forwarded byte the request is
+            bound to its replica (re-dispatching would replay partial
+            output — client.py's own stream-retry rule). hint_headers
+            carry a handoff's phase-2 fabric hint; without one, each
+            attempt derives its own from the residency view."""
+            t_in = time.monotonic()
+            tried: set = set()
+            prev = None
+            for _ in range(router.failover_attempts):
+                hdrs = {"Content-Type": "application/json",
+                        "X-Request-Id": self._rid}
+                if self._span_ctx is not None:
+                    # streamed attempts join under the router.request
+                    # span (which stays open across the whole stream —
+                    # do_POST's contextmanager closes it after we return)
+                    hdrs["traceparent"] = self._span_ctx.header()
+                if deadline_ms is not None:
+                    left = deadline_ms - (time.monotonic() - t_in) * 1e3
+                    if left <= 0:
+                        st, bd, _hd = _deadline_exceeded_response()
+                        self._send(st, json.loads(bd))
+                        return
+                    hdrs["X-Request-Deadline-Ms"] = f"{left:.0f}"
+                rep, digests = router.pick(affinity_key, exclude=tried,
+                                           role="decode")
+                if rep is None:
+                    break
+                hint = (
+                    hint_headers if hint_headers is not None
+                    else router._kv_hint(digests, rep)
+                )
+                if hint:
+                    hdrs.update(hint)
+                    if hint_headers is not None:
+                        # phase-2 envelope is NDJSON/SSE the router never
+                        # parses: count the handoff by its own outcome
+                        router._m_handoffs.labels(outcome="stream").inc()
+                        hint_headers = None  # once per request
+                tried.add(rep.rid)
+                if prev is not None:
+                    router._m_failovers.labels(replica=prev.rid).inc()
+                req = urllib.request.Request(
+                    rep.url + path, data=body, headers=hdrs, method="POST",
+                )
+                router._begin(rep)
+                try:
+                    upstream = urllib.request.urlopen(
+                        req, timeout=router.request_timeout_s
+                    )
+                except urllib.error.HTTPError as e:
+                    router._end(rep)
+                    router._m_requests.labels(
+                        replica=rep.rid, code=str(e.code)
+                    ).inc()
+                    if e.code in (429, 503):
+                        ra = parse_retry_after(e.headers.get("Retry-After"))
+                        with rep.lock:
+                            rep.cooldown_until = time.monotonic() + (
+                                ra if ra is not None else float(RETRY_AFTER_S)
+                            )
+                        if e.code == 503:
+                            router.note_failure(rep, why="503")
+                        prev = rep
+                        continue  # pre-stream rejection: zero output sent
+                    self._send(
+                        e.code, e.read(),
+                        headers={
+                            k: v for k, v in e.headers.items()
+                            if k == "Retry-After"
+                        },
+                    )
+                    return
+                except (urllib.error.URLError, OSError,
+                        http.client.HTTPException) as e:
+                    router._end(rep)
+                    router._m_requests.labels(
+                        replica=rep.rid, code="connect_error"
+                    ).inc()
+                    router.note_failure(rep, why=f"stream: {e}")
+                    prev = rep
+                    continue  # connect failure: stream never opened
+                try:
+                    router._m_requests.labels(
+                        replica=rep.rid, code=str(upstream.status)
+                    ).inc()
+                    self._count(upstream.status)
+                    self.send_response(upstream.status)
+                    self.send_header(
+                        "Content-Type",
+                        upstream.headers.get(
+                            "Content-Type", "application/x-ndjson"
+                        ),
+                    )
+                    if self._rid:
+                        self.send_header("X-Request-Id", self._rid)
+                    if self._trace_ctx is not None:
+                        self.send_header(
+                            "X-Trace-Id", self._trace_ctx.trace_id
+                        )
+                    self.end_headers()
+                    router.record_residency(digests, rep.rid)
+                    while True:
+                        try:
+                            chunk = upstream.read(4096)
+                        except (urllib.error.URLError, OSError,
+                                http.client.HTTPException) as e:
+                            # mid-stream upstream death: partial output
+                            # is already with the client — NEVER
+                            # re-dispatched; the truncated stream is the
+                            # client's failure signal
+                            router.note_failure(rep, why=f"mid_stream: {e}")
+                            return
+                        if not chunk:
+                            break
+                        try:
+                            self.wfile.write(chunk)
+                            self.wfile.flush()
+                        except (BrokenPipeError, ConnectionResetError):
+                            return  # client went away, replica innocent
+                    router.note_success(rep)
+                finally:
+                    router._end(rep)
+                    upstream.close()
+                return
+            self._send(
+                503,
+                {"error": "Error: no healthy replica", "status": "failed",
+                 "error_type": "unavailable"},
+                headers={"Retry-After": str(RETRY_AFTER_S)},
+            )
+
+    return Handler
+
+
+class RouterServer:
+    """Owns the HTTP listener + the Router; start()/shutdown() for tests,
+    serve_forever() for the CLI."""
+
+    def __init__(self, router: Router, host: str = "0.0.0.0",
+                 port: int = 8000):
+        self.router = router
+        self.httpd = ThreadingHTTPServer(
+            (host, port), make_router_handler(router)
+        )
+        self.port = self.httpd.server_address[1]
+
+    def start(self) -> threading.Thread:
+        self.router.start_prober()
+        t = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        t.start()
+        return t
+
+    def serve_forever(self):
+        from ..utils.logging import configure
+
+        configure()
+        self.router.start_prober()
+        self.install_signal_handlers()
+        log.info(
+            "router_serving", port=self.port,
+            replicas=[r.url for r in self.router.replicas],
+        )
+        print(
+            f"🔀 router on :{self.port} over "
+            f"{len(self.router.replicas)} replicas — /generate /health "
+            f"/ready /metrics /admin/rolling-restart"
+        )
+        self.httpd.serve_forever()
+
+    def install_signal_handlers(self):
+        def _on_term(signum, frame):
+            threading.Thread(target=self.shutdown, daemon=True).start()
+
+        signal.signal(signal.SIGTERM, _on_term)
+
+    def shutdown(self):
+        self.router.close()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        # forward the shutdown to router-spawned replicas (their own
+        # SIGTERM handler runs the graceful drain)
+        for rep in self.router.replicas:
+            if rep.proc is not None and rep.proc.poll() is None:
+                rep.proc.send_signal(signal.SIGTERM)
+
+
+def _free_port(host: str = "127.0.0.1") -> int:
+    s = socket.socket()
+    s.bind((host, 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn_replicas(n: int, spawn_args, host: str = "127.0.0.1",
+                   ready_deadline_s: float = 300.0, env=None,
+                   replica_class: str = "mixed",
+                   name_prefix: str = "r") -> list:
+    """Spawn N engine servers as subprocesses on free ports and wait for
+    every /ready. Each replica remembers its argv/env so rolling restarts
+    can respawn it identically. replica_class != "mixed" appends
+    --replica-class to every spawn (and tags the router-side Replica), so
+    --spawn-prefill/--spawn-decode build a disaggregated fleet from one
+    argument string."""
+    import os
+
+    replicas = []
+    for i in range(n):
+        port = _free_port(host)
+        argv = [
+            sys.executable, "-m",
+            "distributed_llm_inference_tpu_torch.serving.server",
+            "--host", host, "--port", str(port), *spawn_args,
+        ]
+        if replica_class != "mixed":
+            argv += ["--replica-class", replica_class]
+        spawn_env = dict(os.environ if env is None else env)
+        proc = subprocess.Popen(
+            argv, env=spawn_env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT,
+        )
+        replicas.append(Replica(
+            f"{name_prefix}{i}", f"http://{host}:{port}", proc=proc,
+            spawn_argv=argv, spawn_env=spawn_env,
+            replica_class=replica_class,
+        ))
+    deadline = time.time() + ready_deadline_s
+    for rep in replicas:
+        while True:
+            if rep.proc.poll() is not None:
+                raise SystemExit(
+                    f"replica {rep.rid} exited rc={rep.proc.returncode} "
+                    "during startup"
+                )
+            try:
+                with urllib.request.urlopen(
+                    rep.url + "/ready", timeout=5
+                ) as resp:
+                    if resp.status == 200:
+                        break
+            except (urllib.error.URLError, OSError):
+                pass
+            if time.time() > deadline:
+                raise SystemExit(f"replica {rep.rid} never became ready")
+            time.sleep(0.2)
+        print(f"✅ replica {rep.rid} ready at {rep.url}")
+    return replicas
+
+
+def main(argv: Optional[list] = None):
+    ap = argparse.ArgumentParser(
+        description="distributed_llm_inference_tpu_torch replica router"
+    )
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument(
+        "--replicas", default=None, metavar="URL,URL",
+        help="join already-running engine servers (comma-separated base "
+             "URLs). Rolling restarts need --spawn replicas; URL-joined "
+             "ones are probed/ejected/readmitted but restarted out of band",
+    )
+    ap.add_argument(
+        "--spawn", type=int, default=0, metavar="N",
+        help="spawn N engine-server replicas as subprocesses on free "
+             "ports (each gets --spawn-args), wait for every /ready, "
+             "and SIGTERM them on router shutdown",
+    )
+    ap.add_argument(
+        "--spawn-prefill", type=int, default=0, metavar="N",
+        help="spawn N PREFILL-class replicas (--spawn-args plus "
+             "--replica-class prefill): they take fresh long-prompt "
+             "work and hand the finished prefix to a decode-class "
+             "replica by chunk digest over the KV fabric",
+    )
+    ap.add_argument(
+        "--spawn-decode", type=int, default=0, metavar="N",
+        help="spawn N DECODE-class replicas (--spawn-args plus "
+             "--replica-class decode): they run the token loops, "
+             "pulling handed-off prefixes over the KV fabric",
+    )
+    ap.add_argument(
+        "--no-fabric", action="store_true",
+        help="disable KV-fabric hints and prefill->decode handoffs at "
+             "the router (replicas may still serve /kv to each other "
+             "out of band)",
+    )
+    ap.add_argument(
+        "--handoff-min-bytes", type=int, default=192, metavar="BYTES",
+        help="smallest prompt (bytes) worth a two-phase prefill->decode "
+             "handoff; shorter prompts go straight to the decode tier",
+    )
+    ap.add_argument(
+        "--no-kv-push", action="store_true",
+        help="disable the proactive chain push at the prefill->decode "
+             "handoff (X-KV-Push-To); phase 2 then always PULLS the "
+             "chain from the prefill replica on demand",
+    )
+    ap.add_argument(
+        "--spawn-args", default="", metavar="ARGS",
+        help="argument string passed to every spawned replica's server "
+             "CLI, e.g. \"--model tinyllama-1.1b --continuous 4 --warmup\"",
+    )
+    ap.add_argument("--probe-interval", type=float, default=2.0,
+                    metavar="SECONDS",
+                    help="active /ready probe period per replica")
+    ap.add_argument("--probe-timeout", type=float, default=5.0)
+    ap.add_argument(
+        "--eject-threshold", type=int, default=3, metavar="N",
+        help="consecutive connect/5xx failures (probe or proxied) before "
+             "a replica is ejected; readmission is via half-open probes",
+    )
+    ap.add_argument(
+        "--affinity-chunk", type=int, default=AFFINITY_CHUNK_BYTES,
+        metavar="BYTES",
+        help="prompt-head hash granularity for prefix-affinity routing "
+             "(~ one KV block of text; 0 disables affinity)",
+    )
+    ap.add_argument("--affinity-entries", type=int, default=4096,
+                    help="residency-map LRU bound (chunk-chain digests)")
+    ap.add_argument("--request-timeout", type=float, default=200.0)
+    ap.add_argument(
+        "--drain-deadline", type=float, default=60.0, metavar="SECONDS",
+        help="per-replica drain budget during a rolling restart (SIGTERM "
+             "-> graceful drain; past this the replica is killed)",
+    )
+    ap.add_argument(
+        "--failover-attempts", type=int, default=0, metavar="N",
+        help="max replicas one request may try (0 = one try per replica)",
+    )
+    ap.add_argument(
+        "--tenant-share", type=float, default=0.5, metavar="F",
+        help="per-tenant inflight quota as a fraction of ALL router-"
+             "inflight requests: a tenant at max(4, F * total) sheds "
+             "with 429 + Retry-After before a replica is picked "
+             "(requests without a 'tenant' field are never shed; 1.0 "
+             "disables)",
+    )
+    args = ap.parse_args(argv)
+
+    replicas = []
+    if args.spawn > 0:
+        replicas.extend(
+            spawn_replicas(args.spawn, shlex.split(args.spawn_args))
+        )
+    if args.spawn_prefill > 0:
+        replicas.extend(spawn_replicas(
+            args.spawn_prefill, shlex.split(args.spawn_args),
+            replica_class="prefill", name_prefix="p",
+        ))
+    if args.spawn_decode > 0:
+        replicas.extend(spawn_replicas(
+            args.spawn_decode, shlex.split(args.spawn_args),
+            replica_class="decode", name_prefix="d",
+        ))
+    if args.replicas:
+        for i, url in enumerate(u for u in args.replicas.split(",") if u):
+            replicas.append(Replica(f"u{i}", url.strip()))
+    if not replicas:
+        raise SystemExit(
+            "router needs --spawn/--spawn-prefill/--spawn-decode N "
+            "and/or --replicas URL,URL"
+        )
+    router = Router(
+        replicas,
+        eject_threshold=args.eject_threshold,
+        probe_interval_s=args.probe_interval,
+        probe_timeout_s=args.probe_timeout,
+        affinity_chunk=args.affinity_chunk,  # 0 = pure least-outstanding
+        affinity_entries=args.affinity_entries,
+        request_timeout_s=args.request_timeout,
+        drain_deadline_s=args.drain_deadline,
+        failover_attempts=args.failover_attempts or None,
+        fabric=not args.no_fabric,
+        handoff_min_bytes=args.handoff_min_bytes,
+        kv_push=not args.no_kv_push,
+        tenant_max_inflight_share=args.tenant_share,
+    )
+    # learn URL-joined replicas' classes + bootstrap digest residency
+    # off one /health sweep (spawned replicas carry their class already)
+    router.discover()
+    try:
+        RouterServer(router, args.host, args.port).serve_forever()
+    finally:
+        for rep in replicas:
+            if rep.proc is not None and rep.proc.poll() is None:
+                rep.proc.send_signal(signal.SIGTERM)
+
+
+if __name__ == "__main__":
+    main()

@@ -49,8 +49,18 @@ gives the solo engine and the dense fleet their prefix snapshots
 (engine/prefix.py). `--queue N` (with `--queue-max-batch`,
 `--queue-wait-ms`) puts the bounded batching queue (serving/queue.py) in
 front of the solo engine: the ladder is fleet > queue > engine, a full
-queue answers 429 with Retry-After and `/stats` carries `queue`. The
-trace store (`/debug/traces`) arrives with a later slice.
+queue answers 429 with Retry-After and `/stats` carries `queue`. Every
+request records a `replica.request` span (its envelope's stage timings as
+`stage.*` children; fabric pulls, pushes and serves as `fabric.*` /
+`kv.serve`) into the engine's trace store (serving/trace_store.py) under
+its inbound `traceparent`: `GET /debug/traces` lists the trace ids,
+`GET /debug/traces/{id}` returns one trace's spans and tree (the replica
+router, serving/router.py, merges every replica's into one), and
+`?format=chrome` emits it as Chrome trace-event JSON. `--trace-sample-rate
+F` adds one `launch.mixed` / `launch.chunk` span per fleet launch to that
+fraction of traces. `--compile-cache DIR` builds and loads the CUDA
+kernels' libraries under DIR instead of `build/`, so restarted or spawned
+replicas reuse them.
 
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --attn-impl auto
@@ -86,6 +96,10 @@ trace store (`/debug/traces`) arrives with a later slice.
     python -m distributed_llm_inference_tpu_torch.serving.server \\
         --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
         --queue 16 --queue-max-batch 8 --queue-wait-ms 5 --prefix-cache 4
+    python -m distributed_llm_inference_tpu_torch.serving.server \\
+        --model tinyllama-1.1b --dtype bfloat16 --attn-impl auto \\
+        --continuous 8 --kv-pool-blocks 513 --kv-block-size 16 \\
+        --prefix-cache 8 --trace-sample-rate 1.0 --compile-cache build/
 """
 
 from __future__ import annotations
@@ -100,6 +114,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 
 from . import kv_fabric as kvf
+from .trace_store import assemble_tree, span_tree_total, to_chrome_trace
 
 __version__ = "torch_port_v1"
 
@@ -109,32 +124,18 @@ DEFAULT_TOP_K = 50
 DEFAULT_TOP_P = 0.9
 # Retry-After (seconds) sent with every drain/overload rejection
 RETRY_AFTER_S = 2
-# routes of the JAX server that the port does not serve yet: 501 with the
-# ROADMAP.md item that ports them, never a bare 404
-_NOT_PORTED_ROUTES = {
-    "/debug/traces": 'ROADMAP.md "Fleet tier"',
-}
-
-
-def _not_ported_route(path: str) -> Optional[dict]:
-    """The 501 body for a JAX-server route the port lacks, else None."""
-    key = path
-    if path.startswith("/debug/traces/"):
-        key = "/debug/traces"
-    item = _NOT_PORTED_ROUTES.get(key)
-    if item is None:
-        return None
-    return {"error": f"{key} is not ported to the PyTorch server yet ({item})"}
 _KNOWN_ROUTES = frozenset((
     "/", "/health", "/ready", "/workers", "/stats", "/metrics", "/v1/models",
     "/generate", "/v1/completions", "/v1/chat/completions",
-    "/profiler/start", "/profiler/stop", "/debug/flight",
+    "/profiler/start", "/profiler/stop", "/debug/traces", "/debug/flight",
 ))
 
 
 def _route_label(path: str) -> str:
     if path == "/kv" or path.startswith("/kv/"):
         return "/kv"  # one label for every digest (bounded cardinality)
+    if path.startswith("/debug/traces"):
+        return "/debug/traces"  # one label for every trace id
     return path if path in _KNOWN_ROUTES else "other"
 
 
@@ -418,6 +419,8 @@ def make_handler(engine, max_tokens_cap: int, state=None,
             elif path == "/debug/flight":
                 # the ring the fleet's supervisor dumps on a crash
                 self._send(200, engine.flight.dump())
+            elif path == "/debug/traces" or path.startswith("/debug/traces/"):
+                self._serve_traces(path)
             elif path == "/stats":
                 s = engine.stats()
                 if continuous is not None:
@@ -432,9 +435,34 @@ def make_handler(engine, max_tokens_cap: int, state=None,
             elif path.startswith("/kv/"):
                 self._serve_kv(path[len("/kv/"):])
             else:
-                missing = _not_ported_route(path)
-                self._send(501 if missing else 404,
-                           missing or {"error": f"no route {path}"})
+                self._send(404, {"error": f"no route {path}"})
+
+        def _serve_traces(self, path: str):
+            """This process's span store: the bare route lists the known
+            trace ids; /debug/traces/{id} returns that trace's spans plus
+            the locally assembled tree (the router concatenates the flat
+            `spans` lists of every replica into the cross-process view);
+            ?format=chrome emits Chrome trace-event JSON for Perfetto."""
+            store = getattr(engine, "trace_store", None)
+            if store is None:
+                self._send(404, {"error": "no trace store"})
+                return
+            trace_id = path[len("/debug/traces/"):] if path.startswith(
+                "/debug/traces/") else ""
+            if not trace_id:
+                self._send(200, {"traces": store.trace_ids(), "stats": store.stats()})
+            elif "format=chrome" in self.path.partition("?")[2]:
+                self._send(200, to_chrome_trace(store.get(trace_id)))
+            else:
+                spans = store.get(trace_id)
+                tree = assemble_tree(spans)
+                self._send(200, {
+                    "trace_id": trace_id,
+                    "service": store.service,
+                    "spans": spans,
+                    "tree": tree,
+                    "total_s": round(span_tree_total(tree), 6),
+                })
 
         def _serve_kv(self, digest: str):
             """GET /kv/{digest}, the fabric's serving half: the resident
@@ -443,13 +471,25 @@ def make_handler(engine, max_tokens_cap: int, state=None,
             (unknown digest, evicted, or no fabric) is a 404 the fetching
             peer treats as "prefill locally". Its X-Request-Id is echoed."""
             self._rid = sanitize_request_id(self.headers.get("X-Request-Id"))
-            self._trace_ctx = parse_traceparent(self.headers.get("traceparent"))
+            ctx = self._trace_ctx = parse_traceparent(self.headers.get("traceparent"))
+            t0 = time.time()
             tier = (continuous.fabric_digest_tier(digest)
                     if continuous is not None else None) or "host"
             miss = {"error": f"no resident chain for digest {digest[:64]!r}"}
+
+            def serve_span(hit: bool, streamed: bool):
+                # the serve joins the puller's trace under its fabric.pull
+                if ctx is not None:
+                    engine.trace_store.add_span(
+                        ctx.trace_id, "kv.serve", t0, time.time(),
+                        parent_id=ctx.span_id,
+                        attrs={"digest": digest[:16], "hit": hit,
+                               "streamed": streamed, "tier": tier})
+
             if (continuous is not None
                     and self.headers.get("X-KV-Stream") in ("1", "true")):
                 res = continuous.fabric_chain_stream(digest)
+                serve_span(res is not None, True)
                 if res is None:
                     self._send(404, miss)
                     return
@@ -473,6 +513,7 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                     pass  # the peer gave up mid-pull: its problem only
                 return
             chain = continuous.fabric_chain(digest) if continuous is not None else None
+            serve_span(chain is not None, False)
             if chain is None:
                 self._send(404, miss)
             else:
@@ -529,40 +570,92 @@ def make_handler(engine, max_tokens_cap: int, state=None,
         def _run_single(self, prompt: str, kwargs: dict) -> dict:
             """One prompt through the dispatch ladder of /generate and the
             OpenAI routes: the continuous fleet > the bounded queue > the
-            solo engine. The JAX server records its `replica.request` span
-            here; the port has no trace store yet ("Fleet tier")."""
+            solo engine, under a `replica.request` span. The finished
+            envelope's contiguous stage timings become its child spans, and
+            the child context rides kwargs into the fleet, so its fabric and
+            launch spans nest under the same parent."""
+            ctx = self._trace_ctx
+            store = getattr(engine, "trace_store", None)
+            if ctx is None or store is None:  # embedding callers
+                kwargs["trace_ctx"] = ctx
+                return self._dispatch(prompt, kwargs)
+            with store.span("replica.request", ctx,
+                            attrs={"request_id": kwargs.get("request_id")}) as sp:
+                kwargs["trace_ctx"] = ctx.child(sp["span_id"])
+                result = self._dispatch(prompt, kwargs)
+                sp["attrs"]["status"] = result.get("status")
+                self._stage_spans(store, sp, result)
+            return result
+
+        def _dispatch(self, prompt: str, kwargs: dict) -> dict:
             if continuous is not None:
-                return continuous.submit(prompt, trace_ctx=self._trace_ctx, **kwargs)
+                return continuous.submit(prompt, **kwargs)
             if queue is not None:
                 return queue.submit(prompt, **kwargs)
+            kwargs.pop("trace_ctx", None)  # the solo engine takes none
             return engine.generate(prompt, **kwargs)
+
+        @staticmethod
+        def _stage_spans(store, parent: dict, result: dict):
+            """Re-export the envelope's contiguous `timings` (spans sum to
+            about total_s by construction) as `stage.<name>` children of
+            `parent`, laid end to end from its start. A no-op for an
+            envelope without timings."""
+            timings = result.get("timings")
+            if not isinstance(timings, dict):
+                return
+            t = parent["t0"]
+            for key, dur in timings.items():
+                if key == "total_s" or not key.endswith("_s"):
+                    continue
+                try:
+                    dur = float(dur)
+                except (TypeError, ValueError):
+                    continue
+                store.add_span(parent["trace_id"], f"stage.{key[:-2]}", t, t + dur,
+                               parent_id=parent["span_id"])
+                t += dur
 
         def _run_batch(self, prompts: list, kwargs: dict) -> dict:
             """A client batch: through the queue's backpressure when there
             is one (dispatched as its own batch), else the solo engine."""
-            for k in ("kv_hint", "prefill_only", "kv_push_to"):
+            for k in ("kv_hint", "prefill_only", "kv_push_to", "trace_ctx"):
                 kwargs.pop(k, None)  # the solo batch has no fabric
             if queue is not None:
                 return queue.submit_batch(prompts, **kwargs)
             return engine.generate_batch(prompts, **kwargs)
 
         def _stream_span(self, kwargs: dict):
-            """The span of a streamed request, which the stream loop would
-            end: None while the port has no trace store ("Fleet tier")."""
-            return None
+            """Open the `replica.request` span of a STREAMED request and
+            thread its child context into kwargs. The span outlives this
+            frame: _write_stream, which owns it from here, ends it."""
+            ctx = self._trace_ctx
+            store = getattr(engine, "trace_store", None)
+            if ctx is None or store is None:
+                kwargs["trace_ctx"] = ctx
+                return None
+            sp = store.start_span("replica.request", ctx, attrs={
+                "request_id": kwargs.get("request_id"), "stream": True,
+            })
+            kwargs["trace_ctx"] = ctx.child(sp["span_id"])
+            return sp
 
-        def _write_stream(self, payloads, events):
+        def _write_stream(self, payloads, events, sp=None):
             """Write a stream's payloads as its events come, never under
             the fleet's lock (the worker only puts events on a queue). A
             client gone mid-stream closes the event generator, which
             cancels the request: its slot and blocks free at the next
-            launch boundary instead of after its whole budget."""
+            launch boundary instead of after its whole budget. Ends the
+            stream's span `sp` on every exit."""
             try:
                 for payload in payloads:
                     self.wfile.write(payload)
                     self.wfile.flush()
             except OSError:
                 events.close()
+            finally:
+                if sp is not None:
+                    engine.trace_store.end_span(sp)
 
         def _stream_headers(self, content_type: str, extra=None):
             self._count(200)
@@ -579,9 +672,11 @@ def make_handler(engine, max_tokens_cap: int, state=None,
         def _openai_stream(self, prompt: str, kwargs: dict, chat: bool):
             """SSE: real per-launch deltas on --continuous, one emulated
             chunk otherwise (still valid SSE for OpenAI-SDK clients)."""
+            sp = None
             if continuous is not None:
-                self._stream_span(kwargs)
-                events = continuous.stream(prompt, trace_ctx=self._trace_ctx, **kwargs)
+                # the emulation below records its span through _run_single
+                sp = self._stream_span(kwargs)
+                events = continuous.stream(prompt, **kwargs)
             else:
                 def _one_shot():
                     result = self._run_single(prompt, kwargs)
@@ -594,7 +689,7 @@ def make_handler(engine, max_tokens_cap: int, state=None,
             self._write_stream(
                 (payload for payload, _final in
                  oai.stream_events(events, engine.cfg.name, kwargs, chat=chat)),
-                events)
+                events, sp)
 
         def _openai(self, path: str, data: dict):
             chat = path == "/v1/chat/completions"
@@ -751,9 +846,7 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                 self._accept_kv_push()
                 return
             if path != "/generate":
-                missing = _not_ported_route(path)
-                self._send(501 if missing else 404,
-                           missing or {"error": f"no route {path}"})
+                self._send(404, {"error": f"no route {path}"})
                 return
             data = self._read_json()
             if data is None:
@@ -898,10 +991,10 @@ def make_handler(engine, max_tokens_cap: int, state=None,
                     data.get("speculative", False), "speculative")
                 kwargs["logprobs"] = _parse_bool(data.get("logprobs", False), "logprobs")
                 self._stream_headers("application/x-ndjson")
-                self._stream_span(kwargs)
-                events = continuous.stream(prompt, trace_ctx=self._trace_ctx, **kwargs)
+                sp = self._stream_span(kwargs)
+                events = continuous.stream(prompt, **kwargs)
                 self._write_stream((json.dumps(ev).encode() + b"\n" for ev in events),
-                                   events)
+                                   events, sp)
                 return None
             if prompts is not None:
                 # batched form: "prompts": [...] -> one batch, N results
@@ -1003,10 +1096,11 @@ class InferenceServer:
         get_logger("server").info(
             "serving", port=self.port,
             routes=["/", "/generate", "/health", "/ready", "/workers", "/stats",
-                    "/metrics", "/profiler/*", "/debug/flight", "/kv"],
+                    "/metrics", "/profiler/*", "/debug/traces", "/debug/flight",
+                    "/kv"],
         )
         print(f"serving on :{self.port} — /generate /health /ready /workers /stats "
-              f"/metrics /profiler/* /debug/flight /kv")
+              f"/metrics /profiler/* /debug/traces /debug/flight /kv")
         self.httpd.serve_forever()
 
     def shutdown(self):
@@ -1365,6 +1459,22 @@ def main(argv: Optional[list] = None):
              "the DLI_FAULTS env var is the config-file-free spelling. "
              "Chaos drills only — never in front of real traffic",
     )
+    ap.add_argument(
+        "--trace-sample-rate", type=float, default=0.0, metavar="F",
+        help="fraction of traced requests that also get launch-level "
+             "attribution on the continuous fleet: a sampled request's "
+             "mixed launches and decode chunks record dispatch -> fetch "
+             "spans (host timestamps keyed by the launch, never an extra "
+             "device sync) into GET /debug/traces/{trace_id}. 0 (default) "
+             "keeps the hot path allocation-free",
+    )
+    ap.add_argument(
+        "--compile-cache", default=None, metavar="DIR",
+        help="directory of the CUDA kernels' built libraries (default "
+             "build/ beside the package): restarted or spawned replicas "
+             "pointed at one DIR reuse the libraries instead of running "
+             "nvcc again",
+    )
     args = ap.parse_args(argv)
     if args.die_on_wedge and not args.deadline:
         # checked before the model loads
@@ -1405,6 +1515,11 @@ def main(argv: Optional[list] = None):
         print(f"fault injection armed: {args.faults}")
     elif _faults.arm_from_env() is not None:
         print("fault injection armed from DLI_FAULTS")
+    if args.compile_cache:
+        # before the model loads: no kernel library is loaded yet
+        from .. import kernels
+
+        kernels.set_build_dir(args.compile_cache)
 
     model, params, dtype = args.model, None, args.dtype
     if args.checkpoint:
@@ -1446,6 +1561,7 @@ def main(argv: Optional[list] = None):
             tenant_max_queue_share=args.tenant_queue_share,
             adapter_slots=args.adapter_slots,
             adapter_rank=args.adapter_rank,
+            trace_sample_rate=args.trace_sample_rate,
         ),
         draft_model=args.draft_model,
         lora=args.lora,

@@ -3,8 +3,9 @@
 The serving stack's measurement substrate: the part of the JAX package's
 utils/metrics.py that the solo engine and server use. Counter / Gauge /
 Histogram families, labeled (`engine` / `route` / `model` / ...), all
-thread-safe, rendered by `render()` as Prometheus text exposition (served
-at `GET /metrics`); `percentile` is the nearest-rank formula /stats uses.
+thread-safe, rendered two ways from ONE store: `render()`, the Prometheus
+text exposition (served at `GET /metrics`), and `snapshot()`, the JSON
+view; `percentile` is the nearest-rank formula /stats uses.
 
 Design notes:
   * No prometheus_client dependency — the container must not grow deps;
@@ -12,6 +13,10 @@ Design notes:
   * Histograms use FIXED log-spaced latency buckets (DEFAULT_TIME_BUCKETS)
     so TTFT on an accelerator (~ms) and on the CPU (~s) land in resolvable
     buckets from one layout, and bucket layouts never vary per process.
+    Each histogram child also keeps a bounded window of raw observations
+    (the snapshot's exact p50/p90/p99) and, per bucket, its EXEMPLAR: the
+    most recent observation made with a trace id, so a slow bucket links
+    to one inspectable trace (`GET /debug/traces/{trace_id}`).
   * Label cardinality is capped per family (default MAX_SERIES): past the
     cap, new label sets collapse into one `"_other_"` series instead of
     growing without bound — an attacker-controlled label (route, model)
@@ -26,6 +31,7 @@ from __future__ import annotations
 import collections
 import math
 import threading
+import time
 from typing import Optional, Sequence
 
 # Log-spaced latency buckets (seconds): sub-ms device decode steps through
@@ -38,6 +44,8 @@ DEFAULT_TIME_BUCKETS = (
 DEFAULT_SIZE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 MAX_SERIES = 64  # label-set cap per family
+WINDOW = 256  # raw-observation window per histogram child (the engine's
+# rolling sample deque's width, so the JSON percentiles line up)
 
 _OTHER = "_other_"  # collapsed label value once a family hits MAX_SERIES
 
@@ -119,15 +127,22 @@ class GaugeChild(_Child):
 
 
 class HistogramChild(_Child):
-    __slots__ = ("_bucket_counts", "_sum", "_count")
+    __slots__ = ("_bucket_counts", "_sum", "_count", "_window",
+                 "_exemplars")
 
     def __init__(self, family):
         super().__init__(family)
         self._bucket_counts = [0] * (len(family.buckets) + 1)  # +Inf last
         self._sum = 0.0
         self._count = 0
+        self._window = collections.deque(maxlen=WINDOW)
+        # bucket index -> (trace_id, value, ts): the most recent traced
+        # observation per bucket. Bounded by construction (at most
+        # len(buckets) + 1 entries); in the JSON snapshot, not the text
+        # exposition (the 0.0.4 format has no exemplar syntax)
+        self._exemplars: dict = {}
 
-    def observe(self, v: float):
+    def observe(self, v: float, trace_id: Optional[str] = None):
         v = float(v)
         with self._family._lock:
             i = 0
@@ -137,6 +152,22 @@ class HistogramChild(_Child):
             self._bucket_counts[i] += 1
             self._sum += v
             self._count += 1
+            self._window.append(v)
+            if trace_id is not None:
+                self._exemplars[i] = (trace_id, v, time.time())
+
+    def exemplars(self) -> dict:
+        """{bucket_le: {trace_id, value, ts}} for the buckets that have
+        seen a traced observation."""
+        with self._family._lock:
+            items = dict(self._exemplars)
+        les = tuple(self._family.buckets) + (math.inf,)
+        return {
+            _fmt(les[i]): {
+                "trace_id": t, "value": round(v, 6), "ts": round(ts, 3),
+            }
+            for i, (t, v, ts) in sorted(items.items())
+        }
 
     @property
     def count(self) -> int:
@@ -147,6 +178,14 @@ class HistogramChild(_Child):
     def sum(self) -> float:
         with self._family._lock:
             return self._sum
+
+    def window_values(self) -> list:
+        with self._family._lock:
+            return list(self._window)
+
+    def percentile(self, q: float) -> Optional[float]:
+        """Nearest-rank percentile over the recent-observation window."""
+        return percentile(self.window_values(), q)
 
 
 _CHILD_TYPES = {
@@ -233,6 +272,24 @@ class _Family:
             )
         return out
 
+    def snapshot(self) -> dict:
+        series = []
+        for key, child in self._items():
+            entry = {"labels": dict(zip(self.labelnames, key))}
+            if self.type in ("counter", "gauge"):
+                entry["value"] = child.value
+            else:
+                entry["count"] = child.count
+                entry["sum"] = round(child.sum, 6)
+                entry["p50"] = child.percentile(0.5)
+                entry["p90"] = child.percentile(0.9)
+                entry["p99"] = child.percentile(0.99)
+                ex = child.exemplars()
+                if ex:
+                    entry["exemplars"] = ex
+            series.append(entry)
+        return {"type": self.type, "help": self.help, "series": series}
+
 
 class MetricsRegistry:
     """Get-or-create registry of metric families.
@@ -295,6 +352,10 @@ class MetricsRegistry:
         for fam in self.families():
             lines.extend(fam.render_lines())
         return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> dict:
+        """The JSON view over the same families the exposition renders."""
+        return {f.name: f.snapshot() for f in self.families()}
 
 
 def register_supervisor_metrics(registry: MetricsRegistry):

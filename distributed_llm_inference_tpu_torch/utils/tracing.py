@@ -5,7 +5,10 @@ A `Trace` carries a request id and contiguous stage spans — queue_wait,
 prefill, decode, detokenize: `checkpoint(name)` attributes the time since
 the previous checkpoint to `name`, so the spans sum to about the
 end-to-end latency. `SpanContext` / `parse_traceparent` read and mint
-W3C `traceparent` ids so the server can echo `X-Trace-Id`.
+W3C `traceparent` ids, which cross every hop of the fleet (router,
+replica, KV fabric) so each process records its spans under one trace
+(serving/trace_store.py). `sample_decision` picks the traces whose
+launches the continuous fleet attributes (engine_cfg.trace_sample_rate).
 `FlightRecorder` is the bounded ring of control-plane events the fleet's
 supervisor dumps on a crash and `GET /debug/flight` serves.
 """
@@ -29,6 +32,14 @@ def new_request_id() -> str:
     return "req-" + uuid.uuid4().hex[:20]
 
 
+def new_trace_id() -> str:
+    return uuid.uuid4().hex  # 32 hex chars
+
+
+def new_span_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
 def sanitize_request_id(raw) -> Optional[str]:
     """A client-supplied id, or None if absent or unusable (the id is
     echoed into headers and logs, so its charset and length are fenced)."""
@@ -50,11 +61,16 @@ class SpanContext:
 
     @classmethod
     def new_root(cls, sampled: bool = True) -> "SpanContext":
-        return cls(uuid.uuid4().hex, uuid.uuid4().hex[:16], sampled)
+        return cls(new_trace_id(), new_span_id(), sampled)
+
+    def child(self, span_id: Optional[str] = None) -> "SpanContext":
+        """The context of a span opened under this one (its id parents
+        what the next hop records)."""
+        return SpanContext(self.trace_id, span_id or new_span_id(), self.sampled)
 
     def header(self) -> str:
-        """The `traceparent` header value for the next hop (a KV fabric
-        pull or push): this context's span id is its parent."""
+        """The `traceparent` header value for the next hop: this
+        context's span id is its parent."""
         return f"00-{self.trace_id}-{self.span_id}-{'01' if self.sampled else '00'}"
 
 
@@ -70,6 +86,18 @@ def parse_traceparent(raw) -> Optional[SpanContext]:
     if trace_id == "0" * 32 or span_id == "0" * 16:
         return None
     return SpanContext(trace_id, span_id, bool(int(flags, 16) & 1))
+
+
+def sample_decision(trace_id: str, rate: float) -> bool:
+    """Whether a trace's launches are attributed, as a pure function of
+    its id (the JAX package's rule: the first 32 bits against `rate`), so
+    every process of the fleet decides alike and no RNG runs on the hot
+    path. rate <= 0 never samples; rate >= 1 always does."""
+    if rate <= 0.0:
+        return False
+    if rate >= 1.0:
+        return True
+    return int(trace_id[:8], 16) / float(0x100000000) < rate
 
 
 class Trace:

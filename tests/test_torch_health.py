@@ -201,18 +201,17 @@ def test_poison_answers_500_as_in_jax(servers):
 
 
 def test_no_route_of_the_jax_server_answers_404(servers):
-    """Every GET route of the JAX server's single-device fleet answers on
-    the port: served, or 501 naming the ROADMAP.md item that ports it
-    (only /debug/traces now); the OpenAI routes are served."""
+    """Every GET route of the JAX server's single-device fleet is served
+    on the port, none with 404 or 501 (/debug/traces, the last one not
+    ported, since the fleet tier's traces); the OpenAI routes are served."""
     port = servers["port"][2]
     for path in ("/", "/health", "/ready", "/workers", "/stats", "/metrics",
                  "/debug/flight", "/v1/models", "/debug/traces"):
         code, _, body = _get(port, path)
-        assert code != 404, (path, body)
-        if code == 501:
-            assert "ROADMAP.md" in json.loads(body)["error"], path
+        assert code not in (404, 501), (path, body)
     assert _get(port, "/v1/models")[0] == 200
-    assert _get(port, "/debug/traces")[0] == 501
+    code, _, body = _get(port, "/debug/traces")
+    assert code == 200 and "traces" in json.loads(body)
     for path in ("/v1/completions", "/v1/chat/completions"):
         body = ({"prompt": "x", "max_tokens": 2} if path == "/v1/completions" else
                 {"messages": [{"role": "user", "content": "x"}], "max_tokens": 2})

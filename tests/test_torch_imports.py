@@ -163,7 +163,6 @@ def test_not_ported_errors_name_roadmap_headings():
     assert sorted(found) == [
         "distributed_llm_inference_tpu_torch/models/llama.py",
         "distributed_llm_inference_tpu_torch/runtime.py",
-        "distributed_llm_inference_tpu_torch/serving/server.py",
     ], sorted(found)
     missing = {f: sorted(i - headings) for f, i in found.items() if i - headings}
     assert not missing, missing
@@ -188,18 +187,37 @@ def test_named_headings_are_the_ones_roadmap_lists():
 
 
 def test_not_ported_routes_are_routes_the_port_lacks():
-    """Every route the server answers 501 names a ROADMAP.md heading and is
-    not also served; the OpenAI routes left that list when they were
-    ported."""
-    import re
+    """The server answers no route with 501: every route of the JAX
+    server's GET surface is served (the trace store's `/debug/traces`, the
+    last one, since the fleet tier's router and traces were ported), and
+    the OpenAI routes are known."""
+    import json
+    import urllib.error
+    import urllib.request
 
+    from distributed_llm_inference_tpu.serving import server as jax_server
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
     from distributed_llm_inference_tpu_torch.serving import server
 
-    headings = {line.lstrip("#").strip() for line in
-                (ROOT / "ROADMAP.md").read_text().splitlines() if line.startswith("#")}
-    for route, item in server._NOT_PORTED_ROUTES.items():
-        assert route not in server._KNOWN_ROUTES, route
-        assert set(re.findall(r'ROADMAP\.md "([^"]+)"', item)) <= headings, item
-    assert set(server._NOT_PORTED_ROUTES) == {"/debug/traces"}
+    assert not hasattr(server, "_NOT_PORTED_ROUTES")
+    assert "501" not in (ROOT / "distributed_llm_inference_tpu_torch" / "serving"
+                         / "server.py").read_text()
+    assert jax_server._KNOWN_ROUTES <= server._KNOWN_ROUTES
     assert {"/v1/models", "/v1/completions",
             "/v1/chat/completions"} <= server._KNOWN_ROUTES
+    srv = server.InferenceServer(create_engine("test-llama-tiny", device="cpu"),
+                                 "127.0.0.1", 0)
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        with urllib.request.urlopen(base + "/debug/traces", timeout=30) as r:
+            assert r.status == 200 and json.loads(r.read())["traces"] == []
+        for path in ("/debug/traces/" + "ab" * 16, "/debug/traces/x?format=chrome"):
+            with urllib.request.urlopen(base + path, timeout=30) as r:
+                assert r.status == 200
+        for path in ("/no/such/route", "/debug/nothing"):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(base + path, timeout=30)
+            assert e.value.code == 404
+    finally:
+        srv.shutdown()
