@@ -235,6 +235,34 @@ Run after (w), before (x), on replica processes of their own:
       probe window and readmitted after a respawn; the dli_router_*
       counters printed.
 
+Run in a third process after (q) (`chip_smoke.py --only P`, its output
+in build/chip_smoke_lane_P.log, shown after (S)), beside the main
+process's (s)-(S) and the lane, on stage processes of its own:
+
+  (P) the MPMD stage pipeline (serving/stage_runtime.py): tinyllama-1.1b
+      at its published widths, bf16, seed 0, cut into 2 stages by
+      plan_stages (layers 0-11 and 11-22, the source paper's Worker1 /
+      Worker2), each a stage process on the card (`--device cuda
+      --block-size 16`, a restore directory under a temporary directory),
+      the controller and the frontend in this process; the stages start
+      while the in-process reference is built. Each stage holds its half
+      of the weights (its device memory printed, nvidia-smi's and its
+      own), and no stage process maps a kernel library: the stages run
+      the plain path, as the JAX stage worker runs the XLA one. (P1) one
+      greedy /generate through the frontend, a 100-token prompt and 32
+      new tokens, against an in-process single-device reference built
+      from the same seed (M.forward prefill, then T=1 steps): equal, or
+      parted at a near-tie (the reference's top-2 gap there under
+      LOGITS_ATOL); its tokens/s, each hop's wall ms, the wire bytes per
+      crossing. (P2) kill -9 of stage 0, then of stage 1, each after 6
+      decode tokens, under warm restore: the request completes, its ids
+      follow (P1)'s rule against (P1)'s, last_salvage's secs and
+      tokens_recomputed (< 16), every stage's slots free again. (P3) the
+      same request with --wire-quant int8: dli_pp_wire_bytes_total
+      {path="stage"} against (P1)'s, the ratio, the greedy match rate
+      against (P1)'s ids. (P4) POST /admin/rolling-restart under 4
+      concurrent requests: none fails, each one's ids equal its run alone.
+
 Run after (w), before (j), on (g)'s fleet (the same weights, other engine
 settings):
 
@@ -348,21 +376,23 @@ random weights from seed 0, the byte tokenizer):
       bounds, one JSON row per kernel and model. The kernels line gains
       launches_F: every kernel's count over (F)'s main-path runs.
 
-The full run goes in two processes after (q): (x), (y), (z), (C) and
+The full run goes in three processes after (q): (x), (y), (z), (C) and
 (F) run in a second one, `chip_smoke.py --lane x,y,z,C,F`, on an engine
-of its own (the same model and seed, so the same weights), while the main
-process runs (s)-(w), (R) and (S); the lane's output is shown when it
-ends, and its last line carries its kernel counts. Every phase is bound
-by the host (the card idles most of the time) and a process is one
-thread of Python. No kernel is timed while both run: (b), (f) and (n)
-come before the lane, (j) and (F2) after it.
+of its own (the same model and seed, so the same weights), and (P) in a
+third, `chip_smoke.py --only P`, while the main process runs (s)-(w), (R)
+and (S); each lane's output is shown when it ends, and the --lane one's
+last line carries its kernel counts. Every phase is bound by the host
+(the card idles most of the time) and a process is one thread of Python.
+No kernel is timed while the lanes run: (b), (f) and (n) come before
+them, (j) and (F2) after them.
 
 `python3 chip_smoke.py --only s` runs (a), then (s), (t) and (u) alone on
 the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
 `--only w` runs (a), then (w) alone; `--only x` runs (a), then (x) alone;
 `--only y` runs (a), then (y) alone; `--only z` runs (a), then (z) alone;
 `--only S` runs (a), then (S) alone; `--only R` runs (a), then (R)
-alone; `--only F` runs (a), then (F) alone with profiled solo requests,
+alone; `--only P` runs (a), then (P) alone; `--only F` runs (a), then (F)
+alone with profiled solo requests,
 mixed launches and decode chunks of both models (left out of the full run
 for time).
 
@@ -4716,6 +4746,430 @@ def phase_R(torch, kernels, smi, beside_lane=False) -> dict:
     return launches
 
 
+# -- the MPMD stage pipeline over stage processes: phase (P) -------------------------
+
+P_STAGES = 2  # plan_stages(22, 2): layers 0-11 and 11-22
+P_BLOCK = 16
+P_PROMPT = 100  # (P1)-(P3)'s prompt tokens
+P_NEW = 32
+P_KILL_AFTER = 6  # (P2)'s decode tokens before each kill -9
+P4_PROMPTS = (40, 60, 80, 100)  # (P4)'s four concurrent requests
+P4_NEW = 48
+P_DIR = "build/chip_smoke_P"  # the stage processes' logs (gitignored)
+
+
+def p_supervisor(SR, ports, restore_dir):
+    """The runtime's supervisor with each stage's output kept in
+    P_DIR/stage{s}.log (the runtime drops it), so that a stage that fails
+    to start says why."""
+
+    class LoggedSupervisor(SR.StageSupervisor):
+        def spawn(self, stage):
+            with open(f"{P_DIR}/stage{stage}.log", "ab") as log:
+                proc = subprocess.Popen(self.spawn_argv(stage), env=self.env,
+                                        stdout=log, stderr=subprocess.STDOUT)
+            with self._lock:
+                self._procs[stage] = proc
+            return proc
+
+    return LoggedSupervisor(MODEL, P_STAGES, ports, seed=0, block_size=P_BLOCK,
+                            restore_dir=restore_dir, restart_budget=10, env=r_env(),
+                            device=DEVICE)
+
+
+def p_transport(SR, wire_quant=None):
+    """The runtime's HTTP transport, recording each hop's wall by stage and
+    each accounted crossing's bytes by link."""
+
+    class TimedTransport(SR.HttpStageTransport):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.walls, self.links = {}, {}
+
+        def _account_link(self, name, nbytes):
+            self.links.setdefault(name, []).append(nbytes)
+            super()._account_link(name, nbytes)
+
+        def step(self, addr, stage, *a, **kw):
+            t0 = time.perf_counter()
+            out = super().step(addr, stage, *a, **kw)
+            self.walls.setdefault(stage, []).append(time.perf_counter() - t0)
+            return out
+
+        def wire_bytes(self) -> float:
+            return self.registry.get("dli_pp_wire_bytes_total").labels(path="stage").value
+
+    return TimedTransport(wire_quant=wire_quant)
+
+
+def p_reference(torch, M, cfg, prompt_ids, n_new):
+    """(params, greedy ids, the walls of its T=1 steps) of the
+    single-device model on the card from the stages' seed: M.forward over
+    the prompt, then T=1 steps (each ends in the host's read of its
+    token), stopping at EOS as the pipeline does (the EOS not kept)."""
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0))
+    cache = M.init_kv_cache(cfg, 1, len(prompt_ids) + n_new, device=DEVICE)
+    walls = []
+    with torch.no_grad():
+        logits, cache = M.forward(cfg, params, torch.tensor([prompt_ids], device=DEVICE),
+                                  cache, 0)
+        ids, pos = [int(torch.argmax(logits[0, -1]))], len(prompt_ids)
+        while len(ids) < n_new and ids[-1] != cfg.eos_token_id:
+            t0 = time.perf_counter()
+            logits, cache = M.forward(cfg, params, torch.tensor([[ids[-1]]], device=DEVICE),
+                                      cache, pos)
+            ids.append(int(torch.argmax(logits[0, -1])))
+            walls.append(time.perf_counter() - t0)
+            pos += 1
+    return params, [t for t in ids if t != cfg.eos_token_id], walls
+
+
+def p_identity(tag, torch, M, cfg, params, prompt_ids, got, want):
+    """got equals want, or parts only at a near-tie: the reference model's
+    top-2 logit gap after prompt + want[:at] (one teacher-forced forward)
+    under LOGITS_ATOL. Returns None or {at, gap}."""
+    at = parts_at(got, want)
+    if at is None:
+        return None
+    ids = list(prompt_ids) + list(want[:at])
+    cache = M.init_kv_cache(cfg, 1, len(ids), device=DEVICE)
+    with torch.no_grad():
+        logits, _ = M.forward(cfg, params, torch.tensor([ids], device=DEVICE), cache, 0)
+    top = logits[0, -1].float().topk(2).values
+    gap = float(top[0] - top[1])
+    check(gap < LOGITS_ATOL, f"{tag}: the ids part at token {at} where the reference's "
+                             f"top-2 gap is {gap:.4f}")
+    return {"at": at, "gap": round(gap, 4)}
+
+
+def p_slots_free(tag, pipe):
+    for st in pipe.health()["stages"]:
+        slots = st["kv_slots"]
+        check(slots["free"] == slots["total"],
+              f"{tag}: stage {st['stage']} holds slots after the requests: {slots}")
+
+
+def p_stage_memory(pipe, sup, kernels) -> list:
+    """Per stage: its layers, the device memory nvidia-smi reports for its
+    pid (in a container it may list none), torch's allocated / reserved
+    bytes in the stage, and whether a kernel library of `kernels.BUILD` is
+    mapped into the process."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           timeout=60, check=True)
+        smi_used = dict(line.split(", ", 1) for line in r.stdout.strip().splitlines() if line)
+    except (OSError, subprocess.SubprocessError, ValueError):
+        smi_used = {}
+    out = []
+    for st in pipe.health()["stages"]:
+        pid = sup.proc(st["stage"]).pid
+        try:
+            with open(f"/proc/{pid}/maps") as f:
+                mapped = str(kernels.BUILD) in f.read()
+        except OSError:
+            mapped = None
+        out.append({"stage": st["stage"], "layers": st["layers"], "pid": pid,
+                    "nvidia_smi": smi_used.get(str(pid), "not measured"),
+                    "allocated_bytes": st["device_memory"]["allocated_bytes"],
+                    "reserved_bytes": st["device_memory"]["reserved_bytes"],
+                    "kernel_library_mapped": mapped})
+    return out
+
+
+def p_ms(values) -> dict:
+    v = [x * 1e3 for x in values]
+    return {"median": round(statistics.median(v), 3), "min": round(min(v), 3),
+            "max": round(max(v), 3)}
+
+
+def p_stage_steps(pipe, since) -> dict:
+    """Per stage, the wall of its `stage.step` spans (the npz decode and
+    the layers, in the stage process) that began after `since`: the
+    prefill step's ms and the decode steps' median / min / max."""
+    out = {}
+    for s in range(P_STAGES):
+        traces = pipe.transport.get_json(pipe.sup.addr(s), "/debug/traces")
+        spans = [sp for spans in traces.values() for sp in spans
+                 if sp["name"] == "stage.step" and sp["t0"] >= since]
+        pre = [sp["t1"] - sp["t0"] for sp in spans if sp["attrs"]["pos"] == 0]
+        dec = [sp["t1"] - sp["t0"] for sp in spans if sp["attrs"]["pos"] > 0]
+        out[f"stage{s}"] = {"prefill_ms": round(pre[0] * 1e3, 3), "decode_ms": p_ms(dec)}
+    return out
+
+
+def p_request(tag, torch, M, cfg, params, ref, prompt, prompt_ids, pipe, tr, base):
+    """One greedy /generate through the frontend, its ids held to the
+    reference; (row, ids)."""
+    tr.walls.clear()
+    tr.links.clear()
+    bytes0 = tr.wire_bytes()
+    since = time.time()
+    code, out, wall = r_call(base, "/generate", {"prompt": prompt, "max_new_tokens": P_NEW})
+    check(code == 200, f"{tag} /generate answered {code}: {out}")
+    ids = out["tokens"]
+    part = p_identity(tag, torch, M, cfg, params, prompt_ids, ids, ref)
+    act, res = tr.links["stage-activation-dcn"], tr.links["stage-result-dcn"]
+    # per chain: stage 0's reply, then the send to stage 1 (activation), and
+    # stage 1's reply (result); the first chain is the prefill
+    hops = {f"stage{s}": {"prefill_ms": round(w[0] * 1e3, 3), "decode_ms": p_ms(w[1:])}
+            for s, w in sorted(tr.walls.items())}
+    row = {"tokens": len(ids), "wall_s": round(wall, 4),
+           "tokens_per_s": round(len(ids) / wall, 2),
+           "decode_tokens_per_s": round((len(ids) - 1) / sum(
+               sum(w[1:]) for w in tr.walls.values()), 2),
+           "hops": hops, "stage_steps": p_stage_steps(pipe, since),
+           "wire_bytes": {"prefill_crossings": act[:2], "decode_crossings": act[2:4],
+                          "result": res[1], "request_total": tr.wire_bytes() - bytes0,
+                          "decode_per_token": act[2] + act[3] + res[1]},
+           "parted": part}
+    print(f"{tag} /generate through the frontend: {len(ids)} tokens in {wall:.3f} s = "
+          f"{row['tokens_per_s']} tokens/s (decode {row['decode_tokens_per_s']} tokens/s "
+          f"from the hops' walls); ids "
+          + ("equal the in-process reference" if part is None else
+             f"part from the reference at token {part['at']}, top-2 gap {part['gap']} "
+             f"< {LOGITS_ATOL}")
+          + f"; each hop's wall {json.dumps(hops)}; inside the stage (stage.step spans) "
+          f"{json.dumps(row['stage_steps'])}; wire bytes {json.dumps(row['wire_bytes'])}")
+    return row, ids
+
+
+def phase_P1(torch, M, cfg, params, ref, prompt, prompt_ids, pipe, tr, base, smi) -> dict:
+    """(P1) one greedy /generate through the frontend on the fresh stages
+    (cold: each stage's first step pays cuBLAS and allocator warm-up),
+    then the same request warm."""
+    cold, ids = p_request("(P1) cold", torch, M, cfg, params, ref, prompt, prompt_ids,
+                          pipe, tr, base)
+    warm, ids_warm = p_request("(P1) warm", torch, M, cfg, params, ref, prompt, prompt_ids,
+                               pipe, tr, base)
+    check(ids_warm == ids, f"(P1) the warm repeat parts from the cold run at "
+                           f"{parts_at(ids_warm, ids)}")
+    lost = [e for e in pipe.flight.events() if e["kind"] == "heartbeat_lost"]
+    print(f"(P1) the warm repeat's ids equal the cold run's; heartbeats lost so far "
+          f"{len(lost)} ({smi})")
+    return {"row": {"cold": cold, "warm": warm, "heartbeat_lost": len(lost)}, "ids": ids,
+            "bytes": warm["wire_bytes"]["request_total"]}
+
+
+def phase_P2(torch, M, cfg, params, prompt, prompt_ids, want, pipe, sup, smi) -> list:
+    """(P2) kill -9 of each stage after P_KILL_AFTER decode tokens."""
+    rows = []
+    for victim in range(P_STAGES):
+        t0 = time.perf_counter()
+        rid = pipe.start(prompt)
+        for _ in range(P_KILL_AFTER):
+            check(pipe.step_once(rid) is not None, "(P2) request ended before the kill")
+        proc = sup.proc(victim)
+        proc.kill()  # SIGKILL: no drain, no flush
+        proc.wait(timeout=30)
+        n = 1 + P_KILL_AFTER
+        while n < P_NEW and pipe.step_once(rid) is not None:
+            n += 1
+        ids = pipe.finish(rid)["tokens"]
+        wall = time.perf_counter() - t0
+        salvage = pipe.last_salvage()
+        check(salvage.get("stage") == victim, f"(P2) last salvage {salvage}, victim {victim}")
+        recomputed = salvage["tokens_recomputed"][rid]
+        check(0 < recomputed < P_BLOCK,
+              f"(P2) stage {victim}: {recomputed} tokens recomputed, not in (0, {P_BLOCK})")
+        part = p_identity(f"(P2) stage {victim}", torch, M, cfg, params, prompt_ids, ids, want)
+        p_slots_free(f"(P2) stage {victim}", pipe)
+        row = {"victim": victim, "salvage_secs": salvage["secs"],
+               "tokens_recomputed": recomputed, "request_wall_s": round(wall, 3),
+               "parted": part}
+        rows.append(row)
+        print(f"(P2) kill -9 of stage {victim} after {P_KILL_AFTER} decode tokens: the request "
+              f"completed ({len(ids)} tokens, {wall:.3f} s), salvage {salvage['secs']} s, "
+              f"{recomputed} tokens recomputed (< {P_BLOCK}), ids "
+              + ("equal the fault-free run's" if part is None else
+                 f"part at token {part['at']}, top-2 gap {part['gap']} < {LOGITS_ATOL}")
+              + f", every stage's slots free ({smi})")
+    return rows
+
+
+def phase_P3(SR, prompt, want, raw_bytes, sup, smi) -> dict:
+    """(P3) the same request over the int8 wire (the stages quantize their
+    replies when asked: no respawn)."""
+    tr8 = p_transport(SR, "int8")
+    pipe8 = SR.MPMDPipeline(sup, transport=tr8)
+    t0 = time.perf_counter()
+    ids = pipe8.generate(prompt, P_NEW)["tokens"]
+    wall = time.perf_counter() - t0
+    q_bytes = tr8.wire_bytes()
+    check(0 < q_bytes < raw_bytes, f"(P3) int8 wire bytes {q_bytes}, raw {raw_bytes}")
+    n = max(len(ids), len(want))
+    match = sum(a == b for a, b in zip(ids, want)) / n
+    act = tr8.links["stage-activation-dcn"]
+    row = {"raw_bytes": raw_bytes, "int8_bytes": q_bytes,
+           "ratio": round(raw_bytes / q_bytes, 3),
+           "prefill_crossings": act[:2], "decode_crossings": act[2:4],
+           "greedy_match_rate": round(match, 4), "first_parting": parts_at(ids, want),
+           "wall_s": round(wall, 3)}
+    # stage 0's reply answers a token window, which carries no X-Stage-Quant
+    # header, so it ships fp32 (as in the JAX transport); the send to stage
+    # 1 ships int8
+    print(f"(P3) --wire-quant int8: dli_pp_wire_bytes_total{{path=\"stage\"}} {q_bytes:.0f} "
+          f"against raw {raw_bytes:.0f} ({row['ratio']}x fewer); crossings (stage 0's "
+          f"reply, the send to stage 1): prefill {row['prefill_crossings']}, decode "
+          f"{row['decode_crossings']} bytes; greedy match rate against raw "
+          f"{row['greedy_match_rate']} (first parting at {row['first_parting']}), "
+          f"{wall:.3f} s ({smi})")
+    return row
+
+
+def phase_P4(pipe, base, smi) -> dict:
+    """(P4) a rolling restart of both stages under 4 concurrent requests."""
+    import threading
+
+    bodies = [{"prompt": fleet_prompt(60 + i, n), "max_new_tokens": P4_NEW}
+              for i, n in enumerate(P4_PROMPTS)]
+    lone = []
+    for body in bodies:
+        code, out, _ = r_call(base, "/generate", body)
+        check(code == 200, f"(P4) a request alone answered {code}: {out}")
+        lone.append(out["tokens"])
+    results = [None] * len(bodies)
+
+    def run(i):
+        results[i] = r_call(base, "/generate", bodies[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while pipe.health()["active_requests"] < len(bodies):
+        check(time.perf_counter() - t0 < 60, "(P4) the 4 requests never ran together")
+        time.sleep(0.02)
+    t_rr = time.perf_counter()
+    code, report, rr_wall = r_call(base, "/admin/rolling-restart", {})
+    for t in threads:
+        t.join()
+    check(code == 200, f"(P4) rolling restart answered {code}: {report}")
+    check([r["stage"] for r in report["stages"]] == list(range(P_STAGES)),
+          f"(P4) rolling restart report {report}")
+    failed = [i for i, r in enumerate(results) if r[0] != 200]
+    check(not failed, f"(P4) requests {failed} failed: {[results[i][1] for i in failed]}")
+    differ = [i for i, r in enumerate(results) if r[1]["tokens"] != lone[i]]
+    check(not differ, f"(P4) requests {differ} differ from their runs alone")
+    p_slots_free("(P4)", pipe)
+    row = {"rolling_restart_s": round(rr_wall, 3), "stages": report["stages"],
+           "started_after_s": round(t_rr - t0, 3),
+           "request_walls_s": [round(r[2], 3) for r in results]}
+    print(f"(P4) rolling restart under {len(bodies)} concurrent requests (started "
+          f"{row['started_after_s']} s after them): {rr_wall:.3f} s, per stage "
+          f"{json.dumps(report['stages'])}; no request failed, each one's ids equal its run "
+          f"alone; request walls {row['request_walls_s']} s ({smi})")
+    return row
+
+
+class PFleet:
+    """(P)'s stage processes, started in a thread of their own (the
+    controller's start_fleet: spawn, /ready, the heartbeat monitor) so that
+    the reference is built while they start; `stop` reaps them."""
+
+    def __init__(self):
+        import os
+        import tempfile
+        import threading
+
+        from distributed_llm_inference_tpu_torch.serving import stage_runtime as SR
+
+        self.t0 = time.time()
+        os.makedirs(P_DIR, exist_ok=True)
+        self.restore_dir = tempfile.mkdtemp(prefix="chip_smoke_P_")
+        self.sup = p_supervisor(SR, [SR.free_port() for _ in range(P_STAGES)],
+                                self.restore_dir)
+        self.tr = p_transport(SR)
+        self.pipe = SR.MPMDPipeline(self.sup, transport=self.tr, auto_salvage=True)
+        self.error, self.ready_s = None, None
+        self.thread = threading.Thread(target=self._start, name="p-fleet-start")
+        self.thread.start()
+
+    def _start(self):
+        try:
+            self.pipe.start_fleet(ready_timeout_s=300)
+        except BaseException as e:  # noqa: BLE001 - re-raised by wait()
+            self.error = e
+        self.ready_s = time.time() - self.t0
+
+    def wait(self):
+        self.thread.join()
+        if self.error is not None:
+            logs = "; ".join(f"stage{s}: " + open(f"{P_DIR}/stage{s}.log", errors="replace")
+                             .read()[-1500:] for s in range(P_STAGES))
+            raise SmokeFailure(f"(P) the stages did not start: {self.error}; {logs}")
+
+    def stop(self):
+        import shutil
+
+        self.thread.join()
+        self.pipe.shutdown()
+        shutil.rmtree(self.restore_dir, ignore_errors=True)
+
+
+def phase_P(torch, kernels, smi) -> dict:
+    """The 2-stage pipeline of stage processes on the card, its controller
+    and frontend in this process, against an in-process reference."""
+    import threading
+
+    from distributed_llm_inference_tpu_torch.models import api as M
+    from distributed_llm_inference_tpu_torch.models.registry import get_model_config
+    from distributed_llm_inference_tpu_torch.serving import stage_runtime as SR
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    t0 = time.time()
+    fleet = PFleet()
+    sup, tr, pipe = fleet.sup, fleet.tr, fleet.pipe
+    cfg = get_model_config(MODEL).replace(dtype=SR.CARD_DTYPE)
+    srv = None
+    try:
+        # the reference is built while the stages start
+        prompt = fleet_prompt(42, P_PROMPT)
+        prompt_ids = ByteTokenizer().encode(prompt)
+        check(len(prompt_ids) == P_PROMPT, f"(P) prompt of {len(prompt_ids)} tokens")
+        params, ref, ref_walls = p_reference(torch, M, cfg, prompt_ids, P_NEW)
+        check(len(ref) == P_NEW, f"(P) the reference ended at EOS after {len(ref)} tokens")
+        full_bytes = sum(t.numel() * t.element_size() for t in
+                         [params["embed"], params["final_norm"], params["lm_head"],
+                          *params["layers"].values()])
+        fleet.wait()
+        mem = p_stage_memory(pipe, sup, kernels)
+        for m in mem:
+            check(m["reserved_bytes"] < 0.6 * full_bytes,
+                  f"(P) stage {m['stage']} holds {m['reserved_bytes']} bytes of the card "
+                  f"against the model's {full_bytes}: more than its half")
+            check(m["kernel_library_mapped"] is not True,
+                  f"(P) stage {m['stage']} mapped a kernel library")
+        print(f"(P) {P_STAGES} stage processes of {MODEL} ({cfg.dtype}, seed 0, "
+              f"--block-size {P_BLOCK}, --device {DEVICE}) ready {fleet.ready_s:.1f} s after "
+              f"the spawn; the in-process reference's T=1 step over all "
+              f"{cfg.n_layers} layers (warm) {json.dumps(p_ms(ref_walls[2:]))} ms; the "
+              f"model's weights "
+              f"{full_bytes / 2**30:.3f} GiB; per stage {json.dumps(mem)} ({smi})")
+        port = SR.free_port()
+        srv = SR.serve_frontend(pipe, port)
+        threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
+                         daemon=True).start()
+        base = f"http://127.0.0.1:{port}"
+        out = {"memory": mem}
+        p1 = phase_P1(torch, M, cfg, params, ref, prompt, prompt_ids, pipe, tr, base, smi)
+        out["P1"] = p1["row"]
+        out["P2"] = phase_P2(torch, M, cfg, params, prompt, prompt_ids, p1["ids"], pipe,
+                             sup, smi)
+        del params
+        torch.cuda.empty_cache()
+        out["P3"] = phase_P3(SR, prompt, p1["ids"], p1["bytes"], sup, smi)
+        out["P4"] = phase_P4(pipe, base, smi)
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        fleet.stop()
+    print(f"(P) took {time.time() - t0:.1f} s ({smi})")
+    print("(P) " + json.dumps({"stage_pipeline": out}))
+    return out
+
+
 # -- speculation on the mixed launch: phase (x) --------------------------------------
 
 # (x1)'s wave: 8 greedy requests whose prompts repeat one sentence, 200-600
@@ -7605,46 +8059,52 @@ def phase_F2(torch, timer, pa, fa, Q, P, shapes) -> list:
 # line.
 LANE_PHASES = ("x", "y", "z", "C", "F")
 LANE_LOG = "build/chip_smoke_lane.log"  # the lane's output, shown when it ends
+P_LANE_LOG = "build/chip_smoke_lane_P.log"  # (P)'s lane
 # (F3)'s MoE depth in the lane: 12 of 48 layers (--only F keeps all 48),
 # so that its engines and the main process's replicas fit on the card at once
 F_MOE_LANE_LAYERS = 12
 
 
-def start_lane(phases) -> subprocess.Popen:
-    """`chip_smoke.py --lane` on `phases`, its output to LANE_LOG."""
+def start_lane(phases, log_path=LANE_LOG) -> subprocess.Popen:
+    """`chip_smoke.py --lane` on `phases` (`--only P` for ["P"]), its
+    output to log_path."""
     import os
 
-    os.makedirs(os.path.dirname(LANE_LOG), exist_ok=True)
-    with open(LANE_LOG, "w") as log:
-        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--lane",
-                                 ",".join(phases)], stdout=log, stderr=subprocess.STDOUT)
+    args = ["--only", "P"] if phases == ["P"] else ["--lane", ",".join(phases)]
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
+                                stdout=log, stderr=subprocess.STDOUT)
     print(f"(lane) {', '.join(phases)} started in a process of their own (pid "
           f"{proc.pid}); their output follows when they end")
     return proc
 
 
-def lane_tail() -> str:
-    with open(LANE_LOG) as f:
+def lane_tail(log_path=LANE_LOG) -> str:
+    with open(log_path) as f:
         return f.read()[-6000:]
 
 
-def join_lane(proc) -> dict:
-    """Wait for the lane, show its output, and return its LANE line."""
+def join_lane(proc, log_path=LANE_LOG, last_prefix="LANE "):
+    """Wait for a lane, show its output, and return its last line that
+    starts with last_prefix (the LANE line's JSON for the --lane one)."""
     rc = proc.wait()
-    with open(LANE_LOG) as f:
+    with open(log_path) as f:
         text = f.read()
     sys.stdout.write(text if text.endswith("\n") or not text else text + "\n")
-    last = [line for line in text.splitlines() if line.startswith("LANE ")]
+    last = [line for line in text.splitlines() if line.startswith(last_prefix)]
     if rc != 0 or not last:
         print(f"the lane exited with {rc}; the end of its output:\n{text[-6000:]}",
               file=sys.stderr)
-    check(rc == 0 and bool(last), f"the lane ({LANE_LOG}) exited with {rc}")
-    return json.loads(last[-1][len("LANE "):])
+    check(rc == 0 and bool(last), f"the lane ({log_path}) exited with {rc}")
+    return json.loads(last[-1][len(last_prefix):]) if last_prefix == "LANE " else last[-1]
 
 
-def stop_lane(proc):
-    """Stop the lane if it still runs (the main process failed first): its
-    SIGTERM handler runs its finally blocks, which stop its servers."""
+def stop_lane(proc, log_path=LANE_LOG):
+    """Stop a lane if it still runs (the main process failed first): its
+    SIGTERM handler runs its finally blocks, which stop its servers (a
+    `--only P` lane has none; its stage processes leave once they see
+    their parent gone)."""
     if proc.poll() is not None:
         return
     proc.terminate()
@@ -7653,7 +8113,8 @@ def stop_lane(proc):
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait(timeout=30)
-    print(f"the lane was stopped; the end of its output:\n{lane_tail()}", file=sys.stderr)
+    print(f"the lane was stopped; the end of its output:\n{lane_tail(log_path)}",
+          file=sys.stderr)
 
 
 def main_lane(lane, torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start):
@@ -7743,7 +8204,7 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z",
-                                       "C", "S", "F", "R"],
+                                       "C", "S", "F", "R", "P"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -7765,7 +8226,8 @@ def main(argv) -> int:
                          "(F): gpt2-medium and qwen3-30b-a3b at full width, the "
                          "kernels at their widths, and --checkpoint; or (R) alone "
                          "(R): the port's router in front of replica processes, "
-                         "the fleet's traces, failover")
+                         "the fleet's traces, failover; or (P) alone (P): the MPMD "
+                         "stage pipeline of stage processes over HTTP")
     ap.add_argument("--lane", help="run (a) and then these later phases of the full run "
                                    "(a comma-separated subset of "
                                    + ",".join(LANE_PHASES) + ") on an engine of their "
@@ -7845,6 +8307,10 @@ def main(argv) -> int:
         launches = phase_R(torch, kernels, smi)
         print(f"(R) total {time.time() - t_start:.1f} s")
         print("(R) " + json.dumps({"launches_R": launches}))
+        return 0
+    if args.only == "P":
+        phase_P(torch, kernels, smi)
+        print(f"(P) total {time.time() - t_start:.1f} s")
         return 0
     if args.only == "F":
         launches, shapes = phase_F(torch, pa, fa, Q, P, G, M, smi, profile=True)
@@ -7977,11 +8443,16 @@ def main(argv) -> int:
     # beside (s)-(S) below; no kernel is timed in either until it has ended
     torch.cuda.empty_cache()
     lane = start_lane(LANE_PHASES)
+    # (P) the MPMD stage pipeline, a third process: its controller and
+    # frontend, and its two stage processes (it loads no kernel)
+    p_lane = start_lane(["P"], P_LANE_LOG)
     try:
         lane_out, r_launches, s_launches = main_lane(
             lane, torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start)
+        join_lane(p_lane, P_LANE_LOG, last_prefix="(P) total")
     finally:
         stop_lane(lane)
+        stop_lane(p_lane, P_LANE_LOG)
     x_launches, y_launches, z_launches, c_launches, f_launches = (
         lane_out[k] for k in ("x", "y", "z", "C", "F"))
     print(f"(lane) joined; total {time.time() - t_start:.1f} s")

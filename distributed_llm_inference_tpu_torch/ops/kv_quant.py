@@ -21,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from .wire_quant import quantize_rows
+
 
 class KVQuant:
     """int8 cache leaf: q [..., S, Dh] int8, s [..., S] fp32 scales."""
@@ -64,15 +66,11 @@ def init_quant_cache(n_layers: int, batch: int, n_kv: int, max_seq: int,
 
 
 def quantize_chunk(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 over the last axis, one fp32 scale per leading row:
-    x [..., Dh] -> (q [..., Dh] int8, s [...] fp32). The JAX package's
-    ops/wire_quant.quantize_rows, kept here: the same 1e-12 floor (an
-    all-zero row stays zero), round half to even and clip to +-127, so q
-    and s are bit-equal to the JAX package's."""
-    x32 = x.float()
-    s = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-12)
-    q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127).to(torch.int8)
-    return q, s
+    """Symmetric int8 over the head_dim axis: x [B, T, KV, Dh] ->
+    (q [B, T, KV, Dh] int8, s [B, T, KV] fp32). The symmetric per-row
+    primitive is shared with the stage wire format (ops/wire_quant.py), so
+    cache and wire quantization cannot drift numerically."""
+    return quantize_rows(x)
 
 
 def dequantize(leaf: KVQuant) -> torch.Tensor:

@@ -73,11 +73,10 @@ def test_constrain_imports_nothing_of_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("module", ["engine/prefix.py", "serving/queue.py"])
-def test_solo_feature_modules_import_nothing_of_jax(module):
-    """engine/prefix.py (written anew: the JAX one imports jax) and
-    serving/queue.py (copied) import neither jax nor the JAX package, and
-    each loads alone without pulling either in."""
+def _loads_alone_without_jax(module: str):
+    """`module` (a path under the package) imports neither jax nor the JAX
+    package by name, and loads alone in a fresh interpreter without
+    pulling either in."""
     path = ROOT / "distributed_llm_inference_tpu_torch" / module
     tree = ast.parse(path.read_text())
     imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
@@ -96,6 +95,23 @@ def test_solo_feature_modules_import_nothing_of_jax(module):
     r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("module", ["engine/prefix.py", "serving/queue.py"])
+def test_solo_feature_modules_import_nothing_of_jax(module):
+    """engine/prefix.py (written anew: the JAX one imports jax) and
+    serving/queue.py (copied) import neither jax nor the JAX package, and
+    each loads alone without pulling either in."""
+    _loads_alone_without_jax(module)
+
+
+@pytest.mark.parametrize("module", ["serving/stage_runtime.py", "parallel/schedule.py",
+                                    "ops/wire_quant.py"])
+def test_stage_pipeline_modules_import_nothing_of_jax(module):
+    """The MPMD stage runtime (written anew on torch), the stage planning
+    (copied from the JAX parallel/schedule.py) and the int8 wire format
+    import neither jax nor the JAX package, and each loads alone."""
+    _loads_alone_without_jax(module)
 
 
 def test_chip_smoke_imports_nothing_of_jax():
