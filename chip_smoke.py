@@ -376,12 +376,36 @@ random weights from seed 0, the byte tokenizer):
       bounds, one JSON row per kernel and model. The kernels line gains
       launches_F: every kernel's count over (F)'s main-path runs.
 
-The full run goes in three processes after (q): (x), (y), (z), (C) and
+Run in a fourth process once the main process's (S) and the second
+lane are done (`chip_smoke.py --only D`, its output in build/chip_smoke_lane_D.log,
+shown after (P)), on rank processes of its own:
+
+  (D) the dp x pp x tp pipeline backend (parallel/pipeline.py),
+      tinyllama-1.1b bf16 seed 0. (D1) (g)'s fleet and wave (greedy, the
+      unsheddable "batch" class) over pp = 2 (layers 0-11 and 11-22 on
+      two ranks; on one card they share it over gloo) through the HTTP
+      server, each fleet's second (warm) wave against the single device's
+      fleet: ids equal, or parted at a near tie with every later token
+      near-top under teacher forcing, each rank's kernel counts
+      (n_layers / 2 per ragged launch and per decode step) and its own
+      torch.profiler trace of a third wave (its kernels, its device busy
+      time, its host seconds inside each collective; the driver's
+      programs, pipe bytes and waits), TTFT, aggregate tokens/s, each
+      rank's memory. (D2) tp = 2 solo (16 / 2 heads a rank): prefill
+      logits against the plain path within LOGITS_ATOL, flash_attend
+      n_layers times per rank. (D3) pp = 2 solo: prefill logits against
+      the single device's within LOGITS_ATOL, ids held as in (D1); then
+      --pp-wire-quant int8 against the raw wire: bytes per path. (D4) a one-rank NCCL mesh through the same
+      backend, bit-equal to the single device; with several cards, a pp =
+      2 x tp = 2 (or pp = 2) mesh of ranks on cards of their own, NCCL
+      across ranks. The kernels line gains launches_D.
+
+The full run goes in four processes after (q): (x), (y), (z), (C) and
 (F) run in a second one, `chip_smoke.py --lane x,y,z,C,F`, on an engine
 of its own (the same model and seed, so the same weights), and (P) in a
 third, `chip_smoke.py --only P`, while the main process runs (s)-(w), (R)
-and (S); each lane's output is shown when it ends, and the --lane one's
-last line carries its kernel counts. Every phase is bound by the host
+and (S), then (D) in a fourth once those are joined; each lane's output is shown when it ends,
+and the --lane one's last line carries its kernel counts. Every phase is bound by the host
 (the card idles most of the time) and a process is one thread of Python.
 No kernel is timed while the lanes run: (b), (f) and (n) come before
 them, (j) and (F2) after them.
@@ -391,7 +415,8 @@ the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
 `--only w` runs (a), then (w) alone; `--only x` runs (a), then (x) alone;
 `--only y` runs (a), then (y) alone; `--only z` runs (a), then (z) alone;
 `--only S` runs (a), then (S) alone; `--only R` runs (a), then (R)
-alone; `--only P` runs (a), then (P) alone; `--only F` runs (a), then (F)
+alone; `--only P` runs (a), then (P) alone; `--only D` runs (a), then (D)
+alone; `--only F` runs (a), then (F)
 alone with profiled solo requests,
 mixed launches and decode chunks of both models (left out of the full run
 for time).
@@ -4842,6 +4867,25 @@ def p_identity(tag, torch, M, cfg, params, prompt_ids, got, want):
     return {"at": at, "gap": round(gap, 4)}
 
 
+def p_forced(tag, torch, M, cfg, params, prompt_ids, got, at):
+    """Every token of `got` from index `at` on is a near-top choice of the
+    reference model fed got's own earlier tokens (teacher forcing, one
+    forward of prompt + got): its logit within LOGITS_ATOL of that
+    position's top logit. Returns the largest shortfall."""
+    ids = list(prompt_ids) + list(got)
+    cache = M.init_kv_cache(cfg, 1, len(ids), device=DEVICE)
+    with torch.no_grad():
+        logits, _ = M.forward(cfg, params, torch.tensor([ids], device=DEVICE), cache, 0)
+    rows = logits[0, len(prompt_ids) - 1 + at: len(ids) - 1].float()
+    picked = rows.gather(1, torch.tensor(got[at:], device=DEVICE)[:, None])[:, 0]
+    short = rows.max(dim=1).values - picked
+    worst = float(short.max()) if short.numel() else 0.0
+    bad = [at + int(i) for i in torch.nonzero(short >= LOGITS_ATOL)[:, 0].tolist()]
+    check(not bad, f"{tag}: teacher-forced, the tokens at {bad} are not within "
+                   f"{LOGITS_ATOL} of the reference's top logit (worst {worst:.4f})")
+    return worst
+
+
 def p_slots_free(tag, pipe):
     for st in pipe.health()["stages"]:
         slots = st["kv_slots"]
@@ -5168,6 +5212,364 @@ def phase_P(torch, kernels, smi) -> dict:
     print(f"(P) took {time.time() - t0:.1f} s ({smi})")
     print("(P) " + json.dumps({"stage_pipeline": out}))
     return out
+
+
+# -- the dp x pp x tp pipeline backend: phase (D) -----------------------------------
+
+D_LANE_LOG = "build/chip_smoke_lane_D.log"  # (D)'s lane
+D_SOLO_PROMPT = 100  # (D2)-(D4)'s solo prompt, prefilled as one T>1 chunk
+D_SOLO_NEW = 16
+
+
+def d_create(torch, mesh=None, **kw):
+    """create_backend at (c)'s model, dtype and seed on the card (a mesh's
+    ranks on cuda:0, round-robin over the one card)."""
+    from distributed_llm_inference_tpu_torch.config import MeshConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_backend
+
+    kw.setdefault("attn_impl", "auto")
+    return create_backend(MODEL, mesh_cfg=mesh or MeshConfig(), dtype="bfloat16",
+                          seed=0, device=DEVICE, **kw)
+
+
+def d_solo(torch, G, backend, prompt_ids, n_new=D_SOLO_NEW):
+    """One greedy prefill of the prompt (one T>1 chunk) and n_new - 1
+    decode steps: (ids, prefill logits)."""
+    samp = G.default_sampling(greedy=True)
+    T = len(prompt_ids)
+    cache = backend.init_cache(1, T + n_new)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    first, logits, cache = backend.prefill(torch.tensor([prompt_ids], device=DEVICE), T,
+                                           cache, gen, samp)
+    out, n_gen, _ = backend.decode(first, cache, T, n_new - 1, gen, samp,
+                                   max_steps=n_new - 1)
+    torch.cuda.synchronize()
+    return [int(first[0])] + out[0, : int(n_gen[0])].tolist(), logits.float()
+
+
+def d_sum(counts: list) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def d_attention_events(prof: dict) -> dict:
+    """A rank's profiled device kernels folded by attention kernel: the
+    ragged walk (flash_walk.cuh's `walk` over a block table), the paged
+    decode's split walk and its combine, the dense flash walk."""
+    out = {"ragged_walk": 0, "decode_walk_split": 0, "decode_walk_combine": 0,
+           "flash_walk_dense": 0, "other": 0}
+    for name, n in prof.items():
+        if "walk_split" in name:
+            out["decode_walk_split"] += n
+        elif "walk_combine" in name:
+            out["decode_walk_combine"] += n
+        elif "walk<" in name and "PAGED" in name.upper():
+            out["ragged_walk"] += n
+        elif "walk<" in name:
+            out["flash_walk_dense"] += n
+        else:
+            out["other"] += n
+    return out
+
+
+def d_memory(backend) -> list:
+    return [{"rank": r["rank"], "stage": r["stage"], "tp_rank": r["tp_rank"],
+             "layers": f"{r['layers'][0]}-{r['layers'][-1] + 1}",
+             "allocated_bytes": r.get("memory_allocated_bytes"), "status": r["status"]}
+            for line in backend.health() for r in line["ranks"]]
+
+
+def phase_D1(torch, M, pa, fa, Q, smi) -> dict:
+    """The paged fleet of (g) over pp = 2 through the HTTP server, against
+    the single-device fleet on the same weights."""
+    import gc
+
+    from distributed_llm_inference_tpu_torch.config import EngineConfig, MeshConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    which = range(len(FLEET_PROMPT_TOKENS))
+    # greedy, and in the "batch" class, which the fleet never sheds: the
+    # eager mesh's TTFT overruns the default class's 2 s target
+    bodies = [{"prompt": fleet_prompt(i, FLEET_PROMPT_TOKENS[i]),
+               "max_tokens": FLEET_NEW_TOKENS, "chat": False, "greedy": True,
+               "slo_class": "batch"} for i in which]
+    ecfg = EngineConfig(prefill_buckets=PREFILL_BUCKETS)
+    # the single device's fleet: the reference ids; each fleet serves the
+    # wave twice and the second, warm, is the one compared
+    single = create_engine(MODEL, dtype="bfloat16", attn_impl="auto", seed=0,
+                           device=DEVICE, engine_cfg=ecfg)
+    cfg = single.cfg
+    fleet, server = fleet_server(single, FLEET)
+    try:
+        serve_wave(server, bodies, pa, fa, Q)
+        ref, ref_s, _, _, _ = serve_wave(server, bodies, pa, fa, Q)
+    finally:
+        server.shutdown()
+        fleet.close()
+    check_wave("(D1) single device", ref, which)
+    del single, fleet, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    engine = create_engine(MODEL, dtype="bfloat16", attn_impl="auto", seed=0,
+                           device=DEVICE, engine_cfg=ecfg, mesh_cfg=MeshConfig(pp=2))
+    be = engine.backend
+    print(f"(D1) {MODEL} over pp=2: ranks on {[str(d) for d in be.mesh.devices]}, "
+          f"process-group backend {be.mesh.backend} (gloo where the ranks share a "
+          f"card: NCCL refuses two ranks on one), built in {time.time() - t0:.1f} s; "
+          f"memory per rank {json.dumps(d_memory(be))} ({smi})")
+    want = "gloo" if torch.cuda.device_count() == 1 else "nccl"
+    check(be.mesh.backend == want, f"(D1) backend {be.mesh.backend} on "
+                                   f"{torch.cuda.device_count()} card(s)")
+    fleet, server = fleet_server(engine, FLEET)
+    try:
+        serve_wave(server, bodies, pa, fa, Q)
+        before = get(server.port, "/stats")[1]["continuous"]
+        rag0 = ragged_launches(engine)
+        be.launch_counts(reset=True)
+        got, wave_s, _, _, after = serve_wave(server, bodies, pa, fa, Q)
+        counts = be.launch_counts()
+        rag = ragged_launches(engine) - rag0
+        mem = d_memory(be)
+        # a third wave under every rank's torch.profiler
+        be.profile(True)
+        _, prof_wave_s, _, _, _ = serve_wave(server, bodies, pa, fa, Q)
+        prof = be.profile(False)
+    finally:
+        server.shutdown()
+        fleet.close()
+    check_wave("(D1) pp=2", got, which)
+    L = engine.cfg.n_layers
+    per_rank = L // 2
+    chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+    steps = after["chunk_steps"]
+    for r, c in enumerate(counts):
+        check(c["ragged_paged_attend"] == per_rank * rag > 0,
+              f"(D1) rank {r}: ragged_paged_attend {c['ragged_paged_attend']} for {rag} "
+              f"ragged launches of {per_rank} layers")
+        check(c["paged_flash_attend"] == per_rank * steps * chunks > 0,
+              f"(D1) rank {r}: paged_flash_attend {c['paged_flash_attend']} for {chunks} "
+              f"decode chunks of {steps} steps x {per_rank} layers")
+    events = [d_attention_events(p["kernels"]) for p in prof["ranks"]]
+    for r, e in enumerate(events):
+        check(e["ragged_walk"] > 0 and e["decode_walk_split"] > 0,
+              f"(D1) rank {r}'s profiler saw no paged attention kernel: {e}")
+    print(f"(D1) the profiled wave's device kernels by rank, most launched first: "
+          + json.dumps([sorted(p["kernels"].items(), key=lambda kv: -kv[1])[:8]
+                        for p in prof["ranks"]]))
+    drv = prof["driver"]
+    split = {"wave_s": prof_wave_s, "programs": drv.get("programs", 0),
+             "input_bytes_per_program": drv.get("input_bytes", 0) / max(1, drv.get("programs", 0)),
+             "driver_send_s": drv.get("send_s", 0.0), "driver_shard_s": drv.get("shard_s", 0.0),
+             "driver_wait_s": drv.get("wait_s", 0.0),
+             "ranks": [{"rank": r, "busy_ms": p["busy_ms"], "wall_ms": p["wall_ms"],
+                        "busy_share": p["busy_ms"] / p["wall_ms"], "comm_s": p["comm_s"]}
+                       for r, p in enumerate(prof["ranks"])]}
+    print(f"(D1) where the profiled wave's time goes: programs and pipe bytes on the "
+          f"driver, each rank's device busy time (the union of its kernels) and host "
+          f"seconds inside each collective {json.dumps(split)} ({smi})")
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    parted, params = [], None
+    for i, ((_, w, _), (_, g, _)) in enumerate(zip(ref, got)):
+        if g["token_ids"] != w["token_ids"]:
+            if params is None:  # the reference's weights, from the same seed
+                params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0))
+            ids = ByteTokenizer().encode(bodies[i]["prompt"])
+            p = p_identity(f"(D1) request {i}", torch, M, cfg, params, ids,
+                           g["token_ids"], w["token_ids"])
+            worst = p_forced(f"(D1) request {i}", torch, M, cfg, params, ids,
+                             g["token_ids"], p["at"])
+            parted.append({"request": i, **p, "forced_worst": round(worst, 4)})
+    del params
+    torch.cuda.empty_cache()
+    n_tok = sum(r["tokens_generated"] for _, r, _ in got)
+    ttft = [r["ttft_s"] for _, r, _ in got]
+    print(f"(D1) pp=2 fleet wave: {n_tok} tokens from {len(got)} requests in "
+          f"{wave_s:.3f} s = {n_tok / wave_s:.2f} tokens/s aggregate (single device "
+          f"{sum(r['tokens_generated'] for _, r, _ in ref) / ref_s:.2f}); ttft_s "
+          f"{json.dumps(ttft)}; greedy ids equal the single device's for "
+          f"{len(got) - len(parted)} of {len(got)} requests, parted at a near tie, "
+          f"every later token near-top under teacher forcing "
+          f"{json.dumps(parted)}; ragged launches {rag}, decode chunks {chunks}; per-rank "
+          f"launches {json.dumps(counts)}; per-rank profiler attention kernels "
+          f"{json.dumps(events)}; wire bytes {json.dumps(dict(be.wire_bytes))}; memory "
+          f"per rank {json.dumps(mem)} ({smi})")
+    out = {"engine": engine, "launches": counts,
+           "row": {"tokens_per_s": n_tok / wave_s, "single_tokens_per_s":
+                   sum(r["tokens_generated"] for _, r, _ in ref) / ref_s,
+                   "ttft_s": ttft, "parted": parted, "ragged_launches": rag,
+                   "decode_chunks": chunks, "memory": mem, "profiler": events,
+                   "time_split": split}}
+    return out
+
+
+def phase_D2(torch, G, smi) -> dict:
+    """Solo prefill and decode at tp = 2: the kernel logits against the
+    single device's plain path, flash_attend n_layers times per rank."""
+    from distributed_llm_inference_tpu_torch.config import MeshConfig
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    from distributed_llm_inference_tpu_torch.models import api as M
+
+    ids = ByteTokenizer().encode(fleet_prompt(77, D_SOLO_PROMPT))
+    pcfg, plain = d_create(torch, attn_impl="plain")
+    want, want_lg = d_solo(torch, G, plain, ids)
+    t0 = time.time()
+    cfg, be = d_create(torch, MeshConfig(tp=2))
+    try:
+        print(f"(D2) {MODEL} over tp=2 (local heads {cfg.n_heads // 2}/{cfg.n_kv_heads // 2} "
+              f"per rank, group {cfg.n_heads // cfg.n_kv_heads}), attn_impl={cfg.attn_impl}, "
+              f"backend {be.mesh.backend}, built in {time.time() - t0:.1f} s")
+        be.launch_counts(reset=True)
+        got, lg = d_solo(torch, G, be, ids)
+        counts = be.launch_counts()
+        mem = d_memory(be)
+    finally:
+        be.close()
+    err = float((lg - want_lg).abs().max())
+    for r, c in enumerate(counts):
+        check(c["flash_attend"] == cfg.n_layers,
+              f"(D2) rank {r}: flash_attend {c['flash_attend']} for one T>1 chunk of "
+              f"{cfg.n_layers} layers")
+    check(err < LOGITS_ATOL, f"(D2) tp=2 kernel logits vs plain: max abs err {err}")
+    at = p_identity("(D2) tp=2", torch, M, pcfg, plain.params, ids, got, want)
+    del plain
+    torch.cuda.empty_cache()
+    print(f"(D2) tp=2 solo: prefill logits vs the single device's plain path max abs err "
+          f"{err:.4f} (atol {LOGITS_ATOL}); greedy ids "
+          + ("equal" if at is None else f"part at a near tie {json.dumps(at)}")
+          + f"; per-rank launches {json.dumps(counts)}; memory {json.dumps(mem)} ({smi})")
+    return {"launches": counts, "row": {"max_abs_err": err, "parts_at": at}}
+
+
+def phase_D3(torch, G, raw_backend, smi) -> dict:
+    """(D1)'s pp = 2 backend on one solo request against the single device
+    on the card (its prefill logits within LOGITS_ATOL, its ids equal or
+    parted at a near tie and near-top after it), then --pp-wire-quant int8
+    against that raw wire: the bytes each path shipped."""
+    from distributed_llm_inference_tpu_torch.config import MeshConfig
+    from distributed_llm_inference_tpu_torch.models import api as M
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    ids = ByteTokenizer().encode(fleet_prompt(78, D_SOLO_PROMPT))
+    scfg, single = d_create(torch)
+    want, want_lg = d_solo(torch, G, single, ids)
+    raw_backend.wire_bytes.clear()
+    raw_ids, raw_lg = d_solo(torch, G, raw_backend, ids)
+    raw = dict(raw_backend.wire_bytes)
+    err = float((raw_lg - want_lg).abs().max())
+    check(err < LOGITS_ATOL, f"(D3) pp=2 prefill logits vs the single device's: max abs "
+                             f"err {err}")
+    at = p_identity("(D3) pp=2", torch, M, scfg, single.params, ids, raw_ids, want)
+    if at is not None:
+        at["forced_worst"] = round(p_forced("(D3) pp=2", torch, M, scfg, single.params, ids,
+                                            raw_ids, at["at"]), 4)
+    del single
+    torch.cuda.empty_cache()
+    print(f"(D3) pp=2 solo ({D_SOLO_PROMPT}-token prompt): prefill logits vs the single "
+          f"device's on the card max abs err {err:.4f} (atol {LOGITS_ATOL}); greedy ids "
+          + ("equal" if at is None else f"part at a near tie {json.dumps(at)}")
+          + f" ({smi})")
+    cfg, be = d_create(torch, MeshConfig(pp=2), wire_quant="int8")
+    try:
+        q_ids, _ = d_solo(torch, G, be, ids)
+        q = dict(be.wire_bytes)
+    finally:
+        be.close()
+    D = cfg.dim
+    rows = D_SOLO_PROMPT + len(raw_ids) - 1  # the chunk's rows, then one per step
+    check(raw["microstep"] == rows * 2 * D and q["microstep"] == rows * (D + 4),
+          f"(D3) microstep bytes raw {raw['microstep']} int8 {q['microstep']} for {rows} rows")
+    print(f"(D3) one solo request ({D_SOLO_PROMPT}-token prompt, {len(raw_ids)} tokens) at "
+          f"pp=2: wire bytes raw {json.dumps(raw)}, int8 {json.dumps(q)} "
+          f"(x{raw['microstep'] / q['microstep']:.3f} fewer on the hand-off); greedy ids "
+          + ("equal" if raw_ids == q_ids else f"part at token {parts_at(raw_ids, q_ids)}")
+          + f" ({smi})")
+    return {"raw": raw, "int8": q, "pp2_vs_single": {"max_abs_err": err, "parts_at": at}}
+
+
+def phase_D4(torch, G, smi) -> dict:
+    """A one-rank NCCL mesh through the same backend: its process group is
+    built and its collectives run on the card."""
+    from distributed_llm_inference_tpu_torch.config import MeshConfig, resolve_attn_impl
+    from distributed_llm_inference_tpu_torch.models.registry import get_model_config
+    from distributed_llm_inference_tpu_torch.parallel.mesh import build_mesh
+    from distributed_llm_inference_tpu_torch.parallel.pipeline import PipelineBackend
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    ids = ByteTokenizer().encode(fleet_prompt(79, D_SOLO_PROMPT))
+    _, single = d_create(torch)
+    want, want_lg = d_solo(torch, G, single, ids)
+    del single
+    cfg = resolve_attn_impl(get_model_config(MODEL).replace(dtype="bfloat16"), "auto",
+                            torch.device(DEVICE))
+    mesh = build_mesh(MeshConfig(), [torch.device("cuda", 0)])
+    be = PipelineBackend(cfg, None, mesh, seed=0)
+    try:
+        got, lg = d_solo(torch, G, be, ids)
+    finally:
+        be.close()
+    err = float((lg - want_lg).abs().max())
+    check(mesh.backend == "nccl", f"(D4) a one-rank mesh on cuda:0 chose {mesh.backend}")
+    check(got == want and err < LOGITS_ATOL,
+          f"(D4) the one-rank NCCL mesh: ids part at {parts_at(got, want)}, logits err {err}")
+    print(f"(D4) a one-rank mesh on cuda:0: process-group backend {mesh.backend}, its "
+          f"embed sum, broadcast and logits gather run through NCCL; greedy ids equal the "
+          f"single device's, prefill logits max abs err {err:.6f} ({smi})")
+    out = {"backend": mesh.backend, "max_abs_err": err}
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        print("(D4) one card: a mesh of ranks on cards of their own (NCCL across "
+              "ranks) is not run here")
+        return out
+    # ranks on cards of their own: pp = 2 x tp = 2 over four cards (pp = 2 on two)
+    shape = MeshConfig(pp=2, tp=2) if cards >= 4 else MeshConfig(pp=2)
+    mesh = build_mesh(shape, [torch.device("cuda", i) for i in range(shape.n_devices)])
+    be = PipelineBackend(cfg, None, mesh, seed=0)
+    try:
+        got, lg = d_solo(torch, G, be, ids)
+        mem = d_memory(be)
+    finally:
+        be.close()
+    err = float((lg - want_lg).abs().max())
+    check(mesh.backend == "nccl", f"(D4) ranks on {cards} cards chose {mesh.backend}")
+    check(err < LOGITS_ATOL, f"(D4) the {shape} NCCL mesh: logits err {err}")
+    print(f"(D4) {shape} over {shape.n_devices} cards, NCCL across ranks: prefill "
+          f"logits max abs err {err:.4f}; greedy ids "
+          + ("equal" if got == want else f"part at token {parts_at(got, want)}")
+          + f"; memory {json.dumps(mem)} ({smi})")
+    out["multi_rank"] = {"mesh": str(shape), "max_abs_err": err,
+                         "parts_at": parts_at(got, want)}
+    return out
+
+
+def phase_D(torch, kernels, smi) -> dict:
+    """(D1)-(D4): the pipeline backend on the card."""
+    from distributed_llm_inference_tpu_torch.engine import generate as G
+    from distributed_llm_inference_tpu_torch.models import api as M
+    from distributed_llm_inference_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+    from distributed_llm_inference_tpu_torch.ops import quant as Q
+
+    t0 = time.time()
+    d1 = phase_D1(torch, M, pa, fa, Q, smi)
+    engine = d1.pop("engine")
+    try:
+        d2 = phase_D2(torch, G, smi)
+        d3 = phase_D3(torch, G, engine.backend, smi)
+    finally:
+        engine.backend.close()
+    d4 = phase_D4(torch, G, smi)
+    launches = d_sum(d1["launches"] + d2["launches"])
+    print(f"(D) took {time.time() - t0:.1f} s ({smi})")
+    print("(D) " + json.dumps({"pipeline": {"D1": d1["row"], "D2": d2["row"], "D3": d3,
+                                            "D4": d4}}))
+    print("(D) launches " + json.dumps(launches))
+    return launches
 
 
 # -- speculation on the mixed launch: phase (x) --------------------------------------
@@ -8070,7 +8472,8 @@ def start_lane(phases, log_path=LANE_LOG) -> subprocess.Popen:
     output to log_path."""
     import os
 
-    args = ["--only", "P"] if phases == ["P"] else ["--lane", ",".join(phases)]
+    args = (["--only", phases[0]] if phases in (["P"], ["D"])
+            else ["--lane", ",".join(phases)])
     os.makedirs(os.path.dirname(log_path), exist_ok=True)
     with open(log_path, "w") as log:
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
@@ -8117,9 +8520,9 @@ def stop_lane(proc, log_path=LANE_LOG):
           file=sys.stderr)
 
 
-def main_lane(lane, torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start):
-    """The main process's phases while the lane runs, then the lane's
-    result: (its LANE line, launches_R, launches_S)."""
+def main_lane(torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start):
+    """The main process's phases while the lane runs: (launches_R,
+    launches_S)."""
     # (s) KV preemption through the HTTP server ("r" names the ragged
     # kernel's --only run)
     preempt = phase_s(torch, engine, pa, fa, Q, smi)
@@ -8153,7 +8556,7 @@ def main_lane(lane, torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi,
     # model), beams, echo scoring, the prefix snapshots, the queue
     s_launches = phase_S(torch, engine, pa, fa, Q, G, timer, smi)
     print(f"(S) total {time.time() - t_start:.1f} s")
-    return join_lane(lane), r_launches, s_launches
+    return r_launches, s_launches
 
 
 def run_lane(phases, torch, engine, pa, fa, Q, P, G, M, faults, smi, t0, t_start) -> int:
@@ -8204,7 +8607,7 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z",
-                                       "C", "S", "F", "R", "P"],
+                                       "C", "S", "F", "R", "P", "D"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -8227,7 +8630,8 @@ def main(argv) -> int:
                          "kernels at their widths, and --checkpoint; or (R) alone "
                          "(R): the port's router in front of replica processes, "
                          "the fleet's traces, failover; or (P) alone (P): the MPMD "
-                         "stage pipeline of stage processes over HTTP")
+                         "stage pipeline of stage processes over HTTP; or (D) alone "
+                         "(D): the pp / tp pipeline backend's rank processes")
     ap.add_argument("--lane", help="run (a) and then these later phases of the full run "
                                    "(a comma-separated subset of "
                                    + ",".join(LANE_PHASES) + ") on an engine of their "
@@ -8311,6 +8715,10 @@ def main(argv) -> int:
     if args.only == "P":
         phase_P(torch, kernels, smi)
         print(f"(P) total {time.time() - t_start:.1f} s")
+        return 0
+    if args.only == "D":
+        phase_D(torch, kernels, smi)
+        print(f"(D) total {time.time() - t_start:.1f} s")
         return 0
     if args.only == "F":
         launches, shapes = phase_F(torch, pa, fa, Q, P, G, M, smi, profile=True)
@@ -8446,13 +8854,24 @@ def main(argv) -> int:
     # (P) the MPMD stage pipeline, a third process: its controller and
     # frontend, and its two stage processes (it loads no kernel)
     p_lane = start_lane(["P"], P_LANE_LOG)
+    d_lane = None
     try:
-        lane_out, r_launches, s_launches = main_lane(
-            lane, torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start)
+        r_launches, s_launches = main_lane(
+            torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start)
+        lane_out = join_lane(lane)
+        # (D) the pipeline backend's rank processes, a fourth process once
+        # the main process's own phases and the lane are done: its ranks are
+        # host-bound Python, and beside them the host's cores would be
+        # oversubscribed (the lane's waves have TTFT targets)
+        d_lane = start_lane(["D"], D_LANE_LOG)
         join_lane(p_lane, P_LANE_LOG, last_prefix="(P) total")
+        d_launches = json.loads(join_lane(d_lane, D_LANE_LOG, last_prefix="(D) launches ")
+                                [len("(D) launches "):])
     finally:
         stop_lane(lane)
         stop_lane(p_lane, P_LANE_LOG)
+        if d_lane is not None:
+            stop_lane(d_lane, D_LANE_LOG)
     x_launches, y_launches, z_launches, c_launches, f_launches = (
         lane_out[k] for k in ("x", "y", "z", "C", "F"))
     print(f"(lane) joined; total {time.time() - t_start:.1f} s")
@@ -8529,6 +8948,7 @@ def main(argv) -> int:
         entry["launches_S"] = s_launches[entry["name"]]
         entry["launches_F"] = f_launches.get(entry["name"], 0)
         entry["launches_R"] = r_launches.get(entry["name"], 0)
+        entry["launches_D"] = d_launches.get(entry["name"], 0)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

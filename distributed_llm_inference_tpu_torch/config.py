@@ -194,8 +194,8 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Shape of the device mesh (data, pipeline, sequence, tensor, expert).
-    The port serves the single device only; create_engine rejects any
-    other shape until the multi-GPU slice ports parallel/."""
+    The port serves dp x pp x tp meshes (parallel/pipeline.py); sp and ep
+    raise the not-ported error of parallel/mesh.py."""
 
     dp: int = 1
     pp: int = 1
@@ -210,6 +210,19 @@ class MeshConfig:
     @property
     def is_trivial(self) -> bool:
         return self.n_devices == 1
+
+
+def stage_layer_range(n_layers: int, pp: int, stage: int) -> tuple[int, int]:
+    """Contiguous layer range [start, end) owned by `stage` (the JAX
+    package's config.stage_layer_range): the first n_layers % pp stages
+    own one extra layer (22 over 4 -> 6, 6, 5, 5)."""
+    if not 1 <= pp <= n_layers:
+        raise ValueError(f"pp={pp} must be in [1, n_layers={n_layers}]")
+    if not 0 <= stage < pp:
+        raise ValueError(f"stage={stage} out of range for pp={pp}")
+    base, rem = divmod(n_layers, pp)
+    start = stage * base + min(stage, rem)
+    return start, start + base + (1 if stage < rem else 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -410,8 +423,17 @@ class EngineConfig:
     # the trace id (tracing.sample_decision), so every replica agrees per
     # trace. 0 (the default) keeps the hot path to one float compare.
     trace_sample_rate: float = 0.0
+    # The int8 wire of a pipeline mesh (ops/wire_quant.py): every
+    # inter-stage activation hand-off and the last stage's broadcast ship
+    # int8 rows plus fp32 scales. None: the activations cross as they are.
+    pp_wire_quant: Optional[str] = None
 
     def __post_init__(self):
+        if self.pp_wire_quant not in (None, "int8"):
+            raise ValueError(
+                f"pp_wire_quant must be None or 'int8', got "
+                f"{self.pp_wire_quant!r}"
+            )
         if not (0.0 <= self.trace_sample_rate <= 1.0):
             raise ValueError(
                 f"trace_sample_rate must be in [0, 1], got "

@@ -536,11 +536,14 @@ class ContinuousEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(time.time()) & 0x7FFFFFFF
         )
-        # the launch kinds, captured as CUDA graphs on their first launch
+        # the launch kinds, captured as CUDA graphs on their first launch;
+        # a backend whose programs span processes (a mesh) declares them
+        # eager, and its launches run as they are on every call
+        self._eager = not getattr(backend, "supports_graphs", True)
         self._chunk_graph = graphs.LaunchGraph(self._chunk_body, "decode_chunk",
-                                               self.device, self._gen)
+                                               self.device, self._gen, self._eager)
         self._mixed_graph = (graphs.LaunchGraph(self._mixed_body, "mixed_launch",
-                                                self.device, self._gen)
+                                                self.device, self._gen, self._eager)
                              if self._chunked else None)
         # grammar constraints (constrain/): the static per-slot FSM states
         # into the COMBINED resident table (row 0 = the free state every
@@ -676,12 +679,13 @@ class ContinuousEngine:
         self._spec_in = graphs.spec_inputs(self.n_slots, self._spec_k_max,
                                            device=self.device)
         self._spec_graph = graphs.LaunchGraph(self._spec_body, "mixed_spec",
-                                              self.device, self._gen)
+                                              self.device, self._gen, self._eager)
         if self._draft_mode:
             self._fill_graph = graphs.LaunchGraph(self._fill_body, "draft_fill",
-                                                  self.device, self._gen)
+                                                  self.device, self._gen, self._eager)
             self._propose_graph = graphs.LaunchGraph(
-                self._propose_body, "draft_propose", self.device, self._gen)
+                self._propose_body, "draft_propose", self.device, self._gen,
+                self._eager)
 
     # -- client side ---------------------------------------------------------
     def _needs_solo(self, kwargs: dict) -> bool:
@@ -1978,6 +1982,12 @@ class ContinuousEngine:
             self._shadow.put_async(new_keys[off: off + W], P.pool_leaves(dev),
                                    self._mutation_seq)
 
+    def _pool_layout(self) -> list:
+        """The whole pool's leaves, or their shape-and-dtype stand-ins on a
+        backend whose pool is sharded over ranks (pool_layout)."""
+        layout = getattr(self.backend, "pool_layout", None)
+        return layout(self.cache) if layout is not None else P.pool_leaves(self.cache)
+
     def _prewarm_pinned(self):
         """Allocate the pinned host buffers of the shadow's copies once, up
         front, and free them: torch's host allocator keeps them, so no
@@ -1985,7 +1995,7 @@ class ContinuousEngine:
         restore in a crash's recovery window pays a page-locking
         allocation on the scheduler thread. The JAX fleet pre-warms its
         restore program at construction for the same reason."""
-        leaves = P.pool_leaves(self.cache)
+        leaves = self._pool_layout()
         bufs = []
         for rows, n in ((self._shadow_gather_w, self._shadow.max_pending),
                         (self._shadow_restore_w, 1)):
@@ -2003,7 +2013,7 @@ class ContinuousEngine:
         same pool. A leaf whose dtype or shape is not the pool's (a
         persisted shadow of another configuration) raises ValueError."""
         W = self._shadow_restore_w
-        like = P.pool_leaves(self.cache)
+        like = self._pool_layout()
         for off in range(0, len(blocks), W):
             ids = blocks[off: off + W]
             batch = per_block_leaves[off: off + W]
@@ -2177,7 +2187,7 @@ class ContinuousEngine:
         as the shadow and the wire carry them (bf16 as its int16 view): a
         fetched or pushed chain must match it to be imported."""
         out = []
-        for leaf in P.pool_leaves(self.cache):
+        for leaf in self._pool_layout():
             dt = (np.dtype(np.int16) if leaf.dtype == torch.bfloat16
                   else torch.empty((), dtype=leaf.dtype).numpy().dtype)
             out.append((dt, (leaf.shape[0], *leaf.shape[2:])))
@@ -2524,7 +2534,8 @@ class ContinuousEngine:
                     cmask, ctrans, self._gen, self.chunk_steps)
 
             g = self._cchunk_graphs[bucket] = graphs.LaunchGraph(
-                body, "decode_chunk_constrained", self.device, self._gen)
+                body, "decode_chunk_constrained", self.device, self._gen,
+                self._eager)
         return g
 
     def _mixed_body(self):
@@ -3160,8 +3171,8 @@ class ContinuousEngine:
                     self.cache, self._scratch, self.state, self.sparams, slot,
                     row_d, *arm)[1:])
             else:
-                self._commit(*G.insert_slot(
-                    cfg, self.cache, self._scratch, self.state, self.sparams,
+                self._commit(*self.backend.insert_slot(
+                    self.cache, self._scratch, self.state, self.sparams,
                     slot, *arm)[1:])
         except BaseException:
             if req.block_ids is not None:

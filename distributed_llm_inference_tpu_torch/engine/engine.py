@@ -172,6 +172,9 @@ class SingleDeviceBackend:
         return G.decode_slots(self.cfg, self.params, state, cache, generator,
                               sparams, num_steps=num_steps)
 
+    def insert_slot(self, cache, scratch, state, sparams, slot, *arm):
+        return G.insert_slot(self.cfg, cache, scratch, state, sparams, slot, *arm)
+
     # constrained slot decode (the dense fleet's constrained tenants; the
     # fleet tables come from constrain/fleet.py)
     supports_constrained_slots = True

@@ -102,11 +102,15 @@ class LaunchGraph:
     """One launch kind of a fleet, captured once and replayed (see the
     module docstring); `generator` is the one its launch draws from.
     `calls`, `captures` and `replays` count what it did; `deltas` holds
-    each kernel counter's launches per replay."""
+    each kernel counter's launches per replay. eager=True runs the launch
+    as it is on every call, on any device: a backend whose launches span
+    processes (parallel/pipeline.py) declares that, and no capture is
+    tried."""
 
     def __init__(self, fn: Callable[[], torch.Tensor], name: str, device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, eager: bool = False):
         self.fn = fn
+        self.eager = eager
         self.name = name
         self.device = torch.device(device)
         self.generator = generator
@@ -119,7 +123,7 @@ class LaunchGraph:
 
     def __call__(self) -> Optional[torch.Tensor]:
         self.calls += 1
-        if self.device.type != "cuda":
+        if self.eager or self.device.type != "cuda":
             return self.fn()
         if self.graph is None:
             return self._warm_and_capture()

@@ -110,8 +110,9 @@ class PrefixCache:
 
     @staticmethod
     def compatible(cache) -> bool:
-        """Only plain {k, v} cache layouts can snapshot and splice."""
-        return isinstance(cache, dict) and set(cache) == {"k", "v"}
+        """Only plain {k, v} cache layouts can snapshot and splice (a
+        mesh's cache handle holds one rank's shard only)."""
+        return type(cache) is dict and set(cache) == {"k", "v"}
 
     def lookup(self, ids: list) -> tuple[int, Optional[dict], Optional[tuple]]:
         """(P, entry, key) for the deepest reusable snapshot; (0, None,

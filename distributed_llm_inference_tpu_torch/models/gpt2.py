@@ -82,9 +82,13 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int] = None,
                                device=device)
 
 
-def decoder_layer(cfg, lp, x, cache_k, cache_v, pos, mask, attn_hook=None):
+def decoder_layer(cfg, lp, x, cache_k, cache_v, pos, mask, attn_hook=None,
+                  tp_group=None):
     """One GPT-2 block on a chunk x [B,T,D] at offset pos (an int, or a
-    per-row [B] tensor). Returns (x, cache_k, cache_v)."""
+    per-row [B] tensor). tp_group: the row-sharded wo / w_proj partial
+    outputs are summed over it BEFORE their replicated biases are added
+    (inside the sum they would be added tp times). Returns (x, cache_k,
+    cache_v)."""
     B, T, D = x.shape
     Dh = cfg.head_dim
     H = lp["wq"].shape[-1] // Dh
@@ -97,22 +101,29 @@ def decoder_layer(cfg, lp, x, cache_k, cache_v, pos, mask, attn_hook=None):
     hook = attn_hook or llama.default_attn_hook
     attn, cache_k, cache_v = hook(cfg, q, k, v, cache_k, cache_v, pos, mask,
                                   None, None, None)
-    x = x + mm(attn.reshape(B, T, H * Dh), lp["wo"]) + lp["bo"]
+    attn_out = mm(attn.reshape(B, T, H * Dh), lp["wo"])
+    if tp_group is not None:
+        attn_out = tp_group.psum(attn_out)
+    x = x + attn_out + lp["bo"]
 
     h = layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.norm_eps)
     mlp_out = mm(gelu_new(mm(h, lp["w_fc"]) + lp["b_fc"]), lp["w_proj"])
+    if tp_group is not None:
+        mlp_out = tp_group.psum(mlp_out)
     x = x + mlp_out + lp["b_proj"]
     return x, cache_k, cache_v
 
 
 def forward_layers(cfg, layers, x, cache, pos, valid_start=None, ep_axis=None,
-                   attn_hook=None, attn_seq_len=None, lora_pages=None):
+                   attn_hook=None, attn_seq_len=None, lora_pages=None,
+                   tp_group=None):
     """Run the stacked GPT-2 blocks over a chunk. pos: the chunk's offset
     (an int), or a per-row int32 [B] tensor (slots mode: every slot starts
     at position 0, so learned absolute positions stay exact). attn_hook /
     attn_seq_len: the shared seam (paged pool, int8 cache). valid_start,
     ep_axis and lora_pages are refused: learned absolute positions are not
-    shift-invariant, gpt2 has no MoE and no LoRA leaves."""
+    shift-invariant, gpt2 has no MoE and no LoRA leaves. tp_group: see
+    decoder_layer."""
     if lora_pages is not None:
         raise ValueError(
             f"lora_pages (runtime adapters) requires the llama family; "
@@ -141,7 +152,7 @@ def forward_layers(cfg, layers, x, cache, pos, valid_start=None, ep_axis=None,
     for i in range(cache["k"].shape[0]):
         lp = {name: w[i] for name, w in layers.items()}
         x, _, _ = decoder_layer(cfg, lp, x, cache["k"][i], cache["v"][i], pos,
-                                mask, attn_hook)
+                                mask, attn_hook, tp_group)
     return x, cache
 
 

@@ -32,9 +32,13 @@ Qwen3-MoE): a router [L, D, E] and expert banks w_gate / w_up [L, E, D,
 F], w_down [L, E, F, D], dense or int8 QTensor banks (ops/quant.
 expert_einsum).
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: expert, tensor-parallel and pipeline meshes (ep psums, tp psums,
-pipeline update gates).
+Tensor parallelism: with `tp_group` (a parallel/comm.Group), the layer
+holds its tp rank's columns of wq / wk / wv / w_gate / w_up and rows of
+wo / w_down, and sums the attention output and the FFN output over the
+group, as the JAX package psums them. Pipeline stages need no update
+gate in the port: a rank runs its stage's layers once, on the activation
+it received (parallel/pipeline.py). The MoE FFN over an expert mesh
+(`ep_axis`) raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -212,8 +216,6 @@ def default_attn_hook(cfg, q, k, v, cache_k, cache_v, pos, mask, update_gate=Non
     scalar pos go to the flash kernel, which dequantizes in its tile
     prologue; T=1 steps and per-row positions dequantize, then attend, as
     the JAX package does."""
-    if update_gate is not None:
-        raise _not_ported("pipeline update gates (parallel/)", SPMD)
     slots = isinstance(pos, torch.Tensor) and pos.dim() == 1
     int8 = isinstance(cache_k, KVQuant)
     if int8:
@@ -281,8 +283,7 @@ def decoder_layer(
     cos,
     sin,
     mask,
-    update_gate=None,
-    tp_axis=None,
+    tp_group=None,
     attn_hook=None,
     valid_start: Optional[torch.Tensor] = None,
     ep_axis=None,
@@ -304,11 +305,17 @@ def decoder_layer(
     SELECT the undisturbed base product (torch.where, never + 0.0, which
     would turn a -0.0 into +0.0), bit-identical to the program without
     adapters.
+
+    tp_group: this layer's tp shard sums its row-projection outputs (wo,
+    w_down) over the group (parallel/comm.Group.psum); None off a tp mesh.
     """
-    if tp_axis is not None:
-        raise _not_ported("tensor parallelism (parallel/partition.py)", SPMD)
     if ep_axis is not None:
         raise _not_ported("the MoE FFN over an expert mesh (ep)", SPMD)
+    if cfg.n_experts and tp_group is not None:
+        raise NotImplementedError(
+            "MoE + tensor parallelism is not wired yet: shard experts "
+            "over ep instead of splitting each expert over tp"
+        )
     B, T, D = x.shape
     Dh = cfg.head_dim
     H = lp["wq"].shape[-1] // Dh
@@ -363,6 +370,8 @@ def decoder_layer(
         lp.get("window_flag"),
     )
     attn_out = lmm(attn.reshape(B, T, H * Dh), "wo")
+    if tp_group is not None:
+        attn_out = tp_group.psum(attn_out)
     if cfg.post_norms:
         attn_out = rms_norm(attn_out, lp["attn_post_norm"], cfg.norm_eps, unit_offset=uo)
     if cfg.residual_multiplier is not None:  # Granite
@@ -377,6 +386,8 @@ def decoder_layer(
         act = F.silu if cfg.act == "silu" else _gelu_tanh
         gate = act(lmm(h, "w_gate").float()).to(h.dtype)
         mlp_out = lmm(gate * lmm(h, "w_up"), "w_down")
+        if tp_group is not None:
+            mlp_out = tp_group.psum(mlp_out)
     if cfg.post_norms:
         mlp_out = rms_norm(mlp_out, lp["mlp_post_norm"], cfg.norm_eps, unit_offset=uo)
     if cfg.residual_multiplier is not None:  # Granite
@@ -391,8 +402,7 @@ def forward_layers(
     x: torch.Tensor,
     cache: KVCache,
     pos: int,
-    update_gate=None,
-    tp_axis=None,
+    tp_group=None,
     attn_hook=None,
     valid_start: Optional[torch.Tensor] = None,
     ep_axis=None,
@@ -408,9 +418,7 @@ def forward_layers(
     int32 [B] — first real slot per row of a left-padded batch.
     attn_seq_len: the mask's logical length when it is not the cache
     leaf's sequence axis (the paged hooks of engine/paged.py, whose leaf
-    is the block pool). Returns (x, cache)."""
-    if update_gate is not None:
-        raise _not_ported("pipeline update gates (parallel/)", SPMD)
+    is the block pool). tp_group: see decoder_layer. Returns (x, cache)."""
     slots = isinstance(pos, torch.Tensor) and pos.dim() == 1
     if not slots:
         pos = int(pos)
@@ -462,7 +470,7 @@ def forward_layers(
         lp = {name: w[i] for name, w in layers.items()}
         x, _, _ = decoder_layer(
             cfg, lp, x, cache["k"][i], cache["v"][i], pos, cos, sin, mask,
-            tp_axis=tp_axis, attn_hook=attn_hook, valid_start=valid_start,
+            tp_group=tp_group, attn_hook=attn_hook, valid_start=valid_start,
             ep_axis=ep_axis, lora_pages=lora_pages,
         )
     return x, cache

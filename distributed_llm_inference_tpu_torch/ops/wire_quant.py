@@ -16,10 +16,16 @@ card; the stage plane quantizes the window it fetched, on the host). q
 and s are bit-equal to the JAX package's for the same input (fp32
 division, round half to even, the same 1e-12 floor).
 
-The in-mesh hand-offs of the JAX module (`wire_ppermute`, `masked_psum`)
-and its one-device proxy of the mesh's wire numerics
-(`proxy_stage_generate`, `proxy_stage_match`) belong to the meshes, which
-are not ported (the Multi-GPU SPMD item of ROADMAP.md).
+The mesh's hand-offs (parallel/pipeline.py) go through the collectives
+below, over a parallel/comm.Group: a stage sends its activation to the
+next (`wire_send` / `wire_recv`, the recv-driven form of the JAX ring's
+`wire_ppermute`), and the last stage's
+window reaches every rank (`masked_psum`, a broadcast from its owner where
+the JAX package psums a one-hot-masked operand). With quant=False each is
+the plain collective, bit for bit; with quant=True it ships int8 rows plus
+fp32 scales and dequantizes on landing, one `wire_roundtrip` per crossing.
+`proxy_stage_generate` / `proxy_stage_match` replay those numerics on one
+device, as the JAX proxy does.
 """
 
 from __future__ import annotations
@@ -72,6 +78,113 @@ def wire_roundtrip(x: torch.Tensor) -> torch.Tensor:
     """The numerics of ONE wire crossing — what a receiving stage sees of
     `x`."""
     return wire_decode(wire_encode(x), x.dtype)
+
+
+def wire_send(x: torch.Tensor, group, dst: int, *, quant: bool):
+    """A stage's hand-off to group rank `dst`: x as it is, or its int8
+    rows then their fp32 scales (counted on the "microstep" path)."""
+    if not quant:
+        group.send(x, dst, "microstep")
+        return
+    w = wire_encode(x)
+    group.send(w.q, dst, "microstep")
+    group.send(w.s, dst, "microstep")
+
+
+def wire_recv(like: torch.Tensor, group, src: int, *, quant: bool) -> torch.Tensor:
+    """The activation group rank `src` sent with wire_send, shaped and
+    typed like `like` (dequantized to like's dtype when quant)."""
+    if not quant:
+        return group.recv(like, src)
+    q = group.recv(torch.empty(like.shape, dtype=torch.int8, device=like.device), src)
+    s = group.recv(torch.empty(like.shape[:-1], dtype=torch.float32,
+                               device=like.device), src)
+    return wire_decode(WireQuant(q, s), like.dtype)
+
+
+def masked_psum(x: torch.Tensor, group, owner: int, *, quant: bool) -> torch.Tensor:
+    """The single-owner broadcast: group rank `owner`'s x on every rank
+    (the other ranks' x gives the shape; counted on the "broadcast"
+    path). quant ships the owner's int8 rows and fp32 scales."""
+    if not quant:
+        return group.broadcast(x, owner, "broadcast")
+    w = wire_encode(x)
+    q = group.broadcast(w.q, owner, "broadcast")
+    s = group.broadcast(w.s, owner, "broadcast")
+    return wire_decode(WireQuant(q, s), x.dtype)
+
+
+def _stage_ranges(cfg, n_stages: int) -> list:
+    from ..config import stage_layer_range
+
+    return [stage_layer_range(cfg.n_layers, n_stages, s) for s in range(n_stages)]
+
+
+def _stage_forward(cfg, params, tokens, pos, caches, ranges, quant: bool):
+    """Embed, each stage's layer slice (one wire round trip after each:
+    the stage's hand-off, the last stage's the ring's hop home), one more
+    for the broadcast, then the head."""
+    from ..models import api as M
+
+    x = M.embed(cfg, params, tokens, pos)
+    for (lo, hi), cache in zip(ranges, caches):
+        layers = {k: v[lo:hi] for k, v in params["layers"].items()}
+        x, _ = M.forward_layers(cfg, layers, x, cache, pos)
+        if quant:
+            x = wire_roundtrip(x)
+    if quant:
+        x = wire_roundtrip(x)
+    return M.unembed(cfg, params, x)
+
+
+@torch.no_grad()
+def proxy_stage_generate(cfg, params, prompt_ids, max_new: int, n_stages: int,
+                         *, quant: bool = True, device=None) -> list:
+    """One-device proxy of the pipeline mesh's WIRE NUMERICS: greedy
+    prefill and decode where the activation passes one wire_roundtrip
+    after each of `n_stages` stage slices plus one for the broadcast. The
+    round trip is row-local, so the whole window's round trip sliced equals
+    the slice's. quant=False runs the same stage-sliced forward with no
+    round trip: the single device's greedy output."""
+    from ..models import api as M
+
+    device = device or params["embed"].device
+    ranges = _stage_ranges(cfg, n_stages)
+    T = len(prompt_ids)
+    caches = [M.init_kv_cache(cfg, 1, max_seq=T + max_new, n_layers=hi - lo,
+                              device=device) for lo, hi in ranges]
+    toks = torch.tensor([prompt_ids], dtype=torch.long, device=device)
+    logits = _stage_forward(cfg, params, toks, 0, caches, ranges, quant)
+    tok = int(torch.argmax(logits[0, T - 1]))
+    out = [tok]
+    for i in range(max_new - 1):
+        logits = _stage_forward(cfg, params, torch.tensor([[tok]], device=device),
+                                T + i, caches, ranges, quant)
+        tok = int(torch.argmax(logits[0, -1]))
+        out.append(tok)
+    return out
+
+
+@torch.no_grad()
+def proxy_stage_match(cfg, params, prompt_ids, max_new: int, n_stages: int,
+                      *, device=None) -> float:
+    """Teacher-forced greedy match rate of the wire-quantized forward
+    against the exact one over the exact continuation (per decision: one
+    early flip does not cascade)."""
+    from ..models import api as M
+
+    device = device or params["embed"].device
+    exact = proxy_stage_generate(cfg, params, prompt_ids, max_new, n_stages,
+                                 quant=False, device=device)
+    T = len(prompt_ids)
+    full = list(prompt_ids) + exact
+    ranges = _stage_ranges(cfg, n_stages)
+    caches = [M.init_kv_cache(cfg, 1, max_seq=len(full), n_layers=hi - lo,
+                              device=device) for lo, hi in ranges]
+    logits = _stage_forward(cfg, params, torch.tensor([full], device=device), 0,
+                            caches, ranges, True)
+    pred = torch.argmax(logits[0], dim=-1)
+    return sum(int(pred[T - 1 + i]) == exact[i] for i in range(max_new)) / max_new
 
 
 def wire_bytes(shape, itemsize: int, hops: int, *, quant: bool) -> int:

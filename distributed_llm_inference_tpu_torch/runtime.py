@@ -11,8 +11,13 @@ merge-at-load) and before the runtime adapter pool's leaves are
 installed (EngineConfig.adapter_slots > 0). `draft_model` attaches a
 smaller same-tokenizer model for two-model speculation (the solo engine's
 `speculative` requests, and the fleet's draft-model speculation).
-Pipeline, tensor, sequence and data parallelism and microbatching are not
-ported yet and raise.
+A dp x pp x tp mesh (`mesh_cfg`) selects the pipeline backend
+(parallel/pipeline.py) as the JAX runtime does: `build_mesh` spawns one
+worker process per further rank, on the CUDA cards round-robin (ranks
+share a card when there are fewer cards than ranks) or, asked for the
+CPU, on the CPU; params=None draws each rank's weights from `seed` on
+its own device. Sequence parallelism, expert meshes and microbatching
+raise the not-ported error naming the ROADMAP heading.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from .models.bridge import params_to
 from .models.lora import merge_lora
 from .models.registry import get_model_config
 from .ops.quant import quantize_params
+from .parallel.mesh import build_mesh, default_devices, not_ported
 
 
 def resolve_device(device) -> torch.device:
@@ -60,8 +66,9 @@ def create_engine(
     lora: Optional[str] = None,
     device="cuda",
 ) -> InferenceEngine:
-    """Build a single-device engine. params=None draws random weights
-    from `seed` on the device; pass params_from_numpy(...) to run the
+    """Build an engine: on one device, or over a dp = 1 pp / tp mesh
+    (create_backend). params=None draws random weights from `seed` on the
+    device; pass params_from_numpy(...) to run the
     JAX package's weights. quant ("int8" | "int4") quantizes the weights
     after they are made or handed over (leaves already quantized stay as
     they are); kv_quant="int8" gives the engine an int8 KV cache.
@@ -74,12 +81,67 @@ def create_engine(
     (a registry name or a ModelConfig, in `dtype` when given) attaches a
     draft through engine.set_draft: draft_params, or random weights from
     seed + 1."""
-    if not mesh_cfg.is_trivial or microbatches > 1:
+    if mesh_cfg.dp > 1:
+        # the serving engine decodes batch=1, which cannot shard over dp;
+        # batched dp decode is a backend-level capability (create_backend)
         raise NotImplementedError(
-            f"pp/tp/sp/dp/ep meshes and microbatching are not ported to "
-            f"PyTorch yet (ROADMAP.md \"Multi-GPU SPMD\"); got {mesh_cfg}, "
-            f"microbatches={microbatches}"
+            "dp>1 is not available through the batch-1 serving engine; "
+            "use create_backend() for dp-sharded batched decode"
         )
+    if not mesh_cfg.is_trivial and draft_model is not None:
+        raise not_ported("two-model speculation on a mesh")
+    cfg, backend = create_backend(
+        model, mesh_cfg=mesh_cfg, microbatches=microbatches, params=params,
+        dtype=dtype, quant=quant, kv_quant=kv_quant, attn_impl=attn_impl,
+        seed=seed, lora=lora, wire_quant=engine_cfg.pp_wire_quant,
+        adapter_slots=engine_cfg.adapter_slots,
+        adapter_rank=engine_cfg.adapter_rank, device=device,
+    )
+    engine = InferenceEngine(cfg, backend=backend, tokenizer=tokenizer,
+                             engine_cfg=engine_cfg, seed=seed)
+    if hasattr(backend, "attach_wire_metrics"):
+        backend.attach_wire_metrics(engine.metrics)
+    slots = engine_cfg.adapter_slots
+    if slots:
+        engine.adapters = AdapterPool(cfg, backend, slots, engine_cfg.adapter_rank,
+                                      registry=engine.metrics, merged_source=lora)
+    if draft_model is not None:
+        dcfg = (get_model_config(draft_model) if isinstance(draft_model, str)
+                else draft_model)
+        if dtype is not None:
+            dcfg = dcfg.replace(dtype=dtype)
+        engine.set_draft(dcfg, draft_params, seed=seed + 1)
+    return engine
+
+
+def create_backend(
+    model: str | ModelConfig = "tinyllama-1.1b",
+    *,
+    mesh_cfg: MeshConfig = MeshConfig(),
+    microbatches: int = 1,
+    params: Any = None,
+    dtype: Optional[str] = None,
+    quant: Optional[str] = None,
+    kv_quant: Optional[str] = None,
+    attn_impl: Optional[str] = None,
+    seed: int = 0,
+    lora: Optional[str] = None,
+    wire_quant: Optional[str] = None,
+    adapter_slots: int = 0,
+    adapter_rank: int = 8,
+    device="cuda",
+):
+    """Build a compute backend alone (no engine around it), as the JAX
+    create_backend does: the single device for a trivial mesh, the pipeline
+    backend for a dp / pp / tp mesh (batched callers use its interface
+    directly: batch % dp == 0), its ranks on `device`'s type (the cards
+    round-robin). wire_quant ("int8") quantizes every
+    inter-stage hand-off; ignored on the single device. Returns (cfg,
+    backend)."""
+    if mesh_cfg.sp > 1 or mesh_cfg.ep > 1 or microbatches > 1:
+        raise not_ported(
+            f"sequence parallelism, expert meshes and microbatching (got "
+            f"{mesh_cfg}, microbatches={microbatches})")
     device = resolve_device(device)
     cfg = get_model_config(model) if isinstance(model, str) else model
     if dtype is not None:
@@ -89,6 +151,22 @@ def create_engine(
     if kv_quant is not None:
         cfg = cfg.replace(kv_quant=kv_quant)
     cfg = resolve_attn_impl(cfg, attn_impl, device)
+    if not mesh_cfg.is_trivial:
+        from .parallel.pipeline import PipelineBackend
+
+        if lora is not None or adapter_slots:
+            raise not_ported("LoRA adapters on a mesh (the lora leaves' shards)")
+        if params is not None:
+            params = params_to(params, "cpu")
+            if cfg.quant is not None:
+                params = quantize_params(cfg, params)
+        mesh = build_mesh(mesh_cfg, default_devices(mesh_cfg.n_devices, device))
+        try:
+            return cfg, PipelineBackend(cfg, params, mesh, wire_quant=wire_quant,
+                                        seed=seed)
+        except BaseException:
+            mesh.close()
+            raise
     if params is None:
         params = M.init_params(
             cfg, torch.Generator(device=device).manual_seed(seed)
@@ -101,20 +179,7 @@ def create_engine(
         params = merge_lora(cfg, params, lora)
     if cfg.quant is not None:
         params = quantize_params(cfg, params)
-    slots, rank = engine_cfg.adapter_slots, engine_cfg.adapter_rank
-    if slots:
+    if adapter_slots:
         # AFTER quantization: the paged lora leaves stay dense
-        params = install_adapter_leaves(cfg, params, slots, rank)
-    backend = SingleDeviceBackend(cfg, params, device)
-    engine = InferenceEngine(cfg, backend=backend, tokenizer=tokenizer,
-                             engine_cfg=engine_cfg, seed=seed)
-    if slots:
-        engine.adapters = AdapterPool(cfg, backend, slots, rank,
-                                      registry=engine.metrics, merged_source=lora)
-    if draft_model is not None:
-        dcfg = (get_model_config(draft_model) if isinstance(draft_model, str)
-                else draft_model)
-        if dtype is not None:
-            dcfg = dcfg.replace(dtype=dtype)
-        engine.set_draft(dcfg, draft_params, seed=seed + 1)
-    return engine
+        params = install_adapter_leaves(cfg, params, adapter_slots, adapter_rank)
+    return cfg, SingleDeviceBackend(cfg, params, device)

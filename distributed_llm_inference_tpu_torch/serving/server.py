@@ -1112,6 +1112,13 @@ class InferenceServer:
             self.continuous.close()
 
 
+def _close_backend(engine):
+    """Join a mesh backend's rank processes (a single device has none)."""
+    close = getattr(engine.backend, "close", None)
+    if close is not None:
+        close()
+
+
 def _parse_tenant_weights(specs) -> tuple:
     """--tenant-weight NAME=W values as EngineConfig.tenant_weights, with
     the JAX server's parse errors."""
@@ -1184,7 +1191,7 @@ def _load_checkpoint(args):
 
 
 def main(argv: Optional[list] = None):
-    from ..config import EngineConfig
+    from ..config import EngineConfig, MeshConfig
     from ..runtime import create_engine
 
     ap = argparse.ArgumentParser(
@@ -1475,7 +1482,45 @@ def main(argv: Optional[list] = None):
              "pointed at one DIR reuse the libraries instead of running "
              "nvcc again",
     )
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel width (the batch-1 serving engine "
+                         "needs 1, as in the JAX package)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages: one rank process per stage "
+                         "(parallel/pipeline.py)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks per stage")
+    ap.add_argument(
+        "--pp-wire-quant", default=None, choices=[None, "int8"],
+        help="int8 rows + fp32 scales on every inter-stage hand-off and the "
+             "last stage's broadcast (default off: the activations cross as "
+             "they are)",
+    )
+    # the JAX server's flags that part B of "Multi-GPU SPMD" ports: each
+    # refuses anything but its default, naming the ROADMAP heading
+    ap.add_argument("--sp", type=int, default=1, help="context-parallel ring size")
+    ap.add_argument("--ep", type=int, default=1, help="expert-parallel width (MoE)")
+    ap.add_argument("--sp-strategy", default="ring", choices=["ring", "ulysses"])
+    ap.add_argument("--microbatches", type=int, default=1, metavar="M")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
+    from ..parallel.mesh import not_ported
+
+    for flag, value, default in (
+        ("--sp", args.sp, 1), ("--ep", args.ep, 1),
+        ("--sp-strategy", args.sp_strategy, "ring"),
+        ("--microbatches", args.microbatches, 1),
+        ("--coordinator", args.coordinator, None),
+        ("--num-processes", args.num_processes, None),
+        ("--process-id", args.process_id, None),
+    ):
+        if value != default:
+            raise SystemExit(str(not_ported(f"{flag} {value}")))
+    if args.dp != 1:
+        raise SystemExit("--dp > 1 is not available through the batch-1 serving "
+                         "engine (as in the JAX server)")
     if args.die_on_wedge and not args.deadline:
         # checked before the model loads
         raise SystemExit(
@@ -1562,7 +1607,9 @@ def main(argv: Optional[list] = None):
             adapter_slots=args.adapter_slots,
             adapter_rank=args.adapter_rank,
             trace_sample_rate=args.trace_sample_rate,
+            pp_wire_quant=args.pp_wire_quant,
         ),
+        mesh_cfg=MeshConfig(dp=args.dp, pp=args.pp, tp=args.tp),
         draft_model=args.draft_model,
         lora=args.lora,
         params=params,
@@ -1623,11 +1670,14 @@ def main(argv: Optional[list] = None):
         queue = BatchingQueue(engine, max_queue=args.queue,
                               max_batch=args.queue_max_batch,
                               max_wait_ms=args.queue_wait_ms)
-    InferenceServer(
-        engine, args.host, args.port, args.max_tokens_cap,
-        drain_deadline_s=args.drain_deadline,
-        wedge_unready_s=args.wedge_unready, continuous=continuous, queue=queue,
-    ).serve_forever()
+    try:
+        InferenceServer(
+            engine, args.host, args.port, args.max_tokens_cap,
+            drain_deadline_s=args.drain_deadline,
+            wedge_unready_s=args.wedge_unready, continuous=continuous, queue=queue,
+        ).serve_forever()
+    finally:
+        _close_backend(engine)
 
 
 if __name__ == "__main__":

@@ -474,7 +474,8 @@ def jax_ids(fleets):
 
 def test_fleet_greedy_ids_equal_jax(fleets, jax_ids):
     """Every (prompt, adapter) alone and inside a threaded mixed wave (three
-    adapters over two pages: backpressure, then swaps): the JAX fleet's
+    adapters over two pages: backpressure, then swaps; the wave in the
+    unsheddable "batch" class): the JAX fleet's
     greedy ids; the adapters move the output; afterwards no page is
     referenced and every block is back."""
     port = fleets["port"]
@@ -484,7 +485,9 @@ def test_fleet_greedy_ids_equal_jax(fleets, jax_ids):
         assert r["token_ids"] == jax_ids[job], job
         assert r.get("adapter") == job[1]
     swaps = port.stats()["adapters"]["swaps"]
-    got = _wave(port, JOBS)
+    # the "batch" class is never shed, so a loaded host cannot turn a
+    # member of the wave into an slo_shed envelope
+    got = _wave(port, JOBS, slo_class="batch")
     assert {j: r["token_ids"] for j, r in got.items()} == jax_ids
     assert port.stats()["adapters"]["swaps"] > swaps
     assert any(jax_ids[(p, "ad-a")] != jax_ids[(p, None)] for p in PROMPTS)

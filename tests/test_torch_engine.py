@@ -87,7 +87,9 @@ def test_greedy_batch_token_identical(engines):
 def test_unported_request_features_are_invalid_requests(engines):
     """Beams, speculation and the solo prefix cache answer as the JAX
     engine answers them (they refused by name until the solo-engine
-    features were ported); meshes still raise, naming their heading."""
+    features were ported); the meshes of part B of the SPMD item (sp, ep,
+    microbatching) still raise, naming their heading (dp x pp x tp meshes
+    are served since, tests/test_torch_pipeline.py)."""
     jax_engine, port = engines
     for kw in ({"num_beams": 2}, {"speculative": True, "greedy": True}):
         got = port.generate("hi", max_tokens=4, chat=False, **kw)
@@ -102,10 +104,12 @@ def test_unported_request_features_are_invalid_requests(engines):
         r = prefixed.generate("hi " * 30, max_tokens=4, chat=False)
         assert r["status"] == "success", r
     assert r["prefix_cached_tokens"] == 64 and prefixed.stats()["prefix_cache"]["hits"] == 1
-    with pytest.raises(NotImplementedError, match="Multi-GPU SPMD"):
-        from distributed_llm_inference_tpu_torch.config import MeshConfig
+    from distributed_llm_inference_tpu_torch.config import MeshConfig
 
-        create_engine(MODEL, mesh_cfg=MeshConfig(pp=2), device="cpu")
+    for kw in ({"mesh_cfg": MeshConfig(sp=2)}, {"mesh_cfg": MeshConfig(ep=2)},
+               {"mesh_cfg": MeshConfig(pp=2), "microbatches": 2}):
+        with pytest.raises(NotImplementedError, match="Multi-GPU SPMD"):
+            create_engine(MODEL, device="cpu", **kw)
 
 
 def test_cuda_default_raises_without_a_card():

@@ -114,6 +114,15 @@ def test_stage_pipeline_modules_import_nothing_of_jax(module):
     _loads_alone_without_jax(module)
 
 
+@pytest.mark.parametrize("module", ["parallel/mesh.py", "parallel/comm.py",
+                                    "parallel/partition.py", "parallel/vocab.py",
+                                    "parallel/pipeline.py"])
+def test_mesh_modules_import_nothing_of_jax(module):
+    """The pipeline backend's modules (written anew on torch.distributed)
+    import neither jax nor the JAX package, and each loads alone."""
+    _loads_alone_without_jax(module)
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
@@ -136,8 +145,10 @@ def test_chip_smoke_fails_without_a_card():
 def _roadmap_items() -> dict:
     """Every ROADMAP.md item a not-ported error of the port names, by the
     module that names it: the literal `ROADMAP.md "<item>"` in a string,
-    and the item argument of each `_not_ported(what, item)` call (a string
-    or a module-level string constant of the package)."""
+    the item argument of each `_not_ported(what, item)` call (a string or
+    a module-level string constant of the package), and the item each
+    `not_ported(what)` of parallel/mesh.py names (the module constant its
+    message interpolates)."""
     import re
 
     quoted = re.compile(r'ROADMAP\.md "([^"]+)"')
@@ -149,12 +160,25 @@ def _roadmap_items() -> dict:
               if isinstance(n, ast.Assign) and isinstance(n.value, ast.Constant)
               and isinstance(n.value.value, str) for t in n.targets
               if isinstance(t, ast.Name)}
+    # parallel/mesh.not_ported's message: 'ROADMAP.md "{NAME}"' in an f-string
+    mesh_tree = trees[ROOT / "distributed_llm_inference_tpu_torch" / "parallel" / "mesh.py"]
+    fn = next(n for n in mesh_tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "not_ported")
+    interp = [v.value.id for n in ast.walk(fn) if isinstance(n, ast.JoinedStr)
+              for v in n.values if isinstance(v, ast.FormattedValue)
+              and isinstance(v.value, ast.Name) and v.value.id in consts]
+    assert len(interp) == 1, interp
+    mesh_item = consts[interp[0]]
     found = {}
     for path, tree in trees.items():
         items = set()
         for node in ast.walk(tree):
             if isinstance(node, ast.Constant) and isinstance(node.value, str):
                 items.update(quoted.findall(node.value))
+            func = getattr(node, "func", None) if isinstance(node, ast.Call) else None
+            if getattr(func, "id", getattr(func, "attr", "")) == "not_ported" \
+                    or (isinstance(node, ast.FunctionDef) and node.name == "not_ported"):
+                items.add(mesh_item)
             if (isinstance(node, ast.Call) and getattr(node.func, "id", "") == "_not_ported"
                     and len(node.args) == 2):
                 arg = node.args[1]
@@ -178,13 +202,32 @@ def test_not_ported_errors_name_roadmap_headings():
     # the modules that still refuse something (the scanner finds them all)
     assert sorted(found) == [
         "distributed_llm_inference_tpu_torch/models/llama.py",
+        "distributed_llm_inference_tpu_torch/parallel/mesh.py",
+        "distributed_llm_inference_tpu_torch/parallel/partition.py",
         "distributed_llm_inference_tpu_torch/runtime.py",
+        "distributed_llm_inference_tpu_torch/serving/server.py",
     ], sorted(found)
     missing = {f: sorted(i - headings) for f, i in found.items() if i - headings}
     assert not missing, missing
     numbered = re.compile(r"ROADMAP[^\n]{0,40}\bitem \d")
     for path in (ROOT / "distributed_llm_inference_tpu_torch").rglob("*.py"):
         assert not numbered.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("flag", ["--sp 2", "--ep 2", "--sp-strategy ulysses",
+                                  "--microbatches 2", "--coordinator 127.0.0.1:1",
+                                  "--num-processes 2", "--process-id 0"])
+def test_part_b_server_flags_name_the_roadmap_heading(flag):
+    """The JAX server's mesh flags that the port does not serve yet are
+    parsed and refused with the not-ported error naming the ROADMAP.md
+    heading (not argparse's "unrecognized arguments"), before any model
+    is built."""
+    from distributed_llm_inference_tpu_torch.serving import server
+
+    with pytest.raises(SystemExit) as e:
+        server.main(["--model", "test-llama-tiny", "--device", "cpu", *flag.split()])
+    assert 'ROADMAP.md "Multi-GPU SPMD"' in str(e.value.code), e.value.code
+    assert str(e.value.code).startswith(flag)
 
 
 def test_named_headings_are_the_ones_roadmap_lists():

@@ -124,8 +124,7 @@ def test_unported_features_raise():
     """What this test once held refused is served since the other
     families were ported (the MoE FFN's params, gpt2's, int8 expert banks;
     their parity in test_torch_moe.py and test_torch_gpt2.py); an expert
-    mesh, a tensor-parallel axis and pipeline update gates still raise,
-    naming their ROADMAP.md heading."""
+    mesh still raises, naming its ROADMAP.md heading."""
     from distributed_llm_inference_tpu_torch.models import llama as TL
     from distributed_llm_inference_tpu_torch.ops.quant import QTensor, quantize_params
 
@@ -139,6 +138,11 @@ def test_unported_features_raise():
                         {"layers": {"w_up": torch.zeros(2, 4, 8, 16)}})
     assert isinstance(q["layers"]["w_up"], QTensor)
     x, cache = torch.zeros(1, 2, cfg.dim), TM.init_kv_cache(cfg, 1, 16)
-    for kw in ({"ep_axis": "ep"}, {"tp_axis": "tp"}, {"update_gate": torch.ones(())}):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md "Multi-GPU SPMD"'):
-            TL.forward_layers(cfg, moe["layers"], x, cache, 0, **kw)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md "Multi-GPU SPMD"'):
+        TL.forward_layers(cfg, moe["layers"], x, cache, 0, ep_axis="ep")
+    # tp groups and pipeline stages are ported; an MoE layer refuses a tp
+    # group in the JAX package's words, and no update gate is taken
+    with pytest.raises(NotImplementedError, match="MoE \\+ tensor parallelism"):
+        TL.forward_layers(cfg, moe["layers"], x, cache, 0, tp_group=object())
+    with pytest.raises(TypeError):
+        TL.forward_layers(cfg, moe["layers"], x, cache, 0, update_gate=torch.ones(()))

@@ -131,12 +131,46 @@ def test_full_queue_sheds_with_a_retry_hint(engines):
         assert r["error"] == "Error: request queue full (1)" and r["retry_after_s"] >= 1
 
 
+class _GatedBackend(_SlowBackend):
+    """A slow backend whose first prefill starts its sleep only once
+    `waiting` requests sit in `queue`: each of them then waits in the queue
+    at least that sleep, however late the host started its thread."""
+
+    queue = None
+    waiting = 0
+
+    def prefill(self, *a, **kw):
+        limit = time.monotonic() + 30
+        while self.queue is not None and self.queue.depth() < self.waiting \
+                and time.monotonic() < limit:
+            time.sleep(0.005)
+        self.queue = None
+        return super().prefill(*a, **kw)
+
+
+def _gated_queue(engines, n: int, **ecfg):
+    """A one-at-a-time queue whose first request holds the dispatcher until
+    the other n - 1 are queued, then for the slow prefill's 0.4 s."""
+    _, pe = engines
+    backend = _GatedBackend(pe.cfg, pe.backend.params, "cpu")
+    q = TQ.BatchingQueue(InferenceEngine(pe.cfg, backend=backend, engine_cfg=EngineConfig(
+        prefill_buckets=BUCKETS, **ecfg)), max_queue=8, max_batch=1, max_wait_ms=0)
+    backend.queue, backend.waiting = q, n - 1
+    return q
+
+
+# under the 0.4 s every queued request waits behind the first
+QUEUED_DEADLINE_S = 0.2
+
+
 def test_deadlines_expire_while_queued(engines):
     """The engine deadline counts the wait: a request that waited past it
     fails at dequeue ("while queued"); a request's own deadline_ms that
-    ran out in the queue answers deadline_exceeded."""
-    q = TQ.BatchingQueue(_slow_engine(engines, request_deadline_s=0.3), max_queue=8,
-                         max_batch=1, max_wait_ms=0)
+    ran out in the queue answers deadline_exceeded. The first request holds
+    the dispatcher until the others are queued and then for 0.4 s, so each
+    of them outlives a 0.2 s deadline in the queue however loaded the host
+    is."""
+    q = _gated_queue(engines, 4, request_deadline_s=QUEUED_DEADLINE_S)
     try:
         results = _fire(q, [f"p{i}" for i in range(4)], max_tokens=2, greedy=True,
                         chat=False)
@@ -144,10 +178,10 @@ def test_deadlines_expire_while_queued(engines):
         assert [r for r in timeouts if "while queued" in r["error"]], results
     finally:
         q.close()
-    q = TQ.BatchingQueue(_slow_engine(engines), max_queue=8, max_batch=1, max_wait_ms=0)
+    q = _gated_queue(engines, 3)
     try:
         results = _fire(q, [f"p{i}" for i in range(3)], max_tokens=2, greedy=True,
-                        chat=False, deadline_ms=300)
+                        chat=False, deadline_ms=int(QUEUED_DEADLINE_S * 1000))
         late = [r for r in results if r.get("error_type") == "deadline_exceeded"]
         assert any("while queued" in r["error"] for r in late), results
         assert all(r["request_id"] and "timings" in r for r in late
