@@ -376,9 +376,10 @@ random weights from seed 0, the byte tokenizer):
       bounds, one JSON row per kernel and model. The kernels line gains
       launches_F: every kernel's count over (F)'s main-path runs.
 
-Run in a fourth process once the main process's (S) and the second
-lane are done (`chip_smoke.py --only D`, its output in build/chip_smoke_lane_D.log,
-shown after (P)), on rank processes of its own:
+Run in four more processes side by side once the main process's (S) and
+the second lane are done (`chip_smoke.py --only D`, and M, L and E,
+their output in build/chip_smoke_lane_{D,M,L,E}.log, shown after (P)),
+on rank processes of their own:
 
   (D) the dp x pp x tp pipeline backend (parallel/pipeline.py),
       tinyllama-1.1b bf16 seed 0. (D1) (g)'s fleet and wave (greedy, the
@@ -399,12 +400,39 @@ shown after (P)), on rank processes of its own:
       backend, bit-equal to the single device; with several cards, a pp =
       2 x tp = 2 (or pp = 2) mesh of ranks on cards of their own, NCCL
       across ranks. The kernels line gains launches_D.
+  (M) the 1F1B schedule (parallel/schedule.py): (g)'s eight prompts as
+      one left-padded batch (a 1024 bucket, 32 new, greedy) through the
+      backend's prefill (its logits returned) and decode and through
+      `generate_batch`, on the single device, on pp = 2 with microbatches
+      1 (the plain ring) and with microbatches 2: prefill logits against
+      the plain run's and the single device's within LOGITS_ATOL, ids
+      equal the plain run's or parted at a near tie (near-top after it
+      under teacher forcing), tokens/s of a timed batch, each rank's
+      `flash_attend` count (one T>1 chunk a microbatch and layer), its
+      device busy share and host seconds in collectives over a profiled
+      batch; then the server's CLI with `--pp 2 --microbatches 2` serving
+      a batch of 2 on the 1F1B path. The kernels line gains launches_M.
+  (L) context parallelism (parallel/context.py, ring.py): a 1536-token
+      prompt with 32 new at sp = 2, ring, Ulysses and the ring under
+      the int8 wire, then a 512-token one at sp 2 x pp 2 (four ranks),
+      each against the single device: prefill logits within
+      LOGITS_ATOL, ids held as in (M), the sp link's bytes, each rank's
+      cache bytes against the single device's, no kernel on any rank
+      (the ring's attention is plain PyTorch).
+  (E) the expert mesh: qwen3-30b-a3b at ep = 2 (64 of 128 experts a
+      rank), its logits in fp32 at 4 layers within 1e-3 of the single
+      device's (`flash_attend` 4 a rank), then (g)'s wave in bf16 at 12
+      of 48 layers through the HTTP server (every rank runs every layer:
+      ragged 12 per mixed launch, paged 12 x 16 per chunk), each rank's
+      memory and, over a profiled wave, the device ms of its expert
+      products (`moe_ffn.experts`). The kernels line gains launches_E.
 
-The full run goes in four processes after (q): (x), (y), (z), (C) and
+The full run goes in seven processes after (q): (x), (y), (z), (C) and
 (F) run in a second one, `chip_smoke.py --lane x,y,z,C,F`, on an engine
 of its own (the same model and seed, so the same weights), and (P) in a
 third, `chip_smoke.py --only P`, while the main process runs (s)-(w), (R)
-and (S), then (D) in a fourth once those are joined; each lane's output is shown when it ends,
+and (S), then (D), (M), (L) and (E) in four more once those are joined;
+each lane's output is shown when it ends,
 and the --lane one's last line carries its kernel counts. Every phase is bound by the host
 (the card idles most of the time) and a process is one thread of Python.
 No kernel is timed while the lanes run: (b), (f) and (n) come before
@@ -416,6 +444,7 @@ the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
 `--only y` runs (a), then (y) alone; `--only z` runs (a), then (z) alone;
 `--only S` runs (a), then (S) alone; `--only R` runs (a), then (R)
 alone; `--only P` runs (a), then (P) alone; `--only D` runs (a), then (D)
+alone; `--only M`, `--only L` and `--only E` run (a), then that phase
 alone; `--only F` runs (a), then (F)
 alone with profiled solo requests,
 mixed launches and decode chunks of both models (left out of the full run
@@ -912,12 +941,15 @@ def device_kernels(prof) -> list:
     """The device kernels of a finished torch.profiler session, read from
     its raw kineto events. prof.events() would first build a FunctionEvent
     tree of every host op, which takes seconds per ten thousand kernels; the
-    device events it keeps are these (not hidden, device type CUDA)."""
+    device events it keeps are these (not hidden, device type CUDA), less
+    the device spans of user annotations (record_function ranges, such as
+    the MoE FFN's expert range), which are no kernels."""
     from torch.autograd import DeviceType
 
     return [DevKernel(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
             for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA and not e.is_hidden_event()]
+            if e.device_type() == DeviceType.CUDA and not e.is_hidden_event()
+            and not e.is_user_annotation()]
 
 
 def busy_union_us(kernels) -> float:
@@ -5216,7 +5248,7 @@ def phase_P(torch, kernels, smi) -> dict:
 
 # -- the dp x pp x tp pipeline backend: phase (D) -----------------------------------
 
-D_LANE_LOG = "build/chip_smoke_lane_D.log"  # (D)'s lane
+MESH_LANE_LOG = "build/chip_smoke_lane_{}.log"  # the lane of (D), (M), (L) or (E)
 D_SOLO_PROMPT = 100  # (D2)-(D4)'s solo prompt, prefilled as one T>1 chunk
 D_SOLO_NEW = 16
 
@@ -5568,8 +5600,449 @@ def phase_D(torch, kernels, smi) -> dict:
     print(f"(D) took {time.time() - t0:.1f} s ({smi})")
     print("(D) " + json.dumps({"pipeline": {"D1": d1["row"], "D2": d2["row"], "D3": d3,
                                             "D4": d4}}))
-    print("(D) launches " + json.dumps(launches))
     return launches
+
+
+# -- part B of the mesh: the 1F1B schedule (M), the context ring (L), the
+# expert mesh (E) -------------------------------------------------------------------
+
+# the mesh phases: the full run starts each in a process of its own
+# (`--only X`), side by side
+MESH_PHASES = ("D", "M", "L", "E")
+# (M)'s batch: (g)'s eight prompts (8 to 700 tokens) left-padded into one
+# bucket of 1024, FLEET_NEW_TOKENS new tokens each, greedy
+M_BUCKETS = (64, 128, 256, 512, 1024)
+M_MICROBATCHES = 2
+M_SERVER = ["--model", MODEL, "--dtype", "bfloat16", "--device", DEVICE,
+            "--attn-impl", "auto", "--seed", "0", "--pp", "2",
+            "--microbatches", str(M_MICROBATCHES)]
+# (L)'s long prompt at sp = 2 (768 positions a rank), its shorter request at
+# sp = 2 x pp = 2, and the new tokens of both
+L_PROMPT = 1536
+L_SHORT = 512
+L_NEW = 32
+# (E): qwen3-30b-a3b at ep = 2; its logits held in fp32 at F_MOE_FP32_LAYERS
+# layers, its served wave in bf16 at F_MOE_LANE_LAYERS of 48
+E_EP = 2
+
+
+def mesh_create(torch, model=MODEL, mesh=None, dtype="bfloat16", **kw):
+    """create_backend on the card from seed 0 (a mesh's ranks round-robin
+    over the cards: on one card they share it over gloo)."""
+    from distributed_llm_inference_tpu_torch.config import MeshConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_backend
+
+    kw.setdefault("attn_impl", "auto")
+    return create_backend(model, mesh_cfg=mesh or MeshConfig(), dtype=dtype, seed=0,
+                          device=DEVICE, **kw)
+
+
+def m_batch(torch, cfg):
+    """(g)'s eight prompts as one left-padded batch: (tokens [8, 1024],
+    valid_start [8], the prompts' texts)."""
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    texts = [fleet_prompt(i, n) for i, n in enumerate(FLEET_PROMPT_TOKENS)]
+    ids = [ByteTokenizer().encode(t) for t in texts]
+    bucket = M_BUCKETS[-1]
+    rows = [[cfg.pad_token_id] * (bucket - len(r)) + r for r in ids]
+    return (torch.tensor(rows, device=DEVICE),
+            torch.tensor([bucket - len(r) for r in ids], dtype=torch.int32, device=DEVICE),
+            texts)
+
+
+def m_ids(torch, G, backend, tokens, valid_start, n_new=FLEET_NEW_TOKENS):
+    """The batch's greedy prefill and n_new - 1 decode steps through the
+    backend's own methods: (ids per row, prefill logits [8, V] fp32)."""
+    samp = G.default_sampling(greedy=True)
+    B, T = tokens.shape
+    cache = backend.init_cache(B, T + n_new)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    first, logits, cache = backend.prefill(tokens, T, cache, gen, samp, valid_start)
+    out, n_gen, _ = backend.decode(first, cache, T, n_new - 1, gen, samp, valid_start,
+                                   max_steps=n_new - 1)
+    torch.cuda.synchronize()
+    first, out, n_gen = first.tolist(), out.tolist(), n_gen.tolist()
+    return [[first[b]] + out[b][:n_gen[b]] for b in range(B)], logits.float()
+
+
+def m_engine(torch, microbatches, mesh):
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    return create_engine(MODEL, dtype="bfloat16", attn_impl="auto", seed=0, device=DEVICE,
+                         engine_cfg=EngineConfig(prefill_buckets=M_BUCKETS),
+                         mesh_cfg=mesh, microbatches=microbatches)
+
+
+def m_serve(torch, engine, texts, tag, smi) -> dict:
+    """generate_batch of the eight prompts: a warm call, a timed call (the
+    kernels' counts from 0 just before it), then a call under every rank's
+    profiler. Returns the row of numbers."""
+    kw = dict(max_tokens=FLEET_NEW_TOKENS, greedy=True, chat=False)
+    r = engine.generate_batch(texts, **kw)
+    check(r["status"] == "success", f"{tag} warm batch: {r}")
+    be = engine.backend
+    mesh = hasattr(be, "launch_counts")
+    if mesh:
+        be.launch_counts(reset=True)
+    t0 = time.perf_counter()
+    r = engine.generate_batch(texts, **kw)
+    wall = time.perf_counter() - t0
+    check(r["status"] == "success" and len(r["results"]) == len(texts), f"{tag} batch: {r}")
+    n_tok = r["tokens_generated"]
+    row = {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall, "ttft_s": r["ttft_s"]}
+    if not mesh:
+        return row
+    row["launches"] = be.launch_counts()
+    be.profile(True)
+    t0 = time.perf_counter()
+    engine.generate_batch(texts, **kw)
+    prof_wall = time.perf_counter() - t0
+    prof = be.profile(False)
+    row["profiled_wall_s"] = prof_wall
+    # nccl_ms: the NCCL kernels' union (0 over gloo); under NCCL a rank
+    # that awaits its peer does so in such a kernel, counted busy
+    row["ranks"] = [{"rank": i, "busy_ms": p["busy_ms"], "nccl_ms": p["nccl_ms"],
+                     "wall_ms": p["wall_ms"], "busy_share": p["busy_ms"] / p["wall_ms"],
+                     "collective_s": sum(p["comm_s"].values()), "comm_s": p["comm_s"]}
+                    for i, p in enumerate(prof["ranks"])]
+    row["driver"] = prof["driver"]
+    print(f"{tag} generate_batch of {len(texts)} prompts ({min(FLEET_PROMPT_TOKENS)}-"
+          f"{max(FLEET_PROMPT_TOKENS)} tokens, {FLEET_NEW_TOKENS} new, greedy): {n_tok} "
+          f"tokens in {wall:.3f} s = {n_tok / wall:.2f} tokens/s (ttft {r['ttft_s']} s); "
+          f"per-rank launches {json.dumps(row['launches'])}; the profiled batch's ranks "
+          f"(device busy share, NCCL kernels' ms, host seconds in collectives) "
+          f"{json.dumps(row['ranks'])} "
+          f"({smi})")
+    return row
+
+
+def phase_M(torch, G, M, smi) -> dict:
+    """(M) the 1F1B schedule at pp = 2 with M = 2 against the plain pp = 2
+    pipeline and the single device on (g)'s eight prompts as one batch:
+    prefill logits, greedy ids, tokens/s, each rank's busy share and host
+    seconds in collectives; then one batch through the server's CLI."""
+    from distributed_llm_inference_tpu_torch.config import MeshConfig
+
+    t_phase = time.time()
+    single = m_engine(torch, 1, MeshConfig())
+    cfg = single.cfg
+    tokens, vs, texts = m_batch(torch, cfg)
+    want, want_lg = m_ids(torch, G, single.backend, tokens, vs)
+    single_row = m_serve(torch, single, texts, "(M) single device", smi)
+    params = single.backend.params
+    rows, runs = {}, {}
+    for name, mb in (("pp2", 1), ("pp2_1f1b", M_MICROBATCHES)):
+        t0 = time.time()
+        engine = m_engine(torch, mb, MeshConfig(pp=2))
+        be = engine.backend
+        try:
+            tag = f"(M) {name}"
+            print(f"{tag}: {MODEL} bf16 over pp=2, microbatches={mb}, backend {be.name}, "
+                  f"built in {time.time() - t0:.1f} s")
+            if mb > 1:
+                check(be.name == "pipeline-1f1b" and be.batch_granularity == mb,
+                      f"{tag}: selected {be.name}")
+                be.return_prefill_logits = True
+            got, lg = m_ids(torch, G, be, tokens, vs)
+            if mb > 1:
+                be.return_prefill_logits = False
+            rows[name] = m_serve(torch, engine, texts, tag, smi)
+            runs[name] = (got, lg)
+            per_rank = cfg.n_layers // 2
+            for r, c in enumerate(rows[name]["launches"]):
+                # the batch's one T>1 chunk a microbatch, per layer of the rank
+                check(c["flash_attend"] == per_rank * mb,
+                      f"{tag} rank {r}: flash_attend {c['flash_attend']} for {mb} "
+                      f"microbatch chunks of {per_rank} layers")
+            rows[name]["memory"] = d_memory(be)
+        finally:
+            be.close()
+        del engine, be
+        f_free(torch)
+    (plain_ids, plain_lg), (f1b_ids, f1b_lg) = runs["pp2"], runs["pp2_1f1b"]
+    err = float((f1b_lg - plain_lg).abs().max())
+    err_single = float((f1b_lg - want_lg).abs().max())
+    check(err < LOGITS_ATOL, f"(M) 1F1B prefill logits vs the plain pp=2 run's: {err}")
+    check(err_single < LOGITS_ATOL, f"(M) 1F1B prefill logits vs the single device's: "
+                                    f"{err_single}")
+    parted = []
+    for i, (g, w) in enumerate(zip(f1b_ids, plain_ids)):
+        if g != w:
+            ids = tokens[i, int(vs[i]):].tolist()
+            p = p_identity(f"(M) row {i}", torch, M, cfg, params, ids, g, w)
+            p["forced_worst"] = round(p_forced(f"(M) row {i}", torch, M, cfg, params, ids,
+                                               g, p["at"]), 4)
+            parted.append({"row": i, **p})
+    same_single = sum(g == w for g, w in zip(f1b_ids, want))
+    print(f"(M) 1F1B vs plain pp=2: prefill logits max abs err {err:.4f}, vs the single "
+          f"device's {err_single:.4f} (atol {LOGITS_ATOL}); greedy ids equal the plain "
+          f"run's for {len(f1b_ids) - len(parted)} of {len(f1b_ids)} rows, parted at a "
+          f"near tie, every later token near-top under teacher forcing "
+          f"{json.dumps(parted)}; equal the single device's for {same_single} ({smi})")
+    # one batch through the server's CLI with --pp 2 --microbatches 2; the
+    # CLI closes its backend when serving returns, which is at once here, so
+    # the close waits until the batch was served
+    from distributed_llm_inference_tpu_torch.serving import server as S
+
+    t0 = time.time()
+    close = S._close_backend
+    S._close_backend = lambda engine: None
+    try:
+        server = f_cli_server(M_SERVER)
+    finally:
+        S._close_backend = close
+    try:
+        be = server.engine.backend
+        check(be.name == "pipeline-1f1b", f"(M) the server's backend is {be.name}")
+        be.launch_counts(reset=True)
+        code, r, _ = post(server.port, {"prompts": texts[:2], "max_tokens": 8, "greedy": True,
+                                     "chat": False})
+        counts = be.launch_counts()
+    finally:
+        server.shutdown()
+        close(server.engine)
+    check(code == 200 and r.get("status") == "success"
+          and r.get("backend") == "pipeline-1f1b" and len(r["results"]) == 2,
+          f"(M) the server's batch: HTTP {code} {r}")
+    check(all(c["flash_attend"] > 0 for c in counts), f"(M) server launches {counts}")
+    print(f"(M) the server's CLI {' '.join(M_SERVER)}: a batch of 2 prompts answered "
+          f"HTTP {code}, backend {r['backend']}, {r['tokens_generated']} tokens, per-rank "
+          f"launches {json.dumps(counts)}; up and served in {time.time() - t0:.1f} s")
+    del single, params
+    f_free(torch)
+    out = {"single": single_row, **rows, "logits_err": err, "logits_err_single": err_single,
+           "parted": parted}
+    print(f"(M) took {time.time() - t_phase:.1f} s")
+    print("(M) " + json.dumps({"1f1b": out}))
+    return {"launches": d_sum(rows["pp2_1f1b"]["launches"]), "row": out}
+
+
+def l_solo(torch, G, backend, prompt_ids, n_new=L_NEW):
+    """One greedy request through the backend: (ids, prefill logits, the
+    device memory its cache took on each rank)."""
+    samp = G.default_sampling(greedy=True)
+    T = len(prompt_ids)
+    mesh = hasattr(backend, "mesh")
+
+    def used():
+        if mesh:
+            return [r.get("memory_allocated_bytes", 0) for ln in backend.health()
+                    for r in ln["ranks"]]
+        torch.cuda.synchronize()
+        return [torch.cuda.memory_allocated()]
+
+    before = used()
+    cache = backend.init_cache(1, T + n_new)
+    cache_bytes = [a - b for a, b in zip(used(), before)]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    first, logits, cache = backend.prefill(torch.tensor([prompt_ids], device=DEVICE), T,
+                                           cache, gen, samp)
+    out, n_gen, _ = backend.decode(first, cache, T, n_new - 1, gen, samp,
+                                   max_steps=n_new - 1)
+    torch.cuda.synchronize()
+    return [int(first[0])] + out[0, : int(n_gen[0])].tolist(), logits.float(), cache_bytes
+
+
+def phase_L(torch, G, M, smi) -> dict:
+    """(L) context parallelism: the 1536-token prompt at sp = 2 with the
+    ring and with Ulysses (and the ring's int8 wire), then a 512-token
+    request at sp = 2 x pp = 2, each against the single device."""
+    from distributed_llm_inference_tpu_torch.config import MeshConfig
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    t_phase = time.time()
+    out = {}
+    for T, meshes in ((L_PROMPT, [("ring", MeshConfig(sp=2), "ring", None),
+                                  ("ulysses", MeshConfig(sp=2), "ulysses", None),
+                                  ("ring_int8_wire", MeshConfig(sp=2), "ring", "int8")]),
+                      (L_SHORT, [("sp2_pp2", MeshConfig(sp=2, pp=2), "ring", None)])):
+        ids = ByteTokenizer().encode(fleet_prompt(80 + T, T))
+        check(len(ids) == T, f"(L) the prompt has {len(ids)} tokens, not {T}")
+        cfg, single = mesh_create(torch)
+        t0 = time.perf_counter()
+        want, want_lg, single_kv = l_solo(torch, G, single, ids)
+        single_s = time.perf_counter() - t0
+        for name, mesh, strategy, wire in meshes:
+            t0 = time.time()
+            cfg, be = mesh_create(torch, mesh=mesh, sp_strategy=strategy, wire_quant=wire)
+            tag = f"(L) {name}"
+            try:
+                print(f"{tag}: {MODEL} bf16, {mesh}, sp_strategy={strategy}, "
+                      f"pp_wire_quant={wire}, backend {be.name}, built in "
+                      f"{time.time() - t0:.1f} s; {be.local_slots(T + L_NEW)} cache slots "
+                      f"a rank for {T + L_NEW} positions")
+                be.launch_counts(reset=True)
+                be.wire_bytes.clear()
+                t0 = time.perf_counter()
+                got, lg, kv = l_solo(torch, G, be, ids)
+                wall = time.perf_counter() - t0
+                counts = be.launch_counts()
+                wire_bytes = dict(be.wire_bytes)
+                mem = d_memory(be)
+            finally:
+                be.close()
+            del be
+            f_free(torch)
+            err = float((lg - want_lg).abs().max())
+            check(err < LOGITS_ATOL, f"{tag}: prefill logits vs the single device's: {err}")
+            at = p_identity(tag, torch, M, cfg, single.params, ids, got, want)
+            if at is not None:
+                at["forced_worst"] = round(p_forced(tag, torch, M, cfg, single.params, ids,
+                                                    got, at["at"]), 4)
+            # the ring's attention is plain PyTorch: no kernel on any rank
+            check(all(sum(c.values()) == 0 for c in counts),
+                  f"{tag}: the context path launched kernels {counts}")
+            row = {"prompt_tokens": T, "new_tokens": len(got), "wall_s": wall,
+                   "tokens_per_s": len(got) / wall, "single_wall_s": single_s,
+                   "logits_err": err, "parts_at": at, "wire_bytes": wire_bytes,
+                   "cache_bytes_per_rank": kv, "single_cache_bytes": single_kv[0],
+                   "memory": mem}
+            out[name] = row
+            print(f"{tag}: prefill logits vs the single device's max abs err {err:.4f} "
+                  f"(atol {LOGITS_ATOL}); greedy ids "
+                  + ("equal" if at is None else f"part at a near tie {json.dumps(at)}")
+                  + f"; {len(got)} tokens in {wall:.3f} s (single device {single_s:.3f} s); "
+                  f"wire bytes {json.dumps(wire_bytes)}; the cache's device bytes per rank "
+                  f"{kv} against the single device's {single_kv[0]}; per-rank launches "
+                  f"{json.dumps(counts)}; memory per rank {json.dumps(mem)} ({smi})")
+        del single
+        f_free(torch)
+    raw, q = out["ring"]["wire_bytes"]["sp"], out["ring_int8_wire"]["wire_bytes"]["sp"]
+    print(f"(L) the sp link at {L_PROMPT} tokens: {raw} bytes raw, {q} int8 "
+          f"(x{raw / q:.3f} fewer); Ulysses {out['ulysses']['wire_bytes'].get('sp')}")
+    print(f"(L) took {time.time() - t_phase:.1f} s")
+    print("(L) " + json.dumps({"context": out}))
+    return {"row": out}
+
+
+def phase_E(torch, G, M, pa, fa, Q, smi) -> dict:
+    """(E) qwen3-30b-a3b over ep = 2 (64 of 128 experts a rank): its
+    logits in fp32 at F_MOE_FP32_LAYERS layers against the single device's,
+    then a served wave in bf16 at F_MOE_LANE_LAYERS layers through the
+    HTTP server, each rank's kernel counts, memory and expert ms."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig, MeshConfig
+    from distributed_llm_inference_tpu_torch.models.registry import get_model_config
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    t_phase = time.time()
+    base = get_model_config(F_MOE).replace(max_seq_len=F_MOE_MAX_SEQ)
+    ids = ByteTokenizer().encode(fleet_prompt(81, D_SOLO_PROMPT))
+    cfg32 = base.replace(n_layers=F_MOE_FP32_LAYERS)
+    scfg, single = mesh_create(torch, cfg32, dtype="float32")
+    want, want_lg = d_solo(torch, G, single, ids)
+    t0 = time.time()
+    cfg, be = mesh_create(torch, cfg32, MeshConfig(ep=E_EP), dtype="float32")
+    try:
+        print(f"(E) {F_MOE} fp32 at {cfg.n_layers} layers over ep={E_EP}: "
+              f"{cfg.n_experts // E_EP} of {cfg.n_experts} experts a rank, built in "
+              f"{time.time() - t0:.1f} s")
+        be.launch_counts(reset=True)
+        got, lg = d_solo(torch, G, be, ids)
+        solo_counts = be.launch_counts()
+        mem32 = d_memory(be)
+    finally:
+        be.close()
+    err = float((lg - want_lg).abs().max())
+    check(err < F_FP32_LOGITS_ATOL, f"(E) ep=2 fp32 logits vs the single device's: {err}")
+    at = p_identity("(E) fp32", torch, M, scfg, single.params, ids, got, want)
+    for r, c in enumerate(solo_counts):
+        check(c["flash_attend"] == cfg.n_layers,
+              f"(E) fp32 rank {r}: flash_attend {c['flash_attend']} for one T>1 chunk")
+    # a rank's Stage and its parameter tree refer to each other: the
+    # collector, not the last reference, frees the driver's shard
+    del single, be
+    f_free(torch)
+    print(f"(E) ep=2 fp32: prefill logits vs the single device's max abs err {err:.2e} "
+          f"(atol {F_FP32_LOGITS_ATOL}); greedy ids "
+          + ("equal" if at is None else f"part at a near tie {json.dumps(at)}")
+          + f"; per-rank launches {json.dumps(solo_counts)}; memory {json.dumps(mem32)} "
+          f"({smi})")
+    # the served wave in bf16
+    t0 = time.time()
+    engine = create_engine(base.replace(n_layers=F_MOE_LANE_LAYERS), dtype="bfloat16",
+                           attn_impl="auto", seed=0, device=DEVICE,
+                           engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS),
+                           mesh_cfg=MeshConfig(ep=E_EP))
+    be = engine.backend
+    L = engine.cfg.n_layers
+    print(f"(E) {F_MOE} bf16 at {L} of 48 layers over ep={E_EP}, built in "
+          f"{time.time() - t0:.1f} s; memory per rank {json.dumps(d_memory(be))}")
+    which = range(len(FLEET_PROMPT_TOKENS))
+    bodies = [{"prompt": fleet_prompt(i, FLEET_PROMPT_TOKENS[i]),
+               "max_tokens": FLEET_NEW_TOKENS, "chat": False, "greedy": True,
+               "slo_class": "batch"} for i in which]
+    fleet, server = fleet_server(engine, FLEET)
+    try:
+        before = get(server.port, "/stats")[1]["continuous"]
+        rag0 = ragged_launches(engine)
+        be.launch_counts(reset=True)
+        got, wave_s, _, _, after = serve_wave(server, bodies, pa, fa, Q)
+        counts = be.launch_counts()
+        rag = ragged_launches(engine) - rag0
+        mem = d_memory(be)
+        be.profile(True)
+        _, prof_s, _, _, _ = serve_wave(server, bodies, pa, fa, Q)
+        prof = be.profile(False)
+    finally:
+        server.shutdown()
+        fleet.close()
+        be.close()
+    check_wave("(E) ep=2", got, which)
+    chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+    steps = after["chunk_steps"]
+    for r, c in enumerate(counts):
+        # ep splits the experts, not the layers: every rank runs every layer
+        check(c["ragged_paged_attend"] == L * rag > 0,
+              f"(E) rank {r}: ragged_paged_attend {c['ragged_paged_attend']} for {rag} "
+              f"ragged launches of {L} layers")
+        check(c["paged_flash_attend"] == L * steps * chunks > 0,
+              f"(E) rank {r}: paged_flash_attend {c['paged_flash_attend']} for {chunks} "
+              f"decode chunks of {steps} steps x {L} layers")
+    ranks = [{"rank": r, "experts_ms": p["experts_ms"], "busy_ms": p["busy_ms"],
+              "wall_ms": p["wall_ms"], "busy_share": p["busy_ms"] / p["wall_ms"],
+              "collective_s": sum(p["comm_s"].values())}
+             for r, p in enumerate(prof["ranks"])]
+    n_tok = sum(r["tokens_generated"] for _, r, _ in got)
+    print(f"(E) ep=2 bf16 wave: {n_tok} tokens from {len(got)} requests in {wave_s:.3f} s "
+          f"= {n_tok / wave_s:.2f} tokens/s aggregate; ragged launches {rag}, decode "
+          f"chunks {chunks}; per-rank launches {json.dumps(counts)}; the profiled wave "
+          f"({prof_s:.3f} s) per rank: the expert products' device ms, busy share, host "
+          f"seconds in collectives {json.dumps(ranks)}; memory per rank {json.dumps(mem)}; "
+          f"wire bytes {json.dumps(dict(be.wire_bytes))} ({smi})")
+    del engine
+    f_free(torch)
+    out = {"fp32": {"layers": F_MOE_FP32_LAYERS, "logits_err": err, "parts_at": at,
+                    "memory": mem32},
+           "wave": {"layers": L, "tokens_per_s": n_tok / wave_s, "ranks": ranks,
+                    "ragged_launches": rag, "decode_chunks": chunks, "memory": mem}}
+    print(f"(E) took {time.time() - t_phase:.1f} s")
+    print("(E) " + json.dumps({"experts": out}))
+    return {"launches": d_sum(solo_counts + counts), "row": out}
+
+
+def phase_mesh(torch, kernels, smi, which=MESH_PHASES) -> dict:
+    """Those of (D), (M), (L) and (E) in `which`, in this process, in that
+    order: their kernel counts on the last line, `MESH {...}`."""
+    from distributed_llm_inference_tpu_torch.engine import generate as G
+    from distributed_llm_inference_tpu_torch.models import api as M
+    from distributed_llm_inference_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_inference_tpu_torch.ops import paged_attention as pa
+    from distributed_llm_inference_tpu_torch.ops import quant as Q
+
+    out = {}
+    if "D" in which:
+        out["D"] = phase_D(torch, kernels, smi)
+    if "M" in which:
+        out["M"] = phase_M(torch, G, M, smi)["launches"]
+    if "L" in which:
+        phase_L(torch, G, M, smi)
+    if "E" in which:
+        out["E"] = phase_E(torch, G, M, pa, fa, Q, smi)["launches"]
+    print("MESH " + json.dumps(out))
+    return out
 
 
 # -- speculation on the mixed launch: phase (x) --------------------------------------
@@ -8468,11 +8941,11 @@ F_MOE_LANE_LAYERS = 12
 
 
 def start_lane(phases, log_path=LANE_LOG) -> subprocess.Popen:
-    """`chip_smoke.py --lane` on `phases` (`--only P` for ["P"]), its
-    output to log_path."""
+    """`chip_smoke.py --lane` on `phases` (`--only X` for one of (P) and
+    the mesh phases), its output to log_path."""
     import os
 
-    args = (["--only", phases[0]] if phases in (["P"], ["D"])
+    args = (["--only", phases[0]] if len(phases) == 1 and phases[0] in ("P", *MESH_PHASES)
             else ["--lane", ",".join(phases)])
     os.makedirs(os.path.dirname(log_path), exist_ok=True)
     with open(log_path, "w") as log:
@@ -8607,7 +9080,7 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z",
-                                       "C", "S", "F", "R", "P", "D"],
+                                       "C", "S", "F", "R", "P", "D", "M", "L", "E"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -8631,7 +9104,9 @@ def main(argv) -> int:
                          "(R): the port's router in front of replica processes, "
                          "the fleet's traces, failover; or (P) alone (P): the MPMD "
                          "stage pipeline of stage processes over HTTP; or (D) alone "
-                         "(D): the pp / tp pipeline backend's rank processes")
+                         "(D): the pp / tp pipeline backend's rank processes; or "
+                         "(M), (L) or (E) alone: the 1F1B schedule, the context "
+                         "ring (sp), the expert mesh (ep)")
     ap.add_argument("--lane", help="run (a) and then these later phases of the full run "
                                    "(a comma-separated subset of "
                                    + ",".join(LANE_PHASES) + ") on an engine of their "
@@ -8716,9 +9191,9 @@ def main(argv) -> int:
         phase_P(torch, kernels, smi)
         print(f"(P) total {time.time() - t_start:.1f} s")
         return 0
-    if args.only == "D":
-        phase_D(torch, kernels, smi)
-        print(f"(D) total {time.time() - t_start:.1f} s")
+    if args.only in MESH_PHASES:
+        phase_mesh(torch, kernels, smi, (args.only,))
+        print(f"({args.only}) total {time.time() - t_start:.1f} s")
         return 0
     if args.only == "F":
         launches, shapes = phase_F(torch, pa, fa, Q, P, G, M, smi, profile=True)
@@ -8854,24 +9329,29 @@ def main(argv) -> int:
     # (P) the MPMD stage pipeline, a third process: its controller and
     # frontend, and its two stage processes (it loads no kernel)
     p_lane = start_lane(["P"], P_LANE_LOG)
-    d_lane = None
+    mesh_lanes = []
     try:
         r_launches, s_launches = main_lane(
             torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start)
         lane_out = join_lane(lane)
-        # (D) the pipeline backend's rank processes, a fourth process once
-        # the main process's own phases and the lane are done: its ranks are
-        # host-bound Python, and beside them the host's cores would be
-        # oversubscribed (the lane's waves have TTFT targets)
-        d_lane = start_lane(["D"], D_LANE_LOG)
+        # (D), (M), (L) and (E): the mesh backends' rank processes, a
+        # process each once the main process's own phases and the lane are
+        # done: their ranks are host-bound Python, and beside those the
+        # host's cores would be oversubscribed (the lane's waves have TTFT
+        # targets); the four share the card and the cores, and their own
+        # waves ride the unsheddable "batch" class
+        mesh_lanes = [(start_lane([p], MESH_LANE_LOG.format(p)), MESH_LANE_LOG.format(p))
+                      for p in MESH_PHASES]
         join_lane(p_lane, P_LANE_LOG, last_prefix="(P) total")
-        d_launches = json.loads(join_lane(d_lane, D_LANE_LOG, last_prefix="(D) launches ")
-                                [len("(D) launches "):])
+        mesh_out = {}
+        for proc, log in mesh_lanes:
+            mesh_out.update(json.loads(join_lane(proc, log, last_prefix="MESH ")
+                                       [len("MESH "):]))
     finally:
         stop_lane(lane)
         stop_lane(p_lane, P_LANE_LOG)
-        if d_lane is not None:
-            stop_lane(d_lane, D_LANE_LOG)
+        for proc, log in mesh_lanes:
+            stop_lane(proc, log)
     x_launches, y_launches, z_launches, c_launches, f_launches = (
         lane_out[k] for k in ("x", "y", "z", "C", "F"))
     print(f"(lane) joined; total {time.time() - t_start:.1f} s")
@@ -8948,7 +9428,9 @@ def main(argv) -> int:
         entry["launches_S"] = s_launches[entry["name"]]
         entry["launches_F"] = f_launches.get(entry["name"], 0)
         entry["launches_R"] = r_launches.get(entry["name"], 0)
-        entry["launches_D"] = d_launches.get(entry["name"], 0)
+        entry["launches_D"] = mesh_out["D"].get(entry["name"], 0)
+        entry["launches_M"] = mesh_out["M"].get(entry["name"], 0)
+        entry["launches_E"] = mesh_out["E"].get(entry["name"], 0)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

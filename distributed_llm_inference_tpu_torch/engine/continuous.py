@@ -349,8 +349,9 @@ class ContinuousEngine:
         backend = engine.backend
         if not getattr(backend, "supports_slots", False):
             raise ValueError(
-                f"backend {backend.name!r} does not support slot decode; the "
-                f"fleet runs on the single-device llama backend"
+                f"backend {backend.name!r} does not support slot "
+                f"decode; continuous batching runs on the single-device "
+                f"backend or a pp pipeline mesh with dp == 1"
             )
         self.paged = kv_pool_blocks is not None
         if self.paged and not getattr(backend, "supports_paged", False):

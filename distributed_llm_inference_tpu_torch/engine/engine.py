@@ -70,6 +70,21 @@ log = get_logger("engine")
 DECODE_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
 # generate_batch pads the row count up to one of these
 BATCH_BUCKETS = (1, 2, 4, 8, 16)
+
+
+def batch_buckets_for(granularity: int) -> tuple:
+    """The batch-bucket ladder for a backend's row-count quantum (the 1F1B
+    schedule's dp x microbatches): BATCH_BUCKETS at 1, else (g, 2g, 4g,
+    ...) up past BATCH_BUCKETS[-1], so every batch size the API admits maps
+    to a bucket warmup ran. The request path and warmup share it."""
+    if granularity <= 1:
+        return BATCH_BUCKETS
+    out = [granularity]
+    while out[-1] < BATCH_BUCKETS[-1]:
+        out.append(out[-1] * 2)
+    return tuple(out)
+
+
 # speculation: drafted tokens verified per forward (the KV headroom
 # _clamp_decode reserves past the last emitted token)
 SPEC_DRAFT_LEN = 4
@@ -1396,7 +1411,9 @@ class InferenceEngine:
         one verify iteration of the speculative loop a `speculative`
         request takes: with a draft attached, the draft's ingest per
         prefill bucket and its chunked variant first, then the draft
-        loop; else the prompt-lookup loop. Returns {"programs": N,
+        loop; else the prompt-lookup loop. On a fleet-granular backend (the
+        1F1B schedule) also a batched prefill and decode step per bucket of
+        its batch ladder (batch_buckets_for). Returns {"programs": N,
         "seconds": wall}."""
         t0 = time.time()
         buckets = self._buckets()
@@ -1422,8 +1439,9 @@ class InferenceEngine:
                         self._tokens([[pad] * bucket]), 1, cache, gen, sampling,
                         presence=pres)
                     n += 1
-            cache = self.backend.extend(self._tokens([[pad] * buckets[-1]]), 0, cache)
-            n += 1
+            if hasattr(self.backend, "extend"):  # the context ring has none
+                cache = self.backend.extend(self._tokens([[pad] * buckets[-1]]), 0, cache)
+                n += 1
             # a first token that is no stop token, so each decode runs its step
             first = self._tokens([next(t for t in range(self.cfg.vocab_size)
                                        if t not in self.cfg.all_stop_ids)])
@@ -1459,6 +1477,24 @@ class InferenceEngine:
                 _, _, cache = self.backend.decode_speculative(
                     first, cache, hist, 1, 1, max_steps=db, draft_len=SPEC_DRAFT_LEN)
                 n += 1
+            gran = getattr(self.backend, "batch_granularity", 1)
+            if gran > 1:
+                # a fleet-granular backend's fleet programs (the 1F1B
+                # schedule): one batched prefill and decode step per bucket
+                # of its ladder, each bucket's cache kept for its requests
+                for Bb in batch_buckets_for(gran):
+                    bc = self._batch_caches.pop(Bb, None)
+                    if bc is None:
+                        bc = self.backend.init_cache(Bb, self.cfg.max_seq_len)
+                    rows = self._tokens([[pad] * buckets[0]] * Bb)
+                    vs = torch.full((Bb,), buckets[0] - 1, dtype=torch.int32,
+                                    device=self.device)
+                    f, _, bc = self.backend.prefill(rows, buckets[0], bc, gen, sampling, vs)
+                    _, _, bc = self.backend.decode(first.expand(Bb).contiguous(), bc,
+                                                   buckets[0], 1, gen, sampling, vs,
+                                                   max_steps=DECODE_BUCKETS[0])
+                    self._batch_caches[Bb] = bc
+                    n += 2
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._cache = cache  # the first request reuses the buffer
@@ -1556,8 +1592,11 @@ class InferenceEngine:
         plens = [len(i) for i in ids]
         bucket, max_tokens, decode_bucket = self._plan(max(plens), max_tokens)
         # pad the row count to a batch bucket; dummy rows are single-pad
-        # prompts, sliced off the results below
-        Bb = G.pick_bucket(BATCH_BUCKETS, B)
+        # prompts, sliced off the results below. A fleet-granular backend
+        # (1F1B: rows % (dp * M) == 0) pads on its granularity ladder, the
+        # one warmup runs
+        gran = getattr(self.backend, "batch_granularity", 1)
+        Bb = G.pick_bucket(batch_buckets_for(gran), B)
         pad = cfg.pad_token_id
         rows = ids + [[pad]] * (Bb - B)
         row_lens = plens + [1] * (Bb - B)

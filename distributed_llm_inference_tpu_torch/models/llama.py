@@ -37,8 +37,10 @@ holds its tp rank's columns of wq / wk / wv / w_gate / w_up and rows of
 wo / w_down, and sums the attention output and the FFN output over the
 group, as the JAX package psums them. Pipeline stages need no update
 gate in the port: a rank runs its stage's layers once, on the activation
-it received (parallel/pipeline.py). The MoE FFN over an expert mesh
-(`ep_axis`) raises NotImplementedError naming its ROADMAP item.
+it received (parallel/pipeline.py). Over an expert mesh (`ep_axis`, an
+ep Group where the JAX package names the mesh axis) the layer holds its
+ep rank's share of each expert bank, and moe_ffn sums the shares'
+outputs over the group, as the JAX package psums them over ep.
 """
 
 from __future__ import annotations
@@ -70,18 +72,10 @@ from ..ops.sampling import stable_top
 
 Params = dict
 KVCache = dict  # {"k": [L, B, KV, S, Dh], "v": [L, B, KV, S, Dh]}
+# the profiler range over moe_ffn's expert products (parallel/pipeline.py's
+# profile reports its device milliseconds per rank)
+EXPERTS_RANGE = "moe_ffn.experts"
 
-
-# the ROADMAP.md item (a heading there) that ports what this module rejects
-SPMD = "Multi-GPU SPMD"
-
-
-def _not_ported(what: str, item: str):
-    """NotImplementedError naming the ROADMAP.md item (a heading there)
-    that ports `what`."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md \"{item}\")"
-    )
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
@@ -246,7 +240,8 @@ def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
-def moe_ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+def moe_ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
+            ep_axis=None) -> torch.Tensor:
     """The sparse MoE FFN on a (normed) chunk h [B, T, D], exactly as the
     JAX package computes it (HF MixtralSparseMoeBlock semantics): an fp32
     softmax over the router logits, top-k, the selected weights
@@ -256,7 +251,10 @@ def moe_ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     are never read back, so a launch stays one graph.
 
     lp holds this layer's router w_router [D, E] and banks w_gate / w_up
-    [E, D, F], w_down [E, F, D], dense or int8 QTensor."""
+    [E, D, F], w_down [E, F, D], dense or int8 QTensor. With ep_axis
+    (a parallel/comm.Group) the banks hold the rank's E / ep experts:
+    the rank computes their share for every token, and one psum over the
+    group sums the shares."""
     k = cfg.n_experts_per_tok
     probs = torch.softmax((h @ lp["w_router"]).float(), dim=-1)  # [B, T, E]
     # jax.lax.top_k's order: a bf16 router's tie at the k-th place picks
@@ -267,10 +265,18 @@ def moe_ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     # each selected expert's weight at its index, 0 elsewhere (the JAX
     # one-hot sum, whose every other term is an exact 0)
     weights = torch.zeros_like(probs).scatter(-1, topi, topw).to(h.dtype)
-    gate = F.silu(eem("btd,edf->btef", h, lp["w_gate"]).float()).to(h.dtype)
-    up = eem("btd,edf->btef", h, lp["w_up"])
-    down = eem("btef,efd->bted", gate * up, lp["w_down"])
-    return torch.einsum("bted,bte->btd", down, weights)
+    if ep_axis is not None:
+        e_loc = lp["w_router"].shape[-1] // ep_axis.size
+        weights = weights[..., ep_axis.rank * e_loc:(ep_axis.rank + 1) * e_loc]
+    # a profiler range (on the card, its device span: the bank products)
+    with torch.profiler.record_function(EXPERTS_RANGE):
+        gate = F.silu(eem("btd,edf->btef", h, lp["w_gate"]).float()).to(h.dtype)
+        up = eem("btd,edf->btef", h, lp["w_up"])
+        down = eem("btef,efd->bted", gate * up, lp["w_down"])
+        out = torch.einsum("bted,bte->btd", down, weights)
+    if ep_axis is not None:
+        out = ep_axis.psum(out)
+    return out
 
 
 def decoder_layer(
@@ -308,9 +314,9 @@ def decoder_layer(
 
     tp_group: this layer's tp shard sums its row-projection outputs (wo,
     w_down) over the group (parallel/comm.Group.psum); None off a tp mesh.
+    ep_axis: this layer's expert share sums moe_ffn's output over the
+    group; None off an ep mesh.
     """
-    if ep_axis is not None:
-        raise _not_ported("the MoE FFN over an expert mesh (ep)", SPMD)
     if cfg.n_experts and tp_group is not None:
         raise NotImplementedError(
             "MoE + tensor parallelism is not wired yet: shard experts "
@@ -381,7 +387,7 @@ def decoder_layer(
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps, unit_offset=uo) \
         if cfg.pre_norms else x
     if cfg.n_experts:
-        mlp_out = moe_ffn(cfg, lp, h)
+        mlp_out = moe_ffn(cfg, lp, h, ep_axis)
     else:
         act = F.silu if cfg.act == "silu" else _gelu_tanh
         gate = act(lmm(h, "w_gate").float()).to(h.dtype)

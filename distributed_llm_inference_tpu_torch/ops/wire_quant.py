@@ -102,6 +102,22 @@ def wire_recv(like: torch.Tensor, group, src: int, *, quant: bool) -> torch.Tens
     return wire_decode(WireQuant(q, s), like.dtype)
 
 
+def wire_shift(x, group, like, *, quant: bool, path: str = "1f1b"):
+    """One step of the ring over `group` (the JAX `wire_ppermute` of a
+    ring): x (or None: nothing to send) to the next rank, and what the
+    previous rank sent, shaped and typed like `like` (None: nothing to
+    receive). quant ships int8 rows then fp32 scales and dequantizes on
+    landing."""
+    if not quant:
+        return group.shift(x, like, path)
+    w = None if x is None else wire_encode(x)
+    q = group.shift(None if w is None else w.q, None if like is None else torch.empty(
+        like.shape, dtype=torch.int8, device=like.device), path)
+    s = group.shift(None if w is None else w.s, None if like is None else torch.empty(
+        like.shape[:-1], dtype=torch.float32, device=like.device), path)
+    return None if like is None else wire_decode(WireQuant(q, s), like.dtype)
+
+
 def masked_psum(x: torch.Tensor, group, owner: int, *, quant: bool) -> torch.Tensor:
     """The single-owner broadcast: group rank `owner`'s x on every rank
     (the other ranks' x gives the shape; counted on the "broadcast"

@@ -12,8 +12,8 @@ programs the driver sends it (parallel/pipeline.py). The caller keeps
 one controller: an engine above the mesh never sees a rank.
 
 Every rank builds its axis groups (parallel/comm.Group): for each of
-dp, pp and tp, a process group over the ranks that share every other
-coordinate, each its own process group over one store, never the
+dp, pp, sp, tp and ep, a process group over the ranks that share every
+other coordinate, each its own process group over one store, never the
 process's default group, in the same axis order on every rank. The
 rendezvous is a `FileStore` in a fresh temporary directory, so meshes
 built side by side (the tests' worlds, several test processes) never
@@ -26,8 +26,8 @@ is made with the timeout GROUP_TIMEOUT_S: a collective whose peer is
 gone raises within it, and the driver notices a dead worker's exit
 while it waits for the worker's answer, so no program waits forever.
 
-sp > 1 and ep > 1, and `multihost_initialize`, are part B of the ROADMAP
-item and raise the not-ported error naming it.
+`multihost_initialize` is part C of the ROADMAP item and raises the
+not-ported error naming it.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from .comm import Group
 AXIS_DP, AXIS_PP, AXIS_SP, AXIS_TP, AXIS_EP = "dp", "pp", "sp", "tp", "ep"
 AXES = (AXIS_DP, AXIS_PP, AXIS_SP, AXIS_TP, AXIS_EP)
 # the axes that own a process group on every rank, in construction order
-GROUP_AXES = (AXIS_DP, AXIS_PP, AXIS_TP)
+GROUP_AXES = AXES
 
 # every process group's timeout, and so the longest a program can block
 # on a peer that is gone
@@ -255,13 +255,10 @@ _mesh_ids = itertools.count()
 
 def build_mesh(mesh_cfg: MeshConfig, devices: Optional[Sequence] = None, *,
                timeout_s: float = GROUP_TIMEOUT_S) -> Mesh:
-    """Spawn the workers of a (dp, pp, tp) mesh and build the driver's
-    groups. devices: one per rank (rank r on devices[r]); default every
-    CUDA card round-robin. The caller's process is rank 0 on devices[0]."""
-    if mesh_cfg.sp > 1:
-        raise not_ported("sequence parallelism (sp > 1: parallel/context.py, ring.py)")
-    if mesh_cfg.ep > 1:
-        raise not_ported("the MoE FFN over an expert mesh (ep > 1)")
+    """Spawn the workers of a (dp, pp, sp, tp, ep) mesh and build the
+    driver's groups. devices: one per rank (rank r on devices[r]); default
+    every CUDA card round-robin. The caller's process is rank 0 on
+    devices[0]."""
     n = mesh_cfg.n_devices
     devs = [torch.device(d) for d in (devices if devices is not None
                                       else default_devices(n))]

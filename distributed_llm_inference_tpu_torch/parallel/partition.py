@@ -1,5 +1,5 @@
-"""Parameter and KV partitioning over the (dp, pp, tp) mesh (the JAX
-package's parallel/partition.py).
+"""Parameter and KV partitioning over the (dp, pp, sp, tp, ep) mesh (the
+JAX package's parallel/partition.py).
 
 The JAX package annotates shardings and lets XLA place each shard; here
 a rank cuts its own shard out of the whole tree (`shard_params`): the
@@ -7,12 +7,16 @@ stacked layer leaves [L, ...] keep the rank's stage's layers, and within
 a stage the Megatron split takes the rank's tp slice of each leaf
 (column-sharded wq / wk / wv / w_gate / w_up and their biases, row-
 sharded wo / w_down, whose partial products the decoder layer sums over
-the tp group). Embedding rows and LM-head columns shard their vocab dim
+the tp group). An MoE model's expert banks [L, E, in, out] (dense or
+int8) shard their E axis over ep, the router whole on every rank; the
+decoder layer's moe_ffn sums its experts' share over the ep group.
+Embedding rows and LM-head columns shard their vocab dim
 over pp (parallel/vocab.py); norms and position rows replicate. The KV
 cache [L, B, KV, S, Dh] shards layers over pp, batch over dp and kv heads
 over tp; the block pool [L, N, KV, bs, Dh] layers over pp and kv heads
 over tp, its blocks whole on every rank (the block tables and the slot
-state are the same on every rank).
+state are the same on every rank). Both replicate over ep; the context
+backend's cache (parallel/context.py) shards its slots over sp.
 
 Uneven splits: the JAX mesh needs an even layer axis, so it pads each
 stage with all-zero layers that pass the activation through unchanged
@@ -39,7 +43,7 @@ from ..ops.quant import Q4Tensor, QTensor
 from .mesh import AXIS_PP, AXIS_TP, not_ported
 from .vocab import VOCAB_SHARDED, pad_vocab, vocab_shard
 
-COL, ROW = "col", "row"
+COL, ROW, EXPERT = "col", "row", "expert"
 
 # per stacked layer leaf: how tp shards it (COL: the output dim, ROW: the
 # input dim, None: replicated over tp); the layer axis always over pp
@@ -64,8 +68,10 @@ _GPT2_LAYER_TP = {
 _FAMILY_LAYER_TP = {"llama": _LLAMA_LAYER_TP, "gpt2": _GPT2_LAYER_TP}
 
 # the MoE FFN's router and expert banks: whole on every tp rank (MoE and
-# tp > 1 are refused; the banks' ep split is part B)
-_MOE_LAYER_TP = {"w_router": None, "w_gate": None, "w_up": None, "w_down": None}
+# tp > 1 are refused); EXPERT: the bank's E axis (1) over ep, the router
+# whole on every rank (the JAX _MOE_LAYER_SPECS)
+_MOE_LAYER_TP = {"w_router": None, "w_gate": EXPERT, "w_up": EXPERT,
+                 "w_down": EXPERT}
 
 
 def validate_mesh(cfg: ModelConfig, pp: int, tp: int, ep: int = 1,
@@ -124,7 +130,7 @@ def padded_layers_per_stage(n_layers: int, pp: int) -> int:
 
 
 def layer_tp_rule(cfg: ModelConfig, name: str):
-    """COL, ROW or None for the stacked layer leaf `name`."""
+    """COL, ROW, EXPERT or None for the stacked layer leaf `name`."""
     rules = dict(_FAMILY_LAYER_TP[cfg.arch])
     if cfg.n_experts:
         rules.update(_MOE_LAYER_TP)
@@ -146,16 +152,28 @@ def _own(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def shard_layer_leaf(leaf, rule, layer_range: tuple, tp_rank: int, tp: int):
+def shard_layer_leaf(leaf, rule, layer_range: tuple, tp_rank: int, tp: int,
+                     ep_rank: int = 0, ep: int = 1):
     """A rank's shard of one stacked layer leaf: layers [lo, hi) of its
     stage, then its tp slice by `rule` (dense leaves: COL the last axis,
     ROW axis 1; QTensor q [L, in, out] / s [L, out]: the scale shards with
     the columns and replicates for a row split; Q4Tensor q [L, G, g/2,
-    out] / s [L, G, out]: a row split takes whole scale groups)."""
+    out] / s [L, G, out]: a row split takes whole scale groups), or for
+    an EXPERT bank its ep share of the experts (axis 1 of the data and of
+    an int8 bank's scales [L, E, out])."""
     lo, hi = layer_range
 
     def layers(t):
         return t[lo:hi]
+
+    if rule == EXPERT:
+        def experts(t):
+            t = layers(t)
+            return _own(_cut(t, 1, ep_rank, ep) if ep > 1 else t)
+
+        if isinstance(leaf, QTensor):
+            return QTensor(experts(leaf.q), experts(leaf.s))
+        return experts(leaf)
 
     if isinstance(leaf, Q4Tensor):
         q, s = layers(leaf.q), layers(leaf.s)
@@ -180,11 +198,13 @@ def shard_layer_leaf(leaf, rule, layer_range: tuple, tp_rank: int, tp: int):
 
 
 def shard_layers(cfg: ModelConfig, layers: dict, stage: int, pp: int,
-                 tp_rank: int = 0, tp: int = 1) -> dict:
-    """The stacked layer leaves of (stage, tp_rank): the stage's real
-    layers, each leaf's tp slice."""
+                 tp_rank: int = 0, tp: int = 1, ep_rank: int = 0,
+                 ep: int = 1) -> dict:
+    """The stacked layer leaves of (stage, tp_rank, ep_rank): the stage's
+    real layers, each leaf's tp slice, each expert bank's ep share."""
     rng = stage_layer_range(cfg.n_layers, pp, stage)
-    return {k: shard_layer_leaf(v, layer_tp_rule(cfg, k), rng, tp_rank, tp)
+    return {k: shard_layer_leaf(v, layer_tp_rule(cfg, k), rng, tp_rank, tp,
+                                ep_rank, ep)
             for k, v in layers.items()}
 
 
@@ -205,12 +225,13 @@ def shard_shared(cfg: ModelConfig, shared: dict, stage: int, pp: int) -> dict:
 
 
 def shard_params(cfg: ModelConfig, params: dict, stage: int, pp: int,
-                 tp_rank: int = 0, tp: int = 1) -> tuple[dict, dict]:
-    """(shared, layers) of the rank at (stage, tp_rank)."""
-    validate_mesh(cfg, pp, tp, params=params)
+                 tp_rank: int = 0, tp: int = 1, ep_rank: int = 0,
+                 ep: int = 1) -> tuple[dict, dict]:
+    """(shared, layers) of the rank at (stage, tp_rank, ep_rank)."""
+    validate_mesh(cfg, pp, tp, ep, params=params)
     shared, layers = split_params(params)
     return (shard_shared(cfg, shared, stage, pp),
-            shard_layers(cfg, layers, stage, pp, tp_rank, tp))
+            shard_layers(cfg, layers, stage, pp, tp_rank, tp, ep_rank, ep))
 
 
 # -- the KV cache and the block pool --------------------------------------------

@@ -1,4 +1,4 @@
-"""The dp x pp x tp pipeline backend of the port (the JAX package's
+"""The dp x pp x tp x ep pipeline backend of the port (the JAX package's
 parallel/pipeline.py: SPMDBackendBase and PipelineBackend).
 
 One controller, many ranks. The JAX backend is one shard_map program that
@@ -22,8 +22,9 @@ recv-driven pipeline:
   1. the vocab-sharded embedding, summed over the pp group (every pp
      rank has the chunk's activation; parallel/vocab.py);
   2. stage s receives its activation from stage s - 1 (stage 0 keeps the
-     embedding), runs its layers once, with the tp sums inside each
-     layer, and sends the result to stage s + 1;
+     embedding), runs its layers once, with the tp sums (and, on an MoE
+     model over ep, the expert shares' sum) inside each layer, and sends
+     the result to stage s + 1;
   3. at each unembed, the last stage's window reaches every pp rank (the
      JAX `_bcast`, pipeline.py:301), each rank computes its vocab shard of
      the logits and the shards are gathered, so every rank samples the
@@ -45,13 +46,20 @@ driver at the end of the program.
 
 A mesh program spans processes, so it cannot be captured as one CUDA
 graph: `supports_graphs` is False and the fleet launches it eagerly.
+
+The other mesh backends (parallel/schedule.py's 1F1B schedule,
+parallel/context.py's sequence ring) reuse this runner: their rank-side
+bodies are module functions named "module:function" (a module of this
+package's parallel/), called with the rank's RankPrograms first.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import functools
 import hashlib
+import importlib
 import itertools
 import os
 import pickle
@@ -71,7 +79,9 @@ from ..models.bridge import params_to
 from ..ops.kv_quant import KVQuant
 from ..ops.quant import Q4Tensor, QTensor, quantize_params
 from ..ops.wire_quant import masked_psum, wire_recv, wire_roundtrip, wire_send
-from .mesh import AXIS_DP, AXIS_PP, AXIS_TP, Mesh, MeshError, abort_groups, rank_coords
+from .mesh import (
+    AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP, Mesh, MeshError, abort_groups, rank_coords,
+)
 from .partition import (
     init_sharded_cache, init_sharded_pool, padded_layers_per_stage, pool_layer_slice,
     pool_spec, shadow_block_spec, shard_params, validate_mesh,
@@ -99,7 +109,8 @@ class StageParams(dict):
 
 class Stage:
     """One rank's shard of the model: its stage's layers between the pp
-    neighbours, its tp share of each layer, its vocab shard."""
+    neighbours, its tp share of each layer (its ep share of each expert
+    bank), its vocab shard."""
 
     def __init__(self, cfg: ModelConfig, shared: dict, layers: dict, groups: dict,
                  wire_quant: Optional[str]):
@@ -107,11 +118,14 @@ class Stage:
         self.shared = shared
         self.layers = layers
         self.pp = groups[AXIS_PP]
-        tp = groups[AXIS_TP]
+        tp, ep = groups[AXIS_TP], groups[AXIS_EP]
         self.tp = tp if tp.size > 1 else None
+        self.ep = ep if ep.size > 1 else None
+        self.sp = groups[AXIS_SP]
         self.s, self.S = self.pp.rank, self.pp.size
         # no wire on a singleton pp axis: a round trip there would break
         # the pp == 1 exactness
+        self.wire_quant = wire_quant
         self.quant = wire_quant is not None and self.S > 1
         self.params = StageParams(self, shared, layers)
 
@@ -122,7 +136,7 @@ class Stage:
         if self.s > 0:
             x = wire_recv(x, self.pp, self.s - 1, quant=self.quant)
         x, cache = M.family(self.cfg).forward_layers(
-            self.cfg, self.layers, x, cache, pos, tp_group=self.tp, **kw)
+            self.cfg, self.layers, x, cache, pos, tp_group=self.tp, ep_axis=self.ep, **kw)
         if self.s < self.S - 1:
             wire_send(x, self.pp, self.s + 1, quant=self.quant)
         elif self.quant:
@@ -236,10 +250,15 @@ class RankPrograms:
 
     def program(self, name: str):
         """The body of program `name` on this rank: a _DIRECT function on
-        the rank's config and shard, or the method of that name."""
+        the rank's config and shard, a "module:function" of parallel/
+        called with this RankPrograms first, or the method of that name."""
         if name in _DIRECT:
             fn, with_params = _DIRECT[name]
             return functools.partial(fn, self.cfg, *((self._params,) if with_params else ()))
+        if ":" in name:
+            mod, fn = name.split(":")
+            module = importlib.import_module(f"{__package__}.{mod}")
+            return functools.partial(getattr(module, fn), self)
         return getattr(self, name)
 
     # -- inputs ----------------------------------------------------------------------
@@ -295,13 +314,13 @@ class RankPrograms:
         """Cut this rank's shard out of `params` (the whole tree), or out of
         random weights drawn from `seed` on this rank's device (quantized
         when cfg.quant asks, as runtime.create_engine does)."""
-        pp, tp = self.mesh_cfg.pp, self.mesh_cfg.tp
-        s, t = self.coords[AXIS_PP], self.coords[AXIS_TP]
+        pp, tp, ep = self.mesh_cfg.pp, self.mesh_cfg.tp, self.mesh_cfg.ep
+        s, t, e = self.coords[AXIS_PP], self.coords[AXIS_TP], self.coords[AXIS_EP]
         if params is None:
             params = M.init_params(cfg, torch.Generator(device=self.device).manual_seed(seed))
             if cfg.quant is not None:
                 params = quantize_params(cfg, params)
-        shared, layers = shard_params(cfg, params, s, pp, t, tp)
+        shared, layers = shard_params(cfg, params, s, pp, t, tp, e, ep)
         del params
         shared, layers = params_to(shared, self.device), params_to(layers, self.device)
         if self.device.type == "cuda":
@@ -416,6 +435,7 @@ class RankPrograms:
         dev = self.device
         line = {"rank": self.rank, "stage": self.coords[AXIS_PP],
                 "tp_rank": self.coords[AXIS_TP], "dp_rank": self.coords[AXIS_DP],
+                "sp_rank": self.coords[AXIS_SP], "ep_rank": self.coords[AXIS_EP],
                 "devices": [str(dev)], "layers": list(range(*self.layer_range)),
                 "pid": os.getpid(), **probe_device(dev)}
         if dev.type == "cuda":
@@ -436,9 +456,12 @@ class RankPrograms:
         """Start this rank's torch.profiler and its collectives' clocks
         (start=True), or stop them and return, from the window between:
         "kernels" {name: launches} of the trace's device kernels,
-        "busy_ms" the union of their intervals, "wall_ms" the window, and
-        "comm_s" the host seconds inside each kind of collective
-        (parallel/comm.py)."""
+        "busy_ms" the union of their intervals, "nccl_ms" the union of the
+        NCCL kernels' (on the card they run while a peer is awaited, 0 over
+        gloo), "wall_ms" the window, "comm_s" the host seconds inside each
+        kind of collective (parallel/comm.py), and "experts_ms" the union
+        of the kernel intervals inside the MoE FFN's expert range (its bank
+        products; None where the trace holds no such range)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -447,7 +470,9 @@ class RankPrograms:
             if self.device.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
             self.comm_s.clear()
-            self._prof = profile(activities=acts)
+            # every thread's ops: on the driver the fleet's scheduler thread
+            # runs the programs, not the thread that starts the profiler
+            self._prof = profile(activities=acts, experimental_config=_all_threads())
             self._prof.__enter__()
             self._prof_t0 = time.perf_counter()
             return None
@@ -456,19 +481,63 @@ class RankPrograms:
             torch.cuda.synchronize(self.device)
         wall_ms = (time.perf_counter() - self._prof_t0) * 1e3
         prof.__exit__(None, None, None)
+        from ..models.llama import EXPERTS_RANGE
+
         # the raw kineto events: prof.events() would first build a tree of
-        # every host op
-        kernels = [e for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA and not e.is_hidden_event()]
-        busy_ns, end = 0, None
-        for a, b in sorted((e.start_ns(), e.end_ns()) for e in kernels):
-            if end is None or a > end:
-                busy_ns, end = busy_ns + b - a, b
-            elif b > end:
-                busy_ns, end = busy_ns + b - end, b
+        # every host op. The device events are the kernels and copies, and
+        # the device spans of user annotations (the expert range)
+        device = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA and not e.is_hidden_event()]
+        kernels = [e for e in device if not e.is_user_annotation()]
+        spans = [(e.start_ns(), e.end_ns()) for e in device
+                 if e.is_user_annotation() and e.name() == EXPERTS_RANGE]
+        ivs = [(e.start_ns(), e.end_ns()) for e in kernels]
         return {"kernels": dict(collections.Counter(e.name() for e in kernels)),
-                "busy_ms": busy_ns / 1e6, "wall_ms": wall_ms,
-                "comm_s": dict(self.comm_s)}
+                "busy_ms": _union_ns(ivs) / 1e6,
+                "nccl_ms": _union_ns((e.start_ns(), e.end_ns()) for e in kernels
+                                     if "nccl" in e.name().lower()) / 1e6,
+                "wall_ms": wall_ms, "comm_s": dict(self.comm_s),
+                "experts_ms": _union_ns(_clip_ns(ivs, spans)) / 1e6 if spans else None}
+
+
+def _clip_ns(intervals, spans):
+    """The parts of the (start, end) intervals that fall inside spans."""
+    merged = []
+    for c, d in sorted(spans):
+        if merged and c <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], d)
+        else:
+            merged.append([c, d])
+    starts = [c for c, _ in merged]
+    for a, b in intervals:
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(merged) and merged[i][0] < b:
+            c, d = merged[i]
+            if d > a:
+                yield max(a, c), min(b, d)
+            i += 1
+
+
+def _union_ns(intervals) -> int:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total
+
+
+def _all_threads():
+    """The profiler's config that records every thread's ops (None where
+    this torch has no such option)."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
 
 
 def serve_rank(mesh_cfg: MeshConfig, rank: int, device, groups: dict, conn):
@@ -515,6 +584,7 @@ class SPMDBackendBase:
         self.cfg = cfg
         self.mesh = mesh
         self.dp, self.pp, self.tp = mesh.cfg.dp, mesh.cfg.pp, mesh.cfg.tp
+        self.sp, self.ep = mesh.cfg.sp, mesh.cfg.ep
         self.n_stages = self.pp
         self.wire_quant = wire_quant
         self.device = mesh.devices[0]
@@ -611,14 +681,21 @@ class SPMDBackendBase:
 
     # -- observation and lifetime ----------------------------------------------------------
 
+    # the rank coordinate /workers lists one line per value of: the stage
+    # (the context backend's sp-only mesh lists its context shards)
+    _worker_axis = AXIS_PP
+
     def health(self) -> list[dict]:
         """One line per stage (the worst of its ranks' statuses) holding
         every rank's line under "ranks". A program in flight answers "busy"
         after a short wait; a broken mesh answers without running one."""
+        axis = self._worker_axis
+        key = "stage" if axis == AXIS_PP else f"{axis}_rank"
+
         def lines(ranks: list) -> list:
             out = []
-            for s in range(self.pp):
-                mine = [r for r in ranks if r["stage"] == s]
+            for s in range(getattr(self.mesh.cfg, axis)):
+                mine = [r for r in ranks if r[key] == s]
                 worst = max(mine, key=lambda r: _STATUS_RANK.get(r.get("status"), 2))
                 out.append({"stage": s, "devices": [d for r in mine for d in r["devices"]],
                             "layers": mine[0]["layers"], "status": worst["status"],
@@ -627,7 +704,8 @@ class SPMDBackendBase:
             return out
 
         def placeholder(status: str, error: str) -> list:
-            return lines([{"rank": r, "stage": c[AXIS_PP], "devices": [str(self.mesh.devices[r])],
+            return lines([{"rank": r, "stage": c[AXIS_PP], "sp_rank": c[AXIS_SP],
+                           "devices": [str(self.mesh.devices[r])],
                            "layers": list(range(*stage_layer_range(self.cfg.n_layers, self.pp,
                                                                    c[AXIS_PP]))),
                            "status": "online" if r == 0 and status != "error" else status,
@@ -655,6 +733,9 @@ class SPMDBackendBase:
         "driver": program_stats since the start}."""
         if start:
             self._run("profile", True, _gather=True)
+            # the window starts once every rank's profiler is on: the
+            # driver's shard ran before the workers' answers arrived
+            self._rank._prof_t0 = time.perf_counter()
             self.program_stats.clear()
             return None
         driver = dict(self.program_stats)

@@ -11,13 +11,17 @@ merge-at-load) and before the runtime adapter pool's leaves are
 installed (EngineConfig.adapter_slots > 0). `draft_model` attaches a
 smaller same-tokenizer model for two-model speculation (the solo engine's
 `speculative` requests, and the fleet's draft-model speculation).
-A dp x pp x tp mesh (`mesh_cfg`) selects the pipeline backend
-(parallel/pipeline.py) as the JAX runtime does: `build_mesh` spawns one
-worker process per further rank, on the CUDA cards round-robin (ranks
-share a card when there are fewer cards than ranks) or, asked for the
-CPU, on the CPU; params=None draws each rank's weights from `seed` on
-its own device. Sequence parallelism, expert meshes and microbatching
-raise the not-ported error naming the ROADMAP heading.
+A mesh (`mesh_cfg`) selects its backend in the JAX runtime's order:
+`microbatches > 1` the 1F1B schedule (parallel/schedule.py), sp > 1 the
+context-parallel backend (parallel/context.py, `sp_strategy` "ring" or
+"ulysses"), any other mesh (dp, pp, tp, and ep on an MoE model) the
+pipeline backend (parallel/pipeline.py), with the JAX runtime's checks in
+its order and words. `build_mesh` spawns one worker process per further
+rank, on the CUDA cards round-robin (ranks share a card when there are
+fewer cards than ranks) or, asked for the CPU, on the CPU; params=None
+draws each rank's weights from `seed` on its own device. Adapters and
+two-model speculation on a mesh raise the not-ported error naming the
+ROADMAP heading.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ def create_engine(
     attn_impl: Optional[str] = None,
     tokenizer: Any = None,
     seed: int = 0,
+    sp_strategy: str = "ring",
     draft_model: Optional[str | ModelConfig] = None,
     draft_params: Any = None,
     lora: Optional[str] = None,
@@ -93,7 +98,8 @@ def create_engine(
     cfg, backend = create_backend(
         model, mesh_cfg=mesh_cfg, microbatches=microbatches, params=params,
         dtype=dtype, quant=quant, kv_quant=kv_quant, attn_impl=attn_impl,
-        seed=seed, lora=lora, wire_quant=engine_cfg.pp_wire_quant,
+        seed=seed, sp_strategy=sp_strategy, lora=lora,
+        wire_quant=engine_cfg.pp_wire_quant,
         adapter_slots=engine_cfg.adapter_slots,
         adapter_rank=engine_cfg.adapter_rank, device=device,
     )
@@ -125,6 +131,7 @@ def create_backend(
     kv_quant: Optional[str] = None,
     attn_impl: Optional[str] = None,
     seed: int = 0,
+    sp_strategy: str = "ring",
     lora: Optional[str] = None,
     wire_quant: Optional[str] = None,
     adapter_slots: int = 0,
@@ -132,16 +139,26 @@ def create_backend(
     device="cuda",
 ):
     """Build a compute backend alone (no engine around it), as the JAX
-    create_backend does: the single device for a trivial mesh, the pipeline
-    backend for a dp / pp / tp mesh (batched callers use its interface
-    directly: batch % dp == 0), its ranks on `device`'s type (the cards
-    round-robin). wire_quant ("int8") quantizes every
-    inter-stage hand-off; ignored on the single device. Returns (cfg,
-    backend)."""
-    if mesh_cfg.sp > 1 or mesh_cfg.ep > 1 or microbatches > 1:
-        raise not_ported(
-            f"sequence parallelism, expert meshes and microbatching (got "
-            f"{mesh_cfg}, microbatches={microbatches})")
+    create_backend does: the single device for a trivial mesh; the 1F1B
+    schedule when microbatches > 1; the context-parallel backend when
+    sp > 1; the pipeline backend for any other mesh (batched callers use
+    its interface directly: batch % (dp * microbatches) == 0), its ranks
+    on `device`'s type (the cards round-robin). wire_quant ("int8")
+    quantizes every inter-stage hand-off; ignored on the single device.
+    Returns (cfg, backend)."""
+    if sp_strategy != "ring" and mesh_cfg.sp <= 1:
+        # before any backend branch: --sp-strategy ulysses without an sp
+        # ring would otherwise run with no sequence parallelism at all
+        raise ValueError(
+            f"sp_strategy={sp_strategy!r} needs a context-parallel mesh "
+            f"(sp > 1); got sp={mesh_cfg.sp}"
+        )
+    if mesh_cfg.sp > 1 and (microbatches > 1 or mesh_cfg.ep > 1):
+        raise ValueError(
+            "sp (context parallel) does not compose with microbatching/"
+            "ep yet: the 1F1B schedule and expert dispatch assume "
+            "whole-sequence activations per stage"
+        )
     device = resolve_device(device)
     cfg = get_model_config(model) if isinstance(model, str) else model
     if dtype is not None:
@@ -151,19 +168,50 @@ def create_backend(
     if kv_quant is not None:
         cfg = cfg.replace(kv_quant=kv_quant)
     cfg = resolve_attn_impl(cfg, attn_impl, device)
+    if adapter_slots and (microbatches > 1 or mesh_cfg.sp > 1):
+        raise ValueError(
+            "adapter_slots > 0 (runtime LoRA serving) rides the "
+            "single-device and pp/tp pipeline backends; the 1F1B "
+            "and context-parallel backends carry no adapter pages"
+        )
+    if microbatches > 1:
+        if mesh_cfg.pp < 2:
+            raise ValueError(
+                "microbatches > 1 needs a pipeline (pp >= 2): with one "
+                "stage there is no bubble to fill and the round-robin "
+                "schedule would only serialize the batch"
+            )
+        if cfg.arch != "llama":
+            # the microbatched fleets are ragged (left-padded) batches
+            raise NotImplementedError(
+                f"microbatches > 1 serves ragged llama-family fleets only; "
+                f"got arch={cfg.arch!r}"
+            )
     if not mesh_cfg.is_trivial:
-        from .parallel.pipeline import PipelineBackend
-
         if lora is not None or adapter_slots:
             raise not_ported("LoRA adapters on a mesh (the lora leaves' shards)")
+        if microbatches > 1:
+            from .parallel.schedule import MicrobatchPipelineBackend as backend_cls
+
+            backend_cls.check(mesh_cfg, microbatches)
+            kw = {"n_microbatches": microbatches}
+        elif mesh_cfg.sp > 1:
+            from .parallel.context import ContextParallelBackend as backend_cls
+
+            backend_cls.check(cfg, mesh_cfg, sp_strategy)
+            kw = {"sp_strategy": sp_strategy}
+        else:
+            from .parallel.pipeline import PipelineBackend as backend_cls
+
+            kw = {}
         if params is not None:
             params = params_to(params, "cpu")
             if cfg.quant is not None:
                 params = quantize_params(cfg, params)
         mesh = build_mesh(mesh_cfg, default_devices(mesh_cfg.n_devices, device))
         try:
-            return cfg, PipelineBackend(cfg, params, mesh, wire_quant=wire_quant,
-                                        seed=seed)
+            return cfg, backend_cls(cfg, params, mesh, wire_quant=wire_quant,
+                                    seed=seed, **kw)
         except BaseException:
             mesh.close()
             raise

@@ -1496,12 +1496,22 @@ def main(argv: Optional[list] = None):
              "last stage's broadcast (default off: the activations cross as "
              "they are)",
     )
-    # the JAX server's flags that part B of "Multi-GPU SPMD" ports: each
-    # refuses anything but its default, naming the ROADMAP heading
+    ap.add_argument(
+        "--microbatches", type=int, default=1, metavar="M",
+        help="M > 1 serves the 1F1B schedule: batched requests split into M "
+             "microbatches chasing each other around the pp ring (needs "
+             "--pp >= 2 and M >= pp); solo requests ride the plain ring",
+    )
     ap.add_argument("--sp", type=int, default=1, help="context-parallel ring size")
+    ap.add_argument(
+        "--sp-strategy", default="ring", choices=["ring", "ulysses"],
+        help="long-context prefill strategy over the sp axis: 'ring' (K/V "
+             "rotate around the ring) or 'ulysses' (two all-to-alls re-shard "
+             "sequence<->heads; needs heads divisible by sp)",
+    )
     ap.add_argument("--ep", type=int, default=1, help="expert-parallel width (MoE)")
-    ap.add_argument("--sp-strategy", default="ring", choices=["ring", "ulysses"])
-    ap.add_argument("--microbatches", type=int, default=1, metavar="M")
+    # multi-host meshes are part C of "Multi-GPU SPMD": each of these
+    # refuses anything but its default, naming the ROADMAP heading
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
@@ -1509,9 +1519,6 @@ def main(argv: Optional[list] = None):
     from ..parallel.mesh import not_ported
 
     for flag, value, default in (
-        ("--sp", args.sp, 1), ("--ep", args.ep, 1),
-        ("--sp-strategy", args.sp_strategy, "ring"),
-        ("--microbatches", args.microbatches, 1),
         ("--coordinator", args.coordinator, None),
         ("--num-processes", args.num_processes, None),
         ("--process-id", args.process_id, None),
@@ -1609,7 +1616,10 @@ def main(argv: Optional[list] = None):
             trace_sample_rate=args.trace_sample_rate,
             pp_wire_quant=args.pp_wire_quant,
         ),
-        mesh_cfg=MeshConfig(dp=args.dp, pp=args.pp, tp=args.tp),
+        mesh_cfg=MeshConfig(dp=args.dp, pp=args.pp, sp=args.sp, tp=args.tp,
+                            ep=args.ep),
+        microbatches=args.microbatches,
+        sp_strategy=args.sp_strategy,
         draft_model=args.draft_model,
         lora=args.lora,
         params=params,

@@ -169,18 +169,21 @@ class StageWorker:
     respawn of any stage reconstructs bit-identical weights with no
     checkpoint plumbing, which is what makes the salvage replay
     deterministic. `params` (a full tree, e.g. the JAX package's carried
-    over by models/bridge.py) replaces the init."""
+    over by models/bridge.py) replaces the init. It runs on the card
+    unless the caller passes device="cpu"; with no card it raises."""
 
     def __init__(self, cfg: ModelConfig, stage: int, n_stages: int, *,
                  seed: int = 0, max_seq: Optional[int] = None,
                  max_requests: int = DEFAULT_MAX_REQUESTS,
                  block_size: int = DEFAULT_BLOCK,
                  restore_dir: Optional[str] = None,
-                 device="cpu", params: Optional[dict] = None):
+                 device="cuda", params: Optional[dict] = None):
         from ..parallel.schedule import plan_stages
+        from ..runtime import resolve_device
 
         self.cfg = cfg
-        self.device = torch.device(device)
+        # on the card unless the caller asks for the CPU: no CUDA device raises
+        self.device = resolve_device(device)
         self.stage = int(stage)
         self.n_stages = int(n_stages)
         ranges = plan_stages(cfg.n_layers, n_stages)

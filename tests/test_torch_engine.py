@@ -106,9 +106,19 @@ def test_unported_request_features_are_invalid_requests(engines):
     assert r["prefix_cached_tokens"] == 64 and prefixed.stats()["prefix_cache"]["hits"] == 1
     from distributed_llm_inference_tpu_torch.config import MeshConfig
 
-    for kw in ({"mesh_cfg": MeshConfig(sp=2)}, {"mesh_cfg": MeshConfig(ep=2)},
-               {"mesh_cfg": MeshConfig(pp=2), "microbatches": 2}):
-        with pytest.raises(NotImplementedError, match="Multi-GPU SPMD"):
+    # the mesh selection refuses what the JAX runtime refuses, in its
+    # words, before a rank is spawned (the meshes it builds are held to
+    # the JAX backends in test_torch_schedule.py, test_torch_context_parallel.py
+    # and test_torch_moe.py)
+    for kw, err, words in (
+            ({"mesh_cfg": MeshConfig(ep=2)}, ValueError, "ep>1 needs an MoE model"),
+            ({"mesh_cfg": MeshConfig(tp=2), "microbatches": 2}, ValueError,
+             "needs a pipeline"),
+            ({"mesh_cfg": MeshConfig(pp=2), "sp_strategy": "ulysses"}, ValueError,
+             "needs a context-parallel mesh"),
+            ({"mesh_cfg": MeshConfig(sp=2, ep=2)}, ValueError,
+             "does not compose with microbatching")):
+        with pytest.raises(err, match=words):
             create_engine(MODEL, device="cpu", **kw)
 
 

@@ -123,6 +123,15 @@ def test_mesh_modules_import_nothing_of_jax(module):
     _loads_alone_without_jax(module)
 
 
+@pytest.mark.parametrize("module", ["parallel/context.py", "parallel/ring.py",
+                                    "parallel/schedule.py", "runtime.py"])
+def test_part_b_mesh_modules_import_nothing_of_jax(module):
+    """The 1F1B schedule, the context-parallel backend, its ring attention
+    and the runtime that selects them (written anew on torch.distributed)
+    import neither jax nor the JAX package, and each loads alone."""
+    _loads_alone_without_jax(module)
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
@@ -199,9 +208,9 @@ def test_not_ported_errors_name_roadmap_headings():
     headings = {line.lstrip("#").strip() for line in
                 (ROOT / "ROADMAP.md").read_text().splitlines() if line.startswith("#")}
     found = _roadmap_items()
-    # the modules that still refuse something (the scanner finds them all)
+    # the modules that still refuse something (the scanner finds them all;
+    # models/llama.py refuses nothing since the expert mesh was ported)
     assert sorted(found) == [
-        "distributed_llm_inference_tpu_torch/models/llama.py",
         "distributed_llm_inference_tpu_torch/parallel/mesh.py",
         "distributed_llm_inference_tpu_torch/parallel/partition.py",
         "distributed_llm_inference_tpu_torch/runtime.py",
@@ -217,17 +226,34 @@ def test_not_ported_errors_name_roadmap_headings():
 @pytest.mark.parametrize("flag", ["--sp 2", "--ep 2", "--sp-strategy ulysses",
                                   "--microbatches 2", "--coordinator 127.0.0.1:1",
                                   "--num-processes 2", "--process-id 0"])
-def test_part_b_server_flags_name_the_roadmap_heading(flag):
-    """The JAX server's mesh flags that the port does not serve yet are
-    parsed and refused with the not-ported error naming the ROADMAP.md
-    heading (not argparse's "unrecognized arguments"), before any model
-    is built."""
+def test_part_b_server_flags_name_the_roadmap_heading(flag, monkeypatch):
+    """The JAX server's mesh flags: --sp, --ep, --sp-strategy and
+    --microbatches reach create_engine as the JAX server passes them (part
+    B of "Multi-GPU SPMD"); the multi-host ones, not served yet, are parsed
+    and refused with the not-ported error naming the ROADMAP.md heading
+    (not argparse's "unrecognized arguments"), before any model is built."""
+    from distributed_llm_inference_tpu_torch import runtime
     from distributed_llm_inference_tpu_torch.serving import server
 
+    seen = {}
+
+    def fake_create_engine(model, **kw):
+        seen.update(kw)
+        raise SystemExit("built")
+
+    monkeypatch.setattr(runtime, "create_engine", fake_create_engine)
     with pytest.raises(SystemExit) as e:
         server.main(["--model", "test-llama-tiny", "--device", "cpu", *flag.split()])
-    assert 'ROADMAP.md "Multi-GPU SPMD"' in str(e.value.code), e.value.code
-    assert str(e.value.code).startswith(flag)
+    name, value = flag.split()
+    if name in ("--coordinator", "--num-processes", "--process-id"):
+        assert 'ROADMAP.md "Multi-GPU SPMD"' in str(e.value.code), e.value.code
+        assert str(e.value.code).startswith(flag)
+        return
+    assert e.value.code == "built"
+    got = {"--sp": seen["mesh_cfg"].sp, "--ep": seen["mesh_cfg"].ep,
+           "--sp-strategy": seen["sp_strategy"],
+           "--microbatches": seen["microbatches"]}[name]
+    assert str(got) == value
 
 
 def test_named_headings_are_the_ones_roadmap_lists():

@@ -123,8 +123,9 @@ def test_kernel_path_matches_plain_path(name):
 def test_unported_features_raise():
     """What this test once held refused is served since the other
     families were ported (the MoE FFN's params, gpt2's, int8 expert banks;
-    their parity in test_torch_moe.py and test_torch_gpt2.py); an expert
-    mesh still raises, naming its ROADMAP.md heading."""
+    their parity in test_torch_moe.py and test_torch_gpt2.py) and the
+    expert mesh (its parity in test_torch_moe.py): an ep group of one
+    rank is the whole bank."""
     from distributed_llm_inference_tpu_torch.models import llama as TL
     from distributed_llm_inference_tpu_torch.ops.quant import QTensor, quantize_params
 
@@ -138,8 +139,18 @@ def test_unported_features_raise():
                         {"layers": {"w_up": torch.zeros(2, 4, 8, 16)}})
     assert isinstance(q["layers"]["w_up"], QTensor)
     x, cache = torch.zeros(1, 2, cfg.dim), TM.init_kv_cache(cfg, 1, 16)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "Multi-GPU SPMD"'):
-        TL.forward_layers(cfg, moe["layers"], x, cache, 0, ep_axis="ep")
+    class _One:  # an ep group of one rank
+        rank, size = 0, 1
+
+        @staticmethod
+        def psum(t):
+            return t.clone()
+
+    x = torch.randn(1, 2, cfg.dim, generator=torch.Generator().manual_seed(0))
+    want, _ = TL.forward_layers(cfg, moe["layers"], x, cache, 0)
+    got, _ = TL.forward_layers(cfg, moe["layers"], x, TM.init_kv_cache(cfg, 1, 16), 0,
+                               ep_axis=_One())
+    assert torch.equal(got, want)
     # tp groups and pipeline stages are ported; an MoE layer refuses a tp
     # group in the JAX package's words, and no update gate is taken
     with pytest.raises(NotImplementedError, match="MoE \\+ tensor parallelism"):

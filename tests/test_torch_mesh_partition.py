@@ -83,8 +83,17 @@ def test_process_group_backend_rule():
 
 @pytest.mark.parametrize("mesh", [MeshConfig(sp=2), MeshConfig(ep=2)], ids=["sp", "ep"])
 def test_sp_and_ep_meshes_name_the_roadmap(mesh):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "Multi-GPU SPMD"'):
-        PM.build_mesh(mesh, ["cpu", "cpu"])
+    """sp and ep meshes build, every rank with a group per axis (the ring
+    of the axis of size 2 holding both ranks); multi-host meshes still
+    name the ROADMAP heading."""
+    m = PM.build_mesh(mesh, ["cpu", "cpu"], timeout_s=10.0)
+    try:
+        axis = "sp" if mesh.sp > 1 else "ep"
+        assert set(m.groups) >= set(PM.AXES)
+        assert m.groups[axis].size == 2 and m.groups[axis].ranks == (0, 1)
+        assert all(m.groups[a].size == 1 for a in PM.AXES if a != axis)
+    finally:
+        m.close()
     with pytest.raises(NotImplementedError, match='ROADMAP.md "Multi-GPU SPMD"'):
         PM.multihost_initialize("localhost:1", 2, 0)
 

@@ -327,8 +327,12 @@ def test_create_engine_builds_each_mesh_on_the_cpu():
         create_engine("test-llama-tiny", mesh_cfg=MeshConfig(dp=2), device="cpu")
     cfg, be = create_backend("test-llama-tiny", mesh_cfg=MeshConfig(dp=2), device="cpu")
     be.close()
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "Multi-GPU SPMD"'):
-        create_backend("test-llama-tiny", mesh_cfg=MeshConfig(sp=2), device="cpu")
+    # an sp mesh selects the context-parallel backend (part B)
+    cfg, be = create_backend("test-llama-tiny", mesh_cfg=MeshConfig(sp=2), device="cpu")
+    try:
+        assert be.name == "context-parallel" and be.sp == 2
+    finally:
+        be.close()
 
 
 

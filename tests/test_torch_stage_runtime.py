@@ -462,6 +462,16 @@ def test_device_transport_not_implemented_on_a_group():
         assert "NotImplementedError device-to-device" in out, out
 
 
+def test_stage_worker_defaults_to_the_card():
+    """A StageWorker built without `device` runs on the card: on a host
+    with none it raises rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_model_config(MODEL, dtype="float32")
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        SR.StageWorker(cfg, 0, 2)
+
+
 @pytest.mark.parametrize("mode", ["stage", "frontend"])
 def test_cuda_device_without_a_card_exits_nonzero(mode):
     if torch.cuda.is_available():
