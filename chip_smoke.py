@@ -376,10 +376,10 @@ random weights from seed 0, the byte tokenizer):
       bounds, one JSON row per kernel and model. The kernels line gains
       launches_F: every kernel's count over (F)'s main-path runs.
 
-Run in four more processes side by side once the main process's (S) and
-the second lane are done (`chip_smoke.py --only D`, and M, L and E,
-their output in build/chip_smoke_lane_{D,M,L,E}.log, shown after (P)),
-on rank processes of their own:
+Run in six more processes side by side once the main process's (S) and
+the second lane are done (`chip_smoke.py --only D`, and M, L, E, N and
+H, their output in build/chip_smoke_lane_{D,M,L,E,N,H}.log, shown after
+(P)), on rank processes of their own:
 
   (D) the dp x pp x tp pipeline backend (parallel/pipeline.py),
       tinyllama-1.1b bf16 seed 0. (D1) (g)'s fleet and wave (greedy, the
@@ -426,12 +426,40 @@ on rank processes of their own:
       ragged 12 per mixed launch, paged 12 x 16 per chunk), each rank's
       memory and, over a profiled wave, the device ms of its expert
       products (`moe_ffn.experts`). The kernels line gains launches_E.
+  (N) part C of the mesh, tinyllama-1.1b bf16 seed 0 over pp = 2 (two
+      ranks sharing the card over gloo). (N1) the solo surface on the
+      ring against the single device: a score (|dlogprob| under
+      LOGITS_ATOL), 3 beams (each equal, or its score within
+      LOGITS_ATOL), prompt-lookup and 2-layer draft-model speculation
+      (greedy ids equal the single device's speculation's, or parted
+      where the single device's top-2 gap is under LOGITS_ATOL; the
+      single device's against plain greedy printed beside),
+      `flash_attend` on every rank, as many on each, and a profiled
+      score request's flash walks in every rank's trace. (N2) (z1)'s
+      wave of 8 (greedy; 2 base, 6 over 5 adapters on 4 pages, a swap)
+      through the pp = 2 paged fleet against the single device's fleet
+      with the same adapters (partings only at near ties of the merged
+      weights), ragged and paged launches per rank (n_layers / 2 per
+      launch and step), a base request alone under every rank's
+      profiler (the ragged and paged walks in each trace), one page
+      load's wall, and one z-a2 request at tp = 2. (N3) a store of the
+      model served by the server's CLI with `--checkpoint --pp 2` (a
+      process of its own): the bytes of the store each rank's shard
+      holds against the tree's, and (N2)'s solo request's ids equal.
+      The kernels line gains launches_N.
+  (H) two server processes (`--num-processes 2 --process-id 0|1
+      --coordinator 127.0.0.1:<port> --pp 2`, fp32, one rank each on the
+      card): one request through process 0, its tokens (pinned by their
+      logprobs) equal the single device's; /workers shows the other
+      process's stage "remote"; SIGTERM ends process 0 within the bounded
+      shutdown, and process 1 exits after it.
 
 The full run goes in seven processes after (q): (x), (y), (z), (C) and
 (F) run in a second one, `chip_smoke.py --lane x,y,z,C,F`, on an engine
 of its own (the same model and seed, so the same weights), and (P) in a
 third, `chip_smoke.py --only P`, while the main process runs (s)-(w), (R)
-and (S), then (D), (M), (L) and (E) in four more once those are joined;
+and (S), then (D), (M), (L), (E), (N) and (H) in six more once those are
+joined;
 each lane's output is shown when it ends,
 and the --lane one's last line carries its kernel counts. Every phase is bound by the host
 (the card idles most of the time) and a process is one thread of Python.
@@ -444,8 +472,8 @@ the raw engine (about two minutes); `--only v` runs (a), then (v) alone;
 `--only y` runs (a), then (y) alone; `--only z` runs (a), then (z) alone;
 `--only S` runs (a), then (S) alone; `--only R` runs (a), then (R)
 alone; `--only P` runs (a), then (P) alone; `--only D` runs (a), then (D)
-alone; `--only M`, `--only L` and `--only E` run (a), then that phase
-alone; `--only F` runs (a), then (F)
+alone; `--only M`, `--only L`, `--only E`, `--only N` and `--only H` run
+(a), then that phase alone; `--only F` runs (a), then (F)
 alone with profiled solo requests,
 mixed launches and decode chunks of both models (left out of the full run
 for time).
@@ -5248,7 +5276,7 @@ def phase_P(torch, kernels, smi) -> dict:
 
 # -- the dp x pp x tp pipeline backend: phase (D) -----------------------------------
 
-MESH_LANE_LOG = "build/chip_smoke_lane_{}.log"  # the lane of (D), (M), (L) or (E)
+MESH_LANE_LOG = "build/chip_smoke_lane_{}.log"  # the lane of a mesh phase
 D_SOLO_PROMPT = 100  # (D2)-(D4)'s solo prompt, prefilled as one T>1 chunk
 D_SOLO_NEW = 16
 
@@ -5608,7 +5636,7 @@ def phase_D(torch, kernels, smi) -> dict:
 
 # the mesh phases: the full run starts each in a process of its own
 # (`--only X`), side by side
-MESH_PHASES = ("D", "M", "L", "E")
+MESH_PHASES = ("D", "M", "L", "E", "N", "H")
 # (M)'s batch: (g)'s eight prompts (8 to 700 tokens) left-padded into one
 # bucket of 1024, FLEET_NEW_TOKENS new tokens each, greedy
 M_BUCKETS = (64, 128, 256, 512, 1024)
@@ -6023,8 +6051,536 @@ def phase_E(torch, G, M, pa, fa, Q, smi) -> dict:
     return {"launches": d_sum(solo_counts + counts), "row": out}
 
 
+# -- part C of the mesh: the solo surface, adapters and the sharded store on
+# the pp ring (N), two server processes (H) ------------------------------------------
+
+N_TOKENS = 100  # (N1)'s prompt: one T>1 prefill chunk
+N_NEW = 16
+N_BEAMS = 3
+N_DRAFT_LAYERS = 2  # (N1)'s draft: tinyllama's widths, 2 layers
+N_TP_NEW = 8  # (N2)'s tp = 2 adapter request (a tp step is 44 host sums)
+N_DIR = "build/chip_smoke_n"  # (N2)'s adapters and (N3)'s store (gitignored)
+N_SERVER = ["--attn-impl", "auto", "--continuous", str(FLEET["n_slots"]),
+            "--kv-pool-blocks", str(FLEET["kv_pool_blocks"]), "--kv-block-size", str(BLOCK),
+            "--continuous-max-seq", str(FLEET["slot_max_seq"]), "--max-tokens-cap", "64"]
+H_NEW = 8  # (H)'s request: fp32, its tokens pinned by their logprobs
+H_SHUTDOWN_S = 60.0  # process 0's bounded exit after SIGTERM, process 1's after it
+
+
+def n_tokenizer(cfg):
+    """(y)'s tokenizer: its decode spells every id, so a response is its ids."""
+    from distributed_llm_inference_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    class SpelledIds(ByteTokenizer):
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(str(int(i)) for i in ids)
+
+    return SpelledIds(cfg.pad_token_id, cfg.bos_token_id, cfg.eos_token_id)
+
+
+def n_engine(mesh=None, **ecfg):
+    """tinyllama-1.1b, bf16, seed 0, the kernels (attn_impl auto), on one
+    device or a mesh whose ranks share the card, with the spelled-id
+    tokenizer."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig, MeshConfig
+    from distributed_llm_inference_tpu_torch.models.registry import get_model_config
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    return create_engine(MODEL, dtype="bfloat16", attn_impl="auto", seed=0, device=DEVICE,
+                         mesh_cfg=mesh or MeshConfig(),
+                         tokenizer=n_tokenizer(get_model_config(MODEL)),
+                         engine_cfg=EngineConfig(prefill_buckets=PREFILL_BUCKETS, **ecfg))
+
+
+def n_part(tag, torch, cfg, params, prompt_ids, got, want):
+    """got equals want, or parts only at a near tie of `params` (the
+    reference weights on the single device): the top-2 logit gap after
+    prompt + want[:at] under LOGITS_ATOL. Returns None or {at, gap}."""
+    from distributed_llm_inference_tpu_torch.models import api as M
+
+    at = parts_at(got, want)
+    if at is None:
+        return None
+    ids = list(prompt_ids) + list(want[:at])
+    cache = M.init_kv_cache(cfg, 1, len(ids) + 1, device=DEVICE)
+    with torch.no_grad():
+        logits, _ = M.forward(cfg, params, torch.tensor([ids], device=DEVICE), cache, 0)
+    top = logits[0, -1].float().topk(2).values
+    gap = float(top[0] - top[1])
+    check(gap < LOGITS_ATOL, f"{tag}: the ids part at token {at} where the reference's "
+                             f"top-2 gap is {gap:.4f}")
+    return {"at": at, "gap": round(gap, 4)}
+
+
+def n_ranks_equal(tag, counts, name):
+    """Every rank launched `name`, the same number of times (each stage runs
+    its share of the layers for every chunk; the draft runs whole on each)."""
+    check(all(c[name] > 0 for c in counts) and len({c[name] for c in counts}) == 1,
+          f"{tag}: {name} per rank {[c[name] for c in counts]}")
+
+
+def phase_N1(torch, G, smi) -> dict:
+    """Score, beams, prompt-lookup and draft-model speculation on the pp = 2
+    ring against the single device, flash_attend on every rank."""
+    from distributed_llm_inference_tpu_torch.config import MeshConfig
+    from distributed_llm_inference_tpu_torch.models.registry import get_model_config
+
+    prompt = x_prompt(3, N_TOKENS)  # repetitive: the prompt lookup finds drafts
+    dcfg = get_model_config(MODEL).replace(n_layers=N_DRAFT_LAYERS, dtype="bfloat16")
+
+    def run(eng, walls=None):
+        """The four requests (the draft attached before the last); their
+        walls into `walls`."""
+        out = {}
+        for name in ("score", "beams", "prompt_lookup", "draft"):
+            if name == "draft":
+                eng.set_draft(dcfg)
+            t = time.perf_counter()
+            if name == "score":
+                r = eng.score(prompt)
+            elif name == "beams":
+                r = eng.generate(prompt, max_tokens=N_NEW, num_beams=N_BEAMS, chat=False)
+            else:
+                r = eng.generate(prompt, max_tokens=N_NEW, greedy=True, chat=False,
+                                 speculative=True)
+                check(r.get("spec_path") == "solo" and (name == "draft") == ("draft_model" in r),
+                      f"(N1) {name}: {r}")
+            if walls is not None:
+                walls[name] = time.perf_counter() - t
+            check(r["status"] == "success", f"(N1) {name}: {r}")
+            out[name] = r
+        return out
+
+    single = n_engine()
+    plain = single.generate(prompt, max_tokens=N_NEW, greedy=True, chat=False)
+    want = [int(x) for x in plain["response"].split()]
+    ref = run(single)
+    t0 = time.time()
+    pp = n_engine(MeshConfig(pp=2))
+    be = pp.backend
+    print(f"(N1) {MODEL} over pp=2 ({be.name}, backend {be.mesh.backend}) built in "
+          f"{time.time() - t0:.1f} s; supports score {be.supports_score}, beams "
+          f"{be.supports_beam}, speculation {be.supports_speculative}, draft "
+          f"{be.supports_draft}")
+    walls = {}
+    try:
+        # every rank's counts from 0: the driver's process ran the single
+        # device's requests above
+        be.launch_counts(reset=True)
+        got = run(pp, walls)
+        counts = be.launch_counts()
+        mem = d_memory(be)
+        # a score request under every rank's torch.profiler, its counts
+        # from 0 too: the trace's flash walks beside the counters'
+        be.launch_counts(reset=True)
+        be.profile(True)
+        check(pp.score(prompt)["status"] == "success", "(N1) profiled score")
+        prof = be.profile(False)
+        prof_counts = be.launch_counts()
+    finally:
+        be.close()
+    del pp
+    n_ranks_equal("(N1)", counts, "flash_attend")
+    traced = [d_attention_events(p["kernels"])["flash_walk_dense"] for p in prof["ranks"]]
+    check(all(n > 0 for n in traced),
+          f"(N1) a rank's profiler saw no flash_attend kernel: {traced}")
+    out = {"profiled_score": {"flash_attend_counted": [c["flash_attend"] for c in prof_counts],
+                              "flash_walk_traced": traced}}
+    err = max(abs(x - y) for x, y in zip(ref["score"]["token_logprobs"][1:],
+                                         got["score"]["token_logprobs"][1:]))
+    check(err < LOGITS_ATOL, f"(N1) score |dlogprob| {err}")
+    out["score_max_abs_err"] = err
+    a, b = ref["beams"]["beams"], got["beams"]["beams"]
+    check(len(a) == len(b) == N_BEAMS, f"(N1) beams: {got['beams']}")
+    same = [x["text"] == y["text"] for x, y in zip(a, b)]
+    gaps = [round(abs(x["score"] - y["score"]), 4) for x, y in zip(a, b)]
+    for k, (eq, gap) in enumerate(zip(same, gaps)):
+        check(eq or gap < LOGITS_ATOL, f"(N1) beam {k} parts, score gap {gap}")
+    out["beams"] = {"equal": same, "score_gaps": gaps}
+    # each speculation against the single device's own (the same loop on
+    # one device): equal, or parted at a near tie of the reference's
+    # weights; and the single device's against plain greedy, as before
+    ids = single.tokenizer.encode(prompt)
+    spec, vs_plain = {}, {}
+    for name in ("prompt_lookup", "draft"):
+        mine = [int(x) for x in got[name]["response"].split()]
+        theirs = [int(x) for x in ref[name]["response"].split()]
+        spec[name] = n_part(f"(N1) {name}", torch, single.cfg, single.backend.params, ids,
+                            mine, theirs)
+        vs_plain[name] = n_part(f"(N1) the single device's {name}", torch, single.cfg,
+                                single.backend.params, ids, theirs, want)
+    out["speculation_partings"] = spec
+    out["single_device_speculation_vs_plain"] = vs_plain
+    del single
+    torch.cuda.empty_cache()
+    print(f"(N1) pp=2 solo surface ({N_TOKENS}-token repetitive prompt, {N_NEW} new): score "
+          f"max |dlogprob| vs the single device {out['score_max_abs_err']:.4f} (atol "
+          f"{LOGITS_ATOL}); {N_BEAMS} beams equal {out['beams']['equal']}, score gaps "
+          f"{out['beams']['score_gaps']}; prompt-lookup and {N_DRAFT_LAYERS}-layer draft "
+          f"speculation against the single device's: partings {json.dumps(spec)} (None: "
+          f"equal); the single device's against plain greedy: {json.dumps(vs_plain)}; "
+          f"walls s {json.dumps({k: round(v, 3) for k, v in walls.items()})}; per-rank "
+          f"launches {json.dumps(counts)}; a profiled score request's flash_attend per rank, "
+          f"counted {out['profiled_score']['flash_attend_counted']} and traced {traced}; "
+          f"memory {json.dumps(mem)} ({smi})")
+    return {"launches": counts, "row": {**out, "walls_s": walls}}
+
+
+def n_bodies():
+    """(z1)'s wave: (g)'s eight prompts, greedy, six of them on adapters."""
+    bodies = fleet_bodies(range(len(FLEET_PROMPT_TOKENS)))
+    for b, (i, ad) in zip(bodies, Z_WAVE):
+        for k in SAMPLED_KNOBS:
+            b.pop(k, None)
+        b.update(greedy=True, slo_class="batch")
+        if ad:
+            b["adapter"] = ad
+    return bodies
+
+
+def n_wave(fleet, server, bodies):
+    """(z1)'s schedule: seven requests hold their slots (and z-a1..z-a4 the
+    4 pages) before z-a5's comes, which waits for a page and swaps it in.
+    Returns (results, wave seconds)."""
+    import threading
+
+    port = server.port
+    before = fleet.stats()["completed"]
+    out = [None] * len(bodies)
+
+    def run(i):
+        out[i] = post(port, bodies[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads[:-1]:
+        t.start()
+    while True:
+        st = fleet.stats()
+        if st["occupied"] + st["completed"] - before >= len(bodies) - 1:
+            break
+        check(time.perf_counter() - t0 < 120, f"(N2) the first 7 were not admitted: {st}")
+        time.sleep(0.002)
+    threads[-1].start()
+    for t in threads:
+        t.join()
+    wave_s = time.perf_counter() - t0
+    for i, res in enumerate(out):
+        check(res is not None and res[0] == 200 and res[1].get("status") == "success",
+              f"(N2) request {i}: {res}")
+    return [r for _, r, _ in out], wave_s
+
+
+def n_adapter_parting(tag, torch, single, dirs, body, got, want):
+    """A fleet row's parting: a near tie of the single device's weights,
+    with the row's adapter merged into them."""
+    from distributed_llm_inference_tpu_torch.models.lora import merge_lora
+
+    if parts_at(got, want) is None:
+        return None
+    params = {k: v for k, v in single.backend.params.items() if k != "layers"}
+    params["layers"] = {k: v for k, v in single.backend.params["layers"].items()
+                        if not k.startswith("lora_")}
+    if body.get("adapter"):
+        params = merge_lora(single.cfg, params, dirs[body["adapter"]])
+    out = n_part(tag, torch, single.cfg, params, single.tokenizer.encode(body["prompt"]),
+                 got, want)
+    del params
+    return out
+
+
+def phase_N2(torch, smi) -> dict:
+    """(z1)'s adapter wave through the pp = 2 paged fleet against the single
+    device's fleet with the same adapters; one adapter request at tp = 2;
+    one page load's wall; ragged and paged launches per rank."""
+    import gc
+
+    from distributed_llm_inference_tpu_torch.config import MeshConfig
+    from distributed_llm_inference_tpu_torch.models.registry import get_model_config
+
+    dirs = z_write_adapters(get_model_config(MODEL), N_DIR)
+    bodies = n_bodies()
+    kw = dict(adapter_slots=Z_SLOTS, adapter_rank=Z_RANK)
+
+    def serve(engine):
+        for name in dirs:
+            engine.adapters.register(name, dirs[name])
+        fleet, server = fleet_server(engine, FLEET)
+        return fleet, server
+
+    single = n_engine(**kw)
+    fleet, server = serve(single)
+    try:
+        want, single_s = n_wave(fleet, server, bodies)
+    finally:
+        server.shutdown()
+        fleet.close()
+    t0 = time.time()
+    engine = n_engine(MeshConfig(pp=2), **kw)
+    be = engine.backend
+    built_s = time.time() - t0
+    fleet, server = serve(engine)
+    try:
+        before = get(server.port, "/stats")[1]["continuous"]
+        rag0 = ragged_launches(engine)
+        p0 = engine.adapters.stats()
+        be.launch_counts(reset=True)
+        got, wave_s = n_wave(fleet, server, bodies)
+        after = wait_idle(server.port)["continuous"]
+        counts = be.launch_counts()
+        rag = ragged_launches(engine) - rag0
+        ps = engine.adapters.stats()
+        # (N3)'s request alone through this full-load fleet, under every
+        # rank's torch.profiler, its counts from 0: the trace's ragged and
+        # paged walks beside the counters', and the ids (N3) must equal
+        solo_i = min(i for i, b in enumerate(bodies) if not b.get("adapter"))
+        be.launch_counts(reset=True)
+        be.profile(True)
+        code, solo, _ = post(server.port, bodies[solo_i])
+        prof = be.profile(False)
+        solo_counts = be.launch_counts()
+        check(code == 200 and solo.get("status") == "success", f"(N2) solo request: {solo}")
+        # one page load: the driver cuts and sends each rank its rows and
+        # columns, each writes its page (a resident adapter's own content)
+        pool = engine.adapters
+        name, page = next(iter(pool._page_of.items()))
+        load_ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            be.write_adapter_page(page, pool._registry[name])
+            torch.cuda.synchronize()
+            load_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        server.shutdown()
+        fleet.close()
+        be.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    L, per_rank = single.cfg.n_layers, single.cfg.n_layers // 2
+    chunks = after["launches"]["decode_chunks"] - before["launches"]["decode_chunks"]
+    steps = after["chunk_steps"]
+    for r, c in enumerate(counts):
+        check(c["ragged_paged_attend"] == per_rank * rag > 0,
+              f"(N2) rank {r}: ragged_paged_attend {c['ragged_paged_attend']} for {rag} "
+              f"ragged launches of {per_rank} layers")
+        check(c["paged_flash_attend"] == per_rank * steps * chunks > 0,
+              f"(N2) rank {r}: paged_flash_attend {c['paged_flash_attend']} for {chunks} "
+              f"decode chunks of {steps} steps x {per_rank} layers")
+    traced = [d_attention_events(p["kernels"]) for p in prof["ranks"]]
+    for r, e in enumerate(traced):
+        check(e["ragged_walk"] > 0 and e["decode_walk_split"] > 0,
+              f"(N2) rank {r}'s profiler saw no paged attention kernel: {e}")
+    moved = {k: ps[k] - p0[k] for k in ("loads", "evictions", "swaps")}
+    check(moved["swaps"] >= 1, f"(N2) the wave swapped no page: {moved}")
+    parted = {}
+    for i, (b, g, w) in enumerate(zip(bodies, got, want)):
+        p = n_adapter_parting(f"(N2) request {i}", torch, single, dirs, b, g["token_ids"],
+                              w["token_ids"])
+        if p is not None:
+            parted[i] = p
+    # one adapter request at tp = 2, against the single device's
+    tp = n_engine(MeshConfig(tp=2), **kw)
+    i1 = 1  # (g)'s 24-token prompt on z-a2, N_TP_NEW tokens (a tp step is 44 host sums)
+    tp_body = {**bodies[i1], "max_tokens": N_TP_NEW}
+    try:
+        tp.adapters.register("z-a2", dirs["z-a2"])
+        tp.backend.launch_counts(reset=True)
+        fleet, server = fleet_server(tp, FLEET)
+        try:
+            code, r, tp_wall = post(server.port, tp_body)
+        finally:
+            server.shutdown()
+            fleet.close()
+        tp_counts = tp.backend.launch_counts()
+    finally:
+        tp.backend.close()
+    check(code == 200 and r.get("adapter") == "z-a2", f"(N2) tp=2 adapter request: {r}")
+    tp_part = n_adapter_parting("(N2) tp=2", torch, single, dirs, tp_body, r["token_ids"],
+                                want[i1]["token_ids"][:N_TP_NEW])
+    n_tok = sum(g["tokens_generated"] for g in got)
+    print(f"(N2) pp=2 adapter wave (built in {built_s:.1f} s): 8 requests (2 base, 6 over "
+          f"{len(dirs)} adapters on {Z_SLOTS} pages) {n_tok} tokens in {wave_s:.3f} s = "
+          f"{n_tok / wave_s:.2f} tokens/s (the single device's fleet "
+          f"{sum(w['tokens_generated'] for w in want) / single_s:.2f}); ids equal the single "
+          f"device's fleet for {len(got) - len(parted)} of {len(got)}, partings at near "
+          f"ties {json.dumps(parted)}; pool loads/evictions/swaps {json.dumps(moved)}; one "
+          f"page load (cut, sent, written on both ranks) {json.dumps([round(x, 3) for x in load_ms])} "
+          f"ms; ragged launches {rag}, decode chunks {chunks}; per-rank launches "
+          f"{json.dumps(counts)}; request {solo_i} alone under the profiler, per rank "
+          f"counted {json.dumps([{k: c[k] for k in ('ragged_paged_attend', 'paged_flash_attend')} for c in solo_counts])} "
+          f"and traced {json.dumps(traced)}; tp=2 z-a2 request ({FLEET_PROMPT_TOKENS[i1]} "
+          f"tokens, {N_TP_NEW} new) "
+          + ("equal" if tp_part is None else f"parts {json.dumps(tp_part)}")
+          + f" in {tp_wall:.3f} s, per-rank launches {json.dumps(tp_counts)} ({smi})")
+    del single
+    torch.cuda.empty_cache()
+    return {"launches": counts + tp_counts,
+            "row": {"tokens_per_s": n_tok / wave_s, "parted": parted, "pool": moved,
+                    "page_load_ms": load_ms, "tp2": tp_part,
+                    "solo_traced": traced},
+            "solo": {"i": solo_i, "body": bodies[solo_i], "token_ids": solo["token_ids"]}}
+
+
+def phase_N3(torch, n2, smi) -> dict:
+    """A checkpoint store of tinyllama-1.1b (seed 0) served by the server's
+    CLI with --checkpoint on pp = 2: each rank copies its own rows and
+    columns out of the store's memory maps; (N2)'s solo request's ids are
+    equal to those of the full-load pp = 2 fleet."""
+    import shutil
+
+    from distributed_llm_inference_tpu_torch.models import api as M
+    from distributed_llm_inference_tpu_torch.models import checkpoint as CK
+    from distributed_llm_inference_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(MODEL).replace(dtype="bfloat16")
+    store = f"{N_DIR}/store"
+    shutil.rmtree(store, ignore_errors=True)
+    t0 = time.time()
+    params = M.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0))
+    CK.save_params(store, cfg, params)
+    whole = sum(t.numel() * t.element_size() for t in
+                [params["embed"], params["final_norm"], params["lm_head"],
+                 *params["layers"].values()])
+    layer_bytes = sum(t.numel() * t.element_size() for t in params["layers"].values())
+    del params
+    torch.cuda.empty_cache()
+    save_s = time.time() - t0
+    port = free_port()
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "distributed_llm_inference_tpu_torch.serving.server",
+                             "--checkpoint", store, "--pp", "2", "--device", DEVICE,
+                             "--host", "127.0.0.1", "--port", str(port), *N_SERVER],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=r_env())
+    url = f"http://127.0.0.1:{port}"
+    solo = n2["solo"]
+    try:
+        up_s = n_wait_up(proc, url, "(N3)")
+        detail = r_call(url, "/workers")[1]["detail"]
+        held = [r["store_shard_bytes"] for s in detail for r in s["ranks"]]
+        code, r, wall = r_call(url, "/generate", solo["body"])
+        check(code == 200 and r.get("status") == "success", f"(N3) request {solo['i']}: {r}")
+    finally:
+        out = n_stop(proc)
+        shutil.rmtree(store, ignore_errors=True)
+    check(r["token_ids"] == solo["token_ids"],
+          f"(N3) request {solo['i']}'s ids {r['token_ids']} differ from the full-load "
+          f"pp=2 fleet's {solo['token_ids']}")
+    check(len(held) == 2 and all(b < 0.6 * whole for b in held),
+          f"(N3) bytes each rank's shard holds {held} of the tree's {whole}")
+    print(f"(N3) {MODEL} store ({whole} bytes, {layer_bytes} of them layers) written in "
+          f"{save_s:.1f} s; `--checkpoint --pp 2` server up in {up_s:.1f} s of {time.time() - t0:.1f}; "
+          f"bytes of the store each rank's shard holds {held} ({[round(b / whole, 4) for b in held]} "
+          f"of the tree; half the layers is {layer_bytes // 2}); request {solo['i']} "
+          f"({FLEET_PROMPT_TOKENS[solo['i']]} tokens) alone in {wall:.3f} s, its ids equal to "
+          f"the full-load pp=2 fleet's; server exit {out} ({smi})")
+    return {"shard_bytes": held, "whole_bytes": whole, "up_s": up_s}
+
+
+def n_wait_up(proc, url, tag, timeout_s=240.0) -> float:
+    """Seconds until the server at url answers /health 200 (its process
+    alive meanwhile)."""
+    t0 = time.time()
+    while True:
+        if proc.poll() is not None:
+            raise SmokeFailure(f"{tag} the server exited {proc.returncode}: "
+                               f"{proc.stdout.read()[-3000:]}")
+        try:
+            if r_call(url, "/health", timeout=5)[0] == 200:
+                return time.time() - t0
+        except OSError:
+            pass
+        check(time.time() - t0 < timeout_s, f"{tag} the server was not up in {timeout_s} s")
+        time.sleep(0.5)
+
+
+def n_stop(proc, timeout_s=H_SHUTDOWN_S):
+    """SIGTERM, then the exit code (a kill past the timeout: None)."""
+    if proc.poll() is None:
+        proc.terminate()
+    try:
+        proc.wait(timeout=timeout_s)
+        return proc.returncode
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        return None
+
+
+def phase_N(torch, smi) -> dict:
+    """(N1)-(N3): part C of the mesh on the card."""
+    from distributed_llm_inference_tpu_torch.engine import generate as G
+
+    t0 = time.time()
+    n1 = phase_N1(torch, G, smi)
+    n2 = phase_N2(torch, smi)
+    n3 = phase_N3(torch, n2, smi)
+    print(f"(N) took {time.time() - t0:.1f} s ({smi})")
+    print("(N) " + json.dumps({"part_c": {"N1": n1["row"], "N2": n2["row"], "N3": n3}}))
+    return d_sum(n1["launches"] + n2["launches"])
+
+
+def phase_H(torch, smi) -> dict:
+    """(H) two server processes on the one machine, one pp = 2 mesh whose
+    ranks span them (one each, both on the card over gloo): process 0
+    serves HTTP and mirrors each request to process 1; one request's
+    tokens (pinned by their logprobs) equal the single device's; SIGTERM
+    ends process 0 within the bounded shutdown, and process 1 exits."""
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    prompt = fleet_prompt(84, N_TOKENS)
+    body = {"prompt": prompt, "max_tokens": H_NEW, "greedy": True, "chat": False,
+            "logprobs": True}
+    single = create_engine(MODEL, dtype="float32", attn_impl="auto", seed=0, device=DEVICE)
+    want = single.generate(**body)
+    del single
+    torch.cuda.empty_cache()
+    coord, port = free_port(), free_port()
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "distributed_llm_inference_tpu_torch.serving.server",
+         "--model", MODEL, "--dtype", "float32", "--attn-impl", "auto", "--seed", "0",
+         "--pp", "2", "--device", DEVICE, "--coordinator", f"127.0.0.1:{coord}",
+         "--num-processes", "2", "--process-id", str(i), "--host", "127.0.0.1",
+         "--port", str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=r_env()) for i in range(2)]
+    url = f"http://127.0.0.1:{port}"
+    try:
+        up_s = n_wait_up(procs[0], url, "(H)")
+        check(procs[1].poll() is None, "(H) process 1 exited")
+        code, got, wall = r_call(url, "/generate", body)
+        check(code == 200 and got.get("status") == "success", f"(H) request: {got}")
+        workers = r_call(url, "/workers")[1]
+        t_stop = time.time()
+        rc0 = n_stop(procs[0])
+        stop0_s = time.time() - t_stop
+        rc1 = n_stop(procs[1])
+        stop1_s = time.time() - t_stop
+    finally:
+        for p in procs:
+            n_stop(p, 10)
+    a, b = want["token_logprobs"], got["token_logprobs"]
+    err = max((abs(x - y) for x, y in zip(a, b)), default=0.0)
+    check(len(a) == len(b) and err < LOGITS_ATOL and want["response"] == got["response"],
+          f"(H) the two-process mesh's tokens differ from the single device's: "
+          f"{b} vs {a}")
+    statuses = {k: v for k, v in workers.items() if k != "detail"}
+    check(statuses == {"worker_1": "online", "worker_2": "remote"}, f"(H) /workers {statuses}")
+    check(rc0 is not None and stop0_s < H_SHUTDOWN_S and rc1 is not None,
+          f"(H) exits: process 0 {rc0} after {stop0_s:.1f} s, process 1 {rc1}")
+    print(f"(H) two server processes (--num-processes 2, --pp 2, fp32, one rank each on "
+          f"the card over gloo) up in {up_s:.1f} s; one request of {N_TOKENS} tokens "
+          f"through process 0 in {wall:.3f} s: its {len(b)} tokens' logprobs within "
+          f"{err:.2e} of the single device's (the same tokens); /workers {statuses}; "
+          f"SIGTERM: process 0 exited {rc0} in {stop0_s:.1f} s, process 1 exited {rc1} "
+          f"{stop1_s:.1f} s after the signal ({smi})")
+    return {}
+
+
 def phase_mesh(torch, kernels, smi, which=MESH_PHASES) -> dict:
-    """Those of (D), (M), (L) and (E) in `which`, in this process, in that
+    """Those of (D), (M), (L), (E), (N) and (H) in `which`, in this process, in that
     order: their kernel counts on the last line, `MESH {...}`."""
     from distributed_llm_inference_tpu_torch.engine import generate as G
     from distributed_llm_inference_tpu_torch.models import api as M
@@ -6041,6 +6597,10 @@ def phase_mesh(torch, kernels, smi, which=MESH_PHASES) -> dict:
         phase_L(torch, G, M, smi)
     if "E" in which:
         out["E"] = phase_E(torch, G, M, pa, fa, Q, smi)["launches"]
+    if "N" in which:
+        out["N"] = phase_N(torch, smi)
+    if "H" in which:
+        out["H"] = phase_H(torch, smi)
     print("MESH " + json.dumps(out))
     return out
 
@@ -6991,8 +7551,8 @@ Z_SERVER = ["--model", MODEL, "--dtype", "bfloat16", "--attn-impl", "auto", "--s
             "--continuous-max-seq", str(FLEET["slot_max_seq"]), "--max-tokens-cap", "64"]
 
 
-def z_write_adapters(cfg) -> dict:
-    """Z_ADAPTERS as PEFT directories under Z_DIR (numpy only, seeds 1-5):
+def z_write_adapters(cfg, root=Z_DIR) -> dict:
+    """Z_ADAPTERS as PEFT directories under `root` (numpy only, seeds 1-5):
     {name: directory}."""
     import numpy as np
 
@@ -7008,7 +7568,7 @@ def z_write_adapters(cfg) -> dict:
         f = {m: (rng.standard_normal((cfg.n_layers, r, i), dtype=np.float32) * Z_STD,
                  rng.standard_normal((cfg.n_layers, o, r), dtype=np.float32) * Z_STD)
              for m, (i, o) in dims.items()}
-        dirs[name] = write_peft_adapter(f"{Z_DIR}/{name}", f, r=r, lora_alpha=alpha,
+        dirs[name] = write_peft_adapter(f"{root}/{name}", f, r=r, lora_alpha=alpha,
                                         use_rslora=rslora, bf16=bf16)
     return dirs
 
@@ -9080,7 +9640,8 @@ def main(argv) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
     ap.add_argument("--only", choices=["b", "f", "r", "j", "s", "v", "w", "x", "y", "z",
-                                       "C", "S", "F", "R", "P", "D", "M", "L", "E"],
+                                       "C", "S", "F", "R", "P", "D", "M", "L", "E", "N",
+                                       "H"],
                     help="run (a) and then only (b) with the kernels line's two "
                          "flash_attend entries at the solo chunks (b), only (f)'s "
                          "and (j)'s paged_flash_attend cases with the kernels "
@@ -9106,7 +9667,9 @@ def main(argv) -> int:
                          "stage pipeline of stage processes over HTTP; or (D) alone "
                          "(D): the pp / tp pipeline backend's rank processes; or "
                          "(M), (L) or (E) alone: the 1F1B schedule, the context "
-                         "ring (sp), the expert mesh (ep)")
+                         "ring (sp), the expert mesh (ep); or (N) alone: the solo "
+                         "surface, adapters and the sharded store on the pp ring; or "
+                         "(H) alone: two server processes over one mesh")
     ap.add_argument("--lane", help="run (a) and then these later phases of the full run "
                                    "(a comma-separated subset of "
                                    + ",".join(LANE_PHASES) + ") on an engine of their "
@@ -9334,7 +9897,7 @@ def main(argv) -> int:
         r_launches, s_launches = main_lane(
             torch, engine, kernels, pa, fa, Q, P, G, timer, faults, smi, t_start)
         lane_out = join_lane(lane)
-        # (D), (M), (L) and (E): the mesh backends' rank processes, a
+        # (D), (M), (L), (E), (N) and (H): the mesh backends' rank processes, a
         # process each once the main process's own phases and the lane are
         # done: their ranks are host-bound Python, and beside those the
         # host's cores would be oversubscribed (the lane's waves have TTFT
@@ -9431,6 +9994,7 @@ def main(argv) -> int:
         entry["launches_D"] = mesh_out["D"].get(entry["name"], 0)
         entry["launches_M"] = mesh_out["M"].get(entry["name"], 0)
         entry["launches_E"] = mesh_out["E"].get(entry["name"], 0)
+        entry["launches_N"] = mesh_out["N"].get(entry["name"], 0)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

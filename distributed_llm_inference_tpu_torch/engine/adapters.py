@@ -38,6 +38,7 @@ import os
 import threading
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ..config import ModelConfig
@@ -65,12 +66,11 @@ def adapter_leaf_dims(cfg: ModelConfig) -> dict:
     return dims
 
 
-def install_adapter_leaves(cfg: ModelConfig, params: dict, slots: int,
-                           rank: int) -> dict:
-    """Add the zeroed paged lora_* leaves to params["layers"] (page 0 = the
-    base page), on the device of the params' embedding, in the model
-    dtype. Runs at engine build AFTER quantization: the lora leaves stay
-    dense. Returns new dicts; the input is not modified."""
+def lora_leaves(cfg: ModelConfig, slots: int, rank: int, device="cpu") -> dict:
+    """The zeroed paged lora_* leaves of a whole model (page 0 = the base
+    page), in the model dtype on `device`: {lora_{leaf}_a: [L, P, in, r],
+    lora_{leaf}_b: [L, P, r, out]} for every projection an adapter can
+    target."""
     if cfg.arch != "llama":
         raise ValueError(
             f"runtime adapters are wired for the llama family; got {cfg.arch!r}"
@@ -79,15 +79,46 @@ def install_adapter_leaves(cfg: ModelConfig, params: dict, slots: int,
         raise ValueError(f"adapter_slots must be >= 1, got {slots}")
     if rank < 1:
         raise ValueError(f"adapter_rank must be >= 1, got {rank}")
-    L, P = cfg.n_layers, slots + 1
-    dt, device = cfg.torch_dtype, params["embed"].device
-    layers = dict(params["layers"])
+    L, P, dt = cfg.n_layers, slots + 1, cfg.torch_dtype
+    out = {}
     for leaf, (d_in, d_out) in adapter_leaf_dims(cfg).items():
-        if leaf not in layers:
-            continue  # only shadow projections that exist
-        layers[f"lora_{leaf}_a"] = torch.zeros((L, P, d_in, rank), dtype=dt, device=device)
-        layers[f"lora_{leaf}_b"] = torch.zeros((L, P, rank, d_out), dtype=dt, device=device)
-    return {**params, "layers": layers}
+        out[f"lora_{leaf}_a"] = torch.zeros((L, P, d_in, rank), dtype=dt, device=device)
+        out[f"lora_{leaf}_b"] = torch.zeros((L, P, rank, d_out), dtype=dt, device=device)
+    return out
+
+
+def install_adapter_leaves(cfg: ModelConfig, params: dict, slots: int,
+                           rank: int) -> dict:
+    """Add the zeroed paged lora_* leaves (lora_leaves) to params["layers"],
+    on the device of the params' embedding. Runs at engine build AFTER
+    quantization: the lora leaves stay dense. Returns new dicts; the input
+    is not modified."""
+    leaves = lora_leaves(cfg, slots, rank, params["embed"].device)
+    return {**params, "layers": {**params["layers"], **leaves}}
+
+
+def write_lora_page(layers: dict, device, page: int, updates: dict):
+    """Write one adapter into page `page` of the paged lora leaves in
+    `layers`, IN PLACE: updates = {base leaf: (a [L, in, r], b [L, r, out])
+    float32 host arrays} (a mesh rank's: its layers and tp columns), cast
+    to the model dtype on the host. Every lora leaf the adapter does not
+    target is zeroed on the page, so the page holds this adapter alone
+    whatever it held before. A new tensor would leave every captured CUDA
+    graph reading the old leaf. On the card each copy goes up through
+    pinned memory on the current stream, the one the fleet's worker
+    launches on, so it lands after every launch already in flight and
+    before the first launch that reads the page."""
+    cuda = torch.device(device).type == "cuda"
+    for name, dst in layers.items():
+        if name.startswith("lora_") and name[len("lora_"):-len("_a")] not in updates:
+            dst[:, page].zero_()
+    for leaf, (a, b) in updates.items():
+        for suffix, val in (("a", a), ("b", b)):
+            dst = layers[f"lora_{leaf}_{suffix}"]
+            src = torch.from_numpy(np.ascontiguousarray(val, np.float32)).to(dst.dtype)
+            if cuda:
+                src = src.pin_memory()
+            dst[:, page].copy_(src, non_blocking=cuda)
 
 
 class AdapterPool:

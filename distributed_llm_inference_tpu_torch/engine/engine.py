@@ -272,22 +272,18 @@ class SingleDeviceBackend:
 
     def write_adapter_page(self, page: int, updates: dict):
         """Write one adapter into page `page` of the paged lora leaves
-        (engine/adapters.py), IN PLACE: updates = {base leaf: (a [L, in,
-        r], b [L, r, out]) float32 host arrays}, cast to the model dtype on
-        the host. A new tensor would leave every captured CUDA graph
-        reading the old leaf. On the card each copy goes up through pinned
-        memory on the current stream, the one the fleet's worker launches
-        on, so it lands after every launch already in flight and before
-        the first launch that reads the page."""
-        layers = self.params["layers"]
-        cuda = self.device.type == "cuda"
-        for leaf, (a, b) in updates.items():
-            for suffix, val in (("a", a), ("b", b)):
-                dst = layers[f"lora_{leaf}_{suffix}"]
-                src = torch.from_numpy(np.ascontiguousarray(val, np.float32)).to(dst.dtype)
-                if cuda:
-                    src = src.pin_memory()
-                dst[:, page].copy_(src, non_blocking=cuda)
+        (engine/adapters.py write_lora_page), in place."""
+        from .adapters import write_lora_page
+
+        write_lora_page(self.params["layers"], self.device, page, updates)
+
+    # the draft model's backend for two-model speculation: the draft's
+    # ingest and cache run beside the target, on its device
+    def draft_backend(self, dcfg: ModelConfig, dparams, seed: Optional[int] = None):
+        return SingleDeviceBackend(dcfg, dparams, self.device)
+
+    def tile_cache(self, cache, n: int):
+        return G.tile_cache(cache, n)
 
 
 class InferenceEngine:
@@ -397,6 +393,7 @@ class InferenceEngine:
         # solo draft speculation's reusable draft cache
         self._draft = None
         self._draft_cache = None
+        self._draft_backend = None
         # grammar-constraint compiled artifacts (constrain/): an LRU by
         # canonical constraint hash. The token vocab and its trie are built
         # once, lazily, and shared by every compile; an artifact keeps its
@@ -421,10 +418,25 @@ class InferenceEngine:
                 f"{self.cfg.vocab_size}; draft and target must share a "
                 f"tokenizer"
             )
+        if not getattr(self.backend, "supports_draft", False):
+            raise ValueError(
+                f"backend {self.backend.name!r} does not support draft-model "
+                f"speculation; serve on the single-device or pipeline backend"
+            )
         dcfg = dcfg.replace(attn_impl=self.cfg.attn_impl)
-        if dparams is None:
+        drawn = dparams is None
+        if drawn:
             dparams = M.init_params(
                 dcfg, torch.Generator(device=self.device).manual_seed(seed))
+        else:
+            from ..models.bridge import params_to
+
+            dparams = params_to(dparams, self.device)
+        # the draft's ingest and cache run beside the target: on its device,
+        # or on every rank of a mesh (each draws the same weights from
+        # `seed` where the engine drew them)
+        self._draft_backend = self.backend.draft_backend(
+            dcfg, dparams, seed if drawn else None)
         self._draft = (dcfg, dparams)
         self._draft_cache = None
 
@@ -836,17 +848,16 @@ class InferenceEngine:
 
     def _draft_ingest(self, ids: list, dcache):
         """Prefill the whole prompt into the draft model's cache (two-model
-        speculation): the same _ingest sequence as the target, through a
-        single-device backend over the draft's weights. No prefix cache;
-        the draft's sampled first token is discarded, only its K/V
-        matters."""
-        dcfg, dparams = self._draft
+        speculation): the same _ingest sequence as the target, through the
+        draft's backend (a single device over the draft's weights, or its
+        replica on every rank of a mesh). No prefix cache; the draft's
+        sampled first token is discarded, only its K/V matters."""
         plan = self._plan_ingest(len(ids), 0, self._buckets())
         if plan is None:  # the target's plan accepted this prompt
             raise ValueError(f"prompt length {len(ids)} exceeds draft ingest capacity")
         _, _, dcache = self._ingest(
             ids, 0, plan, dcache, self._generator(0), G.default_sampling(greedy=True),
-            backend=SingleDeviceBackend(dcfg, dparams, self.device),
+            backend=self._draft_backend,
         )
         return dcache
 
@@ -886,7 +897,7 @@ class InferenceEngine:
         )
         # every beam starts from the same prompt: the batch-1 cache (and
         # an int8 cache's scales) and the [1, V] logits tiled to the beams
-        cache = G.tile_cache(cache1, num_beams)
+        cache = self.backend.tile_cache(cache1, num_beams)
         logits = logits.repeat(num_beams, 1)
         ttft = time.time() - t_start
         if trace is not None:
@@ -1289,8 +1300,7 @@ class InferenceEngine:
         if use_draft:
             dcfg, dparams = self._draft
             if self._draft_cache is None:
-                self._draft_cache = M.init_kv_cache(dcfg, 1, max_seq=cfg.max_seq_len,
-                                                    device=self.device)
+                self._draft_cache = self._draft_backend.init_cache(1, cfg.max_seq_len)
             dcache = self._draft_ingest(ids, self._draft_cache)
             res = self.backend.decode_draft_speculative(
                 dcfg, dparams, first, cache, dcache, prompt_len, max_tokens - 1,
@@ -1457,8 +1467,7 @@ class InferenceEngine:
                 dcfg, dparams = self._draft
                 dcache = self._draft_cache
                 if dcache is None:
-                    dcache = M.init_kv_cache(dcfg, 1, max_seq=self.cfg.max_seq_len,
-                                             device=self.device)
+                    dcache = self._draft_backend.init_cache(1, self.cfg.max_seq_len)
                 for bucket in buckets:
                     dcache = self._draft_ingest([pad] * bucket, dcache)
                     n += 1

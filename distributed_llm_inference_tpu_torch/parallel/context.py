@@ -63,10 +63,10 @@ class ContextParallelBackend(SPMDBackendBase):
     name = "context-parallel"
 
     def __init__(self, cfg, params, mesh, sp_strategy: str = "ring",
-                 wire_quant=None, seed: int = 0):
+                 wire_quant=None, seed: int = 0, store=None):
         self.check(cfg, mesh.cfg, sp_strategy)
         self.sp_strategy = sp_strategy
-        super().__init__(cfg, params, mesh, wire_quant=wire_quant, seed=seed)
+        super().__init__(cfg, params, mesh, wire_quant=wire_quant, seed=seed, store=store)
         # the sampled window's broadcast crosses the sp axis (sp >= 2: a
         # real transfer), so the wire knob applies whatever pp is
         self._wire_bcast = wire_quant is not None
@@ -206,9 +206,7 @@ def init_cache(rp, ref: int, batch: int, slots: int):
     cache = {"k": kv["k"], "v": kv["v"],
              "pos_ids": torch.full((1, slots), -1, dtype=torch.int32, device=rp.device),
              "fill": torch.zeros((1, 1), dtype=torch.int32, device=rp.device)}
-    if rp.rank:
-        rp.objs[ref] = cache
-    return cache
+    return rp.keep(ref, cache)
 
 
 def _layer_window(cfg, window_flag):

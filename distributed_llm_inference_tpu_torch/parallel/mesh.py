@@ -26,8 +26,16 @@ is made with the timeout GROUP_TIMEOUT_S: a collective whose peer is
 gone raises within it, and the driver notices a dead worker's exit
 while it waits for the worker's answer, so no program waits forever.
 
-`multihost_initialize` is part C of the ROADMAP item and raises the
-not-ported error naming it.
+A mesh over several server processes (the JAX `jax.distributed`
+bring-up; serving/multihost.py): `multihost_initialize` joins the
+processes in a gloo group over TCP at the coordinator. A mesh built
+after it spans every process: process p owns the consecutive global
+ranks `local_ranks` (world / processes of them), the first its own
+DRIVER, and spawns only the others; the rendezvous is the coordinator's
+`TCPStore`, and the groups run gloo (no process sees the others' cards,
+so none can know that no two ranks share one). Every process's driver
+must then run the same programs in the same order: serving/multihost.py
+mirrors the engine calls that launch them.
 """
 
 from __future__ import annotations
@@ -56,15 +64,6 @@ GROUP_AXES = AXES
 # every process group's timeout, and so the longest a program can block
 # on a peer that is gone
 GROUP_TIMEOUT_S = 30.0
-
-# the ROADMAP.md heading that ports what this package still refuses
-SPMD = "Multi-GPU SPMD"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """NotImplementedError naming the ROADMAP.md heading that ports `what`."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md \"{SPMD}\")")
 
 
 class MeshError(RuntimeError):
@@ -105,10 +104,10 @@ def process_group_backend(devices: Sequence) -> str:
     return "gloo"
 
 
-def default_devices(n: int, device="cuda") -> list:
-    """`n` rank devices of `device`'s type: the CPU for every rank, or the
-    CUDA cards round-robin (ranks share a card when there are fewer cards
-    than ranks)."""
+def default_devices(n: int, device="cuda", first: int = 0) -> list:
+    """`n` rank devices of `device`'s type for the ranks from `first`: the
+    CPU for every rank, or the CUDA cards round-robin (ranks share a card
+    when there are fewer cards than ranks)."""
     device = torch.device(device)
     if device.type != "cuda":
         return [torch.device("cpu")] * n
@@ -116,7 +115,32 @@ def default_devices(n: int, device="cuda") -> list:
     if cards < 1:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the mesh on the CPU")
-    return [torch.device("cuda", i % cards) for i in range(n)]
+    return [torch.device("cuda", (first + i) % cards) for i in range(n)]
+
+
+# the serving processes' group of multihost_initialize: its coordinator
+# (host, port), the number of processes and this one's index; None in a
+# single process
+_HOSTS: Optional[dict] = None
+
+
+def process_count() -> int:
+    return _HOSTS["num_processes"] if _HOSTS else 1
+
+
+def process_index() -> int:
+    return _HOSTS["process_id"] if _HOSTS else 0
+
+
+def local_ranks(mesh_cfg: MeshConfig) -> range:
+    """The global ranks of `mesh_cfg` this process owns: all of them in a
+    single process; over several (multihost_initialize), the p-th
+    consecutive share, the first its driver."""
+    n, procs = mesh_cfg.n_devices, process_count()
+    if n % procs:
+        raise ValueError(f"a mesh of {n} ranks does not split over {procs} processes")
+    k = n // procs
+    return range(process_index() * k, (process_index() + 1) * k)
 
 
 def _process_group(backend: str, store, rank: int, size: int, timeout_s: float):
@@ -128,14 +152,26 @@ def _process_group(backend: str, store, rank: int, size: int, timeout_s: float):
     return dist.ProcessGroupGloo(store, rank, size, td)
 
 
-def build_groups(mesh_cfg: MeshConfig, rank: int, backend: str, store_path: str,
+def _open_store(spec, n: int, timeout_s: float):
+    """The mesh's rendezvous: a FileStore at a path, or (host, port,
+    prefix) a client of the coordinator's TCPStore under the mesh's
+    prefix."""
+    if isinstance(spec, str):
+        return dist.FileStore(spec, n)
+    host, port, prefix = spec
+    store = dist.TCPStore(host, port, is_master=False,
+                          timeout=datetime.timedelta(seconds=timeout_s))
+    return dist.PrefixStore(prefix, store)
+
+
+def build_groups(mesh_cfg: MeshConfig, rank: int, backend: str, store_path,
                  timeout_s: float) -> dict:
     """This rank's Group per axis of GROUP_AXES (one process group each
-    over the mesh's FileStore), and the rank's wire-byte counter under
-    "wire_bytes" and collective clocks under "comm_s"."""
+    over the mesh's store, _open_store), and the rank's wire-byte counter
+    under "wire_bytes" and collective clocks under "comm_s"."""
     import collections
 
-    store = dist.FileStore(store_path, mesh_cfg.n_devices)
+    store = _open_store(store_path, mesh_cfg.n_devices, timeout_s)
     counter, clocks = collections.Counter(), collections.Counter()
     groups = {"wire_bytes": counter, "comm_s": clocks}
     for axis in GROUP_AXES:
@@ -163,9 +199,11 @@ class Mesh:
     processes and control pipes)."""
 
     def __init__(self, mesh_cfg: MeshConfig, devices: list, backend: str,
-                 timeout_s: float, store_dir: str, procs: list, conns: list,
-                 groups: dict):
+                 timeout_s: float, store_dir: Optional[str], procs: list, conns: list,
+                 groups: dict, ranks: Optional[range] = None):
         self.cfg = mesh_cfg
+        # this process's ranks (ranks[0] its driver) and their devices
+        self.ranks = ranks if ranks is not None else range(mesh_cfg.n_devices)
         self.devices = devices
         self.backend = backend
         self.timeout_s = timeout_s
@@ -183,8 +221,17 @@ class Mesh:
     def coords(self, rank: int) -> dict:
         return rank_coords(self.cfg, rank)
 
+    def device_of(self, rank: int) -> Optional[torch.device]:
+        """The device of a rank of this process (None: another process's)."""
+        return self.devices[rank - self.ranks[0]] if rank in self.ranks else None
+
     def dead_ranks(self) -> list:
-        return [r for r, p in enumerate(self.procs, start=1) if not p.is_alive()]
+        return [r for r, p in zip(self.ranks[1:], self.procs) if not p.is_alive()]
+
+    def send_each(self, msgs: list):
+        """One message per worker, in the order of ranks[1:]."""
+        for conn, msg in zip(self.conns, msgs):
+            conn.send_bytes(msg)
 
     def check(self):
         """Raise MeshError if the mesh broke or a worker is gone."""
@@ -214,10 +261,11 @@ class Mesh:
                     try:
                         replies[i] = pickle.loads(conn.recv_bytes())
                     except (EOFError, OSError) as e:
-                        self.broken = f"worker rank {i + 1}'s pipe closed ({e})"
+                        self.broken = f"worker rank {self.ranks[i + 1]}'s pipe closed ({e})"
                         raise MeshError(self.broken) from e
-            pending = [i + 1 for i, r in enumerate(replies) if r is None]
-            dead = [r for r in pending if not self.procs[r - 1].is_alive()]
+            pending = [self.ranks[i + 1] for i, r in enumerate(replies) if r is None]
+            dead = [r for r in pending
+                    if not self.procs[r - self.ranks[1]].is_alive()]
             if dead:
                 self.broken = f"worker rank(s) {dead} exited"
                 raise MeshError(f"the mesh is unusable: {self.broken}")
@@ -247,7 +295,8 @@ class Mesh:
         for conn in self.conns:
             conn.close()
         abort_groups(self.groups)
-        shutil.rmtree(self.store_dir, ignore_errors=True)
+        if self.store_dir is not None:
+            shutil.rmtree(self.store_dir, ignore_errors=True)
 
 
 _mesh_ids = itertools.count()
@@ -256,36 +305,43 @@ _mesh_ids = itertools.count()
 def build_mesh(mesh_cfg: MeshConfig, devices: Optional[Sequence] = None, *,
                timeout_s: float = GROUP_TIMEOUT_S) -> Mesh:
     """Spawn the workers of a (dp, pp, sp, tp, ep) mesh and build the
-    driver's groups. devices: one per rank (rank r on devices[r]); default
-    every CUDA card round-robin. The caller's process is rank 0 on
+    driver's groups. devices: one per rank of this process (local_ranks:
+    every rank in a single process, rank r on devices[r]); default every
+    CUDA card round-robin. The caller's process is its first rank, on
     devices[0]."""
-    n = mesh_cfg.n_devices
+    ranks = local_ranks(mesh_cfg)
+    n = len(ranks)
     devs = [torch.device(d) for d in (devices if devices is not None
-                                      else default_devices(n))]
+                                      else default_devices(n, first=ranks[0]))]
     if len(devs) < n:
         raise ValueError(f"need {n} devices (dp*pp*sp*tp*ep), have {len(devs)}")
     devs = devs[:n]
-    backend = process_group_backend(devs)
-    store_dir = tempfile.mkdtemp(prefix=f"dli-mesh-{os.getpid()}-{next(_mesh_ids)}-")
-    store_path = os.path.join(store_dir, "store")
+    mesh_id = next(_mesh_ids)
+    if _HOSTS is None:
+        backend = process_group_backend(devs)
+        store_dir = tempfile.mkdtemp(prefix=f"dli-mesh-{os.getpid()}-{mesh_id}-")
+        store = os.path.join(store_dir, "store")
+    else:
+        # every process builds its meshes in the same order: the same id
+        backend, store_dir = "gloo", None
+        store = (_HOSTS["host"], _HOSTS["port"], f"dli-mesh-{mesh_id}/")
     ctx = torch.multiprocessing.get_context("spawn")
     procs, conns = [], []
-    for rank in range(1, n):
+    for i, rank in enumerate(ranks[1:], start=1):
         parent, child = ctx.Pipe(duplex=True)
         p = ctx.Process(
             target=_worker_main, name=f"dli-mesh-rank{rank}", daemon=True,
-            args=(mesh_cfg, rank, [str(d) for d in devs], backend, store_path,
-                  timeout_s, child))
+            args=(mesh_cfg, rank, str(devs[i]), backend, store, timeout_s, child))
         p.start()
         child.close()
         procs.append(p)
         conns.append(parent)
-    mesh = Mesh(mesh_cfg, devs, backend, timeout_s, store_dir, procs, conns, {})
+    mesh = Mesh(mesh_cfg, devs, backend, timeout_s, store_dir, procs, conns, {}, ranks)
     try:
         if devs[0].type == "cuda":
             torch.cuda.set_device(devs[0])
-        mesh.groups = build_groups(mesh_cfg, 0, backend, store_path, timeout_s)
-        for rank, reply in enumerate(mesh.collect(), start=1):
+        mesh.groups = build_groups(mesh_cfg, ranks[0], backend, store, timeout_s)
+        for rank, reply in zip(ranks[1:], mesh.collect()):
             if reply[0] != "ready":
                 raise MeshError(f"worker rank {rank} failed to start:\n{reply[2]}")
     except BaseException:
@@ -294,10 +350,10 @@ def build_mesh(mesh_cfg: MeshConfig, devices: Optional[Sequence] = None, *,
     return mesh
 
 
-def _worker_main(mesh_cfg, rank, devices, backend, store_path, timeout_s, conn):
+def _worker_main(mesh_cfg, rank, device, backend, store_path, timeout_s, conn):
     """A worker rank: set its device, build its groups, report ready, and
     serve programs until the driver closes the mesh."""
-    device = torch.device(devices[rank])
+    device = torch.device(device)
     try:
         if device.type == "cuda":
             torch.cuda.set_device(device)
@@ -314,8 +370,44 @@ def _worker_main(mesh_cfg, rank, devices, backend, store_path, timeout_s, conn):
     serve_rank(mesh_cfg, rank, device, groups, conn)
 
 
-def multihost_initialize(coordinator_address=None, num_processes=None,
-                         process_id=None, **kwargs):
-    """Multi-host bring-up (the JAX `jax.distributed.initialize` seam)."""
-    raise not_ported("multi-host meshes (serving/multihost.py, "
-                     "--coordinator / --num-processes / --process-id)")
+def multihost_initialize(coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None, **kwargs) -> None:
+    """Multi-host bring-up (the JAX `jax.distributed.initialize` seam): join
+    the serving processes in torch.distributed's default group, gloo over
+    TCP at `coordinator_address` ("host:port", a TCPStore that process 0
+    serves). All three of (coordinator_address, num_processes, process_id)
+    go together, or none: then torch's `env://` variables (MASTER_ADDR,
+    MASTER_PORT, WORLD_SIZE, RANK, as torchrun sets them) say it. Other
+    keyword arguments go to `torch.distributed.init_process_group`. A
+    mesh built afterwards spans every process (build_mesh)."""
+    global _HOSTS
+
+    explicit = (coordinator_address, num_processes, process_id)
+    given = [x is not None for x in explicit]
+    if any(given) and not all(given):
+        raise ValueError(
+            "multihost bring-up needs coordinator_address, num_processes "
+            "AND process_id together (or none, for auto-detection); "
+            f"got {dict(zip(('coordinator_address', 'num_processes', 'process_id'), explicit))}"
+        )
+    if all(given):
+        if not 0 <= process_id < num_processes:
+            raise ValueError(
+                f"process_id {process_id} out of range for "
+                f"num_processes {num_processes}"
+            )
+        kwargs.update(init_method=f"tcp://{coordinator_address}",
+                      world_size=num_processes, rank=process_id)
+    else:
+        kwargs.setdefault("init_method", "env://")
+    # a follower waits in the request broadcast for as long as the leader
+    # serves: the group's timeout bounds no idle wait
+    kwargs.setdefault("timeout", datetime.timedelta(days=365))
+    dist.init_process_group("gloo", **kwargs)
+    if all(given):
+        host, port = coordinator_address.rsplit(":", 1)
+    else:
+        host, port = os.environ["MASTER_ADDR"], os.environ["MASTER_PORT"]
+    _HOSTS = {"host": host, "port": int(port), "num_processes": dist.get_world_size(),
+              "process_id": dist.get_rank()}

@@ -26,6 +26,14 @@ padding: its pool and cache hold exactly those layers, so the shadow of
 a block gathered over the stages is the single device's (the gather pads
 the shorter stages to padded_layers_per_stage and cuts after).
 
+Paged LoRA adapter leaves (engine/adapters.py) [L, P, in, r] / [L, P,
+r, out] shard their layers over pp and, within a stage, so that each
+rank's delta (h @ a) @ b is its share of the base projection's output,
+added before the projection's tp sum (the JAX lora specs): a column-
+sharded base's `a` replicates and its `b` shards its out dim with the
+base columns; a row-sharded base's `a` shards its in dim with the base
+rows (h arrives input-sharded) and its `b` replicates.
+
 int4 leaves (Q4Tensor) split the contraction axis into (groups, g/2): a
 row-sharded int4 weight shards whole groups, so the cut falls on scale-
 group boundaries (validate_mesh checks that the groups divide).
@@ -40,10 +48,12 @@ import torch
 from ..config import ModelConfig, stage_layer_range
 from ..ops.kv_quant import KVQuant
 from ..ops.quant import Q4Tensor, QTensor
-from .mesh import AXIS_PP, AXIS_TP, not_ported
+from .mesh import AXIS_PP, AXIS_TP
 from .vocab import VOCAB_SHARDED, pad_vocab, vocab_shard
 
 COL, ROW, EXPERT = "col", "row", "expert"
+# a row-sharded base's lora `a` [L, P, in, r]: its in dim (axis 2) over tp
+LORA_IN = "lora_in"
 
 # per stacked layer leaf: how tp shards it (COL: the output dim, ROW: the
 # input dim, None: replicated over tp); the layer axis always over pp
@@ -107,8 +117,6 @@ def validate_mesh(cfg: ModelConfig, pp: int, tp: int, ep: int = 1,
             )
     if params is not None and tp > 1:
         for name, leaf in params["layers"].items():
-            if name.startswith("lora_"):
-                raise not_ported("runtime LoRA adapter leaves under tp > 1")
             if isinstance(leaf, Q4Tensor) and layer_tp_rule(cfg, name) == ROW \
                     and leaf.q.shape[1] % tp:
                 raise ValueError(
@@ -135,7 +143,11 @@ def layer_tp_rule(cfg: ModelConfig, name: str):
     if cfg.n_experts:
         rules.update(_MOE_LAYER_TP)
     if name.startswith("lora_"):
-        return None  # tp > 1 with adapter leaves is refused in validate_mesh
+        # lora_{base}_{a|b}: by its base projection's rule
+        base, factor = name[len("lora_"):-2], name[-1]
+        if factor == "a":
+            return LORA_IN if rules[base] == ROW else None
+        return COL if rules[base] == COL else None
     if name not in rules:
         raise KeyError(f"no partition rule for layer param {name!r}")
     return rules[name]
@@ -194,7 +206,26 @@ def shard_layer_leaf(leaf, rule, layer_range: tuple, tp_rank: int, tp: int,
         t = _cut(t, -1, tp_rank, tp)
     elif tp > 1 and rule == ROW:
         t = _cut(t, 1, tp_rank, tp)
+    elif tp > 1 and rule == LORA_IN:
+        t = _cut(t, 2, tp_rank, tp)
     return _own(t)
+
+
+def adapter_update_shard(cfg: ModelConfig, leaf: str, a, b, layer_range: tuple,
+                         tp_rank: int, tp: int) -> tuple:
+    """A rank's cut of one adapter's factors for a page write (engine/
+    adapters.py): a [L, in, r] and b [L, r, out] host arrays (no page axis)
+    cut to layers [lo, hi) and to the rank's share by the lora rules."""
+    lo, hi = layer_range
+    a, b = a[lo:hi], b[lo:hi]
+    if tp > 1:
+        if layer_tp_rule(cfg, f"lora_{leaf}_a") == LORA_IN:
+            n = a.shape[1] // tp
+            a = a[:, tp_rank * n:(tp_rank + 1) * n]
+        if layer_tp_rule(cfg, f"lora_{leaf}_b") == COL:
+            n = b.shape[-1] // tp
+            b = b[..., tp_rank * n:(tp_rank + 1) * n]
+    return a, b
 
 
 def shard_layers(cfg: ModelConfig, layers: dict, stage: int, pp: int,

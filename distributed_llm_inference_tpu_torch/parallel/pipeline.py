@@ -83,8 +83,8 @@ from .mesh import (
     AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP, Mesh, MeshError, abort_groups, rank_coords,
 )
 from .partition import (
-    init_sharded_cache, init_sharded_pool, padded_layers_per_stage, pool_layer_slice,
-    pool_spec, shadow_block_spec, shard_params, validate_mesh,
+    adapter_update_shard, init_sharded_cache, init_sharded_pool, padded_layers_per_stage,
+    pool_layer_slice, pool_spec, shadow_block_spec, shard_layers, shard_params, validate_mesh,
 )
 from .vocab import embed_sharded, unembed_sharded
 
@@ -225,6 +225,12 @@ _DIRECT = {
     "extend_ragged_paged": (P.extend_ragged_paged, True),
     "prefill_ragged_paged": (P.prefill_ragged_paged, True),
     "mixed_step_ragged": (P.mixed_step_ragged, True),
+    # the solo surface on the ring (dp == 1): the single device's loops with
+    # the rank's stage chain as their forward, so each loop's iterations
+    # run inside one program on every rank (identical gathered logits in,
+    # identical host decisions out)
+    "decode_beam": (G.decode_beam, True),
+    "decode_speculative": (G.decode_speculative, True),
 }
 
 
@@ -232,9 +238,12 @@ class RankPrograms:
     """Every program's body on one rank. `objs` holds this rank's caches
     and pools by ref id (the driver's are the handles it returned)."""
 
-    def __init__(self, mesh_cfg: MeshConfig, rank: int, device, groups: dict):
+    def __init__(self, mesh_cfg: MeshConfig, rank: int, device, groups: dict,
+                 driver: bool = False):
         self.mesh_cfg = mesh_cfg
         self.rank = rank
+        # the driver holds its own shards in the handles it returns
+        self.driver = driver
         self.coords = rank_coords(mesh_cfg, rank)
         self.device = torch.device(device)
         self.groups = groups
@@ -245,6 +254,11 @@ class RankPrograms:
         self.stage: Optional[Stage] = None
         self.cfg: Optional[ModelConfig] = None
         self.layer_range = (0, 0)
+        # the bytes of a checkpoint store this rank's shard holds (load), or None
+        self.store_shard_bytes = None
+        # the draft model of two-model speculation, replicated on every rank
+        # (a SingleDeviceBackend over the rank's copy), once set_draft ran
+        self.draft = None
         self._prof = None
         self._prof_t0 = 0.0
 
@@ -288,6 +302,13 @@ class RankPrograms:
             g.manual_seed(int.from_bytes(h, "little") >> 1)
         return g
 
+    def keep(self, ref: int, obj):
+        """Hold a cache or pool under ref (a worker; the driver's shard
+        lives in the handle it returns) and return it."""
+        if not self.driver:
+            self.objs[ref] = obj
+        return obj
+
     def take_wire(self) -> dict:
         out = dict(self.wire)
         self.wire.clear()
@@ -310,18 +331,38 @@ class RankPrograms:
 
     # -- the model -----------------------------------------------------------------------
 
-    def load(self, cfg: ModelConfig, params, seed: int, wire_quant):
-        """Cut this rank's shard out of `params` (the whole tree), or out of
-        random weights drawn from `seed` on this rank's device (quantized
-        when cfg.quant asks, as runtime.create_engine does)."""
+    def load(self, cfg: ModelConfig, params, seed: int, wire_quant, store=None,
+             adapters=None):
+        """This rank's shard: cut out of `params` (the whole tree), read off
+        the checkpoint store at `store` (models/checkpoint.
+        load_params_sharded: this rank's rows and columns only), or cut out
+        of random weights drawn from `seed` on this rank's device (quantized
+        when cfg.quant asks, as runtime.create_engine does). `adapters`
+        (slots, rank): the rank's shard of the zeroed paged lora leaves
+        (engine/adapters.py), added after the load."""
         pp, tp, ep = self.mesh_cfg.pp, self.mesh_cfg.tp, self.mesh_cfg.ep
         s, t, e = self.coords[AXIS_PP], self.coords[AXIS_TP], self.coords[AXIS_EP]
-        if params is None:
-            params = M.init_params(cfg, torch.Generator(device=self.device).manual_seed(seed))
-            if cfg.quant is not None:
-                params = quantize_params(cfg, params)
-        shared, layers = shard_params(cfg, params, s, pp, t, tp, e, ep)
-        del params
+        if store is not None:
+            from ..models.checkpoint import load_params_sharded
+
+            stats = {}
+            stored, shared, layers = load_params_sharded(store, self.mesh_cfg, self.rank,
+                                                         stats=stats)
+            if stored.replace(attn_impl=cfg.attn_impl, kv_quant=cfg.kv_quant) != cfg:
+                raise ValueError(f"the store at {store} holds {stored.name!r}, not the "
+                                 f"config the backend was built for")
+            self.store_shard_bytes = stats["shard_bytes"]
+        else:
+            if params is None:
+                params = M.init_params(cfg, torch.Generator(device=self.device).manual_seed(seed))
+                if cfg.quant is not None:
+                    params = quantize_params(cfg, params)
+            shared, layers = shard_params(cfg, params, s, pp, t, tp, e, ep)
+            del params
+        if adapters:
+            from ..engine.adapters import lora_leaves
+
+            layers.update(shard_layers(cfg, lora_leaves(cfg, *adapters), s, pp, t, tp, e, ep))
         shared, layers = params_to(shared, self.device), params_to(layers, self.device)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()  # the whole tree's segments, now unused
@@ -341,11 +382,9 @@ class RankPrograms:
     # -- the solo engine's programs -------------------------------------------------------
 
     def init_cache(self, ref: int, batch: int, max_seq: int):
-        cache = init_sharded_cache(self.cfg, batch // self.dpg.size, max_seq,
-                                   self._n_layers, self.mesh_cfg.tp, self.device)
-        if self.rank:
-            self.objs[ref] = cache
-        return cache
+        return self.keep(ref, init_sharded_cache(self.cfg, batch // self.dpg.size, max_seq,
+                                                 self._n_layers, self.mesh_cfg.tp,
+                                                 self.device))
 
     def prefill(self, tokens, pos, valid_len, cache, generator, sampling,
                 valid_start=None, presence=None, bias=None):
@@ -376,14 +415,61 @@ class RankPrograms:
             return gathered + (cache, self._cat(out[3]))
         return gathered + (cache,)
 
+    def score_chunk(self, tokens, pos, cache, *, top_n=0):
+        """Teacher-forced scoring of this dp index's rows (the JAX
+        score program): the stage chain, the last stage's window on every
+        pp rank, the gathered vocab shards, then score_post."""
+        B = tokens.shape[0]
+        out = G.score_chunk(self.cfg, self._params, self._rows(tokens, B), pos, cache,
+                            top_n=top_n)
+        return tuple(self._cat(t) for t in out[:4]) + (cache,)
+
+    def tile_cache(self, ref: int, cache, n: int):
+        """This rank's shard of a batch-1 cache tiled to n beam rows."""
+        return self.keep(ref, G.tile_cache(cache, n))
+
+    # -- the draft model of two-model speculation (replicated) ----------------------------
+
+    def set_draft(self, dcfg: ModelConfig, dparams, seed: int):
+        """Hold the draft model on this rank: `dparams` (the whole tree), or
+        random weights drawn from `seed` on the rank's device, as
+        engine.set_draft draws them on the driver."""
+        from ..engine.engine import SingleDeviceBackend
+
+        if dparams is None:
+            dparams = M.init_params(dcfg, torch.Generator(device=self.device).manual_seed(seed))
+        self.draft = SingleDeviceBackend(dcfg, params_to(dparams, self.device), self.device)
+
+    def draft_init_cache(self, ref: int, batch: int, max_seq: int):
+        return self.keep(ref, self.draft.init_cache(batch, max_seq))
+
+    def draft_call(self, method: str, *args, **kwargs):
+        """The draft's own single-device method (its prompt ingest)."""
+        return getattr(self.draft, method)(*args, **kwargs)
+
+    def decode_draft_speculative(self, first_token, cache, dcache, start_pos, limit, *,
+                                 max_steps, draft_len):
+        """engine/generate's draft loop: the draft chain on this rank's
+        replica, the target's verify forward through the stage chain."""
+        return G.decode_draft_speculative(
+            self.cfg, self._params, self.draft.cfg, self.draft.params, first_token, cache,
+            dcache, start_pos, limit, max_steps=max_steps, draft_len=draft_len)
+
+    # -- runtime adapter pages --------------------------------------------------------------
+
+    def write_adapter_page(self, page: int, updates: dict):
+        """Write this rank's cut of an adapter (its layers' rows, its tp
+        columns: the driver cut them) into page `page` of its lora leaves."""
+        from ..engine.adapters import write_lora_page
+
+        write_lora_page(self.stage.layers, self.device, page, updates)
+
     # -- the fleets' programs (the rest are _DIRECT's) -------------------------------------
 
     def init_paged_pool(self, ref: int, n_blocks: int, block_size: int):
-        pool = init_sharded_pool(self.cfg, n_blocks, block_size, self._n_layers,
-                                 self.mesh_cfg.tp, self.device)
-        if self.rank:
-            self.objs[ref] = pool
-        return pool
+        return self.keep(ref, init_sharded_pool(self.cfg, n_blocks, block_size,
+                                                self._n_layers, self.mesh_cfg.tp,
+                                                self.device))
 
     def fill_scratch_paged(self, pool, table_row, scratch=None):
         return P.gather_scratch_blocks(pool, table_row, out=scratch)
@@ -437,7 +523,8 @@ class RankPrograms:
                 "tp_rank": self.coords[AXIS_TP], "dp_rank": self.coords[AXIS_DP],
                 "sp_rank": self.coords[AXIS_SP], "ep_rank": self.coords[AXIS_EP],
                 "devices": [str(dev)], "layers": list(range(*self.layer_range)),
-                "pid": os.getpid(), **probe_device(dev)}
+                "pid": os.getpid(), "store_shard_bytes": self.store_shard_bytes,
+                **probe_device(dev)}
         if dev.type == "cuda":
             line["memory_allocated_bytes"] = int(torch.cuda.memory_allocated(dev))
         return line
@@ -577,7 +664,8 @@ class SPMDBackendBase:
     supports_graphs = False
 
     def __init__(self, cfg: ModelConfig, params, mesh: Mesh, *,
-                 wire_quant: Optional[str] = None, seed: int = 0):
+                 wire_quant: Optional[str] = None, seed: int = 0,
+                 store: Optional[str] = None, adapters: Optional[tuple] = None):
         if wire_quant not in (None, "int8"):
             raise ValueError(
                 f"pp_wire_quant must be None or 'int8', got {wire_quant!r}")
@@ -602,21 +690,34 @@ class SPMDBackendBase:
         # sending them ("send_s"), in the driver's own shard ("shard_s") and
         # waiting for the workers' answers after it ("wait_s")
         self.program_stats = collections.Counter()
-        self._rank = RankPrograms(mesh.cfg, 0, self.device, mesh.groups)
-        self._run("load", cfg, params, seed, wire_quant)
+        self._rank = RankPrograms(mesh.cfg, mesh.ranks[0], self.device, mesh.groups,
+                                  driver=True)
+        self._run("load", cfg, params, seed, wire_quant, store=store, adapters=adapters)
 
     # -- the program runner ----------------------------------------------------------
 
-    def _run(self, name: str, *args, _gather: bool = False, **kwargs):
-        """Run program `name` on every rank; the driver's result (with
-        _gather, every rank's, in rank order)."""
+    def _run(self, name: str, *args, _gather: bool = False, _each=None, **kwargs):
+        """Run program `name` on every rank of this process; the driver's
+        result (with _gather, every rank's, in rank order). `_each(rank)`
+        gives each rank its own (args, kwargs) instead."""
         with self._lock:
             self.mesh.check()
             t0 = time.perf_counter()
             frees, self._frees = self._frees, []
-            msg = pickle.dumps((name, pack(args), {**pack(kwargs), "_gather": _gather},
-                                frees), protocol=pickle.HIGHEST_PROTOCOL)
-            self.mesh.send(msg)
+
+            def message(a, kw):
+                return pickle.dumps((name, pack(a), {**pack(kw), "_gather": _gather},
+                                     frees), protocol=pickle.HIGHEST_PROTOCOL)
+
+            if _each is None:
+                msg = message(args, kwargs)
+                self.mesh.send(msg)
+                n_bytes = len(msg)
+            else:
+                msgs = [message(*_each(r)) for r in self.mesh.ranks[1:]]
+                self.mesh.send_each(msgs)
+                n_bytes = sum(map(len, msgs))
+                args, kwargs = _each(self.mesh.ranks[0])
             t1 = time.perf_counter()
             err = out = None
             try:
@@ -632,13 +733,13 @@ class SPMDBackendBase:
                 replies = self.mesh.collect()
             except MeshError as me:
                 raise me from err
-            self.program_stats.update(programs=1, input_bytes=len(msg), send_s=t1 - t0,
+            self.program_stats.update(programs=1, input_bytes=n_bytes, send_s=t1 - t0,
                                       shard_s=t2 - t1, wait_s=time.perf_counter() - t2)
             sent = collections.Counter(self._rank.take_wire())
             for _, wire, _ in replies:
                 sent.update(wire)
             self._account(sent)
-            failed = [(r, p) for r, (status, _, p) in enumerate(replies, start=1)
+            failed = [(r, p) for r, (status, _, p) in zip(self.mesh.ranks[1:], replies)
                       if status == "error"]
             if err is None and not failed:
                 return [out] + [p for _, _, p in replies] if _gather else out
@@ -692,6 +793,18 @@ class SPMDBackendBase:
         axis = self._worker_axis
         key = "stage" if axis == AXIS_PP else f"{axis}_rank"
 
+        def remote(ranks: list) -> list:
+            # another server process's ranks (serving/multihost.py): its
+            # own process probes them
+            return ranks + [{"rank": r, "stage": c[AXIS_PP], f"{axis}_rank": c[axis],
+                             "devices": ["remote"],
+                             "layers": list(range(*stage_layer_range(
+                                 self.cfg.n_layers, self.pp, c[AXIS_PP]))),
+                             "status": "remote"}
+                            for r, c in ((r, self.mesh.coords(r))
+                                         for r in range(self.mesh.world))
+                            if r not in self.mesh.ranks]
+
         def lines(ranks: list) -> list:
             out = []
             for s in range(getattr(self.mesh.cfg, axis)):
@@ -704,20 +817,22 @@ class SPMDBackendBase:
             return out
 
         def placeholder(status: str, error: str) -> list:
-            return lines([{"rank": r, "stage": c[AXIS_PP], "sp_rank": c[AXIS_SP],
-                           "devices": [str(self.mesh.devices[r])],
-                           "layers": list(range(*stage_layer_range(self.cfg.n_layers, self.pp,
-                                                                   c[AXIS_PP]))),
-                           "status": "online" if r == 0 and status != "error" else status,
-                           "error": error}
-                          for r, c in ((r, self.mesh.coords(r)) for r in range(self.mesh.world))])
+            return lines(remote([
+                {"rank": r, "stage": c[AXIS_PP], "sp_rank": c[AXIS_SP],
+                 "devices": [str(self.mesh.device_of(r))],
+                 "layers": list(range(*stage_layer_range(self.cfg.n_layers, self.pp,
+                                                         c[AXIS_PP]))),
+                 "status": ("online" if r == self.mesh.ranks[0] and status != "error"
+                            else status),
+                 "error": error}
+                for r, c in ((r, self.mesh.coords(r)) for r in self.mesh.ranks)]))
 
         if self.mesh.broken is not None or self.mesh.closed:
             return placeholder("offline", self.mesh.broken or "the mesh is closed")
         if not self._lock.acquire(timeout=1.0):
             return placeholder("busy", "probe queued behind an in-flight program")
         try:
-            return lines(self._run("health", _gather=True))
+            return lines(remote(self._run("health", _gather=True)))
         except MeshError as e:
             return placeholder("offline", str(e))
         finally:
@@ -746,7 +861,7 @@ class SPMDBackendBase:
         self.mesh.close()
 
 
-_STATUS_RANK = {"online": 0, "busy": 2, "error": 3, "offline": 4}
+_STATUS_RANK = {"online": 0, "remote": 1, "busy": 2, "error": 3, "offline": 4}
 
 
 def _program(name: str):
@@ -768,12 +883,10 @@ class PipelineBackend(SPMDBackendBase):
     name = "pipeline"
     supports_ragged = True
     supports_constrain = True
-    # scoring, beams (which reorder every rank's cache) and the solo
-    # speculation loops are not served on a mesh yet
-    supports_score = False
-    supports_beam = False
-    supports_speculative = False
-    supports_draft = False
+    # teacher-forced scoring and beams (each rank reorders its own cache
+    # shard by parent beam) on the ring, as the JAX pipeline serves them
+    supports_score = True
+    supports_beam = True
 
     # -- the solo engine -----------------------------------------------------------------
 
@@ -809,6 +922,64 @@ class PipelineBackend(SPMDBackendBase):
         return self._run("decode", first_token, cache, start_pos, limit, generator,
                          sampling, valid_start, presence, counts, bias, constraint,
                          max_steps=max_steps, with_logprobs=with_logprobs)
+
+    # -- the solo surface on the ring: one program per engine call ---------------------------
+
+    def score_chunk(self, tokens, pos, cache, *, top_n=0):
+        self._check_rows(tokens.shape[0])
+        return self._run("score_chunk", tokens, pos, cache, top_n=top_n)
+
+    def tile_cache(self, cache, n: int):
+        """A batch-1 cache tiled to n beam rows on every rank."""
+        ref = next(self._refs)
+        return self._handle(self._run("tile_cache", ref, cache, n), ref)
+
+    def decode_beam(self, logits0, cache, start_pos, limit, length_penalty, *,
+                    max_steps, num_beams, early_stopping):
+        if self.dp > 1:
+            # beams are one hypothesis set, not data shards: the in-program
+            # top-k / cache reorder spans all rows, which a dp slice of the
+            # batch axis cannot see (serving engines are dp=1 anyway)
+            raise NotImplementedError("beam search needs dp == 1")
+        return self._run("decode_beam", logits0, cache, start_pos, limit, length_penalty,
+                         max_steps=max_steps, num_beams=num_beams,
+                         early_stopping=early_stopping)
+
+    @property
+    def supports_speculative(self) -> bool:
+        """Prompt-lookup speculation on the ring: one T = 1 + g verify
+        forward costs one pass of the stage chain, as a single token does;
+        B = 1, so dp must be 1 (serving engines always are)."""
+        return self.dp == 1
+
+    def decode_speculative(self, first_token, cache, hist, hist_len, limit, *,
+                           max_steps, draft_len):
+        return self._run("decode_speculative", first_token, cache, hist, hist_len, limit,
+                         max_steps=max_steps, draft_len=draft_len)
+
+    @property
+    def supports_draft(self) -> bool:
+        """Two-model draft speculation on the ring (dp == 1, B = 1)."""
+        return self.dp == 1
+
+    def draft_backend(self, dcfg: ModelConfig, dparams, seed: Optional[int] = None):
+        """Replicate the draft model on every rank, once (the JAX P() specs
+        of the draft's params and cache): its weights drawn from `seed` on
+        each rank, or `dparams` shipped; returns the draft's backend,
+        whose ingest and cache run on every rank."""
+        self._run("set_draft", dcfg, None if seed is not None else dparams, seed)
+        self._draft_cfg = dcfg
+        return MeshDraft(self)
+
+    def decode_draft_speculative(self, dcfg, dparams, first_token, cache, dcache,
+                                 start_pos, limit, *, max_steps, draft_len):
+        """The draft loop with the ranks' own draft replica (draft_backend
+        shipped it; `dparams` stays on the driver)."""
+        if getattr(self, "_draft_cfg", None) != dcfg:
+            raise ValueError(f"draft {dcfg.name!r} was not attached to the mesh "
+                             f"(engine.set_draft)")
+        return self._run("decode_draft_speculative", first_token, cache, dcache, start_pos,
+                         limit, max_steps=max_steps, draft_len=draft_len)
 
     # -- the fleets (slot rows are slots, not data shards: dp == 1) ---------------------------
 
@@ -859,3 +1030,45 @@ class PipelineBackend(SPMDBackendBase):
         # the slot state is the driver's and reaches every rank with each
         # program: arming moves no cache, so it runs on the driver alone
         return P.arm_slot_only(self.cfg, state, sparams, slot, *arm)
+
+    def write_adapter_page(self, page: int, updates: dict):
+        """One adapter into page `page` of every rank's lora leaves (the
+        JAX shard_map write): the driver cuts each rank's layer rows and tp
+        columns of every (a, b) and sends each rank only its own cut."""
+        def cut(rank: int):
+            c = self.mesh.coords(rank)
+            rng = stage_layer_range(self.cfg.n_layers, self.pp, c[AXIS_PP])
+            return (page, {leaf: adapter_update_shard(self.cfg, leaf, a, b, rng,
+                                                      c[AXIS_TP], self.tp)
+                           for leaf, (a, b) in updates.items()}), {}
+
+        return self._run("write_adapter_page", _each=cut)
+
+
+class MeshDraft:
+    """The draft model's backend on a mesh: its single-device methods run
+    on every rank's replica, its caches held by every rank (handles, as
+    the target's)."""
+
+    name = "mesh-draft"
+
+    def __init__(self, backend: PipelineBackend):
+        self.backend = backend
+        self.cfg = backend._draft_cfg
+
+    def init_cache(self, batch: int, max_seq: int):
+        be = self.backend
+        ref = next(be._refs)
+        return be._handle(be._run("draft_init_cache", ref, batch, max_seq), ref)
+
+    def _call(name):
+        def run(self, *args, **kwargs):
+            return self.backend._run("draft_call", name, *args, **kwargs)
+
+        run.__name__ = name
+        return run
+
+    prefill = _call("prefill")
+    prefill_at = _call("prefill_at")
+    extend = _call("extend")
+    del _call

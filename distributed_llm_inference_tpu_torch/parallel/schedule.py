@@ -73,12 +73,13 @@ class MicrobatchPipelineBackend(PipelineBackend):
     supports_ragged = True
 
     def __init__(self, cfg, params, mesh, n_microbatches: Optional[int] = None,
-                 return_prefill_logits: bool = False, wire_quant=None, seed: int = 0):
+                 return_prefill_logits: bool = False, wire_quant=None, seed: int = 0,
+                 store=None):
         self.n_microbatches = self.check(mesh.cfg, n_microbatches)
         # prefill returns zero-width [rows, 0] logits unless asked: the
         # engine only reads the sampled first tokens
         self.return_prefill_logits = bool(return_prefill_logits)
-        super().__init__(cfg, params, mesh, wire_quant=wire_quant, seed=seed)
+        super().__init__(cfg, params, mesh, wire_quant=wire_quant, seed=seed, store=store)
 
     @staticmethod
     def check(mesh_cfg, n_microbatches: Optional[int]) -> int:

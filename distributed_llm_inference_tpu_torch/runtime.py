@@ -19,9 +19,13 @@ pipeline backend (parallel/pipeline.py), with the JAX runtime's checks in
 its order and words. `build_mesh` spawns one worker process per further
 rank, on the CUDA cards round-robin (ranks share a card when there are
 fewer cards than ranks) or, asked for the CPU, on the CPU; params=None
-draws each rank's weights from `seed` on its own device. Adapters and
-two-model speculation on a mesh raise the not-ported error naming the
-ROADMAP heading.
+draws each rank's weights from `seed` on its own device, and `store` (a
+checkpoint store's path) has each rank read its own shard off it
+(models/checkpoint.load_params_sharded). On a mesh a `lora` adapter is
+merged on the driver before quantization and before the shards are cut,
+each rank adds its shard of the runtime adapter leaves after its load
+(parallel/partition.py), and a draft model is replicated on every rank
+(engine.set_draft).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from .models.bridge import params_to
 from .models.lora import merge_lora
 from .models.registry import get_model_config
 from .ops.quant import quantize_params
-from .parallel.mesh import build_mesh, default_devices, not_ported
+from .parallel.mesh import build_mesh, default_devices, local_ranks
 
 
 def resolve_device(device) -> torch.device:
@@ -69,6 +73,7 @@ def create_engine(
     draft_model: Optional[str | ModelConfig] = None,
     draft_params: Any = None,
     lora: Optional[str] = None,
+    store: Optional[str] = None,
     device="cuda",
 ) -> InferenceEngine:
     """Build an engine: on one device, or over a dp = 1 pp / tp mesh
@@ -93,10 +98,8 @@ def create_engine(
             "dp>1 is not available through the batch-1 serving engine; "
             "use create_backend() for dp-sharded batched decode"
         )
-    if not mesh_cfg.is_trivial and draft_model is not None:
-        raise not_ported("two-model speculation on a mesh")
     cfg, backend = create_backend(
-        model, mesh_cfg=mesh_cfg, microbatches=microbatches, params=params,
+        model, mesh_cfg=mesh_cfg, microbatches=microbatches, params=params, store=store,
         dtype=dtype, quant=quant, kv_quant=kv_quant, attn_impl=attn_impl,
         seed=seed, sp_strategy=sp_strategy, lora=lora,
         wire_quant=engine_cfg.pp_wire_quant,
@@ -136,6 +139,7 @@ def create_backend(
     wire_quant: Optional[str] = None,
     adapter_slots: int = 0,
     adapter_rank: int = 8,
+    store: Optional[str] = None,
     device="cuda",
 ):
     """Build a compute backend alone (no engine around it), as the JAX
@@ -145,7 +149,8 @@ def create_backend(
     its interface directly: batch % (dp * microbatches) == 0), its ranks
     on `device`'s type (the cards round-robin). wire_quant ("int8")
     quantizes every inter-stage hand-off; ignored on the single device.
-    Returns (cfg, backend)."""
+    store: a checkpoint store's path that each rank of a mesh reads its own
+    shard from (its config must be the model's). Returns (cfg, backend)."""
     if sp_strategy != "ring" and mesh_cfg.sp <= 1:
         # before any backend branch: --sp-strategy ulysses without an sp
         # ring would otherwise run with no sequence parallelism at all
@@ -187,9 +192,12 @@ def create_backend(
                 f"microbatches > 1 serves ragged llama-family fleets only; "
                 f"got arch={cfg.arch!r}"
             )
+    if store is not None and (mesh_cfg.is_trivial or params is not None
+                              or lora is not None or cfg.quant is not None):
+        raise ValueError("store= is a mesh's sharded load: it takes no params, and "
+                         "one device, --quant and --lora load the whole tree "
+                         "(models/checkpoint.load_params)")
     if not mesh_cfg.is_trivial:
-        if lora is not None or adapter_slots:
-            raise not_ported("LoRA adapters on a mesh (the lora leaves' shards)")
         if microbatches > 1:
             from .parallel.schedule import MicrobatchPipelineBackend as backend_cls
 
@@ -204,14 +212,26 @@ def create_backend(
             from .parallel.pipeline import PipelineBackend as backend_cls
 
             kw = {}
+        ranks = local_ranks(mesh_cfg)
+        devices = default_devices(len(ranks), device, first=ranks[0])
+        if lora is not None:
+            # merge on the driver BEFORE quantization and before the shards
+            # are cut (random weights drawn as the ranks would draw them)
+            if params is None:
+                params = M.init_params(
+                    cfg, torch.Generator(device=devices[0]).manual_seed(seed))
+            params = merge_lora(cfg, params_to(params, devices[0]), lora)
         if params is not None:
             params = params_to(params, "cpu")
             if cfg.quant is not None:
                 params = quantize_params(cfg, params)
-        mesh = build_mesh(mesh_cfg, default_devices(mesh_cfg.n_devices, device))
+        if adapter_slots:
+            # each rank adds its shard of them after its load
+            kw["adapters"] = (adapter_slots, adapter_rank)
+        mesh = build_mesh(mesh_cfg, devices)
         try:
             return cfg, backend_cls(cfg, params, mesh, wire_quant=wire_quant,
-                                    seed=seed, **kw)
+                                    seed=seed, store=store, **kw)
         except BaseException:
             mesh.close()
             raise

@@ -1160,30 +1160,40 @@ def _has_tokenizer_files(path: str) -> bool:
     return any(os.path.exists(os.path.join(path, f)) for f in _TOKENIZER_FILES)
 
 
-def _load_checkpoint(args):
-    """(cfg, params) for --checkpoint: a local store dir (manifest.json,
-    models/checkpoint.py) or a HF checkpoint dir (config.json +
-    safetensors, models/convert.py). A --dtype that conflicts with a
-    store's recorded dtype is refused; an HF directory converts to --dtype
-    (default bfloat16). Anything else exits."""
+def _load_checkpoint(args, mesh_cfg):
+    """(cfg, params, store) for --checkpoint: a local store dir
+    (manifest.json, models/checkpoint.py) or a HF checkpoint dir
+    (config.json + safetensors, models/convert.py). On a mesh a store with
+    neither --quant nor --lora is read shard by shard, each rank its own
+    rows and columns (models/checkpoint.load_params_sharded): params is
+    None and store its path. --quant and --lora need the whole tree first
+    (they quantize and merge before the shards are cut), so those paths
+    take the full load, as every single-device one does. A --dtype that
+    conflicts with a store's recorded dtype is refused; an HF directory
+    converts to --dtype (default bfloat16). Anything else exits."""
     import os
 
     path = args.checkpoint
     if os.path.exists(os.path.join(path, "manifest.json")):
-        from ..models.checkpoint import load_params
+        from ..models.checkpoint import load_config, load_params
 
-        cfg, params = load_params(path)
+        sharded = (mesh_cfg.n_devices > 1 and args.quant is None
+                   and args.lora is None)
+        if sharded:
+            cfg, params = load_config(path), None
+        else:
+            cfg, params = load_params(path)
         if args.dtype and args.dtype != cfg.dtype:
             raise SystemExit(
                 f"--dtype {args.dtype} conflicts with the checkpoint's "
                 f"recorded dtype {cfg.dtype!r}; re-convert with --dtype "
                 f"{args.dtype} instead"
             )
-        return cfg, params
+        return cfg, params, path if sharded else None
     if os.path.exists(os.path.join(path, "config.json")):
         from ..models.convert import load_hf_checkpoint
 
-        return load_hf_checkpoint(path, dtype=args.dtype or "bfloat16")
+        return (*load_hf_checkpoint(path, dtype=args.dtype or "bfloat16"), None)
     raise SystemExit(
         f"--checkpoint {path}: neither a local store (manifest.json) nor "
         f"a HF checkpoint dir (config.json + *.safetensors)"
@@ -1510,21 +1520,31 @@ def main(argv: Optional[list] = None):
              "sequence<->heads; needs heads divisible by sp)",
     )
     ap.add_argument("--ep", type=int, default=1, help="expert-parallel width (MoE)")
-    # multi-host meshes are part C of "Multi-GPU SPMD": each of these
-    # refuses anything but its default, naming the ROADMAP heading
+    # a mesh over several server processes (serving/multihost.py): the
+    # coordinator's host:port, the number of processes, this one's index
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
-    from ..parallel.mesh import not_ported
+    from ..parallel import mesh as mesh_mod
 
-    for flag, value, default in (
-        ("--coordinator", args.coordinator, None),
-        ("--num-processes", args.num_processes, None),
-        ("--process-id", args.process_id, None),
-    ):
-        if value != default:
-            raise SystemExit(str(not_ported(f"{flag} {value}")))
+    if args.coordinator or args.num_processes is not None or args.process_id is not None:
+        mesh_mod.multihost_initialize(coordinator_address=args.coordinator,
+                                      num_processes=args.num_processes,
+                                      process_id=args.process_id)
+    if mesh_mod.process_count() > 1 and (args.continuous > 0 or args.queue > 0):
+        # checked BEFORE the checkpoint load + warmup (the expensive
+        # steps): batching by request ARRIVAL TIMING cannot mirror
+        # deterministically across processes
+        raise SystemExit(
+            "--continuous/--queue batch by request ARRIVAL TIMING, "
+            "which cannot mirror deterministically across processes; "
+            "mirrored multi-process serving drives the bare engine. "
+            "For admission layers on a multi-process fleet, use the "
+            "MPMD stage runtime (serving/stage_runtime.py --frontend): "
+            "its controller owns arrival timing and drives stages over "
+            "the stage transport"
+        )
     if args.dp != 1:
         raise SystemExit("--dp > 1 is not available through the batch-1 serving "
                          "engine (as in the JAX server)")
@@ -1573,9 +1593,10 @@ def main(argv: Optional[list] = None):
 
         kernels.set_build_dir(args.compile_cache)
 
-    model, params, dtype = args.model, None, args.dtype
+    mesh_cfg = MeshConfig(dp=args.dp, pp=args.pp, sp=args.sp, tp=args.tp, ep=args.ep)
+    model, params, store, dtype = args.model, None, None, args.dtype
     if args.checkpoint:
-        model, params = _load_checkpoint(args)
+        model, params, store = _load_checkpoint(args, mesh_cfg)
         dtype = None  # the checkpoint's recorded dtype governs
     tokenizer = None
     tok_src = args.tokenizer or (
@@ -1616,13 +1637,13 @@ def main(argv: Optional[list] = None):
             trace_sample_rate=args.trace_sample_rate,
             pp_wire_quant=args.pp_wire_quant,
         ),
-        mesh_cfg=MeshConfig(dp=args.dp, pp=args.pp, sp=args.sp, tp=args.tp,
-                            ep=args.ep),
+        mesh_cfg=mesh_cfg,
         microbatches=args.microbatches,
         sp_strategy=args.sp_strategy,
         draft_model=args.draft_model,
         lora=args.lora,
         params=params,
+        store=store,
         dtype=dtype,
         quant=args.quant,
         kv_quant=args.kv_quant,
@@ -1654,6 +1675,22 @@ def main(argv: Optional[list] = None):
                 f"bucket is servable, or start without --warmup"
             ) from e
         print(f"warm: {stats['programs']} shapes in {stats['seconds']}s", flush=True)
+    if mesh_mod.process_count() > 1:
+        # mirrored multi-process serving: every process built the same
+        # engine above (warmup included: the same program sequence);
+        # process 0 serves HTTP and broadcasts each request, so the other
+        # processes' drivers send their ranks the same programs
+        from .multihost import MirroredEngine, follower_loop
+
+        if mesh_mod.process_index() != 0:
+            print(f"follower {mesh_mod.process_index()}/{mesh_mod.process_count()} "
+                  f"mirroring the leader's requests", flush=True)
+            try:
+                follower_loop(engine, mesh_mod.process_index())
+            finally:
+                _close_backend(engine)
+            return
+        engine = MirroredEngine(engine)
     continuous = None
     if args.continuous > 0:
         from ..engine.continuous import ContinuousEngine
@@ -1687,6 +1724,10 @@ def main(argv: Optional[list] = None):
             wedge_unready_s=args.wedge_unready, continuous=continuous, queue=queue,
         ).serve_forever()
     finally:
+        if hasattr(engine, "shutdown_followers"):
+            # release the follower loops (blocked in the broadcast) so the
+            # leader's exit does not strand them
+            engine.shutdown_followers()
         _close_backend(engine)
 
 

@@ -32,6 +32,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -463,27 +465,43 @@ JOBS = [(p, ad) for p in PROMPTS for ad in (None, "ad-a", "ad-b", "ad-c")]
 
 
 @pytest.fixture(scope="module")
-def jax_ids(fleets):
-    """The JAX fleet's greedy ids of every (prompt, adapter), one at a time."""
-    out = {}
-    for p, ad in JOBS:
-        extra = {"adapter": ad} if ad else {}
-        out[(p, ad)] = _ids(fleets["jax"].submit(p, **KW, **extra))
-    return out
+def jax_ids(weights):
+    """The JAX fleet's greedy ids of every (prompt, adapter), one at a time,
+    over a pool of a page per adapter: no page is reused, so each adapter's
+    ids are its own (a JAX page swap keeps the evicted adapter's leaves that
+    the incoming one does not target)."""
+    names = ("ad-a", "ad-b", "ad-c")
+    fleet = _fleet("jax", weights, adapters=len(names), names=names)
+    try:
+        return {(p, ad): _ids(fleet.submit(p, **KW, **({"adapter": ad} if ad else {})))
+                for p, ad in JOBS}
+    finally:
+        fleet.close()
 
 
 def test_fleet_greedy_ids_equal_jax(fleets, jax_ids):
     """Every (prompt, adapter) alone and inside a threaded mixed wave (three
     adapters over two pages: backpressure, then swaps; the wave in the
-    unsheddable "batch" class): the JAX fleet's
-    greedy ids; the adapters move the output; afterwards no page is
-    referenced and every block is back."""
+    unsheddable "batch" class): the greedy ids of the JAX fleet with a page
+    per adapter. One at a time, `ad-c` (q, v and down only) takes the page
+    of `ad-a` (every projection) for each prompt, and the page then holds
+    `ad-c` alone: its other leaves are zero. The adapters move the output;
+    afterwards no page is referenced and every block is back."""
     port = fleets["port"]
+    pool = port.engine.adapters
     for job in JOBS:
         extra = {"adapter": job[1]} if job[1] else {}
+        page_of = dict(pool._page_of)
         r = port.submit(job[0], **KW, **extra)
         assert r["token_ids"] == jax_ids[job], job
         assert r.get("adapter") == job[1]
+        if job[1] == "ad-c":
+            page = pool._page_of["ad-c"]
+            assert page == page_of["ad-a"]
+            layers = port.engine.backend.params["layers"]
+            for leaf in ("wk", "wo", "w_gate", "w_up"):
+                for s in ("a", "b"):
+                    assert not layers[f"lora_{leaf}_{s}"][:, page].any(), (leaf, s)
     swaps = port.stats()["adapters"]["swaps"]
     # the "batch" class is never shed, so a loaded host cannot turn a
     # member of the wave into an slo_shed envelope

@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 from distributed_llm_inference_tpu import constrain as JC  # noqa: E402
 from distributed_llm_inference_tpu.constrain import vocab as JV  # noqa: E402
 from distributed_llm_inference_tpu.utils import metrics as JMet  # noqa: E402

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402

@@ -24,6 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 import jax  # noqa: E402
 
 from distributed_llm_inference_tpu.config import EngineConfig as JaxEngineConfig  # noqa: E402

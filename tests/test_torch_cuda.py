@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 from distributed_llm_inference_tpu_torch.config import EngineConfig  # noqa: E402
 from distributed_llm_inference_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from distributed_llm_inference_tpu_torch.runtime import create_engine  # noqa: E402

@@ -1,5 +1,6 @@
-"""The part-B mesh backends on the card: the 1F1B schedule, the context
-ring and the expert mesh, their ranks sharing one card over gloo, held to
+"""The part-B and part-C mesh backends on the card: the 1F1B schedule, the
+context ring and the expert mesh, the solo surface on the pp ring and the
+adapter fleet over pp = 2, their ranks sharing one card over gloo, held to
 the plain pipeline or the single device on CUDA tensors.
 
 Marked `cuda` and skipped where torch.cuda.is_available() is false. The
@@ -14,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
 
 from distributed_llm_inference_tpu_torch.config import MeshConfig  # noqa: E402
 from distributed_llm_inference_tpu_torch.engine import generate as G  # noqa: E402
@@ -125,3 +128,105 @@ def test_expert_mesh_equals_single_device_on_cuda(card):
     torch.testing.assert_close(got[1], want[1], atol=ATOL, rtol=0)
     for g, w in zip(got[:1] + got[2:], want[:1] + want[2:]):
         assert torch.equal(g, w)
+
+
+class _SpelledIds:
+    """ids <-> text ('12 7 9'): a response is its token ids."""
+
+    def encode(self, text):
+        return [int(t) for t in text.split()]
+
+    def decode(self, toks, skip_special_tokens=True):
+        return " ".join(str(int(t)) for t in toks)
+
+
+def test_solo_surface_on_pp2_launches_flash_on_every_rank(card):
+    """Score, beams and prompt-lookup and draft speculation on the pp = 2
+    ring on the card against the single device (fp32): flash_attend runs
+    the T > 1 chunks on every rank, as often on each."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    cfg = get_model_config("test-llama-tiny", dtype="float32", eos_token_id=-1)
+    params = M.init_params(cfg, torch.Generator().manual_seed(5))
+    kw = dict(params=params, tokenizer=_SpelledIds(), attn_impl="kernel", device=card,
+              engine_cfg=EngineConfig(prefill_buckets=(32, 64)))
+    prompt = "12 44 91 7 33 5 12 44 91 7"
+    dcfg = cfg.replace(n_layers=1)
+    dparams = M.init_params(dcfg, torch.Generator().manual_seed(7))
+    calls = [("score", {}), ("generate", dict(num_beams=3)),
+             ("generate", dict(greedy=True, speculative=True)), ("draft", {})]
+
+    def run(eng):
+        out = []
+        for name, extra in calls:
+            if name == "score":
+                out.append(eng.score(prompt)["token_logprobs"][1:])
+                continue
+            if name == "draft":
+                eng.set_draft(dcfg, dparams)
+                extra = dict(greedy=True, speculative=True)
+            r = eng.generate(prompt, max_tokens=8, chat=False, **extra)
+            assert r["status"] == "success", r
+            out.append(r["response"])
+        return out
+
+    want = run(create_engine(cfg, **kw))
+    pp = create_engine(cfg, mesh_cfg=MeshConfig(pp=2), **kw)
+    try:
+        # every rank's counters from 0: the driver's process ran the single
+        # device's requests above
+        pp.backend.launch_counts(reset=True)
+        got = run(pp)
+        counts = [c["flash_attend"] for c in pp.backend.launch_counts()]
+    finally:
+        pp.backend.close()
+    np.testing.assert_allclose(got[0], want[0], atol=ATOL)
+    assert got[1:] == want[1:]
+    assert counts[0] > 0 and len(set(counts)) == 1, counts
+
+
+def test_adapter_fleet_on_pp2_launches_paged_kernels_on_every_rank(card):
+    """Runtime adapters on the pp = 2 paged fleet on the card (fp32): an
+    adapter request and a base one give the single-device fleet's ids;
+    ragged_paged_attend and paged_flash_attend run on every rank."""
+    from distributed_llm_inference_tpu_torch.config import EngineConfig
+    from distributed_llm_inference_tpu_torch.engine.continuous import ContinuousEngine
+    from distributed_llm_inference_tpu_torch.runtime import create_engine
+
+    cfg = get_model_config("test-llama-tiny", dtype="float32", eos_token_id=-1,
+                           max_seq_len=512)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    L = cfg.n_layers
+    dims = {"wq": (cfg.dim, cfg.n_heads * cfg.head_dim), "wo": (cfg.n_heads * cfg.head_dim,
+                                                                 cfg.dim)}
+    factors = {leaf: ((rng.standard_normal((L, i, 4)) * 0.1).astype(np.float32),
+                      (rng.standard_normal((L, 4, o)) * 0.1).astype(np.float32))
+               for leaf, (i, o) in dims.items()}
+    ids = {}
+    for mesh in (MeshConfig(), MeshConfig(pp=2)):
+        eng = create_engine(cfg, params=params, mesh_cfg=mesh, tokenizer=_SpelledIds(),
+                            attn_impl="kernel", device=card,
+                            engine_cfg=EngineConfig(prefix_cache_entries=0,
+                                                    prefill_buckets=(64, 128),
+                                                    adapter_slots=2, adapter_rank=4))
+        eng.adapters.register("ad", factors)
+        fleet = ContinuousEngine(eng, n_slots=2, chunk_steps=4, slot_max_seq=256,
+                                 kv_pool_blocks=40, kv_block_size=16)
+        try:
+            if hasattr(eng.backend, "mesh"):
+                eng.backend.launch_counts(reset=True)
+            ids[mesh.pp] = [fleet.submit("5 6 7 8 9 10", max_tokens=6, greedy=True,
+                                         chat=False, **kw)["response"]
+                            for kw in ({}, {"adapter": "ad"})]
+            if hasattr(eng.backend, "mesh"):
+                counts = eng.backend.launch_counts()
+        finally:
+            fleet.close()
+            if hasattr(eng.backend, "close"):
+                eng.backend.close()
+    assert ids[2] == ids[1] and ids[1][0] != ids[1][1], ids
+    for name in ("ragged_paged_attend", "paged_flash_attend"):
+        per_rank = [c[name] for c in counts]
+        assert per_rank[0] > 0 and len(set(per_rank)) == 1, (name, per_rank)

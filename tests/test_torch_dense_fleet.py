@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -177,14 +179,16 @@ def _fleets(engines, **kw):
     return JaxContinuousEngine(jeng, **kw), ContinuousEngine(teng, **kw)
 
 
-def _staggered(cont, prompts, **kw):
+def _staggered(cont, prompts, together=2, **kw):
+    """The first `together` requests at once (they hold every slot at the
+    same time however fast a request runs), then one every 50 ms."""
     out = {}
 
     def run(i, delay):
         time.sleep(delay)
         out[i] = cont.submit(prompts[i], **kw)
 
-    threads = [threading.Thread(target=run, args=(i, 0.05 * i))
+    threads = [threading.Thread(target=run, args=(i, 0.05 * max(0, i - together + 1)))
                for i in range(len(prompts))]
     for t in threads:
         t.start()
@@ -194,8 +198,9 @@ def _staggered(cont, prompts, **kw):
 
 
 def test_staggered_admission_identical_to_jax(engines):
-    """More requests than slots, arriving 50 ms apart: slots recycle
-    mid-flight, and every request gets the JAX fleet's greedy tokens."""
+    """More requests than slots, the first two together and the rest 50 ms
+    apart: slots recycle mid-flight, and every request gets the JAX
+    fleet's greedy tokens."""
     jf, tf = _fleets(engines, n_slots=2, chunk_steps=4, max_queue=16)
     try:
         kw = dict(max_tokens=10, greedy=True, chat=False)

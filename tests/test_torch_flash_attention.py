@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 import jax.numpy as jnp  # noqa: E402
 
 from distributed_llm_inference_tpu.ops.flash_attention import flash_attend as jax_flash  # noqa: E402

@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 PROBE = """
@@ -116,10 +118,12 @@ def test_stage_pipeline_modules_import_nothing_of_jax(module):
 
 @pytest.mark.parametrize("module", ["parallel/mesh.py", "parallel/comm.py",
                                     "parallel/partition.py", "parallel/vocab.py",
-                                    "parallel/pipeline.py"])
+                                    "parallel/pipeline.py", "serving/multihost.py",
+                                    "models/checkpoint.py"])
 def test_mesh_modules_import_nothing_of_jax(module):
-    """The pipeline backend's modules (written anew on torch.distributed)
-    import neither jax nor the JAX package, and each loads alone."""
+    """The pipeline backend's modules (written anew on torch.distributed),
+    the multi-process serving and the store's sharded loads import neither
+    jax nor the JAX package, and each loads alone."""
     _loads_alone_without_jax(module)
 
 
@@ -170,14 +174,17 @@ def _roadmap_items() -> dict:
               and isinstance(n.value.value, str) for t in n.targets
               if isinstance(t, ast.Name)}
     # parallel/mesh.not_ported's message: 'ROADMAP.md "{NAME}"' in an f-string
+    # (none since "Multi-GPU SPMD" was ported whole)
     mesh_tree = trees[ROOT / "distributed_llm_inference_tpu_torch" / "parallel" / "mesh.py"]
-    fn = next(n for n in mesh_tree.body
-              if isinstance(n, ast.FunctionDef) and n.name == "not_ported")
-    interp = [v.value.id for n in ast.walk(fn) if isinstance(n, ast.JoinedStr)
-              for v in n.values if isinstance(v, ast.FormattedValue)
-              and isinstance(v.value, ast.Name) and v.value.id in consts]
-    assert len(interp) == 1, interp
-    mesh_item = consts[interp[0]]
+    fn = next((n for n in mesh_tree.body
+               if isinstance(n, ast.FunctionDef) and n.name == "not_ported"), None)
+    mesh_item = None
+    if fn is not None:
+        interp = [v.value.id for n in ast.walk(fn) if isinstance(n, ast.JoinedStr)
+                  for v in n.values if isinstance(v, ast.FormattedValue)
+                  and isinstance(v.value, ast.Name) and v.value.id in consts]
+        assert len(interp) == 1, interp
+        mesh_item = consts[interp[0]]
     found = {}
     for path, tree in trees.items():
         items = set()
@@ -208,14 +215,10 @@ def test_not_ported_errors_name_roadmap_headings():
     headings = {line.lstrip("#").strip() for line in
                 (ROOT / "ROADMAP.md").read_text().splitlines() if line.startswith("#")}
     found = _roadmap_items()
-    # the modules that still refuse something (the scanner finds them all;
-    # models/llama.py refuses nothing since the expert mesh was ported)
-    assert sorted(found) == [
-        "distributed_llm_inference_tpu_torch/parallel/mesh.py",
-        "distributed_llm_inference_tpu_torch/parallel/partition.py",
-        "distributed_llm_inference_tpu_torch/runtime.py",
-        "distributed_llm_inference_tpu_torch/serving/server.py",
-    ], sorted(found)
+    # the modules that still refuse something (the scanner finds them all):
+    # none since part C of "Multi-GPU SPMD" ported adapters and two-model
+    # speculation on a mesh, the sharded loads and the multi-host meshes
+    assert sorted(found) == [], sorted(found)
     missing = {f: sorted(i - headings) for f, i in found.items() if i - headings}
     assert not missing, missing
     numbered = re.compile(r"ROADMAP[^\n]{0,40}\bitem \d")
@@ -229,25 +232,33 @@ def test_not_ported_errors_name_roadmap_headings():
 def test_part_b_server_flags_name_the_roadmap_heading(flag, monkeypatch):
     """The JAX server's mesh flags: --sp, --ep, --sp-strategy and
     --microbatches reach create_engine as the JAX server passes them (part
-    B of "Multi-GPU SPMD"); the multi-host ones, not served yet, are parsed
-    and refused with the not-ported error naming the ROADMAP.md heading
-    (not argparse's "unrecognized arguments"), before any model is built."""
+    B of "Multi-GPU SPMD"); the multi-host ones (part C) reach
+    multihost_initialize as the JAX server passes them, before any model
+    is built."""
     from distributed_llm_inference_tpu_torch import runtime
+    from distributed_llm_inference_tpu_torch.parallel import mesh as PM
     from distributed_llm_inference_tpu_torch.serving import server
 
-    seen = {}
+    seen, hosts = {}, {}
 
     def fake_create_engine(model, **kw):
         seen.update(kw)
         raise SystemExit("built")
 
+    def fake_initialize(**kw):
+        hosts.update(kw)
+        raise SystemExit("initialized")
+
     monkeypatch.setattr(runtime, "create_engine", fake_create_engine)
+    monkeypatch.setattr(PM, "multihost_initialize", fake_initialize)
     with pytest.raises(SystemExit) as e:
         server.main(["--model", "test-llama-tiny", "--device", "cpu", *flag.split()])
     name, value = flag.split()
     if name in ("--coordinator", "--num-processes", "--process-id"):
-        assert 'ROADMAP.md "Multi-GPU SPMD"' in str(e.value.code), e.value.code
-        assert str(e.value.code).startswith(flag)
+        assert e.value.code == "initialized" and not seen
+        key = {"--coordinator": "coordinator_address", "--num-processes": "num_processes",
+               "--process-id": "process_id"}[name]
+        assert str(hosts[key]) == value
         return
     assert e.value.code == "built"
     got = {"--sp": seen["mesh_cfg"].sp, "--ep": seen["mesh_cfg"].ep,

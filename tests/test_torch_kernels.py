@@ -8,6 +8,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
 from distributed_llm_inference_tpu_torch import kernels  # noqa: E402
 
 

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
@@ -84,8 +86,9 @@ def test_process_group_backend_rule():
 @pytest.mark.parametrize("mesh", [MeshConfig(sp=2), MeshConfig(ep=2)], ids=["sp", "ep"])
 def test_sp_and_ep_meshes_name_the_roadmap(mesh):
     """sp and ep meshes build, every rank with a group per axis (the ring
-    of the axis of size 2 holding both ranks); multi-host meshes still
-    name the ROADMAP heading."""
+    of the axis of size 2 holding both ranks); the multi-host bring-up
+    (ported with the rest of the ROADMAP heading) refuses an out-of-range
+    process before it makes any group."""
     m = PM.build_mesh(mesh, ["cpu", "cpu"], timeout_s=10.0)
     try:
         axis = "sp" if mesh.sp > 1 else "ep"
@@ -94,8 +97,9 @@ def test_sp_and_ep_meshes_name_the_roadmap(mesh):
         assert all(m.groups[a].size == 1 for a in PM.AXES if a != axis)
     finally:
         m.close()
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "Multi-GPU SPMD"'):
-        PM.multihost_initialize("localhost:1", 2, 0)
+    with pytest.raises(ValueError, match="out of range"):
+        PM.multihost_initialize("localhost:1", 2, 2)
+    assert PM.process_count() == 1
 
 
 VALIDATE = [

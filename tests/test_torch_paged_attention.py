@@ -28,6 +28,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 import jax.numpy as jnp  # noqa: E402
 
 from distributed_llm_inference_tpu.engine import paged as JP  # noqa: E402

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 from distributed_llm_inference_tpu_torch.ops import quant as Q  # noqa: E402
 
 SRC = Path(Q.__file__).resolve().parent.parent / "csrc" / "q4_matmul.cu"

@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 import jax  # noqa: E402
 
 from distributed_llm_inference_tpu.config import EngineConfig as JaxEngineConfig  # noqa: E402
@@ -131,31 +133,34 @@ def test_full_queue_sheds_with_a_retry_hint(engines):
         assert r["error"] == "Error: request queue full (1)" and r["retry_after_s"] >= 1
 
 
-class _GatedBackend(_SlowBackend):
-    """A slow backend whose first prefill starts its sleep only once
-    `waiting` requests sit in `queue`: each of them then waits in the queue
-    at least that sleep, however late the host started its thread."""
+class _GatedEngine(InferenceEngine):
+    """An engine whose first generate holds the queue's dispatcher until
+    `waiting` requests sit in `queue`, then for 0.4 s, all before the
+    engine's own deadline clock starts (a hold inside the backend's call
+    would end at the first request's deadline): each of them then waits in
+    the queue at least 0.4 s, however late the host started its thread."""
 
     queue = None
     waiting = 0
 
-    def prefill(self, *a, **kw):
-        limit = time.monotonic() + 30
-        while self.queue is not None and self.queue.depth() < self.waiting \
-                and time.monotonic() < limit:
-            time.sleep(0.005)
-        self.queue = None
-        return super().prefill(*a, **kw)
+    def generate(self, *a, **kw):
+        if self.queue is not None:
+            limit = time.monotonic() + 30
+            while self.queue.depth() < self.waiting and time.monotonic() < limit:
+                time.sleep(0.005)
+            self.queue = None
+            time.sleep(0.4)
+        return super().generate(*a, **kw)
 
 
 def _gated_queue(engines, n: int, **ecfg):
     """A one-at-a-time queue whose first request holds the dispatcher until
-    the other n - 1 are queued, then for the slow prefill's 0.4 s."""
+    the other n - 1 are queued, then for 0.4 s."""
     _, pe = engines
-    backend = _GatedBackend(pe.cfg, pe.backend.params, "cpu")
-    q = TQ.BatchingQueue(InferenceEngine(pe.cfg, backend=backend, engine_cfg=EngineConfig(
-        prefill_buckets=BUCKETS, **ecfg)), max_queue=8, max_batch=1, max_wait_ms=0)
-    backend.queue, backend.waiting = q, n - 1
+    engine = _GatedEngine(pe.cfg, backend=SingleDeviceBackend(pe.cfg, pe.backend.params, "cpu"),
+                          engine_cfg=EngineConfig(prefill_buckets=BUCKETS, **ecfg))
+    q = TQ.BatchingQueue(engine, max_queue=8, max_batch=1, max_wait_ms=0)
+    engine.queue, engine.waiting = q, n - 1
     return q
 
 

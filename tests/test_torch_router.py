@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 import distributed_llm_inference_tpu.client as JC  # noqa: E402
 import distributed_llm_inference_tpu.serving.router as JR  # noqa: E402
 import distributed_llm_inference_tpu_torch.client as PC  # noqa: E402

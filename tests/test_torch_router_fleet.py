@@ -47,6 +47,8 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
 transformers = pytest.importorskip("transformers")
 tokenizers = pytest.importorskip("tokenizers")
 
@@ -208,9 +210,15 @@ def _traced(base, prompt, max_tokens=8):
     wall = time.time() - t0
     assert code == 200 and body["status"] == "success", body
     assert hdrs.get("X-Trace-Id") == ctx.trace_id
-    code, tree, _ = _get(base, f"/debug/traces/{ctx.trace_id}")
-    assert code == 200
-    return body, tree, wall, ctx
+    # the router's root span ends after its response is written: read the
+    # tree once it holds that span (or at the deadline, as it stands)
+    deadline = time.time() + 10
+    while True:
+        code, tree, _ = _get(base, f"/debug/traces/{ctx.trace_id}")
+        assert code == 200
+        if ("router", "router.request") in _names(tree) or time.time() > deadline:
+            return body, tree, wall, ctx
+        time.sleep(0.01)
 
 
 def _names(tree) -> collections.Counter:

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

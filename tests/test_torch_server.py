@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 from distributed_llm_inference_tpu import EngineConfig as JaxEngineConfig  # noqa: E402
 from distributed_llm_inference_tpu import create_engine as jax_create_engine  # noqa: E402
 from distributed_llm_inference_tpu.serving.server import InferenceServer as JaxServer  # noqa: E402

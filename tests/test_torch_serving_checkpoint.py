@@ -17,6 +17,8 @@ import urllib.request
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
 transformers = pytest.importorskip("transformers")
 
 import jax  # noqa: E402

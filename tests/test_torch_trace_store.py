@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread per test process)
+
 import distributed_llm_inference_tpu.serving.trace_store as JTS  # noqa: E402
 import distributed_llm_inference_tpu.utils.tracing as JT  # noqa: E402
 import distributed_llm_inference_tpu_torch.serving.trace_store as PTS  # noqa: E402
